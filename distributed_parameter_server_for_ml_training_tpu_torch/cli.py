@@ -1,0 +1,104 @@
+"""Command-line interface of the port.
+
+This slice ports the in-process ``train --mode async`` verb with the JAX
+verb's flags that it honours, plus ``--device``::
+
+    python -m distributed_parameter_server_for_ml_training_tpu_torch.cli \\
+        train --mode async --workers 2 --epochs 1 --synthetic \\
+        --num-train 1024 --num-test 500 --emit-metrics
+
+It runs on the card unless ``--device cpu`` is given. The store uses its
+default push codec (fp16, the reference's cast).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+
+def _env(name: str, default, cast=str):
+    v = os.environ.get(name)
+    return cast(v) if v is not None else default
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="distributed_parameter_server_for_ml_training_tpu_torch",
+        description="PyTorch/CUDA async parameter-server training")
+    sub = p.add_subparsers(dest="command", required=True)
+    t = sub.add_parser("train", help="in-process training run")
+    t.add_argument("--mode", choices=["async"], default="async",
+                   help="async = host parameter store + worker threads "
+                        "(the reference's async mode)")
+    t.add_argument("--workers", type=int,
+                   default=_env("TOTAL_WORKERS_EXPECTED", 4, int))
+    t.add_argument("--staleness-bound", type=int,
+                   default=_env("STALENESS_BOUND", 5, int))
+    t.add_argument("--lr", type=float,
+                   default=_env("LEARNING_RATE", 0.1, float),
+                   help="server SGD learning rate (server.py:413)")
+    t.add_argument("--epochs", type=int, default=_env("NUM_EPOCHS", 3, int))
+    t.add_argument("--batch-size", type=int,
+                   default=_env("BATCH_SIZE", 128, int),
+                   help="per-worker batch size (worker.py:462)")
+    t.add_argument("--data-dir", default=os.environ.get("CIFAR100_DIR"))
+    t.add_argument("--synthetic", action="store_true",
+                   help="force the synthetic dataset (no-network envs)")
+    t.add_argument("--num-train", type=int, default=None,
+                   help="truncate train set (quick runs)")
+    t.add_argument("--num-test", type=int, default=None,
+                   help="truncate test set (quick runs)")
+    t.add_argument("--no-augment", action="store_true")
+    t.add_argument("--dtype", choices=["bfloat16", "float32"],
+                   default="bfloat16")
+    t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--emit-metrics", action="store_true",
+                   help="print METRICS_JSON lines (server.py:367)")
+    t.add_argument("--device", default="cuda",
+                   help="torch device to train on (cuda, or cpu)")
+    return p
+
+
+def _load_dataset(args):
+    from .data import load_cifar100, synthetic_cifar100
+
+    ds = synthetic_cifar100() if args.synthetic \
+        else load_cifar100(args.data_dir)
+    if args.num_train:
+        ds.x_train = ds.x_train[:args.num_train]
+        ds.y_train = ds.y_train[:args.num_train]
+    if args.num_test:
+        ds.x_test = ds.x_test[:args.num_test]
+        ds.y_test = ds.y_test[:args.num_test]
+    return ds
+
+
+def cmd_train(args) -> int:
+    from .train.distributed import AsyncTrainer, DistributedConfig
+
+    dataset = _load_dataset(args)
+    if dataset.synthetic and not args.synthetic:
+        print("note: CIFAR-100 not found on disk; using the synthetic "
+              "dataset", file=sys.stderr)
+    cfg = DistributedConfig(
+        mode=args.mode, num_workers=args.workers, learning_rate=args.lr,
+        num_epochs=args.epochs, batch_size=args.batch_size,
+        staleness_bound=args.staleness_bound,
+        augment=not args.no_augment, dtype=args.dtype,
+        num_classes=dataset.num_classes, seed=args.seed,
+        device=args.device)
+    metrics = AsyncTrainer(dataset, cfg).train(
+        emit_metrics=args.emit_metrics)
+    print(f"done: {metrics}", file=sys.stderr)
+    return 0
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    return {"train": cmd_train}[args.command](args)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,207 @@
+"""CIFAR-100 input pipeline for the port.
+
+The NumPy parts are the JAX package's ``data/cifar.py`` unchanged: the
+in-memory :class:`Dataset`, :func:`load_cifar100` (the standard
+``cifar-100-python`` pickles, else the deterministic synthetic stand-in),
+:func:`synthetic_cifar100`, the reference's contiguous shard split
+:func:`shard_range` and the host batch iterator :func:`make_batches`.
+
+The image transforms run in torch on the device, on NHWC batches like the
+reference: :func:`to_float`, :func:`standardize`, :func:`normalize` and the
+train-time augmentation RandomCrop(32, padding=4) + RandomHorizontalFlip
+(worker.py:145-150). :func:`augment_batch` draws its crop offsets and
+flips from an explicit ``torch.Generator`` and hands them to
+:func:`augment_with_draws`, so a test can feed the exact draws
+``jax.random`` made and compare with the JAX package bit for bit.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import tarfile
+from dataclasses import dataclass
+from typing import Iterator
+
+import numpy as np
+import torch
+
+# torchvision's CIFAR-100 normalization constants, as used by the reference
+# (src/workers/worker.py:149-154).
+CIFAR100_MEAN = np.array([0.5071, 0.4865, 0.4409], np.float32)
+CIFAR100_STD = np.array([0.2673, 0.2564, 0.2762], np.float32)
+
+NUM_CLASSES = 100
+
+
+@dataclass
+class Dataset:
+    """In-memory image-classification dataset (uint8 HWC images)."""
+
+    x_train: np.ndarray  # [N, 32, 32, 3] uint8
+    y_train: np.ndarray  # [N] int32
+    x_test: np.ndarray
+    y_test: np.ndarray
+    num_classes: int = NUM_CLASSES
+    synthetic: bool = False
+
+
+def _read_cifar_pickle(path: str) -> tuple[np.ndarray, np.ndarray]:
+    with open(path, "rb") as f:
+        d = pickle.load(f, encoding="bytes")
+    data = d[b"data"].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+    labels = np.asarray(d[b"fine_labels"], np.int32)
+    return np.ascontiguousarray(data, np.uint8), labels
+
+
+def load_cifar100(data_dir: str | None = None,
+                  allow_synthetic: bool = True) -> Dataset:
+    """Load CIFAR-100 from ``data_dir`` (or $CIFAR100_DIR, ./data).
+
+    Looks for the standard ``cifar-100-python/{train,test}`` pickles, or the
+    ``cifar-100-python.tar.gz`` archive, matching what torchvision would have
+    downloaded for the reference (worker.py:158-164). Falls back to a
+    deterministic synthetic dataset when the real data is unavailable.
+    """
+    candidates = [data_dir, os.environ.get("CIFAR100_DIR"), "data", "./data",
+                  os.path.expanduser("~/data")]
+    for root in candidates:
+        if not root:
+            continue
+        base = os.path.join(root, "cifar-100-python")
+        if os.path.isfile(os.path.join(base, "train")):
+            x_tr, y_tr = _read_cifar_pickle(os.path.join(base, "train"))
+            x_te, y_te = _read_cifar_pickle(os.path.join(base, "test"))
+            return Dataset(x_tr, y_tr, x_te, y_te)
+        tar = os.path.join(root, "cifar-100-python.tar.gz")
+        if os.path.isfile(tar):
+            with tarfile.open(tar) as tf:
+                tf.extractall(root, filter="data")
+            return load_cifar100(root, allow_synthetic=False)
+    if not allow_synthetic:
+        raise FileNotFoundError("CIFAR-100 not found in: %r" % (candidates,))
+    return synthetic_cifar100()
+
+
+def synthetic_cifar100(n_train: int = 50_000, n_test: int = 10_000,
+                       num_classes: int = NUM_CLASSES,
+                       seed: int = 0, template_amp: float = 0.18,
+                       noise: float = 0.12) -> Dataset:
+    """Deterministic class-structured stand-in for CIFAR-100.
+
+    Each class gets a smooth random color/gradient template; samples are the
+    template plus pixel noise. With the defaults the classes are cleanly
+    separable (models reach ~100% within an epoch — good for fast
+    convergence checks); lowering ``template_amp`` and raising ``noise``
+    (e.g. 0.06/0.45) gives a CIFAR-like *gradual* learning curve, used by
+    the recorded 'hard' experiment artifacts to compare curve shapes
+    against the reference's real-data runs.
+    """
+    rng = np.random.default_rng(seed)
+    # Low-frequency class templates: random 4x4x3 upsampled to 32x32x3.
+    coarse = rng.normal(0.0, 1.0, size=(num_classes, 4, 4, 3)).astype(np.float32)
+    templates = coarse.repeat(8, axis=1).repeat(8, axis=2)  # [C,32,32,3]
+    templates = 0.5 + template_amp * templates
+
+    def make_split(n: int, split_seed: int):
+        r = np.random.default_rng(seed * 1000 + split_seed)
+        y = np.arange(n, dtype=np.int32) % num_classes
+        r.shuffle(y)
+        x = templates[y] + r.normal(
+            0.0, noise, size=(n, 32, 32, 3)).astype(np.float32)
+        x = np.clip(x, 0.0, 1.0)
+        return (x * 255.0).astype(np.uint8), y
+
+    x_tr, y_tr = make_split(n_train, 1)
+    x_te, y_te = make_split(n_test, 2)
+    return Dataset(x_tr, y_tr, x_te, y_te, num_classes=num_classes,
+                   synthetic=True)
+
+
+def shard_range(n: int, worker_id: int, total_workers: int) -> tuple[int, int]:
+    """Contiguous [start, end) shard for ``worker_id``.
+
+    Bit-for-bit the reference split: equal ``n // total_workers`` chunks, and
+    the LAST worker additionally takes the remainder
+    (src/workers/worker.py:166-179).
+    """
+    if not 0 <= worker_id < total_workers:
+        raise ValueError(f"worker_id {worker_id} not in [0, {total_workers})")
+    per = n // total_workers
+    start = worker_id * per
+    end = n if worker_id == total_workers - 1 else start + per
+    return start, end
+
+
+def to_float(x: torch.Tensor) -> torch.Tensor:
+    """uint8 -> float32 in [0, 1] (torchvision ToTensor equivalent)."""
+    return x.to(torch.float32) / 255.0
+
+
+def standardize(x01: torch.Tensor) -> torch.Tensor:
+    """[0,1] float NHWC -> per-channel standardized (worker.py:149-154
+    Normalize)."""
+    mean = torch.as_tensor(CIFAR100_MEAN, device=x01.device)
+    std = torch.as_tensor(CIFAR100_STD, device=x01.device)
+    return (x01 - mean) / std
+
+
+def normalize(x: torch.Tensor) -> torch.Tensor:
+    """uint8 [.,32,32,3] -> standardized float (ToTensor + Normalize)."""
+    return standardize(to_float(x))
+
+
+def augment_with_draws(x: torch.Tensor, offsets: torch.Tensor,
+                       flip: torch.Tensor) -> torch.Tensor:
+    """RandomCrop(32, padding=4) + RandomHorizontalFlip for given draws.
+
+    ``x`` is RAW-scale NHWC (uint8 or float in [0,1]); ``offsets`` [B, 2]
+    are the crop's top-left corners in the zero-padded 40x40 image (rows,
+    cols, each in 0..8) and ``flip`` [B] the images to mirror. Every op
+    is an index permutation with zero padding, so augmenting uint8 pixels
+    and casting after gives the same floats as casting first; the zero
+    padding means black pixels, as torchvision pads before Normalize.
+    """
+    b, h, w, _ = x.shape
+    pad = 4
+    xp = _pad_hw(x, pad)
+    offsets = offsets.to(device=x.device, dtype=torch.long)
+    rows = offsets[:, 0:1] + torch.arange(h, device=x.device)[None, :]
+    cols = offsets[:, 1:2] + torch.arange(w, device=x.device)[None, :]
+    bi = torch.arange(b, device=x.device)[:, None, None]
+    out = xp[bi, rows[:, :, None], cols[:, None, :]]        # [B, h, w, C]
+    flip = flip.to(device=x.device, dtype=torch.bool)
+    return torch.where(flip[:, None, None, None], out.flip(2), out)
+
+
+def _pad_hw(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Zero-pad the H and W axes of an NHWC batch by ``pad`` each side."""
+    b, h, w, c = x.shape
+    out = x.new_zeros((b, h + 2 * pad, w + 2 * pad, c))
+    out[:, pad:pad + h, pad:pad + w, :] = x
+    return out
+
+
+def augment_batch(x: torch.Tensor,
+                  generator: torch.Generator | None = None) -> torch.Tensor:
+    """On-device RandomCrop(32, padding=4) + RandomHorizontalFlip with
+    draws from ``generator`` (which must live on ``x``'s device)."""
+    b = x.shape[0]
+    offsets = torch.randint(0, 9, (b, 2), generator=generator,
+                            device=x.device)
+    flip = torch.rand((b,), generator=generator, device=x.device) < 0.5
+    return augment_with_draws(x, offsets, flip)
+
+
+def make_batches(x: np.ndarray, y: np.ndarray, batch_size: int, *,
+                 seed: int = 0, shuffle: bool = True,
+                 drop_remainder: bool = True) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+    """Host-side batch iterator over one epoch (shard-local shuffling)."""
+    n = len(x)
+    idx = np.arange(n)
+    if shuffle:
+        np.random.default_rng(seed).shuffle(idx)
+    stop = (n // batch_size) * batch_size if drop_remainder else n
+    for i in range(0, stop, batch_size):
+        take = idx[i:i + batch_size]
+        yield x[take], y[take]

@@ -1,0 +1,49 @@
+"""Model registry by name (counterpart of the JAX package's registry).
+
+This slice ports ResNet-18 / CIFAR-100, the reference's only model. The
+other names of the JAX registry raise ``NotImplementedError`` naming the
+slice of the port that will bring them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..utils.device import resolve_device
+from .resnet import ResNet18
+
+_LATER = {
+    "resnet50": "the models slice (ResNet-50 with the ImageNet stem)",
+    "vit_b16": "the transformer slice (ViT with flash attention K5-K7)",
+    "vit_tiny": "the transformer slice (ViT with flash attention K5-K7)",
+}
+
+MODEL_NAMES = ("resnet18",)
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def get_model(name: str, num_classes: int = 100,
+              dtype: str | torch.dtype = torch.bfloat16,
+              image_size: int = 32, device: str | torch.device = "cuda",
+              seed: int = 0) -> torch.nn.Module:
+    """Build a model by registry name on ``device``, its weights drawn from
+    a ``torch.Generator`` seeded with ``seed``."""
+    if name in _LATER:
+        raise NotImplementedError(
+            f"model {name!r} is not ported yet; it comes with {_LATER[name]}")
+    if name not in MODEL_NAMES:
+        raise ValueError(f"unknown model {name!r}; have {MODEL_NAMES}")
+    if image_size >= 96:
+        raise NotImplementedError(
+            "the ImageNet stem (image_size >= 96) comes with the models "
+            "slice")
+    dev = resolve_device(device)
+    if isinstance(dtype, str):
+        if dtype not in _DTYPES:
+            raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, "
+                             f"got {dtype!r}")
+        dtype = _DTYPES[dtype]
+    gen = torch.Generator().manual_seed(seed)
+    return ResNet18(num_classes=num_classes, dtype=dtype,
+                    generator=gen).to(dev)

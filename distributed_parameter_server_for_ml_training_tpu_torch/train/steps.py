@@ -1,0 +1,120 @@
+"""Train/eval step factories of the port (counterpart of the JAX package's
+``train/steps.py``).
+
+The JAX steps are pure functions of (params, batch_stats, batch); here a
+step closes over one ``nn.Module`` and loads the flat flax-named params
+and batch_stats it is given into that module before running it, so the
+interface — and what the store, the codec and the wire see — is the
+reference's: flat dicts keyed by flax names, in flax layouts. A module
+is not thread-safe, so each worker thread builds its steps over its own
+module (``ps/worker.py``).
+
+``make_fused_local_step`` and ``make_train_step`` come with later slices.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Mapping
+
+import torch
+import torch.nn.functional as F
+
+from ..data.cifar import augment_batch, normalize, standardize, to_float
+from ..utils.pytree import flax_names, to_flax_layout, to_torch_layout
+
+
+def cross_entropy_loss(logits: torch.Tensor,
+                       labels: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross-entropy with integer labels (worker.py:131 used
+    nn.CrossEntropyLoss)."""
+    return F.cross_entropy(logits, labels.long())
+
+
+def _model_device(model: torch.nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
+def flax_state_loader(model: torch.nn.Module) -> Callable:
+    """``load(params, batch_stats=None)``: copy flat flax-named params (and
+    batch_stats) into ``model`` in place, converting layouts. Values may be
+    tensors or NumPy arrays; names absent from the dicts are left as
+    they are. The name mapping is resolved once, here."""
+    pnames, snames = flax_names(model)
+    device = _model_device(model)
+    state = dict(model.named_parameters())
+    state.update(model.named_buffers())
+    pairs = ([(f, state[t]) for t, f in pnames.items()],
+             [(f, state[t]) for t, f in snames.items()])
+
+    @torch.no_grad()
+    def load(params: Mapping, batch_stats: Mapping | None = None) -> None:
+        for targets, flat in zip(pairs, (params, batch_stats or {})):
+            for fname, target in targets:
+                if fname in flat:
+                    v = torch.as_tensor(flat[fname], device=device)
+                    target.copy_(to_torch_layout(v))
+
+    return load
+
+
+def make_grad_step(model: torch.nn.Module, augment: bool = True
+                   ) -> Callable:
+    """Build the worker-local step: forward/backward WITHOUT the update.
+
+    The async-mode analogue of the reference worker's ``train_local_batch``
+    (worker.py:333-348), with the update left to the parameter store.
+    Returns ``grad_step(params, batch_stats, images_u8, labels,
+    generator=None) -> (grads, new_batch_stats, loss, accuracy)``:
+    ``grads`` and ``new_batch_stats`` are flat flax-named dicts of
+    contiguous tensors on the model's device in flax layouts; ``loss`` and
+    ``accuracy`` are 0-dim tensors (no host sync). ``images_u8`` is the raw
+    uint8 NHWC batch; augmentation (drawn from ``generator``) and
+    normalization run on the device.
+    """
+    pnames, snames = flax_names(model)
+    device = _model_device(model)
+    params_t = dict(model.named_parameters())
+    buffers_t = dict(model.named_buffers())
+    order = list(pnames)
+    load = flax_state_loader(model)
+
+    def grad_step(params, batch_stats, images_u8, labels, generator=None):
+        load(params, batch_stats)
+        x = torch.as_tensor(images_u8, device=device)
+        y = torch.as_tensor(labels, device=device).long()
+        # Augment on the raw uint8 pixels: same floats as casting first.
+        if augment:
+            x = augment_batch(x, generator)
+        x = standardize(to_float(x))
+        model.train()
+        logits = model(x)
+        loss = cross_entropy_loss(logits, y)
+        grads_t = torch.autograd.grad(loss, [params_t[t] for t in order])
+        grads = {pnames[t]: to_flax_layout(g).contiguous()
+                 for t, g in zip(order, grads_t)}
+        new_stats = {f: buffers_t[t].detach().clone()
+                     for t, f in snames.items()}
+        accuracy = (logits.detach().argmax(-1) == y).float().mean()
+        return grads, new_stats, loss.detach(), accuracy
+
+    return grad_step
+
+
+def make_eval_step(model: torch.nn.Module) -> Callable:
+    """Build ``eval_step(params, batch_stats, images_u8, labels) ->
+    (correct, total)``: top-1 over one batch with the running BN
+    statistics, matching worker.py:313-331. ``correct`` is a 0-dim
+    tensor, so a caller summing over batches syncs once at the end."""
+    device = _model_device(model)
+    load = flax_state_loader(model)
+
+    @torch.no_grad()
+    def eval_step(params, batch_stats, images_u8, labels):
+        load(params, batch_stats)
+        model.eval()
+        x = normalize(torch.as_tensor(images_u8, device=device))
+        y = torch.as_tensor(labels, device=device).long()
+        logits = model(x)
+        return (logits.argmax(-1) == y).sum(), int(y.shape[0])
+
+    return eval_step

@@ -1,0 +1,151 @@
+"""Flat ``{name: array}`` dicts and the flax <-> torch parameter mapping.
+
+The reference's canonical parameter format is a flat ``{param_name:
+np.ndarray}`` dict (server.py:96, worker.py:274-279); in the JAX package
+the names are '/'-joined flax paths (``stem_conv/kernel``,
+``BasicBlock_0/Conv_0/kernel``, ``head/bias``) in flax layouts. The port's
+store, codec and wire keep exactly those names and layouts, so payloads
+are byte-identical to the reference's and a store of either package
+serves a worker of either package. The torch modules keep torch's own
+layouts; this module converts at the boundary:
+
+- conv ``kernel`` HWIO  <->  ``weight`` OIHW,
+- Dense ``kernel`` [in, out]  <->  ``weight`` [out, in],
+- BatchNorm ``scale``/``bias`` (params) and ``mean``/``var``
+  (batch_stats)  <->  ``weight``/``bias``/``running_mean``/``running_var``.
+
+The port's modules are named after the flax ones (``stem_conv``,
+``BasicBlock_0.Conv_0``, ...), so a name maps by swapping '/' for '.' and
+renaming the leaf, and the layout follows from the rank alone: 4-D
+tensors are conv kernels, 2-D ones Dense kernels, the rest vectors.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+PyTree = Any
+
+# flax leaf -> torch leaf, per flax collection.
+_PARAM_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_STATS_LEAF = {"mean": "running_mean", "var": "running_var"}
+
+
+def flatten_params(tree: PyTree, *, as_numpy: bool = True
+                   ) -> dict[str, Any]:
+    """Nested dict -> flat {'a/b/c': leaf} dict, in the nested order.
+
+    ``as_numpy=False`` keeps the leaves as they are (device tensors stay
+    on the device)."""
+    flat: dict[str, Any] = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            name = f"{prefix}/{k}" if prefix else str(k)
+            if isinstance(v, Mapping):
+                walk(v, name)
+            else:
+                flat[name] = np.asarray(v) if as_numpy else v
+
+    walk(tree, "")
+    return flat
+
+
+def unflatten_params(flat: Mapping[str, Any]) -> dict:
+    """Inverse of :func:`flatten_params`."""
+    out: dict = {}
+    for name, v in flat.items():
+        node = out
+        *path, leaf = name.split("/")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return out
+
+
+def tree_bytes(flat: Mapping[str, np.ndarray]) -> int:
+    """Total payload size in bytes (the reference logs compressed sizes at
+    worker.py:292)."""
+    return sum(np.asarray(v).nbytes for v in flat.values())
+
+
+# -- flax <-> torch layouts ----------------------------------------------------
+
+def to_flax_layout(t: torch.Tensor) -> torch.Tensor:
+    """Torch layout -> flax layout (a view; ``.contiguous()`` to pack)."""
+    if t.dim() == 4:
+        return t.permute(2, 3, 1, 0)      # OIHW -> HWIO
+    if t.dim() == 2:
+        return t.t()                      # [out, in] -> [in, out]
+    return t
+
+
+def to_torch_layout(t: torch.Tensor) -> torch.Tensor:
+    """Flax layout -> torch layout (a view)."""
+    if t.dim() == 4:
+        return t.permute(3, 2, 0, 1)      # HWIO -> OIHW
+    if t.dim() == 2:
+        return t.t()
+    return t
+
+
+def torch_name(flax_name: str, collection: str = "params") -> str:
+    """``BasicBlock_0/BatchNorm_0/scale`` -> ``BasicBlock_0.BatchNorm_0.weight``
+    (``collection='batch_stats'`` maps ``mean``/``var`` to the running
+    buffers)."""
+    *path, leaf = flax_name.split("/")
+    table = _PARAM_LEAF if collection == "params" else _STATS_LEAF
+    if leaf not in table:
+        raise KeyError(f"no torch counterpart for {collection} leaf "
+                       f"{flax_name!r}")
+    return ".".join(path + [table[leaf]])
+
+
+def flax_names(module: torch.nn.Module) -> tuple[dict, dict]:
+    """``({torch_name: flax_name} for params, ... for batch_stats)`` in the
+    module's registration order — flax's creation order, since the port's
+    modules are built in the same order as the flax ones."""
+    params, stats = {}, {}
+    for tname, p in module.named_parameters():
+        *path, leaf = tname.split(".")
+        if leaf == "weight":
+            leaf = "kernel" if p.dim() in (2, 4) else "scale"
+        params[tname] = "/".join(path + [leaf])
+    inverse = {v: k for k, v in _STATS_LEAF.items()}
+    for tname, _ in module.named_buffers():
+        *path, leaf = tname.split(".")
+        stats[tname] = "/".join(path + [inverse[leaf]])
+    return params, stats
+
+
+def params_to_jax(module: torch.nn.Module
+                  ) -> tuple[dict[str, np.ndarray], dict[str, np.ndarray]]:
+    """Module -> (flat flax params, flat flax batch_stats), fp32 numpy in
+    flax layouts and flax order."""
+    pnames, snames = flax_names(module)
+    state = module.state_dict()
+
+    def host(t):
+        return np.ascontiguousarray(
+            to_flax_layout(t.detach()).to("cpu", torch.float32).numpy())
+
+    return ({f: host(state[t]) for t, f in pnames.items()},
+            {f: host(state[t]) for t, f in snames.items()})
+
+
+def params_from_jax(params: Mapping[str, np.ndarray],
+                    batch_stats: Mapping[str, np.ndarray] | None = None
+                    ) -> dict[str, torch.Tensor]:
+    """Flat flax params (+ batch_stats) -> a torch ``state_dict`` for the
+    port's module of the same architecture (``module.load_state_dict``)."""
+    out: dict[str, torch.Tensor] = {}
+    for collection, flat in (("params", params),
+                             ("batch_stats", batch_stats or {})):
+        for name, v in flat.items():
+            t = torch.as_tensor(np.asarray(v, np.float32))
+            out[torch_name(name, collection)] = \
+                to_torch_layout(t).contiguous()
+    return out

@@ -1,0 +1,56 @@
+"""The port's entry points: ``cli train --mode async`` end to end on the
+CPU (full-width ResNet-18, two steps), and the options of later slices
+refused by name."""
+
+import json
+
+import pytest
+
+from distributed_parameter_server_for_ml_training_tpu_torch import cli
+from distributed_parameter_server_for_ml_training_tpu_torch.ps import \
+    WorkerConfig
+from distributed_parameter_server_for_ml_training_tpu_torch.train \
+    .distributed import DistributedConfig
+from distributed_parameter_server_for_ml_training_tpu_torch.utils.metrics \
+    import parse_metrics_lines
+
+
+def test_cli_train_async_on_cpu(capsys):
+    rc = cli.main(["train", "--mode", "async", "--workers", "1",
+                   "--epochs", "1", "--synthetic", "--num-train", "64",
+                   "--num-test", "16", "--batch-size", "32",
+                   "--emit-metrics", "--device", "cpu", "--dtype",
+                   "float32"])
+    assert rc == 0
+    rows = parse_metrics_lines(capsys.readouterr().out)
+    server, worker = rows
+    assert server["mode"] == "async" and server["store_backend"] == "python"
+    assert server["global_steps_completed"] == 2
+    assert worker["local_steps_completed"] == 2
+    assert len(worker["train_loss_per_epoch"]) == 1
+    json.dumps(rows)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("overlap", True), ("heartbeat_interval", 5.0),
+    ("reconnect_timeout", 10.0), ("nan_inject_step", 3),
+    ("prefetch_batches", 2), ("k_step_mode", "local_sgd")])
+def test_worker_options_of_later_slices_are_refused(field, value):
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        WorkerConfig(device="cpu", **{field: value})
+
+
+def test_worker_config_validation():
+    with pytest.raises(ValueError):
+        WorkerConfig(device="cpu", k_step_mode="bogus")
+    with pytest.raises(ValueError):
+        WorkerConfig(device="cpu", sync_steps=0)
+    assert WorkerConfig(device="cpu", k_step_mode="accumulate",
+                        sync_steps=2).sync_steps == 2
+
+
+def test_sync_trainer_waits_for_its_slice():
+    with pytest.raises(NotImplementedError, match="sync-DP slice"):
+        DistributedConfig(mode="sync", device="cpu")
+    with pytest.raises(ValueError):
+        DistributedConfig(mode="tp", device="cpu")

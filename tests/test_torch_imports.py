@@ -1,0 +1,125 @@
+"""The port imports no jax/flax/optax/orbax/chex and nothing of the JAX
+package, and never continues on the CPU when CUDA is asked for."""
+
+import ast
+import pathlib
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT = REPO / "distributed_parameter_server_for_ml_training_tpu_torch"
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "chex",
+             "distributed_parameter_server_for_ml_training_tpu")
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in FORBIDDEN
+
+
+def _files():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_port_files_exist():
+    names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    for required in ("cli.py", "data/cifar.py", "models/resnet.py",
+                     "models/registry.py", "ops/compression.py",
+                     "ops/packed.py", "ops/quantize.py", "ops/_build.py",
+                     "ops/device_codec.py", "ps/semantics.py",
+                     "ps/store.py", "ps/worker.py", "telemetry/registry.py",
+                     "telemetry/spans.py", "telemetry/trace.py",
+                     "telemetry/goodput.py", "train/steps.py",
+                     "train/distributed.py", "utils/pytree.py",
+                     "utils/metrics.py"):
+        assert required in names, required
+    assert (PORT / "ops" / "csrc" / "wire_quantize.cu").is_file()
+
+
+@pytest.mark.parametrize("path", _files(), ids=lambda p: p.name)
+def test_no_jax_imports(path):
+    bad = [m for m in _imports(path) if _forbidden(m)]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_scan_catches_a_jax_import(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text("import jax.numpy as jnp\n"
+                 "from distributed_parameter_server_for_ml_training_tpu"
+                 ".ops import packed\n")
+    assert [m for m in _imports(f) if _forbidden(m)] == [
+        "jax.numpy", "distributed_parameter_server_for_ml_training_tpu.ops"]
+
+
+def _cuda_entry_points():
+    from distributed_parameter_server_for_ml_training_tpu_torch.models \
+        import get_model
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops \
+        .device_codec import DeviceCodec
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps \
+        import WorkerConfig
+    from distributed_parameter_server_for_ml_training_tpu_torch.train \
+        .distributed import DistributedConfig
+    from distributed_parameter_server_for_ml_training_tpu_torch.utils \
+        import resolve_device
+    return {
+        "resolve_device": lambda: resolve_device("cuda"),
+        "get_model": lambda: get_model("resnet18"),
+        "DeviceCodec": lambda: DeviceCodec(),
+        "WorkerConfig": lambda: WorkerConfig(),
+        "DistributedConfig": lambda: DistributedConfig(),
+    }
+
+
+@pytest.mark.parametrize("entry", ["resolve_device", "get_model",
+                                   "DeviceCodec", "WorkerConfig",
+                                   "DistributedConfig"])
+def test_cuda_default_raises_without_a_card(entry):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _cuda_entry_points()[entry]()
+
+
+def test_cli_device_cuda_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    from distributed_parameter_server_for_ml_training_tpu_torch import cli
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["train", "--workers", "1", "--epochs", "1", "--synthetic",
+                  "--num-train", "64", "--num-test", "16"])
+
+
+def test_wire_quantize_counts_only_kernel_launches():
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
+        quantize as Q
+    before = Q.wire_quantize.launches
+    Q.wire_quantize(torch.ones(300), 0.5)
+    assert Q.wire_quantize.launches == before
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        Q.wire_quantize_flat(torch.ones(4, device="meta"), 0.5, 127)
+
+
+def test_nvcc_command_flags():
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
+        _build
+    cmd = _build.nvcc_command(_build.CSRC / "wire_quantize.cu",
+                              pathlib.Path("out.so"))
+    joined = " ".join(cmd)
+    assert "arch=compute_90a,code=sm_90a" in joined
+    assert "--fmad=false" in cmd and "-O3" in cmd
+    assert "--use_fast_math" not in joined
+    lib = _build.library_path("wire_quantize")
+    assert lib.parent == _build.BUILD_DIR and lib.name.endswith(".so")
+    assert "build" in lib.parts
