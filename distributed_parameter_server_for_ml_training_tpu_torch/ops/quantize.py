@@ -67,9 +67,12 @@ def _wire_quantize_cuda(x: torch.Tensor, scale: float,
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), out.data_ptr(), n, float(scale), int(levels),
-             stream)
+    # The C entry point launches on the calling thread's current device:
+    # make that x's device for the launch.
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), out.data_ptr(), n, float(scale), int(levels),
+                 stream)
     if err != 0:
         raise RuntimeError(f"wire quantize kernel launch failed: CUDA "
                            f"error {err}")

@@ -1,11 +1,12 @@
 """In-process parameter store with the reference server's exact semantics.
 
-The JAX package's ``ps/store.py``, carried over to the port: the store is
-NumPy on the host and framework-neutral, so its sync rounds, async
-staleness weighting and bound, and compressed-domain rounds are the
-reference's line for line. Only the device-array branches (the
-HBM-resident store's) raise ``NotImplementedError`` until that store is
-ported.
+The JAX package's ``ps/store.py``, carried over to the port for what this
+slice runs: sync rounds, async staleness weighting and its bound, and
+compressed-domain rounds over quantized pushes. The store is NumPy on the
+host and framework-neutral, so these are the reference's line for line.
+Elastic membership and expiry, quorum and deadline rounds, sharding,
+tenancy, fetch-side codecs, checkpoints and the device-resident store
+come with later slices.
 
 The re-hosting of ``src/parameter_server/server.py``: canonical
 parameters live on the host CPU as a flat ``{name: np.ndarray}`` dict
@@ -25,18 +26,15 @@ Faithful behaviors reproduced deliberately (SURVEY.md appendix):
 - quirk 4: ``fetched_step`` is the global step the worker last fetched, so
   staleness = versions-behind (server.py:293-294, worker.py:299),
 - worker-count validation 1..32 (server.py:424-426),
-- ``last_seen`` tracked on fetch/push but never expired (server.py:219, 251),
-- final stats printed when the active-worker set empties (server.py:315-316).
+- ``last_seen`` tracked on fetch/push but never expired (server.py:219, 251).
 
-Wire codec: pushes are fp16-compressed by default — and fetches are NOT —
+Wire codec: pushes are fp16-compressed by default and fetches are fp32,
 matching the reference's asymmetry (push: worker.py:264-268 casts fp16;
 fetch: server.py:222 pickles fp32).
 """
 
 from __future__ import annotations
 
-import math
-import re
 import threading
 import time
 from collections import deque
@@ -48,8 +46,6 @@ import numpy as np
 from ..ops.compression import (  # hot-path imports hoisted: no import-lock
     PUSH_CODECS,                 # checks inside push/fetch
     QUANTIZED_PUSH_CODECS,
-    bf16_compress,
-    fp16_compress,
     fp16_decompress,
     homomorphic_mean,
     is_quantized_payload,
@@ -66,14 +62,6 @@ from .semantics import (
 
 MAX_WORKERS = 32  # server.py:424-426
 
-# The job-id grammar of the JAX package's ps/tenancy.py (label/path-safe).
-_JOB_ID_RE = re.compile(r"^[A-Za-z0-9][A-Za-z0-9_\-]{0,63}$")
-
-
-def is_valid_job_id(value) -> bool:
-    """True when ``value`` is a well-formed job id."""
-    return isinstance(value, str) and bool(_JOB_ID_RE.match(value))
-
 
 @dataclass
 class StoreConfig:
@@ -82,114 +70,26 @@ class StoreConfig:
     learning_rate: float = 0.1  # server.py:84, 413
     staleness_bound: int = DEFAULT_STALENESS_BOUND
     # 'none' | 'fp16' | 'int8' | 'int4' | 'topk' | 'adaptive' | None =
-    # backend default ('fp16' for the wire-crossing python/native stores,
-    # matching the reference's worker-side cast (worker.py:264-268);
-    # 'none' for the device store, which crosses no wire). 'int8'
-    # (per-tensor symmetric quantization, ~half fp16's bytes) decodes on
-    # the python store (host numpy) and the native store (fused C++
-    # dequant+apply). 'int4' (packed nibbles, ~1/8 fp32), 'topk' (sparse
-    # triples), and 'adaptive' (worker picks int8/int4/topk per layer from
-    # link pressure) are python-store codecs; workers pair them with
-    # error feedback (docs/WIRE_PROTOCOL.md). Stores resolve the sentinel
-    # at construction.
+    # the reference's default, 'fp16' (the worker-side cast,
+    # worker.py:264-268). The quantized codecs (int8 per-tensor symmetric,
+    # int4 packed nibbles, topk sparse triples, adaptive per-layer choice
+    # from link pressure) decode here on the host; workers pair them with
+    # error feedback. The store resolves the sentinel at construction.
     push_codec: str | None = None
-    # Compressed-domain sync aggregation (THC-style, PAPERS.md): quantized
-    # pushes are held as-is and summed in per-layer int32 accumulators,
-    # dequantized ONCE per round at apply time — the per-push fp32 decode
-    # disappears. False restores decode-per-push (the A/B control in
-    # experiments/run_compression_matrix.py); numerics agree to float
-    # rounding either way.
+    # Compressed-domain sync aggregation: quantized pushes are held as-is
+    # and summed in per-layer int32 accumulators, dequantized ONCE per
+    # round at apply time. False decodes each push on arrival; numerics
+    # agree to float rounding either way.
     compressed_domain: bool = True
-    # Fetch-side wire codec. 'none' (default) = reference parity: fetches
-    # are fp32, reproducing its dominant server cost (the ~45 MB re-pickle
-    # per fetch, server.py:222). 'bf16'/'fp16' opt in to halving the
-    # params-in wire term; workers/clients decompress after fetch.
-    fetch_codec: str = "none"
     strict_rounds: bool = False  # True = corrected double-push semantics
-    # Membership expiry. The reference tracks last_seen but NEVER expires
-    # workers (server.py:219, 251) — restarted workers pollute membership
-    # (SURVEY.md quirk 10). None reproduces that; a number of seconds turns
-    # on the corrected behavior via expire_stale_workers().
-    worker_timeout: float | None = None
-    # Elastic membership (net-new; the reference's only "elasticity" was ECS
-    # restarting tasks, which inflated worker ids and skewed shards,
-    # README.md:368-371). When True:
-    #   - a registering worker takes the LOWEST free id slot, so a
-    #     replacement adopts the dead worker's data shard,
-    #   - sync rounds complete at the CURRENT active-worker count instead of
-    #     the fixed total, so training continues while a slot is empty,
-    #   - expiry purges the dead worker's pending gradients and completes
-    #     the round if the survivors already cover it.
-    elastic: bool = False
-    # Quorum rounds (self-healing, docs/ROBUSTNESS.md): a sync round
-    # completes once this many DISTINCT workers of the live round target
-    # have pushed — an int >= 1 is an absolute count, 0 < f < 1 a fraction
-    # of the target (ceil) — instead of waiting for every worker. One
-    # slow-but-alive straggler then costs the round nothing; its late
-    # push reconciles through the async staleness semantics (weighted
-    # apply, bounded) rather than blocking the barrier or polluting the
-    # next round. None keeps the full barrier (reference behavior).
-    sync_quorum: float | None = None
-    # Per-round deadline in seconds, armed when the round's FIRST gradient
-    # lands: when it fires, the round completes with whatever has arrived
-    # (>= 1 contribution). Composable with sync_quorum (whichever trips
-    # first); None disables.
-    round_deadline: float | None = None
-    # Shard identity (docs/SHARDING.md): when shard_count > 1 this store
-    # holds only the key subset consistent-hashing assigns to shard_index
-    # (cli serve filters the init params via ps/sharding.partition_keys).
-    # Carried in checkpoints so a restore into the WRONG shard slot — or
-    # into a differently-partitioned topology — is refused instead of
-    # silently serving another shard's tensors.
-    shard_index: int = 0
-    shard_count: int = 1
-    # Tenancy (docs/TENANCY.md): which job's namespace this store IS.
-    # "default" is the pre-tenancy server (bare key names, legacy wire);
-    # non-default stores are built by ps/tenancy.JobManager from a job
-    # spec and carry the id into checkpoint meta (v4) so restore refuses
-    # cross-job, mirroring shard_index/shard_count above.
-    job_id: str = "default"
 
     def __post_init__(self):
-        if not is_valid_job_id(self.job_id):
-            raise ValueError(
-                f"job_id must match [A-Za-z0-9][A-Za-z0-9_-]* "
-                f"(<= 64 chars), got {self.job_id!r}")
         if self.mode not in ("sync", "async"):
             raise ValueError(f"mode must be sync|async, got {self.mode!r}")
         if not 1 <= self.total_workers <= MAX_WORKERS:
             raise ValueError(
                 f"total_workers must be 1..{MAX_WORKERS} (server.py:424-426),"
                 f" got {self.total_workers}")
-        if self.fetch_codec not in ("none", "fp16", "bf16"):
-            raise ValueError(f"fetch_codec must be none|fp16|bf16, got "
-                             f"{self.fetch_codec!r}")
-        if self.sync_quorum is not None:
-            q = float(self.sync_quorum)
-            if q <= 0:
-                raise ValueError(f"sync_quorum must be > 0, got {q}")
-            if q >= 1.0 and q != int(q):
-                raise ValueError(
-                    f"sync_quorum >= 1 is a worker COUNT and must be "
-                    f"whole, got {q} (use a value < 1 for a fraction)")
-        if self.round_deadline is not None and self.round_deadline <= 0:
-            raise ValueError(
-                f"round_deadline must be > 0 seconds, got "
-                f"{self.round_deadline}")
-        if self.sync_quorum is not None or self.round_deadline is not None:
-            # Quorum counting must count DISTINCT workers — under the
-            # faithful quirk-3 semantics (overwrite the entry, increment
-            # the counter anyway) ONE worker double-pushing could satisfy
-            # a 2-worker quorum alone and the round would aggregate a
-            # single contribution. Quorum therefore implies the corrected
-            # strict_rounds accounting.
-            self.strict_rounds = True
-        if self.shard_count < 1 or not \
-                0 <= self.shard_index < self.shard_count:
-            raise ValueError(
-                f"shard_index must be in [0, shard_count) with "
-                f"shard_count >= 1; got index={self.shard_index} "
-                f"count={self.shard_count}")
 
 
 @dataclass
@@ -202,121 +102,31 @@ class _Stats:
     start_time: float = field(default_factory=time.time)
 
 
-class MembershipMixin:
-    """Worker-lifecycle surface shared by the Python and native stores:
-    sequential id assignment under a registration lock (server.py:190-211),
-    JobFinished accounting (server.py:306-318), and the corrected-semantics
-    expiry (no-op when ``worker_timeout`` is None, the faithful default —
-    the reference tracks ``last_seen`` but never expires, server.py:219,251).
+class AggregationBase:
+    """Membership, sync-round and async-apply orchestration of an
+    in-process store. A subclass supplies ``_round_update(grad_dicts,
+    lr)`` and ``_apply(grads, lr, weight)`` and the state they use.
 
-    Expects the host class to provide ``config``, ``_registration_lock``,
-    ``_next_worker_id``, ``active_workers``, ``last_seen`` and
-    ``_finished_event``.
-    """
+    Membership (server.py:190-211, 306-318): sequential ids under the
+    registration lock; JobFinished removes a worker and the final stats
+    fire when the active set empties."""
 
-    # Membership state is the mixin's contract even though the concrete
-    # store's __init__ constructs it; declared here so tools/dpslint
-    # checks every method that touches it (lock-guard rule).
+    store_backend = "python"
+
+    # Cross-thread contracts: the pusher threads meet on this state.
+    parameters: dict  # guarded by: self._param_lock
+    global_step: int  # guarded by: self._param_lock
+    _pending: dict  # guarded by: self._sync_lock
+    _gradients_received: int  # guarded by: self._sync_lock
     _next_worker_id: int  # guarded by: self._registration_lock
     active_workers: set  # guarded by: self._registration_lock
     last_seen: dict  # guarded by: self._registration_lock
 
-    def register_worker(self, worker_name: str = "") -> tuple[int, int]:
-        """Returns (worker_id, total_workers).
-
-        Faithful mode assigns strictly sequential ids (server.py:193-194);
-        elastic mode reuses the lowest free slot so a replacement worker
-        adopts the departed worker's shard.
-        """
-        with self._registration_lock:
-            if getattr(self.config, "elastic", False):
-                worker_id = next(i for i in range(len(self.active_workers) + 1)
-                                 if i not in self.active_workers)
-                self._next_worker_id = max(self._next_worker_id, worker_id + 1)
-            else:
-                worker_id = self._next_worker_id
-                self._next_worker_id += 1
-            self.active_workers.add(worker_id)
-            self.last_seen[worker_id] = time.time()
-        return worker_id, self.config.total_workers
-
-    def job_finished(self, worker_id: int) -> None:
-        """Remove from the active set; final stats fire when it empties."""
-        with self._registration_lock:
-            self.active_workers.discard(worker_id)
-            empty = not self.active_workers
-        # Elastic: a departure shrinks the round target, so the pending
-        # round may already be satisfied — re-evaluate WITHOUT purging (a
-        # clean departure's final push is a valid contribution; only dead
-        # workers' pending grads are purged, in _on_workers_expired).
-        self._on_worker_departed(worker_id)
-        if empty:
-            self._finished_event.set()
-
-    def wait_all_finished(self, timeout: float | None = None) -> bool:
-        return self._finished_event.wait(timeout)
-
-    def membership_snapshot(self) -> list[int]:
-        """Sorted copy of the live worker ids, taken under the registration
-        lock (safe against concurrent register/finish/expire)."""
-        with self._registration_lock:
-            return sorted(self.active_workers)
-
-    def _round_target(self) -> int:
-        """Sync-round completion size: fixed total (server.py:271-274) or,
-        in elastic mode, the live membership count (snapshotted under the
-        registration lock — callers hold only the sync lock, and a racing
-        register/expire must not yield a torn count; lock order sync ->
-        registration is safe because no path takes them the other way
-        round). Workers quorum-EXCLUDED by the remediation layer
-        (``exclude_worker``) leave the target either way — rounds stop
-        waiting for them, their own pushes still land."""
-        excluded = getattr(self, "_excluded", None)
-        if getattr(self.config, "elastic", False):
-            with self._registration_lock:
-                if excluded:
-                    return max(1, len(self.active_workers - excluded))
-                return max(1, len(self.active_workers))
-        if excluded:
-            return max(1, self.config.total_workers - len(excluded))
-        return self.config.total_workers
-
-    def _on_workers_expired(self, stale: list[int]) -> None:
-        """Hook for stores to clean round state after expiry (no-op here)."""
-
-    def _on_worker_departed(self, worker_id: int) -> None:
-        """Hook after a clean JobFinished departure (no-op here)."""
-
-    def expire_stale_workers(self) -> list[int]:
-        """Failure detection: drop workers not seen within the timeout —
-        liveness comes from pushes, fetches, and the heartbeat ping."""
-        if self.config.worker_timeout is None:
-            return []
-        cutoff = time.time() - self.config.worker_timeout
-        with self._registration_lock:
-            stale = [w for w in self.active_workers
-                     if self.last_seen.get(w, 0.0) < cutoff]
-            for w in stale:
-                self.active_workers.discard(w)
-            empty = not self.active_workers
-        if stale:
-            self._on_workers_expired(stale)
-        if stale and empty:
-            self._finished_event.set()
-        return stale
-
-
-class TelemetryMixin:
-    """Store-side live instruments (telemetry/), shared by all three
-    backends (python, device, native). Instruments are created ONCE at
-    store construction and held as attributes — the registry dict is never
-    touched on the hot path (telemetry/registry.py constraint 1). A
-    process's stores of the same backend share instruments (identical
-    name+labels), so counters aggregate across them; the step gauge then
-    reports the most recent writer, which is what a live dashboard wants.
-    """
-
     def _init_telemetry(self) -> None:
+        """Store-side live instruments, created ONCE at construction and
+        held as attributes (the registry dict is never touched on the hot
+        path). A process's stores share instruments (identical
+        name+labels), so counters aggregate across them."""
         from ..telemetry import STALENESS_BUCKETS, get_registry
         reg = get_registry()
         b = self.store_backend
@@ -331,222 +141,74 @@ class TelemetryMixin:
                                         outcome="rejected")
         self._tm_fetches = reg.counter("dps_store_fetches_total", backend=b)
         # Version-gated delta fetches answered with an empty NOT_MODIFIED
-        # payload (fetch(have_step=...) when the step hasn't advanced) —
-        # the not-modified ratio is this over dps_store_fetches_total.
+        # payload (fetch(have_step=...) when the step hasn't advanced).
         self._tm_fetch_nm = reg.counter("dps_store_fetch_not_modified_total",
                                         backend=b)
-        # Observed for EVERY arriving async push (accepted or not): the
-        # arrival distribution is the signal adaptive-staleness policies
-        # need (PAPERS.md: ACE-Sync); stats.staleness_values keeps the
-        # reference's accepted-only semantics for the exit line.
+        # Observed for EVERY arriving async push (accepted or not);
+        # stats.staleness_values keeps the reference's accepted-only
+        # semantics for the exit line.
         self._tm_staleness = reg.histogram("dps_store_staleness_versions",
                                            buckets=STALENESS_BUCKETS,
                                            backend=b)
         self._tm_step = reg.gauge("dps_store_global_step", backend=b)
         self._tm_rounds = reg.counter("dps_store_sync_rounds_total",
                                       backend=b)
-        # Pushes held in the quantized domain (no per-push fp32 decode;
-        # summed in int32 accumulators at round completion) — the
-        # compressed-domain aggregation fast path, live.
+        # Pushes held in the quantized domain (summed in int32
+        # accumulators at round completion).
         self._tm_compressed = reg.counter(
             "dps_store_compressed_accum_total", backend=b)
-        # Self-healing round surface (docs/ROBUSTNESS.md): what closed
-        # each sync round (full barrier / quorum / deadline expiry),
-        # stragglers' late pushes reconciled via the staleness path, and
-        # the live quorum-exclusion set size.
-        self._tm_round_trigger = {
-            trig: reg.counter("dps_store_round_completions_total",
-                              backend=b, trigger=trig)
-            for trig in ("full", "quorum", "deadline")
-        }
-        self._tm_late = reg.counter("dps_store_late_pushes_total",
-                                    backend=b)
-        self._tm_excluded = reg.gauge("dps_store_excluded_workers",
-                                      backend=b)
 
+    # -- membership -------------------------------------------------------
 
-class AggregationBase(TelemetryMixin, MembershipMixin):
-    """Sync-round / async-apply orchestration shared by every in-process
-    store backend (host numpy, device HBM). Subclasses supply the three
-    kernels — ``_mean(grad_dicts)``, ``_apply(grads, lr, weight)`` (must
-    bump ``global_step`` under ``_param_lock`` semantics chosen by the
-    subclass) is split here as apply-only; and ``_after_apply()`` (e.g.
-    device sync) — plus the ``store_backend`` label for metrics.
-    """
+    def register_worker(self, worker_name: str = "") -> tuple[int, int]:
+        """Returns (worker_id, total_workers); ids are strictly sequential
+        (server.py:193-194)."""
+        with self._registration_lock:
+            worker_id = self._next_worker_id
+            self._next_worker_id += 1
+            self.active_workers.add(worker_id)
+            self.last_seen[worker_id] = time.time()
+        return worker_id, self.config.total_workers
 
-    store_backend = "python"
+    def job_finished(self, worker_id: int) -> None:
+        """Remove from the active set; final stats fire when it empties."""
+        with self._registration_lock:
+            self.active_workers.discard(worker_id)
+            empty = not self.active_workers
+        if empty:
+            self._finished_event.set()
 
-    #: Whether fetch() accepts ``have_step`` and answers NOT_MODIFIED
-    #: (empty payload) when the canonical step hasn't advanced. Backends
-    #: that can't check the step without materializing the payload (the
-    #: native C++ arena's seqlock fetch) leave this False.
-    supports_delta_fetch = False
+    def wait_all_finished(self, timeout: float | None = None) -> bool:
+        return self._finished_event.wait(timeout)
 
-    # Cross-thread contracts (tools/dpslint lock-guard): pusher threads,
-    # the round-deadline Timer, and the reaper all meet on this state.
-    parameters: dict  # guarded by: self._param_lock
-    global_step: int  # guarded by: self._param_lock
-    _pending: dict  # guarded by: self._sync_lock
-    _gradients_received: int  # guarded by: self._sync_lock
-    _round_serial: int  # guarded by: self._sync_lock
-    _deadline_timer: object  # guarded by: self._sync_lock
-    _last_round_trigger: object  # guarded by: self._sync_lock
-    _excluded: set  # guarded by: self._registration_lock
+    # -- sync rounds and async applies ----------------------------------
 
-    def _mean(self, grad_dicts: list) -> dict:
-        raise NotImplementedError
-
-    def _apply(self, grads: dict, lr: float, weight: float = 1.0) -> None:
-        """Apply p -= lr*weight*g to self.parameters (no locking here)."""
-        raise NotImplementedError
-
-    def _init_round_state(self) -> None:
-        """Quorum-round bookkeeping (called from each concrete __init__
-        alongside ``_init_telemetry``): the exclusion set the remediation
-        layer edits, the round serial that fences stale deadline timers,
-        and the armed timer itself."""
-        self._excluded: set[int] = set()
-        self._round_serial = 0
-        self._deadline_timer: threading.Timer | None = None
-        self._last_round_trigger: str | None = None
-
-    def _after_apply(self):
-        """Hook after an update is issued. Return contract: anything but
-        ``False`` means the hook synchronized with (or is) the real
-        completion of the update, and the caller records an update_times
-        entry; return ``False`` to decline (the device store samples its
-        waits — only every Nth update blocks on the device — so timings
-        stay honest without a round trip per update)."""
-
-    def _round_update(self, grad_dicts: list, lr: float) -> None:
-        """One sync-round update: aggregate then apply + bump the step.
-        The mean runs OUTSIDE the param lock (it touches only the stashed
-        gradients); subclasses may override with a fused kernel."""
-        mean = self._mean(grad_dicts)
-        with self._param_lock:
-            self._apply(mean, lr)
-            self.global_step += 1
-
-    def _quorum_mode(self) -> bool:
-        return (getattr(self.config, "sync_quorum", None) is not None
-                or getattr(self.config, "round_deadline", None) is not None)
-
-    def _quorum_target(self, full: int) -> int:
-        """Contributions that complete a round: the full target, or the
-        configured quorum (count, or ceil of a fraction of the target),
-        clamped to [1, full]."""
-        q = getattr(self.config, "sync_quorum", None)
-        if q is None:
-            return full
-        q = float(q)
-        n = math.ceil(q * full - 1e-9) if q < 1.0 else int(q)
-        return max(1, min(full, n))
-
-    def _push_sync(self, worker_id: int, grads: dict,
-                   fetched_step: int | None = None) -> bool:
-        """server.py:264-288: stash under sync_lock; when the round hits
-        its (quorum) target, mean + apply + reset. No barrier — returns
-        immediately. In quorum mode a LATE push — one whose basis round
-        already closed under quorum/deadline — reconciles through the
-        async staleness semantics instead of being stashed against a
-        stale basis (docs/ROBUSTNESS.md)."""
-        # Routing pre-check only: an unlocked step read is fine here —
-        # the late path re-checks staleness under _param_lock, and a push
-        # mis-routed into the round path was on time by definition.
-        if self._quorum_mode() and fetched_step is not None \
-                and fetched_step < self.global_step:  # dpslint: ignore[lock-guard]
-            return self._push_late(worker_id, grads, fetched_step)
+    def _push_sync(self, worker_id: int, grads: dict) -> bool:
+        """server.py:264-288: stash under sync_lock; when the round reaches
+        ``total_workers``, mean + apply + reset. No barrier — returns
+        immediately."""
         with self._sync_lock:
+            self._pending[worker_id] = grads
             if self.config.strict_rounds:
                 # Corrected semantics: count distinct workers.
-                self._pending[worker_id] = grads
                 self._gradients_received = len(self._pending)
             else:
                 # Faithful quirk 3 (server.py:267-268): overwrite the entry,
                 # increment the count anyway.
-                self._pending[worker_id] = grads
                 self._gradients_received += 1
-            self._arm_deadline_locked()
-            finish = self._maybe_complete_round_locked()
+            if self._gradients_received >= self.config.total_workers:
+                self._complete_round_locked()
             self.stats.gradients_processed += 1
         self._tm_push_ok.inc()
-        if finish is not None:
-            finish()
         return True
 
-    def _push_late(self, worker_id: int, grads: dict,
-                   fetched_step: int) -> bool:
-        """A straggler's push that missed its round (quorum/deadline
-        completed it): apply it through the existing async staleness
-        semantics — down-weighted immediate apply, rejected past the
-        staleness bound — so the contribution is neither double-counted
-        into the next round nor silently dropped."""
-        self._tm_late.inc()
-        if is_quantized_payload(grads):
-            # The compressed-domain hold-as-is path is a round
-            # optimization; a late single-payload apply needs fp32.
-            grads = wire_decompress(grads)
-        return self._push_async(worker_id, grads, fetched_step)
-
-    def _arm_deadline_locked(self) -> None:
-        """Arm the per-round deadline timer on the round's first gradient
-        (caller holds ``_sync_lock``). The timer captures the round
-        serial, so a stale timer firing after its round completed is a
-        no-op."""
-        deadline = getattr(self.config, "round_deadline", None)
-        if not deadline or self._deadline_timer is not None \
-                or not self._gradients_received:
-            return
-        t = threading.Timer(deadline, self._round_deadline_fired,
-                            args=(self._round_serial,))
-        t.daemon = True
-        self._deadline_timer = t
-        t.start()
-
-    def _round_deadline_fired(self, serial: int) -> None:
-        """Deadline expiry: complete the round with whatever arrived.
-        Fenced by the round serial — if the round already completed (and
-        reset the serial forward), this timer is stale and does nothing."""
-        with self._sync_lock:
-            if serial != self._round_serial:
-                return
-            self._deadline_timer = None
-            finish = (self._complete_round_locked("deadline")
-                      if self._gradients_received else None)
-        if finish is not None:
-            finish()
-
-    def _cancel_deadline_locked(self) -> None:
-        t, self._deadline_timer = self._deadline_timer, None
-        if t is not None:
-            t.cancel()
-
-    def _maybe_complete_round_locked(self):
-        """Complete the round if it reached its (quorum) target (caller
-        holds ``_sync_lock``); see :meth:`_complete_round_locked` for the
-        returned completion callable."""
-        full = self._round_target()
-        if self._gradients_received >= self._quorum_target(full):
-            trigger = ("full" if self._gradients_received >= full
-                       else "quorum")
-            return self._complete_round_locked(trigger)
-        return None
-
-    def _complete_round_locked(self, trigger: str):
-        """Aggregate + apply + reset (caller holds ``_sync_lock``).
-        Returns a completion callable the CALLER must invoke AFTER
-        releasing the sync lock — it waits for the device
-        (``_after_apply``) and records the update time. Waiting under the
-        lock convoyed every other worker's push behind the ~100 ms device
-        round trip each round; the update
-        itself (dispatch + step bump) stays inside, so ordering and
-        staleness accounting are unchanged."""
+    def _complete_round_locked(self) -> None:
+        """Aggregate + apply + reset (caller holds ``_sync_lock``)."""
         t0 = time.time()
         try:
-            # The apply span parents on the handler/worker span of the
-            # push that COMPLETED the round — the causally responsible
-            # step (trace context is thread-local; the last pusher's
-            # thread runs the aggregation).
+            # The apply span parents on the span of the push that
+            # COMPLETED the round (trace context is thread-local; the last
+            # pusher's thread runs the aggregation).
             with trace_span("store.apply", backend=self.store_backend,
                             mode="sync",
                             n_grads=self._gradients_received):
@@ -554,124 +216,16 @@ class AggregationBase(TelemetryMixin, MembershipMixin):
                                    self.config.learning_rate)
             self.stats.total_parameter_updates += 1
         finally:
-            # The round MUST reset even if aggregation raises —
-            # otherwise every later push re-triggers the failure and
-            # the server is wedged permanently.
+            # The round MUST reset even if aggregation raises — otherwise
+            # every later push re-triggers the failure and the store is
+            # wedged permanently.
             self._pending.clear()
             self._gradients_received = 0
-            self._round_serial += 1
-            self._cancel_deadline_locked()
-            self._last_round_trigger = trigger
         self._tm_rounds.inc()
-        tm = self._tm_round_trigger.get(trigger)
-        if tm is not None:
-            tm.inc()
-        self._tm_step.set(self.global_step)
-
-        def finish() -> None:
-            # _after_apply may decline to sync (sampled waits on the
-            # device store) — only record a timing that measured real
-            # completion, not async dispatch. The telemetry histogram
-            # mirrors the same honesty rule.
-            if self._after_apply() is not False:
-                dt = time.time() - t0
-                self.stats.update_times.append(dt)
-                self._tm_apply_s.observe(dt)
-
-        return finish
-
-    # -- remediation hooks (telemetry/remediation.py) ------------------------
-
-    def exclude_worker(self, worker_id: int) -> None:
-        """Quorum-exclude a worker (straggler remediation): rounds stop
-        waiting for it — it leaves the round target and the quorum
-        denominator — while its own pushes still land (on-time ones count
-        toward the round, late ones reconcile via staleness). Re-evaluates
-        the pending round, since shrinking the target may complete it."""
-        with self._registration_lock:
-            self._excluded.add(int(worker_id))
-            n = len(self._excluded)
-        self._tm_excluded.set(n)
-        with self._sync_lock:
-            finish = (self._maybe_complete_round_locked()
-                      if self._gradients_received else None)
-        if finish is not None:
-            finish()
-
-    def include_worker(self, worker_id: int) -> None:
-        """Lift a quorum exclusion (the straggler caught up / its alert
-        resolved): the worker counts toward round targets again."""
-        with self._registration_lock:
-            self._excluded.discard(int(worker_id))
-            n = len(self._excluded)
-        self._tm_excluded.set(n)
-
-    def excluded_workers(self) -> list[int]:
-        with self._registration_lock:
-            return sorted(self._excluded)
-
-    def round_status(self) -> dict:
-        """Live sync-round/quorum state for ``GET /cluster`` and
-        ``cli status`` (docs/ROBUSTNESS.md): target vs received, who has
-        pushed, who is excluded, and what closed the last round."""
-        with self._sync_lock:
-            received = self._gradients_received
-            pending = sorted(self._pending)
-            serial = self._round_serial
-            armed = self._deadline_timer is not None
-            trigger = self._last_round_trigger
-        full = self._round_target()
-        return {
-            "mode": self.config.mode,
-            "target": full,
-            "quorum": self._quorum_target(full),
-            "received": received,
-            "pushed_workers": pending,
-            "excluded": self.excluded_workers(),
-            "round_serial": serial,
-            "deadline_s": getattr(self.config, "round_deadline", None),
-            "deadline_armed": armed,
-            "last_trigger": trigger,
-        }
-
-    def _on_workers_expired(self, stale: list[int]) -> None:
-        """Elastic: purge DEAD workers' pending gradients and complete the
-        round if the survivors already cover the reduced target. An
-        expired worker also leaves the exclusion set — if it returns
-        (respawn reuses its slot), the replacement starts unexcluded."""
-        # Emptiness pre-check dodging the lock in the common (no
-        # exclusions) case; the mutation below re-checks nothing — it is
-        # a blind difference_update, safe against any interleaving.
-        if self._excluded:  # dpslint: ignore[lock-guard]
-            with self._registration_lock:
-                self._excluded.difference_update(stale)
-                n = len(self._excluded)
-            self._tm_excluded.set(n)
-        if not getattr(self.config, "elastic", False):
-            return
-        with self._sync_lock:
-            finish = None
-            for w in stale:
-                self._pending.pop(w, None)
-            if self._pending or self._gradients_received:
-                self._gradients_received = len(self._pending)
-                finish = self._maybe_complete_round_locked()
-        if finish is not None:
-            finish()
-
-    def _on_worker_departed(self, worker_id: int) -> None:
-        """Elastic: a clean departure only shrinks the round target — its
-        own final push (if any) stays in the round."""
-        # Emptiness pre-check, same rationale as _on_workers_expired.
-        if self._excluded:  # dpslint: ignore[lock-guard]
-            self.include_worker(worker_id)
-        if not getattr(self.config, "elastic", False):
-            return
-        with self._sync_lock:
-            finish = (self._maybe_complete_round_locked()
-                      if self._gradients_received else None)
-        if finish is not None:
-            finish()
+        self._tm_step.set(self.global_step)  # dpslint: ignore[lock-guard]
+        dt = time.time() - t0
+        self.stats.update_times.append(dt)
+        self._tm_apply_s.observe(dt)
 
     def _push_async(self, worker_id: int, grads: dict,
                     fetched_step: int) -> bool:
@@ -703,94 +257,23 @@ class AggregationBase(TelemetryMixin, MembershipMixin):
             self._tm_push_rej.inc()
             return False
         self._tm_step.set(step)
-        measured = self._after_apply() is not False
         self.stats.gradients_processed += 1
         self.stats.total_parameter_updates += 1
         self.stats.staleness_values.append(staleness)
         self._tm_push_ok.inc()
-        if measured:
-            dt = time.time() - t0
-            self.stats.update_times.append(dt)
-            self._tm_apply_s.observe(dt)
+        dt = time.time() - t0
+        self.stats.update_times.append(dt)
+        self._tm_apply_s.observe(dt)
         return True
 
-    # -- checkpoint surface --------------------------------------------------
-
     def snapshot(self) -> tuple[dict[str, np.ndarray], int]:
-        """Consistent (host-numpy params copy, global_step) pair for
-        checkpointing — the capability the reference listed as future work
-        (DEPLOYMENT.md:309). Device-array stores convert to host OUTSIDE the
-        lock."""
-        device_arrays = getattr(self, "keeps_device_arrays", False)
+        """Consistent (params copy, global_step) pair."""
         with self._param_lock:
-            params = {k: (v if device_arrays else v.copy())
-                      for k, v in self.parameters.items()}
+            params = {k: v.copy() for k, v in self.parameters.items()}
             step = self.global_step
-        if device_arrays:
-            params = {k: np.asarray(v) for k, v in params.items()}
         return params, step
 
-    def load_snapshot(self, params: Mapping[str, np.ndarray],
-                      step: int) -> None:
-        """Restore a (params, step) snapshot; conversion happens outside the
-        lock, the swap inside it."""
-        if getattr(self, "keeps_device_arrays", False):
-            raise NotImplementedError(
-                "device-resident stores come with the device-store slice")
-        new = {k: np.array(v, np.float32) for k, v in params.items()}
-        with self._param_lock:
-            self.parameters = new
-            self.global_step = int(step)
-
-    # -- live-migration surface (docs/SHARDING.md "Migration protocol") ------
-
-    def param_names(self) -> list[str]:
-        """Current parameter names (a migration derives the slot-range
-        subset from these; cheap — no tensor copies)."""
-        with self._param_lock:
-            return list(self.parameters.keys())
-
-    def export_params(self, names) -> tuple[dict[str, np.ndarray], int]:
-        """Consistent (subset copy, global_step) for a slot-range handoff
-        — the donor half of a live reshard. Unknown names are skipped
-        (the admin derives the subset from slots, not from this store's
-        key list). Same host-conversion discipline as :meth:`snapshot`.
-        """
-        wanted = set(names)
-        device_arrays = getattr(self, "keeps_device_arrays", False)
-        with self._param_lock:
-            params = {k: (v if device_arrays else v.copy())
-                      for k, v in self.parameters.items() if k in wanted}
-            step = self.global_step
-        if device_arrays:
-            params = {k: np.asarray(v) for k, v in params.items()}
-        return params, step
-
-    def adopt_params(self, params: Mapping[str, np.ndarray]) -> int:
-        """Graft migrated tensors into this store (the recipient half of
-        a handoff). Existing names are overwritten — the donor's copy is
-        newer by protocol (it stopped applying to the range at export).
-        Returns how many tensors were adopted."""
-        if getattr(self, "keeps_device_arrays", False):
-            raise NotImplementedError(
-                "device-resident stores come with the device-store slice")
-        new = {k: np.array(v, np.float32) for k, v in params.items()}
-        with self._param_lock:
-            self.parameters.update(new)
-        return len(new)
-
-    def drop_params(self, names) -> int:
-        """Release tensors this shard no longer owns (the donor's commit
-        step, after the recipient confirmed adoption). Returns how many
-        were dropped."""
-        wanted = set(names)
-        with self._param_lock:
-            mine = [k for k in self.parameters if k in wanted]
-            for k in mine:
-                del self.parameters[k]
-        return len(mine)
-
-    # -- observability -------------------------------------------------------
+    # -- observability ----------------------------------------------------
 
     def metrics(self) -> dict:
         """Final-statistics fields, matching the server's METRICS_JSON
@@ -814,14 +297,6 @@ class AggregationBase(TelemetryMixin, MembershipMixin):
             "learning_rate": self.config.learning_rate,
             "store_backend": self.store_backend,
         }
-        # Sampled device syncs (ps/device_store.py wait_every): each
-        # recorded update_time measured completion of up to wait_every
-        # queued rounds, so it is NOT comparable 1:1 with the per-update
-        # host-backend timings — emit the sampling interval so readers
-        # can normalize.
-        we = getattr(self, "wait_every", 1)
-        if we and we > 1:
-            out["update_time_wait_every"] = int(we)
         if self.config.mode == "async":
             sv = self.stats.staleness_values
             out.update({
@@ -854,10 +329,9 @@ class ParameterStore(AggregationBase):
         }
         self.global_step = 0
         # Per-layer gradient ABSMAX estimates — the shared quantization
-        # basis workers fetch (negotiated at registration, refreshed via
-        # the fetch path) so a round's int8/int4 pushes land in ONE
-        # accumulator group. _qscale_step bumps on every refresh so
-        # clients can cheap-check for changes.
+        # basis workers read before each push, so a round's int8/int4
+        # pushes land in ONE accumulator group. _qscale_step bumps on
+        # every refresh.
         self._qscales: dict[str, float] = {}  # guarded by: self._param_lock
         self._qscale_step = 0  # guarded by: self._param_lock
 
@@ -875,29 +349,12 @@ class ParameterStore(AggregationBase):
         self.stats = _Stats()
         self._finished_event = threading.Event()
         self._init_telemetry()
-        self._init_round_state()
 
     @property
     def push_codec(self) -> str:
         """Codec workers must apply before pushing (worker.py:264-268 did the
         fp16 cast on the worker side)."""
         return self._push_codec
-
-    @property
-    def fetch_codec(self) -> str:
-        """Codec applied to fetched payloads; workers must decompress
-        (non-default — the reference always fetched fp32, server.py:222)."""
-        return self.config.fetch_codec
-
-    # -- lifecycle (register/finish/expire inherited) ----------------- ps.proto:8
-
-    supports_delta_fetch = True
-
-    #: This store can aggregate quantized pushes without decoding them
-    #: (docs/WIRE_PROTOCOL.md) and publishes per-layer gradient scales.
-    #: The gRPC service advertises it at registration, same gating
-    #: discipline as delta-fetch; the native/device backends leave it off.
-    supports_compressed_domain = True
 
     def gradient_scales(self) -> tuple[dict[str, float], int]:
         """The server's per-layer gradient ABSMAX table + its version.
@@ -936,7 +393,7 @@ class ParameterStore(AggregationBase):
               have_step: int | None = None
               ) -> tuple[dict[str, np.ndarray], int]:
         """Copy of the canonical params + current global step
-        (server.py:213-237). Codec per config (reference: fp32, uncompressed).
+        (server.py:213-237), fp32 and uncompressed as in the reference.
 
         ``have_step`` opts into the version-gated delta protocol: when it
         equals the canonical step, the reply is NOT_MODIFIED — ``({}, step)``
@@ -959,20 +416,11 @@ class ParameterStore(AggregationBase):
                     step = self.global_step
                     modified = True
             if worker_id is not None:
-                # Under the registration lock: a bare dict store raced
-                # the reaper's iteration in expire_stale_workers.
                 with self._registration_lock:
                     self.last_seen[worker_id] = time.time()
             if not modified:
                 sp.attrs["not_modified"] = True
                 self._tm_fetch_nm.inc()
-                self._tm_fetch_s.observe(_tnow() - t0)
-                self._tm_fetches.inc()
-                return payload, step
-            if self.config.fetch_codec == "fp16":
-                payload = fp16_compress(payload)
-            elif self.config.fetch_codec == "bf16":
-                payload = bf16_compress(payload)
             self._tm_fetch_s.observe(_tnow() - t0)
             self._tm_fetches.inc()
             return payload, step
@@ -1041,9 +489,7 @@ class ParameterStore(AggregationBase):
             self._tm_push_rej.inc()
             print(f"rejecting push from worker {worker_id}: {e}")
             return False
-        # Snapshot the expected shapes under the lock (shapes never
-        # change after __init__, but the dict itself may be swapped by a
-        # concurrent load_snapshot restore).
+        # The expected shapes, read under the lock.
         with self._param_lock:
             param_shapes = {k: v.shape for k, v in self.parameters.items()}
         for name, shape in shapes.items():
@@ -1062,13 +508,10 @@ class ParameterStore(AggregationBase):
             self._tm_compressed.inc()
 
         if self.config.mode == "sync":
-            return self._push_sync(worker_id, gradients, fetched_step)
+            return self._push_sync(worker_id, gradients)
         return self._push_async(worker_id, gradients, fetched_step)
 
     # -- aggregation kernels (orchestration in AggregationBase) --------------
-
-    def _mean(self, grad_dicts: list) -> dict:
-        return mean_gradients(grad_dicts)
 
     def _round_update(self, grad_dicts: list, lr: float) -> None:
         """Sync-round update, compressed-domain aware: quantized payloads
@@ -1080,7 +523,7 @@ class ParameterStore(AggregationBase):
         if any(is_quantized_payload(g) for g in grad_dicts):
             mean = homomorphic_mean(grad_dicts)
         else:
-            mean = self._mean(grad_dicts)
+            mean = mean_gradients(grad_dicts)
         with self._param_lock:
             self._apply(mean, lr)
             self.global_step += 1

@@ -6,10 +6,10 @@ loop, src/workers/worker.py:350-403): register -> shard data by worker id
 -> per batch [fetch params if step%K==0] -> local fwd/bwd on the card ->
 [push gradients if step%K==0] -> per-epoch full-test-set eval ->
 finished. Fetches are version-gated (delta fetch) as the store
-negotiates; pushes go through the device codec when a quantized codec
-was negotiated and the gradients are tensors — its wire quantize is
-kernel K1 — and through the NumPy fp16/int8 codecs otherwise, with error
-feedback.
+negotiates. A quantized push codec (int8/int4/topk/adaptive) always
+goes through the device codec, with error feedback — its wire quantize is
+kernel K1 on the card and the plain version on a CPU worker; the fp16 and
+uncompressed pushes are cast on the host, as the reference does.
 
 K-step ("--sync-steps") semantics: ``k_step_mode='faithful'`` pushes only
 the boundary batch's gradients (the reference's quirk 7);
@@ -34,14 +34,8 @@ import numpy as np
 import torch
 
 from ..data.cifar import Dataset, make_batches, shard_range
-from ..ops.compression import (
-    QUANTIZED_PUSH_CODECS,
-    ErrorFeedback,
-    compress_push,
-    fp16_compress,
-    fp16_decompress,
-)
-from ..ops.device_codec import DeviceCodec, is_device_tree
+from ..ops.compression import QUANTIZED_PUSH_CODECS, fp16_compress
+from ..ops.device_codec import DeviceCodec
 from ..telemetry import GoodputAccount, now as _tnow, trace_span
 from ..train.steps import make_eval_step, make_grad_step
 from ..utils.device import resolve_device
@@ -70,11 +64,6 @@ class WorkerConfig:
     error_feedback: bool = True
     # Fraction of entries a 'topk' push keeps per tensor.
     topk_frac: float = 0.01
-    # Device push codec (ops/device_codec.py): quantize/pack on the card
-    # and copy only the wire bytes to the host, bit-identical to the NumPy
-    # codec. Engages when a quantized codec was negotiated and the
-    # gradients are tensors; False forces the NumPy reference path.
-    device_codec: bool = True
     device: str = "cuda"
     # Fields of the JAX worker whose features come with later slices;
     # any value but the default raises NotImplementedError.
@@ -230,7 +219,6 @@ class PSWorker(threading.Thread):
         self.model = copy.deepcopy(model).to(self.device)
         self.worker_name = worker_name
         self.result = WorkerResult()
-        self._ef: ErrorFeedback | None = None
         self._bitwidth: _BitwidthController | None = None
         self._device_codec: DeviceCodec | None = None
         self._prev_push_done: float | None = None
@@ -252,21 +240,10 @@ class PSWorker(threading.Thread):
                 self.store.job_finished(self.result.worker_id)
 
     def _compute_shard(self, worker_id: int, total_workers: int):
-        """This worker's contiguous data shard (worker.py:166-179): fixed
-        split by registration id, or over the LIVE membership in elastic
-        mode."""
+        """This worker's contiguous data shard (worker.py:166-179), split
+        by registration id."""
         n = len(self.dataset.x_train)
-        cfg = getattr(self.store, "config", None)
-        if getattr(cfg, "elastic", False) \
-                and hasattr(self.store, "membership_snapshot"):
-            active = self.store.membership_snapshot()
-            if worker_id in active:
-                rank, total = active.index(worker_id), len(active)
-            else:
-                rank, total = worker_id % total_workers, total_workers
-        else:
-            rank, total = worker_id % total_workers, total_workers
-        lo, hi = shard_range(n, rank, total)
+        lo, hi = shard_range(n, worker_id % total_workers, total_workers)
         return self.dataset.x_train[lo:hi], self.dataset.y_train[lo:hi]
 
     def _init_telemetry(self, worker_id: int) -> None:
@@ -310,18 +287,15 @@ class PSWorker(threading.Thread):
         self.result.worker_id = worker_id
         self.result.worker_name = self.worker_name
         self._init_telemetry(worker_id)
-        # Quantized push codec (the store advertised it): error feedback,
-        # the per-layer bitwidth controller and the device codec, whose
-        # own device-resident EF carry supersedes self._ef whenever it
-        # engages.
-        codec = getattr(self.store, "push_codec", "none")
+        # Quantized push codec (the store advertised it): the per-layer
+        # bitwidth controller and the device codec, which carries the
+        # error-feedback residuals on the worker's device.
+        codec = self.store.push_codec
         if codec in QUANTIZED_PUSH_CODECS:
-            self._ef = ErrorFeedback() if cfg.error_feedback else None
             self._bitwidth = _BitwidthController(codec)
-            if cfg.device_codec:
-                self._device_codec = DeviceCodec(
-                    error_feedback=cfg.error_feedback,
-                    topk_frac=cfg.topk_frac, device=self.device)
+            self._device_codec = DeviceCodec(
+                error_feedback=cfg.error_feedback,
+                topk_frac=cfg.topk_frac, device=self.device)
 
         # This worker's BatchNorm statistics start from the model's own
         # (zeros/ones) and stay local, as in the reference.
@@ -445,8 +419,7 @@ class PSWorker(threading.Thread):
         unchanged — the params a full refetch would have returned, since
         the canonical step didn't move."""
         use_delta = (have_step is not None and current is not None
-                     and self.config.delta_fetch
-                     and getattr(self.store, "supports_delta_fetch", False))
+                     and self.config.delta_fetch)
         if use_delta:
             flat, fetched_step = self.store.fetch(worker_id,
                                                   have_step=have_step)
@@ -456,9 +429,6 @@ class PSWorker(threading.Thread):
         else:
             flat, fetched_step = self.store.fetch(worker_id)
         with trace_span("worker.codec", stage="decode"), self._gp("codec"):
-            if getattr(self.store, "fetch_codec", "none") in ("fp16",
-                                                              "bf16"):
-                flat = fp16_decompress(flat)
             self._tm_fetch_post.inc(
                 sum(int(np.asarray(v).nbytes) for v in flat.values()))
             params = {k: torch.as_tensor(np.asarray(v, np.float32),
@@ -466,57 +436,35 @@ class PSWorker(threading.Thread):
                       for k, v in flat.items()}
             return params, fetched_step
 
-    def _maybe_encode_device(self, grads: dict):
-        """Device encode of a push, if it applies: a DevicePayload, or
-        None when the NumPy path in ``_push`` should handle it (codec off,
-        non-quantized codec, or a host-resident tree)."""
-        if self._device_codec is None or not is_device_tree(grads):
-            return None
-        plan = self._bitwidth.plan(grads) if self._bitwidth else None
-        return self._device_codec.encode(
-            grads, plan=plan, scales=self._gradient_scales())
-
     def _gradient_scales(self) -> dict:
         """The store's per-layer absmax table (shared-scale quantization);
         empty degrades to per-push scales."""
-        fn = getattr(self.store, "gradient_scales", None)
-        if not callable(fn):
-            return {}
-        scales, _ = fn()
+        scales, _ = self.store.gradient_scales()
         return scales
 
     def _push(self, worker_id: int, grads: dict, fetched_step: int) -> None:
         with trace_span("worker.codec", stage="encode"), self._gp("codec"):
-            payload = self._maybe_encode_device(grads)
-            if payload is not None:
-                # Device codec: quantize/pack ran on the card; finalize
-                # waits for the wire bytes' copy to the host.
-                t0 = _tnow()
+            t0 = _tnow()
+            if self._device_codec is not None:
+                # Quantized codec: quantize/pack ran on the worker's device
+                # against the store's shared scales, with error feedback;
+                # finalize waits for the wire bytes' copy to the host.
+                plan = self._bitwidth.plan(grads)
+                payload = self._device_codec.encode(
+                    grads, plan=plan, scales=self._gradient_scales())
                 flat = self._device_codec.finalize(payload)
                 self._tm_codec_s.observe(payload.encode_seconds
                                          + _tnow() - t0)
                 pre_bytes = payload.pre_bytes
             else:
+                # fp16 or uncompressed push: the reference's host cast
+                # (worker.py:264-268).
                 flat = {k: v.detach().to("cpu").numpy()
-                        if isinstance(v, torch.Tensor) else np.asarray(v)
                         for k, v in grads.items()}
                 pre_bytes = sum(int(v.nbytes) for v in flat.values())
-                # Worker-side compression (worker.py:264-268): fp16 is the
-                # reference's cast; the quantized family follows the
-                # bitwidth plan, against the store's shared scales, with
-                # error feedback.
-                codec = getattr(self.store, "push_codec", "none")
-                t1 = _tnow()
-                if codec == "fp16":
+                if self.store.push_codec == "fp16":
                     flat = fp16_compress(flat)
-                    self._tm_codec_s.observe(_tnow() - t1)
-                elif codec in QUANTIZED_PUSH_CODECS:
-                    plan = self._bitwidth.plan(flat) if self._bitwidth \
-                        else None
-                    flat = compress_push(
-                        flat, plan, scales=self._gradient_scales(),
-                        ef=self._ef, topk_frac=self.config.topk_frac)
-                    self._tm_codec_s.observe(_tnow() - t1)
+                    self._tm_codec_s.observe(_tnow() - t0)
             wire_bytes = sum(int(v.nbytes) for v in flat.values())
             self._tm_push_pre.inc(pre_bytes)
             self._tm_push_wire.inc(wire_bytes)
@@ -566,23 +514,8 @@ def run_workers(store: ParameterStore, model: torch.nn.Module,
                for i in range(n_workers)]
     for w in workers:
         w.start()
-    # Failure-detection reaper: with a worker_timeout configured, expire
-    # silent workers periodically so elastic rounds shrink instead of
-    # wedging on a dead worker.
-    reaper_stop = threading.Event()
-    wt = getattr(store.config, "worker_timeout", None)
-    if wt:
-        def _reap():
-            while not reaper_stop.wait(wt / 2):
-                expired = store.expire_stale_workers()
-                if expired:
-                    print(f"expired silent workers: {expired}")
-        threading.Thread(target=_reap, daemon=True).start()
-    try:
-        for w in workers:
-            w.join(timeout)
-    finally:
-        reaper_stop.set()
+    for w in workers:
+        w.join(timeout)
     for w in workers:
         if w.result.error is not None:
             raise w.result.error

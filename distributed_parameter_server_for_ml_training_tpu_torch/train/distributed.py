@@ -32,8 +32,6 @@ class DistributedConfig:
     sync_steps: int = 1            # K (worker.py:468)
     k_step_mode: str = "faithful"
     staleness_bound: int = 5       # server.py:418
-    elastic: bool = False          # elastic membership (StoreConfig.elastic)
-    worker_timeout: float | None = None  # liveness expiry (seconds)
     delta_fetch: bool = True
     store_backend: str = "python"
     augment: bool = True
@@ -70,9 +68,7 @@ class AsyncTrainer:
             cfg.store_backend, params,
             StoreConfig(mode=cfg.mode, total_workers=cfg.num_workers,
                         learning_rate=cfg.learning_rate,
-                        staleness_bound=cfg.staleness_bound,
-                        elastic=cfg.elastic,
-                        worker_timeout=cfg.worker_timeout))
+                        staleness_bound=cfg.staleness_bound))
 
     def _worker_config(self) -> WorkerConfig:
         cfg = self.config

@@ -99,3 +99,19 @@ def test_kernel_matches_plain_on_card():
                     jnp.asarray(x), scale, levels=levels, use_pallas=False))
                 assert got.cpu().numpy().tobytes() == ref.tobytes()
     assert Q.wire_quantize.launches - before == 2 * 4 * (len(SIZES) - 1)
+
+
+@pytest.mark.cuda
+def test_kernel_launches_on_the_tensors_device():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs: a tensor on a card that is not "
+                    "the current device")
+    x, scale = _inputs(1000, 127, "half")
+    with torch.cuda.device(0):
+        xd = torch.from_numpy(x).to("cuda:1")
+        got = Q.wire_quantize_flat(xd, float(scale), 127)
+        want = Q.wire_quantize_plain(xd, float(scale), 127)
+        torch.cuda.synchronize(1)
+        assert torch.cuda.current_device() == 0
+    assert got.device == xd.device
+    assert torch.equal(got, want)

@@ -147,16 +147,17 @@ def test_delta_fetch_and_membership():
     pair.push(w0, step)
     assert pair.fetch(w0, have_step=step) == step + 1
     pair.both("job_finished", w0)
-    assert pair.port.membership_snapshot() == pair.jax.membership_snapshot()
-    snap = pair.port.snapshot()
-    pair.port.load_snapshot(*snap)
-    pair.check()
+    assert pair.port.active_workers == pair.jax.active_workers == set()
+    assert pair.port.wait_all_finished(0) and pair.jax.wait_all_finished(0)
+    (pa, sa), (pb, sb) = pair.both("snapshot")
+    assert sa == sb == pair.port.global_step
+    for k in pa:
+        assert pa[k].tobytes() == pb[k].tobytes(), k
 
 
 def test_config_validation_and_backends():
-    for bad in (dict(mode="x"), dict(total_workers=0),
-                dict(total_workers=33), dict(job_id="-bad"),
-                dict(fetch_codec="int8")):
+    for bad in (dict(mode="x"), dict(mode="tp"), dict(total_workers=0),
+                dict(total_workers=33), dict(total_workers=-1)):
         with pytest.raises(ValueError):
             StoreConfig(**bad)
         with pytest.raises(ValueError):
