@@ -6,23 +6,44 @@
 Phases (each prints JSON lines; any failure makes the exit code 1):
 
 1. the card's name and power limit (nvidia-smi), then the build of every
-   kernel of the main path from the sources in the checkout (nvcc);
+   kernel from the sources in the checkout (one nvcc per source, all
+   started together);
 2. kernel K1 (wire quantize) against its plain PyTorch version on the
    card, on every one of the 62 ResNet-18 parameter shapes at levels 127
    and 7, with random, half-step and clipping inputs: the results must be
    identical (torch.equal, tolerance 0). Times one whole push of K1
    launches and of the plain version with CUDA events;
-3. the CUDA device codec on a full-width ResNet-18 gradient tree: int8 and
+3. kernels K2, K3 and K4 (block-wise int8) against their plain versions,
+   torch.equal at tolerance 0: the ResNet-18 ring chunk at N=4 as a batch
+   of 4 rows of 2,805,033 values, 513 values, exactly 2 x 32,768, an
+   all-zero block, an empty input and a 1000-valued outlier in block 0;
+   K3 at 3 seeds. On the chunk, K3's mean rounding error (in scales) must
+   be near 0 and every code floor or floor + 1 of x / scale. Times one
+   call of each kernel and of its plain version with CUDA events;
+4. the CUDA device codec on a full-width ResNet-18 gradient tree: int8 and
    int4 with error feedback over 3 pushes, with and without shared
    scales, plus a top-k push, byte-for-byte against the NumPy
    ``compress_push``;
-4. the main path: full ResNet-18 (100 classes, bf16 compute) trained by 2
-   async workers through ``ParameterStore(push_codec="int8")`` for one
+5. the async path: full ResNet-18 (100 classes, bf16 compute) trained by
+   2 async workers through ``ParameterStore(push_codec="int8")`` for one
    epoch of synthetic CIFAR-100, eval on. K1's launch count is reset just
    before and read just after: it must equal 62 x the pushes made;
-5. a shorter run of the same path under torch.profiler: device time by
+6. a shorter run of the async path under torch.profiler: device time by
    kernel and the device's busy share of the wall;
-6. the CLI verb ``train --mode async`` at its default codec.
+7. the sync path: ``SyncTrainer`` with full ResNet-18 (bf16), 4 worker
+   slots on the card, batch 128 per slot, ``compression="int8"``, one
+   epoch of 16 steps, eval on 1,000 test images. K2-K4's counts are reset
+   just before and read just after: K3 must have launched 4 times and K4
+   7 times per step (one launch over all slots per hop), K2 never. Then,
+   from the trained state, one step each with ``compression="none"``,
+   with the int8 ring and with the int8 ring rounding to nearest (K2's
+   path: its counts are reset just before and read just after that step,
+   4 launches of K2); the int8 steps' params must be within rtol 0.05 /
+   atol 1e-3 of the uncompressed step's;
+8. a few sync steps under torch.profiler: device busy share and top
+   device kernels;
+9. the CLI verb ``train`` in async mode at its default codec and in sync
+   mode with the int8 ring.
 
 Then one JSON line of kernels and, last, the device line. Without a CUDA
 device, or outside a checkout of the repo, it exits non-zero and prints
@@ -42,6 +63,9 @@ import numpy as np
 
 H100_BYTES_PER_S = 3.35e12    # HBM3, NVIDIA's H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12   # fp32 outside the tensor cores, same sheet
+# 32-bit integer operations: 64 INT32 lanes per SM against 128 FP32 lanes
+# (NVIDIA's Hopper white paper), so half the fp32 rate.
+H100_INT32_OPS_PER_S = H100_FP32_OPS_PER_S / 2
 
 
 def emit(obj: dict) -> None:
@@ -89,11 +113,14 @@ def phase_build(state: dict) -> None:
         else f"nvidia-smi failed: {smi.stderr.strip()}"
     print(card, flush=True)
     state["card"] = card
+    names = ["wire_quantize", "block_quantize"]
+    cached = {n: _build.library_path(n).exists() for n in names}
     t0 = time.perf_counter()
-    cached = _build.library_path("wire_quantize").exists()
-    _build.load("wire_quantize")
-    emit({"phase": "build", "kernel": "wire_quantize",
-          "seconds": round(time.perf_counter() - t0, 3),
+    _build.build_all(names)
+    seconds = round(time.perf_counter() - t0, 3)
+    for n in names:
+        _build.load(n)
+    emit({"phase": "build", "kernels": names, "seconds": seconds,
           "cached": cached})
 
 
@@ -169,6 +196,145 @@ def phase_kernel(state: dict) -> None:
     if mismatched:
         raise AssertionError(f"K1 differs from its plain version on "
                              f"{mismatched}")
+
+
+def ring_chunk_rows(n_slots: int = 4) -> tuple[int, int]:
+    """(slots, values per slot) of the ResNet-18 ring chunk."""
+    return n_slots, -(-11_220_132 // n_slots)
+
+
+def block_bound(n_rows: int, n: int, kernel: str) -> tuple[float, str]:
+    """Least time for a block kernel's work on ``n_rows`` rows of ``n``
+    values: each input read once and each output written once, against
+    the operations at the card's peak rates; the larger, and which."""
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
+        quantize as Q
+
+    rows_padded, _, n_blocks = Q.block_layout(n)
+    payload = n_rows * (rows_padded * Q.LANES + 4 * n_blocks)
+    values = n_rows * n
+    if kernel == "block_dequantize":
+        nbytes = payload + 4 * values
+        fp_ops, int_ops = 2 * values, 0            # convert, multiply
+    else:
+        nbytes = 4 * values + payload
+        # abs, max, divide, round, two clamps, convert
+        fp_ops, int_ops = 7 * values, 0
+        if kernel == "block_quantize_stochastic":
+            # Philox4x32-10 per 4 values: 10 rounds of 2 mul.hi, 2 mul.lo,
+            # 4 xor and 2 key adds; then shift, convert, scale, add, floor.
+            int_ops = 25 * values + values
+            fp_ops += 4 * values
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = (fp_ops / H100_FP32_OPS_PER_S
+              + int_ops / H100_INT32_OPS_PER_S) * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def phase_kernel_int8(state: dict) -> None:
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
+        quantize as Q
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    n_slots, chunk = ring_chunk_rows()
+    ring = torch.randn((n_slots, chunk), generator=gen, device="cuda") * 1e-2
+    zero_block = torch.randn((1, 2 * 32768), generator=gen,
+                             device="cuda") * 1e-2
+    zero_block[:, 32768:] = 0.0
+    outlier = torch.randn((1, 2 * 32768), generator=gen, device="cuda") * 1e-2
+    outlier[0, 0] = 1000.0
+    cases = {
+        "ring_chunk_4x2805033": ring,
+        "n513": torch.randn((1, 513), generator=gen, device="cuda"),
+        "n65536": torch.randn((1, 2 * 32768), generator=gen, device="cuda"),
+        "zero_block": zero_block,
+        "empty": torch.zeros((1, 0), device="cuda"),
+        "outlier_block0": outlier,
+    }
+    seeds = [[0x5EED0000 + 64 * k + r for r in range(n_slots)]
+             for k in range(3)]
+    err = {"block_quantize": 0, "block_quantize_stochastic": 0,
+           "block_dequantize": 0.0}
+    mismatched = []
+    for name, x in cases.items():
+        rows = x.shape[0]
+        runs = [("block_quantize", Q.block_quantize(x),
+                 Q.quantize_int8_plain(x))]
+        for sd in seeds:
+            runs.append(("block_quantize_stochastic",
+                         Q.block_quantize_stochastic(x, sd[:rows]),
+                         Q.quantize_int8_plain(x, sd[:rows],
+                                               stochastic=True)))
+        torch.cuda.synchronize()
+        for kernel, got, want in runs:
+            if got[0].numel():
+                err[kernel] = max(err[kernel], int(
+                    (got[0].int() - want[0].int()).abs().max()))
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                mismatched.append((kernel, name))
+            back = Q.block_dequantize(*got, x.shape[1])
+            back_plain = Q.dequantize_int8_plain(*got, x.shape[1])
+            torch.cuda.synchronize()
+            if back.numel():
+                err["block_dequantize"] = max(err["block_dequantize"], float(
+                    (back - back_plain).abs().max()))
+            if not torch.equal(back, back_plain):
+                mismatched.append(("block_dequantize", name))
+
+    # K3 on the chunk: unbiased, and every code floor or floor + 1.
+    v, sc = Q.block_quantize_stochastic(ring, seeds[0])
+    rows_padded, br, _ = Q.block_layout(chunk)
+    scale = sc.repeat_interleave(br * Q.LANES, dim=1)[:, :chunk]
+    scaled = ring / scale
+    q = v.reshape(n_slots, -1)[:, :chunk].float()
+    fl = torch.floor(scaled)
+    floor_ok = bool(((q == fl.clamp(-127, 127))
+                     | (q == (fl + 1).clamp(-127, 127))).all())
+    mean_err = float((q - scaled).mean())   # in units of the block scale
+    # Per value the error lies in (-1, 1) with sd <= 1/2: the mean of 11.2M
+    # values has sd <= 1.5e-4; 2e-3 is over 13 sd.
+    unbiased = abs(mean_err) < 2e-3
+
+    fns = {
+        "block_quantize": (lambda: Q.block_quantize(ring),
+                           lambda: Q.quantize_int8_plain(ring)),
+        "block_quantize_stochastic": (
+            lambda: Q.block_quantize_stochastic(ring, seeds[0]),
+            lambda: Q.quantize_int8_plain(ring, seeds[0], stochastic=True)),
+    }
+    payload = Q.block_quantize(ring)
+    fns["block_dequantize"] = (
+        lambda: Q.block_dequantize(*payload, chunk),
+        lambda: Q.dequantize_int8_plain(*payload, chunk))
+    state["block"] = {}
+    for kernel, (fk, fp) in fns.items():
+        plain = [cuda_time_ms(fp, 10)]
+        ms = [cuda_time_ms(fk, 50), cuda_time_ms(fk, 50)]
+        plain.append(cuda_time_ms(fp, 10))
+        bound_ms, bound_by = block_bound(n_slots, chunk, kernel)
+        state["block"][kernel] = {
+            "ms": min(ms), "plain_ms": min(plain), "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": err[kernel]}
+        emit({"phase": "kernel_int8_vs_plain", "kernel": kernel,
+              "shape": [n_slots, chunk], "ms_runs": ms,
+              "plain_ms_runs": plain, "bound_ms": bound_ms,
+              "bound_by": bound_by, "max_abs_err": err[kernel],
+              "card": state["card"]})
+    emit({"phase": "kernel_int8_vs_plain", "cases": list(cases),
+          "k3_seeds": len(seeds), "mismatched": mismatched,
+          "k3_mean_error_in_scales": mean_err, "k3_unbiased": unbiased,
+          "k3_codes_floor_or_floor_plus_1": floor_ok,
+          "card": state["card"]})
+    if mismatched:
+        raise AssertionError(f"K2-K4 differ from their plain versions on "
+                             f"{mismatched}")
+    if not (unbiased and floor_ok):
+        raise AssertionError(f"K3 rounding: mean error {mean_err} scales, "
+                             f"floor/floor+1 {floor_ok}")
 
 
 def _payload_equal(a: dict, b: dict) -> str | None:
@@ -355,6 +521,17 @@ def phase_main_path(state: dict) -> None:
         raise AssertionError("the store's params did not move")
 
 
+def device_events(prof) -> list:
+    """The profile's device-side events (kernels, copies), averaged by name.
+    A host operator's own row also carries the device time of the kernels
+    it launched, so summing over every row would count that time twice."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+
+
 def phase_profile(state: dict) -> None:
     """Where the time goes on the main path: the same 2-worker int8 run,
     shorter and without eval, under torch.profiler — device time by kernel
@@ -375,8 +552,7 @@ def phase_profile(state: dict) -> None:
         run_workers(store, model, ds, N_WORKERS, cfg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
-              if e.self_device_time_total > 0]
+    events = device_events(prof)
     device_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:15]
     emit({"phase": "profile", "steps": store.global_step,
@@ -389,17 +565,196 @@ def phase_profile(state: dict) -> None:
           "card": state["card"]})
 
 
+SYNC_SLOTS, SYNC_STEPS = 4, 16
+
+
+def sync_trainer(steps: int, n_test: int, compression: str = "int8",
+                 seed: int = 0):
+    """The sync path's trainer: full ResNet-18 (bf16) on the card, 4 slots
+    of batch 128, ``steps`` steps of synthetic CIFAR-100 in one epoch."""
+    from distributed_parameter_server_for_ml_training_tpu_torch.data \
+        import synthetic_cifar100
+    from distributed_parameter_server_for_ml_training_tpu_torch.train \
+        .distributed import DistributedConfig, SyncTrainer
+
+    ds = synthetic_cifar100(n_train=SYNC_SLOTS * BATCH * steps,
+                            n_test=n_test)
+    return SyncTrainer(ds, DistributedConfig(
+        mode="sync", num_workers=SYNC_SLOTS, batch_size=BATCH, num_epochs=1,
+        compression=compression, dtype="bfloat16", device="cuda",
+        seed=seed))
+
+
+def _reset_block_counts():
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
+        quantize as Q
+
+    Q.block_quantize.launches = 0
+    Q.block_quantize_stochastic.launches = 0
+    Q.block_dequantize.launches = 0
+
+
+def _block_counts() -> dict:
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
+        quantize as Q
+
+    return {"block_quantize": Q.block_quantize.launches,
+            "block_quantize_stochastic": Q.block_quantize_stochastic.launches,
+            "block_dequantize": Q.block_dequantize.launches}
+
+
+def phase_sync_path(state: dict) -> None:
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
+        quantize as Q
+    from distributed_parameter_server_for_ml_training_tpu_torch.parallel \
+        import make_sync_dp_step, shard_batch
+
+    trainer = sync_trainer(SYNC_STEPS, n_test=1000)
+    init = {k: v.clone() for k, v in trainer.state.params.items()}
+    torch.cuda.synchronize()
+    _reset_block_counts()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _block_counts()
+    state["sync_counts"] = counts
+    steps = trainer.global_steps
+    size = sum(v.numel() for v in init.values())
+    moved = sum(not torch.equal(init[k], v)
+                for k, v in trainer.state.params.items())
+    finite = all(math.isfinite(v) for v in trainer.train_loss_per_epoch) \
+        and all(bool(torch.isfinite(v).all())
+                for v in trainer.state.params.values())
+    images = steps * SYNC_SLOTS * BATCH
+    train_s = sum(trainer.train_seconds)
+    rows_padded, _, n_blocks = Q.block_layout(-(-size // SYNC_SLOTS))
+    wire_model = 2 * (SYNC_SLOTS - 1) / SYNC_SLOTS * size \
+        + 2 * (SYNC_SLOTS - 1) * 4 * n_blocks
+
+    # Step time at the path's shapes, by CUDA events, on one batch.
+    xb = trainer.dataset.x_train[:SYNC_SLOTS * BATCH]
+    yb = trainer.dataset.y_train[:SYNC_SLOTS * BATCH]
+    bi, bl = shard_batch(trainer.mesh, (xb, yb))
+    st = trainer.state
+    times = []
+    for i in range(13):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        st, _ = trainer._step(st, bi, bl, 1)
+        b.record()
+        torch.cuda.synchronize()
+        if i >= 3:
+            times.append(a.elapsed_time(b))
+
+    # One step each from the trained state: uncompressed, int8 and int8
+    # rounding to nearest (K2's path), the same batch and seed.
+    base = trainer.state
+    out = {}
+    for name, comp, stochastic in (("none", "none", True),
+                                   ("int8", "int8", True),
+                                   ("int8_nearest", "int8", False)):
+        step = make_sync_dp_step(trainer.mesh, trainer.model,
+                                 compression=comp, augment=False,
+                                 stochastic_rounding=stochastic)
+        torch.cuda.synchronize()
+        _reset_block_counts()
+        out[name], m = step(base, bi, bl, 7)
+        torch.cuda.synchronize()
+        if name == "int8_nearest":
+            state["k2_counts"] = _block_counts()
+            nearest_identical = bool(m["ring_replicas_identical"])
+    worst = {}
+    for name in ("int8", "int8_nearest"):
+        bad = [k for k, v in out[name].params.items()
+               if not torch.allclose(v, out["none"].params[k], rtol=0.05,
+                                     atol=1e-3)]
+        worst[name] = bad
+    emit({"phase": "sync_path", "model": "resnet18", "dtype": "bfloat16",
+          "slots": SYNC_SLOTS, "batch_per_slot": BATCH,
+          "compression": "int8", "steps": steps, "images": images,
+          "launches": counts,
+          "launches_per_step": {k: v / max(steps, 1)
+                                for k, v in counts.items()},
+          "train_loss_per_epoch": trainer.train_loss_per_epoch,
+          "test_accuracies": trainer.test_accuracies,
+          "tensors_moved": moved, "params": size,
+          "ring_replicas_identical": trainer.ring_replicas_identical,
+          "img_per_s": images / train_s, "train_seconds": train_s,
+          "run_seconds": wall,
+          "step_ms_median": float(np.median(times)), "step_ms_runs": times,
+          "wire_bytes_per_slot_per_step": trainer.wire_bytes_per_slot_step,
+          "wire_bytes_model": wire_model,
+          "k2_path_launches": state["k2_counts"],
+          "int8_vs_none_params_outside_tolerance": worst,
+          "card": state["card"]})
+    want = {"block_quantize": 0,
+            "block_quantize_stochastic": SYNC_SLOTS * steps,
+            "block_dequantize": (2 * SYNC_SLOTS - 1) * steps}
+    if steps != SYNC_STEPS or counts != want:
+        raise AssertionError(f"{steps} steps launched {counts}; expected "
+                             f"{want}")
+    want2 = {"block_quantize": SYNC_SLOTS, "block_quantize_stochastic": 0,
+             "block_dequantize": 2 * SYNC_SLOTS - 1}
+    if state["k2_counts"] != want2:
+        raise AssertionError(f"the nearest-rounding step launched "
+                             f"{state['k2_counts']}; expected {want2}")
+    if not finite or moved == 0:
+        raise AssertionError(f"losses finite {finite}, tensors moved {moved}")
+    if trainer.ring_replicas_identical is not True or not nearest_identical:
+        raise AssertionError("the ring's per-slot results differ")
+    if any(worst.values()):
+        raise AssertionError(f"int8 steps outside rtol 0.05 / atol 1e-3 of "
+                             f"the uncompressed step: {worst}")
+
+
+def phase_sync_profile(state: dict) -> None:
+    """Where the time goes on the sync path: 6 int8 steps under
+    torch.profiler (eval on 8 images)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer = sync_trainer(6, n_test=8, seed=2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = device_events(prof)
+    device_us = sum(e.self_device_time_total for e in events)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:15]
+    emit({"phase": "sync_profile", "steps": trainer.global_steps,
+          "wall_s": wall, "device_busy_s": device_us / 1e6,
+          "device_idle_share": (1 - device_us / 1e6 / wall)
+          if device_us else None,
+          "top_device_ms": [[e.key[:160], round(e.self_device_time_total
+                                               / 1e3, 3), e.count]
+                            for e in top],
+          "card": state["card"]})
+
+
 def phase_cli(state: dict) -> None:
     from distributed_parameter_server_for_ml_training_tpu_torch import cli
 
-    t0 = time.perf_counter()
-    rc = cli.main(["train", "--mode", "async", "--workers", "2",
-                   "--epochs", "1", "--synthetic", "--num-train", "1024",
-                   "--num-test", "500", "--emit-metrics"])
-    emit({"phase": "cli", "rc": rc,
-          "seconds": round(time.perf_counter() - t0, 3)})
-    if rc != 0:
-        raise AssertionError(f"cli train returned {rc}")
+    runs = {"async": ["train", "--mode", "async", "--workers", "2",
+                      "--epochs", "1", "--synthetic", "--num-train", "1024",
+                      "--num-test", "500", "--emit-metrics"],
+            "sync_int8": ["train", "--mode", "sync", "--workers", "4",
+                          "--compression", "int8", "--epochs", "1",
+                          "--synthetic", "--num-train", "2048",
+                          "--num-test", "500", "--emit-metrics"]}
+    for name, argv in runs.items():
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        emit({"phase": "cli", "run": name, "rc": rc,
+              "seconds": round(time.perf_counter() - t0, 3)})
+        if rc != 0:
+            raise AssertionError(f"cli {' '.join(argv)} returned {rc}")
 
 
 def main() -> int:
@@ -416,8 +771,9 @@ def main() -> int:
 
     state: dict = {}
     failed = []
-    for phase in (phase_build, phase_kernel, phase_codec, phase_main_path,
-                  phase_profile, phase_cli):
+    for phase in (phase_build, phase_kernel, phase_kernel_int8, phase_codec,
+                  phase_main_path, phase_profile, phase_sync_path,
+                  phase_sync_profile, phase_cli):
         t0 = time.perf_counter()
         try:
             phase(state)
@@ -433,14 +789,27 @@ def main() -> int:
         quantize as Q
 
     k1 = state["k1"]
-    emit({"kernels": [{
+    kernels = [{
         "name": "wire_quantize", "route": "cuda",
         "source": Q.KERNEL_SOURCE, "replaces": Q.REPLACES,
         "launches": state["k1_launches"],
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-        "library_ms": None}]})
+        "library_ms": None}]
+    # K3/K4 launches from the sync path's run; K2's from its own path, the
+    # int8 step rounding to nearest. No single PyTorch call computes a
+    # block quantize, so library_ms is null.
+    launches = dict(state["sync_counts"],
+                    block_quantize=state["k2_counts"]["block_quantize"])
+    for name, k in state["block"].items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": Q.BLOCK_KERNEL_SOURCE,
+            "replaces": Q.BLOCK_REPLACES[name], "launches": launches[name],
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": None})
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,14 +1,19 @@
 """Command-line interface of the port.
 
-This slice ports the in-process ``train --mode async`` verb with the JAX
-verb's flags that it honours, plus ``--device``::
+The in-process ``train`` verb in its sync and async modes, with the JAX
+verb's flags that they honour, plus ``--device``::
 
     python -m distributed_parameter_server_for_ml_training_tpu_torch.cli \\
-        train --mode async --workers 2 --epochs 1 --synthetic \\
-        --num-train 1024 --num-test 500 --emit-metrics
+        train --mode sync --workers 4 --compression int8 --epochs 1 \\
+        --synthetic --num-train 2048 --num-test 500 --emit-metrics
 
-It runs on the card unless ``--device cpu`` is given. The store uses its
-default push codec (fp16, the reference's cast).
+It runs on the card unless ``--device cpu`` is given. ``--mode sync``
+trains the worker slots of one card with the all-reduce chosen by
+``--compression`` (int8 = the quantized reduce-scatter ring, kernels
+K2-K4); ``--mode async`` runs the host parameter store with worker
+threads, pushing with the store's default codec (fp16, the reference's
+cast). The default mode stays ``async`` (the JAX CLI's is ``sync``) until
+the port has all of the JAX CLI's modes.
 """
 
 from __future__ import annotations
@@ -26,12 +31,15 @@ def _env(name: str, default, cast=str):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="distributed_parameter_server_for_ml_training_tpu_torch",
-        description="PyTorch/CUDA async parameter-server training")
+        description="PyTorch/CUDA parameter-server training")
     sub = p.add_subparsers(dest="command", required=True)
     t = sub.add_parser("train", help="in-process training run")
-    t.add_argument("--mode", choices=["async"], default="async",
-                   help="async = host parameter store + worker threads "
-                        "(the reference's async mode)")
+    t.add_argument("--mode", choices=["sync", "async"], default="async",
+                   help="sync = sync data parallelism over the worker "
+                        "slots of one card; async = host parameter store + "
+                        "worker threads (the reference's modes). The "
+                        "default stays async until the port has all of "
+                        "the JAX CLI's modes (its default is sync)")
     t.add_argument("--workers", type=int,
                    default=_env("TOTAL_WORKERS_EXPECTED", 4, int))
     t.add_argument("--staleness-bound", type=int,
@@ -40,6 +48,10 @@ def build_parser() -> argparse.ArgumentParser:
                    default=_env("LEARNING_RATE", 0.1, float),
                    help="server SGD learning rate (server.py:413)")
     t.add_argument("--epochs", type=int, default=_env("NUM_EPOCHS", 3, int))
+    t.add_argument("--compression", choices=["none", "bf16", "fp16", "int8"],
+                   default="bf16",
+                   help="sync all-reduce precision (int8 = quantized "
+                        "reduce-scatter ring, ~half bf16's bytes)")
     t.add_argument("--batch-size", type=int,
                    default=_env("BATCH_SIZE", 128, int),
                    help="per-worker batch size (worker.py:462)")
@@ -76,7 +88,8 @@ def _load_dataset(args):
 
 
 def cmd_train(args) -> int:
-    from .train.distributed import AsyncTrainer, DistributedConfig
+    from .train.distributed import (AsyncTrainer, DistributedConfig,
+                                    SyncTrainer)
 
     dataset = _load_dataset(args)
     if dataset.synthetic and not args.synthetic:
@@ -86,11 +99,12 @@ def cmd_train(args) -> int:
         mode=args.mode, num_workers=args.workers, learning_rate=args.lr,
         num_epochs=args.epochs, batch_size=args.batch_size,
         staleness_bound=args.staleness_bound,
+        compression=args.compression,
         augment=not args.no_augment, dtype=args.dtype,
         num_classes=dataset.num_classes, seed=args.seed,
         device=args.device)
-    metrics = AsyncTrainer(dataset, cfg).train(
-        emit_metrics=args.emit_metrics)
+    trainer = SyncTrainer if args.mode == "sync" else AsyncTrainer
+    metrics = trainer(dataset, cfg).train(emit_metrics=args.emit_metrics)
     print(f"done: {metrics}", file=sys.stderr)
     return 0
 

@@ -26,9 +26,11 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 def get_model(name: str, num_classes: int = 100,
               dtype: str | torch.dtype = torch.bfloat16,
               image_size: int = 32, device: str | torch.device = "cuda",
-              seed: int = 0) -> torch.nn.Module:
+              seed: int = 0, axis_name: str | None = None
+              ) -> torch.nn.Module:
     """Build a model by registry name on ``device``, its weights drawn from
-    a ``torch.Generator`` seeded with ``seed``."""
+    a ``torch.Generator`` seeded with ``seed``. ``axis_name`` selects
+    cross-replica BatchNorm over the mesh slots, as in the JAX model."""
     if name in _LATER:
         raise NotImplementedError(
             f"model {name!r} is not ported yet; it comes with {_LATER[name]}")
@@ -45,5 +47,5 @@ def get_model(name: str, num_classes: int = 100,
                              f"got {dtype!r}")
         dtype = _DTYPES[dtype]
     gen = torch.Generator().manual_seed(seed)
-    return ResNet18(num_classes=num_classes, dtype=dtype,
-                    generator=gen).to(dev)
+    return ResNet18(num_classes=num_classes, dtype=dtype, generator=gen,
+                    axis_name=axis_name).to(dev)

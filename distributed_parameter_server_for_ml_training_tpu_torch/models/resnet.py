@@ -26,6 +26,19 @@ defaults:
   order, so ``utils/pytree.py`` maps names and layouts mechanically and
   the flat parameter order equals the JAX package's.
 
+Cross-replica BatchNorm. The flax model takes ``axis_name``: under
+``shard_map`` each BatchNorm then ``pmean``s its batch mean and mean of
+squares over the mesh slots (the sync data-parallel trainer). The port's
+model takes the same ``axis_name`` and runs every slot of the mesh in one
+program: :meth:`ResNet.forward_slots` takes images ``[N, B, H, W, C]``
+and one parameter leaf ``[N, ...]`` per slot, so autograd returns one
+gradient per slot. Activations are ``[B, N*C, H, W]`` (slot-major
+channels): convolutions are grouped over the slots, BatchNorm averages
+each slot's statistics over all slots (the ``pmean``) and applies each
+slot's own affine, and the head runs per slot. The running statistics
+are updated once, with the averaged batch statistics, as every replica
+of the JAX model updates them identically.
+
 Weights are drawn from an explicit ``torch.Generator`` with flax's
 initializers (lecun-normal kernels, zero biases, unit BN scales).
 """
@@ -55,6 +68,17 @@ class Conv(nn.Conv2d):
                         self.weight.to(self.compute_dtype), None,
                         self.stride, self.padding)
 
+    def forward_slots(self, x: torch.Tensor, params: dict,
+                      name: str) -> torch.Tensor:
+        """``[B, N*I, H, W]`` with ``params[name + '.weight']`` of shape
+        ``[N, O, I, kh, kw]`` -> ``[B, N*O, H', W']``: one conv grouped
+        over the N slots."""
+        w = params[f"{name}.weight"]
+        n = w.shape[0]
+        w = w.to(self.compute_dtype).reshape(n * w.shape[1], *w.shape[2:])
+        return F.conv2d(x.to(self.compute_dtype), w, None, self.stride,
+                        self.padding, groups=n)
+
 
 class Dense(nn.Linear):
     """Linear layer computing in ``dtype`` with fp32 weights."""
@@ -68,6 +92,15 @@ class Dense(nn.Linear):
         d = self.compute_dtype
         return F.linear(x.to(d), self.weight.to(d), self.bias.to(d))
 
+    def forward_slots(self, x: torch.Tensor, params: dict,
+                      name: str) -> torch.Tensor:
+        """``[B, N, I]`` with per-slot weight ``[N, O, I]`` and bias
+        ``[N, O]`` -> ``[N, B, O]``, one batched product over the slots."""
+        d = self.compute_dtype
+        w, b = params[f"{name}.weight"], params[f"{name}.bias"]
+        return torch.baddbmm(b.to(d).unsqueeze(1), x.to(d).transpose(0, 1),
+                             w.to(d).transpose(1, 2))
+
 
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm`` over NCHW channels (see the module notes).
@@ -78,11 +111,13 @@ class BatchNorm(nn.Module):
     """
 
     def __init__(self, features: int, momentum: float = 0.9,
-                 eps: float = 1e-5, dtype: torch.dtype = torch.float32):
+                 eps: float = 1e-5, dtype: torch.dtype = torch.float32,
+                 axis_name: str | None = None):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
         self.compute_dtype = dtype
+        self.axis_name = axis_name
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -107,27 +142,81 @@ class BatchNorm(nn.Module):
             + self.bias[:, None, None]
         return y.to(self.compute_dtype)
 
+    def forward_slots(self, x: torch.Tensor, params: dict,
+                      name: str) -> torch.Tensor:
+        """``[B, N*C, H, W]`` with per-slot scale and bias ``[N, C]``.
+
+        Training: each slot's mean and mean of squares are averaged over
+        the slots (flax's ``pmean`` over ``axis_name``), the variance is
+        taken from the averages, and the running statistics are updated
+        once with them. Eval: the running statistics."""
+        w, b = params[f"{name}.weight"], params[f"{name}.bias"]
+        n, c = w.shape
+        xf = x.to(torch.float32).reshape(x.shape[0], n, c, *x.shape[2:])
+        if self.training:
+            if self.axis_name is None:
+                raise ValueError("a slotted forward in training needs "
+                                 "cross-replica BatchNorm: build the model "
+                                 "with axis_name")
+            mean = xf.mean(dim=(0, 3, 4)).mean(dim=0)
+            mean2 = (xf * xf).mean(dim=(0, 3, 4)).mean(dim=0)
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var
+                                       + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * w                     # [N, C]
+        y = (xf - mean[:, None, None]) * mul[:, :, None, None] \
+            + b[:, :, None, None]
+        return y.to(self.compute_dtype).view(x.shape)
+
 
 class BasicBlock(nn.Module):
     """Two 3x3 convs + identity shortcut (1x1 conv when shape changes)."""
 
     def __init__(self, in_features: int, features: int, strides: int = 1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 axis_name: str | None = None):
         super().__init__()
         # Registration order = flax creation order (names and flat order).
         self.Conv_0 = Conv(in_features, features, 3, strides, 1, dtype)
-        self.BatchNorm_0 = BatchNorm(features, dtype=dtype)
+        self.BatchNorm_0 = BatchNorm(features, dtype=dtype,
+                                     axis_name=axis_name)
         self.Conv_1 = Conv(features, features, 3, 1, 1, dtype)
-        self.BatchNorm_1 = BatchNorm(features, dtype=dtype)
+        self.BatchNorm_1 = BatchNorm(features, dtype=dtype,
+                                     axis_name=axis_name)
         self.shortcut = in_features != features or strides != 1
         if self.shortcut:
             self.Conv_2 = Conv(in_features, features, 1, strides, 0, dtype)
-            self.BatchNorm_2 = BatchNorm(features, dtype=dtype)
+            self.BatchNorm_2 = BatchNorm(features, dtype=dtype,
+                                         axis_name=axis_name)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
         y = self.BatchNorm_1(self.Conv_1(y))
         residual = self.BatchNorm_2(self.Conv_2(x)) if self.shortcut else x
+        return F.relu(y + residual)
+
+    def forward_slots(self, x: torch.Tensor, params: dict,
+                      name: str) -> torch.Tensor:
+        """:meth:`forward` over slot-major activations (module notes)."""
+        def sub(mod):
+            return f"{name}.{mod}"
+
+        y = self.Conv_0.forward_slots(x, params, sub("Conv_0"))
+        y = F.relu(self.BatchNorm_0.forward_slots(y, params,
+                                                  sub("BatchNorm_0")))
+        y = self.Conv_1.forward_slots(y, params, sub("Conv_1"))
+        y = self.BatchNorm_1.forward_slots(y, params, sub("BatchNorm_1"))
+        residual = x
+        if self.shortcut:
+            residual = self.BatchNorm_2.forward_slots(
+                self.Conv_2.forward_slots(x, params, sub("Conv_2")),
+                params, sub("BatchNorm_2"))
         return F.relu(y + residual)
 
 
@@ -137,11 +226,14 @@ class ResNet(nn.Module):
 
     def __init__(self, stage_sizes: Sequence[int], num_classes: int = 100,
                  num_filters: int = 64, dtype: torch.dtype = torch.float32,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 axis_name: str | None = None):
         super().__init__()
         self.dtype = dtype
+        self.axis_name = axis_name
         self.stem_conv = Conv(3, num_filters, 3, 1, 1, dtype)
-        self.stem_bn = BatchNorm(num_filters, dtype=dtype)
+        self.stem_bn = BatchNorm(num_filters, dtype=dtype,
+                                 axis_name=axis_name)
         in_features = num_filters
         index = 0
         for stage, n_blocks in enumerate(stage_sizes):
@@ -149,7 +241,7 @@ class ResNet(nn.Module):
                 strides = 2 if stage > 0 and block == 0 else 1
                 features = num_filters * 2 ** stage
                 self.add_module(f"BasicBlock_{index}", BasicBlock(
-                    in_features, features, strides, dtype))
+                    in_features, features, strides, dtype, axis_name))
                 in_features = features
                 index += 1
         self.n_blocks = index
@@ -163,6 +255,20 @@ class ResNet(nn.Module):
             x = getattr(self, f"BasicBlock_{i}")(x)
         x = x.mean(dim=(2, 3))
         return self.head(x).to(torch.float32)
+
+    def forward_slots(self, x: torch.Tensor, params: dict) -> torch.Tensor:
+        """All N slots at once: NHWC images ``[N, B, H, W, C]`` and one leaf
+        ``[N, *shape]`` per torch parameter name -> fp32 logits ``[N, B,
+        classes]`` (module notes)."""
+        n, b, h, w, c = x.shape
+        x = x.to(self.dtype).permute(1, 0, 4, 2, 3).reshape(b, n * c, h, w)
+        x = self.stem_conv.forward_slots(x, params, "stem_conv")
+        x = F.relu(self.stem_bn.forward_slots(x, params, "stem_bn"))
+        for i in range(self.n_blocks):
+            name = f"BasicBlock_{i}"
+            x = getattr(self, name).forward_slots(x, params, name)
+        x = x.mean(dim=(2, 3)).view(b, n, -1)
+        return self.head.forward_slots(x, params, "head").to(torch.float32)
 
 
 def init_weights(module: nn.Module,
@@ -182,9 +288,10 @@ def init_weights(module: nn.Module,
 
 
 def ResNet18(num_classes: int = 100, dtype: torch.dtype = torch.float32,
-             generator: torch.Generator | None = None) -> ResNet:
+             generator: torch.Generator | None = None,
+             axis_name: str | None = None) -> ResNet:
     return ResNet(stage_sizes=(2, 2, 2, 2), num_classes=num_classes,
-                  dtype=dtype, generator=generator)
+                  dtype=dtype, generator=generator, axis_name=axis_name)
 
 
 def count_params(module: nn.Module) -> int:

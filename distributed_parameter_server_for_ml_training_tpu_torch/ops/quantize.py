@@ -1,24 +1,45 @@
-"""Wire quantize (kernel K1) and the device codec's other per-tensor ops.
+"""Wire quantize (kernel K1), block-wise int8 (kernels K2-K4) and the
+device codec's other per-tensor ops.
 
-Counterpart of the JAX package's ``ops/pallas/quantize.py`` wire-codec
-section. :func:`wire_quantize_flat` turns fp32 values and one scale into
-the int8 wire codes ``clamp(rint(x / scale), -levels, levels)`` — levels
-127 for int8 codes, 7 for int4 nibble codes:
+Counterpart of the JAX package's ``ops/pallas/quantize.py``.
 
-- a CUDA tensor launches the hand-written Hopper kernel
-  ``ops/csrc/wire_quantize.cu`` (built by nvcc at first use, bound with
-  ctypes) on PyTorch's current stream. A failed build or launch raises;
-  there is no fallback to the plain version;
-- a CPU tensor takes :func:`wire_quantize_plain`, the same arithmetic in
-  plain PyTorch: an IEEE division by a tensor, ``torch.round`` (round half
-  to even) and the clamp. The CPU tests hold it bit-equal to the JAX
-  package, and ``chip_smoke.py`` holds the kernel bit-equal to it.
+**Wire codec (K1).** :func:`wire_quantize_flat` turns fp32 values and one
+scale into the int8 wire codes ``clamp(rint(x / scale), -levels,
+levels)`` — levels 127 for int8 codes, 7 for int4 nibble codes.
 
-``wire_quantize.launches`` counts kernel launches (never plain calls), so
-a run can show that its pushes went through the kernel. The reference's
-TPU rule of keeping tensors under 64k elements off the kernel
-(``PALLAS_WIRE_MIN_SIZE``) was a launch-cost rule for the TPU and does
-not carry over: on the card every quantized tensor goes through K1.
+**Block-wise int8 (K2-K4)**, the codec of the sync int8 ring
+(``parallel/sync_dp.py``). A row of n fp32 values is viewed as
+``[rows_padded, 128]`` (:func:`block_layout`) and cut into blocks of
+:func:`block_rows_for` rows, one fp32 scale ``absmax / 127`` per block
+(a multiply by the fp32 reciprocal, as XLA computes the reference's):
+:func:`block_quantize` (K2, round half to even), :func:`block_quantize_stochastic`
+(K3, ``floor(x / scale + u)`` with Philox4x32-10 bits, one seed per row)
+and :func:`block_dequantize` (K4). Each takes a batch of rows — the
+ring's N slots — in one launch. :func:`quantize_int8`,
+:func:`dequantize_int8` and :func:`quantize_dequantize_int8` are the
+reference's one-tensor surfaces over them.
+
+Every kernel wrapper dispatches on the tensor's device:
+
+- a CUDA tensor launches the hand-written Hopper kernel (``ops/csrc/
+  wire_quantize.cu``, ``ops/csrc/block_quantize.cu``; built by nvcc at
+  first use, bound with ctypes) on PyTorch's current stream. A failed
+  build or launch raises; there is no fallback to the plain version;
+- a CPU tensor takes the plain PyTorch version (:func:`wire_quantize_plain`,
+  :func:`quantize_int8_plain`, :func:`dequantize_int8_plain`): the same
+  arithmetic with IEEE divisions by tensors, ``torch.round`` (half to
+  even), one fp32 add before ``floor`` and the clamps. The CPU tests hold
+  the plain versions bit-equal to the JAX package (K3's bits to
+  Philox's published answers), and ``chip_smoke.py`` holds each kernel
+  bit-equal to its plain version.
+
+Each wrapper has a ``launches`` count of kernel launches (never plain
+calls), so a run can show that its path went through the kernel. The
+reference's TPU rule of keeping tensors under 64k elements off K1
+(``PALLAS_WIRE_MIN_SIZE``) was a launch-cost rule for the TPU and does not
+carry over: on the card every quantized tensor goes through K1. The
+reference's CPU fallback of ``quantize_int8`` ignores ``stochastic``; the
+port's plain version offers both modes.
 
 :func:`pack_nibbles_device` and :func:`topk_select_flat` are plain torch
 ops, as they are plain jnp in the reference.
@@ -27,7 +48,9 @@ ops, as they are plain jnp in the reference.
 from __future__ import annotations
 
 import ctypes
+import math
 import threading
+from typing import Sequence
 
 import torch
 
@@ -105,6 +128,303 @@ def wire_quantize(x: torch.Tensor, scale, *, levels: int = 127
 
 #: Kernel launches since the last reset (set to 0 to start a count).
 wire_quantize.launches = 0
+
+
+# -- block-wise int8: kernels K2, K3 and K4 ------------------------------------
+
+BLOCK_KERNEL_SOURCE = "distributed_parameter_server_for_ml_training_tpu_torch/" \
+    "ops/csrc/block_quantize.cu"
+_PALLAS_QUANTIZE = "distributed_parameter_server_for_ml_training_tpu/" \
+    "ops/pallas/quantize.py"
+#: The TPU kernel each block wrapper replaces (file:line of its function).
+BLOCK_REPLACES = {
+    "block_quantize": f"{_PALLAS_QUANTIZE}:71",
+    "block_quantize_stochastic": f"{_PALLAS_QUANTIZE}:98",
+    "block_dequantize": f"{_PALLAS_QUANTIZE}:105",
+}
+
+LANES = 128
+BLOCK_ROWS = 256        # 256 x 128 fp32 values per quantization block
+#: Rows of one stochastic launch: the kernel takes its seeds by value.
+MAX_SEEDED_ROWS = 64
+
+_M32 = 0xFFFFFFFF
+_M64 = (1 << 64) - 1
+
+
+def block_rows_for(rows_padded: int) -> int:
+    """Quantization block height for a ``[rows_padded, 128]`` view: inputs
+    above one block tile in BLOCK_ROWS blocks, smaller ones are a single
+    block of their own (32-row aligned), and an empty input gets the
+    32-row minimum so ``rows // block_rows`` is 0 blocks (the reference's
+    rule, quantize.py:34-48)."""
+    if rows_padded == 0:
+        return 32
+    return rows_padded if rows_padded <= BLOCK_ROWS else BLOCK_ROWS
+
+
+def block_layout(n: int) -> tuple[int, int, int]:
+    """``(rows_padded, block_rows, n_blocks)`` for n values: rows of 128,
+    32-aligned for a single block, a BLOCK_ROWS multiple otherwise (the
+    padding rule of the reference's ``_pad_to_blocks``, quantize.py:51-62).
+    """
+    rows = -(-n // LANES)
+    if rows <= BLOCK_ROWS:
+        rows_padded = -(-rows // 32) * 32
+    else:
+        rows_padded = -(-rows // BLOCK_ROWS) * BLOCK_ROWS
+    br = block_rows_for(rows_padded)
+    return rows_padded, br, rows_padded // br
+
+
+def _mulhilo(a: torch.Tensor, m: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(low, high) 32-bit words of ``a * m`` for 32-bit ``a`` held in int64
+    and a 32-bit constant ``m``, in int64 arithmetic that never overflows:
+    ``a`` is split in 16-bit halves, each product below 2^48."""
+    p1 = (a & 0xFFFF) * m
+    p2 = (a >> 16) * m
+    t = ((p2 & 0xFFFF) << 16) + p1
+    return t & _M32, (p2 >> 16) + (t >> 32)
+
+
+def philox4x32_10(counter: Sequence[torch.Tensor],
+                  key: Sequence[torch.Tensor | int]) -> list[torch.Tensor]:
+    """Philox4x32-10 (Salmon et al., SC'11) over int64 tensors holding
+    32-bit words: four counter words and two key words (broadcastable)
+    -> four output words. The plain version of the generator that K3
+    runs per group of four values."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for r in range(10):
+        if r:
+            k0 = (k0 + 0x9E3779B9) & _M32
+            k1 = (k1 + 0xBB67AE85) & _M32
+        lo0, hi0 = _mulhilo(c0, 0xD2511F53)
+        lo1, hi1 = _mulhilo(c2, 0xCD9E8D57)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return [c0, c1, c2, c3]
+
+
+def uniform24_plain(seeds: Sequence[int], length: int,
+                    device: torch.device | str = "cpu") -> torch.Tensor:
+    """``[len(seeds), length]`` fp32 draws in [0, 1), exactly K3's: row r
+    keys Philox with its 64-bit seed, element e takes word ``e % 4`` of the
+    group counter ``e // 4`` and keeps its top 24 bits times 2^-24.
+    ``length`` is a multiple of 4."""
+    # int64 holds the seed's 64 bits (two's complement); split into two
+    # unsigned 32-bit words.
+    bits64 = [int(v) & _M64 for v in seeds]
+    s = torch.tensor([v - (1 << 64) if v >> 63 else v for v in bits64],
+                     dtype=torch.int64, device=device)
+    k0 = (s & _M32)[:, None]
+    k1 = ((s >> 32) & _M32)[:, None]
+    g = torch.arange(length // 4, dtype=torch.int64, device=device)[None, :]
+    zero = torch.zeros_like(g)
+    words = philox4x32_10((g & _M32, g >> 32, zero, zero), (k0, k1))
+    bits = torch.stack(words, dim=-1).reshape(len(seeds), length)
+    return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def quantize_int8_plain(x2d: torch.Tensor, seeds: Sequence[int] | None = None,
+                        *, stochastic: bool = False
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2's and K3's plain version over a batch of rows.
+
+    ``x2d`` is ``[n_rows, n]`` fp32; returns int8 ``values [n_rows,
+    rows_padded, 128]`` and fp32 ``scales [n_rows, n_blocks]``. Rounding is
+    half to even, or with ``stochastic`` ``floor(x / scale + u)`` with
+    ``u`` from :func:`uniform24_plain` keyed by ``seeds`` (one per row).
+    Divisions are by tensors on ``x2d``'s device, never by host scalars.
+    The scale is ``absmax`` times the fp32 reciprocal of 127: the
+    reference's ``abs_max / 127.0`` is a division by a constant, which XLA
+    computes as that multiply, so this is its scale bit for bit.
+    """
+    n_rows, n = x2d.shape
+    rows_padded, br, n_blocks = block_layout(n)
+    dev = x2d.device
+    flat = torch.zeros((n_rows, rows_padded * LANES), dtype=torch.float32,
+                       device=dev)
+    flat[:, :n] = x2d
+    blocks = flat.view(n_rows, n_blocks, br * LANES)
+    absmax = blocks.abs().amax(dim=2) if n_blocks else \
+        torch.zeros((n_rows, 0), device=dev)
+    inv127 = torch.tensor(1.0 / 127.0, dtype=torch.float32, device=dev)
+    scales = torch.where(absmax > 0, absmax * inv127,
+                         torch.ones((), device=dev))
+    scaled = blocks / scales[..., None]
+    if stochastic:
+        if seeds is None or len(seeds) != n_rows:
+            raise ValueError(f"stochastic rounding needs one seed per row "
+                             f"({n_rows}), got {seeds!r}")
+        u = uniform24_plain(seeds, rows_padded * LANES, dev)
+        q = torch.floor(scaled + u.view_as(scaled))
+    else:
+        q = torch.round(scaled)
+    q = torch.clamp(q, -127, 127).to(torch.int8)
+    return q.view(n_rows, rows_padded, LANES), scales
+
+
+def dequantize_int8_plain(values: torch.Tensor, scales: torch.Tensor,
+                          n: int) -> torch.Tensor:
+    """K4's plain version: ``[n_rows, rows_padded, 128]`` int8 codes times
+    their block's scale, cropped to ``[n_rows, n]`` fp32."""
+    n_rows, rows_padded = values.shape[:2]
+    br = block_rows_for(rows_padded)
+    out = values.reshape(n_rows, rows_padded // br, br * LANES).to(
+        torch.float32) * scales[..., None]
+    return out.reshape(n_rows, rows_padded * LANES)[:, :n].contiguous()
+
+
+def _block_fn(name: str):
+    from ._build import load
+
+    lib = load("block_quantize")
+    fn = getattr(lib, name)
+    if fn.argtypes is None:     # first use: declare the C signature once
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        fn.argtypes = ([p, i64, i64, i32, p, p, i32, i32, i32,
+                        ctypes.POINTER(ctypes.c_ulonglong), p]
+                       if name == "dps_block_quantize" else
+                       [p, p, p, i64, i64, i32, i32, i32, p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_rows(x2d: torch.Tensor) -> None:
+    if x2d.dtype != torch.float32 or x2d.dim() != 2 \
+            or (x2d.shape[1] > 1 and x2d.stride(1) != 1):
+        raise ValueError(f"block quantize takes [rows, n] float32 rows with "
+                         f"unit element stride, got {x2d.dtype} "
+                         f"{tuple(x2d.shape)} strides {x2d.stride()}")
+
+
+def _block_quantize_cuda(x2d: torch.Tensor, seeds: Sequence[int] | None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    n_rows, n = x2d.shape
+    rows_padded, br, n_blocks = block_layout(n)
+    values = torch.empty((n_rows, rows_padded, LANES), dtype=torch.int8,
+                         device=x2d.device)
+    scales = torch.empty((n_rows, n_blocks), dtype=torch.float32,
+                         device=x2d.device)
+    if n == 0 or n_rows == 0:
+        return values, scales
+    stochastic = seeds is not None
+    table = (ctypes.c_ulonglong * n_rows)(
+        *[int(s) & _M64 for s in seeds]) if stochastic else None
+    fn = _block_fn("dps_block_quantize")
+    with torch.cuda.device(x2d.device):
+        stream = torch.cuda.current_stream(x2d.device).cuda_stream
+        err = fn(x2d.data_ptr(), n, x2d.stride(0), n_rows,
+                 values.data_ptr(), scales.data_ptr(), br * LANES, n_blocks,
+                 int(stochastic), table, stream)
+    if err != 0:
+        raise RuntimeError(f"block quantize kernel launch failed: CUDA "
+                           f"error {err}")
+    wrapper = block_quantize_stochastic if stochastic else block_quantize
+    with _count_lock:
+        wrapper.launches += 1
+    return values, scales
+
+
+def block_quantize(x2d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2: ``[n_rows, n]`` fp32 -> (int8 ``[n_rows, rows_padded, 128]``,
+    fp32 scales ``[n_rows, n_blocks]``), rounding half to even. One launch
+    for all rows on a CUDA tensor; the plain version on a CPU tensor."""
+    _check_rows(x2d)
+    if x2d.device.type == "cuda":
+        return _block_quantize_cuda(x2d, None)
+    if x2d.device.type == "cpu":
+        return quantize_int8_plain(x2d)
+    raise RuntimeError(f"block quantize: no kernel for device {x2d.device}")
+
+
+def block_quantize_stochastic(x2d: torch.Tensor, seeds: Sequence[int]
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3: as :func:`block_quantize` with stochastic rounding, row r drawing
+    from Philox keyed by ``seeds[r]`` (64-bit; at most MAX_SEEDED_ROWS rows
+    a launch)."""
+    _check_rows(x2d)
+    if len(seeds) != x2d.shape[0]:
+        raise ValueError(f"need one seed per row ({x2d.shape[0]}), got "
+                         f"{len(seeds)}")
+    if x2d.device.type == "cuda":
+        if x2d.shape[0] > MAX_SEEDED_ROWS:
+            raise ValueError(f"stochastic block quantize takes at most "
+                             f"{MAX_SEEDED_ROWS} rows a launch, got "
+                             f"{x2d.shape[0]}")
+        return _block_quantize_cuda(x2d, seeds)
+    if x2d.device.type == "cpu":
+        return quantize_int8_plain(x2d, seeds, stochastic=True)
+    raise RuntimeError(f"block quantize: no kernel for device {x2d.device}")
+
+
+def block_dequantize(values: torch.Tensor, scales: torch.Tensor,
+                     n: int) -> torch.Tensor:
+    """K4: int8 ``[n_rows, rows_padded, 128]`` and scales ``[n_rows,
+    n_blocks]`` -> fp32 ``[n_rows, n]``. One launch for all rows on CUDA
+    tensors; the plain version on CPU tensors."""
+    n_rows, rows_padded, lanes = values.shape
+    br = block_rows_for(rows_padded)
+    if values.dtype != torch.int8 or lanes != LANES \
+            or scales.dtype != torch.float32 \
+            or tuple(scales.shape) != (n_rows, rows_padded // br) \
+            or not 0 <= n <= rows_padded * LANES:
+        raise ValueError(f"block dequantize: bad payload {values.dtype}"
+                         f"{tuple(values.shape)} scales {scales.dtype}"
+                         f"{tuple(scales.shape)} for n={n}")
+    if values.device.type == "cpu":
+        return dequantize_int8_plain(values, scales, n)
+    if values.device.type != "cuda":
+        raise RuntimeError(f"block dequantize: no kernel for device "
+                           f"{values.device}")
+    values, scales = values.contiguous(), scales.contiguous()
+    out = torch.empty((n_rows, n), dtype=torch.float32, device=values.device)
+    if n == 0 or n_rows == 0:
+        return out
+    fn = _block_fn("dps_block_dequantize")
+    with torch.cuda.device(values.device):
+        stream = torch.cuda.current_stream(values.device).cuda_stream
+        err = fn(values.data_ptr(), scales.data_ptr(), out.data_ptr(), n, n,
+                 n_rows, br * LANES, rows_padded // br, stream)
+    if err != 0:
+        raise RuntimeError(f"block dequantize kernel launch failed: CUDA "
+                           f"error {err}")
+    with _count_lock:
+        block_dequantize.launches += 1
+    return out
+
+
+block_quantize.launches = 0
+block_quantize_stochastic.launches = 0
+block_dequantize.launches = 0
+
+
+def quantize_int8(x: torch.Tensor, seed: int = 0, *,
+                  stochastic: bool = False
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (any shape) -> (int8 values ``[rows, 128]``, fp32 scales
+    ``[n_blocks]``), the reference's one-tensor surface (quantize.py:115);
+    the caller keeps ``x.shape`` for :func:`dequantize_int8`."""
+    x2d = x.reshape(1, -1).to(torch.float32)
+    if stochastic:
+        v, s = block_quantize_stochastic(x2d, [seed])
+    else:
+        v, s = block_quantize(x2d)
+    return v[0], s[0]
+
+
+def dequantize_int8(values: torch.Tensor, scales: torch.Tensor,
+                    shape: tuple) -> torch.Tensor:
+    """Inverse of :func:`quantize_int8`; ``shape`` is the original shape."""
+    n = math.prod(shape)
+    return block_dequantize(values[None], scales[None], n)[0].view(shape)
+
+
+def quantize_dequantize_int8(x: torch.Tensor, *, stochastic: bool = False,
+                             seed: int = 0) -> torch.Tensor:
+    """Round trip: the quantization error a gradient would incur."""
+    v, s = quantize_int8(x, seed, stochastic=stochastic)
+    return dequantize_int8(v, s, tuple(x.shape))
 
 
 def pack_nibbles_device(q: torch.Tensor) -> torch.Tensor:

@@ -1,25 +1,35 @@
 """Distributed trainer drivers of the port (counterpart of the JAX
 package's ``train/distributed.py``).
 
-:class:`AsyncTrainer` wires the host-NumPy ParameterStore to N worker
-threads on the card (ps/worker.py), reproducing the reference's
-async_Nworkers experiment configs (EXPERIMENT_GUIDE.md:95-111), and emits
-the METRICS_JSON lines the reference's ETL expects. ``SyncTrainer`` (SPMD
-sync data parallelism with its int8 ring, kernels K2-K4) comes with the
-sync-DP slice.
+:class:`SyncTrainer` is sync data parallelism: N logical workers are the N
+slots of a mesh on one card, one step per global batch
+(``parallel/sync_dp.py``), no server. :class:`AsyncTrainer` wires the
+host-NumPy ParameterStore to N worker threads on the card (ps/worker.py),
+reproducing the reference's async_Nworkers experiment configs
+(EXPERIMENT_GUIDE.md:95-111). Both emit the METRICS_JSON lines the
+reference's ETL expects.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
-from ..data.cifar import Dataset
+import numpy as np
+import torch
+
+from ..data.cifar import Dataset, make_batches
+from ..parallel.mesh import DATA_AXIS, make_mesh
+from ..parallel.sync_dp import COMPRESSIONS, make_sync_dp_step, shard_batch
 from ..ps import make_store
 from ..ps.store import StoreConfig
 from ..ps.worker import WorkerConfig, run_workers
 from ..utils.device import resolve_device
 from ..utils.metrics import emit_metrics_json
 from ..utils.pytree import params_to_jax
+from .optimizers import server_sgd
+from .steps import make_eval_step
+from .train_state import create_train_state
 
 
 @dataclass
@@ -32,6 +42,7 @@ class DistributedConfig:
     sync_steps: int = 1            # K (worker.py:468)
     k_step_mode: str = "faithful"
     staleness_bound: int = 5       # server.py:418
+    compression: str = "bf16"      # sync all-reduce dtype
     delta_fetch: bool = True
     store_backend: str = "python"
     augment: bool = True
@@ -42,12 +53,196 @@ class DistributedConfig:
     device: str = "cuda"
 
     def __post_init__(self):
-        if self.mode == "sync":
-            raise NotImplementedError(
-                "mode='sync' (SyncTrainer) comes with the sync-DP slice")
-        if self.mode != "async":
-            raise ValueError(f"mode must be async, got {self.mode!r}")
+        if self.mode not in ("sync", "async"):
+            raise ValueError(f"mode must be sync or async, got "
+                             f"{self.mode!r}")
+        if self.compression not in COMPRESSIONS:
+            raise ValueError(f"compression must be one of {COMPRESSIONS}, "
+                             f"got {self.compression!r}")
         resolve_device(self.device)
+
+
+class SyncTrainer:
+    """Sync data-parallel training over the N worker slots of one card (no
+    server process). Multi-host jobs and the multi-card mesh come with the
+    multi-card slice; train-state checkpoints with the checkpoint slice."""
+
+    def __init__(self, dataset: Dataset,
+                 config: DistributedConfig | None = None):
+        from ..models import get_model
+
+        self.config = cfg = config or DistributedConfig(mode="sync")
+        if torch.distributed.is_available() \
+                and torch.distributed.is_initialized() \
+                and torch.distributed.get_world_size() > 1:
+            raise NotImplementedError(
+                "multi-host sync training (one process per card, NCCL) "
+                "comes with the multi-card slice")
+        self.dataset = dataset
+        self.mesh = make_mesh(cfg.num_workers, cfg.device)
+        self.model = get_model(cfg.model, num_classes=cfg.num_classes,
+                               dtype=cfg.dtype,
+                               image_size=dataset.x_train.shape[1],
+                               device=cfg.device, seed=cfg.seed,
+                               axis_name=DATA_AXIS)
+        self.state = create_train_state(self.model,
+                                        server_sgd(cfg.learning_rate))
+        self._step = make_sync_dp_step(self.mesh, self.model,
+                                       compression=cfg.compression,
+                                       augment=cfg.augment)
+        self._eval_step = make_eval_step(self.model)
+        self.epoch_times: list[float] = []
+        # Per epoch: seconds to the end of its last step (eval excluded;
+        # the device has finished once the epoch's loss is read), and the
+        # mean train loss over the slots.
+        self.train_seconds: list[float] = []
+        self.train_loss_per_epoch: list[float] = []
+        self.test_accuracies: list[float] = []
+        self.global_steps = 0
+        # int8 only: whether every step's ring left bit-identical rows,
+        # and the bytes each slot handed across hops per step.
+        self.ring_replicas_identical: bool | None = None
+        self.wire_bytes_per_slot_step: int | None = None
+
+    def train(self, emit_metrics: bool = False,
+              checkpoint_dir: str | None = None,
+              resume: bool = False) -> dict:
+        if checkpoint_dir or resume:
+            raise NotImplementedError(
+                "SyncTrainer checkpoints (torch.save of the train state) "
+                "come with the checkpoint slice")
+        cfg = self.config
+        global_batch = cfg.batch_size * cfg.num_workers
+        seed = cfg.seed + 1
+
+        from ..telemetry import (GoodputAccount, get_registry,
+                                 now as _tnow, trace_span)
+        reg = get_registry()
+        tm_step_s = reg.histogram("dps_trainer_step_seconds", mode="sync")
+        tm_steps = reg.counter("dps_trainer_steps_total", mode="sync")
+        tm_images = reg.counter("dps_trainer_images_total", mode="sync")
+        tm_epoch = reg.gauge("dps_trainer_epoch", mode="sync")
+        tm_acc = reg.gauge("dps_trainer_test_accuracy", mode="sync")
+        tm_gstep = reg.gauge("dps_store_global_step", backend="spmd")
+        # Goodput: the step is issued eagerly, so "compute" is host time to
+        # issue it; the device finishes by the epoch's loss read, which is
+        # charged to "compute" too.
+        gp = GoodputAccount(reg)
+        gp.start_wall()
+
+        t_start = time.time()
+        per_worker_epochs = []   # per epoch: {"loss": [N], "accuracy": [N]}
+        replicas = []
+        for epoch in range(cfg.num_epochs):
+            t0 = time.time()
+            losses, wl, wa = [], [], []
+            for xb, yb in make_batches(self.dataset.x_train,
+                                       self.dataset.y_train, global_batch,
+                                       seed=cfg.seed * 997 + epoch):
+                bi, bl = shard_batch(self.mesh, (xb, yb))
+                t_step = _tnow()
+                with trace_span("trainer.step", root=True, mode="sync",
+                                step=self.global_steps, epoch=epoch), \
+                        gp.span("compute"):
+                    self.state, m = self._step(self.state, bi, bl, seed)
+                losses.append(m["loss"])
+                # Dispatch-to-return, as the reference's histogram.
+                tm_step_s.observe(_tnow() - t_step)
+                tm_steps.inc()
+                tm_images.inc(len(xb))
+                wl.append(m["worker_loss"])
+                wa.append(m["worker_accuracy"])
+                if "ring_replicas_identical" in m:
+                    replicas.append(m["ring_replicas_identical"])
+                    self.wire_bytes_per_slot_step = m["wire_bytes_per_slot"]
+                self.global_steps += 1
+                tm_gstep.set(self.global_steps)
+                gp.tick_wall()
+            with gp.span("compute"):
+                mean_loss = float(torch.stack(losses).mean()) if losses \
+                    else float("nan")
+                self.train_seconds.append(time.time() - t0)
+                self.train_loss_per_epoch.append(mean_loss)
+                if wl:
+                    per_worker_epochs.append({
+                        "loss": torch.stack(wl).mean(0).cpu().numpy(),
+                        "accuracy": torch.stack(wa).mean(0).cpu().numpy(),
+                    })
+                acc = self.evaluate()
+            self.epoch_times.append(time.time() - t0)
+            self.test_accuracies.append(acc)
+            tm_epoch.set(epoch + 1)
+            tm_acc.set(acc)
+            print(f"[sync x{cfg.num_workers}] epoch {epoch + 1}: "
+                  f"loss {mean_loss:.4f} test {acc:.2%} "
+                  f"({self.epoch_times[-1]:.1f}s)")
+            gp.tick_wall()
+        total = time.time() - t_start
+        if replicas:
+            self.ring_replicas_identical = bool(torch.stack(replicas).all())
+
+        server_metrics = {
+            "mode": "sync",
+            "total_workers": cfg.num_workers,
+            "total_training_time_seconds": round(total, 2),
+            "global_steps_completed": self.global_steps,
+            "total_parameter_updates": self.global_steps,
+            "gradients_processed": self.global_steps * cfg.num_workers,
+            "average_update_time_seconds": round(
+                total / max(self.global_steps, 1), 6),
+            "updates_per_second": round(self.global_steps / total, 3),
+            "learning_rate": cfg.learning_rate,
+        }
+        if emit_metrics:
+            emit_metrics_json(server_metrics)
+            for wid in range(cfg.num_workers):
+                # Train loss/accuracy are measured per slot (each worker's
+                # own shard); time and test fields belong to the one
+                # program and replicated model, identical for every worker
+                # by construction, and marked so.
+                row = {
+                    "worker_id": wid,
+                    "total_workers": cfg.num_workers,
+                    "total_training_time_seconds": round(total, 2),
+                    "average_epoch_time_seconds": round(
+                        float(np.mean(self.epoch_times)), 2),
+                    "epoch_times_seconds": [round(t, 2)
+                                            for t in self.epoch_times],
+                    "final_test_accuracy": self.test_accuracies[-1],
+                    "all_test_accuracies": self.test_accuracies,
+                    "shared_model_metrics": True,
+                    "local_steps_completed": self.global_steps,
+                    "batch_size": cfg.batch_size,
+                    "learning_rate": cfg.learning_rate,
+                    "num_epochs": cfg.num_epochs,
+                }
+                if per_worker_epochs:
+                    row.update({
+                        "train_loss_per_epoch": [
+                            round(float(pe["loss"][wid]), 4)
+                            for pe in per_worker_epochs],
+                        "train_accuracy_per_epoch": [
+                            round(float(pe["accuracy"][wid]), 4)
+                            for pe in per_worker_epochs],
+                        "measured_per_worker_fields": [
+                            "train_loss_per_epoch",
+                            "train_accuracy_per_epoch"],
+                    })
+                emit_metrics_json(row)
+        return server_metrics
+
+    def evaluate(self) -> float:
+        """Top-1 over the test set with the running BatchNorm statistics,
+        in batches of 1000 (worker.py:313-331)."""
+        correct, total = None, 0
+        for xb, yb in make_batches(self.dataset.x_test, self.dataset.y_test,
+                                   1000, shuffle=False,
+                                   drop_remainder=False):
+            c, t = self._eval_step(self.state.params,
+                                   self.state.batch_stats, xb, yb)
+            correct = c if correct is None else correct + c
+            total += t
+        return (int(correct) if correct is not None else 0) / max(total, 1)
 
 
 class AsyncTrainer:

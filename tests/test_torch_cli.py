@@ -1,6 +1,6 @@
-"""The port's entry points: ``cli train --mode async`` end to end on the
-CPU (full-width ResNet-18, two steps), and the options of later slices
-refused by name."""
+"""The port's entry points: ``cli train --mode async`` and ``--mode
+sync`` end to end on the CPU (full-width ResNet-18, two steps each), and
+the options of later slices refused by name."""
 
 import json
 
@@ -49,8 +49,41 @@ def test_worker_config_validation():
                         sync_steps=2).sync_steps == 2
 
 
+@pytest.mark.parametrize("compression", ["int8", "none"])
+def test_cli_train_sync_on_cpu(capsys, compression):
+    rc = cli.main(["train", "--mode", "sync", "--workers", "2",
+                   "--compression", compression, "--epochs", "1",
+                   "--synthetic", "--num-train", "32", "--num-test", "16",
+                   "--batch-size", "8", "--emit-metrics", "--device", "cpu",
+                   "--dtype", "float32"])
+    assert rc == 0
+    rows = parse_metrics_lines(capsys.readouterr().out)
+    server, *workers = rows
+    assert server["mode"] == "sync" and server["total_workers"] == 2
+    assert server["global_steps_completed"] == 2
+    assert [w["worker_id"] for w in workers] == [0, 1]
+    assert all(w["local_steps_completed"] == 2 for w in workers)
+    assert all(len(w["train_loss_per_epoch"]) == 1 for w in workers)
+    json.dumps(rows)
+
+
 def test_sync_trainer_waits_for_its_slice():
-    with pytest.raises(NotImplementedError, match="sync-DP slice"):
-        DistributedConfig(mode="sync", device="cpu")
+    """Sync mode is ported; its checkpoints and multi-card meshes wait for
+    their slices and say so."""
+    from distributed_parameter_server_for_ml_training_tpu_torch.data import \
+        synthetic_cifar100
+    from distributed_parameter_server_for_ml_training_tpu_torch.parallel \
+        import make_mesh
+    from distributed_parameter_server_for_ml_training_tpu_torch.train \
+        .distributed import SyncTrainer
+    cfg = DistributedConfig(mode="sync", device="cpu", num_workers=2)
+    assert cfg.compression == "bf16"
+    trainer = SyncTrainer(synthetic_cifar100(n_train=16, n_test=8), cfg)
+    with pytest.raises(NotImplementedError, match="checkpoint slice"):
+        trainer.train(checkpoint_dir="ckpt")
+    with pytest.raises(NotImplementedError, match="multi-card slice"):
+        make_mesh(2, ["cuda:0", "cuda:1"])
     with pytest.raises(ValueError):
         DistributedConfig(mode="tp", device="cpu")
+    with pytest.raises(ValueError):
+        DistributedConfig(mode="sync", compression="int4", device="cpu")

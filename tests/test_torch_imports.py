@@ -41,10 +41,13 @@ def test_port_files_exist():
                      "ps/store.py", "ps/worker.py", "telemetry/registry.py",
                      "telemetry/spans.py", "telemetry/trace.py",
                      "telemetry/goodput.py", "train/steps.py",
-                     "train/distributed.py", "utils/pytree.py",
+                     "train/distributed.py", "train/optimizers.py",
+                     "train/train_state.py", "parallel/mesh.py",
+                     "parallel/sync_dp.py", "utils/pytree.py",
                      "utils/metrics.py"):
         assert required in names, required
-    assert (PORT / "ops" / "csrc" / "wire_quantize.cu").is_file()
+    for kernel in ("wire_quantize.cu", "block_quantize.cu"):
+        assert (PORT / "ops" / "csrc" / kernel).is_file(), kernel
 
 
 @pytest.mark.parametrize("path", _files(), ids=lambda p: p.name)
@@ -111,15 +114,51 @@ def test_wire_quantize_counts_only_kernel_launches():
         Q.wire_quantize_flat(torch.ones(4, device="meta"), 0.5, 127)
 
 
-def test_nvcc_command_flags():
+@pytest.mark.parametrize("kernel", ["wire_quantize", "block_quantize"])
+def test_nvcc_command_flags(kernel):
     from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
         _build
-    cmd = _build.nvcc_command(_build.CSRC / "wire_quantize.cu",
+    cmd = _build.nvcc_command(_build.CSRC / f"{kernel}.cu",
                               pathlib.Path("out.so"))
     joined = " ".join(cmd)
     assert "arch=compute_90a,code=sm_90a" in joined
     assert "--fmad=false" in cmd and "-O3" in cmd
     assert "--use_fast_math" not in joined
-    lib = _build.library_path("wire_quantize")
+    lib = _build.library_path(kernel)
     assert lib.parent == _build.BUILD_DIR and lib.name.endswith(".so")
     assert "build" in lib.parts
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    """A kernel that cannot be built raises; nothing falls back."""
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
+        _build
+    class FailingNvcc:
+        returncode = 1
+
+        def __init__(self, cmd, **kwargs):
+            assert cmd[0] == _build.nvcc_path()
+
+        def communicate(self):
+            return "error: no such target", None
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build.subprocess, "Popen", FailingNvcc)
+    with pytest.raises(RuntimeError, match="nvcc failed for block_quantize"):
+        _build.build_all(["wire_quantize", "block_quantize"])
+    assert list(tmp_path.iterdir()) == []
+
+
+def test_sync_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    from distributed_parameter_server_for_ml_training_tpu_torch.parallel \
+        import make_mesh
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh(4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        from distributed_parameter_server_for_ml_training_tpu_torch import \
+            cli
+        cli.main(["train", "--mode", "sync", "--workers", "1", "--epochs",
+                  "1", "--synthetic", "--num-train", "64", "--num-test",
+                  "16"])

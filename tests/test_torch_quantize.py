@@ -115,3 +115,219 @@ def test_kernel_launches_on_the_tensors_device():
         assert torch.cuda.current_device() == 0
     assert got.device == xd.device
     assert torch.equal(got, want)
+
+
+# -- block-wise int8: K2, K3, K4 -------------------------------------------
+
+from distributed_parameter_server_for_ml_training_tpu.ops.pallas import \
+    quantize as JQ  # noqa: E402
+
+# The shapes of test_quantize.py:13-68 (padding, one 32-row block, tiles
+# of 256 rows, zeros, empty, extremes, an outlier in block 0).
+BLOCK_CASES = {
+    "normal_1000x37": lambda r: r.normal(size=(1000, 37)),
+    "ones_513": lambda r: np.ones(513),
+    "ones_3_blocks_plus_5": lambda r: np.ones(3 * 256 * 128 + 5),
+    "zeros_256": lambda r: np.zeros(256),
+    "empty": lambda r: np.zeros(0),
+    "empty_0x3": lambda r: np.zeros((0, 3)),
+    "extremes": lambda r: np.array([127.0, -127.0, 0.0, 1.0]),
+    "outlier_2_blocks": lambda r: np.where(np.arange(2 * 256 * 128) == 0,
+                                           1000.0, 0.01),
+    "half_steps": lambda r: (r.integers(-127, 127, 4097) + 0.5) / 127.0,
+}
+
+
+def _block_input(case, seed=0):
+    return BLOCK_CASES[case](np.random.default_rng(seed)).astype(np.float32)
+
+
+@pytest.mark.parametrize("rows", [0, 1, 31, 32, 33, 255, 256, 257, 512, 22016])
+def test_block_rows_for_matches_jax(rows):
+    assert Q.block_rows_for(rows) == JQ.block_rows_for(rows)
+    n = rows * 128 - 5 if rows else 0
+    _, jn, jrows = JQ._pad_to_blocks(np.zeros(n, np.float32))
+    rows_padded, br, n_blocks = Q.block_layout(n)
+    assert rows_padded == jrows and br == JQ.block_rows_for(jrows)
+    assert n_blocks == jrows // br
+
+
+@pytest.mark.parametrize("case", sorted(BLOCK_CASES))
+def test_plain_quantize_bit_equal_to_jax(case):
+    x = _block_input(case)
+    jv, js = JQ.quantize_int8(jnp.asarray(x))
+    tv, ts = Q.quantize_int8(torch.from_numpy(x))
+    assert tv.dtype == torch.int8 and ts.dtype == torch.float32
+    assert tuple(tv.shape) == jv.shape and tuple(ts.shape) == js.shape
+    assert tv.numpy().tobytes() == np.asarray(jv).tobytes()
+    assert ts.numpy().tobytes() == np.asarray(js).tobytes()
+
+
+@pytest.mark.parametrize("case", sorted(BLOCK_CASES))
+def test_plain_dequantize_bit_equal_to_jax(case):
+    x = _block_input(case)
+    jv, js = JQ.quantize_int8(jnp.asarray(x))
+    want = np.asarray(JQ.dequantize_int8(jv, js, x.shape))
+    got = Q.dequantize_int8(torch.from_numpy(np.asarray(jv)),
+                            torch.from_numpy(np.asarray(js)), x.shape)
+    assert tuple(got.shape) == want.shape
+    assert got.numpy().tobytes() == want.tobytes()
+
+
+def test_scale_is_the_reference_reciprocal_multiply():
+    """XLA computes the reference's ``abs_max / 127.0`` as a multiply by
+    the fp32 reciprocal; the two differ in one ulp for some values, and
+    the port's scale is the multiply's, bit for bit."""
+    amax = np.float32(8.011322)
+    x = np.zeros(300, np.float32)
+    x[7] = amax
+    _, js = JQ.quantize_int8(jnp.asarray(x))
+    _, ts = Q.quantize_int8(torch.from_numpy(x))
+    want = amax * np.float32(1 / 127)
+    assert want != amax / np.float32(127)
+    assert float(ts[0]) == float(js[0]) == float(want)
+
+
+def test_quantize_dequantize_error_bound():
+    x = torch.from_numpy(_block_input("normal_1000x37"))
+    err = (Q.quantize_dequantize_int8(x) - x).abs()
+    assert float(err.max()) <= float(x.abs().max()) / 127.0
+    assert tuple(Q.quantize_dequantize_int8(torch.zeros(0, 3)).shape) == (0,
+                                                                         3)
+
+
+@pytest.mark.parametrize("counter,key,want", [
+    ((0, 0, 0, 0), (0, 0),
+     (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF, 0xFFFFFFFF),
+     (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+     (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+])
+def test_philox_known_answers(counter, key, want):
+    """Philox4x32-10's published known-answer vectors (Random123)."""
+    words = Q.philox4x32_10([torch.tensor(c) for c in counter],
+                            [torch.tensor(k) for k in key])
+    assert tuple(int(w) for w in words) == want
+
+
+def test_uniform24_layout():
+    """Element e of a row takes word e % 4 of Philox at counter e // 4,
+    keyed by the row's 64-bit seed split into two 32-bit words."""
+    seed = 0x0123456789ABCDEF
+    u = Q.uniform24_plain([seed, 7], 16)
+    w = Q.philox4x32_10([torch.tensor(2), torch.tensor(0), torch.tensor(0),
+                         torch.tensor(0)],
+                        [torch.tensor(0x89ABCDEF), torch.tensor(0x01234567)])
+    assert float(u[0, 9]) == (int(w[1]) >> 8) / 2 ** 24
+    assert u.dtype == torch.float32 and tuple(u.shape) == (2, 16)
+    assert float(u.min()) >= 0 and float(u.max()) < 1
+    assert not torch.equal(u[0], u[1])
+    # a seed with the top bit set is the same 64 bits as its negative
+    assert torch.equal(Q.uniform24_plain([2 ** 64 - 3], 8),
+                       Q.uniform24_plain([-3], 8))
+
+
+def _stochastic_codes(x, seed):
+    v, s = Q.quantize_int8(torch.from_numpy(x), seed, stochastic=True)
+    br = Q.block_layout(x.size)[1] * 128
+    scale = np.repeat(s.numpy(), br)[:x.size]
+    return v.numpy().reshape(-1)[:x.size].astype(np.float64), scale, v
+
+
+def test_plain_stochastic_codes_are_floor_or_floor_plus_one():
+    x = _block_input("outlier_2_blocks") * np.random.default_rng(1).normal(
+        size=2 * 256 * 128).astype(np.float32)
+    q, scale, v = _stochastic_codes(x, 3)
+    fl = np.floor(x / scale)
+    assert np.all((q == np.clip(fl, -127, 127)) | (q == np.clip(fl + 1, -127,
+                                                                127)))
+    assert np.abs(q).max() <= 127
+    # padding quantizes to code 0 in both modes
+    v1, _ = Q.quantize_int8(torch.ones(513), 9, stochastic=True)
+    assert int(v1.reshape(-1)[513:].abs().max()) == 0
+
+
+def test_plain_stochastic_rounding_is_unbiased():
+    x = np.random.default_rng(4).normal(size=4096).astype(np.float32)
+    total = np.zeros(4096)
+    for seed in range(200):
+        q, scale, _ = _stochastic_codes(x, seed)
+        total += q * scale
+    err = total / 200 - x
+    scale = float(np.abs(x).max()) / 127
+    # per element: mean of 200 draws, sd <= scale / (2 sqrt(200))
+    assert abs(float(err.mean())) < 0.01 * scale
+    assert float(np.abs(err).max()) < 0.3 * scale
+
+
+def test_plain_stochastic_seeds():
+    x = torch.from_numpy(_block_input("normal_1000x37"))
+    a = Q.quantize_int8(x, 5, stochastic=True)[0]
+    b = Q.quantize_int8(x, 5, stochastic=True)[0]
+    c = Q.quantize_int8(x, 6, stochastic=True)[0]
+    assert torch.equal(a, b) and not torch.equal(a, c)
+
+
+def test_batch_of_rows_equals_one_row_at_a_time():
+    """One launch over N rows (row stride odd, a strided view) gives each
+    row's own quantization; row r draws from seeds[r]."""
+    full = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(3, 40_001)).astype(np.float32))
+    rows = full[:, :40_000]         # stride 40,001: not 16-byte aligned
+    v, s = Q.block_quantize(rows)
+    vs, ss = Q.block_quantize_stochastic(rows, [1, 2, 3])
+    for r in range(3):
+        v1, s1 = Q.quantize_int8(rows[r].contiguous())
+        assert torch.equal(v[r], v1) and torch.equal(s[r], s1)
+        w1, t1 = Q.quantize_int8(rows[r].contiguous(), r + 1, stochastic=True)
+        assert torch.equal(vs[r], w1) and torch.equal(ss[r], t1)
+    d = Q.block_dequantize(v, s, 40_000)
+    assert tuple(d.shape) == (3, 40_000)
+    assert torch.equal(d[1], Q.dequantize_int8(v[1], s[1], (40_000,)))
+
+
+def test_block_wrappers_count_only_kernel_launches():
+    counts = (Q.block_quantize.launches, Q.block_quantize_stochastic.launches,
+              Q.block_dequantize.launches)
+    Q.quantize_dequantize_int8(torch.ones(300))
+    Q.quantize_dequantize_int8(torch.ones(300), stochastic=True, seed=1)
+    assert (Q.block_quantize.launches, Q.block_quantize_stochastic.launches,
+            Q.block_dequantize.launches) == counts
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        Q.block_quantize(torch.ones(2, 4, device="meta"))
+    with pytest.raises(ValueError, match="one seed per row"):
+        Q.block_quantize_stochastic(torch.ones(2, 4), [1])
+    with pytest.raises(ValueError):
+        Q.block_quantize(torch.ones(2, 4, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        Q.block_dequantize(torch.zeros(1, 32, 128, dtype=torch.int8),
+                           torch.ones(1, 2), 100)
+
+
+@pytest.mark.cuda
+def test_block_kernels_match_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernels run only on the card")
+    before = (Q.block_quantize.launches, Q.block_quantize_stochastic.launches,
+              Q.block_dequantize.launches)
+    for case in sorted(BLOCK_CASES):
+        x = torch.from_numpy(_block_input(case)).reshape(1, -1)
+        xd = x.cuda()
+        got = Q.block_quantize(xd)
+        want = Q.quantize_int8_plain(xd)
+        gots = Q.block_quantize_stochastic(xd, [17])
+        wants = Q.quantize_int8_plain(xd, [17], stochastic=True)
+        back = Q.block_dequantize(*got, x.shape[1])
+        torch.cuda.synchronize()
+        for a, b in zip(got + gots, want + wants):
+            assert torch.equal(a, b), case
+        assert torch.equal(back, Q.dequantize_int8_plain(*want, x.shape[1]))
+        ref, _ = JQ.quantize_int8(jnp.asarray(x.numpy()))
+        assert got[0][0].cpu().numpy().tobytes() == np.asarray(
+            ref).tobytes(), case
+    n_nonempty = sum(_block_input(c).size > 0 for c in BLOCK_CASES)
+    assert (Q.block_quantize.launches - before[0],
+            Q.block_quantize_stochastic.launches - before[1],
+            Q.block_dequantize.launches - before[2]) == (n_nonempty,) * 3
