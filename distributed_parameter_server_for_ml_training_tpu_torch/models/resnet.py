@@ -37,7 +37,9 @@ channels): convolutions are grouped over the slots, BatchNorm averages
 each slot's statistics over all slots (the ``pmean``) and applies each
 slot's own affine, and the head runs per slot. The running statistics
 are updated once, with the averaged batch statistics, as every replica
-of the JAX model updates them identically.
+of the JAX model updates them identically. ``forward(x)`` is the same
+program over one slot: each parameter as a ``[1, ...]`` leaf, for which a
+grouped conv is the plain conv and the mean over slots is the identity.
 
 Weights are drawn from an explicit ``torch.Generator`` with flax's
 initializers (lecun-normal kernels, zero biases, unit BN scales).
@@ -53,7 +55,21 @@ import torch.nn.functional as F
 from torch import nn
 
 
-class Conv(nn.Conv2d):
+def _key(name: str, leaf: str) -> str:
+    return f"{name}.{leaf}" if name else leaf
+
+
+class _OneSlot:
+    """``forward(x)`` is ``forward_slots`` over one slot, with the module's
+    own parameters as ``[1, ...]`` leaves: slot-major activations
+    ``[B, 1*C, ...]`` are the plain ones."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.forward_slots(
+            x, {k: p[None] for k, p in self.named_parameters()})
+
+
+class Conv(_OneSlot, nn.Conv2d):
     """Bias-free conv computing in ``dtype`` with fp32 weights."""
 
     def __init__(self, in_features: int, features: int, kernel: int,
@@ -63,24 +79,19 @@ class Conv(nn.Conv2d):
                          padding=padding, bias=False)
         self.compute_dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x.to(self.compute_dtype),
-                        self.weight.to(self.compute_dtype), None,
-                        self.stride, self.padding)
-
     def forward_slots(self, x: torch.Tensor, params: dict,
-                      name: str) -> torch.Tensor:
+                      name: str = "") -> torch.Tensor:
         """``[B, N*I, H, W]`` with ``params[name + '.weight']`` of shape
         ``[N, O, I, kh, kw]`` -> ``[B, N*O, H', W']``: one conv grouped
         over the N slots."""
-        w = params[f"{name}.weight"]
+        w = params[_key(name, "weight")]
         n = w.shape[0]
         w = w.to(self.compute_dtype).reshape(n * w.shape[1], *w.shape[2:])
         return F.conv2d(x.to(self.compute_dtype), w, None, self.stride,
                         self.padding, groups=n)
 
 
-class Dense(nn.Linear):
+class Dense(_OneSlot, nn.Linear):
     """Linear layer computing in ``dtype`` with fp32 weights."""
 
     def __init__(self, in_features: int, features: int,
@@ -88,21 +99,19 @@ class Dense(nn.Linear):
         super().__init__(in_features, features)
         self.compute_dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        d = self.compute_dtype
-        return F.linear(x.to(d), self.weight.to(d), self.bias.to(d))
-
     def forward_slots(self, x: torch.Tensor, params: dict,
-                      name: str) -> torch.Tensor:
-        """``[B, N, I]`` with per-slot weight ``[N, O, I]`` and bias
-        ``[N, O]`` -> ``[N, B, O]``, one batched product over the slots."""
+                      name: str = "") -> torch.Tensor:
+        """``[B, N*I]`` with per-slot weight ``[N, O, I]`` and bias
+        ``[N, O]`` -> ``[B, N*O]``, one batched product over the slots."""
         d = self.compute_dtype
-        w, b = params[f"{name}.weight"], params[f"{name}.bias"]
-        return torch.baddbmm(b.to(d).unsqueeze(1), x.to(d).transpose(0, 1),
-                             w.to(d).transpose(1, 2))
+        w, b = params[_key(name, "weight")], params[_key(name, "bias")]
+        n, batch = w.shape[0], x.shape[0]
+        x = x.to(d).view(batch, n, -1).transpose(0, 1)
+        y = torch.baddbmm(b.to(d).unsqueeze(1), x, w.to(d).transpose(1, 2))
+        return y.transpose(0, 1).reshape(batch, -1)
 
 
-class BatchNorm(nn.Module):
+class BatchNorm(_OneSlot, nn.Module):
     """flax ``nn.BatchNorm`` over NCHW channels (see the module notes).
 
     In training mode it normalizes with the batch statistics and updates
@@ -123,38 +132,19 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.to(torch.float32)
-        if self.training:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
-                              min=0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean
-                                        + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var
-                                       + (1 - m) * var)
-        else:
-            mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean[:, None, None]) * mul[:, None, None] \
-            + self.bias[:, None, None]
-        return y.to(self.compute_dtype)
-
     def forward_slots(self, x: torch.Tensor, params: dict,
-                      name: str) -> torch.Tensor:
+                      name: str = "") -> torch.Tensor:
         """``[B, N*C, H, W]`` with per-slot scale and bias ``[N, C]``.
 
         Training: each slot's mean and mean of squares are averaged over
         the slots (flax's ``pmean`` over ``axis_name``), the variance is
         taken from the averages, and the running statistics are updated
         once with them. Eval: the running statistics."""
-        w, b = params[f"{name}.weight"], params[f"{name}.bias"]
+        w, b = params[_key(name, "weight")], params[_key(name, "bias")]
         n, c = w.shape
         xf = x.to(torch.float32).reshape(x.shape[0], n, c, *x.shape[2:])
         if self.training:
-            if self.axis_name is None:
+            if n > 1 and self.axis_name is None:
                 raise ValueError("a slotted forward in training needs "
                                  "cross-replica BatchNorm: build the model "
                                  "with axis_name")
@@ -175,7 +165,7 @@ class BatchNorm(nn.Module):
         return y.to(self.compute_dtype).view(x.shape)
 
 
-class BasicBlock(nn.Module):
+class BasicBlock(_OneSlot, nn.Module):
     """Two 3x3 convs + identity shortcut (1x1 conv when shape changes)."""
 
     def __init__(self, in_features: int, features: int, strides: int = 1,
@@ -195,17 +185,11 @@ class BasicBlock(nn.Module):
             self.BatchNorm_2 = BatchNorm(features, dtype=dtype,
                                          axis_name=axis_name)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
-        y = self.BatchNorm_1(self.Conv_1(y))
-        residual = self.BatchNorm_2(self.Conv_2(x)) if self.shortcut else x
-        return F.relu(y + residual)
-
     def forward_slots(self, x: torch.Tensor, params: dict,
-                      name: str) -> torch.Tensor:
-        """:meth:`forward` over slot-major activations (module notes)."""
+                      name: str = "") -> torch.Tensor:
+        """Over slot-major activations ``[B, N*C, H, W]`` (module notes)."""
         def sub(mod):
-            return f"{name}.{mod}"
+            return _key(name, mod)
 
         y = self.Conv_0.forward_slots(x, params, sub("Conv_0"))
         y = F.relu(self.BatchNorm_0.forward_slots(y, params,
@@ -249,12 +233,9 @@ class ResNet(nn.Module):
         init_weights(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.dtype).permute(0, 3, 1, 2)
-        x = F.relu(self.stem_bn(self.stem_conv(x)))
-        for i in range(self.n_blocks):
-            x = getattr(self, f"BasicBlock_{i}")(x)
-        x = x.mean(dim=(2, 3))
-        return self.head(x).to(torch.float32)
+        """NHWC images ``[B, H, W, C]`` -> fp32 logits: one slot."""
+        params = {k: p[None] for k, p in self.named_parameters()}
+        return self.forward_slots(x[None], params)[0]
 
     def forward_slots(self, x: torch.Tensor, params: dict) -> torch.Tensor:
         """All N slots at once: NHWC images ``[N, B, H, W, C]`` and one leaf
@@ -267,8 +248,8 @@ class ResNet(nn.Module):
         for i in range(self.n_blocks):
             name = f"BasicBlock_{i}"
             x = getattr(self, name).forward_slots(x, params, name)
-        x = x.mean(dim=(2, 3)).view(b, n, -1)
-        return self.head.forward_slots(x, params, "head").to(torch.float32)
+        x = self.head.forward_slots(x.mean(dim=(2, 3)), params, "head")
+        return x.view(b, n, -1).transpose(0, 1).to(torch.float32)
 
 
 def init_weights(module: nn.Module,

@@ -57,58 +57,27 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def _start(name: str) -> tuple[subprocess.Popen, str]:
-    """Start nvcc on ``csrc/<name>.cu`` into a temporary file beside the
-    library; returns the process and the temporary path."""
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless the library for this exact source
+    exists. Raises ``RuntimeError`` with nvcc's output on failure."""
+    out = library_path(name)
+    if out.exists():
+        return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.Popen(nvcc_command(CSRC / f"{name}.cu", Path(tmp)),
-                                stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-    except BaseException:
-        os.unlink(tmp)
-        raise
-    return proc, tmp
-
-
-def _finish(name: str, proc: subprocess.Popen, tmp: str) -> Path:
-    try:
-        output, _ = proc.communicate()
+        proc = subprocess.run(nvcc_command(CSRC / f"{name}.cu", Path(tmp)),
+                              capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu "
-                               f"(rc {proc.returncode}):\n{output}")
-        out = library_path(name)
+                               f"(rc {proc.returncode}):\n{proc.stdout}"
+                               f"{proc.stderr}")
         os.replace(tmp, out)   # atomic: a reader never sees a partial file
-        return out
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-
-
-def build_all(names) -> dict[str, Path]:
-    """Compile every ``csrc/<name>.cu`` whose library for this exact source
-    is missing, one nvcc per source, all started together. Raises
-    ``RuntimeError`` with nvcc's output if any build fails (after all have
-    ended)."""
-    started = {n: _start(n) for n in dict.fromkeys(names)
-               if not library_path(n).exists()}
-    errors, done = [], {}
-    for n, (proc, tmp) in started.items():
-        try:
-            done[n] = _finish(n, proc, tmp)
-        except RuntimeError as e:
-            errors.append(str(e))
-    if errors:
-        raise RuntimeError("\n".join(errors))
-    return {n: done.get(n) or library_path(n) for n in names}
-
-
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless the library for this exact source
-    exists. Raises ``RuntimeError`` with nvcc's output on failure."""
-    return build_all([name])[name]
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -233,8 +233,7 @@ def ravel_slots(grads: Mapping[str, torch.Tensor]
 
 def make_sync_dp_step(mesh: Mesh, model: torch.nn.Module, *,
                       axis: str = DATA_AXIS, compression: str = "bf16",
-                      augment: bool = True,
-                      stochastic_rounding: bool = True) -> Callable:
+                      augment: bool = True) -> Callable:
     """Build the sync data-parallel ``step(state, images_u8, labels, seed)
     -> (state, metrics)`` over ``model``'s slots.
 
@@ -242,9 +241,8 @@ def make_sync_dp_step(mesh: Mesh, model: torch.nn.Module, *,
     BatchNorm), as the JAX step requires. ``images_u8``/``labels`` come
     from :func:`shard_batch` (``[N, B, ...]``); ``seed`` is the run's
     seed, folded with ``state.step`` for the augmentation draws and the
-    ring's hop seeds. ``stochastic_rounding`` is the ring's rounding (the
-    reference's is stochastic; nearest rounding is the JAX CPU path's).
-    Metrics: ``loss`` and ``accuracy`` averaged over the slots, per-slot
+    ring's hop seeds; the ring rounds stochastically, as the reference's
+    does. Metrics: ``loss`` and ``accuracy`` averaged over the slots, per-slot
     ``worker_loss`` and ``worker_accuracy`` ``[N]`` (0-dim and ``[N]``
     tensors: no host sync), and for int8 ``ring_replicas_identical`` (the
     ring's rows are bit-equal) and ``wire_bytes_per_slot`` (the bytes each
@@ -279,9 +277,8 @@ def make_sync_dp_step(mesh: Mesh, model: torch.nn.Module, *,
         metrics = {}
         if compression == "int8":
             wire = {}
-            ring = _int8_ring_allreduce_mean(
-                flat, mix_seed(rng, RING_TAG),
-                stochastic=stochastic_rounding, wire=wire)
+            ring = _int8_ring_allreduce_mean(flat, mix_seed(rng, RING_TAG),
+                                             wire=wire)
             mean = ring[0]
             metrics["ring_replicas_identical"] = (ring == ring[:1]).all()
             metrics["wire_bytes_per_slot"] = wire.get("bytes_per_slot", 0)

@@ -3,6 +3,7 @@ package, and never continues on the CPU when CUDA is asked for."""
 
 import ast
 import pathlib
+import subprocess
 
 import pytest
 import torch
@@ -129,23 +130,21 @@ def test_nvcc_command_flags(kernel):
     assert "build" in lib.parts
 
 
-def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+@pytest.mark.parametrize("kernel", ["wire_quantize", "block_quantize"])
+def test_build_without_nvcc_raises(monkeypatch, tmp_path, kernel):
     """A kernel that cannot be built raises; nothing falls back."""
     from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
         _build
-    class FailingNvcc:
-        returncode = 1
 
-        def __init__(self, cmd, **kwargs):
-            assert cmd[0] == _build.nvcc_path()
-
-        def communicate(self):
-            return "error: no such target", None
+    def failing_nvcc(cmd, **kwargs):
+        assert cmd[0] == _build.nvcc_path()
+        return subprocess.CompletedProcess(cmd, 1, "",
+                                           "error: no such target")
 
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
-    monkeypatch.setattr(_build.subprocess, "Popen", FailingNvcc)
-    with pytest.raises(RuntimeError, match="nvcc failed for block_quantize"):
-        _build.build_all(["wire_quantize", "block_quantize"])
+    monkeypatch.setattr(_build.subprocess, "run", failing_nvcc)
+    with pytest.raises(RuntimeError, match=f"nvcc failed for {kernel}"):
+        _build.build(kernel)
     assert list(tmp_path.iterdir()) == []
 
 

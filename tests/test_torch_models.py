@@ -72,6 +72,29 @@ def test_logits_match_flax(train):
                                        atol=1e-5, rtol=1e-5, err_msg=k)
 
 
+@pytest.mark.parametrize("train", [False, True])
+def test_forward_is_one_slot_of_forward_slots(train):
+    """Three slots with the same weights and their own images give each
+    slot's one-slot logits (the grouped convs and the per-slot head). In
+    training the statistics are shared over the slots, so the slots see
+    the same images there."""
+    _, _, tm = _pair()
+    tm.axis_name = "data"
+    for m in tm.modules():
+        if isinstance(m, BatchNorm):
+            m.axis_name = "data"
+    x = _images(12).reshape(3, 4, 32, 32, 3)
+    if train:
+        x = np.broadcast_to(x[:1], x.shape).copy()
+    tm.train(train)
+    leaves = {k: p[None].expand(3, *p.shape)
+              for k, p in tm.named_parameters()}
+    with torch.no_grad():
+        got = tm.forward_slots(torch.from_numpy(x), leaves)
+        want = torch.stack([tm(torch.from_numpy(x[i])) for i in range(3)])
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
 def test_batchnorm_updates_with_biased_variance():
     bn = BatchNorm(3)
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
