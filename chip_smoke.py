@@ -43,8 +43,28 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    must be within rtol 0.05 / atol 1e-3 of each other;
 8. a few sync steps under torch.profiler: device busy share and top
    device kernels;
-9. the CLI verb ``train`` in async mode at its default codec and in sync
-   mode with the int8 ring.
+9. kernels K5, K6 and K7 (flash attention forward, dQ, dK/dV) against
+   their plain versions: at the SP path's hop shape [192, 2048, 64] bf16
+   in, fp32 out, O, LSE, dQ, dK and dV within atol/rtol 2e-2; in fp32
+   within 2e-3; T = 197 padded to 256 (kv_len masking); causal with
+   offsets (128, 0); a wholly-future block (0, 2048), which must give
+   O = 0 and LSE <= -1e29; D = 128; two slots with their own offsets in
+   one launch. Times each kernel, its plain version and the library call
+   (``aten._scaled_dot_product_flash_attention`` for K5, its backward for
+   K6 + K7 together) by CUDA events at the hop shape;
+10. the SP path: ``SPTrainer`` with ViT-B/16 (768 wide, 12 layers, 12
+   heads, 1,000 classes, bf16) on synthetic ImageNet at 1024 x 1024
+   (4,096 tokens) over 2 sequence slots of 2,048 tokens, batch 8, 2 steps
+   and one eval batch. K5-K7's counts are reset just before and read just
+   after: K5 must have launched 24 x (steps + eval batches) times, K6 and
+   K7 24 x steps (12 layers x 2 hops, one launch over both slots per
+   hop). Then one layer's ring on real activations with the kernels
+   against the same ring with plain hops on the card, output and
+   gradients within atol/rtol 2e-2;
+11. one SP step under torch.profiler: device busy share and top device
+   kernels;
+12. the CLI verb ``train`` in async mode at its default codec, in sync
+   mode with the int8 ring, and in sp mode on ViT-B/16 at 1024 x 1024.
 
 Then one JSON line of kernels and, last, the device line. Without a CUDA
 device, or outside a checkout of the repo, it exits non-zero and prints
@@ -68,6 +88,7 @@ H100_FP32_OPS_PER_S = 67e12   # fp32 outside the tensor cores, same sheet
 # 32-bit integer operations: 64 INT32 lanes per SM against 128 FP32 lanes
 # (NVIDIA's Hopper white paper), so half the fp32 rate.
 H100_INT32_OPS_PER_S = H100_FP32_OPS_PER_S / 2
+H100_BF16_OPS_PER_S = 989e12  # dense tensor-core bf16, same sheet
 
 
 def emit(obj: dict) -> None:
@@ -115,7 +136,7 @@ def phase_build(state: dict) -> None:
         else f"nvidia-smi failed: {smi.stderr.strip()}"
     print(card, flush=True)
     state["card"] = card
-    names = ["wire_quantize", "block_quantize"]
+    names = ["wire_quantize", "block_quantize", "flash_attention"]
     cached = {n: _build.library_path(n).exists() for n in names}
     t0 = time.perf_counter()
     # One nvcc per source, all started together.
@@ -748,6 +769,353 @@ def phase_sync_profile(state: dict) -> None:
           "card": state["card"]})
 
 
+# -- flash attention (K5-K7) and the SP path ----------------------------------
+
+HOP = (192, 2048, 64)           # [N*B*H, T/N, D] of the SP path's ring hops
+
+
+def _flash_case(bh: int, t: int, d: int, dtype, out_dtype, *, kv_len=None,
+                causal=False, q_offset=0, k_offset=0, seed=0):
+    """K5, K6 and K7 and their plain versions on one input: returns
+    ``{output: (kernel's, plain version's)}`` over the unpadded rows, and
+    the kernel's (O, LSE)."""
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
+        flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn((bh, t, d), generator=gen,
+                               device="cuda").to(dtype) for _ in range(4))
+    kv_len = kv_len or t
+    for x in (q, k, v, do):       # padded rows are zeros, as the caller pads
+        x[:, kv_len:] = 0
+    kw = dict(out_dtype=out_dtype, causal=causal, q_offset=q_offset,
+              k_offset=k_offset)
+    o, lse = fa.flash_fwd(q, k, v, kv_len, **kw)
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, kv_len, **kw)
+    delta = (do.float() * o_p.float()).sum(-1, keepdim=True)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse_p, delta, kv_len, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_p, delta, kv_len,
+                              q_len=kv_len, **kw)
+    dq_p, dk_p, dv_p = fa.flash_bwd_plain(q, k, v, do, lse_p, delta, kv_len,
+                                          **kw)
+    torch.cuda.synchronize()
+    rows = slice(0, kv_len)
+    pairs = {"O": (o[:, rows], o_p[:, rows]),
+             "LSE": (lse[:, rows], lse_p[:, rows]),
+             "dQ": (dq[:, rows], dq_p[:, rows]),
+             "dK": (dk, dk_p), "dV": (dv, dv_p)}
+    return {name: (a.float(), b.float()) for name, (a, b) in pairs.items()}, \
+        (o, lse)
+
+
+def _flash_bounds(bh: int, t: int, d: int) -> dict:
+    """Least time of each kernel's work at ``[bh, t, d]`` bf16 in, fp32
+    out, non-causal: max(FLOPs at the bf16 tensor-core peak, bytes (each
+    input read once, each output written once) at the HBM rate)."""
+    mat = bh * t * t * d
+    io_in, row = 2 * bh * t * d, 4 * bh * t
+    work = {"flash_fwd": (4 * mat, 3 * io_in + 4 * bh * t * d + row),
+            "flash_bwd_dq": (6 * mat, 4 * io_in + 2 * row + 4 * bh * t * d),
+            "flash_bwd_dkv": (8 * mat,
+                              4 * io_in + 2 * row + 8 * bh * t * d)}
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        ops_ms = flops / H100_BF16_OPS_PER_S * 1e3
+        bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+        out[name] = (max(ops_ms, bytes_ms),
+                     "operations" if ops_ms >= bytes_ms else "bytes")
+    return out
+
+
+def phase_kernel_flash(state: dict) -> None:
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
+        flash_attention as fa
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    bh, t, d = HOP
+    cases = {   # name: (args, kwargs, tolerance)
+        "hop_bf16_fp32out": ((bh, t, d, bf16, f32), {}, 2e-2),
+        "hop_fp32": ((bh, t, d, f32, f32), {}, 2e-3),
+        "t197_padded256_bf16": ((64, 256, 64, bf16, bf16),
+                                dict(kv_len=197), 2e-2),
+        "t197_padded256_fp32": ((64, 256, 64, f32, f32),
+                                dict(kv_len=197), 2e-3),
+        "causal_128_0_bf16": ((64, 256, 64, bf16, f32),
+                              dict(causal=True, q_offset=128), 2e-2),
+        "causal_128_0_fp32": ((64, 256, 64, f32, f32),
+                              dict(causal=True, q_offset=128), 2e-3),
+        "two_slots_causal_fp32": ((64, 256, 64, f32, f32),
+                                  dict(causal=True, q_offset=[0, 256],
+                                       k_offset=[0, 0]), 2e-3),
+        "d128_bf16": ((48, 512, 128, bf16, f32), {}, 2e-2),
+        "d128_fp32": ((48, 512, 128, f32, f32), dict(causal=True), 2e-3),
+    }
+    errors, bad = {}, []
+    hop_err = {}
+    for name, (args, kw, tol) in cases.items():
+        pairs, _ = _flash_case(*args, **kw)
+        errors[name] = {}
+        for out, (a, b) in pairs.items():
+            errors[name][out] = float((a - b).abs().max())
+            if not torch.allclose(a, b, atol=tol, rtol=tol):
+                bad.append((name, out))
+        if name == "hop_bf16_fp32out":
+            hop_err = errors[name]
+        del pairs
+        torch.cuda.empty_cache()
+    # A block wholly in the future of every query: no key tile runs.
+    _, (o, lse) = _flash_case(64, 256, 64, f32, f32, causal=True,
+                              k_offset=2048)
+    future = {"O_max_abs": float(o.abs().max()),
+              "LSE_max": float(lse.max())}
+    if future["O_max_abs"] != 0.0 or future["LSE_max"] > -1e29:
+        bad.append(("future_block", future))
+
+    # Times at the hop shape, bf16 in and fp32 out, as the ring runs them.
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, do = (torch.randn((bh, t, d), generator=gen,
+                               device="cuda").to(bf16) for _ in range(4))
+    o, lse = fa.flash_fwd(q, k, v, t, out_dtype=f32)
+    delta = (do.float() * o).sum(-1, keepdim=True)
+    q4, k4, v4, do4 = (x.view(bh // 12, 12, t, d) for x in (q, k, v, do))
+    lib = torch.ops.aten._scaled_dot_product_flash_attention(q4, k4, v4)
+    kernels = {
+        "flash_fwd": lambda: fa.flash_fwd(q, k, v, t, out_dtype=f32),
+        "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, t,
+                                                out_dtype=f32),
+        "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                  t, out_dtype=f32)}
+    # K6's and K7's plain version is one function, the dense backward
+    # (dQ, dK and dV together), as is the library's backward call.
+    plain = {"fwd": lambda: fa.flash_fwd_plain(q, k, v, t, out_dtype=f32),
+             "bwd": lambda: fa.flash_bwd_plain(q, k, v, do, lse, delta, t,
+                                               out_dtype=f32)}
+    library = {
+        "fwd": lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+            q4, k4, v4),
+        "bwd": lambda: torch.ops.aten
+        ._scaled_dot_product_flash_attention_backward(
+            do4, q4, k4, v4, lib[0], lib[1], lib[2], lib[3], lib[4], lib[5],
+            0.0, False, lib[6], lib[7])}
+    bounds = _flash_bounds(bh, t, d)
+    err = {"flash_fwd": max(hop_err["O"], hop_err["LSE"]),
+           "flash_bwd_dq": hop_err["dQ"],
+           "flash_bwd_dkv": max(hop_err["dK"], hop_err["dV"])}
+    state["flash"] = {}
+    for name, fk in kernels.items():
+        key = "fwd" if name == "flash_fwd" else "bwd"
+        plain_ms = [cuda_time_ms(plain[key], 3)]
+        ms = [cuda_time_ms(fk, 20), cuda_time_ms(fk, 20)]
+        plain_ms.append(cuda_time_ms(plain[key], 3))
+        lib_ms = [cuda_time_ms(library[key], 20),
+                  cuda_time_ms(library[key], 20)]
+        bound_ms, bound_by = bounds[name]
+        state["flash"][name] = {
+            "ms": min(ms), "plain_ms": min(plain_ms), "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": min(lib_ms),
+            "max_abs_err": err[name]}
+        emit({"phase": "kernel_flash_vs_plain", "kernel": name,
+              "shape": list(HOP), "dtype": "bfloat16 in, float32 out",
+              "ms_runs": ms, "plain_ms_runs": plain_ms,
+              "library_ms_runs": lib_ms,
+              "library_call": ("aten._scaled_dot_product_flash_attention"
+                               if key == "fwd" else
+                               "aten._scaled_dot_product_flash_attention_"
+                               "backward (dQ, dK and dV together)"),
+              "bound_ms": bound_ms, "bound_by": bound_by,
+              "tflops": {"flash_fwd": 4, "flash_bwd_dq": 6,
+                         "flash_bwd_dkv": 8}[name] * bh * t * t * d
+              / min(ms) / 1e9,
+              "card": state["card"]})
+    emit({"phase": "kernel_flash_vs_plain", "cases": errors,
+          "future_block": future, "outside_tolerance": bad,
+          "card": state["card"]})
+    if bad:
+        raise AssertionError(f"K5-K7 differ from their plain versions: "
+                             f"{bad}")
+
+
+SP_STEPS, SP_BATCH, SP_SLOTS, SP_IMAGE = 2, 8, 2, 1024
+
+
+def sp_trainer(steps: int, n_test: int, seed: int = 0):
+    """The SP path's trainer: ViT-B/16 (bf16, 1,000 classes) on synthetic
+    ImageNet at 1024 x 1024 over 2 sequence slots, batch 8."""
+    from distributed_parameter_server_for_ml_training_tpu_torch.data import \
+        synthetic_imagenet
+    from distributed_parameter_server_for_ml_training_tpu_torch.train \
+        .model_parallel import ModelParallelConfig, SPTrainer
+
+    ds = synthetic_imagenet(n_train=SP_BATCH * steps, n_test=n_test,
+                            image_size=SP_IMAGE, seed=seed)
+    return SPTrainer(ds, ModelParallelConfig(
+        model="vit_b16", num_workers=SP_SLOTS, batch_size=SP_BATCH,
+        num_epochs=1, num_classes=ds.num_classes, dtype="bfloat16",
+        device="cuda", seed=seed))
+
+
+def _flash_counts() -> dict:
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
+        flash_attention as fa
+
+    return {"flash_fwd": fa.flash_fwd.launches,
+            "flash_bwd_dq": fa.flash_bwd_dq.launches,
+            "flash_bwd_dkv": fa.flash_bwd_dkv.launches}
+
+
+def _reset_flash_counts() -> None:
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
+        flash_attention as fa
+
+    fa.flash_fwd.launches = 0
+    fa.flash_bwd_dq.launches = 0
+    fa.flash_bwd_dkv.launches = 0
+
+
+def phase_sp_path(state: dict) -> None:
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.data.cifar \
+        import standardize, to_float
+    from distributed_parameter_server_for_ml_training_tpu_torch.parallel \
+        .ring_attention import make_ring_flash_attention
+
+    trainer = sp_trainer(SP_STEPS, n_test=SP_BATCH)
+    if not trainer.flash or trainer.tokens != 4096:
+        raise AssertionError(f"SP path not on the flash ring (flash "
+                             f"{trainer.flash}, {trainer.tokens} tokens)")
+    model = trainer.model
+    init = {k: v.clone() for k, v in trainer.state.params.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_flash_counts()
+    t0 = time.perf_counter()
+    metrics = trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _flash_counts()
+    state["sp_counts"] = counts
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = trainer.global_steps
+    eval_batches = -(-len(trainer.dataset.x_test) // 1000)
+    moved = sum(not torch.equal(init[k], v)
+                for k, v in trainer.state.params.items())
+    finite = all(math.isfinite(v) for v in trainer.train_loss_per_epoch) \
+        and all(bool(torch.isfinite(v).all())
+                for v in trainer.state.params.values())
+
+    # Step time at the path's shapes, by CUDA events.
+    xb, yb = trainer.dataset.x_train[:SP_BATCH], \
+        trainer.dataset.y_train[:SP_BATCH]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    times = []
+    for i in range(4):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        trainer._step(trainer.state, xb, yb, gen)
+        b.record()
+        torch.cuda.synchronize()
+        if i:
+            times.append(a.elapsed_time(b))
+
+    # One layer's ring on real activations: kernels against plain hops.
+    # The input of block 0's attention, from one forward of the model.
+    captured = {}
+    hook = model.block_0.attn.register_forward_pre_hook(
+        lambda mod, args: captured.setdefault("x", args[0]))
+    with torch.no_grad():
+        model(standardize(to_float(torch.as_tensor(xb, device="cuda"))))
+        hook.remove()
+        qkv = model.block_0.attn.qkv(captured.pop("x")).view(
+            SP_BATCH, trainer.tokens, 3, 12, 64)
+    ring_err = {}
+    outs = {}
+    cot = torch.randn((SP_BATCH, 4096, 12, 64), device="cuda",
+                      generator=gen).to(torch.bfloat16)
+    for kind in ("kernel", "plain"):
+        ring = make_ring_flash_attention(trainer.mesh,
+                                         use_kernel=kind == "kernel")
+        q, k, v = (qkv[:, :, i].detach().clone().requires_grad_()
+                   for i in range(3))
+        out = ring(q, k, v)
+        (out.float() * cot.float()).sum().backward()
+        outs[kind] = [out.detach().float(), q.grad.float(), k.grad.float(),
+                      v.grad.float()]
+        del q, k, v, out
+        torch.cuda.empty_cache()
+    ring_ok = True
+    for name, a, b in zip(("out", "dq", "dk", "dv"), outs["kernel"],
+                          outs["plain"]):
+        ring_err[name] = float((a - b).abs().max())
+        ring_ok &= bool(torch.allclose(a, b, atol=2e-2, rtol=2e-2))
+    del outs
+    torch.cuda.empty_cache()
+
+    images = steps * SP_BATCH
+    train_s = sum(trainer.train_seconds)
+    state["sp_step_ms"] = float(np.median(times))
+    emit({"phase": "sp_path", "model": "vit_b16", "dtype": "bfloat16",
+          "image_size": SP_IMAGE, "tokens": trainer.tokens,
+          "seq_slots": SP_SLOTS, "tokens_per_slot": trainer.tokens // SP_SLOTS,
+          "batch_size": SP_BATCH, "steps": steps,
+          "eval_batches": eval_batches, "launches": counts,
+          "train_loss_per_epoch": trainer.train_loss_per_epoch,
+          "test_accuracies": trainer.test_accuracies,
+          "tensors_moved": moved, "metrics": metrics,
+          "img_per_s": images / train_s, "train_seconds": train_s,
+          "run_seconds": wall, "step_ms_median": state["sp_step_ms"],
+          "step_ms_runs": times, "peak_memory_gib": peak_gb,
+          "ring_layer0_kernel_vs_plain_max_abs_err": ring_err,
+          "card": state["card"]})
+    want = {"flash_fwd": 24 * (steps + eval_batches),
+            "flash_bwd_dq": 24 * steps, "flash_bwd_dkv": 24 * steps}
+    if steps != SP_STEPS or counts != want:
+        raise AssertionError(f"{steps} steps launched {counts}; expected "
+                             f"{want}")
+    if not finite or moved == 0:
+        raise AssertionError(f"losses finite {finite}, tensors moved {moved}")
+    if not ring_ok:
+        raise AssertionError(f"the ring with the kernels is outside 2e-2 of "
+                             f"the ring with plain hops: {ring_err}")
+
+
+def phase_sp_profile(state: dict) -> None:
+    """Where the time goes on the SP path: one step under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer = sp_trainer(1, n_test=1, seed=2)
+    xb, yb = trainer.dataset.x_train, trainer.dataset.y_train
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    trainer._step(trainer.state, xb, yb, gen)           # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer._step(trainer.state, xb, yb, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = device_events(prof)
+    device_us = sum(e.self_device_time_total for e in events)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:15]
+    flash_us = sum(e.self_device_time_total for e in events
+                   if "flash_" in e.key and "kernel" in e.key)
+    emit({"phase": "sp_profile", "steps": 1, "wall_s": wall,
+          "device_busy_s": device_us / 1e6,
+          "device_idle_share": (1 - device_us / 1e6 / wall)
+          if device_us else None,
+          "k5_k7_device_s": flash_us / 1e6,
+          "top_device_ms": [[e.key[:160], round(e.self_device_time_total
+                                               / 1e3, 3), e.count]
+                            for e in top],
+          "card": state["card"]})
+
+
 def phase_cli(state: dict) -> None:
     from distributed_parameter_server_for_ml_training_tpu_torch import cli
 
@@ -757,7 +1125,13 @@ def phase_cli(state: dict) -> None:
             "sync_int8": ["train", "--mode", "sync", "--workers", "4",
                           "--compression", "int8", "--epochs", "1",
                           "--synthetic", "--num-train", "2048",
-                          "--num-test", "500", "--emit-metrics"]}
+                          "--num-test", "500", "--emit-metrics"],
+            "sp_vit_b16_1024": ["train", "--mode", "sp", "--model", "vit_b16",
+                                "--dataset", "imagenet-synth",
+                                "--image-size", "1024", "--workers", "2",
+                                "--batch-size", "8", "--num-train", "8",
+                                "--num-test", "8", "--epochs", "1",
+                                "--emit-metrics"]}
     for name, argv in runs.items():
         t0 = time.perf_counter()
         rc = cli.main(argv)
@@ -783,7 +1157,8 @@ def main() -> int:
     failed = []
     for phase in (phase_build, phase_kernel, phase_kernel_int8, phase_codec,
                   phase_main_path, phase_profile, phase_sync_path,
-                  phase_sync_profile, phase_cli):
+                  phase_sync_profile, phase_kernel_flash, phase_sp_path,
+                  phase_sp_profile, phase_cli):
         t0 = time.perf_counter()
         try:
             phase(state)
@@ -795,6 +1170,8 @@ def main() -> int:
     if failed:
         print(f"chip_smoke: FAILED phases {failed}", file=sys.stderr)
         return 1
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
+        flash_attention as FA
     from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
         quantize as Q
 
@@ -818,6 +1195,17 @@ def main() -> int:
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None})
+    # K5-K7 launches from the SP path's run; times at its hop shape. The
+    # library's backward computes dQ, dK and dV in one call: its time
+    # stands beside both K6 and K7.
+    for name, k in state["flash"].items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": FA.KERNEL_SOURCE,
+            "replaces": FA.REPLACES[name],
+            "launches": state["sp_counts"][name],
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

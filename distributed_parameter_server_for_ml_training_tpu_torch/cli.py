@@ -1,18 +1,27 @@
 """Command-line interface of the port.
 
-The in-process ``train`` verb in its sync and async modes, with the JAX
-verb's flags that they honour, plus ``--device``::
+The in-process ``train`` verb in its sync, async and sp modes, with the
+JAX verb's flags that they honour, plus ``--device``::
 
     python -m distributed_parameter_server_for_ml_training_tpu_torch.cli \\
         train --mode sync --workers 4 --compression int8 --epochs 1 \\
         --synthetic --num-train 2048 --num-test 500 --emit-metrics
+
+    python -m distributed_parameter_server_for_ml_training_tpu_torch.cli \\
+        train --mode sp --model vit_b16 --dataset imagenet-synth \\
+        --image-size 1024 --workers 2 --batch-size 8 --num-train 8 \\
+        --num-test 8 --epochs 1 --emit-metrics
 
 It runs on the card unless ``--device cpu`` is given. ``--mode sync``
 trains the worker slots of one card with the all-reduce chosen by
 ``--compression`` (int8 = the quantized reduce-scatter ring, kernels
 K2-K4); ``--mode async`` runs the host parameter store with worker
 threads, pushing with the store's default codec (fp16, the reference's
-cast). The default mode stays ``async`` (the JAX CLI's is ``sync``) until
+cast). ``--mode sp`` trains ``--model vit_tiny|vit_b16`` sequence-parallel
+over ``--workers`` sequence slots of one card (ring attention, the flash
+kernels K5-K7 per hop from 2,048 tokens per slot); ``--dataset
+imagenet-synth --image-size N`` gives it ImageNet-shaped synthetic
+images. The default mode stays ``async`` (the JAX CLI's is ``sync``) until
 the port has all of the JAX CLI's modes.
 """
 
@@ -34,10 +43,13 @@ def build_parser() -> argparse.ArgumentParser:
         description="PyTorch/CUDA parameter-server training")
     sub = p.add_subparsers(dest="command", required=True)
     t = sub.add_parser("train", help="in-process training run")
-    t.add_argument("--mode", choices=["sync", "async"], default="async",
+    t.add_argument("--mode", choices=["sync", "async", "sp"],
+                   default="async",
                    help="sync = sync data parallelism over the worker "
                         "slots of one card; async = host parameter store + "
-                        "worker threads (the reference's modes). The "
+                        "worker threads (the reference's modes); sp = "
+                        "sequence-parallel ViT (ring attention over "
+                        "--workers sequence slots of one card). The "
                         "default stays async until the port has all of "
                         "the JAX CLI's modes (its default is sync)")
     t.add_argument("--workers", type=int,
@@ -65,6 +77,15 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--no-augment", action="store_true")
     t.add_argument("--dtype", choices=["bfloat16", "float32"],
                    default="bfloat16")
+    t.add_argument("--model", choices=["resnet18", "vit_b16", "vit_tiny"],
+                   default="resnet18",
+                   help="sync and async train resnet18; sp a ViT")
+    t.add_argument("--dataset", choices=["cifar100", "imagenet-synth"],
+                   default="cifar100",
+                   help="imagenet-synth = ImageNet-shaped synthetic data "
+                        "(1,000 classes) at --image-size")
+    t.add_argument("--image-size", type=int, default=224,
+                   help="imagenet-synth resolution")
     t.add_argument("--seed", type=int, default=0)
     t.add_argument("--emit-metrics", action="store_true",
                    help="print METRICS_JSON lines (server.py:367)")
@@ -74,10 +95,16 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _load_dataset(args):
-    from .data import load_cifar100, synthetic_cifar100
+    from .data import load_cifar100, synthetic_cifar100, synthetic_imagenet
 
-    ds = synthetic_cifar100() if args.synthetic \
-        else load_cifar100(args.data_dir)
+    if args.dataset == "imagenet-synth":
+        ds = synthetic_imagenet(n_train=args.num_train or 10_000,
+                                n_test=args.num_test or 1_000,
+                                image_size=args.image_size)
+    elif args.synthetic:
+        ds = synthetic_cifar100()
+    else:
+        ds = load_cifar100(args.data_dir)
     if args.num_train:
         ds.x_train = ds.x_train[:args.num_train]
         ds.y_train = ds.y_train[:args.num_train]
@@ -91,10 +118,26 @@ def cmd_train(args) -> int:
     from .train.distributed import (AsyncTrainer, DistributedConfig,
                                     SyncTrainer)
 
+    if args.mode != "sp" and args.model != "resnet18":
+        raise SystemExit(f"--mode {args.mode} trains resnet18 in the port; "
+                         f"--model {args.model} runs with --mode sp")
     dataset = _load_dataset(args)
-    if dataset.synthetic and not args.synthetic:
+    if dataset.synthetic and args.dataset == "cifar100" \
+            and not args.synthetic:
         print("note: CIFAR-100 not found on disk; using the synthetic "
               "dataset", file=sys.stderr)
+    if args.mode == "sp":
+        from .train.model_parallel import ModelParallelConfig, SPTrainer
+        mp_cfg = ModelParallelConfig(
+            model=args.model, num_workers=args.workers,
+            learning_rate=args.lr, num_epochs=args.epochs,
+            batch_size=args.batch_size, augment=not args.no_augment,
+            num_classes=dataset.num_classes, dtype=args.dtype,
+            seed=args.seed, device=args.device)
+        metrics = SPTrainer(dataset, mp_cfg).train(
+            emit_metrics=args.emit_metrics)
+        print(f"done: {metrics}", file=sys.stderr)
+        return 0
     cfg = DistributedConfig(
         mode=args.mode, num_workers=args.workers, learning_rate=args.lr,
         num_epochs=args.epochs, batch_size=args.batch_size,

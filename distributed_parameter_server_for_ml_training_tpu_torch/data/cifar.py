@@ -3,7 +3,8 @@
 The NumPy parts are the JAX package's ``data/cifar.py`` unchanged: the
 in-memory :class:`Dataset`, :func:`load_cifar100` (the standard
 ``cifar-100-python`` pickles, else the deterministic synthetic stand-in),
-:func:`synthetic_cifar100`, the reference's contiguous shard split
+:func:`synthetic_cifar100`, :func:`synthetic_imagenet`, the reference's
+contiguous shard split
 :func:`shard_range` and the host batch iterator :func:`make_batches`.
 
 The image transforms run in torch on the device, on NHWC batches like the
@@ -111,6 +112,38 @@ def synthetic_cifar100(n_train: int = 50_000, n_test: int = 10_000,
             0.0, noise, size=(n, 32, 32, 3)).astype(np.float32)
         x = np.clip(x, 0.0, 1.0)
         return (x * 255.0).astype(np.uint8), y
+
+    x_tr, y_tr = make_split(n_train, 1)
+    x_te, y_te = make_split(n_test, 2)
+    return Dataset(x_tr, y_tr, x_te, y_te, num_classes=num_classes,
+                   synthetic=True)
+
+
+def synthetic_imagenet(n_train: int = 10_000, n_test: int = 1_000,
+                       num_classes: int = 1000, image_size: int = 224,
+                       seed: int = 0) -> Dataset:
+    """ImageNet-shaped synthetic data: the class-template construction of
+    :func:`synthetic_cifar100` at ``image_size``, byte-equal to the JAX
+    package's function for the same arguments (the same draws in the same
+    order). Where the reference upsamples all ``num_classes`` templates to
+    full resolution (12.6 GB of fp32 at 1024 px), this builds only the
+    templates of the labels a split draws, so the cost is the images'."""
+    rng = np.random.default_rng(seed + 77)
+    coarse_px = max(4, image_size // 8)
+    coarse = rng.normal(0.0, 1.0, size=(num_classes, coarse_px, coarse_px, 3)
+                        ).astype(np.float32)
+    rep = image_size // coarse_px
+
+    def make_split(n: int, split_seed: int):
+        r = np.random.default_rng(seed * 1000 + split_seed + 7)
+        y = np.arange(n, dtype=np.int32) % num_classes
+        r.shuffle(y)
+        labels, inverse = np.unique(y, return_inverse=True)
+        templates = 0.5 + 0.18 * coarse[labels].repeat(rep, axis=1).repeat(
+            rep, axis=2)
+        x = templates[inverse] + r.normal(
+            0.0, 0.12, size=(n, image_size, image_size, 3)).astype(np.float32)
+        return (np.clip(x, 0.0, 1.0) * 255.0).astype(np.uint8), y
 
     x_tr, y_tr = make_split(n_train, 1)
     x_te, y_te = make_split(n_test, 2)

@@ -1,8 +1,9 @@
 """Model registry by name (counterpart of the JAX package's registry).
 
-This slice ports ResNet-18 / CIFAR-100, the reference's only model. The
-other names of the JAX registry raise ``NotImplementedError`` naming the
-slice of the port that will bring them.
+Ported: ResNet-18 / CIFAR-100, the reference's only model, and the ViTs
+(``vit_b16``, ``vit_tiny``) of the sequence-parallel slice. ResNet-50
+raises ``NotImplementedError`` naming the slice of the port that will
+bring it.
 """
 
 from __future__ import annotations
@@ -11,14 +12,15 @@ import torch
 
 from ..utils.device import resolve_device
 from .resnet import ResNet18
+from .vit import ViT_B16, ViT_Tiny
 
 _LATER = {
     "resnet50": "the models slice (ResNet-50 with the ImageNet stem)",
-    "vit_b16": "the transformer slice (ViT with flash attention K5-K7)",
-    "vit_tiny": "the transformer slice (ViT with flash attention K5-K7)",
 }
 
-MODEL_NAMES = ("resnet18",)
+_VITS = {"vit_b16": ViT_B16, "vit_tiny": ViT_Tiny}
+
+MODEL_NAMES = ("resnet18", "vit_b16", "vit_tiny")
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -30,13 +32,15 @@ def get_model(name: str, num_classes: int = 100,
               ) -> torch.nn.Module:
     """Build a model by registry name on ``device``, its weights drawn from
     a ``torch.Generator`` seeded with ``seed``. ``axis_name`` selects
-    cross-replica BatchNorm over the mesh slots, as in the JAX model."""
+    cross-replica BatchNorm over the mesh slots, as in the JAX model (ViTs
+    ignore it: LayerNorm needs no sync). A ViT's position embedding is
+    sized for ``image_size``."""
     if name in _LATER:
         raise NotImplementedError(
             f"model {name!r} is not ported yet; it comes with {_LATER[name]}")
     if name not in MODEL_NAMES:
         raise ValueError(f"unknown model {name!r}; have {MODEL_NAMES}")
-    if image_size >= 96:
+    if name == "resnet18" and image_size >= 96:
         raise NotImplementedError(
             "the ImageNet stem (image_size >= 96) comes with the models "
             "slice")
@@ -47,5 +51,8 @@ def get_model(name: str, num_classes: int = 100,
                              f"got {dtype!r}")
         dtype = _DTYPES[dtype]
     gen = torch.Generator().manual_seed(seed)
+    if name in _VITS:
+        return _VITS[name](num_classes=num_classes, dtype=dtype,
+                           image_size=image_size, generator=gen).to(dev)
     return ResNet18(num_classes=num_classes, dtype=dtype, generator=gen,
                     axis_name=axis_name).to(dev)

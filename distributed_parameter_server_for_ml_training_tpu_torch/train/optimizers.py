@@ -30,6 +30,15 @@ class ServerSGD:
         lr = self.learning_rate
         return {k: p - grads[k] * lr for k, p in params.items()}
 
+    @torch.no_grad()
+    def apply_(self, params: Mapping[str, torch.Tensor],
+               grads: Mapping[str, torch.Tensor]) -> None:
+        """The same update in place, ``p -= g * lr`` (the same two
+        roundings): no param-sized allocation beyond ``g * lr``."""
+        lr = self.learning_rate
+        for k, p in params.items():
+            p.sub_(grads[k] * lr)
+
 
 def server_sgd(learning_rate: float = 0.1) -> ServerSGD:
     """Plain SGD: exactly the server update ``p -= lr * g`` (server.py:133)."""

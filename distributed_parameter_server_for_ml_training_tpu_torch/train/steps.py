@@ -9,7 +9,10 @@ reference's: flat dicts keyed by flax names, in flax layouts. A module
 is not thread-safe, so each worker thread builds its steps over its own
 module (``ps/worker.py``).
 
-``make_fused_local_step`` and ``make_train_step`` come with later slices.
+:func:`make_train_step` is the single-program step of the model-parallel
+trainers (``train/model_parallel.py``): it trains the module's own
+parameters in place. ``make_fused_local_step`` and the MoE branch of
+``make_train_step`` come with later slices.
 """
 
 from __future__ import annotations
@@ -98,6 +101,44 @@ def make_grad_step(model: torch.nn.Module, augment: bool = True
         return grads, new_stats, loss.detach(), accuracy
 
     return grad_step
+
+
+def make_train_step(model: torch.nn.Module, augment: bool = True
+                    ) -> Callable:
+    """Build ``train_step(state, images_u8, labels, generator=None) ->
+    (state, metrics)`` for a state whose params are ``model``'s own
+    parameters (``train_state.module_train_state``).
+
+    Augments the raw uint8 NHWC batch on the device (draws from
+    ``generator``), standardizes, computes the mean cross-entropy and its
+    gradient, and applies the state's ``server_sgd`` in place, so the
+    module's weights move and no parameter-sized copy is made. ``metrics``
+    holds 0-dim ``loss`` and ``accuracy`` tensors (no host sync)."""
+    pnames, snames = flax_names(model)
+    if snames:
+        raise ValueError("make_train_step trains models without batch "
+                         "statistics; BatchNorm models use the sync or "
+                         "async steps")
+    device = _model_device(model)
+    params_t = dict(model.named_parameters())
+    order = list(pnames)
+
+    def train_step(state, images_u8, labels, generator=None):
+        x = torch.as_tensor(images_u8, device=device)
+        y = torch.as_tensor(labels, device=device).long()
+        if augment:
+            x = augment_batch(x, generator)
+        x = standardize(to_float(x))
+        model.train()
+        logits = model(x)
+        loss = cross_entropy_loss(logits, y)
+        grads_t = torch.autograd.grad(loss, [params_t[t] for t in order])
+        state = state.apply_gradients_(
+            {pnames[t]: to_flax_layout(g) for t, g in zip(order, grads_t)})
+        accuracy = (logits.detach().argmax(-1) == y).float().mean()
+        return state, {"loss": loss.detach(), "accuracy": accuracy}
+
+    return train_step
 
 
 def make_eval_step(model: torch.nn.Module) -> Callable:

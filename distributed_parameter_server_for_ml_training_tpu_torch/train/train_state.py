@@ -17,7 +17,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from ..utils.pytree import params_from_jax, params_to_jax
+from ..utils.pytree import (flax_names, params_from_jax, params_to_jax,
+                            to_flax_layout)
 from .optimizers import ServerSGD
 
 
@@ -34,6 +35,13 @@ class TrainState:
         return dataclasses.replace(self, step=self.step + 1,
                                    params=self.tx.apply(self.params, grads))
 
+    def apply_gradients_(self, grads: Mapping[str, torch.Tensor]
+                         ) -> "TrainState":
+        """One optimizer update in place (step + 1); returns this state."""
+        self.tx.apply_(self.params, grads)
+        self.step += 1
+        return self
+
     def replace(self, **changes) -> "TrainState":
         return dataclasses.replace(self, **changes)
 
@@ -46,6 +54,21 @@ def create_train_state(model: torch.nn.Module, tx: ServerSGD) -> TrainState:
     def dev(d):
         return {k: torch.from_numpy(v).to(device) for k, v in d.items()}
     return TrainState(params=dev(params), batch_stats=dev(stats), tx=tx)
+
+
+def module_train_state(model: torch.nn.Module, tx: ServerSGD) -> TrainState:
+    """State whose params ARE the module's parameters, as flax-named views
+    in flax layouts: an in-place update (:meth:`TrainState.
+    apply_gradients_`) moves the module's weights, and nothing is
+    copied. For models without batch statistics (the ViTs)."""
+    pnames, snames = flax_names(model)
+    if snames:
+        raise ValueError("module_train_state is for models without "
+                         "batch statistics")
+    own = dict(model.named_parameters())
+    return TrainState(params={f: to_flax_layout(own[t].detach())
+                              for t, f in pnames.items()},
+                      batch_stats={}, tx=tx)
 
 
 def train_state_from_jax(model: torch.nn.Module,

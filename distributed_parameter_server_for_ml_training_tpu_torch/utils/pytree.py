@@ -11,13 +11,16 @@ layouts; this module converts at the boundary:
 
 - conv ``kernel`` HWIO  <->  ``weight`` OIHW,
 - Dense ``kernel`` [in, out]  <->  ``weight`` [out, in],
-- BatchNorm ``scale``/``bias`` (params) and ``mean``/``var``
-  (batch_stats)  <->  ``weight``/``bias``/``running_mean``/``running_var``.
+- BatchNorm and LayerNorm ``scale``/``bias`` (params) and
+  ``mean``/``var`` (batch_stats)  <->  ``weight``/``bias``/
+  ``running_mean``/``running_var``;
+- ViT's ``cls_token`` and ``pos_embed`` (3-D) keep name and layout.
 
 The port's modules are named after the flax ones (``stem_conv``,
 ``BasicBlock_0.Conv_0``, ...), so a name maps by swapping '/' for '.' and
 renaming the leaf, and the layout follows from the rank alone: 4-D
-tensors are conv kernels, 2-D ones Dense kernels, the rest vectors.
+tensors are conv kernels, 2-D ones Dense kernels, the rest (vectors and
+ViT's 3-D embeddings) keep their layout.
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ import torch
 PyTree = Any
 
 # flax leaf -> torch leaf, per flax collection.
-_PARAM_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_PARAM_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
+               "cls_token": "cls_token", "pos_embed": "pos_embed"}
 _STATS_LEAF = {"mean": "running_mean", "var": "running_var"}
 
 

@@ -87,3 +87,29 @@ def test_sync_trainer_waits_for_its_slice():
         DistributedConfig(mode="tp", device="cpu")
     with pytest.raises(ValueError):
         DistributedConfig(mode="sync", compression="int4", device="cpu")
+
+
+@pytest.mark.parametrize("dataset", ["cifar100", "imagenet-synth"])
+def test_cli_train_sp_on_cpu(capsys, dataset):
+    """``--mode sp``: vit_tiny over 2 sequence slots (the dense ring on the
+    CPU), on synthetic CIFAR-100 (64 tokens) or on synthetic ImageNet at
+    64 px (256 tokens)."""
+    data = ["--synthetic"] if dataset == "cifar100" else [
+        "--dataset", "imagenet-synth", "--image-size", "64"]
+    rc = cli.main(["train", "--mode", "sp", "--model", "vit_tiny",
+                   "--workers", "2", "--epochs", "1", *data,
+                   "--num-train", "8", "--num-test", "4", "--batch-size",
+                   "4", "--emit-metrics", "--device", "cpu", "--dtype",
+                   "float32"])
+    assert rc == 0
+    (row,) = parse_metrics_lines(capsys.readouterr().out)
+    assert row["mode"] == "sp" and row["seq_shards"] == 2
+    assert row["tokens"] == (64 if dataset == "cifar100" else 256)
+    assert row["global_steps_completed"] == 2
+    json.dumps(row)
+
+
+def test_cli_sp_refuses_what_it_does_not_train():
+    with pytest.raises(SystemExit, match="--mode sp"):
+        cli.main(["train", "--mode", "sync", "--model", "vit_tiny",
+                  "--device", "cpu", "--synthetic"])

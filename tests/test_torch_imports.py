@@ -45,9 +45,12 @@ def test_port_files_exist():
                      "train/distributed.py", "train/optimizers.py",
                      "train/train_state.py", "parallel/mesh.py",
                      "parallel/sync_dp.py", "utils/pytree.py",
-                     "utils/metrics.py"):
+                     "utils/metrics.py", "ops/attention.py",
+                     "ops/flash_attention.py", "parallel/ring_attention.py",
+                     "models/vit.py", "train/model_parallel.py"):
         assert required in names, required
-    for kernel in ("wire_quantize.cu", "block_quantize.cu"):
+    for kernel in ("wire_quantize.cu", "block_quantize.cu",
+                   "flash_attention.cu"):
         assert (PORT / "ops" / "csrc" / kernel).is_file(), kernel
 
 
@@ -115,7 +118,8 @@ def test_wire_quantize_counts_only_kernel_launches():
         Q.wire_quantize_flat(torch.ones(4, device="meta"), 0.5, 127)
 
 
-@pytest.mark.parametrize("kernel", ["wire_quantize", "block_quantize"])
+@pytest.mark.parametrize("kernel", ["wire_quantize", "block_quantize",
+                                    "flash_attention"])
 def test_nvcc_command_flags(kernel):
     from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
         _build
@@ -130,7 +134,8 @@ def test_nvcc_command_flags(kernel):
     assert "build" in lib.parts
 
 
-@pytest.mark.parametrize("kernel", ["wire_quantize", "block_quantize"])
+@pytest.mark.parametrize("kernel", ["wire_quantize", "block_quantize",
+                                    "flash_attention"])
 def test_build_without_nvcc_raises(monkeypatch, tmp_path, kernel):
     """A kernel that cannot be built raises; nothing falls back."""
     from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
@@ -161,3 +166,23 @@ def test_sync_entry_points_default_to_cuda():
         cli.main(["train", "--mode", "sync", "--workers", "1", "--epochs",
                   "1", "--synthetic", "--num-train", "64", "--num-test",
                   "16"])
+
+
+def test_sp_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    from distributed_parameter_server_for_ml_training_tpu_torch import cli
+    from distributed_parameter_server_for_ml_training_tpu_torch.data import \
+        synthetic_imagenet
+    from distributed_parameter_server_for_ml_training_tpu_torch.parallel \
+        import make_mesh
+    from distributed_parameter_server_for_ml_training_tpu_torch.train \
+        .model_parallel import SPTrainer
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh(2, axis_names=("seq",))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SPTrainer(synthetic_imagenet(n_train=2, n_test=2, image_size=32))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["train", "--mode", "sp", "--model", "vit_tiny",
+                  "--workers", "2", "--epochs", "1", "--synthetic",
+                  "--num-train", "4", "--num-test", "4"])

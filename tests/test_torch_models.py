@@ -15,7 +15,7 @@ from distributed_parameter_server_for_ml_training_tpu.models import \
 from distributed_parameter_server_for_ml_training_tpu.utils.pytree import \
     flatten_params as jax_flatten
 from distributed_parameter_server_for_ml_training_tpu_torch.models import (
-    BatchNorm, ResNet, get_model)
+    MODEL_NAMES, BatchNorm, ResNet, ViT, get_model)
 from distributed_parameter_server_for_ml_training_tpu_torch.utils.pytree \
     import params_from_jax, params_to_jax
 
@@ -135,7 +135,15 @@ def test_init_is_seeded_and_flax_like():
 
 @pytest.mark.parametrize("name", ["resnet50", "vit_b16", "vit_tiny"])
 def test_later_models_name_their_slice(name):
-    with pytest.raises(NotImplementedError, match="slice"):
-        get_model(name, device="cpu")
+    """Each name of the JAX registry either builds (the ViTs came with the
+    sequence-parallel slice) or names the slice that brings it."""
+    if name in MODEL_NAMES:
+        model = get_model(name, num_classes=10, device="cpu", image_size=32)
+        assert isinstance(model, ViT) and model.head.out_features == 10
+        with pytest.raises(NotImplementedError, match="slice"):
+            get_model("resnet18", device="cpu", image_size=224)
+    else:
+        with pytest.raises(NotImplementedError, match="slice"):
+            get_model(name, device="cpu")
     with pytest.raises(ValueError):
         get_model("nope", device="cpu")
