@@ -45,8 +45,10 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    device kernels;
 9. kernels K5, K6 and K7 (flash attention forward, dQ, dK/dV) against
    their plain versions: at the SP path's hop shape [192, 2048, 64] bf16
-   in, fp32 out, O, LSE, dQ, dK and dV within atol/rtol 2e-2; in fp32
-   within 2e-3; T = 197 padded to 256 (kv_len masking); causal with
+   in, fp32 out, O, LSE, dQ, dK and dV within atol/rtol 5e-3 (2e-2 where
+   the output is bf16); in fp32 within 2e-3; each case reports the mean
+   magnitude its limit is compared against; T = 197 padded to 256
+   (kv_len masking); causal with
    offsets (128, 0); a wholly-future block (0, 2048), which must give
    O = 0 and LSE <= -1e29; D = 128; two slots with their own offsets in
    one launch. Times each kernel, its plain version and the library call
@@ -60,7 +62,7 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    K7 24 x steps (12 layers x 2 hops, one launch over both slots per
    hop). Then one layer's ring on real activations with the kernels
    against the same ring with plain hops on the card, output and
-   gradients within atol/rtol 2e-2;
+   gradients (bf16) within atol 5e-3 and rtol 2^-7, one bf16 step;
 11. one SP step under torch.profiler: device busy share and top device
    kernels;
 12. the CLI verb ``train`` in async mode at its default codec, in sync
@@ -837,30 +839,33 @@ def phase_kernel_flash(state: dict) -> None:
 
     bf16, f32 = torch.bfloat16, torch.float32
     bh, t, d = HOP
-    cases = {   # name: (args, kwargs, tolerance)
-        "hop_bf16_fp32out": ((bh, t, d, bf16, f32), {}, 2e-2),
+    # name: (args, kwargs, tolerance). bf16 in, fp32 out: 5e-3, about 3x
+    # the largest error seen; 2e-2 only where the output itself is bf16.
+    cases = {
+        "hop_bf16_fp32out": ((bh, t, d, bf16, f32), {}, 5e-3),
         "hop_fp32": ((bh, t, d, f32, f32), {}, 2e-3),
         "t197_padded256_bf16": ((64, 256, 64, bf16, bf16),
                                 dict(kv_len=197), 2e-2),
         "t197_padded256_fp32": ((64, 256, 64, f32, f32),
                                 dict(kv_len=197), 2e-3),
         "causal_128_0_bf16": ((64, 256, 64, bf16, f32),
-                              dict(causal=True, q_offset=128), 2e-2),
+                              dict(causal=True, q_offset=128), 5e-3),
         "causal_128_0_fp32": ((64, 256, 64, f32, f32),
                               dict(causal=True, q_offset=128), 2e-3),
         "two_slots_causal_fp32": ((64, 256, 64, f32, f32),
                                   dict(causal=True, q_offset=[0, 256],
                                        k_offset=[0, 0]), 2e-3),
-        "d128_bf16": ((48, 512, 128, bf16, f32), {}, 2e-2),
+        "d128_bf16": ((48, 512, 128, bf16, f32), {}, 5e-3),
         "d128_fp32": ((48, 512, 128, f32, f32), dict(causal=True), 2e-3),
     }
-    errors, bad = {}, []
+    errors, typical, bad = {}, {}, []
     hop_err = {}
     for name, (args, kw, tol) in cases.items():
         pairs, _ = _flash_case(*args, **kw)
-        errors[name] = {}
+        errors[name], typical[name] = {}, {}
         for out, (a, b) in pairs.items():
             errors[name][out] = float((a - b).abs().max())
+            typical[name][out] = float(b.abs().mean())
             if not torch.allclose(a, b, atol=tol, rtol=tol):
                 bad.append((name, out))
         if name == "hop_bf16_fp32out":
@@ -932,6 +937,8 @@ def phase_kernel_flash(state: dict) -> None:
               / min(ms) / 1e9,
               "card": state["card"]})
     emit({"phase": "kernel_flash_vs_plain", "cases": errors,
+          "mean_abs_plain": typical,
+          "tolerance": {name: tol for name, (_, _, tol) in cases.items()},
           "future_block": future, "outside_tolerance": bad,
           "card": state["card"]})
     if bad:
@@ -940,6 +947,7 @@ def phase_kernel_flash(state: dict) -> None:
 
 
 SP_STEPS, SP_BATCH, SP_SLOTS, SP_IMAGE = 2, 8, 2, 1024
+RING_ATOL, RING_RTOL = 5e-3, 2.0 ** -7
 
 
 def sp_trainer(steps: int, n_test: int, seed: int = 0):
@@ -1048,11 +1056,15 @@ def phase_sp_path(state: dict) -> None:
                       v.grad.float()]
         del q, k, v, out
         torch.cuda.empty_cache()
-    ring_ok = True
+    # The ring returns bf16: a one-step rounding difference is 2^-7 of
+    # the value, so rtol is one bf16 step and atol covers values near 0.
+    ring_ok, ring_typical = True, {}
     for name, a, b in zip(("out", "dq", "dk", "dv"), outs["kernel"],
                           outs["plain"]):
         ring_err[name] = float((a - b).abs().max())
-        ring_ok &= bool(torch.allclose(a, b, atol=2e-2, rtol=2e-2))
+        ring_typical[name] = float(b.abs().mean())
+        ring_ok &= bool(torch.allclose(a, b, atol=RING_ATOL,
+                                       rtol=RING_RTOL))
     del outs
     torch.cuda.empty_cache()
 
@@ -1071,6 +1083,7 @@ def phase_sp_path(state: dict) -> None:
           "run_seconds": wall, "step_ms_median": state["sp_step_ms"],
           "step_ms_runs": times, "peak_memory_gib": peak_gb,
           "ring_layer0_kernel_vs_plain_max_abs_err": ring_err,
+          "ring_layer0_plain_mean_abs": ring_typical,
           "card": state["card"]})
     want = {"flash_fwd": 24 * (steps + eval_batches),
             "flash_bwd_dq": 24 * steps, "flash_bwd_dkv": 24 * steps}
@@ -1080,8 +1093,9 @@ def phase_sp_path(state: dict) -> None:
     if not finite or moved == 0:
         raise AssertionError(f"losses finite {finite}, tensors moved {moved}")
     if not ring_ok:
-        raise AssertionError(f"the ring with the kernels is outside 2e-2 of "
-                             f"the ring with plain hops: {ring_err}")
+        raise AssertionError(f"the ring with the kernels is outside atol "
+                             f"{RING_ATOL} / rtol {RING_RTOL} of the ring "
+                             f"with plain hops: {ring_err}")
 
 
 def phase_sp_profile(state: dict) -> None:

@@ -110,48 +110,47 @@ def make_ring_attention(mesh: Mesh, axis: str = SEQ_AXIS,
 # Ring x flash: the flash kernels as the per-hop block core
 # ---------------------------------------------------------------------------
 
-def _to3(x: torch.Tensor) -> torch.Tensor:
-    """[B, T, H, D] -> contiguous [B*H, T, D] (the flash kernels'
-    layout)."""
+def _to3(x: torch.Tensor, n: int) -> torch.Tensor:
+    """[B, T, H, D] -> contiguous [N*B*H, T/N, D]: N slots of B*H rows, the
+    flash kernels' layout with the slot outermost, as their per-slot
+    offsets expect."""
     b, t, h, d = x.shape
-    return x.permute(0, 2, 1, 3).reshape(b * h, t, d).contiguous()
+    if t % n:
+        raise ValueError(f"{t} tokens do not split into {n} sequence slots")
+    return x.view(b, n, t // n, h, d).permute(1, 0, 3, 2, 4) \
+        .reshape(n * b * h, t // n, d).contiguous()
 
 
-def _to4(x3: torch.Tensor, b: int, h: int) -> torch.Tensor:
-    """[B*H, T, D] -> [B, T, H, D] (inverse of _to3)."""
-    _, t, d = x3.shape
-    return x3.view(b, h, t, d).permute(0, 2, 1, 3)
+def _to4(x3: torch.Tensor, n: int, b: int, h: int) -> torch.Tensor:
+    """[N*B*H, T/N, D] -> [B, T, H, D] (inverse of _to3)."""
+    _, tl, d = x3.shape
+    return x3.view(n, b, h, tl, d).permute(1, 0, 3, 2, 4) \
+        .reshape(b, n * tl, h, d)
 
 
-def _hop_fwd(q4, k4, v4, use_kernel: bool, causal=False, q_offset=0,
+def _hop_fwd(q3, k3, v3, use_kernel: bool, causal=False, q_offset=0,
              k_offset=0):
-    """One hop's flash forward of ``[B', Tq, H, D]`` q against a
-    ``[B', Tk, H, D]`` K/V block -> (normalized fp32 partial out
-    ``[B', Tq, H, D]``, LSE ``[B'*H, Tq, 1]``). B' = N B with per-slot
-    offsets in the ring. Partials stay fp32: the ring merges N of them."""
-    b, tq, h, d = q4.shape
-    tk = k4.shape[1]
-    for t in (tq, tk):          # the reference's 128 rule
+    """One hop's flash forward of ``[BH', Tq, D]`` q against a ``[BH', Tk,
+    D]`` K/V block -> (normalized fp32 partial out ``[BH', Tq, D]``, LSE
+    ``[BH', Tq, 1]``). BH' = N B H with per-slot offsets in the ring.
+    Partials stay fp32: the ring merges N of them."""
+    tk = k3.shape[1]
+    for t in (q3.shape[1], tk):     # the reference's 128 rule
         pick_block(t)
-    o3, lse3 = _flash_fwd_impl(_to3(q4), _to3(k4), _to3(v4), tk,
-                               use_kernel=use_kernel,
-                               out_dtype=torch.float32, causal=causal,
-                               q_offset=q_offset, k_offset=k_offset)
-    return _to4(o3, b, h), lse3
+    return _flash_fwd_impl(q3, k3, v3, tk, use_kernel=use_kernel,
+                           out_dtype=torch.float32, causal=causal,
+                           q_offset=q_offset, k_offset=k_offset)
 
 
-def _hop_bwd(q4, k4, v4, do4, lse_tot, delta, use_kernel: bool,
+def _hop_bwd(q3, k3, v3, do3, lse_tot, delta, use_kernel: bool,
              causal=False, q_offset=0, k_offset=0):
     """One hop's flash backward: fp32 (dq partial, dk block, dv block)
-    given the TOTAL LSE and delta; the merge is never differentiated
-    (p = exp(s - lse_total) directly)."""
-    b, tq, h, d = q4.shape
-    tk = k4.shape[1]
-    dq3, dk3, dv3 = _flash_bwd_impl(
-        _to3(q4), _to3(k4), _to3(v4), _to3(do4), lse_tot, delta, tk,
-        use_kernel=use_kernel, out_dtype=torch.float32, causal=causal,
-        q_offset=q_offset, k_offset=k_offset)
-    return _to4(dq3, b, h), _to4(dk3, b, h), _to4(dv3, b, h)
+    ``[BH', T, D]`` given the TOTAL LSE and delta; the merge is never
+    differentiated (p = exp(s - lse_total) directly)."""
+    return _flash_bwd_impl(q3, k3, v3, do3, lse_tot, delta, k3.shape[1],
+                           use_kernel=use_kernel, out_dtype=torch.float32,
+                           causal=causal, q_offset=q_offset,
+                           k_offset=k_offset)
 
 
 def _hop_offsets(n: int, tl: int, step: int) -> tuple[list, list]:
@@ -162,21 +161,17 @@ def _hop_offsets(n: int, tl: int, step: int) -> tuple[list, list]:
 
 
 class _RingFlash(torch.autograd.Function):
-    """The ring over slot-stacked ``[N, B, T_local, H, D]`` q/k/v."""
+    """The ring over q/k/v in the kernels' layout ``[N*B*H, T_local, D]``
+    (:func:`_to3`): rolling a slot's B*H rows along dim 0 is the
+    ``ppermute`` to the next slot, so no hop changes the layout."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, use_kernel: bool):
-        n, b, tl, h, d = q.shape
-        bh = n * b * h
-        dev = q.device
-        q4 = q.reshape(n * b, tl, h, d)
-        m = torch.full((bh, tl, 1), _NEG_INF, device=dev)
-        l = torch.zeros((bh, tl, 1), device=dev)
-        acc = torch.zeros((n * b, tl, h, d), device=dev)
-
-        def w4(w):      # [N*B*H, T, 1] weights -> [N*B, T, H, 1]
-            return w.view(n * b, h, tl, 1).permute(0, 2, 1, 3)
-
+    def forward(ctx, q, k, v, n: int, causal: bool, use_kernel: bool):
+        rows, tl, d = q.shape
+        per_slot = rows // n
+        m = torch.full((rows, tl, 1), _NEG_INF, device=q.device)
+        l = torch.zeros((rows, tl, 1), device=q.device)
+        acc = torch.zeros((rows, tl, d), device=q.device)
         kk, vv = k, v
         for step in range(n):
             q_offs, k_offs = _hop_offsets(n, tl, step)
@@ -189,58 +184,55 @@ class _RingFlash(torch.autograd.Function):
             # plain version computes such a hop densely: its O is the mean
             # of V and its LSE -1e30 + log(Tk), also -1e30 in fp32, so the
             # merge discards it the same way.)
-            o_i, lse_i = _hop_fwd(q4, kk.reshape(n * b, tl, h, d),
-                                  vv.reshape(n * b, tl, h, d), use_kernel,
-                                  causal, q_offs, k_offs)
+            o_i, lse_i = _hop_fwd(q, kk, vv, use_kernel, causal, q_offs,
+                                  k_offs)
             m_new = torch.maximum(m, lse_i)
             w_prev = torch.exp(m - m_new)
             w_i = torch.exp(lse_i - m_new)
             l = l * w_prev + w_i
-            acc = acc * w4(w_prev) + o_i * w4(w_i)
+            acc = acc * w_prev + o_i * w_i
             m = m_new
             if step != n - 1:
-                kk = torch.roll(kk, 1, dims=0)
-                vv = torch.roll(vv, 1, dims=0)
+                kk = torch.roll(kk, per_slot, dims=0)
+                vv = torch.roll(vv, per_slot, dims=0)
         l = l.clamp_min(1e-30)
         lse_tot = m + torch.log(l)
-        out = (acc / w4(l)).to(q.dtype).view(n, b, tl, h, d)
+        out = (acc / l).to(q.dtype)
         ctx.save_for_backward(q, k, v, out, lse_tot)
-        ctx.causal, ctx.use_kernel = causal, use_kernel
+        ctx.n, ctx.causal, ctx.use_kernel = n, causal, use_kernel
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse_tot = ctx.saved_tensors
-        n, b, tl, h, d = q.shape
-        do = do.to(q.dtype)
-        delta = (do.float() * out.float()).sum(dim=-1)        # [N,B,T,H]
-        delta = delta.permute(0, 1, 3, 2).reshape(n * b * h, tl, 1)
-        q4 = q.reshape(n * b, tl, h, d)
-        do4 = do.reshape(n * b, tl, h, d)
-        dq = torch.zeros((n * b, tl, h, d), device=q.device)
-        kk, vv = k, v
+        n = ctx.n
+        rows, tl, _ = q.shape
+        per_slot = rows // n
+        do = do.to(q.dtype).contiguous()
+        delta = (do.float() * out.float()).sum(dim=-1, keepdim=True)
+        dq = torch.zeros(q.shape, device=q.device)
         dkk = torch.zeros(k.shape, device=k.device)
         dvv = torch.zeros(v.shape, device=v.device)
+        kk, vv = k, v
         for step in range(n):
             q_offs, k_offs = _hop_offsets(n, tl, step)
             # A wholly-future block: K6's loop bound and K7's query range
             # are empty, so its gradients are 0, the cond branch's zeros.
-            dq_i, dk_i, dv_i = _hop_bwd(
-                q4, kk.reshape(n * b, tl, h, d), vv.reshape(n * b, tl, h, d),
-                do4, lse_tot, delta, ctx.use_kernel, ctx.causal, q_offs,
-                k_offs)
+            dq_i, dk_i, dv_i = _hop_bwd(q, kk, vv, do, lse_tot, delta,
+                                        ctx.use_kernel, ctx.causal, q_offs,
+                                        k_offs)
             dq = dq + dq_i
-            dkk = dkk + dk_i.reshape(n, b, tl, h, d)
-            dvv = dvv + dv_i.reshape(n, b, tl, h, d)
+            dkk = dkk + dk_i
+            dvv = dvv + dv_i
             # The gradient accumulators rotate with their blocks every hop
             # (N hops bring each home); K/V skip the last rotation.
             if step != n - 1:
-                kk = torch.roll(kk, 1, dims=0)
-                vv = torch.roll(vv, 1, dims=0)
-            dkk = torch.roll(dkk, 1, dims=0)
-            dvv = torch.roll(dvv, 1, dims=0)
-        return (dq.view(n, b, tl, h, d).to(q.dtype), dkk.to(k.dtype),
-                dvv.to(v.dtype), None, None)
+                kk = torch.roll(kk, per_slot, dims=0)
+                vv = torch.roll(vv, per_slot, dims=0)
+            dkk = torch.roll(dkk, per_slot, dims=0)
+            dvv = torch.roll(dvv, per_slot, dims=0)
+        return (dq.to(q.dtype), dkk.to(k.dtype), dvv.to(v.dtype), None, None,
+                None)
 
 
 def make_ring_flash_attention(mesh: Mesh, axis: str = SEQ_AXIS,
@@ -254,6 +246,7 @@ def make_ring_flash_attention(mesh: Mesh, axis: str = SEQ_AXIS,
     (o_i, lse_i), merged associatively. Backward: with the TOTAL LSE and
     delta = rowsum(dO * O), each hop's dq/dk/dv come from the flash
     backward kernels, the dK/dV accumulators rotating with their blocks.
+    q/k/v enter the kernels' layout once and leave it once.
     ``use_kernel=None`` or True runs the kernel wrappers (K5-K7 on CUDA
     tensors, their plain versions on CPU ones); False runs the plain
     versions on any device (the reference's ``use_pallas=False``).
@@ -262,12 +255,11 @@ def make_ring_flash_attention(mesh: Mesh, axis: str = SEQ_AXIS,
     use = True if use_kernel is None else bool(use_kernel)
 
     def fn(q, k, v):
-        pick_block(q.shape[1] // n)
-        out = _RingFlash.apply(_to_slots(q, n).contiguous(),
-                               _to_slots(k, n).contiguous(),
-                               _to_slots(v, n).contiguous(), bool(causal),
-                               use)
-        return _from_slots(out)
+        b, t, h, _ = q.shape
+        pick_block(t // n)
+        out = _RingFlash.apply(_to3(q, n), _to3(k, n), _to3(v, n), n,
+                               bool(causal), use)
+        return _to4(out, n, b, h)
 
     return fn
 

@@ -43,12 +43,6 @@ VIT_SHAPES = {
 class ModelParallelConfig:
     model: str = "vit_tiny"
     num_workers: int = 4           # sequence slots (sp mode)
-    tp_degree: int = 2             # model-axis size (tp mode)
-    pp_microbatches: int = 8       # GPipe M (pp mode)
-    dp_degree: int = 1
-    pp_tp_degree: int = 1
-    moe_capacity_factor: float = 2.0
-    moe_aux_weight: float = 0.01
     learning_rate: float = 0.1
     num_epochs: int = 3
     batch_size: int = 128          # GLOBAL batch

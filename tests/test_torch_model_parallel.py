@@ -135,7 +135,12 @@ def test_later_trainers_name_their_slice(name, slice_name):
 def test_vit_shapes_and_config_defaults_match_jax():
     assert mp.VIT_SHAPES == jmp.VIT_SHAPES
     j, t = jmp.ModelParallelConfig(), mp.ModelParallelConfig()
-    for field in j.__dataclass_fields__:
+    # The fields the port honours; the TP/PP/MoE options come with the
+    # slices that read them.
+    honoured = ("model", "num_workers", "learning_rate", "num_epochs",
+                "batch_size", "augment", "num_classes", "dtype", "seed")
+    assert set(t.__dataclass_fields__) == {*honoured, "device"}
+    for field in honoured:
         assert getattr(t, field) == getattr(j, field), field
     assert t.device == "cuda"
 

@@ -113,23 +113,22 @@ def test_skipped_future_hop_equals_the_cond_branch(monkeypatch):
                              zip(q_offset, k_offset)]
                             ).repeat_interleave(rows_per_slot)
 
-    def cond_fwd(q4, k4, v4, use_kernel, causal, q_offset, k_offset):
-        o, lse = real_fwd(q4, k4, v4, use_kernel, causal, q_offset,
+    def cond_fwd(q3, k3, v3, use_kernel, causal, q_offset, k_offset):
+        o, lse = real_fwd(q3, k3, v3, use_kernel, causal, q_offset,
                           k_offset)
-        b = q4.shape[0] // n
-        fut_o, fut_lse = (future(q_offset, k_offset, b),
-                          future(q_offset, k_offset, b * H))
+        rows = q3.shape[0] // n
+        fut = future(q_offset, k_offset, rows)
         # The plain version's future rows: LSE = -1e30 + log(Tk) = -1e30.
-        assert bool((lse[fut_lse] <= -1e29).all())
-        skipped.append(int(fut_o.sum()) // b)
-        return (torch.where(fut_o[:, None, None, None], 0.0, o),
-                torch.where(fut_lse[:, None, None], -1e30, lse))
+        assert bool((lse[fut] <= -1e29).all())
+        skipped.append(int(fut.sum()) // rows)
+        return (torch.where(fut[:, None, None], 0.0, o),
+                torch.where(fut[:, None, None], -1e30, lse))
 
-    def cond_bwd(q4, k4, v4, do4, lse_tot, delta, use_kernel, causal,
+    def cond_bwd(q3, k3, v3, do3, lse_tot, delta, use_kernel, causal,
                  q_offset, k_offset):
-        grads = real_bwd(q4, k4, v4, do4, lse_tot, delta, use_kernel,
+        grads = real_bwd(q3, k3, v3, do3, lse_tot, delta, use_kernel,
                          causal, q_offset, k_offset)
-        fut = future(q_offset, k_offset, q4.shape[0] // n)
+        fut = future(q_offset, k_offset, q3.shape[0] // n)
         for g in grads:
             # The plain backward masks every key of such a hop: exact 0,
             # the cond branch's zeros.
