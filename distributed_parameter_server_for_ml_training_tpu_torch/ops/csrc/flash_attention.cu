@@ -6,6 +6,8 @@
 //   K5  _fwd_kernel      -> flash_fwd_kernel     (O and LSE)
 //   K6  _bwd_dq_kernel   -> flash_bwd_dq_kernel  (dQ)
 //   K7  _bwd_dkv_kernel  -> flash_bwd_dkv_kernel (dK and dV)
+//   K6 + K7 on bf16      -> flash_bwd_kernel     (dQ, dK and dV in one pass,
+//                                                 wgmma; its own note below)
 // the per-hop block core of ring x flash attention (parallel/
 // ring_attention.py) and the core of flash_attention's custom gradient.
 //
@@ -40,7 +42,8 @@
 // iteration: O = 0 and LSE = -1e30 + log(1e-30), which is -1e30 in fp32,
 // the values the JAX ring's skipped-hop branch produces.
 //
-// Design. A thread block of 4 warps owns a tile of 64 rows (query rows for
+// Design of K5, K6 and K7 (the fused backward's is in its own section). A
+// thread block of 4 warps owns a tile of 64 rows (query rows for
 // K5/K6, key rows for K7), 16 rows a warp, and loops over the other
 // operand in tiles of 64 staged in shared memory. Each warp's products
 // are m16n8k16 tiles: on bf16 inputs the tensor cores' mma.sync (bf16 in,
@@ -52,8 +55,8 @@
 // does 4 BH T^2 D = 206 GFLOP (0.21 ms at 989 TFLOP/s), K6 309 and K7 412
 // GFLOP, against ~0.1 GB of traffic each. This first version has no
 // software pipelining (tiles are loaded, then used) and reads its
-// fragments from shared memory without ldmatrix; wgmma and TMA are for a
-// later version.
+// fragments from shared memory without ldmatrix. The backward runs K6 and
+// K7 on fp32 inputs only: bf16 inputs go to the fused kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -512,6 +515,524 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---- fused backward: K6 + K7 on bf16 -----------------------------------------
+//
+// flash_bwd_kernel replaces K6 and K7 (_bwd_dq_kernel and _bwd_dkv_kernel in
+// the Pallas file) for bf16 inputs: one launch computes dQ, dK and dV.
+//
+// Work and bound: 10 BH T^2 D operations (S^T, dP^T, dV, dK, dQ; the lo half
+// of P adds 2 BH T^2 D of issued work, 12 in all). At the SP path's hop
+// shape [192, 2048, 64] that is 0.5211 ms at 989 TFLOP/s against ~0.15 ms
+// of bytes: the bound is operations.
+//
+// What the design does about the first version's three costs:
+//  1. Work done twice. A block owns kBwdKeys = 128 key rows (64 a consumer
+//     warpgroup), keeps its K and V tiles in shared memory and walks the
+//     query tiles lo_q..hi_q (K7's bounds). S^T = K.Q^T and dP^T = V.dO^T
+//     are computed once a (key tile, query tile) pair and feed all three
+//     gradients. dQ is reduced across the key tiles in fp32 in device
+//     memory (red.global.add.v4.f32 into the caller's dq_acc), so no second
+//     kernel recomputes S and dP in the query orientation.
+//  2. Slow fragments. All five products are wgmma m64nNk16 (bf16 in, fp32
+//     accumulate). Q, dO, K and V sit in shared memory in the 128-byte
+//     swizzle that the wgmma descriptors read, K-major for S^T and dP^T and
+//     the same bytes read MN-major (transposed) as the B operand of dV, dK
+//     and dQ. P^T and dS^T come out in the accumulator layout, which is the
+//     A-operand register layout of the next product: dV += P^T.dO and
+//     dK += dS^T.Q take A from registers. dS^T is stored once to shared
+//     memory (conflict-free 32-bit stores into the swizzled layout) and
+//     read MN-major as the A operand of dQ = dS.K; warpgroup w computes dQ's
+//     columns [w D / 2, (w + 1) D / 2) over all 128 keys, so each dQ element
+//     is added once a block.
+//  3. No overlap. Q, dO, LSE and delta tiles are double-buffered: the next
+//     query tile's cp.async copies (into the swizzled layout) are issued
+//     before the current tile's products and land while they run. Within a
+//     tile, the S^T and dP^T products are issued together, the softmax of
+//     P^T runs while dP^T is in flight, dV's products are in flight while
+//     dS^T is computed, and dK's while dS^T is stored. Every wgmma result
+//     is read within the iteration that issued it: ptxas serializes the
+//     wgmma pipeline (C7514) when a result is read an iteration later,
+//     which made a version that overlapped dQ with the next tile slower.
+//
+// Rounding is the first version's, which is the TPU kernel's: P = hi + lo
+// (two bf16 products) for dV, whose TPU product takes P in fp32; dS rounded
+// once to bf16, used by dK and dQ. Blocks of one row start their query walk
+// staggered by the key-tile index, so the 16 blocks of a row do not add into
+// the same dQ tile together. The order in which dQ's partial sums arrive
+// varies from launch to launch, so dQ's last bits do too; dK and dV are
+// summed in registers in a fixed order and are the same on every launch.
+// Tiles: 128 keys a block and 64 queries a step for both head dims. At
+// D = 64 that leaves registers to spare; at D = 128 the dK and dV
+// accumulators double and the kernel still fits 255 registers a thread
+// without spills (nvcc -Xptxas -v), so a smaller tile would only add dQ
+// adds and K/V reloads.
+// The build keeps --fmad=false for every library (the codecs' bit identity
+// needs it); the one contraction that pays here, the softmax exponent's
+// S scale - LSE, is written as fmaf. The products are wgmma, which FMA
+// flags do not touch.
+
+constexpr int kBwdWG = 2;                    // consumer warpgroups a block
+constexpr int kBwdKeys = 64 * kBwdWG;        // key rows a block
+constexpr int kBwdThreads = 128 * kBwdWG;
+constexpr int kQTile = 64;                   // query rows an iteration
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma matrix descriptor of a 128-byte-swizzled operand (layout type 1).
+// Every product reads one 64-element swizzle column of its operands, so the
+// stride between 8-row groups (1,024 bytes) is the only offset read; it
+// stands in both offset fields.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)(1024 >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Orders every later use of an accumulator after the wgmma.wait before it.
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[32] (+)= A . B, m64n64k16, A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n64_kk(float (&d)[32], uint64_t a,
+                                                uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[32] (+)= A . B, m64n64k16, A and B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n64_tt(float (&d)[32], uint64_t a,
+                                                uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[16] (+)= A . B, m64n32k16, A and B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n32_tt(float (&d)[16], uint64_t a,
+                                                uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, %16, %17, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[32] += A . B, m64n64k16: A from registers (four bf16 pairs a thread, the
+// accumulator layout of the product that made them), B MN-major in shared
+// memory.
+__device__ __forceinline__ void wgmma_rs_n64_t(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// Makes this thread's shared-memory writes (st.shared, cp.async) visible to
+// the async proxy that wgmma reads through.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+// Copies kRows rows of a row-major [*, D] bf16 matrix (row r at g + r D)
+// into shared memory at s, in the 128-byte swizzle: 64-column blocks of
+// kRows x 128 bytes, 16-byte chunk c of row r of a block at
+// r * 128 + ((c ^ (r & 7)) << 4). Rows at or beyond `valid` are zeros.
+template <int D, int kRows>
+__device__ __forceinline__ void load_swizzled(uint32_t s, const bf16* g,
+                                              int valid, int tid) {
+  constexpr int kPerRow = D / 8;
+  constexpr int kChunks = kRows * kPerRow;
+  static_assert(kChunks % kBwdThreads == 0, "tile not a whole number of "
+                                            "chunks a thread");
+#pragma unroll
+  for (int it = 0; it < kChunks / kBwdThreads; ++it) {
+    const int i = tid + it * kBwdThreads;
+    const int r = i / kPerRow, cc = i % kPerRow;
+    const uint32_t dst = s + (cc >> 3) * (kRows * 128) + r * 128 +
+                         (((cc & 7) ^ (r & 7)) << 4);
+    if (r < valid)
+      cp_async16(dst, g + (size_t)r * D + cc * 8);
+    else
+      asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(dst),
+                   "r"(0)
+                   : "memory");
+  }
+}
+
+// 2^x on the MUFU unit; results below 2^-126 flush to 0.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 h) {
+  return (uint32_t)__bfloat16_as_ushort(h.x) |
+         ((uint32_t)__bfloat16_as_ushort(h.y) << 16);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return bits(__floats2bfloat162_rn(lo, hi));
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+template <int D>
+constexpr size_t bwd_smem_bytes() {
+  // 1,024 for alignment | K | V | Q x 2 | dO x 2 | dS^T | (LSE, delta) x 2
+  return 1024 + (size_t)(2 * kBwdKeys + 4 * kQTile) * D * 2 +
+         (size_t)kBwdKeys * kQTile * 2 + 4 * kQTile * sizeof(float);
+}
+
+template <typename OutT, int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     float* __restrict__ dq_acc, OutT* __restrict__ dk,
+                     OutT* __restrict__ dv, int tq, int tk, int kv_len,
+                     int q_len, int causal, float scale, SlotOffsets pos) {
+  constexpr int kCB = D / 64;                   // 64-column blocks
+  constexpr int kKVBytes = kBwdKeys * D * 2;
+  constexpr int kQBytes = kQTile * D * 2;
+  constexpr int kDqN = D / kBwdWG;              // dQ columns a warpgroup adds
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t sK = (raw + 1023) & ~1023u;    // swizzle atoms: 1,024-aligned
+  const uint32_t sV = sK + kKVBytes;
+  const uint32_t sQ = sV + kKVBytes;            // two buffers
+  const uint32_t sDO = sQ + 2 * kQBytes;        // two buffers
+  const uint32_t sDS = sDO + 2 * kQBytes;       // dS^T [kBwdKeys][kQTile]
+  const uint32_t sRow = sDS + kBwdKeys * kQTile * 2;
+  // Buffer b: LSE at rows + 128 b, delta at rows + 128 b + 64.
+  const float* rows = reinterpret_cast<const float*>(smem_raw + (sRow - raw));
+
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int kb = blockIdx.x, bh = blockIdx.y;
+  const int slot = bh / pos.rows_per_slot;
+  const int q_off = pos.q_off[slot], k_off = pos.k_off[slot];
+  const int key0 = kb * kBwdKeys;
+  const int key_rows = min(kBwdKeys, tk - key0);  // rows of the block in tk
+  const size_t krow0 = (size_t)bh * tk + key0;
+  // Query tiles: K7's bounds. None when every key of the block is masked.
+  const int hi_q = min(tq / kQTile, (q_len + kQTile - 1) / kQTile);
+  int lo_q =
+      causal ? min(hi_q, max(0, floor_div(k_off + key0 - q_off, kQTile))) : 0;
+  if (key0 >= kv_len) lo_q = hi_q;
+  const int n_q = hi_q - lo_q;
+  // This thread's accumulator rows in S^T, dP^T, dK and dV: keys r_loc[0]
+  // and r_loc[1] of the block's tile.
+  const int r_loc[2] = {wg * 64 + warp * 16 + g, wg * 64 + warp * 16 + g + 8};
+  const bf16* qg = q + (size_t)bh * tq * D;
+  const bf16* dog = dout + (size_t)bh * tq * D;
+  const float* lseg = lse + (size_t)bh * tq;
+  const float* deltag = delta + (size_t)bh * tq;
+
+  auto load_query_tile = [&](int buf, int jq) {
+    load_swizzled<D, kQTile>(sQ + buf * kQBytes, qg + (size_t)jq * kQTile * D,
+                             kQTile, tid);
+    load_swizzled<D, kQTile>(sDO + buf * kQBytes,
+                             dog + (size_t)jq * kQTile * D, kQTile, tid);
+    if (tid < 32) {     // 2 x 64 floats: 16-byte chunks 0-15 LSE, 16-31 delta
+      const float* src = (tid < 16 ? lseg : deltag) + jq * kQTile +
+                         (tid & 15) * 4;
+      cp_async16(sRow + buf * 512 + (tid >> 4) * 256 + (tid & 15) * 16, src);
+    }
+    cp_async_commit();
+  };
+
+  float acc_k[kCB][32], acc_v[kCB][32];
+#pragma unroll
+  for (int c = 0; c < kCB; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc_k[c][i] = acc_v[c][i] = 0.f;
+  float s[32], dp[32], dq[kDqN / 2];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kDqN / 2; ++i) dq[i] = 0.f;
+
+  if (n_q > 0) {
+    load_swizzled<D, kBwdKeys>(sK, k + krow0 * D, key_rows, tid);
+    load_swizzled<D, kBwdKeys>(sV, v + krow0 * D, key_rows, tid);
+    load_query_tile(0, lo_q + kb % n_q);
+  }
+  const float scale_log2 = scale * kLog2e;
+
+  for (int it = 0; it < n_q; ++it) {
+    const int buf = it & 1;
+    const int jq = lo_q + (it + kb) % n_q;
+    cp_async_wait_all();
+    fence_async_smem();
+    // Every thread's copies of this tile have landed, and every warpgroup
+    // is done with the other buffer and with dS^T (its last wgmma.wait).
+    __syncthreads();
+    if (it + 1 < n_q) load_query_tile(buf ^ 1, lo_q + (it + 1 + kb) % n_q);
+
+    const uint32_t q_s = sQ + buf * kQBytes, do_s = sDO + buf * kQBytes;
+    const float* lse_s = rows + buf * 128;
+    const float* delta_s = lse_s + 64;
+
+    // S^T = K.Q^T and dP^T = V.dO^T over D: A and B K-major.
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t a = (kk >> 2) * (kBwdKeys * 128) + wg * 64 * 128 +
+                         (kk & 3) * 32;
+      const uint32_t b = (kk >> 2) * (kQTile * 128) + (kk & 3) * 32;
+      wgmma_ss_n64_kk(s, smem_desc(sK + a), smem_desc(q_s + b), kk > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t a = (kk >> 2) * (kBwdKeys * 128) + wg * 64 * 128 +
+                         (kk & 3) * 32;
+      const uint32_t b = (kk >> 2) * (kQTile * 128) + (kk & 3) * 32;
+      wgmma_ss_n64_kk(dp, smem_desc(sV + a), smem_desc(do_s + b), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    pin(s);
+
+    // P^T = exp(S^T scale - LSE[query]) where kept, as 2^x. Accumulator element
+    // 4 j + e is (row r_loc[e >> 1], query column 8 j + 2 t + (e & 1)); the
+    // key is kept for column c iff c >= c_min.
+    int c_min[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key0 + r_loc[r];
+      c_min[r] = key >= kv_len ? kQTile
+                 : causal      ? k_off + key - q_off - jq * kQTile
+                               : -(1 << 30);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * t + (e & 1);
+        const float lv = (e & 1) ? l2.y : l2.x;
+        s[4 * j + e] = c >= c_min[e >> 1]
+                           ? exp2_approx(
+                                 fmaf(s[4 * j + e], scale_log2, -lv * kLog2e))
+                           : 0.f;
+      }
+    }
+    // P = hi + lo in bf16, as A fragments: pair m is elements 2m, 2m + 1.
+    uint32_t ph[16], pl[16], ds[16];
+#pragma unroll
+    for (int m = 0; m < 16; ++m) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(s[2 * m], s[2 * m + 1]);
+      ph[m] = bits(h);
+      pl[m] = pack_bf16(s[2 * m] - __low2float(h),
+                        s[2 * m + 1] - __high2float(h));
+    }
+    // dV += P^T.dO (hi and lo): A from registers, B MN-major. In flight
+    // while dS^T is computed.
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < kCB; ++c) {
+#pragma unroll
+      for (int kk = 0; kk < kQTile / 16; ++kk) {
+        const uint32_t b = c * (kQTile * 128) + kk * 2048;
+        const uint32_t fh[4] = {ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2],
+                                ph[4 * kk + 3]};
+        const uint32_t fl[4] = {pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2],
+                                pl[4 * kk + 3]};
+        wgmma_rs_n64_t(acc_v[c], fh, smem_desc(do_s + b));
+        wgmma_rs_n64_t(acc_v[c], fl, smem_desc(do_s + b));
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    pin(dp);
+    // dS^T = P^T * (dP^T - delta[query]), rounded once to bf16.
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 d2 =
+          *reinterpret_cast<const float2*>(delta_s + 8 * j + 2 * t);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int e = 4 * j + 2 * r;
+        ds[2 * j + r] = pack_bf16(s[e] * (dp[e] - d2.x),
+                                  s[e + 1] * (dp[e + 1] - d2.y));
+      }
+    }
+
+    // dK += dS^T.Q: A from registers, B MN-major.
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < kCB; ++c) {
+#pragma unroll
+      for (int kk = 0; kk < kQTile / 16; ++kk) {
+        const uint32_t fs[4] = {ds[4 * kk], ds[4 * kk + 1], ds[4 * kk + 2],
+                                ds[4 * kk + 3]};
+        wgmma_rs_n64_t(acc_k[c], fs,
+                       smem_desc(q_s + c * (kQTile * 128) + kk * 2048));
+      }
+    }
+    wgmma_commit();
+
+    // dS^T to shared memory, swizzled like the tiles: row r_loc[r], query
+    // columns 8 j + 2 t and + 1 (row & 7 == g).
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(
+                         sDS + r_loc[r] * 128 + ((j ^ g) << 4) + 4 * t),
+                     "r"(ds[2 * j + r])
+                     : "memory");
+    fence_async_smem();
+    __syncthreads();
+
+    // dQ[:, wg kDqN ...] = dS.K over all kBwdKeys keys: A (dS^T stored
+    // key-major) and B (K) MN-major, 16 keys = 2,048 bytes a step.
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBwdKeys / 16; ++kk) {
+      const uint64_t a = smem_desc(sDS + kk * 2048);
+      if constexpr (kDqN == 32) {   // D = 64: columns 32 wg.. of block 0
+        wgmma_ss_n32_tt(dq, a, smem_desc(sK + kk * 2048 + wg * 64), kk > 0);
+      } else {                      // D = 128: column block wg
+        wgmma_ss_n64_tt(dq, a,
+                        smem_desc(sK + wg * (kBwdKeys * 128) + kk * 2048),
+                        kk > 0);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(dq);
+
+    // dq_acc += dQ * scale, 4 floats an instruction: lanes t and t ^ 1 swap
+    // halves so that even t holds 4 columns of row g, odd t of row g + 8.
+    float* dq_tile =
+        dq_acc + ((size_t)bh * tq + (size_t)jq * kQTile) * D + wg * kDqN;
+    const bool odd = t & 1;
+#pragma unroll
+    for (int j = 0; j < kDqN / 8; ++j) {
+      const float e0 = dq[4 * j], e1 = dq[4 * j + 1];
+      const float e2 = dq[4 * j + 2], e3 = dq[4 * j + 3];
+      const float r0 = __shfl_xor_sync(0xffffffffu, odd ? e0 : e2, 1);
+      const float r1 = __shfl_xor_sync(0xffffffffu, odd ? e1 : e3, 1);
+      const int row = warp * 16 + g + (odd ? 8 : 0);
+      const int col = 8 * j + 2 * (t & 2);
+      float* dst = dq_tile + (size_t)row * D + col;
+      const float x0 = odd ? r0 : e0, x1 = odd ? r1 : e1;
+      const float x2 = odd ? e2 : r0, x3 = odd ? e3 : r1;
+      asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"l"(dst),
+                   "f"(x0 * scale), "f"(x1 * scale), "f"(x2 * scale),
+                   "f"(x3 * scale)
+                   : "memory");
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < kCB; ++c) {
+    pin(acc_k[c]);
+    pin(acc_v[c]);
+  }
+
+  // dK = acc_k * scale, dV = acc_v: rows r_loc, columns 64 c + 8 j + 2 t.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (r_loc[r] >= key_rows) continue;
+    const size_t row = (krow0 + r_loc[r]) * D;
+#pragma unroll
+    for (int c = 0; c < kCB; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int e = 4 * j + 2 * r, col = 64 * c + 8 * j + 2 * t;
+        store2(dk + row + col, acc_k[c][e] * scale, acc_k[c][e + 1] * scale);
+        store2(dv + row + col, acc_v[c][e], acc_v[c][e + 1]);
+      }
+  }
+}
+
 // ---- launch ------------------------------------------------------------------
 
 template <typename T, int D>
@@ -529,13 +1050,13 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
-enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
+enum Which { kFwd = 0, kDq = 1, kDkv = 2, kBwd = 3 };
 
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse_in, *delta;
   void *o, *o2;
-  float* lse_out;
+  float *lse_out, *dq_acc;
   int bh, tq, tk, kv_len, q_len, causal;
   SlotOffsets pos;
   cudaStream_t stream;
@@ -575,9 +1096,29 @@ cudaError_t launch(Which which, const Args& a) {
   return cudaGetLastError();
 }
 
+template <typename OutT, int D>
+cudaError_t launch_bwd(const Args& a) {
+  const size_t smem = bwd_smem_bytes<D>();
+  auto kern = flash_bwd_kernel<OutT, D>;
+  cudaError_t err = prepare(kern, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3((a.tk + kBwdKeys - 1) / kBwdKeys, a.bh), kBwdThreads, smem,
+         a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      a.lse_in, a.delta, a.dq_acc, static_cast<OutT*>(a.o),
+      static_cast<OutT*>(a.o2), a.tq, a.tk, a.kv_len, a.q_len, a.causal,
+      1.0f / sqrtf((float)D), a.pos);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t dispatch_types(Which which, const Args& a, int in_bf16,
                            int out_bf16) {
+  if (which == kBwd) {   // the fused backward takes bf16 inputs only
+    if (!in_bf16) return cudaErrorInvalidValue;
+    return out_bf16 ? launch_bwd<bf16, D>(a) : launch_bwd<float, D>(a);
+  }
   if (!in_bf16 && !out_bf16) return launch<float, float, D>(which, a);
   if (in_bf16 && !out_bf16) return launch<bf16, float, D>(which, a);
   if (in_bf16 && out_bf16) return launch<bf16, bf16, D>(which, a);
@@ -649,4 +1190,22 @@ extern "C" int dps_flash_bwd_dkv(const void* q, const void* k, const void* v,
   a.causal = causal;
   a.stream = static_cast<cudaStream_t>(stream);
   return run(kDkv, a, d, in_bf16, out_bf16, n_slots, q_offs, k_offs);
+}
+
+// The fused backward (bf16 inputs): dq_acc [bh, tq, d] fp32 is added into
+// (dQ in fp32); dk, dv [bh, tk, d] are written in the output type.
+extern "C" int dps_flash_bwd(const void* q, const void* k, const void* v,
+                             const void* dout, const float* lse,
+                             const float* delta, float* dq_acc, void* dk,
+                             void* dv, int bh, int tq, int tk, int d,
+                             int kv_len, int q_len, int causal, int out_bf16,
+                             int n_slots, const int* q_offs,
+                             const int* k_offs, void* stream) {
+  Args a{};
+  a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse_in = lse; a.delta = delta;
+  a.dq_acc = dq_acc; a.o = dk; a.o2 = dv;
+  a.bh = bh; a.tq = tq; a.tk = tk; a.kv_len = kv_len; a.q_len = q_len;
+  a.causal = causal;
+  a.stream = static_cast<cudaStream_t>(stream);
+  return run(kBwd, a, d, 1, out_bf16, n_slots, q_offs, k_offs);
 }

@@ -5,9 +5,11 @@ core op works on ``[BH, T, D]`` q/k/v (T padded to a multiple of 128):
 
 - :func:`flash_fwd` (K5): online-softmax forward, writing O in
   ``out_dtype`` (default q's) and LSE ``[BH, T, 1]`` fp32;
-- :func:`flash_bwd_dq` (K6): dQ from the saved LSE and
-  delta = rowsum(dO * O);
-- :func:`flash_bwd_dkv` (K7): dK and dV per key block.
+- :func:`flash_bwd` (K6 and K7 in one kernel, bf16 inputs): dQ, dK and
+  dV from the saved LSE and delta = rowsum(dO * O), with dQ reduced in
+  fp32 into a buffer the caller may pass (``dq_acc``);
+- :func:`flash_bwd_dq` (K6) and :func:`flash_bwd_dkv` (K7): the first
+  version's dQ and dK/dV kernels, which the backward runs on fp32 inputs.
 
 Each takes ``kv_len`` (keys at or beyond it are masked), ``causal`` with
 global positions ``(q_offset, k_offset)``, and returns results in
@@ -59,6 +61,7 @@ _PALLAS_FLASH = "distributed_parameter_server_for_ml_training_tpu/" \
 #: The TPU kernel each wrapper replaces (file:line of its function).
 REPLACES = {
     "flash_fwd": f"{_PALLAS_FLASH}:168",
+    "flash_bwd": f"{_PALLAS_FLASH}:218, {_PALLAS_FLASH}:259",
     "flash_bwd_dq": f"{_PALLAS_FLASH}:218",
     "flash_bwd_dkv": f"{_PALLAS_FLASH}:259",
 }
@@ -240,9 +243,10 @@ def _fn(name: str):
         p, i32 = ctypes.c_void_p, ctypes.c_int
         ints = ctypes.POINTER(ctypes.c_int)
         head = {"dps_flash_fwd": [p] * 5,
+                "dps_flash_bwd": [p] * 9,
                 "dps_flash_bwd_dq": [p] * 7,
                 "dps_flash_bwd_dkv": [p] * 8}[name]
-        # bh, tq, tk, d, kv_len, [q_len,] causal, in_bf16, out_bf16
+        # bh, tq, tk, d, kv_len, [q_len,] causal, [in_bf16,] out_bf16
         n_int = 9 if name == "dps_flash_bwd_dkv" else 8
         fn.argtypes = head + [i32] * n_int + [i32, ints, ints, p]
         fn.restype = ctypes.c_int
@@ -335,6 +339,68 @@ def flash_fwd(q, k, v, kv_len: int, *, out_dtype=None, causal: bool = False,
     return o, lse
 
 
+def _bwd_plain_into(q, k, v, do, lse, delta, kv_len: int, dq_acc, *,
+                    out_dtype=None, **kw):
+    """The plain backward with the fused kernel's contract: dQ is computed
+    in fp32 and added into ``dq_acc`` when one is given (and returned),
+    else cast to ``out_dtype``."""
+    dq, dk, dv = flash_bwd_plain(q, k, v, do, lse, delta, kv_len,
+                                 out_dtype=torch.float32, **kw)
+    od = out_dtype or q.dtype
+    dq = dq.to(od) if dq_acc is None else dq_acc.add_(dq)
+    return dq, dk.to(od), dv.to(od)
+
+
+def flash_bwd(q, k, v, do, lse, delta, kv_len: int, *, dq_acc=None,
+              out_dtype=None, causal: bool = False, q_offset=0, k_offset=0,
+              q_len: int | None = None):
+    """K6 and K7 fused (bf16 inputs): (dQ, dK, dV) in one launch.
+
+    dQ is summed over the key tiles in fp32 in device memory: into
+    ``dq_acc`` (fp32, q's shape, contiguous), which is added to and
+    returned as dQ, or, without it, into zeros cast to ``out_dtype`` at the
+    end. dK and dV come back in ``out_dtype`` (default q's). ``q_len`` is
+    the unpadded query length, as for :func:`flash_bwd_dkv`. On CPU tensors
+    the plain version, with the same contract."""
+    kw = dict(causal=causal, q_offset=q_offset, k_offset=k_offset)
+    if q.device.type == "cpu":
+        return _bwd_plain_into(q, k, v, do, lse, delta, kv_len, dq_acc,
+                               out_dtype=out_dtype, **kw)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash backward: no kernel for device {q.device}")
+    out_dtype = out_dtype or q.dtype
+    bh, tq, d = q.shape
+    q_len = tq if q_len is None else q_len
+    lse, delta = _row_vec(lse, bh, tq, "lse"), _row_vec(delta, bh, tq, "delta")
+    _check_kernel_inputs("flash backward", q, k, v, out_dtype, do, lse, delta)
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"flash backward: the fused kernel takes bfloat16 "
+                         f"inputs, got {q.dtype}; float32 runs "
+                         f"flash_bwd_dq and flash_bwd_dkv")
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError("flash backward: dO must match q's shape and dtype")
+    if dq_acc is None:
+        acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    else:
+        if dq_acc.dtype != torch.float32 or dq_acc.shape != q.shape \
+                or dq_acc.device != q.device or not dq_acc.is_contiguous() \
+                or dq_acc.data_ptr() % 16:
+            raise ValueError(f"flash backward: dq_acc must be a contiguous, "
+                             f"16-byte aligned float32 tensor of q's shape "
+                             f"and device, got {dq_acc.dtype} "
+                             f"{tuple(dq_acc.shape)} on {dq_acc.device}")
+        acc = dq_acc
+    dk = torch.empty(k.shape, dtype=out_dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=out_dtype, device=q.device)
+    n, qs, ks = _slot_args(bh, q_offset, k_offset)
+    _launch("dps_flash_bwd", flash_bwd,
+            [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), acc.data_ptr(), dk.data_ptr(),
+             dv.data_ptr(), bh, tq, k.shape[1], d, int(kv_len), int(q_len),
+             int(causal), _KERNEL_TYPES[out_dtype], n, qs, ks], q.device)
+    return (acc.to(out_dtype) if dq_acc is None else acc), dk, dv
+
+
 def flash_bwd_dq(q, k, v, do, lse, delta, kv_len: int, *, out_dtype=None,
                  causal: bool = False, q_offset=0, k_offset=0):
     """K6: dQ ``[BH, Tq, D]`` in ``out_dtype`` or q's dtype."""
@@ -394,6 +460,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, kv_len: int, *, out_dtype=None,
 
 #: Kernel launches since the last reset (set to 0 to start a count).
 flash_fwd.launches = 0
+flash_bwd.launches = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
 
@@ -415,23 +482,38 @@ def _flash_fwd_impl(q, k, v, kv_len: int, *, use_kernel: bool = True,
                            k_offset=k_offset)
 
 
+def _bwd_route(device_type: str, dtype, use_kernel: bool) -> str:
+    """Which backward :func:`_flash_bwd_impl` runs: ``"fused"``
+    (:func:`flash_bwd`) for bf16 CUDA inputs, ``"k6_k7"``
+    (:func:`flash_bwd_dq` then :func:`flash_bwd_dkv`) for other CUDA
+    inputs, ``"plain"`` on the CPU or with ``use_kernel=False``. A dispatch
+    on dtype, not a fallback: each kernel raises on what it does not take."""
+    if not use_kernel or device_type == "cpu":
+        return "plain"
+    return "fused" if dtype == torch.bfloat16 else "k6_k7"
+
+
 def _flash_bwd_impl(q, k, v, do, lse, delta, kv_len: int, *,
                     use_kernel: bool = True, out_dtype=None,
                     causal: bool = False, q_offset=0, k_offset=0,
-                    q_len: int | None = None):
+                    q_len: int | None = None, dq_acc=None):
     """Flash backward given external (LSE, delta), shared by
     :class:`_FlashCore` and ring attention's per-hop backward (where they
-    come from the merged softmax over the whole ring): K6 then K7, or the
-    plain version with ``use_kernel=False``. Returns (dQ, dK, dV)."""
+    come from the merged softmax over the whole ring); routes by
+    :func:`_bwd_route`. Returns (dQ, dK, dV); with ``dq_acc`` (fp32, q's
+    shape) dQ is added into it in fp32 and dQ is ``dq_acc``."""
     kw = dict(out_dtype=out_dtype, causal=causal, q_offset=q_offset,
               k_offset=k_offset)
-    # On the CPU both wrappers would run the plain math: run it once.
-    if not use_kernel or q.device.type == "cpu":
-        return flash_bwd_plain(q, k, v, do, lse, delta, kv_len, **kw)
+    route = _bwd_route(q.device.type, q.dtype, use_kernel)
+    if route == "fused":
+        return flash_bwd(q, k, v, do, lse, delta, kv_len, dq_acc=dq_acc,
+                         q_len=q_len, **kw)
+    if route == "plain":
+        return _bwd_plain_into(q, k, v, do, lse, delta, kv_len, dq_acc, **kw)
     dq = flash_bwd_dq(q, k, v, do, lse, delta, kv_len, **kw)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, kv_len, q_len=q_len,
                            **kw)
-    return dq, dk, dv
+    return (dq if dq_acc is None else dq_acc.add_(dq)), dk, dv
 
 
 class _FlashCore(torch.autograd.Function):

@@ -13,11 +13,12 @@ the block that started on slot ``(my - step) mod N``.
 
 - :func:`make_ring_attention`: the dense ring (fp32 einsums per hop,
   autograd through it);
-- :func:`make_ring_flash_attention`: the flash kernels K5-K7 as each
-  hop's block core, with the reference's custom gradient as a
+- :func:`make_ring_flash_attention`: the flash kernels as each hop's
+  block core, with the reference's custom gradient as a
   ``torch.autograd.Function``. **Each hop is one launch over all slots**
   (BH' = N B H rows, per-slot (q_offset, k_offset)), so a hop costs one
-  K5, or one K6 and one K7, not N.
+  K5 forward and one fused backward (``flash_bwd``; K6 then K7 on fp32
+  inputs), not N.
 """
 
 from __future__ import annotations
@@ -143,14 +144,15 @@ def _hop_fwd(q3, k3, v3, use_kernel: bool, causal=False, q_offset=0,
 
 
 def _hop_bwd(q3, k3, v3, do3, lse_tot, delta, use_kernel: bool,
-             causal=False, q_offset=0, k_offset=0):
-    """One hop's flash backward: fp32 (dq partial, dk block, dv block)
-    ``[BH', T, D]`` given the TOTAL LSE and delta; the merge is never
-    differentiated (p = exp(s - lse_total) directly)."""
+             causal=False, q_offset=0, k_offset=0, dq_acc=None):
+    """One hop's flash backward given the TOTAL LSE and delta (the merge is
+    never differentiated: p = exp(s - lse_total) directly): the hop's dq is
+    added in fp32 into ``dq_acc`` ``[BH', T, D]`` (in the kernel, on bf16
+    inputs), and (dq_acc, dk block, dv block) come back, dk/dv fp32."""
     return _flash_bwd_impl(q3, k3, v3, do3, lse_tot, delta, k3.shape[1],
                            use_kernel=use_kernel, out_dtype=torch.float32,
                            causal=causal, q_offset=q_offset,
-                           k_offset=k_offset)
+                           k_offset=k_offset, dq_acc=dq_acc)
 
 
 def _hop_offsets(n: int, tl: int, step: int) -> tuple[list, list]:
@@ -216,12 +218,12 @@ class _RingFlash(torch.autograd.Function):
         kk, vv = k, v
         for step in range(n):
             q_offs, k_offs = _hop_offsets(n, tl, step)
-            # A wholly-future block: K6's loop bound and K7's query range
-            # are empty, so its gradients are 0, the cond branch's zeros.
-            dq_i, dk_i, dv_i = _hop_bwd(q, kk, vv, do, lse_tot, delta,
-                                        ctx.use_kernel, ctx.causal, q_offs,
-                                        k_offs)
-            dq = dq + dq_i
+            # A wholly-future block: the kernel's query range is empty, so
+            # it adds nothing to dq and its dk/dv are 0, the cond branch's
+            # zeros.
+            _, dk_i, dv_i = _hop_bwd(q, kk, vv, do, lse_tot, delta,
+                                     ctx.use_kernel, ctx.causal, q_offs,
+                                     k_offs, dq_acc=dq)
             dkk = dkk + dk_i
             dvv = dvv + dv_i
             # The gradient accumulators rotate with their blocks every hop
@@ -245,10 +247,11 @@ def make_ring_flash_attention(mesh: Mesh, axis: str = SEQ_AXIS,
     Forward: each hop's flash forward gives a normalized fp32 partial
     (o_i, lse_i), merged associatively. Backward: with the TOTAL LSE and
     delta = rowsum(dO * O), each hop's dq/dk/dv come from the flash
-    backward kernels, the dK/dV accumulators rotating with their blocks.
+    backward kernel, which adds dq into the ring's fp32 accumulator; the
+    dK/dV accumulators rotate with their blocks.
     q/k/v enter the kernels' layout once and leave it once.
-    ``use_kernel=None`` or True runs the kernel wrappers (K5-K7 on CUDA
-    tensors, their plain versions on CPU ones); False runs the plain
+    ``use_kernel=None`` or True runs the kernel wrappers (the kernels on
+    CUDA tensors, their plain versions on CPU ones); False runs the plain
     versions on any device (the reference's ``use_pallas=False``).
     ``causal`` masks in global positions."""
     n = mesh.shape[axis]

@@ -5,8 +5,8 @@ On the CPU the port's wrappers run their plain versions: held against
 the JAX plain math in fp32 within 1e-5, and against the JAX Pallas
 kernels in interpret mode within 2e-3 (forward) and 5e-3 (gradients),
 the tolerances the JAX package's own interpret-mode test uses. Tests
-marked ``cuda`` hold kernels K5-K7 against their plain versions on a
-card and skip here."""
+marked ``cuda`` hold kernels K5-K7 and the fused backward against their
+plain versions on a card and skip here."""
 
 import jax
 import jax.numpy as jnp
@@ -238,6 +238,95 @@ def test_slots_with_their_own_offsets_are_independent_calls():
                      k_offset=0)
 
 
+@pytest.mark.parametrize("with_acc", [False, True], ids=["fresh", "dq_acc"])
+@pytest.mark.parametrize("causal,q_off,k_off", MASKS,
+                         ids=["full", "causal", "causal_q128", "causal_k128"])
+def test_fused_backward_matches_plain_and_jax(causal, q_off, k_off,
+                                              with_acc):
+    """``flash_bwd`` (K6 + K7 fused; the plain version on the CPU) against
+    ``flash_bwd_plain`` and the JAX plain backward in fp32. With
+    ``dq_acc`` the hop's dQ is added to what the buffer holds, in place,
+    and the buffer is returned as dQ."""
+    t = 197
+    q, k, v, do = _inputs(t, seed=40 + q_off + 2 * k_off + causal)
+    kw = dict(causal=causal, q_offset=q_off, k_offset=k_off)
+    o_j, lse_j = _jax_fwd(q, k, v, t, False, **kw)
+    delta = (do * o_j).sum(-1, keepdims=True)
+    want = _jax_bwd(q, k, v, do, lse_j, delta, t, False, **kw)
+    args = [_t(x) for x in (q, k, v, do, lse_j, delta)]
+    plain = fa.flash_bwd_plain(*args, t, **kw)
+    start = np.random.default_rng(1).standard_normal(q.shape).astype(
+        np.float32)
+    acc = _t(start) if with_acc else None
+    got = fa.flash_bwd(*args, t, dq_acc=acc, q_len=t, **kw)
+    if with_acc:
+        assert got[0] is acc
+        _close(got[0] - _t(start), want[0], 1e-5, "dQ added")
+        assert torch.allclose(got[0], _t(start) + plain[0], atol=0, rtol=0)
+    for g, p, w, name in zip(got, plain, want, ("dQ", "dK", "dV")):
+        assert g.dtype == torch.float32
+        if not (with_acc and name == "dQ"):
+            assert torch.equal(g, p), name
+            _close(g, w, 1e-5, name)
+
+
+@pytest.mark.parametrize("out_dtype", [None, "bfloat16"])
+def test_fused_backward_output_dtype_and_no_cpu_launch(out_dtype):
+    q, k, v, do = (_t(x) for x in _inputs(128, seed=5))
+    o, lse = fa.flash_fwd(q, k, v, 128)
+    delta = (do * o).sum(-1, keepdim=True)
+    od = getattr(torch, out_dtype) if out_dtype else None
+    before = fa.flash_bwd.launches
+    got = fa.flash_bwd(q, k, v, do, lse, delta, 128, out_dtype=od)
+    assert fa.flash_bwd.launches == before
+    want = fa.flash_bwd_plain(q, k, v, do, lse, delta, 128, out_dtype=od)
+    for g, w in zip(got, want):
+        assert g.dtype == (od or torch.float32)
+        assert torch.equal(g, w)
+    meta = torch.empty((4, 128, 64), device="meta")
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        fa.flash_bwd(meta, meta, meta, meta, meta, meta, 128)
+
+
+@pytest.mark.parametrize("device,dtype,use_kernel,route", [
+    ("cuda", torch.bfloat16, True, "fused"),
+    ("cuda", torch.float32, True, "k6_k7"),
+    ("cuda", torch.bfloat16, False, "plain"),
+    ("cpu", torch.bfloat16, True, "plain"),
+    ("cpu", torch.float32, True, "plain")])
+def test_backward_routes_on_dtype(device, dtype, use_kernel, route):
+    assert fa._bwd_route(device, dtype, use_kernel) == route
+
+
+@pytest.mark.parametrize("route", ["fused", "k6_k7", "plain"])
+@pytest.mark.parametrize("with_acc", [False, True], ids=["fresh", "dq_acc"])
+def test_flash_bwd_impl_runs_the_routed_wrappers(monkeypatch, route,
+                                                 with_acc):
+    """``_flash_bwd_impl`` calls what its route names (the wrappers run
+    their plain versions on CPU tensors), each route giving the same
+    gradients and the same ``dq_acc`` contract."""
+    q, k, v, do = (_t(x) for x in _inputs(256, seed=6))
+    o, lse = fa.flash_fwd(q, k, v, 256, causal=True)
+    delta = (do * o).sum(-1, keepdim=True)
+    called = []
+    for name in ("flash_bwd", "flash_bwd_dq", "flash_bwd_dkv",
+                 "_bwd_plain_into"):
+        real = getattr(fa, name)
+        monkeypatch.setattr(fa, name, lambda *a, _r=real, _n=name, **kw:
+                            called.append(_n) or _r(*a, **kw))
+    monkeypatch.setattr(fa, "_bwd_route", lambda *a: route)
+    acc = torch.ones(q.shape) if with_acc else None
+    got = fa._flash_bwd_impl(q, k, v, do, lse, delta, 256, causal=True,
+                             dq_acc=acc)
+    assert called == {"fused": ["flash_bwd", "_bwd_plain_into"],
+                      "k6_k7": ["flash_bwd_dq", "flash_bwd_dkv"],
+                      "plain": ["_bwd_plain_into"]}[route]
+    want = fa.flash_bwd_plain(q, k, v, do, lse, delta, 256, causal=True)
+    assert torch.equal(got[0], want[0] + 1 if with_acc else want[0])
+    assert (got[0] is acc) == with_acc
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
 def test_wrappers_count_only_kernel_launches_and_refuse_other_devices():
     q, k, v, do = (_t(x) for x in _inputs(128, seed=4))
     before = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
@@ -271,13 +360,19 @@ def test_kernel_sources_and_replaced_tpu_kernels():
     repo = pathlib.Path(__file__).resolve().parents[1]
     assert (repo / fa.KERNEL_SOURCE).is_file()
     src = pathlib.Path(jfa.__file__).read_text().splitlines()
-    want = {"flash_fwd": "_fwd_kernel", "flash_bwd_dq": "_bwd_dq_kernel",
-            "flash_bwd_dkv": "_bwd_dkv_kernel"}
+    want = {"flash_fwd": ["_fwd_kernel"],
+            "flash_bwd": ["_bwd_dq_kernel", "_bwd_dkv_kernel"],
+            "flash_bwd_dq": ["_bwd_dq_kernel"],
+            "flash_bwd_dkv": ["_bwd_dkv_kernel"]}
     assert set(fa.REPLACES) == set(want)
-    for name, ref in fa.REPLACES.items():
-        path, line = ref.rsplit(":", 1)
-        assert (repo / path).resolve() == pathlib.Path(jfa.__file__).resolve()
-        assert src[int(line) - 1].startswith(f"def {want[name]}("), ref
+    for name, refs in fa.REPLACES.items():
+        refs = refs.split(", ")
+        assert len(refs) == len(want[name])
+        for ref, fn in zip(refs, want[name]):
+            path, line = ref.rsplit(":", 1)
+            assert (repo / path).resolve() == \
+                pathlib.Path(jfa.__file__).resolve()
+            assert src[int(line) - 1].startswith(f"def {fn}("), ref
 
 
 # -- on the card -----------------------------------------------------------------
@@ -322,12 +417,20 @@ def test_kernels_match_plain_on_card(case):
                               out_dtype=out_dtype, q_len=kv_len, **kw)
     want = fa.flash_bwd_plain(q, k, v, do, lse_p, delta, kv_len,
                               out_dtype=out_dtype, **kw)
+    pairs = [(o, o_p), (lse, lse_p), (dq, want[0]), (dk, want[1]),
+             (dv, want[2])]
+    fused_before = fa.flash_bwd.launches
+    if dtype == torch.bfloat16:     # the fused backward: one launch
+        fused = fa.flash_bwd(q, k, v, do, lse_p, delta, kv_len,
+                             out_dtype=out_dtype, q_len=kv_len, **kw)
+        pairs += list(zip(fused, want))
     torch.cuda.synchronize()
     assert fa.flash_fwd.launches == before + 1
+    assert fa.flash_bwd.launches == fused_before + (dtype == torch.bfloat16)
     rows = slice(0, kv_len)
-    for got, ref in ((o[:, rows], o_p[:, rows]), (lse[:, rows], lse_p[:, rows]),
-                     (dq[:, rows], want[0][:, rows]), (dk, want[1]),
-                     (dv, want[2])):
+    for i, (got, ref) in enumerate(pairs):
+        if i % 5 in (0, 1, 2):      # O, LSE and dQ: the unpadded rows
+            got, ref = got[:, rows], ref[:, rows]
         torch.testing.assert_close(got.float(), ref.float(), atol=tol,
                                    rtol=tol)
 
@@ -343,26 +446,29 @@ def test_future_block_gives_the_skipped_hop_on_card():
                          k_offset=2048)
     dk, dv = fa.flash_bwd_dkv(q, q, q, q, lse, delta, 256, causal=True,
                               k_offset=2048)
+    b = q.to(torch.bfloat16)
+    fused = fa.flash_bwd(b, b, b, b, lse, delta, 256, causal=True,
+                         k_offset=2048)
     torch.cuda.synchronize()
     assert float(o.abs().max()) == 0.0 and float(lse.max()) <= -1e29
-    for g in (dq, dk, dv):
+    for g in (dq, dk, dv, *fused):
         assert float(g.abs().max()) == 0.0
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [("float32", 2e-3), ("bfloat16", 2e-2)])
 def test_flash_attention_autograd_on_card(dtype, tol):
-    """``flash_attention`` under autograd on the card (K5 forward, K6 and
-    K7 backward through ``_FlashCore``, T = 197 padded to 256) against the
-    same op with the plain version."""
+    """``flash_attention`` under autograd on the card (K5 forward; the
+    fused backward on bf16, K6 and K7 on fp32, through ``_FlashCore``;
+    T = 197 padded to 256) against the same op with the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: K5-K7 run only on the card")
     gen = torch.Generator(device="cuda").manual_seed(1)
     q, k, v, cot = (torch.randn((2, 197, 4, 64), generator=gen,
                                 device="cuda").to(getattr(torch, dtype))
                     for _ in range(4))
-    before = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
-              fa.flash_bwd_dkv.launches)
+    before = (fa.flash_fwd.launches, fa.flash_bwd.launches,
+              fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
     results = []
     for use_kernel in (True, False):
         xs = [x.clone().requires_grad_() for x in (q, k, v)]
@@ -370,8 +476,11 @@ def test_flash_attention_autograd_on_card(dtype, tol):
         (out.float() * cot.float()).sum().backward()
         results.append([out] + [x.grad for x in xs])
     torch.cuda.synchronize()
-    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
-            fa.flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    bf16 = dtype == "bfloat16"
+    assert (fa.flash_fwd.launches, fa.flash_bwd.launches,
+            fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + bf16, before[2] + (not bf16),
+        before[3] + (not bf16))
     for got, want in zip(*results):
         assert got.dtype == want.dtype == q.dtype
         torch.testing.assert_close(got.float(), want.float(), atol=tol,

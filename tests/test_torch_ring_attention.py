@@ -78,6 +78,38 @@ def test_flash_ring_matches_jax(n, causal, use_kernel):
     _assert_all_close(got, want)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("n", [2, 4])
+def test_flash_ring_on_the_fused_backward_route_matches_jax(monkeypatch, n,
+                                                            causal):
+    """The route bf16 CUDA inputs take (``flash_bwd``, each hop adding its
+    dq into the ring's fp32 accumulator), run here by forcing the route on
+    CPU tensors, against the JAX ring. Every hop gets the same buffer."""
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
+        flash_attention as fa
+
+    monkeypatch.setattr(fa, "_bwd_route", lambda *a: "fused")
+    real = fa.flash_bwd
+    buffers = []
+
+    def spy(*a, dq_acc=None, **kw):
+        buffers.append(dq_acc)
+        return real(*a, dq_acc=dq_acc, **kw)
+
+    monkeypatch.setattr(fa, "flash_bwd", spy)
+    q, k, v, cot = _inputs(128 * n, seed=30 + n)
+    want = _jax_run(jra.make_ring_flash_attention(
+        jax_make_mesh(n, axis_names=("seq",)), axis="seq", causal=causal,
+        use_pallas=False), q, k, v, cot)
+    got = _torch_run(ra.make_ring_flash_attention(
+        make_mesh(n, "cpu", axis_names=(SEQ_AXIS,)), causal=causal),
+        q, k, v, cot)
+    _assert_all_close(got, want)
+    assert len(buffers) == n and buffers[0] is not None
+    assert all(b is buffers[0] for b in buffers)
+    assert buffers[0].dtype == torch.float32
+
+
 def test_flash_ring_matches_dense_ring_and_dense_attention():
     q, k, v, cot = _inputs(256, b=2, seed=5)
     mesh = make_mesh(2, "cpu", axis_names=(SEQ_AXIS,))
@@ -125,13 +157,16 @@ def test_skipped_future_hop_equals_the_cond_branch(monkeypatch):
                 torch.where(fut[:, None, None], -1e30, lse))
 
     def cond_bwd(q3, k3, v3, do3, lse_tot, delta, use_kernel, causal,
-                 q_offset, k_offset):
+                 q_offset, k_offset, dq_acc):
+        dq_before = dq_acc.clone()
         grads = real_bwd(q3, k3, v3, do3, lse_tot, delta, use_kernel,
-                         causal, q_offset, k_offset)
+                         causal, q_offset, k_offset, dq_acc=dq_acc)
         fut = future(q_offset, k_offset, q3.shape[0] // n)
-        for g in grads:
-            # The plain backward masks every key of such a hop: exact 0,
-            # the cond branch's zeros.
+        # The plain backward masks every key of such a hop: it adds exact
+        # 0 to the ring's dq and its dk/dv are the cond branch's zeros.
+        assert grads[0] is dq_acc
+        assert torch.equal(dq_acc[fut], dq_before[fut])
+        for g in grads[1:]:
             assert bool((g[fut] == 0).all())
         return grads
 
