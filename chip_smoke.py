@@ -43,34 +43,38 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    must be within rtol 0.05 / atol 1e-3 of each other;
 8. a few sync steps under torch.profiler: device busy share and top
    device kernels;
-9. the flash kernels against their plain versions: K5 (forward), the
-   fused backward ``flash_bwd`` (K6 + K7 in one kernel, bf16 inputs) and
-   the first version's K6 (dQ) and K7 (dK/dV), which the backward runs on
-   fp32 inputs. At the SP path's hop shape [192, 2048, 64] bf16 in, fp32
-   out, O, LSE, dQ, dK and dV within atol/rtol 5e-3 (2e-2 where the output
-   is bf16); in fp32 within 2e-3; each case reports the mean magnitude its
-   limit is compared against; T = 197 padded to 256 (kv_len masking);
-   causal with offsets (128, 0); two slots with their own offsets in one
-   launch; D = 128; the fused backward on every bf16 case. A wholly-future
-   block (0, 2048) must give O = 0, LSE <= -1e29 and all-zero gradients,
-   in fp32 and in bf16. Two fused launches on one input must give
-   bit-equal dK and dV (dQ's launch-to-launch difference is reported).
-   Times each kernel, its plain version and the library call
-   (``aten._scaled_dot_product_flash_attention`` and its backward) by CUDA
-   events at the hop shape, the fused backward in turns with the first
-   version's K6 + K7 and the library's backward;
+9. the flash kernels against their plain versions: the wgmma forward
+   ``flash_fwd_wgmma`` (K5 on bf16 inputs), the fused backward
+   ``flash_bwd`` (K6 + K7 in one kernel, bf16 inputs) and the first
+   versions of K5 (forward), K6 (dQ) and K7 (dK/dV), which the path runs
+   on fp32 inputs. At the SP path's hop shape [192, 2048, 64] bf16 in,
+   fp32 out, O, LSE, dQ, dK and dV within atol/rtol 5e-3 (2e-2 where the
+   output is bf16); in fp32 within 2e-3; each case reports the mean
+   magnitude its limit is compared against; T = 197 padded to 256
+   (kv_len masking); causal with offsets (128, 0); two slots with their
+   own offsets in one launch; D = 128; the wgmma forward and the fused
+   backward on every bf16 case. A wholly-future block (0, 2048) must give
+   O = 0, LSE <= -1e29 and all-zero gradients, in fp32 and in bf16 (the
+   wgmma forward's too). Two launches on one input must give bit-equal O
+   and LSE (wgmma forward) and dK and dV (fused backward; dQ's
+   launch-to-launch difference is reported). Times each kernel, its plain
+   version and the library call (``aten._scaled_dot_product_flash_
+   attention`` and its backward) by CUDA events at the hop shape, each
+   redesign in turns with its first version and the library's call;
 10. the SP path: ``SPTrainer`` with ViT-B/16 (768 wide, 12 layers, 12
    heads, 1,000 classes, bf16) on synthetic ImageNet at 1024 x 1024
    (4,096 tokens) over 2 sequence slots of 2,048 tokens, batch 8, 2 steps
    and one eval batch. The flash counts are reset just before and read
-   just after: K5 must have launched 24 x (steps + eval batches) times,
-   the fused backward 24 x steps (12 layers x 2 hops, one launch over
-   both slots a hop), K6 and K7 never. Then one layer's ring on real
+   just after: the wgmma forward must have launched 24 x (steps + eval
+   batches) times, the fused backward 24 x steps (12 layers x 2 hops, one
+   launch over both slots a hop), the first versions of K5, K6 and K7
+   never. Then one layer's ring on real
    activations with the kernels against the same ring with plain hops on
    the card, output and gradients (bf16) within atol 5e-3 and rtol 2^-7,
    one bf16 step;
 11. one SP step under torch.profiler: device busy share, the flash
-   kernels' and the fused backward's device time, top device kernels;
+   kernels', the wgmma forward's and the fused backward's device time,
+   top device kernels;
 12. the CLI verb ``train`` in async mode at its default codec, in sync
    mode with the int8 ring, and in sp mode on ViT-B/16 at 1024 x 1024.
 
@@ -785,9 +789,11 @@ HOP = (192, 2048, 64)           # [N*B*H, T/N, D] of the SP path's ring hops
 def _flash_case(bh: int, t: int, d: int, dtype, out_dtype, *, kv_len=None,
                 causal=False, q_offset=0, k_offset=0, seed=0):
     """K5, K6 and K7 and their plain versions on one input, and on bf16
-    inputs the fused backward (``flash_bwd``, outputs ``dQ_fused``,
-    ``dK_fused``, ``dV_fused``): returns ``{output: (kernel's, plain
-    version's)}`` over the unpadded rows, and the kernel's (O, LSE)."""
+    inputs the wgmma forward (``flash_fwd_wgmma``, outputs ``O_wgmma``,
+    ``LSE_wgmma``) and the fused backward (``flash_bwd``, outputs
+    ``dQ_fused``, ``dK_fused``, ``dV_fused``): returns ``{output:
+    (kernel's, plain version's)}`` over the unpadded rows, and the
+    forwards' ``{wrapper: (O, LSE)}``."""
     import torch
 
     from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
@@ -802,6 +808,7 @@ def _flash_case(bh: int, t: int, d: int, dtype, out_dtype, *, kv_len=None,
     kw = dict(out_dtype=out_dtype, causal=causal, q_offset=q_offset,
               k_offset=k_offset)
     o, lse = fa.flash_fwd(q, k, v, kv_len, **kw)
+    fwd = {"flash_fwd": (o, lse)}
     o_p, lse_p = fa.flash_fwd_plain(q, k, v, kv_len, **kw)
     delta = (do.float() * o_p.float()).sum(-1, keepdim=True)
     dq = fa.flash_bwd_dq(q, k, v, do, lse_p, delta, kv_len, **kw)
@@ -815,18 +822,22 @@ def _flash_case(bh: int, t: int, d: int, dtype, out_dtype, *, kv_len=None,
              "dQ": (dq[:, rows], dq_p[:, rows]),
              "dK": (dk, dk_p), "dV": (dv, dv_p)}
     if dtype == torch.bfloat16:
+        ow, lsew = fwd["flash_fwd_wgmma"] = fa.flash_fwd_wgmma(q, k, v,
+                                                               kv_len, **kw)
         fq, fk, fv = fa.flash_bwd(q, k, v, do, lse_p, delta, kv_len,
                                   q_len=kv_len, **kw)
-        pairs.update({"dQ_fused": (fq[:, rows], dq_p[:, rows]),
+        pairs.update({"O_wgmma": (ow[:, rows], o_p[:, rows]),
+                      "LSE_wgmma": (lsew[:, rows], lse_p[:, rows]),
+                      "dQ_fused": (fq[:, rows], dq_p[:, rows]),
                       "dK_fused": (fk, dk_p), "dV_fused": (fv, dv_p)})
     torch.cuda.synchronize()
     return {name: (a.float(), b.float()) for name, (a, b) in pairs.items()}, \
-        (o, lse)
+        fwd
 
 
 #: Operations of each flash kernel's work, in units of BH T^2 D.
-FLASH_MATS = {"flash_fwd": 4, "flash_bwd": 10, "flash_bwd_dq": 6,
-              "flash_bwd_dkv": 8}
+FLASH_MATS = {"flash_fwd_wgmma": 4, "flash_fwd": 4, "flash_bwd": 10,
+              "flash_bwd_dq": 6, "flash_bwd_dkv": 8}
 
 
 def _flash_bounds(bh: int, t: int, d: int) -> dict:
@@ -836,7 +847,8 @@ def _flash_bounds(bh: int, t: int, d: int) -> dict:
     fused backward's work is S, dP, dV, dK and dQ, 10 BH T^2 D."""
     mat = bh * t * t * d
     io_in, row = 2 * bh * t * d, 4 * bh * t
-    work = {"flash_fwd": (4 * mat, 3 * io_in + 4 * bh * t * d + row),
+    fwd = (4 * mat, 3 * io_in + 4 * bh * t * d + row)
+    work = {"flash_fwd_wgmma": fwd, "flash_fwd": fwd,
             "flash_bwd": (10 * mat,
                           4 * io_in + 2 * row + 12 * bh * t * d),
             "flash_bwd_dq": (6 * mat, 4 * io_in + 2 * row + 4 * bh * t * d),
@@ -899,43 +911,49 @@ def phase_kernel_flash(state: dict) -> None:
         del pairs
         torch.cuda.empty_cache()
     # A block wholly in the future of every query: no key tile runs, every
-    # output is exactly 0 (LSE -1e30), in fp32 (K5-K7) and in bf16 (K5 and
-    # the fused backward).
+    # output is exactly 0 (LSE -1e30), in fp32 (K5-K7) and in bf16 (K5, the
+    # wgmma forward and the fused backward).
     future = {}
     for dtype in (f32, bf16):
-        pairs, (o, lse) = _flash_case(64, 256, 64, dtype, f32, causal=True,
-                                      k_offset=2048)
+        pairs, fwd = _flash_case(64, 256, 64, dtype, f32, causal=True,
+                                 k_offset=2048)
         grads = {n: float(a.abs().max()) for n, (a, _) in pairs.items()
                  if n.startswith("d")}
-        future[str(dtype)] = {"O_max_abs": float(o.abs().max()),
-                              "LSE_max": float(lse.max()),
-                              "grad_max_abs": grads}
-        if future[str(dtype)]["O_max_abs"] != 0.0 \
-                or future[str(dtype)]["LSE_max"] > -1e29 \
-                or any(x != 0.0 for x in grads.values()):
-            bad.append(("future_block", str(dtype)))
+        future[str(dtype)] = {"grad_max_abs": grads}
+        for wrapper, (o, lse) in fwd.items():
+            future[str(dtype)][wrapper] = {"O_max_abs": float(o.abs().max()),
+                                           "LSE_max": float(lse.max())}
+            if float(o.abs().max()) != 0.0 or float(lse.max()) > -1e29:
+                bad.append(("future_block", str(dtype), wrapper))
+        if any(x != 0.0 for x in grads.values()):
+            bad.append(("future_block", str(dtype), "gradients"))
 
     # Times at the hop shape, bf16 in and fp32 out, as the ring runs them.
     gen = torch.Generator(device="cuda").manual_seed(5)
     q, k, v, do = (torch.randn((bh, t, d), generator=gen,
                                device="cuda").to(bf16) for _ in range(4))
-    o, lse = fa.flash_fwd(q, k, v, t, out_dtype=f32)
+    # Two launches on one input: the wgmma forward's O and LSE and the
+    # fused backward's dK and dV are summed in a fixed order (bit-equal);
+    # dQ's fp32 partial sums arrive in an order that varies.
+    o, lse = fa.flash_fwd_wgmma(q, k, v, t, out_dtype=f32)
+    o2, lse2 = fa.flash_fwd_wgmma(q, k, v, t, out_dtype=f32)
     delta = (do.float() * o).sum(-1, keepdim=True)
-    # Two launches of the fused backward on one input: dK and dV are summed
-    # in a fixed order (bit-equal); dQ's fp32 partial sums arrive in an
-    # order that varies.
     a = fa.flash_bwd(q, k, v, do, lse, delta, t, out_dtype=f32)
     b = fa.flash_bwd(q, k, v, do, lse, delta, t, out_dtype=f32)
     torch.cuda.synchronize()
-    repeat = {"dK_bit_equal": bool(torch.equal(a[1], b[1])),
+    repeat = {"O_wgmma_bit_equal": bool(torch.equal(o, o2)),
+              "LSE_wgmma_bit_equal": bool(torch.equal(lse, lse2)),
+              "dK_bit_equal": bool(torch.equal(a[1], b[1])),
               "dV_bit_equal": bool(torch.equal(a[2], b[2])),
               "dQ_max_abs_diff": float((a[0] - b[0]).abs().max())}
-    if not (repeat["dK_bit_equal"] and repeat["dV_bit_equal"]):
-        bad.append(("fused_repeat", repeat))
-    del a, b
+    if not all(x for n, x in repeat.items() if n.endswith("bit_equal")):
+        bad.append(("repeat", repeat))
+    del a, b, o2, lse2
     q4, k4, v4, do4 = (x.view(bh // 12, 12, t, d) for x in (q, k, v, do))
     lib = torch.ops.aten._scaled_dot_product_flash_attention(q4, k4, v4)
     kernels = {
+        "flash_fwd_wgmma": lambda: fa.flash_fwd_wgmma(q, k, v, t,
+                                                      out_dtype=f32),
         "flash_fwd": lambda: fa.flash_fwd(q, k, v, t, out_dtype=f32),
         "flash_bwd": lambda: fa.flash_bwd(q, k, v, do, lse, delta, t,
                                           out_dtype=f32),
@@ -956,57 +974,62 @@ def phase_kernel_flash(state: dict) -> None:
             do4, q4, k4, v4, lib[0], lib[1], lib[2], lib[3], lib[4], lib[5],
             0.0, False, lib[6], lib[7])}
     bounds = _flash_bounds(bh, t, d)
-    err = {"flash_fwd": max(hop_err["O"], hop_err["LSE"]),
+    err = {"flash_fwd_wgmma": max(hop_err["O_wgmma"], hop_err["LSE_wgmma"]),
+           "flash_fwd": max(hop_err["O"], hop_err["LSE"]),
            "flash_bwd": max(hop_err["dQ_fused"], hop_err["dK_fused"],
                             hop_err["dV_fused"]),
            "flash_bwd_dq": hop_err["dQ"],
            "flash_bwd_dkv": max(hop_err["dK"], hop_err["dV"])}
-    first_version = lambda: (kernels["flash_bwd_dq"](),  # noqa: E731
-                             kernels["flash_bwd_dkv"]())
-    # The redesign against the first version and the library, in turns
+    # Each redesign against its first version and the library, in turns
     # (new, old, library, library, old, new) in this one call.
-    turns = {"flash_bwd": [], "first_version_k6_k7": [], "library": []}
-    for name in ("flash_bwd", "first_version_k6_k7", "library", "library",
-                 "first_version_k6_k7", "flash_bwd"):
-        fn = {"flash_bwd": kernels["flash_bwd"],
-              "first_version_k6_k7": first_version,
-              "library": library["bwd"]}[name]
-        turns[name].append(cuda_time_ms(fn, 20))
-    bwd_mats = bh * t * t * d
-    emit({"phase": "kernel_flash_vs_plain", "redesign": "flash_bwd",
-          "shape": list(HOP), "dtype": "bfloat16 in, float32 out",
-          "turns_ms": turns,
-          "bound_ms": bounds["flash_bwd"][0],
-          "tflops_10_mats": {n: 10 * bwd_mats / min(v) / 1e9
-                             for n, v in turns.items()},
-          "share_of_bound": bounds["flash_bwd"][0] / min(turns["flash_bwd"]),
-          "repeat": repeat, "card": state["card"]})
+    redesigns = {"fwd": ("flash_fwd_wgmma", "first_version_k5",
+                         kernels["flash_fwd"]),
+                 "bwd": ("flash_bwd", "first_version_k6_k7",
+                         lambda: (kernels["flash_bwd_dq"](),
+                                  kernels["flash_bwd_dkv"]()))}
+    turns, lib_ms, ms = {}, {}, {}
+    for key, (new, old, old_fn) in redesigns.items():
+        fns = {new: kernels[new], old: old_fn, "library": library[key]}
+        turns[key] = {name: [] for name in fns}
+        for name in (new, old, "library", "library", old, new):
+            turns[key][name].append(cuda_time_ms(fns[name], 20))
+        lib_ms[key] = turns[key]["library"]
+        ms[new] = turns[key][new]
+        if key == "fwd":
+            ms["flash_fwd"] = turns[key][old]
+        mats = FLASH_MATS[new] * bh * t * t * d
+        emit({"phase": "kernel_flash_vs_plain", "redesign": new,
+              "shape": list(HOP), "dtype": "bfloat16 in, float32 out",
+              "turns_ms": turns[key], "bound_ms": bounds[new][0],
+              f"tflops_{FLASH_MATS[new]}_mats": {
+                  n: mats / min(x) / 1e9 for n, x in turns[key].items()},
+              "share_of_bound": bounds[new][0] / min(turns[key][new]),
+              "faster_than_first_version_in_every_turn": max(
+                  turns[key][new]) < min(turns[key][old]),
+              "repeat": repeat, "card": state["card"]})
     plain_ms = {key: [cuda_time_ms(fn, 3)] for key, fn in plain.items()}
-    lib_ms = {"fwd": [cuda_time_ms(library["fwd"], 20)],
-              "bwd": turns["library"]}
     state["flash"] = {}
     for name, fk in kernels.items():
-        key = "fwd" if name == "flash_fwd" else "bwd"
-        ms = turns[name] if name == "flash_bwd" else \
-            [cuda_time_ms(fk, 20), cuda_time_ms(fk, 20)]
+        key = "fwd" if name.startswith("flash_fwd") else "bwd"
+        if name not in ms:
+            ms[name] = [cuda_time_ms(fk, 20), cuda_time_ms(fk, 20)]
         plain_ms[key].append(cuda_time_ms(plain[key], 3))
-        if key == "fwd":
-            lib_ms["fwd"].append(cuda_time_ms(library["fwd"], 20))
         bound_ms, bound_by = bounds[name]
         state["flash"][name] = {
-            "ms": min(ms), "plain_ms": min(plain_ms[key]),
+            "ms": min(ms[name]), "plain_ms": min(plain_ms[key]),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": min(lib_ms[key]), "max_abs_err": err[name]}
         emit({"phase": "kernel_flash_vs_plain", "kernel": name,
               "shape": list(HOP), "dtype": "bfloat16 in, float32 out",
-              "ms_runs": ms, "plain_ms_runs": plain_ms[key],
+              "ms_runs": ms[name], "plain_ms_runs": plain_ms[key],
               "library_ms_runs": lib_ms[key],
               "library_call": ("aten._scaled_dot_product_flash_attention"
                                if key == "fwd" else
                                "aten._scaled_dot_product_flash_attention_"
                                "backward (dQ, dK and dV together)"),
               "bound_ms": bound_ms, "bound_by": bound_by,
-              "tflops": FLASH_MATS[name] * bh * t * t * d / min(ms) / 1e9,
+              "tflops": FLASH_MATS[name] * bh * t * t * d / min(ms[name])
+              / 1e9,
               "card": state["card"]})
     emit({"phase": "kernel_flash_vs_plain", "cases": errors,
           "mean_abs_plain": typical,
@@ -1016,6 +1039,10 @@ def phase_kernel_flash(state: dict) -> None:
     if bad:
         raise AssertionError(f"the flash kernels differ from their plain "
                              f"versions: {bad}")
+    if max(ms["flash_fwd_wgmma"]) >= min(ms["flash_fwd"]):
+        raise AssertionError(f"the wgmma forward is not faster than the "
+                             f"first version in every turn: "
+                             f"{turns['fwd']}")
 
 
 SP_STEPS, SP_BATCH, SP_SLOTS, SP_IMAGE = 2, 8, 2, 1024
@@ -1042,7 +1069,8 @@ def _flash_counts() -> dict:
     from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
         flash_attention as fa
 
-    return {"flash_fwd": fa.flash_fwd.launches,
+    return {"flash_fwd_wgmma": fa.flash_fwd_wgmma.launches,
+            "flash_fwd": fa.flash_fwd.launches,
             "flash_bwd": fa.flash_bwd.launches,
             "flash_bwd_dq": fa.flash_bwd_dq.launches,
             "flash_bwd_dkv": fa.flash_bwd_dkv.launches}
@@ -1052,6 +1080,7 @@ def _reset_flash_counts() -> None:
     from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
         flash_attention as fa
 
+    fa.flash_fwd_wgmma.launches = 0
     fa.flash_fwd.launches = 0
     fa.flash_bwd.launches = 0
     fa.flash_bwd_dq.launches = 0
@@ -1159,9 +1188,9 @@ def phase_sp_path(state: dict) -> None:
           "ring_layer0_kernel_vs_plain_max_abs_err": ring_err,
           "ring_layer0_plain_mean_abs": ring_typical,
           "card": state["card"]})
-    # One fused backward a hop; the first version's K6 and K7 (fp32
-    # inputs) are on no step of this bf16 path.
-    want = {"flash_fwd": 24 * (steps + eval_batches),
+    # One wgmma forward and one fused backward a hop; the first versions
+    # of K5, K6 and K7 (fp32 inputs) are on no step of this bf16 path.
+    want = {"flash_fwd_wgmma": 24 * (steps + eval_batches), "flash_fwd": 0,
             "flash_bwd": 24 * steps, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     if steps != SP_STEPS or counts != want:
         raise AssertionError(f"{steps} steps launched {counts}; expected "
@@ -1196,6 +1225,7 @@ def phase_sp_profile(state: dict) -> None:
     flash_us = sum(e.self_device_time_total for e in events
                    if "flash_" in e.key and "kernel" in e.key)
     fused = [e for e in events if "flash_bwd_kernel" in e.key]
+    forward = [e for e in events if "flash_fwd_wgmma_kernel" in e.key]
     emit({"phase": "sp_profile", "steps": 1, "wall_s": wall,
           "device_busy_s": device_us / 1e6,
           "device_idle_share": (1 - device_us / 1e6 / wall)
@@ -1204,6 +1234,9 @@ def phase_sp_profile(state: dict) -> None:
           "flash_bwd_device_ms": sum(e.self_device_time_total
                                      for e in fused) / 1e3,
           "flash_bwd_launches": sum(e.count for e in fused),
+          "flash_fwd_wgmma_device_ms": sum(e.self_device_time_total
+                                           for e in forward) / 1e3,
+          "flash_fwd_wgmma_launches": sum(e.count for e in forward),
           "top_device_ms": [[e.key[:160], round(e.self_device_time_total
                                                / 1e3, 3), e.count]
                             for e in top],
@@ -1289,11 +1322,12 @@ def main() -> int:
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None})
-    # K5 and the fused backward (the K6/K7 entry) with their launches from
-    # the SP path's run, then the first version's K6 and K7, which run on
-    # fp32 inputs and so on no step of that bf16 path; times at its hop
-    # shape. The library's backward computes dQ, dK and dV in one call: its
-    # time stands beside every backward entry.
+    # The wgmma forward (the K5 entry on bf16) and the fused backward (the
+    # K6/K7 entry) with their launches from the SP path's run, then the
+    # first versions of K5, K6 and K7, which run on fp32 inputs and so on
+    # no step of that bf16 path; times at its hop shape. The library's
+    # backward computes dQ, dK and dV in one call: its time stands beside
+    # every backward entry.
     for name, k in state["flash"].items():
         kernels.append({
             "name": name, "route": "cuda", "source": FA.KERNEL_SOURCE,

@@ -3,7 +3,9 @@
 //
 // Replaces, in distributed_parameter_server_for_ml_training_tpu/ops/pallas/
 // flash_attention.py:
-//   K5  _fwd_kernel      -> flash_fwd_kernel     (O and LSE)
+//   K5  _fwd_kernel      -> flash_fwd_kernel     (O and LSE; fp32 inputs)
+//   K5 on bf16           -> flash_fwd_wgmma_kernel (O and LSE, wgmma; its
+//                                                 own note below)
 //   K6  _bwd_dq_kernel   -> flash_bwd_dq_kernel  (dQ)
 //   K7  _bwd_dkv_kernel  -> flash_bwd_dkv_kernel (dK and dV)
 //   K6 + K7 on bf16      -> flash_bwd_kernel     (dQ, dK and dV in one pass,
@@ -42,21 +44,24 @@
 // iteration: O = 0 and LSE = -1e30 + log(1e-30), which is -1e30 in fp32,
 // the values the JAX ring's skipped-hop branch produces.
 //
-// Design of K5, K6 and K7 (the fused backward's is in its own section). A
-// thread block of 4 warps owns a tile of 64 rows (query rows for
-// K5/K6, key rows for K7), 16 rows a warp, and loops over the other
-// operand in tiles of 64 staged in shared memory. Each warp's products
-// are m16n8k16 tiles: on bf16 inputs the tensor cores' mma.sync (bf16 in,
-// fp32 accumulate), on fp32 inputs the same fragment computed with fp32
-// FMAs, so the softmax and masking code is shared. P and dS go through a
-// per-warp shared tile to become the A operand of the next product.
+// Design of the first versions of K5, K6 and K7 (the wgmma kernels' are in
+// their own sections). A thread block of 4 warps owns a tile of 64 rows
+// (query rows for K5/K6, key rows for K7), 16 rows a warp, and loops over
+// the other operand in tiles of 64 staged in shared memory. Each warp's
+// products are m16n8k16 tiles: on bf16 inputs the tensor cores' mma.sync
+// (bf16 in, fp32 accumulate), on fp32 inputs the same fragment computed
+// with fp32 FMAs, so the softmax and masking code is shared. P and dS go
+// through a per-warp shared tile to become the A operand of the next
+// product.
 //
 // Bound: operations. At the SP path's hop shape [192, 2048, 64] bf16 K5
 // does 4 BH T^2 D = 206 GFLOP (0.21 ms at 989 TFLOP/s), K6 309 and K7 412
-// GFLOP, against ~0.1 GB of traffic each. This first version has no
-// software pipelining (tiles are loaded, then used) and reads its
-// fragments from shared memory without ldmatrix. The backward runs K6 and
-// K7 on fp32 inputs only: bf16 inputs go to the fused kernel.
+// GFLOP, against ~0.1 GB of traffic each. The first versions have no
+// software pipelining (tiles are loaded, then used) and read their
+// fragments from shared memory without ldmatrix. The Python routes send
+// them fp32 inputs only: bf16 inputs go to the wgmma forward and the fused
+// backward. K5's first version still takes bf16, as the yardstick that
+// the wgmma forward is timed against.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1033,6 +1038,315 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   }
 }
 
+// ---- K5 on bf16: the wgmma forward -------------------------------------------
+//
+// flash_fwd_wgmma_kernel replaces K5 (_fwd_kernel in the Pallas file) for
+// bf16 inputs: O in the output type (fp32 as the ring runs it, or bf16) and
+// LSE in fp32, natural-log units, exactly what the first version computes.
+//
+// Work and bound: 4 BH T^2 D operations (S = Q.K^T and O = P.V). At the SP
+// path's hop shape [192, 2048, 64] that is 0.2084 ms at 989 TFLOP/s
+// against ~0.17 GB of traffic (0.05 ms): the bound is operations. Beside
+// the products, every score takes one exponent on the MUFU unit (BH T^2 =
+// 0.81 G at the hop shape) and a few FMA-pipe operations, which run while
+// the tensor cores work on another warpgroup's products.
+//
+// What the design does about the first version's costs:
+//  1. Small tiles fed by scalar loads. A block of two consumer warpgroups
+//     owns kFwdRows = 128 query rows (64 a warpgroup) and walks key tiles of
+//     kFwdKeys = 128 rows, so each K/V byte brought on chip serves 128
+//     rows. Both products are wgmma (bf16 in, fp32 accumulate): S =
+//     Q.K^T as two m64n64k16 chains (keys 0-63 and 64-127) with Q and K
+//     K-major in 128-byte-swizzled shared memory, O += P.V as m64n64k16
+//     (two at D = 128) with V read MN-major from the same swizzled tile.
+//     No fragment is assembled by hand.
+//  2. P through shared memory. P comes out of the softmax in the S
+//     accumulator's layout, which is the A-operand register layout of P.V:
+//     it is rounded to bf16 pairs in registers and never touches shared
+//     memory.
+//  3. No overlap. K and V tiles are double-buffered: the next tile's
+//     cp.async copies (into the swizzle; rows past Tk zero-filled) are
+//     issued right after the barrier that frees its buffer and land while
+//     this tile's products and softmax run; one barrier a tile. Within a
+//     warpgroup the tile runs in two halves of 64 keys, each product its
+//     own commit group: the first half's row maxima are taken while the
+//     second half's S is in flight, and the first half's P.V is in flight
+//     while the second half's exponents run. Each wgmma result is read in
+//     the iteration that issued it (as in the fused backward: ptxas
+//     serializes the pipeline otherwise, C7514). Across warpgroups: at
+//     D = 64 a block takes ~81 KB of shared memory and at most 128
+//     registers a thread (no spills; one S accumulator of 128 keys
+//     spilled), so two blocks (four warpgroups) share an SM, and one's
+//     softmax runs under another's products. A second S accumulator, to
+//     have the next tile's S in flight during this tile's softmax, would
+//     not fit those registers.
+//  4. A full expf and a separate multiply a score. The softmax runs in the
+//     log2 domain: P = 2^(S scale log2e - m) as one fmaf into ex2.approx,
+//     with m kept in log2 units and LSE converted back to natural log at
+//     the end. Tiles that no mask reaches (all keys below min(kv_len, Tk)
+//     and, under causal masking, none in the future of the warpgroup's
+//     first row) skip the mask; the row sums l stay per thread and are
+//     reduced across the 4 lanes of a row once, at the end.
+//
+// Semantics are the first version's: masked scores are -1e30 (never -inf,
+// so no S - m is NaN), P is rounded to bf16 only as the operand of P.V and
+// l sums the fp32 P, l = max(l, 1e-30), O = acc / l, LSE = m + log(l).
+// A row that no key reaches has m = -1e30: LSE = -1e30, and its O is the
+// mean of V over the tiles it ran (P = 2^0), which depends on the tile size
+// as in the first version and the JAX kernels (whose blocks differ); the
+// ring's merge weights such a row by 0. Loop bounds are key_tiles_hi's at
+// 128-key tiles; a query block with no key tile to run writes O = 0 and
+// LSE = -1e30, the JAX ring's skipped-hop values. Query rows at or beyond
+// Tq (Tq a multiple of 64, not always of 128) are computed on zeros and not
+// written. O and LSE are the same on every launch: nothing is summed with
+// atomics.
+
+constexpr int kFwdWG = 2;                     // consumer warpgroups a block
+constexpr int kFwdRows = 64 * kFwdWG;         // query rows a block
+constexpr int kFwdKeys = 128;                 // key rows a tile
+constexpr int kFwdThreads = 128 * kFwdWG;
+static_assert(kFwdThreads == kBwdThreads,
+              "load_swizzled spreads a tile over kBwdThreads threads");
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <int D>
+constexpr size_t fwd_smem_bytes() {
+  // 1,024 for alignment | Q | K x 2 | V x 2
+  return 1024 + (size_t)(kFwdRows + 4 * kFwdKeys) * D * 2;
+}
+
+// The online softmax works on half tiles of 64 keys, in the log2 domain.
+// s is a half's raw Q.K^T accumulator: element 4 j + e is row e >> 1 of
+// this thread's two, key column col0 + 8 j + 2 t + (e & 1) of the tile.
+//
+// half_max folds the half's row maxima (log2 units) into mx. With kMask,
+// column c of row r is kept iff c <= lim[r], and s becomes the scaled
+// scores with -1e30 where masked.
+template <bool kMask>
+__device__ __forceinline__ void half_max(float (&s)[32], float (&mx)[2],
+                                         const int (&lim)[2], int t, int col0,
+                                         float scale_log2) {
+  if (kMask) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1, c = col0 + 8 * (i >> 2) + 2 * t + (i & 1);
+      s[i] = c <= lim[r] ? s[i] * scale_log2 : kNegInf;
+      mx[r] = fmaxf(mx[r], s[i]);
+    }
+  } else {
+    float rm[2] = {s[0], s[2]};
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      rm[(i >> 1) & 1] = fmaxf(rm[(i >> 1) & 1], s[i]);
+    mx[0] = fmaxf(mx[0], rm[0] * scale_log2);
+    mx[1] = fmaxf(mx[1], rm[1] * scale_log2);
+  }
+}
+
+// half_exp turns the half into P = 2^(score - m) (neg = -m), bf16 pairs in
+// p in the A-operand layout of P.V (pair m is elements 2 m and 2 m + 1, of
+// row m & 1), and adds the fp32 P to this thread's row sums rs.
+template <bool kMask>
+__device__ __forceinline__ void half_exp(const float (&s)[32],
+                                         uint32_t (&p)[16], float (&rs)[2],
+                                         const float (&neg)[2],
+                                         float scale_log2) {
+#pragma unroll
+  for (int m = 0; m < 16; ++m) {
+    const int r = m & 1;
+    const float a = kMask ? exp2_approx(s[2 * m] + neg[r])
+                          : exp2_approx(fmaf(s[2 * m], scale_log2, neg[r]));
+    const float b =
+        kMask ? exp2_approx(s[2 * m + 1] + neg[r])
+              : exp2_approx(fmaf(s[2 * m + 1], scale_log2, neg[r]));
+    rs[r] += a + b;
+    p[m] = pack_bf16(a, b);
+  }
+}
+
+template <typename OutT, int D>
+__global__ void __launch_bounds__(kFwdThreads, D == 64 ? 2 : 1)
+    flash_fwd_wgmma_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, OutT* __restrict__ o,
+                           float* __restrict__ lse, int tq, int tk,
+                           int kv_len, int causal, float scale,
+                           SlotOffsets pos) {
+  constexpr int kCB = D / 64;                   // 64-column blocks
+  constexpr int kTileBytes = kFwdKeys * D * 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t sQ = (raw + 1023) & ~1023u;    // swizzle atoms: 1,024-aligned
+  const uint32_t sK = sQ + kFwdRows * D * 2;    // two buffers
+  const uint32_t sV = sK + 2 * kTileBytes;      // two buffers
+
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, q0 = blockIdx.x * kFwdRows;
+  const int slot = bh / pos.rows_per_slot;
+  const int q_off = pos.q_off[slot], k_off = pos.k_off[slot];
+  // Key tiles: key_tiles_hi's bounds at 128-key tiles, over the block's
+  // rows below tq.
+  const int kv_eff = min(kv_len, tk);
+  int n_k = kv_eff > 0 ? (kv_eff + kFwdKeys - 1) / kFwdKeys : 0;
+  if (causal) {
+    const int row_max = q_off + min(q0 + kFwdRows, tq) - 1;
+    n_k = min(n_k, max(0, floor_div(row_max - k_off, kFwdKeys) + 1));
+  }
+  // This thread's accumulator rows: query rows qrow[0] and qrow[1].
+  const int wg_row0 = q0 + wg * 64;
+  const int qrow[2] = {wg_row0 + warp * 16 + g, wg_row0 + warp * 16 + g + 8};
+  const bf16* kg = k + (size_t)bh * tk * D;
+  const bf16* vg = v + (size_t)bh * tk * D;
+
+  auto load_kv = [&](int buf, int kb) {
+    const int key0 = kb * kFwdKeys;
+    load_swizzled<D, kFwdKeys>(sK + buf * kTileBytes, kg + (size_t)key0 * D,
+                               tk - key0, tid);
+    load_swizzled<D, kFwdKeys>(sV + buf * kTileBytes, vg + (size_t)key0 * D,
+                               tk - key0, tid);
+    cp_async_commit();
+  };
+
+  // acc: O; sa and sb: S of a tile's keys 0-63 and 64-127.
+  float acc[kCB][32], sa[32], sb[32];
+#pragma unroll
+  for (int c = 0; c < kCB; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sa[i] = sb[i] = 0.f;
+  float m2[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const float scale_log2 = scale * kLog2e;
+
+  if (n_k > 0) {
+    load_swizzled<D, kFwdRows>(sQ, q + ((size_t)bh * tq + q0) * D, tq - q0,
+                               tid);
+    load_kv(0, 0);                              // one group with Q
+  }
+  for (int it = 0; it < n_k; ++it) {
+    const int buf = it & 1, key0 = it * kFwdKeys;
+    cp_async_wait_all();
+    fence_async_smem();
+    // Every thread's copies of this tile have landed, and every warpgroup
+    // is done with the other buffer (its last wgmma.wait).
+    __syncthreads();
+    if (it + 1 < n_k) load_kv(buf ^ 1, it + 1);
+    const uint32_t k_s = sK + buf * kTileBytes, v_s = sV + buf * kTileBytes;
+
+    // S = Q.K^T over D, one commit group a half: A (this warpgroup's 64
+    // query rows) and B (64 keys, 8,192 bytes a half) K-major.
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t a = sQ + (kk >> 2) * (kFwdRows * 128) + wg * 64 * 128 +
+                         (kk & 3) * 32;
+      const uint32_t b = k_s + (kk >> 2) * (kFwdKeys * 128) + (kk & 3) * 32;
+      wgmma_ss_n64_kk(sa, smem_desc(a), smem_desc(b), kk > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t a = sQ + (kk >> 2) * (kFwdRows * 128) + wg * 64 * 128 +
+                         (kk & 3) * 32;
+      const uint32_t b = k_s + (kk >> 2) * (kFwdKeys * 128) + 64 * 128 +
+                         (kk & 3) * 32;
+      wgmma_ss_n64_kk(sb, smem_desc(a), smem_desc(b), kk > 0);
+    }
+    wgmma_commit();
+
+    // Keys kept for row r: local columns c <= lim[r]. The mask is skipped
+    // where it keeps every key of the tile for every row of the warpgroup.
+    int lim[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      lim[r] = min(kv_eff - 1 - key0,
+                   causal ? q_off + qrow[r] - k_off - key0 : kFwdKeys);
+    const bool edge =
+        key0 + kFwdKeys > kv_eff ||
+        (causal && k_off + key0 + kFwdKeys - 1 > q_off + wg_row0);
+    // Row maxima: the first half's while the second half's S is in flight.
+    float mx[2] = {m2[0], m2[1]};
+    wgmma_wait<1>();
+    pin(sa);
+    if (edge) half_max<true>(sa, mx, lim, t, 0, scale_log2);
+    else half_max<false>(sa, mx, lim, t, 0, scale_log2);
+    wgmma_wait<0>();
+    pin(sb);
+    if (edge) half_max<true>(sb, mx, lim, t, 64, scale_log2);
+    else half_max<false>(sb, mx, lim, t, 64, scale_log2);
+    float alpha[2], neg[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = group_max(mx[r]);
+      alpha[r] = exp2_approx(m2[r] - mx[r]);
+      m2[r] = mx[r];
+      neg[r] = -mx[r];
+    }
+#pragma unroll
+    for (int c = 0; c < kCB; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[c][i] *= alpha[(i >> 1) & 1];
+    // P, and O += P.V a half at a time: A from registers, B (V, 16 keys =
+    // 2,048 bytes a step) MN-major. The first half's product is in flight
+    // while the second half's exponents run.
+    uint32_t pa[16], pb[16];
+    if (edge) half_exp<true>(sa, pa, rs, neg, scale_log2);
+    else half_exp<false>(sa, pa, rs, neg, scale_log2);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < kCB; ++c) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t fp[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                                pa[4 * kk + 3]};
+        wgmma_rs_n64_t(acc[c], fp,
+                       smem_desc(v_s + c * (kFwdKeys * 128) + kk * 2048));
+      }
+    }
+    wgmma_commit();
+    if (edge) half_exp<true>(sb, pb, rs, neg, scale_log2);
+    else half_exp<false>(sb, pb, rs, neg, scale_log2);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < kCB; ++c) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t fp[4] = {pb[4 * kk], pb[4 * kk + 1], pb[4 * kk + 2],
+                                pb[4 * kk + 3]};
+        wgmma_rs_n64_t(acc[c], fp, smem_desc(v_s + c * (kFwdKeys * 128) +
+                                             (kk + 4) * 2048));
+      }
+    }
+    wgmma_commit();
+    l[0] = l[0] * alpha[0] + rs[0];
+    l[1] = l[1] * alpha[1] + rs[1];
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < kCB; ++c) pin(acc[c]);
+  }
+
+  // O = acc / l in the output type, LSE = m + log(l) in natural-log units:
+  // rows qrow[r], columns 64 c + 8 j + 2 t.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float lf = fmaxf(group_sum(l[r]), 1e-30f);
+    if (qrow[r] >= tq) continue;
+    const float inv = 1.f / lf;
+    const size_t row = (size_t)bh * tq + qrow[r];
+#pragma unroll
+    for (int c = 0; c < kCB; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int e = 4 * j + 2 * r;
+        store2(o + row * D + 64 * c + 8 * j + 2 * t, acc[c][e] * inv,
+               acc[c][e + 1] * inv);
+      }
+    if (t == 0)
+      lse[row] = m2[r] == kNegInf ? kNegInf : fmaf(m2[r], kLn2, logf(lf));
+  }
+}
+
 // ---- launch ------------------------------------------------------------------
 
 template <typename T, int D>
@@ -1050,7 +1364,7 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
-enum Which { kFwd = 0, kDq = 1, kDkv = 2, kBwd = 3 };
+enum Which { kFwd = 0, kDq = 1, kDkv = 2, kBwd = 3, kFwdWgmma = 4 };
 
 struct Args {
   const void *q, *k, *v, *dout;
@@ -1112,11 +1426,30 @@ cudaError_t launch_bwd(const Args& a) {
   return cudaGetLastError();
 }
 
+template <typename OutT, int D>
+cudaError_t launch_fwd_wgmma(const Args& a) {
+  const size_t smem = fwd_smem_bytes<D>();
+  auto kern = flash_fwd_wgmma_kernel<OutT, D>;
+  cudaError_t err = prepare(kern, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3((a.tq + kFwdRows - 1) / kFwdRows, a.bh), kFwdThreads, smem,
+         a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<OutT*>(a.o), a.lse_out,
+      a.tq, a.tk, a.kv_len, a.causal, 1.0f / sqrtf((float)D), a.pos);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t dispatch_types(Which which, const Args& a, int in_bf16,
                            int out_bf16) {
-  if (which == kBwd) {   // the fused backward takes bf16 inputs only
+  // The wgmma kernels (the fused backward, the wgmma forward) take bf16
+  // inputs only.
+  if (which == kBwd || which == kFwdWgmma) {
     if (!in_bf16) return cudaErrorInvalidValue;
+    if (which == kFwdWgmma)
+      return out_bf16 ? launch_fwd_wgmma<bf16, D>(a)
+                      : launch_fwd_wgmma<float, D>(a);
     return out_bf16 ? launch_bwd<bf16, D>(a) : launch_bwd<float, D>(a);
   }
   if (!in_bf16 && !out_bf16) return launch<float, float, D>(which, a);
@@ -1158,6 +1491,22 @@ extern "C" int dps_flash_fwd(const void* q, const void* k, const void* v,
   a.causal = causal;
   a.stream = static_cast<cudaStream_t>(stream);
   return run(kFwd, a, d, in_bf16, out_bf16, n_slots, q_offs, k_offs);
+}
+
+// The wgmma forward (bf16 inputs): o [bh, tq, d] in the output type, lse
+// [bh, tq] fp32.
+extern "C" int dps_flash_fwd_wgmma(const void* q, const void* k,
+                                   const void* v, void* o, float* lse, int bh,
+                                   int tq, int tk, int d, int kv_len,
+                                   int causal, int out_bf16, int n_slots,
+                                   const int* q_offs, const int* k_offs,
+                                   void* stream) {
+  Args a{};
+  a.q = q; a.k = k; a.v = v; a.o = o; a.lse_out = lse;
+  a.bh = bh; a.tq = tq; a.tk = tk; a.kv_len = kv_len; a.q_len = tq;
+  a.causal = causal;
+  a.stream = static_cast<cudaStream_t>(stream);
+  return run(kFwdWgmma, a, d, 1, out_bf16, n_slots, q_offs, k_offs);
 }
 
 extern "C" int dps_flash_bwd_dq(const void* q, const void* k, const void* v,

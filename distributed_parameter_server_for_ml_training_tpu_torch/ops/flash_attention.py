@@ -3,8 +3,10 @@
 Counterpart of the JAX package's ``ops/pallas/flash_attention.py``. The
 core op works on ``[BH, T, D]`` q/k/v (T padded to a multiple of 128):
 
-- :func:`flash_fwd` (K5): online-softmax forward, writing O in
-  ``out_dtype`` (default q's) and LSE ``[BH, T, 1]`` fp32;
+- :func:`flash_fwd_wgmma` (K5 on bf16 inputs) and :func:`flash_fwd` (the
+  first version of K5, which the forward runs on fp32 inputs):
+  online-softmax forward, writing O in ``out_dtype`` (default q's) and
+  LSE ``[BH, T, 1]`` fp32;
 - :func:`flash_bwd` (K6 and K7 in one kernel, bf16 inputs): dQ, dK and
   dV from the saved LSE and delta = rowsum(dO * O), with dQ reduced in
   fp32 into a buffer the caller may pass (``dq_acc``);
@@ -28,7 +30,10 @@ Every kernel wrapper dispatches on the tensors' device, as
   is no fallback to the plain version;
 - a CPU tensor takes the plain PyTorch version (:func:`flash_fwd_plain`,
   :func:`flash_bwd_plain`): the JAX package's masked dense formulation
-  in fp32, which the CPU tests hold against the JAX functions.
+  in fp32, which the CPU tests hold against the JAX functions. The one
+  exception is :func:`flash_fwd_wgmma`, which takes bf16 CUDA tensors
+  only: its route (:func:`_fwd_route`) sends CPU tensors to the plain
+  version before it.
 
 Each wrapper has a ``launches`` count of kernel launches (never plain
 calls). :func:`flash_attention` is the public ``[B, T, H, D]`` op with
@@ -61,6 +66,7 @@ _PALLAS_FLASH = "distributed_parameter_server_for_ml_training_tpu/" \
 #: The TPU kernel each wrapper replaces (file:line of its function).
 REPLACES = {
     "flash_fwd": f"{_PALLAS_FLASH}:168",
+    "flash_fwd_wgmma": f"{_PALLAS_FLASH}:168",
     "flash_bwd": f"{_PALLAS_FLASH}:218, {_PALLAS_FLASH}:259",
     "flash_bwd_dq": f"{_PALLAS_FLASH}:218",
     "flash_bwd_dkv": f"{_PALLAS_FLASH}:259",
@@ -243,11 +249,13 @@ def _fn(name: str):
         p, i32 = ctypes.c_void_p, ctypes.c_int
         ints = ctypes.POINTER(ctypes.c_int)
         head = {"dps_flash_fwd": [p] * 5,
+                "dps_flash_fwd_wgmma": [p] * 5,
                 "dps_flash_bwd": [p] * 9,
                 "dps_flash_bwd_dq": [p] * 7,
                 "dps_flash_bwd_dkv": [p] * 8}[name]
         # bh, tq, tk, d, kv_len, [q_len,] causal, [in_bf16,] out_bf16
-        n_int = 9 if name == "dps_flash_bwd_dkv" else 8
+        n_int = {"dps_flash_bwd_dkv": 9,
+                 "dps_flash_fwd_wgmma": 7}.get(name, 8)
         fn.argtypes = head + [i32] * n_int + [i32, ints, ints, p]
         fn.restype = ctypes.c_int
     return fn
@@ -339,6 +347,38 @@ def flash_fwd(q, k, v, kv_len: int, *, out_dtype=None, causal: bool = False,
     return o, lse
 
 
+def _check_wgmma_inputs(what: str, q, k, v, out_dtype, *extra) -> None:
+    """The wgmma kernels' checks (the wgmma forward, the fused backward):
+    :func:`_check_kernel_inputs`, and bf16 q/k/v."""
+    _check_kernel_inputs(what, q, k, v, out_dtype, *extra)
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"{what}: the wgmma kernel takes bfloat16 q/k/v, "
+                         f"got {q.dtype}; float32 runs the first version")
+
+
+def flash_fwd_wgmma(q, k, v, kv_len: int, *, out_dtype=None,
+                    causal: bool = False, q_offset=0, k_offset=0):
+    """K5 on bf16 inputs, the Hopper ``wgmma`` kernel: the contract of
+    :func:`flash_fwd` (O in ``out_dtype`` or bf16, LSE ``[BH, Tq, 1]``
+    fp32) in one launch. CUDA tensors only: on the CPU
+    :func:`_flash_fwd_impl` routes to the plain version, and this wrapper
+    raises on any other device and on float32 inputs."""
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash forward (wgmma): no kernel for device "
+                           f"{q.device}")
+    out_dtype = out_dtype or q.dtype
+    _check_wgmma_inputs("flash forward (wgmma)", q, k, v, out_dtype)
+    bh, tq, d = q.shape
+    o = torch.empty((bh, tq, d), dtype=out_dtype, device=q.device)
+    lse = torch.empty((bh, tq, 1), dtype=torch.float32, device=q.device)
+    n, qs, ks = _slot_args(bh, q_offset, k_offset)
+    _launch("dps_flash_fwd_wgmma", flash_fwd_wgmma,
+            [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             lse.data_ptr(), bh, tq, k.shape[1], d, int(kv_len),
+             int(causal), _KERNEL_TYPES[out_dtype], n, qs, ks], q.device)
+    return o, lse
+
+
 def _bwd_plain_into(q, k, v, do, lse, delta, kv_len: int, dq_acc, *,
                     out_dtype=None, **kw):
     """The plain backward with the fused kernel's contract: dQ is computed
@@ -372,11 +412,7 @@ def flash_bwd(q, k, v, do, lse, delta, kv_len: int, *, dq_acc=None,
     bh, tq, d = q.shape
     q_len = tq if q_len is None else q_len
     lse, delta = _row_vec(lse, bh, tq, "lse"), _row_vec(delta, bh, tq, "delta")
-    _check_kernel_inputs("flash backward", q, k, v, out_dtype, do, lse, delta)
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"flash backward: the fused kernel takes bfloat16 "
-                         f"inputs, got {q.dtype}; float32 runs "
-                         f"flash_bwd_dq and flash_bwd_dkv")
+    _check_wgmma_inputs("flash backward", q, k, v, out_dtype, do, lse, delta)
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError("flash backward: dO must match q's shape and dtype")
     if dq_acc is None:
@@ -460,6 +496,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, kv_len: int, *, out_dtype=None,
 
 #: Kernel launches since the last reset (set to 0 to start a count).
 flash_fwd.launches = 0
+flash_fwd_wgmma.launches = 0
 flash_bwd.launches = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
@@ -467,19 +504,31 @@ flash_bwd_dkv.launches = 0
 
 # -- the core op and its gradient ------------------------------------------------
 
+def _fwd_route(device_type: str, dtype, use_kernel: bool) -> str:
+    """Which forward :func:`_flash_fwd_impl` runs: ``"wgmma"``
+    (:func:`flash_fwd_wgmma`) for bf16 CUDA inputs, ``"k5"`` (the first
+    version, :func:`flash_fwd`) for other CUDA inputs, ``"plain"`` on the
+    CPU or with ``use_kernel=False``. A dispatch on dtype, not a fallback:
+    each kernel raises on what it does not take."""
+    if not use_kernel or device_type == "cpu":
+        return "plain"
+    return "wgmma" if dtype == torch.bfloat16 else "k5"
+
+
 def _flash_fwd_impl(q, k, v, kv_len: int, *, use_kernel: bool = True,
                     out_dtype=None, causal: bool = False, q_offset=0,
                     k_offset=0):
-    """Flash forward on ``[BH, T, D]``: K5 (:func:`flash_fwd`, which takes
-    the plain version for CPU tensors), or with ``use_kernel=False`` the
-    plain version on any device. ``out_dtype`` reaches only the final
-    cast, so fp32 partials of a ring hop are never rounded to q's dtype."""
-    if use_kernel:
-        return flash_fwd(q, k, v, kv_len, out_dtype=out_dtype,
-                         causal=causal, q_offset=q_offset, k_offset=k_offset)
-    return flash_fwd_plain(q, k, v, kv_len, out_dtype=out_dtype,
-                           causal=causal, q_offset=q_offset,
-                           k_offset=k_offset)
+    """Flash forward on ``[BH, T, D]``, routed by :func:`_fwd_route`.
+    ``out_dtype`` reaches only the final cast, so fp32 partials of a ring
+    hop are never rounded to q's dtype."""
+    kw = dict(out_dtype=out_dtype, causal=causal, q_offset=q_offset,
+              k_offset=k_offset)
+    route = _fwd_route(q.device.type, q.dtype, use_kernel)
+    if route == "wgmma":
+        return flash_fwd_wgmma(q, k, v, kv_len, **kw)
+    if route == "k5":
+        return flash_fwd(q, k, v, kv_len, **kw)
+    return flash_fwd_plain(q, k, v, kv_len, **kw)
 
 
 def _bwd_route(device_type: str, dtype, use_kernel: bool) -> str:

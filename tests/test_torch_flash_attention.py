@@ -5,8 +5,8 @@ On the CPU the port's wrappers run their plain versions: held against
 the JAX plain math in fp32 within 1e-5, and against the JAX Pallas
 kernels in interpret mode within 2e-3 (forward) and 5e-3 (gradients),
 the tolerances the JAX package's own interpret-mode test uses. Tests
-marked ``cuda`` hold kernels K5-K7 and the fused backward against their
-plain versions on a card and skip here."""
+marked ``cuda`` hold kernels K5-K7, the wgmma forward and the fused
+backward against their plain versions on a card and skip here."""
 
 import jax
 import jax.numpy as jnp
@@ -327,6 +327,79 @@ def test_flash_bwd_impl_runs_the_routed_wrappers(monkeypatch, route,
     assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
 
 
+@pytest.mark.parametrize("device,dtype,use_kernel,route", [
+    ("cuda", torch.bfloat16, True, "wgmma"),
+    ("cuda", torch.float32, True, "k5"),
+    ("cuda", torch.bfloat16, False, "plain"),
+    ("cpu", torch.bfloat16, True, "plain"),
+    ("cpu", torch.float32, True, "plain")])
+def test_forward_routes_on_dtype(device, dtype, use_kernel, route):
+    assert fa._fwd_route(device, dtype, use_kernel) == route
+
+
+@pytest.mark.parametrize("route", ["wgmma", "k5", "plain"])
+@pytest.mark.parametrize("out_dtype", [None, "float32"])
+def test_flash_fwd_impl_runs_the_routed_wrapper(monkeypatch, route,
+                                                out_dtype):
+    """``_flash_fwd_impl`` calls what its route names, with the caller's
+    mask and output dtype. The wgmma wrapper takes CUDA tensors only, so
+    here each stand-in computes the plain version."""
+    q, k, v, _ = (_t(x).to(torch.bfloat16) for x in _inputs(256, seed=8))
+    kw = dict(out_dtype=getattr(torch, out_dtype) if out_dtype else None,
+              causal=True, q_offset=[0, 256], k_offset=[0, 0])
+    called = []
+    real = fa.flash_fwd_plain
+    for name in ("flash_fwd_wgmma", "flash_fwd", "flash_fwd_plain"):
+        monkeypatch.setattr(fa, name, lambda *a, _n=name, **k_:
+                            called.append((_n, k_)) or real(*a, **k_))
+    monkeypatch.setattr(fa, "_fwd_route", lambda *a: route)
+    o, lse = fa._flash_fwd_impl(q, k, v, 200, **kw)
+    name = {"wgmma": "flash_fwd_wgmma", "k5": "flash_fwd",
+            "plain": "flash_fwd_plain"}[route]
+    assert called == [(name, kw)]
+    want = real(q, k, v, 200, **kw)
+    assert o.dtype == (kw["out_dtype"] or torch.bfloat16)
+    assert torch.equal(o, want[0]) and torch.equal(lse, want[1])
+
+
+def test_flash_fwd_wgmma_refuses_cpu_and_fp32_and_counts_only_launches():
+    """The wgmma forward has no CPU route of its own (``_fwd_route`` takes
+    the plain version there): it refuses CPU tensors of either dtype and
+    any device that is not CUDA, and a refused call counts nothing."""
+    q, k, v, _ = (_t(x) for x in _inputs(128, seed=9))
+    before = fa.flash_fwd_wgmma.launches
+    for dtype in (torch.bfloat16, torch.float32):
+        x = q.to(dtype)
+        with pytest.raises(RuntimeError, match="no kernel for device cpu"):
+            fa.flash_fwd_wgmma(x, k.to(dtype), v.to(dtype), 128)
+    meta = torch.empty((4, 128, 64), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        fa.flash_fwd_wgmma(meta, meta, meta, 128)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa._check_wgmma_inputs("flash forward (wgmma)", q, k, v,
+                               torch.float32)
+    # The forward on CPU bf16 tensors, kernels asked for: the plain route.
+    o, lse = fa._flash_fwd_impl(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                                128, out_dtype=torch.float32)
+    want = fa.flash_fwd_plain(q.bfloat16(), k.bfloat16(), v.bfloat16(), 128,
+                              out_dtype=torch.float32)
+    assert torch.equal(o, want[0]) and torch.equal(lse, want[1])
+    assert fa.flash_fwd_wgmma.launches == before
+
+
+@pytest.mark.parametrize("shape,dtype,out_dtype,match", [
+    ((4, 128, 32), torch.bfloat16, torch.float32, "head dims"),
+    ((4, 128, 256), torch.bfloat16, torch.float32, "head dims"),
+    ((4, 96, 64), torch.bfloat16, torch.float32, "multiple of 64"),
+    ((4, 128, 64), torch.float32, torch.float32, "takes bfloat16"),
+    ((4, 128, 64), torch.float16, torch.float32, "float32 or bfloat16"),
+    ((4, 128, 64), torch.bfloat16, torch.float16, "output dtype")])
+def test_wgmma_input_checks_name_the_limit(shape, dtype, out_dtype, match):
+    x = torch.zeros(shape, dtype=dtype)
+    with pytest.raises(ValueError, match=match):
+        fa._check_wgmma_inputs("flash forward (wgmma)", x, x, x, out_dtype)
+
+
 def test_wrappers_count_only_kernel_launches_and_refuse_other_devices():
     q, k, v, do = (_t(x) for x in _inputs(128, seed=4))
     before = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
@@ -361,6 +434,7 @@ def test_kernel_sources_and_replaced_tpu_kernels():
     assert (repo / fa.KERNEL_SOURCE).is_file()
     src = pathlib.Path(jfa.__file__).read_text().splitlines()
     want = {"flash_fwd": ["_fwd_kernel"],
+            "flash_fwd_wgmma": ["_fwd_kernel"],
             "flash_bwd": ["_bwd_dq_kernel", "_bwd_dkv_kernel"],
             "flash_bwd_dq": ["_bwd_dq_kernel"],
             "flash_bwd_dkv": ["_bwd_dkv_kernel"]}
@@ -455,12 +529,81 @@ def test_future_block_gives_the_skipped_hop_on_card():
         assert float(g.abs().max()) == 0.0
 
 
+BF16_CARD_CASES = sorted(n for n, c in CARD_CASES.items()
+                         if c[3] == "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BF16_CARD_CASES)
+def test_wgmma_forward_matches_plain_on_card(case):
+    """The wgmma forward (K5 on bf16) against the plain version and the
+    first version, one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the wgmma forward runs only on "
+                    "the card")
+    bh, t, d, dtype, out_dtype, kw, tol = CARD_CASES[case]
+    kw = dict(kw)
+    kv_len = kw.pop("kv_len", t)
+    out_dtype = getattr(torch, out_dtype)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v = (torch.randn((bh, t, d), generator=gen, device="cuda"
+                           ).to(torch.bfloat16) for _ in range(3))
+    for x in (q, k, v):
+        x[:, kv_len:] = 0
+    before = fa.flash_fwd_wgmma.launches
+    o, lse = fa.flash_fwd_wgmma(q, k, v, kv_len, out_dtype=out_dtype, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd_wgmma.launches == before + 1
+    assert o.dtype == out_dtype and lse.shape == (bh, t, 1)
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, kv_len, out_dtype=out_dtype,
+                                    **kw)
+    o_1, lse_1 = fa.flash_fwd(q, k, v, kv_len, out_dtype=out_dtype, **kw)
+    rows = slice(0, kv_len)
+    for got in ((o, lse), (o_1, lse_1)):
+        for a, b in zip(got, (o_p, lse_p)):
+            torch.testing.assert_close(a[:, rows].float(),
+                                       b[:, rows].float(), atol=tol,
+                                       rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+def test_wgmma_forward_future_block_on_card(out_dtype):
+    """A block wholly in the future of every query runs no key tile: O = 0
+    and LSE = -1e30, the JAX ring's skipped-hop values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the wgmma forward runs only on "
+                    "the card")
+    q = torch.randn((8, 256, 64), device="cuda").to(torch.bfloat16)
+    o, lse = fa.flash_fwd_wgmma(q, q, q, 256, causal=True, k_offset=2048,
+                                out_dtype=getattr(torch, out_dtype))
+    torch.cuda.synchronize()
+    assert float(o.abs().max()) == 0.0 and float(lse.max()) <= -1e29
+
+
+@pytest.mark.cuda
+def test_wgmma_forward_is_bit_equal_across_launches_on_card():
+    """Nothing in the forward is summed with atomics: two launches on one
+    input give the same O and LSE bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the wgmma forward runs only on "
+                    "the card")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn((24, 2048, 64), generator=gen, device="cuda"
+                           ).to(torch.bfloat16) for _ in range(3))
+    a = fa.flash_fwd_wgmma(q, k, v, 2048, out_dtype=torch.float32)
+    b = fa.flash_fwd_wgmma(q, k, v, 2048, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [("float32", 2e-3), ("bfloat16", 2e-2)])
 def test_flash_attention_autograd_on_card(dtype, tol):
-    """``flash_attention`` under autograd on the card (K5 forward; the
-    fused backward on bf16, K6 and K7 on fp32, through ``_FlashCore``;
-    T = 197 padded to 256) against the same op with the plain version."""
+    """``flash_attention`` under autograd on the card (the wgmma forward
+    and the fused backward on bf16, the first-version K5, K6 and K7 on
+    fp32, through ``_FlashCore``; T = 197 padded to 256) against the same
+    op with the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: K5-K7 run only on the card")
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -468,7 +611,8 @@ def test_flash_attention_autograd_on_card(dtype, tol):
                                 device="cuda").to(getattr(torch, dtype))
                     for _ in range(4))
     before = (fa.flash_fwd.launches, fa.flash_bwd.launches,
-              fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+              fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches,
+              fa.flash_fwd_wgmma.launches)
     results = []
     for use_kernel in (True, False):
         xs = [x.clone().requires_grad_() for x in (q, k, v)]
@@ -478,9 +622,10 @@ def test_flash_attention_autograd_on_card(dtype, tol):
     torch.cuda.synchronize()
     bf16 = dtype == "bfloat16"
     assert (fa.flash_fwd.launches, fa.flash_bwd.launches,
-            fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == (
-        before[0] + 1, before[1] + bf16, before[2] + (not bf16),
-        before[3] + (not bf16))
+            fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches,
+            fa.flash_fwd_wgmma.launches) == (
+        before[0] + (not bf16), before[1] + bf16, before[2] + (not bf16),
+        before[3] + (not bf16), before[4] + bf16)
     for got, want in zip(*results):
         assert got.dtype == want.dtype == q.dtype
         torch.testing.assert_close(got.float(), want.float(), atol=tol,
