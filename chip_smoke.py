@@ -9,33 +9,45 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    kernel from the sources in the checkout (one nvcc per source, all
    started together);
 2. kernel K1 (wire quantize) against its plain PyTorch version on the
-   card, on every one of the 62 ResNet-18 parameter shapes at levels 127
-   and 7, with random, half-step and clipping inputs: the results must be
-   identical (torch.equal, tolerance 0). Times one whole push of K1
-   launches and of the plain version with CUDA events;
-3. kernels K2, K3 and K4 (block-wise int8) against their plain versions,
-   torch.equal at tolerance 0: the ResNet-18 ring chunk at N=4 as a batch
-   of 4 rows of 2,805,033 values, 513 values, exactly 2 x 32,768, an
-   all-zero block, an empty input and a 1000-valued outlier in block 0;
-   K3 at 3 seeds. On the chunk, K3's mean rounding error (in scales) must
-   be near 0 and every code floor or floor + 1 of x / scale. Times one
-   call of each kernel and of its plain version with CUDA events;
+   card, tolerance 0 (torch.equal): the multi-tensor kernel
+   (``wire_quantize_multi``, one launch per push of up to 64 tensors)
+   over the 62 ResNet-18 parameter shapes at levels 127 and 7 with
+   random, half-step and clipping inputs, over a push that mixes levels,
+   one whose largest entry is a misaligned view x[1:] and one table of 124
+   entries (two launches); the per-tensor first version (``wire_quantize``)
+   on every shape at both levels. Times one whole push of each, in turns,
+   host-issued by CUDA events, and the kernels' device time a push by
+   torch.profiler, against the bound; and the multi-tensor wrapper's host
+   time a push, step by step;
+3. kernels K2, K3 and K4 (block-wise int8) and K4's first version against
+   their plain versions, torch.equal at tolerance 0: the ResNet-18 ring
+   chunk at N=4 as a batch of 4 rows of 2,805,033 values, 513 values, 3
+   rows of 513 (rows that start off 16-byte alignment), exactly 2 x
+   32,768, an all-zero block, an empty input and a 1000-valued outlier in
+   block 0; K3 at 3 seeds. On the chunk, K3's mean rounding error (in
+   scales) must be near 0 and every code floor or floor + 1 of x / scale.
+   Times each kernel on the chunk by CUDA events (K4 in turns with its
+   first version) and by torch.profiler, and its plain version;
 4. the CUDA device codec on a full-width ResNet-18 gradient tree: int8 and
    int4 with error feedback over 3 pushes, with and without shared
    scales, plus a top-k push, byte-for-byte against the NumPy
    ``compress_push``;
 5. the async path: full ResNet-18 (100 classes, bf16 compute) trained by
    2 async workers through ``ParameterStore(push_codec="int8")`` for one
-   epoch of synthetic CIFAR-100, eval on. K1's launch count is reset just
-   before and read just after: it must equal 62 x the pushes made;
+   epoch of synthetic CIFAR-100, eval on. K1's launch counts are reset
+   just before and read just after: the multi-tensor kernel must have
+   launched ceil(62 / 64) = 1 time per push made, the per-tensor first
+   version never;
 6. a shorter run of the async path under torch.profiler: device time by
-   kernel and the device's busy share of the wall;
+   kernel, the multi-tensor K1's device time a push and the device's busy
+   share of the wall;
 7. the sync path: ``SyncTrainer`` with full ResNet-18 (bf16), 4 worker
    slots on the card, batch 128 per slot, ``compression="int8"``, one
    epoch of 16 steps, eval on 1,000 test images. K2-K4's counts are reset
    just before and read just after: K3 must have launched 4 times and K4
-   7 times per step (one launch over all slots per hop), K2 never (the
-   ring rounds stochastically; K2 is on no main path). Then, from the
+   7 times per step (one launch over all slots per hop), K2 and K4's
+   first version never (the ring rounds stochastically; K2 is on no main
+   path). Then, from the
    trained state, the ring on one step's real per-slot gradient rows
    ``[4, 11,220,132]`` on the card must equal, bit for bit, the same ring
    on a CPU copy (the plain versions), with the same seed; and one step
@@ -161,6 +173,102 @@ def phase_build(state: dict) -> None:
           "cached": cached})
 
 
+def device_ms_per_call(fn, reps: int, kernel: str) -> tuple[float, float]:
+    """Device time of the kernels whose name holds ``kernel`` per call of
+    ``fn``, from torch.profiler's kernel durations over ``reps`` calls
+    after one warm-up call, and their launches per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in device_events(prof) if kernel in e.key]
+    return (sum(e.self_device_time_total for e in events) / 1e3 / reps,
+            sum(e.count for e in events) / reps)
+
+
+def k1_push(gen, shapes: dict, levels: list) -> tuple[list, list]:
+    """One push of gradient-like tensors of ``shapes`` at ``levels`` (one
+    per tensor), each with an eighth of its values at exact
+    half-steps (round-half-to-even decides them) and an eighth far beyond
+    +-levels*scale (the clamp); and each tensor's fp32 scale."""
+    import torch
+
+    xs, scales = [], []
+    for shape, lv in zip(shapes.values(), levels):
+        x = torch.randn(shape, generator=gen, device="cuda") * 1e-2
+        flat = x.view(-1)
+        scale = float(np.float32(float(flat.abs().max()) / lv))
+        k = max(1, flat.numel() // 8)
+        codes = torch.randint(-lv - 2, lv + 2, (k,), generator=gen,
+                              device="cuda")
+        flat[:k] = (codes.float() + 0.5) * scale
+        flat[-k:] = torch.sign(flat[-k:]) * 3 * lv * scale
+        xs.append(x)
+        scales.append(scale)
+    return xs, scales
+
+
+def k1_host_breakdown(xs, scales, levels, rounds: int = 7,
+                      reps: int = 50) -> dict:
+    """Host microseconds per push of each step of ``wire_quantize_multi``'s
+    CUDA route, and of the whole call, by ``time.perf_counter``: every
+    round times ``reps`` calls of each step in turn; the median round of
+    each. ``views_by_split`` is the views' first way (a split of the buffer
+    with a piece per padding gap, then a ``view`` an entry), timed beside
+    the ``as_strided`` way the wrapper takes."""
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
+        quantize as Q
+
+    ns = [x.numel() for x in xs]
+    offsets, total, groups = Q.wire_multi_layout(ns)
+    offsets_list = offsets.tolist()
+    flat = torch.empty(total, dtype=torch.int8, device=xs[0].device)
+    table = Q._wire_table(xs, ns, offsets, scales, levels)
+
+    def views_by_split():
+        sizes, keep = [], []
+        gaps = (np.diff(offsets, append=total) - ns).tolist()
+        for n, gap in zip(ns, gaps):
+            keep.append(len(sizes))
+            sizes.append(n)
+            if gap:
+                sizes.append(gap)
+        parts = torch.split(flat, sizes)
+        return [parts[i].view(x.shape) for i, x in zip(keep, xs)]
+
+    steps = {
+        "checks": lambda: Q._check_wire_inputs(xs),
+        "sizes": lambda: [x.numel() for x in xs],
+        "layout": lambda: Q.wire_multi_layout(ns),
+        "alloc": lambda: torch.empty(total, dtype=torch.int8,
+                                     device=xs[0].device),
+        "table": lambda: Q._wire_table(xs, ns, offsets, scales, levels),
+        "launch": lambda: Q._wire_launch(table, groups, ns, flat),
+        "offsets_list": lambda: offsets.tolist(),
+        "views": lambda: Q._views(flat, xs, offsets_list),
+        "views_by_split": views_by_split,
+        "whole": lambda: Q.wire_quantize_multi(xs, scales, levels),
+    }
+    runs = {name: [] for name in steps}
+    for _ in range(rounds):
+        for name, fn in steps.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            runs[name].append((time.perf_counter() - t0) / reps * 1e6)
+        torch.cuda.synchronize()
+    return {name: sorted(r)[len(r) // 2] for name, r in runs.items()}
+
+
 def phase_kernel(state: dict) -> None:
     import torch
 
@@ -171,65 +279,110 @@ def phase_kernel(state: dict) -> None:
     assert len(shapes) == 62, len(shapes)
     n_total = sum(math.prod(s) for s in shapes.values())
     gen = torch.Generator(device="cuda").manual_seed(0)
-    max_err, mismatched = 0, []
+    max_err = {"wire_quantize_multi": 0, "wire_quantize": 0}
+    mismatched = []
+
+    def check(case, got, want):
+        torch.cuda.synchronize()
+        if got.numel():
+            max_err[case[0]] = max(max_err[case[0]], int(
+                (got.int() - want.int()).abs().max()))
+        if not torch.equal(got, want):
+            mismatched.append(case)
+
+    # Both kernels against their plain versions on every ResNet-18 shape:
+    # the per-tensor first version tensor by tensor, the multi-tensor
+    # kernel over the whole push (its flat buffer, padding included).
     for levels in (127, 7):
-        for name, shape in shapes.items():
-            x = torch.randn(shape, generator=gen, device="cuda") * 1e-2
-            flat = x.view(-1)
-            scale = float(np.float32(float(flat.abs().max()) / levels))
-            n = flat.numel()
-            k = max(1, n // 8)
-            # Exact half-steps (round-half-to-even decides them) ...
-            codes = torch.randint(-levels - 2, levels + 2, (k,),
-                                  generator=gen, device="cuda")
-            flat[:k] = (codes.float() + 0.5) * scale
-            # ... and values far beyond +-levels*scale (the clamp).
-            flat[-k:] = torch.sign(flat[-k:]) * 3 * levels * scale
-            got = Q.wire_quantize_flat(x, scale, levels)
-            want = Q.wire_quantize_plain(x, scale, levels)
-            torch.cuda.synchronize()
-            err = int((got.int() - want.int()).abs().max())
-            max_err = max(max_err, err)
-            if not torch.equal(got, want):
-                mismatched.append((name, levels))
-    # One whole int8 push of gradient-like tensors: K1 vs the plain
-    # version, the same tensors and scales for both.
+        xs, scales = k1_push(gen, shapes, [levels] * len(shapes))
+        for name, x, scale in zip(shapes, xs, scales):
+            check(("wire_quantize", name, levels),
+                  Q.wire_quantize_flat(x, scale, levels),
+                  Q.wire_quantize_plain(x, scale, levels))
+        check(("wire_quantize_multi", levels),
+              Q.wire_quantize_multi(xs, scales, [levels] * len(xs))[0],
+              Q.wire_quantize_multi_plain(xs, scales, [levels] * len(xs))[0])
+    # One push that mixes levels; one whose largest entry is a view x[1:]
+    # off 16-byte alignment (the scalar path); a table of 124 entries (two
+    # launches of at most 64).
+    mixed = [127 if i % 2 else 7 for i in range(len(shapes))]
+    xs, scales = k1_push(gen, shapes, mixed)
+    check(("wire_quantize_multi", "mixed_levels"),
+          Q.wire_quantize_multi(xs, scales, mixed)[0],
+          Q.wire_quantize_multi_plain(xs, scales, mixed)[0])
+    big = max(range(len(xs)), key=lambda i: xs[i].numel())
+    shifted = torch.cat([xs[big].new_zeros(1), xs[big].reshape(-1)])
+    xs_m = list(xs)
+    xs_m[big] = shifted[1:]
+    check(("wire_quantize_multi", "misaligned_view"),
+          Q.wire_quantize_multi(xs_m, scales, mixed)[0],
+          Q.wire_quantize_multi_plain(xs_m, scales, mixed)[0])
+    before = Q.wire_quantize_multi.launches
+    check(("wire_quantize_multi", "124_entries"),
+          Q.wire_quantize_multi(xs + xs, scales + scales, mixed + mixed)[0],
+          Q.wire_quantize_multi_plain(xs + xs, scales + scales,
+                                      mixed + mixed)[0])
+    if Q.wire_quantize_multi.launches - before != 2:
+        mismatched.append(("wire_quantize_multi", "124_entries_launches",
+                           Q.wire_quantize_multi.launches - before))
+    del xs_m, shifted
+
+    # One whole int8 push of gradient-like tensors, the same tensors and
+    # scales for every version: host-issued by CUDA events, in turns (new,
+    # first version, first version, new), and the kernels' device time
+    # from torch.profiler.
     xs = [torch.randn(s, generator=gen, device="cuda") * 1e-2
           for s in shapes.values()]
     scales = [float(np.float32(float(x.abs().max()) / 127)) for x in xs]
-
-    def push_kernel():
-        for x, s in zip(xs, scales):
-            Q.wire_quantize_flat(x, s, 127)
-
-    def push_plain():
-        for x, s in zip(xs, scales):
-            Q.wire_quantize_plain(x, s, 127)
-
-    plain_ms = cuda_time_ms(push_plain, 20)
-    ms = cuda_time_ms(push_kernel, 20)
-    plain_ms2 = cuda_time_ms(push_plain, 20)
-    ms2 = cuda_time_ms(push_kernel, 20)
+    int8 = [127] * len(xs)
+    pushes = {
+        "wire_quantize_multi": lambda: Q.wire_quantize_multi(xs, scales,
+                                                             int8),
+        "wire_quantize": lambda: [Q.wire_quantize_flat(x, s, 127)
+                                  for x, s in zip(xs, scales)]}
+    turns = {name: [] for name in pushes}
+    for name in ("wire_quantize_multi", "wire_quantize", "wire_quantize",
+                 "wire_quantize_multi"):
+        turns[name].append(cuda_time_ms(pushes[name], 20))
+    plain = [cuda_time_ms(lambda: Q.wire_quantize_multi_plain(
+        xs, scales, int8), 20) for _ in range(2)]
+    device = {name: device_ms_per_call(fn, 20, f"::{name}_kernel")
+              for name, fn in pushes.items()}
+    host_us = k1_host_breakdown(xs, scales, int8)
     # Least time for the same work: each input read once and each output
     # written once (4 + 1 bytes per element), or the fp32 operations
     # (divide, round, two clamps per element) at the fp32 peak.
     bytes_ms = 5 * n_total / H100_BYTES_PER_S * 1e3
     ops_ms = 4 * n_total / H100_FP32_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
-    state["k1"] = {"ms": min(ms, ms2), "plain_ms": min(plain_ms, plain_ms2),
-                   "bound_ms": bound_ms, "max_abs_err": max_err,
-                   "bound_by": "bytes" if bytes_ms >= ops_ms
-                   else "operations"}
-    emit({"phase": "kernel_vs_plain", "kernel": "wire_quantize",
-          "shapes": len(shapes), "levels": [127, 7],
+    state["k1"] = {name: {
+        "ms": min(turns[name]), "device_ms": device[name][0],
+        "plain_ms": min(plain), "bound_ms": bound_ms,
+        "max_abs_err": max_err[name],
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        for name in pushes}
+    emit({"phase": "kernel_vs_plain", "kernel": "wire_quantize_multi",
+          "first_version": "wire_quantize",
+          "shapes": len(shapes), "levels": [127, 7, "mixed"],
+          "cases": ["resnet18_127", "resnet18_7", "mixed_levels",
+                    "misaligned_view", "124_entries"],
           "elements_per_push": n_total, "max_abs_err": max_err,
           "mismatched": mismatched,
-          "push_ms_runs": [ms, ms2], "plain_push_ms_runs": [plain_ms,
-                                                            plain_ms2],
-          "launches_per_push": len(shapes),
-          "us_per_launch": min(ms, ms2) * 1e3 / len(shapes),
+          "push_ms_turns": turns, "plain_push_ms_runs": plain,
+          "device_ms_per_push": {n: d[0] for n, d in device.items()},
+          "device_launches_per_push": {n: d[1] for n, d in device.items()},
+          "share_of_bound_device": {n: bound_ms / d[0]
+                                    for n, d in device.items() if d[0]},
+          "share_of_bound_host_issued": {n: bound_ms / min(t)
+                                         for n, t in turns.items()},
           "bound_ms": bound_ms, "bytes_bound_ms": bytes_ms,
           "ops_bound_ms": ops_ms, "card": state["card"]})
+    steps = ("checks", "sizes", "layout", "alloc", "table", "launch",
+             "offsets_list", "views")
+    emit({"phase": "k1_host_breakdown", "kernel": "wire_quantize_multi",
+          "host_us_per_push": host_us,
+          "sum_of_steps_us": sum(host_us[k] for k in steps),
+          "card": state["card"]})
     if mismatched:
         raise AssertionError(f"K1 differs from its plain version on "
                              f"{mismatched}")
@@ -250,7 +403,7 @@ def block_bound(n_rows: int, n: int, kernel: str) -> tuple[float, str]:
     rows_padded, _, n_blocks = Q.block_layout(n)
     payload = n_rows * (rows_padded * Q.LANES + 4 * n_blocks)
     values = n_rows * n
-    if kernel == "block_dequantize":
+    if kernel.startswith("block_dequantize"):
         nbytes = payload + 4 * values
         fp_ops, int_ops = 2 * values, 0            # convert, multiply
     else:
@@ -286,6 +439,8 @@ def phase_kernel_int8(state: dict) -> None:
     cases = {
         "ring_chunk_4x2805033": ring,
         "n513": torch.randn((1, 513), generator=gen, device="cuda"),
+        # rows 1 and 2 start off 16-byte alignment in K4's output
+        "rows3_n513": torch.randn((3, 513), generator=gen, device="cuda"),
         "n65536": torch.randn((1, 2 * 32768), generator=gen, device="cuda"),
         "zero_block": zero_block,
         "empty": torch.zeros((1, 0), device="cuda"),
@@ -294,7 +449,7 @@ def phase_kernel_int8(state: dict) -> None:
     seeds = [[0x5EED0000 + 64 * k + r for r in range(n_slots)]
              for k in range(3)]
     err = {"block_quantize": 0, "block_quantize_stochastic": 0,
-           "block_dequantize": 0.0}
+           "block_dequantize": 0.0, "block_dequantize_v1": 0.0}
     mismatched = []
     for name, x in cases.items():
         rows = x.shape[0]
@@ -313,14 +468,15 @@ def phase_kernel_int8(state: dict) -> None:
             if not (torch.equal(got[0], want[0])
                     and torch.equal(got[1], want[1])):
                 mismatched.append((kernel, name))
-            back = Q.block_dequantize(*got, x.shape[1])
             back_plain = Q.dequantize_int8_plain(*got, x.shape[1])
-            torch.cuda.synchronize()
-            if back.numel():
-                err["block_dequantize"] = max(err["block_dequantize"], float(
-                    (back - back_plain).abs().max()))
-            if not torch.equal(back, back_plain):
-                mismatched.append(("block_dequantize", name))
+            for k4 in ("block_dequantize", "block_dequantize_v1"):
+                back = getattr(Q, k4)(*got, x.shape[1])
+                torch.cuda.synchronize()
+                if back.numel():
+                    err[k4] = max(err[k4], float(
+                        (back - back_plain).abs().max()))
+                if not torch.equal(back, back_plain):
+                    mismatched.append((k4, name))
 
     # K3 on the chunk: unbiased, and every code floor or floor + 1.
     v, sc = Q.block_quantize_stochastic(ring, seeds[0])
@@ -344,23 +500,38 @@ def phase_kernel_int8(state: dict) -> None:
             lambda: Q.quantize_int8_plain(ring, seeds[0], stochastic=True)),
     }
     payload = Q.block_quantize(ring)
-    fns["block_dequantize"] = (
-        lambda: Q.block_dequantize(*payload, chunk),
-        lambda: Q.dequantize_int8_plain(*payload, chunk))
+    for k4 in ("block_dequantize", "block_dequantize_v1"):
+        fns[k4] = (lambda k4=k4: getattr(Q, k4)(*payload, chunk),
+                   lambda: Q.dequantize_int8_plain(*payload, chunk))
+    # Each kernel twice by CUDA events (host-issued, 50 calls); K4 in turns
+    # with its first version (new, first, first, new). Device time per call
+    # from torch.profiler's kernel durations.
+    ms = {kernel: [] for kernel in fns}
+    for kernel in ("block_quantize", "block_quantize",
+                   "block_quantize_stochastic", "block_quantize_stochastic",
+                   "block_dequantize", "block_dequantize_v1",
+                   "block_dequantize_v1", "block_dequantize"):
+        ms[kernel].append(cuda_time_ms(fns[kernel][0], 50))
     state["block"] = {}
     for kernel, (fk, fp) in fns.items():
-        plain = [cuda_time_ms(fp, 10)]
-        ms = [cuda_time_ms(fk, 50), cuda_time_ms(fk, 50)]
-        plain.append(cuda_time_ms(fp, 10))
+        plain = [cuda_time_ms(fp, 10), cuda_time_ms(fp, 10)]
+        device_ms = device_ms_per_call(
+            fk, 50, "::block_dequantize_v1_kernel"
+            if kernel == "block_dequantize_v1" else
+            "::block_dequantize_kernel" if kernel == "block_dequantize"
+            else "::block_quantize_kernel")[0]
         bound_ms, bound_by = block_bound(n_slots, chunk, kernel)
         state["block"][kernel] = {
-            "ms": min(ms), "plain_ms": min(plain), "bound_ms": bound_ms,
+            "ms": min(ms[kernel]), "device_ms": device_ms,
+            "plain_ms": min(plain), "bound_ms": bound_ms,
             "bound_by": bound_by, "max_abs_err": err[kernel]}
         emit({"phase": "kernel_int8_vs_plain", "kernel": kernel,
-              "shape": [n_slots, chunk], "ms_runs": ms,
-              "plain_ms_runs": plain, "bound_ms": bound_ms,
-              "bound_by": bound_by, "max_abs_err": err[kernel],
-              "card": state["card"]})
+              "shape": [n_slots, chunk], "ms_runs": ms[kernel],
+              "device_ms": device_ms, "plain_ms_runs": plain,
+              "bound_ms": bound_ms, "bound_by": bound_by,
+              "share_of_bound_device": bound_ms / device_ms
+              if device_ms else None,
+              "max_abs_err": err[kernel], "card": state["card"]})
     emit({"phase": "kernel_int8_vs_plain", "cases": list(cases),
           "k3_seeds": len(seeds), "mismatched": mismatched,
           "k3_mean_error_in_scales": mean_err, "k3_unbiased": unbiased,
@@ -489,12 +660,14 @@ def phase_main_path(state: dict) -> None:
     ds, model, store, init = main_path(steps_per_worker=8, n_test=1000,
                                        seed=0)
     cfg = WorkerConfig(batch_size=batch, num_epochs=1, device="cuda")
+    Q.wire_quantize_multi.launches = 0
     Q.wire_quantize.launches = 0
     t0 = time.perf_counter()
     results = run_workers(store, model, ds, n_workers, cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = Q.wire_quantize.launches
+    launches = {"wire_quantize_multi": Q.wire_quantize_multi.launches,
+                "wire_quantize": Q.wire_quantize.launches}
     state["k1_launches"] = launches
 
     pushes = sum(r.pushes_accepted + r.pushes_rejected for r in results)
@@ -549,9 +722,13 @@ def phase_main_path(state: dict) -> None:
     if step <= 0 or pushes <= 0:
         raise AssertionError(f"no training happened (step {step}, "
                              f"pushes {pushes})")
-    if launches != 62 * pushes:
+    # One launch of the multi-tensor K1 per 64 of a push's 62 tensors; the
+    # per-tensor first version on no push.
+    want = {"wire_quantize_multi": -(-62 // Q.WIRE_MAX_ENTRIES) * pushes,
+            "wire_quantize": 0}
+    if launches != want:
         raise AssertionError(f"K1 launched {launches} times for {pushes} "
-                             f"pushes; expected {62 * pushes}")
+                             f"pushes; expected {want}")
     if not losses or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite losses {losses}")
     if moved == 0:
@@ -592,10 +769,16 @@ def phase_profile(state: dict) -> None:
     events = device_events(prof)
     device_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:15]
+    k1 = [e for e in events if "::wire_quantize_multi_kernel" in e.key]
+    k1_launches = sum(e.count for e in k1)
     emit({"phase": "profile", "steps": store.global_step,
           "wall_s": wall, "device_busy_s": device_us / 1e6,
           "device_idle_share": (1 - device_us / 1e6 / wall)
           if device_us else None,
+          "wire_quantize_multi_launches": k1_launches,
+          "wire_quantize_multi_device_ms_per_push": sum(
+              e.self_device_time_total for e in k1) / 1e3 / k1_launches
+          if k1_launches else None,
           "top_device_ms": [[e.key[:160], round(e.self_device_time_total
                                                / 1e3, 3), e.count]
                             for e in top],
@@ -629,6 +812,7 @@ def _reset_block_counts():
     Q.block_quantize.launches = 0
     Q.block_quantize_stochastic.launches = 0
     Q.block_dequantize.launches = 0
+    Q.block_dequantize_v1.launches = 0
 
 
 def _block_counts() -> dict:
@@ -637,7 +821,8 @@ def _block_counts() -> dict:
 
     return {"block_quantize": Q.block_quantize.launches,
             "block_quantize_stochastic": Q.block_quantize_stochastic.launches,
-            "block_dequantize": Q.block_dequantize.launches}
+            "block_dequantize": Q.block_dequantize.launches,
+            "block_dequantize_v1": Q.block_dequantize_v1.launches}
 
 
 def phase_sync_path(state: dict) -> None:
@@ -738,7 +923,8 @@ def phase_sync_path(state: dict) -> None:
           "card": state["card"]})
     want = {"block_quantize": 0,
             "block_quantize_stochastic": SYNC_SLOTS * steps,
-            "block_dequantize": (2 * SYNC_SLOTS - 1) * steps}
+            "block_dequantize": (2 * SYNC_SLOTS - 1) * steps,
+            "block_dequantize_v1": 0}
     if steps != SYNC_STEPS or counts != want:
         raise AssertionError(f"{steps} steps launched {counts}; expected "
                              f"{want}")
@@ -1302,26 +1488,31 @@ def main() -> int:
     from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
         quantize as Q
 
-    k1 = state["k1"]
-    kernels = [{
-        "name": "wire_quantize", "route": "cuda",
-        "source": Q.KERNEL_SOURCE, "replaces": Q.REPLACES,
-        "launches": state["k1_launches"],
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-        "library_ms": None}]
+    # The multi-tensor K1 and its per-tensor first version, with their
+    # launches from the async path's run; a push's times.
+    kernels = []
+    for name, k in state["k1"].items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": Q.KERNEL_SOURCE,
+            "replaces": Q.REPLACES[name],
+            "launches": state["k1_launches"][name],
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": None})
     # K2-K4 launches from the sync path's run: the ring rounds
-    # stochastically, so K2 (nearest rounding) reads 0 there. No single
-    # PyTorch call computes a block quantize, so library_ms is null.
+    # stochastically, so K2 (nearest rounding) reads 0 there, and K4's
+    # first version is on no path. No single PyTorch call computes a block
+    # quantize, so library_ms is null.
     launches = state["sync_counts"]
     for name, k in state["block"].items():
         kernels.append({
             "name": name, "route": "cuda", "source": Q.BLOCK_KERNEL_SOURCE,
             "replaces": Q.BLOCK_REPLACES[name], "launches": launches[name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": None})
+            "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": None})
     # The wgmma forward (the K5 entry on bf16) and the fused backward (the
     # K6/K7 entry) with their launches from the SP path's run, then the
     # first versions of K5, K6 and K7, which run on fp32 inputs and so on

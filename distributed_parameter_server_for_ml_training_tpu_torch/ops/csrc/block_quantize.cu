@@ -29,13 +29,15 @@
 // --use_fast_math.
 //
 // Design. One launch covers a batch of rows (the ring's N slots): the
-// grid's y dimension is the row, x the block. K2/K3 run one thread block
-// per quantization block: a block absmax reduction (warp shuffles, then
+// grid's y dimension is the row. K2/K3 run one thread block per
+// quantization block: a block absmax reduction (warp shuffles, then
 // shared memory), then a second pass over the same values (from L2) that
 // writes the codes, four consecutive values per thread. The kernel reads
 // only the n valid values of a row (the row stride may be odd) and writes
 // code 0 for the padding, so no padded fp32 copy is made; a zero pads to
-// code 0 in both modes since floor(0 + u) = 0 for u < 1.
+// code 0 in both modes since floor(0 + u) = 0 for u < 1. K4 runs one
+// thread block per tile of up to kDeqTile codes of one block (its note
+// below).
 //
 // K3's random bits: Philox4x32-10 (Salmon et al., SC'11), keyed by the
 // row's 64-bit seed, counter = (g mod 2^32, g >> 32, 0, 0) for the group g
@@ -49,14 +51,19 @@
 // scale per 32,768 values); the Philox rounds cost ~25 integer operations
 // per value, below the card's balance point. The ResNet-18 ring chunk at
 // N = 4 is 4 x 2,805,033 values, 56.1 MB per launch, 16.7 us at an
-// H100 SXM's 3.35 TB/s. This first version reads the input twice (absmax, then
-// codes) and uses scalar loads, since a row of odd length is not 16-byte
-// aligned.
+// H100 SXM's 3.35 TB/s. K2/K3 read their input twice (absmax, then codes)
+// and use scalar loads, since a row of odd length is not 16-byte aligned.
+// K4's first version (block_dequantize_v1_kernel) paid a 64-bit division
+// per four values, char4 loads and scalar stores behind a bounds test on a
+// grid capped at 1,024 x rows; its redesign reads the scale once a thread
+// block, stages 16-byte loads in shared memory and writes float4 stores
+// however the output row is aligned.
 //
 // NaN inputs: fmaxf drops a NaN from the absmax, where the plain version
 // (torch.amax) propagates it. Gradients reaching the ring are finite.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #define DPS_MAX_SEEDED_ROWS 64
@@ -68,6 +75,9 @@ struct SeedTable {
 };
 
 constexpr int kThreads = 256;
+constexpr int kDeqTile = 8192;  // K4: codes a thread block at most
+static_assert(kDeqTile % (16 * kThreads) == 0,
+              "a K4 tile is a whole number of 16-byte loads per thread");
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
   const unsigned int M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
@@ -177,12 +187,91 @@ block_quantize_kernel(const float* __restrict__ x, long long n,
   }
 }
 
+// K4. One thread block per tile: a slice of at most kDeqTile codes of one
+// quantization block of one row, so the block reads its scale once. The
+// tile's codes come into shared memory by 16-byte loads (a row's codes start
+// at a multiple of n_blocks * block_elems and block_elems is a multiple of
+// 16, so tiles are 16-byte aligned), all issued before the first store.
+// The output row may start anywhere (row r at out + r * out_row_stride; the
+// ring's rows have odd length): each thread writes float4 stores at
+// 16-byte-aligned addresses, taking its four codes from shared memory
+// shifted by the row's misalignment (one funnel shift of two words), and
+// the misaligned head and the tail of a tile, at most 3 values each, are
+// written as scalars.
 __global__ void __launch_bounds__(kThreads)
 block_dequantize_kernel(const signed char* __restrict__ values,
                         const float* __restrict__ scales,
                         float* __restrict__ out, long long n,
                         long long out_row_stride, int block_elems,
-                        int n_blocks) {
+                        int n_blocks, int tiles_per_block) {
+  __shared__ __align__(16) signed char codes[kDeqTile + 16];
+  const int row = blockIdx.y;
+  const int b = blockIdx.x / tiles_per_block;
+  const int slice = blockIdx.x - b * tiles_per_block;
+  const long long e0 = (long long)b * block_elems + (long long)slice * kDeqTile;
+  if (e0 >= n) return;
+  const int len = min(kDeqTile, block_elems - slice * kDeqTile);
+  const float scale = scales[(long long)row * n_blocks + b];
+
+  const int4* src = reinterpret_cast<const int4*>(
+      values + (long long)row * n_blocks * block_elems + e0);
+  int4* staged = reinterpret_cast<int4*>(codes);
+  const int len16 = len >> 4;
+  int4 c[kDeqTile / 16 / kThreads];
+#pragma unroll
+  for (int j = 0; j < kDeqTile / 16 / kThreads; ++j) {
+    const int i = j * kThreads + threadIdx.x;
+    if (i < len16) c[j] = src[i];
+  }
+#pragma unroll
+  for (int j = 0; j < kDeqTile / 16 / kThreads; ++j) {
+    const int i = j * kThreads + threadIdx.x;
+    if (i < len16) staged[i] = c[j];
+  }
+  __syncthreads();
+
+  float* o = out + (long long)row * out_row_stride + e0;
+  const int count = static_cast<int>(min((long long)len, n - e0));
+  const int head = min(
+      count,
+      static_cast<int>((4 - ((reinterpret_cast<uintptr_t>(o) >> 2) & 3)) & 3));
+  const int groups = (count - head) >> 2;
+  const int tail = head + 4 * groups;
+  const int t = threadIdx.x;
+  if (t < head) o[t] = __fmul_rn(static_cast<float>(codes[t]), scale);
+  if (t < count - tail)
+    o[tail + t] = __fmul_rn(static_cast<float>(codes[tail + t]), scale);
+
+  // Group g covers codes head + 4g .. head + 4g + 3: bytes `head` onwards
+  // of words g and g + 1.
+  const unsigned* w = reinterpret_cast<const unsigned*>(codes);
+  const unsigned shift = 8u * head;
+  float4* o4 = reinterpret_cast<float4*>(o + head);
+  for (int g = t; g < groups; g += kThreads) {
+    const unsigned q =
+        __funnelshift_r(w[g], shift ? w[g + 1] : 0u, shift);
+    float4 y;
+    y.x = __fmul_rn(static_cast<float>(static_cast<signed char>(q)), scale);
+    y.y = __fmul_rn(static_cast<float>(static_cast<signed char>(q >> 8)),
+                    scale);
+    y.z = __fmul_rn(static_cast<float>(static_cast<signed char>(q >> 16)),
+                    scale);
+    y.w = __fmul_rn(static_cast<float>(static_cast<signed char>(q >> 24)),
+                    scale);
+    o4[g] = y;
+  }
+}
+
+// K4's first version, kept only as the yardstick its redesign is timed
+// against: one thread per four values over a grid-stride loop, the block
+// index found by a 64-bit division per four values, char4 loads and scalar
+// stores. No path launches it.
+__global__ void __launch_bounds__(kThreads)
+block_dequantize_v1_kernel(const signed char* __restrict__ values,
+                           const float* __restrict__ scales,
+                           float* __restrict__ out, long long n,
+                           long long out_row_stride, int block_elems,
+                           int n_blocks) {
   const int row = blockIdx.y;
   const char4* vr = reinterpret_cast<const char4*>(
       values + (long long)row * n_blocks * block_elems);
@@ -247,12 +336,38 @@ extern "C" int dps_block_quantize(const void* x, long long n,
 }
 
 // values/scales as produced above; out: n_rows rows of n fp32 values, row r
-// at out + r * out_row_stride.
+// at out + r * out_row_stride. `values` is 16-byte aligned and block_elems
+// a multiple of 16.
 extern "C" int dps_block_dequantize(const void* values, const void* scales,
                                     void* out, long long n,
                                     long long out_row_stride, int n_rows,
                                     int block_elems, int n_blocks,
                                     void* stream) {
+  if (n <= 0 || n_rows <= 0) return 0;
+  if (n_rows > 65535 || block_elems <= 0 || block_elems % 16 != 0 ||
+      n > (long long)n_blocks * block_elems ||
+      (reinterpret_cast<uintptr_t>(values) & 15) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles_per_block = (block_elems + kDeqTile - 1) / kDeqTile;
+  const long long tiles =
+      (n + block_elems - 1) / block_elems * tiles_per_block;
+  if (tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(n_rows));
+  block_dequantize_kernel<<<grid, kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const signed char*>(values),
+      static_cast<const float*>(scales), static_cast<float*>(out), n,
+      out_row_stride, block_elems, n_blocks, tiles_per_block);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The first version, with the same arguments (values 4-byte aligned,
+// block_elems a multiple of 4).
+extern "C" int dps_block_dequantize_v1(const void* values, const void* scales,
+                                       void* out, long long n,
+                                       long long out_row_stride, int n_rows,
+                                       int block_elems, int n_blocks,
+                                       void* stream) {
   if (n <= 0 || n_rows <= 0) return 0;
   if (n_rows > 65535 || block_elems <= 0 || block_elems % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -262,8 +377,8 @@ extern "C" int dps_block_dequantize(const void* values, const void* scales,
   if (blocks > 1024) blocks = 1024;
   const dim3 grid(static_cast<unsigned>(blocks),
                   static_cast<unsigned>(n_rows));
-  block_dequantize_kernel<<<grid, kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
+  block_dequantize_v1_kernel<<<grid, kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const signed char*>(values),
       static_cast<const float*>(scales), static_cast<float*>(out), n,
       out_row_stride, block_elems, n_blocks);

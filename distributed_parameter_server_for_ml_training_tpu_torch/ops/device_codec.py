@@ -26,14 +26,17 @@ same gradients, plan, shared-scale table, error-feedback history and
 
 Encode runs three phases like the reference: stats (EF totals, absmax,
 top-k selects), one host pull of every absmax scalar stacked together,
-then encode (quantize + pack) and, under EF, the residual. ``encode()``
-starts non-blocking copies of the wire buffers into pinned host memory
-and records an event; ``finalize()`` waits on that event and assembles
-the NumPy wire dict.
+then encode (one K1 launch over every quantized tensor of the push, the
+int4 pack) and, under EF, the residual. ``encode()`` starts non-blocking
+copies of the wire buffers into pinned host memory — the int8 codes of
+every int8 and top-k entry as one copy of K1's flat buffer — and records
+an event; ``finalize()`` waits on that event and assembles the NumPy wire
+dict.
 """
 
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass
 from typing import Any, Mapping
@@ -52,7 +55,7 @@ from .compression import (
 )
 from .packed import as_packed_int4
 from .quantize import pack_nibbles_device, topk_select_flat, \
-    wire_quantize_flat
+    wire_quantize_multi
 
 __all__ = ["DeviceCodec", "DevicePayload", "is_device_tree"]
 
@@ -91,32 +94,44 @@ def _phase_stats(flat, residuals, plan, ks, use_ef):
 
 
 def _phase_encode(totals, topk, scales, plan, use_ef):
-    """Phase 2: quantize + pack against the host-computed scales; emit the
-    wire buffers and, under EF, the decoded dequantizations."""
-    wire, decoded = {}, {}
-    for name, kind in plan:
-        t = totals[name]
-        if kind == "none":
-            wire[name] = t
-            continue
-        s = scales[name]
+    """Phase 2: quantize every quantized entry in one call of K1 against
+    the host-computed scales, int8 entries and top-k values first, then
+    int4; pack the int4 codes. Returns the wire buffers other than int8
+    codes, K1's flat code buffer, each int8 wire entry's ``(offset,
+    shape)`` in it, the byte length of its int8 part (which those entries
+    fill) and, under EF, the decoded dequantizations."""
+    wire, decoded, code_at = {}, {}, {}
+    jobs = [(name, kind) for name, kind in plan if kind in ("int8", "topk")]
+    jobs += [(name, kind) for name, kind in plan if kind == "int4"]
+    xs = [(topk[name][1] if kind == "topk" else totals[name]).contiguous()
+          for name, kind in jobs]
+    codes, views, offsets = wire_quantize_multi(
+        xs, [scales[name] for name, _ in jobs],
+        [7 if kind == "int4" else 127 for _, kind in jobs])
+    n_int8 = sum(kind != "int4" for _, kind in jobs)
+    int8_bytes = offsets[n_int8] if n_int8 < len(jobs) else codes.numel()
+    for (name, kind), q, off in zip(jobs, views, offsets):
+        t, s = totals[name], scales[name]
         if kind == "topk":
-            idx, vals = topk[name]
-            q = wire_quantize_flat(vals.contiguous(), s, 127)
+            idx = topk[name][0]
             wire[name + _TOPK_IDX_SUFFIX] = idx
-            wire[name + _TOPK_VAL_SUFFIX] = q
+            code_at[name + _TOPK_VAL_SUFFIX] = (off, tuple(q.shape))
             if use_ef:
                 dense = torch.zeros(t.numel(), dtype=torch.float32,
                                     device=t.device)
                 dense[idx.long()] = q.to(torch.float32) * float(s)
                 decoded[name] = dense.reshape(t.shape)
             continue
-        q = wire_quantize_flat(t.contiguous(), s,
-                               7 if kind == "int4" else 127)
-        wire[name] = pack_nibbles_device(q) if kind == "int4" else q
+        if kind == "int4":
+            wire[name] = pack_nibbles_device(q)
+        else:
+            code_at[name] = (off, tuple(q.shape))
         if use_ef:
             decoded[name] = q.to(torch.float32) * float(s)
-    return wire, decoded
+    for name, kind in plan:
+        if kind == "none":
+            wire[name] = totals[name]
+    return wire, codes, code_at, int8_bytes, decoded
 
 
 def _phase_residual(totals, decoded):
@@ -130,12 +145,17 @@ def _phase_residual(totals, decoded):
 class DevicePayload:
     """An in-flight device-encoded push.
 
-    ``device_entries`` are the wire buffers, being copied to (pinned) host
-    memory behind ``ready``; ``host_entries`` are the tiny host-built
-    companions (fp32 scales, int64 shapes). ``order`` is the exact wire
-    dict key order the NumPy reference emits — frame bytes depend on it."""
+    ``device_entries`` are the wire buffers other than int8 codes, being
+    copied to (pinned) host memory behind ``ready``; ``codes`` is K1's
+    int8 code buffer (its int8 part, on the host for a CUDA codec), which
+    holds each int8 entry at ``code_at[name] = (offset, shape)``;
+    ``host_entries`` are the tiny host-built companions (fp32 scales,
+    int64 shapes). ``order`` is the exact wire dict key order the NumPy
+    reference emits — frame bytes depend on it."""
     order: list
     device_entries: dict
+    codes: Any
+    code_at: dict
     host_entries: dict
     int4_shapes: dict
     pre_bytes: int
@@ -211,7 +231,7 @@ class DeviceCodec:
                     if absmax and absmax > 0 \
                     else (np.float32(a / 127.0) if a > 0 else np.float32(1.0))
 
-        wire_dev, decoded = _phase_encode(
+        wire_dev, codes, code_at, int8_bytes, decoded = _phase_encode(
             totals, topk, scale_host, plan_t, self.error_feedback)
         if self.error_feedback:
             self._residual = _phase_residual(totals, decoded)
@@ -239,6 +259,13 @@ class DeviceCodec:
 
         ready = None
         if self.device.type == "cuda":
+            # The int8 codes of every int8 and top-k entry come over as one
+            # copy of the int8 part of K1's buffer, into a pinned buffer of
+            # this push's own: the payload's NumPy views outlive the push.
+            host_codes = torch.empty(int8_bytes, dtype=torch.int8,
+                                     pin_memory=True)
+            host_codes.copy_(codes[:int8_bytes], non_blocking=True)
+            codes = host_codes
             pinned = {}
             for name, arr in wire_dev.items():
                 host = torch.empty(arr.shape, dtype=arr.dtype,
@@ -252,6 +279,8 @@ class DeviceCodec:
         return DevicePayload(
             order=order,
             device_entries=wire_dev,
+            codes=codes,
+            code_at=code_at,
             host_entries=host_entries,
             int4_shapes=int4_shapes,
             pre_bytes=pre_bytes,
@@ -264,10 +293,14 @@ class DeviceCodec:
         if payload.ready is not None:
             payload.ready.synchronize()
         host = {k: v.numpy() for k, v in payload.device_entries.items()}
+        codes = payload.codes.numpy()
         out: dict = {}
         for name in payload.order:
             if name in payload.host_entries:
                 out[name] = payload.host_entries[name]
+            elif name in payload.code_at:
+                off, shape = payload.code_at[name]
+                out[name] = codes[off:off + math.prod(shape)].reshape(shape)
             elif name in payload.int4_shapes:
                 out[name] = as_packed_int4(
                     np.ascontiguousarray(host[name]),

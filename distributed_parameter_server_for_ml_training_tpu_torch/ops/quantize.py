@@ -3,9 +3,13 @@ device codec's other per-tensor ops.
 
 Counterpart of the JAX package's ``ops/pallas/quantize.py``.
 
-**Wire codec (K1).** :func:`wire_quantize_flat` turns fp32 values and one
-scale into the int8 wire codes ``clamp(rint(x / scale), -levels,
-levels)`` — levels 127 for int8 codes, 7 for int4 nibble codes.
+**Wire codec (K1).** :func:`wire_quantize_multi` turns a push's fp32
+tensors, each with its own scale and levels, into the int8 wire codes
+``clamp(rint(x / scale), -levels, levels)`` — levels 127 for int8 codes, 7
+for int4 nibble codes — in one launch per :data:`WIRE_MAX_ENTRIES`
+tensors, into one flat buffer (:func:`wire_multi_layout`) with a view per
+tensor. :func:`wire_quantize_flat` is the first version, one launch per
+tensor, kept as the reference's one-tensor surface.
 
 **Block-wise int8 (K2-K4)**, the codec of the sync int8 ring
 (``parallel/sync_dp.py``). A row of n fp32 values is viewed as
@@ -15,7 +19,9 @@ levels)`` — levels 127 for int8 codes, 7 for int4 nibble codes.
 :func:`block_quantize` (K2, round half to even), :func:`block_quantize_stochastic`
 (K3, ``floor(x / scale + u)`` with Philox4x32-10 bits, one seed per row)
 and :func:`block_dequantize` (K4). Each takes a batch of rows — the
-ring's N slots — in one launch. :func:`quantize_int8`,
+ring's N slots — in one launch. K4's first version,
+:func:`block_dequantize_v1`, is on no path: ``chip_smoke.py`` times K4
+against it. :func:`quantize_int8`,
 :func:`dequantize_int8` and :func:`quantize_dequantize_int8` are the
 reference's one-tensor surfaces over them.
 
@@ -26,7 +32,8 @@ Every kernel wrapper dispatches on the tensor's device:
   first use, bound with ctypes) on PyTorch's current stream. A failed
   build or launch raises; there is no fallback to the plain version;
 - a CPU tensor takes the plain PyTorch version (:func:`wire_quantize_plain`,
-  :func:`quantize_int8_plain`, :func:`dequantize_int8_plain`): the same
+  :func:`wire_quantize_multi_plain`, :func:`quantize_int8_plain`,
+  :func:`dequantize_int8_plain`): the same
   arithmetic with IEEE divisions by tensors, ``torch.round`` (half to
   even), one fp32 add before ``floor`` and the clamps. The CPU tests hold
   the plain versions bit-equal to the JAX package (K3's bits to
@@ -52,12 +59,21 @@ import math
 import threading
 from typing import Sequence
 
+import numpy as np
 import torch
 
 KERNEL_SOURCE = "distributed_parameter_server_for_ml_training_tpu_torch/" \
     "ops/csrc/wire_quantize.cu"
-REPLACES = "distributed_parameter_server_for_ml_training_tpu/" \
-    "ops/pallas/quantize.py:241"
+_PALLAS_QUANTIZE = "distributed_parameter_server_for_ml_training_tpu/" \
+    "ops/pallas/quantize.py"
+#: The TPU kernel each wire wrapper replaces (file:line of its function):
+#: both kernels of wire_quantize.cu compute K1.
+REPLACES = {"wire_quantize_multi": f"{_PALLAS_QUANTIZE}:241",
+            "wire_quantize": f"{_PALLAS_QUANTIZE}:241"}
+#: Entries of one multi-tensor launch: the kernel takes its table by value.
+WIRE_MAX_ENTRIES = 64
+#: Each entry's offset in the flat output is a multiple of this many bytes.
+WIRE_ALIGN = 16
 
 _count_lock = threading.Lock()
 
@@ -130,17 +146,153 @@ def wire_quantize(x: torch.Tensor, scale, *, levels: int = 127
 wire_quantize.launches = 0
 
 
+def wire_multi_layout(sizes: Sequence[int]
+                      ) -> tuple[np.ndarray, int, list[range]]:
+    """The flat buffer of a multi-tensor quantize: each entry's byte offset
+    (rounded up to WIRE_ALIGN, so every entry starts 16-byte aligned), the
+    buffer's length, and the entries of each launch (at most
+    WIRE_MAX_ENTRIES a launch)."""
+    padded = (np.asarray(sizes, np.int64).reshape(-1) + WIRE_ALIGN - 1) \
+        // WIRE_ALIGN * WIRE_ALIGN
+    ends = np.cumsum(padded)
+    offsets = ends - padded
+    groups = [range(i, min(i + WIRE_MAX_ENTRIES, len(offsets)))
+              for i in range(0, len(offsets), WIRE_MAX_ENTRIES)]
+    return offsets, int(ends[-1]) if len(ends) else 0, groups
+
+
+def _views(flat: torch.Tensor, xs, offsets: list[int]
+           ) -> list[torch.Tensor]:
+    """One view of the flat buffer per entry, in the entry's shape, at its
+    offset. The entries are contiguous, so their strides serve the view:
+    one ``as_strided`` an entry costs less than half the host time of a
+    split of the buffer followed by a ``view`` an entry."""
+    return [flat.as_strided(x.shape, x.stride(), o)
+            for x, o in zip(xs, offsets)]
+
+
+def wire_quantize_multi_plain(xs: Sequence[torch.Tensor],
+                              scales: Sequence[float], levels: Sequence[int]
+                              ) -> tuple[torch.Tensor, list[torch.Tensor],
+                                         list[int]]:
+    """The multi-tensor kernel's plain version: :func:`wire_quantize_plain`
+    per entry into the flat layout of :func:`wire_multi_layout`, padding
+    bytes 0. Returns what :func:`wire_quantize_multi` returns."""
+    xs = [x.contiguous() for x in xs]
+    offsets, total, _ = wire_multi_layout([x.numel() for x in xs])
+    offsets = offsets.tolist()
+    dev = xs[0].device if xs else torch.device("cpu")
+    flat = torch.zeros(total, dtype=torch.int8, device=dev)
+    for x, s, lv, o in zip(xs, scales, levels, offsets):
+        flat[o:o + x.numel()] = wire_quantize_plain(x.reshape(-1), s, lv)
+    return flat, _views(flat, xs, offsets), offsets
+
+
+def _wire_multi_fn():
+    from ._build import load
+
+    fn = load("wire_quantize").dps_wire_quantize_multi
+    if fn.argtypes is None:     # first use: declare the C signature once
+        p = ctypes.c_void_p
+        fn.argtypes = [ctypes.c_int, p, p, p, p, p, p, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+# The CUDA route of wire_quantize_multi, in the steps that chip_smoke.py
+# times one by one for the wrapper's host time.
+
+def _check_wire_inputs(xs) -> torch.device:
+    """The device of a push whose tensors the kernel can take, else
+    ValueError."""
+    dev, index = xs[0].device, xs[0].get_device()
+    for x in xs:
+        if x.dtype != torch.float32 or not x.is_contiguous() \
+                or x.get_device() != index:
+            raise ValueError(f"wire quantize kernel takes contiguous float32 "
+                             f"tensors on {dev}, got {x.dtype} on {x.device} "
+                             f"contiguous={x.is_contiguous()}")
+    return dev
+
+
+def _wire_table(xs, ns, offsets, scales, levels) -> list[np.ndarray]:
+    """The kernel's table as five arrays: input pointers, output offsets,
+    sizes, fp32 scales and levels."""
+    return [np.array([x.data_ptr() for x in xs], np.int64), offsets,
+            np.array(ns, np.int64), np.array(scales, np.float32),
+            np.array(levels, np.int32)]
+
+
+def _wire_launch(table, groups, ns, flat: torch.Tensor) -> None:
+    """One launch per group of table rows that holds values, on the
+    current stream of ``flat``'s device; counts each launch."""
+    fn = _wire_multi_fn()
+    launched = 0
+    with torch.cuda.device(flat.device):
+        stream = torch.cuda.current_stream(flat.device).cuda_stream
+        for g in groups:
+            if not any(ns[i] for i in g):
+                continue        # the C entry launches nothing for no values
+            err = fn(len(g), *[a.ctypes.data + a.itemsize * g.start
+                               for a in table], flat.data_ptr(), stream)
+            if err != 0:
+                raise RuntimeError(f"wire quantize kernel launch failed: "
+                                   f"CUDA error {err}")
+            launched += 1
+    with _count_lock:
+        wire_quantize_multi.launches += launched
+
+
+def _wire_quantize_multi_cuda(xs, scales, levels
+                              ) -> tuple[torch.Tensor, list[torch.Tensor],
+                                         list[int]]:
+    dev = _check_wire_inputs(xs)
+    ns = [x.numel() for x in xs]
+    offsets, total, groups = wire_multi_layout(ns)
+    flat = torch.empty(total, dtype=torch.int8, device=dev)
+    _wire_launch(_wire_table(xs, ns, offsets, scales, levels), groups, ns,
+                 flat)
+    offsets = offsets.tolist()
+    return flat, _views(flat, xs, offsets), offsets
+
+
+def wire_quantize_multi(xs: Sequence[torch.Tensor], scales: Sequence[float],
+                        levels: Sequence[int]
+                        ) -> tuple[torch.Tensor, list[torch.Tensor],
+                                   list[int]]:
+    """K1 over a whole push: fp32 tensors, each with its fp32 scale and its
+    levels (127 or 7) -> the flat int8 buffer of :func:`wire_multi_layout`,
+    one view of it per tensor in its shape, and each tensor's byte offset
+    in it.
+
+    On CUDA tensors one launch per WIRE_MAX_ENTRIES tensors that hold
+    values; on CPU tensors the plain version; any other device raises.
+    Scales are the host-computed fp32 scales, passed to the kernel
+    exactly."""
+    xs = list(xs)
+    if not len(scales) == len(levels) == len(xs):
+        raise ValueError(f"need one scale and one levels value per tensor "
+                         f"({len(xs)}), got {len(scales)} and {len(levels)}")
+    if not xs or xs[0].device.type == "cpu":
+        return wire_quantize_multi_plain(xs, scales, levels)
+    if xs[0].device.type == "cuda":
+        return _wire_quantize_multi_cuda(xs, scales, levels)
+    raise RuntimeError(f"wire quantize: no kernel for device {xs[0].device}")
+
+
+wire_quantize_multi.launches = 0
+
+
 # -- block-wise int8: kernels K2, K3 and K4 ------------------------------------
 
 BLOCK_KERNEL_SOURCE = "distributed_parameter_server_for_ml_training_tpu_torch/" \
     "ops/csrc/block_quantize.cu"
-_PALLAS_QUANTIZE = "distributed_parameter_server_for_ml_training_tpu/" \
-    "ops/pallas/quantize.py"
 #: The TPU kernel each block wrapper replaces (file:line of its function).
 BLOCK_REPLACES = {
     "block_quantize": f"{_PALLAS_QUANTIZE}:71",
     "block_quantize_stochastic": f"{_PALLAS_QUANTIZE}:98",
     "block_dequantize": f"{_PALLAS_QUANTIZE}:105",
+    "block_dequantize_v1": f"{_PALLAS_QUANTIZE}:105",
 }
 
 LANES = 128
@@ -358,11 +510,9 @@ def block_quantize_stochastic(x2d: torch.Tensor, seeds: Sequence[int]
     raise RuntimeError(f"block quantize: no kernel for device {x2d.device}")
 
 
-def block_dequantize(values: torch.Tensor, scales: torch.Tensor,
-                     n: int) -> torch.Tensor:
-    """K4: int8 ``[n_rows, rows_padded, 128]`` and scales ``[n_rows,
-    n_blocks]`` -> fp32 ``[n_rows, n]``. One launch for all rows on CUDA
-    tensors; the plain version on CPU tensors."""
+def _check_payload(values: torch.Tensor, scales: torch.Tensor,
+                   n: int) -> int:
+    """Raises on a payload K4 cannot take; returns its block height."""
     n_rows, rows_padded, lanes = values.shape
     br = block_rows_for(rows_padded)
     if values.dtype != torch.int8 or lanes != LANES \
@@ -372,16 +522,20 @@ def block_dequantize(values: torch.Tensor, scales: torch.Tensor,
         raise ValueError(f"block dequantize: bad payload {values.dtype}"
                          f"{tuple(values.shape)} scales {scales.dtype}"
                          f"{tuple(scales.shape)} for n={n}")
-    if values.device.type == "cpu":
-        return dequantize_int8_plain(values, scales, n)
-    if values.device.type != "cuda":
-        raise RuntimeError(f"block dequantize: no kernel for device "
-                           f"{values.device}")
+    return br
+
+
+def _block_dequantize_cuda(entry: str, values: torch.Tensor,
+                           scales: torch.Tensor, n: int, br: int
+                           ) -> tuple[torch.Tensor, bool]:
+    """Launches the C entry ``entry`` (K4 or its first version) on CUDA
+    tensors: (the output, whether a kernel was launched)."""
+    n_rows, rows_padded = values.shape[:2]
     values, scales = values.contiguous(), scales.contiguous()
     out = torch.empty((n_rows, n), dtype=torch.float32, device=values.device)
     if n == 0 or n_rows == 0:
-        return out
-    fn = _block_fn("dps_block_dequantize")
+        return out, False
+    fn = _block_fn(entry)
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
         err = fn(values.data_ptr(), scales.data_ptr(), out.data_ptr(), n, n,
@@ -389,14 +543,48 @@ def block_dequantize(values: torch.Tensor, scales: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"block dequantize kernel launch failed: CUDA "
                            f"error {err}")
-    with _count_lock:
-        block_dequantize.launches += 1
+    return out, True
+
+
+def block_dequantize(values: torch.Tensor, scales: torch.Tensor,
+                     n: int) -> torch.Tensor:
+    """K4: int8 ``[n_rows, rows_padded, 128]`` and scales ``[n_rows,
+    n_blocks]`` -> fp32 ``[n_rows, n]``. One launch for all rows on CUDA
+    tensors; the plain version on CPU tensors."""
+    br = _check_payload(values, scales, n)
+    if values.device.type == "cpu":
+        return dequantize_int8_plain(values, scales, n)
+    if values.device.type != "cuda":
+        raise RuntimeError(f"block dequantize: no kernel for device "
+                           f"{values.device}")
+    out, launched = _block_dequantize_cuda("dps_block_dequantize", values,
+                                           scales, n, br)
+    if launched:
+        with _count_lock:
+            block_dequantize.launches += 1
+    return out
+
+
+def block_dequantize_v1(values: torch.Tensor, scales: torch.Tensor,
+                        n: int) -> torch.Tensor:
+    """K4's first version, on CUDA tensors only: the yardstick that
+    ``chip_smoke.py`` times K4 against. No path calls it."""
+    br = _check_payload(values, scales, n)
+    if values.device.type != "cuda":
+        raise RuntimeError(f"block dequantize (first version): no kernel "
+                           f"for device {values.device}")
+    out, launched = _block_dequantize_cuda("dps_block_dequantize_v1", values,
+                                           scales, n, br)
+    if launched:
+        with _count_lock:
+            block_dequantize_v1.launches += 1
     return out
 
 
 block_quantize.launches = 0
 block_quantize_stochastic.launches = 0
 block_dequantize.launches = 0
+block_dequantize_v1.launches = 0
 
 
 def quantize_int8(x: torch.Tensor, seed: int = 0, *,

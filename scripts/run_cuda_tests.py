@@ -5,14 +5,16 @@
 
 The port's test files (and ``tests/conftest.py``) import jax and the JAX
 package at the top, to hold the port against the reference on the CPU.
-Most ``cuda``-marked tests hold the port's kernels against their plain
-PyTorch versions on the card and call nothing of JAX. So this script
+The ``cuda``-marked tests call nothing of JAX: they hold the port's
+kernels against their plain PyTorch versions on the card, and against
+the JAX package's outputs read from the committed fixture
+``tests/torch_port_jax_reference.npz`` (``tests/test_torch_jax_reference
+.py``, whose CPU tests keep it equal to the JAX package). So this script
 stands in an empty module for every ``jax*`` module and every module of
 the JAX package (any attribute is a ``MagicMock``), collects
-``tests/test_torch_*.py`` and runs ``-m cuda`` only. A test that fails
-after calling the stand-in (it compares the card with the JAX package
-itself) is reported as skipped, with that reason: it needs jax. On a host
-with jax, ``python -m pytest tests/test_torch_*.py -m cuda`` runs them all.
+``tests/test_torch_*.py`` and runs ``-m cuda`` only. A test that calls a
+stand-in gets a mock back and fails. On a host with jax, ``python -m
+pytest tests/test_torch_*.py -m cuda`` runs the same tests.
 """
 
 from __future__ import annotations
@@ -31,41 +33,15 @@ _STUBBED = ("jax", "jaxlib", "flax", "optax",
             "distributed_parameter_server_for_ml_training_tpu")
 
 
-_called = [False]       # a stand-in was called during the current test
-
-
-class _Mock(mock.MagicMock):
-    def __call__(self, *args, **kwargs):
-        _called[0] = True
-        return super().__call__(*args, **kwargs)
-
-
 class _Stub(types.ModuleType):
     __path__: list = []     # a package, so submodules resolve here too
 
     def __getattr__(self, name):
         if name.startswith("__"):
             raise AttributeError(name)
-        value = _Mock(name=f"{self.__name__}.{name}")
+        value = mock.MagicMock(name=f"{self.__name__}.{name}")
         setattr(self, name, value)
         return value
-
-
-class _SkipJaxCallers:
-    """Reports a failing test that called the stand-in as skipped."""
-
-    def pytest_runtest_setup(self, item):
-        _called[0] = False
-
-    @pytest.hookimpl(hookwrapper=True)
-    def pytest_runtest_makereport(self, item, call):
-        outcome = yield
-        report = outcome.get_result()
-        if call.when == "call" and report.failed and _called[0]:
-            report.outcome = "skipped"
-            report.longrepr = (str(item.path), item.location[1] or 0,
-                               "Skipped: calls the JAX package, which this "
-                               "host lacks (stubbed)")
 
 
 class _StubFinder(importlib.abc.MetaPathFinder, importlib.abc.Loader):
@@ -88,7 +64,7 @@ def main(argv: list[str]) -> int:
     files = sorted(str(p) for p in (REPO / "tests").glob("test_torch_*.py"))
     return pytest.main(["-q", "-rs", "-m", "cuda", "-p", "no:cacheprovider",
                         "-p", "no:randomly", "--rootdir", str(REPO),
-                        *files, *argv], plugins=[_SkipJaxCallers()])
+                        *files, *argv])
 
 
 if __name__ == "__main__":

@@ -1,11 +1,15 @@
 """The port's DeviceCodec against the JAX package's ``compress_push`` and
 JAX ``DeviceCodec``: payloads byte-for-byte equal (key order, dtypes,
-bytes, int4 logical shapes), with error feedback over three pushes."""
+bytes, int4 logical shapes), with error feedback over three pushes. On
+the card the reference's payloads come from the fixture of
+``test_torch_jax_reference.py`` (the GPU host has no jax)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_jax_reference import CODEC_PLANS, CODEC_PUSHES, \
+    codec_payload
 
 from distributed_parameter_server_for_ml_training_tpu.ops.compression \
     import ErrorFeedback as JaxErrorFeedback, compress_push as jax_compress
@@ -13,6 +17,8 @@ from distributed_parameter_server_for_ml_training_tpu.ops.device_codec \
     import DeviceCodec as JaxDeviceCodec
 from distributed_parameter_server_for_ml_training_tpu_torch.ops.compression \
     import ErrorFeedback, compress_push, wire_decompress
+from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
+    device_codec as DC, quantize as Q
 from distributed_parameter_server_for_ml_training_tpu_torch.ops.device_codec \
     import DeviceCodec, is_device_tree
 
@@ -108,19 +114,53 @@ def test_is_device_tree():
     assert not is_device_tree({})
 
 
+@pytest.mark.parametrize("plan_name", list(PLANS))
+def test_one_quantize_call_per_push(plan_name, monkeypatch):
+    """Every quantized tensor of a push goes through one call of K1's
+    multi-tensor wrapper: int8 entries and top-k values first (their
+    codes fill the front of the flat buffer, copied to the host at once),
+    then int4."""
+    plan = PLANS[plan_name]
+    calls = []
+
+    def spy(xs, scales, levels):
+        calls.append(list(levels))
+        return Q.wire_quantize_multi(xs, scales, levels)
+
+    monkeypatch.setattr(DC, "wire_quantize_multi", spy)
+    g = _grads(np.random.default_rng(5))
+    codec = DeviceCodec(device="cpu")
+    for _ in range(2):
+        payload = codec.encode({n: torch.from_numpy(a) for n, a in g.items()},
+                               plan)
+    assert len(calls) == 2
+    kinds = [plan[n] for n in SHAPES if plan[n] != "none"]
+    assert calls[0] == sorted((7 if k == "int4" else 127 for k in kinds),
+                              reverse=True)
+    int8_keys = [k for k in payload.order if k in payload.code_at]
+    assert len(int8_keys) == sum(k in ("int8", "topk") for k in kinds)
+    offsets, _, _ = Q.wire_multi_layout(
+        [int(np.prod(payload.code_at[k][1])) for k in int8_keys])
+    assert [payload.code_at[k][0] for k in int8_keys] == offsets.tolist()
+
+
 @pytest.mark.cuda
 def test_cuda_device_codec_bytes_equal_reference():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the codec's kernel runs only on "
                     "the card")
-    for plan_name in ("int8", "int4", "mixed"):
+    before = (Q.wire_quantize_multi.launches, Q.wire_quantize.launches)
+    for plan_name in CODEC_PLANS:
         plan = PLANS[plan_name]
         rng = np.random.default_rng(list(PLANS).index(plan_name))
         port = DeviceCodec(error_feedback=True, device="cuda")
-        ef = JaxErrorFeedback()
-        for push in range(3):
+        for push in range(CODEC_PUSHES):
             g = _grads(rng)
-            want = jax_compress(g, plan, ef=ef)
             got = port.encode_now(
                 {n: torch.from_numpy(a).cuda() for n, a in g.items()}, plan)
-            _assert_same(got, want, f"cuda {plan_name} push {push}")
+            _assert_same(got, codec_payload(plan_name, push),
+                         f"cuda {plan_name} push {push}")
+    # One launch of the multi-tensor K1 a push; the per-tensor K1 never.
+    assert (Q.wire_quantize_multi.launches - before[0],
+            Q.wire_quantize.launches - before[1]) == (
+                len(CODEC_PLANS) * CODEC_PUSHES, 0)

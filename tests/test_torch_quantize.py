@@ -1,10 +1,16 @@
 """K1's plain version and the codec's per-tensor ops against the JAX
-package, bit for bit; the kernel against its plain version on a card."""
+package, bit for bit; the kernel against its plain version on a card, and
+against the JAX package through the fixture of
+``test_torch_jax_reference.py`` (the GPU host has no jax)."""
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_jax_reference import block_key, jax_reference, k1_key, \
+    k1_multi_key
 
 from distributed_parameter_server_for_ml_training_tpu.ops.packed import \
     pack_nibbles
@@ -15,6 +21,7 @@ from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
     quantize as Q
 
 SIZES = [0, 1, 3, 5, 127, 129, 1000, 4097]
+KINDS = ("random", "zeros", "half", "clip")
 
 
 def _inputs(n, levels, kind, seed=0):
@@ -34,7 +41,7 @@ def _inputs(n, levels, kind, seed=0):
 
 
 @pytest.mark.parametrize("levels", [127, 7])
-@pytest.mark.parametrize("kind", ["random", "zeros", "half", "clip"])
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("n", SIZES)
 def test_plain_wire_quantize_bit_equal_to_jax(n, kind, levels):
     x, scale = _inputs(n, levels, kind)
@@ -81,24 +88,154 @@ def test_topk_select_matches_jax(n, k):
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
 
 
+# -- K1 over a whole push: one launch per 64 tensors --------------------------
+
+#: The multi-tensor case: 70 entries (two launches of at most 64), mixed
+#: levels, sizes 0, 1, 3, 4,097 and 65,539, two shaped tensors and short
+#: tails; entry MISALIGNED is passed as a view x[1:] of a longer tensor,
+#: off 16-byte alignment.
+MULTI_SHAPES = [(0,), (1,), (3,), (4097,), (65539,), (3, 3, 8, 16),
+                (64, 100)] + [(5 + 31 * (i % 7),) for i in range(63)]
+MISALIGNED = 4
+
+
+def multi_case(seed=11):
+    """(inputs, scales, levels) of the multi-tensor case, from numpy: a
+    quarter of each input at exact half-steps, a quarter far beyond the
+    clamp."""
+    r = np.random.default_rng(seed)
+    xs, scales, levels = [], [], []
+    for i, shape in enumerate(MULTI_SHAPES):
+        lv = 7 if i % 3 == 1 else 127
+        n = math.prod(shape)
+        x = (r.standard_normal(n) * 0.3).astype(np.float32)
+        amax = float(np.abs(x).max()) if n else 0.0
+        scale = np.float32(amax / lv) if amax > 0 else np.float32(1.0)
+        k = n // 4
+        x[:k] = ((r.integers(-lv, lv, k) + 0.5) * scale).astype(np.float32)
+        x[n - k:] *= 4 * lv
+        xs.append(x.reshape(shape))
+        scales.append(scale)
+        levels.append(lv)
+    return xs, scales, levels
+
+
+def multi_tensors(xs, device):
+    """The case's inputs as tensors on ``device``; entry MISALIGNED is the
+    view x[1:] of a tensor one value longer."""
+    out = []
+    for i, x in enumerate(xs):
+        t = torch.from_numpy(x).to(device)
+        if i == MISALIGNED:
+            base = torch.zeros(x.size + 1, dtype=torch.float32,
+                               device=device)
+            base[1:] = t.reshape(-1)
+            t = base[1:].view(x.shape)
+        out.append(t)
+    return out
+
+
+def test_wire_multi_layout():
+    offsets, total, groups = Q.wire_multi_layout([0, 1, 16, 17, 3])
+    assert offsets.tolist() == [0, 0, 16, 32, 64] and total == 80
+    assert groups == [range(0, 5)]
+    offsets, total, groups = Q.wire_multi_layout(
+        [math.prod(s) for s in MULTI_SHAPES])
+    assert all(o % Q.WIRE_ALIGN == 0 for o in offsets)
+    assert groups == [range(0, 64), range(64, 70)]
+    assert all(len(g) <= Q.WIRE_MAX_ENTRIES for g in groups)
+    assert total == sum(-(-math.prod(s) // 16) * 16 for s in MULTI_SHAPES)
+    offsets, total, groups = Q.wire_multi_layout([])
+    assert offsets.tolist() == [] and total == 0 and groups == []
+
+
+def test_multi_plain_bit_equal_to_jax_per_entry():
+    xs, scales, levels = multi_case()
+    before = Q.wire_quantize_multi.launches
+    flat, views, got_offsets = Q.wire_quantize_multi(
+        multi_tensors(xs, "cpu"), scales, levels)
+    assert Q.wire_quantize_multi.launches == before
+    offsets, total, _ = Q.wire_multi_layout([x.size for x in xs])
+    assert got_offsets == offsets.tolist()
+    assert flat.dtype == torch.int8 and tuple(flat.shape) == (total,)
+    covered = torch.zeros(total, dtype=torch.bool)
+    for x, s, lv, o, v in zip(xs, scales, levels, offsets, views):
+        want = np.asarray(jax_wire_quantize(jnp.asarray(x), s, levels=lv,
+                                            use_pallas=False))
+        assert tuple(v.shape) == x.shape and v.dtype == torch.int8
+        assert v.numpy().tobytes() == want.tobytes()
+        assert v.numel() == 0 or v.reshape(-1).data_ptr() \
+            == flat.data_ptr() + o
+        covered[o:o + x.size] = True
+    assert int(flat[~covered].abs().max()) == 0   # padding is code 0
+    assert {int(v.abs().max()) for v in views if v.numel()} == {7, 127}
+
+
+@pytest.mark.parametrize("levels", [127, 7])
+def test_multi_entries_equal_one_tensor_at_a_time(levels):
+    xs = [torch.randn(n, generator=torch.Generator().manual_seed(n))
+          for n in (5, 0, 300)]
+    scales = [np.float32(0.01)] * 3
+    flat, views, offsets = Q.wire_quantize_multi(xs, scales, [levels] * 3)
+    assert offsets == [0, 16, 16]
+    for x, v in zip(xs, views):
+        assert torch.equal(v, Q.wire_quantize_plain(x, 0.01, levels))
+
+
+def test_multi_rejects_bad_arguments():
+    x = torch.ones(4)
+    with pytest.raises(ValueError, match="one scale and one levels value"):
+        Q.wire_quantize_multi([x, x], [0.5], [127, 127])
+    with pytest.raises(ValueError, match="one scale and one levels value"):
+        Q.wire_quantize_multi([x, x], [0.5, 0.5], [127])
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        Q.wire_quantize_multi([torch.ones(4, device="meta")], [0.5], [127])
+    flat, views, offsets = Q.wire_quantize_multi([], [], [])
+    assert flat.numel() == 0 and views == [] and offsets == []
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the kernel runs only on the card")
+    ref = jax_reference()
     before = Q.wire_quantize.launches
     for n in SIZES:
         for levels in (127, 7):
-            for kind in ("random", "zeros", "half", "clip"):
+            for kind in KINDS:
                 x, scale = _inputs(n, levels, kind)
                 xd = torch.from_numpy(x).cuda()
                 got = Q.wire_quantize_flat(xd, float(scale), levels)
                 want = Q.wire_quantize_plain(xd, float(scale), levels)
                 torch.cuda.synchronize()
                 assert torch.equal(got, want), (n, levels, kind)
-                ref = np.asarray(jax_wire_quantize(
-                    jnp.asarray(x), scale, levels=levels, use_pallas=False))
-                assert got.cpu().numpy().tobytes() == ref.tobytes()
+                assert got.cpu().numpy().tobytes() == ref[
+                    k1_key(n, levels, kind)].tobytes()
     assert Q.wire_quantize.launches - before == 2 * 4 * (len(SIZES) - 1)
+
+
+@pytest.mark.cuda
+def test_multi_kernel_matches_plain_and_jax_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernel runs only on the card")
+    ref = jax_reference()
+    xs, scales, levels = multi_case()
+    xd = multi_tensors(xs, "cuda")
+    assert xd[MISALIGNED].data_ptr() % 16 != 0
+    before = (Q.wire_quantize_multi.launches, Q.wire_quantize.launches)
+    flat, views, offsets = Q.wire_quantize_multi(xd, scales, levels)
+    want, _, want_offsets = Q.wire_quantize_multi_plain(xd, scales, levels)
+    first, _, _ = Q.wire_quantize_multi(xd[:64], scales[:64], levels[:64])
+    torch.cuda.synchronize()
+    assert (Q.wire_quantize_multi.launches - before[0],
+            Q.wire_quantize.launches - before[1]) == (2 + 1, 0)
+    assert torch.equal(flat, want) and offsets == want_offsets
+    assert torch.equal(first, want[:first.numel()])
+    for i, v in enumerate(views):
+        assert tuple(v.shape) == xs[i].shape
+        assert v.numel() == 0 or v.data_ptr() == flat.data_ptr() \
+            + offsets[i], i
+        assert v.cpu().numpy().tobytes() == ref[k1_multi_key(i)].tobytes(), i
 
 
 @pytest.mark.cuda
@@ -310,6 +447,7 @@ def test_block_wrappers_count_only_kernel_launches():
 def test_block_kernels_match_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the kernels run only on the card")
+    ref = jax_reference()
     before = (Q.block_quantize.launches, Q.block_quantize_stochastic.launches,
               Q.block_dequantize.launches)
     for case in sorted(BLOCK_CASES):
@@ -324,10 +462,41 @@ def test_block_kernels_match_plain_on_card():
         for a, b in zip(got + gots, want + wants):
             assert torch.equal(a, b), case
         assert torch.equal(back, Q.dequantize_int8_plain(*want, x.shape[1]))
-        ref, _ = JQ.quantize_int8(jnp.asarray(x.numpy()))
-        assert got[0][0].cpu().numpy().tobytes() == np.asarray(
-            ref).tobytes(), case
+        for (dev, what) in ((got[0][0], "values"), (got[1][0], "scales"),
+                            (back[0], "dequantized")):
+            assert dev.cpu().numpy().tobytes() == ref[
+                block_key(case, what)].tobytes(), (case, what)
     n_nonempty = sum(_block_input(c).size > 0 for c in BLOCK_CASES)
     assert (Q.block_quantize.launches - before[0],
             Q.block_quantize_stochastic.launches - before[1],
             Q.block_dequantize.launches - before[2]) == (n_nonempty,) * 3
+
+
+def test_block_dequantize_first_version_takes_only_cuda_tensors():
+    v, s = Q.quantize_int8(torch.ones(300))
+    with pytest.raises(RuntimeError, match="no kernel for device cpu"):
+        Q.block_dequantize_v1(v[None], s[None], 300)
+    with pytest.raises(ValueError):
+        Q.block_dequantize_v1(v[None], s[None], 10 ** 6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n", [(3, 513), (4, 40_001), (2, 1),
+                                    (5, 4097), (2, 3 * 32768 + 5),
+                                    (4, 2_805_033)])
+def test_block_dequantize_kernels_match_plain_on_card(rows, n):
+    """K4 and its first version against the plain version, on rows whose
+    starts are off 16-byte alignment (odd n) and on the ring chunk."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernels run only on the card")
+    x = torch.from_numpy(np.random.default_rng(n).normal(
+        size=(rows, n)).astype(np.float32)).cuda()
+    v, s = Q.quantize_int8_plain(x)
+    before = (Q.block_dequantize.launches, Q.block_dequantize_v1.launches)
+    got = Q.block_dequantize(v, s, n)
+    first = Q.block_dequantize_v1(v, s, n)
+    want = Q.dequantize_int8_plain(v, s, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(first, want)
+    assert (Q.block_dequantize.launches - before[0],
+            Q.block_dequantize_v1.launches - before[1]) == (1, 1)
