@@ -19,15 +19,20 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    host-issued by CUDA events, and the kernels' device time a push by
    torch.profiler, against the bound; and the multi-tensor wrapper's host
    time a push, step by step;
-3. kernels K2, K3 and K4 (block-wise int8) and K4's first version against
-   their plain versions, torch.equal at tolerance 0: the ResNet-18 ring
-   chunk at N=4 as a batch of 4 rows of 2,805,033 values, 513 values, 3
-   rows of 513 (rows that start off 16-byte alignment), exactly 2 x
-   32,768, an all-zero block, an empty input and a 1000-valued outlier in
-   block 0; K3 at 3 seeds. On the chunk, K3's mean rounding error (in
-   scales) must be near 0 and every code floor or floor + 1 of x / scale.
-   Times each kernel on the chunk by CUDA events (K4 in turns with its
-   first version) and by torch.profiler, and its plain version;
+3. kernels K2, K3 and K4 (block-wise int8) against their plain versions,
+   torch.equal at tolerance 0: the ResNet-18 ring chunk at N=4 as a batch
+   of 4 rows of 2,805,033 values (rows 0, 4, 8 and 12 bytes past a
+   16-byte boundary), 3 rows of 513, exactly 2 x 32,768, an all-zero
+   block, an empty input, a 1000-valued outlier in block 0, 2 rows of
+   32,769 (a last block 1 value deep), a view with an odd row stride,
+   blocks that take the exact division (scales beyond 2^-40 and 2^40,
+   values below scale * 2^-60), and one block of 4,096 C values for each
+   cluster size C = 1..8; K3 at 3 seeds. On the chunk, K3's mean rounding
+   error (in scales) must be near 0 and every code floor or floor + 1 of
+   x / scale. Times each kernel on the chunk by CUDA events and by
+   torch.profiler (K2 and K3 beside their first design's device times),
+   and its plain version; K2's and K3's bound counts their SASS by pipe
+   (cuobjdump) at the card's highest SM clock;
 4. the CUDA device codec on a full-width ResNet-18 gradient tree: int8 and
    int4 with error feedback over 3 pushes, with and without shared
    scales, plus a top-k push, byte-for-byte against the NumPy
@@ -45,9 +50,8 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    slots on the card, batch 128 per slot, ``compression="int8"``, one
    epoch of 16 steps, eval on 1,000 test images. K2-K4's counts are reset
    just before and read just after: K3 must have launched 4 times and K4
-   7 times per step (one launch over all slots per hop), K2 and K4's
-   first version never (the ring rounds stochastically; K2 is on no main
-   path). Then, from the
+   7 times per step (one launch over all slots per hop), K2 never (the
+   ring rounds stochastically; K2 is on no main path). Then, from the
    trained state, the ring on one step's real per-slot gradient rows
    ``[4, 11,220,132]`` on the card must equal, bit for bit, the same ring
    on a CPU copy (the plain versions), with the same seed; and one step
@@ -104,14 +108,27 @@ import sys
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 
 H100_BYTES_PER_S = 3.35e12    # HBM3, NVIDIA's H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12   # fp32 outside the tensor cores, same sheet
-# 32-bit integer operations: 64 INT32 lanes per SM against 128 FP32 lanes
-# (NVIDIA's Hopper white paper), so half the fp32 rate.
-H100_INT32_OPS_PER_S = H100_FP32_OPS_PER_S / 2
+# Results a clock an SM of compute capability 9.0, by the pipe that runs
+# each SASS opcode (CUDA C++ Programming Guide, throughput table of the
+# arithmetic instructions): fp32 add, multiply, FMA, min/max and compare
+# 128; 32-bit integer add, multiply-add, logic, shift, compare and select
+# 64; conversions and the special-function unit 16. Moves, loads,
+# stores, barriers and branches are left out, so the bound stays a least
+# time.
+SASS_PIPES = {
+    "fp32": (128, ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL",
+                   "FSET")),
+    "int32": (64, ("IADD3", "IADD", "IMAD", "IMUL", "LOP3", "LOP", "SHF",
+                   "SHL", "SHR", "ISETP", "IMNMX", "VIMNMX", "LEA", "IABS",
+                   "PRMT", "SEL", "I2FP", "BMSK", "SGXT")),
+    "conversion": (16, ("MUFU", "F2I", "I2F", "FRND", "F2F")),
+}
 H100_BF16_OPS_PER_S = 989e12  # dense tensor-core bf16, same sheet
 
 
@@ -393,33 +410,93 @@ def ring_chunk_rows(n_slots: int = 4) -> tuple[int, int]:
     return n_slots, -(-11_220_132 // n_slots)
 
 
-def block_bound(n_rows: int, n: int, kernel: str) -> tuple[float, str]:
+def sm_clock_hz() -> float:
+    """The card's highest SM clock (nvidia-smi clocks.max.sm)."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return float(smi.stdout.split()[0]) * 1e6
+
+
+def sass_pipe_counts(symbol: str) -> dict:
+    """SASS instructions one thread of the block-quantize kernel whose
+    mangled name holds ``symbol`` issues for one quantization block, by
+    pipe (SASS_PIPES), from ``cuobjdump -sass`` of the built library: the
+    body of the kernel's loop over blocks, from the target of the last
+    backward branch before the last EXIT to that branch. The loop is
+    straight-line code over a thread's 16 values (four Philox groups);
+    the rarely taken paths (a slice past n, the exact division) are calls
+    to functions outside it, and the warp-divergence fallbacks sit after
+    the EXIT. The code before the loop (once a CTA) is not counted."""
+    import re
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
+        _build
+
+    tool = str(Path(_build.nvcc_path()).parent / "cuobjdump")
+    text = subprocess.run(
+        [tool, "-sass", str(_build.library_path("block_quantize"))],
+        capture_output=True, text=True, timeout=120, check=True).stdout
+    funcs = [f for f in re.split(r"^\s*Function : ", text, flags=re.M)[1:]
+             if symbol in f.split("\n", 1)[0]]
+    if len(funcs) != 1:
+        raise AssertionError(f"{len(funcs)} SASS functions match {symbol}")
+    ins = [(int(m[1], 16), m[2], re.findall(r"0x([0-9a-f]+)", m[3]))
+           for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+"
+                                r"\s+)?([A-Z][A-Z0-9]*)\S*\s*([^;]*);",
+                                funcs[0])]
+    last_exit = max(i for i, x in enumerate(ins) if x[1] == "EXIT")
+    back = max(i for i in range(last_exit) if ins[i][1] == "BRA"
+               and ins[i][2] and int(ins[i][2][-1], 16) < ins[i][0])
+    head = int(ins[back][2][-1], 16)
+    body = [op for addr, op, _ in ins[:back + 1] if addr >= head]
+    counts = {pipe: sum(op in ops for op in body)
+              for pipe, (_, ops) in SASS_PIPES.items()}
+    counts["issued"] = len(body)
+    return counts
+
+
+def block_bound(n_rows: int, n: int, kernel: str,
+                sass: dict | None = None) -> tuple[float, str, dict]:
     """Least time for a block kernel's work on ``n_rows`` rows of ``n``
-    values: each input read once and each output written once, against
-    the operations at the card's peak rates; the larger, and which."""
+    values: each input read once and each output written once at the
+    memory rate, against the operations at their pipes' rates; the
+    largest, whether bytes or operations bound it, and each part in ms.
+
+    K2/K3: ``sass`` is :func:`sass_pipe_counts` of the kernel, instructions
+    a thread (16 values, padding included), priced per pipe at SASS_PIPES'
+    lanes x the SMs x the highest SM clock. K4: a convert and a multiply a
+    value at the fp32 peak."""
+    import torch
+
     from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
         quantize as Q
 
     rows_padded, _, n_blocks = Q.block_layout(n)
     payload = n_rows * (rows_padded * Q.LANES + 4 * n_blocks)
     values = n_rows * n
-    if kernel.startswith("block_dequantize"):
-        nbytes = payload + 4 * values
-        fp_ops, int_ops = 2 * values, 0            # convert, multiply
+    parts = {}
+    if kernel == "block_dequantize":
+        parts["bytes"] = (payload + 4 * values) / H100_BYTES_PER_S * 1e3
+        parts["fp32"] = 2 * values / H100_FP32_OPS_PER_S * 1e3
     else:
-        nbytes = 4 * values + payload
-        # abs, max, divide, round, two clamps, convert
-        fp_ops, int_ops = 7 * values, 0
-        if kernel == "block_quantize_stochastic":
-            # Philox4x32-10 per 4 values: 10 rounds of 2 mul.hi, 2 mul.lo,
-            # 4 xor and 2 key adds; then shift, convert, scale, add, floor.
-            int_ops = 25 * values + values
-            fp_ops += 4 * values
-    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-    ops_ms = (fp_ops / H100_FP32_OPS_PER_S
-              + int_ops / H100_INT32_OPS_PER_S) * 1e3
-    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
-                                   else "operations")
+        parts["bytes"] = (4 * values + payload) / H100_BYTES_PER_S * 1e3
+        threads = n_rows * rows_padded * Q.LANES // 16
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        clock = sm_clock_hz()
+        for pipe, (lanes, _) in SASS_PIPES.items():
+            parts[pipe] = sass[pipe] * threads / (lanes * sms * clock) * 1e3
+    bound = max(parts.values())
+    return bound, ("bytes" if parts["bytes"] >= bound else "operations"), \
+        parts
+
+
+# K2's and K3's device times on the ring chunk in their first design (one
+# thread block a quantization block, two passes over its values), on
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6).
+BLOCK_QUANTIZE_FIRST_DESIGN_DEVICE_MS = {"block_quantize": 0.044241,
+                                         "block_quantize_stochastic": 0.045867}
 
 
 def phase_kernel_int8(state: dict) -> None:
@@ -438,18 +515,34 @@ def phase_kernel_int8(state: dict) -> None:
     outlier[0, 0] = 1000.0
     cases = {
         "ring_chunk_4x2805033": ring,
-        "n513": torch.randn((1, 513), generator=gen, device="cuda"),
-        # rows 1 and 2 start off 16-byte alignment in K4's output
+        # rows 1 and 2 start off 16-byte alignment
         "rows3_n513": torch.randn((3, 513), generator=gen, device="cuda"),
         "n65536": torch.randn((1, 2 * 32768), generator=gen, device="cuda"),
         "zero_block": zero_block,
         "empty": torch.zeros((1, 0), device="cuda"),
         "outlier_block0": outlier,
+        # the last block's cluster holds 1 value and 7 CTAs past n
+        "n32769": torch.randn((2, 32_769), generator=gen, device="cuda"),
+        # a view with the odd row stride 20,003 starting one value in: its
+        # rows start 4, 0, 12 and 8 bytes past a 16-byte boundary
+        "strided_4x20001": torch.randn(
+            (4, 20_003), generator=gen, device="cuda")[:, 1:20_002],
     }
+    # Blocks that take the kernels' exact division: a block scale below
+    # 2^-40, one above 2^40, and values below scale * 2^-60.
+    exact = torch.randn((2, 3 * 32_768 + 1), generator=gen, device="cuda")
+    exact[:, :32_768] *= 1e-20
+    exact[:, 32_768:65_536] *= 1e15
+    exact[:, 65_536::97] = 1e-30 * torch.sign(exact[:, 65_536::97])
+    cases["exact_division"] = exact
+    # One block of block_elems = 4096 C values, C = 1..8: every cluster size.
+    for n in (513, 5_000, 10_000, 15_000, 20_000, 24_000, 28_000, 32_768):
+        cases[f"cluster{Q.block_layout(n)[1] * Q.LANES // 4096}_n{n}"] = \
+            torch.randn((1, n), generator=gen, device="cuda")
     seeds = [[0x5EED0000 + 64 * k + r for r in range(n_slots)]
              for k in range(3)]
     err = {"block_quantize": 0, "block_quantize_stochastic": 0,
-           "block_dequantize": 0.0, "block_dequantize_v1": 0.0}
+           "block_dequantize": 0.0}
     mismatched = []
     for name, x in cases.items():
         rows = x.shape[0]
@@ -469,14 +562,16 @@ def phase_kernel_int8(state: dict) -> None:
                     and torch.equal(got[1], want[1])):
                 mismatched.append((kernel, name))
             back_plain = Q.dequantize_int8_plain(*got, x.shape[1])
-            for k4 in ("block_dequantize", "block_dequantize_v1"):
-                back = getattr(Q, k4)(*got, x.shape[1])
-                torch.cuda.synchronize()
-                if back.numel():
-                    err[k4] = max(err[k4], float(
-                        (back - back_plain).abs().max()))
-                if not torch.equal(back, back_plain):
-                    mismatched.append((k4, name))
+            back = Q.block_dequantize(*got, x.shape[1])
+            torch.cuda.synchronize()
+            if back.numel():
+                err["block_dequantize"] = max(err["block_dequantize"], float(
+                    (back - back_plain).abs().max()))
+            if not torch.equal(back, back_plain):
+                mismatched.append(("block_dequantize", name))
+    row_offsets = {name: sorted({x[r].data_ptr() % 16
+                                 for r in range(x.shape[0])})
+                   for name, x in cases.items() if x.numel()}
 
     # K3 on the chunk: unbiased, and every code floor or floor + 1.
     v, sc = Q.block_quantize_stochastic(ring, seeds[0])
@@ -492,51 +587,53 @@ def phase_kernel_int8(state: dict) -> None:
     # values has sd <= 1.5e-4; 2e-3 is over 13 sd.
     unbiased = abs(mean_err) < 2e-3
 
+    payload = Q.block_quantize(ring)
     fns = {
         "block_quantize": (lambda: Q.block_quantize(ring),
                            lambda: Q.quantize_int8_plain(ring)),
         "block_quantize_stochastic": (
             lambda: Q.block_quantize_stochastic(ring, seeds[0]),
             lambda: Q.quantize_int8_plain(ring, seeds[0], stochastic=True)),
+        "block_dequantize": (
+            lambda: Q.block_dequantize(*payload, chunk),
+            lambda: Q.dequantize_int8_plain(*payload, chunk)),
     }
-    payload = Q.block_quantize(ring)
-    for k4 in ("block_dequantize", "block_dequantize_v1"):
-        fns[k4] = (lambda k4=k4: getattr(Q, k4)(*payload, chunk),
-                   lambda: Q.dequantize_int8_plain(*payload, chunk))
-    # Each kernel twice by CUDA events (host-issued, 50 calls); K4 in turns
-    # with its first version (new, first, first, new). Device time per call
-    # from torch.profiler's kernel durations.
-    ms = {kernel: [] for kernel in fns}
-    for kernel in ("block_quantize", "block_quantize",
-                   "block_quantize_stochastic", "block_quantize_stochastic",
-                   "block_dequantize", "block_dequantize_v1",
-                   "block_dequantize_v1", "block_dequantize"):
-        ms[kernel].append(cuda_time_ms(fns[kernel][0], 50))
+    sass = {"block_quantize": sass_pipe_counts("block_quantize_kernelILb0E"),
+            "block_quantize_stochastic": sass_pipe_counts(
+                "block_quantize_kernelILb1E")}
+    # Each kernel twice by CUDA events (host-issued, 50 calls), then its
+    # device time per call from torch.profiler's kernel durations.
+    ms = {kernel: [cuda_time_ms(fk, 50) for _ in range(2)]
+          for kernel, (fk, _) in fns.items()}
     state["block"] = {}
     for kernel, (fk, fp) in fns.items():
         plain = [cuda_time_ms(fp, 10), cuda_time_ms(fp, 10)]
         device_ms = device_ms_per_call(
-            fk, 50, "::block_dequantize_v1_kernel"
-            if kernel == "block_dequantize_v1" else
-            "::block_dequantize_kernel" if kernel == "block_dequantize"
-            else "::block_quantize_kernel")[0]
-        bound_ms, bound_by = block_bound(n_slots, chunk, kernel)
+            fk, 50, "::block_dequantize_kernel"
+            if kernel == "block_dequantize" else "::block_quantize_kernel")[0]
+        bound_ms, bound_by, parts = block_bound(n_slots, chunk, kernel,
+                                                sass.get(kernel))
         state["block"][kernel] = {
             "ms": min(ms[kernel]), "device_ms": device_ms,
             "plain_ms": min(plain), "bound_ms": bound_ms,
             "bound_by": bound_by, "max_abs_err": err[kernel]}
         emit({"phase": "kernel_int8_vs_plain", "kernel": kernel,
               "shape": [n_slots, chunk], "ms_runs": ms[kernel],
-              "device_ms": device_ms, "plain_ms_runs": plain,
-              "bound_ms": bound_ms, "bound_by": bound_by,
+              "device_ms": device_ms,
+              "first_design_device_ms":
+                  BLOCK_QUANTIZE_FIRST_DESIGN_DEVICE_MS.get(kernel),
+              "plain_ms_runs": plain, "bound_ms": bound_ms,
+              "bound_by": bound_by, "bound_parts_ms": parts,
+              "sass_per_thread_16_values": sass.get(kernel),
               "share_of_bound_device": bound_ms / device_ms
               if device_ms else None,
               "max_abs_err": err[kernel], "card": state["card"]})
     emit({"phase": "kernel_int8_vs_plain", "cases": list(cases),
+          "row_offsets_mod_16": row_offsets,
           "k3_seeds": len(seeds), "mismatched": mismatched,
           "k3_mean_error_in_scales": mean_err, "k3_unbiased": unbiased,
           "k3_codes_floor_or_floor_plus_1": floor_ok,
-          "card": state["card"]})
+          "sm_clock_max_hz": sm_clock_hz(), "card": state["card"]})
     if mismatched:
         raise AssertionError(f"K2-K4 differ from their plain versions on "
                              f"{mismatched}")
@@ -812,7 +909,6 @@ def _reset_block_counts():
     Q.block_quantize.launches = 0
     Q.block_quantize_stochastic.launches = 0
     Q.block_dequantize.launches = 0
-    Q.block_dequantize_v1.launches = 0
 
 
 def _block_counts() -> dict:
@@ -821,8 +917,7 @@ def _block_counts() -> dict:
 
     return {"block_quantize": Q.block_quantize.launches,
             "block_quantize_stochastic": Q.block_quantize_stochastic.launches,
-            "block_dequantize": Q.block_dequantize.launches,
-            "block_dequantize_v1": Q.block_dequantize_v1.launches}
+            "block_dequantize": Q.block_dequantize.launches}
 
 
 def phase_sync_path(state: dict) -> None:
@@ -923,8 +1018,7 @@ def phase_sync_path(state: dict) -> None:
           "card": state["card"]})
     want = {"block_quantize": 0,
             "block_quantize_stochastic": SYNC_SLOTS * steps,
-            "block_dequantize": (2 * SYNC_SLOTS - 1) * steps,
-            "block_dequantize_v1": 0}
+            "block_dequantize": (2 * SYNC_SLOTS - 1) * steps}
     if steps != SYNC_STEPS or counts != want:
         raise AssertionError(f"{steps} steps launched {counts}; expected "
                              f"{want}")
@@ -1501,9 +1595,8 @@ def main() -> int:
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": None})
     # K2-K4 launches from the sync path's run: the ring rounds
-    # stochastically, so K2 (nearest rounding) reads 0 there, and K4's
-    # first version is on no path. No single PyTorch call computes a block
-    # quantize, so library_ms is null.
+    # stochastically, so K2 (nearest rounding) reads 0 there. No single
+    # PyTorch call computes a block quantize, so library_ms is null.
     launches = state["sync_counts"]
     for name, k in state["block"].items():
         kernels.append({

@@ -28,16 +28,14 @@
 // reference's scale bit for bit. Build with --fmad=false and never
 // --use_fast_math.
 //
-// Design. One launch covers a batch of rows (the ring's N slots): the
-// grid's y dimension is the row. K2/K3 run one thread block per
-// quantization block: a block absmax reduction (warp shuffles, then
-// shared memory), then a second pass over the same values (from L2) that
-// writes the codes, four consecutive values per thread. The kernel reads
-// only the n valid values of a row (the row stride may be odd) and writes
-// code 0 for the padding, so no padded fp32 copy is made; a zero pads to
-// code 0 in both modes since floor(0 + u) = 0 for u < 1. K4 runs one
-// thread block per tile of up to kDeqTile codes of one block (its note
-// below).
+// Design. One launch covers a batch of rows (the ring's N slots). K2/K3
+// split each quantization block over a thread-block cluster of
+// C = block_elems / 4096 CTAs (block_elems is 4096 k, k = 1..8, so C <= 8,
+// the portable cluster size), each CTA a 4,096-value slice, 16 values a
+// thread. The clusters are persistent: as many as fit on the card at once
+// (cudaOccupancyMaxActiveClusters) walk the blocks of all rows (344 on
+// the ring chunk). K4 runs one thread block per tile of up to kDeqTile codes of one
+// block (its note below).
 //
 // K3's random bits: Philox4x32-10 (Salmon et al., SC'11), keyed by the
 // row's 64-bit seed, counter = (g mod 2^32, g >> 32, 0, 0) for the group g
@@ -47,24 +45,62 @@
 // bits; the TPU kernel reseeds at each grid step, so its blocks share one
 // stream. Both are unbiased.
 //
-// Bound: memory. K2/K3 move 4 + 1 bytes per value and K4 1 + 4 (plus a
-// scale per 32,768 values); the Philox rounds cost ~25 integer operations
-// per value, below the card's balance point. The ResNet-18 ring chunk at
-// N = 4 is 4 x 2,805,033 values, 56.1 MB per launch, 16.7 us at an
-// H100 SXM's 3.35 TB/s. K2/K3 read their input twice (absmax, then codes)
-// and use scalar loads, since a row of odd length is not 16-byte aligned.
-// K4's first version (block_dequantize_v1_kernel) paid a 64-bit division
-// per four values, char4 loads and scalar stores behind a bounds test on a
-// grid capped at 1,024 x rows; its redesign reads the scale once a thread
-// block, stages 16-byte loads in shared memory and writes float4 stores
-// however the output row is aligned.
+// Bound. All three kernels move 4 + 1 bytes a value (plus a scale per
+// block): on the ResNet-18 ring chunk at N = 4 (4 x 2,805,033 values) that
+// is 56.1 MB a launch, 16.8 us at an H100 SXM's 3.35 TB/s. K3 also runs
+// Philox, ten rounds of a 32 x 32 -> 64-bit multiply pair and two xors a
+// group of four values, on the integer pipe (64 lanes a clock an SM, half
+// the fp32 pipe's): chip_smoke.py:block_bound counts the built kernel's
+// SASS by pipe and prices each at its rate, and on an H100 the integer
+// pipe's time comes close to the bytes'. Past that, K2/K3 are bound by
+// latency: a block's absmax has to be known across its cluster before any
+// of its codes, and the first design (one thread block a quantization
+// block, two passes over its values) left most of the memory latency
+// exposed.
+//
+// What the design does about it:
+// - One read of the input. A CTA copies its slice into shared memory with
+//   cp.async (4 bytes a copy, a warp's 32 copies on 128 consecutive bytes:
+//   a copy cannot shift its data, and the ring's rows of odd length start
+//   4, 8 or 12 bytes past a 16-byte boundary, so every row takes the same
+//   path); values past n are zero-filled. The next block's slice is in
+//   flight while this one is quantized (two buffers). One float4 of
+//   padding every 8 keeps a thread's reads of its four float4s free of
+//   bank conflicts, and it takes its 16 values by row-element index, so a
+//   misaligned row costs no extra Philox call.
+// - The absmax across the cluster in distributed shared memory, with no
+//   cluster barrier a block: a warp shuffle, the CTA's partial, then warp
+//   0 sends it to every CTA of the cluster (itself included) by st.async,
+//   which counts its bytes on the receiver's mbarrier. A cluster barrier
+//   costs a GPU-scope memory fence on sm_90 (MEMBAR.ALL.GPU in the SASS),
+//   which the exchange avoids. A max is exact in any order, so every CTA
+//   holds the same scale bits with no trip through device memory; rank 0
+//   writes it. K3's Philox words do not depend on the data and are
+//   computed while the partials travel.
+// - One reciprocal a block in place of a division a value: x / scale as
+//   RN(x * y), y = RN(1 / scale), then two FMA corrections, which give
+//   __fdiv_rn's bits (the note at the codes). A block scale or a value
+//   outside the range where that holds takes __fdiv_rn in a function
+//   outside the loop.
+// - Each thread writes its 16 codes as one 16-byte store (a row of codes
+//   starts at a multiple of n_blocks * block_elems).
+// A CTA whose slice lies wholly past n still sends its partial (0) and
+// writes code 0. No fallback: a refused cluster launch returns its CUDA
+// error, and the wrapper raises.
+//
+// K4 moves 1 + 4 bytes a value; it reads the scale once a thread block,
+// stages 16-byte loads in shared memory and writes float4 stores however
+// the output row is aligned.
 //
 // NaN inputs: fmaxf drops a NaN from the absmax, where the plain version
 // (torch.amax) propagates it. Gradients reaching the ring are finite.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 #define DPS_MAX_SEEDED_ROWS 64
 
@@ -75,24 +111,58 @@ struct SeedTable {
 };
 
 constexpr int kThreads = 256;
+// K2/K3: values a CTA a quantization block (16 a thread), and the most
+// CTAs a cluster (one block of at most 256 x 128 values).
+constexpr int kSlice = 16 * kThreads;
+constexpr int kMaxCluster = 8;
+// Shared float4s of one staged slice: 1,024, plus one of padding after
+// every 8 so a thread's four consecutive float4s are read without bank
+// conflicts.
+constexpr int kStagedChunks = kSlice / 4 + kSlice / 32;
 constexpr int kDeqTile = 8192;  // K4: codes a thread block at most
 static_assert(kDeqTile % (16 * kThreads) == 0,
               "a K4 tile is a whole number of 16-byte loads per thread");
 
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+// Philox4x32-10 of the four groups g0 .. g0 + 3 (counters (g, g >> 32, 0,
+// 0)) under one key, round by round, so each round's key is formed once.
+// words[4k + j] is word j of group g0 + k.
+__device__ __forceinline__ void philox4x32_10_x4(long long g0, uint2 k,
+                                                 unsigned* words) {
   const unsigned int M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
   const unsigned int W0 = 0x9E3779B9u, W1 = 0xBB67AE85u;
+  uint4 c[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long g = g0 + i;
+    c[i] = make_uint4(static_cast<unsigned int>(g),
+                      static_cast<unsigned int>(g >> 32), 0u, 0u);
+  }
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
     if (r) {
       k.x += W0;
       k.y += W1;
     }
-    const unsigned int hi0 = __umulhi(M0, c.x), lo0 = M0 * c.x;
-    const unsigned int hi1 = __umulhi(M1, c.z), lo1 = M1 * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      // One 32 x 32 -> 64-bit multiply gives both halves.
+      const unsigned long long p0 =
+          static_cast<unsigned long long>(M0) * c[i].x;
+      const unsigned long long p1 =
+          static_cast<unsigned long long>(M1) * c[i].z;
+      c[i] = make_uint4(static_cast<unsigned int>(p1 >> 32) ^ c[i].y ^ k.x,
+                        static_cast<unsigned int>(p1),
+                        static_cast<unsigned int>(p0 >> 32) ^ c[i].w ^ k.y,
+                        static_cast<unsigned int>(p0));
+    }
   }
-  return c;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    words[4 * i] = c[i].x;
+    words[4 * i + 1] = c[i].y;
+    words[4 * i + 2] = c[i].z;
+    words[4 * i + 3] = c[i].w;
+  }
 }
 
 __device__ __forceinline__ float uniform24(unsigned int bits) {
@@ -105,86 +175,330 @@ __device__ __forceinline__ signed char to_code(float q) {
   return static_cast<signed char>(__float2int_rn(q));
 }
 
-__device__ __forceinline__ float block_max(float m) {
-  __shared__ float warp_max[kThreads / 32];
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Shared float4 index of float4 c of a slice (one of padding after 8).
+__device__ __forceinline__ int staged(int c) { return c + (c >> 3); }
+
+// An asynchronous 4-byte copy into shared memory: `bytes` (4 or 0) come
+// from `src`, the rest are zero (0 reads nothing).
+__device__ __forceinline__ void copy4(void* dst, const void* src,
+                                      int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void copies_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most one group of copies is still in flight.
+__device__ __forceinline__ void copies_wait_all_but_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// The absmax exchange within a cluster. Each CTA keeps, per parity of
+// its item count, a slot for every CTA's partial and an mbarrier that
+// completes once its own thread 0 has arrived (expecting C partials' bytes)
+// and all C partials have landed. A partial goes to every CTA of the
+// cluster (itself included) by st.async, which counts its bytes on the
+// receiver's mbarrier: no cluster-wide barrier and no memory fence a block.
+__device__ __forceinline__ void bar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_expect(unsigned long long* bar,
+                                           unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(unsigned long long* bar,
+                                         unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Stores v into `slot` of cluster CTA `rank` and counts its 4 bytes on that
+// CTA's `bar` (both given as this CTA's addresses of the same variables).
+__device__ __forceinline__ void send_partial(float* slot,
+                                             unsigned long long* bar,
+                                             unsigned rank, float v) {
+  unsigned remote_slot, remote_bar;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote_slot)
+               : "r"(smem_addr(slot)), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote_bar)
+               : "r"(smem_addr(bar)), "r"(rank));
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];\n" ::"r"(remote_slot),
+      "r"(__float_as_uint(v)), "r"(remote_bar)
+      : "memory");
+}
+
+__device__ __forceinline__ float warp_max(float m) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) warp_max[warp] = m;
-  __syncthreads();
-  if (warp == 0) {
-    m = lane < kThreads / 32 ? warp_max[lane] : 0.f;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-  }
-  return m;  // valid in thread 0
+  return m;
 }
 
+__device__ __forceinline__ unsigned pack_codes(const float* q) {
+  return static_cast<unsigned char>(to_code(q[0])) |
+         static_cast<unsigned>(static_cast<unsigned char>(to_code(q[1])))
+             << 8 |
+         static_cast<unsigned>(static_cast<unsigned char>(to_code(q[2])))
+             << 16 |
+         static_cast<unsigned>(static_cast<unsigned char>(to_code(q[3])))
+             << 24;
+}
+
+// Value i of this CTA's slice goes to float i of the staged layout. The
+// copies are 4 bytes each, a warp's 32 on 128 consecutive bytes, so a row
+// of any alignment takes the same path (a copy cannot shift its data, and
+// the ring's rows of odd length start 4, 8 or 12 bytes past a 16-byte
+// boundary). A slice that is partly or wholly past n: its values past n
+// as 0 (src_row is the row's first value, a valid address that a copy of
+// 0 bytes never reads). Not inlined: only the last block of a row takes it.
+__device__ __noinline__ void stage_partial(float* buf, const float* p,
+                                           const float* src_row, int count) {
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < kSlice / kThreads; ++k) {
+    const int i = k * kThreads + t;
+    copy4(buf + 4 * staged(i >> 2) + (i & 3), i < count ? p + i : src_row,
+          i < count ? 4 : 0);
+  }
+}
+
+// Starts the copy of this CTA's slice of block b of row `row` into `buf`.
+__device__ __forceinline__ void stage_slice(float4* buf, const float* x,
+                                            long long n,
+                                            long long x_row_stride,
+                                            int block_elems, int rank,
+                                            int row, int b) {
+  const float* xr = x + (long long)row * x_row_stride;
+  const long long e0 = (long long)b * block_elems + (long long)rank * kSlice;
+  float* bf = reinterpret_cast<float*>(buf);
+  if (n - e0 < kSlice) {
+    stage_partial(bf, xr + e0, xr,
+                  n - e0 <= 0 ? 0 : static_cast<int>(n - e0));
+    return;
+  }
+  const float* p = xr + e0 + threadIdx.x;
+  float* d = bf + threadIdx.x + 4 * (threadIdx.x >> 5);
+#pragma unroll
+  for (int k = 0; k < kSlice / kThreads; ++k)
+    copy4(d + k * (kThreads + kThreads / 8), p + k * kThreads, 4);
+}
+
+// Codes of one group of four quotients x / scale, with the group's Philox
+// words w when stochastic.
 template <bool kStochastic>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ unsigned group_codes(const float* x,
+                                                const unsigned* w) {
+  float q[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    q[j] = kStochastic
+               ? floorf(__fadd_rn(x[j], uniform24(w[j])))
+               : rintf(x[j]);
+  return pack_codes(q);
+}
+
+// The slow path of a thread's codes, for a block scale outside
+// [2^-40, 2^40] or (K3) a value with 0 < |x| < scale * 2^-60, where the
+// fast division's proof could meet an underflow: the same codes with
+// __fdiv_rn. It takes the thread's values from registers (its staging
+// buffer may be refilled by then). Not inlined, so the kernel's loop is
+// the fast path.
+template <bool kStochastic>
+__device__ __noinline__ uint4 codes_exact(float4 c0, float4 c1, float4 c2,
+                                          float4 c3, float scale, uint2 key,
+                                          long long g0) {
+  unsigned w[16], words[4];
+  if (kStochastic) philox4x32_10_x4(g0, key, w);
+  const float4 c[4] = {c0, c1, c2, c3};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float d[4] = {__fdiv_rn(c[k].x, scale), __fdiv_rn(c[k].y, scale),
+                        __fdiv_rn(c[k].z, scale), __fdiv_rn(c[k].w, scale)};
+    words[k] = group_codes<kStochastic>(d, w + 4 * k);
+  }
+  return make_uint4(words[0], words[1], words[2], words[3]);
+}
+
+// K2/K3 (the note at the top). A cluster of C CTAs takes quantization
+// blocks (items) cluster_id, cluster_id + n_clusters, ... of all rows, item
+// i being block i % n_blocks of row i / n_blocks; CTA rank r owns values
+// r * kSlice .. r * kSlice + kSlice - 1 of each block, thread t values
+// 16t .. 16t + 15 of the slice, four Philox groups. The next item's slice
+// is copied in while this one is quantized, and K3's Philox words (which
+// do not depend on the data) are computed while the cluster barrier of the
+// absmax completes.
+template <bool kStochastic>
+__global__ void __launch_bounds__(kThreads, 4)
 block_quantize_kernel(const float* __restrict__ x, long long n,
                       long long x_row_stride,
                       signed char* __restrict__ values,
                       float* __restrict__ scales, int block_elems,
-                      int n_blocks, SeedTable seeds) {
-  const int b = blockIdx.x;
-  const int row = blockIdx.y;
-  const float* xr = x + (long long)row * x_row_stride;
-  const long long start = (long long)b * block_elems;
-  const long long valid_end = start + block_elems < n ? start + block_elems
-                                                      : n;
+                      int n_blocks, int n_rows, SeedTable seeds) {
+  __shared__ __align__(16) float4 stage[2][kStagedChunks];
+  __shared__ float warp_part[kThreads / 32];
+  __shared__ float part[2][kMaxCluster];
+  __shared__ unsigned long long part_bar[2];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int n_clusters = gridDim.x / csize;
+  const int items = n_blocks * n_rows;
+  const int t = threadIdx.x, lane = t & 31;
 
-  float m = 0.f;
-  for (long long i = start + threadIdx.x; i < valid_end; i += kThreads)
-    m = fmaxf(m, fabsf(xr[i]));
-  m = block_max(m);
-
-  __shared__ float s_scale;
-  if (threadIdx.x == 0) {
-    const float scale = m > 0.f ? __fmul_rn(m, 1.f / 127.f) : 1.f;
-    scales[(long long)row * n_blocks + b] = scale;
-    s_scale = scale;
+  int item = blockIdx.x / csize;
+  int row = item / n_blocks, b = item - row * n_blocks;
+  // Item i + n_clusters is q rows and r blocks on from item i.
+  const int step_q = n_clusters / n_blocks, step_r = n_clusters % n_blocks;
+  if (item < items)
+    stage_slice(stage[0], x, n, x_row_stride, block_elems, rank, row, b);
+  copies_commit();
+  if (t == 0) {
+    bar_init(&part_bar[0]);
+    bar_init(&part_bar[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
-  const float scale = s_scale;
-
-  uint2 key = make_uint2(0u, 0u);
-  if (kStochastic) {
-    const unsigned long long s = seeds.s[row];
-    key = make_uint2(static_cast<unsigned int>(s),
-                     static_cast<unsigned int>(s >> 32));
-  }
-  char4* vr = reinterpret_cast<char4*>(
-      values + (long long)row * n_blocks * block_elems);
-  const long long g_end = (start + block_elems) / 4;
-  for (long long g = start / 4 + threadIdx.x; g < g_end; g += kThreads) {
-    const long long e = 4 * g;
-    float v[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) v[j] = e + j < n ? xr[e + j] : 0.f;
-    float q[4];
-    if (kStochastic) {
-      const uint4 r = philox4x32_10(
-          make_uint4(static_cast<unsigned int>(g),
-                     static_cast<unsigned int>(g >> 32), 0u, 0u),
-          key);
-      const unsigned int w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        q[j] = floorf(__fadd_rn(__fdiv_rn(v[j], scale), uniform24(w[j])));
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) q[j] = rintf(__fdiv_rn(v[j], scale));
+  cluster.sync();  // every CTA's barriers ready before any partial is sent
+  for (int it = 0; item < items; ++it) {
+    const int next = item + n_clusters;
+    int next_row = row + step_q, next_b = b + step_r;
+    if (next_b >= n_blocks) {
+      next_b -= n_blocks;
+      ++next_row;
     }
-    char4 out;
-    out.x = to_code(q[0]);
-    out.y = to_code(q[1]);
-    out.z = to_code(q[2]);
-    out.w = to_code(q[3]);
-    vr[g] = out;
+    if (next < items)
+      stage_slice(stage[(it + 1) & 1], x, n, x_row_stride, block_elems, rank,
+                  next_row, next_b);
+    copies_commit();
+    if (t == 0) bar_expect(&part_bar[it & 1], 4u * csize);
+    copies_wait_all_but_one();  // this item's slice has landed
+    __syncthreads();
+
+    const float4* buf = stage[it & 1];
+    float v[16], mag[16];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float4 c = buf[staged(4 * t + k)];
+      v[4 * k] = c.x;
+      v[4 * k + 1] = c.y;
+      v[4 * k + 2] = c.z;
+      v[4 * k + 3] = c.w;
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) mag[j] = fabsf(v[j]);
+    // A tree, not a chain of 16.
+#pragma unroll
+    for (int j = 0; j < 8; ++j) mag[j] = fmaxf(mag[j], mag[j + 8]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) mag[j] = fmaxf(mag[j], mag[j + 4]);
+    mag[0] = fmaxf(fmaxf(mag[0], mag[2]), fmaxf(mag[1], mag[3]));
+
+    // -- the block's absmax across the cluster ----------------------------
+    // Every thread of this CTA has read the last item's partials by this
+    // barrier, so no peer's partial for item it + 2 (sent once it has this
+    // CTA's partial for item it + 1) can land in a slot still being read.
+    float m = warp_max(mag[0]);
+    if (lane == 0) warp_part[t >> 5] = m;
+    __syncthreads();
+    if (t < 32) {
+      m = warp_max(lane < kThreads / 32 ? warp_part[lane] : 0.f);
+      if (lane < csize)
+        send_partial(&part[it & 1][rank], &part_bar[it & 1], lane, m);
+    }
+    const long long e0 = (long long)b * block_elems + (long long)rank * kSlice;
+    const long long g0 = (e0 >> 2) + 4 * t;
+    uint2 key = make_uint2(0u, 0u);
+    unsigned w[16];
+    if (kStochastic) {  // the words do not depend on the data
+      const unsigned long long s = seeds.s[row];
+      key = make_uint2(static_cast<unsigned int>(s),
+                       static_cast<unsigned int>(s >> 32));
+      philox4x32_10_x4(g0, key, w);
+    }
+    bar_wait(&part_bar[it & 1], (it >> 1) & 1);  // all C partials landed
+    m = 0.f;
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)
+      if (r < csize) m = fmaxf(m, part[it & 1][r]);
+    const float scale = m > 0.f ? __fmul_rn(m, 1.f / 127.f) : 1.f;
+    if (rank == 0 && t == 0) scales[(long long)row * n_blocks + b] = scale;
+
+    // -- codes: four groups, one 16-byte store ----------------------------
+    // x / scale as RN(x * y) with y = RN(1 / scale), then two FMA
+    // corrections: the first brings the quotient within 1 ulp, the second
+    // then gives RN(x / scale) (Markstein's theorem: y within half an ulp
+    // of 1/scale, an exact remainder, no underflow), __fdiv_rn's bits
+    // with one reciprocal a block in place of one a value. A zero gives
+    // +0 for -0 here, which makes the same code.
+    // K2 needs no per-value test: a quotient below 2^-60 in magnitude
+    // rounds to code 0 however its last bits fall. K3's code for such a
+    // quotient depends on its sign when u = 0, so K3 takes the exact path
+    // for it.
+    const float tiny = __fmul_rn(scale, 0x1p-60f);
+    bool exact = !(scale >= 0x1p-40f && scale <= 0x1p40f);
+    if (kStochastic) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        exact |= fabsf(v[j]) < tiny && v[j] != 0.f;
+    }
+    uint4 codes;
+    if (exact) {
+      codes = codes_exact<kStochastic>(
+          make_float4(v[0], v[1], v[2], v[3]),
+          make_float4(v[4], v[5], v[6], v[7]),
+          make_float4(v[8], v[9], v[10], v[11]),
+          make_float4(v[12], v[13], v[14], v[15]), scale, key, g0);
+    } else {
+      unsigned words[4];
+      const float y = __frcp_rn(scale);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        float d[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float a = v[4 * k + j];
+          float q = __fmul_rn(a, y);
+          q = __fmaf_rn(__fmaf_rn(-scale, q, a), y, q);
+          d[j] = __fmaf_rn(__fmaf_rn(-scale, q, a), y, q);
+        }
+        words[k] = group_codes<kStochastic>(d, w + 4 * k);
+      }
+      codes = make_uint4(words[0], words[1], words[2], words[3]);
+    }
+    reinterpret_cast<uint4*>(values + (long long)row * n_blocks * block_elems +
+                             e0)[t] = codes;
+    item = next;
+    row = next_row;
+    b = next_b;
   }
+  // No CTA exits early: each waited for every peer's last partial, and no
+  // peer sends after that.
 }
 
 // K4. One thread block per tile: a slice of at most kDeqTile codes of one
@@ -262,39 +576,6 @@ block_dequantize_kernel(const signed char* __restrict__ values,
   }
 }
 
-// K4's first version, kept only as the yardstick its redesign is timed
-// against: one thread per four values over a grid-stride loop, the block
-// index found by a 64-bit division per four values, char4 loads and scalar
-// stores. No path launches it.
-__global__ void __launch_bounds__(kThreads)
-block_dequantize_v1_kernel(const signed char* __restrict__ values,
-                           const float* __restrict__ scales,
-                           float* __restrict__ out, long long n,
-                           long long out_row_stride, int block_elems,
-                           int n_blocks) {
-  const int row = blockIdx.y;
-  const char4* vr = reinterpret_cast<const char4*>(
-      values + (long long)row * n_blocks * block_elems);
-  const float* sr = scales + (long long)row * n_blocks;
-  float* orow = out + (long long)row * out_row_stride;
-  const long long groups = (n + 3) / 4;
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
-       g < groups; g += stride) {
-    const long long e = 4 * g;
-    const char4 v = vr[g];
-    // block_elems is a multiple of 4: the four values share one block.
-    const float scale = sr[e / block_elems];
-    const float y[4] = {__fmul_rn(static_cast<float>(v.x), scale),
-                        __fmul_rn(static_cast<float>(v.y), scale),
-                        __fmul_rn(static_cast<float>(v.z), scale),
-                        __fmul_rn(static_cast<float>(v.w), scale)};
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (e + j < n) orow[e + j] = y[j];
-  }
-}
-
 }  // namespace
 
 // Plain C entry points, loaded with ctypes. Each launches on `stream`
@@ -302,8 +583,30 @@ block_dequantize_v1_kernel(const signed char* __restrict__ values,
 // not synchronise, and returns cudaGetLastError() (or cudaErrorInvalidValue
 // for arguments it cannot take) so the caller can raise.
 
-// x: n_rows rows of n fp32 values, row r at x + r * x_row_stride.
-// values: [n_rows, n_blocks * block_elems] int8; scales: [n_rows, n_blocks].
+// Clusters of `csize` CTAs of K2 (stochastic = 0) or K3 (1) that fit on
+// the current device at once, asked once per device and kernel.
+static int resident_clusters(int stochastic, int csize,
+                             cudaLaunchConfig_t config) {
+  static int cache[16][2][kMaxCluster + 1];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 16) return 0;
+  int& n = cache[dev][stochastic][csize];
+  if (n == 0) {
+    config.gridDim = dim3(static_cast<unsigned>(csize));
+    const cudaError_t err =
+        stochastic
+            ? cudaOccupancyMaxActiveClusters(&n, block_quantize_kernel<true>,
+                                             &config)
+            : cudaOccupancyMaxActiveClusters(&n, block_quantize_kernel<false>,
+                                             &config);
+    if (err != cudaSuccess) n = 0;
+  }
+  return n;
+}
+
+// x: n_rows rows of n fp32 values, row r at x + r * x_row_stride (any
+// alignment). values: [n_rows, n_blocks * block_elems] int8, 16-byte
+// aligned; scales: [n_rows, n_blocks]. block_elems is 4096 k, k = 1..8.
 // seeds: host array of n_rows 64-bit seeds when stochastic, else unused.
 extern "C" int dps_block_quantize(const void* x, long long n,
                                   long long x_row_stride, int n_rows,
@@ -312,27 +615,44 @@ extern "C" int dps_block_quantize(const void* x, long long n,
                                   int stochastic,
                                   const unsigned long long* seeds,
                                   void* stream) {
-  if (n_rows <= 0 || n_blocks <= 0) return 0;
-  if (n_rows > 65535 || block_elems <= 0 || block_elems % 4 != 0 ||
+  if (n_rows <= 0 || n_blocks <= 0 || n <= 0) return 0;
+  const int csize = block_elems / kSlice;
+  if (block_elems % kSlice != 0 || csize < 1 || csize > kMaxCluster ||
+      (long long)n_blocks * n_rows > INT_MAX ||
+      n > (long long)n_blocks * block_elems ||
+      (reinterpret_cast<uintptr_t>(values) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(x) & 3) != 0 ||
       (stochastic && (n_rows > DPS_MAX_SEEDED_ROWS || seeds == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   SeedTable table = {};
   if (stochastic)
     for (int r = 0; r < n_rows; ++r) table.s[r] = seeds[r];
-  const dim3 grid(static_cast<unsigned>(n_blocks),
-                  static_cast<unsigned>(n_rows));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (stochastic)
-    block_quantize_kernel<true><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), n, x_row_stride,
-        static_cast<signed char*>(values), static_cast<float*>(scales),
-        block_elems, n_blocks, table);
-  else
-    block_quantize_kernel<false><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), n, x_row_stride,
-        static_cast<signed char*>(values), static_cast<float*>(scales),
-        block_elems, n_blocks, table);
-  return static_cast<int>(cudaGetLastError());
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = static_cast<unsigned>(csize);
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.blockDim = dim3(kThreads);
+  config.stream = static_cast<cudaStream_t>(stream);
+  config.attrs = &cluster;
+  config.numAttrs = 1;
+  const int fit = resident_clusters(stochastic ? 1 : 0, csize, config);
+  if (fit <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int items = n_blocks * n_rows;
+  config.gridDim = dim3(static_cast<unsigned>((items < fit ? items : fit) * csize));
+  const float* xf = static_cast<const float*>(x);
+  signed char* v = static_cast<signed char*>(values);
+  float* sc = static_cast<float*>(scales);
+  const cudaError_t err =
+      stochastic ? cudaLaunchKernelEx(&config, block_quantize_kernel<true>,
+                                      xf, n, x_row_stride, v, sc, block_elems,
+                                      n_blocks, n_rows, table)
+                 : cudaLaunchKernelEx(&config, block_quantize_kernel<false>,
+                                      xf, n, x_row_stride, v, sc, block_elems,
+                                      n_blocks, n_rows, table);
+  const cudaError_t last = cudaGetLastError();  // clears a sticky launch error
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 // values/scales as produced above; out: n_rows rows of n fp32 values, row r
@@ -358,29 +678,5 @@ extern "C" int dps_block_dequantize(const void* values, const void* scales,
       static_cast<const signed char*>(values),
       static_cast<const float*>(scales), static_cast<float*>(out), n,
       out_row_stride, block_elems, n_blocks, tiles_per_block);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The first version, with the same arguments (values 4-byte aligned,
-// block_elems a multiple of 4).
-extern "C" int dps_block_dequantize_v1(const void* values, const void* scales,
-                                       void* out, long long n,
-                                       long long out_row_stride, int n_rows,
-                                       int block_elems, int n_blocks,
-                                       void* stream) {
-  if (n <= 0 || n_rows <= 0) return 0;
-  if (n_rows > 65535 || block_elems <= 0 || block_elems % 4 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  long long blocks = ((n + 3) / 4 + kThreads - 1) / kThreads;
-  // Enough blocks, with the rows, to fill every SM of an H100 many times;
-  // the grid-stride loop covers the rest.
-  if (blocks > 1024) blocks = 1024;
-  const dim3 grid(static_cast<unsigned>(blocks),
-                  static_cast<unsigned>(n_rows));
-  block_dequantize_v1_kernel<<<grid, kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const signed char*>(values),
-      static_cast<const float*>(scales), static_cast<float*>(out), n,
-      out_row_stride, block_elems, n_blocks);
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,9 +19,7 @@ tensor, kept as the reference's one-tensor surface.
 :func:`block_quantize` (K2, round half to even), :func:`block_quantize_stochastic`
 (K3, ``floor(x / scale + u)`` with Philox4x32-10 bits, one seed per row)
 and :func:`block_dequantize` (K4). Each takes a batch of rows — the
-ring's N slots — in one launch. K4's first version,
-:func:`block_dequantize_v1`, is on no path: ``chip_smoke.py`` times K4
-against it. :func:`quantize_int8`,
+ring's N slots — in one launch. :func:`quantize_int8`,
 :func:`dequantize_int8` and :func:`quantize_dequantize_int8` are the
 reference's one-tensor surfaces over them.
 
@@ -292,7 +290,6 @@ BLOCK_REPLACES = {
     "block_quantize": f"{_PALLAS_QUANTIZE}:71",
     "block_quantize_stochastic": f"{_PALLAS_QUANTIZE}:98",
     "block_dequantize": f"{_PALLAS_QUANTIZE}:105",
-    "block_dequantize_v1": f"{_PALLAS_QUANTIZE}:105",
 }
 
 LANES = 128
@@ -525,27 +522,6 @@ def _check_payload(values: torch.Tensor, scales: torch.Tensor,
     return br
 
 
-def _block_dequantize_cuda(entry: str, values: torch.Tensor,
-                           scales: torch.Tensor, n: int, br: int
-                           ) -> tuple[torch.Tensor, bool]:
-    """Launches the C entry ``entry`` (K4 or its first version) on CUDA
-    tensors: (the output, whether a kernel was launched)."""
-    n_rows, rows_padded = values.shape[:2]
-    values, scales = values.contiguous(), scales.contiguous()
-    out = torch.empty((n_rows, n), dtype=torch.float32, device=values.device)
-    if n == 0 or n_rows == 0:
-        return out, False
-    fn = _block_fn(entry)
-    with torch.cuda.device(values.device):
-        stream = torch.cuda.current_stream(values.device).cuda_stream
-        err = fn(values.data_ptr(), scales.data_ptr(), out.data_ptr(), n, n,
-                 n_rows, br * LANES, rows_padded // br, stream)
-    if err != 0:
-        raise RuntimeError(f"block dequantize kernel launch failed: CUDA "
-                           f"error {err}")
-    return out, True
-
-
 def block_dequantize(values: torch.Tensor, scales: torch.Tensor,
                      n: int) -> torch.Tensor:
     """K4: int8 ``[n_rows, rows_padded, 128]`` and scales ``[n_rows,
@@ -557,34 +533,27 @@ def block_dequantize(values: torch.Tensor, scales: torch.Tensor,
     if values.device.type != "cuda":
         raise RuntimeError(f"block dequantize: no kernel for device "
                            f"{values.device}")
-    out, launched = _block_dequantize_cuda("dps_block_dequantize", values,
-                                           scales, n, br)
-    if launched:
-        with _count_lock:
-            block_dequantize.launches += 1
-    return out
-
-
-def block_dequantize_v1(values: torch.Tensor, scales: torch.Tensor,
-                        n: int) -> torch.Tensor:
-    """K4's first version, on CUDA tensors only: the yardstick that
-    ``chip_smoke.py`` times K4 against. No path calls it."""
-    br = _check_payload(values, scales, n)
-    if values.device.type != "cuda":
-        raise RuntimeError(f"block dequantize (first version): no kernel "
-                           f"for device {values.device}")
-    out, launched = _block_dequantize_cuda("dps_block_dequantize_v1", values,
-                                           scales, n, br)
-    if launched:
-        with _count_lock:
-            block_dequantize_v1.launches += 1
+    n_rows, rows_padded = values.shape[:2]
+    values, scales = values.contiguous(), scales.contiguous()
+    out = torch.empty((n_rows, n), dtype=torch.float32, device=values.device)
+    if n == 0 or n_rows == 0:
+        return out
+    fn = _block_fn("dps_block_dequantize")
+    with torch.cuda.device(values.device):
+        stream = torch.cuda.current_stream(values.device).cuda_stream
+        err = fn(values.data_ptr(), scales.data_ptr(), out.data_ptr(), n, n,
+                 n_rows, br * LANES, rows_padded // br, stream)
+    if err != 0:
+        raise RuntimeError(f"block dequantize kernel launch failed: CUDA "
+                           f"error {err}")
+    with _count_lock:
+        block_dequantize.launches += 1
     return out
 
 
 block_quantize.launches = 0
 block_quantize_stochastic.launches = 0
 block_dequantize.launches = 0
-block_dequantize_v1.launches = 0
 
 
 def quantize_int8(x: torch.Tensor, seed: int = 0, *,

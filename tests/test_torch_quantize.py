@@ -472,12 +472,110 @@ def test_block_kernels_match_plain_on_card():
             Q.block_dequantize.launches - before[2]) == (n_nonempty,) * 3
 
 
-def test_block_dequantize_first_version_takes_only_cuda_tensors():
-    v, s = Q.quantize_int8(torch.ones(300))
-    with pytest.raises(RuntimeError, match="no kernel for device cpu"):
-        Q.block_dequantize_v1(v[None], s[None], 300)
-    with pytest.raises(ValueError):
-        Q.block_dequantize_v1(v[None], s[None], 10 ** 6)
+@pytest.mark.parametrize("wrapper", ["block_quantize",
+                                     "block_quantize_stochastic",
+                                     "block_dequantize"])
+def test_block_wrappers_raise_on_meta_tensors(wrapper):
+    """A tensor on neither the CPU nor a card gets no kernel and no plain
+    version: the wrapper raises."""
+    args = {"block_quantize": (torch.ones(2, 4, device="meta"),),
+            "block_quantize_stochastic": (torch.ones(2, 4, device="meta"),
+                                          [1, 2]),
+            "block_dequantize": (torch.zeros(2, 32, 128, dtype=torch.int8,
+                                             device="meta"),
+                                 torch.ones(2, 1, device="meta"), 100)}
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        getattr(Q, wrapper)(*args[wrapper])
+
+
+@pytest.mark.parametrize("stochastic", [False, True],
+                         ids=["nearest", "stochastic"])
+def test_plain_quantize_reads_strided_rows(stochastic):
+    """Rows of a view whose row stride is odd (each row starts at another
+    4-byte offset from a 16-byte boundary, the layout the kernels read on
+    the card) quantize as the same rows made contiguous."""
+    full = torch.from_numpy(np.random.default_rng(11).normal(
+        size=(4, 9_001)).astype(np.float32))
+    rows = full[:, 3:8_196]         # stride 9,001, n 8,193: two 4096 slices
+    seeds = [3, 5, 7, 9] if stochastic else None
+    v, s = Q.quantize_int8_plain(rows, seeds, stochastic=stochastic)
+    w, t = Q.quantize_int8_plain(rows.contiguous(), seeds,
+                                 stochastic=stochastic)
+    assert rows.stride(0) % 2 == 1 and not rows.is_contiguous()
+    assert torch.equal(v, w) and torch.equal(s, t)
+    assert tuple(v.shape) == (4, 96, 128) and tuple(s.shape) == (4, 1)
+
+
+# Inputs for the cluster kernel on the card. Each n's single block spans
+# block_elems / 4096 = 1..8 CTAs of one cluster; 32,769 and 3 x 32,768 + 5
+# leave a last block whose cluster is almost wholly past n.
+CLUSTER_NS = [513, 5_000, 10_000, 15_000, 20_000, 24_000, 28_000, 32_768]
+EDGE_NS = [32_769, 3 * 32_768 + 5]
+
+
+def _card_rows(case):
+    """(rows on the card, description): contiguous [rows, n], or a view
+    with an odd row stride."""
+    kind, rows, n = case
+    r = np.random.default_rng(rows * 7919 + n)
+    if kind == "strided":
+        full = r.normal(size=(rows, n + 3)).astype(np.float32)
+        return torch.from_numpy(full).cuda()[:, 1:n + 1]
+    x = r.normal(size=(rows, n))
+    if kind == "exact":
+        x[:, :32_768] *= 1e-20           # a block scale below 2^-40
+        x[:, 32_768:65_536] *= 1e15      # and one above 2^40
+        x[:, 65_536::97] = 1e-30 * np.sign(x[:, 65_536::97])  # < scale 2^-60
+    return torch.from_numpy(x.astype(np.float32)).cuda()
+
+
+CARD_CASES = ([("rows", 1, n) for n in CLUSTER_NS]
+              + [("rows", 4, 4_097), ("rows", 4, 20_001),
+                 ("strided", 4, 8_190), ("strided", 3, 40_000)]
+              + [("rows", 2, n) for n in EDGE_NS]
+              + [("exact", 2, 3 * 32_768 + 1)]
+              + [("rows", 4, 2_805_033)])
+
+
+def test_card_cases_cover_every_cluster_size_and_alignment():
+    """The card cases reach cluster sizes 1..8 and rows that start 0, 4, 8
+    and 12 bytes past a 16-byte boundary (computed from the layout)."""
+    sizes = {Q.block_layout(n)[1] * Q.LANES // 4096 for _, _, n in CARD_CASES}
+    assert sizes == set(range(1, 9))
+    offsets = set()
+    for kind, rows, n in CARD_CASES:
+        stride = n + 3 if kind == "strided" else n
+        start = 1 if kind == "strided" else 0
+        offsets |= {4 * (start + r * stride) % 16 for r in range(rows)}
+    assert offsets == {0, 4, 8, 12}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CARD_CASES,
+                         ids=lambda c: f"{c[0]}{c[1]}x{c[2]}")
+def test_block_quantize_kernels_match_plain_on_card(case):
+    """K2 and K3 (3 seeds) bit-equal to their plain versions, one launch a
+    call, on every cluster size, row alignment and strided layout, a last
+    block mostly past n, blocks that take the exact-division path, and the
+    ring chunk."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernels run only on the card")
+    x = _card_rows(case)
+    rows = x.shape[0]
+    before = Q.block_quantize.launches
+    got = Q.block_quantize(x)
+    want = Q.quantize_int8_plain(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert Q.block_quantize.launches - before == 1
+    for k in range(3):
+        seeds = [0x5EED0000 + 64 * k + r for r in range(rows)]
+        before = Q.block_quantize_stochastic.launches
+        got = Q.block_quantize_stochastic(x, seeds)
+        want = Q.quantize_int8_plain(x, seeds, stochastic=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert Q.block_quantize_stochastic.launches - before == 1
 
 
 @pytest.mark.cuda
@@ -485,18 +583,16 @@ def test_block_dequantize_first_version_takes_only_cuda_tensors():
                                     (5, 4097), (2, 3 * 32768 + 5),
                                     (4, 2_805_033)])
 def test_block_dequantize_kernels_match_plain_on_card(rows, n):
-    """K4 and its first version against the plain version, on rows whose
-    starts are off 16-byte alignment (odd n) and on the ring chunk."""
+    """K4 against the plain version, on rows whose starts are off 16-byte
+    alignment (odd n) and on the ring chunk."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the kernels run only on the card")
     x = torch.from_numpy(np.random.default_rng(n).normal(
         size=(rows, n)).astype(np.float32)).cuda()
     v, s = Q.quantize_int8_plain(x)
-    before = (Q.block_dequantize.launches, Q.block_dequantize_v1.launches)
+    before = Q.block_dequantize.launches
     got = Q.block_dequantize(v, s, n)
-    first = Q.block_dequantize_v1(v, s, n)
     want = Q.dequantize_int8_plain(v, s, n)
     torch.cuda.synchronize()
-    assert torch.equal(got, want) and torch.equal(first, want)
-    assert (Q.block_dequantize.launches - before[0],
-            Q.block_dequantize_v1.launches - before[1]) == (1, 1)
+    assert torch.equal(got, want)
+    assert Q.block_dequantize.launches - before == 1
