@@ -7,7 +7,8 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
 
 1. the card's name and power limit (nvidia-smi), then the build of every
    kernel from the sources in the checkout (one nvcc per source, all
-   started together);
+   started together), and the host's Python, torch and CUDA versions and
+   optional modules (grpc, matplotlib, ml_dtypes, triton);
 2. kernel K1 (wire quantize) against its plain PyTorch version on the
    card, tolerance 0 (torch.equal): the multi-tensor kernel
    (``wire_quantize_multi``, one launch per push of up to 64 tensors)
@@ -39,7 +40,8 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    ``compress_push``;
 5. the async path: full ResNet-18 (100 classes, bf16 compute) trained by
    2 async workers through ``ParameterStore(push_codec="int8")`` for one
-   epoch of synthetic CIFAR-100, eval on. K1's launch counts are reset
+   epoch of synthetic CIFAR-100, eval on, host batches prefetched 2
+   ahead (the worker's default). K1's launch counts are reset
    just before and read just after: the multi-tensor kernel must have
    launched ceil(62 / 64) = 1 time per push made, the per-tensor first
    version never;
@@ -59,7 +61,25 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    must be within rtol 0.05 / atol 1e-3 of each other;
 8. a few sync steps under torch.profiler: device busy share and top
    device kernels;
-9. the flash kernels against their plain versions: the wgmma forward
+9. the single-device baseline (``BaselineTrainer``, full ResNet-18 on
+   ``compositional_cifar100(50_000, 10_000)``, batch 128, 390 steps an
+   epoch): (a) one eager step, augment off, on the card against the
+   same step on the CPU from the same weights: in float64 params, batch
+   statistics and momentum within atol 1e-5 / rtol 1e-3; in fp32 the
+   loss and batch statistics within it, the params' and momentum's
+   differences reported beside each run's distance from float64; (b) the
+   epoch loop captured in a CUDA graph against the same loop run eagerly
+   on the card, fp32, augment on, cuDNN deterministic, 3 epochs of 4
+   steps with milestones (1, 2): params, momentum and batch statistics
+   within atol 1e-6 / rtol 1e-5 (bit equality reported), equal augment
+   draws and generator states, and the graph's learning rate 0.1,
+   0.010000001, 0.001 bit for bit;
+   (c) the reference recipe in bf16 with augmentation, 2 epochs with the
+   per-batch host loop and 2 with the captured loop: epoch seconds, img/s
+   over the second epoch, loss, accuracies, peak memory, and 20 steps of
+   each under torch.profiler; each must learn (test accuracy above 2 %
+   after epoch 2, epoch 2's loss below epoch 1's);
+10. the flash kernels against their plain versions: the wgmma forward
    ``flash_fwd_wgmma`` (K5 on bf16 inputs), the fused backward
    ``flash_bwd`` (K6 + K7 in one kernel, bf16 inputs) and the first
    versions of K5 (forward), K6 (dQ) and K7 (dK/dV), which the path runs
@@ -77,7 +97,7 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    version and the library call (``aten._scaled_dot_product_flash_
    attention`` and its backward) by CUDA events at the hop shape, each
    redesign in turns with its first version and the library's call;
-10. the SP path: ``SPTrainer`` with ViT-B/16 (768 wide, 12 layers, 12
+11. the SP path: ``SPTrainer`` with ViT-B/16 (768 wide, 12 layers, 12
    heads, 1,000 classes, bf16) on synthetic ImageNet at 1024 x 1024
    (4,096 tokens) over 2 sequence slots of 2,048 tokens, batch 8, 2 steps
    and one eval batch. The flash counts are reset just before and read
@@ -88,11 +108,12 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    activations with the kernels against the same ring with plain hops on
    the card, output and gradients (bf16) within atol 5e-3 and rtol 2^-7,
    one bf16 step;
-11. one SP step under torch.profiler: device busy share, the flash
+12. one SP step under torch.profiler: device busy share, the flash
    kernels', the wgmma forward's and the fused backward's device time,
    top device kernels;
-12. the CLI verb ``train`` in async mode at its default codec, in sync
-   mode with the int8 ring, and in sp mode on ViT-B/16 at 1024 x 1024.
+13. the CLI verb ``train`` in async mode at its default codec, in sync
+   mode with the int8 ring, in baseline mode, and in sp mode on ViT-B/16
+   at 1024 x 1024.
 
 Then one JSON line of kernels and, last, the device line. Without a CUDA
 device, or outside a checkout of the repo, it exits non-zero and prints
@@ -188,6 +209,27 @@ def phase_build(state: dict) -> None:
         _build.load(n)
     emit({"phase": "build", "kernels": names, "seconds": seconds,
           "cached": cached})
+    emit({"phase": "environment", **host_environment()})
+
+
+def host_environment() -> dict:
+    """Versions of Python, torch and CUDA, and of the optional modules
+    later slices need on this host (None where one is missing)."""
+    import importlib
+    import importlib.util
+    import platform
+
+    import torch
+
+    def version(name):
+        if importlib.util.find_spec(name) is None:
+            return None
+        return getattr(importlib.import_module(name), "__version__", "")
+
+    return {"python": platform.python_version(), "torch": torch.__version__,
+            "cuda": torch.version.cuda,
+            "modules": {m: version(m) for m in
+                        ("grpc", "matplotlib", "ml_dtypes", "triton")}}
 
 
 def device_ms_per_call(fn, reps: int, kernel: str) -> tuple[float, float]:
@@ -803,7 +845,8 @@ def phase_main_path(state: dict) -> None:
 
     emit({"phase": "main_path", "model": "resnet18", "dtype": "bfloat16",
           "workers": n_workers, "batch_size": batch,
-          "push_codec": "int8", "global_step": step, "pushes": pushes,
+          "push_codec": "int8", "prefetch_batches": cfg.prefetch_batches,
+          "global_step": step, "pushes": pushes,
           "pushes_rejected": sum(r.pushes_rejected for r in results),
           "k1_launches": launches, "train_loss_per_epoch": losses,
           "test_accuracies": [r.test_accuracies for r in results],
@@ -1059,6 +1102,267 @@ def phase_sync_profile(state: dict) -> None:
                                                / 1e3, 3), e.count]
                             for e in top],
           "card": state["card"]})
+
+
+# -- the single-device baseline ---------------------------------------------
+
+BASELINE_EPOCHS = 2          # (c): eager and graphed, bf16, full set
+BASELINE_PROFILE_STEPS = 20
+
+
+def _baseline_parts(dtype: str, device: str, milestones, steps_per_epoch,
+                    augment: bool, seed: int = 0):
+    """Full ResNet-18 (100 classes) with its in-place state and steps."""
+    from distributed_parameter_server_for_ml_training_tpu_torch.models \
+        import get_model
+    from distributed_parameter_server_for_ml_training_tpu_torch.train \
+        .optimizers import baseline_optimizer
+    from distributed_parameter_server_for_ml_training_tpu_torch.train.steps \
+        import make_eval_step, make_train_step
+    from distributed_parameter_server_for_ml_training_tpu_torch.train \
+        .train_state import module_train_state
+
+    model = get_model("resnet18", num_classes=100, dtype=dtype,
+                      device=device, seed=seed)
+    state = module_train_state(model, baseline_optimizer(
+        milestones=milestones, steps_per_epoch=steps_per_epoch))
+    ev = make_eval_step(model)
+    return (model, state, make_train_step(model, augment=augment),
+            lambda x, y: ev({}, {}, x, y)[0])
+
+
+def _state_diff(a, b) -> dict:
+    """Per part of two train states (b the reference): the largest
+    absolute difference, the largest relative norm of a tensor's
+    difference, and the tensors outside atol 1e-5 / rtol 1e-3."""
+    import torch
+
+    out = {}
+    for part in ("params", "batch_stats", "momentum"):
+        x, y = ((s.opt_state.trace if part == "momentum" else
+                 getattr(s, part)) for s in (a, b))
+        pairs = [(k, x[k].cpu().double(), y[k].cpu().double()) for k in y]
+        out[part] = {
+            "max_abs_err": max(float((u - v).abs().max())
+                               for _, u, v in pairs),
+            "max_rel_norm": max(float((u - v).norm() / v.norm())
+                                for _, u, v in pairs if v.norm() > 0),
+            "outside": [k for k, u, v in pairs
+                        if not torch.allclose(u, v, atol=1e-5, rtol=1e-3)]}
+    return out
+
+
+def _profile_steps(fn, steps: int) -> dict:
+    """``fn()`` ``steps`` times under torch.profiler: wall, device busy
+    and idle share, device ms by CUDA events, top device kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        a.record()
+        for _ in range(steps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = device_events(prof)
+    device_us = sum(e.self_device_time_total for e in events)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+    return {"steps": steps, "wall_s": wall,
+            "ms_per_step_by_events": a.elapsed_time(b) / steps,
+            "device_busy_s": device_us / 1e6,
+            "device_idle_share": (1 - device_us / 1e6 / wall)
+            if device_us else None,
+            "top_device_ms": [[e.key[:120], round(e.self_device_time_total
+                                                 / 1e3, 3), e.count]
+                              for e in top]}
+
+
+def phase_baseline(state: dict) -> None:
+    """The single-device baseline (``BaselineTrainer``) on
+    ``compositional_cifar100(50_000, 10_000)``: (a) one eager step on
+    the card against the same step on the CPU, in float64 and in fp32;
+    (b) the captured epoch loop against the eager one over the same
+    permutations, fp32, augment on, 3 epochs of 4 steps across
+    milestones (1, 2); (c) the reference recipe in bf16, 2 epochs eager
+    and 2 graphed, each profiled over 20 steps."""
+    import itertools
+
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.data \
+        import Dataset, compositional_cifar100, make_batches
+    from distributed_parameter_server_for_ml_training_tpu_torch.train \
+        .baseline import BaselineConfig, BaselineTrainer
+    from distributed_parameter_server_for_ml_training_tpu_torch.train \
+        .device_loop import DeviceEpochLoop, prefetch_to_device
+
+    bs = BATCH
+    t0 = time.perf_counter()
+    ds = compositional_cifar100(50_000, 10_000, seed=0)
+    data_s = time.perf_counter() - t0
+    steps_per_epoch = len(ds.x_train) // bs
+    out = {"phase": "baseline", "model": "resnet18", "batch_size": bs,
+           "dataset": "compositional_cifar100(50000, 10000, seed=0)",
+           "data_seconds": data_s, "steps_per_epoch": steps_per_epoch,
+           "card": state["card"]}
+    failures = []
+
+    # (a) One eager step, augment off, card against CPU from the same
+    # weights on the first batch. In float64 the two compute the same
+    # function to rounding: params, batch statistics and momentum within
+    # atol 1e-5 / rtol 1e-3. In fp32 the loss and the batch statistics
+    # hold that tolerance, and the params' and momentum's differences are
+    # reported beside each fp32 run's distance from the float64 one: at
+    # full width an fp32 rounding difference flips the sign of a few
+    # pre-ReLU activations within rounding of zero, which moves the
+    # gradients of every earlier layer by tenths of a percent on either
+    # device.
+    xb, yb = ds.x_train[:bs], ds.y_train[:bs]
+    runs = {}
+    for dtype in ("float32", torch.float64):
+        for device in ("cuda", "cpu"):
+            model, st, step, _ = _baseline_parts(
+                dtype, device, (10, 15), steps_per_epoch, False)
+            if runs:
+                model.load_state_dict(weights)
+            else:
+                weights = {k: v.cpu() for k, v in model.state_dict().items()}
+            _, m = step(st, xb, yb)
+            runs[(str(dtype), device)] = (st, float(m["loss"]))
+            del model
+    f32, f64 = "float32", str(torch.float64)
+    a64 = _state_diff(runs[(f64, "cuda")][0], runs[(f64, "cpu")][0])
+    a32 = _state_diff(runs[(f32, "cuda")][0], runs[(f32, "cpu")][0])
+    losses = {f"{d}/{dev}": loss for (d, dev), (_, loss) in runs.items()}
+    out["a_card_vs_cpu"] = {
+        "tolerance": "atol 1e-5, rtol 1e-3",
+        "float64": a64, "float32": a32, "losses": losses,
+        "float32_vs_float64_rel_norm": {
+            dev: {part: v["max_rel_norm"] for part, v in _state_diff(
+                runs[(f32, dev)][0], runs[(f64, "cpu")][0]).items()}
+            for dev in ("cuda", "cpu")}}
+    bad = [f"float64 {p}" for p, v in a64.items() if v["outside"]]
+    if a32["batch_stats"]["outside"]:
+        bad.append("float32 batch_stats")
+    l32 = [losses[f"{f32}/cuda"], losses[f"{f32}/cpu"]]
+    if abs(l32[0] - l32[1]) > 1e-5 + 1e-3 * abs(l32[1]):
+        bad.append(f"float32 loss {l32}")
+    if bad:
+        failures.append(f"(a) card against CPU outside atol 1e-5 / rtol "
+                        f"1e-3: {bad}")
+    del runs
+
+    # (b) The captured loop against the eager loop, fp32, augment on,
+    # with cuDNN's deterministic algorithms: the default ones sum some
+    # gradients in an order that changes from launch to launch, and at
+    # full width that alone moves two eager runs apart by more than the
+    # tolerance within two steps (ReLU sign flips, as in (a)).
+    small = Dataset(ds.x_train[:4 * bs], ds.y_train[:4 * bs],
+                    ds.x_test[:1000], ds.y_test[:1000])
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    for graph in (True, False):
+        model, st, step, ev = _baseline_parts("float32", "cuda", (1, 2), 4,
+                                              True)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        runs[graph] = [DeviceEpochLoop(small, step, ev, batch_size=bs,
+                                       generator=gen, graph=graph), st, gen,
+                       [], []]
+    draws_equal = gen_equal = True
+    for _ in range(3):
+        for graph, run in runs.items():
+            run[1], m = run[0].run_epoch(run[1])
+            run[3].append(m["learning_rate"])
+            run[4].append(m["loss"])
+        draws_equal &= torch.equal(runs[True][0].draws, runs[False][0].draws)
+        gen_equal &= torch.equal(runs[True][2].get_state(),
+                                 runs[False][2].get_state())
+    torch.backends.cudnn.deterministic = deterministic
+    gs, es = runs[True][1], runs[False][1]
+    bit_equal = all(torch.equal(a, b)
+                    for a, b in zip(gs.tensors(), es.tensors()))
+    close = all(torch.allclose(a.float(), b.float(), atol=1e-6, rtol=1e-5)
+                for a, b in zip(gs.tensors(), es.tensors()))
+    b_errs = {part: v["max_abs_err"]
+              for part, v in _state_diff(gs, es).items()}
+    lr_bits = [[hex(int(v)) for v in
+                np.array(e, np.float32).view(np.uint32)]
+               for e in runs[True][3]]
+    want_bits = [["0x3dcccccd"] * 4, ["0x3c23d70b"] * 4, ["0x3a83126f"] * 4]
+    out["b_graph_vs_eager"] = {
+        "epochs": 3, "steps_per_epoch": 4, "cudnn_deterministic": True,
+        "bit_equal": bit_equal,
+        "within_tolerance": close, "tolerance": "atol 1e-6, rtol 1e-5",
+        "max_abs_err": b_errs, "draws_equal": draws_equal,
+        "generator_states_equal": gen_equal,
+        "graph_lr_bits": lr_bits,
+        "eager_lr_equal": runs[True][3] == runs[False][3],
+        "graph_losses": runs[True][4], "eager_losses": runs[False][4],
+        "step_counts": [gs.step, es.step, int(gs.opt_state.count)]}
+    if not (close and draws_equal and gen_equal and lr_bits == want_bits
+            and runs[True][3] == runs[False][3]):
+        failures.append(f"(b) graph against eager: {out['b_graph_vs_eager']}")
+    del runs, gs, es
+
+    # (c) The reference recipe at full size, bf16, eager then graphed.
+    paths = {}
+    for name, device_loop in (("eager", False), ("graph", True)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = BaselineTrainer(ds, BaselineConfig(
+            num_epochs=BASELINE_EPOCHS, device_loop=device_loop,
+            device="cuda"))
+        met = trainer.train()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        images = steps_per_epoch * bs
+        if device_loop:
+            loop = trainer._device_loop
+
+            def step_fn(loop=loop):
+                loop._cuda_graph.replay()
+            loop._slot.zero_()
+        else:
+            batches = prefetch_to_device(make_batches(
+                ds.x_train, ds.y_train, bs, seed=12345), depth=2)
+            batches = itertools.cycle(list(itertools.islice(
+                batches, BASELINE_PROFILE_STEPS + 3)))
+            for _ in range(3):     # the profile starts with warm steps
+                trainer._train_step(trainer.state, *next(batches),
+                                    trainer._gen)
+
+            def step_fn(trainer=trainer, batches=batches):
+                trainer._train_step(trainer.state, *next(batches),
+                                    trainer._gen)
+        prof = _profile_steps(step_fn, BASELINE_PROFILE_STEPS)
+        paths[name] = {
+            "epoch_seconds": met.epoch_times,
+            "train_seconds": trainer.train_seconds,
+            "img_per_s_epoch2": images / trainer.train_seconds[-1],
+            "train_loss": met.train_losses,
+            "train_accuracy_pct": met.train_accuracies,
+            "test_accuracy_pct": met.test_accuracies,
+            "peak_memory_gib": peak, "profile": prof}
+        learned = met.test_accuracies[-1] > 2.0 \
+            and met.train_losses[-1] < met.train_losses[0]
+        paths[name]["learned"] = learned
+        if not learned:
+            failures.append(f"(c) {name} did not learn: loss "
+                            f"{met.train_losses}, test "
+                            f"{met.test_accuracies}")
+        del trainer
+    out["c_full_size"] = {"dtype": "bfloat16", "augment": True,
+                          "epochs": BASELINE_EPOCHS, **paths}
+    emit(out)
+    if failures:
+        raise AssertionError("; ".join(failures))
 
 
 # -- flash attention (K5-K7) and the SP path ----------------------------------
@@ -1533,6 +1837,9 @@ def phase_cli(state: dict) -> None:
                           "--compression", "int8", "--epochs", "1",
                           "--synthetic", "--num-train", "2048",
                           "--num-test", "500", "--emit-metrics"],
+            "baseline": ["train", "--mode", "baseline", "--epochs", "1",
+                         "--synthetic", "--num-train", "2048",
+                         "--num-test", "500", "--emit-metrics"],
             "sp_vit_b16_1024": ["train", "--mode", "sp", "--model", "vit_b16",
                                 "--dataset", "imagenet-synth",
                                 "--image-size", "1024", "--workers", "2",
@@ -1564,8 +1871,8 @@ def main() -> int:
     failed = []
     for phase in (phase_build, phase_kernel, phase_kernel_int8, phase_codec,
                   phase_main_path, phase_profile, phase_sync_path,
-                  phase_sync_profile, phase_kernel_flash, phase_sp_path,
-                  phase_sp_profile, phase_cli):
+                  phase_sync_profile, phase_baseline, phase_kernel_flash,
+                  phase_sp_path, phase_sp_profile, phase_cli):
         t0 = time.perf_counter()
         try:
             phase(state)

@@ -1,7 +1,11 @@
 """Command-line interface of the port.
 
-The in-process ``train`` verb in its sync, async and sp modes, with the
-JAX verb's flags that they honour, plus ``--device``::
+The in-process ``train`` verb in its baseline, sync, async and sp modes,
+with the JAX verb's flags that they honour, plus ``--device``::
+
+    python -m distributed_parameter_server_for_ml_training_tpu_torch.cli \\
+        train --mode baseline --epochs 1 --synthetic --num-train 2048 \\
+        --num-test 500 --emit-metrics
 
     python -m distributed_parameter_server_for_ml_training_tpu_torch.cli \\
         train --mode sync --workers 4 --compression int8 --epochs 1 \\
@@ -12,7 +16,11 @@ JAX verb's flags that they honour, plus ``--device``::
         --image-size 1024 --workers 2 --batch-size 8 --num-train 8 \\
         --num-test 8 --epochs 1 --emit-metrics
 
-It runs on the card unless ``--device cpu`` is given. ``--mode sync``
+It runs on the card unless ``--device cpu`` is given. ``--mode baseline``
+is the reference's single-device recipe (SGD with momentum and weight
+decay under MultiStepLR, ``train/baseline.py``); ``--plot`` saves its
+results plot, and ``--checkpoint-dir``/``--resume`` are refused until the
+checkpoint slice. ``--mode sync``
 trains the worker slots of one card with the all-reduce chosen by
 ``--compression`` (int8 = the quantized reduce-scatter ring, kernels
 K2-K4); ``--mode async`` runs the host parameter store with worker
@@ -43,9 +51,10 @@ def build_parser() -> argparse.ArgumentParser:
         description="PyTorch/CUDA parameter-server training")
     sub = p.add_subparsers(dest="command", required=True)
     t = sub.add_parser("train", help="in-process training run")
-    t.add_argument("--mode", choices=["sync", "async", "sp"],
+    t.add_argument("--mode", choices=["baseline", "sync", "async", "sp"],
                    default="async",
-                   help="sync = sync data parallelism over the worker "
+                   help="baseline = the reference's single-device recipe; "
+                        "sync = sync data parallelism over the worker "
                         "slots of one card; async = host parameter store + "
                         "worker threads (the reference's modes); sp = "
                         "sequence-parallel ViT (ring attention over "
@@ -79,7 +88,8 @@ def build_parser() -> argparse.ArgumentParser:
                    default="bfloat16")
     t.add_argument("--model", choices=["resnet18", "vit_b16", "vit_tiny"],
                    default="resnet18",
-                   help="sync and async train resnet18; sp a ViT")
+                   help="baseline trains any; sync and async train "
+                        "resnet18; sp a ViT")
     t.add_argument("--dataset", choices=["cifar100", "imagenet-synth"],
                    default="cifar100",
                    help="imagenet-synth = ImageNet-shaped synthetic data "
@@ -89,6 +99,14 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--seed", type=int, default=0)
     t.add_argument("--emit-metrics", action="store_true",
                    help="print METRICS_JSON lines (server.py:367)")
+    t.add_argument("--plot", default=None,
+                   help="save a results plot (png; baseline)")
+    t.add_argument("--checkpoint-dir", default=None,
+                   help="save checkpoints each epoch (the checkpoint "
+                        "slice; refused until then)")
+    t.add_argument("--resume", action="store_true",
+                   help="resume from the newest checkpoint in "
+                        "--checkpoint-dir")
     t.add_argument("--device", default="cuda",
                    help="torch device to train on (cuda, or cpu)")
     return p
@@ -118,14 +136,30 @@ def cmd_train(args) -> int:
     from .train.distributed import (AsyncTrainer, DistributedConfig,
                                     SyncTrainer)
 
-    if args.mode != "sp" and args.model != "resnet18":
+    if args.mode in ("sync", "async") and args.model != "resnet18":
         raise SystemExit(f"--mode {args.mode} trains resnet18 in the port; "
-                         f"--model {args.model} runs with --mode sp")
+                         f"--model {args.model} runs with --mode sp or "
+                         f"baseline")
     dataset = _load_dataset(args)
     if dataset.synthetic and args.dataset == "cifar100" \
             and not args.synthetic:
         print("note: CIFAR-100 not found on disk; using the synthetic "
               "dataset", file=sys.stderr)
+    if args.mode == "baseline":
+        from .train.baseline import BaselineConfig, BaselineTrainer
+        cfg = BaselineConfig(batch_size=args.batch_size,
+                             num_epochs=args.epochs, learning_rate=args.lr,
+                             augment=not args.no_augment, dtype=args.dtype,
+                             model=args.model,
+                             num_classes=dataset.num_classes,
+                             seed=args.seed, device=args.device)
+        BaselineTrainer(dataset, cfg).train(
+            plot_path=args.plot, emit_metrics=args.emit_metrics,
+            checkpoint_dir=args.checkpoint_dir, resume=args.resume)
+        return 0
+    if args.checkpoint_dir or args.resume:
+        raise NotImplementedError(
+            f"--mode {args.mode} checkpoints come with the checkpoint slice")
     if args.mode == "sp":
         from .train.model_parallel import ModelParallelConfig, SPTrainer
         mp_cfg = ModelParallelConfig(

@@ -3,7 +3,8 @@
 The NumPy parts are the JAX package's ``data/cifar.py`` unchanged: the
 in-memory :class:`Dataset`, :func:`load_cifar100` (the standard
 ``cifar-100-python`` pickles, else the deterministic synthetic stand-in),
-:func:`synthetic_cifar100`, :func:`synthetic_imagenet`, the reference's
+:func:`synthetic_cifar100`, the calibrated accuracy set
+:func:`compositional_cifar100`, :func:`synthetic_imagenet`, the reference's
 contiguous shard split
 :func:`shard_range` and the host batch iterator :func:`make_batches`.
 
@@ -119,6 +120,105 @@ def synthetic_cifar100(n_train: int = 50_000, n_test: int = 10_000,
                    synthetic=True)
 
 
+def compositional_cifar100(n_train: int = 50_000, n_test: int = 10_000,
+                           num_classes: int = NUM_CLASSES, seed: int = 0,
+                           n_motifs: int = 48, motifs_per_class: int = 3,
+                           motif_px: int = 10, motif_amp: float = 0.20,
+                           template_amp: float = 0.024,
+                           bg_noise: float = 0.25, n_distractors: int = 2,
+                           amp_jitter: float = 0.5,
+                           label_noise: float = 0.22) -> Dataset:
+    """Synthetic CIFAR-100 stand-in calibrated to the reference's difficulty,
+    byte-equal to the JAX package's function for the same arguments (the
+    same NumPy draws in the same order).
+
+    :func:`synthetic_cifar100`'s fixed class template + iid pixel noise is a
+    nearly linear problem — ResNet-18 solves it within one epoch. The
+    reference's real-data curve (epoch-1 test acc 11.95%, ~65% reached
+    only after both MultiStepLR drops) needs a task whose structure is
+    *earned over many epochs*. This generator composes three signal sources
+    whose learning speeds differ:
+
+    - a weak per-class global template (``template_amp``) — the linear
+      component; drives the slow early-epoch gains above chance;
+    - **compositional motifs**: class identity = WHICH ``motifs_per_class``
+      motifs (from a shared bank of ``n_motifs``) appear in the image, at
+      uniformly random positions per sample. Position-invariant motif
+      detection + co-occurrence logic is genuinely nonlinear for a CNN and
+      dominates mid-training;
+    - ``n_distractors`` random extra motifs per sample and ±``amp_jitter``
+      amplitude jitter for confusability, plus symmetric ``label_noise``
+      (applied to train AND test labels) as the irreducible-error term that
+      caps the plateau near the reference's ~65-70%.
+
+    Defaults are the JAX package's calibrated operating point (the sweep
+    in experiments/calibrate_dataset.py, recorded in
+    ``experiments/results/calibrated/``): the reference recipe — batch
+    128, SGD momentum, MultiStepLR([10,15]) — lands near the reference
+    curve there, epoch-1 test accuracy 7.8% against the reference's
+    11.95%, plateau 70.5% against ~65-70%.
+    """
+    rng = np.random.default_rng(seed + 31)
+    # Motif bank: smooth zero-mean patterns, unit RMS, motif_px square.
+    coarse_px = max(2, motif_px // 3)
+    coarse = rng.normal(0.0, 1.0, size=(n_motifs, coarse_px, coarse_px, 3))
+    reps = -(-motif_px // coarse_px)  # ceil
+    motifs = coarse.repeat(reps, axis=1).repeat(reps, axis=2)
+    motifs = motifs[:, :motif_px, :motif_px, :].astype(np.float32)
+    motifs -= motifs.mean(axis=(1, 2, 3), keepdims=True)
+    motifs /= np.sqrt((motifs ** 2).mean(axis=(1, 2, 3), keepdims=True))
+
+    # Class -> distinct motif combination (sorted for determinism).
+    combos = set()
+    class_motifs = np.empty((num_classes, motifs_per_class), np.int64)
+    for c in range(num_classes):
+        while True:
+            pick = tuple(sorted(rng.choice(n_motifs, motifs_per_class,
+                                           replace=False)))
+            if pick not in combos:
+                combos.add(pick)
+                class_motifs[c] = pick
+                break
+
+    # Weak global templates (same construction as synthetic_cifar100).
+    t_coarse = rng.normal(0.0, 1.0, size=(num_classes, 4, 4, 3)
+                          ).astype(np.float32)
+    templates = template_amp * t_coarse.repeat(8, axis=1).repeat(8, axis=2)
+
+    span = 32 - motif_px + 1
+
+    def make_split(n: int, split_seed: int):
+        r = np.random.default_rng(seed * 1000 + split_seed + 13)
+        y = np.arange(n, dtype=np.int32) % num_classes
+        r.shuffle(y)
+        x = 0.5 + templates[y] + r.normal(
+            0.0, bg_noise, size=(n, 32, 32, 3)).astype(np.float32)
+        idx_n = np.arange(n)[:, None, None]
+        grid = np.arange(motif_px)
+        slots = np.concatenate(
+            [class_motifs[y],
+             r.integers(0, n_motifs, size=(n, n_distractors))], axis=1)
+        for j in range(slots.shape[1]):
+            pos = r.integers(0, span, size=(n, 2))
+            amps = motif_amp * (1.0 + amp_jitter * r.uniform(-1, 1, n)
+                                ).astype(np.float32)
+            rows = pos[:, 0, None] + grid          # [n, motif_px]
+            cols = pos[:, 1, None] + grid
+            patch = motifs[slots[:, j]] * amps[:, None, None, None]
+            x[idx_n, rows[:, :, None], cols[:, None, :]] += patch
+        if label_noise > 0.0:
+            flip = r.uniform(size=n) < label_noise
+            y = np.where(flip, r.integers(0, num_classes, n).astype(np.int32),
+                         y)
+        x = np.clip(x, 0.0, 1.0)
+        return (x * 255.0).astype(np.uint8), y
+
+    x_tr, y_tr = make_split(n_train, 1)
+    x_te, y_te = make_split(n_test, 2)
+    return Dataset(x_tr, y_tr, x_te, y_te, num_classes=num_classes,
+                   synthetic=True)
+
+
 def synthetic_imagenet(n_train: int = 10_000, n_test: int = 1_000,
                        num_classes: int = 1000, image_size: int = 224,
                        seed: int = 0) -> Dataset:
@@ -167,16 +267,30 @@ def shard_range(n: int, worker_id: int, total_workers: int) -> tuple[int, int]:
 
 
 def to_float(x: torch.Tensor) -> torch.Tensor:
-    """uint8 -> float32 in [0, 1] (torchvision ToTensor equivalent)."""
-    return x.to(torch.float32) / 255.0
+    """uint8 -> float32 in [0, 1] (torchvision ToTensor equivalent), by a
+    true division as the reference's: the divisor is a device tensor,
+    since PyTorch divides a CUDA tensor by a host scalar as a multiply by
+    its reciprocal, one ulp off for some pixel values."""
+    return x.to(torch.float32) / torch.full((), 255.0, device=x.device)
+
+
+def standardizer(device: torch.device | str):
+    """:func:`standardize` with its constants already on ``device``: the
+    returned function copies nothing from the host, so it can run inside
+    a CUDA graph capture."""
+    mean = torch.as_tensor(CIFAR100_MEAN, device=device)
+    std = torch.as_tensor(CIFAR100_STD, device=device)
+
+    def apply(x01: torch.Tensor) -> torch.Tensor:
+        return (x01 - mean) / std
+
+    return apply
 
 
 def standardize(x01: torch.Tensor) -> torch.Tensor:
     """[0,1] float NHWC -> per-channel standardized (worker.py:149-154
     Normalize)."""
-    mean = torch.as_tensor(CIFAR100_MEAN, device=x01.device)
-    std = torch.as_tensor(CIFAR100_STD, device=x01.device)
-    return (x01 - mean) / std
+    return standardizer(x01.device)(x01)
 
 
 def normalize(x: torch.Tensor) -> torch.Tensor:
@@ -215,15 +329,23 @@ def _pad_hw(x: torch.Tensor, pad: int) -> torch.Tensor:
     return out
 
 
+def augment_draws(b: int, generator: torch.Generator | None,
+                  device: torch.device | str
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The draws of :func:`augment_batch` for a batch of ``b``: crop
+    offsets ``[b, 2]`` in 0..8, then flips ``[b]``, from ``generator``."""
+    offsets = torch.randint(0, 9, (b, 2), generator=generator,
+                            device=device)
+    flip = torch.rand((b,), generator=generator, device=device) < 0.5
+    return offsets, flip
+
+
 def augment_batch(x: torch.Tensor,
                   generator: torch.Generator | None = None) -> torch.Tensor:
     """On-device RandomCrop(32, padding=4) + RandomHorizontalFlip with
     draws from ``generator`` (which must live on ``x``'s device)."""
-    b = x.shape[0]
-    offsets = torch.randint(0, 9, (b, 2), generator=generator,
-                            device=x.device)
-    flip = torch.rand((b,), generator=generator, device=x.device) < 0.5
-    return augment_with_draws(x, offsets, flip)
+    return augment_with_draws(x, *augment_draws(x.shape[0], generator,
+                                                x.device))
 
 
 def make_batches(x: np.ndarray, y: np.ndarray, batch_size: int, *,

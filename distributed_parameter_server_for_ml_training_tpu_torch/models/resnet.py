@@ -13,7 +13,8 @@ defaults:
 - ``dtype=torch.bfloat16`` means bf16 compute with fp32 parameters (flax
   ``dtype``/``param_dtype``): convs and the head cast their inputs and
   weights to bf16, BatchNorm computes its statistics and normalization in
-  fp32 and casts the result, and the logits come out fp32;
+  fp32 and casts the result, and the logits come out fp32 (a float64
+  ``dtype``, for reference runs, computes all of it in float64);
 - :class:`BatchNorm` follows flax: ``momentum=0.9`` weights the OLD running
   value (torch's ``momentum=0.1``), eps 1e-5, the batch variance is
   E[x^2] - E[x]^2 clipped at 0, and the running variance is updated with
@@ -142,7 +143,8 @@ class BatchNorm(_OneSlot, nn.Module):
         once with them. Eval: the running statistics."""
         w, b = params[_key(name, "weight")], params[_key(name, "bias")]
         n, c = w.shape
-        xf = x.to(torch.float32).reshape(x.shape[0], n, c, *x.shape[2:])
+        xf = x.to(torch.promote_types(self.compute_dtype, torch.float32)
+                  ).reshape(x.shape[0], n, c, *x.shape[2:])
         if self.training:
             if n > 1 and self.axis_name is None:
                 raise ValueError("a slotted forward in training needs "
@@ -249,7 +251,8 @@ class ResNet(nn.Module):
             name = f"BasicBlock_{i}"
             x = getattr(self, name).forward_slots(x, params, name)
         x = self.head.forward_slots(x.mean(dim=(2, 3)), params, "head")
-        return x.view(b, n, -1).transpose(0, 1).to(torch.float32)
+        return x.view(b, n, -1).transpose(0, 1).to(
+            torch.promote_types(self.dtype, torch.float32))
 
 
 def init_weights(module: nn.Module,

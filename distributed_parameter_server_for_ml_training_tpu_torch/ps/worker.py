@@ -15,11 +15,14 @@ K-step ("--sync-steps") semantics: ``k_step_mode='faithful'`` pushes only
 the boundary batch's gradients (the reference's quirk 7);
 ``'accumulate'`` pushes the window's mean.
 
+Host batches are uploaded ``prefetch_batches`` ahead of the step
+(``train/device_loop.py:prefetch_to_device``), bitwise the same batches.
+
 Not in this slice, each refused with ``NotImplementedError`` when its
 config field asks for it: the overlapped comms pipeline (``overlap``),
-``local_sgd``, the heartbeat, session resume (``reconnect_timeout``),
-NaN injection and input prefetch. Health reports and server directives
-ride the gRPC store, which a later slice ports.
+``local_sgd``, the heartbeat, session resume (``reconnect_timeout``) and
+NaN injection. Health reports and server directives ride the gRPC store,
+which a later slice ports.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from ..data.cifar import Dataset, make_batches, shard_range
 from ..ops.compression import QUANTIZED_PUSH_CODECS, fp16_compress
 from ..ops.device_codec import DeviceCodec
 from ..telemetry import GoodputAccount, now as _tnow, trace_span
+from ..train.device_loop import prefetch_to_device
 from ..train.steps import make_eval_step, make_grad_step
 from ..utils.device import resolve_device
 from ..utils.pytree import flax_names
@@ -71,7 +75,10 @@ class WorkerConfig:
     heartbeat_interval: float = 0.0
     reconnect_timeout: float = 0.0
     nan_inject_step: int | None = None
-    prefetch_batches: int = 0
+    # Host->device input double buffering: this many batches' uploads in
+    # flight ahead of the step (train/device_loop.py prefetch_to_device);
+    # 0 feeds host batches directly.
+    prefetch_batches: int = 2
 
     def __post_init__(self):
         if self.k_step_mode == "local_sgd":
@@ -84,8 +91,7 @@ class WorkerConfig:
         later = {"overlap": self.overlap,
                  "heartbeat_interval": self.heartbeat_interval,
                  "reconnect_timeout": self.reconnect_timeout,
-                 "nan_inject_step": self.nan_inject_step is not None,
-                 "prefetch_batches": self.prefetch_batches}
+                 "nan_inject_step": self.nan_inject_step is not None}
         asked = [k for k, v in later.items() if v]
         if asked:
             raise NotImplementedError(
@@ -325,8 +331,10 @@ class PSWorker(threading.Thread):
                             worker_id, fetched_step, params)
                 x_shard, y_shard = self._compute_shard(worker_id,
                                                        total_workers)
-                batches = make_batches(x_shard, y_shard, cfg.batch_size,
-                                       seed=cfg.seed * 1000 + epoch)
+                batches = prefetch_to_device(
+                    make_batches(x_shard, y_shard, cfg.batch_size,
+                                 seed=cfg.seed * 1000 + epoch),
+                    depth=cfg.prefetch_batches, device=self.device)
                 loss_sum, n_loss = None, 0
                 for batch_idx, (xb, yb) in enumerate(batches):
                     boundary = batch_idx % k == 0

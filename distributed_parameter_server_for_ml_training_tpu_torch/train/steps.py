@@ -9,10 +9,12 @@ reference's: flat dicts keyed by flax names, in flax layouts. A module
 is not thread-safe, so each worker thread builds its steps over its own
 module (``ps/worker.py``).
 
-:func:`make_train_step` is the single-program step of the model-parallel
-trainers (``train/model_parallel.py``): it trains the module's own
-parameters in place. ``make_fused_local_step`` and the MoE branch of
-``make_train_step`` come with later slices.
+:func:`make_train_step` is the single-program step of the baseline and
+model-parallel trainers (``train/baseline.py``, ``train/model_parallel.py``):
+it trains the module's own parameters (and BatchNorm statistics) in
+place, and copies nothing from the host, so a CUDA graph can capture it
+(``train/device_loop.py``). ``make_fused_local_step`` and the MoE branch
+of ``make_train_step`` come with later slices.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ from typing import Callable, Mapping
 import torch
 import torch.nn.functional as F
 
-from ..data.cifar import augment_batch, normalize, standardize, to_float
+from ..data.cifar import (augment_batch, augment_draws, augment_with_draws,
+                          standardize, standardizer, to_float)
 from ..utils.pytree import flax_names, to_flax_layout, to_torch_layout
 
 
@@ -106,37 +109,47 @@ def make_grad_step(model: torch.nn.Module, augment: bool = True
 def make_train_step(model: torch.nn.Module, augment: bool = True
                     ) -> Callable:
     """Build ``train_step(state, images_u8, labels, generator=None) ->
-    (state, metrics)`` for a state whose params are ``model``'s own
-    parameters (``train_state.module_train_state``).
+    (state, metrics)`` for a state whose tensors are ``model``'s own
+    (``train_state.module_train_state``): counterpart of the JAX
+    ``make_train_step`` without its MoE branch.
 
     Augments the raw uint8 NHWC batch on the device (draws from
     ``generator``), standardizes, computes the mean cross-entropy and its
-    gradient, and applies the state's ``server_sgd`` in place, so the
-    module's weights move and no parameter-sized copy is made. ``metrics``
-    holds 0-dim ``loss`` and ``accuracy`` tensors (no host sync)."""
-    pnames, snames = flax_names(model)
-    if snames:
-        raise ValueError("make_train_step trains models without batch "
-                         "statistics; BatchNorm models use the sync or "
-                         "async steps")
+    gradient, and applies the state's optimizer in place, so the module's
+    weights move and no parameter-sized copy is kept. A BatchNorm model's
+    training forward updates its running statistics (the state's
+    ``batch_stats``) in place, with flax's conventions (biased variance,
+    momentum 0.9 on the old value). ``metrics`` holds 0-dim ``loss`` and
+    ``accuracy`` tensors, ``learning_rate`` where the optimizer schedules
+    it, and with augmentation ``augment_draws`` ``[B, 3]`` (crop row,
+    crop column, flip) — no host sync."""
+    pnames, _ = flax_names(model)
     device = _model_device(model)
     params_t = dict(model.named_parameters())
     order = list(pnames)
+    std = standardizer(device)
 
     def train_step(state, images_u8, labels, generator=None):
         x = torch.as_tensor(images_u8, device=device)
         y = torch.as_tensor(labels, device=device).long()
+        metrics = {}
         if augment:
-            x = augment_batch(x, generator)
-        x = standardize(to_float(x))
+            offsets, flip = augment_draws(x.shape[0], generator, device)
+            x = augment_with_draws(x, offsets, flip)
+            metrics["augment_draws"] = torch.cat(
+                [offsets, flip[:, None].long()], 1)
+        x = std(to_float(x))
         model.train()
         logits = model(x)
         loss = cross_entropy_loss(logits, y)
         grads_t = torch.autograd.grad(loss, [params_t[t] for t in order])
-        state = state.apply_gradients_(
+        lr = state.apply_gradients_(
             {pnames[t]: to_flax_layout(g) for t, g in zip(order, grads_t)})
-        accuracy = (logits.detach().argmax(-1) == y).float().mean()
-        return state, {"loss": loss.detach(), "accuracy": accuracy}
+        metrics["loss"] = loss.detach()
+        metrics["accuracy"] = (logits.detach().argmax(-1) == y).float().mean()
+        if lr is not None:
+            metrics["learning_rate"] = lr
+        return state, metrics
 
     return train_step
 
@@ -148,12 +161,13 @@ def make_eval_step(model: torch.nn.Module) -> Callable:
     tensor, so a caller summing over batches syncs once at the end."""
     device = _model_device(model)
     load = flax_state_loader(model)
+    std = standardizer(device)
 
     @torch.no_grad()
     def eval_step(params, batch_stats, images_u8, labels):
         load(params, batch_stats)
         model.eval()
-        x = normalize(torch.as_tensor(images_u8, device=device))
+        x = std(to_float(torch.as_tensor(images_u8, device=device)))
         y = torch.as_tensor(labels, device=device).long()
         logits = model(x)
         return (logits.argmax(-1) == y).sum(), int(y.shape[0])

@@ -34,7 +34,7 @@ def test_cli_train_async_on_cpu(capsys):
 @pytest.mark.parametrize("field,value", [
     ("overlap", True), ("heartbeat_interval", 5.0),
     ("reconnect_timeout", 10.0), ("nan_inject_step", 3),
-    ("prefetch_batches", 2), ("k_step_mode", "local_sgd")])
+    ("k_step_mode", "local_sgd")])
 def test_worker_options_of_later_slices_are_refused(field, value):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         WorkerConfig(device="cpu", **{field: value})

@@ -47,7 +47,8 @@ def test_port_files_exist():
                      "parallel/sync_dp.py", "utils/pytree.py",
                      "utils/metrics.py", "ops/attention.py",
                      "ops/flash_attention.py", "parallel/ring_attention.py",
-                     "models/vit.py", "train/model_parallel.py"):
+                     "models/vit.py", "train/model_parallel.py",
+                     "train/baseline.py", "train/device_loop.py"):
         assert required in names, required
     for kernel in ("wire_quantize.cu", "block_quantize.cu",
                    "flash_attention.cu"):
@@ -77,6 +78,8 @@ def _cuda_entry_points():
     from distributed_parameter_server_for_ml_training_tpu_torch.ps \
         import WorkerConfig
     from distributed_parameter_server_for_ml_training_tpu_torch.train \
+        .baseline import BaselineConfig
+    from distributed_parameter_server_for_ml_training_tpu_torch.train \
         .distributed import DistributedConfig
     from distributed_parameter_server_for_ml_training_tpu_torch.utils \
         import resolve_device
@@ -86,12 +89,13 @@ def _cuda_entry_points():
         "DeviceCodec": lambda: DeviceCodec(),
         "WorkerConfig": lambda: WorkerConfig(),
         "DistributedConfig": lambda: DistributedConfig(),
+        "BaselineConfig": lambda: BaselineConfig(),
     }
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "get_model",
                                    "DeviceCodec", "WorkerConfig",
-                                   "DistributedConfig"])
+                                   "DistributedConfig", "BaselineConfig"])
 def test_cuda_default_raises_without_a_card(entry):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
@@ -166,6 +170,15 @@ def test_sync_entry_points_default_to_cuda():
         cli.main(["train", "--mode", "sync", "--workers", "1", "--epochs",
                   "1", "--synthetic", "--num-train", "64", "--num-test",
                   "16"])
+
+
+def test_baseline_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    from distributed_parameter_server_for_ml_training_tpu_torch import cli
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["train", "--mode", "baseline", "--epochs", "1",
+                  "--synthetic", "--num-train", "64", "--num-test", "16"])
 
 
 def test_sp_entry_points_default_to_cuda():
