@@ -113,7 +113,23 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    top device kernels;
 13. the CLI verb ``train`` in async mode at its default codec, in sync
    mode with the int8 ring, in baseline mode, and in sp mode on ViT-B/16
-   at 1024 x 1024.
+   at 1024 x 1024;
+14. the gRPC path, phase 5's configuration over the wire: (a) in one
+   process, the port's ``serve()`` on 127.0.0.1 at a free port and 2
+   ``PSWorker`` threads on the card, each through its own ``RemoteStore``;
+   K1's counts reset just before and read just after: the multi-tensor
+   kernel once a push, the per-tensor one never; no push answered
+   ``duplicate``, no frame refused as corrupt, every push frame carrying
+   a valid CRC-32 trailer; the store's params moved; each worker's first
+   push frame byte-equal to the port's ``encode_tensor_dict`` of the NumPy
+   ``compress_push`` of the same gradients. Reports img/s, each RPC's
+   median ms, bytes a push and a fetch, ``not_modified`` fetches, the
+   store's staleness counts, and the device's idle share over a shorter
+   profiled run; (b) across processes, ``cli serve --mode async
+   --workers 2 --push-codec int8`` and 2 ``cli worker --synthetic
+   --num-train 2048 --epochs 1`` on the card: every process exits 0
+   within its timeout (one still alive then is killed, and the phase
+   fails), and the server reports a step above 0.
 
 Then one JSON line of kernels and, last, the device line. Without a CUDA
 device, or outside a checkout of the repo, it exits non-zero and prints
@@ -842,6 +858,7 @@ def phase_main_path(state: dict) -> None:
         if i >= 5:
             times.append(a.elapsed_time(b))
     state["grad_step_ms"] = float(np.median(times))
+    state["main_path_img_per_s"] = images / train_s
 
     emit({"phase": "main_path", "model": "resnet18", "dtype": "bfloat16",
           "workers": n_workers, "batch_size": batch,
@@ -1855,6 +1872,351 @@ def phase_cli(state: dict) -> None:
             raise AssertionError(f"cli {' '.join(argv)} returned {rc}")
 
 
+GRPC_WORKER_TIMEOUT_S = 420    # (b): each worker process, start to exit
+GRPC_SERVER_TIMEOUT_S = 60     # (b): the server, after its workers exit
+
+
+def _rpc_timer(remote, times: dict) -> None:
+    """Time every call of ``remote``'s method stubs into ``times[rpc]``
+    (milliseconds), beside the client's own histograms."""
+    for name, call in list(remote._call.items()):
+        def timed(request, timeout=None, call=call, name=name):
+            t0 = time.perf_counter()
+            try:
+                return call(request, timeout=timeout)
+            finally:
+                times.setdefault(name, []).append(
+                    (time.perf_counter() - t0) * 1e3)
+        remote._call[name] = timed
+
+
+def _grpc_run(steps_per_worker: int, n_test: int, seed: int,
+              eval_each_epoch: bool, record: bool):
+    """Phase 5's configuration through the port's gRPC service on
+    127.0.0.1: the server in this process, 2 ``PSWorker`` threads on the
+    card, each through its own ``RemoteStore``. With ``record``, the
+    service keeps every push request and fetch reply, and the device
+    codec the first gradients of each worker. Returns a dict of the
+    run's pieces."""
+    import threading
+
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms import (
+        ParameterService, RemoteStore, serve)
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops \
+        .device_codec import DeviceCodec
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps import (
+        PSWorker, WorkerConfig)
+
+    ds, model, store, init = main_path(steps_per_worker, n_test, seed)
+    svc = ParameterService(store)
+    pushes, fetches, first_grads = [], [], {}
+    encode = DeviceCodec.encode
+    if record:
+        push_body, fetch_body = svc.push_gradrients, svc.fetch_parameters
+
+        def push_rec(request, ctx):
+            reply = push_body(request, ctx)
+            pushes.append((bytes(request), reply))
+            return reply
+
+        def fetch_rec(request, ctx):
+            reply = fetch_body(request, ctx)
+            fetches.append((len(request), reply))
+            return reply
+        svc.push_gradrients, svc.fetch_parameters = push_rec, fetch_rec
+
+        def encode_spy(self, flat, plan=None, scales=None):
+            wid = threading.current_thread().result.worker_id
+            if wid not in first_grads:
+                first_grads[wid] = (
+                    {k: v.detach().float().cpu().numpy()
+                     for k, v in flat.items()},
+                    dict(plan or {}), dict(scales or {}))
+            return encode(self, flat, plan=plan, scales=scales)
+        DeviceCodec.encode = encode_spy
+    server, port = serve(store, port=0, service=svc, host="127.0.0.1")
+    rpc_ms: dict = {}
+    remotes = [RemoteStore(f"127.0.0.1:{port}") for _ in range(N_WORKERS)]
+    for r in remotes:
+        _rpc_timer(r, rpc_ms)
+    cfg = WorkerConfig(batch_size=BATCH, num_epochs=1, device="cuda",
+                       eval_each_epoch=eval_each_epoch)
+    workers = [PSWorker(r, model, ds, cfg, worker_name=f"grpc-{i}")
+               for i, r in enumerate(remotes)]
+    try:
+        t0 = time.perf_counter()
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        DeviceCodec.encode = encode
+        for r in remotes:
+            r.close()
+        server.stop(grace=None).wait(10)
+    return {"store": store, "init": init, "results": [w.result
+                                                      for w in workers],
+            "remotes": remotes, "wall": wall, "pushes": pushes,
+            "fetches": fetches, "first_grads": first_grads,
+            "rpc_ms": rpc_ms}
+
+
+def _grpc_in_process(state: dict) -> None:
+    import collections
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms \
+        .service import unpack_msg
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms \
+        .wire import encode_tensor_dict, frame_checksum_ok
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops \
+        .compression import ErrorFeedback, compress_push
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
+        quantize as Q
+    from distributed_parameter_server_for_ml_training_tpu_torch.telemetry \
+        import get_registry
+
+    corrupt = get_registry().counter("dps_wire_corrupt_total")
+    corrupt0 = corrupt.value
+    Q.wire_quantize_multi.launches = 0
+    Q.wire_quantize.launches = 0
+    run = _grpc_run(steps_per_worker=8, n_test=1000, seed=0,
+                    eval_each_epoch=True, record=True)
+    launches = {"wire_quantize_multi": Q.wire_quantize_multi.launches,
+                "wire_quantize": Q.wire_quantize.launches}
+    state["grpc_k1_launches"] = launches
+    store, results = run["store"], run["results"]
+    errors = [repr(r.error) for r in results if r.error is not None]
+    n_push = sum(r.pushes_accepted + r.pushes_rejected for r in results)
+    final, step = store.snapshot()
+    moved = sum(not np.array_equal(final[k], run["init"][k])
+                for k in run["init"])
+    replies = [unpack_msg(reply)[0] for _, reply in run["pushes"]]
+    duplicates = sum(bool(m.get("duplicate")) for m in replies)
+    refused = sum(bool(m.get("corrupt")) for m in replies)
+    frames = [unpack_msg(req) for req, _ in run["pushes"]]
+    trailer_ok = sum(frame_checksum_ok(f) is True for _, f in frames)
+    # Each worker's first push against the NumPy codec on the same
+    # gradients: a fresh error feedback, the same plan and scales.
+    frame_checks = {}
+    for wid, (grads, plan, scales) in sorted(run["first_grads"].items()):
+        want = encode_tensor_dict(
+            compress_push(grads, plan, scales=scales or None,
+                          ef=ErrorFeedback()), checksum=True)
+        got = [bytes(f) for m, f in frames if m["worker_id"] == wid
+               and m["push_token"].endswith(":1")]
+        frame_checks[wid] = {"bytes": len(want),
+                             "equal": got == [want]}
+    fetch_meta = [unpack_msg(r)[0] for _, r in run["fetches"]]
+    full = [len(r) for (_, r), m in zip(run["fetches"], fetch_meta)
+            if not m.get("not_modified")]
+    nm = [len(r) for (_, r), m in zip(run["fetches"], fetch_meta)
+          if m.get("not_modified")]
+    hist = get_registry().snapshot()["histograms"]
+    rpc_hist = {k.split("rpc=")[1].rstrip("}"): {
+        "count": h["count"],
+        "mean_ms": h["sum"] / h["count"] * 1e3 if h["count"] else None}
+        for k, h in hist.items() if k.startswith("dps_rpc_client_seconds")
+        and h["count"]}
+    images = sum(r.local_steps_completed for r in results) * BATCH
+    train_s = max(sum(r.epoch_times) for r in results)
+    emit({"phase": "grpc_path", "form": "in_process", "model": "resnet18",
+          "workers": N_WORKERS, "batch_size": BATCH, "push_codec": "int8",
+          "global_step": step, "pushes": n_push,
+          "pushes_rejected": sum(r.pushes_rejected for r in results),
+          "k1_launches": launches, "duplicates": duplicates,
+          "refused_corrupt": refused,
+          "corrupt_counter": corrupt.value - corrupt0,
+          "push_frames_with_valid_crc": trailer_ok,
+          "first_push_frame_vs_compress_push": frame_checks,
+          "tensors_moved": moved,
+          "train_loss_per_epoch": [v for r in results
+                                   for v in r.train_loss_per_epoch],
+          "test_accuracies": [r.test_accuracies for r in results],
+          "images": images, "img_per_s": images / train_s,
+          "train_seconds": train_s, "run_seconds": run["wall"],
+          "phase5_img_per_s": state.get("main_path_img_per_s"),
+          "rpc_ms_median": {k: float(np.median(v))
+                            for k, v in sorted(run["rpc_ms"].items())},
+          "rpc_calls": {k: len(v) for k, v in sorted(run["rpc_ms"].items())},
+          "rpc_client_histograms": rpc_hist,
+          "push_request_bytes": sorted(set(len(q) for q, _ in run["pushes"])),
+          "push_reply_bytes": sorted(set(len(r) for _, r in run["pushes"])),
+          "push_frame_bytes": sorted(set(len(f) for _, f in frames)),
+          "fetch_request_bytes": sorted(set(n for n, _ in run["fetches"])),
+          "fetch_reply_bytes_full": sorted(set(full)),
+          "fetch_reply_bytes_not_modified": sorted(set(nm)),
+          "fetches_full": len(full), "fetches_not_modified": len(nm),
+          "wire_stats": [r.wire for r in results],
+          "store": store.metrics(),
+          "staleness_counts": dict(sorted(collections.Counter(
+              store.stats.staleness_values).items())),
+          "card": state["card"]})
+    if errors:
+        raise AssertionError(f"worker errors: {errors}")
+    if step <= 0 or n_push != N_WORKERS * 8:
+        raise AssertionError(f"step {step}, {n_push} pushes; expected "
+                             f"a step above 0 and {N_WORKERS * 8} pushes")
+    want = {"wire_quantize_multi": -(-62 // Q.WIRE_MAX_ENTRIES) * n_push,
+            "wire_quantize": 0}
+    if launches != want:
+        raise AssertionError(f"K1 launched {launches} times for {n_push} "
+                             f"pushes; expected {want}")
+    if duplicates or refused or corrupt.value != corrupt0:
+        raise AssertionError(f"{duplicates} duplicate and {refused} "
+                             f"corrupt push replies")
+    if trailer_ok != n_push or len(frames) != n_push:
+        raise AssertionError(f"{trailer_ok} of {len(frames)} push frames "
+                             f"carry a valid CRC trailer; {n_push} pushes")
+    if len(frame_checks) != N_WORKERS or not all(
+            c["equal"] for c in frame_checks.values()):
+        raise AssertionError(f"push frames differ from compress_push's: "
+                             f"{frame_checks}")
+    if moved == 0:
+        raise AssertionError("the store's params did not move")
+
+
+def _grpc_profile(state: dict) -> None:
+    """The same path, shorter and without eval, under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run = _grpc_run(steps_per_worker=4, n_test=10, seed=2,
+                        eval_each_epoch=False, record=False)
+    events = device_events(prof)
+    device_us = sum(e.self_device_time_total for e in events)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
+    errors = [repr(r.error) for r in run["results"] if r.error is not None]
+    emit({"phase": "grpc_path", "form": "profile",
+          "steps": run["store"].global_step, "wall_s": run["wall"],
+          "device_busy_s": device_us / 1e6,
+          "device_idle_share": (1 - device_us / 1e6 / run["wall"])
+          if device_us else None,
+          "top_device_ms": [[e.key[:120], round(e.self_device_time_total
+                                               / 1e3, 3), e.count]
+                            for e in top],
+          "card": state["card"]})
+    if errors:
+        raise AssertionError(f"worker errors: {errors}")
+
+
+def _metrics_rows(text: str) -> list:
+    return [json.loads(line.split("METRICS_JSON:", 1)[1])
+            for line in text.splitlines() if "METRICS_JSON:" in line]
+
+
+def _grpc_processes(state: dict) -> None:
+    """The reference's topology: ``cli serve`` and 2 ``cli worker``
+    processes on the card, over gRPC on 127.0.0.1."""
+    import os
+    import re
+    import socket
+    import tempfile
+
+    cli = [sys.executable, "-m",
+           "distributed_parameter_server_for_ml_training_tpu_torch.cli"]
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    repo = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(repo)}
+    procs, late = [], None
+    # Output goes to files, so that no process blocks on a full pipe; the
+    # server's stderr is read up to its 'up' line.
+    logs = [tempfile.TemporaryFile("w+") for _ in range(5)]
+    t0 = time.perf_counter()
+    try:
+        server = subprocess.Popen(
+            cli + ["serve", "--mode", "async", "--workers", "2",
+                   "--push-codec", "int8", "--port", str(port),
+                   "--emit-metrics"],
+            cwd=repo, env=env, stdout=logs[0], stderr=subprocess.PIPE,
+            text=True)
+        procs.append(server)
+        up = None
+        while up is None:
+            line = server.stderr.readline()
+            if not line:
+                break
+            up = re.search(r"parameter server up on :(\d+)", line)
+        workers = [subprocess.Popen(
+            cli + ["worker", "--server", f"127.0.0.1:{port}",
+                   "--worker-name", f"proc-{i}", "--synthetic",
+                   "--num-train", "2048", "--epochs", "1",
+                   "--emit-metrics"],
+            cwd=repo, env=env, stdout=logs[1 + 2 * i],
+            stderr=logs[2 + 2 * i], text=True)
+            for i in range(2)] if up else []
+        procs += workers
+        deadline = time.perf_counter() + GRPC_WORKER_TIMEOUT_S
+        for w in workers:
+            try:
+                w.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                late = f"a cli worker still alive after " \
+                       f"{GRPC_WORKER_TIMEOUT_S} s"
+                break
+        if late is None:
+            try:
+                s_err = server.communicate(
+                    timeout=GRPC_SERVER_TIMEOUT_S)[1]
+            except subprocess.TimeoutExpired:
+                late = f"cli serve still alive {GRPC_SERVER_TIMEOUT_S} s " \
+                       f"after its workers"
+        wall = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        texts = []
+        for f in logs:
+            f.seek(0)
+            texts.append(f.read())
+            f.close()
+    if late is not None or not up:
+        raise AssertionError(
+            f"{late or 'cli serve never came up'}; killed. Output tails: "
+            f"{[t[-1500:] for t in texts]}")
+    s_out, outs = texts[0], [(texts[1], texts[2]), (texts[3], texts[4])]
+    rows = [_metrics_rows(out) for out, _ in outs]
+    srv = _metrics_rows(s_out)
+    rcs = {"server": server.returncode,
+           "workers": [w.returncode for w in workers]}
+    img_s = [r[-1]["local_steps_completed"] * BATCH
+             / r[-1]["total_training_time_seconds"]
+             for r in rows if r and r[-1]["total_training_time_seconds"]]
+    sm = srv[-1] if srv else {}
+    emit({"phase": "grpc_path", "form": "processes", "port": port,
+          "rcs": rcs, "wall_seconds": wall,
+          "workers_img_per_s": img_s, "img_per_s_summed": sum(img_s),
+          "worker_metrics": [r[-1] if r else None for r in rows],
+          "server_metrics": sm,
+          "server_apply_seconds": sm.get("average_update_time_seconds", 0)
+          * sm.get("total_parameter_updates", 0),
+          "card": state["card"]})
+    if rcs != {"server": 0, "workers": [0, 0]}:
+        tails = [err[-2000:] for _, err in outs] + [s_err[-2000:]]
+        raise AssertionError(f"process exit codes {rcs}: {tails}")
+    if not sm or sm.get("global_steps_completed", 0) <= 0:
+        raise AssertionError(f"server metrics report no step: {sm}")
+    if len(img_s) != 2:
+        raise AssertionError(f"worker metrics missing: {rows}")
+
+
+def phase_grpc_path(state: dict) -> None:
+    """Phase 14: the gRPC path, in one process and across processes."""
+    _grpc_in_process(state)
+    _grpc_profile(state)
+    _grpc_processes(state)
+
+
 def main() -> int:
     import torch
 
@@ -1872,7 +2234,8 @@ def main() -> int:
     for phase in (phase_build, phase_kernel, phase_kernel_int8, phase_codec,
                   phase_main_path, phase_profile, phase_sync_path,
                   phase_sync_profile, phase_baseline, phase_kernel_flash,
-                  phase_sp_path, phase_sp_profile, phase_cli):
+                  phase_sp_path, phase_sp_profile, phase_cli,
+                  phase_grpc_path):
         t0 = time.perf_counter()
         try:
             phase(state)
@@ -1890,13 +2253,15 @@ def main() -> int:
         quantize as Q
 
     # The multi-tensor K1 and its per-tensor first version, with their
-    # launches from the async path's run; a push's times.
+    # launches from the async path's run and the gRPC path's (phase 14
+    # (a); (b)'s workers are other processes); a push's times.
     kernels = []
     for name, k in state["k1"].items():
         kernels.append({
             "name": name, "route": "cuda", "source": Q.KERNEL_SOURCE,
             "replaces": Q.REPLACES[name],
-            "launches": state["k1_launches"][name],
+            "launches": state["k1_launches"][name]
+            + state["grpc_k1_launches"][name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],

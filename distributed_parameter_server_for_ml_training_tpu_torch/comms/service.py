@@ -1,0 +1,594 @@
+"""gRPC parameter service of the port: the reference wire protocol.
+
+The JAX package's ``comms/service.py``, carried over for what a
+single-job, unsharded server does: the same four unary-unary RPCs under
+the same service name, including the load-bearing wire-protocol typo
+``PushGradrients`` (ps.proto:12)::
+
+    /ps.ParameterServer/RegisterWorker
+    /ps.ParameterServer/PushGradrients
+    /ps.ParameterServer/FetchParameters
+    /ps.ParameterServer/JobFinished
+
+Messages are a JSON envelope plus an optional tensor frame
+(``comms/wire.py``), served through gRPC generic handlers. A default
+service of either package answers the same request with the same bytes:
+the same capability advertisement at registration, the same exactly-once
+``nonce:count`` push dedupe with its checksum gate, the same
+version-gated fetch with its cached ``not_modified`` reply, and the
+passive half of the directive channel (acks are taken; nothing posts).
+
+Not in this slice, each refused with ``NotImplementedError`` naming the
+ROADMAP item when a caller asks for it: fault injection and sharding
+(the serve tier, §1 item 9), tenancy with its weighted-fair admission
+and ``SubmitJob`` (item 9), the health monitor, the non-finite guard and
+quarantine (telemetry, item 8), reshard/migration (item 9), and the
+push-token journal's persistence (checkpoints, item 5). Over the wire the
+``Reshard`` and ``SubmitJob`` RPCs answer UNIMPLEMENTED with that text.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import struct
+import threading
+from collections import OrderedDict
+from concurrent import futures
+
+import grpc
+
+from ..telemetry import LATENCY_BUCKETS, get_registry, now, \
+    trace_enabled, trace_span
+from ..telemetry.registry import ExemplarSampler
+from ..telemetry.trace import use_wire_context
+from .wire import decode_tensor_dict, encode_tensor_dict, \
+    frame_checksum_ok, peek_trace
+
+SERVICE_NAME = "ps.ParameterServer"
+
+#: Completed push-token outcomes kept for dedupe. One entry per client
+#: nonce; 4x the 32-worker cap leaves room for reconnecting clients' fresh
+#: nonces without evicting live ones.
+PUSH_SEEN_CAP = 128
+
+#: Ceiling on how long a duplicate push waits for its original's outcome
+#: when the caller carries no deadline. With a deadline, the wait is
+#: bounded by ``ctx.time_remaining()`` minus a reply margin instead.
+DUP_WAIT_CAP_S = 30.0
+
+#: The RPC names of the JAX service, in its order. The last two are its
+#: admin plane, answered UNIMPLEMENTED here.
+RPC_NAMES = ("RegisterWorker", "PushGradrients", "FetchParameters",
+             "JobFinished", "Reshard", "SubmitJob")
+
+#: Where each part of the JAX service that this slice leaves out comes.
+LATER = {
+    "faults": "fault injection comes with the serve tier (ROADMAP §1 "
+              "item 9: comms/faults.py)",
+    "monitor": "the cluster health monitor comes with the telemetry "
+               "slice (ROADMAP §1 item 8)",
+    "reject_nonfinite": "the non-finite push guard comes with the "
+                        "remediation engine (ROADMAP §1 item 8)",
+    "quarantine": "push quarantine comes with the remediation engine "
+                  "(ROADMAP §1 item 8)",
+    "sharding": "sharding, replicas and topology come with the serve tier "
+                "(ROADMAP §1 item 9: ps/sharding.py, comms/sharded.py, "
+                "comms/replica.py)",
+    "jobs": "tenancy, weighted-fair admission and SubmitJob come with the "
+            "serve tier (ROADMAP §1 item 9: ps/tenancy.py)",
+    "reshard": "reshard and migration come with the serve tier (ROADMAP "
+               "§1 item 9)",
+    "journal": "the push-token journal's persistence comes with the "
+               "checkpoint slice (ROADMAP §1 item 5)",
+    "fetch_codec": "fetch codecs other than 'none' come with the store "
+                   "options (ROADMAP §1 item 3)",
+}
+
+
+def later(what: str) -> NotImplementedError:
+    """The refusal of a part of the JAX service this slice leaves out."""
+    return NotImplementedError(f"{what}: not ported yet; {LATER[what]}")
+
+
+def parse_push_token(token) -> tuple[str, int]:
+    """Split a ``nonce:count`` push token. The count orders a client's
+    pushes, so the dedupe table can refuse ZOMBIE tokens — a
+    deadline-expired first attempt executing after its retry succeeded and
+    newer pushes landed (any ``count <=`` last-seen is a duplicate, and a
+    lower count never evicts a higher one). A token without a parsable
+    counter degrades to exact-match semantics: the whole token becomes the
+    nonce, count -1."""
+    s = str(token)
+    nonce, sep, cnt = s.rpartition(":")
+    if sep and cnt.isdigit():
+        return nonce, int(cnt)
+    return s, -1
+
+
+# server.py:372-378 / worker.py:203-209
+GRPC_OPTIONS = [
+    ("grpc.max_send_message_length", 500 * 1024 * 1024),
+    ("grpc.max_receive_message_length", 500 * 1024 * 1024),
+    ("grpc.keepalive_time_ms", 30_000),
+    ("grpc.keepalive_timeout_ms", 5_000),
+    ("grpc.keepalive_permit_without_calls", 1),
+    # Client-channel reconnect pacing (ignored by servers): gRPC's default
+    # backoff grows to ~2 minutes; 2 s keeps a reconnect prompt.
+    ("grpc.initial_reconnect_backoff_ms", 250),
+    ("grpc.max_reconnect_backoff_ms", 2_000),
+]
+
+
+class RawJSON(str):
+    """A pre-encoded JSON fragment. :func:`pack_msg` splices a RawJSON
+    value into the envelope verbatim instead of re-serializing it. The
+    value MUST be a complete, valid JSON document; nothing re-validates
+    it here."""
+
+    __slots__ = ()
+
+
+def pack_msg(meta: dict, payload: bytes = b"") -> bytes:
+    raw = {k: v for k, v in meta.items() if isinstance(v, RawJSON)}
+    if raw:
+        base = json.dumps({k: v for k, v in meta.items()
+                           if not isinstance(v, RawJSON)})
+        frag = ",".join(f'"{k}":{v}' for k, v in raw.items())
+        header = (base[:-1] + ("," if len(base) > 2 else "")
+                  + frag + "}").encode("utf-8")
+    else:
+        header = json.dumps(meta).encode("utf-8")
+    return struct.pack("<I", len(header)) + header + payload
+
+
+def unpack_msg(data: bytes) -> tuple[dict, memoryview]:
+    """Split the envelope WITHOUT copying the payload: the returned
+    memoryview aliases ``data``, and the zero-copy tensor decode builds
+    array views directly over it."""
+    (hlen,) = struct.unpack_from("<I", data, 0)
+    mv = memoryview(data)
+    meta = json.loads(bytes(mv[4:4 + hlen]).decode("utf-8"))
+    return meta, mv[4 + hlen:]
+
+
+class WeightedFairAdmission:
+    """The JAX service's per-job admission scheduler; it serves tenancy,
+    which this slice leaves out."""
+
+    def __init__(self, *args, **kwargs):
+        raise later("jobs")
+
+
+class ParameterService:
+    """Generic-handler implementation of the 4-RPC lifecycle over the
+    port's NumPy :class:`~..ps.store.ParameterStore` (or any store with
+    its worker-facing API)."""
+
+    def __init__(self, store, faults=None, monitor=None,
+                 reject_nonfinite: bool = False, sharding=None,
+                 jobs=None):
+        asked = {"faults": faults is not None, "monitor": monitor is not None,
+                 "reject_nonfinite": bool(reject_nonfinite),
+                 "sharding": sharding is not None, "jobs": jobs is not None}
+        for what, on in asked.items():
+            if on:
+                raise later(what)
+        if getattr(store, "fetch_codec", "none") != "none":
+            raise later("fetch_codec")
+        self.store = store
+        # Push dedupe: nonce -> [count, outcome (None while in flight),
+        # done event, worker_id, step_at_completion]; LRU-bounded. A retry
+        # of the same token replays the recorded outcome, a lower count is
+        # a zombie, and a retry of a still-in-flight original waits for
+        # its outcome (bounded by the caller's deadline).
+        self._push_seen: OrderedDict[str, list] = OrderedDict()  # guarded by: self._push_seen_lock
+        self._push_seen_lock = threading.Lock()
+        # Directive channel, passive half: workers that advertised the
+        # capability and the acks they send. Nothing in this slice posts
+        # a directive, so replies carry none, as a default JAX server's.
+        self._directive_lock = threading.Lock()
+        self._directives: dict[int, list[dict]] = {}  # guarded by: self._directive_lock
+        self._directive_capable: set[int] = set()  # guarded by: self._directive_lock
+        # Handler-side telemetry: per-RPC span + request/reply bytes.
+        reg = get_registry()
+        self._tm_rpc = {
+            name: (reg.histogram("dps_rpc_handler_seconds", rpc=name),
+                   reg.counter("dps_rpc_handler_bytes_total", rpc=name,
+                               direction="in"),
+                   reg.counter("dps_rpc_handler_bytes_total", rpc=name,
+                               direction="out"),
+                   reg.counter("dps_rpc_handler_calls_total", rpc=name),
+                   reg.histogram("dps_rpc_server_latency_seconds",
+                                 buckets=LATENCY_BUCKETS, method=name),
+                   reg.counter("dps_rpc_server_errors_total", method=name))
+            for name in RPC_NAMES
+        }
+        self._tm_exemplars = ExemplarSampler(rate=0.1, seed=os.getpid())
+        # Pushes refused because their frame failed the CRC trailer check
+        # or did not decode.
+        self._tm_wire_corrupt = reg.counter("dps_wire_corrupt_total")
+        # Encoded header-only NOT_MODIFIED reply cache (single entry: the
+        # current step), built single-flight: identical delta polls racing
+        # a step transition wait for the one reply being encoded.
+        self._nm_cache: tuple | None = None  # guarded by: self._nm_lock
+        self._nm_lock = threading.Lock()
+        self._nm_building = None  # guarded by: self._nm_lock
+        self._nm_cond = threading.Condition(self._nm_lock)
+        self._tm_nm_cache_hits = reg.counter(
+            "dps_fetch_nm_cache_hits_total")
+
+    # -- directive channel, passive half ------------------------------------
+
+    def directives_for(self, worker_id) -> list[dict]:
+        with self._directive_lock:
+            return [dict(d) for d in self._directives.get(worker_id, [])]
+
+    def _note_ack(self, worker_id, meta: dict) -> None:
+        ack = meta.get("directives_ack")
+        if ack is None:
+            return
+        try:
+            ack = int(ack)
+        except (TypeError, ValueError):
+            return
+        with self._directive_lock:
+            box = self._directives.get(worker_id)
+            if box:
+                box[:] = [d for d in box if d["seq"] > ack]
+
+    def _directive_fields(self, worker_id, meta: dict) -> dict:
+        """Reply-meta fields for the directive channel: process the
+        request's ack, then attach whatever is still outstanding."""
+        if worker_id is None:
+            return {}
+        self._note_ack(worker_id, meta)
+        out = self.directives_for(worker_id)
+        return {"directives": out} if out else {}
+
+    def post_directive(self, worker_id: int, action: str, **params):
+        raise later("monitor")
+
+    def quarantine(self, worker_id: int, seconds: float) -> None:
+        raise later("quarantine")
+
+    # -- activity-coupled membership expiry ---------------------------------
+
+    def _expire_tick(self) -> None:
+        """Membership expiry on push/registration activity. A no-op: the
+        port's store has no ``worker_timeout`` yet (ROADMAP §1 item 3), and
+        the JAX service's tick returns at once without one."""
+
+    # -- RPC bodies (request bytes -> reply bytes) --------------------------
+
+    def _membership_fields(self) -> dict:
+        """Live membership for elastic remote workers; empty unless the
+        store is elastic."""
+        if not getattr(self.store.config, "elastic", False):
+            return {}
+        return {"active_workers": self.store.membership_snapshot()}
+
+    def _qscale_fields(self, have_step: int | None = None) -> dict:
+        """Shared-scale table fields for a reply: the store's per-layer
+        gradient absmax table + version, attached when the store publishes
+        one AND the client's known version (``have_qscales``) is older."""
+        fn = getattr(self.store, "gradient_scales", None)
+        if not callable(fn):
+            return {}
+        try:
+            have = None if have_step is None else int(have_step)
+        except (TypeError, ValueError):
+            have = None  # garbled version: resend the table, never fail
+        scales, step = fn()
+        if not scales or (have is not None and have >= step):
+            return {}
+        return {"qscales": scales, "qscale_step": step}
+
+    def register_worker(self, request: bytes, ctx) -> bytes:
+        meta, _ = unpack_msg(request)
+        self._expire_tick()
+        store = self.store
+        worker_id, total = store.register_worker(
+            meta.get("worker_name", ""))
+        # Directive capability is advertised by the WORKER; a reused id
+        # slot must not inherit its predecessor's undelivered directives.
+        caps = meta.get("capabilities")
+        capable = isinstance(caps, (list, tuple)) and "directives" in caps
+        with self._directive_lock:
+            self._directives.pop(worker_id, None)
+            if capable:
+                self._directive_capable.add(worker_id)
+            else:
+                self._directive_capable.discard(worker_id)
+        # The keys and their order are a default JAX server's (no monitor,
+        # no jobs, no sharding).
+        return pack_msg({
+            "worker_id": worker_id,
+            "total_workers": total,
+            "push_codec": store.push_codec,
+            "fetch_codec": getattr(store, "fetch_codec", "none"),
+            "mode": store.config.mode,
+            "learning_rate": store.config.learning_rate,
+            "staleness_bound": int(getattr(store.config,
+                                           "staleness_bound", 5)),
+            "elastic": bool(getattr(store.config, "elastic", False)),
+            "delta_fetch": bool(getattr(store, "supports_delta_fetch",
+                                        False)),
+            "trace_context": True,
+            "health_report": False,
+            "compressed_domain": bool(getattr(
+                store, "supports_compressed_domain", False)),
+            "directives": True,
+            "checksum": True,
+            **self._qscale_fields(),
+            **self._membership_fields(),
+        })
+
+    def _refuse_corrupt(self, wid, meta: dict) -> bytes:
+        """Refuse a push whose payload failed integrity verification (CRC
+        trailer mismatch, or a frame the decoder rejects): counted, never
+        applied, and never recorded in the dedupe table, so the client's
+        clean retry of the same token can still apply."""
+        self._tm_wire_corrupt.inc()
+        print(f"WIRE_CORRUPT push refused worker={wid}", flush=True)
+        return pack_msg({"received": False, "accepted": False,
+                         "corrupt": True,
+                         "global_step": self.store.global_step,
+                         **self._directive_fields(wid, meta)})
+
+    def push_gradrients(self, request: bytes, ctx) -> bytes:
+        meta, payload = unpack_msg(request)
+        return self._push_body(meta, payload, ctx)
+
+    def _push_body(self, meta: dict, payload, ctx) -> bytes:
+        store = self.store
+        wid = int(meta["worker_id"])
+        # Integrity gate FIRST — before the dedupe records anything for
+        # this token. None (no trailer) passes; only an explicit False
+        # refuses.
+        if len(payload) and frame_checksum_ok(payload) is False:
+            return self._refuse_corrupt(wid, meta)
+        self._expire_tick()
+        token = meta.get("push_token")
+        entry = None
+        if token is not None:
+            nonce, count = parse_push_token(token)
+            with self._push_seen_lock:
+                prev = self._push_seen.get(nonce)
+                if prev is not None and count <= prev[0]:
+                    dup, stale = prev, count < prev[0]
+                else:
+                    # New push (or the first with a HIGHER count): record
+                    # it. A lower count never replaces a higher one.
+                    dup, stale = None, False
+                    entry = [count, None, threading.Event(), wid, None]
+                    self._push_seen[nonce] = entry
+                    self._push_seen.move_to_end(nonce)
+                    while len(self._push_seen) > PUSH_SEEN_CAP:
+                        self._push_seen.popitem(last=False)
+            if dup is not None:
+                if stale:
+                    # ZOMBIE: a deadline-expired attempt executing after
+                    # newer pushes from the same client already landed.
+                    # Answer terminally; never re-apply.
+                    return pack_msg({
+                        "received": True, "accepted": False,
+                        "duplicate": True, "stale_token": True,
+                        "global_step": store.global_step})
+                # Retry of the push most recently seen from this client:
+                # wait for the original's outcome, bounded by the caller's
+                # remaining deadline minus a margin for the reply.
+                budget = DUP_WAIT_CAP_S
+                remaining = None
+                if ctx is not None and callable(
+                        getattr(ctx, "time_remaining", None)):
+                    remaining = ctx.time_remaining()
+                if remaining is not None:
+                    budget = max(0.0, min(budget, remaining - 1.0))
+                dup[2].wait(timeout=budget)
+                if dup[1] is None:
+                    # Still running, or refused and undone: fail
+                    # retryably so the client's next attempt re-checks.
+                    if ctx is not None:
+                        ctx.abort(grpc.StatusCode.UNAVAILABLE,
+                                  "push still in flight; retry")
+                    raise TimeoutError("push still in flight")
+                return pack_msg({
+                    "received": True, "accepted": bool(dup[1]),
+                    "duplicate": True,
+                    "global_step": store.global_step})
+        try:
+            grads = decode_tensor_dict(payload)
+        except ValueError:
+            # A garbled frame that carried no trailer: refuse it like a
+            # CRC failure and UNDO the in-flight dedupe entry, so a clean
+            # retry of the same token applies instead of replaying a
+            # refusal. Waiters on the entry wake (outcome None) and fail
+            # retryably.
+            if entry is not None:
+                with self._push_seen_lock:
+                    if self._push_seen.get(nonce) is entry:
+                        del self._push_seen[nonce]
+                entry[2].set()
+            return self._refuse_corrupt(wid, meta)
+        accepted = False
+        try:
+            accepted = store.push(wid, grads, int(meta["fetched_step"]))
+        finally:
+            # On an exception the event still fires (outcome False), so a
+            # waiting retry is never stranded until its timeout.
+            if entry is not None:
+                entry[1] = accepted
+                entry[4] = store.global_step
+                entry[2].set()
+        return pack_msg({"received": True, "accepted": accepted,
+                         "global_step": store.global_step,
+                         **self._directive_fields(wid, meta)})
+
+    def journal_snapshot(self, job: str | None = None) -> list[dict]:
+        raise later("journal")
+
+    def load_journal(self, entries) -> int:
+        raise later("journal")
+
+    # dpslint: hot-path — every worker ping; NM replies serve a cached encode
+    def fetch_parameters(self, request: bytes, ctx) -> bytes:
+        meta, _ = unpack_msg(request)
+        store = self.store
+        wid = None if meta.get("worker_id") is None \
+            else int(meta["worker_id"])
+        have = meta.get("have_step")
+        # The scale-table refresh rides the same reply, delta-gated on the
+        # client's known version.
+        qfields = self._qscale_fields(meta["have_qscales"]) \
+            if "have_qscales" in meta else {}
+        dfields = self._directive_fields(wid, meta)
+        if have is not None \
+                and getattr(store, "supports_delta_fetch", False):
+            params, step = store.fetch(wid, have_step=int(have))
+            if not params and step == int(have):
+                # Version-gated delta fetch: the step hasn't advanced past
+                # what the client holds — the reply is a header.
+                mfields = self._membership_fields()
+                if qfields or dfields:
+                    return pack_msg({"global_step": step,
+                                     "not_modified": True, **qfields,
+                                     **dfields, **mfields})
+                # Attachment-free NM reply: serve the cached encode.
+                key = (step, repr(mfields))
+                with self._nm_lock:
+                    if self._nm_cache is not None \
+                            and self._nm_cache[0] == key:
+                        self._tm_nm_cache_hits.inc()
+                        return self._nm_cache[1]
+                    if self._nm_building == key:
+                        # Single-flight: another handler is encoding this
+                        # exact reply; wait briefly and serve its bytes.
+                        self._nm_cond.wait_for(
+                            lambda: self._nm_building != key
+                            or (self._nm_cache is not None
+                                and self._nm_cache[0] == key),
+                            timeout=0.25)
+                        if self._nm_cache is not None \
+                                and self._nm_cache[0] == key:
+                            self._tm_nm_cache_hits.inc()
+                            return self._nm_cache[1]
+                    else:
+                        self._nm_building = key
+                reply = pack_msg({"global_step": step,
+                                  "not_modified": True, **mfields})
+                with self._nm_lock:
+                    self._nm_cache = (key, reply)
+                    if self._nm_building == key:
+                        self._nm_building = None
+                    self._nm_cond.notify_all()
+                return reply
+        else:
+            params, step = store.fetch(wid)
+        return pack_msg({"global_step": step, **qfields, **dfields,
+                         **self._membership_fields()},
+                        encode_tensor_dict(params))
+
+    def job_finished(self, request: bytes, ctx) -> bytes:
+        meta, _ = unpack_msg(request)
+        self.store.job_finished(int(meta["worker_id"]))
+        return pack_msg({"acknowledged": True})
+
+    def _admin(self, what: str):
+        def refuse(request: bytes, ctx) -> bytes:
+            err = later(what)
+            if ctx is not None:
+                ctx.abort(grpc.StatusCode.UNIMPLEMENTED, str(err))
+            raise err
+        return refuse
+
+    def reshard(self, request: bytes, ctx) -> bytes:
+        return self._admin("reshard")(request, ctx)
+
+    def submit_job(self, request: bytes, ctx) -> bytes:
+        return self._admin("jobs")(request, ctx)
+
+    # -- wiring --------------------------------------------------------------
+
+    def _instrumented(self, name: str, fn):
+        """Wrap an RPC body with its span + byte counters. The span covers
+        the full handler (decode + store work + encode); durations record
+        even when the body raises or aborts. With tracing on, the wrapper
+        adopts the client's propagated trace context (fetch meta or push
+        frame header) and opens an ``rpc.server`` span under it."""
+        hist, b_in, b_out, calls, slo_hist, errors = self._tm_rpc[name]
+
+        def wrapped(request: bytes, ctx) -> bytes:
+            t0 = now()
+            b_in.inc(len(request))
+            calls.inc()
+            wire_ctx = None
+            if trace_enabled():
+                try:
+                    meta, payload = unpack_msg(request)
+                    wire_ctx = meta.get("trace") or \
+                        (peek_trace(payload) if len(payload) else None)
+                except Exception:  # noqa: BLE001
+                    wire_ctx = None  # malformed request fails in fn, not here
+            sp = None
+            try:
+                with use_wire_context(wire_ctx), \
+                        trace_span("rpc.server", rpc=name) as sp:
+                    reply = fn(request, ctx)
+            except Exception:  # noqa: BLE001 — counted, then re-raised
+                errors.inc()
+                raise
+            finally:
+                dur = now() - t0
+                hist.observe(dur)
+                tid = getattr(getattr(sp, "ctx", None), "trace_id", None)
+                if tid is not None and self._tm_exemplars.sample():
+                    slo_hist.observe(dur, exemplar=tid)
+                else:
+                    slo_hist.observe(dur)
+            b_out.inc(len(reply))
+            return reply
+
+        return wrapped
+
+    def handlers(self) -> grpc.GenericRpcHandler:
+        ident = lambda b: b  # noqa: E731 — bytes pass through untouched
+        method_map = {
+            "RegisterWorker": self.register_worker,
+            "PushGradrients": self.push_gradrients,  # quirk 1, on purpose
+            "FetchParameters": self.fetch_parameters,
+            "JobFinished": self.job_finished,
+            "Reshard": self.reshard,
+            "SubmitJob": self.submit_job,
+        }
+        return grpc.method_handlers_generic_handler(SERVICE_NAME, {
+            name: grpc.unary_unary_rpc_method_handler(
+                self._instrumented(name, fn),
+                request_deserializer=ident, response_serializer=ident)
+            for name, fn in method_map.items()
+        })
+
+
+def serve(store, port: int = 8000, max_rpc_workers: int = 20,
+          service: ParameterService | None = None, host: str = "[::]"
+          ) -> tuple[grpc.Server, int]:
+    """Start the service (server.py:370-393). Returns (server, bound_port)
+    — pass port=0 to pick a free port. Callers own shutdown. A pool of 20
+    threads reproduces the reference's cap. ``host`` defaults to the JAX
+    function's wildcard ``[::]``; where the host has no IPv6 the wildcard
+    is IPv4's ``0.0.0.0``. Tests bind ``127.0.0.1``."""
+    server = grpc.server(
+        futures.ThreadPoolExecutor(max_workers=max_rpc_workers),
+        options=GRPC_OPTIONS)
+    svc = service if service is not None else ParameterService(store)
+    server.add_generic_rpc_handlers((svc.handlers(),))
+    try:
+        bound = server.add_insecure_port(f"{host}:{port}")
+    except RuntimeError:
+        bound = 0
+    if not bound and host == "[::]":
+        bound = server.add_insecure_port(f"0.0.0.0:{port}")
+    if not bound:
+        raise RuntimeError(f"could not bind {host}:{port}")
+    server.start()
+    return server, bound

@@ -356,6 +356,16 @@ class ParameterStore(AggregationBase):
         fp16 cast on the worker side)."""
         return self._push_codec
 
+    #: ``fetch(have_step=...)`` answers NOT_MODIFIED when the step has not
+    #: moved. The gRPC service reads this (and the flag below) with
+    #: ``getattr`` to answer delta fetches and to advertise the
+    #: capabilities at registration, as the JAX store declares them.
+    supports_delta_fetch = True
+
+    #: This store aggregates quantized pushes without decoding them and
+    #: publishes per-layer gradient scales.
+    supports_compressed_domain = True
+
     def gradient_scales(self) -> tuple[dict[str, float], int]:
         """The server's per-layer gradient ABSMAX table + its version.
         Workers quantize against these (int8 scale = absmax/127, int4 =

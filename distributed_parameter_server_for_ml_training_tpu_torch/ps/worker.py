@@ -21,8 +21,11 @@ Host batches are uploaded ``prefetch_batches`` ahead of the step
 Not in this slice, each refused with ``NotImplementedError`` when its
 config field asks for it: the overlapped comms pipeline (``overlap``),
 ``local_sgd``, the heartbeat, session resume (``reconnect_timeout``) and
-NaN injection. Health reports and server directives ride the gRPC store,
-which a later slice ports.
+NaN injection. The store is the in-process ``ParameterStore`` or a
+``comms/client.py:RemoteStore``, which duck-types its worker-facing API
+over gRPC (``cli worker``); the worker reads the codec, the shared scales
+and the delta-fetch capability from whichever it is given. Acting on
+server directives and sending health reports come with ROADMAP §1 item 3.
 """
 
 from __future__ import annotations
@@ -111,12 +114,16 @@ class WorkerResult:
     local_steps_completed: int = 0
     pushes_accepted: int = 0
     pushes_rejected: int = 0
+    # Client-side wire accounting (RemoteStore.wire_stats); empty for the
+    # in-process store, which crosses no wire.
+    wire: dict = field(default_factory=dict)
     error: Exception | None = None
 
     def metrics(self, total_workers: int, learning_rate: float,
                 config: WorkerConfig) -> dict:
-        """METRICS_JSON field parity with worker.py:421-434."""
-        return {
+        """METRICS_JSON field parity with worker.py:421-434 (+ wire
+        accounting when the store is remote)."""
+        out = {
             "worker_id": self.worker_id,
             "worker_name": self.worker_name,
             "total_workers": total_workers,
@@ -136,6 +143,8 @@ class WorkerResult:
             "num_epochs": config.num_epochs,
             "reconnects": 0,
         }
+        out.update(self.wire)
+        return out
 
 
 def _window_mean(accum: dict, n: int) -> dict:
@@ -243,7 +252,17 @@ class PSWorker(threading.Thread):
             self.result.error = e
         finally:
             if self.result.worker_id >= 0:
-                self.store.job_finished(self.result.worker_id)
+                try:
+                    self.store.job_finished(self.result.worker_id)
+                except Exception as e:  # noqa: BLE001
+                    # A dead server at goodbye time must not erase an
+                    # otherwise complete run.
+                    print(f"JobFinished failed for worker "
+                          f"{self.result.worker_id}: {e!r}", flush=True)
+            # After JobFinished, so the last RPC is counted too.
+            ws = getattr(self.store, "wire_stats", None)
+            if callable(ws):
+                self.result.wire = ws()
 
     def _compute_shard(self, worker_id: int, total_workers: int):
         """This worker's contiguous data shard (worker.py:166-179), split
@@ -427,7 +446,8 @@ class PSWorker(threading.Thread):
         unchanged — the params a full refetch would have returned, since
         the canonical step didn't move."""
         use_delta = (have_step is not None and current is not None
-                     and self.config.delta_fetch)
+                     and self.config.delta_fetch
+                     and getattr(self.store, "supports_delta_fetch", False))
         if use_delta:
             flat, fetched_step = self.store.fetch(worker_id,
                                                   have_step=have_step)
@@ -439,10 +459,18 @@ class PSWorker(threading.Thread):
         with trace_span("worker.codec", stage="decode"), self._gp("codec"):
             self._tm_fetch_post.inc(
                 sum(int(np.asarray(v).nbytes) for v in flat.values()))
-            params = {k: torch.as_tensor(np.asarray(v, np.float32),
-                                         device=self.device)
-                      for k, v in flat.items()}
+            params = {k: self._upload(v) for k, v in flat.items()}
             return params, fetched_step
+
+    def _upload(self, v) -> torch.Tensor:
+        """One fetched fp32 array as a tensor on the worker's device. A
+        RemoteStore's arrays are read-only views into the reply, which
+        torch cannot wrap: they are copied once on the host, as the
+        in-process store copies its params for every fetch."""
+        a = np.asarray(v, np.float32)
+        if not a.flags.writeable:
+            a = a.copy()
+        return torch.as_tensor(a, device=self.device)
 
     def _gradient_scales(self) -> dict:
         """The store's per-layer absmax table (shared-scale quantization);

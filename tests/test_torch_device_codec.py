@@ -9,12 +9,14 @@ import numpy as np
 import pytest
 import torch
 from test_torch_jax_reference import CODEC_PLANS, CODEC_PUSHES, \
-    codec_payload
+    WIRE_PLAN, codec_payload, wire_frame
 
 from distributed_parameter_server_for_ml_training_tpu.ops.compression \
     import ErrorFeedback as JaxErrorFeedback, compress_push as jax_compress
 from distributed_parameter_server_for_ml_training_tpu.ops.device_codec \
     import DeviceCodec as JaxDeviceCodec
+from distributed_parameter_server_for_ml_training_tpu_torch.comms.wire \
+    import encode_tensor_dict
 from distributed_parameter_server_for_ml_training_tpu_torch.ops.compression \
     import ErrorFeedback, compress_push, wire_decompress
 from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
@@ -164,3 +166,36 @@ def test_cuda_device_codec_bytes_equal_reference():
     assert (Q.wire_quantize_multi.launches - before[0],
             Q.wire_quantize.launches - before[1]) == (
                 len(CODEC_PLANS) * CODEC_PUSHES, 0)
+
+
+def _wire_frames(device: str) -> list:
+    """The port's checksummed frames of the device codec's int8 pushes,
+    the inputs and error feedback of the fixture's int8 plan."""
+    rng = np.random.default_rng(list(PLANS).index(WIRE_PLAN))
+    codec = DeviceCodec(error_feedback=True, device=device)
+    frames = []
+    for _ in range(CODEC_PUSHES):
+        g = {n: torch.from_numpy(a).to(device) for n, a in _grads(rng).items()}
+        frames.append(encode_tensor_dict(
+            codec.encode_now(g, PLANS[WIRE_PLAN]), checksum=True))
+    return frames
+
+
+def test_device_codec_frames_equal_the_jax_frames():
+    """What a RemoteStore sends for an int8 push on the CPU: the JAX
+    package's frame of ``compress_push``'s payload, byte for byte."""
+    assert _wire_frames("cpu") == [wire_frame(p)
+                                   for p in range(CODEC_PUSHES)]
+
+
+@pytest.mark.cuda
+def test_cuda_device_codec_frames_equal_the_jax_frames():
+    """The same on the card: K1's payload, framed by the port's wire
+    codec, is the fixture's JAX frame byte for byte."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the codec's kernel runs only on "
+                    "the card")
+    before = Q.wire_quantize_multi.launches
+    assert _wire_frames("cuda") == [wire_frame(p)
+                                    for p in range(CODEC_PUSHES)]
+    assert Q.wire_quantize_multi.launches - before == CODEC_PUSHES

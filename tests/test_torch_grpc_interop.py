@@ -1,0 +1,289 @@
+"""Each package's worker against each package's gRPC server, over real
+gRPC on localhost: the port's ``PSWorker`` through its ``RemoteStore``
+against the JAX ``ParameterService`` and against the port's, and the JAX
+``PSWorker`` through the JAX ``RemoteStore`` against both. A 1-worker sync
+epoch of a few batches of a tiny ResNet on the CPU (int8 pushes with error
+feedback, the compressed-domain store, shared scales, delta fetches) must
+reach the same global step with bit-equal store params against either
+server, and the request frames the two servers record must be equal byte
+for byte once the push token's 12-hex nonce is masked.
+
+Every server binds 127.0.0.1 at port 0 and is stopped by a fixture
+finalizer; every client call has a deadline (``rpc_timeout``). A test
+marked ``slow`` runs the port's ``cli serve`` with two ``cli worker
+--device cpu`` processes."""
+
+import os
+import re
+import subprocess
+import sys
+import threading
+from concurrent import futures
+from pathlib import Path
+
+import grpc
+import jax
+import numpy as np
+import pytest
+
+from distributed_parameter_server_for_ml_training_tpu.comms import \
+    client as JC, service as JS
+from distributed_parameter_server_for_ml_training_tpu.data.cifar import \
+    synthetic_cifar100 as jax_synthetic
+from distributed_parameter_server_for_ml_training_tpu.models import \
+    ResNet as JaxResNet
+from distributed_parameter_server_for_ml_training_tpu.ps.store import (
+    ParameterStore as JaxStore, StoreConfig as JaxConfig)
+from distributed_parameter_server_for_ml_training_tpu.ps.worker import (
+    PSWorker as JaxWorker, WorkerConfig as JaxWorkerConfig)
+from distributed_parameter_server_for_ml_training_tpu.utils.pytree import \
+    flatten_params as jax_flatten
+from distributed_parameter_server_for_ml_training_tpu_torch.comms import \
+    client as PC, service as PS, wire as PW
+from distributed_parameter_server_for_ml_training_tpu_torch.data import \
+    synthetic_cifar100
+from distributed_parameter_server_for_ml_training_tpu_torch.models import \
+    ResNet
+from distributed_parameter_server_for_ml_training_tpu_torch.ps import (
+    PSWorker, ParameterStore, StoreConfig, WorkerConfig)
+
+REPO = Path(__file__).resolve().parents[1]
+RPC_TIMEOUT = 30.0
+STEPS = 4           # batches of 64 in the one epoch
+TOKEN = re.compile(rb'"push_token": "[0-9a-f]{12}:')
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jm = JaxResNet(stage_sizes=(1, 1), num_filters=8, num_classes=10)
+    v = jm.init(jax.random.PRNGKey(0), np.zeros((1, 32, 32, 3), np.float32),
+                train=False)
+    tm = ResNet(stage_sizes=(1, 1), num_filters=8, num_classes=10)
+    return (jm, jax_flatten(v["params"]), tm,
+            synthetic_cifar100(64 * STEPS, 64, 10, seed=2),
+            jax_synthetic(64 * STEPS, 64, 10, seed=2))
+
+
+@pytest.fixture
+def start_server():
+    """``start(package, params) -> (address, store, recorded requests)``;
+    every server started is stopped at teardown."""
+    servers = []
+
+    def start(package: str, params: dict):
+        cfg = dict(mode="sync", total_workers=1, push_codec="int8")
+        if package == "jax":
+            store = JaxStore({k: v.copy() for k, v in params.items()},
+                             JaxConfig(**cfg))
+            svc = JS.ParameterService(store)
+        else:
+            store = ParameterStore({k: v.copy() for k, v in params.items()},
+                                   StoreConfig(**cfg))
+            svc = PS.ParameterService(store)
+        recorded = []
+        for rpc in ("register_worker", "push_gradrients",
+                    "fetch_parameters", "job_finished"):
+            body = getattr(svc, rpc)
+
+            def wrapped(request, ctx, body=body, rpc=rpc):
+                recorded.append((rpc, bytes(request)))
+                return body(request, ctx)
+            setattr(svc, rpc, wrapped)
+        if package == "jax":
+            server = grpc.server(futures.ThreadPoolExecutor(max_workers=4),
+                                 options=JS.GRPC_OPTIONS)
+            server.add_generic_rpc_handlers((svc.handlers(),))
+            port = server.add_insecure_port("127.0.0.1:0")
+            server.start()
+        else:
+            server, port = PS.serve(store, port=0, max_rpc_workers=4,
+                                    service=svc, host="127.0.0.1")
+        servers.append(server)
+        return f"127.0.0.1:{port}", store, recorded
+
+    yield start
+    for server in servers:
+        server.stop(grace=None).wait(10)
+
+
+def _masked(recorded):
+    return [(rpc, TOKEN.sub(b'"push_token": "<nonce>:', req))
+            for rpc, req in recorded]
+
+
+def _bit_equal(a: dict, b: dict):
+    assert list(a) == list(b)
+    for k in a:
+        assert a[k].tobytes() == b[k].tobytes(), k
+
+
+def test_port_worker_trains_against_both_servers(setup, start_server):
+    _, init, tm, ds, _ = setup
+    runs = {}
+    for package in ("jax", "port"):
+        address, store, recorded = start_server(package, init)
+        remote = PC.RemoteStore(address, rpc_timeout=RPC_TIMEOUT)
+        worker = PSWorker(remote, tm, ds, WorkerConfig(
+            batch_size=64, num_epochs=1, augment=False, device="cpu"))
+        worker.run()
+        remote.close()
+        assert worker.result.error is None, worker.result.error
+        assert worker.result.pushes_accepted == STEPS
+        runs[package] = (store.snapshot(), recorded, worker.result)
+    (jp, jstep), jrec, jres = runs["jax"]
+    (pp, pstep), prec, pres = runs["port"]
+    assert jstep == pstep == STEPS
+    _bit_equal(pp, jp)
+    assert any(not np.array_equal(pp[k], init[k]) for k in init)
+    assert _masked(prec) == _masked(jrec)
+    pushes = [req for rpc, req in prec if rpc == "push_gradrients"]
+    assert len(pushes) == STEPS
+    # Every push carried a token and the CRC trailer.
+    for p in pushes:
+        meta, frame = PS.unpack_msg(p)
+        assert TOKEN.match(b'"push_token": "'
+                           + meta["push_token"].encode()), meta
+        assert PW.frame_checksum_ok(frame) is True
+    # Delta fetches were sent, and the wire accounting names every RPC.
+    assert any(b'"have_step"' in req for rpc, req in prec
+               if rpc == "fetch_parameters")
+    assert pres.wire == jres.wire and \
+        pres.wire["rpc_counts"]["PushGradrients"] == STEPS
+
+
+def test_jax_worker_trains_against_both_servers(setup, start_server):
+    """ROADMAP §1 item 2's acceptance test: a JAX worker against the
+    port's service reaches the step and params it reaches against the
+    JAX service."""
+    jm, init, _, _, jds = setup
+    runs = {}
+    for package in ("port", "jax"):
+        address, store, recorded = start_server(package, init)
+        remote = JC.RemoteStore(address, rpc_timeout=RPC_TIMEOUT)
+        worker = JaxWorker(remote, jm, jds, JaxWorkerConfig(
+            batch_size=64, num_epochs=1, augment=False))
+        worker.run()
+        remote.close()
+        assert worker.result.error is None, worker.result.error
+        assert worker.result.pushes_accepted == STEPS
+        runs[package] = (store.snapshot(), recorded)
+    (jp, jstep), jrec = runs["jax"]
+    (pp, pstep), prec = runs["port"]
+    assert jstep == pstep == STEPS
+    _bit_equal(pp, jp)
+    assert _masked(prec) == _masked(jrec)
+
+
+def test_port_client_refuses_a_sharded_registration(start_server, setup):
+    """A reply the port's client cannot serve is refused, never ignored:
+    a shard map at registration."""
+    _, init, _, _, _ = setup
+    address, _, _ = start_server("port", init)
+    remote = PC.RemoteStore(address, rpc_timeout=RPC_TIMEOUT)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        remote._note_reply({"shard_map": {"version": 1}})
+    wid, total = remote.register_worker("w")
+    assert (wid, total) == (0, 1)
+    assert remote.supports_checksum and remote.supports_delta_fetch
+    for call in (lambda: remote.repush_last(0), lambda: remote.submit_job(""),
+                 lambda: remote.drain_job("x"),
+                 lambda: remote.reshard_op("status")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
+    remote.job_finished(wid)
+    remote.close()
+    with pytest.raises(NotImplementedError, match="item 9"):
+        PC.RemoteStore(address, faults="seed=1")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        PC.RemoteStore(address, job="vision")
+
+
+def _read_port(proc, timeout: float) -> int:
+    """The bound port from ``cli serve``'s 'parameter server up on :P'."""
+    found = {}
+
+    def scan():
+        for line in proc.stderr:
+            m = re.search(r"parameter server up on :(\d+)", line)
+            if m:
+                found["port"] = int(m.group(1))
+                return
+
+    t = threading.Thread(target=scan, daemon=True)
+    t.start()
+    t.join(timeout)
+    if "port" not in found:
+        raise AssertionError("cli serve did not come up")
+    return found["port"]
+
+
+@pytest.mark.slow
+def test_cli_serve_and_two_cli_workers(tmp_path):
+    """The reference's topology as processes: ``cli serve`` and two ``cli
+    worker --device cpu`` (full ResNet-18, 1 step each), every process
+    exiting 0 within the timeout."""
+    cli = [sys.executable, "-m",
+           "distributed_parameter_server_for_ml_training_tpu_torch.cli"]
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    procs = []
+    try:
+        server = subprocess.Popen(
+            cli + ["serve", "--mode", "async", "--workers", "2",
+                   "--push-codec", "int8", "--port", "0", "--emit-metrics"],
+            cwd=tmp_path, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        procs.append(server)
+        port = _read_port(server, 120)
+        workers = [subprocess.Popen(
+            cli + ["worker", "--server", f"127.0.0.1:{port}",
+                   "--worker-name", f"w{i}", "--synthetic", "--num-train",
+                   "64", "--num-test", "32", "--batch-size", "32",
+                   "--epochs", "1", "--device", "cpu", "--emit-metrics"],
+            cwd=tmp_path, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for i in range(2)]
+        procs += workers
+        outs = [w.communicate(timeout=600)[0] for w in workers]
+        s_out, s_err = server.communicate(timeout=120)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [w.returncode for w in workers] == [0, 0], outs
+    assert server.returncode == 0, s_err
+    assert all("METRICS_JSON" in o and '"PushGradrients": 1' in o
+               for o in outs), outs
+    assert '"global_steps_completed": 2' in s_out, s_out
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["serve", "--elastic"], "item 3"),
+    (["serve", "--worker-timeout", "30"], "item 3"),
+    (["serve", "--sync-quorum", "2"], "item 3"),
+    (["serve", "--round-deadline", "5"], "item 3"),
+    (["serve", "--fetch-codec", "bf16"], "item 3"),
+    (["serve", "--checkpoint-dir", "ckpt"], "item 5"),
+    (["serve", "--restore"], "item 5"),
+    (["serve", "--faults", "seed=7"], "item 9"),
+    (["serve", "--jobs", "a:weight=1"], "item 9"),
+    (["serve", "--store-backend", "native"], "items 4 and 9"),
+    (["serve", "--store-backend", "device"], "items 4 and 9"),
+    (["worker", "--shards", "h:1,h:2", "--device", "cpu"], "item 9"),
+    (["worker", "--job", "vision", "--device", "cpu"], "item 9"),
+    (["worker", "--faults", "seed=7", "--device", "cpu"], "item 9"),
+    (["worker", "--heartbeat", "2", "--device", "cpu"], "item 3"),
+    (["worker", "--overlap", "--device", "cpu"], "item 3"),
+    (["worker", "--reconnect-timeout", "60", "--device", "cpu"], "item 3"),
+], ids=lambda v: "_".join(v) if isinstance(v, list) else v)
+def test_cli_flags_of_later_slices_are_refused(argv, item):
+    from distributed_parameter_server_for_ml_training_tpu_torch import cli
+    with pytest.raises(NotImplementedError, match=f"ROADMAP §1 {item}"):
+        cli.main(argv)
+
+
+def test_cli_serves_and_trains_only_resnet18():
+    from distributed_parameter_server_for_ml_training_tpu_torch import cli
+    for argv in (["serve", "--model", "vit_tiny"],
+                 ["worker", "--model", "vit_b16", "--device", "cpu"]):
+        with pytest.raises(SystemExit, match="resnet18"):
+            cli.main(argv)

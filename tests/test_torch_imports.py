@@ -48,7 +48,9 @@ def test_port_files_exist():
                      "utils/metrics.py", "ops/attention.py",
                      "ops/flash_attention.py", "parallel/ring_attention.py",
                      "models/vit.py", "train/model_parallel.py",
-                     "train/baseline.py", "train/device_loop.py"):
+                     "train/baseline.py", "train/device_loop.py",
+                     "comms/__init__.py", "comms/wire.py",
+                     "comms/service.py", "comms/client.py"):
         assert required in names, required
     for kernel in ("wire_quantize.cu", "block_quantize.cu",
                    "flash_attention.cu"):
@@ -155,6 +157,37 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path, kernel):
     with pytest.raises(RuntimeError, match=f"nvcc failed for {kernel}"):
         _build.build(kernel)
     assert list(tmp_path.iterdir()) == []
+
+
+def test_cli_worker_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    from distributed_parameter_server_for_ml_training_tpu_torch import cli
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["worker", "--server", "127.0.0.1:1", "--synthetic",
+                  "--num-train", "64", "--num-test", "16", "--epochs", "1"])
+
+
+def _relative_imports(path: pathlib.Path):
+    """Package-relative import targets of one module, resolved."""
+    pkg = path.relative_to(REPO).with_suffix("").parts[:-1]
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.ImportFrom) and node.level:
+            base = pkg[:len(pkg) - node.level + 1]
+            yield ".".join(base + tuple(filter(None, [node.module])))
+
+
+def test_comms_imports_nothing_unported():
+    """``comms/`` imports only the wire, the service, the client, the
+    telemetry, the packed int4 type and (lazily) the fetch codecs: never
+    ``ps/``, whose JAX counterpart drags the device store and jax in."""
+    allowed = {"comms", "comms.wire", "comms.service", "comms.client",
+               "telemetry", "telemetry.registry", "telemetry.trace",
+               "ops.packed", "ops.compression"}
+    for path in sorted((PORT / "comms").glob("*.py")):
+        for target in _relative_imports(path):
+            local = target.split(".", 1)[1] if "." in target else ""
+            assert local in allowed, f"{path.name} imports {target}"
 
 
 def test_sync_entry_points_default_to_cuda():

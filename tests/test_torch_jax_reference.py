@@ -5,10 +5,12 @@ The GPU host has no jax. So the ``cuda`` tests that hold the card to the
 JAX package read the JAX package's outputs from this file: K1's codes
 (``test_torch_quantize.py``: ``SIZES`` x levels x kinds, and one
 multi-tensor push), K2's codes and scales and K4's round trip for
-``BLOCK_CASES``, and ``compress_push`` over 3 plans x 3 pushes with error
-feedback (``test_torch_device_codec.py``). The tests here recompute every
-entry with the JAX package on the CPU and assert that the file holds
-exactly those bytes, so the file cannot drift from the reference.
+``BLOCK_CASES``, ``compress_push`` over 3 plans x 3 pushes with error
+feedback (``test_torch_device_codec.py``), and the checksummed wire frame
+(``comms/wire.py:encode_tensor_dict``) of each int8 push, as uint8 bytes.
+The tests here recompute every entry with the JAX package on the CPU and
+assert that the file holds exactly those bytes, so the file cannot drift
+from the reference.
 
 Regenerate it after changing one of those inputs, on a host with jax:
 
@@ -29,7 +31,9 @@ FIXTURE = Path(__file__).with_name("torch_port_jax_reference.npz")
 #: The device codec's plans held on the card, 3 pushes each with EF.
 CODEC_PLANS = ("int8", "int4", "mixed")
 CODEC_PUSHES = 3
-SECTIONS = ("k1/", "k1_multi/", "block/", "codec/")
+SECTIONS = ("k1/", "k1_multi/", "block/", "codec/", "wire/")
+#: The plan whose pushes' frames the fixture holds.
+WIRE_PLAN = "int8"
 
 
 def k1_key(n: int, levels: int, kind: str) -> str:
@@ -47,6 +51,16 @@ def block_key(case: str, what: str) -> str:
 
 def _codec_base(plan: str, push: int) -> str:
     return f"codec/{plan}/{push}"
+
+
+def wire_key(push: int) -> str:
+    return f"wire/{WIRE_PLAN}/{push}"
+
+
+def wire_frame(push: int) -> bytes:
+    """The JAX package's checksummed frame of push ``push`` of the int8
+    plan, from the fixture."""
+    return jax_reference()[wire_key(push)].tobytes()
 
 
 @functools.lru_cache(maxsize=None)
@@ -78,6 +92,8 @@ def reference_arrays() -> dict:
     import test_torch_device_codec as TC
     import test_torch_quantize as TQ
 
+    from distributed_parameter_server_for_ml_training_tpu.comms.wire import \
+        encode_tensor_dict
     from distributed_parameter_server_for_ml_training_tpu.ops.compression \
         import ErrorFeedback, compress_push
     from distributed_parameter_server_for_ml_training_tpu.ops.pallas import \
@@ -109,6 +125,9 @@ def reference_arrays() -> dict:
             payload = compress_push(TC._grads(rng), TC.PLANS[plan_name],
                                     ef=ef)
             base = _codec_base(plan_name, push)
+            if plan_name == WIRE_PLAN:
+                out[wire_key(push)] = np.frombuffer(
+                    encode_tensor_dict(payload, checksum=True), np.uint8)
             out[f"{base}/::order"] = np.array(list(payload))
             for key, arr in payload.items():
                 out[f"{base}/{key}"] = np.asarray(arr)
