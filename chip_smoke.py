@@ -13,13 +13,14 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    card, tolerance 0 (torch.equal): the multi-tensor kernel
    (``wire_quantize_multi``, one launch per push of up to 64 tensors)
    over the 62 ResNet-18 parameter shapes at levels 127 and 7 with
-   random, half-step and clipping inputs, over a push that mixes levels,
-   one whose largest entry is a misaligned view x[1:] and one table of 124
-   entries (two launches); the per-tensor first version (``wire_quantize``)
-   on every shape at both levels. Times one whole push of each, in turns,
-   host-issued by CUDA events, and the kernels' device time a push by
-   torch.profiler, against the bound; and the multi-tensor wrapper's host
-   time a push, step by step;
+   random, half-step and clipping inputs, each shape on its own through
+   the one-tensor surface (``wire_quantize_flat``, a push of one tensor),
+   over a push that mixes levels, one whose largest entry is a misaligned
+   view x[1:] and one table of 124 entries (two launches). Times one
+   whole push host-issued by CUDA events (before and after the plain
+   version's runs), and the kernel's device time a push by
+   torch.profiler, against the bound; and the wrapper's host time a
+   push, step by step;
 3. kernels K2, K3 and K4 (block-wise int8) against their plain versions,
    torch.equal at tolerance 0: the ResNet-18 ring chunk at N=4 as a batch
    of 4 rows of 2,805,033 values (rows 0, 4, 8 and 12 bytes past a
@@ -41,10 +42,9 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
 5. the async path: full ResNet-18 (100 classes, bf16 compute) trained by
    2 async workers through ``ParameterStore(push_codec="int8")`` for one
    epoch of synthetic CIFAR-100, eval on, host batches prefetched 2
-   ahead (the worker's default). K1's launch counts are reset
+   ahead (the worker's default). K1's launch count is reset
    just before and read just after: the multi-tensor kernel must have
-   launched ceil(62 / 64) = 1 time per push made, the per-tensor first
-   version never;
+   launched ceil(62 / 64) = 1 time per push made;
 6. a shorter run of the async path under torch.profiler: device time by
    kernel, the multi-tensor K1's device time a push and the device's busy
    share of the wall;
@@ -117,8 +117,8 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
 14. the gRPC path, phase 5's configuration over the wire: (a) in one
    process, the port's ``serve()`` on 127.0.0.1 at a free port and 2
    ``PSWorker`` threads on the card, each through its own ``RemoteStore``;
-   K1's counts reset just before and read just after: the multi-tensor
-   kernel once a push, the per-tensor one never; no push answered
+   K1's count reset just before and read just after: the multi-tensor
+   kernel once a push; no push answered
    ``duplicate``, no frame refused as corrupt, every push frame carrying
    a valid CRC-32 trailer; the store's params moved; each worker's first
    push frame byte-equal to the port's ``encode_tensor_dict`` of the NumPy
@@ -129,7 +129,34 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    --workers 2 --push-codec int8`` and 2 ``cli worker --synthetic
    --num-train 2048 --epochs 1`` on the card: every process exits 0
    within its timeout (one still alive then is killed, and the phase
-   fails), and the server reports a step above 0.
+   fails), and the server reports a step above 0;
+15. the gRPC path with the store options and the worker's modes on: (a)
+   ``serve()`` on 127.0.0.1 over ``StoreConfig(mode="async",
+   total_workers=2, push_codec="int8", staleness_bound=5,
+   fetch_codec="bf16", worker_timeout=30)`` and 2 ``PSWorker`` threads,
+   each through its own ``RemoteStore``, with
+   ``WorkerConfig(k_step_mode="local_sgd", sync_steps=4, overlap=True,
+   heartbeat_interval=1.0)`` over 4,096 images (16 steps, 4 pushes a
+   worker). K1's count reset just before and read just after: one launch
+   a push (8); every push frame with a valid CRC-32 trailer and none a
+   duplicate; every full fetch reply within 0.45-0.55 of phase 14's; one
+   fetch decoded by a fresh client equal, bit for bit, to the store's
+   params cast to bf16 and back; the comms pipeline's depth sampled
+   never above 1 (and above 0 at times); heartbeats on both workers; the
+   params moved. Reports img/s, the RPC medians, bytes a push and a
+   fetch, the overlap-saved seconds (sum and median) and the device's
+   idle share over a profiled shorter run, each beside phase 14 (a)'s
+   from the same run, and img/s with overlap off and on in turns (off,
+   on, on, off; eval off). (b) With ``cudnn.deterministic``, one worker:
+   ``local_sgd`` with K=1 pushes an int8 frame byte-equal to
+   ``faithful``'s at the same params and batch, and ``overlap=True``
+   leaves the store's params bit-equal to ``overlap=False``'s. (c) A
+   resume drill: one worker with ``reconnect_timeout=60``; the server is
+   stopped just before the worker's 3rd push leaves, and a new one
+   starts on the same port from ``load_snapshot`` of the old store's
+   snapshot: the worker finishes with one reconnect, and each of its 4
+   pushes is applied once (2 in the snapshot, 2 on the new server, the
+   stranded one re-sent under its own token).
 
 Then one JSON line of kernels and, last, the device line. Without a CUDA
 device, or outside a checkout of the repo, it exits non-zero and prints
@@ -138,6 +165,7 @@ no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -354,24 +382,25 @@ def phase_kernel(state: dict) -> None:
     assert len(shapes) == 62, len(shapes)
     n_total = sum(math.prod(s) for s in shapes.values())
     gen = torch.Generator(device="cuda").manual_seed(0)
-    max_err = {"wire_quantize_multi": 0, "wire_quantize": 0}
+    max_err = {"wire_quantize_multi": 0}
     mismatched = []
 
     def check(case, got, want):
         torch.cuda.synchronize()
         if got.numel():
-            max_err[case[0]] = max(max_err[case[0]], int(
-                (got.int() - want.int()).abs().max()))
+            max_err["wire_quantize_multi"] = max(
+                max_err["wire_quantize_multi"],
+                int((got.int() - want.int()).abs().max()))
         if not torch.equal(got, want):
             mismatched.append(case)
 
-    # Both kernels against their plain versions on every ResNet-18 shape:
-    # the per-tensor first version tensor by tensor, the multi-tensor
-    # kernel over the whole push (its flat buffer, padding included).
+    # The kernel against its plain version on every ResNet-18 shape: tensor
+    # by tensor through the one-tensor surface (a push of one tensor), and
+    # over the whole push (its flat buffer, padding included).
     for levels in (127, 7):
         xs, scales = k1_push(gen, shapes, [levels] * len(shapes))
         for name, x, scale in zip(shapes, xs, scales):
-            check(("wire_quantize", name, levels),
+            check(("wire_quantize_flat", name, levels),
                   Q.wire_quantize_flat(x, scale, levels),
                   Q.wire_quantize_plain(x, scale, levels))
         check(("wire_quantize_multi", levels),
@@ -402,25 +431,22 @@ def phase_kernel(state: dict) -> None:
                            Q.wire_quantize_multi.launches - before))
     del xs_m, shifted
 
-    # One whole int8 push of gradient-like tensors, the same tensors and
-    # scales for every version: host-issued by CUDA events, in turns (new,
-    # first version, first version, new), and the kernels' device time
-    # from torch.profiler.
+    # One whole int8 push of gradient-like tensors: host-issued by CUDA
+    # events (twice, around the plain version's runs), and the kernel's
+    # device time from torch.profiler.
     xs = [torch.randn(s, generator=gen, device="cuda") * 1e-2
           for s in shapes.values()]
     scales = [float(np.float32(float(x.abs().max()) / 127)) for x in xs]
     int8 = [127] * len(xs)
     pushes = {
         "wire_quantize_multi": lambda: Q.wire_quantize_multi(xs, scales,
-                                                             int8),
-        "wire_quantize": lambda: [Q.wire_quantize_flat(x, s, 127)
-                                  for x, s in zip(xs, scales)]}
-    turns = {name: [] for name in pushes}
-    for name in ("wire_quantize_multi", "wire_quantize", "wire_quantize",
-                 "wire_quantize_multi"):
-        turns[name].append(cuda_time_ms(pushes[name], 20))
+                                                             int8)}
+    turns = {"wire_quantize_multi": [cuda_time_ms(
+        pushes["wire_quantize_multi"], 20)]}
     plain = [cuda_time_ms(lambda: Q.wire_quantize_multi_plain(
         xs, scales, int8), 20) for _ in range(2)]
+    turns["wire_quantize_multi"].append(cuda_time_ms(
+        pushes["wire_quantize_multi"], 20))
     device = {name: device_ms_per_call(fn, 20, f"::{name}_kernel")
               for name, fn in pushes.items()}
     host_us = k1_host_breakdown(xs, scales, int8)
@@ -437,10 +463,10 @@ def phase_kernel(state: dict) -> None:
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
         for name in pushes}
     emit({"phase": "kernel_vs_plain", "kernel": "wire_quantize_multi",
-          "first_version": "wire_quantize",
           "shapes": len(shapes), "levels": [127, 7, "mixed"],
-          "cases": ["resnet18_127", "resnet18_7", "mixed_levels",
-                    "misaligned_view", "124_entries"],
+          "cases": ["resnet18_127", "resnet18_7", "per_tensor_127",
+                    "per_tensor_7", "mixed_levels", "misaligned_view",
+                    "124_entries"],
           "elements_per_push": n_total, "max_abs_err": max_err,
           "mismatched": mismatched,
           "push_ms_turns": turns, "plain_push_ms_runs": plain,
@@ -816,13 +842,11 @@ def phase_main_path(state: dict) -> None:
                                        seed=0)
     cfg = WorkerConfig(batch_size=batch, num_epochs=1, device="cuda")
     Q.wire_quantize_multi.launches = 0
-    Q.wire_quantize.launches = 0
     t0 = time.perf_counter()
     results = run_workers(store, model, ds, n_workers, cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"wire_quantize_multi": Q.wire_quantize_multi.launches,
-                "wire_quantize": Q.wire_quantize.launches}
+    launches = {"wire_quantize_multi": Q.wire_quantize_multi.launches}
     state["k1_launches"] = launches
 
     pushes = sum(r.pushes_accepted + r.pushes_rejected for r in results)
@@ -879,10 +903,8 @@ def phase_main_path(state: dict) -> None:
     if step <= 0 or pushes <= 0:
         raise AssertionError(f"no training happened (step {step}, "
                              f"pushes {pushes})")
-    # One launch of the multi-tensor K1 per 64 of a push's 62 tensors; the
-    # per-tensor first version on no push.
-    want = {"wire_quantize_multi": -(-62 // Q.WIRE_MAX_ENTRIES) * pushes,
-            "wire_quantize": 0}
+    # One launch of the multi-tensor K1 per 64 of a push's 62 tensors.
+    want = {"wire_quantize_multi": -(-62 // Q.WIRE_MAX_ENTRIES) * pushes}
     if launches != want:
         raise AssertionError(f"K1 launched {launches} times for {pushes} "
                              f"pushes; expected {want}")
@@ -1891,13 +1913,16 @@ def _rpc_timer(remote, times: dict) -> None:
 
 
 def _grpc_run(steps_per_worker: int, n_test: int, seed: int,
-              eval_each_epoch: bool, record: bool):
+              eval_each_epoch: bool, record: bool, store_kw=None,
+              worker_kw=None, probe=None):
     """Phase 5's configuration through the port's gRPC service on
     127.0.0.1: the server in this process, 2 ``PSWorker`` threads on the
-    card, each through its own ``RemoteStore``. With ``record``, the
-    service keeps every push request and fetch reply, and the device
-    codec the first gradients of each worker. Returns a dict of the
-    run's pieces."""
+    card, each through its own ``RemoteStore``. ``store_kw`` and
+    ``worker_kw`` add StoreConfig and WorkerConfig options (phase 15).
+    With ``record``, the service keeps every push request and fetch
+    reply, and the device codec the first gradients of each worker.
+    ``probe(workers, done)`` runs on a thread of its own while the
+    workers train. Returns a dict of the run's pieces."""
     import threading
 
     import torch
@@ -1907,9 +1932,13 @@ def _grpc_run(steps_per_worker: int, n_test: int, seed: int,
     from distributed_parameter_server_for_ml_training_tpu_torch.ops \
         .device_codec import DeviceCodec
     from distributed_parameter_server_for_ml_training_tpu_torch.ps import (
-        PSWorker, WorkerConfig)
+        ParameterStore, PSWorker, StoreConfig, WorkerConfig)
 
     ds, model, store, init = main_path(steps_per_worker, n_test, seed)
+    if store_kw:
+        store = ParameterStore(init, StoreConfig(
+            mode="async", total_workers=N_WORKERS, push_codec="int8",
+            staleness_bound=5, **store_kw))
     svc = ParameterService(store)
     pushes, fetches, first_grads = [], [], {}
     encode = DeviceCodec.encode
@@ -1942,18 +1971,26 @@ def _grpc_run(steps_per_worker: int, n_test: int, seed: int,
     for r in remotes:
         _rpc_timer(r, rpc_ms)
     cfg = WorkerConfig(batch_size=BATCH, num_epochs=1, device="cuda",
-                       eval_each_epoch=eval_each_epoch)
+                       eval_each_epoch=eval_each_epoch, **(worker_kw or {}))
     workers = [PSWorker(r, model, ds, cfg, worker_name=f"grpc-{i}")
                for i, r in enumerate(remotes)]
+    done = threading.Event()
+    prober = threading.Thread(target=probe, args=(workers, done),
+                              daemon=True) if probe else None
     try:
         t0 = time.perf_counter()
         for w in workers:
             w.start()
+        if prober is not None:
+            prober.start()
         for w in workers:
             w.join()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
+        done.set()
+        if prober is not None:
+            prober.join(10)
         DeviceCodec.encode = encode
         for r in remotes:
             r.close()
@@ -1962,7 +1999,7 @@ def _grpc_run(steps_per_worker: int, n_test: int, seed: int,
                                                       for w in workers],
             "remotes": remotes, "wall": wall, "pushes": pushes,
             "fetches": fetches, "first_grads": first_grads,
-            "rpc_ms": rpc_ms}
+            "rpc_ms": rpc_ms, "address": f"127.0.0.1:{port}"}
 
 
 def _grpc_in_process(state: dict) -> None:
@@ -1982,11 +2019,9 @@ def _grpc_in_process(state: dict) -> None:
     corrupt = get_registry().counter("dps_wire_corrupt_total")
     corrupt0 = corrupt.value
     Q.wire_quantize_multi.launches = 0
-    Q.wire_quantize.launches = 0
     run = _grpc_run(steps_per_worker=8, n_test=1000, seed=0,
                     eval_each_epoch=True, record=True)
-    launches = {"wire_quantize_multi": Q.wire_quantize_multi.launches,
-                "wire_quantize": Q.wire_quantize.launches}
+    launches = {"wire_quantize_multi": Q.wire_quantize_multi.launches}
     state["grpc_k1_launches"] = launches
     store, results = run["store"], run["results"]
     errors = [repr(r.error) for r in results if r.error is not None]
@@ -2023,6 +2058,12 @@ def _grpc_in_process(state: dict) -> None:
         and h["count"]}
     images = sum(r.local_steps_completed for r in results) * BATCH
     train_s = max(sum(r.epoch_times) for r in results)
+    state["grpc_a"] = {
+        "img_per_s": images / train_s,
+        "rpc_ms_median": {k: float(np.median(v))
+                          for k, v in sorted(run["rpc_ms"].items())},
+        "push_request_bytes": sorted(set(len(q) for q, _ in run["pushes"])),
+        "fetch_reply_bytes_full": sorted(set(full))}
     emit({"phase": "grpc_path", "form": "in_process", "model": "resnet18",
           "workers": N_WORKERS, "batch_size": BATCH, "push_codec": "int8",
           "global_step": step, "pushes": n_push,
@@ -2060,8 +2101,7 @@ def _grpc_in_process(state: dict) -> None:
     if step <= 0 or n_push != N_WORKERS * 8:
         raise AssertionError(f"step {step}, {n_push} pushes; expected "
                              f"a step above 0 and {N_WORKERS * 8} pushes")
-    want = {"wire_quantize_multi": -(-62 // Q.WIRE_MAX_ENTRIES) * n_push,
-            "wire_quantize": 0}
+    want = {"wire_quantize_multi": -(-62 // Q.WIRE_MAX_ENTRIES) * n_push}
     if launches != want:
         raise AssertionError(f"K1 launched {launches} times for {n_push} "
                              f"pushes; expected {want}")
@@ -2093,11 +2133,12 @@ def _grpc_profile(state: dict) -> None:
     device_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
     errors = [repr(r.error) for r in run["results"] if r.error is not None]
+    state["grpc_idle_share"] = (1 - device_us / 1e6 / run["wall"]) \
+        if device_us else None
     emit({"phase": "grpc_path", "form": "profile",
           "steps": run["store"].global_step, "wall_s": run["wall"],
           "device_busy_s": device_us / 1e6,
-          "device_idle_share": (1 - device_us / 1e6 / run["wall"])
-          if device_us else None,
+          "device_idle_share": state["grpc_idle_share"],
           "top_device_ms": [[e.key[:120], round(e.self_device_time_total
                                                / 1e3, 3), e.count]
                             for e in top],
@@ -2217,6 +2258,403 @@ def phase_grpc_path(state: dict) -> None:
     _grpc_processes(state)
 
 
+# Phase 15: the store options and the worker's modes over gRPC.
+MODES_STORE = dict(fetch_codec="bf16", worker_timeout=30)
+MODES_WORKER = dict(k_step_mode="local_sgd", sync_steps=4, overlap=True,
+                    heartbeat_interval=1.0)
+MODES_STEPS = 16          # batches of 128 a worker: 4,096 images, 4 pushes
+
+
+def _saved_values(names):
+    """Have the registry hand out, for the named histograms, proxies that
+    keep every observed value (the workers create theirs at start);
+    returns (values by histogram name, restore)."""
+    from distributed_parameter_server_for_ml_training_tpu_torch.telemetry \
+        import get_registry
+    reg = get_registry()
+    orig = reg.histogram
+    kept = {name: [] for name in names}
+
+    class Keeping:
+        def __init__(self, inner, box):
+            self._inner, self._box = inner, box
+
+        def observe(self, v, *args, **kwargs):
+            self._box.append(float(v))
+            return self._inner.observe(v, *args, **kwargs)
+
+        def __getattr__(self, name):
+            return getattr(self._inner, name)
+
+    def histogram(name, *args, **kwargs):
+        h = orig(name, *args, **kwargs)
+        return Keeping(h, kept[name]) if name in kept else h
+
+    reg.histogram = histogram
+
+    def restore():
+        del reg.histogram
+    return kept, restore
+
+
+def _modes_levers(state: dict) -> None:
+    """(a) The reference topology with the JAX package's levers on, beside
+    phase 14 (a) from the same run; then the same run with overlap off,
+    and a profiled shorter one."""
+    import ml_dtypes
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms import (
+        ParameterService, RemoteStore, serve)
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms \
+        .service import unpack_msg
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms \
+        .wire import frame_checksum_ok
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
+        quantize as Q
+
+    depth = {"max": 0, "samples": 0, "busy": 0}
+
+    def sample_depth(workers, done):
+        while not done.is_set():
+            for w in workers:
+                pipe = w._pipe
+                if pipe is not None:
+                    d = int(pipe._tm_depth.value)   # the depth gauge
+                    depth["max"] = max(depth["max"], d)
+                    depth["samples"] += 1
+                    depth["busy"] += d
+            time.sleep(0.0005)
+
+    saved, restore = _saved_values(("dps_worker_overlap_saved_seconds",
+                                    "dps_worker_d2h_overlap_saved_seconds"))
+    Q.wire_quantize_multi.launches = 0
+    try:
+        run = _grpc_run(steps_per_worker=MODES_STEPS, n_test=1000, seed=0,
+                        eval_each_epoch=True, record=True,
+                        store_kw=MODES_STORE, worker_kw=MODES_WORKER,
+                        probe=sample_depth)
+    finally:
+        restore()
+    launches = Q.wire_quantize_multi.launches
+    state["modes_k1_launches"] = {"wire_quantize_multi": launches}
+    store, results = run["store"], run["results"]
+    errors = [repr(r.error) for r in results if r.error is not None]
+    n_push = sum(r.pushes_accepted + r.pushes_rejected for r in results)
+    final, step = store.snapshot()
+    moved = sum(not np.array_equal(final[k], run["init"][k])
+                for k in run["init"])
+    replies = [unpack_msg(reply)[0] for _, reply in run["pushes"]]
+    duplicates = sum(bool(m.get("duplicate")) for m in replies)
+    frames = [unpack_msg(req)[1] for req, _ in run["pushes"]]
+    crc_ok = sum(frame_checksum_ok(f) is True for f in frames)
+    fetch_meta = [unpack_msg(r)[0] for _, r in run["fetches"]]
+    full = [len(r) for (_, r), m in zip(run["fetches"], fetch_meta)
+            if not m.get("not_modified")]
+    nm = sum(bool(m.get("not_modified")) for m in fetch_meta)
+    # One fetch decoded by a fresh client, against the store's params
+    # cast to bf16 and back, bit for bit (the run is over: no push races
+    # it).
+    server, port = serve(store, port=0, service=ParameterService(store),
+                         host="127.0.0.1")
+    try:
+        probe_client = RemoteStore(f"127.0.0.1:{port}")
+        probe_client.register_worker("probe")
+        fetched, fstep = probe_client.fetch()
+        probe_client.close()
+    finally:
+        server.stop(grace=None).wait(10)
+    want, wstep = store.snapshot()
+    fetch_bits = fstep == wstep and list(fetched) == sorted(want) and all(
+        fetched[k].tobytes() == want[k].astype(ml_dtypes.bfloat16)
+        .astype(np.float32).tobytes() for k in want)
+    images = sum(r.local_steps_completed for r in results) * BATCH
+    train_s = max(sum(r.epoch_times) for r in results)
+    img_s = images / train_s
+    ov = saved["dps_worker_overlap_saved_seconds"]
+    d2h = saved["dps_worker_d2h_overlap_saved_seconds"]
+    heartbeats = [r.heartbeats for r in results]
+
+    # The same configuration, unrecorded and eval off, with overlap off
+    # and on in turns (off, on, on, off): what the pipeline hides.
+    turns = {False: [], True: []}
+    s_err = []
+    for overlap in (False, True, True, False):
+        t_run = _grpc_run(steps_per_worker=MODES_STEPS, n_test=10, seed=0,
+                          eval_each_epoch=False, record=False,
+                          store_kw=MODES_STORE,
+                          worker_kw={**MODES_WORKER, "overlap": overlap})
+        t_res = t_run["results"]
+        s_err += [repr(r.error) for r in t_res if r.error is not None]
+        turns[overlap].append(
+            sum(r.local_steps_completed for r in t_res) * BATCH
+            / max(sum(r.epoch_times) for r in t_res))
+
+    # A shorter run, eval off, under torch.profiler: the idle share.
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prof_run = _grpc_run(steps_per_worker=8, n_test=10, seed=2,
+                             eval_each_epoch=False, record=False,
+                             store_kw=MODES_STORE, worker_kw=MODES_WORKER)
+    events = device_events(prof)
+    device_us = sum(e.self_device_time_total for e in events)
+    idle = (1 - device_us / 1e6 / prof_run["wall"]) if device_us else None
+    p_err = [repr(r.error) for r in prof_run["results"]
+             if r.error is not None]
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    p14 = state.get("grpc_a", {})
+    emit({"phase": "grpc_modes", "form": "levers", "model": "resnet18",
+          "workers": N_WORKERS, "batch_size": BATCH,
+          "store": {"mode": "async", "push_codec": "int8",
+                    "staleness_bound": 5, **MODES_STORE},
+          "worker": MODES_WORKER, "images_per_worker": MODES_STEPS * BATCH,
+          "global_step": step, "pushes": n_push,
+          "pushes_rejected": sum(r.pushes_rejected for r in results),
+          "k1_launches": launches, "duplicates": duplicates,
+          "push_frames_with_valid_crc": crc_ok,
+          "fetch_decoded_equals_bf16_of_store": fetch_bits,
+          "pipeline_depth_max": depth["max"],
+          "pipeline_depth_samples": depth["samples"],
+          "pipeline_busy_share": depth["busy"] / max(depth["samples"], 1),
+          "heartbeats": heartbeats,
+          "heartbeat_errors": [r.heartbeat_errors for r in results],
+          "tensors_moved": moved,
+          "train_loss_per_epoch": [v for r in results
+                                   for v in r.train_loss_per_epoch],
+          "test_accuracies": [r.test_accuracies for r in results],
+          "img_per_s": img_s, "train_seconds": train_s,
+          "img_per_s_turns_overlap_on": turns[True],
+          "img_per_s_turns_overlap_off": turns[False],
+          "phase14_img_per_s": p14.get("img_per_s"),
+          "rpc_ms_median": {k: float(np.median(v))
+                            for k, v in sorted(run["rpc_ms"].items())},
+          "rpc_calls": {k: len(v) for k, v in sorted(run["rpc_ms"].items())},
+          "phase14_rpc_ms_median": p14.get("rpc_ms_median"),
+          "push_request_bytes": sorted(set(len(q) for q, _ in run["pushes"])),
+          "phase14_push_request_bytes": p14.get("push_request_bytes"),
+          "fetch_reply_bytes_full": sorted(set(full)),
+          "phase14_fetch_reply_bytes_full": p14.get(
+              "fetch_reply_bytes_full"),
+          "fetches_full": len(full), "fetches_not_modified": nm,
+          "overlap_saved_s": {"sum": float(sum(ov)), "count": len(ov),
+                              "median": float(np.median(ov)) if ov
+                              else None},
+          "d2h_saved_s": {"sum": float(sum(d2h)), "count": len(d2h)},
+          "device_idle_share": idle,
+          "phase14_device_idle_share": state.get("grpc_idle_share"),
+          "profiled_steps": prof_run["store"].global_step,
+          "profiled_wall_s": prof_run["wall"],
+          "top_device_ms": [[e.key[:100], round(
+              e.self_device_time_total / 1e3, 3), e.count] for e in top],
+          "store_metrics": store.metrics(),
+          "card": state["card"]})
+    if errors or s_err or p_err:
+        raise AssertionError(f"worker errors: {errors} {s_err} {p_err}")
+    pushes_want = N_WORKERS * MODES_STEPS // MODES_WORKER["sync_steps"]
+    if n_push != pushes_want or launches != n_push:
+        raise AssertionError(f"{n_push} pushes and {launches} K1 launches;"
+                             f" expected {pushes_want} of each")
+    if duplicates or crc_ok != n_push or len(frames) != n_push:
+        raise AssertionError(f"{duplicates} duplicates, {crc_ok} of "
+                             f"{len(frames)} frames with a valid CRC")
+    p14_full = (p14.get("fetch_reply_bytes_full") or [44_885_549])[0]
+    if not full or not all(0.45 < n / p14_full < 0.55 for n in full):
+        raise AssertionError(f"full bf16 fetch replies {sorted(set(full))}"
+                             f" are not about half of {p14_full}")
+    if not fetch_bits:
+        raise AssertionError("a decoded bf16 fetch differs from the "
+                             "store's params cast to bf16")
+    if depth["max"] > 1 or depth["busy"] == 0:
+        raise AssertionError(f"pipeline depth {depth}")
+    if min(heartbeats) <= 0 or moved == 0:
+        raise AssertionError(f"heartbeats {heartbeats}, {moved} tensors "
+                             f"moved")
+
+
+def _one_worker(store, model, ds, **worker_kw):
+    """One PSWorker on the card against an in-process store whose pushes
+    it records; returns (pushes, result)."""
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps import (
+        PSWorker, WorkerConfig)
+
+    class Recording:
+        def __init__(self, inner):
+            self._inner, self.pushes = inner, []
+
+        def __getattr__(self, name):
+            return getattr(self._inner, name)
+
+        def push(self, wid, grads, step):
+            self.pushes.append({k: np.array(v) for k, v in grads.items()})
+            return self._inner.push(wid, grads, step)
+
+    rec = Recording(store)
+    w = PSWorker(rec, model, ds, WorkerConfig(
+        batch_size=BATCH, num_epochs=1, device="cuda",
+        eval_each_epoch=False, **worker_kw))
+    w.run()
+    if w.result.error is not None:
+        raise w.result.error
+    return rec.pushes, w.result
+
+
+def _modes_bits(state: dict) -> None:
+    """(b) Bit checks on the card, one worker, deterministic cuDNN:
+    local_sgd with K=1 pushes the faithful step's int8 frame, and
+    overlap=True leaves the store bit-equal to overlap=False."""
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms \
+        .wire import encode_tensor_dict
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps import (
+        ParameterStore, StoreConfig)
+
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        # 512 images: 4 batches for the one worker, 2 pushes at K=2.
+        ds, model, _, init = main_path(2, 10, 3)
+
+        def store():
+            return ParameterStore(init, StoreConfig(
+                mode="async", total_workers=1, push_codec="int8",
+                staleness_bound=5))
+        one = dataclasses.replace(ds, x_train=ds.x_train[:BATCH],
+                                  y_train=ds.y_train[:BATCH])
+        faithful, _ = _one_worker(store(), model, one)
+        local, _ = _one_worker(store(), model, one, k_step_mode="local_sgd",
+                               sync_steps=1)
+        frames = [encode_tensor_dict(p[0], checksum=True)
+                  for p in (faithful, local)]
+        k1_equal = frames[0] == frames[1]
+        runs = {}
+        for overlap in (False, True):
+            st = store()
+            pushes, res = _one_worker(st, model, ds, k_step_mode="local_sgd",
+                                      sync_steps=2, overlap=overlap)
+            runs[overlap] = (st.snapshot(), pushes, res)
+        (sp, sstep), _, _ = runs[False]
+        (pp, pstep), _, _ = runs[True]
+        overlap_equal = sstep == pstep and all(
+            sp[k].tobytes() == pp[k].tobytes() for k in sp)
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = prev
+    emit({"phase": "grpc_modes", "form": "bits", "cudnn_deterministic": True,
+          "local_sgd_k1_frame_bytes": len(frames[1]),
+          "local_sgd_k1_frame_equals_faithful": k1_equal,
+          "overlap_store_equals_serial": overlap_equal,
+          "overlap_steps": [sstep, pstep], "card": state["card"]})
+    if not k1_equal:
+        raise AssertionError("local_sgd K=1's int8 frame differs from "
+                             "faithful's")
+    if not overlap_equal or sstep != 2:
+        raise AssertionError(f"overlap=True's store differs from "
+                             f"overlap=False's (steps {sstep}, {pstep})")
+
+
+def _modes_resume(state: dict) -> None:
+    """(c) A resume drill: the server is stopped just before the worker's
+    3rd push leaves and a new one starts on the same port from
+    ``load_snapshot`` of the old store's snapshot."""
+    import threading
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms import (
+        ParameterService, RemoteStore, serve)
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps import (
+        ParameterStore, PSWorker, StoreConfig, WorkerConfig)
+
+    # MODES_STEPS batches for the one worker: its 4 pushes.
+    ds, model, _, init = main_path(MODES_STEPS // N_WORKERS, 10, 4)
+
+    def store():
+        return ParameterStore(init, StoreConfig(
+            mode="async", total_workers=1, push_codec="int8",
+            staleness_bound=5, **MODES_STORE))
+    store1 = store()
+    server1, port = serve(store1, port=0, host="127.0.0.1",
+                          service=ParameterService(store1))
+    client = RemoteStore(f"127.0.0.1:{port}", rpc_timeout=10.0,
+                         rpc_retries=1, rpc_backoff=0.05)
+    worker = PSWorker(client, model, ds, WorkerConfig(
+        batch_size=BATCH, num_epochs=1, device="cuda", eval_each_epoch=False,
+        reconnect_timeout=60.0, reconnect_backoff=0.05, **MODES_WORKER))
+    killed, restarted = threading.Event(), threading.Event()
+    holder = {}
+
+    def restart_after_kill():
+        killed.wait(120)
+        time.sleep(0.3)
+        params, step = holder["snapshot"]
+        store2 = store()
+        store2.load_snapshot(params, step)
+        server2, bound = serve(store2, port=port, host="127.0.0.1",
+                               service=ParameterService(store2))
+        holder.update(server2=server2, store2=store2, bound=bound)
+        restarted.set()
+
+    inner_push = client._call["PushGradrients"]
+
+    def push_with_kill(request, timeout=None):
+        push_with_kill.calls += 1
+        if push_with_kill.calls == 3 and not killed.is_set():
+            holder["snapshot"] = store1.snapshot()
+            server1.stop(grace=None).wait(10)
+            killed.set()
+        return inner_push(request, timeout=timeout)
+
+    push_with_kill.calls = 0
+    client._call["PushGradrients"] = push_with_kill
+    t = threading.Thread(target=restart_after_kill, daemon=True)
+    t0 = time.perf_counter()
+    t.start()
+    worker.start()
+    worker.join(300)
+    t.join(120)
+    wall = time.perf_counter() - t0
+    try:
+        r = worker.result
+        store2 = holder.get("store2")
+        total = MODES_STEPS // MODES_WORKER["sync_steps"]
+        snap_step = holder["snapshot"][1] if "snapshot" in holder else None
+        emit({"phase": "grpc_modes", "form": "resume",
+              "error": repr(r.error) if r.error else None,
+              "reconnects": r.reconnects, "pushes": total,
+              "pushes_accepted": r.pushes_accepted,
+              "snapshot_step": snap_step,
+              "restored_port_bound": holder.get("bound") == port,
+              "new_store_step": store2.global_step if store2 else None,
+              "new_store_pushes_applied":
+                  store2.stats.gradients_processed if store2 else None,
+              "wall_s": wall, "card": state["card"]})
+        if r.error is not None or worker.is_alive():
+            raise AssertionError(f"worker failed: {r.error!r}")
+        if not (killed.is_set() and restarted.is_set()
+                and holder["bound"] == port):
+            raise AssertionError("the server was not restarted on its port")
+        # Each push applied exactly once: 2 before the stop (in the
+        # snapshot), the rest — the stranded one re-sent under its own
+        # token included — on the new server.
+        if (r.reconnects, r.pushes_accepted, snap_step,
+                store2.global_step, store2.stats.gradients_processed) != (
+                1, total, 2, total, total - 2):
+            raise AssertionError("a push was lost or applied twice")
+    finally:
+        if "server2" in holder:
+            holder["server2"].stop(grace=None).wait(10)
+        client.close()
+
+
+def phase_grpc_modes(state: dict) -> None:
+    """Phase 15: the store options and the worker's modes over gRPC."""
+    _modes_levers(state)
+    _modes_bits(state)
+    _modes_resume(state)
+
+
 def main() -> int:
     import torch
 
@@ -2235,7 +2673,7 @@ def main() -> int:
                   phase_main_path, phase_profile, phase_sync_path,
                   phase_sync_profile, phase_baseline, phase_kernel_flash,
                   phase_sp_path, phase_sp_profile, phase_cli,
-                  phase_grpc_path):
+                  phase_grpc_path, phase_grpc_modes):
         t0 = time.perf_counter()
         try:
             phase(state)
@@ -2252,16 +2690,17 @@ def main() -> int:
     from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
         quantize as Q
 
-    # The multi-tensor K1 and its per-tensor first version, with their
-    # launches from the async path's run and the gRPC path's (phase 14
-    # (a); (b)'s workers are other processes); a push's times.
+    # K1 with its launches from the async path's run, the gRPC path's
+    # (phase 14 (a); (b)'s workers are other processes) and the gRPC
+    # modes' (phase 15 (a)); a push's times.
     kernels = []
     for name, k in state["k1"].items():
         kernels.append({
             "name": name, "route": "cuda", "source": Q.KERNEL_SOURCE,
             "replaces": Q.REPLACES[name],
             "launches": state["k1_launches"][name]
-            + state["grpc_k1_launches"][name],
+            + state["grpc_k1_launches"][name]
+            + state["modes_k1_launches"][name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],

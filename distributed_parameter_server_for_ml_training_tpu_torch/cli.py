@@ -47,9 +47,24 @@ and remote workers that train on the card and push to it
 Each package's workers train against the other package's server. The
 server draws the initial ResNet-18 weights with the port's ``get_model``
 (a torch generator seeded with ``--seed``), so they differ from the JAX
-server's flax initialization for the same seed. The flags of the JAX
-verbs that name features of later slices are accepted and refused with
-the ROADMAP item that brings them.
+server's flax initialization for the same seed.
+
+``serve`` takes the store's options: ``--fetch-codec bf16|fp16``,
+``--elastic``, ``--worker-timeout``, and for sync rounds
+``--sync-quorum`` and ``--round-deadline``. ``worker`` (and ``train
+--mode async``) take ``--k-step-mode local_sgd`` with ``--local-lr``,
+``--overlap`` (the comms pipeline), ``--heartbeat`` and
+``--reconnect-timeout`` (session resume)::
+
+    python -m distributed_parameter_server_for_ml_training_tpu_torch.cli \
+        serve --mode async --workers 2 --push-codec int8 --fetch-codec bf16 \
+        --worker-timeout 30 --port 8000
+    python -m distributed_parameter_server_for_ml_training_tpu_torch.cli \
+        worker --server 127.0.0.1:8000 --synthetic --k-step-mode local_sgd \
+        --sync-steps 4 --overlap --heartbeat 1 --reconnect-timeout 60
+
+The flags of the JAX verbs that name features of later slices are
+accepted and refused with the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -96,6 +111,31 @@ def _add_common(q) -> None:
                    help="torch device to train on (cuda, or cpu)")
 
 
+def _add_worker_modes(q) -> None:
+    """The PS worker's mode flags, shared by ``worker`` and ``train``."""
+    q.add_argument("--k-step-mode",
+                   choices=["faithful", "accumulate", "local_sgd"],
+                   default="faithful",
+                   help="faithful = push the boundary batch's gradients "
+                        "(quirk 7); accumulate = push the window's mean; "
+                        "local_sgd = step locally with the fused step and "
+                        "push the window's mean")
+    q.add_argument("--local-lr", type=float, default=None,
+                   help="local_sgd's step size (default: the server's "
+                        "learning rate)")
+    q.add_argument("--overlap", action="store_true",
+                   help="overlapped comms pipeline: push + prefetch on a "
+                        "background thread while the training thread "
+                        "computes; pays off with --sync-steps > 1")
+    q.add_argument("--heartbeat", type=float, default=0.0,
+                   help="liveness ping every N seconds (pair with the "
+                        "server's --worker-timeout); 0 disables")
+    q.add_argument("--reconnect-timeout", type=float, default=0.0,
+                   help="session resume: re-register and re-fetch within "
+                        "this many seconds when the server is lost; 0 "
+                        "fails the worker instead")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="distributed_parameter_server_for_ml_training_tpu_torch",
@@ -116,6 +156,17 @@ def build_parser() -> argparse.ArgumentParser:
                    default=_env("TOTAL_WORKERS_EXPECTED", 4, int))
     t.add_argument("--staleness-bound", type=int,
                    default=_env("STALENESS_BOUND", 5, int))
+    t.add_argument("--sync-steps", type=int,
+                   default=_env("SYNC_STEPS", 1, int),
+                   help="K-step local SGD interval (worker.py:468)")
+    t.add_argument("--no-delta-fetch", action="store_true",
+                   help="full params on every fetch (reference parity)")
+    t.add_argument("--elastic", action="store_true",
+                   help="elastic membership: id-slot reuse on join, sync "
+                        "rounds sized to the live workers")
+    t.add_argument("--worker-timeout", type=float, default=None,
+                   help="expire workers unseen for this many seconds")
+    _add_worker_modes(t)
     t.add_argument("--compression", choices=["none", "bf16", "fp16", "int8"],
                    default="bf16",
                    help="sync all-reduce precision (int8 = quantized "
@@ -166,13 +217,23 @@ def build_parser() -> argparse.ArgumentParser:
                         "aggregating instead of accumulating in the "
                         "quantized domain")
     s.add_argument("--fetch-codec", choices=["none", "bf16", "fp16"],
-                   default="none")
+                   default="none",
+                   help="fetch-side codec: bf16/fp16 halve the fetch's "
+                        "bytes (the reference fetched fp32)")
     s.add_argument("--store-backend", choices=["python", "native", "device"],
                    default="python")
-    s.add_argument("--elastic", action="store_true")
-    s.add_argument("--worker-timeout", type=float, default=None)
-    s.add_argument("--sync-quorum", type=float, default=None)
-    s.add_argument("--round-deadline", type=float, default=None)
+    s.add_argument("--elastic", action="store_true",
+                   help="elastic membership (id-slot reuse + live round "
+                        "sizing)")
+    s.add_argument("--worker-timeout", type=float, default=None,
+                   help="expire workers unseen for this many seconds")
+    s.add_argument("--sync-quorum", type=float, default=None,
+                   help="--mode sync: a round completes at this many "
+                        "distinct workers (>= 1) or this fraction of them "
+                        "(< 1); late pushes apply as stale")
+    s.add_argument("--round-deadline", type=float, default=None,
+                   help="--mode sync: a round completes this many seconds "
+                        "after its first gradient")
     s.add_argument("--checkpoint-dir", default=None)
     s.add_argument("--restore", action="store_true")
     s.add_argument("--faults", default=None)
@@ -186,8 +247,7 @@ def build_parser() -> argparse.ArgumentParser:
     w.add_argument("--worker-name", default=_env("WORKER_NAME", ""))
     w.add_argument("--sync-steps", type=int,
                    default=_env("SYNC_STEPS", 1, int))
-    w.add_argument("--k-step-mode", choices=["faithful", "accumulate"],
-                   default="faithful")
+    _add_worker_modes(w)
     w.add_argument("--no-delta-fetch", action="store_true",
                    help="full params on every fetch (reference parity)")
     w.add_argument("--no-error-feedback", action="store_true",
@@ -201,9 +261,6 @@ def build_parser() -> argparse.ArgumentParser:
     _add_common(w)
     w.add_argument("--shards", default=None)
     w.add_argument("--job", default=None)
-    w.add_argument("--heartbeat", type=float, default=0.0)
-    w.add_argument("--overlap", action="store_true")
-    w.add_argument("--reconnect-timeout", type=float, default=0.0)
     w.add_argument("--faults", default=None)
     return p
 
@@ -211,14 +268,6 @@ def build_parser() -> argparse.ArgumentParser:
 #: Flags of the JAX verbs whose features come with later slices, by the
 #: ROADMAP item that brings them; any value but the default is refused.
 LATER_FLAGS = {
-    "elastic": "ROADMAP §1 item 3 (elastic membership)",
-    "worker_timeout": "ROADMAP §1 item 3 (membership expiry)",
-    "sync_quorum": "ROADMAP §1 item 3 (quorum rounds)",
-    "round_deadline": "ROADMAP §1 item 3 (deadline rounds)",
-    "fetch_codec": "ROADMAP §1 item 3 (the store's fetch codecs)",
-    "heartbeat": "ROADMAP §1 item 3 (the worker's heartbeat)",
-    "overlap": "ROADMAP §1 item 3 (the overlapped comms pipeline)",
-    "reconnect_timeout": "ROADMAP §1 item 3 (session resume)",
     "checkpoint_dir": "ROADMAP §1 item 5 (checkpoints)",
     "restore": "ROADMAP §1 item 5 (checkpoints)",
     "faults": "ROADMAP §1 item 9 (comms/faults.py)",
@@ -228,7 +277,7 @@ LATER_FLAGS = {
     "store_backend": "ROADMAP §1 items 4 and 9 (the device store and the "
                      "C++ arena)",
 }
-_FLAG_DEFAULTS = {"fetch_codec": "none", "store_backend": "python"}
+_FLAG_DEFAULTS = {"store_backend": "python"}
 
 
 def _refuse_later_flags(args) -> None:
@@ -303,11 +352,20 @@ def cmd_train(args) -> int:
             emit_metrics=args.emit_metrics)
         print(f"done: {metrics}", file=sys.stderr)
         return 0
+    if args.mode == "sync" and (args.elastic or args.worker_timeout):
+        print("note: --elastic/--worker-timeout apply to the store-based "
+              "modes (async, serve/worker); the sync trainer's slots have "
+              "no membership", file=sys.stderr)
     cfg = DistributedConfig(
         mode=args.mode, num_workers=args.workers, learning_rate=args.lr,
         num_epochs=args.epochs, batch_size=args.batch_size,
+        sync_steps=args.sync_steps, k_step_mode=args.k_step_mode,
         staleness_bound=args.staleness_bound,
-        compression=args.compression,
+        compression=args.compression, elastic=args.elastic,
+        worker_timeout=args.worker_timeout, overlap=args.overlap,
+        delta_fetch=not args.no_delta_fetch, local_lr=args.local_lr,
+        heartbeat_interval=args.heartbeat,
+        reconnect_timeout=args.reconnect_timeout,
         augment=not args.no_augment, dtype=args.dtype,
         num_classes=dataset.num_classes, seed=args.seed,
         device=args.device)
@@ -333,6 +391,10 @@ def cmd_serve(args) -> int:
     if args.model != "resnet18":
         raise SystemExit(f"serve: the port's parameter server serves "
                          f"resnet18; --model {args.model} is not served")
+    if (args.sync_quorum is not None or args.round_deadline is not None) \
+            and args.mode != "sync":
+        raise SystemExit("--sync-quorum/--round-deadline apply to "
+                         "--mode sync (async has no rounds)")
     # The store lives on the host: the model is built on the CPU only to
     # draw its initial weights (get_model draws them from a CPU generator
     # on every device, so a worker's AsyncTrainer on the card starts from
@@ -348,15 +410,25 @@ def cmd_serve(args) -> int:
                     staleness_bound=args.staleness_bound,
                     push_codec=(None if args.push_codec == "default"
                                 else args.push_codec),
-                    compressed_domain=not args.no_compressed_domain))
+                    fetch_codec=args.fetch_codec,
+                    compressed_domain=not args.no_compressed_domain,
+                    elastic=args.elastic,
+                    worker_timeout=args.worker_timeout,
+                    sync_quorum=args.sync_quorum,
+                    round_deadline=args.round_deadline))
     svc = ParameterService(store)
     server, port = serve(store, port=args.port, service=svc)
     print(f"parameter server up on :{port} (mode={store.config.mode}, "
           f"workers={args.workers}, backend={args.store_backend})",
           file=sys.stderr, flush=True)
     try:
+        # Exits once every registered worker sent JobFinished; with
+        # --worker-timeout each tick also expires silent workers.
         while not store.wait_all_finished(timeout=1.0):
-            pass
+            expired = store.expire_stale_workers()
+            if expired:
+                print(f"expired silent workers: {expired}",
+                      file=sys.stderr)
         time.sleep(0.5)
     except KeyboardInterrupt:
         pass
@@ -383,9 +455,13 @@ def cmd_worker(args) -> int:
                        sync_steps=args.sync_steps,
                        k_step_mode=args.k_step_mode,
                        augment=not args.no_augment, seed=args.seed,
+                       heartbeat_interval=args.heartbeat,
+                       overlap=args.overlap,
                        delta_fetch=not args.no_delta_fetch,
+                       reconnect_timeout=args.reconnect_timeout,
                        error_feedback=not args.no_error_feedback,
-                       topk_frac=args.topk_frac, device=args.device)
+                       topk_frac=args.topk_frac, local_lr=args.local_lr,
+                       device=args.device)
     dataset = _load_dataset(args)
     model = get_model(args.model, num_classes=dataset.num_classes,
                       dtype=args.dtype, image_size=dataset.x_train.shape[1],

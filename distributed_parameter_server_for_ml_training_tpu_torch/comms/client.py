@@ -16,12 +16,15 @@ bounded retry on transient failures, and every push carries a unique
 verbatim), which the server's dedupe turns into exactly-once applies.
 Trace context and the CRC-32 trailer ride only to servers that advertised
 them. Directives are received and acked; the worker acting on them comes
-with ROADMAP §1 item 3.
+with ROADMAP §1 item 8. An elastic server's live membership is cached off
+its register and fetch replies (``membership_snapshot``). Session resume
+rides on ``register_worker(retries=1)``, ``reset_channel`` and
+``repush_last``, which replays the most recent push under the SAME token.
 
 Not in this slice, each refused with ``NotImplementedError`` naming the
 ROADMAP item: client-side fault injection, tenancy (``job``,
 ``submit_job``, ``drain_job``), the shard map and ``reshard_op`` (§1 item
-9), elastic membership and session resume (``repush_last``; item 3).
+9).
 """
 
 from __future__ import annotations
@@ -60,10 +63,6 @@ _LATER = {
             "§1 item 9: ps/tenancy.py)",
     "sharding": "the shard map and reshard come with the serve tier "
                 "(ROADMAP §1 item 9: comms/sharded.py)",
-    "elastic": "elastic membership comes with the store options and "
-               "worker features (ROADMAP §1 item 3)",
-    "resume": "session resume comes with the worker features (ROADMAP §1 "
-              "item 3)",
 }
 
 
@@ -73,14 +72,17 @@ def _later(what: str) -> NotImplementedError:
 
 class SessionLostError(ConnectionError):
     """Transient failures outlived the retry budget: the server is most
-    likely down or restarting. A distinct, catchable signal (the JAX
-    worker's reconnect state machine acts on it; the port's worker, which
-    has no session resume yet, fails). The last wire error rides as
-    ``__cause__``."""
+    likely down or restarting. A distinct, catchable signal the worker's
+    reconnect state machine acts on (``ps/worker.py:_recover_session``):
+    re-register, re-fetch at the restored step, reconcile the in-flight
+    gradient. The last wire error rides as ``__cause__``."""
 
 
 class _RemoteConfig:
-    """Server-side StoreConfig facts the client learns at registration."""
+    """Server-side StoreConfig facts the client learns at registration
+    (the worker reads ``elastic`` for its shard and ``mode`` and
+    ``staleness_bound`` to reconcile a gradient stranded by a session
+    loss)."""
 
     def __init__(self):
         self.elastic = False
@@ -164,7 +166,22 @@ class RemoteStore:
             )
         self._tm_fetch_nm = reg.counter(
             "dps_rpc_client_fetch_not_modified_total")
-        self._channel = grpc.insecure_channel(address, options=GRPC_OPTIONS)
+        # Last membership seen on the wire (elastic servers piggyback it on
+        # register and fetch replies).
+        self._membership: list[int] = []
+        # The most recent push's (token, payload, fetched_step): after a
+        # session loss repush_last re-sends it verbatim but for the worker
+        # id.
+        self._last_push: tuple[str, bytes, int] | None = None
+        self._channel = None
+        self._build_channel()
+
+    def _build_channel(self) -> None:
+        """(Re)build the channel and the method stubs: the one place the
+        method list and channel options are wired, shared by construction
+        and ``reset_channel``."""
+        self._channel = grpc.insecure_channel(self.address,
+                                              options=GRPC_OPTIONS)
         ident = lambda b: b  # noqa: E731
         self._call = {
             name: self._channel.unary_unary(
@@ -172,6 +189,20 @@ class RemoteStore:
                 request_serializer=ident, response_deserializer=ident)
             for name in CLIENT_RPCS
         }
+
+    def reset_channel(self) -> None:
+        """Tear down and rebuild the channel and its stubs. A channel
+        connected to a server process that DIED can stay wedged in
+        connect backoff after a replacement listens on the same port; the
+        worker's reconnect state machine calls this before each
+        re-registration attempt. The old channel is closed BEFORE its
+        replacement is built, so at most one is live."""
+        old, self._channel = self._channel, None
+        try:
+            old.close()
+        except Exception:  # noqa: BLE001 — a dead channel may complain
+            pass
+        self._build_channel()
 
     def _invoke(self, name: str, request: bytes):
         """Call RPC ``name`` with a deadline, retrying transient failures
@@ -232,6 +263,17 @@ class RemoteStore:
         if reply_meta.get("shard_map") is not None:
             raise _later("sharding")
 
+    def _note_membership(self, reply_meta: dict) -> None:
+        m = reply_meta.get("active_workers")
+        if m is not None:
+            self._membership = [int(w) for w in m]
+
+    def membership_snapshot(self) -> list[int]:
+        """Client-side view of the server's live membership (sorted ids),
+        as of the most recent register/fetch reply. Empty until the first
+        reply from an elastic server."""
+        return list(self._membership)
+
     def _note_directives(self, reply_meta: dict) -> None:
         """Collect piggybacked server->worker directives off a reply
         (capability-gated), deduped by seq: the server re-attaches
@@ -290,13 +332,18 @@ class RemoteStore:
         with self._wire_lock:
             return dict(self._qscales), self._qscale_step
 
-    def register_worker(self, worker_name: str = "") -> tuple[int, int]:
-        """Retry x5 with exponential backoff (worker.py:215-229)."""
+    def register_worker(self, worker_name: str = "",
+                        retries: int | None = None) -> tuple[int, int]:
+        """Retry x5 with exponential backoff (worker.py:215-229).
+        ``retries`` overrides the constructor's budget: the reconnect state
+        machine passes 1 and paces its own backoff."""
         hist, b_out, b_in, c_ok, c_retry, c_err = \
             self._tm_rpc["RegisterWorker"]
         delay = 1.0
         last_err = None
-        for attempt in range(self.register_retries):
+        register_retries = (self.register_retries if retries is None
+                            else max(1, int(retries)))
+        for attempt in range(register_retries):
             t0 = _tnow()
             try:
                 # ``capabilities`` advertises what THIS client takes
@@ -311,8 +358,6 @@ class RemoteStore:
                 c_ok.inc()
                 reply, _ = unpack_msg(raw)
                 self._note_reply(reply)
-                if reply.get("elastic"):
-                    raise _later("elastic")
                 self.push_codec = reply.get("push_codec", "none")
                 self.fetch_codec = reply.get("fetch_codec", "none")
                 self.supports_delta_fetch = bool(
@@ -334,15 +379,17 @@ class RemoteStore:
                     self._directive_last_seq = 0
                     self._qscales, self._qscale_step = {}, 0
                 self._note_qscales(reply)
+                self.config.elastic = bool(reply.get("elastic", False))
                 self.config.mode = reply.get("mode", "sync")
                 self.config.learning_rate = float(
                     reply.get("learning_rate", 0.1))
                 self.config.staleness_bound = int(
                     reply.get("staleness_bound", 5))
+                self._note_membership(reply)
                 return int(reply["worker_id"]), int(reply["total_workers"])
             except grpc.RpcError as e:
                 hist.observe(_tnow() - t0)
-                if attempt == self.register_retries - 1:
+                if attempt == register_retries - 1:
                     c_err.inc()
                 else:
                     c_retry.inc()
@@ -350,7 +397,7 @@ class RemoteStore:
                     delay *= 2
                 last_err = e
         raise ConnectionError(
-            f"registration failed after {self.register_retries} attempts: "
+            f"registration failed after {register_retries} attempts: "
             f"{last_err}")
 
     def _attach_health(self, meta: dict) -> None:
@@ -407,6 +454,7 @@ class RemoteStore:
         reply = self._invoke("FetchParameters", pack_msg(meta))
         rmeta, payload = unpack_msg(reply)
         self._note_reply(rmeta)
+        self._note_membership(rmeta)
         self._note_qscales(rmeta)
         self._note_directives(rmeta)
         if rmeta.get("not_modified"):
@@ -436,6 +484,9 @@ class RemoteStore:
         self._attach_directive_ack(meta)
         payload = encode_tensor_dict(gradients, trace=wt,
                                      checksum=self.supports_checksum)
+        # Recorded BEFORE the send: a push that dies mid-RPC is exactly
+        # the one the reconnect path must be able to re-send verbatim.
+        self._last_push = (token, payload, int(fetched_step))
         reply = self._invoke("PushGradrients", pack_msg(meta, payload))
         rmeta, _ = unpack_msg(reply)
         self._note_reply(rmeta)
@@ -451,8 +502,22 @@ class RemoteStore:
     def drain_job(self, name: str) -> dict:
         raise _later("jobs")
 
-    def repush_last(self, worker_id: int):
-        raise _later("resume")
+    def repush_last(self, worker_id: int) -> bool | None:
+        """Re-send the most recent push — same token, same payload, same
+        ``fetched_step`` — under (possibly) a new worker id: the
+        session-resume reconciliation. The server's dedupe is keyed by the
+        token's nonce, so a push the server already applied replays as a
+        duplicate instead of applying twice; one whose apply was lost
+        applies now. Returns the accepted outcome, or None when there is
+        nothing to re-send."""
+        if self._last_push is None:
+            return None
+        token, payload, fetched_step = self._last_push
+        meta = {"worker_id": worker_id, "fetched_step": fetched_step,
+                "push_token": token}
+        reply = self._invoke("PushGradrients", pack_msg(meta, payload))
+        rmeta, _ = unpack_msg(reply)
+        return bool(rmeta["accepted"])
 
     def job_finished(self, worker_id: int) -> None:
         self._invoke("JobFinished", pack_msg({"worker_id": worker_id}))

@@ -15,8 +15,11 @@ Messages are a JSON envelope plus an optional tensor frame
 service of either package answers the same request with the same bytes:
 the same capability advertisement at registration, the same exactly-once
 ``nonce:count`` push dedupe with its checksum gate, the same
-version-gated fetch with its cached ``not_modified`` reply, and the
-passive half of the directive channel (acks are taken; nothing posts).
+version-gated fetch with its cached ``not_modified`` reply, the
+store's fetch codec and elastic membership (the live membership on
+register and fetch replies, expiry run on push and registration
+activity), and the passive half of the directive channel (acks are
+taken; nothing posts).
 
 Not in this slice, each refused with ``NotImplementedError`` naming the
 ROADMAP item when a caller asks for it: fault injection and sharding
@@ -33,6 +36,7 @@ import json
 import os
 import struct
 import threading
+import time
 from collections import OrderedDict
 from concurrent import futures
 
@@ -81,8 +85,6 @@ LATER = {
                "§1 item 9)",
     "journal": "the push-token journal's persistence comes with the "
                "checkpoint slice (ROADMAP §1 item 5)",
-    "fetch_codec": "fetch codecs other than 'none' come with the store "
-                   "options (ROADMAP §1 item 3)",
 }
 
 
@@ -174,9 +176,10 @@ class ParameterService:
         for what, on in asked.items():
             if on:
                 raise later(what)
-        if getattr(store, "fetch_codec", "none") != "none":
-            raise later("fetch_codec")
         self.store = store
+        # Activity-coupled membership expiry, throttled (_expire_tick).
+        self._expire_lock = threading.Lock()
+        self._last_expire_check = 0.0  # guarded by: self._expire_lock
         # Push dedupe: nonce -> [count, outcome (None while in flight),
         # done event, worker_id, step_at_completion]; LRU-bounded. A retry
         # of the same token replays the recorded outcome, a lower count is
@@ -255,9 +258,24 @@ class ParameterService:
     # -- activity-coupled membership expiry ---------------------------------
 
     def _expire_tick(self) -> None:
-        """Membership expiry on push/registration activity. A no-op: the
-        port's store has no ``worker_timeout`` yet (ROADMAP §1 item 3), and
-        the JAX service's tick returns at once without one."""
+        """Run membership expiry on push and registration activity,
+        throttled, so an elastic round stalled on a dead worker unsticks
+        as soon as a LIVE worker shows up. A no-op without a
+        ``worker_timeout``."""
+        timeout = getattr(self.store.config, "worker_timeout", None)
+        if not timeout:
+            return
+        now = time.time()
+        with self._expire_lock:
+            if now - self._last_expire_check < min(1.0, timeout / 4.0):
+                return
+            self._last_expire_check = now
+        try:
+            expired = self.store.expire_stale_workers()
+        except Exception:  # noqa: BLE001 — expiry must not fail the RPC
+            return
+        if expired:
+            print(f"expired silent workers: {expired}", flush=True)
 
     # -- RPC bodies (request bytes -> reply bytes) --------------------------
 

@@ -81,17 +81,21 @@ def _stage_f32(a) -> np.ndarray:
     return np.asarray(a).astype(np.float32, copy=False)
 
 
+# The four casts below return their keys SORTED, as the JAX package's
+# ``jax.tree_util.tree_map`` over a dict does: a bf16/fp16 fetch reply and
+# an fp16 push frame carry the tensors in that order on the wire.
+
 # dpslint: hot-path
 def fp16_compress(tree: Mapping) -> dict:
     """fp32 -> fp16 cast, exactly the reference's compress_gradients
     (worker.py:264-268)."""
-    return {k: _stage_f32(a).astype(np.float16, copy=False)
-            for k, a in tree.items()}
+    return {k: _stage_f32(tree[k]).astype(np.float16, copy=False)
+            for k in sorted(tree)}
 
 
 def fp16_decompress(tree: Mapping) -> dict:
     """fp16 -> fp32, exactly decompress_gradients (server.py:232-237)."""
-    return {k: np.asarray(a).astype(np.float32) for k, a in tree.items()}
+    return {k: np.asarray(tree[k]).astype(np.float32) for k in sorted(tree)}
 
 
 # dpslint: hot-path
@@ -105,13 +109,13 @@ def bf16_compress(tree: Mapping) -> dict:
     across layers) that matters more than fp16's extra mantissa bits."""
     import ml_dtypes
 
-    return {k: _stage_f32(a).astype(ml_dtypes.bfloat16, copy=False)
-            for k, a in tree.items()}
+    return {k: _stage_f32(tree[k]).astype(ml_dtypes.bfloat16, copy=False)
+            for k in sorted(tree)}
 
 
 def bf16_decompress(tree: Mapping) -> dict:
     """bfloat16 -> fp32 (exact: bf16 values are representable in fp32)."""
-    return {k: np.asarray(a).astype(np.float32) for k, a in tree.items()}
+    return {k: np.asarray(tree[k]).astype(np.float32) for k in sorted(tree)}
 
 
 def int8_quantize(a: np.ndarray) -> tuple[np.ndarray, np.float32]:

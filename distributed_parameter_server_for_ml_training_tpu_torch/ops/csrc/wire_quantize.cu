@@ -20,8 +20,6 @@
 // flops, far below the card's balance point. A full ResNet-18 push is
 // 11,220,132 elements = 56.1 MB, 16.7 us at 3.35 TB/s.
 //
-// Two kernels:
-//
 // wire_quantize_multi_kernel (dps_wire_quantize_multi) quantizes a whole
 // push in one launch. A push is 62 tensors for ResNet-18, most of them
 // small, and one launch per tensor left a push launch-bound (~24 us of host
@@ -43,11 +41,9 @@
 // multiple of 16, so every output tile is aligned. The bytes between an
 // entry's n and its next multiple of 16 are written as code 0.
 //
-// wire_quantize_kernel (dps_wire_quantize) is the first version, one launch
-// per tensor: float4 loads and char4 stores when both pointers are aligned,
-// a scalar tail, and a grid-stride loop. It stays as the reference's
-// one-tensor surface (ops/quantize.py:wire_quantize) and runs on no main
-// path.
+// The first version, one launch per tensor (wire_quantize_kernel), is
+// retired: the one-tensor surface (ops/quantize.py:wire_quantize) is a push
+// of one tensor through this kernel.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -148,36 +144,9 @@ wire_quantize_multi_kernel(const __grid_constant__ WireTable table,
   }
 }
 
-__global__ void wire_quantize_kernel(const float* __restrict__ x,
-                                     signed char* __restrict__ out,
-                                     long long n, float scale, float levels,
-                                     int vectorized) {
-  const long long stride = (long long)blockDim.x * gridDim.x;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  long long start = 0;
-  if (vectorized) {
-    const long long n4 = n / 4;
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-    char4* o4 = reinterpret_cast<char4*>(out);
-    for (long long i = tid; i < n4; i += stride) {
-      const float4 v = x4[i];
-      char4 r;
-      r.x = quantize_one(v.x, scale, levels);
-      r.y = quantize_one(v.y, scale, levels);
-      r.z = quantize_one(v.z, scale, levels);
-      r.w = quantize_one(v.w, scale, levels);
-      o4[i] = r;
-    }
-    start = n4 * 4;
-  }
-  for (long long i = start + tid; i < n; i += stride) {
-    out[i] = quantize_one(x[i], scale, levels);
-  }
-}
-
 }  // namespace
 
-// Plain C entry points, loaded with ctypes. Each launches on `stream`
+// Plain C entry point, loaded with ctypes. It launches on `stream`
 // (PyTorch's current stream) of the calling thread's current device, does
 // not synchronise, and returns cudaGetLastError() (or cudaErrorInvalidValue
 // for arguments it cannot take) so the caller can raise.
@@ -215,24 +184,5 @@ extern "C" int dps_wire_quantize_multi(int count, const long long* x_ptrs,
   wire_quantize_multi_kernel<<<static_cast<unsigned>(tiles), kWireThreads, 0,
                                static_cast<cudaStream_t>(stream)>>>(
       table, static_cast<signed char*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int dps_wire_quantize(const void* x, void* out, long long n,
-                                 float scale, int levels, void* stream) {
-  if (n <= 0) return 0;
-  const int threads = 256;
-  const int vectorized =
-      ((reinterpret_cast<uintptr_t>(x) & 15) == 0) &&
-      ((reinterpret_cast<uintptr_t>(out) & 3) == 0);
-  const long long work = vectorized ? (n + 3) / 4 : n;
-  long long blocks = (work + threads - 1) / threads;
-  // Enough blocks for every SM of an H100 many times over; the grid-stride
-  // loop covers the rest.
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  wire_quantize_kernel<<<(unsigned)blocks, threads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<signed char*>(out), n, scale,
-      static_cast<float>(levels), vectorized);
   return static_cast<int>(cudaGetLastError());
 }

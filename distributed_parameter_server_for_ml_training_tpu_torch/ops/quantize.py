@@ -8,8 +8,8 @@ tensors, each with its own scale and levels, into the int8 wire codes
 ``clamp(rint(x / scale), -levels, levels)`` — levels 127 for int8 codes, 7
 for int4 nibble codes — in one launch per :data:`WIRE_MAX_ENTRIES`
 tensors, into one flat buffer (:func:`wire_multi_layout`) with a view per
-tensor. :func:`wire_quantize_flat` is the first version, one launch per
-tensor, kept as the reference's one-tensor surface.
+tensor. :func:`wire_quantize_flat` and :func:`wire_quantize`, the
+reference's one-tensor surfaces, are a push of one tensor through it.
 
 **Block-wise int8 (K2-K4)**, the codec of the sync int8 ring
 (``parallel/sync_dp.py``). A row of n fp32 values is viewed as
@@ -64,10 +64,8 @@ KERNEL_SOURCE = "distributed_parameter_server_for_ml_training_tpu_torch/" \
     "ops/csrc/wire_quantize.cu"
 _PALLAS_QUANTIZE = "distributed_parameter_server_for_ml_training_tpu/" \
     "ops/pallas/quantize.py"
-#: The TPU kernel each wire wrapper replaces (file:line of its function):
-#: both kernels of wire_quantize.cu compute K1.
-REPLACES = {"wire_quantize_multi": f"{_PALLAS_QUANTIZE}:241",
-            "wire_quantize": f"{_PALLAS_QUANTIZE}:241"}
+#: The TPU kernel the wire wrapper replaces (file:line of its function).
+REPLACES = {"wire_quantize_multi": f"{_PALLAS_QUANTIZE}:241"}
 #: Entries of one multi-tensor launch: the kernel takes its table by value.
 WIRE_MAX_ENTRIES = 64
 #: Each entry's offset in the flat output is a multiple of this many bytes.
@@ -87,49 +85,14 @@ def wire_quantize_plain(x: torch.Tensor, scale: float,
     return torch.clamp(torch.round(x / s), -levels, levels).to(torch.int8)
 
 
-def _wire_quantize_cuda(x: torch.Tensor, scale: float,
-                        levels: int) -> torch.Tensor:
-    from ._build import load
-
-    if x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError(f"wire quantize kernel takes a contiguous float32 "
-                         f"tensor, got {x.dtype} contiguous="
-                         f"{x.is_contiguous()}")
-    out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    n = x.numel()
-    if n == 0:
-        return out
-    fn = load("wire_quantize").dps_wire_quantize
-    if fn.argtypes is None:     # first use: declare the C signature once
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    # The C entry point launches on the calling thread's current device:
-    # make that x's device for the launch.
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), out.data_ptr(), n, float(scale), int(levels),
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"wire quantize kernel launch failed: CUDA "
-                           f"error {err}")
-    with _count_lock:
-        wire_quantize.launches += 1
-    return out
-
-
 def wire_quantize_flat(x: torch.Tensor, scale: float,
                        levels: int) -> torch.Tensor:
-    """fp32 tensor + scale -> int8 codes of the same shape.
-
-    The kernel on a CUDA tensor, the plain version on a CPU tensor; any
-    other device raises. ``scale`` is the host-computed fp32 scale
+    """fp32 tensor + scale -> int8 codes of the same shape: a push of one
+    tensor through :func:`wire_quantize_multi` (one launch of K1 on a
+    CUDA tensor that holds values, the plain version on a CPU tensor; any
+    other device raises). ``scale`` is the host-computed fp32 scale
     (``np.float32``), passed to the kernel exactly."""
-    if x.device.type == "cuda":
-        return _wire_quantize_cuda(x, scale, levels)
-    if x.device.type == "cpu":
-        return wire_quantize_plain(x, scale, levels)
-    raise RuntimeError(f"wire quantize: no kernel for device {x.device}")
+    return wire_quantize_multi([x], [scale], [levels])[1][0]
 
 
 def wire_quantize(x: torch.Tensor, scale, *, levels: int = 127
@@ -138,10 +101,6 @@ def wire_quantize(x: torch.Tensor, scale, *, levels: int = 127
     (the reference's per-tensor surface, quantize.py:309)."""
     x = x.to(torch.float32).contiguous()
     return wire_quantize_flat(x, float(scale), levels)
-
-
-#: Kernel launches since the last reset (set to 0 to start a count).
-wire_quantize.launches = 0
 
 
 def wire_multi_layout(sizes: Sequence[int]
@@ -278,6 +237,7 @@ def wire_quantize_multi(xs: Sequence[torch.Tensor], scales: Sequence[float],
     raise RuntimeError(f"wire quantize: no kernel for device {xs[0].device}")
 
 
+#: Kernel launches since the last reset (set to 0 to start a count).
 wire_quantize_multi.launches = 0
 
 

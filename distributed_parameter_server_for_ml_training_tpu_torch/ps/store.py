@@ -1,12 +1,14 @@
 """In-process parameter store with the reference server's exact semantics.
 
-The JAX package's ``ps/store.py``, carried over to the port for what this
-slice runs: sync rounds, async staleness weighting and its bound, and
-compressed-domain rounds over quantized pushes. The store is NumPy on the
-host and framework-neutral, so these are the reference's line for line.
-Elastic membership and expiry, quorum and deadline rounds, sharding,
-tenancy, fetch-side codecs, checkpoints and the device-resident store
-come with later slices.
+The JAX package's ``ps/store.py``, carried over to the port: sync rounds,
+async staleness weighting and its bound, compressed-domain rounds over
+quantized pushes, elastic membership and expiry, quorum and deadline
+rounds, the fetch codecs, and the snapshot and migration surface. The
+store is NumPy on the host and framework-neutral, so these are the
+reference's line for line. ``shard_index``, ``shard_count`` and ``job_id``
+are identity fields only, validated as the JAX store validates them; the
+sharded tier and tenancy that act on them, checkpoints and the
+device-resident store come with later slices.
 
 The re-hosting of ``src/parameter_server/server.py``: canonical
 parameters live on the host CPU as a flat ``{name: np.ndarray}`` dict
@@ -26,15 +28,20 @@ Faithful behaviors reproduced deliberately (SURVEY.md appendix):
 - quirk 4: ``fetched_step`` is the global step the worker last fetched, so
   staleness = versions-behind (server.py:293-294, worker.py:299),
 - worker-count validation 1..32 (server.py:424-426),
-- ``last_seen`` tracked on fetch/push but never expired (server.py:219, 251).
+- ``last_seen`` tracked on fetch/push but never expired (server.py:219, 251)
+  unless ``worker_timeout`` asks for the corrected behaviour,
+- final stats printed when the active-worker set empties (server.py:315-316).
 
 Wire codec: pushes are fp16-compressed by default and fetches are fp32,
 matching the reference's asymmetry (push: worker.py:264-268 casts fp16;
-fetch: server.py:222 pickles fp32).
+fetch: server.py:222 pickles fp32); ``fetch_codec`` opts into bf16/fp16
+fetches.
 """
 
 from __future__ import annotations
 
+import math
+import re
 import threading
 import time
 from collections import deque
@@ -46,6 +53,8 @@ import numpy as np
 from ..ops.compression import (  # hot-path imports hoisted: no import-lock
     PUSH_CODECS,                 # checks inside push/fetch
     QUANTIZED_PUSH_CODECS,
+    bf16_compress,
+    fp16_compress,
     fp16_decompress,
     homomorphic_mean,
     is_quantized_payload,
@@ -61,6 +70,15 @@ from .semantics import (
 )
 
 MAX_WORKERS = 32  # server.py:424-426
+
+#: A job id: label-, path- and prefix-safe (the JAX package's
+#: ``ps/tenancy.py`` grammar, copied: tenancy itself is a later slice).
+_JOB_ID_RE = re.compile(r"^[A-Za-z0-9][A-Za-z0-9_\-]{0,63}$")
+
+
+def is_valid_job_id(value) -> bool:
+    """True when ``value`` is a well-formed job id."""
+    return isinstance(value, str) and bool(_JOB_ID_RE.match(value))
 
 
 @dataclass
@@ -81,15 +99,74 @@ class StoreConfig:
     # round at apply time. False decodes each push on arrival; numerics
     # agree to float rounding either way.
     compressed_domain: bool = True
+    # Fetch-side wire codec. 'none' (default) = reference parity: fetches
+    # are fp32 (server.py:222). 'bf16'/'fp16' halve the params-in wire
+    # term; workers/clients decompress after fetch.
+    fetch_codec: str = "none"
     strict_rounds: bool = False  # True = corrected double-push semantics
+    # Membership expiry. The reference tracks last_seen but never expires
+    # workers (server.py:219, 251). None reproduces that; a number of
+    # seconds turns on expire_stale_workers().
+    worker_timeout: float | None = None
+    # Elastic membership: a registering worker takes the LOWEST free id
+    # slot (a replacement adopts the dead worker's shard), sync rounds
+    # complete at the CURRENT active-worker count, and expiry purges the
+    # dead worker's pending gradients and completes the round if the
+    # survivors already cover it.
+    elastic: bool = False
+    # Quorum rounds: a sync round completes once this many DISTINCT
+    # workers of the live round target have pushed — an int >= 1 is a
+    # count, 0 < f < 1 a fraction of the target (ceil). A late push
+    # reconciles through the async staleness semantics. None keeps the
+    # full barrier (reference behaviour).
+    sync_quorum: float | None = None
+    # Per-round deadline in seconds, armed when the round's FIRST gradient
+    # lands: when it fires, the round completes with whatever has arrived.
+    # Composable with sync_quorum; None disables.
+    round_deadline: float | None = None
+    # Shard and job identity, validated as the JAX store validates them;
+    # the sharded tier and tenancy that act on them are a later slice.
+    shard_index: int = 0
+    shard_count: int = 1
+    job_id: str = "default"
 
     def __post_init__(self):
+        if not is_valid_job_id(self.job_id):
+            raise ValueError(
+                f"job_id must match [A-Za-z0-9][A-Za-z0-9_-]* "
+                f"(<= 64 chars), got {self.job_id!r}")
         if self.mode not in ("sync", "async"):
             raise ValueError(f"mode must be sync|async, got {self.mode!r}")
         if not 1 <= self.total_workers <= MAX_WORKERS:
             raise ValueError(
                 f"total_workers must be 1..{MAX_WORKERS} (server.py:424-426),"
                 f" got {self.total_workers}")
+        if self.fetch_codec not in ("none", "fp16", "bf16"):
+            raise ValueError(f"fetch_codec must be none|fp16|bf16, got "
+                             f"{self.fetch_codec!r}")
+        if self.sync_quorum is not None:
+            q = float(self.sync_quorum)
+            if q <= 0:
+                raise ValueError(f"sync_quorum must be > 0, got {q}")
+            if q >= 1.0 and q != int(q):
+                raise ValueError(
+                    f"sync_quorum >= 1 is a worker COUNT and must be "
+                    f"whole, got {q} (use a value < 1 for a fraction)")
+        if self.round_deadline is not None and self.round_deadline <= 0:
+            raise ValueError(
+                f"round_deadline must be > 0 seconds, got "
+                f"{self.round_deadline}")
+        if self.sync_quorum is not None or self.round_deadline is not None:
+            # Quorum counting must count DISTINCT workers: under quirk 3
+            # one worker double-pushing could satisfy a 2-worker quorum
+            # alone. A quorum therefore implies strict_rounds.
+            self.strict_rounds = True
+        if self.shard_count < 1 or not \
+                0 <= self.shard_index < self.shard_count:
+            raise ValueError(
+                f"shard_index must be in [0, shard_count) with "
+                f"shard_count >= 1; got index={self.shard_index} "
+                f"count={self.shard_count}")
 
 
 @dataclass
@@ -108,19 +185,25 @@ class AggregationBase:
     lr)`` and ``_apply(grads, lr, weight)`` and the state they use.
 
     Membership (server.py:190-211, 306-318): sequential ids under the
-    registration lock; JobFinished removes a worker and the final stats
-    fire when the active set empties."""
+    registration lock (the lowest free slot under ``elastic``); JobFinished
+    removes a worker and the final stats fire when the active set empties;
+    ``worker_timeout`` expires silent workers."""
 
     store_backend = "python"
 
-    # Cross-thread contracts: the pusher threads meet on this state.
+    # Cross-thread contracts: pusher threads, the round-deadline timer and
+    # the reaper meet on this state.
     parameters: dict  # guarded by: self._param_lock
     global_step: int  # guarded by: self._param_lock
     _pending: dict  # guarded by: self._sync_lock
     _gradients_received: int  # guarded by: self._sync_lock
+    _round_serial: int  # guarded by: self._sync_lock
+    _deadline_timer: object  # guarded by: self._sync_lock
+    _last_round_trigger: object  # guarded by: self._sync_lock
     _next_worker_id: int  # guarded by: self._registration_lock
     active_workers: set  # guarded by: self._registration_lock
     last_seen: dict  # guarded by: self._registration_lock
+    _excluded: set  # guarded by: self._registration_lock
 
     def _init_telemetry(self) -> None:
         """Store-side live instruments, created ONCE at construction and
@@ -157,36 +240,152 @@ class AggregationBase:
         # accumulators at round completion).
         self._tm_compressed = reg.counter(
             "dps_store_compressed_accum_total", backend=b)
+        # What closed each sync round (full barrier / quorum / deadline),
+        # stragglers' late pushes reconciled through the staleness path,
+        # and the live quorum-exclusion set size.
+        self._tm_round_trigger = {
+            trig: reg.counter("dps_store_round_completions_total",
+                              backend=b, trigger=trig)
+            for trig in ("full", "quorum", "deadline")
+        }
+        self._tm_late = reg.counter("dps_store_late_pushes_total",
+                                    backend=b)
+        self._tm_excluded = reg.gauge("dps_store_excluded_workers",
+                                      backend=b)
 
     # -- membership -------------------------------------------------------
 
     def register_worker(self, worker_name: str = "") -> tuple[int, int]:
-        """Returns (worker_id, total_workers); ids are strictly sequential
-        (server.py:193-194)."""
+        """Returns (worker_id, total_workers). Faithful mode assigns
+        strictly sequential ids (server.py:193-194); elastic mode reuses
+        the lowest free slot, so a replacement adopts the departed
+        worker's shard."""
         with self._registration_lock:
-            worker_id = self._next_worker_id
-            self._next_worker_id += 1
+            if self.config.elastic:
+                worker_id = next(i for i in range(len(self.active_workers) + 1)
+                                 if i not in self.active_workers)
+                self._next_worker_id = max(self._next_worker_id, worker_id + 1)
+            else:
+                worker_id = self._next_worker_id
+                self._next_worker_id += 1
             self.active_workers.add(worker_id)
             self.last_seen[worker_id] = time.time()
         return worker_id, self.config.total_workers
 
     def job_finished(self, worker_id: int) -> None:
-        """Remove from the active set; final stats fire when it empties."""
+        """Remove from the active set; final stats fire when it empties.
+        Elastic: the departure shrinks the round target, so the pending
+        round is re-evaluated (without purging: a clean departure's final
+        push is a valid contribution)."""
         with self._registration_lock:
             self.active_workers.discard(worker_id)
             empty = not self.active_workers
+        self._on_worker_departed(worker_id)
         if empty:
             self._finished_event.set()
 
     def wait_all_finished(self, timeout: float | None = None) -> bool:
         return self._finished_event.wait(timeout)
 
-    # -- sync rounds and async applies ----------------------------------
+    def membership_snapshot(self) -> list[int]:
+        """Sorted copy of the live worker ids, taken under the registration
+        lock."""
+        with self._registration_lock:
+            return sorted(self.active_workers)
 
-    def _push_sync(self, worker_id: int, grads: dict) -> bool:
-        """server.py:264-288: stash under sync_lock; when the round reaches
-        ``total_workers``, mean + apply + reset. No barrier — returns
-        immediately."""
+    def _round_target(self) -> int:
+        """Sync-round completion size: the fixed total (server.py:271-274)
+        or, in elastic mode, the live membership count (lock order sync ->
+        registration; no path takes them the other way round). Workers
+        excluded by ``exclude_worker`` leave the target either way."""
+        excluded = self._excluded  # dpslint: ignore[lock-guard]
+        if self.config.elastic:
+            with self._registration_lock:
+                if excluded:
+                    return max(1, len(self.active_workers - excluded))
+                return max(1, len(self.active_workers))
+        if excluded:
+            return max(1, self.config.total_workers - len(excluded))
+        return self.config.total_workers
+
+    def expire_stale_workers(self) -> list[int]:
+        """Failure detection: drop workers not seen within the timeout —
+        liveness comes from pushes, fetches and the heartbeat ping."""
+        if self.config.worker_timeout is None:
+            return []
+        cutoff = time.time() - self.config.worker_timeout
+        with self._registration_lock:
+            stale = [w for w in self.active_workers
+                     if self.last_seen.get(w, 0.0) < cutoff]
+            for w in stale:
+                self.active_workers.discard(w)
+            empty = not self.active_workers
+        if stale:
+            self._on_workers_expired(stale)
+        if stale and empty:
+            self._finished_event.set()
+        return stale
+
+    def _on_workers_expired(self, stale: list[int]) -> None:
+        """Elastic: purge DEAD workers' pending gradients and complete the
+        round if the survivors already cover the reduced target. An
+        expired worker also leaves the exclusion set."""
+        # Emptiness pre-check dodging the lock in the common case; the
+        # mutation below is a blind difference_update.
+        if self._excluded:  # dpslint: ignore[lock-guard]
+            with self._registration_lock:
+                self._excluded.difference_update(stale)
+                n = len(self._excluded)
+            self._tm_excluded.set(n)
+        if not self.config.elastic:
+            return
+        with self._sync_lock:
+            for w in stale:
+                self._pending.pop(w, None)
+            if self._pending or self._gradients_received:
+                self._gradients_received = len(self._pending)
+                self._maybe_complete_round_locked()
+
+    def _on_worker_departed(self, worker_id: int) -> None:
+        """Elastic: a clean departure only shrinks the round target — its
+        own final push (if any) stays in the round."""
+        if self._excluded:  # dpslint: ignore[lock-guard]
+            self.include_worker(worker_id)
+        if not self.config.elastic:
+            return
+        with self._sync_lock:
+            if self._gradients_received:
+                self._maybe_complete_round_locked()
+
+    # -- sync rounds (full, quorum, deadline) and async applies ----------
+
+    def _quorum_mode(self) -> bool:
+        return (self.config.sync_quorum is not None
+                or self.config.round_deadline is not None)
+
+    def _quorum_target(self, full: int) -> int:
+        """Contributions that complete a round: the full target, or the
+        configured quorum (count, or ceil of a fraction of the target),
+        clamped to [1, full]."""
+        q = self.config.sync_quorum
+        if q is None:
+            return full
+        q = float(q)
+        n = math.ceil(q * full - 1e-9) if q < 1.0 else int(q)
+        return max(1, min(full, n))
+
+    def _push_sync(self, worker_id: int, grads: dict,
+                   fetched_step: int | None = None) -> bool:
+        """server.py:264-288: stash under sync_lock; when the round hits
+        its (quorum) target, mean + apply + reset. No barrier — returns
+        immediately. In quorum mode a LATE push (its basis round already
+        closed under quorum/deadline) reconciles through the async
+        staleness semantics."""
+        # Routing pre-check only: the late path re-checks staleness under
+        # _param_lock, and a push routed into the round was on time.
+        if self._quorum_mode() and fetched_step is not None \
+                and fetched_step < self.global_step:  # dpslint: ignore[lock-guard]
+            return self._push_late(worker_id, grads, fetched_step)
         with self._sync_lock:
             self._pending[worker_id] = grads
             if self.config.strict_rounds:
@@ -196,13 +395,63 @@ class AggregationBase:
                 # Faithful quirk 3 (server.py:267-268): overwrite the entry,
                 # increment the count anyway.
                 self._gradients_received += 1
-            if self._gradients_received >= self.config.total_workers:
-                self._complete_round_locked()
+            self._arm_deadline_locked()
+            self._maybe_complete_round_locked()
             self.stats.gradients_processed += 1
         self._tm_push_ok.inc()
         return True
 
-    def _complete_round_locked(self) -> None:
+    def _push_late(self, worker_id: int, grads: dict,
+                   fetched_step: int) -> bool:
+        """A straggler's push that missed its round: applied through the
+        async staleness semantics (down-weighted, rejected past the
+        bound), neither double-counted into the next round nor dropped."""
+        self._tm_late.inc()
+        if is_quantized_payload(grads):
+            # The hold-as-is path is a round optimization; a late single
+            # payload applies in fp32.
+            grads = wire_decompress(grads)
+        return self._push_async(worker_id, grads, fetched_step)
+
+    def _arm_deadline_locked(self) -> None:
+        """Arm the per-round deadline timer on the round's first gradient
+        (caller holds ``_sync_lock``). The timer captures the round
+        serial, so a stale timer firing after its round completed does
+        nothing."""
+        deadline = self.config.round_deadline
+        if not deadline or self._deadline_timer is not None \
+                or not self._gradients_received:
+            return
+        t = threading.Timer(deadline, self._round_deadline_fired,
+                            args=(self._round_serial,))
+        t.daemon = True
+        self._deadline_timer = t
+        t.start()
+
+    def _round_deadline_fired(self, serial: int) -> None:
+        """Deadline expiry: complete the round with whatever arrived,
+        fenced by the round serial."""
+        with self._sync_lock:
+            if serial != self._round_serial:
+                return
+            self._deadline_timer = None
+            if self._gradients_received:
+                self._complete_round_locked("deadline")
+
+    def _cancel_deadline_locked(self) -> None:
+        t, self._deadline_timer = self._deadline_timer, None
+        if t is not None:
+            t.cancel()
+
+    def _maybe_complete_round_locked(self) -> None:
+        """Complete the round if it reached its (quorum) target (caller
+        holds ``_sync_lock``)."""
+        full = self._round_target()
+        if self._gradients_received >= self._quorum_target(full):
+            self._complete_round_locked(
+                "full" if self._gradients_received >= full else "quorum")
+
+    def _complete_round_locked(self, trigger: str) -> None:
         """Aggregate + apply + reset (caller holds ``_sync_lock``)."""
         t0 = time.time()
         try:
@@ -221,11 +470,65 @@ class AggregationBase:
             # wedged permanently.
             self._pending.clear()
             self._gradients_received = 0
+            self._round_serial += 1
+            self._cancel_deadline_locked()
+            self._last_round_trigger = trigger
         self._tm_rounds.inc()
+        self._tm_round_trigger[trigger].inc()
         self._tm_step.set(self.global_step)  # dpslint: ignore[lock-guard]
         dt = time.time() - t0
         self.stats.update_times.append(dt)
         self._tm_apply_s.observe(dt)
+
+    # -- quorum exclusion and round status ---------------------------------
+
+    def exclude_worker(self, worker_id: int) -> None:
+        """Quorum-exclude a worker: rounds stop waiting for it (it leaves
+        the round target and the quorum denominator) while its own pushes
+        still land. Re-evaluates the pending round, since shrinking the
+        target may complete it."""
+        with self._registration_lock:
+            self._excluded.add(int(worker_id))
+            n = len(self._excluded)
+        self._tm_excluded.set(n)
+        with self._sync_lock:
+            if self._gradients_received:
+                self._maybe_complete_round_locked()
+
+    def include_worker(self, worker_id: int) -> None:
+        """Lift a quorum exclusion: the worker counts toward round targets
+        again."""
+        with self._registration_lock:
+            self._excluded.discard(int(worker_id))
+            n = len(self._excluded)
+        self._tm_excluded.set(n)
+
+    def excluded_workers(self) -> list[int]:
+        with self._registration_lock:
+            return sorted(self._excluded)
+
+    def round_status(self) -> dict:
+        """Live sync-round/quorum state: target vs received, who has
+        pushed, who is excluded, and what closed the last round."""
+        with self._sync_lock:
+            received = self._gradients_received
+            pending = sorted(self._pending)
+            serial = self._round_serial
+            armed = self._deadline_timer is not None
+            trigger = self._last_round_trigger
+        full = self._round_target()
+        return {
+            "mode": self.config.mode,
+            "target": full,
+            "quorum": self._quorum_target(full),
+            "received": received,
+            "pushed_workers": pending,
+            "excluded": self.excluded_workers(),
+            "round_serial": serial,
+            "deadline_s": self.config.round_deadline,
+            "deadline_armed": armed,
+            "last_trigger": trigger,
+        }
 
     def _push_async(self, worker_id: int, grads: dict,
                     fetched_step: int) -> bool:
@@ -266,12 +569,56 @@ class AggregationBase:
         self._tm_apply_s.observe(dt)
         return True
 
+    # -- snapshot and migration surface ------------------------------------
+
     def snapshot(self) -> tuple[dict[str, np.ndarray], int]:
         """Consistent (params copy, global_step) pair."""
         with self._param_lock:
             params = {k: v.copy() for k, v in self.parameters.items()}
             step = self.global_step
         return params, step
+
+    def load_snapshot(self, params: Mapping[str, np.ndarray],
+                      step: int) -> None:
+        """Restore a (params, step) snapshot; conversion happens outside the
+        lock, the swap inside it."""
+        new = {k: np.array(v, np.float32) for k, v in params.items()}
+        with self._param_lock:
+            self.parameters = new
+            self.global_step = int(step)
+
+    def param_names(self) -> list[str]:
+        """Current parameter names (no tensor copies)."""
+        with self._param_lock:
+            return list(self.parameters.keys())
+
+    def export_params(self, names) -> tuple[dict[str, np.ndarray], int]:
+        """Consistent (subset copy, global_step) for a handoff — the donor
+        half of a migration. Unknown names are skipped."""
+        wanted = set(names)
+        with self._param_lock:
+            params = {k: v.copy() for k, v in self.parameters.items()
+                      if k in wanted}
+            step = self.global_step
+        return params, step
+
+    def adopt_params(self, params: Mapping[str, np.ndarray]) -> int:
+        """Graft migrated tensors into this store (the recipient half);
+        existing names are overwritten. Returns how many were adopted."""
+        new = {k: np.array(v, np.float32) for k, v in params.items()}
+        with self._param_lock:
+            self.parameters.update(new)
+        return len(new)
+
+    def drop_params(self, names) -> int:
+        """Release tensors this store no longer owns (the donor's commit
+        step). Returns how many were dropped."""
+        wanted = set(names)
+        with self._param_lock:
+            mine = [k for k in self.parameters if k in wanted]
+            for k in mine:
+                del self.parameters[k]
+        return len(mine)
 
     # -- observability ----------------------------------------------------
 
@@ -345,6 +692,12 @@ class ParameterStore(AggregationBase):
 
         self._pending: dict[int, dict[str, np.ndarray]] = {}
         self._gradients_received = 0
+        # Quorum-round bookkeeping: the exclusion set, the round serial
+        # that fences stale deadline timers, and the armed timer itself.
+        self._excluded: set[int] = set()
+        self._round_serial = 0
+        self._deadline_timer: threading.Timer | None = None
+        self._last_round_trigger: str | None = None
 
         self.stats = _Stats()
         self._finished_event = threading.Event()
@@ -355,6 +708,12 @@ class ParameterStore(AggregationBase):
         """Codec workers must apply before pushing (worker.py:264-268 did the
         fp16 cast on the worker side)."""
         return self._push_codec
+
+    @property
+    def fetch_codec(self) -> str:
+        """Codec applied to fetched payloads; workers must decompress
+        (the reference always fetched fp32, server.py:222)."""
+        return self.config.fetch_codec
 
     #: ``fetch(have_step=...)`` answers NOT_MODIFIED when the step has not
     #: moved. The gRPC service reads this (and the flag below) with
@@ -403,7 +762,8 @@ class ParameterStore(AggregationBase):
               have_step: int | None = None
               ) -> tuple[dict[str, np.ndarray], int]:
         """Copy of the canonical params + current global step
-        (server.py:213-237), fp32 and uncompressed as in the reference.
+        (server.py:213-237); fp32 and uncompressed as in the reference
+        unless ``fetch_codec`` is bf16 or fp16.
 
         ``have_step`` opts into the version-gated delta protocol: when it
         equals the canonical step, the reply is NOT_MODIFIED — ``({}, step)``
@@ -426,11 +786,16 @@ class ParameterStore(AggregationBase):
                     step = self.global_step
                     modified = True
             if worker_id is not None:
+                # Under the registration lock: the reaper iterates it.
                 with self._registration_lock:
                     self.last_seen[worker_id] = time.time()
             if not modified:
                 sp.attrs["not_modified"] = True
                 self._tm_fetch_nm.inc()
+            elif self.config.fetch_codec == "fp16":
+                payload = fp16_compress(payload)
+            elif self.config.fetch_codec == "bf16":
+                payload = bf16_compress(payload)
             self._tm_fetch_s.observe(_tnow() - t0)
             self._tm_fetches.inc()
             return payload, step
@@ -499,7 +864,8 @@ class ParameterStore(AggregationBase):
             self._tm_push_rej.inc()
             print(f"rejecting push from worker {worker_id}: {e}")
             return False
-        # The expected shapes, read under the lock.
+        # The expected shapes, read under the lock (a concurrent
+        # load_snapshot may swap the dict).
         with self._param_lock:
             param_shapes = {k: v.shape for k, v in self.parameters.items()}
         for name, shape in shapes.items():
@@ -518,7 +884,7 @@ class ParameterStore(AggregationBase):
             self._tm_compressed.inc()
 
         if self.config.mode == "sync":
-            return self._push_sync(worker_id, gradients)
+            return self._push_sync(worker_id, gradients, fetched_step)
         return self._push_async(worker_id, gradients, fetched_step)
 
     # -- aggregation kernels (orchestration in AggregationBase) --------------

@@ -1,5 +1,5 @@
-"""Async-mode worker runtime of the port: threads driving local steps on
-the card against the in-process parameter store.
+"""Worker runtime of the port: threads driving local steps on the card
+against a parameter store.
 
 Counterpart of the JAX package's ``ps/worker.py`` (the reference worker
 loop, src/workers/worker.py:350-403): register -> shard data by worker id
@@ -13,24 +13,31 @@ uncompressed pushes are cast on the host, as the reference does.
 
 K-step ("--sync-steps") semantics: ``k_step_mode='faithful'`` pushes only
 the boundary batch's gradients (the reference's quirk 7);
-``'accumulate'`` pushes the window's mean.
+``'accumulate'`` pushes the window's mean; ``'local_sgd'`` walks a local
+parameter trajectory with the fused step (``train/steps.py:
+make_fused_local_step``: grads, plain SGD apply and window accumulator,
+in place on the card) and pushes the window's mean at the boundary.
 
-Host batches are uploaded ``prefetch_batches`` ahead of the step
-(``train/device_loop.py:prefetch_to_device``), bitwise the same batches.
+``overlap=True`` runs pushes and the following prefetch on a single-slot
+comms thread (:class:`_CommsPipeline`) while the training thread computes
+the window's remaining batches. The heartbeat pings the store every
+``heartbeat_interval`` seconds; ``reconnect_timeout`` turns on session
+resume against a remote store that lost its session. Host batches are
+uploaded ``prefetch_batches`` ahead of the step
+(``train/device_loop.py:prefetch_to_device``).
 
-Not in this slice, each refused with ``NotImplementedError`` when its
-config field asks for it: the overlapped comms pipeline (``overlap``),
-``local_sgd``, the heartbeat, session resume (``reconnect_timeout``) and
-NaN injection. The store is the in-process ``ParameterStore`` or a
+The store is the in-process ``ParameterStore`` or a
 ``comms/client.py:RemoteStore``, which duck-types its worker-facing API
-over gRPC (``cli worker``); the worker reads the codec, the shared scales
-and the delta-fetch capability from whichever it is given. Acting on
-server directives and sending health reports come with ROADMAP §1 item 3.
+over gRPC (``cli worker``); the worker reads the codecs, the shared
+scales, the delta-fetch capability and the elastic membership from
+whichever it is given. Acting on server directives and sending health
+reports come with ROADMAP §1 item 8.
 """
 
 from __future__ import annotations
 
 import copy
+import os
 import threading
 import time
 from contextlib import nullcontext
@@ -40,16 +47,23 @@ import numpy as np
 import torch
 
 from ..data.cifar import Dataset, make_batches, shard_range
-from ..ops.compression import QUANTIZED_PUSH_CODECS, fp16_compress
-from ..ops.device_codec import DeviceCodec
+from ..ops.compression import QUANTIZED_PUSH_CODECS, fp16_compress, \
+    fp16_decompress
+from ..ops.device_codec import DeviceCodec, DevicePayload
 from ..telemetry import GoodputAccount, now as _tnow, trace_span
+from ..telemetry.trace import current_wire_trace, use_wire_context
 from ..train.device_loop import prefetch_to_device
-from ..train.steps import make_eval_step, make_grad_step
+from ..train.steps import make_eval_step, make_fused_local_step, \
+    make_grad_step
 from ..utils.device import resolve_device
 from ..utils.pytree import flax_names
+from .semantics import DEFAULT_STALENESS_BOUND
 from .store import ParameterStore
 
 _NULL_GP = nullcontext()
+
+#: Ceiling of the reconnect backoff, doubling from ``reconnect_backoff``.
+RECONNECT_BACKOFF_CAP_S = 10.0
 
 
 @dataclass
@@ -57,48 +71,65 @@ class WorkerConfig:
     batch_size: int = 128      # worker.py:474-482 distributed defaults
     num_epochs: int = 3
     sync_steps: int = 1        # K; CLI default 1 (worker.py:468)
-    k_step_mode: str = "faithful"   # 'faithful' | 'accumulate'
+    # 'faithful' | 'accumulate' | 'local_sgd'. local_sgd runs the fused
+    # step (grads + plain-SGD apply + window accumulation, params updated
+    # in place on the card) and pushes the window's gradient MEAN at the
+    # boundary; with K=1 it matches 'faithful' up to +0/-0 on exactly-zero
+    # gradient entries.
+    k_step_mode: str = "faithful"
     augment: bool = True
     eval_batch_size: int = 1000
     eval_each_epoch: bool = True   # worker.py:393-394
     seed: int = 0
+    # Liveness ping via a periodic (delta-gated) fetch: the reference's
+    # 30 s FetchParameters ping (worker.py:112-119), which it wrote but
+    # never ran. 0 disables.
+    heartbeat_interval: float = 0.0
+    # Overlapped comms pipeline: pushes (and the following prefetch) run
+    # on a single-slot background thread while the training thread
+    # computes the window's remaining batches. The per-worker RPC ORDER is
+    # the serial loop's; with a single worker every fetched_step is too,
+    # and the store's params match the serial run bit for bit. With
+    # several workers the prefetch runs up to K-1 batches earlier than the
+    # serial boundary fetch, within the store's staleness model.
+    overlap: bool = False
     # Version-gated delta fetches: refetches send have_step so a store
     # whose step hasn't advanced answers NOT_MODIFIED and the worker keeps
     # the params it already holds.
     delta_fetch: bool = True
+    # Session resume: when a remote store loses its session
+    # (SessionLostError), re-register, re-fetch at the restored server
+    # step and reconcile the in-flight gradient, within this many
+    # seconds; 0 keeps the terminal failure.
+    reconnect_timeout: float = 0.0
+    # First reconnect retry delay; doubles per attempt (capped at 10 s).
+    reconnect_backoff: float = 0.5
+    # Deterministic compute-fault injection: at this 0-based local step
+    # the batch's loss and gradients (the window accumulator under
+    # local_sgd) are poisoned with NaN. Env DPS_NAN_STEP does the same for
+    # subprocess workers. None disables.
+    nan_inject_step: int | None = None
     # Error feedback for the quantized push codecs: each push's
     # quantization residual is carried into the next step's gradient.
     error_feedback: bool = True
     # Fraction of entries a 'topk' push keeps per tensor.
     topk_frac: float = 0.01
     device: str = "cuda"
-    # Fields of the JAX worker whose features come with later slices;
-    # any value but the default raises NotImplementedError.
-    overlap: bool = False
-    heartbeat_interval: float = 0.0
-    reconnect_timeout: float = 0.0
-    nan_inject_step: int | None = None
     # Host->device input double buffering: this many batches' uploads in
     # flight ahead of the step (train/device_loop.py prefetch_to_device);
     # 0 feeds host batches directly.
     prefetch_batches: int = 2
+    # 'local_sgd' mode: the worker-local SGD learning rate; None adopts
+    # the store's configured learning_rate.
+    local_lr: float | None = None
 
     def __post_init__(self):
-        if self.k_step_mode == "local_sgd":
-            raise NotImplementedError(
-                "k_step_mode='local_sgd' is not ported yet")
-        if self.k_step_mode not in ("faithful", "accumulate"):
+        if self.k_step_mode not in ("faithful", "accumulate", "local_sgd"):
             raise ValueError(self.k_step_mode)
         if self.sync_steps < 1:
             raise ValueError("sync_steps must be >= 1")
-        later = {"overlap": self.overlap,
-                 "heartbeat_interval": self.heartbeat_interval,
-                 "reconnect_timeout": self.reconnect_timeout,
-                 "nan_inject_step": self.nan_inject_step is not None}
-        asked = [k for k, v in later.items() if v]
-        if asked:
-            raise NotImplementedError(
-                f"worker option(s) {asked} are not ported yet")
+        if self.prefetch_batches < 0:
+            raise ValueError("prefetch_batches must be >= 0")
         resolve_device(self.device)
 
 
@@ -114,6 +145,11 @@ class WorkerResult:
     local_steps_completed: int = 0
     pushes_accepted: int = 0
     pushes_rejected: int = 0
+    heartbeats: int = 0
+    heartbeat_errors: int = 0
+    # Session resumes survived (server restarts the reconnect state
+    # machine rode through).
+    reconnects: int = 0
     # Client-side wire accounting (RemoteStore.wire_stats); empty for the
     # in-process store, which crosses no wire.
     wire: dict = field(default_factory=dict)
@@ -141,7 +177,7 @@ class WorkerResult:
             "batch_size": config.batch_size,
             "learning_rate": learning_rate,
             "num_epochs": config.num_epochs,
-            "reconnects": 0,
+            "reconnects": self.reconnects,
         }
         out.update(self.wire)
         return out
@@ -149,9 +185,41 @@ class WorkerResult:
 
 def _window_mean(accum: dict, n: int) -> dict:
     """Mean of an accumulated K-step gradient window: a true division by
-    ``n`` (a tensor divisor, never a host scalar's reciprocal)."""
+    ``n`` (a tensor divisor, never a host scalar's reciprocal). One
+    definition shared by the serial and overlapped push paths."""
     return {k: a / torch.tensor(n, dtype=torch.float32, device=a.device)
             for k, a in accum.items()}
+
+
+@dataclass
+class _StagedGrads:
+    """An uncompressed or fp16 push whose device->host copies were started
+    on the training thread: pinned host tensors, and the event after the
+    copies (None when the gradients already were on the host)."""
+    host: dict
+    ready: object = None
+
+    def numpy(self) -> dict:
+        if self.ready is not None:
+            self.ready.synchronize()
+        return {k: v.numpy() for k, v in self.host.items()}
+
+
+def _stage_to_host(grads: dict) -> _StagedGrads:
+    """Start the device->host copies of a push's gradients now, on the
+    calling (training) thread, so they run behind the next window's
+    compute: the counterpart of the JAX worker's ``copy_to_host_async``."""
+    first = next(iter(grads.values()), None)
+    if first is None or first.device.type != "cuda":
+        return _StagedGrads({k: v.detach() for k, v in grads.items()})
+    host = {}
+    for k, v in grads.items():
+        h = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+        h.copy_(v.detach(), non_blocking=True)
+        host[k] = h
+    ready = torch.cuda.Event()
+    ready.record(torch.cuda.current_stream(first.device))
+    return _StagedGrads(host, ready)
 
 
 class _BitwidthController:
@@ -219,6 +287,195 @@ class _BitwidthController:
         return f"adaptive({name})" if self.adaptive else name
 
 
+class _CommsPipeline:
+    """Bounded single-slot comms thread for one worker.
+
+    Executes (push, then optional prefetch) work items in submission order
+    on ONE background thread, so a worker's pushes stay strictly sequential
+    — the RemoteStore push-token dedupe contract ("a retry always precedes
+    that worker's next distinct push") holds as in the serial loop — and a
+    prefetch can never overtake the push it follows. At most ONE item is
+    in flight: ``submit`` blocks until the previous item completed (the
+    depth gauge is therefore 0 or 1).
+
+    The training thread's contract:
+
+    - ``submit(grads, fetched_step, prefetch_current)`` — push ``grads``
+      (a DevicePayload encoded at dispatch, or gradients whose host copies
+      were started at dispatch) with ``fetched_step``; if
+      ``prefetch_current`` is not None, follow with a params fetch
+      (``have_step=fetched_step``, delta-gated) that ``await_params``
+      later returns.
+    - ``await_params()`` — block until the pending prefetch result is
+      available and take it.
+    - ``flush()`` — block until the pipeline is idle (epoch boundaries).
+
+    On a card the prefetch's upload runs on a side stream of the comms
+    thread (it overlaps the training thread's compute on the default
+    stream); ``await_params`` makes the training thread's stream wait on
+    an event recorded after the upload and ``record_stream``s the
+    uploaded tensors there, so the caching allocator does not reuse their
+    memory while that stream still reads them.
+
+    Comms-thread exceptions surface on the NEXT training-thread call (with
+    the original as ``__cause__``), so a dead server fails the worker
+    instead of hanging it.
+    """
+
+    def __init__(self, worker: "PSWorker", worker_id: int):
+        self._worker = worker
+        self._worker_id = worker_id
+        self._item = None
+        self._error: Exception | None = None
+        # The (grads, fetched_step) of a PUSH that died on the comms
+        # thread — what the session-resume reconciliation must decide
+        # about. A failed PREFETCH leaves this None: its push landed.
+        self._failed_push = None
+        self._go = threading.Event()
+        self._done = threading.Event()
+        self._done.set()
+        self._stop = False
+        self._result = None            # (params, step, event) of a prefetch
+        self._result_ready = threading.Event()
+        self._pending_prefetch = False  # training thread only
+        self._last_comms_s = 0.0
+        dev = worker.device
+        self._stream = torch.cuda.Stream(dev) if dev.type == "cuda" \
+            else None
+        from ..telemetry import get_registry
+        reg = get_registry()
+        w = str(worker_id)
+        self._tm_depth = reg.gauge("dps_worker_pipeline_depth", worker=w)
+        # Comms seconds the training thread did NOT spend blocked: the
+        # item's comms-thread duration minus the time await/flush waited.
+        self._tm_saved = reg.histogram("dps_worker_overlap_saved_seconds",
+                                       worker=w)
+        self._thread = threading.Thread(
+            target=self._loop, daemon=True,
+            name=f"comms-pipeline-{worker_id}")
+        self._thread.start()
+
+    # -- comms thread --------------------------------------------------------
+
+    def _prefetch(self, fetched_step: int, current):
+        """The prefetch and, on a card, the event after its upload."""
+        event = None
+        with torch.cuda.stream(self._stream) if self._stream is not None \
+                else nullcontext():
+            params, step = self._worker._fetch_params(
+                self._worker_id, have_step=fetched_step, current=current)
+            if self._stream is not None:
+                event = torch.cuda.Event()
+                event.record(self._stream)
+        return params, step, event
+
+    def _loop(self) -> None:
+        while True:
+            self._go.wait()
+            self._go.clear()
+            if self._stop:
+                return
+            grads, fetched_step, prefetch_current, wctx = self._item
+            self._item = None
+            t0 = _tnow()
+            try:
+                # Adopt the submitting step's trace context, so this
+                # item's spans attach to the step whose window hides them.
+                with use_wire_context(wctx), \
+                        trace_span("pipeline.comms",
+                                   worker=self._worker_id,
+                                   prefetch=prefetch_current is not None):
+                    if grads is not None:
+                        try:
+                            self._worker._push(self._worker_id, grads,
+                                               fetched_step)
+                        except Exception:  # noqa: BLE001 — stash, re-raise
+                            self._failed_push = (grads, fetched_step)
+                            raise
+                    if prefetch_current is not None:
+                        result = self._prefetch(fetched_step,
+                                                prefetch_current)
+                        # Duration published BEFORE the ready flag: a
+                        # waiter that wakes at once must see THIS item's
+                        # comms time.
+                        self._last_comms_s = _tnow() - t0
+                        self._result = result
+                        self._result_ready.set()
+            except Exception as e:  # noqa: BLE001 — surfaced via await_params
+                self._error = e
+                self._result_ready.set()  # wake a blocked await_params
+            finally:
+                self._last_comms_s = _tnow() - t0
+                self._tm_depth.set(0)
+                self._done.set()
+
+    # -- training thread -----------------------------------------------------
+
+    def _raise_if_failed(self) -> None:
+        if self._error is not None:
+            raise RuntimeError("comms pipeline failed") from self._error
+
+    def submit(self, grads, fetched_step: int, prefetch_current) -> None:
+        self._done.wait()  # single-slot bound: previous item must be done
+        self._raise_if_failed()
+        # Start the device->host copies of an uncompressed or fp16 push
+        # NOW, on the training thread, in program order; a DevicePayload
+        # started its own copies at encode time.
+        if grads is not None and not isinstance(grads, DevicePayload):
+            grads = _stage_to_host(grads)
+        self._item = (grads, fetched_step, prefetch_current,
+                      current_wire_trace())
+        self._pending_prefetch = prefetch_current is not None
+        self._done.clear()
+        self._tm_depth.set(1)
+        self._go.set()
+
+    def params_pending(self) -> bool:
+        return self._pending_prefetch
+
+    def await_params(self):
+        """Take the pending prefetch result; records the overlap saving
+        (comms time hidden behind compute) for this window."""
+        t0 = _tnow()
+        self._result_ready.wait()
+        waited = _tnow() - t0
+        self._raise_if_failed()
+        params, step, event = self._result
+        self._result = None
+        self._result_ready.clear()
+        self._pending_prefetch = False
+        if event is not None:
+            consumer = torch.cuda.current_stream(self._worker.device)
+            consumer.wait_event(event)
+            for t in params.values():
+                t.record_stream(consumer)
+        self._tm_saved.observe(max(0.0, self._last_comms_s - waited))
+        return params, step
+
+    def flush(self) -> None:
+        """Epoch barrier: wait until the in-flight item (if any) finished.
+        A pending prefetch RESULT survives a flush — the next epoch's
+        opening fetch consumes it."""
+        self._done.wait()
+        self._raise_if_failed()
+
+    def take_failed_item(self):
+        """The (grads, fetched_step) of the push that killed this
+        pipeline, if any — consumed once by the session-resume
+        reconciliation."""
+        item, self._failed_push = self._failed_push, None
+        return item
+
+    def close(self) -> None:
+        # Bounded wait: a comms thread stuck deep in RPC retries must not
+        # wedge teardown; it is a daemon and observes _stop when its RPC
+        # returns.
+        self._done.wait(timeout=120.0)
+        self._stop = True
+        self._go.set()
+        self._thread.join(timeout=10.0)
+
+
 class PSWorker(threading.Thread):
     """One logical worker. Runs as a thread over its OWN copy of the model
     (an ``nn.Module`` is not thread-safe), on ``config.device``."""
@@ -234,13 +491,30 @@ class PSWorker(threading.Thread):
         self.model = copy.deepcopy(model).to(self.device)
         self.worker_name = worker_name
         self.result = WorkerResult()
+        # Step of the last successful fetch; the heartbeat thread reads it
+        # to delta-gate its pings.
+        self._last_fetched_step: int | None = None
+        # The overlapped comms pipeline (set in _run when overlap=True); an
+        # attribute so the session-resume path can drain and rebuild it.
+        self._pipe: _CommsPipeline | None = None
+        self._done = threading.Event()
         self._bitwidth: _BitwidthController | None = None
         self._device_codec: DeviceCodec | None = None
         self._prev_push_done: float | None = None
         self._goodput: GoodputAccount | None = None
+        self._tm_reconnect = None  # created at _init_telemetry
+        self._tm_hb_err = None
         self._test_cache = None
+        ns = self.config.nan_inject_step
+        if ns is None:
+            env = os.environ.get("DPS_NAN_STEP")
+            ns = int(env) if env else None
+        self._nan_step = ns
         self._grad_step = make_grad_step(self.model,
                                          augment=self.config.augment)
+        self._fused_step = make_fused_local_step(
+            self.model, augment=self.config.augment) \
+            if self.config.k_step_mode == "local_sgd" else None
         self._eval_step = make_eval_step(self.model)
 
     # -- the training loop (worker.py:350-403) ------------------------------
@@ -251,6 +525,7 @@ class PSWorker(threading.Thread):
         except Exception as e:  # noqa: BLE001 — surfaced via .result
             self.result.error = e
         finally:
+            self._done.set()
             if self.result.worker_id >= 0:
                 try:
                     self.store.job_finished(self.result.worker_id)
@@ -264,11 +539,56 @@ class PSWorker(threading.Thread):
             if callable(ws):
                 self.result.wire = ws()
 
+    def _heartbeat_loop(self, interval: float) -> None:
+        """Liveness ping: a periodic fetch (the reference's intended
+        health_check_loop, worker.py:112-119), delta-gated when the store
+        supports it, so a ping costs a header while the step has not moved
+        past the training thread's last fetch. The worker id is re-read
+        every tick, so after a session resume the same thread keeps the
+        NEW registration alive. Failed ticks are counted
+        (``heartbeat_errors``, dps_worker_heartbeat_errors_total) and
+        logged once per transition into and out of the failing state."""
+        failing = False
+        while not self._done.wait(interval):
+            try:
+                worker_id = self.result.worker_id
+                have = self._last_fetched_step
+                if (have is not None and self.config.delta_fetch
+                        and getattr(self.store, "supports_delta_fetch",
+                                    False)):
+                    self.store.fetch(worker_id, have_step=have)
+                else:
+                    self.store.fetch(worker_id)
+                self.result.heartbeats += 1
+                if failing:
+                    failing = False
+                    print(f"HEARTBEAT_RECOVERED worker={self.worker_name} "
+                          f"id={self.result.worker_id}", flush=True)
+            except Exception as e:  # noqa: BLE001 — next tick retries
+                self.result.heartbeat_errors += 1
+                if self._tm_hb_err is not None:
+                    self._tm_hb_err.inc()
+                if not failing:
+                    failing = True
+                    print(f"HEARTBEAT_FAILING worker={self.worker_name} "
+                          f"id={self.result.worker_id} err={e!r}",
+                          flush=True)
+
     def _compute_shard(self, worker_id: int, total_workers: int):
-        """This worker's contiguous data shard (worker.py:166-179), split
-        by registration id."""
+        """This worker's contiguous data shard. Faithful mode: a fixed
+        split by registration id (worker.py:166-179), ids wrapping into
+        range. Elastic mode: a split over the LIVE membership by rank, so
+        at each epoch boundary coverage rebalances as workers come and go
+        (a RemoteStore caches the membership off its replies)."""
         n = len(self.dataset.x_train)
-        lo, hi = shard_range(n, worker_id % total_workers, total_workers)
+        cfg = getattr(self.store, "config", None)
+        rank, total = worker_id % total_workers, total_workers
+        if getattr(cfg, "elastic", False) \
+                and hasattr(self.store, "membership_snapshot"):
+            active = self.store.membership_snapshot()
+            if worker_id in active:
+                rank, total = active.index(worker_id), len(active)
+        lo, hi = shard_range(n, rank, total)
         return self.dataset.x_train[lo:hi], self.dataset.y_train[lo:hi]
 
     def _init_telemetry(self, worker_id: int) -> None:
@@ -289,21 +609,60 @@ class PSWorker(threading.Thread):
                                           stage="postcodec", worker=w)
         self._tm_fetch_nm = reg.counter(
             "dps_worker_fetch_not_modified_total", worker=w)
+        # Labeled by the INITIAL registration id: the logical worker's
+        # identity for the run, even if a resume registers a fresh id.
+        self._tm_reconnect = reg.counter("dps_worker_reconnect_total",
+                                         worker=w)
+        self._tm_hb_err = reg.counter("dps_worker_heartbeat_errors_total",
+                                      worker=w)
         self._tm_push_saved = reg.counter(
             "dps_worker_push_bytes_saved_total", worker=w)
         self._tm_push_bits = reg.gauge("dps_worker_push_bitwidth", worker=w)
         self._tm_codec_s = reg.histogram("dps_worker_codec_seconds",
                                          worker=w)
+        # Device->host gradient-pull seconds that ran on the comms thread
+        # instead of blocking the training thread.
+        self._tm_d2h_saved = reg.histogram(
+            "dps_worker_d2h_overlap_saved_seconds", worker=w)
         self._goodput = GoodputAccount(reg)
 
     def _gp(self, category: str):
-        """Goodput bracket for the training thread's wall."""
-        return _NULL_GP if self._goodput is None \
-            else self._goodput.span(category)
+        """Goodput bracket for the TRAINING thread's wall. The comms
+        thread's overlapped work is not charged: those seconds run under
+        the window's compute."""
+        gp = self._goodput
+        if gp is None:
+            return _NULL_GP
+        pipe = self._pipe
+        if pipe is not None and threading.current_thread() is pipe._thread:
+            return _NULL_GP
+        return gp.span(category)
 
     def _sync_device(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _local_lr(self) -> float:
+        """local_sgd's step size as an fp32 value: the config's, else the
+        store's learning rate."""
+        lr = self.config.local_lr
+        if lr is None:
+            lr = float(getattr(getattr(self.store, "config", None),
+                               "learning_rate", 0.1) or 0.1)
+        return float(np.float32(lr))
+
+    def _inject_nan(self, grads, accum, loss):
+        """Deterministic compute-fault injection at ``nan_inject_step``:
+        poison this batch's loss and gradients — under local_sgd the
+        window accumulator, which is what gets pushed."""
+        if grads is None:
+            torch._foreach_mul_(list(accum.values()), float("nan"))
+        else:
+            grads = {k: g * float("nan") for k, g in grads.items()}
+        print(f"fault injection: NaN gradients/loss at worker="
+              f"{self.worker_name} local_step="
+              f"{self.result.local_steps_completed}", flush=True)
+        return grads, loss * float("nan")
 
     def _run(self) -> None:
         t_run0 = _tnow()
@@ -321,6 +680,10 @@ class PSWorker(threading.Thread):
             self._device_codec = DeviceCodec(
                 error_feedback=cfg.error_feedback,
                 topk_frac=cfg.topk_frac, device=self.device)
+        if cfg.heartbeat_interval > 0:
+            threading.Thread(target=self._heartbeat_loop,
+                             args=(cfg.heartbeat_interval,),
+                             daemon=True).start()
 
         # This worker's BatchNorm statistics start from the model's own
         # (zeros/ones) and stay local, as in the reference.
@@ -335,6 +698,13 @@ class PSWorker(threading.Thread):
         k = cfg.sync_steps
         accum = None
         accum_n = 0
+        # local_sgd: the fused step walks a LOCAL trajectory between push
+        # boundaries, in place. local_params is a COPY of the fetched
+        # params, which stay intact as the delta-fetch basis.
+        local_sgd = cfg.k_step_mode == "local_sgd"
+        local_params = None
+        local_lr = self._local_lr() if local_sgd else None
+        self._pipe = _CommsPipeline(self, worker_id) if cfg.overlap else None
 
         gp = self._goodput
         gp.add("startup", _tnow() - t_run0)
@@ -342,12 +712,18 @@ class PSWorker(threading.Thread):
         try:
             for epoch in range(cfg.num_epochs):
                 t_epoch = time.time()
+                # The epoch's first fetch comes BEFORE the shard, so a
+                # remote store's membership cache is fresh when the shard
+                # is computed; a pipeline's pending prefetch serves the
+                # same role.
                 with trace_span("worker.step", root=True, worker=worker_id,
                                 step=self.result.local_steps_completed,
                                 epoch=epoch, epoch_open=True):
                     with trace_span("worker.fetch_wait"):
                         params, fetched_step = self._boundary_fetch(
                             worker_id, fetched_step, params)
+                # A session resume may have re-registered under a fresh id.
+                worker_id = self.result.worker_id
                 x_shard, y_shard = self._compute_shard(worker_id,
                                                        total_workers)
                 batches = prefetch_to_device(
@@ -365,15 +741,38 @@ class PSWorker(threading.Thread):
                             with trace_span("worker.fetch_wait"):
                                 params, fetched_step = self._boundary_fetch(
                                     worker_id, fetched_step, params)
+                            worker_id = self.result.worker_id
                         t_step = _tnow()
+                        grads = None
                         with trace_span("worker.compute") as _csp, \
                                 self._gp("compute"):
-                            grads, batch_stats, loss, _ = self._grad_step(
-                                params, batch_stats, xb, yb, gen)
+                            if local_sgd:
+                                if boundary:
+                                    # Window open: a fresh copy of the
+                                    # fetched params, a zero accumulator.
+                                    local_params = {
+                                        n: p.clone()
+                                        for n, p in params.items()}
+                                    accum = {n: torch.zeros_like(p)
+                                             for n, p in params.items()}
+                                    accum_n = 0
+                                (local_params, accum, batch_stats, loss,
+                                 _) = self._fused_step(
+                                    local_params, accum, batch_stats, xb,
+                                    yb, gen, local_lr)
+                            else:
+                                grads, batch_stats, loss, _ = \
+                                    self._grad_step(params, batch_stats,
+                                                    xb, yb, gen)
                             if _csp.ctx is not None:
                                 # Tracing: attribute device time to THIS
                                 # span, not to the codec's first sync.
                                 self._sync_device()
+                        if self._nan_step is not None and \
+                                self.result.local_steps_completed \
+                                == self._nan_step:
+                            grads, loss = self._inject_nan(grads, accum,
+                                                           loss)
                         self._tm_step_s.observe(_tnow() - t_step)
                         self._tm_steps.inc()
                         self.result.local_steps_completed += 1
@@ -381,29 +780,50 @@ class PSWorker(threading.Thread):
                             else loss_sum + loss
                         n_loss += 1
 
-                        if cfg.k_step_mode == "accumulate" and k > 1:
+                        if local_sgd:
+                            accum_n += 1
+                            if accum_n == k:
+                                params, fetched_step = \
+                                    self._dispatch_push_mean(
+                                        worker_id, accum, accum_n,
+                                        fetched_step, params)
+                                worker_id = self.result.worker_id
+                                accum, accum_n = None, 0
+                        elif cfg.k_step_mode == "accumulate" and k > 1:
                             accum = grads if accum is None else \
                                 {n: accum[n] + g for n, g in grads.items()}
                             accum_n += 1
                             if accum_n == k:
-                                self._dispatch_push(
-                                    worker_id, _window_mean(accum, accum_n),
-                                    fetched_step)
+                                params, fetched_step = \
+                                    self._dispatch_push_mean(
+                                        worker_id, accum, accum_n,
+                                        fetched_step, params)
+                                worker_id = self.result.worker_id
                                 accum, accum_n = None, 0
                         elif boundary:
                             # Faithful: push THIS batch's gradients; the
                             # other K-1 batches' are dropped (quirk 7).
-                            self._dispatch_push(worker_id, grads,
-                                                fetched_step)
+                            params, fetched_step = self._dispatch_push(
+                                worker_id, grads, fetched_step, params)
+                            worker_id = self.result.worker_id
                     gp.tick_wall()
 
                 # An epoch ending mid-window flushes the partial window,
                 # divided by the ACTUAL number of accumulated batches.
                 if accum is not None:
-                    self._dispatch_push(worker_id,
-                                        _window_mean(accum, accum_n),
-                                        fetched_step)
+                    params, fetched_step = self._dispatch_push_mean(
+                        worker_id, accum, accum_n, fetched_step, params)
+                    worker_id = self.result.worker_id
                     accum, accum_n = None, 0
+                if self._pipe is not None:
+                    # Epoch barrier: the epoch's last push is ON the
+                    # server before the epoch closes; the prefetch RESULT
+                    # survives into the next epoch's opening fetch.
+                    try:
+                        self._pipe.flush()
+                    except Exception as e:  # noqa: BLE001 — session recovery
+                        params, fetched_step = self._recover_session(e)
+                        worker_id = self.result.worker_id
                 self.result.epoch_times.append(time.time() - t_epoch)
                 if n_loss:
                     self.result.train_loss_per_epoch.append(
@@ -425,19 +845,207 @@ class PSWorker(threading.Thread):
                 gp.tick_wall()
         finally:
             gp.tick_wall()
+            if self._pipe is not None:
+                self._pipe.close()
+
+    # -- session resume ------------------------------------------------------
+
+    @staticmethod
+    def _session_lost(exc):
+        """The SessionLostError behind ``exc`` (direct, or carried as the
+        ``__cause__`` of a comms-pipeline RuntimeError), else None."""
+        from ..comms.client import SessionLostError
+        if isinstance(exc, SessionLostError):
+            return exc
+        cause = getattr(exc, "__cause__", None)
+        if isinstance(cause, SessionLostError):
+            return cause
+        return None
+
+    def _repush_viable(self, old_fetched: int, server_step: int) -> bool:
+        """Worker-side half of the staleness semantics for a gradient
+        stranded by a session loss: never push one whose basis is AHEAD of
+        the restored server, nor one the async staleness gate would reject
+        anyway. Sync mode accepts any contribution (quirk 2)."""
+        if server_step < old_fetched:
+            return False
+        cfg = getattr(self.store, "config", None)
+        if getattr(cfg, "mode", "sync") == "async":
+            bound = getattr(cfg, "staleness_bound", DEFAULT_STALENESS_BOUND)
+            return server_step - old_fetched <= bound
+        return True
+
+    def _reconcile_inflight(self, worker_id: int, inflight,
+                            server_step: int) -> str:
+        """Decide the fate of the gradient that was mid-push when the
+        session died: discard (stale or rewound basis) or re-push. The
+        re-push prefers the client's recorded request — the SAME
+        exactly-once token, so a push the server already applied replays
+        as a duplicate instead of applying twice."""
+        grads, old_fetched = inflight
+        if not self._repush_viable(old_fetched, server_step):
+            return "discarded"
+        repush = getattr(self.store, "repush_last", None)
+        if callable(repush):
+            accepted = repush(worker_id)
+            if accepted is not None:
+                if accepted:
+                    self.result.pushes_accepted += 1
+                else:
+                    self.result.pushes_rejected += 1
+                return "repushed"
+        # No recorded request to replay (an in-process store): a fresh
+        # push with the original basis step.
+        self._push(worker_id, grads, old_fetched)
+        return "repushed"
+
+    def _recover_session(self, exc, inflight=None):
+        """The reconnect state machine: on SessionLostError, drain the
+        comms pipeline, re-register (under elastic membership the lowest
+        free slot), re-fetch params at the restored server step, reconcile
+        the in-flight gradient and rebuild the pipeline — each attempt on
+        a fresh channel, within ``reconnect_timeout`` seconds, the backoff
+        doubling from ``reconnect_backoff`` up to 10 s. With resume off
+        (0) ``exc`` is re-raised unchanged. Returns the fresh ``(params,
+        fetched_step)``."""
+        lost = self._session_lost(exc)
+        cfg = self.config
+        if lost is None or cfg.reconnect_timeout <= 0:
+            raise exc
+        if self._pipe is not None:
+            # Capture the failed push (if that is what died), then retire
+            # the comms thread; a fresh one starts with the new session.
+            failed = self._pipe.take_failed_item()
+            if inflight is None:
+                inflight = failed
+            try:
+                self._pipe.close()
+            except Exception:  # noqa: BLE001 — teardown must not mask
+                pass
+            self._pipe = None
+        old_id = self.result.worker_id
+        deadline = time.time() + cfg.reconnect_timeout
+        delay = cfg.reconnect_backoff
+        attempts = 0
+        with trace_span("worker.reconnect", root=True,
+                        worker=old_id) as sp, \
+                self._gp("reconnect_recovery"):
+            while True:
+                attempts += 1
+                try:
+                    reset = getattr(self.store, "reset_channel", None)
+                    if callable(reset):
+                        reset()
+                    # One registration attempt per turn of THIS backoff
+                    # loop (the client's own x5 would overrun the window).
+                    if hasattr(self.store, "register_retries"):
+                        worker_id, _ = self.store.register_worker(
+                            self.worker_name, retries=1)
+                    else:
+                        worker_id, _ = self.store.register_worker(
+                            self.worker_name)
+                    # A FULL fetch: the old session's delta basis is gone.
+                    params, fetched_step = self._fetch_params(worker_id)
+                    outcome = "none"
+                    if inflight is not None:
+                        outcome = self._reconcile_inflight(
+                            worker_id, inflight, fetched_step)
+                    break
+                except ConnectionError as e:
+                    if time.time() + delay > deadline:
+                        sp.attrs["outcome"] = "gave_up"
+                        from ..comms.client import SessionLostError
+                        raise SessionLostError(
+                            f"reconnect window "
+                            f"({cfg.reconnect_timeout:.0f}s) exhausted "
+                            f"after {attempts} attempts: {e}") from lost
+                    time.sleep(delay)
+                    delay = min(delay * 2.0, RECONNECT_BACKOFF_CAP_S)
+            self.result.worker_id = worker_id
+            self.result.reconnects += 1
+            self._tm_reconnect.inc()
+            sp.attrs.update(attempts=attempts, new_worker_id=worker_id,
+                            inflight=outcome)
+            if cfg.overlap:
+                self._pipe = _CommsPipeline(self, worker_id)
+        print(f"RECONNECTED worker={self.worker_name} old_id={old_id} "
+              f"new_id={worker_id} server_step={fetched_step} "
+              f"attempts={attempts} inflight={outcome}", flush=True)
+        return params, fetched_step
+
+    # -- fetch and push dispatch ---------------------------------------------
 
     def _boundary_fetch(self, worker_id: int, fetched_step: int, params):
-        """The boundary params fetch (delta-gated once params are held)."""
-        with self._gp("fetch_wait"):
-            return self._fetch_params(
-                worker_id,
-                have_step=fetched_step if params is not None else None,
-                current=params)
+        """The (pipeline-aware) boundary params fetch, resuming the
+        session on failure: the pending prefetch's result when the
+        pipeline issued one, else a delta-gated fetch once params are
+        held. Returns (params, fetched step)."""
+        try:
+            with self._gp("fetch_wait"):
+                pipe = self._pipe
+                if pipe is not None and pipe.params_pending():
+                    # Issued right after the window's push: its latency
+                    # ran under the window's compute.
+                    return pipe.await_params()
+                if pipe is not None:
+                    pipe.flush()  # a fetch must never overtake a push
+                return self._fetch_params(
+                    worker_id,
+                    have_step=fetched_step if params is not None else None,
+                    current=params)
+        except Exception as e:  # noqa: BLE001 — session recovery
+            return self._recover_session(e)
 
     def _dispatch_push(self, worker_id: int, grads: dict,
-                       fetched_step: int) -> None:
+                       fetched_step: int, params):
+        """Push now (serial) or hand to the comms pipeline with a prefetch
+        of the next params riding behind it (overlapped). Returns the
+        (params, fetched_step) the loop continues with: unchanged on the
+        happy path, the restored server state after a session resume.
+
+        Overlapped, a quantized push is ENCODED here, on the training
+        thread: K1 runs in program order before the next window's
+        gradients touch the error-feedback residual, and the comms thread
+        only waits for the packed bytes' copy (``finalize``)."""
         with trace_span("worker.push_wait"), self._gp("push_wait"):
-            self._push(worker_id, grads, fetched_step)
+            item = grads
+            try:
+                if self._pipe is None:
+                    self._push(worker_id, grads, fetched_step)
+                else:
+                    payload = self._encode_device(grads)
+                    if payload is not None:
+                        item = payload
+                    self._pipe.submit(item, fetched_step,
+                                      prefetch_current=params)
+                return params, fetched_step
+            except Exception as e:  # noqa: BLE001 — push recovery
+                return self._recover_push(e, item, fetched_step)
+
+    def _dispatch_push_mean(self, worker_id: int, accum: dict, n: int,
+                            fetched_step: int, params):
+        """:meth:`_dispatch_push` of a window's mean."""
+        return self._dispatch_push(worker_id, _window_mean(accum, n),
+                                   fetched_step, params)
+
+    def _recover_push(self, exc, grads, fetched_step: int):
+        """Session recovery from a push dispatch. Serial: THIS push died
+        mid-RPC and is the in-flight gradient to reconcile. Pipelined:
+        ``submit`` surfaced a PREVIOUS item's failure (reconciled from the
+        pipeline's failed slot) and this window's gradients never left —
+        they are sent after the resume if still viable."""
+        pipelined = self._pipe is not None
+        inflight = None if pipelined else (grads, fetched_step)
+        params, new_step = self._recover_session(exc, inflight=inflight)
+        if pipelined and self._repush_viable(fetched_step, new_step):
+            try:
+                self._push(self.result.worker_id, grads, fetched_step)
+            except Exception as e2:  # noqa: BLE001 — double-flap handoff
+                # The server flapped AGAIN: this push is the in-flight
+                # gradient of a new session loss.
+                params, new_step = self._recover_session(
+                    e2, inflight=(grads, fetched_step))
+        return params, new_step
 
     def _fetch_params(self, worker_id: int, have_step: int | None = None,
                       current=None):
@@ -457,20 +1065,40 @@ class PSWorker(threading.Thread):
         else:
             flat, fetched_step = self.store.fetch(worker_id)
         with trace_span("worker.codec", stage="decode"), self._gp("codec"):
+            if (getattr(self.store, "fetch_codec", "none")
+                    in ("fp16", "bf16")
+                    and not getattr(self.store, "decompresses_fetches",
+                                    False)):
+                # In-process compressed fetch (a RemoteStore decompressed
+                # it already).
+                flat = fp16_decompress(flat)
             self._tm_fetch_post.inc(
                 sum(int(np.asarray(v).nbytes) for v in flat.values()))
-            params = {k: self._upload(v) for k, v in flat.items()}
-            return params, fetched_step
+            params = self._upload(flat)
+        self._last_fetched_step = fetched_step
+        return params, fetched_step
 
-    def _upload(self, v) -> torch.Tensor:
-        """One fetched fp32 array as a tensor on the worker's device. A
+    def _upload(self, flat: dict) -> dict:
+        """Fetched fp32 arrays as tensors on the worker's device. On a
+        card each array is copied once into pinned host memory and
+        uploaded with a non-blocking copy on the calling thread's current
+        stream (the comms thread's side stream when pipelined); a
         RemoteStore's arrays are read-only views into the reply, which
-        torch cannot wrap: they are copied once on the host, as the
-        in-process store copies its params for every fetch."""
-        a = np.asarray(v, np.float32)
-        if not a.flags.writeable:
-            a = a.copy()
-        return torch.as_tensor(a, device=self.device)
+        torch cannot wrap, so the CPU path copies those once."""
+        if self.device.type != "cuda":
+            out = {}
+            for k, v in flat.items():
+                a = np.asarray(v, np.float32)
+                out[k] = torch.as_tensor(a if a.flags.writeable
+                                         else a.copy())
+            return out
+        out = {}
+        for k, v in flat.items():
+            a = np.asarray(v, np.float32)
+            h = torch.empty(a.shape, dtype=torch.float32, pin_memory=True)
+            h.numpy()[...] = a
+            out[k] = h.to(self.device, non_blocking=True)
+        return out
 
     def _gradient_scales(self) -> dict:
         """The store's per-layer absmax table (shared-scale quantization);
@@ -478,29 +1106,53 @@ class PSWorker(threading.Thread):
         scales, _ = self.store.gradient_scales()
         return scales
 
-    def _push(self, worker_id: int, grads: dict, fetched_step: int) -> None:
+    def _encode_device(self, grads: dict) -> DevicePayload | None:
+        """Device encode of a quantized push (K1 on the card), or None for
+        the fp16 and uncompressed codecs."""
+        if self._device_codec is None:
+            return None
+        return self._device_codec.encode(
+            grads, plan=self._bitwidth.plan(grads),
+            scales=self._gradient_scales())
+
+    def _note_d2h_overlap(self, seconds: float) -> None:
+        """Record device->host pull seconds that ran on the comms thread
+        — time the training thread did NOT block on."""
+        pipe = self._pipe
+        if pipe is not None and threading.current_thread() is pipe._thread:
+            self._tm_d2h_saved.observe(seconds)
+
+    def _push(self, worker_id: int, grads, fetched_step: int) -> None:
+        """Encode (unless done at dispatch) and push. ``grads`` is a dict
+        of tensors, a DevicePayload encoded at dispatch, or gradients
+        whose host copies were started at dispatch."""
         with trace_span("worker.codec", stage="encode"), self._gp("codec"):
             t0 = _tnow()
-            if self._device_codec is not None:
-                # Quantized codec: quantize/pack ran on the worker's device
-                # against the store's shared scales, with error feedback;
-                # finalize waits for the wire bytes' copy to the host.
-                plan = self._bitwidth.plan(grads)
-                payload = self._device_codec.encode(
-                    grads, plan=plan, scales=self._gradient_scales())
+            payload = grads if isinstance(grads, DevicePayload) \
+                else None if isinstance(grads, _StagedGrads) \
+                else self._encode_device(grads)
+            if payload is not None:
+                # Quantize/pack ran on the worker's device against the
+                # store's shared scales, with error feedback; finalize
+                # waits for the wire bytes' copy to the host.
+                t1 = _tnow()
                 flat = self._device_codec.finalize(payload)
+                self._note_d2h_overlap(_tnow() - t1)
                 self._tm_codec_s.observe(payload.encode_seconds
-                                         + _tnow() - t0)
+                                         + _tnow() - t1)
                 pre_bytes = payload.pre_bytes
             else:
                 # fp16 or uncompressed push: the reference's host cast
                 # (worker.py:264-268).
-                flat = {k: v.detach().to("cpu").numpy()
-                        for k, v in grads.items()}
+                staged = grads if isinstance(grads, _StagedGrads) \
+                    else _stage_to_host(grads)
+                flat = staged.numpy()
+                self._note_d2h_overlap(_tnow() - t0)
                 pre_bytes = sum(int(v.nbytes) for v in flat.values())
                 if self.store.push_codec == "fp16":
+                    t1 = _tnow()
                     flat = fp16_compress(flat)
-                    self._tm_codec_s.observe(_tnow() - t0)
+                    self._tm_codec_s.observe(_tnow() - t1)
             wire_bytes = sum(int(v.nbytes) for v in flat.values())
             self._tm_push_pre.inc(pre_bytes)
             self._tm_push_wire.inc(wire_bytes)
@@ -543,15 +1195,29 @@ def run_workers(store: ParameterStore, model: torch.nn.Module,
                 timeout: float | None = None) -> list[WorkerResult]:
     """Spawn N worker threads, each over its own copy of ``model``; join
     them all. The in-process equivalent of launching N worker tasks
-    (terraform/main.tf:387-435). Raises the first worker error."""
+    (terraform/main.tf:387-435). With a ``worker_timeout`` a reaper
+    expires silent workers, so elastic rounds shrink instead of wedging
+    on a dead one. Raises the first worker error."""
     config = config or WorkerConfig()
     workers = [PSWorker(store, model, dataset, config,
                         worker_name=f"worker-{i}")
                for i in range(n_workers)]
     for w in workers:
         w.start()
-    for w in workers:
-        w.join(timeout)
+    reaper_stop = threading.Event()
+    wt = getattr(store.config, "worker_timeout", None)
+    if wt:
+        def _reap():
+            while not reaper_stop.wait(wt / 2):
+                expired = store.expire_stale_workers()
+                if expired:
+                    print(f"expired silent workers: {expired}")
+        threading.Thread(target=_reap, daemon=True).start()
+    try:
+        for w in workers:
+            w.join(timeout)
+    finally:
+        reaper_stop.set()
     for w in workers:
         if w.result.error is not None:
             raise w.result.error

@@ -43,7 +43,15 @@ class DistributedConfig:
     k_step_mode: str = "faithful"
     staleness_bound: int = 5       # server.py:418
     compression: str = "bf16"      # sync all-reduce dtype
+    elastic: bool = False          # elastic membership (StoreConfig.elastic)
+    worker_timeout: float | None = None  # liveness expiry (seconds)
+    # The PS worker's options (ps/worker.py WorkerConfig fields of the same
+    # names); the sync trainer has no RPCs to overlap.
+    overlap: bool = False
     delta_fetch: bool = True
+    local_lr: float | None = None
+    heartbeat_interval: float = 0.0
+    reconnect_timeout: float = 0.0
     store_backend: str = "python"
     augment: bool = True
     num_classes: int = 100
@@ -263,15 +271,26 @@ class AsyncTrainer:
             cfg.store_backend, params,
             StoreConfig(mode=cfg.mode, total_workers=cfg.num_workers,
                         learning_rate=cfg.learning_rate,
-                        staleness_bound=cfg.staleness_bound))
+                        staleness_bound=cfg.staleness_bound,
+                        elastic=cfg.elastic,
+                        worker_timeout=cfg.worker_timeout))
 
     def _worker_config(self) -> WorkerConfig:
         cfg = self.config
+        # With expiry on, workers prove liveness even while a step runs
+        # long (the first one builds cuDNN's plans): a heartbeat at a
+        # third of the timeout unless one is asked for.
+        heartbeat = cfg.heartbeat_interval or (
+            cfg.worker_timeout / 3 if cfg.worker_timeout else 0.0)
         return WorkerConfig(batch_size=cfg.batch_size,
                             num_epochs=cfg.num_epochs,
                             sync_steps=cfg.sync_steps,
                             k_step_mode=cfg.k_step_mode,
+                            overlap=cfg.overlap,
                             delta_fetch=cfg.delta_fetch,
+                            local_lr=cfg.local_lr,
+                            heartbeat_interval=heartbeat,
+                            reconnect_timeout=cfg.reconnect_timeout,
                             augment=cfg.augment, seed=cfg.seed,
                             device=cfg.device)
 

@@ -13,8 +13,10 @@ module (``ps/worker.py``).
 model-parallel trainers (``train/baseline.py``, ``train/model_parallel.py``):
 it trains the module's own parameters (and BatchNorm statistics) in
 place, and copies nothing from the host, so a CUDA graph can capture it
-(``train/device_loop.py``). ``make_fused_local_step`` and the MoE branch
-of ``make_train_step`` come with later slices.
+(``train/device_loop.py``). :func:`make_fused_local_step` is the
+``local_sgd`` worker's step: grads, the plain SGD apply and the window
+accumulator, all updated in place on the device. The MoE branch of
+``make_train_step`` comes with a later slice.
 """
 
 from __future__ import annotations
@@ -104,6 +106,61 @@ def make_grad_step(model: torch.nn.Module, augment: bool = True
         return grads, new_stats, loss.detach(), accuracy
 
     return grad_step
+
+
+def make_fused_local_step(model: torch.nn.Module, augment: bool = True
+                          ) -> Callable:
+    """Build the ``local_sgd`` worker's step: grads, then the plain SGD
+    apply ``p -= lr * g`` and the window accumulator ``a += g``.
+
+    ``fused_step(params, accum, batch_stats, images_u8, labels,
+    generator, lr) -> (params, accum, batch_stats, loss, accuracy)``:
+    ``params``, ``accum`` and ``batch_stats`` are flat flax-named dicts of
+    tensors on the model's device, updated IN PLACE and returned — the
+    counterpart of the JAX step's donated buffers: no param-sized
+    allocation and no host copy inside the K-step window. ``lr`` is a
+    host scalar, passed to the update as the kernels' ``alpha``.
+
+    Rounding: ``torch._foreach_add_(params, grads, alpha=-lr)`` computes
+    ``p + (-lr) * g`` with one rounding (a fused multiply-add), which is
+    what the JAX step's jitted ``p - lr * g`` gives on XLA's CPU backend;
+    a multiply and then a subtract would round twice and differ from it
+    in the last bit. With K=1 the accumulator holds ``0 + g``, so the
+    pushed window mean is the faithful step's gradient up to ±0."""
+    pnames, snames = flax_names(model)
+    device = _model_device(model)
+    params_t = dict(model.named_parameters())
+    buffers_t = dict(model.named_buffers())
+    order = list(pnames)
+    names = [pnames[t] for t in order]
+    stat_pairs = [(f, buffers_t[t]) for t, f in snames.items()]
+    load = flax_state_loader(model)
+
+    def fused_step(params, accum, batch_stats, images_u8, labels,
+                   generator, lr):
+        load(params, batch_stats)
+        x = torch.as_tensor(images_u8, device=device)
+        y = torch.as_tensor(labels, device=device).long()
+        if augment:
+            x = augment_batch(x, generator)
+        x = standardize(to_float(x))
+        model.train()
+        logits = model(x)
+        loss = cross_entropy_loss(logits, y)
+        grads_t = torch.autograd.grad(loss, [params_t[t] for t in order])
+        # Flax layouts, contiguous: the foreach kernels take the fast
+        # path only over tensors of one layout.
+        grads = [to_flax_layout(g).contiguous() for g in grads_t]
+        with torch.no_grad():
+            torch._foreach_add_([params[n] for n in names], grads,
+                                alpha=-float(lr))
+            torch._foreach_add_([accum[n] for n in names], grads)
+            for f, buf in stat_pairs:
+                batch_stats[f].copy_(buf)
+        accuracy = (logits.detach().argmax(-1) == y).float().mean()
+        return params, accum, batch_stats, loss.detach(), accuracy
+
+    return fused_step
 
 
 def make_train_step(model: torch.nn.Module, augment: bool = True

@@ -36,8 +36,10 @@ def test_cli_train_async_on_cpu(capsys):
     ("reconnect_timeout", 10.0), ("nan_inject_step", 3),
     ("k_step_mode", "local_sgd")])
 def test_worker_options_of_later_slices_are_refused(field, value):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        WorkerConfig(device="cpu", **{field: value})
+    """The JAX worker's options that earlier slices refused came with
+    ROADMAP §1 item 3: each is accepted now and kept as given."""
+    assert getattr(WorkerConfig(device="cpu", **{field: value}),
+                   field) == value
 
 
 def test_worker_config_validation():
@@ -113,3 +115,4 @@ def test_cli_sp_refuses_what_it_does_not_train():
     with pytest.raises(SystemExit, match="--mode sp"):
         cli.main(["train", "--mode", "sync", "--model", "vit_tiny",
                   "--device", "cpu", "--synthetic"])
+

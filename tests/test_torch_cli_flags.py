@@ -1,0 +1,111 @@
+"""The new flags of ``cli serve``, ``cli worker`` and ``cli train --mode
+async`` reach StoreConfig and WorkerConfig as the JAX CLI passes them
+(JAX ``tests/test_ps_workers.py`` checks its own the same way). The model
+and the dataset are stood in by small ones: what is checked is the
+plumbing, not a run."""
+
+import pytest
+
+from distributed_parameter_server_for_ml_training_tpu_torch import cli, \
+    models
+from distributed_parameter_server_for_ml_training_tpu_torch.data import \
+    synthetic_cifar100
+
+
+@pytest.fixture(autouse=True)
+def small(monkeypatch):
+    """A tiny ResNet for ``get_model`` and 64 synthetic images for the
+    dataset flags."""
+    def get_model(name, num_classes=10, device="cpu", **kw):
+        return models.ResNet(stage_sizes=(1, 1), num_filters=8,
+                             num_classes=num_classes).to(device)
+
+    monkeypatch.setattr(models, "get_model", get_model)
+    monkeypatch.setattr(cli, "_load_dataset",
+                        lambda args: synthetic_cifar100(64, 16, 10, seed=0))
+
+
+def test_serve_flags_reach_store_config(monkeypatch):
+    """``serve``'s store options reach StoreConfig as the JAX CLI passes
+    them (the store's construction is where the run is cut short)."""
+    from distributed_parameter_server_for_ml_training_tpu_torch import ps
+    seen = {}
+
+    def capture(backend, flat, config):
+        seen["backend"], seen["config"] = backend, config
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(ps, "make_store", capture)
+    with pytest.raises(KeyboardInterrupt):
+        cli.main(["serve", "--mode", "sync", "--workers", "3",
+                  "--fetch-codec", "bf16", "--elastic",
+                  "--worker-timeout", "30", "--sync-quorum", "0.5",
+                  "--round-deadline", "2.5", "--push-codec", "int8"])
+    cfg = seen["config"]
+    assert seen["backend"] == "python"
+    assert (cfg.mode, cfg.total_workers, cfg.fetch_codec, cfg.elastic,
+            cfg.worker_timeout, cfg.sync_quorum, cfg.round_deadline,
+            cfg.push_codec, cfg.strict_rounds) == (
+        "sync", 3, "bf16", True, 30.0, 0.5, 2.5, "int8", True)
+    with pytest.raises(SystemExit, match="apply to --mode sync"):
+        cli.main(["serve", "--mode", "async", "--sync-quorum", "2"])
+
+
+def test_worker_flags_reach_worker_config(monkeypatch):
+    """``worker``'s mode flags reach WorkerConfig as the JAX CLI passes
+    them (:1772-1775), plus local_sgd's step size."""
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps import \
+        worker as W
+    seen = {}
+
+    class Fake:
+        def __init__(self, store, model, dataset, cfg, worker_name=""):
+            seen["cfg"], seen["name"] = cfg, worker_name
+            self.result = W.WorkerResult()
+
+        def start(self):
+            pass
+
+        def join(self):
+            pass
+
+    monkeypatch.setattr(W, "PSWorker", Fake)
+    rc = cli.main(["worker", "--server", "127.0.0.1:1", "--synthetic",
+                   "--num-train", "64", "--num-test", "16", "--device",
+                   "cpu", "--worker-name", "w7", "--sync-steps", "4",
+                   "--k-step-mode", "local_sgd", "--local-lr", "0.05",
+                   "--overlap", "--heartbeat", "1.5",
+                   "--reconnect-timeout", "60"])
+    cfg = seen["cfg"]
+    assert rc == 0 and seen["name"] == "w7"
+    assert (cfg.sync_steps, cfg.k_step_mode, cfg.local_lr, cfg.overlap,
+            cfg.heartbeat_interval, cfg.reconnect_timeout) == (
+        4, "local_sgd", 0.05, True, 1.5, 60.0)
+
+
+def test_train_async_flags_reach_store_and_worker(monkeypatch):
+    from distributed_parameter_server_for_ml_training_tpu_torch.train \
+        import distributed as D
+    seen = {}
+
+    def capture(store, model, dataset, n, wc):
+        seen["store"], seen["wc"] = store.config, wc
+        return []
+
+    monkeypatch.setattr(D, "run_workers", capture)
+    rc = cli.main(["train", "--mode", "async", "--workers", "2",
+                   "--epochs", "1", "--synthetic", "--num-train", "64",
+                   "--num-test", "16", "--device", "cpu", "--sync-steps",
+                   "2", "--k-step-mode", "local_sgd", "--local-lr", "0.02",
+                   "--overlap", "--reconnect-timeout", "5", "--elastic",
+                   "--worker-timeout", "9", "--no-delta-fetch"])
+    assert rc == 0
+    sc, wc = seen["store"], seen["wc"]
+    assert (sc.elastic, sc.worker_timeout, sc.total_workers) == \
+        (True, 9.0, 2)
+    assert (wc.sync_steps, wc.k_step_mode, wc.local_lr, wc.overlap,
+            wc.reconnect_timeout, wc.delta_fetch) == (
+        2, "local_sgd", 0.02, True, 5.0, False)
+    # With expiry on and no --heartbeat, workers ping at a third of the
+    # timeout, as the JAX trainer does.
+    assert wc.heartbeat_interval == 3.0

@@ -6,7 +6,9 @@ epoch of a few batches of a tiny ResNet on the CPU (int8 pushes with error
 feedback, the compressed-domain store, shared scales, delta fetches) must
 reach the same global step with bit-equal store params against either
 server, and the request frames the two servers record must be equal byte
-for byte once the push token's 12-hex nonce is masked.
+for byte once the push token's 12-hex nonce is masked; so must a
+``local_sgd`` worker through the overlapped pipeline against an elastic,
+expiring, bf16-fetch server of each package.
 
 Every server binds 127.0.0.1 at port 0 and is stopped by a fixture
 finalizer; every client call has a deadline (``rpc_timeout``). A test
@@ -70,8 +72,9 @@ def start_server():
     every server started is stopped at teardown."""
     servers = []
 
-    def start(package: str, params: dict):
-        cfg = dict(mode="sync", total_workers=1, push_codec="int8")
+    def start(package: str, params: dict, **options):
+        cfg = dict(mode="sync", total_workers=1, push_codec="int8",
+                   **options)
         if package == "jax":
             store = JaxStore({k: v.copy() for k, v in params.items()},
                              JaxConfig(**cfg))
@@ -174,6 +177,48 @@ def test_jax_worker_trains_against_both_servers(setup, start_server):
     assert _masked(prec) == _masked(jrec)
 
 
+#: The store options and worker modes of ROADMAP §1 item 3 over the wire.
+MODE_OPTIONS = dict(fetch_codec="bf16", elastic=True, worker_timeout=30)
+MODE_CONFIG = dict(k_step_mode="local_sgd", sync_steps=2, overlap=True)
+
+
+@pytest.mark.parametrize("worker_package", ["port", "jax"])
+def test_worker_modes_against_both_servers(setup, start_server,
+                                           worker_package):
+    """local_sgd (K=2) through the overlapped comms pipeline against an
+    elastic, expiring, bf16-fetch server of each package: the same
+    worker reaches the same step with bit-equal store params against
+    either server, and sends the same request bytes once the token's
+    nonce is masked."""
+    jm, init, tm, ds, jds = setup
+    runs = {}
+    for package in ("jax", "port"):
+        address, store, recorded = start_server(package, init,
+                                                **MODE_OPTIONS)
+        if worker_package == "port":
+            remote = PC.RemoteStore(address, rpc_timeout=RPC_TIMEOUT)
+            worker = PSWorker(remote, tm, ds, WorkerConfig(
+                batch_size=64, num_epochs=1, augment=False, device="cpu",
+                **MODE_CONFIG))
+        else:
+            remote = JC.RemoteStore(address, rpc_timeout=RPC_TIMEOUT)
+            worker = JaxWorker(remote, jm, jds, JaxWorkerConfig(
+                batch_size=64, num_epochs=1, augment=False, **MODE_CONFIG))
+        worker.run()
+        remote.close()
+        assert worker.result.error is None, worker.result.error
+        assert worker.result.pushes_accepted == STEPS // 2
+        assert remote.config.elastic and remote.fetch_codec == "bf16"
+        assert remote.membership_snapshot() == [0]
+        runs[package] = (store.snapshot(), recorded)
+    (jp, jstep), jrec = runs["jax"]
+    (pp, pstep), prec = runs["port"]
+    assert jstep == pstep == STEPS // 2
+    _bit_equal(pp, jp)
+    assert any(not np.array_equal(pp[k], init[k]) for k in init)
+    assert _masked(prec) == _masked(jrec)
+
+
 def test_port_client_refuses_a_sharded_registration(start_server, setup):
     """A reply the port's client cannot serve is refused, never ignored:
     a shard map at registration."""
@@ -185,7 +230,8 @@ def test_port_client_refuses_a_sharded_registration(start_server, setup):
     wid, total = remote.register_worker("w")
     assert (wid, total) == (0, 1)
     assert remote.supports_checksum and remote.supports_delta_fetch
-    for call in (lambda: remote.repush_last(0), lambda: remote.submit_job(""),
+    assert remote.repush_last(0) is None     # nothing pushed yet
+    for call in (lambda: remote.submit_job(""),
                  lambda: remote.drain_job("x"),
                  lambda: remote.reshard_op("status")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -257,11 +303,6 @@ def test_cli_serve_and_two_cli_workers(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["serve", "--elastic"], "item 3"),
-    (["serve", "--worker-timeout", "30"], "item 3"),
-    (["serve", "--sync-quorum", "2"], "item 3"),
-    (["serve", "--round-deadline", "5"], "item 3"),
-    (["serve", "--fetch-codec", "bf16"], "item 3"),
     (["serve", "--checkpoint-dir", "ckpt"], "item 5"),
     (["serve", "--restore"], "item 5"),
     (["serve", "--faults", "seed=7"], "item 9"),
@@ -271,9 +312,6 @@ def test_cli_serve_and_two_cli_workers(tmp_path):
     (["worker", "--shards", "h:1,h:2", "--device", "cpu"], "item 9"),
     (["worker", "--job", "vision", "--device", "cpu"], "item 9"),
     (["worker", "--faults", "seed=7", "--device", "cpu"], "item 9"),
-    (["worker", "--heartbeat", "2", "--device", "cpu"], "item 3"),
-    (["worker", "--overlap", "--device", "cpu"], "item 3"),
-    (["worker", "--reconnect-timeout", "60", "--device", "cpu"], "item 3"),
 ], ids=lambda v: "_".join(v) if isinstance(v, list) else v)
 def test_cli_flags_of_later_slices_are_refused(argv, item):
     from distributed_parameter_server_for_ml_training_tpu_torch import cli

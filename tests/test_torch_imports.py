@@ -117,9 +117,9 @@ def test_cli_device_cuda_raises_without_a_card():
 def test_wire_quantize_counts_only_kernel_launches():
     from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
         quantize as Q
-    before = Q.wire_quantize.launches
+    before = Q.wire_quantize_multi.launches
     Q.wire_quantize(torch.ones(300), 0.5)
-    assert Q.wire_quantize.launches == before
+    assert Q.wire_quantize_multi.launches == before
     with pytest.raises(RuntimeError, match="no kernel for device meta"):
         Q.wire_quantize_flat(torch.ones(4, device="meta"), 0.5, 127)
 
@@ -232,3 +232,30 @@ def test_sp_entry_points_default_to_cuda():
         cli.main(["train", "--mode", "sp", "--model", "vit_tiny",
                   "--workers", "2", "--epochs", "1", "--synthetic",
                   "--num-train", "4", "--num-test", "4"])
+
+
+def test_later_flags_name_only_items_4_5_and_9():
+    """The CLI refuses only the flags of ROADMAP §1 items 4, 5 and 9; the
+    store options and worker modes of item 3 are accepted."""
+    from distributed_parameter_server_for_ml_training_tpu_torch import cli
+    items = set()
+    for where in cli.LATER_FLAGS.values():
+        items |= {int(n) for n in
+                  where.split("item", 1)[1].split("(")[0].replace(
+                      "s ", " ").replace("and", ",").split(",")
+                  if n.strip()}
+    assert items <= {4, 5, 9}
+    assert set(cli.LATER_FLAGS) == {"checkpoint_dir", "restore", "faults",
+                                    "jobs", "job", "shards",
+                                    "store_backend"}
+    parser = cli.build_parser()
+    for argv in (["serve", "--fetch-codec", "bf16", "--elastic",
+                  "--worker-timeout", "30", "--sync-quorum", "2",
+                  "--round-deadline", "5"],
+                 ["worker", "--k-step-mode", "local_sgd", "--local-lr",
+                  "0.1", "--overlap", "--heartbeat", "2",
+                  "--reconnect-timeout", "60"],
+                 ["train", "--mode", "async", "--k-step-mode", "local_sgd",
+                  "--overlap", "--heartbeat", "1", "--reconnect-timeout",
+                  "9", "--elastic", "--worker-timeout", "3"]):
+        cli._refuse_later_flags(parser.parse_args(argv))

@@ -199,7 +199,7 @@ def test_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the kernel runs only on the card")
     ref = jax_reference()
-    before = Q.wire_quantize.launches
+    before = Q.wire_quantize_multi.launches
     for n in SIZES:
         for levels in (127, 7):
             for kind in KINDS:
@@ -211,7 +211,10 @@ def test_kernel_matches_plain_on_card():
                 assert torch.equal(got, want), (n, levels, kind)
                 assert got.cpu().numpy().tobytes() == ref[
                     k1_key(n, levels, kind)].tobytes()
-    assert Q.wire_quantize.launches - before == 2 * 4 * (len(SIZES) - 1)
+    # A push of one tensor: one launch of the multi-tensor K1 for each
+    # input that holds values.
+    assert Q.wire_quantize_multi.launches - before == \
+        2 * 4 * (len(SIZES) - 1)
 
 
 @pytest.mark.cuda
@@ -222,13 +225,12 @@ def test_multi_kernel_matches_plain_and_jax_on_card():
     xs, scales, levels = multi_case()
     xd = multi_tensors(xs, "cuda")
     assert xd[MISALIGNED].data_ptr() % 16 != 0
-    before = (Q.wire_quantize_multi.launches, Q.wire_quantize.launches)
+    before = Q.wire_quantize_multi.launches
     flat, views, offsets = Q.wire_quantize_multi(xd, scales, levels)
     want, _, want_offsets = Q.wire_quantize_multi_plain(xd, scales, levels)
     first, _, _ = Q.wire_quantize_multi(xd[:64], scales[:64], levels[:64])
     torch.cuda.synchronize()
-    assert (Q.wire_quantize_multi.launches - before[0],
-            Q.wire_quantize.launches - before[1]) == (2 + 1, 0)
+    assert Q.wire_quantize_multi.launches - before == 2 + 1
     assert torch.equal(flat, want) and offsets == want_offsets
     assert torch.equal(first, want[:first.numel()])
     for i, v in enumerate(views):

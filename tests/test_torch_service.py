@@ -3,10 +3,13 @@ package's, handler by handler: one scripted sequence of request envelopes,
 built once, goes straight into the handler methods (``ctx=None``) of a JAX
 ``ParameterService`` and of the port's, each over its own store built from
 the same NumPy params. Every reply must be equal byte for byte and the two
-stores' snapshots bit-equal afterwards; the parts of the JAX service this
-slice leaves out are refused, naming their ROADMAP item."""
+stores' snapshots bit-equal afterwards — also for an elastic store with a
+``worker_timeout`` and bf16 fetches, under a scripted clock; the parts of
+the JAX service this slice leaves out are refused, naming their ROADMAP
+item."""
 
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -133,6 +136,78 @@ def test_scripted_sequence_replies_equal_byte_for_byte(case, capsys):
     if case == "sync_int8":
         # A completed int8 round publishes shared scales to the fetch.
         assert "qscales" in metas[11] and "qscales" not in metas[12]
+
+
+def elastic_script() -> list:
+    """(clock seconds, rpc, request) of an elastic, expiring, bf16-fetch
+    run: two workers register, one goes silent and is expired by the
+    other's push activity (the throttled expiry tick), the survivor's
+    round completes, a replacement takes the freed slot."""
+    pack = JS.pack_msg
+
+    def push(wid, seed, count, step):
+        return ("push_gradrients", pack(
+            {"worker_id": wid, "fetched_step": step,
+             "push_token": f"cafe{wid}:{count}", "directives_ack": 0},
+            jax_encode(_grads(seed, "int8"), checksum=True)))
+
+    def fetch(wid, **kw):
+        return ("fetch_parameters", pack({"worker_id": wid,
+                                          "directives_ack": 0,
+                                          "have_qscales": 0, **kw}))
+    reg = [("register_worker", pack({"worker_name": f"w{i}",
+                                     "capabilities": ["directives"]}))
+           for i in range(3)]
+    return [(0, *reg[0]), (0, *reg[1]), (0, *fetch(0)), (1, *fetch(1)),
+            (2, *push(0, 1, 1, 0)), (5, *fetch(0, have_step=0)),
+            (12, *push(0, 2, 2, 0)),           # tick expires worker 1
+            (12, *fetch(0, have_step=0)), (12, *fetch(0, have_step=1)),
+            (13, *reg[2]),                     # reuses slot 1
+            (13, *push(1, 3, 1, 1)), (14, *push(0, 4, 3, 1)),
+            (14, *fetch(1, have_step=1)),
+            (15, "job_finished", pack({"worker_id": 0})),
+            (15, "job_finished", pack({"worker_id": 1}))]
+
+
+def test_elastic_expiry_bf16_fetch_replies_equal_byte_for_byte(
+        monkeypatch, capsys):
+    now = {"t": 0.0}
+    monkeypatch.setattr(time, "time", lambda: 5_000.0 + now["t"])
+    kwargs = dict(mode="sync", total_workers=2, push_codec="int8",
+                  elastic=True, worker_timeout=10, fetch_codec="bf16")
+    replies = {}
+    for name, svc in (
+            ("jax", JS.ParameterService(JaxStore(_params(),
+                                                 JaxConfig(**kwargs)))),
+            ("port", PS.ParameterService(ParameterStore(
+                _params(), StoreConfig(**kwargs))))):
+        out = []
+        for t, rpc, req in elastic_script():
+            now["t"] = t
+            out.append(getattr(svc, rpc)(req, None))
+        replies[name] = (out, svc.store)
+    (want, jstore), (got, pstore) = replies["jax"], replies["port"]
+    for i, (w, g) in enumerate(zip(want, got)):
+        assert g == w, (i, PS.unpack_msg(g)[0], JS.unpack_msg(w)[0])
+    metas = [PS.unpack_msg(r)[0] for r in got]
+    assert metas[0]["elastic"] and metas[1]["active_workers"] == [0, 1]
+    assert metas[7]["active_workers"] == [0]     # worker 1 expired
+    assert metas[9]["worker_id"] == 1 and metas[9]["active_workers"] \
+        == [0, 1]
+    assert "expired silent workers: [1]" in capsys.readouterr().out
+    # A full bf16 fetch is half the fp32 bytes of the params.
+    full = [len(r) for r, m in zip(got, metas)
+            if "global_step" in m and not m.get("not_modified")
+            and "accepted" not in m]
+    assert full and all(n < 4 * sum(a.size for a in _params().values())
+                        for n in full)
+    (jp, jstep), (pp, pstep) = jstore.snapshot(), pstore.snapshot()
+    # Rounds: the expiry completes the survivor's pending one, its own
+    # push the next (target 1), the replacement's joins the third.
+    assert jstep == pstep == 3
+    for k in jp:
+        assert pp[k].tobytes() == jp[k].tobytes(), k
+    assert pstore.wait_all_finished(0) and jstore.wait_all_finished(0)
 
 
 def test_in_flight_duplicate_without_an_outcome_fails_retryably():

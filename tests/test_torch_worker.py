@@ -1,8 +1,13 @@
 """The port's worker against the JAX package's on the paths the slice
 test does not take: the fp16 push codec (the store's default, which the
-CLI runs) and the K-step 'accumulate' mode (the window mean). Tiny
-ResNet, one async worker, augment off; final store params agree within
-fp16 rounding of each push (fp16) and to 1e-4 (accumulate, fp32)."""
+CLI runs), the K-step 'accumulate' mode (the window mean), 'local_sgd'
+(the fused local step, K=4), the overlapped comms pipeline and the bf16
+fetch codec. Tiny ResNet, one async worker, augment off; final store
+params agree within fp16 rounding of each push (fp16, 2e-4), to 1e-4 in
+fp32 (accumulate, local_sgd: the frameworks order the convolution sums
+differently), to 2e-4 with int8 pushes (overlap: an int8 code may round
+the other way) and to 5e-4 with bf16 fetches (a fetched parameter near a
+bf16 rounding boundary may round the other way)."""
 
 import jax
 import numpy as np
@@ -41,7 +46,13 @@ def setup():
     (dict(push_codec="fp16"), dict(), 2e-4, 6),
     (dict(push_codec="none"), dict(k_step_mode="accumulate", sync_steps=4),
      1e-4, 2),
-], ids=["fp16_push", "accumulate_k4"])
+    (dict(push_codec="none"), dict(k_step_mode="local_sgd", sync_steps=4),
+     1e-4, 2),
+    (dict(push_codec="int8"), dict(k_step_mode="accumulate", sync_steps=2,
+                                   overlap=True), 2e-4, 3),
+    (dict(push_codec="none", fetch_codec="bf16"), dict(), 5e-4, 6),
+], ids=["fp16_push", "accumulate_k4", "local_sgd_k4", "overlap_int8_k2",
+        "bf16_fetch"])
 def test_worker_paths_match_jax(setup, store_kw, cfg_kw, atol, pushes):
     jm, init, tm, ds, jds = setup
     jstore = JaxStore({k: v.copy() for k, v in init.items()},
