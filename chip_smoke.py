@@ -156,7 +156,35 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    starts on the same port from ``load_snapshot`` of the old store's
    snapshot: the worker finishes with one reconnect, and each of its 4
    pushes is applied once (2 in the snapshot, 2 on the new server, the
-   stranded one re-sent under its own token).
+   stranded one re-sent under its own token);
+16. the device-resident store at full width: (a) phase 5's configuration
+   with ``make_store("device", ...)`` on the card (async, staleness bound
+   5, no codec). K1's count reset just before and read just after: 0
+   launches. Reports img/s, the median grad step and the store's mean
+   apply seconds (sampled every ``update_time_wait_every`` updates), each
+   beside phase 5's python-store value from the same call, then img/s of
+   the python and the device store again in turns with every cache warm
+   (eval off); (b) a shorter run under torch.profiler: the device's idle
+   share, the apply's device time against its byte bound (3 x 44,880,528
+   bytes at 3.35 TB/s) and the host<->device bytes a step from the trace's
+   memcpy events: host to device the batch's 393,216 bytes plus under 16
+   KiB, device to host under 16 KiB, so no parameter or gradient crosses;
+   (c) real gradients of one step drive two async pushes (the second one
+   step stale) and one full sync round of 2 workers through the device
+   store on the card and on the CPU: every return and param bit-equal;
+17. checkpoints on the card: (a) ``serve()`` on 127.0.0.1 over a device
+   store with a ``PeriodicStoreCheckpointer`` and one worker; after the
+   server applies the worker's 2nd push its reply is lost: a snapshot
+   (params and push-token journal) is flushed and the server stopped, and
+   a new one on the same port is restored with ``restore_server_state``.
+   The worker's retry under its old token must be answered as a duplicate
+   at the restored step 2, the store's params equal to the snapshot's npz
+   bit for bit, and each of the 4 pushes applied once; (b)
+   ``BaselineTrainer(device_loop=True)`` (ResNet-18, bf16, deterministic
+   cuDNN) for 2 epochs of 2,048 images with a checkpoint each epoch; a
+   fresh trainer restored from epoch 1 (copied into the tensors its graph
+   replays over) must end epoch 2 with params, momentum, BatchNorm
+   statistics, step and loss bit-equal to the uninterrupted run's.
 
 Then one JSON line of kernels and, last, the device line. Without a CUDA
 device, or outside a checkout of the repo, it exits non-zero and prints
@@ -821,21 +849,50 @@ def main_path(steps_per_worker: int, n_test: int, seed: int):
     return ds, model, store, init
 
 
-def phase_main_path(state: dict) -> None:
+def grad_step_times(ds, params: dict) -> list:
+    """Grad-step times at the main path's shapes: one worker's step over a
+    batch of 128, bf16, from ``params`` (NumPy), by CUDA events, 20 runs
+    after 5 warm-up runs."""
     import torch
 
     from distributed_parameter_server_for_ml_training_tpu_torch.models \
         import get_model
+    from distributed_parameter_server_for_ml_training_tpu_torch.train \
+        .steps import make_grad_step
+    from distributed_parameter_server_for_ml_training_tpu_torch.utils \
+        .pytree import params_to_jax
+
+    gs_model = get_model("resnet18", num_classes=100, dtype="bfloat16",
+                         device="cuda", seed=1)
+    grad_step = make_grad_step(gs_model, augment=True)
+    params = {k: torch.from_numpy(np.asarray(v)).cuda()
+              for k, v in params.items()}
+    _, init_stats = params_to_jax(gs_model)
+    stats = {k: torch.from_numpy(v).cuda() for k, v in init_stats.items()}
+    xb, yb = ds.x_train[:BATCH], ds.y_train[:BATCH]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    times = []
+    for i in range(25):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        grad_step(params, stats, xb, yb, gen)
+        b.record()
+        torch.cuda.synchronize()
+        if i >= 5:
+            times.append(a.elapsed_time(b))
+    return times
+
+
+def phase_main_path(state: dict) -> None:
+    import torch
+
     from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
         quantize as Q
     from distributed_parameter_server_for_ml_training_tpu_torch.ps import (
         WorkerConfig, run_workers)
     from distributed_parameter_server_for_ml_training_tpu_torch.telemetry \
         import get_registry
-    from distributed_parameter_server_for_ml_training_tpu_torch.train \
-        .steps import make_grad_step
-    from distributed_parameter_server_for_ml_training_tpu_torch.utils \
-        .pytree import params_to_jax
 
     n_workers, batch = N_WORKERS, BATCH
     ds, model, store, init = main_path(steps_per_worker=8, n_test=1000,
@@ -861,28 +918,10 @@ def phase_main_path(state: dict) -> None:
     images = sum(r.local_steps_completed for r in results) * batch
     train_s = max(sum(r.epoch_times) for r in results)
 
-    # Grad-step time at the main path's shapes: one worker's step over a
-    # batch of 128, bf16, by CUDA events.
-    gs_model = get_model("resnet18", num_classes=100, dtype="bfloat16",
-                         device="cuda", seed=1)
-    grad_step = make_grad_step(gs_model, augment=True)
-    params = {k: torch.from_numpy(v).cuda() for k, v in final.items()}
-    _, init_stats = params_to_jax(gs_model)
-    stats = {k: torch.from_numpy(v).cuda() for k, v in init_stats.items()}
-    xb, yb = ds.x_train[:batch], ds.y_train[:batch]
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    times = []
-    for i in range(25):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        grad_step(params, stats, xb, yb, gen)
-        b.record()
-        torch.cuda.synchronize()
-        if i >= 5:
-            times.append(a.elapsed_time(b))
+    times = grad_step_times(ds, final)
     state["grad_step_ms"] = float(np.median(times))
     state["main_path_img_per_s"] = images / train_s
+    state["main_path_store"] = store.metrics()
 
     emit({"phase": "main_path", "model": "resnet18", "dtype": "bfloat16",
           "workers": n_workers, "batch_size": batch,
@@ -2655,6 +2694,467 @@ def phase_grpc_modes(state: dict) -> None:
     _modes_resume(state)
 
 
+# -- phase 16: the device-resident store -------------------------------------
+
+# Bytes one async apply over ResNet-18 must move: read p, read g, write p,
+# 11,220,132 fp32 values each.
+APPLY_BYTES = 3 * 4 * 11_220_132
+# A step's host-to-device bytes beside its batch: the labels and scalars.
+SMALL_COPY_BYTES = 16_384
+
+
+def _device_store_setup(steps_per_worker: int, n_test: int, seed: int,
+                        backend: str = "device"):
+    """Phase 5's configuration over ``make_store(backend, ...)``: the
+    device store on the card, or (``python``) phase 5's int8 host store.
+    Returns (dataset, model, store, initial params); the model's upload
+    and the store's are done here, outside any measured run."""
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps import (
+        StoreConfig, make_store)
+
+    ds, model, store, init = main_path(steps_per_worker, n_test, seed)
+    if backend == "device":
+        store = make_store("device", init, StoreConfig(
+            mode="async", total_workers=N_WORKERS, staleness_bound=5),
+            device="cuda")
+    torch.cuda.synchronize()
+    return ds, model, store, init
+
+
+def _device_store_run(model, store, ds, eval_each_epoch: bool):
+    """The 2 workers' run over ``store``: (results, wall seconds)."""
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps import (
+        WorkerConfig, run_workers)
+
+    cfg = WorkerConfig(batch_size=BATCH, num_epochs=1, device="cuda",
+                       eval_each_epoch=eval_each_epoch)
+    t0 = time.perf_counter()
+    results = run_workers(store, model, ds, N_WORKERS, cfg)
+    torch.cuda.synchronize()
+    return results, time.perf_counter() - t0
+
+
+def _img_per_s(results) -> float:
+    """Images over the slowest worker's training seconds (eval out)."""
+    images = sum(r.local_steps_completed for r in results) * BATCH
+    return images / max(sum(r.epoch_times) for r in results)
+
+
+def _device_store_async(state: dict) -> None:
+    """(a) Phase 5's run with the device store: K1 must not launch. Then
+    phase 5's python-store run again and the device store's again, in
+    turns, with every cache warm (eval off)."""
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
+        quantize as Q
+
+    ds, model, store, init = _device_store_setup(8, 1000, 0)
+    Q.wire_quantize_multi.launches = 0
+    results, wall = _device_store_run(model, store, ds, True)
+    k1 = Q.wire_quantize_multi.launches
+    pushes = sum(r.pushes_accepted + r.pushes_rejected for r in results)
+    errors = [repr(r.error) for r in results if r.error is not None]
+    losses = [v for r in results for v in r.train_loss_per_epoch]
+    final, step = store.snapshot()
+    moved = sum(not np.array_equal(final[k], init[k]) for k in init)
+    train_s = max(sum(r.epoch_times) for r in results)
+    times = grad_step_times(ds, final)
+    metrics = store.metrics()
+    python = state.get("main_path_store", {})
+    turns = {}
+    for backend in ("python", "device"):
+        tds, tmodel, tstore, _ = _device_store_setup(8, 10, 0, backend)
+        turns[backend] = _img_per_s(_device_store_run(
+            tmodel, tstore, tds, False)[0])
+    emit({"phase": "device_store", "form": "async", "model": "resnet18",
+          "dtype": "bfloat16", "workers": N_WORKERS, "batch_size": BATCH,
+          "global_step": step, "pushes": pushes, "k1_launches": k1,
+          "img_per_s": _img_per_s(results),
+          "img_per_s_python_store": state.get("main_path_img_per_s"),
+          "img_per_s_turns_eval_off": turns,
+          "train_seconds": train_s, "run_seconds": wall,
+          "grad_step_ms_median": float(np.median(times)),
+          "grad_step_ms_median_python_store": state.get("grad_step_ms"),
+          "apply_s_mean": metrics["average_update_time_seconds"],
+          "apply_samples": len(store.stats.update_times),
+          "update_time_wait_every": metrics.get("update_time_wait_every"),
+          "apply_s_mean_python_store":
+              python.get("average_update_time_seconds"),
+          "train_loss_per_epoch": losses,
+          "test_accuracies": [r.test_accuracies for r in results],
+          "tensors_moved": moved, "store": metrics, "card": state["card"]})
+    if errors:
+        raise AssertionError(f"worker errors: {errors}")
+    if step <= 0 or step != pushes:
+        raise AssertionError(f"step {step} for {pushes} pushes")
+    if k1 != 0:
+        raise AssertionError(f"K1 launched {k1} times on the device-store "
+                             f"path, which has no codec")
+    if not losses or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite losses {losses}")
+    if moved == 0:
+        raise AssertionError("the store's params did not move")
+
+
+def _memcpy_bytes(prof) -> dict:
+    """Bytes and count of the profile's memory copies by kind (HtoD,
+    DtoH, DtoD, ...), from the trace's memcpy events."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        trace = json.loads(path.read_text())
+    out: dict = {}
+    for ev in trace.get("traceEvents", []):
+        name = str(ev.get("name", ""))
+        if not name.startswith("Memcpy") or ev.get("ph") != "X":
+            continue
+        kind = name.split()[1]
+        n = (ev.get("args") or {}).get("bytes")
+        if n is None:
+            raise AssertionError(f"memcpy event without a byte count: "
+                                 f"{ev}")
+        row = out.setdefault(kind, {"bytes": 0, "count": 0})
+        row["bytes"] += int(n)
+        row["count"] += 1
+    return out
+
+
+def _device_store_profile(state: dict) -> None:
+    """(b) A shorter run under torch.profiler: idle share, the apply's
+    device time against its byte bound, and the host<->device bytes a
+    step: the batches only, no parameter or gradient."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ds, model, store, _ = _device_store_setup(4, 10, 2)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        results, wall = _device_store_run(model, store, ds, False)
+    events = device_events(prof)
+    device_us = sum(e.self_device_time_total for e in events)
+    applies = store.global_step
+    apply_ev = [e for e in events if "multi_tensor_apply_kernel" in e.key]
+    apply_us = sum(e.self_device_time_total for e in apply_ev) / applies
+    bound_us = APPLY_BYTES / H100_BYTES_PER_S * 1e6
+    copies = _memcpy_bytes(prof)
+    steps = sum(r.local_steps_completed for r in results)
+    batch_bytes = BATCH * 32 * 32 * 3
+    htod = copies.get("HtoD", {}).get("bytes", 0) / steps
+    dtoh = copies.get("DtoH", {}).get("bytes", 0) / steps
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
+    emit({"phase": "device_store", "form": "profile", "steps": steps,
+          "applies": applies, "wall_s": wall,
+          "device_busy_s": device_us / 1e6,
+          "device_idle_share": 1 - device_us / 1e6 / wall,
+          "apply_device_us": apply_us,
+          "apply_kernel_launches": sum(e.count for e in apply_ev),
+          "apply_bound_us": bound_us, "apply_bound_by": "bytes",
+          "apply_share_of_bound": bound_us / apply_us if apply_us else None,
+          "memcpy": copies, "htod_bytes_per_step": htod,
+          "dtoh_bytes_per_step": dtoh, "batch_bytes": batch_bytes,
+          "top_device_ms": [[e.key[:120], round(e.self_device_time_total
+                                               / 1e3, 3), e.count]
+                            for e in top],
+          "card": state["card"]})
+    if not apply_ev:
+        raise AssertionError("no apply kernel in the profile")
+    if not batch_bytes <= htod <= batch_bytes + SMALL_COPY_BYTES:
+        raise AssertionError(f"{htod} host-to-device bytes a step; the "
+                             f"batch is {batch_bytes}")
+    if dtoh > SMALL_COPY_BYTES:
+        raise AssertionError(f"{dtoh} device-to-host bytes a step")
+
+
+def _device_store_parity(state: dict) -> None:
+    """(c) Real gradients of one step drive two async pushes (the second
+    one step stale) and one full sync round of 2 workers, through the
+    device store on the card and on the CPU: bit-equal (tolerance 0)."""
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps import (
+        DeviceParameterStore, StoreConfig)
+    from distributed_parameter_server_for_ml_training_tpu_torch.train \
+        .steps import make_grad_step
+    from distributed_parameter_server_for_ml_training_tpu_torch.utils \
+        .pytree import params_to_jax
+
+    ds, model, _, init = main_path(1, 10, 5)
+    grad_step = make_grad_step(model, augment=False)
+    params = {k: torch.from_numpy(v).cuda() for k, v in init.items()}
+    _, stats = params_to_jax(model)
+    stats = {k: torch.from_numpy(v).cuda() for k, v in stats.items()}
+    grads = [grad_step(params, stats, ds.x_train[i:i + BATCH],
+                       ds.y_train[i:i + BATCH])[0]
+             for i in (0, BATCH)]
+
+    def script(device, gs):
+        a = DeviceParameterStore(init, StoreConfig(
+            mode="async", total_workers=2, staleness_bound=5),
+            device=device)
+        a.register_worker()
+        a.register_worker()
+        out = [a.push(0, gs[0], 0), a.push(1, gs[1], 0)]
+        mid, step = a.snapshot()
+        r = DeviceParameterStore(mid, StoreConfig(mode="sync",
+                                                  total_workers=2),
+                                 device=device)
+        r.register_worker()
+        r.register_worker()
+        out += [r.push(0, gs[0], step), r.push(1, gs[1], step)]
+        final, fstep = r.snapshot()
+        return out + [step, fstep], mid, final
+
+    card = script("cuda", grads)
+    cpu = script("cpu", [{k: v.cpu() for k, v in g.items()}
+                         for g in grads])
+    diffs = {name: max(float(np.max(np.abs(a[k] - b[k]))) for k in a)
+             for name, a, b in (("async", card[1], cpu[1]),
+                                ("sync_round", card[2], cpu[2]))}
+    equal = all(a[k].tobytes() == b[k].tobytes()
+                for a, b in ((card[1], cpu[1]), (card[2], cpu[2]))
+                for k in a)
+    emit({"phase": "device_store", "form": "parity",
+          "returns": card[0], "returns_cpu": cpu[0], "bit_equal": equal,
+          "max_abs_diff": diffs, "tolerance": 0.0, "card": state["card"]})
+    if card[0] != cpu[0] or card[0] != [True, True, True, True, 2, 1]:
+        raise AssertionError(f"returns {card[0]} != {cpu[0]}")
+    if not equal:
+        raise AssertionError(f"card and CPU differ: {diffs}")
+
+
+def phase_device_store(state: dict) -> None:
+    """Phase 16: the device-resident store at full width."""
+    _device_store_async(state)
+    _device_store_profile(state)
+    _device_store_parity(state)
+
+
+# -- phase 17: checkpoints on the card ---------------------------------------
+
+def _lost_reply(state: dict) -> None:
+    """(a) A push the server applied whose reply was lost: a snapshot is
+    flushed, the server stopped, and a new one on the same port restored
+    with its push-token journal answers the worker's retry as a
+    duplicate, at the restored step, its params the snapshot's."""
+    import shutil
+    import tempfile
+    import threading
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.checkpoint \
+        import (PeriodicStoreCheckpointer, load_store_record,
+                restore_server_state)
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms import (
+        ParameterService, RemoteStore, serve)
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms \
+        .service import unpack_msg
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps import (
+        PSWorker, StoreConfig, WorkerConfig, make_store)
+
+    # 4 batches for the one worker: 4 pushes.
+    ds, model, _, init = main_path(4 // N_WORKERS, 10, 6)
+
+    def store():
+        return make_store("device", init, StoreConfig(
+            mode="async", total_workers=1, staleness_bound=5),
+            device="cuda")
+    ckpt_dir = tempfile.mkdtemp(prefix="dps-ckpt-")
+    store1 = store()
+    svc1 = ParameterService(store1)
+    ckpt = PeriodicStoreCheckpointer(store1, ckpt_dir, interval=3600.0,
+                                     journal_fn=svc1.journal_snapshot)
+    ckpt.start()
+    server1, port = serve(store1, port=0, host="127.0.0.1", service=svc1)
+    client = RemoteStore(f"127.0.0.1:{port}", rpc_timeout=10.0,
+                         rpc_retries=1, rpc_backoff=0.05)
+    worker = PSWorker(client, model, ds, WorkerConfig(
+        batch_size=BATCH, num_epochs=1, device="cuda", eval_each_epoch=False,
+        reconnect_timeout=60.0, reconnect_backoff=0.05))
+    killed, restarted = threading.Event(), threading.Event()
+    holder: dict = {}
+
+    def restart_after_kill():
+        killed.wait(120)
+        time.sleep(0.3)
+        store2 = store()
+        svc2 = ParameterService(store2)
+        t_restore = time.perf_counter()
+        holder["restored"] = restore_server_state(store2, svc2, ckpt_dir)
+        holder["restore_s"] = time.perf_counter() - t_restore
+        npz, meta = load_store_record(ckpt_dir)
+        holder["npz_bytes"] = meta["npz_size"]
+        push_body = svc2.push_gradrients
+
+        def first_push_seen(request, ctx):
+            # The new server's first push is the worker's retry: its
+            # reply, and the store's step and params as it answers.
+            reply = push_body(request, ctx)
+            if "retry" not in holder:
+                params, step = store2.snapshot()
+                holder["retry"] = (unpack_msg(reply)[0], step, all(
+                    params[k].tobytes() == npz[k].tobytes() for k in npz))
+            return reply
+        svc2.push_gradrients = first_push_seen
+        server2, bound = serve(store2, port=port, host="127.0.0.1",
+                               service=svc2)
+        holder.update(server2=server2, store2=store2, bound=bound)
+        restarted.set()
+
+    inner_push = client._call["PushGradrients"]
+
+    def push_losing_reply(request, timeout=None):
+        push_losing_reply.calls += 1
+        if push_losing_reply.calls == 2 and not killed.is_set():
+            inner_push(request, timeout=timeout)      # applied ...
+            t_flush = time.perf_counter()
+            ckpt.stop(final_snapshot=True)            # ... and journaled
+            holder["snapshot_s"] = time.perf_counter() - t_flush
+            server1.stop(grace=None).wait(10)
+            killed.set()                              # the reply is lost
+        return inner_push(request, timeout=timeout)
+
+    push_losing_reply.calls = 0
+    client._call["PushGradrients"] = push_losing_reply
+    t = threading.Thread(target=restart_after_kill, daemon=True)
+    t0 = time.perf_counter()
+    t.start()
+    worker.start()
+    worker.join(300)
+    t.join(120)
+    wall = time.perf_counter() - t0
+    try:
+        r = worker.result
+        store2 = holder.get("store2")
+        meta, retry_step, retry_equal = holder.get("retry",
+                                                   ({}, None, None))
+        emit({"phase": "checkpoints", "form": "lost_reply",
+              "error": repr(r.error) if r.error else None,
+              "reconnects": r.reconnects,
+              "pushes_accepted": r.pushes_accepted,
+              "restored": holder.get("restored"),
+              "retry_reply": {k: meta.get(k) for k in
+                              ("received", "accepted", "duplicate",
+                               "global_step")},
+              "step_at_retry": retry_step,
+              "params_equal_snapshot_npz": retry_equal,
+              "new_store_step": store2.global_step if store2 else None,
+              "new_store_pushes_applied":
+                  store2.stats.gradients_processed if store2 else None,
+              "snapshot_s": holder.get("snapshot_s"),
+              "snapshot_npz_bytes": holder.get("npz_bytes"),
+              "restore_s": holder.get("restore_s"),
+              "wall_s": wall, "card": state["card"]})
+        if r.error is not None or worker.is_alive():
+            raise AssertionError(f"worker failed: {r.error!r}")
+        if r.reconnects != 1 or holder.get("bound") != port:
+            raise AssertionError("the server was not restarted on its port")
+        restored_step, journaled = holder["restored"]
+        if (restored_step, meta.get("duplicate"), meta.get("global_step"),
+                retry_step, retry_equal) != (2, True, 2, 2, True) \
+                or journaled < 1:
+            raise AssertionError("the retried push was not answered as a "
+                                 "duplicate of the restored state")
+        # 4 pushes: 2 in the snapshot, the retried 2nd a duplicate, the
+        # 3rd and 4th applied on the new server.
+        if (r.pushes_accepted, store2.global_step,
+                store2.stats.gradients_processed) != (4, 4, 2):
+            raise AssertionError("a push was lost or applied twice")
+    finally:
+        if "server2" in holder:
+            holder["server2"].stop(grace=None).wait(10)
+        client.close()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def _graphed_resume(state: dict) -> None:
+    """(b) ``BaselineTrainer(device_loop=True)`` with deterministic cuDNN,
+    2 epochs of 2,048 images, a checkpoint each epoch: a fresh trainer
+    restored from epoch 1 (copied into the tensors its graph replays
+    over) trains epoch 2 bit-equal to the uninterrupted run."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.checkpoint \
+        import CheckpointManager
+    from distributed_parameter_server_for_ml_training_tpu_torch.data \
+        import synthetic_cifar100
+    from distributed_parameter_server_for_ml_training_tpu_torch.models \
+        import get_model
+    from distributed_parameter_server_for_ml_training_tpu_torch.train \
+        .baseline import BaselineConfig, BaselineTrainer
+
+    ds = synthetic_cifar100(n_train=2048, n_test=1000)
+
+    def trainer(epochs):
+        model = get_model("resnet18", num_classes=100, dtype="bfloat16",
+                          device="cuda", seed=7)
+        return BaselineTrainer(ds, BaselineConfig(
+            batch_size=BATCH, num_epochs=epochs, device_loop=True,
+            device="cuda", seed=7), model=model)
+
+    def tensors(st):
+        out = [*st.params.values(), *st.batch_stats.values(),
+               *st.opt_state.trace.values(), st.opt_state.count]
+        return [t.detach().cpu() for t in out]
+
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    root = tempfile.mkdtemp(prefix="dps-ckpt-")
+    t0 = time.perf_counter()
+    try:
+        full = trainer(2)
+        whole = full.train(checkpoint_dir=f"{root}/a")
+        trainer(1).train(checkpoint_dir=f"{root}/b")
+        resumed = trainer(2)
+        again = resumed.train(checkpoint_dir=f"{root}/b", resume=True)
+        graphed = resumed._device_loop._cuda_graph is not None
+        a, b = tensors(full.state), tensors(resumed.state)
+        equal = len(a) == len(b) and all(torch.equal(x, y)
+                                         for x, y in zip(a, b))
+        diff = max(float((x.double() - y.double()).abs().max())
+                   for x, y in zip(a, b))
+        # One train-state checkpoint's cost: save, then restore in place.
+        mgr = CheckpointManager(f"{root}/c")
+        t1 = time.perf_counter()
+        mgr.save(resumed.state)
+        save_s = time.perf_counter() - t1
+        ckpt_bytes = sum(f.stat().st_size for f in Path(root, "c").iterdir())
+        t1 = time.perf_counter()
+        mgr.restore(resumed.state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = prev
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "checkpoints", "form": "graphed_resume",
+          "cudnn_deterministic": True, "steps": full.state.step,
+          "resumed_step": resumed.state.step, "graph_replayed": graphed,
+          "state_bit_equal": equal, "max_abs_diff": diff,
+          "losses": whole.train_losses, "resumed_losses": again.train_losses,
+          "checkpoint_save_s": save_s, "checkpoint_bytes": ckpt_bytes,
+          "checkpoint_restore_s": restore_s,
+          "wall_s": time.perf_counter() - t0, "card": state["card"]})
+    if not graphed or not equal or full.state.step != resumed.state.step:
+        raise AssertionError(f"the resumed graphed run differs (max "
+                             f"{diff})")
+    if again.train_losses != whole.train_losses[1:]:
+        raise AssertionError(f"epoch 2 loss {again.train_losses} != "
+                             f"{whole.train_losses[1:]}")
+
+
+def phase_checkpoints(state: dict) -> None:
+    """Phase 17: checkpoints on the card."""
+    _lost_reply(state)
+    _graphed_resume(state)
+
+
 def main() -> int:
     import torch
 
@@ -2673,7 +3173,8 @@ def main() -> int:
                   phase_main_path, phase_profile, phase_sync_path,
                   phase_sync_profile, phase_baseline, phase_kernel_flash,
                   phase_sp_path, phase_sp_profile, phase_cli,
-                  phase_grpc_path, phase_grpc_modes):
+                  phase_grpc_path, phase_grpc_modes, phase_device_store,
+                  phase_checkpoints):
         t0 = time.perf_counter()
         try:
             phase(state)

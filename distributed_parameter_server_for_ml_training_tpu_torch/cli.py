@@ -19,18 +19,21 @@ with the JAX verb's flags that they honour, plus ``--device``::
 It runs on the card unless ``--device cpu`` is given. ``--mode baseline``
 is the reference's single-device recipe (SGD with momentum and weight
 decay under MultiStepLR, ``train/baseline.py``); ``--plot`` saves its
-results plot, and ``--checkpoint-dir``/``--resume`` are refused until the
-checkpoint slice. ``--mode sync``
-trains the worker slots of one card with the all-reduce chosen by
-``--compression`` (int8 = the quantized reduce-scatter ring, kernels
-K2-K4); ``--mode async`` runs the host parameter store with worker
-threads, pushing with the store's default codec (fp16, the reference's
-cast). ``--mode sp`` trains ``--model vit_tiny|vit_b16`` sequence-parallel
-over ``--workers`` sequence slots of one card (ring attention, the flash
-kernels K5-K7 per hop from 2,048 tokens per slot); ``--dataset
-imagenet-synth --image-size N`` gives it ImageNet-shaped synthetic
-images. The default mode stays ``async`` (the JAX CLI's is ``sync``) until
-the port has all of the JAX CLI's modes.
+results plot. In every mode ``--checkpoint-dir`` saves a checkpoint each
+epoch (in async mode, snapshots of the store) and ``--resume`` continues
+from the newest one there. ``--mode sync`` trains the worker slots of
+one card with the all-reduce chosen by ``--compression`` (int8 = the
+quantized reduce-scatter ring, kernels K2-K4). ``--mode async`` runs the
+host parameter store with worker threads, pushing with the store's
+default codec (fp16, the reference's cast), or with ``--store-backend
+device`` the device-resident store, whose pushes and fetches move no
+bytes over the host link; ``--strict-rounds`` reaches the store's config
+as in the JAX CLI. ``--mode sp`` trains ``--model vit_tiny|vit_b16``
+sequence-parallel over ``--workers`` sequence slots of one card (ring
+attention, the flash kernels K5-K7 per hop from 2,048 tokens per slot);
+``--dataset imagenet-synth --image-size N`` gives it ImageNet-shaped
+synthetic images. The CLI's default mode stays ``async`` (the JAX CLI's
+is ``sync``) until the port has all of the JAX CLI's modes.
 
 The verbs ``serve`` and ``worker`` are the reference's own topology: a
 gRPC parameter server over the host NumPy store (``comms/service.py``)
@@ -50,11 +53,16 @@ server draws the initial ResNet-18 weights with the port's ``get_model``
 server's flax initialization for the same seed.
 
 ``serve`` takes the store's options: ``--fetch-codec bf16|fp16``,
-``--elastic``, ``--worker-timeout``, and for sync rounds
-``--sync-quorum`` and ``--round-deadline``. ``worker`` (and ``train
---mode async``) take ``--k-step-mode local_sgd`` with ``--local-lr``,
-``--overlap`` (the comms pipeline), ``--heartbeat`` and
-``--reconnect-timeout`` (session resume)::
+``--elastic``, ``--worker-timeout``, for sync rounds ``--sync-quorum``
+and ``--round-deadline``, ``--store-backend device`` (the store on
+``--device``, the card by default), and durable server state:
+``--checkpoint-dir D`` snapshots the store and its push-token journal
+every ``--checkpoint-interval`` seconds and at exit (SIGTERM included),
+and ``--restore`` resumes from the newest snapshot in D, so a worker's
+retry of a push the old server applied is answered as a duplicate.
+``worker`` (and ``train --mode async``) take ``--k-step-mode local_sgd``
+with ``--local-lr``, ``--overlap`` (the comms pipeline), ``--heartbeat``
+and ``--reconnect-timeout`` (session resume)::
 
     python -m distributed_parameter_server_for_ml_training_tpu_torch.cli \
         serve --mode async --workers 2 --push-codec int8 --fetch-codec bf16 \
@@ -166,6 +174,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "rounds sized to the live workers")
     t.add_argument("--worker-timeout", type=float, default=None,
                    help="expire workers unseen for this many seconds")
+    t.add_argument("--strict-rounds", action="store_true",
+                   help="corrected sync-round semantics (vs quirk 3)")
+    t.add_argument("--store-backend",
+                   choices=["python", "native", "device"],
+                   default="python",
+                   help="async parameter-store backend: host numpy, or "
+                        "device-resident (zero host-link bytes a step); "
+                        "native comes with ROADMAP §1 item 9")
     _add_worker_modes(t)
     t.add_argument("--compression", choices=["none", "bf16", "fp16", "int8"],
                    default="bf16",
@@ -178,8 +194,8 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--plot", default=None,
                    help="save a results plot (png; baseline)")
     t.add_argument("--checkpoint-dir", default=None,
-                   help="save checkpoints each epoch (the checkpoint "
-                        "slice; refused until then)")
+                   help="save checkpoints each epoch (async: periodic "
+                        "snapshots of the store)")
     t.add_argument("--resume", action="store_true",
                    help="resume from the newest checkpoint in "
                         "--checkpoint-dir")
@@ -234,8 +250,22 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--round-deadline", type=float, default=None,
                    help="--mode sync: a round completes this many seconds "
                         "after its first gradient")
-    s.add_argument("--checkpoint-dir", default=None)
-    s.add_argument("--restore", action="store_true")
+    s.add_argument("--device", default="cuda",
+                   help="where --store-backend device keeps the params "
+                        "(cuda, or cpu)")
+    s.add_argument("--checkpoint-dir",
+                   default=_env("DPS_CHECKPOINT_DIR", None),
+                   help="durable server state: periodic atomic snapshots "
+                        "of params + step + aggregation config + the "
+                        "push-token journal, plus a final snapshot at exit")
+    s.add_argument("--checkpoint-interval", type=float,
+                   default=_env("DPS_CHECKPOINT_INTERVAL", 30.0, float),
+                   help="seconds between periodic store snapshots")
+    s.add_argument("--restore", action="store_true",
+                   help="resume from the newest snapshot in "
+                        "--checkpoint-dir: params + global step restored, "
+                        "push-token journal re-seeded so pre-crash push "
+                        "retries still dedupe")
     s.add_argument("--faults", default=None)
     s.add_argument("--jobs", default=None)
 
@@ -268,24 +298,22 @@ def build_parser() -> argparse.ArgumentParser:
 #: Flags of the JAX verbs whose features come with later slices, by the
 #: ROADMAP item that brings them; any value but the default is refused.
 LATER_FLAGS = {
-    "checkpoint_dir": "ROADMAP §1 item 5 (checkpoints)",
-    "restore": "ROADMAP §1 item 5 (checkpoints)",
     "faults": "ROADMAP §1 item 9 (comms/faults.py)",
     "jobs": "ROADMAP §1 item 9 (tenancy)",
     "job": "ROADMAP §1 item 9 (tenancy)",
     "shards": "ROADMAP §1 item 9 (the sharded tier)",
-    "store_backend": "ROADMAP §1 items 4 and 9 (the device store and the "
-                     "C++ arena)",
+    "store_backend": "ROADMAP §1 item 9 (the C++ arena)",
 }
-_FLAG_DEFAULTS = {"store_backend": "python"}
+#: Values of a listed flag that this slice serves.
+_FLAG_SERVED = {"store_backend": ("python", "device")}
 
 
 def _refuse_later_flags(args) -> None:
-    """Raise for the first flag of a later slice given a value other than
-    its default (None, False, 0 or the listed default)."""
+    """Raise for the first flag of a later slice given a value this slice
+    does not serve (anything but None, False, 0 or a listed value)."""
     for name, item in LATER_FLAGS.items():
         value = getattr(args, name, None)
-        if value in (None, False, _FLAG_DEFAULTS.get(name)):
+        if value in (None, False) or value in _FLAG_SERVED.get(name, ()):
             continue
         flag = "--" + name.replace("_", "-")
         raise NotImplementedError(
@@ -316,6 +344,7 @@ def cmd_train(args) -> int:
     from .train.distributed import (AsyncTrainer, DistributedConfig,
                                     SyncTrainer)
 
+    _refuse_later_flags(args)
     if args.mode in ("sync", "async") and args.model != "resnet18":
         raise SystemExit(f"--mode {args.mode} trains resnet18 in the port; "
                          f"--model {args.model} runs with --mode sp or "
@@ -337,9 +366,6 @@ def cmd_train(args) -> int:
             plot_path=args.plot, emit_metrics=args.emit_metrics,
             checkpoint_dir=args.checkpoint_dir, resume=args.resume)
         return 0
-    if args.checkpoint_dir or args.resume:
-        raise NotImplementedError(
-            f"--mode {args.mode} checkpoints come with the checkpoint slice")
     if args.mode == "sp":
         from .train.model_parallel import ModelParallelConfig, SPTrainer
         mp_cfg = ModelParallelConfig(
@@ -349,7 +375,8 @@ def cmd_train(args) -> int:
             num_classes=dataset.num_classes, dtype=args.dtype,
             seed=args.seed, device=args.device)
         metrics = SPTrainer(dataset, mp_cfg).train(
-            emit_metrics=args.emit_metrics)
+            emit_metrics=args.emit_metrics,
+            checkpoint_dir=args.checkpoint_dir, resume=args.resume)
         print(f"done: {metrics}", file=sys.stderr)
         return 0
     if args.mode == "sync" and (args.elastic or args.worker_timeout):
@@ -361,23 +388,34 @@ def cmd_train(args) -> int:
         num_epochs=args.epochs, batch_size=args.batch_size,
         sync_steps=args.sync_steps, k_step_mode=args.k_step_mode,
         staleness_bound=args.staleness_bound,
-        compression=args.compression, elastic=args.elastic,
+        compression=args.compression, strict_rounds=args.strict_rounds,
+        elastic=args.elastic,
         worker_timeout=args.worker_timeout, overlap=args.overlap,
         delta_fetch=not args.no_delta_fetch, local_lr=args.local_lr,
         heartbeat_interval=args.heartbeat,
         reconnect_timeout=args.reconnect_timeout,
+        store_backend=args.store_backend,
         augment=not args.no_augment, dtype=args.dtype,
         num_classes=dataset.num_classes, seed=args.seed,
         device=args.device)
     trainer = SyncTrainer if args.mode == "sync" else AsyncTrainer
-    metrics = trainer(dataset, cfg).train(emit_metrics=args.emit_metrics)
+    metrics = trainer(dataset, cfg).train(
+        emit_metrics=args.emit_metrics, checkpoint_dir=args.checkpoint_dir,
+        resume=args.resume)
     print(f"done: {metrics}", file=sys.stderr)
     return 0
 
 
 def cmd_serve(args) -> int:
-    """The gRPC parameter server over the host NumPy store; exits when
-    every registered worker has sent JobFinished."""
+    """The gRPC parameter server over the host NumPy store (or, with
+    ``--store-backend device``, the device-resident store); exits when
+    every registered worker has sent JobFinished. With
+    ``--checkpoint-dir`` the store and its push-token journal are
+    snapshotted periodically and at exit; ``--restore`` resumes from the
+    newest snapshot, adopting its aggregation settings (JAX
+    ``cli.py:1552-1645``, without tenancy's per-job lineages)."""
+    import signal
+    import threading
     import time
 
     from .comms.service import ParameterService, serve
@@ -395,14 +433,18 @@ def cmd_serve(args) -> int:
             and args.mode != "sync":
         raise SystemExit("--sync-quorum/--round-deadline apply to "
                          "--mode sync (async has no rounds)")
-    # The store lives on the host: the model is built on the CPU only to
-    # draw its initial weights (get_model draws them from a CPU generator
-    # on every device, so a worker's AsyncTrainer on the card starts from
-    # the same weights for the same seed).
+    if args.restore and not args.checkpoint_dir:
+        raise SystemExit("--restore needs --checkpoint-dir")
+    # The model is built on the CPU only to draw its initial weights
+    # (get_model draws them from a CPU generator on every device, so a
+    # worker's AsyncTrainer on the card starts from the same weights for
+    # the same seed).
     model = get_model(args.model, num_classes=args.num_classes,
                       image_size=args.image_size, device="cpu",
                       seed=args.seed)
     flat, _ = params_to_jax(model)
+    store_kw = {"device": args.device} \
+        if args.store_backend == "device" else {}
     store = make_store(
         args.store_backend, flat,
         StoreConfig(mode=args.mode, total_workers=args.workers,
@@ -415,12 +457,60 @@ def cmd_serve(args) -> int:
                     elastic=args.elastic,
                     worker_timeout=args.worker_timeout,
                     sync_quorum=args.sync_quorum,
-                    round_deadline=args.round_deadline))
+                    round_deadline=args.round_deadline), **store_kw)
     svc = ParameterService(store)
+    restored = None
+    if args.restore:
+        from .checkpoint import load_store_record, restore_server_state
+        try:
+            # Loaded once and passed to the restore below, so the adopted
+            # config and the restored params/journal come from the same
+            # record even if a newer snapshot lands in between.
+            record = load_store_record(args.checkpoint_dir)
+        except FileNotFoundError:
+            # A restart policy passes --restore unconditionally; the first
+            # boot has nothing to restore and starts fresh.
+            print(f"restore: no snapshot in {args.checkpoint_dir}; "
+                  f"starting fresh", file=sys.stderr)
+            record = None
+        if record is not None:
+            # A restarted server resumes the RUN it crashed out of, not a
+            # different one because a flag defaulted differently.
+            agg = record[1].get("aggregation", {})
+            for field in ("mode", "learning_rate", "staleness_bound"):
+                if field in agg \
+                        and getattr(store.config, field) != agg[field]:
+                    print(f"restore: adopting snapshot {field}="
+                          f"{agg[field]!r} (flags said "
+                          f"{getattr(store.config, field)!r})",
+                          file=sys.stderr)
+                    setattr(store.config, field, agg[field])
+            restored, journal_n = restore_server_state(
+                store, svc, args.checkpoint_dir, record=record)
+            print(f"restored store at step {restored} (+{journal_n} "
+                  f"journaled push tokens) from {args.checkpoint_dir}",
+                  file=sys.stderr)
+    ckpt = None
+    if args.checkpoint_dir:
+        from .checkpoint import PeriodicStoreCheckpointer
+        ckpt = PeriodicStoreCheckpointer(
+            store, args.checkpoint_dir, interval=args.checkpoint_interval,
+            journal_fn=svc.journal_snapshot)
+        ckpt.start()
     server, port = serve(store, port=args.port, service=svc)
     print(f"parameter server up on :{port} (mode={store.config.mode}, "
-          f"workers={args.workers}, backend={args.store_backend})",
-          file=sys.stderr, flush=True)
+          f"workers={args.workers}, backend={args.store_backend}"
+          + (f", restored_step={restored}" if restored is not None else "")
+          + ")", file=sys.stderr, flush=True)
+
+    def terminated(signum, frame):
+        raise SystemExit(128 + signum)
+
+    # SIGTERM ends the serve loop through the finally below, so the
+    # final snapshot holds the store's end state (signal handlers belong
+    # to the main thread; a serve run from another thread keeps its own).
+    main = threading.current_thread() is threading.main_thread()
+    prev_term = signal.signal(signal.SIGTERM, terminated) if main else None
     try:
         # Exits once every registered worker sent JobFinished; with
         # --worker-timeout each tick also expires silent workers.
@@ -433,7 +523,14 @@ def cmd_serve(args) -> int:
     except KeyboardInterrupt:
         pass
     finally:
+        if main:
+            signal.signal(signal.SIGTERM, prev_term)
         server.stop(grace=2.0)
+        if ckpt is not None:
+            err = ckpt.stop(final_snapshot=True)
+            if err is not None:
+                print(f"last periodic snapshot had failed: {err!r}",
+                      file=sys.stderr)
     if args.emit_metrics:
         emit_metrics_json(store.metrics())
     return 0

@@ -18,16 +18,24 @@ the same capability advertisement at registration, the same exactly-once
 version-gated fetch with its cached ``not_modified`` reply, the
 store's fetch codec and elastic membership (the live membership on
 register and fetch replies, expiry run on push and registration
-activity), and the passive half of the directive channel (acks are
-taken; nothing posts).
+activity), the passive half of the directive channel (acks are taken;
+nothing posts), and the push-token journal that store checkpoints
+persist (``journal_snapshot``/``load_journal``), so a restored server
+still answers a pre-crash push's retry as a duplicate.
+
+Over the device-resident store (``ps/device_store.py``) a fetch brings
+the params to the host in one staged copy, and a push's decoded arrays
+(read-only views into the request) are uploaded to the store's device by
+the store, one copy each; the replies are a JAX service's over a JAX
+``DeviceParameterStore``.
 
 Not in this slice, each refused with ``NotImplementedError`` naming the
 ROADMAP item when a caller asks for it: fault injection and sharding
 (the serve tier, §1 item 9), tenancy with its weighted-fair admission
 and ``SubmitJob`` (item 9), the health monitor, the non-finite guard and
-quarantine (telemetry, item 8), reshard/migration (item 9), and the
-push-token journal's persistence (checkpoints, item 5). Over the wire the
-``Reshard`` and ``SubmitJob`` RPCs answer UNIMPLEMENTED with that text.
+quarantine (telemetry, item 8), and reshard/migration (item 9). Over the
+wire the ``Reshard`` and ``SubmitJob`` RPCs answer UNIMPLEMENTED with that
+text.
 """
 
 from __future__ import annotations
@@ -83,8 +91,6 @@ LATER = {
             "serve tier (ROADMAP §1 item 9: ps/tenancy.py)",
     "reshard": "reshard and migration come with the serve tier (ROADMAP "
                "§1 item 9)",
-    "journal": "the push-token journal's persistence comes with the "
-               "checkpoint slice (ROADMAP §1 item 5)",
 }
 
 
@@ -443,11 +449,50 @@ class ParameterService:
                          "global_step": store.global_step,
                          **self._directive_fields(wid, meta)})
 
-    def journal_snapshot(self, job: str | None = None) -> list[dict]:
-        raise later("journal")
+    # -- durable push-token journal ------------------------------------------
+
+    def journal_snapshot(self) -> list[dict]:
+        """COMPLETED push-token outcomes, oldest first: the bounded
+        journal a store snapshot persists (checkpoint/manager.py), so a
+        restarted server still dedupes in-flight push retries from before
+        the crash. In-flight entries are skipped: their outcome is
+        unknown. (The JAX method's ``job`` filter comes with tenancy,
+        ROADMAP §1 item 9.)"""
+        with self._push_seen_lock:
+            return [
+                {"nonce": nonce, "count": e[0], "accepted": bool(e[1]),
+                 "worker_id": e[3], "step": e[4]}
+                for nonce, e in self._push_seen.items() if e[2].is_set()
+            ]
 
     def load_journal(self, entries) -> int:
-        raise later("journal")
+        """Seed the dedupe table from a persisted journal (server
+        restart). Returns the number of entries loaded. Entries arrive
+        completed (their events are pre-set); malformed records are
+        skipped, so a corrupt journal degrades to weaker dedupe, not a
+        refused restore."""
+        loaded = 0
+        with self._push_seen_lock:
+            for rec in entries or []:
+                try:
+                    nonce = str(rec["nonce"])
+                    count = int(rec["count"])
+                    accepted = bool(rec["accepted"])
+                    wid = int(rec.get("worker_id", -1))
+                    step = rec.get("step")
+                except (KeyError, TypeError, ValueError):
+                    continue
+                prev = self._push_seen.get(nonce)
+                if prev is not None and count <= prev[0]:
+                    continue  # never downgrade to a lower count
+                ev = threading.Event()
+                ev.set()
+                self._push_seen[nonce] = [count, accepted, ev, wid, step]
+                self._push_seen.move_to_end(nonce)
+                loaded += 1
+            while len(self._push_seen) > PUSH_SEEN_CAP:
+                self._push_seen.popitem(last=False)
+        return loaded
 
     # dpslint: hot-path — every worker ping; NM replies serve a cached encode
     def fetch_parameters(self, request: bytes, ctx) -> bytes:
@@ -503,6 +548,8 @@ class ParameterService:
                 return reply
         else:
             params, step = store.fetch(wid)
+        if getattr(store, "keeps_device_arrays", False):
+            params = store.to_host(params)
         return pack_msg({"global_step": step, **qfields, **dfields,
                          **self._membership_fields()},
                         encode_tensor_dict(params))

@@ -7,8 +7,9 @@ rounds, the fetch codecs, and the snapshot and migration surface. The
 store is NumPy on the host and framework-neutral, so these are the
 reference's line for line. ``shard_index``, ``shard_count`` and ``job_id``
 are identity fields only, validated as the JAX store validates them; the
-sharded tier and tenancy that act on them, checkpoints and the
-device-resident store come with later slices.
+sharded tier and tenancy that act on them come with a later slice. The
+device-resident store (``ps/device_store.py``) shares the orchestration
+of :class:`AggregationBase`.
 
 The re-hosting of ``src/parameter_server/server.py``: canonical
 parameters live on the host CPU as a flat ``{name: np.ndarray}`` dict
@@ -182,7 +183,8 @@ class _Stats:
 class AggregationBase:
     """Membership, sync-round and async-apply orchestration of an
     in-process store. A subclass supplies ``_round_update(grad_dicts,
-    lr)`` and ``_apply(grads, lr, weight)`` and the state they use.
+    lr)`` and ``_apply(grads, lr, weight)`` and the state they use, and
+    may override ``_after_apply()``.
 
     Membership (server.py:190-211, 306-318): sequential ids under the
     registration lock (the lowest free slot under ``elastic``); JobFinished
@@ -252,6 +254,22 @@ class AggregationBase:
                                     backend=b)
         self._tm_excluded = reg.gauge("dps_store_excluded_workers",
                                       backend=b)
+
+    def _init_round_state(self) -> None:
+        """Quorum-round bookkeeping, called from each concrete
+        ``__init__``: the exclusion set, the round serial that fences
+        stale deadline timers, and the armed timer itself."""
+        self._excluded: set[int] = set()
+        self._round_serial = 0
+        self._deadline_timer: threading.Timer | None = None
+        self._last_round_trigger: str | None = None
+
+    def _after_apply(self):
+        """Hook after an update is issued. Return contract: anything but
+        ``False`` means the hook synchronized with (or is) the real
+        completion of the update, and the caller records an update_times
+        entry; ``False`` declines (the device store samples its waits, so
+        only every Nth update blocks on the device)."""
 
     # -- membership -------------------------------------------------------
 
@@ -340,11 +358,14 @@ class AggregationBase:
         if not self.config.elastic:
             return
         with self._sync_lock:
+            finish = None
             for w in stale:
                 self._pending.pop(w, None)
             if self._pending or self._gradients_received:
                 self._gradients_received = len(self._pending)
-                self._maybe_complete_round_locked()
+                finish = self._maybe_complete_round_locked()
+        if finish is not None:
+            finish()
 
     def _on_worker_departed(self, worker_id: int) -> None:
         """Elastic: a clean departure only shrinks the round target — its
@@ -354,8 +375,10 @@ class AggregationBase:
         if not self.config.elastic:
             return
         with self._sync_lock:
-            if self._gradients_received:
-                self._maybe_complete_round_locked()
+            finish = (self._maybe_complete_round_locked()
+                      if self._gradients_received else None)
+        if finish is not None:
+            finish()
 
     # -- sync rounds (full, quorum, deadline) and async applies ----------
 
@@ -396,9 +419,11 @@ class AggregationBase:
                 # increment the count anyway.
                 self._gradients_received += 1
             self._arm_deadline_locked()
-            self._maybe_complete_round_locked()
+            finish = self._maybe_complete_round_locked()
             self.stats.gradients_processed += 1
         self._tm_push_ok.inc()
+        if finish is not None:
+            finish()
         return True
 
     def _push_late(self, worker_id: int, grads: dict,
@@ -435,24 +460,34 @@ class AggregationBase:
             if serial != self._round_serial:
                 return
             self._deadline_timer = None
-            if self._gradients_received:
-                self._complete_round_locked("deadline")
+            finish = (self._complete_round_locked("deadline")
+                      if self._gradients_received else None)
+        if finish is not None:
+            finish()
 
     def _cancel_deadline_locked(self) -> None:
         t, self._deadline_timer = self._deadline_timer, None
         if t is not None:
             t.cancel()
 
-    def _maybe_complete_round_locked(self) -> None:
+    def _maybe_complete_round_locked(self):
         """Complete the round if it reached its (quorum) target (caller
-        holds ``_sync_lock``)."""
+        holds ``_sync_lock``); returns :meth:`_complete_round_locked`'s
+        completion callable, or None."""
         full = self._round_target()
         if self._gradients_received >= self._quorum_target(full):
-            self._complete_round_locked(
+            return self._complete_round_locked(
                 "full" if self._gradients_received >= full else "quorum")
+        return None
 
-    def _complete_round_locked(self, trigger: str) -> None:
-        """Aggregate + apply + reset (caller holds ``_sync_lock``)."""
+    def _complete_round_locked(self, trigger: str):
+        """Aggregate + apply + reset (caller holds ``_sync_lock``).
+        Returns a completion callable the CALLER invokes after releasing
+        the sync lock: it waits for the device (``_after_apply``) and
+        records the update time, so a device wait never convoys the other
+        workers' pushes behind the lock. The update itself (dispatch and
+        step bump) stays inside, so ordering and staleness accounting
+        are unchanged."""
         t0 = time.time()
         try:
             # The apply span parents on the span of the push that
@@ -476,9 +511,16 @@ class AggregationBase:
         self._tm_rounds.inc()
         self._tm_round_trigger[trigger].inc()
         self._tm_step.set(self.global_step)  # dpslint: ignore[lock-guard]
-        dt = time.time() - t0
-        self.stats.update_times.append(dt)
-        self._tm_apply_s.observe(dt)
+
+        def finish() -> None:
+            # Only a timing that measured real completion is recorded
+            # (_after_apply may decline a sampled device wait).
+            if self._after_apply() is not False:
+                dt = time.time() - t0
+                self.stats.update_times.append(dt)
+                self._tm_apply_s.observe(dt)
+
+        return finish
 
     # -- quorum exclusion and round status ---------------------------------
 
@@ -492,8 +534,10 @@ class AggregationBase:
             n = len(self._excluded)
         self._tm_excluded.set(n)
         with self._sync_lock:
-            if self._gradients_received:
-                self._maybe_complete_round_locked()
+            finish = (self._maybe_complete_round_locked()
+                      if self._gradients_received else None)
+        if finish is not None:
+            finish()
 
     def include_worker(self, worker_id: int) -> None:
         """Lift a quorum exclusion: the worker counts toward round targets
@@ -560,29 +604,51 @@ class AggregationBase:
             self._tm_push_rej.inc()
             return False
         self._tm_step.set(step)
+        measured = self._after_apply() is not False
         self.stats.gradients_processed += 1
         self.stats.total_parameter_updates += 1
         self.stats.staleness_values.append(staleness)
         self._tm_push_ok.inc()
-        dt = time.time() - t0
-        self.stats.update_times.append(dt)
-        self._tm_apply_s.observe(dt)
+        if measured:
+            dt = time.time() - t0
+            self.stats.update_times.append(dt)
+            self._tm_apply_s.observe(dt)
         return True
 
     # -- snapshot and migration surface ------------------------------------
 
+    #: Whether ``parameters`` holds torch tensors on the store's device
+    #: (the device store) rather than NumPy arrays; fetch and push then
+    #: hand tensors over and the snapshot surface converts at its edge.
+    keeps_device_arrays = False
+
+    def to_host(self, params: dict) -> dict[str, np.ndarray]:
+        """Host NumPy copies of a device store's tensors (its override),
+        made outside the lock."""
+        raise NotImplementedError
+
+    def _to_store(self, params: Mapping[str, np.ndarray]) -> dict:
+        """Incoming params as the store keeps them: fp32 NumPy copies
+        here, fp32 tensors on its device in the device store."""
+        return {k: np.array(v, np.float32) for k, v in params.items()}
+
     def snapshot(self) -> tuple[dict[str, np.ndarray], int]:
-        """Consistent (params copy, global_step) pair."""
+        """Consistent (host-NumPy params copy, global_step) pair. A device
+        store's tensors come to the host outside the lock."""
+        device_arrays = self.keeps_device_arrays
         with self._param_lock:
-            params = {k: v.copy() for k, v in self.parameters.items()}
+            params = {k: (v if device_arrays else v.copy())
+                      for k, v in self.parameters.items()}
             step = self.global_step
+        if device_arrays:
+            params = self.to_host(params)
         return params, step
 
     def load_snapshot(self, params: Mapping[str, np.ndarray],
                       step: int) -> None:
         """Restore a (params, step) snapshot; conversion happens outside the
         lock, the swap inside it."""
-        new = {k: np.array(v, np.float32) for k, v in params.items()}
+        new = self._to_store(params)
         with self._param_lock:
             self.parameters = new
             self.global_step = int(step)
@@ -596,16 +662,19 @@ class AggregationBase:
         """Consistent (subset copy, global_step) for a handoff — the donor
         half of a migration. Unknown names are skipped."""
         wanted = set(names)
+        device_arrays = self.keeps_device_arrays
         with self._param_lock:
-            params = {k: v.copy() for k, v in self.parameters.items()
-                      if k in wanted}
+            params = {k: (v if device_arrays else v.copy())
+                      for k, v in self.parameters.items() if k in wanted}
             step = self.global_step
+        if device_arrays:
+            params = self.to_host(params)
         return params, step
 
     def adopt_params(self, params: Mapping[str, np.ndarray]) -> int:
         """Graft migrated tensors into this store (the recipient half);
         existing names are overwritten. Returns how many were adopted."""
-        new = {k: np.array(v, np.float32) for k, v in params.items()}
+        new = self._to_store(params)
         with self._param_lock:
             self.parameters.update(new)
         return len(new)
@@ -644,6 +713,12 @@ class AggregationBase:
             "learning_rate": self.config.learning_rate,
             "store_backend": self.store_backend,
         }
+        # Sampled device waits (ps/device_store.py wait_every): each
+        # recorded update time measured the completion of up to
+        # wait_every queued updates, so the interval is published.
+        we = getattr(self, "wait_every", 1)
+        if we and we > 1:
+            out["update_time_wait_every"] = int(we)
         if self.config.mode == "async":
             sv = self.stats.staleness_values
             out.update({
@@ -692,12 +767,7 @@ class ParameterStore(AggregationBase):
 
         self._pending: dict[int, dict[str, np.ndarray]] = {}
         self._gradients_received = 0
-        # Quorum-round bookkeeping: the exclusion set, the round serial
-        # that fences stale deadline timers, and the armed timer itself.
-        self._excluded: set[int] = set()
-        self._round_serial = 0
-        self._deadline_timer: threading.Timer | None = None
-        self._last_round_trigger: str | None = None
+        self._init_round_state()
 
         self.stats = _Stats()
         self._finished_event = threading.Event()

@@ -47,8 +47,8 @@ import numpy as np
 import torch
 
 from ..data.cifar import Dataset, make_batches, shard_range
-from ..ops.compression import QUANTIZED_PUSH_CODECS, fp16_compress, \
-    fp16_decompress
+from ..ops.compression import QUANTIZED_PUSH_CODECS, ErrorFeedback, \
+    compress_push, fp16_compress, fp16_decompress
 from ..ops.device_codec import DeviceCodec, DevicePayload
 from ..telemetry import GoodputAccount, now as _tnow, trace_span
 from ..telemetry.trace import current_wire_trace, use_wire_context
@@ -114,6 +114,11 @@ class WorkerConfig:
     error_feedback: bool = True
     # Fraction of entries a 'topk' push keeps per tensor.
     topk_frac: float = 0.01
+    # Device-resident push codec (ops/device_codec.py, K1 on a card):
+    # quantize/pack on the worker's device and pull only the packed wire
+    # bytes. Bit-identical to the NumPy compress_push; engages when a
+    # quantized codec was negotiated. False forces the NumPy encode.
+    device_codec: bool = True
     device: str = "cuda"
     # Host->device input double buffering: this many batches' uploads in
     # flight ahead of the step (train/device_loop.py prefetch_to_device);
@@ -420,8 +425,11 @@ class _CommsPipeline:
         self._raise_if_failed()
         # Start the device->host copies of an uncompressed or fp16 push
         # NOW, on the training thread, in program order; a DevicePayload
-        # started its own copies at encode time.
-        if grads is not None and not isinstance(grads, DevicePayload):
+        # started its own copies at encode time, and a device-resident
+        # store takes the tensors themselves.
+        if grads is not None and not isinstance(grads, DevicePayload) \
+                and not getattr(self._worker.store, "keeps_device_arrays",
+                                False):
             grads = _stage_to_host(grads)
         self._item = (grads, fetched_step, prefetch_current,
                       current_wire_trace())
@@ -500,6 +508,8 @@ class PSWorker(threading.Thread):
         self._done = threading.Event()
         self._bitwidth: _BitwidthController | None = None
         self._device_codec: DeviceCodec | None = None
+        # The NumPy encode's error-feedback residuals (device_codec=False).
+        self._ef: ErrorFeedback | None = None
         self._prev_push_done: float | None = None
         self._goodput: GoodputAccount | None = None
         self._tm_reconnect = None  # created at _init_telemetry
@@ -677,9 +687,17 @@ class PSWorker(threading.Thread):
         codec = self.store.push_codec
         if codec in QUANTIZED_PUSH_CODECS:
             self._bitwidth = _BitwidthController(codec)
-            self._device_codec = DeviceCodec(
-                error_feedback=cfg.error_feedback,
-                topk_frac=cfg.topk_frac, device=self.device)
+            if cfg.device_codec:
+                self._device_codec = DeviceCodec(
+                    error_feedback=cfg.error_feedback,
+                    topk_frac=cfg.topk_frac, device=self.device)
+            elif cfg.error_feedback:
+                self._ef = ErrorFeedback()
+        if getattr(self.store, "keeps_device_arrays", False) \
+                and self.store.device != self.device:
+            raise ValueError(
+                f"the device store keeps its params on "
+                f"{self.store.device}; this worker trains on {self.device}")
         if cfg.heartbeat_interval > 0:
             threading.Thread(target=self._heartbeat_loop,
                              args=(cfg.heartbeat_interval,),
@@ -1072,9 +1090,14 @@ class PSWorker(threading.Thread):
                 # In-process compressed fetch (a RemoteStore decompressed
                 # it already).
                 flat = fp16_decompress(flat)
-            self._tm_fetch_post.inc(
-                sum(int(np.asarray(v).nbytes) for v in flat.values()))
-            params = self._upload(flat)
+            if getattr(self.store, "keeps_device_arrays", False):
+                # The store's tensors, already on this device: no bytes
+                # moved, none counted.
+                params = flat
+            else:
+                self._tm_fetch_post.inc(
+                    sum(int(np.asarray(v).nbytes) for v in flat.values()))
+                params = self._upload(flat)
         self._last_fetched_step = fetched_step
         return params, fetched_step
 
@@ -1122,44 +1145,62 @@ class PSWorker(threading.Thread):
         if pipe is not None and threading.current_thread() is pipe._thread:
             self._tm_d2h_saved.observe(seconds)
 
+    def _encode_for_wire(self, grads) -> dict:
+        """The push's wire payload (NumPy arrays), with the push-byte
+        counters."""
+        t0 = _tnow()
+        payload = grads if isinstance(grads, DevicePayload) \
+            else None if isinstance(grads, _StagedGrads) \
+            else self._encode_device(grads)
+        if payload is not None:
+            # Quantize/pack ran on the worker's device against the
+            # store's shared scales, with error feedback; finalize
+            # waits for the wire bytes' copy to the host.
+            t1 = _tnow()
+            flat = self._device_codec.finalize(payload)
+            self._note_d2h_overlap(_tnow() - t1)
+            self._tm_codec_s.observe(payload.encode_seconds
+                                     + _tnow() - t1)
+            pre_bytes = payload.pre_bytes
+        else:
+            # fp16 or uncompressed push: the reference's host cast
+            # (worker.py:264-268); a quantized push with device_codec
+            # off: the NumPy encode.
+            staged = grads if isinstance(grads, _StagedGrads) \
+                else _stage_to_host(grads)
+            flat = staged.numpy()
+            self._note_d2h_overlap(_tnow() - t0)
+            pre_bytes = sum(int(v.nbytes) for v in flat.values())
+            codec = self.store.push_codec
+            t1 = _tnow()
+            if codec == "fp16":
+                flat = fp16_compress(flat)
+                self._tm_codec_s.observe(_tnow() - t1)
+            elif codec in QUANTIZED_PUSH_CODECS:
+                flat = compress_push(
+                    flat, self._bitwidth.plan(flat),
+                    scales=self._gradient_scales(), ef=self._ef,
+                    topk_frac=self.config.topk_frac)
+                self._tm_codec_s.observe(_tnow() - t1)
+        wire_bytes = sum(int(v.nbytes) for v in flat.values())
+        self._tm_push_pre.inc(pre_bytes)
+        self._tm_push_wire.inc(wire_bytes)
+        self._tm_push_saved.inc(max(0, pre_bytes - wire_bytes))
+        if pre_bytes:
+            self._tm_push_bits.set(
+                round(wire_bytes * 32.0 / pre_bytes, 3))
+        return flat
+
     def _push(self, worker_id: int, grads, fetched_step: int) -> None:
         """Encode (unless done at dispatch) and push. ``grads`` is a dict
         of tensors, a DevicePayload encoded at dispatch, or gradients
-        whose host copies were started at dispatch."""
+        whose host copies were started at dispatch. A device-resident
+        store takes the tensors untouched: no host round trip, no wire,
+        no codec."""
         with trace_span("worker.codec", stage="encode"), self._gp("codec"):
-            t0 = _tnow()
-            payload = grads if isinstance(grads, DevicePayload) \
-                else None if isinstance(grads, _StagedGrads) \
-                else self._encode_device(grads)
-            if payload is not None:
-                # Quantize/pack ran on the worker's device against the
-                # store's shared scales, with error feedback; finalize
-                # waits for the wire bytes' copy to the host.
-                t1 = _tnow()
-                flat = self._device_codec.finalize(payload)
-                self._note_d2h_overlap(_tnow() - t1)
-                self._tm_codec_s.observe(payload.encode_seconds
-                                         + _tnow() - t1)
-                pre_bytes = payload.pre_bytes
-            else:
-                # fp16 or uncompressed push: the reference's host cast
-                # (worker.py:264-268).
-                staged = grads if isinstance(grads, _StagedGrads) \
-                    else _stage_to_host(grads)
-                flat = staged.numpy()
-                self._note_d2h_overlap(_tnow() - t0)
-                pre_bytes = sum(int(v.nbytes) for v in flat.values())
-                if self.store.push_codec == "fp16":
-                    t1 = _tnow()
-                    flat = fp16_compress(flat)
-                    self._tm_codec_s.observe(_tnow() - t1)
-            wire_bytes = sum(int(v.nbytes) for v in flat.values())
-            self._tm_push_pre.inc(pre_bytes)
-            self._tm_push_wire.inc(wire_bytes)
-            self._tm_push_saved.inc(max(0, pre_bytes - wire_bytes))
-            if pre_bytes:
-                self._tm_push_bits.set(
-                    round(wire_bytes * 32.0 / pre_bytes, 3))
+            flat = grads if getattr(self.store, "keeps_device_arrays",
+                                    False) \
+                else self._encode_for_wire(grads)
         t0 = _tnow()
         if self.store.push(worker_id, flat, fetched_step):
             self.result.pushes_accepted += 1

@@ -7,7 +7,10 @@ plots (baseline_training.py:201-260) — on one card. Each epoch runs either
 as a per-batch host loop (the reference's DataLoader shape, host batches
 uploaded ahead of the step by ``prefetch_to_device``) or, with
 ``device_loop=True``, over the device-resident dataset with each step one
-CUDA-graph replay (``train/device_loop.py``).
+CUDA-graph replay (``train/device_loop.py``). With a checkpoint directory
+the train state and the generator are saved each epoch, and a resume
+copies them back into the same tensors (the graph's), so the resumed run
+is the uninterrupted one.
 """
 
 from __future__ import annotations
@@ -170,12 +173,23 @@ class BaselineTrainer:
               emit_metrics: bool = False,
               checkpoint_dir: str | None = None,
               resume: bool = False) -> TrainingMetrics:
-        if checkpoint_dir or resume:
-            raise NotImplementedError(
-                "BaselineTrainer checkpoints (torch.save of the train "
-                "state) come with the checkpoint slice")
         cfg = self.config
-        for epoch in range(1, cfg.num_epochs + 1):
+        mgr = None
+        start_epoch = 1
+        if checkpoint_dir:
+            from ..checkpoint import CheckpointManager
+            mgr = CheckpointManager(checkpoint_dir)
+            if resume and mgr.latest_step() is not None:
+                # Copied into the state's tensors and the generator in
+                # place: a captured epoch loop replays over them.
+                self.state = mgr.restore(self.state)
+                self._gen.set_state(mgr.restore_extra()["generator"])
+                step = self.state.step
+                steps_per_epoch = max(
+                    1, len(self.dataset.x_train) // cfg.batch_size)
+                start_epoch = step // steps_per_epoch + 1
+                print(f"resumed from step {step} (epoch {start_epoch})")
+        for epoch in range(start_epoch, cfg.num_epochs + 1):
             t0 = time.perf_counter()
             if self._device_loop is not None:
                 self.state, em = self._device_loop.run_epoch(self.state)
@@ -191,6 +205,11 @@ class BaselineTrainer:
             print(f"epoch {epoch}/{cfg.num_epochs}: loss {loss:.4f} "
                   f"train {train_acc:.2f}% test {test_acc:.2f}% "
                   f"({dt:.1f}s)")
+            if mgr is not None:
+                mgr.save(self.state,
+                         extra={"generator": self._gen.get_state()})
+        if mgr is not None:
+            mgr.close()
         if plot_path:
             self.metrics.plot_results(plot_path)
         if emit_metrics:

@@ -3,15 +3,19 @@ package's ``train/distributed.py``).
 
 :class:`SyncTrainer` is sync data parallelism: N logical workers are the N
 slots of a mesh on one card, one step per global batch
-(``parallel/sync_dp.py``), no server. :class:`AsyncTrainer` wires the
-host-NumPy ParameterStore to N worker threads on the card (ps/worker.py),
-reproducing the reference's async_Nworkers experiment configs
-(EXPERIMENT_GUIDE.md:95-111). Both emit the METRICS_JSON lines the
-reference's ETL expects.
+(``parallel/sync_dp.py``), no server. :class:`AsyncTrainer` wires a
+parameter store (``store_backend``: the host-NumPy ParameterStore, or the
+device-resident DeviceParameterStore) to N worker threads on the card
+(ps/worker.py), reproducing the reference's async_Nworkers experiment
+configs (EXPERIMENT_GUIDE.md:95-111). Both emit the METRICS_JSON lines
+the reference's ETL expects. The sync trainer checkpoints its train state
+each epoch (``CheckpointManager``); the async trainer snapshots its store
+periodically (``PeriodicStoreCheckpointer``).
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 
@@ -34,7 +38,7 @@ from .train_state import create_train_state
 
 @dataclass
 class DistributedConfig:
-    mode: str = "async"            # SERVER_MODE (server.py:407-417)
+    mode: str = "sync"             # SERVER_MODE (server.py:407-417)
     num_workers: int = 4           # TOTAL_WORKERS_EXPECTED
     learning_rate: float = 0.1     # server lr (server.py:413)
     num_epochs: int = 3            # worker.py:466 default
@@ -43,6 +47,7 @@ class DistributedConfig:
     k_step_mode: str = "faithful"
     staleness_bound: int = 5       # server.py:418
     compression: str = "bf16"      # sync all-reduce dtype
+    strict_rounds: bool = False    # corrected sync rounds (vs quirk 3)
     elastic: bool = False          # elastic membership (StoreConfig.elastic)
     worker_timeout: float | None = None  # liveness expiry (seconds)
     # The PS worker's options (ps/worker.py WorkerConfig fields of the same
@@ -52,6 +57,9 @@ class DistributedConfig:
     local_lr: float | None = None
     heartbeat_interval: float = 0.0
     reconnect_timeout: float = 0.0
+    # Async store backend: 'python' (host NumPy) or 'device' (params on
+    # the card: zero host-link bytes a worker step); 'native' (the C++
+    # arena) comes with ROADMAP §1 item 9.
     store_backend: str = "python"
     augment: bool = True
     num_classes: int = 100
@@ -73,7 +81,7 @@ class DistributedConfig:
 class SyncTrainer:
     """Sync data-parallel training over the N worker slots of one card (no
     server process). Multi-host jobs and the multi-card mesh come with the
-    multi-card slice; train-state checkpoints with the checkpoint slice."""
+    multi-card slice."""
 
     def __init__(self, dataset: Dataset,
                  config: DistributedConfig | None = None):
@@ -115,13 +123,26 @@ class SyncTrainer:
     def train(self, emit_metrics: bool = False,
               checkpoint_dir: str | None = None,
               resume: bool = False) -> dict:
-        if checkpoint_dir or resume:
-            raise NotImplementedError(
-                "SyncTrainer checkpoints (torch.save of the train state) "
-                "come with the checkpoint slice")
         cfg = self.config
         global_batch = cfg.batch_size * cfg.num_workers
         seed = cfg.seed + 1
+
+        # A checkpoint a epoch; a resume copies the newest into the state
+        # and skips the epochs it covers (the step seeds the augment draws
+        # and the ring's, so the resumed run is the uninterrupted one).
+        mgr = None
+        start_epoch = 0
+        if checkpoint_dir:
+            from ..checkpoint import CheckpointManager
+            mgr = CheckpointManager(checkpoint_dir)
+            if resume and mgr.latest_step() is not None:
+                self.state = mgr.restore(self.state)
+                steps_per_epoch = max(
+                    1, len(self.dataset.x_train) // global_batch)
+                self.global_steps = int(self.state.step)
+                start_epoch = self.global_steps // steps_per_epoch
+                print(f"resumed from step {self.global_steps} "
+                      f"(epoch {start_epoch + 1})")
 
         from ..telemetry import (GoodputAccount, get_registry,
                                  now as _tnow, trace_span)
@@ -141,7 +162,7 @@ class SyncTrainer:
         t_start = time.time()
         per_worker_epochs = []   # per epoch: {"loss": [N], "accuracy": [N]}
         replicas = []
-        for epoch in range(cfg.num_epochs):
+        for epoch in range(start_epoch, cfg.num_epochs):
             t0 = time.time()
             losses, wl, wa = [], [], []
             for xb, yb in make_batches(self.dataset.x_train,
@@ -184,8 +205,13 @@ class SyncTrainer:
             print(f"[sync x{cfg.num_workers}] epoch {epoch + 1}: "
                   f"loss {mean_loss:.4f} test {acc:.2%} "
                   f"({self.epoch_times[-1]:.1f}s)")
+            if mgr is not None:
+                with gp.span("checkpoint"):
+                    mgr.save(self.state)
             gp.tick_wall()
         total = time.time() - t_start
+        if mgr is not None:
+            mgr.close()
         if replicas:
             self.ring_replicas_identical = bool(torch.stack(replicas).all())
 
@@ -254,7 +280,8 @@ class SyncTrainer:
 
 
 class AsyncTrainer:
-    """Async bounded-staleness training: host store + N worker threads."""
+    """Async bounded-staleness training: a parameter store (by
+    ``store_backend``) + N worker threads."""
 
     def __init__(self, dataset: Dataset,
                  config: DistributedConfig | None = None):
@@ -272,8 +299,10 @@ class AsyncTrainer:
             StoreConfig(mode=cfg.mode, total_workers=cfg.num_workers,
                         learning_rate=cfg.learning_rate,
                         staleness_bound=cfg.staleness_bound,
+                        strict_rounds=cfg.strict_rounds,
                         elastic=cfg.elastic,
-                        worker_timeout=cfg.worker_timeout))
+                        worker_timeout=cfg.worker_timeout),
+            device=cfg.device)
 
     def _worker_config(self) -> WorkerConfig:
         cfg = self.config
@@ -294,11 +323,32 @@ class AsyncTrainer:
                             augment=cfg.augment, seed=cfg.seed,
                             device=cfg.device)
 
-    def train(self, emit_metrics: bool = False) -> dict:
+    def train(self, emit_metrics: bool = False,
+              checkpoint_dir: str | None = None,
+              resume: bool = False,
+              checkpoint_interval: float = 30.0) -> dict:
+        """Run the workers to the end. With ``checkpoint_dir``, the store
+        is snapshotted every ``checkpoint_interval`` seconds and once at
+        the end; ``resume`` first restores the newest snapshot there."""
         cfg = self.config
         wc = self._worker_config()
-        self.results = run_workers(self.store, self.model, self.dataset,
-                                   cfg.num_workers, wc)
+        ckpt = None
+        if checkpoint_dir:
+            from ..checkpoint import (PeriodicStoreCheckpointer,
+                                      restore_store)
+            if resume and os.path.isdir(checkpoint_dir) and any(
+                    f.endswith(".npz") for f in os.listdir(checkpoint_dir)):
+                step = restore_store(self.store, checkpoint_dir)
+                print(f"resumed store from global step {step}")
+            ckpt = PeriodicStoreCheckpointer(self.store, checkpoint_dir,
+                                             interval=checkpoint_interval)
+            ckpt.start()
+        try:
+            self.results = run_workers(self.store, self.model,
+                                       self.dataset, cfg.num_workers, wc)
+        finally:
+            if ckpt is not None:
+                ckpt.stop(final_snapshot=True)
         server_metrics = self.store.metrics()
         if emit_metrics:
             emit_metrics_json(server_metrics)

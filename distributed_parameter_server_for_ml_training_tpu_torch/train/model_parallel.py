@@ -87,14 +87,26 @@ class _EpochTrainer:
     def train(self, emit_metrics: bool = False,
               checkpoint_dir: str | None = None,
               resume: bool = False) -> dict:
-        if checkpoint_dir or resume:
-            raise NotImplementedError(
-                f"{type(self).__name__} checkpoints (torch.save of the train "
-                f"state) come with the checkpoint slice")
         cfg = self.config
         gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
+        # A checkpoint a epoch (the state and the augment generator); a
+        # resume copies the newest back and skips the epochs it covers.
+        mgr = None
+        start_epoch = 0
+        if checkpoint_dir:
+            from ..checkpoint import CheckpointManager
+            mgr = CheckpointManager(checkpoint_dir)
+            if resume and mgr.latest_step() is not None:
+                self.state = mgr.restore(self.state)
+                gen.set_state(mgr.restore_extra()["generator"])
+                steps_per_epoch = max(
+                    1, len(self.dataset.x_train) // cfg.batch_size)
+                self.global_steps = int(self.state.step)
+                start_epoch = self.global_steps // steps_per_epoch
+                print(f"resumed from step {self.global_steps} "
+                      f"(epoch {start_epoch + 1})")
         t_start = time.time()
-        for epoch in range(cfg.num_epochs):
+        for epoch in range(start_epoch, cfg.num_epochs):
             t0 = time.time()
             losses = []
             for xb, yb in make_batches(self.dataset.x_train,
@@ -112,7 +124,11 @@ class _EpochTrainer:
             self.test_accuracies.append(acc)
             print(f"[{self._label()}] epoch {epoch + 1}: loss {mean_loss:.4f} "
                   f"test {acc:.2%} ({self.epoch_times[-1]:.1f}s)")
+            if mgr is not None:
+                mgr.save(self.state, extra={"generator": gen.get_state()})
         total = time.time() - t_start
+        if mgr is not None:
+            mgr.close()
         metrics = {
             "mode": self.mode,
             "total_workers": cfg.num_workers,

@@ -7,6 +7,8 @@ and two epochs of ``BaselineTrainer`` within atol 1e-4 (the frameworks
 order the convolution sums differently), fp32 and augment off, on the
 tiny ResNet of the other port tests."""
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -243,16 +245,21 @@ def test_baseline_trainer_plain_sgd_and_vit():
     assert len(m.train_losses) == 1 and np.isfinite(m.train_losses[0])
 
 
-def test_baseline_trainer_refuses_checkpoints():
+def test_baseline_trainer_checkpoints_each_epoch(tmp_path):
+    """A checkpoint per epoch, at the state's step; ``resume`` over an
+    empty directory starts fresh, and without one it is ignored, as in
+    JAX."""
+    from distributed_parameter_server_for_ml_training_tpu_torch \
+        .checkpoint import CheckpointManager
     ds = compositional_cifar100(64, 16, num_classes=10)
     t = BaselineTrainer(ds, BaselineConfig(
         batch_size=32, num_epochs=1, num_classes=10, dtype="float32",
         device="cpu"), model=ResNet(stage_sizes=(1, 1), num_filters=8,
                                     num_classes=10))
-    with pytest.raises(NotImplementedError, match="checkpoint slice"):
-        t.train(checkpoint_dir="ckpt")
-    with pytest.raises(NotImplementedError, match="checkpoint slice"):
-        t.train(resume=True)
+    t.train(checkpoint_dir=str(tmp_path), resume=True)
+    assert CheckpointManager(str(tmp_path)).steps() == [2]
+    t.train(resume=True)
+    assert t.state.step == 4
 
 
 def test_cli_train_baseline_on_cpu(capsys):
@@ -270,13 +277,26 @@ def test_cli_train_baseline_on_cpu(capsys):
     assert np.isfinite(row["final_train_loss"])
 
 
-@pytest.mark.parametrize("flag", [["--checkpoint-dir", "ckpt"],
-                                  ["--resume"]])
-def test_cli_baseline_checkpoint_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="checkpoint slice"):
-        cli.main(["train", "--mode", "baseline", "--epochs", "1",
-                  "--synthetic", "--num-train", "32", "--num-test", "16",
-                  "--batch-size", "16", "--device", "cpu", *flag])
+@pytest.mark.parametrize("flag", [["--checkpoint-dir"], ["--resume"]])
+def test_cli_baseline_checkpoint_flags(flag, tmp_path, monkeypatch, capsys):
+    """``--checkpoint-dir`` leaves an epoch's checkpoint; ``--resume``
+    with it continues from there (a tiny ResNet stands in)."""
+    from distributed_parameter_server_for_ml_training_tpu_torch import \
+        models as port_models
+    monkeypatch.setattr(port_models, "get_model", lambda *a, **kw: ResNet(
+        stage_sizes=(1, 1), num_filters=8, num_classes=10))
+    monkeypatch.setattr(cli, "_load_dataset",
+                        lambda args: compositional_cifar100(32, 16, 10))
+    argv = ["train", "--mode", "baseline", "--epochs", "1", "--synthetic",
+            "--num-train", "32", "--num-test", "16", "--batch-size", "16",
+            "--device", "cpu", "--checkpoint-dir", str(tmp_path)]
+    assert cli.main(argv) == 0
+    if flag == ["--resume"]:
+        assert cli.main([*argv[:4], "2", *argv[5:], "--resume"]) == 0
+        assert "resumed from step 2 (epoch 2)" in capsys.readouterr().out
+    assert sorted(os.listdir(tmp_path)) == (
+        ["ckpt_00000002.pt"] if flag == ["--checkpoint-dir"]
+        else ["ckpt_00000002.pt", "ckpt_00000004.pt"])
 
 
 def test_baseline_config_defaults_match_jax():

@@ -70,8 +70,8 @@ def test_cli_train_sync_on_cpu(capsys, compression):
 
 
 def test_sync_trainer_waits_for_its_slice():
-    """Sync mode is ported; its checkpoints and multi-card meshes wait for
-    their slices and say so."""
+    """Sync mode is ported; its multi-card meshes wait for their slice and
+    say so."""
     from distributed_parameter_server_for_ml_training_tpu_torch.data import \
         synthetic_cifar100
     from distributed_parameter_server_for_ml_training_tpu_torch.parallel \
@@ -80,9 +80,7 @@ def test_sync_trainer_waits_for_its_slice():
         .distributed import SyncTrainer
     cfg = DistributedConfig(mode="sync", device="cpu", num_workers=2)
     assert cfg.compression == "bf16"
-    trainer = SyncTrainer(synthetic_cifar100(n_train=16, n_test=8), cfg)
-    with pytest.raises(NotImplementedError, match="checkpoint slice"):
-        trainer.train(checkpoint_dir="ckpt")
+    SyncTrainer(synthetic_cifar100(n_train=16, n_test=8), cfg)
     with pytest.raises(NotImplementedError, match="multi-card slice"):
         make_mesh(2, ["cuda:0", "cuda:1"])
     with pytest.raises(ValueError):

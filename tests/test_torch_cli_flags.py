@@ -109,3 +109,30 @@ def test_train_async_flags_reach_store_and_worker(monkeypatch):
     # With expiry on and no --heartbeat, workers ping at a third of the
     # timeout, as the JAX trainer does.
     assert wc.heartbeat_interval == 3.0
+
+
+def test_train_async_device_store_checkpoints_and_resumes(tmp_path,
+                                                          capsys):
+    """``train --mode async --store-backend device --checkpoint-dir D``
+    runs over the device-resident store (on the CPU here) and leaves a
+    store snapshot; ``--resume`` continues from its step;
+    ``--strict-rounds`` reaches the store's config."""
+    from distributed_parameter_server_for_ml_training_tpu_torch \
+        .checkpoint import load_store_record
+    from distributed_parameter_server_for_ml_training_tpu_torch.utils \
+        .metrics import parse_metrics_lines
+    argv = ["train", "--mode", "async", "--workers", "2", "--epochs", "1",
+            "--batch-size", "16", "--synthetic", "--num-train", "64",
+            "--num-test", "16", "--device", "cpu", "--store-backend",
+            "device", "--strict-rounds", "--checkpoint-dir", str(tmp_path),
+            "--emit-metrics"]
+    assert cli.main(argv) == 0
+    assert load_store_record(str(tmp_path))[1]["global_step"] == 4
+    assert cli.main([*argv, "--resume"]) == 0
+    out = capsys.readouterr().out
+    assert "resumed store from global step 4" in out
+    servers = [r for r in parse_metrics_lines(out) if "store_backend" in r]
+    assert [r["store_backend"] for r in servers] == ["device", "device"]
+    assert [r["global_steps_completed"] for r in servers] == [4, 8]
+    meta = load_store_record(str(tmp_path))[1]
+    assert meta["global_step"] == 8 and meta["aggregation"]["strict_rounds"]

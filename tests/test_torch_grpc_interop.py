@@ -303,12 +303,10 @@ def test_cli_serve_and_two_cli_workers(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["serve", "--checkpoint-dir", "ckpt"], "item 5"),
-    (["serve", "--restore"], "item 5"),
     (["serve", "--faults", "seed=7"], "item 9"),
     (["serve", "--jobs", "a:weight=1"], "item 9"),
-    (["serve", "--store-backend", "native"], "items 4 and 9"),
-    (["serve", "--store-backend", "device"], "items 4 and 9"),
+    (["serve", "--store-backend", "native"], "item 9"),
+    (["train", "--store-backend", "native", "--device", "cpu"], "item 9"),
     (["worker", "--shards", "h:1,h:2", "--device", "cpu"], "item 9"),
     (["worker", "--job", "vision", "--device", "cpu"], "item 9"),
     (["worker", "--faults", "seed=7", "--device", "cpu"], "item 9"),
@@ -317,6 +315,21 @@ def test_cli_flags_of_later_slices_are_refused(argv, item):
     from distributed_parameter_server_for_ml_training_tpu_torch import cli
     with pytest.raises(NotImplementedError, match=f"ROADMAP §1 {item}"):
         cli.main(argv)
+
+
+@pytest.mark.parametrize("argv", [
+    ["serve", "--checkpoint-dir", "ckpt"],
+    ["serve", "--checkpoint-dir", "ckpt", "--restore"],
+    ["serve", "--store-backend", "device"],
+], ids=lambda v: "_".join(v))
+def test_cli_checkpoint_and_device_store_flags_are_served(argv):
+    """The flags of ROADMAP §1 items 4 and 5 pass the later-slice check;
+    ``--restore`` without a directory is refused as in JAX."""
+    from distributed_parameter_server_for_ml_training_tpu_torch import cli
+    cli._refuse_later_flags(cli.build_parser().parse_args(argv))
+    if "--restore" in argv:
+        with pytest.raises(SystemExit, match="needs --checkpoint-dir"):
+            cli.main(["serve", "--restore"])
 
 
 def test_cli_serves_and_trains_only_resnet18():

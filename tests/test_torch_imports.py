@@ -3,6 +3,7 @@ package, and never continues on the CPU when CUDA is asked for."""
 
 import ast
 import pathlib
+import re
 import subprocess
 
 import pytest
@@ -50,7 +51,9 @@ def test_port_files_exist():
                      "models/vit.py", "train/model_parallel.py",
                      "train/baseline.py", "train/device_loop.py",
                      "comms/__init__.py", "comms/wire.py",
-                     "comms/service.py", "comms/client.py"):
+                     "comms/service.py", "comms/client.py",
+                     "ps/device_store.py", "telemetry/journal.py",
+                     "checkpoint/__init__.py", "checkpoint/manager.py"):
         assert required in names, required
     for kernel in ("wire_quantize.cu", "block_quantize.cu",
                    "flash_attention.cu"):
@@ -234,28 +237,42 @@ def test_sp_entry_points_default_to_cuda():
                   "--num-train", "4", "--num-test", "4"])
 
 
-def test_later_flags_name_only_items_4_5_and_9():
-    """The CLI refuses only the flags of ROADMAP §1 items 4, 5 and 9; the
-    store options and worker modes of item 3 are accepted."""
+def test_later_flags_name_only_items_8_and_9():
+    """The CLI refuses only the flags of ROADMAP §1 item 9 (the service's
+    refusals name items 8 and 9); the store options and worker modes of
+    item 3, the device store of item 4 and the checkpoints of item 5 are
+    accepted, and ``--store-backend native`` is refused naming item 9."""
     from distributed_parameter_server_for_ml_training_tpu_torch import cli
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms \
+        import client, service
     items = set()
     for where in cli.LATER_FLAGS.values():
         items |= {int(n) for n in
                   where.split("item", 1)[1].split("(")[0].replace(
                       "s ", " ").replace("and", ",").split(",")
                   if n.strip()}
-    assert items <= {4, 5, 9}
-    assert set(cli.LATER_FLAGS) == {"checkpoint_dir", "restore", "faults",
-                                    "jobs", "job", "shards",
+    assert items <= {8, 9}
+    for text in (*service.LATER.values(), *client._LATER.values()):
+        assert {int(n) for n in re.findall(r"item (\d+)", text)} \
+            <= {8, 9}, text
+    assert set(cli.LATER_FLAGS) == {"faults", "jobs", "job", "shards",
                                     "store_backend"}
     parser = cli.build_parser()
     for argv in (["serve", "--fetch-codec", "bf16", "--elastic",
                   "--worker-timeout", "30", "--sync-quorum", "2",
                   "--round-deadline", "5"],
+                 ["serve", "--store-backend", "device", "--checkpoint-dir",
+                  "d", "--checkpoint-interval", "5", "--restore"],
                  ["worker", "--k-step-mode", "local_sgd", "--local-lr",
                   "0.1", "--overlap", "--heartbeat", "2",
                   "--reconnect-timeout", "60"],
                  ["train", "--mode", "async", "--k-step-mode", "local_sgd",
                   "--overlap", "--heartbeat", "1", "--reconnect-timeout",
-                  "9", "--elastic", "--worker-timeout", "3"]):
+                  "9", "--elastic", "--worker-timeout", "3",
+                  "--store-backend", "device", "--strict-rounds",
+                  "--checkpoint-dir", "d", "--resume"]):
         cli._refuse_later_flags(parser.parse_args(argv))
+    for verb in ("serve", "train"):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            cli._refuse_later_flags(parser.parse_args(
+                [verb, "--store-backend", "native"]))

@@ -4,9 +4,12 @@ built once, goes straight into the handler methods (``ctx=None``) of a JAX
 ``ParameterService`` and of the port's, each over its own store built from
 the same NumPy params. Every reply must be equal byte for byte and the two
 stores' snapshots bit-equal afterwards — also for an elastic store with a
-``worker_timeout`` and bf16 fetches, under a scripted clock; the parts of
-the JAX service this slice leaves out are refused, naming their ROADMAP
-item."""
+``worker_timeout`` and bf16 fetches, under a scripted clock, and for
+device-resident stores (the JAX ``DeviceParameterStore`` on the CPU, the
+port's with ``device="cpu"``); the push-token journal a checkpoint
+persists is the JAX service's, and a service that loads it answers a
+retry as a duplicate; the parts of the JAX service this slice leaves out
+are refused, naming their ROADMAP item."""
 
 import threading
 import time
@@ -20,10 +23,14 @@ from distributed_parameter_server_for_ml_training_tpu.comms.wire import \
     encode_tensor_dict as jax_encode
 from distributed_parameter_server_for_ml_training_tpu.ops.compression \
     import compress_push as jax_compress_push, fp16_compress
+from distributed_parameter_server_for_ml_training_tpu.ps.device_store \
+    import DeviceParameterStore as JaxDeviceStore
 from distributed_parameter_server_for_ml_training_tpu.ps.store import (
     ParameterStore as JaxStore, StoreConfig as JaxConfig)
 from distributed_parameter_server_for_ml_training_tpu_torch.comms import \
     service as PS
+from distributed_parameter_server_for_ml_training_tpu_torch.ps \
+    .device_store import DeviceParameterStore
 from distributed_parameter_server_for_ml_training_tpu_torch.ps.store import (
     ParameterStore, StoreConfig)
 
@@ -48,6 +55,8 @@ def _grads(seed: int, codec: str) -> dict:
          for k, s in SHAPES.items()}
     if codec == "fp16":
         return fp16_compress(g)
+    if codec == "none":
+        return g
     return jax_compress_push(g, {k: "int8" for k in g})
 
 
@@ -304,15 +313,13 @@ def test_unported_service_options_are_refused(kwarg, item):
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda s: s.journal_snapshot(), "item 5"),
-    (lambda s: s.load_journal([]), "item 5"),
     (lambda s: s.quarantine(0, 1.0), "item 8"),
     (lambda s: s.post_directive(0, "drain"), "item 8"),
     (lambda s: s.reshard(JS.pack_msg({"op": "status"}), None), "item 9"),
     (lambda s: s.submit_job(JS.pack_msg({}), None), "item 9"),
     (lambda s: PS.WeightedFairAdmission(None), "item 9")],
-    ids=["journal_snapshot", "load_journal", "quarantine", "post_directive",
-         "reshard", "submit_job", "admission"])
+    ids=["quarantine", "post_directive", "reshard", "submit_job",
+         "admission"])
 def test_unported_service_parts_are_refused(call, item):
     svc = PS.ParameterService(ParameterStore(_params(),
                                              StoreConfig(total_workers=1)))
@@ -324,3 +331,59 @@ def test_port_store_declares_the_jax_capability_flags():
     for flag in ("supports_delta_fetch", "supports_compressed_domain"):
         assert getattr(ParameterStore, flag) is getattr(JaxStore, flag) \
             is True
+
+
+@pytest.mark.parametrize("mode", ["sync", "async"])
+def test_device_store_replies_equal_byte_for_byte(mode, capsys):
+    """The scripted sequence (fp32 pushes: a device store takes no codec)
+    into a JAX service over a JAX ``DeviceParameterStore`` and the port's
+    over its own, on the CPU: every reply byte-equal (the port's fetch
+    brings the params to the host), the stores bit-equal after."""
+    requests = script("none")
+    jax_store = JaxDeviceStore(_params(), JaxConfig(
+        mode=mode, total_workers=2, staleness_bound=5))
+    port_store = DeviceParameterStore(_params(), StoreConfig(
+        mode=mode, total_workers=2, staleness_bound=5), device="cpu")
+    want = _run(JS.ParameterService(jax_store), requests)
+    got = _run(PS.ParameterService(port_store), requests)
+    for i, (w, g) in enumerate(zip(want, got)):
+        assert g == w, (i, requests[i][0], PS.unpack_msg(g)[0],
+                        JS.unpack_msg(w)[0])
+    assert PS.unpack_msg(got[0])[0]["push_codec"] == "none"
+    jp, js = jax_store.snapshot()
+    pp, ps = port_store.snapshot()
+    assert ps == js > 0 and list(pp) == list(jp)
+    for k in jp:
+        assert pp[k].tobytes() == jp[k].tobytes(), k
+
+
+@pytest.mark.parametrize("stage", ["journal_snapshot", "load_journal"])
+def test_push_journal_is_the_jax_services(stage, capsys):
+    """``journal_snapshot`` after the scripted sequence equals the JAX
+    service's entry for entry; each service loaded with that journal
+    answers the retry of the last tokened push with the same duplicate
+    reply, applying nothing."""
+    requests = script("int8")
+    jax_svc = JS.ParameterService(JaxStore(_params(), JaxConfig(
+        mode="async", total_workers=2, push_codec="int8")))
+    port_svc = PS.ParameterService(ParameterStore(_params(), StoreConfig(
+        mode="async", total_workers=2, push_codec="int8")))
+    _run(jax_svc, requests)
+    _run(port_svc, requests)
+    journal = jax_svc.journal_snapshot()
+    assert journal and port_svc.journal_snapshot() == journal
+    if stage == "journal_snapshot":
+        return
+    retry = [r for r in requests if r[0] == "push_gradrients"][-2]
+    replies = []
+    for svc_mod, store in (
+            (JS, JaxStore(_params(), JaxConfig(
+                mode="async", total_workers=2, push_codec="int8"))),
+            (PS, ParameterStore(_params(), StoreConfig(
+                mode="async", total_workers=2, push_codec="int8")))):
+        svc = svc_mod.ParameterService(store)
+        assert svc.load_journal(journal + [{"nonce": "x"}]) == len(journal)
+        replies.append(getattr(svc, retry[0])(retry[1], None))
+        assert store.global_step == 0
+    assert replies[0] == replies[1]
+    assert PS.unpack_msg(replies[1])[0]["duplicate"] is True

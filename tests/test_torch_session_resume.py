@@ -4,8 +4,11 @@ started on the same port from ``load_snapshot`` of the old store's
 snapshot. The worker's reconnect state machine re-registers, re-fetches
 at the restored step and re-sends the stranded push under its own token
 (``RemoteStore.repush_last``), serial and through the overlapped
-pipeline; every push is applied exactly once. With resume off a lost
-server still fails the worker, the stranded gradient's fate follows the
+pipeline; every push is applied exactly once. A push the old server
+applied whose reply was lost is answered as a duplicate by a server
+restored with ``restore_server_state`` from a store checkpoint and its
+push-token journal, not applied twice. With resume off a lost server
+still fails the worker, the stranded gradient's fate follows the
 staleness semantics, and a worker riding many resets holds one channel
 at a time."""
 
@@ -107,6 +110,86 @@ def test_worker_resumes_through_a_server_restart(tiny, overlap, capsys):
         assert store2.global_step == 9
         out = capsys.readouterr().out
         assert "RECONNECTED" in out and "inflight=repushed" in out
+    finally:
+        if "server2" in holder:
+            holder["server2"].stop(grace=None)
+        client.close()
+
+
+def test_lost_reply_is_a_duplicate_after_a_journal_restore(tiny, tmp_path,
+                                                          capsys):
+    """The old server applies the worker's 2nd push, then its reply is
+    lost: a snapshot (params and push-token journal) is flushed and the
+    server stopped. A new server on the same port, restored with
+    ``restore_server_state``, answers the worker's retry under the old
+    token as a duplicate: the push is applied once, not twice."""
+    from distributed_parameter_server_for_ml_training_tpu_torch \
+        .checkpoint import PeriodicStoreCheckpointer, restore_server_state
+
+    model, flat = tiny
+    store1 = _store(flat)
+    svc1 = ParameterService(store1)
+    ckpt = PeriodicStoreCheckpointer(store1, str(tmp_path), interval=3600.0,
+                                     journal_fn=svc1.journal_snapshot)
+    ckpt.start()
+    server1, port = serve(store1, port=0, host="127.0.0.1", service=svc1)
+    client = RemoteStore(f"127.0.0.1:{port}", rpc_timeout=5.0,
+                         rpc_retries=1, rpc_backoff=0.05)
+    ds = synthetic_cifar100(n_train=96, n_test=16, num_classes=10)
+    worker = PSWorker(client, model, ds, WorkerConfig(
+        batch_size=16, num_epochs=1, sync_steps=2, augment=False,
+        eval_each_epoch=False, reconnect_timeout=60.0,
+        reconnect_backoff=0.05, device="cpu"))
+    killed, restarted = threading.Event(), threading.Event()
+    holder = {}
+
+    def restart_after_kill():
+        killed.wait(120)
+        time.sleep(0.3)     # the worker's retries see UNAVAILABLE first
+        store2 = _store({k: np.zeros_like(v) for k, v in flat.items()})
+        svc2 = ParameterService(store2)
+        holder["restored"] = restore_server_state(store2, svc2,
+                                                  str(tmp_path))
+        server2, bound = serve(store2, port=port, host="127.0.0.1",
+                               service=svc2)
+        assert bound == port, "could not rebind the old port"
+        holder["server2"], holder["store2"] = server2, store2
+        restarted.set()
+
+    inner_push = client._call["PushGradrients"]
+
+    def push_losing_reply(request, timeout=None):
+        push_losing_reply.calls += 1
+        if push_losing_reply.calls == 2 and not killed.is_set():
+            inner_push(request, timeout=timeout)     # applied ...
+            ckpt.stop(final_snapshot=True)           # ... and journaled
+            server1.stop(grace=None).wait(10)
+            killed.set()
+            # ... but its reply never arrives: the send that answers it
+            # hits the stopped server.
+        return inner_push(request, timeout=timeout)
+
+    push_losing_reply.calls = 0
+    client._call["PushGradrients"] = push_losing_reply
+    t = threading.Thread(target=restart_after_kill, daemon=True)
+    t.start()
+    worker.start()
+    worker.join(timeout=300)
+    t.join(timeout=120)
+    try:
+        assert killed.is_set() and restarted.is_set()
+        assert not worker.is_alive()
+        assert worker.result.error is None, worker.result.error
+        assert worker.result.reconnects == 1
+        # 6 batches, K=2: 3 pushes. The restore holds 2 applies and a
+        # journal entry for the 2nd; its retry is a duplicate, so only
+        # the 3rd applies on the new server.
+        store2 = holder["store2"]
+        assert store2.stats.gradients_processed == 1
+        assert store2.global_step == 3
+        assert worker.result.pushes_accepted == 3
+        step, journaled = holder["restored"]
+        assert step == 2 and journaled >= 1
     finally:
         if "server2" in holder:
             holder["server2"].stop(grace=None)

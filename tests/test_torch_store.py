@@ -5,6 +5,7 @@ timing fields."""
 
 import numpy as np
 import pytest
+import torch
 
 from distributed_parameter_server_for_ml_training_tpu.ops.compression \
     import compress_push as jax_compress
@@ -166,6 +167,13 @@ def test_config_validation_and_backends():
         ParameterStore(_params(), StoreConfig(push_codec="zip"))
     store = make_store("python", _params(), StoreConfig())
     assert store.push_codec == "fp16"          # the reference's default
-    for backend in ("native", "device"):
-        with pytest.raises(NotImplementedError):
-            make_store(backend, _params(), StoreConfig())
+    with pytest.raises(NotImplementedError, match="item 9"):
+        make_store("native", _params(), StoreConfig())
+    store = make_store("device", _params(), StoreConfig(), device="cpu")
+    assert (type(store).__name__, store.store_backend, store.push_codec,
+            store.keeps_device_arrays) == ("DeviceParameterStore",
+                                           "device", "none", True)
+    if not torch.cuda.is_available():
+        # The card unless the CPU is asked for; never the CPU quietly.
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make_store("device", _params(), StoreConfig())

@@ -414,8 +414,6 @@ def test_sync_trainer_on_cpu(capsys):
     rows = parse_metrics_lines(capsys.readouterr().out)
     assert len(rows) == 3 and rows[0]["mode"] == "sync"
     assert all(np.isfinite(r["train_loss_per_epoch"][0]) for r in rows[1:])
-    with pytest.raises(NotImplementedError, match="checkpoint slice"):
-        trainer.train(checkpoint_dir="ckpt")
 
 
 @pytest.mark.cuda

@@ -157,3 +157,22 @@ def test_worker_config_takes_the_jax_fields():
     assert (cfg.local_lr, cfg.reconnect_backoff) == (0.05, 0.1)
     with pytest.raises(ValueError):
         WorkerConfig(device="cpu", prefetch_batches=-1)
+
+
+@pytest.mark.parametrize("codec,cfg_kw", [
+    ("int8", {}), ("int4", {}), ("topk", {}),
+    ("int8", {"overlap": True, "sync_steps": 2,
+              "k_step_mode": "accumulate"})],
+    ids=["int8", "int4", "topk", "int8_overlap"])
+def test_device_codec_off_pushes_the_numpy_encode(setup, codec, cfg_kw):
+    """``device_codec=False`` (the JAX option) encodes each quantized push
+    with the NumPy ``compress_push`` and its own error feedback: the same
+    payloads, byte for byte, as the device codec's plain version."""
+    on, r_on = _run(setup, codec, **cfg_kw)
+    off, r_off = _run(setup, codec, device_codec=False, **cfg_kw)
+    assert r_off.pushes_accepted == r_on.pushes_accepted > 0
+    assert len(off.pushes) == len(on.pushes)
+    for a, b in zip(on.pushes, off.pushes):
+        assert list(a) == list(b)
+        for k in a:
+            assert a[k].tobytes() == b[k].tobytes(), k
