@@ -184,7 +184,34 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    cuDNN) for 2 epochs of 2,048 images with a checkpoint each epoch; a
    fresh trainer restored from epoch 1 (copied into the tensors its graph
    replays over) must end epoch 2 with params, momentum, BatchNorm
-   statistics, step and loss bit-equal to the uninterrupted run's.
+   statistics, step and loss bit-equal to the uninterrupted run's;
+18. the cluster health layer on the main path: (a) phase 14 (a)'s run
+   with the port's service wired as ``cli serve --remediate`` wires it (a
+   ``ClusterMonitor`` with the JAX defaults and the SLO evaluator, a
+   ``RemediationEngine`` that is not a dry run, ``reject_nonfinite``). K1's
+   count reset just before and read just after: once a push; both
+   workers in the monitor's view with step, loss, grad norm and push
+   codec ``int8+ef``; every reported grad norm within 1e-4 (relative) of
+   the pushed window's norm recomputed on the card in float64; no health
+   rule fires, no directive is posted, no push is quarantined, and an SLO
+   burn rule fires only where the evaluator's own fetch-latency numbers
+   breach it (reported). Then img/s with the monitor off and on in turns
+   (off, on, on, off; eval off), the health note's host µs a boundary,
+   and the device->host copies it adds a boundary (at most 1) from two
+   profiled runs' memcpy events. (b) The self-heal drill: fp16 pushes,
+   worker 1 poisons its 3rd step with NaN; its push is answered
+   ``accepted: false, quarantined: true`` and never applied, both
+   non-finite rules fire against it alone, the engine quarantines it and
+   posts ``quarantine`` (steps 3) and ``refetch_params``, which it
+   applies, skipping 3 pushes; worker 0's pushes all apply, worker 1's
+   after the windows apply again, every parameter stays finite; the
+   seconds from the NaN push's reply to the directive being applied. (c)
+   One int8 worker with error feedback and deterministic cuDNN gets a
+   ``quarantine`` directive (steps 2) after its 2nd push: the next 2
+   windows push nothing (K1 once a push sent), the device codec's
+   residuals are empty right after the directive, and the first push
+   after it is byte-equal to ``compress_push`` of its gradients under a
+   fresh ``ErrorFeedback`` (and differs from the carried one's).
 
 Then one JSON line of kernels and, last, the device line. Without a CUDA
 device, or outside a checkout of the repo, it exits non-zero and prints
@@ -1953,11 +1980,13 @@ def _rpc_timer(remote, times: dict) -> None:
 
 def _grpc_run(steps_per_worker: int, n_test: int, seed: int,
               eval_each_epoch: bool, record: bool, store_kw=None,
-              worker_kw=None, probe=None):
+              worker_kw=None, probe=None, service=None, worker_kw_of=None):
     """Phase 5's configuration through the port's gRPC service on
     127.0.0.1: the server in this process, 2 ``PSWorker`` threads on the
     card, each through its own ``RemoteStore``. ``store_kw`` and
-    ``worker_kw`` add StoreConfig and WorkerConfig options (phase 15).
+    ``worker_kw`` add StoreConfig and WorkerConfig options (phase 15),
+    ``worker_kw_of(i)`` options of worker i alone (phase 18), and
+    ``service(store)`` builds the service (phase 18: with a monitor).
     With ``record``, the service keeps every push request and fetch
     reply, and the device codec the first gradients of each worker.
     ``probe(workers, done)`` runs on a thread of its own while the
@@ -1975,10 +2004,10 @@ def _grpc_run(steps_per_worker: int, n_test: int, seed: int,
 
     ds, model, store, init = main_path(steps_per_worker, n_test, seed)
     if store_kw:
-        store = ParameterStore(init, StoreConfig(
-            mode="async", total_workers=N_WORKERS, push_codec="int8",
-            staleness_bound=5, **store_kw))
-    svc = ParameterService(store)
+        store = ParameterStore(init, StoreConfig(**{
+            "mode": "async", "total_workers": N_WORKERS,
+            "push_codec": "int8", "staleness_bound": 5, **store_kw}))
+    svc = service(store) if service else ParameterService(store)
     pushes, fetches, first_grads = [], [], {}
     encode = DeviceCodec.encode
     if record:
@@ -2009,10 +2038,11 @@ def _grpc_run(steps_per_worker: int, n_test: int, seed: int,
     remotes = [RemoteStore(f"127.0.0.1:{port}") for _ in range(N_WORKERS)]
     for r in remotes:
         _rpc_timer(r, rpc_ms)
-    cfg = WorkerConfig(batch_size=BATCH, num_epochs=1, device="cuda",
-                       eval_each_epoch=eval_each_epoch, **(worker_kw or {}))
-    workers = [PSWorker(r, model, ds, cfg, worker_name=f"grpc-{i}")
-               for i, r in enumerate(remotes)]
+    workers = [PSWorker(r, model, ds, WorkerConfig(
+        batch_size=BATCH, num_epochs=1, device="cuda",
+        eval_each_epoch=eval_each_epoch, **(worker_kw or {}),
+        **(worker_kw_of(i) if worker_kw_of else {})),
+        worker_name=f"grpc-{i}") for i, r in enumerate(remotes)]
     done = threading.Event()
     prober = threading.Thread(target=probe, args=(workers, done),
                               daemon=True) if probe else None
@@ -2038,7 +2068,8 @@ def _grpc_run(steps_per_worker: int, n_test: int, seed: int,
                                                       for w in workers],
             "remotes": remotes, "wall": wall, "pushes": pushes,
             "fetches": fetches, "first_grads": first_grads,
-            "rpc_ms": rpc_ms, "address": f"127.0.0.1:{port}"}
+            "rpc_ms": rpc_ms, "address": f"127.0.0.1:{port}",
+            "service": svc, "workers": workers}
 
 
 def _grpc_in_process(state: dict) -> None:
@@ -3155,6 +3186,457 @@ def phase_checkpoints(state: dict) -> None:
     _graphed_resume(state)
 
 
+def _health_stack(store, parts: dict, quarantine_s: float = 30.0,
+                  evaluate_on_push: bool = False):
+    """The port's service over ``store`` wired as ``cli serve --remediate``
+    wires it: a ``ClusterMonitor`` with the JAX defaults (5 s tick) and the
+    SLO evaluator, a ``RemediationEngine`` that is not a dry run, and
+    ``reject_nonfinite`` on. ``parts`` receives the monitor, the engine,
+    the service, every alert edge event, the monitor's view as the first
+    worker says goodbye (both workers still members), and, with
+    ``evaluate_on_push``, each push reply and its time; the monitor then
+    also evaluates right after each push (the tick, at the push)."""
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms import \
+        ParameterService
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms \
+        .service import unpack_msg
+    from distributed_parameter_server_for_ml_training_tpu_torch.telemetry \
+        import (ClusterMonitor, RemediationEngine, RemediationPolicy,
+                SloEvaluator)
+
+    monitor = ClusterMonitor(store)
+    monitor.slo = SloEvaluator()
+    # The registry's RPC histograms are process-global and hold earlier
+    # phases' calls: the evaluator's baseline is their state now, stamped
+    # before both burn windows, as a fresh serve process starts from 0.
+    monitor.slo.evaluate(time.time() - monitor.slo.windows[-1].window_s - 1)
+    svc = ParameterService(store, monitor=monitor, reject_nonfinite=True)
+    engine = RemediationEngine(store, service=svc, policy=RemediationPolicy(
+        quarantine_s=quarantine_s))
+    monitor.remediation = engine
+    monitor.add_listener(engine.handle_events)
+    events, views, replies = [], [], []
+    monitor.add_listener(events.extend)
+    goodbye = svc.job_finished
+
+    def job_finished(request, ctx):
+        if not views:
+            views.append(monitor.cluster_view())
+        return goodbye(request, ctx)
+    svc.job_finished = job_finished
+    if evaluate_on_push:
+        push_body = svc.push_gradrients
+
+        def push(request, ctx):
+            wid = int(unpack_msg(request)[0]["worker_id"])
+            # The drill lifts a quarantine whose windows the worker has
+            # served, so its later pushes apply again.
+            if svc.is_quarantined(wid) and any(
+                    w.result.worker_id == wid
+                    and w.result.pushes_quarantined >= 3
+                    for w in parts.get("workers", ())):
+                svc.unquarantine(wid)
+                parts["drill_unquarantined"] = wid
+            reply = push_body(request, ctx)
+            replies.append((wid, unpack_msg(reply)[0], time.perf_counter()))
+            monitor.evaluate()
+            return reply
+        svc.push_gradrients = push
+    parts.update(monitor=monitor, engine=engine, service=svc,
+                 events=events, views=views, replies=replies)
+    monitor.start()
+    return svc
+
+
+def _health_main(state: dict) -> None:
+    """(a) Health on the main path: phase 14 (a)'s run with the monitor,
+    the SLO evaluator and the remediation engine; K1 once a push; every
+    report's grad norm against the pushed window's norm on the card in
+    float64; no alert, directive or quarantine. Then img/s with the
+    monitor off and on in turns, and the device->host copies the note
+    adds a boundary, from two profiled runs' memcpy events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
+        quantize as Q
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps import \
+        worker as W
+
+    notes = []
+    note = W.PSWorker._note_health
+
+    def note_spy(self, loss, grads, epoch, grad_scale=1.0):
+        # Synchronized first, so the time is the note's own, not the
+        # step's compute it would otherwise wait for.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        note(self, loss, grads, epoch, grad_scale)
+        host_us = (time.perf_counter() - t0) * 1e6
+        ref = float(torch.linalg.vector_norm(torch.cat(
+            [g.detach().double().flatten() for g in grads.values()]))) \
+            * grad_scale
+        with self._health_lock:
+            notes.append((self.result.worker_id, dict(self._health), ref,
+                          host_us))
+
+    parts: dict = {}
+    W.PSWorker._note_health = note_spy
+    Q.wire_quantize_multi.launches = 0
+    try:
+        run = _grpc_run(steps_per_worker=8, n_test=1000, seed=0,
+                        eval_each_epoch=True, record=True,
+                        service=lambda st: _health_stack(st, parts))
+    finally:
+        W.PSWorker._note_health = note
+        if "monitor" in parts:
+            parts["monitor"].stop(final=False)
+    k1 = Q.wire_quantize_multi.launches
+    state["health_k1_launches"] = {"wire_quantize_multi": k1}
+    results, svc, engine = run["results"], parts["service"], parts["engine"]
+    errors = [repr(r.error) for r in results if r.error is not None]
+    n_push = sum(r.pushes_accepted + r.pushes_rejected for r in results)
+    view = parts["views"][0] if parts["views"] else {"workers": []}
+    rows = {r["worker"]: r for r in view["workers"]}
+    ids = sorted(r.worker_id for r in results)
+    fired = [(e["rule"], e["worker"]) for e in parts["events"]
+             if e["state"] == "fired"]
+    # The SLO rules watch the server's RPC latency, not training: a
+    # fetch-latency burn is held to the objective's own window numbers
+    # (reported); every other rule must stay silent.
+    slo = view.get("slo") or {}
+    slo_fired = sorted({r for r, _ in fired if r.startswith("slo_burn")})
+    slo_backed = sorted({b["rule"] for b in slo.get("breaches", ())
+                         if b["objective"] == "fetch_latency"
+                         and b["bad"] > 0
+                         and b["burn"] >= b["burn_threshold"]})
+    health_fired = [(r, w) for r, w in fired if not r.startswith("slo_")]
+    rel = [abs(rep["grad_norm"] - ref) / ref for _, rep, ref, _ in notes
+           if isinstance(rep.get("grad_norm"), float) and ref > 0]
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms \
+        .service import unpack_msg
+    quarantined = sum(bool(unpack_msg(r)[0].get("quarantined"))
+                      for _, r in run["pushes"])
+
+    # img/s with the monitor off and on, in turns; eval off.
+    turns: dict = {"off": [], "on": []}
+    for label in ("off", "on", "on", "off"):
+        p: dict = {}
+        try:
+            r = _grpc_run(steps_per_worker=8, n_test=10, seed=0,
+                          eval_each_epoch=False, record=False,
+                          service=(lambda st, p=p: _health_stack(st, p))
+                          if label == "on" else None)
+        finally:
+            if "monitor" in p:
+                p["monitor"].stop(final=False)
+        turns[label].append(_img_per_s(r["results"]))
+    # Device->host copies a boundary: the same short run with the
+    # monitor off and on under torch.profiler.
+    copies, boundaries = {}, {}
+    for label in ("off", "on"):
+        p = {}
+        torch.cuda.synchronize()
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                r = _grpc_run(steps_per_worker=4, n_test=10, seed=2,
+                              eval_each_epoch=False, record=False,
+                              service=(lambda st, p=p: _health_stack(st, p))
+                              if label == "on" else None)
+        finally:
+            if "monitor" in p:
+                p["monitor"].stop(final=False)
+        copies[label] = _memcpy_bytes(prof)
+        boundaries[label] = sum(x.pushes_accepted + x.pushes_rejected
+                                + x.pushes_quarantined
+                                for x in r["results"])
+    dtoh = {k: v.get("DtoH", {}).get("count", 0) for k, v in copies.items()}
+    per_boundary = (dtoh["on"] - dtoh["off"]) / boundaries["on"]
+    host_us = [n[3] for n in notes]
+    state["health"] = {
+        "img_per_s_off": turns["off"], "img_per_s_on": turns["on"],
+        "note_host_us_median": float(np.median(host_us)) if host_us
+        else None, "dtoh_copies_per_boundary": per_boundary}
+    emit({"phase": "health", "form": "main_path", "model": "resnet18",
+          "workers": N_WORKERS, "batch_size": BATCH, "push_codec": "int8",
+          "pushes": n_push, "k1_launches": k1,
+          "register_health_report": [r.supports_health_report
+                                     for r in run["remotes"]],
+          "reports": {str(k): {f: v.get(f) for f in (
+              "step", "epoch", "loss", "grad_norm", "push_codec",
+              "examples_per_s", "goodput_fraction")}
+              for k, v in sorted(rows.items())},
+          "notes": len(notes),
+          "grad_norm_rel_err_max": max(rel) if rel else None,
+          "note_host_us_median": state["health"]["note_host_us_median"],
+          "note_host_us_max": max(host_us) if host_us else None,
+          "alerts_fired": fired, "health_rules_fired": health_fired,
+          "slo_rules_fired": slo_fired,
+          "directives_posted": svc._directive_seq,
+          "remediation_events": list(engine.events),
+          "quarantined_replies": quarantined,
+          "slo": slo,
+          "img_per_s_turns_eval_off": turns,
+          "phase14_img_per_s": state.get("grpc_a", {}).get("img_per_s"),
+          "dtoh_copies": dtoh, "boundaries": boundaries,
+          "dtoh_copies_per_boundary": per_boundary,
+          "memcpy": copies, "card": state["card"]})
+    if errors:
+        raise AssertionError(f"worker errors: {errors}")
+    if not all(r.supports_health_report for r in run["remotes"]):
+        raise AssertionError("the register reply did not advertise "
+                             "health_report")
+    if n_push != N_WORKERS * 8 or k1 != n_push:
+        raise AssertionError(f"K1 launched {k1} times for {n_push} pushes; "
+                             f"expected {N_WORKERS * 8} of each")
+    for wid in ids:
+        row = rows.get(wid, {})
+        if not all(isinstance(row.get(f), (int, float))
+                   for f in ("step", "loss", "grad_norm")) \
+                or row.get("push_codec") != "int8+ef":
+            raise AssertionError(f"worker {wid}'s row in the cluster view: "
+                                 f"{row}")
+    if len(notes) != n_push or len(rel) != len(notes) or max(rel) > 1e-4:
+        raise AssertionError(f"{len(notes)} notes for {n_push} pushes; "
+                             f"grad norm relative error {max(rel or [0])}")
+    if health_fired or svc._directive_seq or quarantined or engine.events:
+        raise AssertionError(f"a healthy run fired {fired}, posted "
+                             f"{svc._directive_seq} directives, refused "
+                             f"{quarantined} pushes")
+    if not set(slo_fired) <= set(slo_backed):
+        raise AssertionError(f"SLO rules fired {slo_fired}; the "
+                             f"evaluator's fetch-latency breaches: "
+                             f"{slo.get('breaches')}")
+    if per_boundary > 1:
+        raise AssertionError(f"the health note adds {per_boundary} "
+                             f"device->host copies a boundary")
+
+
+def _health_drill(state: dict) -> None:
+    """(b) The self-heal drill: fp16 pushes, worker 1 poisons its 3rd step
+    with NaN. Its push is refused before the apply, both non-finite rules
+    fire against it alone, the engine quarantines it and posts the
+    quarantine and refetch directives, the worker skips 3 windows, and
+    once the quarantine is lifted (by the engine when the worker's next
+    report resolves the alerts, else by the drill after the windows) its
+    pushes apply again."""
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps import \
+        worker as W
+
+    parts: dict = {}
+    applied = []
+    apply = W.PSWorker._apply_directive
+
+    def apply_spy(self, d):
+        applied.append((time.perf_counter(), self.result.worker_id,
+                        d.get("action"), dict(d)))
+        return apply(self, d)
+
+    def probe(workers, done):
+        parts["workers"] = workers
+
+    W.PSWorker._apply_directive = apply_spy
+    try:
+        run = _grpc_run(
+            steps_per_worker=8, n_test=10, seed=1, eval_each_epoch=False,
+            record=False, store_kw={"push_codec": "fp16"}, probe=probe,
+            worker_kw_of=lambda i: {"nan_inject_step": 2} if i == 1 else {},
+            service=lambda st: _health_stack(st, parts,
+                                             evaluate_on_push=True))
+    finally:
+        W.PSWorker._apply_directive = apply
+        if "monitor" in parts:
+            parts["monitor"].stop(final=False)
+    healthy, poisoned = run["workers"]
+    hid, pid = healthy.result.worker_id, poisoned.result.worker_id
+    store = run["store"]
+    errors = [repr(w.result.error) for w in run["workers"]
+              if w.result.error is not None]
+    q_replies = [(wid, m, t) for wid, m, t in parts["replies"]
+                 if m.get("quarantined")]
+    fired = [(e["rule"], e["worker"]) for e in parts["events"]
+             if e["state"] == "fired"]
+    nonfinite = sorted({w for rule, w in fired
+                        if rule in ("nonfinite_loss", "nonfinite_grad")})
+    actions = [(e["action"], e["worker"], e["outcome"])
+               for e in parts["engine"].events]
+    final, step = store.snapshot()
+    finite = all(np.isfinite(v).all() for v in final.values())
+    accepted = healthy.result.pushes_accepted \
+        + poisoned.result.pushes_accepted
+    t_nan = q_replies[0][2] if q_replies else None
+    t_apply = min((t for t, wid, a, _ in applied
+                   if wid == pid and a == "quarantine"), default=None)
+    seconds = t_apply - t_nan if t_nan and t_apply else None
+    state["health_drill_s"] = seconds
+    emit({"phase": "health", "form": "self_heal", "push_codec": "fp16",
+          "poisoned_worker": pid, "healthy_worker": hid,
+          "quarantined_replies": [(w, m) for w, m, _ in q_replies],
+          "alerts_fired": fired, "remediation_actions": actions,
+          "directives_applied": {
+              str(w.result.worker_id): w.result.directives_applied
+              for w in run["workers"]},
+          "pushes_quarantined": poisoned.result.pushes_quarantined,
+          "pushes_accepted": {str(hid): healthy.result.pushes_accepted,
+                              str(pid): poisoned.result.pushes_accepted},
+          "pushes_rejected": {str(hid): healthy.result.pushes_rejected,
+                              str(pid): poisoned.result.pushes_rejected},
+          "quarantine_lifted_by": "drill" if parts.get(
+              "drill_unquarantined") is not None else "engine" if (
+              "quarantine", pid, "lifted") in actions else None,
+          "quarantined_at_end": parts["service"].is_quarantined(pid),
+          "global_step": step, "params_finite": finite,
+          "nan_push_to_directive_applied_s": seconds,
+          "card": state["card"]})
+    if errors:
+        raise AssertionError(f"worker errors: {errors}")
+    if len(q_replies) != 1 or q_replies[0][0] != pid \
+            or q_replies[0][1].get("accepted") is not False:
+        raise AssertionError(f"quarantined replies: {q_replies}")
+    if nonfinite != [pid] or {r for r, w in fired if w == pid} \
+            < {"nonfinite_loss", "nonfinite_grad"}:
+        raise AssertionError(f"alerts fired: {fired}")
+    if ("quarantine", pid, "ok") not in actions \
+            or ("refetch", pid, "ok") not in actions:
+        raise AssertionError(f"remediation actions: {actions}")
+    if poisoned.result.directives_applied != {"quarantine": 1,
+                                              "refetch_params": 1} \
+            or poisoned.result.pushes_quarantined != 3 \
+            or any(d.get("steps") != 3 for _, wid, a, d in applied
+                   if a == "quarantine"):
+        raise AssertionError(f"worker {pid} applied "
+                             f"{poisoned.result.directives_applied}, "
+                             f"skipped {poisoned.result.pushes_quarantined}")
+    if healthy.result.pushes_accepted != 8 \
+            or poisoned.result.pushes_accepted != 8 - 1 - 3:
+        raise AssertionError("pushes accepted: "
+                             f"{healthy.result.pushes_accepted} and "
+                             f"{poisoned.result.pushes_accepted}")
+    if step != accepted or not finite:
+        raise AssertionError(f"step {step} for {accepted} accepted pushes; "
+                             f"params finite: {finite}")
+
+
+def _health_carry(state: dict) -> None:
+    """(c) The quarantine directive drops the device codec's carry: one
+    int8 worker with error feedback; after its 2nd push the drill posts
+    ``quarantine`` with steps=2. The next 2 windows push nothing (K1 runs
+    once a push sent), the residuals are empty right after the directive,
+    and the first push after it is byte-equal to ``compress_push`` of its
+    gradients under a fresh ``ErrorFeedback``."""
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms import (
+        ParameterService, RemoteStore, serve)
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms \
+        .service import unpack_msg
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms \
+        .wire import encode_tensor_dict
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops \
+        .compression import ErrorFeedback, compress_push
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops \
+        .device_codec import DeviceCodec
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
+        quantize as Q
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps import (
+        ParameterStore, PSWorker, StoreConfig, WorkerConfig)
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps import \
+        worker as W
+
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    # 768 images: 6 batches for the one worker.
+    ds, model, _, init = main_path(3, 10, 4)
+    store = ParameterStore(init, StoreConfig(
+        mode="async", total_workers=1, push_codec="int8", staleness_bound=5))
+    svc = ParameterService(store)
+    frames, encoded, residuals = [], [], []
+    push_body = svc.push_gradrients
+
+    def push(request, ctx):
+        meta, payload = unpack_msg(request)
+        frames.append(bytes(payload))
+        reply = push_body(request, ctx)
+        if len(frames) == 2:
+            svc.post_directive(int(meta["worker_id"]), "quarantine",
+                               steps=2)
+        return reply
+    svc.push_gradrients = push
+    encode = DeviceCodec.encode
+
+    def encode_spy(self, flat, plan=None, scales=None):
+        encoded.append(({k: v.detach().float().cpu().numpy()
+                         for k, v in flat.items()},
+                        dict(plan or {}), dict(scales or {})))
+        return encode(self, flat, plan=plan, scales=scales)
+    apply = W.PSWorker._apply_directive
+
+    def apply_spy(self, d):
+        before = len(self._device_codec._residual)
+        apply(self, d)
+        residuals.append((d.get("action"), before,
+                          len(self._device_codec._residual)))
+    DeviceCodec.encode, W.PSWorker._apply_directive = encode_spy, apply_spy
+    server, port = serve(store, port=0, service=svc, host="127.0.0.1")
+    remote = RemoteStore(f"127.0.0.1:{port}")
+    Q.wire_quantize_multi.launches = 0
+    try:
+        worker = PSWorker(remote, model, ds, WorkerConfig(
+            batch_size=BATCH, num_epochs=1, device="cuda",
+            eval_each_epoch=False), worker_name="carry")
+        worker.run()
+        k1 = Q.wire_quantize_multi.launches
+    finally:
+        DeviceCodec.encode, W.PSWorker._apply_directive = encode, apply
+        remote.close()
+        server.stop(grace=None).wait(10)
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = prev
+    res = worker.result
+    checks = {}
+    if len(encoded) == len(frames) == 4:
+        def frame(grads, plan, scales, ef):
+            return encode_tensor_dict(compress_push(
+                grads, plan, scales=scales or None, ef=ef), checksum=True)
+        checks["after_quarantine_equals_fresh_ef"] = \
+            frames[2] == frame(*encoded[2], ErrorFeedback())
+        carried = ErrorFeedback()
+        for g in encoded[:2]:
+            frame(*g, carried)
+        checks["carried_ef_frame_differs"] = \
+            frames[2] != frame(*encoded[2], carried)
+        checks["first_push_equals_fresh_ef"] = \
+            frames[0] == frame(*encoded[0], ErrorFeedback())
+    emit({"phase": "health", "form": "carry_reset", "push_codec": "int8",
+          "cudnn_deterministic": True, "steps": res.local_steps_completed,
+          "pushes_sent": len(frames), "k1_launches": k1,
+          "pushes_quarantined": res.pushes_quarantined,
+          "directives_applied": res.directives_applied,
+          "residual_tensors_before_after": residuals, "frame_checks": checks,
+          "card": state["card"]})
+    if res.error is not None:
+        raise res.error
+    if len(frames) != 4 or res.pushes_quarantined != 2 or k1 != 4:
+        raise AssertionError(f"{len(frames)} pushes sent, "
+                             f"{res.pushes_quarantined} skipped, K1 {k1}; "
+                             f"expected 4, 2 and 4")
+    if len(residuals) != 1 or residuals[0][0] != "quarantine" \
+            or residuals[0][1] == 0 or residuals[0][2] != 0:
+        raise AssertionError(f"residuals around the directive: {residuals}")
+    if not checks or not all(checks.values()):
+        raise AssertionError(f"frame checks: {checks}")
+
+
+def phase_health(state: dict) -> None:
+    """Phase 18: the cluster health monitor, the non-finite guard,
+    quarantine and the directive loop on the main path."""
+    _health_main(state)
+    _health_drill(state)
+    _health_carry(state)
+
+
 def main() -> int:
     import torch
 
@@ -3174,7 +3656,7 @@ def main() -> int:
                   phase_sync_profile, phase_baseline, phase_kernel_flash,
                   phase_sp_path, phase_sp_profile, phase_cli,
                   phase_grpc_path, phase_grpc_modes, phase_device_store,
-                  phase_checkpoints):
+                  phase_checkpoints, phase_health):
         t0 = time.perf_counter()
         try:
             phase(state)
@@ -3192,8 +3674,9 @@ def main() -> int:
         quantize as Q
 
     # K1 with its launches from the async path's run, the gRPC path's
-    # (phase 14 (a); (b)'s workers are other processes) and the gRPC
-    # modes' (phase 15 (a)); a push's times.
+    # (phase 14 (a); (b)'s workers are other processes), the gRPC
+    # modes' (phase 15 (a)) and the health path's (phase 18 (a)); a
+    # push's times.
     kernels = []
     for name, k in state["k1"].items():
         kernels.append({
@@ -3201,7 +3684,8 @@ def main() -> int:
             "replaces": Q.REPLACES[name],
             "launches": state["k1_launches"][name]
             + state["grpc_k1_launches"][name]
-            + state["modes_k1_launches"][name],
+            + state["modes_k1_launches"][name]
+            + state["health_k1_launches"][name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],

@@ -71,6 +71,21 @@ and ``--reconnect-timeout`` (session resume)::
         worker --server 127.0.0.1:8000 --synthetic --k-step-mode local_sgd \
         --sync-steps 4 --overlap --heartbeat 1 --reconnect-timeout 60
 
+``serve`` runs the cluster health monitor by default, as the JAX verb
+does (``--no-health-monitor`` opts out; ``--health-interval``,
+``--dead-after``, ``--straggler-lag``), with the SLO evaluator attached
+unless ``--no-slo`` (the ``--slo-*`` flags). Workers then piggyback a
+health report on every fetch, push and heartbeat. ``--remediate`` turns
+the monitor's alerts into actions (``telemetry/remediation.py``): a
+worker whose report flags a non-finite loss or gradient has that push
+refused before the apply, is quarantined for ``--quarantine-secs`` and
+told to skip pushes, reset its error feedback and refetch;
+``--remediate-dry-run`` records every decision and executes none::
+
+    python -m distributed_parameter_server_for_ml_training_tpu_torch.cli \
+        serve --mode async --workers 2 --push-codec fp16 --remediate \
+        --port 8000
+
 The flags of the JAX verbs that name features of later slices are
 accepted and refused with the ROADMAP item that brings them.
 """
@@ -266,8 +281,67 @@ def build_parser() -> argparse.ArgumentParser:
                         "--checkpoint-dir: params + global step restored, "
                         "push-token journal re-seeded so pre-crash push "
                         "retries still dedupe")
+    s.add_argument("--remediate", action="store_true",
+                   default=bool(_env("DPS_REMEDIATE", 0, int)),
+                   help="turn cluster alerts into actions: nonfinite "
+                        "loss/grad -> quarantine + refetch directive, "
+                        "straggler_lag -> quorum-exclude + rebalance "
+                        "directive, dead_worker -> respawn request")
+    s.add_argument("--remediate-dry-run", action="store_true",
+                   help="run the remediation engine but execute nothing: "
+                        "every decision is recorded with outcome dry_run")
+    s.add_argument("--remediation-cooldown", type=float,
+                   default=_env("DPS_REMEDIATION_COOLDOWN", 30.0, float),
+                   help="minimum seconds between repeated remediation "
+                        "actions for the same (action, worker)")
+    s.add_argument("--quarantine-secs", type=float,
+                   default=_env("DPS_QUARANTINE_SECS", 30.0, float),
+                   help="server-side push-refusal window of the "
+                        "quarantine action")
+    s.add_argument("--no-health-monitor", action="store_true",
+                   help="disable the cluster health monitor (worker health "
+                        "reports, rule engine); on by default")
+    s.add_argument("--health-interval", type=float,
+                   default=_env("DPS_HEALTH_INTERVAL", 5.0, float),
+                   help="seconds between cluster health evaluations")
+    s.add_argument("--dead-after", type=float,
+                   default=_env("DPS_DEAD_AFTER", 30.0, float),
+                   help="seconds of silence before the monitor declares a "
+                        "worker dead (independent of --worker-timeout)")
+    s.add_argument("--straggler-lag", type=int,
+                   default=_env("DPS_STRAGGLER_LAG", 100, int),
+                   help="steps behind the fastest reporting worker before "
+                        "the straggler_lag rule fires")
+    s.add_argument("--no-slo", action="store_true",
+                   help="disable the SLO evaluator (on by default with the "
+                        "health monitor): error-budget burn over the "
+                        "server-side RPC latency/error metrics -> "
+                        "slo_burn_fast/slo_burn_slow alerts")
+    s.add_argument("--slo-fetch-p99-ms", type=float,
+                   default=_env("DPS_SLO_FETCH_P99_MS", 100.0, float),
+                   help="fetch latency objective: 99%% of FetchParameters "
+                        "under this many milliseconds")
+    s.add_argument("--slo-availability", type=float,
+                   default=_env("DPS_SLO_AVAILABILITY", 0.99, float),
+                   help="availability objective for fetch and push")
+    s.add_argument("--slo-fast-window", type=float,
+                   default=_env("DPS_SLO_FAST_WINDOW", 60.0, float),
+                   help="fast burn window seconds (slo_burn_fast)")
+    s.add_argument("--slo-slow-window", type=float,
+                   default=_env("DPS_SLO_SLOW_WINDOW", 300.0, float),
+                   help="slow burn window seconds (slo_burn_slow)")
+    s.add_argument("--slo-fast-burn", type=float,
+                   default=_env("DPS_SLO_FAST_BURN", 14.4, float),
+                   help="burn-rate threshold over the fast window")
+    s.add_argument("--slo-slow-burn", type=float,
+                   default=_env("DPS_SLO_SLOW_BURN", 6.0, float),
+                   help="burn-rate threshold over the slow window")
     s.add_argument("--faults", default=None)
     s.add_argument("--jobs", default=None)
+    s.add_argument("--telemetry", action="store_true")
+    s.add_argument("--metrics-port", type=int, default=None)
+    s.add_argument("--incidents-dir", default=None)
+    s.add_argument("--no-memory-telemetry", action="store_true")
 
     w = sub.add_parser("worker", help="gRPC remote worker")
     w.add_argument("--server",
@@ -303,6 +377,10 @@ LATER_FLAGS = {
     "job": "ROADMAP §1 item 9 (tenancy)",
     "shards": "ROADMAP §1 item 9 (the sharded tier)",
     "store_backend": "ROADMAP §1 item 9 (the C++ arena)",
+    "telemetry": "ROADMAP §1 item 8 (the snapshot and cluster streams)",
+    "metrics_port": "ROADMAP §1 item 8 (/metrics, /cluster and /healthz)",
+    "incidents_dir": "ROADMAP §1 item 8 (incident capture)",
+    "no_memory_telemetry": "ROADMAP §1 item 8 (telemetry/memory.py)",
 }
 #: Values of a listed flag that this slice serves.
 _FLAG_SERVED = {"store_backend": ("python", "device")}
@@ -310,10 +388,12 @@ _FLAG_SERVED = {"store_backend": ("python", "device")}
 
 def _refuse_later_flags(args) -> None:
     """Raise for the first flag of a later slice given a value this slice
-    does not serve (anything but None, False, 0 or a listed value)."""
+    does not serve (anything but None, False or a listed value; a port
+    of 0 is a value)."""
     for name, item in LATER_FLAGS.items():
         value = getattr(args, name, None)
-        if value in (None, False) or value in _FLAG_SERVED.get(name, ()):
+        if value is None or value is False \
+                or value in _FLAG_SERVED.get(name, ()):
             continue
         flag = "--" + name.replace("_", "-")
         raise NotImplementedError(
@@ -413,7 +493,10 @@ def cmd_serve(args) -> int:
     ``--checkpoint-dir`` the store and its push-token journal are
     snapshotted periodically and at exit; ``--restore`` resumes from the
     newest snapshot, adopting its aggregation settings (JAX
-    ``cli.py:1552-1645``, without tenancy's per-job lineages)."""
+    ``cli.py:1552-1645``, without tenancy's per-job lineages). The
+    cluster health monitor, its SLO evaluator and, with ``--remediate``,
+    the remediation engine are wired as JAX's ``cmd_serve`` does
+    (``cli.py:1413-1490``)."""
     import signal
     import threading
     import time
@@ -458,7 +541,55 @@ def cmd_serve(args) -> int:
                     worker_timeout=args.worker_timeout,
                     sync_quorum=args.sync_quorum,
                     round_deadline=args.round_deadline), **store_kw)
-    svc = ParameterService(store)
+    monitor = None
+    if not args.no_health_monitor:
+        # On by default: the observe-only layer. --no-health-monitor also
+        # stops the capability being advertised to workers at all.
+        from .telemetry import (ClusterMonitor, HealthThresholds,
+                                set_cluster_monitor)
+        monitor = ClusterMonitor(
+            store,
+            HealthThresholds(dead_after_s=args.dead_after,
+                             straggler_lag_steps=args.straggler_lag),
+            interval=args.health_interval)
+        set_cluster_monitor(monitor)
+        monitor.start()
+        if not args.no_slo:
+            from .telemetry import SloEvaluator, default_objectives
+            monitor.slo = SloEvaluator(
+                default_objectives(fetch_p99_ms=args.slo_fetch_p99_ms,
+                                   availability=args.slo_availability),
+                fast_window_s=args.slo_fast_window,
+                slow_window_s=args.slo_slow_window,
+                fast_burn_threshold=args.slo_fast_burn,
+                slow_burn_threshold=args.slo_slow_burn)
+            print(f"slo: evaluator on (fetch p99 "
+                  f"{monitor.slo.objectives[0].threshold_s*1e3:.0f}ms, "
+                  f"availability "
+                  f"{monitor.slo.objectives[1].target:.3g})",
+                  file=sys.stderr, flush=True)
+    svc = ParameterService(store, monitor=monitor)
+    if args.remediate or args.remediate_dry_run:
+        if monitor is None:
+            raise SystemExit("--remediate needs the health monitor "
+                             "(drop --no-health-monitor)")
+        from .telemetry import RemediationEngine, RemediationPolicy
+        engine = RemediationEngine(
+            store, service=svc,
+            policy=RemediationPolicy(
+                dry_run=args.remediate_dry_run,
+                cooldown_s=args.remediation_cooldown,
+                quarantine_s=args.quarantine_secs))
+        monitor.remediation = engine
+        monitor.add_listener(engine.handle_events)
+        # The synchronous half of the quarantine action: a push whose own
+        # report flags non-finite values is refused before the apply (the
+        # monitor's quarantine would come one apply too late). A dry run
+        # rehearses without it.
+        svc.reject_nonfinite = not engine.policy.dry_run
+        print(f"remediation: engine on "
+              f"(dry_run={engine.policy.dry_run})", file=sys.stderr,
+              flush=True)
     restored = None
     if args.restore:
         from .checkpoint import load_store_record, restore_server_state
@@ -519,6 +650,8 @@ def cmd_serve(args) -> int:
             if expired:
                 print(f"expired silent workers: {expired}",
                       file=sys.stderr)
+                if monitor is not None:
+                    monitor.note_expired(expired)
         time.sleep(0.5)
     except KeyboardInterrupt:
         pass
@@ -526,6 +659,10 @@ def cmd_serve(args) -> int:
         if main:
             signal.signal(signal.SIGTERM, prev_term)
         server.stop(grace=2.0)
+        if monitor is not None:
+            from .telemetry import set_cluster_monitor
+            monitor.stop(final=True)
+            set_cluster_monitor(None)
         if ckpt is not None:
             err = ckpt.stop(final_snapshot=True)
             if err is not None:

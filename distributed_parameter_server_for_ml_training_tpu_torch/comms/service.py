@@ -18,10 +18,20 @@ the same capability advertisement at registration, the same exactly-once
 version-gated fetch with its cached ``not_modified`` reply, the
 store's fetch codec and elastic membership (the live membership on
 register and fetch replies, expiry run on push and registration
-activity), the passive half of the directive channel (acks are taken;
-nothing posts), and the push-token journal that store checkpoints
-persist (``journal_snapshot``/``load_journal``), so a restored server
-still answers a pre-crash push's retry as a duplicate.
+activity), and the push-token journal that store checkpoints persist
+(``journal_snapshot``/``load_journal``), so a restored server still
+answers a pre-crash push's retry as a duplicate.
+
+Self-healing, as the JAX service does it: with a cluster ``monitor``
+(``telemetry/cluster.py``) the register reply advertises
+``health_report``, and the health report a worker piggybacks on each
+fetch and push is fed to the monitor, as are refused corrupt frames and
+expired workers. The remediation engine (``telemetry/remediation.py``)
+posts directives (:data:`DIRECTIVE_CATALOG`) that ride the replies to
+workers that advertised the capability until they ack them, and
+quarantines a worker: its NEW pushes are acknowledged and never applied.
+With ``reject_nonfinite`` a push whose own report flags a non-finite
+loss or gradient norm is refused the same way, before the apply.
 
 Over the device-resident store (``ps/device_store.py``) a fetch brings
 the params to the host in one staged copy, and a push's decoded arrays
@@ -32,8 +42,7 @@ the store, one copy each; the replies are a JAX service's over a JAX
 Not in this slice, each refused with ``NotImplementedError`` naming the
 ROADMAP item when a caller asks for it: fault injection and sharding
 (the serve tier, §1 item 9), tenancy with its weighted-fair admission
-and ``SubmitJob`` (item 9), the health monitor, the non-finite guard and
-quarantine (telemetry, item 8), and reshard/migration (item 9). Over the
+and ``SubmitJob`` (item 9), and reshard/migration (item 9). Over the
 wire the ``Reshard`` and ``SubmitJob`` RPCs answer UNIMPLEMENTED with that
 text.
 """
@@ -50,8 +59,8 @@ from concurrent import futures
 
 import grpc
 
-from ..telemetry import LATENCY_BUCKETS, get_registry, now, \
-    trace_enabled, trace_span
+from ..telemetry import LATENCY_BUCKETS, get_registry, journal_event, \
+    now, trace_enabled, trace_span
 from ..telemetry.registry import ExemplarSampler
 from ..telemetry.trace import use_wire_context
 from .wire import decode_tensor_dict, encode_tensor_dict, \
@@ -69,6 +78,26 @@ PUSH_SEEN_CAP = 128
 #: bounded by ``ctx.time_remaining()`` minus a reply margin instead.
 DUP_WAIT_CAP_S = 30.0
 
+#: Server->worker control directives (docs/ROBUSTNESS.md "Self-healing"):
+#: the remediation layer posts these and the fetch/push reply envelope
+#: meta carries them to capable workers, which act at step boundaries.
+#: The names are a wire contract, the JAX service's.
+DIRECTIVE_CATALOG = {
+    "refetch_params": "drop the delta-fetch basis and take a full fresh "
+                      "fetch at the next step boundary",
+    "quarantine": "skip gradient pushes for `steps` boundary windows and "
+                  "reset error-feedback residuals (suspected-poisoned "
+                  "local state)",
+    "rebalance_shard": "finish the current epoch early and recompute the "
+                       "data shard from live membership at the next epoch",
+    "drain": "finish cleanly at the next step boundary (flush the pending "
+             "window, then JobFinished)",
+}
+
+#: Outstanding directives kept per worker; older ones are dropped first
+#: (a worker that never fetches must not grow server memory).
+DIRECTIVES_PER_WORKER_CAP = 16
+
 #: The RPC names of the JAX service, in its order. The last two are its
 #: admin plane, answered UNIMPLEMENTED here.
 RPC_NAMES = ("RegisterWorker", "PushGradrients", "FetchParameters",
@@ -78,12 +107,6 @@ RPC_NAMES = ("RegisterWorker", "PushGradrients", "FetchParameters",
 LATER = {
     "faults": "fault injection comes with the serve tier (ROADMAP §1 "
               "item 9: comms/faults.py)",
-    "monitor": "the cluster health monitor comes with the telemetry "
-               "slice (ROADMAP §1 item 8)",
-    "reject_nonfinite": "the non-finite push guard comes with the "
-                        "remediation engine (ROADMAP §1 item 8)",
-    "quarantine": "push quarantine comes with the remediation engine "
-                  "(ROADMAP §1 item 8)",
     "sharding": "sharding, replicas and topology come with the serve tier "
                 "(ROADMAP §1 item 9: ps/sharding.py, comms/sharded.py, "
                 "comms/replica.py)",
@@ -176,13 +199,23 @@ class ParameterService:
     def __init__(self, store, faults=None, monitor=None,
                  reject_nonfinite: bool = False, sharding=None,
                  jobs=None):
-        asked = {"faults": faults is not None, "monitor": monitor is not None,
-                 "reject_nonfinite": bool(reject_nonfinite),
+        asked = {"faults": faults is not None,
                  "sharding": sharding is not None, "jobs": jobs is not None}
         for what, on in asked.items():
             if on:
                 raise later(what)
         self.store = store
+        # A push whose OWN health report flags a non-finite loss or grad
+        # norm is refused synchronously: the evidence and the poison ride
+        # the same envelope, so this is the only reaction that beats the
+        # apply. Off by default (the reference applied NaN); cli serve
+        # turns it on with the remediation engine.
+        self.reject_nonfinite = reject_nonfinite
+        # Cluster health monitor (telemetry/cluster.py): when attached,
+        # registration advertises health_report and the fetch/push
+        # handlers feed it the piggybacked reports. None = the capability
+        # is never advertised and clients stay silent.
+        self.monitor = monitor
         # Activity-coupled membership expiry, throttled (_expire_tick).
         self._expire_lock = threading.Lock()
         self._last_expire_check = 0.0  # guarded by: self._expire_lock
@@ -193,12 +226,19 @@ class ParameterService:
         # its outcome (bounded by the caller's deadline).
         self._push_seen: OrderedDict[str, list] = OrderedDict()  # guarded by: self._push_seen_lock
         self._push_seen_lock = threading.Lock()
-        # Directive channel, passive half: workers that advertised the
-        # capability and the acks they send. Nothing in this slice posts
-        # a directive, so replies carry none, as a default JAX server's.
+        # Directive channel: per-worker outstanding server->worker
+        # directives, attached to every fetch/push reply until the worker
+        # acks them (at-least-once; the client dedupes by seq). Only
+        # workers that advertised the capability at registration get them.
         self._directive_lock = threading.Lock()
         self._directives: dict[int, list[dict]] = {}  # guarded by: self._directive_lock
+        self._directive_seq = 0  # guarded by: self._directive_lock
         self._directive_capable: set[int] = set()  # guarded by: self._directive_lock
+        # Server-side push quarantine (remediation action): worker id ->
+        # wall-clock ts until which its NEW pushes are refused
+        # (acknowledged, never applied), so even a worker that cannot
+        # hear the quarantine directive cannot poison the aggregate.
+        self._quarantined: dict[int, float] = {}  # guarded by: self._directive_lock
         # Handler-side telemetry: per-RPC span + request/reply bytes.
         reg = get_registry()
         self._tm_rpc = {
@@ -217,6 +257,9 @@ class ParameterService:
         # Pushes refused because their frame failed the CRC trailer check
         # or did not decode.
         self._tm_wire_corrupt = reg.counter("dps_wire_corrupt_total")
+        # Pushes refused while their worker was quarantined.
+        self._tm_quarantined = reg.counter(
+            "dps_service_quarantined_pushes_total")
         # Encoded header-only NOT_MODIFIED reply cache (single entry: the
         # current step), built single-flight: identical delta polls racing
         # a step transition wait for the one reply being encoded.
@@ -227,7 +270,29 @@ class ParameterService:
         self._tm_nm_cache_hits = reg.counter(
             "dps_fetch_nm_cache_hits_total")
 
-    # -- directive channel, passive half ------------------------------------
+    # -- directive channel ---------------------------------------------------
+
+    def post_directive(self, worker_id: int, action: str,
+                       **params) -> int | None:
+        """Queue a server->worker directive; returns its seq, or None when
+        the worker never advertised the capability (a legacy peer: the
+        caller records the remediation as skipped). Delivery is
+        at-least-once: the directive rides every fetch/push reply to that
+        worker until acked; the client dedupes by seq."""
+        if action not in DIRECTIVE_CATALOG:
+            raise ValueError(f"unknown directive {action!r} (catalog: "
+                             f"{sorted(DIRECTIVE_CATALOG)})")
+        wid = int(worker_id)
+        with self._directive_lock:
+            if wid not in self._directive_capable:
+                return None
+            self._directive_seq += 1
+            seq = self._directive_seq
+            box = self._directives.setdefault(wid, [])
+            box.append({"seq": seq, "action": action, **params})
+            del box[:-DIRECTIVES_PER_WORKER_CAP]
+        journal_event("directive", worker=wid, action=action, seq=seq)
+        return seq
 
     def directives_for(self, worker_id) -> list[dict]:
         with self._directive_lock:
@@ -255,19 +320,45 @@ class ParameterService:
         out = self.directives_for(worker_id)
         return {"directives": out} if out else {}
 
-    def post_directive(self, worker_id: int, action: str, **params):
-        raise later("monitor")
+    # -- server-side push quarantine (remediation action) --------------------
 
     def quarantine(self, worker_id: int, seconds: float) -> None:
-        raise later("quarantine")
+        """Refuse this worker's new pushes (acknowledged, never applied)
+        for ``seconds`` — the server-side half of the quarantine
+        remediation; it holds even against a worker that cannot hear the
+        directive."""
+        with self._directive_lock:
+            self._quarantined[int(worker_id)] = time.time() + float(seconds)
+
+    def unquarantine(self, worker_id: int) -> None:
+        with self._directive_lock:
+            self._quarantined.pop(int(worker_id), None)
+
+    def is_quarantined(self, worker_id) -> bool:
+        with self._directive_lock:
+            until = self._quarantined.get(worker_id)
+            if until is None:
+                return False
+            if time.time() >= until:
+                del self._quarantined[worker_id]
+                return False
+            return True
+
+    def quarantine_view(self) -> dict[int, float]:
+        """worker id -> seconds remaining (the remediation view)."""
+        now = time.time()
+        with self._directive_lock:
+            return {w: round(until - now, 3)
+                    for w, until in self._quarantined.items()
+                    if until > now}
 
     # -- activity-coupled membership expiry ---------------------------------
 
     def _expire_tick(self) -> None:
         """Run membership expiry on push and registration activity,
         throttled, so an elastic round stalled on a dead worker unsticks
-        as soon as a LIVE worker shows up. A no-op without a
-        ``worker_timeout``."""
+        as soon as a LIVE worker shows up; the reaped ids feed the
+        monitor. A no-op without a ``worker_timeout``."""
         timeout = getattr(self.store.config, "worker_timeout", None)
         if not timeout:
             return
@@ -282,6 +373,11 @@ class ParameterService:
             return
         if expired:
             print(f"expired silent workers: {expired}", flush=True)
+            if self.monitor is not None:
+                try:
+                    self.monitor.note_expired(expired)
+                except Exception:  # noqa: BLE001
+                    pass
 
     # -- RPC bodies (request bytes -> reply bytes) --------------------------
 
@@ -314,18 +410,21 @@ class ParameterService:
         store = self.store
         worker_id, total = store.register_worker(
             meta.get("worker_name", ""))
-        # Directive capability is advertised by the WORKER; a reused id
-        # slot must not inherit its predecessor's undelivered directives.
+        # Directive capability is advertised by the WORKER. A reused id
+        # slot must not inherit its predecessor's undelivered directives,
+        # quarantine or capability — a legacy replacement must not stay
+        # quarantined for its predecessor's sins.
         caps = meta.get("capabilities")
         capable = isinstance(caps, (list, tuple)) and "directives" in caps
         with self._directive_lock:
             self._directives.pop(worker_id, None)
+            self._quarantined.pop(worker_id, None)
             if capable:
                 self._directive_capable.add(worker_id)
             else:
                 self._directive_capable.discard(worker_id)
-        # The keys and their order are a default JAX server's (no monitor,
-        # no jobs, no sharding).
+        # The keys and their order are a JAX server's without jobs or
+        # sharding.
         return pack_msg({
             "worker_id": worker_id,
             "total_workers": total,
@@ -339,7 +438,7 @@ class ParameterService:
             "delta_fetch": bool(getattr(store, "supports_delta_fetch",
                                         False)),
             "trace_context": True,
-            "health_report": False,
+            "health_report": self.monitor is not None,
             "compressed_domain": bool(getattr(
                 store, "supports_compressed_domain", False)),
             "directives": True,
@@ -348,12 +447,32 @@ class ParameterService:
             **self._membership_fields(),
         })
 
+    def _ingest_health(self, worker_id, meta: dict) -> None:
+        """Feed a piggybacked health report to the cluster monitor.
+        Observability only: any failure (garbled report, monitor bug) is
+        swallowed — it must never fail the RPC that carried it."""
+        if self.monitor is None:
+            return
+        health = meta.get("health")
+        if worker_id is None or not isinstance(health, dict):
+            return
+        try:
+            self.monitor.ingest(worker_id, health)
+        except Exception:  # noqa: BLE001
+            pass
+
     def _refuse_corrupt(self, wid, meta: dict) -> bytes:
         """Refuse a push whose payload failed integrity verification (CRC
-        trailer mismatch, or a frame the decoder rejects): counted, never
-        applied, and never recorded in the dedupe table, so the client's
-        clean retry of the same token can still apply."""
+        trailer mismatch, or a frame the decoder rejects): counted, fed to
+        the monitor's ``wire_corrupt`` rule, never applied, and never
+        recorded in the dedupe table, so the client's clean retry of the
+        same token can still apply."""
         self._tm_wire_corrupt.inc()
+        if self.monitor is not None:
+            try:
+                self.monitor.note_corrupt_frame()
+            except Exception:  # noqa: BLE001 — observability only
+                pass
         print(f"WIRE_CORRUPT push refused worker={wid}", flush=True)
         return pack_msg({"received": False, "accepted": False,
                          "corrupt": True,
@@ -372,7 +491,19 @@ class ParameterService:
         # refuses.
         if len(payload) and frame_checksum_ok(payload) is False:
             return self._refuse_corrupt(wid, meta)
+        self._ingest_health(wid, meta)
         self._expire_tick()
+        health = meta.get("health")
+        nonfinite = (self.reject_nonfinite and isinstance(health, dict)
+                     and (health.get("loss_finite") is False
+                          or health.get("grad_finite") is False))
+        # Quarantine (and its synchronous non-finite half) is decided here
+        # but gated AFTER the dedupe lookup: a retry of a token whose
+        # original was already applied replays its outcome even while its
+        # worker is quarantined. Only NEW pushes are refused, and without
+        # a dedupe entry, so the same token retried after the quarantine
+        # lifts applies normally.
+        blocked = nonfinite or self.is_quarantined(wid)
         token = meta.get("push_token")
         entry = None
         if token is not None:
@@ -383,13 +514,16 @@ class ParameterService:
                     dup, stale = prev, count < prev[0]
                 else:
                     # New push (or the first with a HIGHER count): record
-                    # it. A lower count never replaces a higher one.
+                    # it, unless quarantine refuses it below. A lower count
+                    # never replaces a higher one.
                     dup, stale = None, False
-                    entry = [count, None, threading.Event(), wid, None]
-                    self._push_seen[nonce] = entry
-                    self._push_seen.move_to_end(nonce)
-                    while len(self._push_seen) > PUSH_SEEN_CAP:
-                        self._push_seen.popitem(last=False)
+                    if not blocked:
+                        entry = [count, None, threading.Event(), wid,
+                                 None]
+                        self._push_seen[nonce] = entry
+                        self._push_seen.move_to_end(nonce)
+                        while len(self._push_seen) > PUSH_SEEN_CAP:
+                            self._push_seen.popitem(last=False)
             if dup is not None:
                 if stale:
                     # ZOMBIE: a deadline-expired attempt executing after
@@ -421,6 +555,15 @@ class ParameterService:
                     "received": True, "accepted": bool(dup[1]),
                     "duplicate": True,
                     "global_step": store.global_step})
+        if blocked:
+            # A NEW push of a quarantined (or self-reported non-finite)
+            # worker: acknowledged, so the worker does not die retrying,
+            # and never applied.
+            self._tm_quarantined.inc()
+            return pack_msg({"received": True, "accepted": False,
+                             "quarantined": True,
+                             "global_step": store.global_step,
+                             **self._directive_fields(wid, meta)})
         try:
             grads = decode_tensor_dict(payload)
         except ValueError:
@@ -500,6 +643,9 @@ class ParameterService:
         store = self.store
         wid = None if meta.get("worker_id") is None \
             else int(meta["worker_id"])
+        # Heartbeat pings are fetches: the report rides the ping's meta,
+        # so a delta-gated ping still refreshes the monitor's view.
+        self._ingest_health(wid, meta)
         have = meta.get("have_step")
         # The scale-table refresh rides the same reply, delta-gated on the
         # client's known version.

@@ -30,13 +30,24 @@ The store is the in-process ``ParameterStore`` or a
 ``comms/client.py:RemoteStore``, which duck-types its worker-facing API
 over gRPC (``cli worker``); the worker reads the codecs, the shared
 scales, the delta-fetch capability and the elastic membership from
-whichever it is given. Acting on server directives and sending health
-reports come with ROADMAP §1 item 8.
+whichever it is given.
+
+Against a server that advertised ``health_report``, the worker refreshes
+a health report at every push boundary (:meth:`PSWorker._note_health`:
+step, loss, the pushed gradients' global norm, their finite flags,
+throughput, codec; one device->host copy for loss and norm together),
+and the RemoteStore piggybacks it on every fetch, push and heartbeat.
+Server directives (``comms/service.py:DIRECTIVE_CATALOG``) arriving on
+replies are acted on at step boundaries: ``refetch_params`` takes a full
+fresh fetch, ``quarantine`` skips the next ``steps`` pushes and drops the
+error-feedback carry, ``rebalance_shard`` ends the epoch early and
+``drain`` ends the run after the epoch's bookkeeping.
 """
 
 from __future__ import annotations
 
 import copy
+import math
 import os
 import threading
 import time
@@ -155,6 +166,11 @@ class WorkerResult:
     # Session resumes survived (server restarts the reconnect state
     # machine rode through).
     reconnects: int = 0
+    # Server->worker control directives acted on, by action name; empty
+    # when none arrived.
+    directives_applied: dict = field(default_factory=dict)
+    # Push windows skipped under a quarantine directive.
+    pushes_quarantined: int = 0
     # Client-side wire accounting (RemoteStore.wire_stats); empty for the
     # in-process store, which crosses no wire.
     wire: dict = field(default_factory=dict)
@@ -184,6 +200,10 @@ class WorkerResult:
             "num_epochs": config.num_epochs,
             "reconnects": self.reconnects,
         }
+        if self.directives_applied:
+            out["directives_applied"] = dict(self.directives_applied)
+        if self.pushes_quarantined:
+            out["pushes_quarantined"] = self.pushes_quarantined
         out.update(self.wire)
         return out
 
@@ -515,6 +535,22 @@ class PSWorker(threading.Thread):
         self._tm_reconnect = None  # created at _init_telemetry
         self._tm_hb_err = None
         self._test_cache = None
+        # Health report: built at push boundaries by _note_health, shipped
+        # by a RemoteStore on every fetch/push/heartbeat through the
+        # provider installed in _run. The lock covers training-thread
+        # writes against heartbeat and comms-thread reads; the revision
+        # lets the store reuse its cached JSON encode between boundaries.
+        self._health_lock = threading.Lock()
+        self._health: dict = {}  # guarded by: self._health_lock
+        self._health_rev = 0  # guarded by: self._health_lock
+        self._health_enabled = False
+        self._health_rate: tuple[float, int] | None = None
+        # Directive state, acted on at step boundaries by the training
+        # thread.
+        self._force_full_fetch = False     # refetch_params
+        self._quarantine_windows = 0       # quarantine: windows to skip
+        self._epoch_break = False          # rebalance_shard
+        self._draining = False             # drain
         ns = self.config.nan_inject_step
         if ns is None:
             env = os.environ.get("DPS_NAN_STEP")
@@ -578,6 +614,10 @@ class PSWorker(threading.Thread):
                 self.result.heartbeat_errors += 1
                 if self._tm_hb_err is not None:
                     self._tm_hb_err.inc()
+                with self._health_lock:
+                    self._health["heartbeat_errors"] = \
+                        self._health.get("heartbeat_errors", 0) + 1
+                    self._health_rev += 1
                 if not failing:
                     failing = True
                     print(f"HEARTBEAT_FAILING worker={self.worker_name} "
@@ -634,6 +674,14 @@ class PSWorker(threading.Thread):
         # instead of blocking the training thread.
         self._tm_d2h_saved = reg.histogram(
             "dps_worker_d2h_overlap_saved_seconds", worker=w)
+        # Server->worker directives acted on, one series per catalog
+        # action.
+        from ..comms.service import DIRECTIVE_CATALOG
+        self._tm_directives = {
+            a: reg.counter("dps_worker_directives_total", worker=w,
+                           action=a)
+            for a in DIRECTIVE_CATALOG
+        }
         self._goodput = GoodputAccount(reg)
 
     def _gp(self, category: str):
@@ -647,6 +695,158 @@ class PSWorker(threading.Thread):
         if pipe is not None and threading.current_thread() is pipe._thread:
             return _NULL_GP
         return gp.span(category)
+
+    def _compute_category(self) -> str:
+        """Quarantined windows still burn device seconds, but their pushes
+        are dropped at the boundary: that wall is idle by directive, not
+        goodput."""
+        return "quarantine_idle" if self._quarantine_windows > 0 \
+            else "compute"
+
+    # -- health report --------------------------------------------------------
+
+    def _health_snapshot(self) -> dict | None:
+        """Provider installed on the RemoteStore: the current report, or
+        None before the first boundary note (a report-less heartbeat is a
+        valid legacy ping)."""
+        with self._health_lock:
+            return dict(self._health) if self._health else None
+
+    def _health_revision(self) -> int:
+        """The report's revision, so the store reuses its cached encode
+        while the report is unchanged."""
+        with self._health_lock:
+            return self._health_rev
+
+    @staticmethod
+    def _loss_and_norm(loss, grads: dict) -> tuple[float, float]:
+        """The loss and the global L2 norm of ``grads`` (fp32), read back
+        together in ONE device->host copy: per-tensor norms in one
+        multi-tensor launch, their norm, and the loss beside it."""
+        gs = [g if g.dtype == torch.float32 else g.float()
+              for g in grads.values()]
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)))
+        loss_t = torch.as_tensor(loss, dtype=torch.float32,
+                                 device=norm.device).reshape(())
+        lval, gval = torch.stack([loss_t, norm]).cpu().tolist()
+        return lval, gval
+
+    def _note_health(self, loss, grads: dict, epoch: int,
+                     grad_scale: float = 1.0) -> None:
+        """Refresh the health report at a push boundary. Skipped entirely
+        unless the store advertised the health_report capability.
+
+        ``grads`` must be (proportional to) what is PUSHED: in accumulate
+        and local_sgd mode the window's gradient sum with
+        ``grad_scale=1/n`` (the norm of the pushed mean; a NaN from ANY
+        batch of the window is in the sum, so the finite flag marks
+        exactly the payload that would poison the server)."""
+        if not self._health_enabled:
+            return
+        try:
+            lval, gval = self._loss_and_norm(loss, grads)
+            gval *= float(grad_scale)
+        except (TypeError, ValueError):
+            lval = gval = float("nan")
+        loss_finite = math.isfinite(lval)
+        grad_finite = math.isfinite(gval)
+        now = time.time()
+        steps = self.result.local_steps_completed
+        eps = None
+        prev = self._health_rate
+        if prev is not None and now > prev[0] and steps > prev[1]:
+            eps = (steps - prev[1]) * self.config.batch_size \
+                / (now - prev[0])
+        self._health_rate = (now, steps)
+        pipe = self._pipe
+        depth = 0 if pipe is None or pipe._done.is_set() else 1
+        gpf = self._goodput.fraction() if self._goodput is not None \
+            else None
+        ef = self._ef is not None or (self._device_codec is not None
+                                      and self._device_codec.error_feedback)
+        with self._health_lock:
+            h = self._health
+            h["step"] = steps
+            h["epoch"] = epoch
+            # Non-finite values travel as null + a false finite flag, so
+            # NaN never rides a JSON hop (telemetry/cluster.py schema).
+            h["loss"] = round(lval, 6) if loss_finite else None
+            h["loss_finite"] = loss_finite
+            h["grad_norm"] = round(gval, 6) if grad_finite else None
+            h["grad_finite"] = grad_finite
+            if eps is not None:
+                h["examples_per_s"] = round(eps, 3)
+            h["pipeline_depth"] = depth
+            h["reconnects"] = self.result.reconnects
+            codec = self._bitwidth.describe() if self._bitwidth \
+                else getattr(self.store, "push_codec", "none")
+            h["push_codec"] = codec + ("+ef" if ef else "")
+            if gpf is not None:
+                h["goodput_fraction"] = round(gpf, 4)
+            h.setdefault("heartbeat_errors", 0)
+            self._health_rev += 1
+
+    # -- directive channel ----------------------------------------------------
+
+    def _poll_directives(self) -> None:
+        """Drain and act on server->worker directives (step boundaries,
+        where the loop already talks to the server). A no-op against
+        stores without the channel (the in-process stores)."""
+        take = getattr(self.store, "take_directives", None)
+        if not callable(take):
+            return
+        try:
+            directives = take()
+        except Exception:  # noqa: BLE001 — directives must not kill a run
+            return
+        for d in directives:
+            self._apply_directive(d)
+
+    def _apply_directive(self, d: dict) -> None:
+        action = d.get("action")
+        if action == "refetch_params":
+            # Drop the delta basis: the next boundary fetch is a full
+            # fresh fetch even if the step did not advance.
+            self._force_full_fetch = True
+        elif action == "quarantine":
+            try:
+                steps = max(1, int(d.get("steps", 3)))
+            except (TypeError, ValueError):
+                steps = 3
+            self._quarantine_windows = max(self._quarantine_windows, steps)
+            # The residual carry may hold the same poison the server
+            # quarantined us for: restart it clean, on either route.
+            if self._ef is not None:
+                self._ef = ErrorFeedback()
+            if self._device_codec is not None:
+                self._device_codec.reset()
+            self._force_full_fetch = True
+        elif action == "rebalance_shard":
+            # Finish the current epoch early; the next epoch recomputes
+            # the shard from live membership.
+            self._epoch_break = True
+        elif action == "drain":
+            self._draining = True
+        else:
+            return  # unknown directive from a newer server: ignore
+        self.result.directives_applied[action] = \
+            self.result.directives_applied.get(action, 0) + 1
+        tm = getattr(self, "_tm_directives", None)
+        if tm and action in tm:
+            tm[action].inc()
+        print(f"DIRECTIVE worker={self.worker_name} "
+              f"id={self.result.worker_id} action={action} "
+              f"seq={d.get('seq')}", flush=True)
+
+    def _skip_quarantined_push(self) -> bool:
+        """Quarantine directive: this window's push stays local (the
+        server refuses it anyway); the window counts down, so pushing
+        resumes by itself."""
+        if self._quarantine_windows <= 0:
+            return False
+        self._quarantine_windows -= 1
+        self.result.pushes_quarantined += 1
+        return True
 
     def _sync_device(self) -> None:
         if self.device.type == "cuda":
@@ -698,6 +898,15 @@ class PSWorker(threading.Thread):
             raise ValueError(
                 f"the device store keeps its params on "
                 f"{self.store.device}; this worker trains on {self.device}")
+        # Health reports ride fetch/push/heartbeat envelopes when the
+        # server advertised the capability; otherwise the note stays off
+        # and costs nothing.
+        if getattr(self.store, "supports_health_report", False) \
+                and hasattr(self.store, "health_provider"):
+            self.store.health_provider = self._health_snapshot
+            if hasattr(self.store, "health_revision"):
+                self.store.health_revision = self._health_revision
+            self._health_enabled = True
         if cfg.heartbeat_interval > 0:
             threading.Thread(target=self._heartbeat_loop,
                              args=(cfg.heartbeat_interval,),
@@ -730,6 +939,7 @@ class PSWorker(threading.Thread):
         try:
             for epoch in range(cfg.num_epochs):
                 t_epoch = time.time()
+                self._epoch_break = False
                 # The epoch's first fetch comes BEFORE the shard, so a
                 # remote store's membership cache is fresh when the shard
                 # is computed; a pipeline's pending prefetch serves the
@@ -763,7 +973,7 @@ class PSWorker(threading.Thread):
                         t_step = _tnow()
                         grads = None
                         with trace_span("worker.compute") as _csp, \
-                                self._gp("compute"):
+                                self._gp(self._compute_category()):
                             if local_sgd:
                                 if boundary:
                                     # Window open: a fresh copy of the
@@ -801,6 +1011,8 @@ class PSWorker(threading.Thread):
                         if local_sgd:
                             accum_n += 1
                             if accum_n == k:
+                                self._note_health(loss, accum, epoch,
+                                                  grad_scale=1.0 / accum_n)
                                 params, fetched_step = \
                                     self._dispatch_push_mean(
                                         worker_id, accum, accum_n,
@@ -812,6 +1024,8 @@ class PSWorker(threading.Thread):
                                 {n: accum[n] + g for n, g in grads.items()}
                             accum_n += 1
                             if accum_n == k:
+                                self._note_health(loss, accum, epoch,
+                                                  grad_scale=1.0 / accum_n)
                                 params, fetched_step = \
                                     self._dispatch_push_mean(
                                         worker_id, accum, accum_n,
@@ -821,14 +1035,23 @@ class PSWorker(threading.Thread):
                         elif boundary:
                             # Faithful: push THIS batch's gradients; the
                             # other K-1 batches' are dropped (quirk 7).
+                            self._note_health(loss, grads, epoch)
                             params, fetched_step = self._dispatch_push(
                                 worker_id, grads, fetched_step, params)
                             worker_id = self.result.worker_id
                     gp.tick_wall()
+                    if self._draining or self._epoch_break:
+                        # Directive: stop this epoch's batch loop at the
+                        # step boundary (rebalance_shard resumes with a
+                        # fresh shard next epoch; drain exits the run after
+                        # the epoch's bookkeeping).
+                        break
 
                 # An epoch ending mid-window flushes the partial window,
                 # divided by the ACTUAL number of accumulated batches.
                 if accum is not None:
+                    self._note_health(loss, accum, epoch,
+                                      grad_scale=1.0 / accum_n)
                     params, fetched_step = self._dispatch_push_mean(
                         worker_id, accum, accum_n, fetched_step, params)
                     worker_id = self.result.worker_id
@@ -861,6 +1084,10 @@ class PSWorker(threading.Thread):
                       f"time={self.result.epoch_times[-1]:.1f}s{acc}",
                       flush=True)
                 gp.tick_wall()
+                if self._draining:
+                    print(f"DRAINED worker={self.worker_name} "
+                          f"id={worker_id} epoch={epoch + 1}", flush=True)
+                    break
         finally:
             gp.tick_wall()
             if self._pipe is not None:
@@ -997,20 +1224,33 @@ class PSWorker(threading.Thread):
         """The (pipeline-aware) boundary params fetch, resuming the
         session on failure: the pending prefetch's result when the
         pipeline issued one, else a delta-gated fetch once params are
-        held. Returns (params, fetched step)."""
+        held. A pending ``refetch_params`` directive bypasses the delta
+        basis (and any prefetched result) with a full fresh fetch.
+        Returns (params, fetched step)."""
         try:
             with self._gp("fetch_wait"):
                 pipe = self._pipe
                 if pipe is not None and pipe.params_pending():
                     # Issued right after the window's push: its latency
                     # ran under the window's compute.
-                    return pipe.await_params()
-                if pipe is not None:
+                    result = pipe.await_params()
+                    if not self._force_full_fetch:
+                        self._poll_directives()
+                        if not self._force_full_fetch:
+                            return result
+                elif pipe is not None:
                     pipe.flush()  # a fetch must never overtake a push
-                return self._fetch_params(
-                    worker_id,
-                    have_step=fetched_step if params is not None else None,
-                    current=params)
+                if self._force_full_fetch:
+                    self._force_full_fetch = False
+                    result = self._fetch_params(worker_id)
+                else:
+                    result = self._fetch_params(
+                        worker_id,
+                        have_step=fetched_step if params is not None
+                        else None,
+                        current=params)
+                self._poll_directives()
+                return result
         except Exception as e:  # noqa: BLE001 — session recovery
             return self._recover_session(e)
 
@@ -1024,7 +1264,10 @@ class PSWorker(threading.Thread):
         Overlapped, a quantized push is ENCODED here, on the training
         thread: K1 runs in program order before the next window's
         gradients touch the error-feedback residual, and the comms thread
-        only waits for the packed bytes' copy (``finalize``)."""
+        only waits for the packed bytes' copy (``finalize``). Under a
+        quarantine directive the window's push is skipped."""
+        if self._skip_quarantined_push():
+            return params, fetched_step
         with trace_span("worker.push_wait"), self._gp("push_wait"):
             item = grads
             try:
@@ -1036,6 +1279,7 @@ class PSWorker(threading.Thread):
                         item = payload
                     self._pipe.submit(item, fetched_step,
                                       prefetch_current=params)
+                self._poll_directives()
                 return params, fetched_step
             except Exception as e:  # noqa: BLE001 — push recovery
                 return self._recover_push(e, item, fetched_step)

@@ -136,3 +136,121 @@ def test_train_async_device_store_checkpoints_and_resumes(tmp_path,
     assert [r["global_steps_completed"] for r in servers] == [4, 8]
     meta = load_store_record(str(tmp_path))[1]
     assert meta["global_step"] == 8 and meta["aggregation"]["strict_rounds"]
+
+
+def _serve_until_bound(monkeypatch, argv):
+    """``cli serve`` cut short where it would bind: returns the service it
+    built (its monitor stopped and unregistered again)."""
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms \
+        import service as S
+    from distributed_parameter_server_for_ml_training_tpu_torch.telemetry \
+        import get_cluster_monitor, set_cluster_monitor
+    seen = {}
+
+    def capture(store, port=8000, service=None, **kw):
+        seen["svc"], seen["global"] = service, get_cluster_monitor()
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(S, "serve", capture)
+    try:
+        with pytest.raises(KeyboardInterrupt):
+            cli.main(["serve", "--mode", "async", "--workers", "2", *argv])
+    finally:
+        svc = seen.get("svc")
+        if svc is not None and svc.monitor is not None:
+            svc.monitor.stop(final=False)
+        set_cluster_monitor(None)
+    return seen["svc"], seen["global"]
+
+
+def test_serve_runs_the_health_monitor_by_default(monkeypatch, capsys):
+    """As a default JAX ``cli serve`` does: a started ClusterMonitor with
+    the JAX defaults and the SLO evaluator, registered process-wide; the
+    register reply advertises ``health_report``; no remediation."""
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms \
+        .service import pack_msg, unpack_msg
+    svc, registered = _serve_until_bound(monkeypatch, [])
+    mon = svc.monitor
+    assert registered is mon and mon.interval == 5.0
+    assert (mon.engine.thresholds.dead_after_s,
+            mon.engine.thresholds.straggler_lag_steps) == (30.0, 100)
+    slo = mon.slo
+    assert [o.name for o in slo.objectives] == [
+        "fetch_latency", "fetch_availability", "push_availability"]
+    assert slo.objectives[0].threshold_s == 0.1
+    assert [(w.window_s, w.burn_threshold) for w in slo.windows] == [
+        (60.0, 14.4), (300.0, 6.0)]
+    assert mon.remediation is None and svc.reject_nonfinite is False
+    reply = svc.register_worker(pack_msg({"worker_name": "w"}), None)
+    assert unpack_msg(reply)[0]["health_report"] is True
+    assert "slo: evaluator on (fetch p99 100ms" in capsys.readouterr().err
+
+
+def test_serve_health_flags_reach_the_monitor(monkeypatch, capsys):
+    svc, _ = _serve_until_bound(monkeypatch, [
+        "--health-interval", "2.5", "--dead-after", "12",
+        "--straggler-lag", "7", "--slo-fetch-p99-ms", "250",
+        "--slo-availability", "0.95", "--slo-fast-window", "30",
+        "--slo-slow-window", "120", "--slo-fast-burn", "10",
+        "--slo-slow-burn", "3", "--remediate", "--remediation-cooldown",
+        "4", "--quarantine-secs", "9"])
+    mon = svc.monitor
+    assert mon.interval == 2.5
+    assert (mon.engine.thresholds.dead_after_s,
+            mon.engine.thresholds.straggler_lag_steps) == (12.0, 7)
+    assert mon.slo.objectives[0].threshold_s == 0.25
+    assert mon.slo.objectives[1].target == 0.95
+    assert [(w.window_s, w.burn_threshold) for w in mon.slo.windows] == [
+        (30.0, 10.0), (120.0, 3.0)]
+    engine = mon.remediation
+    assert engine.service is svc and engine.store is svc.store
+    assert (engine.policy.dry_run, engine.policy.cooldown_s,
+            engine.policy.quarantine_s) == (False, 4.0, 9.0)
+    assert engine.handle_events in mon._listeners
+    assert svc.reject_nonfinite is True
+    assert "remediation: engine on (dry_run=False)" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv,monitor,slo,dry_run", [
+    (["--no-slo"], True, False, None),
+    (["--remediate-dry-run"], True, True, True),
+    (["--no-health-monitor"], False, False, None),
+], ids=["no_slo", "dry_run", "no_monitor"])
+def test_serve_health_switches(monkeypatch, argv, monitor, slo, dry_run):
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms \
+        .service import pack_msg, unpack_msg
+    svc, registered = _serve_until_bound(monkeypatch, argv)
+    assert (svc.monitor is not None) == monitor
+    assert registered is svc.monitor
+    if monitor:
+        assert (svc.monitor.slo is not None) == slo
+        engine = svc.monitor.remediation
+        assert (engine.policy.dry_run if engine else None) == dry_run
+    # A dry run rehearses without the synchronous non-finite refusal.
+    assert svc.reject_nonfinite is False
+    reply = svc.register_worker(pack_msg({"worker_name": "w"}), None)
+    assert unpack_msg(reply)[0]["health_report"] is monitor
+
+
+def test_serve_remediate_needs_the_monitor(monkeypatch):
+    with pytest.raises(SystemExit, match="--remediate needs the health "
+                                         "monitor"):
+        cli.main(["serve", "--remediate", "--no-health-monitor"])
+
+
+@pytest.mark.parametrize("env,attr,value", [
+    ("DPS_REMEDIATE", "remediate", True),
+    ("DPS_QUARANTINE_SECS", "quarantine_secs", 12.0),
+    ("DPS_HEALTH_INTERVAL", "health_interval", 1.5),
+    ("DPS_DEAD_AFTER", "dead_after", 45.0),
+    ("DPS_STRAGGLER_LAG", "straggler_lag", 9),
+    ("DPS_SLO_FETCH_P99_MS", "slo_fetch_p99_ms", 80.0),
+    ("DPS_REMEDIATION_COOLDOWN", "remediation_cooldown", 3.0),
+], ids=lambda v: v if isinstance(v, str) else None)
+def test_serve_health_flags_read_their_environment(monkeypatch, env, attr,
+                                                   value):
+    """The serve flags' defaults come from the JAX CLI's ``DPS_*``
+    variables."""
+    monkeypatch.setenv(env, "1" if value is True else str(value))
+    args = cli.build_parser().parse_args(["serve"])
+    assert getattr(args, attr) == value

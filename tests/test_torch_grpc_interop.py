@@ -8,13 +8,16 @@ reach the same global step with bit-equal store params against either
 server, and the request frames the two servers record must be equal byte
 for byte once the push token's 12-hex nonce is masked; so must a
 ``local_sgd`` worker through the overlapped pipeline against an elastic,
-expiring, bf16-fetch server of each package.
+expiring, bf16-fetch server of each package. Against the other package's
+server with a cluster monitor, each package's worker sends its health
+reports and the server's monitor ingests them.
 
 Every server binds 127.0.0.1 at port 0 and is stopped by a fixture
 finalizer; every client call has a deadline (``rpc_timeout``). A test
 marked ``slow`` runs the port's ``cli serve`` with two ``cli worker
 --device cpu`` processes."""
 
+import math
 import os
 import re
 import subprocess
@@ -38,6 +41,10 @@ from distributed_parameter_server_for_ml_training_tpu.ps.store import (
     ParameterStore as JaxStore, StoreConfig as JaxConfig)
 from distributed_parameter_server_for_ml_training_tpu.ps.worker import (
     PSWorker as JaxWorker, WorkerConfig as JaxWorkerConfig)
+from distributed_parameter_server_for_ml_training_tpu.telemetry import \
+    ClusterMonitor as JaxMonitor
+from distributed_parameter_server_for_ml_training_tpu.telemetry.registry \
+    import MetricsRegistry as JaxRegistry
 from distributed_parameter_server_for_ml_training_tpu.utils.pytree import \
     flatten_params as jax_flatten
 from distributed_parameter_server_for_ml_training_tpu_torch.comms import \
@@ -48,6 +55,8 @@ from distributed_parameter_server_for_ml_training_tpu_torch.models import \
     ResNet
 from distributed_parameter_server_for_ml_training_tpu_torch.ps import (
     PSWorker, ParameterStore, StoreConfig, WorkerConfig)
+from distributed_parameter_server_for_ml_training_tpu_torch.telemetry import \
+    ClusterMonitor, MetricsRegistry
 
 REPO = Path(__file__).resolve().parents[1]
 RPC_TIMEOUT = 30.0
@@ -72,17 +81,21 @@ def start_server():
     every server started is stopped at teardown."""
     servers = []
 
-    def start(package: str, params: dict, **options):
+    def start(package: str, params: dict, reports=None, **options):
         cfg = dict(mode="sync", total_workers=1, push_codec="int8",
                    **options)
         if package == "jax":
             store = JaxStore({k: v.copy() for k, v in params.items()},
                              JaxConfig(**cfg))
-            svc = JS.ParameterService(store)
+            monitor = None if reports is None else _monitor(
+                JaxMonitor, JaxRegistry, store, reports)
+            svc = JS.ParameterService(store, monitor=monitor)
         else:
             store = ParameterStore({k: v.copy() for k, v in params.items()},
                                    StoreConfig(**cfg))
-            svc = PS.ParameterService(store)
+            monitor = None if reports is None else _monitor(
+                ClusterMonitor, MetricsRegistry, store, reports)
+            svc = PS.ParameterService(store, monitor=monitor)
         recorded = []
         for rpc in ("register_worker", "push_gradrients",
                     "fetch_parameters", "job_finished"):
@@ -107,6 +120,19 @@ def start_server():
     yield start
     for server in servers:
         server.stop(grace=None).wait(10)
+
+
+def _monitor(monitor_cls, registry_cls, store, reports: list):
+    """A cluster monitor (not started) whose ingested reports are also
+    appended to ``reports`` as (worker id, report)."""
+    monitor = monitor_cls(store, registry=registry_cls())
+    ingest = monitor.ingest
+
+    def spy(worker_id, report):
+        reports.append((worker_id, dict(report)))
+        return ingest(worker_id, report)
+    monitor.ingest = spy
+    return monitor
 
 
 def _masked(recorded):
@@ -219,6 +245,41 @@ def test_worker_modes_against_both_servers(setup, start_server,
     assert _masked(prec) == _masked(jrec)
 
 
+@pytest.mark.parametrize("worker_package", ["port", "jax"])
+def test_health_reports_reach_the_other_packages_monitor(
+        setup, start_server, worker_package):
+    """Each package's worker against the OTHER package's server with a
+    cluster monitor: the register reply advertises ``health_report``, and
+    every report the worker piggybacks (from the first push on) reaches
+    the server's monitor, step by step, with the int8 codec and error
+    feedback named."""
+    jm, init, tm, ds, jds = setup
+    server = "jax" if worker_package == "port" else "port"
+    reports = []
+    address, store, _ = start_server(server, init, reports=reports)
+    if worker_package == "port":
+        remote = PC.RemoteStore(address, rpc_timeout=RPC_TIMEOUT)
+        worker = PSWorker(remote, tm, ds, WorkerConfig(
+            batch_size=64, num_epochs=1, augment=False, device="cpu"))
+    else:
+        remote = JC.RemoteStore(address, rpc_timeout=RPC_TIMEOUT)
+        worker = JaxWorker(remote, jm, jds, JaxWorkerConfig(
+            batch_size=64, num_epochs=1, augment=False))
+    worker.run()
+    remote.close()
+    assert worker.result.error is None, worker.result.error
+    assert remote.supports_health_report
+    assert worker.result.pushes_accepted == STEPS
+    assert {w for w, _ in reports} == {0}
+    assert sorted({r["step"] for _, r in reports}) == list(
+        range(1, STEPS + 1))
+    for _, r in reports:
+        assert r["push_codec"] == "int8+ef" and r["epoch"] == 0
+        assert r["loss_finite"] and r["grad_finite"]
+        assert math.isfinite(r["loss"]) and r["grad_norm"] > 0
+    assert store.global_step == STEPS
+
+
 def test_port_client_refuses_a_sharded_registration(start_server, setup):
     """A reply the port's client cannot serve is refused, never ignored:
     a shard map at registration."""
@@ -310,6 +371,10 @@ def test_cli_serve_and_two_cli_workers(tmp_path):
     (["worker", "--shards", "h:1,h:2", "--device", "cpu"], "item 9"),
     (["worker", "--job", "vision", "--device", "cpu"], "item 9"),
     (["worker", "--faults", "seed=7", "--device", "cpu"], "item 9"),
+    (["serve", "--telemetry"], "item 8"),
+    (["serve", "--metrics-port", "0"], "item 8"),
+    (["serve", "--incidents-dir", "incidents"], "item 8"),
+    (["serve", "--no-memory-telemetry"], "item 8"),
 ], ids=lambda v: "_".join(v) if isinstance(v, list) else v)
 def test_cli_flags_of_later_slices_are_refused(argv, item):
     from distributed_parameter_server_for_ml_training_tpu_torch import cli

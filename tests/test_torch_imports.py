@@ -53,7 +53,10 @@ def test_port_files_exist():
                      "comms/__init__.py", "comms/wire.py",
                      "comms/service.py", "comms/client.py",
                      "ps/device_store.py", "telemetry/journal.py",
-                     "checkpoint/__init__.py", "checkpoint/manager.py"):
+                     "checkpoint/__init__.py", "checkpoint/manager.py",
+                     "telemetry/health.py", "telemetry/cluster.py",
+                     "telemetry/slo.py", "telemetry/stats.py",
+                     "telemetry/remediation.py"):
         assert required in names, required
     for kernel in ("wire_quantize.cu", "block_quantize.cu",
                    "flash_attention.cu"):
@@ -238,10 +241,13 @@ def test_sp_entry_points_default_to_cuda():
 
 
 def test_later_flags_name_only_items_8_and_9():
-    """The CLI refuses only the flags of ROADMAP §1 item 9 (the service's
-    refusals name items 8 and 9); the store options and worker modes of
-    item 3, the device store of item 4 and the checkpoints of item 5 are
-    accepted, and ``--store-backend native`` is refused naming item 9."""
+    """The CLI refuses only the flags of ROADMAP §1 items 8 (the rest of
+    the telemetry: the streams, the HTTP surface, incident capture, the
+    memory sampler) and 9 (the service's refusals name item 9); the store
+    options and worker modes of item 3, the device store of item 4, the
+    checkpoints of item 5 and the health monitor, SLO and remediation
+    flags of item 8's first part are accepted, and ``--store-backend
+    native`` is refused naming item 9."""
     from distributed_parameter_server_for_ml_training_tpu_torch import cli
     from distributed_parameter_server_for_ml_training_tpu_torch.comms \
         import client, service
@@ -256,13 +262,23 @@ def test_later_flags_name_only_items_8_and_9():
         assert {int(n) for n in re.findall(r"item (\d+)", text)} \
             <= {8, 9}, text
     assert set(cli.LATER_FLAGS) == {"faults", "jobs", "job", "shards",
-                                    "store_backend"}
+                                    "store_backend", "telemetry",
+                                    "metrics_port", "incidents_dir",
+                                    "no_memory_telemetry"}
     parser = cli.build_parser()
     for argv in (["serve", "--fetch-codec", "bf16", "--elastic",
                   "--worker-timeout", "30", "--sync-quorum", "2",
                   "--round-deadline", "5"],
                  ["serve", "--store-backend", "device", "--checkpoint-dir",
                   "d", "--checkpoint-interval", "5", "--restore"],
+                 ["serve", "--remediate", "--remediate-dry-run",
+                  "--remediation-cooldown", "5", "--quarantine-secs", "9",
+                  "--health-interval", "1", "--dead-after", "9",
+                  "--straggler-lag", "3", "--slo-fetch-p99-ms", "50",
+                  "--slo-availability", "0.9", "--slo-fast-window", "10",
+                  "--slo-slow-window", "20", "--slo-fast-burn", "2",
+                  "--slo-slow-burn", "1"],
+                 ["serve", "--no-health-monitor", "--no-slo"],
                  ["worker", "--k-step-mode", "local_sgd", "--local-lr",
                   "0.1", "--overlap", "--heartbeat", "2",
                   "--reconnect-timeout", "60"],
@@ -276,3 +292,7 @@ def test_later_flags_name_only_items_8_and_9():
         with pytest.raises(NotImplementedError, match="item 9"):
             cli._refuse_later_flags(parser.parse_args(
                 [verb, "--store-backend", "native"]))
+    for argv in (["--telemetry"], ["--metrics-port", "0"],
+                 ["--incidents-dir", "i"], ["--no-memory-telemetry"]):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            cli._refuse_later_flags(parser.parse_args(["serve", *argv]))

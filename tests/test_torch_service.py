@@ -8,8 +8,11 @@ stores' snapshots bit-equal afterwards — also for an elastic store with a
 device-resident stores (the JAX ``DeviceParameterStore`` on the CPU, the
 port's with ``device="cpu"``); the push-token journal a checkpoint
 persists is the JAX service's, and a service that loads it answers a
-retry as a duplicate; the parts of the JAX service this slice leaves out
-are refused, naming their ROADMAP item."""
+retry as a duplicate; with a cluster monitor, ``reject_nonfinite``,
+quarantines and posted directives, one scripted sequence of requests and
+service calls gives byte-equal replies and equal returns; the parts of
+the JAX service this slice leaves out are refused, naming their ROADMAP
+item."""
 
 import threading
 import time
@@ -303,9 +306,7 @@ def test_capability_advertisement_is_a_default_jax_servers():
 
 
 @pytest.mark.parametrize("kwarg,item", [
-    ("faults", "item 9"), ("monitor", "item 8"),
-    ("reject_nonfinite", "item 8"), ("sharding", "item 9"),
-    ("jobs", "item 9")])
+    ("faults", "item 9"), ("sharding", "item 9"), ("jobs", "item 9")])
 def test_unported_service_options_are_refused(kwarg, item):
     store = ParameterStore(_params(), StoreConfig(total_workers=1))
     with pytest.raises(NotImplementedError, match=item):
@@ -313,13 +314,10 @@ def test_unported_service_options_are_refused(kwarg, item):
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda s: s.quarantine(0, 1.0), "item 8"),
-    (lambda s: s.post_directive(0, "drain"), "item 8"),
     (lambda s: s.reshard(JS.pack_msg({"op": "status"}), None), "item 9"),
     (lambda s: s.submit_job(JS.pack_msg({}), None), "item 9"),
     (lambda s: PS.WeightedFairAdmission(None), "item 9")],
-    ids=["quarantine", "post_directive", "reshard", "submit_job",
-         "admission"])
+    ids=["reshard", "submit_job", "admission"])
 def test_unported_service_parts_are_refused(call, item):
     svc = PS.ParameterService(ParameterStore(_params(),
                                              StoreConfig(total_workers=1)))
@@ -387,3 +385,189 @@ def test_push_journal_is_the_jax_services(stage, capsys):
         assert store.global_step == 0
     assert replies[0] == replies[1]
     assert PS.unpack_msg(replies[1])[0]["duplicate"] is True
+
+
+def healing_script(codec: str) -> list:
+    """(clock seconds, kind, what, argument) of a self-healing run: two
+    elastic workers (w0 hears directives, w1 is a legacy peer) register
+    and report; w0's push whose own report is non-finite is refused as
+    quarantined without a dedupe entry, so its clean retry applies; while
+    w0 is quarantined a retry of that applied token replays as a
+    duplicate and a new push is refused; directives are posted past the
+    cap (and to the legacy peer, and an unknown one), ride fetch and push
+    replies, and are acked; the quarantine lapses by time and is lifted
+    by hand; w0 says goodbye and a replacement takes its slot with no
+    directive or quarantine of its predecessor's."""
+    pack = JS.pack_msg
+    healthy = {"step": 1, "loss": 2.5, "grad_norm": 1.0,
+               "loss_finite": True, "grad_finite": True}
+    poisoned = {"step": 2, "loss": None, "grad_norm": None,
+                "loss_finite": False, "grad_finite": False}
+
+    def push(wid, seed, token, ack=None, health=None, step=0):
+        meta = {"worker_id": wid, "fetched_step": step}
+        if token is not None:
+            meta["push_token"] = token
+        if health is not None:
+            meta["health"] = health
+        if ack is not None:
+            meta["directives_ack"] = ack
+        return ("rpc", "push_gradrients", pack(
+            meta, jax_encode(_grads(seed, codec), checksum=True)))
+
+    def fetch(wid, ack=None, health=None, **kw):
+        meta = {"worker_id": wid, **kw}
+        if health is not None:
+            meta["health"] = health
+        if ack is not None:
+            meta["directives_ack"] = ack
+        return ("rpc", "fetch_parameters", pack(meta))
+
+    def call(name, *args, **kw):
+        return ("call", name, (args, kw))
+
+    n = "00ff00ff00ff"
+    w0 = pack({"worker_name": "w0", "capabilities": ["directives"]})
+    return [
+        (0, "rpc", "register_worker", w0),
+        (0, "rpc", "register_worker", pack({"worker_name": "w1"})),
+        (0, *fetch(0, ack=0, health=healthy)),
+        (1, *push(0, 1, f"{n}:1", ack=0, health=healthy)),
+        (1, *push(0, 2, f"{n}:2", ack=0, health=poisoned)),   # refused
+        (1, *push(0, 2, f"{n}:2", ack=0, health=healthy)),    # applies
+        (2, *call("quarantine", 0, 30.0)),
+        (2, *call("is_quarantined", 0)),
+        (2, *push(0, 2, f"{n}:2", ack=0, health=healthy)),    # duplicate
+        (2, *push(0, 3, f"{n}:3", ack=0, health=healthy)),    # refused
+        (2, *push(1, 4, None, step=1)),                       # applies
+        (3, *call("quarantine", 1, 5.0)),
+        (3, *push(1, 5, None, step=1)),                       # refused
+        *[(3, *call("post_directive", 0, "quarantine", steps=k))
+          for k in range(1, 19)],                             # past the cap
+        (3, *call("post_directive", 0, "refetch_params")),
+        (3, *call("post_directive", 1, "drain")),             # legacy: None
+        (3, *call("post_directive", 0, "reboot")),            # ValueError
+        (3, *call("directives_for", 0)),
+        (4, *fetch(0, ack=0, have_step=0)),                   # all 16 ride
+        (4, *push(0, 3, f"{n}:3", ack=10, health=healthy)),   # still held
+        (4, *call("quarantine_view")),
+        (9, *call("is_quarantined", 1)),                      # lapsed
+        (9, *push(1, 5, None, step=1)),
+        (9, *call("unquarantine", 0)),
+        (9, *push(0, 3, f"{n}:3", ack=15, health=healthy)),   # applies
+        (9, *fetch(0, ack=19, have_step=4, health=healthy)),
+        (10, *call("post_directive", 0, "drain")),
+        (10, *call("quarantine", 0, 30.0)),
+        (10, "rpc", "job_finished", pack({"worker_id": 0})),
+        (11, "rpc", "register_worker", w0),                   # slot 0 again
+        (11, *call("directives_for", 0)),
+        (11, *call("is_quarantined", 0)),
+        (11, *call("quarantine_view")),
+        (11, *push(0, 6, "abcdefabcdef:1", ack=0, health=healthy, step=4)),
+        (11, *fetch(0, ack=0, health=healthy)),
+    ]
+
+
+def _heal(service, steps, clock):
+    """Run ``healing_script`` steps into ``service`` on ``clock``: each
+    handler's reply bytes or each call's return (a ValueError's text)."""
+    out = []
+    for t, kind, what, arg in steps:
+        clock["t"] = t
+        if kind == "rpc":
+            out.append(getattr(service, what)(arg, None))
+            continue
+        args, kw = arg
+        try:
+            out.append(getattr(service, what)(*args, **kw))
+        except ValueError as e:
+            out.append(("ValueError", str(e)))
+    return out
+
+
+@pytest.mark.parametrize("codec,backend", [("int8", "host"),
+                                           ("fp16", "host"),
+                                           ("none", "device")])
+def test_self_healing_sequence_replies_equal_byte_for_byte(
+        codec, backend, monkeypatch, capsys):
+    from distributed_parameter_server_for_ml_training_tpu.telemetry \
+        import ClusterMonitor as JaxMonitor
+    from distributed_parameter_server_for_ml_training_tpu.telemetry \
+        .registry import MetricsRegistry as JaxRegistry
+    from distributed_parameter_server_for_ml_training_tpu_torch.telemetry \
+        import ClusterMonitor, MetricsRegistry
+
+    clock = {"t": 0.0}
+    monkeypatch.setattr(time, "time", lambda: 9_000.0 + clock["t"])
+    kwargs = dict(mode="async", total_workers=2, elastic=True,
+                  staleness_bound=5)
+    if backend == "host":
+        jax_store = JaxStore(_params(), JaxConfig(push_codec=codec,
+                                                  **kwargs))
+        port_store = ParameterStore(_params(), StoreConfig(
+            push_codec=codec, **kwargs))
+    else:
+        jax_store = JaxDeviceStore(_params(), JaxConfig(**kwargs))
+        port_store = DeviceParameterStore(_params(), StoreConfig(**kwargs),
+                                          device="cpu")
+    steps = healing_script(codec)
+    runs = {}
+    for name, svc_mod, store, mon, reg in (
+            ("jax", JS, jax_store, JaxMonitor, JaxRegistry),
+            ("port", PS, port_store, ClusterMonitor, MetricsRegistry)):
+        monitor = mon(store, registry=reg(), clock=time.time)
+        svc = svc_mod.ParameterService(store, monitor=monitor,
+                                       reject_nonfinite=True)
+        runs[name] = (_heal(svc, steps, clock), monitor)
+    (want, jmon), (got, pmon) = runs["jax"], runs["port"]
+    for i, (w, g) in enumerate(zip(want, got)):
+        assert g == w, (i, steps[i][:3], g if not isinstance(g, bytes)
+                        else PS.unpack_msg(g)[0],
+                        w if not isinstance(w, bytes)
+                        else JS.unpack_msg(w)[0])
+    metas = {i: PS.unpack_msg(g)[0] for i, g in enumerate(got)
+             if isinstance(g, bytes)}
+    assert metas[0]["health_report"] is True
+    assert metas[3]["accepted"] and metas[4]["quarantined"] \
+        and not metas[4]["accepted"]
+    assert metas[5]["accepted"] and "duplicate" not in metas[5]
+    assert metas[8]["duplicate"] and metas[8]["accepted"]
+    assert metas[9]["quarantined"] and metas[12]["quarantined"]
+    assert metas[10]["accepted"] and not metas[12]["accepted"]
+    # 19 posts to w0 (seq 1-19): the cap keeps the newest 16; the legacy
+    # peer gets none; an unknown action is refused.
+    assert got[31] == 19 and got[32] is None and got[33][0] == "ValueError"
+    assert [d["seq"] for d in got[34]] == list(range(4, 20))
+    assert [d["seq"] for d in metas[35]["directives"]] == list(range(4, 20))
+    assert metas[36]["quarantined"] \
+        and [d["seq"] for d in metas[36]["directives"]] == list(range(11, 20))
+    assert got[37] == {0: 28.0, 1: 4.0} and got[38] is False
+    assert metas[39]["accepted"] and metas[41]["accepted"]
+    assert [d["seq"] for d in metas[41]["directives"]] == list(range(16, 20))
+    assert "directives" not in metas[42]
+    # The replacement in slot 0 inherits neither directives nor quarantine.
+    assert metas[46]["worker_id"] == 0
+    assert got[47] == [] and got[48] is False and got[49] == {}
+    assert metas[50]["accepted"] and "directives" not in metas[51]
+    (jp, jstep), (pp, pstep) = jax_store.snapshot(), port_store.snapshot()
+    assert jstep == pstep == 6
+    for k in jp:
+        assert pp[k].tobytes() == jp[k].tobytes(), k
+    # Both monitors took the same reports.
+    assert pmon._reports == jmon._reports and 0 in pmon._reports
+
+
+def test_capability_advertisement_with_a_monitor_is_a_jax_servers():
+    from distributed_parameter_server_for_ml_training_tpu.telemetry \
+        import ClusterMonitor as JaxMonitor
+    from distributed_parameter_server_for_ml_training_tpu_torch.telemetry \
+        import ClusterMonitor
+
+    req = JS.pack_msg({"worker_name": "w"})
+    jstore = JaxStore(_params(), JaxConfig(total_workers=1))
+    pstore = ParameterStore(_params(), StoreConfig(total_workers=1))
+    want = JS.ParameterService(jstore, monitor=JaxMonitor(jstore)) \
+        .register_worker(req, None)
+    got = PS.ParameterService(pstore, monitor=ClusterMonitor(pstore)) \
+        .register_worker(req, None)
+    assert got == want and PS.unpack_msg(got)[0]["health_report"] is True
