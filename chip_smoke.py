@@ -211,7 +211,33 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    windows push nothing (K1 once a push sent), the device codec's
    residuals are empty right after the directive, and the first push
    after it is byte-equal to ``compress_push`` of its gradients under a
-   fresh ``ErrorFeedback`` (and differs from the carried one's).
+   fresh ``ErrorFeedback`` (and differs from the carried one's);
+19. every registry model under the data-parallel modes, on
+   ``synthetic_imagenet(1024, 256)`` at 224 x 224, 1,000 classes, bf16:
+   (a) ResNet-50 (the ImageNet stem) through ``BaselineTrainer``, 2
+   epochs of 8 steps of 128 eager and 2 graphed, each profiled over 8
+   steps (img/s, step ms, idle share, peak GiB); one step at batch 2 on
+   the card against the CPU in float64, params, batch statistics and
+   momentum within atol 1e-5 / rtol 1e-3; ResNet-18 with the ImageNet
+   stem for 4 eager steps. (b) ``SyncTrainer`` on ResNet-50, 4 slots of
+   64, int8, 8 steps: K3 4 and K4 7 launches a step, replicas identical,
+   each slot handing 6 payloads of ``ring_payload_bytes(6,389,258)`` a
+   step; then K3 and K4 on one step's real gradient rows at the ring's
+   first hop (4 x 6,389,258) against their plain versions on the card,
+   torch.equal, timed against their bounds. (c) ``AsyncTrainer`` on
+   ResNet-50 with an int8 store, 2 workers of 64, 4 pushes each: K1 3
+   launches a push (161 tensors, at most 64 a launch); the first push K1
+   quantized equal, byte for byte, to ``wire_quantize_multi_plain`` on
+   the same inputs, and its device time against the 127,785,160-byte
+   bound. (d) ViT-B/16: ``SyncTrainer`` with bf16 and with int8, 4
+   slots of 32, 4 steps (K3/K4 as in (b) at 21,641,914 values a slot),
+   then ``AsyncTrainer`` with int8 pushes, 2 workers of 32, 2 pushes
+   each (K1 3 a push, 152 tensors); the flash kernels' counts reset
+   before (d) and read after it must be 0 (197 tokens take the dense
+   core). (e) phase 14 (a)'s topology with ResNet-50: ``serve()`` and 2
+   ``PSWorker`` threads, int8 pushes, 2 pushes each, eval off: K1 3 a
+   push, no duplicate, each RPC's median ms and the bytes of a push and a
+   full fp32 fetch.
 
 Then one JSON line of kernels and, last, the device line. Without a CUDA
 device, or outside a checkout of the repo, it exits non-zero and prints
@@ -740,6 +766,7 @@ def phase_kernel_int8(state: dict) -> None:
     sass = {"block_quantize": sass_pipe_counts("block_quantize_kernelILb0E"),
             "block_quantize_stochastic": sass_pipe_counts(
                 "block_quantize_kernelILb1E")}
+    state["block_sass"] = sass
     # Each kernel twice by CUDA events (host-issued, 50 calls), then its
     # device time per call from torch.profiler's kernel durations.
     ms = {kernel: [cuda_time_ms(fk, 50) for _ in range(2)]
@@ -1216,8 +1243,10 @@ BASELINE_PROFILE_STEPS = 20
 
 
 def _baseline_parts(dtype: str, device: str, milestones, steps_per_epoch,
-                    augment: bool, seed: int = 0):
-    """Full ResNet-18 (100 classes) with its in-place state and steps."""
+                    augment: bool, seed: int = 0, name: str = "resnet18",
+                    num_classes: int = 100, image_size: int = 32):
+    """A full-width registry model (ResNet-18, 100 classes, unless asked)
+    with its in-place state and steps."""
     from distributed_parameter_server_for_ml_training_tpu_torch.models \
         import get_model
     from distributed_parameter_server_for_ml_training_tpu_torch.train \
@@ -1227,8 +1256,8 @@ def _baseline_parts(dtype: str, device: str, milestones, steps_per_epoch,
     from distributed_parameter_server_for_ml_training_tpu_torch.train \
         .train_state import module_train_state
 
-    model = get_model("resnet18", num_classes=100, dtype=dtype,
-                      device=device, seed=seed)
+    model = get_model(name, num_classes=num_classes, dtype=dtype,
+                      image_size=image_size, device=device, seed=seed)
     state = module_train_state(model, baseline_optimizer(
         milestones=milestones, steps_per_epoch=steps_per_epoch))
     ev = make_eval_step(model)
@@ -1980,7 +2009,8 @@ def _rpc_timer(remote, times: dict) -> None:
 
 def _grpc_run(steps_per_worker: int, n_test: int, seed: int,
               eval_each_epoch: bool, record: bool, store_kw=None,
-              worker_kw=None, probe=None, service=None, worker_kw_of=None):
+              worker_kw=None, probe=None, service=None, worker_kw_of=None,
+              parts=None, batch: int = BATCH):
     """Phase 5's configuration through the port's gRPC service on
     127.0.0.1: the server in this process, 2 ``PSWorker`` threads on the
     card, each through its own ``RemoteStore``. ``store_kw`` and
@@ -1990,7 +2020,9 @@ def _grpc_run(steps_per_worker: int, n_test: int, seed: int,
     With ``record``, the service keeps every push request and fetch
     reply, and the device codec the first gradients of each worker.
     ``probe(workers, done)`` runs on a thread of its own while the
-    workers train. Returns a dict of the run's pieces."""
+    workers train. ``parts`` replaces phase 5's ``(dataset, model, store,
+    initial params)`` and ``batch`` its batch (phase 19). Returns a dict
+    of the run's pieces."""
     import threading
 
     import torch
@@ -2002,7 +2034,8 @@ def _grpc_run(steps_per_worker: int, n_test: int, seed: int,
     from distributed_parameter_server_for_ml_training_tpu_torch.ps import (
         ParameterStore, PSWorker, StoreConfig, WorkerConfig)
 
-    ds, model, store, init = main_path(steps_per_worker, n_test, seed)
+    ds, model, store, init = parts or main_path(steps_per_worker, n_test,
+                                                seed)
     if store_kw:
         store = ParameterStore(init, StoreConfig(**{
             "mode": "async", "total_workers": N_WORKERS,
@@ -2039,7 +2072,7 @@ def _grpc_run(steps_per_worker: int, n_test: int, seed: int,
     for r in remotes:
         _rpc_timer(r, rpc_ms)
     workers = [PSWorker(r, model, ds, WorkerConfig(
-        batch_size=BATCH, num_epochs=1, device="cuda",
+        batch_size=batch, num_epochs=1, device="cuda",
         eval_each_epoch=eval_each_epoch, **(worker_kw or {}),
         **(worker_kw_of(i) if worker_kw_of else {})),
         worker_name=f"grpc-{i}") for i, r in enumerate(remotes)]
@@ -3637,6 +3670,568 @@ def phase_health(state: dict) -> None:
     _health_carry(state)
 
 
+# -- phase 19: every registry model under the data-parallel modes ------------
+
+MODELS_TRAIN, MODELS_TEST = 1_024, 256   # synthetic ImageNet, 224 px
+MODELS_PROFILE_STEPS = 8                 # one epoch of the baseline's 8
+R50_VALUES, VIT_VALUES = 25_557_032, 86_567_656
+
+
+def _device_ms_per_launch(fn, reps: int, kernel: str) -> dict:
+    """:func:`device_ms_per_call` as a mean per recorded launch, beside
+    the launches the trace recorded a call: a trace may drop some of a
+    launch-heavy phase's kernel records, and one that recorded none
+    gives no time (None), never 0."""
+    ms, launches = device_ms_per_call(fn, reps, kernel)
+    return {"device_ms_per_launch": ms / launches if launches else None,
+            "profiled_launches_per_call": launches}
+
+
+def _subset(ds, n_train: int, n_test: int):
+    from distributed_parameter_server_for_ml_training_tpu_torch.data \
+        import Dataset
+
+    return Dataset(ds.x_train[:n_train], ds.y_train[:n_train],
+                   ds.x_test[:n_test], ds.y_test[:n_test],
+                   num_classes=ds.num_classes, synthetic=True)
+
+
+def _models_baseline(state: dict, ds, out: dict, failures: list) -> None:
+    """(a) ResNet-50 through ``BaselineTrainer``, 2 epochs eager and 2
+    graphed (8 steps each), each profiled over an epoch's steps; one step
+    card against CPU in float64 at batch 2; ResNet-18 with the ImageNet
+    stem for 4 eager steps."""
+    import itertools
+
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.data \
+        import make_batches
+    from distributed_parameter_server_for_ml_training_tpu_torch.train \
+        .baseline import BaselineConfig, BaselineTrainer
+    from distributed_parameter_server_for_ml_training_tpu_torch.train \
+        .device_loop import prefetch_to_device
+
+    bs = BATCH
+    steps = len(ds.x_train) // bs
+    paths = {}
+    for name, device_loop in (("eager", False), ("graph", True)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = BaselineTrainer(ds, BaselineConfig(
+            model="resnet50", num_classes=1000, num_epochs=2,
+            device_loop=device_loop, device="cuda"))
+        if not trainer.model.imagenet_stem:
+            failures.append("(a) ResNet-50 at 224 px without the ImageNet "
+                            "stem")
+        met = trainer.train()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if device_loop:
+            loop = trainer._device_loop
+
+            def step_fn(loop=loop):
+                loop._cuda_graph.replay()
+            loop._slot.zero_()
+        else:
+            batches = itertools.cycle(list(prefetch_to_device(make_batches(
+                ds.x_train, ds.y_train, bs, seed=12345), depth=2)))
+            for _ in range(2):     # the profile starts with warm steps
+                trainer._train_step(trainer.state, *next(batches),
+                                    trainer._gen)
+
+            def step_fn(trainer=trainer, batches=batches):
+                trainer._train_step(trainer.state, *next(batches),
+                                    trainer._gen)
+        prof = _profile_steps(step_fn, MODELS_PROFILE_STEPS)
+        paths[name] = {
+            "epoch_seconds": met.epoch_times,
+            "train_seconds": trainer.train_seconds,
+            "img_per_s_epoch2": steps * bs / trainer.train_seconds[-1],
+            "step_ms": prof["ms_per_step_by_events"],
+            "device_idle_share": prof["device_idle_share"],
+            "train_loss": met.train_losses,
+            "test_accuracy_pct": met.test_accuracies,
+            "peak_memory_gib": peak, "profile": prof}
+        if not all(math.isfinite(v) for v in met.train_losses):
+            failures.append(f"(a) {name}: losses {met.train_losses}")
+        del trainer, step_fn
+    out["a_baseline_resnet50"] = {"batch_size": bs, "steps_per_epoch": steps,
+                                  "dtype": "bfloat16", **paths}
+
+    # One step, augment off, card against CPU from the same weights in
+    # float64 (phase 9 (a)'s check at ResNet-50's shapes).
+    xb, yb = ds.x_train[:2], ds.y_train[:2]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model, st, step, _ = _baseline_parts(
+            torch.float64, device, (10, 15), steps, False, name="resnet50",
+            num_classes=1000, image_size=224)
+        if runs:
+            model.load_state_dict(weights)
+        else:
+            weights = {k: v.cpu() for k, v in model.state_dict().items()}
+        _, m = step(st, xb, yb)
+        runs[device] = (st, float(m["loss"]))
+        del model
+    diff = _state_diff(runs["cuda"][0], runs["cpu"][0])
+    out["a_card_vs_cpu_float64"] = {
+        "batch_size": 2, "tolerance": "atol 1e-5, rtol 1e-3", **diff,
+        "losses": {d: loss for d, (_, loss) in runs.items()}}
+    bad = [p for p, v in diff.items() if v["outside"]]
+    if bad:
+        failures.append(f"(a) card against CPU in float64 outside atol "
+                        f"1e-5 / rtol 1e-3: {bad}")
+    del runs, weights
+
+    # ResNet-18 with the ImageNet stem: 4 eager steps.
+    model, st, step, _ = _baseline_parts(
+        "bfloat16", "cuda", (10, 15), steps, True, name="resnet18",
+        num_classes=1000, image_size=224)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    losses, times = [], []
+    for i in range(4):
+        xb = torch.as_tensor(ds.x_train[i * bs:(i + 1) * bs], device="cuda")
+        yb = torch.as_tensor(ds.y_train[i * bs:(i + 1) * bs], device="cuda")
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        st, m = step(st, xb, yb, gen)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+        losses.append(float(m["loss"]))
+    out["a_resnet18_imagenet_stem"] = {
+        "imagenet_stem": model.imagenet_stem,
+        "stem_kernel": list(model.stem_conv.kernel_size), "losses": losses,
+        "step_ms": times}
+    if not (model.imagenet_stem and all(map(math.isfinite, losses))):
+        failures.append(f"(a) ResNet-18 ImageNet stem: "
+                        f"{out['a_resnet18_imagenet_stem']}")
+    del model, st, step
+
+
+def _ring_rows_vs_plain(state: dict, model, params, stats, bi, bl) -> dict:
+    """One step's real per-slot gradient rows at the ring's first hop
+    (each slot's own chunk): K3 and K4 against their plain versions on
+    the card, bit for bit, and their device times against their bounds at
+    this chunk."""
+    import torch
+    import torch.nn.functional as F
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.data.cifar \
+        import standardize, to_float
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
+        quantize as Q
+    from distributed_parameter_server_for_ml_training_tpu_torch.parallel \
+        .sync_dp import make_slot_grad_fn, mix_seed, ravel_slots
+
+    grads, *_ = make_slot_grad_fn(model)(params, stats,
+                                         standardize(to_float(bi)),
+                                         bl.long())
+    flat, _ = ravel_slots(grads)
+    del grads
+    n, size = flat.shape
+    chunk = -(-size // n)
+    slots = torch.arange(n, device=flat.device)
+    x = F.pad(flat, (0, n * chunk - size)).view(n, n, chunk)[slots, slots]
+    del flat
+    seeds = [mix_seed(0x5EED, s, 0) for s in range(n)]
+    v, sc = Q.block_quantize_stochastic(x, seeds)
+    pv, psc = Q.quantize_int8_plain(x, seeds, stochastic=True)
+    back = Q.block_dequantize(v, sc, chunk)
+    pback = Q.dequantize_int8_plain(v, sc, chunk)
+    torch.cuda.synchronize()
+    k3_equal = torch.equal(v, pv) and torch.equal(sc, psc)
+    k4_equal = torch.equal(back, pback)
+    del pv, psc, pback
+    sass = state.get("block_sass") or {
+        "block_quantize_stochastic": sass_pipe_counts(
+            "block_quantize_kernelILb1E")}
+    fns = {"block_quantize_stochastic": (
+        lambda: Q.block_quantize_stochastic(x, seeds),
+        lambda: Q.quantize_int8_plain(x, seeds, stochastic=True),
+        "::block_quantize_kernel"),
+        "block_dequantize": (lambda: Q.block_dequantize(v, sc, chunk),
+                             lambda: Q.dequantize_int8_plain(v, sc, chunk),
+                             "::block_dequantize_kernel")}
+    kernels = {}
+    for kernel, (fk, fp, sym) in fns.items():
+        bound_ms, bound_by, parts = block_bound(n, chunk, kernel,
+                                                sass.get(kernel))
+        prof = _device_ms_per_launch(fk, 50, sym)
+        kernels[kernel] = {
+            "device_ms": prof["device_ms_per_launch"], **prof,
+            "ms": cuda_time_ms(fk, 20), "plain_ms": cuda_time_ms(fp, 3),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_parts": parts}
+    return {"rows": [n, chunk], "k3_bit_equal": k3_equal,
+            "k4_bit_equal": k4_equal, "kernels": kernels}
+
+
+def _models_sync(state: dict, ds, name: str, slots: int, batch: int,
+                 compression: str, epochs: int) -> dict:
+    """``SyncTrainer`` on ``name`` at 224 px, 1,000 classes, bf16: counts
+    reset just before ``train()`` and read just after; the step's time by
+    CUDA events; with int8 the ring's kernels on real rows against their
+    plain versions."""
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.parallel \
+        import shard_batch
+    from distributed_parameter_server_for_ml_training_tpu_torch.parallel \
+        .sync_dp import ring_payload_bytes
+    from distributed_parameter_server_for_ml_training_tpu_torch.train \
+        .distributed import DistributedConfig, SyncTrainer
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = SyncTrainer(ds, DistributedConfig(
+        mode="sync", model=name, num_workers=slots, batch_size=batch,
+        num_epochs=epochs, compression=compression, num_classes=1000,
+        dtype="bfloat16", device="cuda"))
+    init = {k: v.clone() for k, v in trainer.state.params.items()}
+    size = sum(v.numel() for v in init.values())
+    torch.cuda.synchronize()
+    _reset_block_counts()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _block_counts()
+    steps = trainer.global_steps
+    moved = sum(not torch.equal(init[k], v)
+                for k, v in trainer.state.params.items())
+    del init
+    finite = all(math.isfinite(v) for v in trainer.train_loss_per_epoch)
+    images = steps * slots * batch
+    bi, bl = shard_batch(trainer.mesh, (ds.x_train[:slots * batch],
+                                        ds.y_train[:slots * batch]))
+    st = trainer.state
+    times = []
+    for i in range(6):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        st, _ = trainer._step(st, bi, bl, 1)
+        b.record()
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append(a.elapsed_time(b))
+    del st
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    chunk = -(-size // slots)
+    res = {"model": name, "slots": slots, "batch_per_slot": batch,
+           "compression": compression, "params": size, "steps": steps,
+           "images": images, "launches": counts,
+           "img_per_s": images / sum(trainer.train_seconds),
+           "train_seconds": trainer.train_seconds, "run_seconds": wall,
+           "step_ms_median": float(np.median(times)), "step_ms_runs": times,
+           "train_loss_per_epoch": trainer.train_loss_per_epoch,
+           "tensors_moved": moved, "peak_memory_gib": peak,
+           "ring_replicas_identical": trainer.ring_replicas_identical,
+           "wire_bytes_per_slot_per_step": trainer.wire_bytes_per_slot_step,
+           "ring_payload_bytes": ring_payload_bytes(chunk), "chunk": chunk}
+    if compression == "int8":
+        res["ring_rows_vs_plain"] = _ring_rows_vs_plain(
+            state, trainer.model, trainer.state.params,
+            trainer.state.batch_stats, bi, bl)
+    del trainer, bi, bl
+    torch.cuda.empty_cache()
+    problems = []
+    want = {"block_quantize": 0,
+            "block_quantize_stochastic": slots * steps,
+            "block_dequantize": (2 * slots - 1) * steps} \
+        if compression == "int8" else {k: 0 for k in counts}
+    if counts != want:
+        problems.append(f"{steps} steps launched {counts}; expected {want}")
+    if not finite or moved == 0:
+        problems.append(f"losses {res['train_loss_per_epoch']}, tensors "
+                        f"moved {moved}")
+    if compression == "int8":
+        ring = res["ring_rows_vs_plain"]
+        if res["wire_bytes_per_slot_per_step"] != \
+                2 * (slots - 1) * res["ring_payload_bytes"]:
+            problems.append(f"wire bytes {res['wire_bytes_per_slot_per_step']}"
+                            f" a slot a step; expected {2 * (slots - 1)} x "
+                            f"{res['ring_payload_bytes']}")
+        if res["ring_replicas_identical"] is not True:
+            problems.append("the ring's per-slot results differ")
+        if not (ring["k3_bit_equal"] and ring["k4_bit_equal"]):
+            problems.append(f"K3/K4 against their plain versions at "
+                            f"{ring['rows']}: K3 {ring['k3_bit_equal']}, "
+                            f"K4 {ring['k4_bit_equal']}")
+    res["problems"] = problems
+    return res
+
+
+def _models_async(state: dict, ds, name: str, batch: int,
+                  pushes_per_worker: int) -> dict:
+    """``AsyncTrainer`` on ``name`` (2 workers) over a store with int8
+    pushes: K1's count reset just before ``train()`` and read just after;
+    the first push K1 quantized, against its plain version byte for
+    byte, and its device time against the byte bound."""
+    import threading
+
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
+        device_codec as DC, quantize as Q
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps import (
+        StoreConfig, make_store)
+    from distributed_parameter_server_for_ml_training_tpu_torch.train \
+        .distributed import AsyncTrainer, DistributedConfig
+
+    workers = N_WORKERS
+    sub = _subset(ds, workers * batch * pushes_per_worker, 64)
+    trainer = AsyncTrainer(sub, DistributedConfig(
+        mode="async", model=name, num_workers=workers, batch_size=batch,
+        num_epochs=1, num_classes=1000, dtype="bfloat16", device="cuda"))
+    init, _ = trainer.store.snapshot()
+    # The trainer's store with the int8 push codec (phase 5's store).
+    trainer.store = make_store("python", init, StoreConfig(
+        mode="async", total_workers=workers, push_codec="int8",
+        staleness_bound=5))
+    rec, lock = {}, threading.Lock()
+    kernel = DC.wire_quantize_multi
+
+    def spy(xs, scales, levels):
+        out = kernel(xs, scales, levels)
+        with lock:
+            if "xs" not in rec:
+                rec.update(xs=[x.detach().clone() for x in xs],
+                           scales=list(scales), levels=list(levels),
+                           codes=out[0].clone())
+        return out
+    DC.wire_quantize_multi = spy
+    Q.wire_quantize_multi.launches = 0
+    try:
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        DC.wire_quantize_multi = kernel
+    launches = Q.wire_quantize_multi.launches
+    results = trainer.results
+    pushes = sum(r.pushes_accepted + r.pushes_rejected for r in results)
+    errors = [repr(r.error) for r in results if r.error is not None]
+    final, step = trainer.store.snapshot()
+    moved = sum(not np.array_equal(final[k], init[k]) for k in init)
+    images = sum(r.local_steps_completed for r in results) * batch
+    train_s = max(sum(r.epoch_times) for r in results)
+    values = sum(x.numel() for x in rec.get("xs", []))
+    res = {"model": name, "workers": workers, "batch_size": batch,
+           "push_codec": "int8", "pushes": pushes, "global_step": step,
+           "tensors": len(init), "k1_launches": launches,
+           "k1_launches_per_push": launches / max(pushes, 1),
+           "images": images, "img_per_s": images / train_s,
+           "train_seconds": train_s, "run_seconds": wall,
+           "tensors_moved": moved, "pushed_values": values,
+           "train_loss_per_epoch": [v for r in results
+                                    for v in r.train_loss_per_epoch]}
+    problems = []
+    if errors:
+        problems.append(f"worker errors: {errors}")
+    want = -(-len(init) // Q.WIRE_MAX_ENTRIES) * pushes
+    if pushes != workers * pushes_per_worker or launches != want:
+        problems.append(f"K1 launched {launches} times for {pushes} pushes; "
+                        f"expected {want} for "
+                        f"{workers * pushes_per_worker}")
+    if moved == 0:
+        problems.append("the store's params did not move")
+    if rec:
+        xs, scales, levels = rec["xs"], rec["scales"], rec["levels"]
+        plain = Q.wire_quantize_multi_plain(xs, scales, levels)[0]
+        res["first_push_equal_plain"] = torch.equal(rec["codes"], plain)
+        before = Q.wire_quantize_multi.launches
+        Q.wire_quantize_multi(xs, scales, levels)
+        per_call = Q.wire_quantize_multi.launches - before
+        # The trace's mean a launch times the wrapper's own launches a
+        # push.
+        prof = _device_ms_per_launch(
+            lambda: Q.wire_quantize_multi(xs, scales, levels), 20,
+            "::wire_quantize_multi_kernel")
+        per_launch = prof["device_ms_per_launch"]
+        bound = (4 * values + values) / H100_BYTES_PER_S * 1e3
+        res["k1_push"] = {
+            "entries": len(xs), "values": values,
+            "device_ms": None if per_launch is None
+            else per_launch * per_call, **prof,
+            "launches_per_call": per_call,
+            "ms": cuda_time_ms(lambda: Q.wire_quantize_multi(
+                xs, scales, levels), 20),
+            "plain_ms": cuda_time_ms(lambda: Q.wire_quantize_multi_plain(
+                xs, scales, levels), 3),
+            "bound_ms": bound, "bound_by": "bytes",
+            "max_abs_err": int((rec["codes"].int() - plain.int()).abs().max())}
+        if not res["first_push_equal_plain"] or per_call != -(
+                -len(xs) // Q.WIRE_MAX_ENTRIES):
+            problems.append(f"a push through K1: equal to plain "
+                            f"{res['first_push_equal_plain']}, launches "
+                            f"{per_call}")
+        del plain
+    else:
+        problems.append("no push went through K1")
+    del trainer, rec
+    torch.cuda.empty_cache()
+    res["problems"] = problems
+    return res
+
+
+def _models_grpc(state: dict, ds) -> dict:
+    """(e) ``serve()`` on 127.0.0.1 and 2 ``PSWorker`` threads through
+    their own ``RemoteStore``s, ResNet-50 with int8 pushes, 2 pushes a
+    worker, eval off."""
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms \
+        .service import unpack_msg
+    from distributed_parameter_server_for_ml_training_tpu_torch.models \
+        import get_model
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
+        quantize as Q
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps import (
+        ParameterStore, StoreConfig)
+    from distributed_parameter_server_for_ml_training_tpu_torch.utils \
+        .pytree import params_to_jax
+
+    batch, per_worker = 64, 2
+    model = get_model("resnet50", num_classes=1000, dtype="bfloat16",
+                      image_size=224, device="cuda", seed=0)
+    init, _ = params_to_jax(model)
+    store = ParameterStore(init, StoreConfig(
+        mode="async", total_workers=N_WORKERS, push_codec="int8",
+        staleness_bound=5))
+    sub = _subset(ds, N_WORKERS * batch * per_worker, 64)
+    Q.wire_quantize_multi.launches = 0
+    run = _grpc_run(steps_per_worker=per_worker, n_test=0, seed=0,
+                    eval_each_epoch=False, record=True,
+                    parts=(sub, model, store, init), batch=batch)
+    launches = Q.wire_quantize_multi.launches
+    results = run["results"]
+    errors = [repr(r.error) for r in results if r.error is not None]
+    n_push = sum(r.pushes_accepted + r.pushes_rejected for r in results)
+    final, step = store.snapshot()
+    moved = sum(not np.array_equal(final[k], init[k]) for k in init)
+    replies = [unpack_msg(reply)[0] for _, reply in run["pushes"]]
+    duplicates = sum(bool(m.get("duplicate")) for m in replies)
+    fetch_meta = [unpack_msg(r)[0] for _, r in run["fetches"]]
+    full = [len(r) for (_, r), m in zip(run["fetches"], fetch_meta)
+            if not m.get("not_modified")]
+    images = sum(r.local_steps_completed for r in results) * batch
+    train_s = max(sum(r.epoch_times) for r in results)
+    res = {"model": "resnet50", "workers": N_WORKERS, "batch_size": batch,
+           "push_codec": "int8", "global_step": step, "pushes": n_push,
+           "k1_launches": launches, "duplicates": duplicates,
+           "tensors_moved": moved, "images": images,
+           "img_per_s": images / train_s, "train_seconds": train_s,
+           "run_seconds": run["wall"],
+           "rpc_ms_median": {k: float(np.median(v))
+                             for k, v in sorted(run["rpc_ms"].items())},
+           "rpc_calls": {k: len(v) for k, v in sorted(run["rpc_ms"].items())},
+           "push_request_bytes": sorted(set(len(q)
+                                            for q, _ in run["pushes"])),
+           "fetch_reply_bytes_full": sorted(set(full)),
+           "fetches_full": len(full)}
+    problems = []
+    if errors:
+        problems.append(f"worker errors: {errors}")
+    want = -(-len(init) // Q.WIRE_MAX_ENTRIES) * n_push
+    if n_push != N_WORKERS * per_worker or launches != want:
+        problems.append(f"K1 launched {launches} times for {n_push} pushes; "
+                        f"expected {want}")
+    if duplicates or moved == 0:
+        problems.append(f"{duplicates} duplicates, {moved} tensors moved")
+    res["problems"] = problems
+    del run, model, store
+    return res
+
+
+def phase_models(state: dict) -> None:
+    """Phase 19: ResNet-50 with the ImageNet stem and ViT-B/16 at 224 px
+    (1,000 classes, bf16) on synthetic ImageNet (1,024 training images):
+    (a) the baseline, (b) sync int8 ResNet-50, (c) async int8 pushes of
+    ResNet-50, (d) ViT-B/16 sync (bf16 and int8) and async, with the
+    flash kernels' counts at 0 (197 tokens take the dense core), (e) the
+    gRPC path with ResNet-50. The counts each sub-phase's checks read are
+    reset just before its run and read just after."""
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.data \
+        import synthetic_imagenet
+
+    t0 = time.perf_counter()
+    ds = synthetic_imagenet(n_train=MODELS_TRAIN, n_test=MODELS_TEST,
+                            num_classes=1000, image_size=224, seed=0)
+    out = {"phase": "models", "dataset": f"synthetic_imagenet("
+           f"{MODELS_TRAIN}, {MODELS_TEST}, 1000 classes, 224 px)",
+           "data_seconds": time.perf_counter() - t0, "card": state["card"]}
+    failures: list = []
+    timings = {}
+
+    def sub(key, fn):
+        t = time.perf_counter()
+        try:
+            fn()
+        except Exception as e:  # noqa: BLE001 — reported, fails the phase
+            traceback.print_exc()
+            failures.append(f"({key}) raised {e!r}")
+        timings[key] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+
+    sub("a", lambda: _models_baseline(state, ds, out, failures))
+
+    def sync_r50():
+        out["b_sync_resnet50"] = res = _models_sync(
+            state, ds, "resnet50", 4, 64, "int8", epochs=2)
+        failures.extend(f"(b) {p}" for p in res["problems"])
+    sub("b", sync_r50)
+
+    def async_r50():
+        out["c_async_resnet50"] = res = _models_async(
+            state, ds, "resnet50", 64, 4)
+        failures.extend(f"(c) {p}" for p in res["problems"])
+    sub("c", async_r50)
+
+    def vit():
+        _reset_flash_counts()
+        small = _subset(ds, 4 * 32 * 4, 64)
+        for comp in ("bf16", "int8"):
+            res = _models_sync(state, small, "vit_b16", 4, 32, comp,
+                               epochs=1)
+            out[f"d_sync_vit_b16_{comp}"] = res
+            failures.extend(f"(d) sync {comp}: {p}"
+                            for p in res["problems"])
+        res = _models_async(state, ds, "vit_b16", 32, 2)
+        out["d_async_vit_b16"] = res
+        failures.extend(f"(d) async: {p}" for p in res["problems"])
+        flash = _flash_counts()
+        out["d_flash_launches"] = flash
+        if any(flash.values()):
+            failures.append(f"(d) flash kernels launched at 197 tokens: "
+                            f"{flash}")
+    sub("d", vit)
+
+    def grpc():
+        out["e_grpc_resnet50"] = res = _models_grpc(state, ds)
+        failures.extend(f"(e) {p}" for p in res["problems"])
+    sub("e", grpc)
+
+    out["sub_phase_seconds"] = timings
+    # The launches of the path's runs, for the kernels line.
+    state["models_k1_launches"] = sum(
+        out.get(k, {}).get("k1_launches", 0) for k in (
+            "c_async_resnet50", "d_async_vit_b16", "e_grpc_resnet50"))
+    state["models_block_counts"] = {
+        name: sum(out.get(k, {}).get("launches", {}).get(name, 0) for k in (
+            "b_sync_resnet50", "d_sync_vit_b16_bf16", "d_sync_vit_b16_int8"))
+        for name in ("block_quantize", "block_quantize_stochastic",
+                     "block_dequantize")}
+    emit(out)
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
 def main() -> int:
     import torch
 
@@ -3656,7 +4251,7 @@ def main() -> int:
                   phase_sync_profile, phase_baseline, phase_kernel_flash,
                   phase_sp_path, phase_sp_profile, phase_cli,
                   phase_grpc_path, phase_grpc_modes, phase_device_store,
-                  phase_checkpoints, phase_health):
+                  phase_checkpoints, phase_health, phase_models):
         t0 = time.perf_counter()
         try:
             phase(state)
@@ -3675,8 +4270,8 @@ def main() -> int:
 
     # K1 with its launches from the async path's run, the gRPC path's
     # (phase 14 (a); (b)'s workers are other processes), the gRPC
-    # modes' (phase 15 (a)) and the health path's (phase 18 (a)); a
-    # push's times.
+    # modes' (phase 15 (a)), the health path's (phase 18 (a)) and the
+    # models' (phase 19 (c), (d), (e)); a push's times.
     kernels = []
     for name, k in state["k1"].items():
         kernels.append({
@@ -3685,15 +4280,18 @@ def main() -> int:
             "launches": state["k1_launches"][name]
             + state["grpc_k1_launches"][name]
             + state["modes_k1_launches"][name]
-            + state["health_k1_launches"][name],
+            + state["health_k1_launches"][name]
+            + state["models_k1_launches"],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": None})
-    # K2-K4 launches from the sync path's run: the ring rounds
-    # stochastically, so K2 (nearest rounding) reads 0 there. No single
-    # PyTorch call computes a block quantize, so library_ms is null.
-    launches = state["sync_counts"]
+    # K2-K4 launches from the sync path's runs (phase 7 and phase 19 (b),
+    # (d)): the ring rounds stochastically, so K2 (nearest rounding) reads
+    # 0 there. No single PyTorch call computes a block quantize, so
+    # library_ms is null.
+    launches = {k: v + state["models_block_counts"][k]
+                for k, v in state["sync_counts"].items()}
     for name, k in state["block"].items():
         kernels.append({
             "name": name, "route": "cuda", "source": Q.BLOCK_KERNEL_SOURCE,

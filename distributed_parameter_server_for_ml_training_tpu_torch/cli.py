@@ -12,11 +12,24 @@ with the JAX verb's flags that they honour, plus ``--device``::
         --synthetic --num-train 2048 --num-test 500 --emit-metrics
 
     python -m distributed_parameter_server_for_ml_training_tpu_torch.cli \\
+        train --mode baseline --model resnet50 --dataset imagenet-synth \\
+        --num-train 1024 --num-test 256 --epochs 1
+
+    python -m distributed_parameter_server_for_ml_training_tpu_torch.cli \\
+        train --mode sync --model vit_b16 --dataset imagenet-synth \\
+        --workers 4 --batch-size 32 --compression int8 --num-train 1024 \\
+        --num-test 256 --epochs 1
+
+    python -m distributed_parameter_server_for_ml_training_tpu_torch.cli \\
         train --mode sp --model vit_b16 --dataset imagenet-synth \\
         --image-size 1024 --workers 2 --batch-size 8 --num-train 8 \\
         --num-test 8 --epochs 1 --emit-metrics
 
-It runs on the card unless ``--device cpu`` is given. ``--mode baseline``
+It runs on the card unless ``--device cpu`` is given. Every mode but
+``sp`` trains any registry model (``--model resnet18|resnet50|vit_b16|
+vit_tiny``; the ResNets take the ImageNet stem from 96 px up, so
+``--dataset imagenet-synth`` gives ResNet-50 at 224 px); ``sp`` trains a
+ViT. ``--mode baseline``
 is the reference's single-device recipe (SGD with momentum and weight
 decay under MultiStepLR, ``train/baseline.py``); ``--plot`` saves its
 results plot. In every mode ``--checkpoint-dir`` saves a checkpoint each
@@ -47,10 +60,14 @@ and remote workers that train on the card and push to it
         worker --server 127.0.0.1:8000 --synthetic --num-train 2048 \
         --epochs 1 --emit-metrics
 
-Each package's workers train against the other package's server. The
-server draws the initial ResNet-18 weights with the port's ``get_model``
-(a torch generator seeded with ``--seed``), so they differ from the JAX
-server's flax initialization for the same seed.
+Each package's workers train against the other package's server. Both
+verbs take any registry model; the server's ``--model``,
+``--num-classes`` and ``--image-size`` must match the workers' (the
+store is keyed by parameter names, and the image size picks a ResNet's
+stem and a ViT's position embedding). The server draws the initial
+weights with the port's ``get_model`` (a torch generator seeded with
+``--seed``), so they differ from the JAX server's flax initialization
+for the same seed.
 
 ``serve`` takes the store's options: ``--fetch-codec bf16|fp16``,
 ``--elastic``, ``--worker-timeout``, for sync rounds ``--sync-quorum``
@@ -202,10 +219,10 @@ def build_parser() -> argparse.ArgumentParser:
                    default="bf16",
                    help="sync all-reduce precision (int8 = quantized "
                         "reduce-scatter ring, ~half bf16's bytes)")
-    t.add_argument("--model", choices=["resnet18", "vit_b16", "vit_tiny"],
+    t.add_argument("--model", choices=["resnet18", "resnet50", "vit_b16",
+                                       "vit_tiny"],
                    default="resnet18",
-                   help="baseline trains any; sync and async train "
-                        "resnet18; sp a ViT")
+                   help="baseline, sync and async train any; sp a ViT")
     t.add_argument("--plot", default=None,
                    help="save a results plot (png; baseline)")
     t.add_argument("--checkpoint-dir", default=None,
@@ -231,8 +248,7 @@ def build_parser() -> argparse.ArgumentParser:
                                        "vit_tiny"],
                    default="resnet18",
                    help="must match the workers' --model (the store is "
-                        "keyed by parameter names); the port serves "
-                        "resnet18")
+                        "keyed by parameter names)")
     s.add_argument("--image-size", type=int, default=32,
                    help="input resolution used to init the store's params")
     s.add_argument("--seed", type=int, default=0)
@@ -425,10 +441,6 @@ def cmd_train(args) -> int:
                                     SyncTrainer)
 
     _refuse_later_flags(args)
-    if args.mode in ("sync", "async") and args.model != "resnet18":
-        raise SystemExit(f"--mode {args.mode} trains resnet18 in the port; "
-                         f"--model {args.model} runs with --mode sp or "
-                         f"baseline")
     dataset = _load_dataset(args)
     if dataset.synthetic and args.dataset == "cifar100" \
             and not args.synthetic:
@@ -476,7 +488,7 @@ def cmd_train(args) -> int:
         reconnect_timeout=args.reconnect_timeout,
         store_backend=args.store_backend,
         augment=not args.no_augment, dtype=args.dtype,
-        num_classes=dataset.num_classes, seed=args.seed,
+        num_classes=dataset.num_classes, model=args.model, seed=args.seed,
         device=args.device)
     trainer = SyncTrainer if args.mode == "sync" else AsyncTrainer
     metrics = trainer(dataset, cfg).train(
@@ -509,9 +521,6 @@ def cmd_serve(args) -> int:
     from .utils.pytree import params_to_jax
 
     _refuse_later_flags(args)
-    if args.model != "resnet18":
-        raise SystemExit(f"serve: the port's parameter server serves "
-                         f"resnet18; --model {args.model} is not served")
     if (args.sync_quorum is not None or args.round_deadline is not None) \
             and args.mode != "sync":
         raise SystemExit("--sync-quorum/--round-deadline apply to "
@@ -682,9 +691,6 @@ def cmd_worker(args) -> int:
     from .utils.metrics import emit_metrics_json
 
     _refuse_later_flags(args)
-    if args.model != "resnet18":
-        raise SystemExit(f"worker: the port's remote worker trains "
-                         f"resnet18; --model {args.model} is not served")
     cfg = WorkerConfig(batch_size=args.batch_size, num_epochs=args.epochs,
                        sync_steps=args.sync_steps,
                        k_step_mode=args.k_step_mode,

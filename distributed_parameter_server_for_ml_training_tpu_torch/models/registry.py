@@ -1,9 +1,14 @@
-"""Model registry by name (counterpart of the JAX package's registry).
+"""Model registry by name (counterpart of the JAX package's registry): the
+BASELINE.json configurations.
 
-Ported: ResNet-18 / CIFAR-100, the reference's only model, and the ViTs
-(``vit_b16``, ``vit_tiny``) of the sequence-parallel slice. ResNet-50
-raises ``NotImplementedError`` naming the slice of the port that will
-bring it.
+- ``resnet18``: ResNet-18 / CIFAR-100, the reference's only model;
+- ``resnet50``: ResNet-50 (the ImageNet-1k sync configuration);
+- ``vit_b16``: ViT-B/16;
+- ``vit_tiny``: a small ViT for CIFAR-resolution runs and tests.
+
+Both ResNets take the ImageNet stem (7x7/2 conv + 3x3/2 max-pool) from 96
+px up, as in the JAX registry: the CIFAR stem would carry full-resolution
+feature maps into stage 0.
 """
 
 from __future__ import annotations
@@ -11,16 +16,13 @@ from __future__ import annotations
 import torch
 
 from ..utils.device import resolve_device
-from .resnet import ResNet18
+from .resnet import ResNet18, ResNet50
 from .vit import ViT_B16, ViT_Tiny
 
-_LATER = {
-    "resnet50": "the models slice (ResNet-50 with the ImageNet stem)",
-}
-
+_RESNETS = {"resnet18": ResNet18, "resnet50": ResNet50}
 _VITS = {"vit_b16": ViT_B16, "vit_tiny": ViT_Tiny}
 
-MODEL_NAMES = ("resnet18", "vit_b16", "vit_tiny")
+MODEL_NAMES = ("resnet18", "resnet50", "vit_b16", "vit_tiny")
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -33,17 +35,10 @@ def get_model(name: str, num_classes: int = 100,
     """Build a model by registry name on ``device``, its weights drawn from
     a ``torch.Generator`` seeded with ``seed``. ``axis_name`` selects
     cross-replica BatchNorm over the mesh slots, as in the JAX model (ViTs
-    ignore it: LayerNorm needs no sync). A ViT's position embedding is
-    sized for ``image_size``."""
-    if name in _LATER:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet; it comes with {_LATER[name]}")
+    ignore it: LayerNorm needs no sync). ``image_size`` picks a ResNet's
+    stem and sizes a ViT's position embedding."""
     if name not in MODEL_NAMES:
         raise ValueError(f"unknown model {name!r}; have {MODEL_NAMES}")
-    if name == "resnet18" and image_size >= 96:
-        raise NotImplementedError(
-            "the ImageNet stem (image_size >= 96) comes with the models "
-            "slice")
     dev = resolve_device(device)
     if isinstance(dtype, str):
         if dtype not in _DTYPES:
@@ -54,5 +49,6 @@ def get_model(name: str, num_classes: int = 100,
     if name in _VITS:
         return _VITS[name](num_classes=num_classes, dtype=dtype,
                            image_size=image_size, generator=gen).to(dev)
-    return ResNet18(num_classes=num_classes, dtype=dtype, generator=gen,
-                    axis_name=axis_name).to(dev)
+    return _RESNETS[name](num_classes=num_classes, dtype=dtype,
+                          generator=gen, axis_name=axis_name,
+                          imagenet_stem=image_size >= 96).to(dev)

@@ -14,6 +14,8 @@ defaults:
   fp32;
 - LayerNorm epsilon 1e-6; gelu is the tanh approximation (flax's
   ``nn.gelu`` default);
+- a float64 ``dtype``, for reference runs, computes all of it in float64,
+  LayerNorm and the attention softmax included;
 - submodules are named after the flax ones (``patch_embed``,
   ``cls_token``, ``pos_embed``, ``block_i.ln1``, ``block_i.attn.qkv``,
   ``block_i.attn.out``, ``block_i.ln2``, ``block_i.mlp.fc1``,
@@ -28,7 +30,22 @@ zero CLS token and a normal(0.02) position embedding.
 ``attention_fn`` replaces the dense core with one of the same
 ``[B, T, H, D] x3 -> [B, T, H, D]`` contract: ring attention
 (``parallel/ring_attention.py``) for sequence parallelism, or
-``ops/flash_attention.flash_attention``. ``SwitchMoEMlp``,
+``ops/flash_attention.flash_attention``.
+
+Per-slot gradients (the sync data-parallel step, ``parallel/sync_dp.py``):
+:meth:`ViT.forward_slots` runs N replicas at once, as ``ResNet`` does,
+from images ``[N, B, H, W, C]`` and one parameter leaf ``[N, ...]`` per
+slot, so autograd returns one gradient per slot. Dense layers are one
+``baddbmm`` over the slots, LayerNorm applies each slot's own affine, the
+patch embedding is a conv grouped over the slots, and the attention core
+(``attention_fn`` or the dense core, as in ``forward``) sees the slots
+folded into the batch. No statistic crosses slots (LayerNorm needs no
+sync).
+
+The patch embedding's bias is added after the conv, as flax adds it, so
+its gradient is a reduction of its own (torch's CPU conv backward sums
+the bias gradient in one long fp32 chain, which drifts from float64 at a
+few hundred tokens). ``SwitchMoEMlp``,
 ``ViTPrologue``, ``EncoderStage`` and ``ViTEpilogue`` come with the MoE
 and pipeline slices.
 """
@@ -45,6 +62,10 @@ from torch import nn
 from ..ops.attention import dense_core
 
 
+def _sub(name: str, leaf: str) -> str:
+    return f"{name}.{leaf}" if name else leaf
+
+
 class Dense(nn.Linear):
     """flax ``nn.Dense``: fp32 weights, inputs/kernel/bias cast to
     ``dtype``."""
@@ -58,10 +79,24 @@ class Dense(nn.Linear):
         d = self.compute_dtype
         return F.linear(x.to(d), self.weight.to(d), self.bias.to(d))
 
+    def forward_slots(self, x: torch.Tensor, params: dict,
+                      name: str) -> torch.Tensor:
+        """``[N, ..., I]`` with per-slot weight ``[N, O, I]`` and bias
+        ``[N, O]`` -> ``[N, ..., O]``: one batched product over the
+        slots."""
+        d = self.compute_dtype
+        w, b = params[_sub(name, "weight")], params[_sub(name, "bias")]
+        n = w.shape[0]
+        y = torch.baddbmm(b.to(d).unsqueeze(1),
+                          x.to(d).reshape(n, -1, x.shape[-1]),
+                          w.to(d).transpose(1, 2))
+        return y.view(*x.shape[:-1], w.shape[1])
+
 
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm`` over the last axis: fp32 statistics
-    (E[x^2] - E[x]^2 clipped at 0), eps 1e-6, result cast to ``dtype``."""
+    (E[x^2] - E[x]^2 clipped at 0; float64 for a float64 ``dtype``), eps
+    1e-6, result cast to ``dtype``."""
 
     def __init__(self, features: int, dtype: torch.dtype = torch.float32,
                  eps: float = 1e-6):
@@ -72,12 +107,22 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.to(torch.float32)
+        return self._norm(x, self.weight, self.bias)
+
+    def forward_slots(self, x: torch.Tensor, params: dict,
+                      name: str) -> torch.Tensor:
+        """``[N, ..., D]`` with per-slot scale and bias ``[N, D]``."""
+        w, b = params[_sub(name, "weight")], params[_sub(name, "bias")]
+        shape = (w.shape[0],) + (1,) * (x.dim() - 2) + (w.shape[1],)
+        return self._norm(x, w.view(shape), b.view(shape))
+
+    def _norm(self, x, weight, bias):
+        xf = x.to(torch.promote_types(self.compute_dtype, torch.float32))
         mean = xf.mean(dim=-1, keepdim=True)
         var = ((xf * xf).mean(dim=-1, keepdim=True)
                - mean * mean).clamp_min(0.0)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return ((xf - mean) * mul + self.bias).to(self.compute_dtype)
+        mul = torch.rsqrt(var + self.eps) * weight
+        return ((xf - mean) * mul + bias).to(self.compute_dtype)
 
 
 class MlpBlock(nn.Module):
@@ -89,6 +134,12 @@ class MlpBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+
+    def forward_slots(self, x: torch.Tensor, params: dict,
+                      name: str) -> torch.Tensor:
+        y = self.fc1.forward_slots(x, params, _sub(name, "fc1"))
+        return self.fc2.forward_slots(F.gelu(y, approximate="tanh"),
+                                      params, _sub(name, "fc2"))
 
 
 class SelfAttention(nn.Module):
@@ -110,10 +161,23 @@ class SelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, d = x.shape
-        qkv = self.qkv(x).view(b, t, 3, self.num_heads, d // self.num_heads)
+        return self.out(self._core(self.qkv(x), b, t, d))
+
+    def forward_slots(self, x: torch.Tensor, params: dict,
+                      name: str) -> torch.Tensor:
+        """``[N, B, T, D]``: the slots fold into the core's batch."""
+        n, b, t, d = x.shape
+        y = self._core(self.qkv.forward_slots(x, params, _sub(name, "qkv")),
+                       n * b, t, d)
+        return self.out.forward_slots(y.view(n, b, t, d), params,
+                                      _sub(name, "out"))
+
+    def _core(self, qkv: torch.Tensor, b: int, t: int, d: int
+              ) -> torch.Tensor:
+        qkv = qkv.view(b, t, 3, self.num_heads, d // self.num_heads)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         core = self.attention_fn or dense_core
-        return self.out(core(q, k, v).reshape(b, t, d))
+        return core(q, k, v).reshape(b, t, d)
 
 
 class EncoderBlock(nn.Module):
@@ -129,6 +193,18 @@ class EncoderBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln1(x))
         return x + self.mlp(self.ln2(x))
+
+    def forward_slots(self, x: torch.Tensor, params: dict,
+                      name: str) -> torch.Tensor:
+        def sub(mod):
+            return _sub(name, mod)
+
+        x = x + self.attn.forward_slots(
+            self.ln1.forward_slots(x, params, sub("ln1")), params,
+            sub("attn"))
+        return x + self.mlp.forward_slots(
+            self.ln2.forward_slots(x, params, sub("ln2")), params,
+            sub("mlp"))
 
 
 class ViT(nn.Module):
@@ -185,12 +261,15 @@ class ViT(nn.Module):
         return [getattr(self, f"block_{i}") for i in range(self.depth)]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """NHWC images ``[B, H, W, C]`` -> fp32 logits (float64 for a
+        float64 ``dtype``)."""
         b = x.shape[0]
         d = self.compute_dtype
         x = F.conv2d(x.to(d).permute(0, 3, 1, 2),
-                     self.patch_embed.weight.to(d),
-                     self.patch_embed.bias.to(d), stride=self.patch_size)
-        x = x.permute(0, 2, 3, 1).reshape(b, -1, self.hidden_dim)
+                     self.patch_embed.weight.to(d), None,
+                     stride=self.patch_size)
+        x = x.permute(0, 2, 3, 1).reshape(b, -1, self.hidden_dim) \
+            + self.patch_embed.bias.to(d)
         if self.pool == "cls":
             cls = self.cls_token.expand(b, 1, self.hidden_dim).to(d)
             x = torch.cat([cls, x], dim=1)
@@ -199,7 +278,31 @@ class ViT(nn.Module):
             x = block(x)
         x = self.ln_final(x)
         x = x[:, 0] if self.pool == "cls" else x.mean(dim=1)
-        return self.head(x).to(torch.float32)
+        return self.head(x).to(torch.promote_types(d, torch.float32))
+
+    def forward_slots(self, x: torch.Tensor, params: dict) -> torch.Tensor:
+        """All N slots at once: NHWC images ``[N, B, H, W, C]`` and one leaf
+        ``[N, *shape]`` per torch parameter name -> logits ``[N, B,
+        classes]`` (module notes)."""
+        n, b, h, w, c = x.shape
+        d, dim = self.compute_dtype, self.hidden_dim
+        kernel = params["patch_embed.weight"]
+        x = F.conv2d(x.to(d).permute(1, 0, 4, 2, 3).reshape(b, n * c, h, w),
+                     kernel.to(d).reshape(n * dim, *kernel.shape[2:]), None,
+                     stride=self.patch_size, groups=n)
+        x = x.view(b, n, dim, -1).permute(1, 0, 3, 2) \
+            + params["patch_embed.bias"].to(d)[:, None, None]
+        if self.pool == "cls":
+            cls = params["cls_token"].to(d).expand(n, b, 1, dim)
+            x = torch.cat([cls, x], dim=2)
+        x = x + params["pos_embed"].to(d)
+        for i in range(self.depth):
+            x = getattr(self, f"block_{i}").forward_slots(x, params,
+                                                          f"block_{i}")
+        x = self.ln_final.forward_slots(x, params, "ln_final")
+        x = x[:, :, 0] if self.pool == "cls" else x.mean(dim=2)
+        return self.head.forward_slots(x, params, "head").to(
+            torch.promote_types(d, torch.float32))
 
 
 def init_weights(module: nn.Module,

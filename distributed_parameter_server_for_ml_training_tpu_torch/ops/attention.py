@@ -2,8 +2,9 @@
 ``ops/attention.py``).
 
 :func:`dense_core` is the softmax attention every dense path shares:
-the logits' product in the INPUT dtype, scale and softmax in fp32,
-probabilities cast back to the input dtype before the product with V. ``models/vit.py``'s
+the logits' product in the INPUT dtype, scale and softmax in fp32 (in
+float64 for float64 inputs, the reference runs), probabilities cast back
+to the input dtype before the product with V. ``models/vit.py``'s
 ``SelfAttention`` runs it when no ``attention_fn`` is given, and
 ``ops/flash_attention.flash_attention`` below its crossover.
 """
@@ -24,7 +25,8 @@ def dense_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = 1.0 / math.sqrt(q.shape[-1])
     # The product in the input dtype, scaled in fp32: the reference's
     # numpy-scalar scale is not weakly typed, so its multiply promotes.
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * scale
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).to(
+        torch.promote_types(q.dtype, torch.float32)) * scale
     if causal:
         t = q.shape[1]
         mask = torch.tril(torch.ones((t, t), dtype=torch.bool,

@@ -3,9 +3,10 @@
 Counterpart of the JAX package's ``ops/device_codec.py``. The NumPy codec
 family (:mod:`.compression`) is the host reference: a quantized push there
 starts with a full fp32 device->host copy of the gradients (~45 MB for
-ResNet-18). This codec keeps the error-feedback carry, the quantize
-(kernel K1, :mod:`.quantize`), the int4 nibble pack and the top-k select
-on the device, and copies only the wire buffers to the host.
+ResNet-18, ~102 MB for ResNet-50). This codec keeps the error-feedback
+carry, the quantize (kernel K1, :mod:`.quantize`), the int4 nibble pack
+and the top-k select on the device, and copies only the wire buffers to
+the host.
 
 Bit-identity contract: the payload :meth:`DeviceCodec.encode` produces is
 byte-for-byte what :func:`.compression.compress_push` produces for the

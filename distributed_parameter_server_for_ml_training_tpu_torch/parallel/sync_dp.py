@@ -9,11 +9,13 @@ loss through cross-replica BatchNorm, all-reduces the gradients (a cast
 same SGD update everywhere. The port runs the same step for all N slots
 of a :class:`~.mesh.Mesh` in one program on one card:
 
-- one forward and backward over the N slots (``ResNet.forward_slots``):
+- one forward and backward over the N slots (the model's
+  ``forward_slots``: ``ResNet``'s or ``ViT``'s, so every registry model):
   each parameter enters as an ``[N, ...]`` leaf made from the replicated
   value, so autograd returns slot w's gradient ``g_w``, the part from
   slot w's samples of the backward of ``sum_v L_v`` — the gradient each
-  JAX device computes through the BatchNorm ``pmean``;
+  JAX device computes (through the BatchNorm ``pmean`` for a ResNet; a
+  ViT's slots share no statistic);
 - the per-slot gradients are flattened as ``ravel_pytree`` flattens the
   flax tree (sorted path order, flax layouts) into ``[N, S]``, one row
   per slot;
@@ -155,7 +157,10 @@ def shard_batch(mesh: Mesh, batch: Sequence, axis: str = DATA_AXIS
 
 
 def _slot_to_flax(g: torch.Tensor) -> torch.Tensor:
-    """``[N, *torch_shape]`` -> ``[N, *flax_shape]`` (a view)."""
+    """``[N, *torch_shape]`` -> ``[N, *flax_shape]`` (a view), by rank as
+    ``utils/pytree.to_flax_layout``: 5-D leaves are conv kernels, 3-D ones
+    Dense kernels; the rest keep their layout (vectors, and a ViT's
+    ``cls_token`` and ``pos_embed``, 4-D with the slot axis)."""
     if g.dim() == 5:
         return g.permute(0, 3, 4, 2, 1)     # [N, O, I, H, W] -> HWIO
     if g.dim() == 3:
@@ -165,7 +170,8 @@ def _slot_to_flax(g: torch.Tensor) -> torch.Tensor:
 
 def make_slot_grad_fn(model: torch.nn.Module) -> Callable:
     """``slot_grads(params, batch_stats, images, labels) -> (grads, losses,
-    logits, new_batch_stats)`` over all slots at once.
+    logits, new_batch_stats)`` over all slots at once, for any model with
+    a ``forward_slots`` (every registry model).
 
     ``params``/``batch_stats`` are flat flax-named dicts (flax layouts);
     ``images`` are standardized float NHWC ``[N, B, H, W, C]`` and
@@ -173,7 +179,7 @@ def make_slot_grad_fn(model: torch.nn.Module) -> Callable:
     gradients ``[N, *flax_shape]``; ``losses`` ``[N]`` are each slot's mean
     cross-entropy; ``logits`` ``[N, B, classes]``. The model's running
     statistics are loaded from ``batch_stats`` and updated in place; the
-    new values are returned as copies."""
+    new values are returned as copies (none for a ViT)."""
     pnames, snames = flax_names(model)
     buffers = dict(model.named_buffers())
     order = list(pnames)
@@ -237,8 +243,9 @@ def make_sync_dp_step(mesh: Mesh, model: torch.nn.Module, *,
     """Build the sync data-parallel ``step(state, images_u8, labels, seed)
     -> (state, metrics)`` over ``model``'s slots.
 
-    ``model`` must be built with ``axis_name=axis`` (cross-replica
-    BatchNorm), as the JAX step requires. ``images_u8``/``labels`` come
+    A model with BatchNorm must be built with ``axis_name=axis``
+    (cross-replica BatchNorm), as the JAX step requires; a ViT has no
+    statistic to sync. ``images_u8``/``labels`` come
     from :func:`shard_batch` (``[N, B, ...]``); ``seed`` is the run's
     seed, folded with ``state.step`` for the augmentation draws and the
     ring's hop seeds; the ring rounds stochastically, as the reference's
@@ -250,7 +257,8 @@ def make_sync_dp_step(mesh: Mesh, model: torch.nn.Module, *,
     if compression not in COMPRESSIONS:
         raise ValueError(f"compression must be one of {COMPRESSIONS}, got "
                          f"{compression!r}")
-    if getattr(model, "axis_name", None) != axis:
+    if any(True for _ in model.buffers()) \
+            and getattr(model, "axis_name", None) != axis:
         raise ValueError(f"the sync step needs a model built with "
                          f"axis_name={axis!r} (cross-replica BatchNorm)")
     n = worker_axis_size(mesh, axis)

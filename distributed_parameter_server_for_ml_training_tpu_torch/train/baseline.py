@@ -3,9 +3,11 @@ package's ``train/baseline.py``; reference: baseline/baseline_training.py).
 
 The same recipe — ResNet-18/CIFAR-100, batch 128, SGD(momentum 0.9, wd
 5e-4), MultiStepLR([10,15], gamma 0.1), per-epoch train/test metrics and
-plots (baseline_training.py:201-260) — on one card. Each epoch runs either
-as a per-batch host loop (the reference's DataLoader shape, host batches
-uploaded ahead of the step by ``prefetch_to_device``) or, with
+plots (baseline_training.py:201-260) — on one card, for any registry
+model (``BaselineConfig.model``; ResNet-50 on ImageNet-shaped data takes
+the ImageNet stem). Each epoch runs either as a per-batch host loop
+(the reference's DataLoader shape, host batches uploaded ahead of the
+step by ``prefetch_to_device``) or, with
 ``device_loop=True``, over the device-resident dataset with each step one
 CUDA-graph replay (``train/device_loop.py``). With a checkpoint directory
 the train state and the generator are saved each epoch, and a resume

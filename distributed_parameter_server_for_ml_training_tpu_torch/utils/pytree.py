@@ -17,10 +17,12 @@ layouts; this module converts at the boundary:
 - ViT's ``cls_token`` and ``pos_embed`` (3-D) keep name and layout.
 
 The port's modules are named after the flax ones (``stem_conv``,
-``BasicBlock_0.Conv_0``, ...), so a name maps by swapping '/' for '.' and
+``stem_conv_s2d``, ``BasicBlock_0.Conv_0``, ``Bottleneck_0.Conv_3``,
+``block_0.attn.qkv``, ...), so a name maps by swapping '/' for '.' and
 renaming the leaf, and the layout follows from the rank alone: 4-D
-tensors are conv kernels, 2-D ones Dense kernels, the rest (vectors and
-ViT's 3-D embeddings) keep their layout.
+tensors are conv kernels (3x3, 1x1, the 7x7 ImageNet stem and its 4x4
+space-to-depth form alike), 2-D ones Dense kernels, the rest (vectors
+and ViT's 3-D embeddings) keep their layout.
 """
 
 from __future__ import annotations

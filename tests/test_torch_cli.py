@@ -110,7 +110,10 @@ def test_cli_train_sp_on_cpu(capsys, dataset):
 
 
 def test_cli_sp_refuses_what_it_does_not_train():
-    with pytest.raises(SystemExit, match="--mode sp"):
-        cli.main(["train", "--mode", "sync", "--model", "vit_tiny",
-                  "--device", "cpu", "--synthetic"])
+    """sp trains a ViT; a ResNet under --mode sp is refused (every other
+    mode trains every registry model)."""
+    with pytest.raises(ValueError, match="--mode sp supports ViT"):
+        cli.main(["train", "--mode", "sp", "--model", "resnet50",
+                  "--device", "cpu", "--synthetic", "--num-train", "8",
+                  "--num-test", "4"])
 

@@ -6,7 +6,8 @@ epoch of a few batches of a tiny ResNet on the CPU (int8 pushes with error
 feedback, the compressed-domain store, shared scales, delta fetches) must
 reach the same global step with bit-equal store params against either
 server, and the request frames the two servers record must be equal byte
-for byte once the push token's 12-hex nonce is masked; so must a
+for byte once the push token's 12-hex nonce is masked, and so for a
+Bottleneck ResNet and a ViT with either package's worker; so must a
 ``local_sgd`` worker through the overlapped pipeline against an elastic,
 expiring, bf16-fetch server of each package. Against the other package's
 server with a cluster monitor, each package's worker sends its health
@@ -30,6 +31,7 @@ import grpc
 import jax
 import numpy as np
 import pytest
+import torch
 
 from distributed_parameter_server_for_ml_training_tpu.comms import \
     client as JC, service as JS
@@ -57,6 +59,7 @@ from distributed_parameter_server_for_ml_training_tpu_torch.ps import (
     PSWorker, ParameterStore, StoreConfig, WorkerConfig)
 from distributed_parameter_server_for_ml_training_tpu_torch.telemetry import \
     ClusterMonitor, MetricsRegistry
+from torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 REPO = Path(__file__).resolve().parents[1]
 RPC_TIMEOUT = 30.0
@@ -148,6 +151,10 @@ def _bit_equal(a: dict, b: dict):
 
 def test_port_worker_trains_against_both_servers(setup, start_server):
     _, init, tm, ds, _ = setup
+    _port_worker_against_both(start_server, init, tm, ds)
+
+
+def _port_worker_against_both(start_server, init, tm, ds):
     runs = {}
     for package in ("jax", "port"):
         address, store, recorded = start_server(package, init)
@@ -178,6 +185,60 @@ def test_port_worker_trains_against_both_servers(setup, start_server):
                if rpc == "fetch_parameters")
     assert pres.wire == jres.wire and \
         pres.wire["rpc_counts"]["PushGradrients"] == STEPS
+
+
+def _other_model(kind: str):
+    """(flax model, its flat params, the port's model) for a Bottleneck
+    ResNet (the ImageNet stem at 32 px) or a small ViT."""
+    from distributed_parameter_server_for_ml_training_tpu.models import (
+        resnet as jresnet, vit as jvit)
+    from distributed_parameter_server_for_ml_training_tpu_torch.models \
+        import Bottleneck, ViT
+    if kind == "bottleneck":
+        kw = dict(stage_sizes=(1, 1), num_filters=8, num_classes=10,
+                  imagenet_stem=True)
+        jm = jresnet.ResNet(block_cls=jresnet.Bottleneck, **kw)
+        tm = ResNet(block_cls=Bottleneck, **kw)
+    else:
+        kw = dict(patch_size=4, hidden_dim=64, depth=2, num_heads=2,
+                  num_classes=10)
+        jm = jvit.ViT(**kw)
+        tm = ViT(**kw, image_size=32)
+    v = jm.init(jax.random.PRNGKey(0), np.zeros((1, 32, 32, 3), np.float32),
+                train=False)
+    return jm, jax_flatten(v["params"]), tm
+
+
+@pytest.mark.parametrize("worker_package", ["port", "jax"])
+@pytest.mark.parametrize("kind", ["bottleneck", "vit"])
+def test_other_models_train_against_both_servers(setup, start_server, kind,
+                                                 worker_package,
+                                                 one_torch_thread):
+    """A Bottleneck ResNet and a ViT (no batch statistics) over the wire:
+    each package's worker reaches the same step with bit-equal store
+    params against either server, and sends the same request bytes once
+    the token's nonce is masked."""
+    *_, ds, jds = setup
+    jm, init, tm = _other_model(kind)
+    if worker_package == "port":
+        _port_worker_against_both(start_server, init, tm, ds)
+        return
+    runs = {}
+    for package in ("port", "jax"):
+        address, store, recorded = start_server(package, init)
+        remote = JC.RemoteStore(address, rpc_timeout=RPC_TIMEOUT)
+        worker = JaxWorker(remote, jm, jds, JaxWorkerConfig(
+            batch_size=64, num_epochs=1, augment=False))
+        worker.run()
+        remote.close()
+        assert worker.result.error is None, worker.result.error
+        assert worker.result.pushes_accepted == STEPS
+        runs[package] = (store.snapshot(), recorded)
+    (jp, jstep), jrec = runs["jax"]
+    (pp, pstep), prec = runs["port"]
+    assert jstep == pstep == STEPS
+    _bit_equal(pp, jp)
+    assert _masked(prec) == _masked(jrec)
 
 
 def test_jax_worker_trains_against_both_servers(setup, start_server):
@@ -397,9 +458,35 @@ def test_cli_checkpoint_and_device_store_flags_are_served(argv):
             cli.main(["serve", "--restore"])
 
 
-def test_cli_serves_and_trains_only_resnet18():
+@pytest.mark.parametrize("model", ["vit_tiny", "resnet50"])
+def test_cli_serve_and_worker_train_any_registry_model(model, capsys,
+                                                       one_torch_thread):
+    """``cli serve --model M`` in a thread and ``cli worker --model M
+    --device cpu`` against it (full width, 2 steps of 4 images, int8
+    pushes): the worker finishes, every push applies, the server exits
+    0."""
+    import socket
+
     from distributed_parameter_server_for_ml_training_tpu_torch import cli
-    for argv in (["serve", "--model", "vit_tiny"],
-                 ["worker", "--model", "vit_b16", "--device", "cpu"]):
-        with pytest.raises(SystemExit, match="resnet18"):
-            cli.main(argv)
+    from distributed_parameter_server_for_ml_training_tpu_torch.utils \
+        .metrics import parse_metrics_lines
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    rc = {}
+    server = threading.Thread(target=lambda: rc.update(rc=cli.main([
+        "serve", "--mode", "async", "--workers", "1", "--model", model,
+        "--push-codec", "int8", "--port", str(port), "--emit-metrics"])),
+        daemon=True)
+    server.start()
+    assert cli.main(["worker", "--server", f"127.0.0.1:{port}", "--model",
+                     model, "--synthetic", "--num-train", "8", "--num-test",
+                     "4", "--batch-size", "4", "--epochs", "1", "--device",
+                     "cpu", "--dtype", "float32", "--emit-metrics"]) == 0
+    server.join(60)
+    assert not server.is_alive() and rc == {"rc": 0}
+    rows = parse_metrics_lines(capsys.readouterr().out)
+    worker = next(r for r in rows if "worker_id" in r)
+    store = next(r for r in rows if "global_steps_completed" in r)
+    assert worker["local_steps_completed"] == 2
+    assert store["global_steps_completed"] == 2

@@ -18,6 +18,7 @@ from distributed_parameter_server_for_ml_training_tpu_torch.models import (
     MODEL_NAMES, BatchNorm, ResNet, ViT, get_model)
 from distributed_parameter_server_for_ml_training_tpu_torch.utils.pytree \
     import params_from_jax, params_to_jax
+from torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 
 def _pair(seed=0, num_filters=8, stage_sizes=(1, 1)):
@@ -133,17 +134,25 @@ def test_init_is_seeded_and_flax_like():
     assert np.all(pa["head/bias"] == 0) and np.all(pa["stem_bn/scale"] == 1)
 
 
-@pytest.mark.parametrize("name", ["resnet50", "vit_b16", "vit_tiny"])
-def test_later_models_name_their_slice(name):
-    """Each name of the JAX registry either builds (the ViTs came with the
-    sequence-parallel slice) or names the slice that brings it."""
-    if name in MODEL_NAMES:
-        model = get_model(name, num_classes=10, device="cpu", image_size=32)
-        assert isinstance(model, ViT) and model.head.out_features == 10
-        with pytest.raises(NotImplementedError, match="slice"):
-            get_model("resnet18", device="cpu", image_size=224)
+@pytest.mark.parametrize("name", ["resnet18", "resnet50", "vit_b16",
+                                  "vit_tiny"])
+def test_every_registry_name_builds(name, one_torch_thread):
+    """Every name of the JAX registry builds and runs a forward: the
+    ResNets at 224 px (the ImageNet stem), the ViTs at 32 px (the CIFAR
+    resolution's position embedding); an unknown name is refused."""
+    assert MODEL_NAMES == ("resnet18", "resnet50", "vit_b16", "vit_tiny")
+    vit = name.startswith("vit")
+    size = 32 if vit else 224
+    model = get_model(name, num_classes=10, device="cpu", image_size=size,
+                      dtype="float32")
+    assert isinstance(model, ViT if vit else ResNet)
+    assert model.head.out_features == 10
+    if vit:
+        assert model.pos_embed.shape[1] == (size // model.patch_size) ** 2 + 1
     else:
-        with pytest.raises(NotImplementedError, match="slice"):
-            get_model(name, device="cpu")
+        assert model.imagenet_stem
+    with torch.no_grad():
+        out = model.eval()(torch.zeros(1, size, size, 3))
+    assert tuple(out.shape) == (1, 10) and torch.isfinite(out).all()
     with pytest.raises(ValueError):
         get_model("nope", device="cpu")
