@@ -129,7 +129,8 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    --workers 2 --push-codec int8`` and 2 ``cli worker --synthetic
    --num-train 2048 --epochs 1`` on the card: every process exits 0
    within its timeout (one still alive then is killed, and the phase
-   fails), and the server reports a step above 0;
+   fails), and the server reports a step above 0 (no profiler: phase 20
+   (c) runs a second pair under ``--profile-dir``);
 15. the gRPC path with the store options and the worker's modes on: (a)
    ``serve()`` on 127.0.0.1 over ``StoreConfig(mode="async",
    total_workers=2, push_codec="int8", staleness_bound=5,
@@ -237,7 +238,37 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    core). (e) phase 14 (a)'s topology with ResNet-50: ``serve()`` and 2
    ``PSWorker`` threads, int8 pushes, 2 pushes each, eval off: K1 3 a
    push, no duplicate, each RPC's median ms and the bytes of a push and a
-   full fp32 fetch.
+   full fp32 fetch;
+20. the perf observatory and the process surfaces: (a) ``cli train
+   --mode baseline --profile-dir D`` (ResNet-18, batch 128, bf16, 4
+   steps and an eval batch) and ``cli perf profile`` on D: basis
+   ``device_lanes``, the classes' fractions summing to 1, conv above 0,
+   the ten largest kernels with their class; then 6 eager steps and 6
+   CUDA-graph replays, each timed by CUDA events without the profiler
+   and then captured: each capture's attributed device time within 15 %
+   of the captured replays' CUDA-event time (the replays run back to
+   back, so that is the steps' device time), ``step_cost`` of one step
+   and the MFU of both at 989.4 TFLOP/s, and ``cli perf diff`` between
+   the two artifacts; (b) ``cli serve --push-codec int8 --telemetry
+   --metrics-port 0 --incidents-dir --profile-triggers --profiles-dir
+   --journal-dir`` on a thread of this process with 2 ``PSWorker``
+   threads (ResNet-18, 8 pushes each, K1 once a push): ``/metrics``,
+   ``/healthz`` and ``/cluster`` answer 200 mid-run, the cluster view's
+   memory block carries the card's allocated bytes and name, snapshot
+   lines reach stdout and the journal, and one ``slo_burn`` edge forced
+   through the armed ``ProfileTrigger`` while the workers push gives one
+   ``PROFILE_*.json`` attributed on the card's lanes with K1's launches
+   in ``quantize-pack``; then the phase 18 NaN drill through ``cli serve
+   --push-codec fp16 --remediate --incidents-dir --journal-dir --trace``
+   must freeze an incident bundle with the journal window, the cluster
+   view and the flight-recorder tail; and img/s with the surfaces off
+   (``--no-memory-telemetry``) and on, in 3 pairs of turns (off, on, on,
+   off, off, on) of 32 pushes a worker, so that each on turn spans
+   several of the monitor's 5 s ticks and memory samples, with the
+   spread of the off turns beside the difference; (c) phase 14 (b)'s
+   topology again with each ``cli worker`` under ``--profile-dir``: each
+   worker's capture, attributed, holds one ``quantize-pack`` event and
+   one K1 launch a push it made.
 
 Then one JSON line of kernels and, last, the device line. Without a CUDA
 device, or outside a checkout of the repo, it exits non-zero and prints
@@ -2255,9 +2286,11 @@ def _metrics_rows(text: str) -> list:
             for line in text.splitlines() if "METRICS_JSON:" in line]
 
 
-def _grpc_processes(state: dict) -> None:
+def _grpc_processes(state: dict, profiles: str | None = None) -> list:
     """The reference's topology: ``cli serve`` and 2 ``cli worker``
-    processes on the card, over gRPC on 127.0.0.1."""
+    processes on the card, over gRPC on 127.0.0.1; with ``profiles``,
+    each worker runs under ``--profile-dir <profiles>/w<i>`` (phase 20
+    (c)). Returns each worker's METRICS_JSON rows."""
     import os
     import re
     import socket
@@ -2293,7 +2326,9 @@ def _grpc_processes(state: dict) -> None:
             cli + ["worker", "--server", f"127.0.0.1:{port}",
                    "--worker-name", f"proc-{i}", "--synthetic",
                    "--num-train", "2048", "--epochs", "1",
-                   "--emit-metrics"],
+                   "--emit-metrics"]
+            + (["--profile-dir", os.path.join(profiles, f"w{i}")]
+               if profiles else []),
             cwd=repo, env=env, stdout=logs[1 + 2 * i],
             stderr=logs[2 + 2 * i], text=True)
             for i in range(2)] if up else []
@@ -2337,7 +2372,9 @@ def _grpc_processes(state: dict) -> None:
              / r[-1]["total_training_time_seconds"]
              for r in rows if r and r[-1]["total_training_time_seconds"]]
     sm = srv[-1] if srv else {}
-    emit({"phase": "grpc_path", "form": "processes", "port": port,
+    emit({"phase": "observability" if profiles else "grpc_path",
+          "form": "c_worker_processes_profiled" if profiles
+          else "processes", "port": port,
           "rcs": rcs, "wall_seconds": wall,
           "workers_img_per_s": img_s, "img_per_s_summed": sum(img_s),
           "worker_metrics": [r[-1] if r else None for r in rows],
@@ -2352,6 +2389,53 @@ def _grpc_processes(state: dict) -> None:
         raise AssertionError(f"server metrics report no step: {sm}")
     if len(img_s) != 2:
         raise AssertionError(f"worker metrics missing: {rows}")
+    return rows
+
+
+def _worker_captures(state: dict) -> None:
+    """Phase 20 (c): phase 14 (b)'s topology again, each ``cli worker``
+    process under ``--profile-dir``; its capture, attributed, must hold
+    one ``quantize-pack`` event a push it made (ResNet-18's 62 tensors:
+    one K1 launch a push), or a worker that fell off the kernel route
+    passes. Phase 14 (b) itself runs unprofiled, so its img/s stays
+    comparable with earlier runs."""
+    import os
+    import shutil
+    import tempfile
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.analysis \
+        import attribute_profile, load_chrome_trace, top_device_ops
+    from distributed_parameter_server_for_ml_training_tpu_torch.telemetry \
+        .profiler import find_profile_dumps
+
+    out, failures = [], []
+    profiles = tempfile.mkdtemp(prefix="worker-profiles-")
+    try:
+        rows = _grpc_processes(state, profiles)
+        for i, r in enumerate(rows):
+            logdir = os.path.join(profiles, f"w{i}")
+            prof = attribute_profile(logdir)["profile"]
+            k1 = sum(op["events"] for path in find_profile_dumps(logdir)
+                     for op in top_device_ops(load_chrome_trace(path),
+                                              10 ** 6)
+                     if "wire_quantize_multi_kernel" in op["name"])
+            pushes = r[-1]["rpc_counts"].get("PushGradrients", 0)
+            qp = prof["op_classes"].get("quantize-pack", {})
+            out.append({"worker": i, "pushes": pushes, "basis":
+                        prof["basis"], "quantize_pack_events":
+                        qp.get("events", 0), "k1_kernel_events": k1,
+                        "quantize_pack_s": qp.get("time_s", 0.0),
+                        "total_attributed_s": prof["total_attributed_s"]})
+            if prof["basis"] != "device_lanes" or pushes <= 0 \
+                    or qp.get("events", 0) < pushes or k1 != pushes:
+                failures.append(out[-1])
+    finally:
+        shutil.rmtree(profiles, ignore_errors=True)
+    emit({"phase": "observability", "form": "c_worker_captures",
+          "workers": out, "card": state["card"]})
+    if failures:
+        raise AssertionError(f"worker captures off the kernel route: "
+                             f"{failures}")
 
 
 def phase_grpc_path(state: dict) -> None:
@@ -4232,6 +4316,501 @@ def phase_models(state: dict) -> None:
         raise AssertionError("; ".join(failures))
 
 
+# -- the perf observatory and the process surfaces (phase 20) ------------------
+
+OBS_STEPS = 6            # (a): steps in each capture, within an epoch of 8
+OBS_SERVE_STEPS = 8      # (b): batches of 128 a worker in a serve session
+# (b): batches of 128 a worker in each surfaces off/on turn: at ~550 img/s
+# a turn lasts ~15 s, three of the monitor's 5 s ticks and memory samples.
+OBS_TURN_STEPS = 32
+OBS_TURNS = (False, True, True, False, False, True)   # surfaces on?
+OBS_OVERHEAD_BOUND = 0.10   # the prediction: on within +-10 % of off
+
+
+class _Tee:
+    """A text stream that keeps what it is given and, with ``echo``, also
+    passes it on: the ports ``cli serve`` prints on stderr are read from
+    it, and the snapshot lines of its stdout kept off this script's."""
+
+    def __init__(self, echo=None):
+        import threading
+        self.echo, self.parts, self._lock = echo, [], threading.Lock()
+
+    def write(self, text: str) -> int:
+        with self._lock:
+            self.parts.append(text)
+        if self.echo is not None:
+            self.echo.write(text)
+        return len(text)
+
+    def flush(self) -> None:
+        if self.echo is not None:
+            self.echo.flush()
+
+    def text(self) -> str:
+        with self._lock:
+            return "".join(self.parts)
+
+
+def _cli_json(argv: list) -> dict:
+    """``cli.main(argv)`` with stdout kept: rc and the printed JSON."""
+    import contextlib
+    import io
+
+    from distributed_parameter_server_for_ml_training_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return {"rc": rc, "out": json.loads(buf.getvalue()) if rc == 0 else None}
+
+
+def _observe_profile(state: dict) -> None:
+    """(a) ``cli train --mode baseline --profile-dir`` (ResNet-18, batch
+    128, bf16) and ``cli perf profile`` on it; then the eager step and
+    the graphed step each captured over the same steps, timed by CUDA
+    events; ``step_cost`` and MFU of both; ``cli perf diff`` between
+    them."""
+    import contextlib
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch import cli
+    from distributed_parameter_server_for_ml_training_tpu_torch.analysis \
+        import load_chrome_trace, top_device_ops
+    from distributed_parameter_server_for_ml_training_tpu_torch.data import \
+        make_batches, synthetic_cifar100
+    from distributed_parameter_server_for_ml_training_tpu_torch.telemetry \
+        .profiler import capture, find_profile_dumps, mfu, prune_capture, \
+        step_cost
+    from distributed_parameter_server_for_ml_training_tpu_torch.train \
+        .baseline import BaselineConfig, BaselineTrainer
+    from distributed_parameter_server_for_ml_training_tpu_torch.train \
+        .device_loop import prefetch_to_device
+
+    kind = torch.cuda.get_device_name(0)
+    root = tempfile.mkdtemp(prefix="observe-")
+    failures, out = [], {"phase": "observability", "form": "a_profile",
+                         "card": state["card"], "device_kind": kind}
+    try:
+        # The CLI run: 4 steps and one eval batch, captured whole.
+        cli_dir, dumps = os.path.join(root, "cli"), os.path.join(root, "t")
+        os.makedirs(dumps)
+        t0 = time.perf_counter()
+        rc = cli.main(["train", "--mode", "baseline", "--model", "resnet18",
+                       "--batch-size", str(BATCH), "--dtype", "bfloat16",
+                       "--synthetic", "--num-train", str(4 * BATCH),
+                       "--num-test", str(BATCH), "--epochs", "1",
+                       "--profile-dir", cli_dir])
+        train_s = time.perf_counter() - t0
+        (dump,) = find_profile_dumps(cli_dir)
+        trace_bytes = os.path.getsize(dump)
+        top = top_device_ops(load_chrome_trace(dump), 10)
+        rep = _cli_json(["perf", "profile", "--profile-dir", cli_dir,
+                         "--trace-dump-dir", dumps, "--json"])
+        prof = rep["out"]["profile"] if rep["out"] else {}
+        out["cli"] = {"rc": rc, "perf_rc": rep["rc"], "train_s": train_s,
+                      "trace_bytes": trace_bytes,
+                      "pruned": not find_profile_dumps(cli_dir),
+                      "profile": prof,
+                      "top_kernels": [[r["name"][:150], r["class"],
+                                       r["time_s"], r["events"]]
+                                      for r in top]}
+        fractions = sum(r["fraction"] for r in
+                        prof.get("op_classes", {}).values())
+        if rc != 0 or rep["rc"] != 0 or prof.get("basis") != "device_lanes" \
+                or abs(fractions - 1.0) > 1e-3 \
+                or prof["op_classes"].get("conv", {}).get("time_s", 0) <= 0:
+            failures.append(f"cli capture: rc {rc}/{rep['rc']}, {prof}")
+
+        # The same steps in this process: eager, then graphed.
+        ds = synthetic_cifar100(8 * BATCH, BATCH, 100, seed=0)
+        eager = BaselineTrainer(ds, BaselineConfig(num_epochs=1,
+                                                   device="cuda"))
+        batches = list(prefetch_to_device(make_batches(
+            ds.x_train, ds.y_train, BATCH, seed=1), depth=2))
+        for xb, yb in batches[:2]:
+            eager.state, _ = eager._train_step(eager.state, xb, yb,
+                                               eager._gen)
+        cost = step_cost(eager._train_step, eager.state, *batches[2],
+                         eager._gen)
+        graph = BaselineTrainer(ds, BaselineConfig(num_epochs=1,
+                                                   device="cuda",
+                                                   device_loop=True))
+        graph.train()
+        loop = graph._device_loop
+        def timed(step, logdir=None) -> float:
+            """CUDA-event ms of OBS_STEPS steps, under a capture into
+            ``logdir`` when one is given."""
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            with capture(logdir) if logdir else contextlib.nullcontext():
+                a.record()
+                for k in range(OBS_STEPS):
+                    step(k)
+                b.record()
+            torch.cuda.synchronize()
+            return a.elapsed_time(b)
+
+        runs = {}
+        for name in ("eager", "graph"):
+            if name == "graph":
+                def step(k):
+                    if k == 0:
+                        loop._slot.zero_()
+                    loop._cuda_graph.replay()
+            else:
+                def step(k):
+                    eager.state, _ = eager._train_step(
+                        eager.state, *batches[k], eager._gen)
+            # MFU at the rate of a run without the profiler; the
+            # attribution from a captured run of the same steps.
+            ms = timed(step)
+            logdir = os.path.join(root, name)
+            profiled_ms = timed(step, logdir)
+            art = os.path.join(root, f"{name}.json")
+            rep = _cli_json(["perf", "profile", "--profile-dir", logdir,
+                             "--json", "--out", art])
+            prof = rep["out"]["profile"] if rep["out"] else {}
+            steps_per_s = OBS_STEPS / (ms / 1e3)
+            runs[name] = {"perf_rc": rep["rc"], "events_ms": ms,
+                          "profiled_events_ms": profiled_ms,
+                          "steps_per_s": steps_per_s,
+                          "img_per_s": steps_per_s * BATCH,
+                          "attributed_s": prof.get("total_attributed_s"),
+                          "basis": prof.get("basis"),
+                          "op_classes": prof.get("op_classes"),
+                          "mfu": mfu(cost["flops"], steps_per_s, kind),
+                          "artifact": art}
+            if rep["rc"] != 0 or prof.get("basis") != "device_lanes":
+                failures.append(f"{name} capture: {runs[name]}")
+        # The graph replays back to back: its CUDA-event time is the
+        # steps' device time. Both captures must attribute it (the eager
+        # step runs the same kernels, its host issue between them).
+        device_s = runs["graph"]["profiled_events_ms"] / 1e3
+        for name, run in runs.items():
+            run["attributed_over_graph_events"] = \
+                (run["attributed_s"] or 0.0) / device_s
+            if abs(run["attributed_over_graph_events"] - 1.0) > 0.15:
+                failures.append(f"{name}: attributed {run['attributed_s']}"
+                                f" s against {device_s} s by CUDA events")
+        diff = _cli_json(["perf", "diff", runs["eager"]["artifact"],
+                          runs["graph"]["artifact"], "--json"])
+        if diff["rc"] != 0:
+            failures.append(f"perf diff rc {diff['rc']}")
+        out.update({"step_cost": cost, "steps": OBS_STEPS,
+                    "eager": runs["eager"], "graph": runs["graph"],
+                    "diff": diff["out"]})
+        state["observe_mfu"] = {n: r["mfu"] for n, r in runs.items()}
+        for logdir in (os.path.join(root, "eager"),
+                       os.path.join(root, "graph")):
+            prune_capture(logdir)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit(out)
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def _serve_session(argv: list, workers_kw: list, steps: int, probe=None):
+    """``cli serve --mode async --workers 2 --port 0`` + ``argv`` on a
+    thread of this process and 2 ``PSWorker`` threads on the card
+    through their own ``RemoteStore``s (ResNet-18, bf16, batch 128,
+    ``steps`` batches each, eval off). ``probe(ports, workers)`` runs on
+    this thread while they train. Returns the run's pieces: its stdout
+    and stderr, the probe's result, the workers' results, img/s."""
+    import re
+    import threading
+
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch import cli
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms \
+        import RemoteStore
+    from distributed_parameter_server_for_ml_training_tpu_torch.data import \
+        synthetic_cifar100
+    from distributed_parameter_server_for_ml_training_tpu_torch.models \
+        import get_model
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps import (
+        PSWorker, WorkerConfig)
+
+    ds = synthetic_cifar100(n_train=N_WORKERS * BATCH * steps, n_test=10)
+    model = get_model("resnet18", num_classes=100, dtype="bfloat16",
+                      device="cuda", seed=0)
+    stdout, stderr = _Tee(), _Tee(echo=sys.stderr)
+    real = sys.stdout, sys.stderr
+    result: dict = {}
+
+    def run_serve():
+        try:
+            result["rc"] = cli.main(["serve", "--mode", "async",
+                                     "--workers", str(N_WORKERS),
+                                     "--port", "0", *argv])
+        except BaseException as e:  # noqa: BLE001 — reported below
+            result["error"] = repr(e)
+
+    sys.stdout, sys.stderr = stdout, stderr
+    server = threading.Thread(target=run_serve, daemon=True)
+    remotes, workers, probed = [], [], None
+    try:
+        server.start()
+        deadline = time.perf_counter() + 60
+        ports = {}
+        while time.perf_counter() < deadline and server.is_alive():
+            text = stderr.text()
+            for key, pat in (("grpc", r"parameter server up on :(\d+)"),
+                             ("metrics", r"serving /metrics on :(\d+)")):
+                m = re.search(pat, text)
+                if m:
+                    ports[key] = int(m.group(1))
+            if "grpc" in ports and ("metrics" in ports
+                                    or "--metrics-port" not in argv):
+                break
+            time.sleep(0.05)
+        if "grpc" not in ports:
+            raise AssertionError(f"cli serve never came up: {result}, "
+                                 f"{stderr.text()[-2000:]}")
+        remotes = [RemoteStore(f"127.0.0.1:{ports['grpc']}")
+                   for _ in range(N_WORKERS)]
+        workers = [PSWorker(r, model, ds, WorkerConfig(
+            batch_size=BATCH, num_epochs=1, device="cuda",
+            eval_each_epoch=False, **kw), worker_name=f"obs-{i}")
+            for i, (r, kw) in enumerate(zip(remotes, workers_kw))]
+        t0 = time.perf_counter()
+        for w in workers:
+            w.start()
+        if probe is not None:
+            probed = probe(ports, workers)
+        for w in workers:
+            w.join()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        server.join(60)
+    finally:
+        sys.stdout, sys.stderr = real
+        for r in remotes:
+            r.close()
+    if server.is_alive() or result.get("rc") != 0:
+        raise AssertionError(f"cli serve did not end with 0: {result}, "
+                             f"{stderr.text()[-2000:]}")
+    results = [w.result for w in workers]
+    images = sum(r.local_steps_completed for r in results) * BATCH
+    return {"stdout": stdout.text(), "stderr": stderr.text(),
+            "probe": probed, "results": results, "wall_s": wall,
+            "img_per_s": images / wall}
+
+
+def _get_json(port: int, path: str):
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=30) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _observe_serve(state: dict) -> None:
+    """(b) ``cli serve`` with every surface on and two int8 ResNet-18
+    workers (K1 once a push): ``/metrics``, ``/healthz`` and ``/cluster``
+    scraped mid-run (the memory block read off the card), the snapshot
+    stream on stdout and in the journal, one ``slo_burn`` edge forced
+    through the armed ``ProfileTrigger`` while the workers push (its
+    window attributed on the card's lanes, K1 in ``quantize-pack``); the
+    phase 18 NaN drill (fp16, ``--remediate``) freezing an incident
+    bundle; img/s with the surfaces off and on, in turns."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
+        quantize as Q
+    from distributed_parameter_server_for_ml_training_tpu_torch.telemetry \
+        import disable_tracing, get_cluster_monitor, read_journal
+
+    kind = torch.cuda.get_device_name(0)
+    root = tempfile.mkdtemp(prefix="observe-serve-")
+    failures = []
+    out = {"phase": "observability", "form": "b_serve",
+           "card": state["card"]}
+    d = {k: os.path.join(root, k) for k in ("i", "p", "j", "i2", "j2")}
+    # The SLO and goodput thresholds are set where a healthy run stays,
+    # so the one capture is the forced edge's (a natural one would start
+    # a second profiler session).
+    surfaces = ["--telemetry", "--telemetry-interval", "1",
+                "--metrics-port", "0", "--profile-triggers",
+                "--profile-window", "1.0", "--slo-fetch-p99-ms", "60000",
+                "--goodput-drop-threshold", "0.01"]
+
+    def probe(ports, workers):
+        # Wait for the first pushes, then scrape and force the edge while
+        # the workers keep pushing.
+        deadline = time.perf_counter() + 60
+        while sum(w.result.pushes_accepted for w in workers) < 2 \
+                and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        pages = {p: _get_json(ports["metrics"], p)
+                 for p in ("/metrics", "/healthz", "/cluster")}
+        trig = get_cluster_monitor().profile_trigger
+        k0 = Q.wire_quantize_multi.launches
+        t0 = time.perf_counter()
+        trig.on_alert_events([{"state": "fired", "rule": "slo_burn_fast",
+                               "severity": "warning", "worker": None}])
+        return {"pages": pages, "capture_s": time.perf_counter() - t0,
+                "k1_in_window": Q.wire_quantize_multi.launches - k0}
+
+    try:
+        Q.wire_quantize_multi.launches = 0
+        run = _serve_session(
+            ["--push-codec", "int8", "--incidents-dir", d["i"],
+             "--profiles-dir", d["p"], "--journal-dir", d["j"],
+             *surfaces], [{}, {}], OBS_SERVE_STEPS, probe=probe)
+        k1 = Q.wire_quantize_multi.launches
+        state["observe_k1_launches"] = k1
+        pushes = sum(r.pushes_accepted + r.pushes_rejected
+                     for r in run["results"])
+        pages = run["probe"]["pages"]
+        cluster = json.loads(pages["/cluster"][1])
+        memory = cluster.get("memory") or {}
+        device = memory.get("device") or {}
+        snaps = [line for line in run["stdout"].splitlines()
+                 if '"kind": "snapshot"' in line]
+        journal = [r["type"] for r in read_journal(d["j"])]
+        records = sorted(f for f in os.listdir(d["p"])
+                         if f.startswith("PROFILE_"))
+        record = {}
+        if records:
+            with open(os.path.join(d["p"], records[0])) as f:
+                record = json.load(f)
+        prof = record.get("profile", {})
+        qp = prof.get("op_classes", {}).get("quantize-pack", {})
+        out["surfaces"] = {
+            "img_per_s": run["img_per_s"], "pushes": pushes,
+            "k1_launches": k1,
+            "status": {p: v[0] for p, v in pages.items()},
+            "metrics_lines": len(pages["/metrics"][1].splitlines()),
+            "healthz": json.loads(pages["/healthz"][1]),
+            "cluster_workers": len(cluster.get("workers", [])),
+            "memory": memory, "snapshot_lines": len(snaps),
+            "journal_types": {t: journal.count(t) for t in set(journal)},
+            "incidents": os.listdir(d["i"]) if os.path.isdir(d["i"])
+            else [],
+            "profile_records": records,
+            "trigger": {"rule": record.get("rule"),
+                        "window_s": record.get("window_s"),
+                        "capture_s": run["probe"]["capture_s"],
+                        "k1_launched_in_window":
+                            run["probe"]["k1_in_window"],
+                        "basis": prof.get("basis"),
+                        "op_classes": prof.get("op_classes"),
+                        "parse_errors": record.get("parse_errors"),
+                        "traces_pruned": record.get("traces_pruned")}}
+        if k1 != pushes or pushes != 2 * OBS_SERVE_STEPS:
+            failures.append(f"K1 {k1} launches for {pushes} pushes")
+        if any(v[0] != 200 for v in pages.values()) \
+                or "# TYPE" not in pages["/metrics"][1]:
+            failures.append(f"scrapes: {out['surfaces']['status']}")
+        if not device.get("bytes_in_use", 0) > 0 \
+                or device.get("device_kind") != kind:
+            failures.append(f"memory block: {memory}")
+        if not snaps or "snapshot" not in journal:
+            failures.append(f"{len(snaps)} snapshot lines, journal "
+                            f"{set(journal)}")
+        if len(records) != 1 or record.get("rule") != "slo_burn" \
+                or prof.get("basis") != "device_lanes" \
+                or not 1 <= qp.get("events", 0) \
+                <= run["probe"]["k1_in_window"]:
+            failures.append(f"profile trigger: {out['surfaces']['trigger']}"
+                            f", records {records}")
+
+        # The phase 18 NaN drill under the same CLI: the critical edge
+        # freezes an incident bundle. The worker's non-finite report
+        # stands until its next push boundary, so the monitor evaluates
+        # every 0.05 s (phase 18 evaluated at each push).
+        drill = _serve_session(
+            ["--push-codec", "fp16", "--remediate", "--health-interval",
+             "0.05", "--incidents-dir", d["i2"], "--journal-dir", d["j2"],
+             "--trace"], [{}, {"nan_inject_step": 2}], OBS_SERVE_STEPS)
+        bundles = sorted(os.listdir(d["i2"])) \
+            if os.path.isdir(d["i2"]) else []
+        manifests = []
+        for b in bundles:
+            with open(os.path.join(d["i2"], b, "manifest.json")) as f:
+                manifests.append(json.load(f))
+        out["incidents"] = {
+            "bundles": bundles,
+            "files": [m["files"] for m in manifests],
+            "rules": [m["trigger"].get("rule") for m in manifests],
+            "records": [m["records"] for m in manifests],
+            "quarantined_pushes": [r.pushes_quarantined
+                                   for r in drill["results"]]}
+        if not manifests or not any(
+                {"journal_window.jsonl", "snapshots.json"}
+                <= set(m["files"])
+                and any(f.startswith("traces/flight-server-")
+                        for f in m["files"])
+                and m["records"] > 0 for m in manifests):
+            failures.append(f"incident bundles: {out['incidents']}")
+
+        # img/s with the surfaces off and on, in turns. The health
+        # monitor runs in both (serve's default); an off turn also drops
+        # the memory sampler, which is on by default with the monitor.
+        turns = []
+        for i, on in enumerate(OBS_TURNS):
+            argv = ["--push-codec", "int8"]
+            if on:
+                argv += ["--incidents-dir", f"{d['i']}-t{i}",
+                         "--profiles-dir", f"{d['p']}-t{i}",
+                         "--journal-dir", f"{d['j']}-t{i}", "--trace",
+                         *surfaces]
+            else:
+                argv += ["--no-memory-telemetry"]
+            r = _serve_session(argv, [{}, {}], OBS_TURN_STEPS)
+            turns.append({"telemetry": on, "img_per_s": r["img_per_s"],
+                          "wall_s": r["wall_s"]})
+            disable_tracing()
+        out["turns"] = turns
+        out["overhead"] = _turns_verdict(turns)
+    finally:
+        disable_tracing()
+        shutil.rmtree(root, ignore_errors=True)
+    emit(out)
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def _turns_verdict(turns: list) -> dict:
+    """The surfaces' cost from the off/on turns: the mean on img/s against
+    the mean off, and the off turns' spread (max - min over their mean).
+    The +-10 % prediction reads ``held`` or ``missed`` only where the off
+    turns agree within that bound; otherwise ``unresolved``."""
+    off = [t["img_per_s"] for t in turns if not t["telemetry"]]
+    on = [t["img_per_s"] for t in turns if t["telemetry"]]
+    mean_off, mean_on = sum(off) / len(off), sum(on) / len(on)
+    spread = (max(off) - min(off)) / mean_off
+    diff = mean_on / mean_off - 1.0
+    if spread > OBS_OVERHEAD_BOUND:
+        verdict = "unresolved"
+    else:
+        verdict = "held" if abs(diff) <= OBS_OVERHEAD_BOUND else "missed"
+    return {"mean_off_img_per_s": mean_off, "mean_on_img_per_s": mean_on,
+            "on_vs_off": diff, "off_spread": spread,
+            "bound": OBS_OVERHEAD_BOUND, "verdict": verdict}
+
+
+def phase_observability(state: dict) -> None:
+    """Phase 20: the perf observatory and the process surfaces."""
+    _observe_profile(state)
+    _observe_serve(state)
+    _worker_captures(state)
+
+
 def main() -> int:
     import torch
 
@@ -4251,7 +4830,8 @@ def main() -> int:
                   phase_sync_profile, phase_baseline, phase_kernel_flash,
                   phase_sp_path, phase_sp_profile, phase_cli,
                   phase_grpc_path, phase_grpc_modes, phase_device_store,
-                  phase_checkpoints, phase_health, phase_models):
+                  phase_checkpoints, phase_health, phase_models,
+                  phase_observability):
         t0 = time.perf_counter()
         try:
             phase(state)
@@ -4269,9 +4849,11 @@ def main() -> int:
         quantize as Q
 
     # K1 with its launches from the async path's run, the gRPC path's
-    # (phase 14 (a); (b)'s workers are other processes), the gRPC
-    # modes' (phase 15 (a)), the health path's (phase 18 (a)) and the
-    # models' (phase 19 (c), (d), (e)); a push's times.
+    # (phase 14 (a); the worker processes of (b) and of phase 20 (c) are
+    # other processes, and (c) reads theirs off their captures), the gRPC
+    # modes' (phase 15
+    # (a)), the health path's (phase 18 (a)), the models' (phase 19 (c),
+    # (d), (e)) and the serve surfaces' (phase 20 (b)); a push's times.
     kernels = []
     for name, k in state["k1"].items():
         kernels.append({
@@ -4281,7 +4863,8 @@ def main() -> int:
             + state["grpc_k1_launches"][name]
             + state["modes_k1_launches"][name]
             + state["health_k1_launches"][name]
-            + state["models_k1_launches"],
+            + state["models_k1_launches"]
+            + state["observe_k1_launches"],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],

@@ -103,8 +103,24 @@ told to skip pushes, reset its error feedback and refetch;
         serve --mode async --workers 2 --push-codec fp16 --remediate \
         --port 8000
 
-The flags of the JAX verbs that name features of later slices are
-accepted and refused with the ROADMAP item that brings them.
+Every verb takes the JAX CLI's telemetry flags (``--telemetry``,
+``--telemetry-interval``, ``--metrics-port``, ``--trace``,
+``--trace-buffer``, ``--trace-dump-dir``, ``--journal-dir``) and
+``--profile-dir``, a ``torch.profiler`` capture of its loop on
+``--device``. ``serve`` runs memory telemetry with its monitor (unless
+``--no-memory-telemetry``), freezes incident bundles on critical alerts
+(``--incidents-dir``) and captures profile windows on SLO-burn and
+goodput-drop edges (``--profile-triggers``). ``perf profile`` attributes
+a capture per op class and ``perf diff`` compares two artifacts::
+
+    python -m distributed_parameter_server_for_ml_training_tpu_torch.cli \
+        train --mode baseline --epochs 1 --synthetic --num-train 1024 \
+        --num-test 128 --profile-dir prof
+    python -m distributed_parameter_server_for_ml_training_tpu_torch.cli \
+        perf profile --profile-dir prof --out a.json
+
+The flags and verbs of the JAX CLI that name features of later slices
+are accepted and refused with the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -112,6 +128,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+from contextlib import contextmanager
 
 
 def _env(name: str, default, cast=str):
@@ -176,6 +193,52 @@ def _add_worker_modes(q) -> None:
                         "fails the worker instead")
 
 
+def _add_telemetry(q) -> None:
+    """The JAX CLI's shared telemetry flags, with its ``DPS_*`` defaults."""
+    q.add_argument("--telemetry", action="store_true",
+                   default=bool(_env("DPS_TELEMETRY", 0, int)),
+                   help="emit periodic METRICS_JSON 'kind=snapshot' lines "
+                        "(live counters/gauges/histograms; same regex "
+                        "convention as the exit line)")
+    q.add_argument("--telemetry-interval", type=float,
+                   default=_env("DPS_TELEMETRY_INTERVAL", 5.0, float),
+                   help="seconds between snapshot lines")
+    q.add_argument("--metrics-port", type=int,
+                   default=_env("DPS_METRICS_PORT", None, int),
+                   help="serve Prometheus /metrics + /healthz + /cluster + "
+                        "/debug/trace on this port (0 = pick a free port; "
+                        "omit = disabled)")
+    q.add_argument("--trace", action="store_true",
+                   default=bool(_env("DPS_TRACE", 0, int)),
+                   help="record per-step trace spans into the in-process "
+                        "flight recorder (propagated worker->server over "
+                        "the wire; dumped on SIGTERM/crash/exit and via "
+                        "/debug/trace)")
+    q.add_argument("--trace-buffer", type=int,
+                   default=_env("DPS_TRACE_BUFFER", 4096, int),
+                   help="flight-recorder ring size (spans kept per "
+                        "process; oldest evicted)")
+    q.add_argument("--trace-dump-dir",
+                   default=_env("DPS_TRACE_DUMP_DIR", None),
+                   help="write the recorder tail as JSON here on "
+                        "SIGTERM/unhandled-fault/atexit "
+                        "(trace-<role>-<pid>-<reason>.json)")
+    q.add_argument("--journal-dir",
+                   default=_env("DPS_JOURNAL_DIR", None),
+                   help="durable telemetry journal directory (segmented "
+                        "JSONL; snapshots + alert/remediation/directive/"
+                        "checkpoint/incident/profile events; omit = "
+                        "disabled)")
+
+
+def _add_profile_dir(q, what: str) -> None:
+    q.add_argument("--profile-dir", default=None,
+                   help=f"capture a torch.profiler trace of {what} into "
+                        "this directory (the card's kernels and copies "
+                        "beside the host's ops; opens in Perfetto; parse "
+                        "with `cli perf profile`)")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="distributed_parameter_server_for_ml_training_tpu_torch",
@@ -231,6 +294,8 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--resume", action="store_true",
                    help="resume from the newest checkpoint in "
                         "--checkpoint-dir")
+    _add_profile_dir(t, "the training loop")
+    _add_telemetry(t)
     _add_common(t)
 
     s = sub.add_parser("serve", help="gRPC parameter server")
@@ -352,12 +417,52 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--slo-slow-burn", type=float,
                    default=_env("DPS_SLO_SLOW_BURN", 6.0, float),
                    help="burn-rate threshold over the slow window")
+    s.add_argument("--incidents-dir",
+                   default=_env("DPS_INCIDENTS_DIR", None),
+                   help="auto-freeze a forensic bundle here when a "
+                        "critical alert fires (journal window, /cluster "
+                        "snapshot, flight-recorder tail; per-rule cooldown "
+                        "dedupe; needs the health monitor)")
+    s.add_argument("--incident-window", type=float,
+                   default=_env("DPS_INCIDENT_WINDOW", 120.0, float),
+                   help="seconds of journal history frozen per bundle")
+    s.add_argument("--incident-cooldown", type=float,
+                   default=_env("DPS_INCIDENT_COOLDOWN", 120.0, float),
+                   help="per-rule dedupe window: an alert storm yields one "
+                        "bundle per rule per cooldown")
+    s.add_argument("--no-memory-telemetry", action="store_true",
+                   help="disable the periodic memory sampler (on by "
+                        "default with the health monitor): host RSS + the "
+                        "card's allocator gauges, the windowed leak-slope "
+                        "verdict in GET /cluster 'memory', and the "
+                        "memory_growth health rule")
+    s.add_argument("--profile-triggers", action="store_true",
+                   help="trigger-driven profiling: an slo_burn edge or a "
+                        "goodput-fraction drop captures a bounded "
+                        "torch.profiler window, attributes it per op class "
+                        "and appends a PROFILE_*.json record to "
+                        "--profiles-dir (per-rule cooldown dedupe; needs "
+                        "the health monitor)")
+    s.add_argument("--profiles-dir",
+                   default=_env("DPS_PROFILES_DIR", "profiles"),
+                   help="profile ledger directory for --profile-triggers")
+    s.add_argument("--profile-window", type=float,
+                   default=_env("DPS_PROFILE_WINDOW", 1.5, float),
+                   help="seconds of device activity each triggered "
+                        "capture brackets")
+    s.add_argument("--profile-cooldown", type=float,
+                   default=_env("DPS_PROFILE_COOLDOWN", 600.0, float),
+                   help="per-rule dedupe window: a degradation storm "
+                        "yields one capture per rule per cooldown")
+    s.add_argument("--goodput-drop-threshold", type=float,
+                   default=_env("DPS_GOODPUT_DROP", 0.5, float),
+                   help="goodput fraction whose falling edge triggers a "
+                        "capture (previous tick at or above, this tick "
+                        "below)")
+    _add_profile_dir(s, "the server's apply/aggregation hot path")
+    _add_telemetry(s)
     s.add_argument("--faults", default=None)
     s.add_argument("--jobs", default=None)
-    s.add_argument("--telemetry", action="store_true")
-    s.add_argument("--metrics-port", type=int, default=None)
-    s.add_argument("--incidents-dir", default=None)
-    s.add_argument("--no-memory-telemetry", action="store_true")
 
     w = sub.add_parser("worker", help="gRPC remote worker")
     w.add_argument("--server",
@@ -378,10 +483,59 @@ def build_parser() -> argparse.ArgumentParser:
     w.add_argument("--model", choices=["resnet18", "resnet50", "vit_b16",
                                        "vit_tiny"],
                    default="resnet18")
+    _add_profile_dir(w, "the worker loop")
+    _add_telemetry(w)
     _add_common(w)
     w.add_argument("--shards", default=None)
     w.add_argument("--job", default=None)
     w.add_argument("--faults", default=None)
+
+    pf = sub.add_parser(
+        "perf",
+        help="perf observatory: attribute a --profile-dir capture into "
+             "per-op-class device time (`profile`), diff two artifacts "
+             "(`diff`)")
+    pfsub = pf.add_subparsers(dest="perf_command", required=True)
+    pfp = pfsub.add_parser(
+        "profile",
+        help="parse a torch.profiler capture into device-time attribution "
+             "tables, optionally joined with flight-recorder dumps into "
+             "one end-to-end artifact")
+    pfp.add_argument("--profile-dir", required=True,
+                     help="the --profile-dir a train/serve/worker run "
+                          "captured into")
+    pfp.add_argument("--trace-dump-dir", default=None,
+                     help="flight-recorder dump dir (--trace-dump-dir of "
+                          "the same run): joins the host-phase "
+                          "critical-path report and reconciles step wall "
+                          "vs attributed device time")
+    pfp.add_argument("--device-kind", default=None,
+                     help="override the device kind recorded in the "
+                          "artifact (default: torch.cuda.get_device_name(0) "
+                          "when a card is present)")
+    pfp.add_argument("--out", default=None,
+                     help="write the merged JSON artifact here")
+    pfp.add_argument("--json", action="store_true",
+                     help="print the JSON artifact instead of the table")
+    pfp.add_argument("--keep-traces", action="store_true",
+                     help="keep the raw Chrome traces in --profile-dir "
+                          "after a successful attribution (default: prune "
+                          "them — the artifact is the durable record; "
+                          "traces are kept when attribution fails)")
+    pfd = pfsub.add_parser(
+        "diff",
+        help="diff two attribution artifacts (cli perf profile --out, or "
+             "profile-ledger records) into a per-op-class delta table; "
+             "refuses artifacts with mismatched attribution bases")
+    pfd.add_argument("baseline", help="baseline artifact JSON path")
+    pfd.add_argument("candidate", help="candidate artifact JSON path")
+    pfd.add_argument("--tolerance", type=float, default=0.01,
+                     help="fractional |delta|/baseline below which a class "
+                          "is reported unchanged (default: 0.01)")
+    pfd.add_argument("--json", action="store_true",
+                     help="machine-readable diff instead of the table")
+    pfsub.add_parser("check", help=f"refused: comes with "
+                                   f"{LATER_VERBS['perf check']}")
     return p
 
 
@@ -393,10 +547,10 @@ LATER_FLAGS = {
     "job": "ROADMAP §1 item 9 (tenancy)",
     "shards": "ROADMAP §1 item 9 (the sharded tier)",
     "store_backend": "ROADMAP §1 item 9 (the C++ arena)",
-    "telemetry": "ROADMAP §1 item 8 (the snapshot and cluster streams)",
-    "metrics_port": "ROADMAP §1 item 8 (/metrics, /cluster and /healthz)",
-    "incidents_dir": "ROADMAP §1 item 8 (incident capture)",
-    "no_memory_telemetry": "ROADMAP §1 item 8 (telemetry/memory.py)",
+}
+#: Verbs of the JAX CLI whose features come with later slices.
+LATER_VERBS = {
+    "perf check": "ROADMAP §1 item 11 (port tooling: tools/benchwatch)",
 }
 #: Values of a listed flag that this slice serves.
 _FLAG_SERVED = {"store_backend": ("python", "device")}
@@ -414,6 +568,83 @@ def _refuse_later_flags(args) -> None:
         flag = "--" + name.replace("_", "-")
         raise NotImplementedError(
             f"{flag} {value!r} is not ported yet; it comes with {item}")
+
+
+@contextmanager
+def _telemetry_session(args, role: str):
+    """Start/stop the opt-in telemetry surfaces around a command body, as
+    the JAX CLI does: the periodic snapshot emitter (``--telemetry``), the
+    Prometheus/debug endpoint (``--metrics-port``), the tracing flight
+    recorder (``--trace``/``--trace-buffer``/``--trace-dump-dir``) and the
+    journal (``--journal-dir``). The emitter's final flush runs even on
+    failure, and the shutdown hooks extend that to SIGTERM: the recorder
+    tail is dumped and the snapshot emitter flushes its final interval
+    (and seals the journal) instead of silently dropping it."""
+    emitter = http_server = journal = None
+    if args.trace:
+        from .telemetry import enable_tracing
+        enable_tracing(buffer=args.trace_buffer, role=role)
+    if args.journal_dir:
+        # Installed process-globally BEFORE the command body so every
+        # chokepoint (alert edges, directives, checkpoints, incidents,
+        # profiles) journals from the first event on.
+        from .telemetry import JournalWriter, set_journal
+        journal = JournalWriter(args.journal_dir, role=role)
+        set_journal(journal)
+    if args.trace or args.trace_dump_dir or journal or args.telemetry:
+        from .telemetry import install_shutdown_hooks
+        install_shutdown_hooks(dump_dir=args.trace_dump_dir, role=role)
+    if args.metrics_port is not None:
+        from .telemetry import register_build_info, start_metrics_server
+        register_build_info()
+        http_server, bound = start_metrics_server(port=args.metrics_port)
+        args._metrics_bound = bound
+        print(f"telemetry: serving /metrics on :{bound}", file=sys.stderr,
+              flush=True)
+    if args.telemetry:
+        from .telemetry import (SnapshotEmitter, add_shutdown_flush,
+                                register_build_info)
+        register_build_info()
+        emitter = SnapshotEmitter(interval=args.telemetry_interval,
+                                  role=role, journal=journal).start()
+        # flush_now is a no-op once stop() below emitted the final line;
+        # with a journal attached it also seals the active segment.
+        add_shutdown_flush(emitter.flush_now)
+    if journal is not None and emitter is None:
+        from .telemetry import add_shutdown_flush
+        add_shutdown_flush(journal.seal)
+    try:
+        yield
+    finally:
+        if emitter is not None:
+            from .telemetry import remove_shutdown_flush
+            emitter.stop(final=True)
+            remove_shutdown_flush(emitter.flush_now)
+        if journal is not None:
+            from .telemetry import remove_shutdown_flush, set_journal
+            set_journal(None)
+            journal.seal()
+            if emitter is None:
+                remove_shutdown_flush(journal.seal)
+        if http_server is not None:
+            http_server.shutdown()
+            http_server.server_close()
+
+
+@contextmanager
+def _profiler_session(profile_dir: str | None, device: str):
+    """``--profile-dir``: bracket the hot loop with ``torch.profiler``
+    (``telemetry/profiler.py:capture``) on the command's ``--device``, so
+    the card's kernel timeline lands beside the framework-level span
+    traces. No-op when unset."""
+    if not profile_dir:
+        yield
+        return
+    from .telemetry.profiler import capture
+    print(f"profiler: tracing into {profile_dir}", file=sys.stderr,
+          flush=True)
+    with capture(profile_dir, device):
+        yield
 
 
 def _load_dataset(args):
@@ -437,10 +668,15 @@ def _load_dataset(args):
 
 
 def cmd_train(args) -> int:
+    _refuse_later_flags(args)
+    with _telemetry_session(args, "trainer"):
+        return _cmd_train(args)
+
+
+def _cmd_train(args) -> int:
     from .train.distributed import (AsyncTrainer, DistributedConfig,
                                     SyncTrainer)
 
-    _refuse_later_flags(args)
     dataset = _load_dataset(args)
     if dataset.synthetic and args.dataset == "cifar100" \
             and not args.synthetic:
@@ -454,9 +690,12 @@ def cmd_train(args) -> int:
                              model=args.model,
                              num_classes=dataset.num_classes,
                              seed=args.seed, device=args.device)
-        BaselineTrainer(dataset, cfg).train(
-            plot_path=args.plot, emit_metrics=args.emit_metrics,
-            checkpoint_dir=args.checkpoint_dir, resume=args.resume)
+        trainer = BaselineTrainer(dataset, cfg)
+        with _profiler_session(args.profile_dir, args.device):
+            trainer.train(plot_path=args.plot,
+                          emit_metrics=args.emit_metrics,
+                          checkpoint_dir=args.checkpoint_dir,
+                          resume=args.resume)
         return 0
     if args.mode == "sp":
         from .train.model_parallel import ModelParallelConfig, SPTrainer
@@ -466,9 +705,11 @@ def cmd_train(args) -> int:
             batch_size=args.batch_size, augment=not args.no_augment,
             num_classes=dataset.num_classes, dtype=args.dtype,
             seed=args.seed, device=args.device)
-        metrics = SPTrainer(dataset, mp_cfg).train(
-            emit_metrics=args.emit_metrics,
-            checkpoint_dir=args.checkpoint_dir, resume=args.resume)
+        trainer = SPTrainer(dataset, mp_cfg)
+        with _profiler_session(args.profile_dir, args.device):
+            metrics = trainer.train(emit_metrics=args.emit_metrics,
+                                    checkpoint_dir=args.checkpoint_dir,
+                                    resume=args.resume)
         print(f"done: {metrics}", file=sys.stderr)
         return 0
     if args.mode == "sync" and (args.elastic or args.worker_timeout):
@@ -490,10 +731,12 @@ def cmd_train(args) -> int:
         augment=not args.no_augment, dtype=args.dtype,
         num_classes=dataset.num_classes, model=args.model, seed=args.seed,
         device=args.device)
-    trainer = SyncTrainer if args.mode == "sync" else AsyncTrainer
-    metrics = trainer(dataset, cfg).train(
-        emit_metrics=args.emit_metrics, checkpoint_dir=args.checkpoint_dir,
-        resume=args.resume)
+    trainer = (SyncTrainer if args.mode == "sync" else AsyncTrainer)(
+        dataset, cfg)
+    with _profiler_session(args.profile_dir, args.device):
+        metrics = trainer.train(emit_metrics=args.emit_metrics,
+                                checkpoint_dir=args.checkpoint_dir,
+                                resume=args.resume)
     print(f"done: {metrics}", file=sys.stderr)
     return 0
 
@@ -508,9 +751,15 @@ def cmd_serve(args) -> int:
     ``cli.py:1552-1645``, without tenancy's per-job lineages). The
     cluster health monitor, its SLO evaluator and, with ``--remediate``,
     the remediation engine are wired as JAX's ``cmd_serve`` does
-    (``cli.py:1413-1490``)."""
-    import signal
-    import threading
+    (``cli.py:1413-1490``), and so are incident capture, memory
+    telemetry and trigger-driven profiling (``cli.py:1494-1548``)."""
+    _refuse_later_flags(args)
+    with _telemetry_session(args, "server"):
+        return _cmd_serve(args)
+
+
+def _cmd_serve(args) -> int:
+    import functools
     import time
 
     from .comms.service import ParameterService, serve
@@ -520,7 +769,6 @@ def cmd_serve(args) -> int:
     from .utils.metrics import emit_metrics_json
     from .utils.pytree import params_to_jax
 
-    _refuse_later_flags(args)
     if (args.sync_quorum is not None or args.round_deadline is not None) \
             and args.mode != "sync":
         raise SystemExit("--sync-quorum/--round-deadline apply to "
@@ -560,7 +808,7 @@ def cmd_serve(args) -> int:
             store,
             HealthThresholds(dead_after_s=args.dead_after,
                              straggler_lag_steps=args.straggler_lag),
-            interval=args.health_interval)
+            interval=args.health_interval, emit_stream=args.telemetry)
         set_cluster_monitor(monitor)
         monitor.start()
         if not args.no_slo:
@@ -599,6 +847,59 @@ def cmd_serve(args) -> int:
         print(f"remediation: engine on "
               f"(dry_run={engine.policy.dry_run})", file=sys.stderr,
               flush=True)
+    if args.incidents_dir:
+        # A critical alert edge freezes journal window + /cluster view +
+        # flight-recorder tail into incidents/<id>/, deduped per rule.
+        if monitor is None:
+            raise SystemExit("--incidents-dir needs the health monitor "
+                             "(drop --no-health-monitor)")
+        from .telemetry import IncidentCapture, get_journal, get_recorder
+        capture = IncidentCapture(
+            args.incidents_dir, journal=get_journal(),
+            # evaluate=False: the capture runs INSIDE monitor.evaluate()
+            # (listener callback, _eval_lock held) — re-evaluating here
+            # self-deadlocks and hangs every later /cluster request. The
+            # cached state is the as-of-the-edge view anyway.
+            views_fn=lambda: {
+                "cluster": monitor.cluster_view(evaluate=False)},
+            traces_fn=lambda trigger: [
+                (f"flight-server-{os.getpid()}.json",
+                 get_recorder().dump_payload("incident"))],
+            window_s=args.incident_window,
+            cooldown_s=args.incident_cooldown, role="server")
+        monitor.add_listener(capture.on_alert_events)
+        print(f"incidents: capture armed -> {args.incidents_dir}",
+              file=sys.stderr, flush=True)
+    if monitor is not None and not args.no_memory_telemetry:
+        # Host RSS + the card's allocator on the monitor's tick, a
+        # windowed leak-slope verdict in /cluster "memory", and the
+        # memory_growth rule through the same alert pipeline. It reads
+        # this command's --device (None on the CPU).
+        from .telemetry import MemoryMonitor, read_device_memory
+        monitor.memory = MemoryMonitor(device_fn=functools.partial(
+            read_device_memory, args.device))
+    if args.profile_triggers:
+        # slo_burn edges (listener) and goodput-fraction drops (fed each
+        # evaluation pass) capture a bounded torch.profiler window on
+        # --device into the PROFILE ledger, deduped per rule.
+        if monitor is None:
+            raise SystemExit("--profile-triggers needs the health "
+                             "monitor (drop --no-health-monitor)")
+        from .telemetry import ProfileTrigger
+        from .telemetry.proftrigger import default_capture
+        ptrig = ProfileTrigger(
+            args.profiles_dir,
+            capture_fn=functools.partial(default_capture,
+                                         device=args.device),
+            window_s=args.profile_window,
+            cooldown_s=args.profile_cooldown,
+            goodput_drop_threshold=args.goodput_drop_threshold,
+            role="server")
+        monitor.add_listener(ptrig.on_alert_events)
+        monitor.profile_trigger = ptrig
+        print(f"profiles: trigger engine armed -> {ptrig.profiles_dir} "
+              f"(window {ptrig.window_s:.1f}s, cooldown "
+              f"{ptrig.cooldown_s:.0f}s)", file=sys.stderr, flush=True)
     restored = None
     if args.restore:
         from .checkpoint import load_store_record, restore_server_state
@@ -633,46 +934,46 @@ def cmd_serve(args) -> int:
     ckpt = None
     if args.checkpoint_dir:
         from .checkpoint import PeriodicStoreCheckpointer
+        from .telemetry import add_shutdown_flush, install_shutdown_hooks
         ckpt = PeriodicStoreCheckpointer(
             store, args.checkpoint_dir, interval=args.checkpoint_interval,
             journal_fn=svc.journal_snapshot)
         ckpt.start()
+        # SIGTERM drains the store's end state through the same shutdown
+        # path that dumps the flight recorder: a terminated server
+        # resumes exactly where it was killed.
+        install_shutdown_hooks(role="server")
+        add_shutdown_flush(ckpt.flush_now)
     server, port = serve(store, port=args.port, service=svc)
     print(f"parameter server up on :{port} (mode={store.config.mode}, "
           f"workers={args.workers}, backend={args.store_backend}"
           + (f", restored_step={restored}" if restored is not None else "")
           + ")", file=sys.stderr, flush=True)
 
-    def terminated(signum, frame):
-        raise SystemExit(128 + signum)
-
-    # SIGTERM ends the serve loop through the finally below, so the
-    # final snapshot holds the store's end state (signal handlers belong
-    # to the main thread; a serve run from another thread keeps its own).
-    main = threading.current_thread() is threading.main_thread()
-    prev_term = signal.signal(signal.SIGTERM, terminated) if main else None
     try:
         # Exits once every registered worker sent JobFinished; with
         # --worker-timeout each tick also expires silent workers.
-        while not store.wait_all_finished(timeout=1.0):
-            expired = store.expire_stale_workers()
-            if expired:
-                print(f"expired silent workers: {expired}",
-                      file=sys.stderr)
-                if monitor is not None:
-                    monitor.note_expired(expired)
+        # --profile-dir brackets the whole serving window.
+        with _profiler_session(args.profile_dir, args.device):
+            while not store.wait_all_finished(timeout=1.0):
+                expired = store.expire_stale_workers()
+                if expired:
+                    print(f"expired silent workers: {expired}",
+                          file=sys.stderr)
+                    if monitor is not None:
+                        monitor.note_expired(expired)
         time.sleep(0.5)
     except KeyboardInterrupt:
         pass
     finally:
-        if main:
-            signal.signal(signal.SIGTERM, prev_term)
         server.stop(grace=2.0)
         if monitor is not None:
             from .telemetry import set_cluster_monitor
             monitor.stop(final=True)
             set_cluster_monitor(None)
         if ckpt is not None:
+            from .telemetry import remove_shutdown_flush
+            remove_shutdown_flush(ckpt.flush_now)
             err = ckpt.stop(final_snapshot=True)
             if err is not None:
                 print(f"last periodic snapshot had failed: {err!r}",
@@ -685,12 +986,17 @@ def cmd_serve(args) -> int:
 def cmd_worker(args) -> int:
     """One remote worker: trains on ``--device`` (the card unless asked
     for the CPU) against the server at ``--server``."""
+    _refuse_later_flags(args)
+    with _telemetry_session(args, "worker"):
+        return _cmd_worker(args)
+
+
+def _cmd_worker(args) -> int:
     from .comms.client import RemoteStore
     from .models import get_model
     from .ps.worker import PSWorker, WorkerConfig
     from .utils.metrics import emit_metrics_json
 
-    _refuse_later_flags(args)
     cfg = WorkerConfig(batch_size=args.batch_size, num_epochs=args.epochs,
                        sync_steps=args.sync_steps,
                        k_step_mode=args.k_step_mode,
@@ -709,8 +1015,9 @@ def cmd_worker(args) -> int:
     store = RemoteStore(args.server)
     worker = PSWorker(store, model, dataset, cfg,
                       worker_name=args.worker_name)
-    worker.start()
-    worker.join()
+    with _profiler_session(args.profile_dir, args.device):
+        worker.start()
+        worker.join()
     store.close()
     if worker.result.error is not None:
         raise worker.result.error
@@ -720,10 +1027,107 @@ def cmd_worker(args) -> int:
     return 0
 
 
+def cmd_perf(args) -> int:
+    if args.perf_command == "check":
+        raise NotImplementedError(
+            "cli perf check is not ported yet; it comes with "
+            + LATER_VERBS["perf check"])
+    if args.perf_command == "diff":
+        return _cmd_perf_diff(args)
+    return _cmd_perf_profile(args)
+
+
+def _cmd_perf_profile(args) -> int:
+    """Parse a ``--profile-dir`` capture into the merged perf-observatory
+    artifact (``analysis/device_profile.py``): per-op-class device time,
+    optionally joined with the flight-recorder critical-path report so
+    step wall reconciles against attributed device time (JAX
+    ``cli.py:3188-3246``)."""
+    import json
+
+    from .analysis.device_profile import (attribute_profile,
+                                          render_profile_table)
+    critical = None
+    if args.trace_dump_dir:
+        from .analysis.traces import (critical_path_report,
+                                      find_trace_dumps, load_trace_dumps)
+        dumps = find_trace_dumps(args.trace_dump_dir)
+        if dumps:
+            critical = critical_path_report(load_trace_dumps(dumps))
+        else:
+            print(f"perf profile: no trace-*.json dumps in "
+                  f"{args.trace_dump_dir} — skipping the critical-path "
+                  f"join", file=sys.stderr)
+    device_kind = args.device_kind
+    if device_kind is None:
+        import torch
+        if torch.cuda.is_available():
+            device_kind = torch.cuda.get_device_name(0)
+    report = attribute_profile(args.profile_dir, critical=critical,
+                               device_kind=device_kind)
+    if not report["trace_files"]:
+        print(f"perf profile: no profiler dumps under {args.profile_dir} "
+              f"(expected plugins/profile/<run>/*.trace.json.gz)",
+              file=sys.stderr)
+        return 1
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(report, f, indent=2)
+        print(f"perf profile: artifact -> {args.out}", file=sys.stderr)
+    if args.json:
+        print(json.dumps(report, indent=2))
+    else:
+        print(render_profile_table(report))
+    # Raw Chrome traces are scratch once the artifact exists: prune on
+    # success, keep on failure so a basis=none / parse-error capture
+    # stays debuggable.
+    if (not args.keep_traces
+            and report["profile"].get("basis") not in (None, "none")
+            and not report.get("parse_errors")):
+        from .telemetry.profiler import prune_capture
+        pruned = prune_capture(args.profile_dir)
+        if pruned:
+            print(f"perf profile: pruned {len(pruned)} raw trace "
+                  f"file(s) from {args.profile_dir} (--keep-traces to "
+                  f"keep)", file=sys.stderr)
+    return 0
+
+
+def _cmd_perf_diff(args) -> int:
+    """``cli perf diff BASELINE CANDIDATE`` — per-op-class regression
+    attribution between two recorded artifacts. Refuses to compare
+    artifacts whose attribution bases differ."""
+    import json
+
+    from .analysis.device_profile import diff_profiles, render_profile_diff
+
+    arts = []
+    for path in (args.baseline, args.candidate):
+        try:
+            with open(path) as f:
+                arts.append(json.load(f))
+        except (OSError, ValueError) as e:
+            print(f"perf diff: cannot read artifact {path}: {e}",
+                  file=sys.stderr)
+            return 1
+    try:
+        diff = diff_profiles(arts[0], arts[1],
+                             unchanged_tolerance=args.tolerance)
+    except ValueError as e:
+        print(f"perf diff: {e}", file=sys.stderr)
+        return 1
+    if args.json:
+        print(json.dumps(diff, indent=2))
+    else:
+        print(render_profile_diff(diff))
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    return {"train": cmd_train, "serve": cmd_serve,
-            "worker": cmd_worker}[args.command](args)
+    return {"train": cmd_train, "serve": cmd_serve, "worker": cmd_worker,
+            "perf": cmd_perf}[args.command](args)
 
 
 if __name__ == "__main__":

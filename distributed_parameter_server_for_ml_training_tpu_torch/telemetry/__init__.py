@@ -1,8 +1,13 @@
 """Live telemetry for the port: the metrics registry, span helpers, the
-trace flight recorder, the goodput ledger, and the cluster health layer
-(the rule engine, the server's cluster monitor with its SLO evaluator,
-and the remediation engine) — the parts of the JAX package's
-``telemetry/`` that the store, the service and the worker use."""
+trace flight recorder, the goodput ledger, the journal, the cluster
+health layer (the rule engine, the server's cluster monitor with its SLO
+evaluator, and the remediation engine), and the process surfaces: the
+snapshot stream, the Prometheus endpoint (``/metrics``, ``/healthz``,
+``/cluster``, ``/debug/trace``), memory telemetry, incident capture, the
+profiler bracket with its FLOP accounting, and trigger-driven profiling
+— the JAX package's ``telemetry/`` under its names. The fleet collector
+comes with ROADMAP §1 item 8's rest, the replica autoscaler with item
+9."""
 
 from .cluster import (
     ClusterMonitor,
@@ -20,7 +25,19 @@ from .health import (
     HealthThresholds,
     WorkerState,
 )
-from .journal import journal_event
+from .incidents import MANIFEST_FIELDS, IncidentCapture
+from .journal import (
+    EVENT_CATALOG,
+    JournalReader,
+    JournalWriter,
+    get_journal,
+    journal_event,
+    read_journal,
+    set_journal,
+)
+from .memory import MemoryMonitor, read_device_memory, read_host_rss
+from .proftrigger import PROFILE_RECORD_FIELDS, ProfileTrigger
+from .prometheus import render_prometheus, start_metrics_server
 from .registry import (
     BYTES_BUCKETS,
     LATENCY_BUCKETS,
@@ -42,16 +59,24 @@ from .remediation import (
     note_action,
 )
 from .slo import SloEvaluator, SloObjective, default_objectives
+from .snapshot import SnapshotEmitter
 from .spans import now, span
-from .stats import histogram_quantile
+from .stats import histogram_quantile, merge_histograms
 from .trace import (
     SPAN_CATALOG,
     FlightRecorder,
+    TraceContext,
+    add_shutdown_flush,
+    current_context,
+    current_wire_trace,
     disable_tracing,
     enable_tracing,
     get_recorder,
+    install_shutdown_hooks,
+    remove_shutdown_flush,
     trace_enabled,
     trace_span,
+    use_wire_context,
 )
 
 __all__ = [
@@ -61,6 +86,7 @@ __all__ = [
     "ClusterMonitor",
     "ClusterState",
     "Counter",
+    "EVENT_CATALOG",
     "FlightRecorder",
     "GOODPUT_CATEGORIES",
     "Gauge",
@@ -68,9 +94,16 @@ __all__ = [
     "HealthRuleEngine",
     "HealthThresholds",
     "Histogram",
+    "IncidentCapture",
+    "JournalReader",
+    "JournalWriter",
     "LATENCY_BUCKETS",
     "LATENCY_BUCKETS_S",
+    "MANIFEST_FIELDS",
+    "MemoryMonitor",
     "MetricsRegistry",
+    "PROFILE_RECORD_FIELDS",
+    "ProfileTrigger",
     "RULE_CATALOG",
     "RemediationEngine",
     "RemediationPolicy",
@@ -79,24 +112,40 @@ __all__ = [
     "STALENESS_BUCKETS",
     "SloEvaluator",
     "SloObjective",
+    "SnapshotEmitter",
+    "TraceContext",
     "WorkerAutoscalePolicy",
     "WorkerAutoscaler",
     "WorkerState",
+    "add_shutdown_flush",
+    "current_context",
+    "current_wire_trace",
     "default_objectives",
     "disable_tracing",
     "enable_tracing",
     "get_cluster_monitor",
+    "get_journal",
     "get_recorder",
     "get_registry",
     "goodput_report",
     "histogram_quantile",
+    "install_shutdown_hooks",
     "journal_event",
+    "merge_histograms",
     "note_action",
     "now",
+    "read_device_memory",
+    "read_host_rss",
+    "read_journal",
     "register_build_info",
+    "remove_shutdown_flush",
+    "render_prometheus",
     "sanitize_report",
     "set_cluster_monitor",
+    "set_journal",
     "span",
+    "start_metrics_server",
     "trace_enabled",
     "trace_span",
+    "use_wire_context",
 ]

@@ -22,11 +22,12 @@ every worker — the parameter server:
   increment ``dps_alerts_total{rule,severity}``, and ride
   ``"kind": "cluster"`` METRICS_JSON records (:meth:`emit_once`).
 
-In the port, the HTTP surface (``GET /cluster``, ``/healthz``), the
-serve flag that streams the records (``--telemetry``), ``cli status``
-and the memory, sharding, tenancy and profile-trigger attachments come
-with ROADMAP §1 item 8's rest and item 9; the attributes are here, so
-those slices only have to set them.
+In the port, ``cli serve`` serves the view at ``GET /cluster`` and
+``/healthz`` (``telemetry/prometheus.py``), streams the records with
+``--telemetry`` and attaches the memory monitor and the profile trigger;
+``cli status`` and the sharding and tenancy attachments come with ROADMAP
+§1 item 8's rest and item 9, and their attributes are here, so those
+slices only have to set them.
 
 Everything here is observe-only: ingest and evaluation never touch the
 store's training state, and every consumer-facing entry point swallows its

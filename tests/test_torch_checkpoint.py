@@ -17,8 +17,14 @@ baseline resumes bit-equal on the card."""
 
 import json
 import os
+import re
+import signal
 import socket
+import subprocess
+import sys
 import threading
+import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -378,6 +384,88 @@ def test_cli_serve_device_store_checkpoints_and_restores(tmp_path,
     assert steps == [4, 8]
     err = capsys.readouterr().err
     assert "backend=device" in err and "restored store at step 4" in err
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("checkpoint", [True, False],
+                         ids=["checkpoint_dir", "plain"])
+def test_cli_serve_process_on_sigterm(tmp_path, checkpoint):
+    """A ``cli serve`` process is sent SIGTERM while it waits for its
+    second worker. With ``--checkpoint-dir`` the shutdown hooks write the
+    store's end state and the process exits 143; the snapshot restores
+    into a fresh store bit-equal to what the server served last. A plain
+    serve installs no hooks and dies by the signal, with no closing
+    METRICS_JSON line, as the JAX package's does."""
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms \
+        import RemoteStore
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps import (
+        PSWorker, WorkerConfig)
+
+    ckpt = tmp_path / "ckpt"
+    argv = [sys.executable, "-m",
+            "distributed_parameter_server_for_ml_training_tpu_torch.cli",
+            "serve", "--mode", "async", "--workers", "2", "--device",
+            "cpu", "--num-classes", "10", "--port", "0", "--emit-metrics"]
+    if checkpoint:
+        argv += ["--checkpoint-dir", str(ckpt),
+                 "--checkpoint-interval", "3600"]
+    repo = Path(__file__).resolve().parents[1]
+    env = {**os.environ, "PYTHONPATH": str(repo)}
+    with open(tmp_path / "out", "w+") as out, \
+            open(tmp_path / "err", "w+") as err:
+        server = subprocess.Popen(argv, cwd=tmp_path, env=env, stdout=out,
+                                  stderr=err, text=True)
+        try:
+            deadline, up = time.monotonic() + 120, None
+            while up is None and server.poll() is None \
+                    and time.monotonic() < deadline:
+                time.sleep(0.1)
+                err.seek(0)
+                up = re.search(r"parameter server up on :(\d+)", err.read())
+            assert up, "cli serve did not come up"
+            client = RemoteStore(f"127.0.0.1:{up.group(1)}",
+                                 rpc_timeout=10.0)
+            # The server's model, ResNet-18 at 10 classes; a shard of 32
+            # of the 64 images, two pushes.
+            worker = PSWorker(client, port_models.get_model(
+                "resnet18", num_classes=10, device="cpu"),
+                              synthetic_cifar100(64, 16, 10, seed=1),
+                              WorkerConfig(batch_size=16, num_epochs=1,
+                                           augment=False, device="cpu",
+                                           eval_each_epoch=False))
+            worker.start()
+            worker.join(120)
+            served, step = client.fetch()
+            served = {k: np.array(v) for k, v in served.items()}
+            client.close()
+            server.send_signal(signal.SIGTERM)
+            rc = server.wait(60)
+        finally:
+            if server.poll() is None:
+                server.kill()
+                server.wait()
+        out.seek(0)
+        stdout = out.read()
+        err.seek(0)
+        stderr = err.read()
+    assert worker.result.error is None and step == 2
+    if not checkpoint:
+        assert rc == -signal.SIGTERM, stderr
+        assert "METRICS_JSON" not in stdout
+        return
+    assert rc == 143, stderr
+    store = ParameterStore({k: np.zeros_like(v) for k, v in served.items()},
+                           StoreConfig(mode="async", total_workers=2))
+
+    class Svc:
+        def load_journal(self, entries):
+            return len(entries)
+
+    assert restore_server_state(store, Svc(), str(ckpt))[0] == 2
+    got, _ = store.snapshot()
+    assert list(got) == list(served)
+    for k in served:
+        assert got[k].tobytes() == served[k].tobytes(), k
 
 
 # -- on the card (skip here; scripts/run_cuda_tests.py runs them) ---------

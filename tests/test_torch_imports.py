@@ -56,7 +56,12 @@ def test_port_files_exist():
                      "checkpoint/__init__.py", "checkpoint/manager.py",
                      "telemetry/health.py", "telemetry/cluster.py",
                      "telemetry/slo.py", "telemetry/stats.py",
-                     "telemetry/remediation.py"):
+                     "telemetry/remediation.py", "telemetry/snapshot.py",
+                     "telemetry/prometheus.py", "telemetry/memory.py",
+                     "telemetry/incidents.py", "telemetry/profiler.py",
+                     "telemetry/proftrigger.py", "utils/tracing.py",
+                     "analysis/__init__.py", "analysis/traces.py",
+                     "analysis/device_profile.py"):
         assert required in names, required
     for kernel in ("wire_quantize.cu", "block_quantize.cu",
                    "flash_attention.cu"):
@@ -85,6 +90,8 @@ def _cuda_entry_points():
         .device_codec import DeviceCodec
     from distributed_parameter_server_for_ml_training_tpu_torch.ps \
         import WorkerConfig
+    from distributed_parameter_server_for_ml_training_tpu_torch.telemetry \
+        import read_device_memory
     from distributed_parameter_server_for_ml_training_tpu_torch.train \
         .baseline import BaselineConfig
     from distributed_parameter_server_for_ml_training_tpu_torch.train \
@@ -98,13 +105,20 @@ def _cuda_entry_points():
         "WorkerConfig": lambda: WorkerConfig(),
         "DistributedConfig": lambda: DistributedConfig(),
         "BaselineConfig": lambda: BaselineConfig(),
+        "read_device_memory": lambda: read_device_memory(),
+        "read_device_memory_cuda_1": lambda: read_device_memory("cuda:1"),
     }
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "get_model",
                                    "DeviceCodec", "WorkerConfig",
-                                   "DistributedConfig", "BaselineConfig"])
+                                   "DistributedConfig", "BaselineConfig",
+                                   "read_device_memory",
+                                   "read_device_memory_cuda_1"])
 def test_cuda_default_raises_without_a_card(entry):
+    """Each entry point runs on the card unless asked for the CPU, and
+    raises without one; the memory reader of a ``cuda`` device raises
+    rather than reading as None (the CPU's reading)."""
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -241,30 +255,28 @@ def test_sp_entry_points_default_to_cuda():
 
 
 def test_later_flags_name_only_items_8_and_9():
-    """The CLI refuses only the flags of ROADMAP §1 items 8 (the rest of
-    the telemetry: the streams, the HTTP surface, incident capture, the
-    memory sampler) and 9 (the service's refusals name item 9); the store
-    options and worker modes of item 3, the device store of item 4, the
-    checkpoints of item 5 and the health monitor, SLO and remediation
-    flags of item 8's first part are accepted, and ``--store-backend
-    native`` is refused naming item 9."""
+    """The CLI refuses only the flags and verbs of later ROADMAP items:
+    item 9's (the service's refusals name item 9 too) and ``perf
+    check``, which waits for item 11 (port tooling). Item 8's flags are
+    served since its second part (``--telemetry``, ``--metrics-port``,
+    ``--incidents-dir``, ``--no-memory-telemetry``, the profile
+    triggers, ``--profile-dir``), as are the store options and worker
+    modes of item 3, the device store of item 4, the checkpoints of item
+    5 and the health monitor, SLO and remediation flags of item 8's first
+    part; ``--store-backend native`` is refused naming item 9."""
     from distributed_parameter_server_for_ml_training_tpu_torch import cli
     from distributed_parameter_server_for_ml_training_tpu_torch.comms \
         import client, service
     items = set()
-    for where in cli.LATER_FLAGS.values():
-        items |= {int(n) for n in
-                  where.split("item", 1)[1].split("(")[0].replace(
-                      "s ", " ").replace("and", ",").split(",")
-                  if n.strip()}
-    assert items <= {8, 9}
+    for where in (*cli.LATER_FLAGS.values(), *cli.LATER_VERBS.values()):
+        items |= {int(n) for n in re.findall(r"item (\d+)", where)}
+    assert items == {9, 11}
     for text in (*service.LATER.values(), *client._LATER.values()):
         assert {int(n) for n in re.findall(r"item (\d+)", text)} \
             <= {8, 9}, text
     assert set(cli.LATER_FLAGS) == {"faults", "jobs", "job", "shards",
-                                    "store_backend", "telemetry",
-                                    "metrics_port", "incidents_dir",
-                                    "no_memory_telemetry"}
+                                    "store_backend"}
+    assert set(cli.LATER_VERBS) == {"perf check"}
     parser = cli.build_parser()
     for argv in (["serve", "--fetch-codec", "bf16", "--elastic",
                   "--worker-timeout", "30", "--sync-quorum", "2",
@@ -279,20 +291,28 @@ def test_later_flags_name_only_items_8_and_9():
                   "--slo-slow-window", "20", "--slo-fast-burn", "2",
                   "--slo-slow-burn", "1"],
                  ["serve", "--no-health-monitor", "--no-slo"],
+                 ["serve", "--telemetry", "--telemetry-interval", "1",
+                  "--metrics-port", "0", "--trace", "--trace-buffer", "64",
+                  "--trace-dump-dir", "t", "--journal-dir", "j",
+                  "--incidents-dir", "i", "--incident-window", "9",
+                  "--incident-cooldown", "9", "--no-memory-telemetry",
+                  "--profile-triggers", "--profiles-dir", "p",
+                  "--profile-window", "0.5", "--profile-cooldown", "9",
+                  "--goodput-drop-threshold", "0.4", "--profile-dir", "d"],
                  ["worker", "--k-step-mode", "local_sgd", "--local-lr",
                   "0.1", "--overlap", "--heartbeat", "2",
-                  "--reconnect-timeout", "60"],
+                  "--reconnect-timeout", "60", "--telemetry",
+                  "--metrics-port", "0", "--trace", "--profile-dir", "d"],
                  ["train", "--mode", "async", "--k-step-mode", "local_sgd",
                   "--overlap", "--heartbeat", "1", "--reconnect-timeout",
                   "9", "--elastic", "--worker-timeout", "3",
                   "--store-backend", "device", "--strict-rounds",
-                  "--checkpoint-dir", "d", "--resume"]):
+                  "--checkpoint-dir", "d", "--resume", "--telemetry",
+                  "--journal-dir", "j", "--profile-dir", "d"]):
         cli._refuse_later_flags(parser.parse_args(argv))
     for verb in ("serve", "train"):
         with pytest.raises(NotImplementedError, match="item 9"):
             cli._refuse_later_flags(parser.parse_args(
                 [verb, "--store-backend", "native"]))
-    for argv in (["--telemetry"], ["--metrics-port", "0"],
-                 ["--incidents-dir", "i"], ["--no-memory-telemetry"]):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            cli._refuse_later_flags(parser.parse_args(["serve", *argv]))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        cli.main(["perf", "check"])
