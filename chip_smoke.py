@@ -268,7 +268,31 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    spread of the off turns beside the difference; (c) phase 14 (b)'s
    topology again with each ``cli worker`` under ``--profile-dir``: each
    worker's capture, attributed, holds one ``quantize-pack`` event and
-   one K1 launch a push it made.
+   one K1 launch a push it made;
+21. sync data parallelism over several processes, one per card
+   (``parallel/multihost.py``), full ResNet-18 (CIFAR stem, bf16), batch
+   128 a slot, int8, 8 steps: (a) one rank over NCCL, 4 slots, against
+   the one-process step over the same 4 slots, int8 and bf16, with
+   deterministic cuDNN: every param and batch statistic bit-equal; K2-K4's
+   counts reset just before the NCCL rank's int8 run and read just after:
+   K3 4 and K4 7 a step. (b) Two rank processes on the one card, 2 slots
+   each, gloo with every collective copied through the host (NCCL refuses
+   two ranks on one device; the ranks say so on stderr): over the two
+   ranks first the ring alone on seeded rows [4, 11,220,132], whose rows
+   must equal one process's 4-row ring on the card and on the CPU (the
+   plain versions) bit for bit, and one int8 step, within rtol 0.05 /
+   atol 1e-3 of one process's step over the 4 slots; then ``cli train
+   --mode sync --multihost --dist-backend gloo`` for 2 epochs of 4 steps:
+   every rank's params bit-identical at the end, the ring's rows
+   identical, each slot handing 6 payloads of ``ring_payload_bytes(
+   2,805,033)`` a step, K3 32 and K4 56 launches in each rank (counts
+   read in each rank process around its CLI run), and the params within
+   twice the drift of one process's own variants of the same run (2
+   slots of 256 int8, 4 slots uncompressed) from one process's 4-slot
+   run of the same command. Reports img/s summed and step ms over epoch
+   2 beside one process's and phase 7's img/s. (c) The same over NCCL
+   on two cards where ``torch.cuda.device_count() >= 2``; otherwise a
+   line says it was not run for want of a second card.
 
 Then one JSON line of kernels and, last, the device line. Without a CUDA
 device, or outside a checkout of the repo, it exits non-zero and prints
@@ -1222,6 +1246,7 @@ def phase_sync_path(state: dict) -> None:
           "ring_max_abs_err_vs_exact_mean": ring_vs_mean,
           "int8_vs_none_params_outside_tolerance": worst,
           "card": state["card"]})
+    state["sync_img_per_s"] = images / train_s
     want = {"block_quantize": 0,
             "block_quantize_stochastic": SYNC_SLOTS * steps,
             "block_dequantize": (2 * SYNC_SLOTS - 1) * steps}
@@ -4811,6 +4836,401 @@ def phase_observability(state: dict) -> None:
     _worker_captures(state)
 
 
+# -- phase 21: sync data parallelism over several processes ------------------
+
+MH_SLOTS, MH_STEPS = 4, 8     # 4 global slots of BATCH, 8 steps
+MH_RING_SEED = 0x5EED
+MH_RANK_TIMEOUT_S = 300       # (b), (c): each rank process, start to exit
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _mh_ring_rows(device):
+    """Seeded rows ``[MH_SLOTS, 11,220,132]`` (ResNet-18's size) for the
+    ring alone, the same on every process."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(7)
+    return 1e-3 * torch.randn((MH_SLOTS, 11_220_132), generator=g,
+                              device=device)
+
+
+def _digests(rows) -> list:
+    import hashlib
+
+    return [hashlib.sha256(r.cpu().numpy().tobytes()).hexdigest()
+            for r in rows]
+
+
+def _mh_batches(steps: int) -> list:
+    """``steps`` global batches of MH_SLOTS x BATCH synthetic CIFAR-100
+    images (seed 0)."""
+    from distributed_parameter_server_for_ml_training_tpu_torch.data \
+        import make_batches, synthetic_cifar100
+
+    ds = synthetic_cifar100(n_train=MH_SLOTS * BATCH * steps, n_test=8)
+    return list(make_batches(ds.x_train, ds.y_train, MH_SLOTS * BATCH,
+                             seed=0))
+
+
+def _mh_steps(mesh, batches: list, compression: str):
+    """Full ResNet-18 (100 classes, bf16, seed 0) trained over ``mesh``
+    with augmentation, one step a global batch: the final state."""
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.models \
+        import get_model
+    from distributed_parameter_server_for_ml_training_tpu_torch.parallel \
+        import (DATA_AXIS, make_sync_dp_step, replicate_to_mesh,
+                shard_batch, shard_batch_global)
+    from distributed_parameter_server_for_ml_training_tpu_torch.train \
+        .optimizers import server_sgd
+    from distributed_parameter_server_for_ml_training_tpu_torch.train \
+        .train_state import create_train_state
+
+    model = get_model("resnet18", num_classes=100, dtype="bfloat16",
+                      device=mesh.device, seed=0, axis_name=DATA_AXIS)
+    st = replicate_to_mesh(mesh, create_train_state(model, server_sgd(0.1)))
+    step = make_sync_dp_step(mesh, model, compression=compression)
+    shard = shard_batch_global if mesh.group is not None else shard_batch
+    for xb, yb in batches:
+        st, _ = step(st, *shard(mesh, (xb, yb)), 1)
+    torch.cuda.synchronize()
+    return st
+
+
+def _multihost_one_rank(state: dict) -> None:
+    """Phase 21 (a): one rank over NCCL on the card, 4 slots, against the
+    one-process step, int8 and bf16, with deterministic cuDNN."""
+    import torch
+    import torch.distributed as dist
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.parallel \
+        import make_global_mesh, make_mesh
+    from distributed_parameter_server_for_ml_training_tpu_torch.parallel \
+        import multihost as mh
+
+    batches = _mh_batches(MH_STEPS)
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    mh.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device="cuda")
+    out, counts = {}, None
+    try:
+        group = mh.world_group()
+        for comp in ("int8", "bf16"):
+            single = _mh_steps(make_mesh(MH_SLOTS, "cuda"), batches, comp)
+            if comp == "int8":
+                _reset_block_counts()
+            t0 = time.perf_counter()
+            multi = _mh_steps(make_global_mesh(MH_SLOTS, "cuda",
+                                               group=group), batches, comp)
+            seconds = time.perf_counter() - t0
+            if comp == "int8":
+                counts = _block_counts()
+            differ = [k for k in single.params
+                      if not torch.equal(single.params[k], multi.params[k])]
+            differ += [k for k in single.batch_stats
+                       if not torch.equal(single.batch_stats[k],
+                                          multi.batch_stats[k])]
+            out[comp] = {"steps": multi.step, "seconds": seconds,
+                         "tensors_differing": differ}
+            del single, multi
+    finally:
+        dist.destroy_process_group()
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    state["multihost_counts"] = dict(counts)
+    emit({"phase": "multihost", "form": "a_one_rank_nccl",
+          "backend": group.backend, "slots": MH_SLOTS,
+          "batch_per_slot": BATCH, "runs": out, "launches": counts,
+          "card": state["card"]})
+    want = {"block_quantize": 0,
+            "block_quantize_stochastic": MH_SLOTS * MH_STEPS,
+            "block_dequantize": (2 * MH_SLOTS - 1) * MH_STEPS}
+    if counts != want:
+        raise AssertionError(f"(a) launched {counts}; expected {want}")
+    bad = {c: r["tensors_differing"] for c, r in out.items()
+           if r["tensors_differing"] or r["steps"] != MH_STEPS}
+    if bad:
+        raise AssertionError(f"(a) one NCCL rank differs from the "
+                             f"one-process step: {bad}")
+
+
+def multihost_rank(argv: list) -> int:
+    """One rank process of phase 21 (b)/(c): ``rank backend ring_port
+    out_dir cli_args...``. First, over the 2 ranks, the ring alone on
+    :func:`_mh_ring_rows` (this rank's half) and one int8 step of
+    :func:`_mh_steps` (rank 0 saves its params to ``out_dir``); then
+    ``cli train --multihost`` with ``cli_args``. Writes its exit code,
+    the ring rows' digests and K2-K4's launches in the CLI run to
+    ``out_dir/rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from distributed_parameter_server_for_ml_training_tpu_torch import cli
+    from distributed_parameter_server_for_ml_training_tpu_torch.parallel \
+        import make_global_mesh
+    from distributed_parameter_server_for_ml_training_tpu_torch.parallel \
+        import multihost as mh
+    from distributed_parameter_server_for_ml_training_tpu_torch.parallel \
+        .sync_dp import _int8_ring_allreduce_mean
+
+    rank, backend, ring_port = int(argv[0]), argv[1], argv[2]
+    out = Path(argv[3])
+    dev = mh.initialize(f"127.0.0.1:{ring_port}", 2, rank, backend=backend,
+                        device="cuda")
+    group = mh.world_group()
+    half = MH_SLOTS // 2
+    rows = _mh_ring_rows(dev)[half * rank:half * (rank + 1)]
+    ring = _int8_ring_allreduce_mean(rows, MH_RING_SEED, group=group)
+    torch.cuda.synchronize()
+    digests = _digests(ring)
+    del rows, ring
+    st = _mh_steps(make_global_mesh(MH_SLOTS, dev, group=group),
+                   _mh_batches(1), "int8")
+    if rank == 0:
+        torch.save({k: v.cpu() for k, v in st.params.items()},
+                   out / "step_rank0.pt")
+    del st
+    dist.destroy_process_group()
+    _reset_block_counts()
+    rc = cli.main(argv[4:])
+    torch.cuda.synchronize()
+    (out / f"rank{rank}.json").write_text(json.dumps({
+        "rank": rank, "rc": rc, "device": str(dev), "ring_digests": digests,
+        "launches": _block_counts()}))
+    return rc
+
+
+def _multihost_processes(state: dict, backend: str, form: str) -> None:
+    """Phase 21 (b)/(c): 2 rank processes (:func:`multihost_rank`), each
+    ``cli train --mode sync --multihost`` over 2 of 4 slots, against the
+    one-process 4-slot run of the same command."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch import cli
+    from distributed_parameter_server_for_ml_training_tpu_torch.parallel \
+        import make_mesh
+    from distributed_parameter_server_for_ml_training_tpu_torch.parallel \
+        .sync_dp import _int8_ring_allreduce_mean, ring_payload_bytes
+
+    torch.cuda.empty_cache()
+    repo = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(repo)}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mh_"))
+    steps_per_epoch = MH_STEPS // 2
+    common = ["train", "--mode", "sync", "--workers", str(MH_SLOTS),
+              "--batch-size", str(BATCH), "--compression", "int8",
+              "--epochs", "2", "--synthetic", "--num-train",
+              str(MH_SLOTS * BATCH * steps_per_epoch), "--num-test", "128",
+              "--emit-metrics"]
+    ring_port, cli_port = _free_port(), _free_port()
+    launcher = ("import sys, chip_smoke; "
+                "sys.exit(chip_smoke.multihost_rank(sys.argv[1:]))")
+    logs = [tempfile.TemporaryFile("w+") for _ in range(4)]
+    procs, late = [], None
+    t0 = time.perf_counter()
+    try:
+        for rank in range(2):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", launcher, str(rank), backend,
+                 str(ring_port), str(tmp), *common,
+                 "--multihost", "--coordinator", f"127.0.0.1:{cli_port}",
+                 "--num-processes", "2", "--process-id", str(rank),
+                 "--dist-backend", backend, "--checkpoint-dir",
+                 str(tmp / "multi")],
+                cwd=repo, env=env, stdout=logs[2 * rank],
+                stderr=logs[2 * rank + 1], text=True))
+        deadline = time.perf_counter() + MH_RANK_TIMEOUT_S
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                late = f"a rank process still alive after " \
+                       f"{MH_RANK_TIMEOUT_S} s"
+                break
+        wall = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        texts = []
+        for f in logs:
+            f.seek(0)
+            texts.append(f.read())
+            f.close()
+    rcs = [p.returncode for p in procs]
+    if late is not None or rcs != [0, 0]:
+        raise AssertionError(f"{late or f'rank exit codes {rcs}'}. Output "
+                             f"tails: {[t[-2000:] for t in texts]}")
+    ranks = [json.loads((tmp / f"rank{r}.json").read_text())
+             for r in range(2)]
+    rows = _metrics_rows(texts[0])
+    server, workers = rows[0], rows[1:]
+    staged = ["staged through the host" in texts[2 * r + 1]
+              for r in range(2)]
+
+    # The ring alone: one process's 4-row ring on the card, and on a CPU
+    # copy (the plain versions), against the ranks' rows.
+    rows4 = _mh_ring_rows("cuda")
+    one_ring = _digests(_int8_ring_allreduce_mean(rows4, MH_RING_SEED))
+    plain_ring = _digests(_int8_ring_allreduce_mean(rows4.cpu(),
+                                                    MH_RING_SEED))
+    del rows4
+    rank_ring = ranks[0]["ring_digests"] + ranks[1]["ring_digests"]
+
+    def max_diff(a, b):
+        return max(float((a[k].cpu() - b[k].cpu()).abs().max()) for k in b)
+
+    # One int8 step, one process over the 4 slots, against the ranks';
+    # beside it one process over 2 slots of 256, the same function in
+    # another slot layout.
+    batch1 = _mh_batches(1)
+    step_one = _mh_steps(make_mesh(MH_SLOTS, "cuda"), batch1, "int8").params
+    step_two = _mh_steps(make_mesh(2, "cuda"), batch1, "int8").params
+    step_multi = torch.load(tmp / "step_rank0.pt", weights_only=True)
+    step_worst = [k for k in step_one
+                  if not torch.allclose(step_multi[k].cuda(), step_one[k],
+                                        rtol=0.05, atol=1e-3)]
+    step_diff, step_layout = max_diff(step_multi, step_one), \
+        max_diff(step_two, step_one)
+    del step_one, step_two, step_multi
+
+    # The one-process runs of the same command: int8 over the 4 slots
+    # (the reference), int8 over 2 slots of 256 (another layout) and
+    # uncompressed over 4 (int8's own effect); the params after 8 steps.
+    runs = {"one_int8": ["--compression", "int8"],
+            "two_int8": ["--compression", "int8", "--workers", "2",
+                         "--batch-size", str(2 * BATCH)],
+            "one_none": ["--compression", "none"]}
+    one_rows, rc_one = None, []
+    for name, extra in runs.items():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc_one.append(cli.main([*common, *extra, "--checkpoint-dir",
+                                    str(tmp / name)]))
+        one_rows = one_rows or _metrics_rows(buf.getvalue())
+
+    def params(name):
+        (f,) = sorted((tmp / name).iterdir())[-1:]
+        return torch.load(f, weights_only=True)["params"]
+
+    multi, one, two = params("multi"), params("one_int8"), \
+        params("two_int8")
+    run_diff = max_diff(multi, one)
+    layout_spread = max_diff(two, one)
+    int8_effect = max_diff(params("one_none"), one)
+    noise = max(layout_spread, int8_effect)
+
+    def outside(a):
+        return [k for k in one
+                if not torch.allclose(a[k], one[k], rtol=0.05, atol=1e-3)]
+
+    worst, layout_worst = outside(multi), outside(two)
+    size = sum(v.numel() for v in one.values())
+    wire_want = 2 * (MH_SLOTS - 1) * ring_payload_bytes(-(-size // MH_SLOTS))
+
+    def img_s(rs):
+        t = rs[1]["epoch_times_seconds"][-1]
+        return steps_per_epoch * MH_SLOTS * BATCH / t, 1e3 * t \
+            / steps_per_epoch
+
+    (mh_img_s, mh_step_ms), (one_img_s, one_step_ms) = img_s(rows), \
+        img_s(one_rows)
+    per_rank = [r["launches"] for r in ranks]
+    state["multihost_counts"] = {
+        k: v + per_rank[0][k] + per_rank[1][k]
+        for k, v in state["multihost_counts"].items()}
+    emit({"phase": "multihost", "form": form, "backend": backend,
+          "processes": 2, "slots_per_rank": MH_SLOTS // 2,
+          "batch_per_slot": BATCH, "steps": server["global_steps_completed"],
+          "devices": [r["device"] for r in ranks],
+          "hops_staged_through_host": staged,
+          "ranks_params_identical": server.get("ranks_params_identical"),
+          "ring_replicas_identical": server.get("ring_replicas_identical"),
+          "ring_alone_equals_one_process": rank_ring == one_ring,
+          "ring_alone_card_equals_plain": one_ring == plain_ring,
+          "img_per_s_summed_epoch2": mh_img_s, "step_ms_epoch2": mh_step_ms,
+          "one_process_img_per_s_epoch2": one_img_s,
+          "one_process_step_ms_epoch2": one_step_ms,
+          "phase7_img_per_s": state.get("sync_img_per_s"),
+          "epoch_times_seconds": rows[1]["epoch_times_seconds"],
+          "launches_per_rank": per_rank,
+          "wire_bytes_per_slot_per_step": server.get(
+              "wire_bytes_per_slot_step"), "wire_bytes_model": wire_want,
+          "step1_params_max_abs_diff_vs_one_process": step_diff,
+          "step1_one_process_2_vs_4_slots_max_abs_diff": step_layout,
+          "step1_params_outside_int8_tolerance": step_worst,
+          "params_max_abs_diff_vs_one_process": run_diff,
+          "one_process_2_vs_4_slots_max_abs_diff": layout_spread,
+          "one_process_int8_vs_none_max_abs_diff": int8_effect,
+          "params_outside_int8_tolerance_after_8_steps": len(worst),
+          "one_process_2_slots_outside_int8_tolerance_after_8_steps":
+              len(layout_worst), "tensors": len(one),
+          "one_process_rc": rc_one, "wall_seconds": wall,
+          "card": state["card"]})
+    want = {"block_quantize": 0,
+            "block_quantize_stochastic": MH_SLOTS * MH_STEPS,
+            "block_dequantize": (2 * MH_SLOTS - 1) * MH_STEPS}
+    problems = []
+    if server.get("global_steps_completed") != MH_STEPS:
+        problems.append(f"steps {server.get('global_steps_completed')}")
+    if any(r != want for r in per_rank):
+        problems.append(f"launches {per_rank}, expected {want} a rank")
+    if backend == "gloo" and not all(staged):
+        problems.append("a gloo rank on the card did not say its "
+                        "collectives were staged through the host")
+    if server.get("ranks_params_identical") is not True \
+            or server.get("ring_replicas_identical") is not True:
+        problems.append("replicas differ")
+    if rank_ring != one_ring or one_ring != plain_ring:
+        problems.append("the ring over ranks differs from one process's "
+                        "or from the plain versions")
+    if server.get("wire_bytes_per_slot_step") != wire_want:
+        problems.append(f"wire bytes {server.get('wire_bytes_per_slot_step')}"
+                        f" != {wire_want}")
+    if rc_one != [0, 0, 0] or step_worst:
+        problems.append(f"one-process rcs {rc_one}; one step's params "
+                        f"outside rtol 0.05 / atol 1e-3: {step_worst}")
+    # After 8 bf16 steps two runs of the same function drift apart by
+    # ~1e-2 (one process over 2 slots, or int8 against none): the ranks
+    # must stay within twice that drift of one process.
+    if not run_diff <= 2 * noise:
+        problems.append(f"after {MH_STEPS} steps the ranks' params are "
+                        f"{run_diff} from one process's, over twice the "
+                        f"drift of one process's own variants ({noise})")
+    if problems:
+        raise AssertionError(f"({form}) " + "; ".join(problems))
+
+
+def phase_multihost(state: dict) -> None:
+    """Phase 21: sync data parallelism over several processes."""
+    import torch
+
+    _multihost_one_rank(state)
+    _multihost_processes(state, "gloo", "b_two_ranks_one_card_gloo")
+    if torch.cuda.device_count() >= 2:
+        _multihost_processes(state, "nccl", "c_two_ranks_two_cards_nccl")
+    else:
+        emit({"phase": "multihost", "form": "c_two_ranks_two_cards_nccl",
+              "run": False, "reason": "not run for want of a second card",
+              "device_count": torch.cuda.device_count()})
+
+
 def main() -> int:
     import torch
 
@@ -4831,7 +5251,7 @@ def main() -> int:
                   phase_sp_path, phase_sp_profile, phase_cli,
                   phase_grpc_path, phase_grpc_modes, phase_device_store,
                   phase_checkpoints, phase_health, phase_models,
-                  phase_observability):
+                  phase_observability, phase_multihost):
         t0 = time.perf_counter()
         try:
             phase(state)
@@ -4869,11 +5289,13 @@ def main() -> int:
             "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": None})
-    # K2-K4 launches from the sync path's runs (phase 7 and phase 19 (b),
-    # (d)): the ring rounds stochastically, so K2 (nearest rounding) reads
-    # 0 there. No single PyTorch call computes a block quantize, so
-    # library_ms is null.
+    # K2-K4 launches from the sync path's runs (phase 7, phase 19 (b),
+    # (d), and phase 21's multi-rank runs: (a)'s NCCL rank and each rank
+    # process of (b) and (c)): the ring rounds stochastically, so K2
+    # (nearest rounding) reads 0 there. No single PyTorch call computes a
+    # block quantize, so library_ms is null.
     launches = {k: v + state["models_block_counts"][k]
+                + state["multihost_counts"][k]
                 for k, v in state["sync_counts"].items()}
     for name, k in state["block"].items():
         kernels.append({

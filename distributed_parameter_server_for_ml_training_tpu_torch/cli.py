@@ -45,8 +45,19 @@ as in the JAX CLI. ``--mode sp`` trains ``--model vit_tiny|vit_b16``
 sequence-parallel over ``--workers`` sequence slots of one card (ring
 attention, the flash kernels K5-K7 per hop from 2,048 tokens per slot);
 ``--dataset imagenet-synth --image-size N`` gives it ImageNet-shaped
-synthetic images. The CLI's default mode stays ``async`` (the JAX CLI's
-is ``sync``) until the port has all of the JAX CLI's modes.
+synthetic images. ``--mode sync --multihost`` runs one process per card
+(``parallel/multihost.py``): each process is started with
+``--coordinator host:port --num-processes R --process-id r`` (or the
+``DPS_*`` env), ``--workers`` counts the slots of all R processes, and
+``--dist-backend gloo`` puts two processes on one card::
+
+    python -m distributed_parameter_server_for_ml_training_tpu_torch.cli \\
+        train --mode sync --multihost --coordinator 127.0.0.1:29500 \\
+        --num-processes 2 --process-id 0 --workers 8 --compression int8 \\
+        --synthetic --epochs 1
+
+The CLI's default mode stays ``async`` (the JAX CLI's is ``sync``) until
+the port has all of the JAX CLI's modes.
 
 The verbs ``serve`` and ``worker`` are the reference's own topology: a
 gRPC parameter server over the host NumPy store (``comms/service.py``)
@@ -295,6 +306,23 @@ def build_parser() -> argparse.ArgumentParser:
                    help="resume from the newest checkpoint in "
                         "--checkpoint-dir")
     _add_profile_dir(t, "the training loop")
+    t.add_argument("--multihost", action="store_true",
+                   help="join a multi-process job before training (sync "
+                        "mode): one global mesh across processes, one "
+                        "process per card")
+    t.add_argument("--coordinator",
+                   default=_env("DPS_COORDINATOR", None),
+                   help="process-0 address host:port (env "
+                        "DPS_COORDINATOR)")
+    t.add_argument("--num-processes", type=int,
+                   default=_env("DPS_NUM_PROCESSES", None, int))
+    t.add_argument("--process-id", type=int,
+                   default=_env("DPS_PROCESS_ID", None, int))
+    t.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                   help="--multihost collectives: nccl on a card and gloo "
+                        "on the CPU by default; gloo on a card (two "
+                        "processes on one card, which NCCL refuses) "
+                        "copies each collective through the host")
     _add_telemetry(t)
     _add_common(t)
 
@@ -674,6 +702,26 @@ def cmd_train(args) -> int:
 
 
 def _cmd_train(args) -> int:
+    if args.dist_backend and not args.multihost:
+        raise SystemExit("--dist-backend applies to --multihost")
+    if args.multihost:
+        if args.mode != "sync":
+            raise SystemExit("--multihost applies to --mode sync (async "
+                             "multi-host uses serve/worker over gRPC)")
+        import torch.distributed as dist
+
+        from .parallel.multihost import initialize as initialize_multihost
+        args.device = str(initialize_multihost(
+            args.coordinator, args.num_processes, args.process_id,
+            backend=args.dist_backend, device=args.device))
+        try:
+            return _cmd_train_body(args)
+        finally:
+            dist.destroy_process_group()
+    return _cmd_train_body(args)
+
+
+def _cmd_train_body(args) -> int:
     from .train.distributed import (AsyncTrainer, DistributedConfig,
                                     SyncTrainer)
 

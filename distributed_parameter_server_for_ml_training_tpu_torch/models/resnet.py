@@ -70,6 +70,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.multihost import active_rank_group, rank_mean
+
 
 def _key(name: str, leaf: str) -> str:
     return f"{name}.{leaf}" if name else leaf
@@ -153,9 +155,11 @@ class BatchNorm(_OneSlot, nn.Module):
         """``[B, N*C, H, W]`` with per-slot scale and bias ``[N, C]``.
 
         Training: each slot's mean and mean of squares are averaged over
-        the slots (flax's ``pmean`` over ``axis_name``), the variance is
-        taken from the averages, and the running statistics are updated
-        once with them. Eval: the running statistics."""
+        the slots (flax's ``pmean`` over ``axis_name``), and, inside a
+        multi-process step (``parallel.multihost.rank_scope``), over the
+        ranks; the variance is taken from the averages, and the running
+        statistics are updated once with them, the same on every rank.
+        Eval: the running statistics."""
         w, b = params[_key(name, "weight")], params[_key(name, "bias")]
         n, c = w.shape
         xf = x.to(torch.promote_types(self.compute_dtype, torch.float32)
@@ -165,8 +169,14 @@ class BatchNorm(_OneSlot, nn.Module):
                 raise ValueError("a slotted forward in training needs "
                                  "cross-replica BatchNorm: build the model "
                                  "with axis_name")
-            mean = xf.mean(dim=(0, 3, 4)).mean(dim=0)
-            mean2 = (xf * xf).mean(dim=(0, 3, 4)).mean(dim=0)
+            stats = torch.stack([xf.mean(dim=(0, 3, 4)).mean(dim=0),
+                                 (xf * xf).mean(dim=(0, 3, 4)).mean(dim=0)])
+            group = active_rank_group()
+            if group is not None:
+                # Over several processes the pmean spans every rank's
+                # slots: one all-reduce of the stacked [2, C] a layer.
+                stats = rank_mean(stats, group)
+            mean, mean2 = stats
             var = torch.clamp(mean2 - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum

@@ -7,8 +7,12 @@ devices. In the port a :class:`Mesh` is N worker slots on ONE device: the
 sync step runs every slot in one program on that card
 (``parallel/sync_dp.py``), so 4 slots run on one H100. Worker ids are the
 slot indices, contiguous and never duplicated, as in the reference.
-A mesh over several cards (one process per card, NCCL) comes with the
-multi-card slice.
+
+A mesh over several cards runs one process per card
+(``parallel/multihost.py``, ``train --multihost``): the mesh then names
+the group of ranks, ``num_workers`` counts the slots of every rank
+(``R*S``, rank-major), and this process's card holds ``local_slots`` of
+them from ``slot_offset`` on. One process never drives two cards.
 
 A mesh has one named axis: ``data`` (the worker slots of sync data
 parallelism) by default, or ``seq`` (the sequence slots of ring
@@ -19,8 +23,8 @@ model, data x expert) come with the TP and MoE slices.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Sequence
+from dataclasses import dataclass, field
+from typing import Any, Sequence
 
 import torch
 
@@ -35,10 +39,31 @@ class Mesh:
     num_workers: int
     device: torch.device
     axis_name: str = DATA_AXIS
+    #: The ranks of a multi-process mesh (``multihost.RankGroup``), or
+    #: None for the slots of one process.
+    group: Any = field(default=None, compare=False)
 
     @property
     def shape(self) -> dict[str, int]:
         return {self.axis_name: self.num_workers}
+
+    @property
+    def rank(self) -> int:
+        return self.group.rank if self.group is not None else 0
+
+    @property
+    def num_ranks(self) -> int:
+        return self.group.size if self.group is not None else 1
+
+    @property
+    def local_slots(self) -> int:
+        """The slots on this process's card."""
+        return self.num_workers // self.num_ranks
+
+    @property
+    def slot_offset(self) -> int:
+        """The global index of this card's first slot."""
+        return self.rank * self.local_slots
 
 
 def make_mesh(num_workers: int,
@@ -56,8 +81,9 @@ def make_mesh(num_workers: int,
         cards = list(dict.fromkeys(str(torch.device(d)) for d in device))
         if len(cards) != 1:
             raise NotImplementedError(
-                f"a mesh over several cards ({cards}) comes with the "
-                "multi-card slice (one process per card, NCCL)")
+                f"one process drives one card, not {cards}: run one "
+                "process per card (train --multihost; "
+                "parallel.multihost.make_global_mesh)")
         device = cards[0]
     if num_workers < 1:
         raise ValueError(f"num_workers must be >= 1, got {num_workers}")

@@ -32,6 +32,17 @@ dequantize is ONE launch over all N rows. Hop seeds come from integer
 mixing (splitmix64) of (seed, step, slot, hop); JAX's threefry
 ``fold_in`` chain is not reproduced, so the stochastic bits differ from
 the TPU's (both are unbiased).
+
+On a mesh over several processes (``parallel/multihost.py``) each rank
+runs the same step over its own ``S`` of the ``N = R*S`` global slots:
+BatchNorm averages its statistics over the ranks too; the ring's rows
+are global slots (hop seeds and chunk indices by global slot) and each
+hop's last row travels to the next rank, so every row equals the
+one-process ring's row bit for bit; the bf16/fp16/none mean averages the
+card's rows, then the ranks, in the wire dtype (JAX's reduced-precision
+``pmean``); the augmentation draws for the whole global batch and keeps
+this rank's slice; ``loss`` and ``accuracy`` are means over the ranks.
+Each rank's kernel launches cover its own rows only.
 """
 
 from __future__ import annotations
@@ -41,7 +52,8 @@ from typing import Callable, Mapping, Sequence
 import torch
 import torch.nn.functional as F
 
-from ..data.cifar import augment_batch, standardize, to_float
+from ..data.cifar import (augment_draws, augment_with_draws, standardize,
+                          to_float)
 from ..ops.compression import (compress_for_allreduce,
                                decompress_from_allreduce)
 from ..ops.quantize import (LANES, block_dequantize, block_layout,
@@ -49,6 +61,7 @@ from ..ops.quantize import (LANES, block_dequantize, block_layout,
 from ..train.train_state import TrainState
 from ..utils.pytree import flax_names, to_torch_layout
 from .mesh import DATA_AXIS, Mesh, worker_axis_size
+from .multihost import RankGroup, rank_reduce, rank_scope, ring_hop
 
 COMPRESSIONS = ("none", "fp32", "bf16", "fp16", "int8")
 #: Tag that branches the ring's seeds off the augmentation stream (the
@@ -81,7 +94,9 @@ def ring_payload_bytes(chunk: int) -> int:
 
 def _int8_ring_allreduce_mean(flat: torch.Tensor, seed: int = 0, *,
                               stochastic: bool = True,
-                              wire: dict | None = None) -> torch.Tensor:
+                              wire: dict | None = None,
+                              group: RankGroup | None = None
+                              ) -> torch.Tensor:
     """Quantized all-reduce mean of ``flat`` ``[N, S]`` (row w = slot w's
     contribution) as a reduce-scatter ring + an all-gather ring with int8
     payloads on every hop; returns ``[N, S]``, row w = slot w's result.
@@ -96,55 +111,68 @@ def _int8_ring_allreduce_mean(flat: torch.Tensor, seed: int = 0, *,
       slot dequantizes it where it lands, so every row holds the same
       bits.
 
+    With a ``group`` of R ranks, ``flat`` holds this rank's rows, global
+    slots ``rank*S_local ...``, of a ring of ``N = R*S_local`` slots: each
+    hop's last row goes to the next rank (``multihost.ring_hop``) and
+    row 0 takes the previous rank's.
+
     ``wire``, if given, gets ``bytes_per_slot`` increased by the bytes each
     slot hands to its neighbour (codes + scales, 2 (N-1) payloads).
     """
-    n, size = flat.shape
+    rows, size = flat.shape
     if size == 0:
         return flat.clone()
     dev = flat.device
+    first = group.rank * rows if group is not None else 0
+    n = rows * (group.size if group is not None else 1)
     chunk = -(-size // n)
-    own = F.pad(flat, (0, n * chunk - size)).view(n, n, chunk)
-    slots = torch.arange(n, device=dev)
+    own = F.pad(flat, (0, n * chunk - size)).view(rows, n, chunk)
+    local = torch.arange(rows, device=dev)
+    slots = local + first
 
     def quant(x, hop):
         if stochastic:
             return block_quantize_stochastic(
-                x, [mix_seed(seed, slot, hop) for slot in range(n)])
+                x, [mix_seed(seed, first + r, hop) for r in range(rows)])
         return block_quantize(x)
 
     def hand_over(v, sc):
         if wire is not None:
             wire["bytes_per_slot"] = wire.get("bytes_per_slot", 0) \
                 + ring_payload_bytes(chunk)
-        return torch.roll(v, 1, dims=0), torch.roll(sc, 1, dims=0)
+        rolled = torch.roll(v, 1, dims=0), torch.roll(sc, 1, dims=0)
+        if group is not None:
+            rolled[0][0], rolled[1][0] = ring_hop([v[-1], sc[-1]], group)
+        return rolled
 
     # -- reduce-scatter ring: partial sums travel int8 -----------------------
-    part = own[slots, slots]
+    part = own[local, slots]
     for s in range(n - 1):
         v, sc = hand_over(*quant(part, s))
         recv = block_dequantize(v, sc, chunk)
-        part = own[slots, (slots - s - 1) % n] + recv
+        part = own[local, (slots - s - 1) % n] + recv
 
     # -- all-gather ring: the mean chunk quantized once, rotated N-1 hops ----
     v, sc = quant(part / torch.tensor(float(n), device=dev), n - 1)
-    out = torch.empty((n, n, chunk), dtype=torch.float32, device=dev)
+    out = torch.empty((rows, n, chunk), dtype=torch.float32, device=dev)
     idx = (slots + 1) % n
-    out[slots, idx] = block_dequantize(v, sc, chunk)
+    out[local, idx] = block_dequantize(v, sc, chunk)
     for _ in range(n - 1):
         v, sc = hand_over(v, sc)
         idx = (idx - 1) % n
-        out[slots, idx] = block_dequantize(v, sc, chunk)
-    return out.view(n, n * chunk)[:, :size]
+        out[local, idx] = block_dequantize(v, sc, chunk)
+    return out.view(rows, n * chunk)[:, :size]
 
 
 def shard_batch(mesh: Mesh, batch: Sequence, axis: str = DATA_AXIS
                 ) -> tuple[torch.Tensor, ...]:
     """Host arrays -> tensors on the mesh's device with a leading slot
     axis: ``[B, ...]`` -> ``[N, B/N, ...]``, contiguous equal slices per
-    slot (the reference's data sharding, worker.py:166-179). A batch that
-    does not split evenly raises ``ValueError``."""
-    n = worker_axis_size(mesh, axis)
+    slot (the reference's data sharding, worker.py:166-179). On a mesh
+    over several processes the arrays are this rank's part and split over
+    its own slots (``multihost.shard_batch_global`` takes the global
+    batch). A batch that does not split evenly raises ``ValueError``."""
+    n = worker_axis_size(mesh, axis) // mesh.num_ranks
     out = []
     for a in batch:
         t = torch.as_tensor(a)
@@ -237,6 +265,20 @@ def ravel_slots(grads: Mapping[str, torch.Tensor]
     return flat, unravel
 
 
+def augment_slots(x: torch.Tensor, generator: torch.Generator,
+                  num_slots: int, first: int = 0) -> torch.Tensor:
+    """RandomCrop + flip of the slots ``first .. first + S - 1`` (``x``
+    ``[S, B, H, W, C]``) of a global batch of ``num_slots`` slots: the
+    draws are made for the whole global batch from ``generator``, in the
+    order one process over every slot makes them, and this card's part is
+    applied, so its images equal that process's for the same slots."""
+    s, b = x.shape[:2]
+    offsets, flip = augment_draws(num_slots * b, generator, x.device)
+    lo, hi = first * b, (first + s) * b
+    return augment_with_draws(x.reshape(-1, *x.shape[2:]), offsets[lo:hi],
+                              flip[lo:hi]).view(x.shape)
+
+
 def make_sync_dp_step(mesh: Mesh, model: torch.nn.Module, *,
                       axis: str = DATA_AXIS, compression: str = "bf16",
                       augment: bool = True) -> Callable:
@@ -246,14 +288,16 @@ def make_sync_dp_step(mesh: Mesh, model: torch.nn.Module, *,
     A model with BatchNorm must be built with ``axis_name=axis``
     (cross-replica BatchNorm), as the JAX step requires; a ViT has no
     statistic to sync. ``images_u8``/``labels`` come
-    from :func:`shard_batch` (``[N, B, ...]``); ``seed`` is the run's
-    seed, folded with ``state.step`` for the augmentation draws and the
-    ring's hop seeds; the ring rounds stochastically, as the reference's
-    does. Metrics: ``loss`` and ``accuracy`` averaged over the slots, per-slot
-    ``worker_loss`` and ``worker_accuracy`` ``[N]`` (0-dim and ``[N]``
+    from :func:`shard_batch` (``[S, B, ...]``, the card's slots); ``seed``
+    is the run's seed, folded with ``state.step`` for the augmentation
+    draws and the ring's hop seeds; the ring rounds stochastically, as the
+    reference's does. Metrics: ``loss`` and ``accuracy`` averaged over
+    every slot of the mesh, per-slot ``worker_loss`` and
+    ``worker_accuracy`` ``[S]`` of the card's slots (0-dim and ``[S]``
     tensors: no host sync), and for int8 ``ring_replicas_identical`` (the
-    ring's rows are bit-equal) and ``wire_bytes_per_slot`` (the bytes each
-    slot handed across hops)."""
+    ring's rows are bit-equal on every rank) and ``wire_bytes_per_slot``
+    (the bytes each slot handed across hops). On a mesh over several
+    processes every rank must call the step, in the same order."""
     if compression not in COMPRESSIONS:
         raise ValueError(f"compression must be one of {COMPRESSIONS}, got "
                          f"{compression!r}")
@@ -262,43 +306,55 @@ def make_sync_dp_step(mesh: Mesh, model: torch.nn.Module, *,
         raise ValueError(f"the sync step needs a model built with "
                          f"axis_name={axis!r} (cross-replica BatchNorm)")
     n = worker_axis_size(mesh, axis)
+    rows, first, group = mesh.local_slots, mesh.slot_offset, mesh.group
     device = mesh.device
     slot_grads = make_slot_grad_fn(model)
 
     def step(state: TrainState, images_u8: torch.Tensor,
              labels: torch.Tensor, seed: int = 0):
-        if images_u8.shape[0] != n or labels.shape[0] != n:
-            raise ValueError(f"expected a leading axis of {n} slots, got "
+        if images_u8.shape[0] != rows or labels.shape[0] != rows:
+            raise ValueError(f"expected a leading axis of {rows} slots, got "
                              f"{tuple(images_u8.shape)}")
         rng = mix_seed(seed, state.step)
         x = images_u8.to(device)
         if augment:
             gen = torch.Generator(device=device).manual_seed(
                 rng & ((1 << 63) - 1))
-            x = augment_batch(x.reshape(-1, *x.shape[2:]), gen).view(x.shape)
+            x = augment_slots(x, gen, n, first)
         x = standardize(to_float(x))
         y = labels.to(device).long()
 
-        grads, losses, logits, new_stats = slot_grads(
-            state.params, state.batch_stats, x, y)
+        with rank_scope(group):
+            grads, losses, logits, new_stats = slot_grads(
+                state.params, state.batch_stats, x, y)
         flat, unravel = ravel_slots(grads)
         metrics = {}
         if compression == "int8":
             wire = {}
             ring = _int8_ring_allreduce_mean(flat, mix_seed(rng, RING_TAG),
-                                             wire=wire)
+                                             wire=wire, group=group)
             mean = ring[0]
-            metrics["ring_replicas_identical"] = (ring == ring[:1]).all()
+            same = (ring == ring[:1]).all()
+            if group is not None:
+                same = rank_reduce(same.to(torch.int32), "min", group).bool()
+            metrics["ring_replicas_identical"] = same
             metrics["wire_bytes_per_slot"] = wire.get("bytes_per_slot", 0)
         else:
             cast = compress_for_allreduce({"g": flat}, compression)["g"]
-            mean = decompress_from_allreduce({"g": cast.mean(0)},
-                                             compression)["g"]
+            mean = cast.mean(0)
+            if group is not None:
+                # The reduced dtype stays on the wire between ranks.
+                mean = rank_reduce(mean, "mean", group)
+            mean = decompress_from_allreduce({"g": mean}, compression)["g"]
 
         state = state.apply_gradients(unravel(mean)).replace(
             batch_stats=new_stats)
         acc = (logits.argmax(-1) == y).float().mean(1)
-        metrics.update({"loss": losses.mean(), "accuracy": acc.mean(),
+        loss, accuracy = losses.mean(), acc.mean()
+        if group is not None:
+            loss, accuracy = rank_reduce(torch.stack([loss, accuracy]),
+                                         "mean", group)
+        metrics.update({"loss": loss, "accuracy": accuracy,
                         "worker_loss": losses, "worker_accuracy": acc})
         return state, metrics
 

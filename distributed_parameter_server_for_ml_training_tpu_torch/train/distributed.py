@@ -2,13 +2,15 @@
 package's ``train/distributed.py``).
 
 :class:`SyncTrainer` is sync data parallelism: N logical workers are the N
-slots of a mesh on one card, one step per global batch
-(``parallel/sync_dp.py``), no server. :class:`AsyncTrainer` wires a
-parameter store (``store_backend``: the host-NumPy ParameterStore, or the
-device-resident DeviceParameterStore) to N worker threads on the card
-(ps/worker.py), reproducing the reference's async_Nworkers experiment
-configs (EXPERIMENT_GUIDE.md:95-111). Both emit the METRICS_JSON lines
-the reference's ETL expects. The sync trainer checkpoints its train state
+slots of a mesh on one card, or, in a multi-process job (one process per
+card, ``parallel/multihost.py``), of a mesh over every process's card;
+one step per global batch (``parallel/sync_dp.py``), no server.
+:class:`AsyncTrainer` wires a parameter store (``store_backend``: the
+host-NumPy ParameterStore, or the device-resident DeviceParameterStore)
+to N worker threads on the card (ps/worker.py), reproducing the
+reference's async_Nworkers experiment configs
+(EXPERIMENT_GUIDE.md:95-111). Both emit the METRICS_JSON lines the
+reference's ETL expects. The sync trainer checkpoints its train state
 each epoch (``CheckpointManager``); the async trainer snapshots its store
 periodically (``PeriodicStoreCheckpointer``).
 """
@@ -16,6 +18,7 @@ periodically (``PeriodicStoreCheckpointer``).
 from __future__ import annotations
 
 import os
+import sys
 import time
 from dataclasses import dataclass
 
@@ -24,6 +27,9 @@ import torch
 
 from ..data.cifar import Dataset, make_batches
 from ..parallel.mesh import DATA_AXIS, make_mesh
+from ..parallel.multihost import (RankGroup, make_global_mesh,
+                                  ranks_identical, replicate_to_mesh,
+                                  shard_batch_global, world_group)
 from ..parallel.sync_dp import COMPRESSIONS, make_sync_dp_step, shard_batch
 from ..ps import make_store
 from ..ps.store import StoreConfig
@@ -80,29 +86,53 @@ class DistributedConfig:
 
 class SyncTrainer:
     """Sync data-parallel training over the N worker slots of one card (no
-    server process). Multi-host jobs and the multi-card mesh come with the
-    multi-card slice."""
+    server process).
+
+    Multi-process: when the process has joined a job
+    (``parallel.initialize_multihost``), or ``group`` names the ranks, the
+    mesh spans every rank's card: ``num_workers`` is the global slot
+    count, split evenly over the ranks, each rank takes its contiguous
+    slice of the global batch, and the state starts from rank 0's values.
+    Only rank 0 evaluates (the others record NaN), prints and saves
+    checkpoints; every rank restores on ``resume``. The per-slot train
+    losses stay on their rank: the per-worker rows carry the shared
+    fields only, as the JAX package's multi-host rows do."""
 
     def __init__(self, dataset: Dataset,
-                 config: DistributedConfig | None = None):
+                 config: DistributedConfig | None = None,
+                 group: RankGroup | None = None):
         from ..models import get_model
 
         self.config = cfg = config or DistributedConfig(mode="sync")
-        if torch.distributed.is_available() \
-                and torch.distributed.is_initialized() \
-                and torch.distributed.get_world_size() > 1:
-            raise NotImplementedError(
-                "multi-host sync training (one process per card, NCCL) "
-                "comes with the multi-card slice")
+        if group is None and torch.distributed.is_available() \
+                and torch.distributed.is_initialized():
+            group = world_group()
         self.dataset = dataset
-        self.mesh = make_mesh(cfg.num_workers, cfg.device)
+        self.multihost = group is not None
+        if self.multihost:
+            if cfg.num_workers % group.size:
+                raise ValueError(
+                    f"--workers {cfg.num_workers} (the global slot count) "
+                    f"must divide evenly over {group.size} processes")
+            self.mesh = make_global_mesh(cfg.num_workers, cfg.device,
+                                         group=group)
+            staged = " (collectives staged through the host)" \
+                if group.staged(self.mesh.device) else ""
+            print(f"multihost: rank {group.rank} of {group.size}, slots "
+                  f"{self.mesh.slot_offset}-"
+                  f"{self.mesh.slot_offset + self.mesh.local_slots - 1} of "
+                  f"{cfg.num_workers} on {self.mesh.device}, "
+                  f"{group.backend}{staged}", file=sys.stderr, flush=True)
+        else:
+            self.mesh = make_mesh(cfg.num_workers, cfg.device)
+        self.is_chief = self.mesh.rank == 0
         self.model = get_model(cfg.model, num_classes=cfg.num_classes,
                                dtype=cfg.dtype,
                                image_size=dataset.x_train.shape[1],
-                               device=cfg.device, seed=cfg.seed,
+                               device=self.mesh.device, seed=cfg.seed,
                                axis_name=DATA_AXIS)
-        self.state = create_train_state(self.model,
-                                        server_sgd(cfg.learning_rate))
+        self.state = replicate_to_mesh(self.mesh, create_train_state(
+            self.model, server_sgd(cfg.learning_rate)))
         self._step = make_sync_dp_step(self.mesh, self.model,
                                        compression=cfg.compression,
                                        augment=cfg.augment)
@@ -119,6 +149,9 @@ class SyncTrainer:
         # and the bytes each slot handed across hops per step.
         self.ring_replicas_identical: bool | None = None
         self.wire_bytes_per_slot_step: int | None = None
+        # Multi-process only: whether every rank ended with rank 0's
+        # params, bit for bit.
+        self.ranks_params_identical: bool | None = None
 
     def train(self, emit_metrics: bool = False,
               checkpoint_dir: str | None = None,
@@ -141,8 +174,9 @@ class SyncTrainer:
                     1, len(self.dataset.x_train) // global_batch)
                 self.global_steps = int(self.state.step)
                 start_epoch = self.global_steps // steps_per_epoch
-                print(f"resumed from step {self.global_steps} "
-                      f"(epoch {start_epoch + 1})")
+                if self.is_chief:
+                    print(f"resumed from step {self.global_steps} "
+                          f"(epoch {start_epoch + 1})")
 
         from ..telemetry import (GoodputAccount, get_registry,
                                  now as _tnow, trace_span)
@@ -168,7 +202,8 @@ class SyncTrainer:
             for xb, yb in make_batches(self.dataset.x_train,
                                        self.dataset.y_train, global_batch,
                                        seed=cfg.seed * 997 + epoch):
-                bi, bl = shard_batch(self.mesh, (xb, yb))
+                bi, bl = (shard_batch_global if self.multihost
+                          else shard_batch)(self.mesh, (xb, yb))
                 t_step = _tnow()
                 with trace_span("trainer.step", root=True, mode="sync",
                                 step=self.global_steps, epoch=epoch), \
@@ -179,8 +214,9 @@ class SyncTrainer:
                 tm_step_s.observe(_tnow() - t_step)
                 tm_steps.inc()
                 tm_images.inc(len(xb))
-                wl.append(m["worker_loss"])
-                wa.append(m["worker_accuracy"])
+                if not self.multihost:
+                    wl.append(m["worker_loss"])
+                    wa.append(m["worker_accuracy"])
                 if "ring_replicas_identical" in m:
                     replicas.append(m["ring_replicas_identical"])
                     self.wire_bytes_per_slot_step = m["wire_bytes_per_slot"]
@@ -197,15 +233,18 @@ class SyncTrainer:
                         "loss": torch.stack(wl).mean(0).cpu().numpy(),
                         "accuracy": torch.stack(wa).mean(0).cpu().numpy(),
                     })
-                acc = self.evaluate()
+                # The state is replicated: the other ranks' evals would
+                # repeat rank 0's.
+                acc = self.evaluate() if self.is_chief else float("nan")
             self.epoch_times.append(time.time() - t0)
             self.test_accuracies.append(acc)
             tm_epoch.set(epoch + 1)
-            tm_acc.set(acc)
-            print(f"[sync x{cfg.num_workers}] epoch {epoch + 1}: "
-                  f"loss {mean_loss:.4f} test {acc:.2%} "
-                  f"({self.epoch_times[-1]:.1f}s)")
-            if mgr is not None:
+            if self.is_chief:
+                tm_acc.set(acc)
+                print(f"[sync x{cfg.num_workers}] epoch {epoch + 1}: "
+                      f"loss {mean_loss:.4f} test {acc:.2%} "
+                      f"({self.epoch_times[-1]:.1f}s)")
+            if mgr is not None and self.is_chief:
                 with gp.span("checkpoint"):
                     mgr.save(self.state)
             gp.tick_wall()
@@ -214,6 +253,9 @@ class SyncTrainer:
             mgr.close()
         if replicas:
             self.ring_replicas_identical = bool(torch.stack(replicas).all())
+        if self.multihost:
+            self.ranks_params_identical = ranks_identical(
+                list(self.state.params.values()), self.mesh.group)
 
         server_metrics = {
             "mode": "sync",
@@ -227,7 +269,15 @@ class SyncTrainer:
             "updates_per_second": round(self.global_steps / total, 3),
             "learning_rate": cfg.learning_rate,
         }
-        if emit_metrics:
+        if self.multihost:
+            # Rank 0 reports for every rank: the replica checks and the
+            # int8 ring's bytes a slot a step.
+            server_metrics.update({
+                "processes": self.mesh.num_ranks,
+                "ranks_params_identical": self.ranks_params_identical,
+                "ring_replicas_identical": self.ring_replicas_identical,
+                "wire_bytes_per_slot_step": self.wire_bytes_per_slot_step})
+        if emit_metrics and self.is_chief:
             emit_metrics_json(server_metrics)
             for wid in range(cfg.num_workers):
                 # Train loss/accuracy are measured per slot (each worker's

@@ -70,8 +70,8 @@ def test_cli_train_sync_on_cpu(capsys, compression):
 
 
 def test_sync_trainer_waits_for_its_slice():
-    """Sync mode is ported; its multi-card meshes wait for their slice and
-    say so."""
+    """Sync mode is ported; a mesh over several cards in one process
+    points at ``--multihost`` (one process per card)."""
     from distributed_parameter_server_for_ml_training_tpu_torch.data import \
         synthetic_cifar100
     from distributed_parameter_server_for_ml_training_tpu_torch.parallel \
@@ -81,7 +81,7 @@ def test_sync_trainer_waits_for_its_slice():
     cfg = DistributedConfig(mode="sync", device="cpu", num_workers=2)
     assert cfg.compression == "bf16"
     SyncTrainer(synthetic_cifar100(n_train=16, n_test=8), cfg)
-    with pytest.raises(NotImplementedError, match="multi-card slice"):
+    with pytest.raises(NotImplementedError, match="--multihost"):
         make_mesh(2, ["cuda:0", "cuda:1"])
     with pytest.raises(ValueError):
         DistributedConfig(mode="tp", device="cpu")

@@ -378,7 +378,7 @@ def test_mesh():
     mesh = make_mesh(4, "cpu")
     assert worker_axis_size(mesh) == 4 and mesh.shape == {DATA_AXIS: 4}
     assert make_mesh(2, ["cpu", "cpu"]).device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="multi-card slice"):
+    with pytest.raises(NotImplementedError, match="--multihost"):
         make_mesh(4, ["cuda:0", "cuda:1"])
     with pytest.raises(ValueError):
         make_mesh(0, "cpu")
