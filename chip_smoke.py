@@ -292,7 +292,34 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    run of the same command. Reports img/s summed and step ms over epoch
    2 beside one process's and phase 7's img/s. (c) The same over NCCL
    on two cards where ``torch.cuda.device_count() >= 2``; otherwise a
-   line says it was not run for want of a second card.
+   line says it was not run for want of a second card. Each bf16 run
+   reports ``wire_bytes_per_slot`` from the byte recorder
+   (``utils/collective_bytes.py``) beside the int8 ring's: 0 over (a)'s
+   one rank, the all-reduce's 2 x 11,220,132 bytes over (b)'s two ranks;
+22. sequence parallelism over several processes (``SPTrainer(group=)``,
+   phase 11's ViT-B/16 at 1024 x 1024, bf16, batch 8, 2 global slots):
+   (a) one NCCL rank over the 2 slots against one process's phase 11
+   trainer from the same weights, 2 steps and an eval batch: the
+   forward's logits bit-equal, layer 0's ring (seeded q/k/v at its
+   shapes) bit-equal in out, dK and dV (dQ's fp32 partial sums are added
+   atomically, in an order that varies; its distance is reported beside
+   one process's own run-to-run distance), the params within rtol 0.05 /
+   atol 1e-3 (beside the distance between two runs of one process, which
+   dQ's order makes nonzero), 72 wgmma forwards and 48 fused
+   backwards (24 a step, 24 the eval batch), and the step's collectives
+   counted as the shapes predict (0 bytes over one rank). (b) Two rank
+   processes on the one card, one slot each, gloo staged through the
+   host (they say so): layer 0's ring over the ranks bit-equal in out,
+   dK and dV to one process's ring on the card, and within phase 11's
+   tolerance of plain hops; one step (one epoch of one batch and an eval
+   batch) whose params are bit-identical on both ranks and within rtol
+   0.05 / atol 1e-3 of one process's step over the 2 slots; 2 more steps
+   timed (step ms and img/s beside one process's); 24 wgmma forwards and
+   24 fused backwards a step in each rank; the bytes each rank's step
+   moved (0.6 GB of forward hops, 3.0 GB of backward hops, the gradient
+   all-reduce) equal to the shapes' count. (c) The same over NCCL on two
+   cards where there are two; otherwise a line says it was not run. The
+   phase reports its own seconds.
 
 Then one JSON line of kernels and, last, the device line. Without a CUDA
 device, or outside a checkout of the repo, it exits non-zero and prints
@@ -1823,9 +1850,10 @@ SP_STEPS, SP_BATCH, SP_SLOTS, SP_IMAGE = 2, 8, 2, 1024
 RING_ATOL, RING_RTOL = 5e-3, 2.0 ** -7
 
 
-def sp_trainer(steps: int, n_test: int, seed: int = 0):
+def sp_trainer(steps: int, n_test: int, seed: int = 0, group=None):
     """The SP path's trainer: ViT-B/16 (bf16, 1,000 classes) on synthetic
-    ImageNet at 1024 x 1024 over 2 sequence slots, batch 8."""
+    ImageNet at 1024 x 1024 over 2 sequence slots, batch 8 (over
+    ``group``'s ranks where one is given)."""
     from distributed_parameter_server_for_ml_training_tpu_torch.data import \
         synthetic_imagenet
     from distributed_parameter_server_for_ml_training_tpu_torch.train \
@@ -1836,7 +1864,7 @@ def sp_trainer(steps: int, n_test: int, seed: int = 0):
     return SPTrainer(ds, ModelParallelConfig(
         model="vit_b16", num_workers=SP_SLOTS, batch_size=SP_BATCH,
         num_epochs=1, num_classes=ds.num_classes, dtype="bfloat16",
-        device="cuda", seed=seed))
+        device="cuda", seed=seed), group=group)
 
 
 def _flash_counts() -> dict:
@@ -4881,7 +4909,8 @@ def _mh_batches(steps: int) -> list:
 
 def _mh_steps(mesh, batches: list, compression: str):
     """Full ResNet-18 (100 classes, bf16, seed 0) trained over ``mesh``
-    with augmentation, one step a global batch: the final state."""
+    with augmentation, one step a global batch: the final state and the
+    last step's metrics."""
     import torch
 
     from distributed_parameter_server_for_ml_training_tpu_torch.models \
@@ -4900,9 +4929,9 @@ def _mh_steps(mesh, batches: list, compression: str):
     step = make_sync_dp_step(mesh, model, compression=compression)
     shard = shard_batch_global if mesh.group is not None else shard_batch
     for xb, yb in batches:
-        st, _ = step(st, *shard(mesh, (xb, yb)), 1)
+        st, m = step(st, *shard(mesh, (xb, yb)), 1)
     torch.cuda.synchronize()
-    return st
+    return st, m
 
 
 def _multihost_one_rank(state: dict) -> None:
@@ -4926,12 +4955,12 @@ def _multihost_one_rank(state: dict) -> None:
     try:
         group = mh.world_group()
         for comp in ("int8", "bf16"):
-            single = _mh_steps(make_mesh(MH_SLOTS, "cuda"), batches, comp)
+            single, _ = _mh_steps(make_mesh(MH_SLOTS, "cuda"), batches, comp)
             if comp == "int8":
                 _reset_block_counts()
             t0 = time.perf_counter()
-            multi = _mh_steps(make_global_mesh(MH_SLOTS, "cuda",
-                                               group=group), batches, comp)
+            multi, last = _mh_steps(make_global_mesh(
+                MH_SLOTS, "cuda", group=group), batches, comp)
             seconds = time.perf_counter() - t0
             if comp == "int8":
                 counts = _block_counts()
@@ -4940,8 +4969,11 @@ def _multihost_one_rank(state: dict) -> None:
             differ += [k for k in single.batch_stats
                        if not torch.equal(single.batch_stats[k],
                                           multi.batch_stats[k])]
+            # Over one rank the all-reduce moves nothing: 0 bytes (bf16,
+            # from the recorder); int8 counts the ring's on-card hops.
             out[comp] = {"steps": multi.step, "seconds": seconds,
-                         "tensors_differing": differ}
+                         "tensors_differing": differ,
+                         "wire_bytes_per_slot": last["wire_bytes_per_slot"]}
             del single, multi
     finally:
         dist.destroy_process_group()
@@ -4959,6 +4991,8 @@ def _multihost_one_rank(state: dict) -> None:
         raise AssertionError(f"(a) launched {counts}; expected {want}")
     bad = {c: r["tensors_differing"] for c, r in out.items()
            if r["tensors_differing"] or r["steps"] != MH_STEPS}
+    if out["bf16"]["wire_bytes_per_slot"] != 0:
+        bad["bf16_wire_bytes_one_rank"] = out["bf16"]["wire_bytes_per_slot"]
     if bad:
         raise AssertionError(f"(a) one NCCL rank differs from the "
                              f"one-process step: {bad}")
@@ -4967,10 +5001,12 @@ def _multihost_one_rank(state: dict) -> None:
 def multihost_rank(argv: list) -> int:
     """One rank process of phase 21 (b)/(c): ``rank backend ring_port
     out_dir cli_args...``. First, over the 2 ranks, the ring alone on
-    :func:`_mh_ring_rows` (this rank's half) and one int8 step of
-    :func:`_mh_steps` (rank 0 saves its params to ``out_dir``); then
-    ``cli train --multihost`` with ``cli_args``. Writes its exit code,
-    the ring rows' digests and K2-K4's launches in the CLI run to
+    :func:`_mh_ring_rows` (this rank's half), one int8 step of
+    :func:`_mh_steps` (rank 0 saves its params to ``out_dir``) and one
+    bf16 step (its ``wire_bytes_per_slot``, the rank's all-reduce bytes
+    from the recorder); then ``cli train --multihost`` with
+    ``cli_args``. Writes its exit code, the ring rows' digests, the bf16
+    step's wire bytes and K2-K4's launches in the CLI run to
     ``out_dir/rank<r>.json``."""
     import torch
     import torch.distributed as dist
@@ -4994,18 +5030,21 @@ def multihost_rank(argv: list) -> int:
     torch.cuda.synchronize()
     digests = _digests(ring)
     del rows, ring
-    st = _mh_steps(make_global_mesh(MH_SLOTS, dev, group=group),
-                   _mh_batches(1), "int8")
+    st, _ = _mh_steps(make_global_mesh(MH_SLOTS, dev, group=group),
+                      _mh_batches(1), "int8")
     if rank == 0:
         torch.save({k: v.cpu() for k, v in st.params.items()},
                    out / "step_rank0.pt")
     del st
+    _, bf16 = _mh_steps(make_global_mesh(MH_SLOTS, dev, group=group),
+                        _mh_batches(1), "bf16")
     dist.destroy_process_group()
     _reset_block_counts()
     rc = cli.main(argv[4:])
     torch.cuda.synchronize()
     (out / f"rank{rank}.json").write_text(json.dumps({
         "rank": rank, "rc": rc, "device": str(dev), "ring_digests": digests,
+        "bf16_wire_bytes_per_slot": bf16["wire_bytes_per_slot"],
         "launches": _block_counts()}))
     return rc
 
@@ -5100,8 +5139,9 @@ def _multihost_processes(state: dict, backend: str, form: str) -> None:
     # beside it one process over 2 slots of 256, the same function in
     # another slot layout.
     batch1 = _mh_batches(1)
-    step_one = _mh_steps(make_mesh(MH_SLOTS, "cuda"), batch1, "int8").params
-    step_two = _mh_steps(make_mesh(2, "cuda"), batch1, "int8").params
+    step_one = _mh_steps(make_mesh(MH_SLOTS, "cuda"), batch1,
+                         "int8")[0].params
+    step_two = _mh_steps(make_mesh(2, "cuda"), batch1, "int8")[0].params
     step_multi = torch.load(tmp / "step_rank0.pt", weights_only=True)
     step_worst = [k for k in step_one
                   if not torch.allclose(step_multi[k].cuda(), step_one[k],
@@ -5143,6 +5183,10 @@ def _multihost_processes(state: dict, backend: str, form: str) -> None:
     worst, layout_worst = outside(multi), outside(two)
     size = sum(v.numel() for v in one.values())
     wire_want = 2 * (MH_SLOTS - 1) * ring_payload_bytes(-(-size // MH_SLOTS))
+    # bf16 over 2 ranks: the all-reduce of the card's bf16 mean, 2 (R-1)/R
+    # x 2 bytes a value (the ring model of utils/collective_bytes.py).
+    bf16_wire = [r["bf16_wire_bytes_per_slot"] for r in ranks]
+    bf16_want = 2 * size
 
     def img_s(rs):
         t = rs[1]["epoch_times_seconds"][-1]
@@ -5172,6 +5216,8 @@ def _multihost_processes(state: dict, backend: str, form: str) -> None:
           "launches_per_rank": per_rank,
           "wire_bytes_per_slot_per_step": server.get(
               "wire_bytes_per_slot_step"), "wire_bytes_model": wire_want,
+          "bf16_wire_bytes_per_slot_per_step": bf16_wire,
+          "bf16_wire_bytes_model": bf16_want,
           "step1_params_max_abs_diff_vs_one_process": step_diff,
           "step1_one_process_2_vs_4_slots_max_abs_diff": step_layout,
           "step1_params_outside_int8_tolerance": step_worst,
@@ -5203,6 +5249,8 @@ def _multihost_processes(state: dict, backend: str, form: str) -> None:
     if server.get("wire_bytes_per_slot_step") != wire_want:
         problems.append(f"wire bytes {server.get('wire_bytes_per_slot_step')}"
                         f" != {wire_want}")
+    if bf16_wire != [bf16_want, bf16_want]:
+        problems.append(f"bf16 wire bytes {bf16_wire} != {bf16_want}")
     if rc_one != [0, 0, 0] or step_worst:
         problems.append(f"one-process rcs {rc_one}; one step's params "
                         f"outside rtol 0.05 / atol 1e-3: {step_worst}")
@@ -5231,6 +5279,420 @@ def phase_multihost(state: dict) -> None:
               "device_count": torch.cuda.device_count()})
 
 
+SP_MH_TIMEOUT_S = 420        # (b), (c): each rank process, start to exit
+SP_MH_TIMED_STEPS = 2        # (b), (c): steps timed after the 1-step epoch
+# The params against one process's, as phase 21's one int8 step: dQ's
+# fp32 partial sums arrive in an order that varies, so two runs of one
+# process differ ((a): 1.95e-4 after 2 steps on the card), and the ranks
+# of (b) and (c) pool and sum gradients in another order besides.
+SP_MH_RTOL, SP_MH_ATOL = 0.05, 1e-3
+
+
+def _sp_ring_inputs(device) -> list:
+    """Seeded q, k, v and a cotangent ``[8, 4096, 12, 64]`` bf16 (layer
+    0's ring at the SP path's shapes), the same on every process."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(11)
+    return [torch.randn((SP_BATCH, 4096, 12, 64), generator=g,
+                        device=device).to(torch.bfloat16) for _ in range(4)]
+
+
+def _sp_ring_run(mesh, inputs, tokens=slice(None), use_kernel=True) -> list:
+    """Output, dq, dk and dv of the flash ring over ``mesh`` on ``tokens``
+    of ``inputs``."""
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.parallel \
+        .ring_attention import make_ring_flash_attention
+
+    q, k, v, cot = (x[:, tokens] for x in inputs)
+    q, k, v = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    out = make_ring_flash_attention(mesh, use_kernel=use_kernel)(q, k, v)
+    (out.float() * cot.float()).sum().backward()
+    torch.cuda.synchronize()
+    return [out.detach(), q.grad, k.grad, v.grad]
+
+
+def _sp_bytes_model(model, tokens: int, slots: int, ranks: int,
+                    batch: int = SP_BATCH) -> dict:
+    """The collectives one step of the flash ring's SP over ``ranks``
+    ranks must count (the ring model of ``utils/collective_bytes.py``),
+    from the shapes: a hop carries one slot's K and V blocks (in the
+    compute dtype) forward, and in the backward K, V and their fp32
+    gradient accumulators, which take one hop more; the pooled mean
+    ``[batch, width]`` fp32 and every gradient but the head's are each
+    all-reduced once."""
+    import torch
+
+    n, heads = slots, model.blocks[0].attn.num_heads
+    block = batch * heads * (tokens // n) * (model.hidden_dim // heads)
+    kv = torch.empty((), dtype=model.compute_dtype).element_size()
+    per_layer = 2 * (n - 1) * kv * block * 2 + 2 * n * 4 * block
+    hops = per_layer * model.depth if ranks > 1 else 0
+    frac = 2 * (ranks - 1) / ranks
+    body = sum(p.numel() for name, p in model.named_parameters()
+               if not name.startswith("head."))
+    reduce = int(frac * 4 * batch * model.hidden_dim) + int(frac * 4 * body)
+    out = {"total": hops + reduce, "by_op": {}, "count": {}}
+    if ranks > 1:
+        out["by_op"]["collective-permute"] = hops
+        out["count"]["collective-permute"] = (2 * n - 1) * model.depth
+    out["by_op"]["all-reduce"] = reduce
+    out["count"]["all-reduce"] = 2
+    return out
+
+
+def _sp_one_rank(state: dict) -> None:
+    """Phase 22 (a): one NCCL rank over the SP path's 2 slots against one
+    process's phase 11 trainer from the same weights."""
+    import torch
+    import torch.distributed as dist
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.data.cifar \
+        import standardize, to_float
+    from distributed_parameter_server_for_ml_training_tpu_torch.parallel \
+        import multihost as mh
+
+    def run(group=None):
+        trainer = sp_trainer(SP_STEPS, n_test=SP_BATCH, group=group)
+        x = standardize(to_float(torch.as_tensor(
+            trainer.dataset.x_train[:SP_BATCH], device="cuda")))
+        with torch.no_grad():
+            logits = trainer.model(x).float().cpu()
+        if group is not None:
+            _reset_flash_counts()
+        trainer.train()
+        torch.cuda.synchronize()
+        counts = _flash_counts() if group is not None else None
+        params = {k: v.detach().clone() for k, v in
+                  trainer.state.params.items()}
+        return trainer, logits, params, counts
+
+    torch.cuda.empty_cache()
+    # The one-process trainer twice: dQ's atomically added partial sums
+    # make two runs of it differ; their distance is the bound below.
+    one, logits_one, p_one, _ = run()
+    mesh_one = one.mesh
+    del one
+    _, _, p_again, _ = run()
+    torch.cuda.empty_cache()
+    inputs = _sp_ring_inputs("cuda")
+    ring_one = _sp_ring_run(mesh_one, inputs)
+    ring_again = _sp_ring_run(mesh_one, inputs)
+    mh.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device="cuda")
+    try:
+        group = mh.world_group()
+        rk, logits_rk, p_rk, counts = run(group)
+        bytes_step, bytes_want = rk.collective_bytes_step, _sp_bytes_model(
+            rk.model, rk.tokens, SP_SLOTS, 1)
+        ring_rk = _sp_ring_run(rk.mesh, inputs)
+        del rk
+    finally:
+        dist.destroy_process_group()
+
+    def dist_max(a, b):
+        return max(float((a[k] - b[k]).abs().max()) for k in b)
+
+    spread, diff = dist_max(p_again, p_one), dist_max(p_rk, p_one)
+    outside = [k for k in p_one if not torch.allclose(
+        p_rk[k], p_one[k], rtol=SP_MH_RTOL, atol=SP_MH_ATOL)]
+    ring_equal = {name: bool(torch.equal(a, b)) for name, a, b in
+                  zip(("out", "dq", "dk", "dv"), ring_rk, ring_one)}
+    dq_spread = float((ring_again[1].float() - ring_one[1].float())
+                      .abs().max())
+    dq_diff = float((ring_rk[1].float() - ring_one[1].float()).abs().max())
+    del inputs, ring_one, ring_again, ring_rk, p_one, p_again, p_rk
+    torch.cuda.empty_cache()
+    want = {"flash_fwd_wgmma": 24 * (SP_STEPS + 1), "flash_fwd": 0,
+            "flash_bwd": 24 * SP_STEPS, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}
+    state["sp_mh_counts"] = dict(counts)
+    emit({"phase": "sp_multihost", "form": "a_one_rank_nccl",
+          "backend": group.backend, "slots": SP_SLOTS, "steps": SP_STEPS,
+          "launches": counts, "logits_bit_equal":
+              bool(torch.equal(logits_rk, logits_one)),
+          "params_max_abs_diff_vs_one_process": diff,
+          "one_process_run_to_run_max_abs_diff": spread,
+          "params_outside_tolerance": outside,
+          "ring_layer0_bit_equal": ring_equal,
+          "ring_dq_max_abs_diff_vs_one_process": dq_diff,
+          "ring_dq_one_process_run_to_run_max_abs_diff": dq_spread,
+          "collective_bytes_step": bytes_step, "bytes_model": bytes_want,
+          "card": state["card"]})
+    problems = []
+    if counts != want:
+        problems.append(f"launched {counts}; expected {want}")
+    if not torch.equal(logits_rk, logits_one):
+        problems.append("the forward's logits differ from one process's")
+    if not (ring_equal["out"] and ring_equal["dk"] and ring_equal["dv"]):
+        problems.append(f"layer 0's ring differs: {ring_equal}")
+    if bytes_step != bytes_want:
+        problems.append(f"bytes {bytes_step} != {bytes_want}")
+    # Bit-equal where the kernels are; dQ's order-dependent sums move the
+    # params as a second run of one process moves them.
+    if outside:
+        problems.append(f"params outside rtol {SP_MH_RTOL} / atol "
+                        f"{SP_MH_ATOL} of one process's: {outside}")
+    if problems:
+        raise AssertionError("(a) " + "; ".join(problems))
+
+
+def sp_rank(argv: list) -> int:
+    """One rank process of phase 22 (b)/(c): ``rank backend port
+    out_dir``. Over the 2 ranks, one slot each: the flash ring alone on
+    the rank's tokens of :func:`_sp_ring_inputs` (saved to ``out_dir``);
+    then ``SPTrainer(group=...)`` for one epoch of one step and an eval
+    batch (rank 0 saves its params), the ranks' params compared bit for
+    bit, and :data:`SP_MH_TIMED_STEPS` steps timed. Writes the flash
+    launches of the trainer's runs, the step's collective bytes and the
+    times to ``out_dir/rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.parallel \
+        import multihost as mh
+
+    rank, backend, port = int(argv[0]), argv[1], argv[2]
+    out = Path(argv[3])
+    dev = mh.initialize(f"127.0.0.1:{port}", 2, rank, backend=backend,
+                        device="cuda")
+    try:
+        group = mh.world_group()
+        trainer = sp_trainer(1, n_test=SP_BATCH, group=group)
+        per = trainer.tokens // 2
+        ring = _sp_ring_run(trainer.mesh, _sp_ring_inputs(dev),
+                            slice(rank * per, (rank + 1) * per))
+        torch.save([t.cpu() for t in ring], out / f"ring{rank}.pt")
+        del ring
+        torch.cuda.synchronize()
+        _reset_flash_counts()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        if rank == 0:
+            torch.save({k: v.cpu() for k, v in
+                        trainer.state.params.items()}, out / "step0.pt")
+        identical = mh.ranks_identical(list(trainer.state.params.values()),
+                                       group)
+        xb, yb = trainer.dataset.x_train, trainer.dataset.y_train
+        gen = torch.Generator(device=dev).manual_seed(3)
+        times = []
+        for _ in range(SP_MH_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            trainer._train_batch(xb, yb, gen)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t1))
+        counts = _flash_counts()
+        (out / f"rank{rank}.json").write_text(json.dumps({
+            "rank": rank, "device": str(dev), "launches": counts,
+            "collective_bytes_step": trainer.collective_bytes_step,
+            "bytes_model": _sp_bytes_model(trainer.model, trainer.tokens,
+                                           SP_SLOTS, 2),
+            "ranks_params_identical": identical, "epoch_seconds": epoch_s,
+            "step_ms": times, "peak_memory_gib":
+                torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "train_loss": trainer.train_loss_per_epoch,
+            "test_accuracies": trainer.test_accuracies}))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _sp_processes(state: dict, backend: str, form: str) -> None:
+    """Phase 22 (b)/(c): 2 rank processes (:func:`sp_rank`), one slot
+    each, against one process over the 2 slots."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    torch.cuda.empty_cache()
+    repo = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(repo)}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_sp_"))
+    launcher = ("import sys, chip_smoke; "
+                "sys.exit(chip_smoke.sp_rank(sys.argv[1:]))")
+    port = _free_port()
+    logs = [tempfile.TemporaryFile("w+") for _ in range(4)]
+    procs, late = [], None
+    t0 = time.perf_counter()
+    try:
+        for rank in range(2):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", launcher, str(rank), backend,
+                 str(port), str(tmp)], cwd=repo, env=env,
+                stdout=logs[2 * rank], stderr=logs[2 * rank + 1], text=True))
+        deadline = time.perf_counter() + SP_MH_TIMEOUT_S
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                late = f"a rank process still alive after " \
+                       f"{SP_MH_TIMEOUT_S} s"
+                break
+        wall = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        texts = []
+        for f in logs:
+            f.seek(0)
+            texts.append(f.read())
+            f.close()
+    try:
+        rcs = [p.returncode for p in procs]
+        if late is not None or rcs != [0, 0]:
+            raise AssertionError(f"{late or f'rank exit codes {rcs}'}. "
+                                 f"Output tails: "
+                                 f"{[t[-2000:] for t in texts]}")
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text())
+                 for r in range(2)]
+        staged = ["staged through the host" in texts[2 * r + 1]
+                  for r in range(2)]
+
+        # The ring alone: one process over the 2 slots on the same inputs,
+        # with the kernels (twice: dQ's run-to-run distance) and with
+        # plain hops.
+        one = sp_trainer(1, n_test=SP_BATCH)
+        inputs = _sp_ring_inputs("cuda")
+        ring_one = _sp_ring_run(one.mesh, inputs)
+        dq_spread = float((_sp_ring_run(one.mesh, inputs)[1].float()
+                           - ring_one[1].float()).abs().max())
+        ring_plain = _sp_ring_run(one.mesh, inputs, use_kernel=False)
+        del inputs
+        per = one.tokens // 2
+        ring_equal, ring_dq, plain_err, plain_ok = [], [], {}, True
+        for r in range(2):
+            got = torch.load(tmp / f"ring{r}.pt", weights_only=True)
+            part = slice(r * per, (r + 1) * per)
+            ring_equal.append({
+                name: bool(torch.equal(a.cuda(), b[:, part])) for name, a, b
+                in zip(("out", "dk", "dv"), (got[0], got[2], got[3]),
+                       (ring_one[0], ring_one[2], ring_one[3]))})
+            ring_dq.append(float((got[1].cuda().float()
+                                  - ring_one[1][:, part].float())
+                                 .abs().max()))
+            for name, a, b in zip(("out", "dq", "dk", "dv"), got,
+                                  ring_plain):
+                a, b = a.cuda().float(), b[:, part].float()
+                plain_err[f"{name}{r}"] = float((a - b).abs().max())
+                plain_ok &= bool(torch.allclose(a, b, atol=RING_ATOL,
+                                                rtol=RING_RTOL))
+            del got
+        del ring_one, ring_plain
+        torch.cuda.empty_cache()
+
+        # One step from the same weights and batch, one process over the 2
+        # slots; then its steps timed as the ranks' are.
+        t1 = time.perf_counter()
+        one.train()
+        torch.cuda.synchronize()
+        one_epoch_s = time.perf_counter() - t1
+        multi = torch.load(tmp / "step0.pt", weights_only=True)
+        step_diff = max(float((multi[k].cuda() - v).abs().max())
+                        for k, v in one.state.params.items())
+        step_outside = [k for k, v in one.state.params.items()
+                        if not torch.allclose(multi[k].cuda(), v,
+                                              rtol=SP_MH_RTOL,
+                                              atol=SP_MH_ATOL)]
+        del multi
+        xb, yb = one.dataset.x_train, one.dataset.y_train
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        one_times = []
+        for _ in range(SP_MH_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            one._train_batch(xb, yb, gen)
+            torch.cuda.synchronize()
+            one_times.append(1e3 * (time.perf_counter() - t2))
+        del one
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    step_ms = float(np.median([t for r in ranks for t in r["step_ms"]]))
+    one_ms = float(np.median(one_times))
+    per_rank = [r["launches"] for r in ranks]
+    steps = 1 + SP_MH_TIMED_STEPS
+    want = {"flash_fwd_wgmma": 24 * (steps + 1), "flash_fwd": 0,
+            "flash_bwd": 24 * steps, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    state["sp_mh_counts"] = {
+        k: v + per_rank[0][k] + per_rank[1][k]
+        for k, v in state["sp_mh_counts"].items()}
+    emit({"phase": "sp_multihost", "form": form, "backend": backend,
+          "processes": 2, "slots_per_rank": SP_SLOTS // 2,
+          "tokens_per_rank": per, "batch_size": SP_BATCH,
+          "devices": [r["device"] for r in ranks],
+          "hops_staged_through_host": staged,
+          "ranks_params_identical": [r["ranks_params_identical"]
+                                     for r in ranks],
+          "ring_layer0_bit_equal_to_one_process": ring_equal,
+          "ring_dq_max_abs_diff_vs_one_process": ring_dq,
+          "ring_dq_one_process_run_to_run_max_abs_diff": dq_spread,
+          "ring_vs_plain_max_abs_err": plain_err,
+          "step1_params_max_abs_diff_vs_one_process": step_diff,
+          "step1_params_outside_tolerance": step_outside,
+          "collective_bytes_step": [r["collective_bytes_step"]
+                                    for r in ranks],
+          "bytes_model": ranks[0]["bytes_model"],
+          "launches_per_rank": per_rank,
+          "step_ms_runs": [r["step_ms"] for r in ranks],
+          "step_ms_median": step_ms, "img_per_s": 1e3 * SP_BATCH / step_ms,
+          "one_process_step_ms_runs": one_times,
+          "one_process_step_ms_median": one_ms,
+          "one_process_img_per_s": 1e3 * SP_BATCH / one_ms,
+          "epoch_seconds": [r["epoch_seconds"] for r in ranks],
+          "one_process_epoch_seconds": one_epoch_s,
+          "peak_memory_gib": [r["peak_memory_gib"] for r in ranks],
+          "train_loss": [r["train_loss"] for r in ranks],
+          "wall_seconds": wall, "card": state["card"]})
+    problems = []
+    if any(r != want for r in per_rank):
+        problems.append(f"launches {per_rank}, expected {want} a rank")
+    if backend == "gloo" and not all(staged):
+        problems.append("a gloo rank on the card did not say its "
+                        "collectives were staged through the host")
+    if not all(r["ranks_params_identical"] for r in ranks):
+        problems.append("the ranks' params differ")
+    if not all(all(e.values()) for e in ring_equal):
+        problems.append(f"the ring over the ranks differs from one "
+                        f"process's: {ring_equal}")
+    if not plain_ok:
+        problems.append(f"the ring over the ranks is outside atol "
+                        f"{RING_ATOL} / rtol {RING_RTOL} of plain hops: "
+                        f"{plain_err}")
+    if step_outside:
+        problems.append(f"one step's params outside rtol {SP_MH_RTOL} / "
+                        f"atol {SP_MH_ATOL}: {step_outside}")
+    if any(r["collective_bytes_step"] != r["bytes_model"] for r in ranks):
+        problems.append("the step's collective bytes differ from the "
+                        "shapes' count")
+    if problems:
+        raise AssertionError(f"({form}) " + "; ".join(problems))
+
+
+def phase_sp_multihost(state: dict) -> None:
+    """Phase 22: sequence parallelism over several processes."""
+    import torch
+
+    t0 = time.perf_counter()
+    _sp_one_rank(state)
+    _sp_processes(state, "gloo", "b_two_ranks_one_card_gloo")
+    if torch.cuda.device_count() >= 2:
+        _sp_processes(state, "nccl", "c_two_ranks_two_cards_nccl")
+    else:
+        emit({"phase": "sp_multihost", "form": "c_two_ranks_two_cards_nccl",
+              "run": False, "reason": "not run for want of a second card",
+              "device_count": torch.cuda.device_count()})
+    emit({"phase": "sp_multihost", "seconds": time.perf_counter() - t0})
+
+
 def main() -> int:
     import torch
 
@@ -5251,7 +5713,7 @@ def main() -> int:
                   phase_sp_path, phase_sp_profile, phase_cli,
                   phase_grpc_path, phase_grpc_modes, phase_device_store,
                   phase_checkpoints, phase_health, phase_models,
-                  phase_observability, phase_multihost):
+                  phase_observability, phase_multihost, phase_sp_multihost):
         t0 = time.perf_counter()
         try:
             phase(state)
@@ -5306,16 +5768,18 @@ def main() -> int:
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": None})
     # The wgmma forward (the K5 entry on bf16) and the fused backward (the
-    # K6/K7 entry) with their launches from the SP path's run, then the
-    # first versions of K5, K6 and K7, which run on fp32 inputs and so on
-    # no step of that bf16 path; times at its hop shape. The library's
-    # backward computes dQ, dK and dV in one call: its time stands beside
-    # every backward entry.
+    # K6/K7 entry) with their launches from the SP path's run and phase
+    # 22's runs over ranks ((a)'s NCCL rank, each rank process of (b) and
+    # (c)), then the first versions of K5, K6 and K7, which run on fp32
+    # inputs and so on no step of that bf16 path; times at its hop shape.
+    # The library's backward computes dQ, dK and dV in one call: its time
+    # stands beside every backward entry.
     for name, k in state["flash"].items():
         kernels.append({
             "name": name, "route": "cuda", "source": FA.KERNEL_SOURCE,
             "replaces": FA.REPLACES[name],
-            "launches": state["sp_counts"][name],
+            "launches": state["sp_counts"][name]
+            + state["sp_mh_counts"][name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"]})

@@ -42,6 +42,15 @@ patch embedding is a conv grouped over the slots, and the attention core
 folded into the batch. No statistic crosses slots (LayerNorm needs no
 sync).
 
+Sequence parallelism over several ranks (``train/model_parallel.py``,
+``seq_group``): each rank holds the tokens ``[r T/R, (r+1) T/R)`` of the
+same global batch. :meth:`ViT.forward` embeds only the rank's patches
+(whole patch rows where ``T/R`` is a multiple of the grid width, else the
+whole image, keeping the rank's range), adds the matching rows of the
+position embedding, and pools the ``gap`` mean over every rank's tokens
+(``multihost.shared_rank_mean`` of the local means), so every rank
+computes the same logits and loss.
+
 The patch embedding's bias is added after the conv, as flax adds it, so
 its gradient is a reduction of its own (torch's CPU conv backward sums
 the bias gradient in one long fp32 chain, which drifts from float64 at a
@@ -60,6 +69,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import dense_core
+from ..parallel.multihost import RankGroup, shared_rank_mean
 
 
 def _sub(name: str, leaf: str) -> str:
@@ -214,22 +224,31 @@ class ViT(nn.Module):
     ``pool='gap'`` mean-pools the patch tokens (no CLS token, so the
     sequence divides evenly over ring-attention slots). flax sizes the
     position embedding from the first input; the port takes
-    ``image_size`` up front."""
+    ``image_size`` up front. ``seq_group`` names the ranks that split the
+    tokens (module notes; ``gap`` only)."""
 
     def __init__(self, patch_size: int = 16, hidden_dim: int = 768,
                  depth: int = 12, num_heads: int = 12, mlp_ratio: int = 4,
                  num_classes: int = 100, dtype: torch.dtype = torch.float32,
                  pool: str = "cls", attention_fn: Callable | None = None,
                  image_size: int = 32,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 seq_group: RankGroup | None = None):
         super().__init__()
         if pool not in ("cls", "gap"):
             raise ValueError(f"pool must be 'cls' or 'gap', got {pool!r}")
         if image_size % patch_size:
             raise ValueError(f"image {image_size} not divisible by patch "
                              f"{patch_size}")
+        grid = image_size // patch_size
+        if seq_group is not None and (pool != "gap"
+                                      or grid * grid % seq_group.size):
+            raise ValueError(f"tokens split over {seq_group.size} ranks "
+                             f"need pool='gap' and {grid * grid} tokens "
+                             f"divisible by the rank count")
         self.patch_size, self.hidden_dim = patch_size, hidden_dim
         self.pool, self.compute_dtype = pool, dtype
+        self.seq_group = seq_group
         self.patch_embed = nn.Conv2d(3, hidden_dim, patch_size,
                                      stride=patch_size)
         n_tokens = (image_size // patch_size) ** 2 + (pool == "cls")
@@ -265,20 +284,40 @@ class ViT(nn.Module):
         float64 ``dtype``)."""
         b = x.shape[0]
         d = self.compute_dtype
+        pos = self.pos_embed
+        if self.seq_group is not None:
+            lo, hi, x = self._rank_rows(x)
+            pos = pos[:, lo:hi]
         x = F.conv2d(x.to(d).permute(0, 3, 1, 2),
                      self.patch_embed.weight.to(d), None,
                      stride=self.patch_size)
-        x = x.permute(0, 2, 3, 1).reshape(b, -1, self.hidden_dim) \
-            + self.patch_embed.bias.to(d)
+        x = x.permute(0, 2, 3, 1).reshape(b, -1, self.hidden_dim)
+        if self.seq_group is not None and x.shape[1] != hi - lo:
+            x = x[:, lo:hi]                  # the whole image: the range
+        x = x + self.patch_embed.bias.to(d)
         if self.pool == "cls":
             cls = self.cls_token.expand(b, 1, self.hidden_dim).to(d)
             x = torch.cat([cls, x], dim=1)
-        x = x + self.pos_embed.to(d)
+        x = x + pos.to(d)
         for block in self.blocks:
             x = block(x)
         x = self.ln_final(x)
         x = x[:, 0] if self.pool == "cls" else x.mean(dim=1)
+        if self.seq_group is not None:
+            # The pool's own autograd function: every rank's loss uses the
+            # same mean, so each rank's part gets g / R back.
+            x = shared_rank_mean(x.float(), self.seq_group).to(x.dtype)
         return self.head(x).to(torch.promote_types(d, torch.float32))
+
+    def _rank_rows(self, x: torch.Tensor):
+        """This rank's tokens ``[lo, hi)`` and the images' pixel rows that
+        hold them: whole patch rows where the range is, else every row."""
+        per = self.pos_embed.shape[1] // self.seq_group.size
+        lo = self.seq_group.rank * per
+        grid, p = x.shape[2] // self.patch_size, self.patch_size
+        if per % grid:
+            return lo, lo + per, x
+        return lo, lo + per, x[:, lo // grid * p:(lo + per) // grid * p]
 
     def forward_slots(self, x: torch.Tensor, params: dict) -> torch.Tensor:
         """All N slots at once: NHWC images ``[N, B, H, W, C]`` and one leaf

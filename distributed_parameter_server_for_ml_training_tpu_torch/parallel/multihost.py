@@ -15,7 +15,16 @@ across slots become collectives between ranks, over a :class:`RankGroup`:
 - the int8 ring's ``ppermute``: the rows roll on the card, and the last
   row's payload hops to rank + 1 (:func:`ring_hop`);
 - the gradient mean of bf16/fp16/none and the metrics:
-  :func:`rank_reduce`.
+  :func:`rank_reduce`;
+- sequence parallelism's ring (``parallel/ring_attention.py``): the K/V
+  blocks and their gradient accumulators roll over the card's slots, and
+  the block leaving the last slot hops to rank + 1 (:func:`ring_roll`);
+  the ViT's pooled mean over the ranks' tokens (:func:`shared_rank_mean`)
+  and the sum of the per-token parameters' gradients
+  (``rank_reduce(..., "sum")``).
+
+Every collective adds the bytes it moves to the recorders of
+``utils/collective_bytes.py`` that are open, from its tensors' shapes.
 
 Env contract (as the JAX package's, ``server.py``/``worker.py`` env-first
 config):
@@ -24,9 +33,14 @@ config):
     DPS_NUM_PROCESSES total process count
     DPS_PROCESS_ID    this process's rank
 
-Nothing on a card's host tells a program of a cluster, so all three are
-required: there is no auto-detection as on a TPU pod. The collectives run
-on NCCL when the device is a card and on gloo on the CPU. gloo on a card
+Nothing on a card's host tells a program of a cluster, so either all
+three are given (arguments or env), or the process was started by
+``torchrun``: with none of the three and no ``DPS_*`` variable,
+``WORLD_SIZE`` and ``RANK`` (and ``LOCAL_RANK`` for the card) join with
+``init_method="env://"``, which reads ``MASTER_ADDR`` and
+``MASTER_PORT``. That is the port's form of the reference's
+``jax.distributed.initialize()`` auto-detection. The collectives run on
+NCCL when the device is a card and on gloo on the CPU. gloo on a card
 runs only where the caller asks for it (``backend="gloo"``, for two ranks
 on one card, which NCCL refuses); its collectives then copy each tensor to
 the host and back explicitly (:meth:`RankGroup.staged`).
@@ -36,14 +50,18 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import datetime
 import os
+import threading
+import time
 from dataclasses import dataclass
-from typing import Any, Mapping, Sequence
+from typing import Any, Callable, Mapping, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils import collective_bytes
 from ..utils.device import resolve_device
 from .mesh import DATA_AXIS, Mesh, make_mesh, worker_axis_size
 
@@ -73,20 +91,30 @@ def initialize(coordinator: str | None = None,
     """Join the multi-process job; returns this process's device
     (:func:`process_device`), made current when it is a card. Arguments
     default from env (DPS_COORDINATOR / DPS_NUM_PROCESSES /
-    DPS_PROCESS_ID). ``backend`` defaults to NCCL on a card and gloo on
-    the CPU."""
+    DPS_PROCESS_ID); with none of them, a process started by ``torchrun``
+    (``WORLD_SIZE`` and ``RANK`` set) joins with ``env://`` at rank
+    ``RANK`` on the card of ``LOCAL_RANK`` where it is set. ``backend``
+    defaults to NCCL on a card and gloo on the CPU."""
     coordinator = coordinator or os.environ.get("DPS_COORDINATOR")
     if num_processes is None and "DPS_NUM_PROCESSES" in os.environ:
         num_processes = int(os.environ["DPS_NUM_PROCESSES"])
     if process_id is None and "DPS_PROCESS_ID" in os.environ:
         process_id = int(os.environ["DPS_PROCESS_ID"])
-    if coordinator is None or num_processes is None or process_id is None:
+    init_method, card_index = f"tcp://{coordinator}", process_id
+    if coordinator is None and num_processes is None and process_id is None \
+            and "WORLD_SIZE" in os.environ and "RANK" in os.environ:
+        init_method = "env://"
+        num_processes = int(os.environ["WORLD_SIZE"])
+        process_id = int(os.environ["RANK"])
+        card_index = int(os.environ.get("LOCAL_RANK", process_id))
+    elif coordinator is None or num_processes is None or process_id is None:
         raise ValueError(
             "a multi-process job needs the coordinator's host:port, the "
             "process count and this process's id (--coordinator, "
             "--num-processes, --process-id or DPS_COORDINATOR, "
-            "DPS_NUM_PROCESSES, DPS_PROCESS_ID)")
-    dev = process_device(device, process_id)
+            "DPS_NUM_PROCESSES, DPS_PROCESS_ID), or torchrun's WORLD_SIZE "
+            "and RANK")
+    dev = process_device(device, card_index)
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     if backend not in ("nccl", "gloo"):
         raise ValueError(f"backend must be nccl or gloo, got {backend!r}")
@@ -94,7 +122,7 @@ def initialize(coordinator: str | None = None,
         raise ValueError("the nccl backend needs a card; the CPU runs gloo")
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
+    dist.init_process_group(backend, init_method=init_method,
                             world_size=num_processes, rank=process_id)
     return dev
 
@@ -195,8 +223,13 @@ def fetch_replicated(tree):
 
 # -- the collectives -----------------------------------------------------
 
+def _nbytes(tensors: Sequence[torch.Tensor]) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def _reduce(t: torch.Tensor, op, group: RankGroup) -> torch.Tensor:
     """All-reduce of a copy of ``t`` over the group's ranks."""
+    collective_bytes.note("all-reduce", _nbytes([t]), group.size)
     opts = dist.AllreduceOptions()
     opts.reduceOp = op
     if group.staged(t.device):
@@ -209,6 +242,7 @@ def _reduce(t: torch.Tensor, op, group: RankGroup) -> torch.Tensor:
 
 
 def _broadcast_(t: torch.Tensor, root: int, group: RankGroup) -> None:
+    collective_bytes.note("broadcast", _nbytes([t]), group.size)
     opts = dist.BroadcastOptions()
     opts.rootRank = root
     if group.staged(t.device):
@@ -231,12 +265,14 @@ class _RankMean(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
+        ctx.recorders = collective_bytes.open_recorders()
         return _reduce(x, dist.ReduceOp.SUM, group) / group.size
 
     @staticmethod
     def backward(ctx, grad):
-        return _reduce(grad, dist.ReduceOp.SUM, ctx.group) \
-            / ctx.group.size, None
+        with collective_bytes.recording(ctx.recorders):
+            return _reduce(grad, dist.ReduceOp.SUM, ctx.group) \
+                / ctx.group.size, None
 
 
 def rank_mean(x: torch.Tensor, group: RankGroup | None = None
@@ -246,28 +282,58 @@ def rank_mean(x: torch.Tensor, group: RankGroup | None = None
     return _RankMean.apply(x, group or world_group())
 
 
+class _SharedRankMean(torch.autograd.Function):
+    """Mean over ranks of each rank's part, where every rank then computes
+    the same loss from the mean: forward all-reduce SUM / R; backward
+    ``g / R`` with no collective, since every rank holds the same ``g``
+    and ``d mean / d part = 1 / R`` (:class:`_RankMean` would hand each
+    rank ``g``, right only where each rank's loss takes its own share)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.size = group.size
+        return _reduce(x, dist.ReduceOp.SUM, group) / group.size
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad / ctx.size, None
+
+
+def shared_rank_mean(x: torch.Tensor, group: RankGroup) -> torch.Tensor:
+    """The mean over ranks of ``x``, each rank's part of a value that every
+    rank's loss then uses alike (:class:`_SharedRankMean`)."""
+    return _SharedRankMean.apply(x, group)
+
+
 def rank_reduce(x: torch.Tensor, op: str = "mean",
                 group: RankGroup | None = None) -> torch.Tensor:
     """``x`` reduced over the ranks, in ``x``'s dtype (not
-    differentiable): ``mean`` (SUM / R) or ``min``."""
+    differentiable): ``sum``, ``mean`` (SUM / R) or ``min``."""
     group = group or world_group()
     if op == "mean":
         return _reduce(x, dist.ReduceOp.SUM, group) / group.size
+    if op == "sum":
+        return _reduce(x, dist.ReduceOp.SUM, group)
     if op == "min":
         return _reduce(x, dist.ReduceOp.MIN, group)
-    raise ValueError(f"op must be mean or min, got {op!r}")
+    raise ValueError(f"op must be sum, mean or min, got {op!r}")
 
 
 def ring_hop(tensors: Sequence[torch.Tensor],
-             group: RankGroup | None = None) -> list[torch.Tensor]:
-    """One hop of a ring over the ranks: each tensor goes to rank + 1,
-    and the tensors rank - 1 sent come back (same shapes and dtypes). One
-    rank hands its tensors to itself. NCCL sends and receives in one
-    ``batch_isend_irecv``; gloo on a card copies through the host."""
+             group: RankGroup | None = None,
+             shift: int = 1) -> list[torch.Tensor]:
+    """One hop of a ring over the ranks: each tensor goes to rank +
+    ``shift`` (1 or -1), and the tensors rank - ``shift`` sent come back
+    (same shapes and dtypes). One rank hands its tensors to itself. NCCL
+    sends and receives in one ``batch_isend_irecv``; gloo on a card
+    copies through the host."""
     group = group or world_group()
+    collective_bytes.note("collective-permute", _nbytes(tensors),
+                          group.size)
     if group.size == 1:
         return list(tensors)
-    dst, src = (group.rank + 1) % group.size, (group.rank - 1) % group.size
+    dst, src = (group.rank + shift) % group.size, \
+        (group.rank - shift) % group.size
     dev = tensors[0].device
     if group.backend == "nccl":
         send = [t.contiguous() for t in tensors]
@@ -288,6 +354,53 @@ def ring_hop(tensors: Sequence[torch.Tensor],
     return [t.to(dev) for t in recv] if staged else recv
 
 
+def ring_roll(tensors: Sequence[torch.Tensor], rows: int = 1,
+              group: RankGroup | None = None,
+              reverse: bool = False) -> list[torch.Tensor]:
+    """One step of a ring over global slots, each slot a block of ``rows``
+    leading rows of every tensor: ``torch.roll(t, rows, dims=0)`` on the
+    card, and the block that leaves the last slot hops to rank + 1
+    (:func:`ring_hop`) and lands in slot 0 of the next rank. ``reverse``
+    steps the other way (the block of slot 0 goes to rank - 1). Without a
+    group, or over one rank, it is ``torch.roll``. Not differentiable
+    (:func:`ring_roll_grad` is)."""
+    step = -rows if reverse else rows
+    rolled = [torch.roll(t, step, dims=0) for t in tensors]
+    if group is not None and group.size > 1:
+        leaving = [t[:rows] if reverse else t[-rows:] for t in tensors]
+        for out, got in zip(rolled, ring_hop(leaving, group,
+                                             -1 if reverse else 1)):
+            if reverse:
+                out[-rows:] = got
+            else:
+                out[:rows] = got
+    return rolled
+
+
+class _RingRoll(torch.autograd.Function):
+    """:func:`ring_roll` whose backward rolls the gradients back."""
+
+    @staticmethod
+    def forward(ctx, rows, group, *tensors):
+        ctx.rows, ctx.group = rows, group
+        ctx.recorders = collective_bytes.open_recorders()
+        return tuple(ring_roll(tensors, rows, group))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        with collective_bytes.recording(ctx.recorders):
+            back = ring_roll(grads, ctx.rows, ctx.group, reverse=True)
+        return (None, None, *back)
+
+
+def ring_roll_grad(tensors: Sequence[torch.Tensor], rows: int,
+                   group: RankGroup | None) -> list[torch.Tensor]:
+    """Differentiable :func:`ring_roll` over ``group``'s ranks (or the
+    card's slots alone): every rank must call it, and run its backward,
+    in the same order."""
+    return list(_RingRoll.apply(rows, group, *tensors))
+
+
 def ranks_identical(tensors: Sequence[torch.Tensor],
                     group: RankGroup | None = None) -> bool:
     """Whether every rank holds the same bits in ``tensors`` as rank 0:
@@ -301,6 +414,38 @@ def ranks_identical(tensors: Sequence[torch.Tensor],
     same = torch.tensor([int(torch.equal(mine, ref))], dtype=torch.int32,
                         device=mine.device)
     return bool(rank_reduce(same, "min", group).item())
+
+
+def thread_ranks(size: int, fn: Callable, timeout: float = 120.0) -> list:
+    """``fn(group)`` on ``size`` ranks that are threads of this process,
+    each over its own ``ProcessGroupGloo`` on one ``HashStore`` (the CPU
+    tests' and ``utils/collective_bytes.py``'s ranks); returns the
+    results by rank. A rank's exception is raised here; a rank still
+    running after ``timeout`` raises ``TimeoutError``."""
+    store = dist.HashStore()
+    results, errors = [None] * size, []
+
+    def body(rank):
+        try:
+            pg = dist.ProcessGroupGloo(dist.PrefixStore("ranks", store),
+                                       rank, size,
+                                       datetime.timedelta(seconds=60))
+            results[rank] = fn(RankGroup(pg, rank, size, "gloo"))
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=body, args=(r,), daemon=True)
+               for r in range(size)]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + timeout
+    for t in threads:
+        t.join(max(0.0, deadline - time.monotonic()))
+    if any(t.is_alive() for t in threads):
+        raise TimeoutError(f"a rank is still running after {timeout} s")
+    if errors:
+        raise errors[0]
+    return results
 
 
 # -- the rank group of the step being traced -----------------------------

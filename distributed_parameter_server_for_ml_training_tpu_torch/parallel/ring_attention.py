@@ -19,6 +19,17 @@ the block that started on slot ``(my - step) mod N``.
   (BH' = N B H rows, per-slot (q_offset, k_offset)), so a hop costs one
   K5 forward and one fused backward (``flash_bwd``; K6 then K7 on fp32
   inputs), not N.
+
+Over several ranks (a mesh made by ``multihost.make_global_mesh``, one
+process per card) the ring has ``N = R*S`` global slots, rank-major, and
+each rank holds the ``T/R`` tokens of its ``S`` slots: ``fn(q, k, v)``
+takes the rank's ``[B, T/R, H, D]``. The ring still takes N hops; every
+roll rolls the card's own slots, and the block leaving its last slot hops
+to rank + 1 and lands in slot 0 (``multihost.ring_roll``), as the sync
+ring does. Causal positions and hop offsets are global: slot s of the
+card is global slot ``mesh.slot_offset + s``. One launch covers the
+card's own ``S B H`` rows a hop, and every rank issues its hops in the
+same order, forward and backward.
 """
 
 from __future__ import annotations
@@ -30,7 +41,9 @@ import torch
 
 from ..ops.flash_attention import (_flash_bwd_impl, _flash_fwd_impl,
                                    pick_block)
+from ..utils import collective_bytes
 from .mesh import SEQ_AXIS, Mesh
+from .multihost import RankGroup, ring_roll, ring_roll_grad
 
 _NEG_INF = -1e30
 
@@ -60,21 +73,28 @@ def _merge(m, l, o, logits, v_blk):
     return m_new, l_new, o_new
 
 
-def ring_attention_local(q, k, v, *, axis_size: int, causal: bool = False):
-    """The dense ring over slot-stacked ``[N, B, T_local, H, D]`` q/k/v
-    (the reference's per-shard body, for every slot at once). Returns
-    ``[N, B, T_local, H, D]`` in q's dtype."""
-    n, b, tl, h, d = q.shape
-    if n != axis_size:
-        raise ValueError(f"{n} slots for a ring of {axis_size}")
+def ring_attention_local(q, k, v, *, axis_size: int, causal: bool = False,
+                         group: RankGroup | None = None):
+    """The dense ring over slot-stacked ``[S, B, T_local, H, D]`` q/k/v
+    (the reference's per-shard body, for every slot at once): the ``S``
+    slots of this card, of a ring of ``axis_size`` slots over ``group``'s
+    ranks (all of them without a group). Returns ``[S, B, T_local, H, D]``
+    in q's dtype."""
+    s, b, tl, h, d = q.shape
+    ranks = group.size if group is not None else 1
+    if s * ranks != axis_size:
+        raise ValueError(f"{s} slots on each of {ranks} ranks for a ring of "
+                         f"{axis_size}")
+    n = axis_size
     scale = 1.0 / math.sqrt(d)
     dev = q.device
     qf = q.float()
-    m = torch.full((n, b, h, tl), _NEG_INF, device=dev)
-    l = torch.zeros((n, b, h, tl), device=dev)
-    o = torch.zeros((n, b, h, tl, d), device=dev)
+    m = torch.full((s, b, h, tl), _NEG_INF, device=dev)
+    l = torch.zeros((s, b, h, tl), device=dev)
+    o = torch.zeros((s, b, h, tl, d), device=dev)
     kk, vv = k.float(), v.float()
-    my = torch.arange(n, device=dev)
+    first = group.rank * s if group is not None else 0
+    my = first + torch.arange(s, device=dev)
     pos = torch.arange(tl, device=dev)
     for step in range(n):
         src = (my - step) % n
@@ -86,22 +106,22 @@ def ring_attention_local(q, k, v, *, axis_size: int, causal: bool = False):
             logits = torch.where(mask[:, None, None], logits, _NEG_INF)
         m, l, o = _merge(m, l, o, logits, vv)
         if step != n - 1:
-            kk = torch.roll(kk, 1, dims=0)
-            vv = torch.roll(vv, 1, dims=0)
-    out = o / l.clamp_min(1e-30)[..., None]                   # [N,B,H,Tq,D]
+            kk, vv = ring_roll_grad([kk, vv], 1, group)
+    out = o / l.clamp_min(1e-30)[..., None]                   # [S,B,H,Tq,D]
     return out.permute(0, 1, 3, 2, 4).to(q.dtype)
 
 
 def make_ring_attention(mesh: Mesh, axis: str = SEQ_AXIS,
                         causal: bool = False) -> Callable:
     """``fn(q, k, v) -> out`` over ``[B, T, H, D]``, the sequence split
-    over the mesh's ``axis`` slots; differentiable by autograd."""
-    n = mesh.shape[axis]
+    over the mesh's ``axis`` slots (over several ranks: the rank's ``[B,
+    T/R, H, D]``, split over its own slots); differentiable by autograd."""
+    n, s = mesh.shape[axis], mesh.local_slots
 
     def fn(q, k, v):
-        out = ring_attention_local(_to_slots(q, n), _to_slots(k, n),
-                                   _to_slots(v, n), axis_size=n,
-                                   causal=causal)
+        out = ring_attention_local(_to_slots(q, s), _to_slots(k, s),
+                                   _to_slots(v, s), axis_size=n,
+                                   causal=causal, group=mesh.group)
         return _from_slots(out)
 
     return fn
@@ -155,28 +175,36 @@ def _hop_bwd(q3, k3, v3, do3, lse_tot, delta, use_kernel: bool,
                            k_offset=k_offset, dq_acc=dq_acc)
 
 
-def _hop_offsets(n: int, tl: int, step: int) -> tuple[list, list]:
-    """Per-slot (q_offset, k_offset) at ``step``: slot my's queries start at
-    my * tl, its resident block came from slot (my - step) mod N."""
-    return ([my * tl for my in range(n)],
-            [((my - step) % n) * tl for my in range(n)])
+def _hop_offsets(n: int, tl: int, step: int, slots: range | None = None
+                 ) -> tuple[list, list]:
+    """Per-slot (q_offset, k_offset) at ``step`` for the card's global
+    ``slots`` (all N by default): slot my's queries start at my * tl, its
+    resident block came from slot (my - step) mod N."""
+    slots = range(n) if slots is None else slots
+    return ([my * tl for my in slots],
+            [((my - step) % n) * tl for my in slots])
 
 
 class _RingFlash(torch.autograd.Function):
-    """The ring over q/k/v in the kernels' layout ``[N*B*H, T_local, D]``
-    (:func:`_to3`): rolling a slot's B*H rows along dim 0 is the
-    ``ppermute`` to the next slot, so no hop changes the layout."""
+    """The ring over q/k/v in the kernels' layout ``[S*B*H, T_local, D]``
+    (:func:`_to3`), the card's S slots of a ring of N over ``group``:
+    rolling a slot's B*H rows along dim 0 is the ``ppermute`` to the next
+    slot (:func:`~.multihost.ring_roll`), so no hop changes the layout."""
 
     @staticmethod
-    def forward(ctx, q, k, v, n: int, causal: bool, use_kernel: bool):
+    def forward(ctx, q, k, v, n: int, causal: bool, use_kernel: bool,
+                group: RankGroup | None):
         rows, tl, d = q.shape
-        per_slot = rows // n
+        s = n // (group.size if group is not None else 1)
+        slots = range(group.rank * s, (group.rank + 1) * s) \
+            if group is not None else range(n)
+        per_slot = rows // s
         m = torch.full((rows, tl, 1), _NEG_INF, device=q.device)
         l = torch.zeros((rows, tl, 1), device=q.device)
         acc = torch.zeros((rows, tl, d), device=q.device)
         kk, vv = k, v
         for step in range(n):
-            q_offs, k_offs = _hop_offsets(n, tl, step)
+            q_offs, k_offs = _hop_offsets(n, tl, step, slots)
             # Under causal masking the JAX ring skips a wholly-future block
             # with lax.cond, giving (O = 0, LSE = -1e30). Here one launch
             # covers every slot, and for a slot whose block is wholly in
@@ -195,21 +223,27 @@ class _RingFlash(torch.autograd.Function):
             acc = acc * w_prev + o_i * w_i
             m = m_new
             if step != n - 1:
-                kk = torch.roll(kk, per_slot, dims=0)
-                vv = torch.roll(vv, per_slot, dims=0)
+                kk, vv = ring_roll([kk, vv], per_slot, group)
         l = l.clamp_min(1e-30)
         lse_tot = m + torch.log(l)
         out = (acc / l).to(q.dtype)
         ctx.save_for_backward(q, k, v, out, lse_tot)
         ctx.n, ctx.causal, ctx.use_kernel = n, causal, use_kernel
+        ctx.group, ctx.slots = group, slots
+        ctx.recorders = collective_bytes.open_recorders()
         return out
 
     @staticmethod
     def backward(ctx, do):
+        with collective_bytes.recording(ctx.recorders):
+            return _RingFlash._backward(ctx, do)
+
+    @staticmethod
+    def _backward(ctx, do):
         q, k, v, out, lse_tot = ctx.saved_tensors
-        n = ctx.n
+        n, group, slots = ctx.n, ctx.group, ctx.slots
         rows, tl, _ = q.shape
-        per_slot = rows // n
+        per_slot = rows // len(slots)
         do = do.to(q.dtype).contiguous()
         delta = (do.float() * out.float()).sum(dim=-1, keepdim=True)
         dq = torch.zeros(q.shape, device=q.device)
@@ -217,7 +251,7 @@ class _RingFlash(torch.autograd.Function):
         dvv = torch.zeros(v.shape, device=v.device)
         kk, vv = k, v
         for step in range(n):
-            q_offs, k_offs = _hop_offsets(n, tl, step)
+            q_offs, k_offs = _hop_offsets(n, tl, step, slots)
             # A wholly-future block: the kernel's query range is empty, so
             # it adds nothing to dq and its dk/dv are 0, the cond branch's
             # zeros.
@@ -227,14 +261,15 @@ class _RingFlash(torch.autograd.Function):
             dkk = dkk + dk_i
             dvv = dvv + dv_i
             # The gradient accumulators rotate with their blocks every hop
-            # (N hops bring each home); K/V skip the last rotation.
+            # (N hops bring each home); K/V skip the last rotation. One
+            # hop carries all four between ranks.
             if step != n - 1:
-                kk = torch.roll(kk, per_slot, dims=0)
-                vv = torch.roll(vv, per_slot, dims=0)
-            dkk = torch.roll(dkk, per_slot, dims=0)
-            dvv = torch.roll(dvv, per_slot, dims=0)
+                kk, vv, dkk, dvv = ring_roll([kk, vv, dkk, dvv], per_slot,
+                                             group)
+            else:
+                dkk, dvv = ring_roll([dkk, dvv], per_slot, group)
         return (dq.to(q.dtype), dkk.to(k.dtype), dvv.to(v.dtype), None, None,
-                None)
+                None, None)
 
 
 def make_ring_flash_attention(mesh: Mesh, axis: str = SEQ_AXIS,
@@ -253,16 +288,17 @@ def make_ring_flash_attention(mesh: Mesh, axis: str = SEQ_AXIS,
     ``use_kernel=None`` or True runs the kernel wrappers (the kernels on
     CUDA tensors, their plain versions on CPU ones); False runs the plain
     versions on any device (the reference's ``use_pallas=False``).
-    ``causal`` masks in global positions."""
-    n = mesh.shape[axis]
+    ``causal`` masks in global positions. Over several ranks ``fn`` takes
+    the rank's ``[B, T/R, H, D]`` (module notes)."""
+    n, s = mesh.shape[axis], mesh.local_slots
     use = True if use_kernel is None else bool(use_kernel)
 
     def fn(q, k, v):
         b, t, h, _ = q.shape
-        pick_block(t // n)
-        out = _RingFlash.apply(_to3(q, n), _to3(k, n), _to3(v, n), n,
-                               bool(causal), use)
-        return _to4(out, n, b, h)
+        pick_block(t // s)
+        out = _RingFlash.apply(_to3(q, s), _to3(k, s), _to3(v, s), n,
+                               bool(causal), use, mesh.group)
+        return _to4(out, s, b, h)
 
     return fn
 

@@ -40,9 +40,11 @@ are global slots (hop seeds and chunk indices by global slot) and each
 hop's last row travels to the next rank, so every row equals the
 one-process ring's row bit for bit; the bf16/fp16/none mean averages the
 card's rows, then the ranks, in the wire dtype (JAX's reduced-precision
-``pmean``); the augmentation draws for the whole global batch and keeps
-this rank's slice; ``loss`` and ``accuracy`` are means over the ranks.
-Each rank's kernel launches cover its own rows only.
+``pmean``), and the bytes its all-reduce moved, as the recorder of
+``utils/collective_bytes.py`` counts them, are its ``wire_bytes_per_slot``;
+the augmentation draws for the whole global batch and keeps this rank's
+slice; ``loss`` and ``accuracy`` are means over the ranks. Each rank's
+kernel launches cover its own rows only.
 """
 
 from __future__ import annotations
@@ -59,9 +61,10 @@ from ..ops.compression import (compress_for_allreduce,
 from ..ops.quantize import (LANES, block_dequantize, block_layout,
                             block_quantize, block_quantize_stochastic)
 from ..train.train_state import TrainState
+from ..utils.collective_bytes import record_collectives
 from ..utils.pytree import flax_names, to_torch_layout
 from .mesh import DATA_AXIS, Mesh, worker_axis_size
-from .multihost import RankGroup, rank_reduce, rank_scope, ring_hop
+from .multihost import RankGroup, rank_reduce, rank_scope, ring_roll
 
 COMPRESSIONS = ("none", "fp32", "bf16", "fp16", "int8")
 #: Tag that branches the ring's seeds off the augmentation stream (the
@@ -113,7 +116,7 @@ def _int8_ring_allreduce_mean(flat: torch.Tensor, seed: int = 0, *,
 
     With a ``group`` of R ranks, ``flat`` holds this rank's rows, global
     slots ``rank*S_local ...``, of a ring of ``N = R*S_local`` slots: each
-    hop's last row goes to the next rank (``multihost.ring_hop``) and
+    hop's last row goes to the next rank (``multihost.ring_roll``) and
     row 0 takes the previous rank's.
 
     ``wire``, if given, gets ``bytes_per_slot`` increased by the bytes each
@@ -140,10 +143,7 @@ def _int8_ring_allreduce_mean(flat: torch.Tensor, seed: int = 0, *,
         if wire is not None:
             wire["bytes_per_slot"] = wire.get("bytes_per_slot", 0) \
                 + ring_payload_bytes(chunk)
-        rolled = torch.roll(v, 1, dims=0), torch.roll(sc, 1, dims=0)
-        if group is not None:
-            rolled[0][0], rolled[1][0] = ring_hop([v[-1], sc[-1]], group)
-        return rolled
+        return ring_roll([v, sc], group=group)
 
     # -- reduce-scatter ring: partial sums travel int8 -----------------------
     part = own[local, slots]
@@ -297,7 +297,10 @@ def make_sync_dp_step(mesh: Mesh, model: torch.nn.Module, *,
     tensors: no host sync), and for int8 ``ring_replicas_identical`` (the
     ring's rows are bit-equal on every rank) and ``wire_bytes_per_slot``
     (the bytes each slot handed across hops). On a mesh over several
-    processes every rank must call the step, in the same order."""
+    processes every rank must call the step, in the same order, and the
+    bf16/fp16/none step reports ``wire_bytes_per_slot`` too: the bytes
+    the rank's all-reduce of the card's mean moved (recorded, the ring
+    model; a slot's own with one slot a rank)."""
     if compression not in COMPRESSIONS:
         raise ValueError(f"compression must be one of {COMPRESSIONS}, got "
                          f"{compression!r}")
@@ -344,7 +347,9 @@ def make_sync_dp_step(mesh: Mesh, model: torch.nn.Module, *,
             mean = cast.mean(0)
             if group is not None:
                 # The reduced dtype stays on the wire between ranks.
-                mean = rank_reduce(mean, "mean", group)
+                with record_collectives() as wire:
+                    mean = rank_reduce(mean, "mean", group)
+                metrics["wire_bytes_per_slot"] = wire.by_op["all-reduce"]
             mean = decompress_from_allreduce({"g": mean}, compression)["g"]
 
         state = state.apply_gradients(unravel(mean)).replace(

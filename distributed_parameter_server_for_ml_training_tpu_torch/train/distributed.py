@@ -145,8 +145,9 @@ class SyncTrainer:
         self.train_loss_per_epoch: list[float] = []
         self.test_accuracies: list[float] = []
         self.global_steps = 0
-        # int8 only: whether every step's ring left bit-identical rows,
-        # and the bytes each slot handed across hops per step.
+        # int8 only: whether every step's ring left bit-identical rows.
+        # The bytes each slot handed across hops per step (int8), or over
+        # several processes the rank's all-reduce bytes (bf16/fp16/none).
         self.ring_replicas_identical: bool | None = None
         self.wire_bytes_per_slot_step: int | None = None
         # Multi-process only: whether every rank ended with rank 0's
@@ -219,6 +220,7 @@ class SyncTrainer:
                     wa.append(m["worker_accuracy"])
                 if "ring_replicas_identical" in m:
                     replicas.append(m["ring_replicas_identical"])
+                if "wire_bytes_per_slot" in m:
                     self.wire_bytes_per_slot_step = m["wire_bytes_per_slot"]
                 self.global_steps += 1
                 tm_gstep.set(self.global_steps)
@@ -271,7 +273,7 @@ class SyncTrainer:
         }
         if self.multihost:
             # Rank 0 reports for every rank: the replica checks and the
-            # int8 ring's bytes a slot a step.
+            # wire bytes a slot a step.
             server_metrics.update({
                 "processes": self.mesh.num_ranks,
                 "ranks_params_identical": self.ranks_params_identical,

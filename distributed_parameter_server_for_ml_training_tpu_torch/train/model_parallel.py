@@ -7,7 +7,11 @@ slots of a mesh on one card (``parallel/ring_attention.py`` wired into
 ``models/vit.py``'s ``SelfAttention`` through ``attention_fn``), the
 flash kernels K5-K7 as each hop's core when the per-slot length allows
 them. ``--mode sp --model vit_tiny|vit_b16``; ``pool='gap'`` keeps the
-sequence a multiple of the slot count.
+sequence a multiple of the slot count. ``SPTrainer(..., group=...)``
+spreads the slots over several ranks, one process per card, as the
+reference's ``seq`` axis spans several chips (the CLI keeps JAX's refusal
+of ``--multihost`` outside ``--mode sync``, so this is reached through
+the API or a joined job).
 
 :class:`TPTrainer`, :class:`PipelineTrainer` and :class:`MoETrainer`
 raise ``NotImplementedError`` naming the slice that brings them.
@@ -15,6 +19,7 @@ raise ``NotImplementedError`` naming the slice that brings them.
 
 from __future__ import annotations
 
+import sys
 import time
 from dataclasses import dataclass
 
@@ -25,8 +30,11 @@ from ..models.registry import _DTYPES
 from ..models.vit import ViT
 from ..ops.flash_attention import flash_preferred
 from ..parallel.mesh import SEQ_AXIS, make_mesh
+from ..parallel.multihost import (RankGroup, make_global_mesh, rank_reduce,
+                                  replicate_to_mesh, world_group)
 from ..parallel.ring_attention import (make_ring_attention,
                                        make_ring_flash_attention)
+from ..utils.collective_bytes import record_collectives
 from ..utils.metrics import emit_metrics_json
 from .optimizers import server_sgd
 from .steps import make_eval_step, make_train_step
@@ -56,9 +64,12 @@ class ModelParallelConfig:
 class _EpochTrainer:
     """Shared epoch loop of the model-parallel trainers: batching, eval,
     METRICS_JSON fields. Subclasses set ``mode`` and implement
-    ``_train_batch`` / ``evaluate`` / ``_extra_metrics``."""
+    ``_train_batch`` / ``evaluate`` / ``_extra_metrics``. Only the chief
+    (rank 0 of a multi-process trainer) prints, saves checkpoints and
+    emits METRICS_JSON; every rank restores on ``resume``."""
 
     mode = "?"
+    is_chief = True
 
     def __init__(self, dataset: Dataset, config: ModelParallelConfig):
         self.config = config
@@ -103,8 +114,9 @@ class _EpochTrainer:
                     1, len(self.dataset.x_train) // cfg.batch_size)
                 self.global_steps = int(self.state.step)
                 start_epoch = self.global_steps // steps_per_epoch
-                print(f"resumed from step {self.global_steps} "
-                      f"(epoch {start_epoch + 1})")
+                if self.is_chief:
+                    print(f"resumed from step {self.global_steps} "
+                          f"(epoch {start_epoch + 1})")
         t_start = time.time()
         for epoch in range(start_epoch, cfg.num_epochs):
             t0 = time.time()
@@ -122,9 +134,11 @@ class _EpochTrainer:
             acc = self.evaluate()
             self.epoch_times.append(time.time() - t0)
             self.test_accuracies.append(acc)
-            print(f"[{self._label()}] epoch {epoch + 1}: loss {mean_loss:.4f} "
-                  f"test {acc:.2%} ({self.epoch_times[-1]:.1f}s)")
-            if mgr is not None:
+            if self.is_chief:
+                print(f"[{self._label()}] epoch {epoch + 1}: loss "
+                      f"{mean_loss:.4f} test {acc:.2%} "
+                      f"({self.epoch_times[-1]:.1f}s)")
+            if mgr is not None and self.is_chief:
                 mgr.save(self.state, extra={"generator": gen.get_state()})
         total = time.time() - t_start
         if mgr is not None:
@@ -141,7 +155,7 @@ class _EpochTrainer:
             "all_test_accuracies": self.test_accuracies,
             **self._extra_metrics(),
         }
-        if emit_metrics:
+        if emit_metrics and self.is_chief:
             emit_metrics_json(metrics)
         return metrics
 
@@ -179,12 +193,22 @@ class SPTrainer(_EpochTrainer):
     :func:`~..ops.flash_attention.flash_preferred` holds for it (on a
     CUDA device, from ``DEFAULT_CROSSOVER_T`` = 2048 tokens per slot),
     else the dense ring, as the reference dispatches. Weights are
-    replicated (one copy); only activations split along T."""
+    replicated (one copy); only activations split along T.
+
+    Over several ranks (``group``, or the world group of a joined job)
+    ``num_workers`` counts the slots of every rank, rank-major, and each
+    rank holds the tokens of its own slots for the same global batch and
+    the same augmentation draws. The state starts from rank 0's weights;
+    the gradients of the parameters used per token (everything but the
+    head, whose gradient every rank already holds whole) are summed over
+    the ranks before the apply; every rank evaluates, since the model is
+    split along T."""
 
     mode = "sp"
 
     def __init__(self, dataset: Dataset,
-                 config: ModelParallelConfig | None = None):
+                 config: ModelParallelConfig | None = None,
+                 group: RankGroup | None = None):
         super().__init__(dataset, config or ModelParallelConfig())
         cfg = self.config
         shape = VIT_SHAPES.get(cfg.model)
@@ -201,7 +225,27 @@ class SPTrainer(_EpochTrainer):
         if self.tokens % n_shards:
             raise ValueError(f"{self.tokens} tokens not divisible by "
                              f"{n_shards} sequence shards")
-        self.mesh = make_mesh(n_shards, cfg.device, axis_names=(SEQ_AXIS,))
+        if group is None and torch.distributed.is_available() \
+                and torch.distributed.is_initialized():
+            group = world_group()
+        if group is not None:
+            if n_shards % group.size:
+                raise ValueError(
+                    f"--workers {n_shards} (the global slot count) must "
+                    f"divide evenly over {group.size} processes")
+            self.mesh = make_global_mesh(n_shards, cfg.device,
+                                         axis_names=(SEQ_AXIS,), group=group)
+            staged = " (collectives staged through the host)" \
+                if group.staged(self.mesh.device) else ""
+            first = self.mesh.slot_offset
+            print(f"multihost: rank {group.rank} of {group.size}, seq "
+                  f"slots {first}-{first + self.mesh.local_slots - 1} of "
+                  f"{n_shards} on {self.mesh.device}, {group.backend}"
+                  f"{staged}", file=sys.stderr, flush=True)
+        else:
+            self.mesh = make_mesh(n_shards, cfg.device,
+                                  axis_names=(SEQ_AXIS,))
+        self.is_chief = self.mesh.rank == 0
         self.device = self.mesh.device
         per_shard = self.tokens // n_shards
         self.flash = per_shard % 128 == 0 \
@@ -215,22 +259,36 @@ class SPTrainer(_EpochTrainer):
                          num_classes=cfg.num_classes,
                          dtype=_DTYPES[cfg.dtype], pool="gap",
                          attention_fn=ring, image_size=h,
-                         generator=gen).to(self.device)
-        self.state = module_train_state(self.model,
-                                        server_sgd(cfg.learning_rate))
-        self._step = make_train_step(self.model, augment=cfg.augment)
+                         generator=gen, seq_group=group).to(self.device)
+        self.state = replicate_to_mesh(self.mesh, module_train_state(
+            self.model, server_sgd(cfg.learning_rate)))
+        self._step = make_train_step(
+            self.model, augment=cfg.augment,
+            reduce_grads=None if group is None else _rank_sum_token_grads(
+                group))
         self._eval_step = make_eval_step(self.model)
+        #: What the last step's collectives moved (``utils/
+        #: collective_bytes.py`` schema).
+        self.collective_bytes_step: dict | None = None
 
     def _label(self) -> str:
         return (f"sp {self.config.model} {self.config.num_workers} "
                 f"seq shards (T={self.tokens})")
 
     def _extra_metrics(self) -> dict:
-        return {"seq_shards": self.config.num_workers,
-                "tokens": self.tokens}
+        extra = {"seq_shards": self.config.num_workers,
+                 "tokens": self.tokens}
+        if self.mesh.group is not None:
+            extra.update({"ranks": self.mesh.num_ranks,
+                          "collective_bytes_per_step":
+                              self.collective_bytes_step})
+        return extra
 
     def _train_batch(self, xb, yb, generator):
-        return self._step(self.state, xb, yb, generator)
+        with record_collectives() as rec:
+            out = self._step(self.state, xb, yb, generator)
+        self.collective_bytes_step = rec.summary()
+        return out
 
     def evaluate(self) -> float:
         """Top-1 over the test set in batches of 1000, from the module's
@@ -244,3 +302,22 @@ class SPTrainer(_EpochTrainer):
             total += t
         return (int(correct) if correct is not None else 0) / max(total, 1)
 
+
+def _rank_sum_token_grads(group: RankGroup):
+    """``reduce_grads`` of SP over ranks: the gradients of the parameters
+    used per token summed over the ranks in one all-reduce of their flat
+    concatenation; the head's gradient, the same on every rank, is left
+    as it is (a sum would multiply it by R)."""
+
+    def reduce(names, grads):
+        idx = [i for i, name in enumerate(names)
+               if not name.startswith("head.")]
+        flat = rank_reduce(torch.cat([grads[i].reshape(-1) for i in idx]),
+                           "sum", group)
+        out, off = list(grads), 0
+        for i in idx:
+            out[i] = flat[off:off + grads[i].numel()].view_as(grads[i])
+            off += grads[i].numel()
+        return out
+
+    return reduce

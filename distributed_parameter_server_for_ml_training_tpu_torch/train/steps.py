@@ -163,8 +163,8 @@ def make_fused_local_step(model: torch.nn.Module, augment: bool = True
     return fused_step
 
 
-def make_train_step(model: torch.nn.Module, augment: bool = True
-                    ) -> Callable:
+def make_train_step(model: torch.nn.Module, augment: bool = True,
+                    reduce_grads: Callable | None = None) -> Callable:
     """Build ``train_step(state, images_u8, labels, generator=None) ->
     (state, metrics)`` for a state whose tensors are ``model``'s own
     (``train_state.module_train_state``): counterpart of the JAX
@@ -179,7 +179,9 @@ def make_train_step(model: torch.nn.Module, augment: bool = True
     momentum 0.9 on the old value). ``metrics`` holds 0-dim ``loss`` and
     ``accuracy`` tensors, ``learning_rate`` where the optimizer schedules
     it, and with augmentation ``augment_draws`` ``[B, 3]`` (crop row,
-    crop column, flip) — no host sync."""
+    crop column, flip) — no host sync. ``reduce_grads(names, grads) ->
+    grads``, given only by sequence parallelism over several ranks, maps
+    the gradients (torch parameter names, in order) before the apply."""
     pnames, _ = flax_names(model)
     device = _model_device(model)
     params_t = dict(model.named_parameters())
@@ -200,6 +202,8 @@ def make_train_step(model: torch.nn.Module, augment: bool = True
         logits = model(x)
         loss = cross_entropy_loss(logits, y)
         grads_t = torch.autograd.grad(loss, [params_t[t] for t in order])
+        if reduce_grads is not None:
+            grads_t = reduce_grads(order, grads_t)
         lr = state.apply_gradients_(
             {pnames[t]: to_flax_layout(g) for t, g in zip(order, grads_t)})
         metrics["loss"] = loss.detach()

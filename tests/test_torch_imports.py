@@ -5,6 +5,7 @@ import ast
 import pathlib
 import re
 import subprocess
+import sys
 
 import pytest
 import torch
@@ -61,7 +62,8 @@ def test_port_files_exist():
                      "telemetry/incidents.py", "telemetry/profiler.py",
                      "telemetry/proftrigger.py", "utils/tracing.py",
                      "analysis/__init__.py", "analysis/traces.py",
-                     "analysis/device_profile.py"):
+                     "analysis/device_profile.py",
+                     "utils/collective_bytes.py", "parallel/multihost.py"):
         assert required in names, required
     for kernel in ("wire_quantize.cu", "block_quantize.cu",
                    "flash_attention.cu"):
@@ -72,6 +74,20 @@ def test_port_files_exist():
 def test_no_jax_imports(path):
     bad = [m for m in _imports(path) if _forbidden(m)]
     assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("module", ["utils.collective_bytes",
+                                    "parallel.ring_attention"])
+def test_sp_multihost_modules_load_no_jax(module):
+    """The byte counter and the ring over ranks, imported in a fresh
+    interpreter, load no module of jax and none of the JAX package."""
+    name = f"distributed_parameter_server_for_ml_training_tpu_torch.{module}"
+    probe = (f"import sys, {name}; print(sorted(m for m in sys.modules "
+             f"if m.split('.')[0] in {FORBIDDEN!r}))")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
 
 
 def test_scan_catches_a_jax_import(tmp_path):

@@ -17,16 +17,16 @@ runs on the CPU; the JAX side on the 8 virtual CPU devices.
 - a rank's augmented images are bit-equal to the 1 x 8 run's slots;
 - every rank ends two steps with bit-identical params and statistics;
 - one rank through the multi-rank code equals the one-process step bit
-  for bit.
+  for bit;
+- ``initialize`` joins a job started by ``torchrun`` (``WORLD_SIZE``,
+  ``RANK``, ``LOCAL_RANK``) with ``env://``, and its ``slow`` test runs
+  two ``cli train --multihost`` processes under those variables alone.
 """
 
-import datetime
 import os
 import socket
 import subprocess
 import sys
-import threading
-import time
 
 import jax
 import numpy as np
@@ -62,34 +62,9 @@ from torch_threads import one_torch_thread_per_module  # noqa: F401
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def run_ranks(size: int, fn, timeout: float = 120.0) -> list:
-    """``fn(group)`` on ``size`` thread-ranks, each over its own
-    ``ProcessGroupGloo`` on one ``HashStore``; returns the results by
-    rank. A rank still running after ``timeout`` fails the test."""
-    store = dist.HashStore()
-    results, errors = [None] * size, []
-
-    def body(rank):
-        try:
-            pg = dist.ProcessGroupGloo(dist.PrefixStore("ranks", store),
-                                       rank, size,
-                                       datetime.timedelta(seconds=60))
-            results[rank] = fn(RankGroup(pg, rank, size, "gloo"))
-        except BaseException as e:  # noqa: BLE001 — re-raised below
-            errors.append(e)
-
-    threads = [threading.Thread(target=body, args=(r,), daemon=True)
-               for r in range(size)]
-    for t in threads:
-        t.start()
-    deadline = time.monotonic() + timeout
-    for t in threads:
-        t.join(max(0.0, deadline - time.monotonic()))
-    assert not any(t.is_alive() for t in threads), \
-        f"a rank is still running after {timeout} s"
-    if errors:
-        raise errors[0]
-    return results
+#: ``fn(group)`` on thread-ranks, each over its own ``ProcessGroupGloo``
+#: on one ``HashStore``; a rank still running after the timeout fails.
+run_ranks = mh.thread_ranks
 
 
 def _jax_model(axis_name="data"):
@@ -380,8 +355,41 @@ def test_cli_multihost_flags_and_refusals(monkeypatch):
         cli.main(["train", "--mode", "sync", "--dist-backend", "gloo"])
 
 
-def test_no_fallback_hides_the_device_or_the_backend(monkeypatch):
+def test_torchrun_env_joins_with_env_method(monkeypatch):
+    """With no argument and no ``DPS_*`` variable, ``WORLD_SIZE`` and
+    ``RANK`` join with ``env://`` at that rank and world size, on the card
+    of ``LOCAL_RANK`` (else of ``RANK``); a ``DPS_*`` variable or an
+    argument given keeps the explicit contract and its error."""
     for var in ("DPS_COORDINATOR", "DPS_NUM_PROCESSES", "DPS_PROCESS_ID"):
+        monkeypatch.delenv(var, raising=False)
+    joins, cards = [], []
+    monkeypatch.setattr(mh.dist, "init_process_group",
+                        lambda backend, **kw: joins.append((backend, kw)))
+    monkeypatch.setattr(mh, "process_device",
+                        lambda device, index: cards.append((device, index))
+                        or torch.device("cpu"))
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    monkeypatch.setenv("RANK", "3")
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    assert mh.initialize(device="cuda") == torch.device("cpu")
+    assert joins == [("gloo", {"init_method": "env://", "world_size": 4,
+                               "rank": 3})]
+    assert cards == [("cuda", 1)]
+    monkeypatch.delenv("LOCAL_RANK")
+    mh.initialize(device="cpu", backend="gloo")
+    assert cards[-1] == ("cpu", 3) and joins[-1][1]["rank"] == 3
+    monkeypatch.setenv("DPS_COORDINATOR", "127.0.0.1:1")
+    with pytest.raises(ValueError, match="--coordinator"):
+        mh.initialize(device="cpu")
+    monkeypatch.delenv("DPS_COORDINATOR")
+    with pytest.raises(ValueError, match="--coordinator"):
+        mh.initialize(num_processes=4, device="cpu")
+    assert len(joins) == 2
+
+
+def test_no_fallback_hides_the_device_or_the_backend(monkeypatch):
+    for var in ("DPS_COORDINATOR", "DPS_NUM_PROCESSES", "DPS_PROCESS_ID",
+                "WORLD_SIZE", "RANK"):
         monkeypatch.delenv(var, raising=False)
     with pytest.raises(NotImplementedError, match="--multihost"):
         make_mesh(2, ["cuda:0", "cuda:1"])
@@ -463,3 +471,38 @@ def test_two_cli_processes_match_one_process(tmp_path):
     assert 0 < spread < 1e-2
     for k in want:
         assert float((got[k] - want[k]).abs().max()) <= 2 * spread, k
+
+
+@pytest.mark.slow
+def test_two_cli_processes_join_under_torchrun_env(tmp_path):
+    """Two ``cli train --mode sync --multihost --device cpu`` processes
+    given only torchrun's variables (``WORLD_SIZE``, ``RANK``,
+    ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``; no ``--coordinator``
+    and no ``DPS_*``) join one job: rank 0 reports both ranks'
+    params bit-identical and rank 1 emits nothing."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("DPS_")}
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m",
+         "distributed_parameter_server_for_ml_training_tpu_torch.cli",
+         "train", "--mode", "sync", "--multihost", "--workers", "2",
+         "--batch-size", "2", "--compression", "int8", "--dtype", "float32",
+         "--epochs", "1", "--synthetic", "--num-train", "8", "--num-test",
+         "4", "--device", "cpu", "--emit-metrics"],
+        env={**env, "WORLD_SIZE": "2", "RANK": str(rank),
+             "LOCAL_RANK": str(rank), "MASTER_ADDR": "127.0.0.1",
+             "MASTER_PORT": str(port)},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for rank in range(2)]
+    logs = []
+    for p in procs:
+        try:
+            out, _ = p.communicate(timeout=300)
+        finally:
+            p.kill()
+        logs.append(out.decode(errors="replace"))
+    assert all(p.returncode == 0 for p in procs), "\n\n".join(logs)
+    assert '"processes": 2' in logs[0] and \
+        '"ranks_params_identical": true' in logs[0], logs[0]
+    assert "METRICS_JSON" not in logs[1] and "rank 1 of 2" in logs[1]
