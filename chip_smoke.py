@@ -320,6 +320,34 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    all-reduce) equal to the shapes' count. (c) The same over NCCL on two
    cards where there are two; otherwise a line says it was not run. The
    phase reports its own seconds.
+23. Switch-MoE expert parallelism (``parallel/moe.py``, ``MoETrainer``):
+   (a) one MoE layer at ViT-B/16 width (4 experts, D 768, H 3,072, 6,272
+   tokens = 32 x 196, capacity 784) on the card in float64 against the
+   port's own CPU run of the same call: routing indices, positions,
+   load and drop fraction identical, the output and the gradients of
+   sum(out * cot) + aux (params and tokens) within rtol/atol 1e-9; in
+   fp32 at a capacity that drops nothing against ``dense_reference``
+   within 1e-4 of the reference's largest value; the layer's fp32
+   forward + backward timed (CUDA events) beside its expert GEMMs'
+   FLOPs and their bound at 67 TFLOP/s fp32 (TF32 is off). (b)
+   ``MoETrainer`` with ViT-B/16 (1,000 classes, bf16, gap pool, 196
+   tokens), 4 experts, batch 32, on ``synthetic_imagenet`` at 224 px:
+   one epoch of 4 steps and one eval batch with every kernel count reset
+   just before and read just after (all 0: the dense core and no codec),
+   then 6 steps timed one by one (median step ms, img/s), peak GiB, one
+   profiled step (idle share, top device kernels), and the three MoE
+   metrics, finite, the drop fraction in [0, 1].
+24. GPipe/1F1B pipeline parallelism (``parallel/pipeline.py``,
+   ``PipelineTrainer``): (a) ``make_pipeline_train_step`` over four
+   ViT-B/16 ``EncoderStage``s of 3 blocks, M = 8 microbatches of 4 x 197
+   x 768, fp32, under ``gpipe`` and ``1f1b``: loss and stacked gradients
+   against each other and against the four stages run in sequence on
+   the whole batch, within 1e-4 of the reference's largest value; each
+   schedule's step ms and peak GiB above its inputs. (b)
+   ``PipelineTrainer``, 4 stages x 8 microbatches, batch 32, bf16,
+   ViT-B/16 at 224 px: an epoch of 2 steps and an eval batch (kernel
+   counts all 0), 6 steps timed, img/s, peak GiB, one profiled step.
+   Each phase reports its own seconds.
 
 Then one JSON line of kernels and, last, the device line. Without a CUDA
 device, or outside a checkout of the repo, it exits non-zero and prints
@@ -5693,6 +5721,386 @@ def phase_sp_multihost(state: dict) -> None:
     emit({"phase": "sp_multihost", "seconds": time.perf_counter() - t0})
 
 
+# ---------------------------------------------------------------------------
+# Phases 23 and 24: Switch-MoE and pipeline parallelism on the card
+# ---------------------------------------------------------------------------
+
+MOE_E, MOE_D, MOE_H = 4, 768, 3072   # ViT-B/16's width, 4 experts
+MOE_BATCH, MOE_TOKENS = 32, 196      # 224 px, gap pool: 14 x 14 patches
+MOE_TRAIN_STEPS = 4                  # (b): one epoch of 4 batches of 32
+MOE_TIMED_STEPS = 6                  # (b): steps timed after the epoch
+F64_TOL = dict(rtol=1e-9, atol=1e-9)  # card vs CPU, both float64
+FP32_REL_TOL = 1e-4                  # max |a - b| / max |b|, fp32
+PP_STAGES, PP_M, PP_BATCH = 4, 8, 32  # 4 x 3 ViT-B/16 blocks, M = 8
+PP_TOKENS = 197                      # 224 px with the CLS token
+
+
+def _counts_all() -> dict:
+    """Every kernel wrapper's launch count (K1, K2-K4, flash)."""
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
+        quantize as Q
+
+    return {"wire_quantize_multi": Q.wire_quantize_multi.launches,
+            **_block_counts(), **_flash_counts()}
+
+
+def _reset_counts_all() -> None:
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
+        quantize as Q
+
+    Q.wire_quantize_multi.launches = 0
+    _reset_block_counts()
+    _reset_flash_counts()
+
+
+def _rel_err(a, b) -> float:
+    """max |a - b| over max |b| (fp32 comparisons), in float64."""
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _moe_layer_run(params: dict, tokens, cot, capacity: int) -> dict:
+    """One MoE layer's forward and gradients of sum(out * cot) + aux."""
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.parallel \
+        import make_mesh, moe
+
+    dev = tokens.device
+    p = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+    x = tokens.detach().clone().requires_grad_()
+    fn = moe.make_moe_ffn(make_mesh(MOE_E, dev, axis_names=("expert",)),
+                          capacity)
+    out, stats = fn(p, x)
+    ((out * cot).sum() + stats["aux_loss"]).backward()
+    shards = x.detach().view(MOE_E, -1, MOE_D)
+    _, idx, _ = moe._route(shards, p["router"].detach())
+    _, pos, _ = moe._positions(idx, MOE_E, capacity)
+    return {"out": out.detach(), "idx": idx, "pos": pos,
+            "drop_frac": stats["drop_frac"].detach(),
+            "load": stats["load"].detach(),
+            "grads": {**{k: v.grad for k, v in p.items()}, "tokens": x.grad}}
+
+
+def _moe_layer(state: dict) -> dict:
+    """(a): one MoE layer at ViT-B/16 width, card against CPU in float64,
+    then fp32 against the dense reference at a capacity with no drops,
+    and the layer's fp32 forward + backward time."""
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.parallel \
+        import make_mesh, moe
+
+    n = MOE_BATCH * MOE_TOKENS
+    cap = max(8, int(2.0 * (n // MOE_E) / MOE_E))          # 784
+    gen = torch.Generator().manual_seed(23)
+    params = moe.init_moe_params(gen, MOE_D, MOE_H, MOE_E)
+    params["b1"].normal_(0.0, 0.02, generator=gen)
+    params["b2"].normal_(0.0, 0.02, generator=gen)
+    tokens = torch.randn(n, MOE_D, generator=gen)
+    cot = torch.randn(n, MOE_D, generator=gen)
+    p64 = {k: v.double() for k, v in params.items()}
+    t0 = time.perf_counter()
+    cpu = _moe_layer_run(p64, tokens.double(), cot.double(), cap)
+    cpu_s = time.perf_counter() - t0
+    card = _moe_layer_run({k: v.cuda() for k, v in p64.items()},
+                          tokens.double().cuda(), cot.double().cuda(), cap)
+    torch.cuda.synchronize()
+    res = {"tokens": n, "experts": MOE_E, "d": MOE_D, "hidden": MOE_H,
+           "capacity": cap, "cpu_float64_s": cpu_s,
+           "idx_equal": bool(torch.equal(card["idx"].cpu(), cpu["idx"])),
+           "pos_equal": bool(torch.equal(card["pos"].cpu(), cpu["pos"])),
+           "drop_frac": float(card["drop_frac"]),
+           "drop_frac_equal": bool(float(card["drop_frac"])
+                                   == float(cpu["drop_frac"])),
+           "load_equal": bool(torch.equal(card["load"].cpu(), cpu["load"])),
+           "tolerance_float64": F64_TOL}
+    diffs = {"out": float((card["out"].cpu() - cpu["out"]).abs().max())}
+    ok = torch.allclose(card["out"].cpu(), cpu["out"], **F64_TOL)
+    for k, g in card["grads"].items():
+        diffs[f"d_{k}"] = float((g.cpu() - cpu["grads"][k]).abs().max())
+        ok = ok and torch.allclose(g.cpu(), cpu["grads"][k], **F64_TOL)
+    res["max_abs_diff_float64"] = diffs
+    res["float64_within_tolerance"] = bool(ok)
+    del cpu, card
+    # fp32 on the card at a capacity that drops nothing (a shard's whole
+    # n / E tokens) against the dense reference.
+    pc = {k: v.cuda() for k, v in params.items()}
+    xc = tokens.cuda()
+    mesh = make_mesh(MOE_E, "cuda", axis_names=("expert",))
+    with torch.no_grad():
+        out, st = moe.make_moe_ffn(mesh, n // MOE_E)(pc, xc)
+        ref = moe.dense_reference(pc, xc)
+    res["generous_capacity"] = n // MOE_E
+    res["generous_drop_frac"] = float(st["drop_frac"])
+    res["dense_reference_rel_err"] = _rel_err(out, ref)
+    res["fp32_rel_tol"] = FP32_REL_TOL
+    del out, ref
+    # The layer's fp32 forward + backward at the trainer's capacity.
+    layer = moe.make_moe_ffn(mesh, cap)
+    pg = {k: v.detach().clone().requires_grad_() for k, v in pc.items()}
+    xg = xc.clone().requires_grad_()
+    cg = cot.cuda()
+
+    def fwd_bwd():
+        o, s = layer(pg, xg)
+        torch.autograd.grad((o * cg).sum() + s["aux_loss"],
+                            [*pg.values(), xg])
+
+    ms = cuda_time_ms(fwd_bwd, 10)
+    rows = MOE_E * MOE_E * cap
+    flop = 3 * 2 * 2 * rows * MOE_D * MOE_H       # fwd + bwd, 2 GEMMs
+    res.update({"fp32_fwd_bwd_ms": ms, "expert_gemm_flop": flop,
+                "expert_gemm_tflop_s": flop / ms / 1e9,
+                "expert_gemm_bound_ms": flop / 67e12 * 1e3})
+    problems = []
+    for k in ("idx_equal", "pos_equal", "drop_frac_equal", "load_equal",
+              "float64_within_tolerance"):
+        if not res[k]:
+            problems.append(f"(a) {k} is False: {diffs}")
+    if res["generous_drop_frac"] != 0.0 \
+            or res["dense_reference_rel_err"] > FP32_REL_TOL:
+        problems.append(f"(a) against the dense reference: drop "
+                        f"{res['generous_drop_frac']}, rel err "
+                        f"{res['dense_reference_rel_err']}")
+    res["problems"] = problems
+    return res
+
+
+def _profile_one(fn, steps: int = 3) -> dict:
+    """``steps`` calls of ``fn`` under torch.profiler, after it ran; per
+    call."""
+    prof = _profile_steps(fn, steps)
+    return {"steps": steps, "wall_ms_per_step": prof["wall_s"] * 1e3 / steps,
+            "device_busy_ms_per_step": prof["device_busy_s"] * 1e3 / steps,
+            "device_idle_share": prof["device_idle_share"],
+            "top_device_ms": prof["top_device_ms"][:8]}
+
+
+def _timed_trainer(trainer, ds, steps: int) -> dict:
+    """A trainer's epoch (counts reset just before, read just after), its
+    eval, then ``steps`` steps timed one by one with CUDA events on the
+    first batch, and one profiled step."""
+    import torch
+
+    torch.cuda.synchronize()
+    _reset_counts_all()
+    t0 = time.perf_counter()
+    metrics = trainer.train()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = _counts_all()
+    b = trainer.config.batch_size
+    xb, yb = ds.x_train[:b], ds.y_train[:b]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    times = []
+    for _ in range(steps):
+        a = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        a.record()
+        trainer._train_batch(xb, yb, gen)
+        e.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(e))
+    med = float(np.median(times))
+    prof = _profile_one(lambda: trainer._train_batch(xb, yb, gen))
+    return {"metrics": metrics, "run_seconds": run_s, "launches": counts,
+            "epoch_train_seconds": trainer.train_seconds,
+            "train_loss_per_epoch": trainer.train_loss_per_epoch,
+            "step_ms_runs": times, "step_ms_median": med,
+            "img_per_s": b / med * 1e3, "profiled_steps": prof}
+
+
+def phase_moe(state: dict) -> None:
+    """Phase 23: Switch-MoE expert parallelism on the card (module
+    notes)."""
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.data \
+        import synthetic_imagenet
+    from distributed_parameter_server_for_ml_training_tpu_torch.train \
+        .model_parallel import ModelParallelConfig, MoETrainer
+
+    t0 = time.perf_counter()
+    out = {"phase": "moe", "card": state["card"]}
+    problems = []
+    out["a_layer"] = layer = _moe_layer(state)
+    problems += layer.pop("problems")
+    torch.cuda.empty_cache()
+    ds = synthetic_imagenet(n_train=MOE_BATCH * MOE_TRAIN_STEPS,
+                            n_test=MOE_BATCH, num_classes=1000,
+                            image_size=224, seed=23)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = MoETrainer(ds, ModelParallelConfig(
+        model="vit_b16", num_workers=MOE_E, batch_size=MOE_BATCH,
+        num_epochs=1, num_classes=1000, dtype="bfloat16", device="cuda"))
+    res = _timed_trainer(trainer, ds, MOE_TIMED_STEPS)
+    res["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res["capacity"] = trainer.capacity
+    res["tokens"] = trainer.tokens
+    last = {k: float(v) for k, v in trainer._moe_step_metrics[-1].items()}
+    res["moe_metrics_last_step"] = last
+    out["b_trainer"] = res
+    m = res["metrics"]
+    if trainer.capacity != max(8, int(2.0 * MOE_BATCH * MOE_TOKENS
+                                      / MOE_E / MOE_E)) \
+            or trainer.tokens != MOE_TOKENS:
+        problems.append(f"(b) capacity {trainer.capacity}, tokens "
+                        f"{trainer.tokens}")
+    if any(res["launches"].values()):
+        problems.append(f"(b) kernels launched {res['launches']}: 196 "
+                        f"tokens take the dense core and no codec")
+    if not all(math.isfinite(v) for v in last.values()) \
+            or not 0.0 <= last["moe_drop_frac"] <= 1.0:
+        problems.append(f"(b) MoE metrics {last}")
+    if not all(math.isfinite(v) for v in res["train_loss_per_epoch"]) \
+            or trainer.global_steps != MOE_TRAIN_STEPS:
+        problems.append(f"(b) losses {res['train_loss_per_epoch']}, steps "
+                        f"{trainer.global_steps}")
+    for k in ("moe_aux_loss", "moe_load_imbalance", "moe_drop_frac"):
+        if k not in m:
+            problems.append(f"(b) the run's metrics lack {k}")
+    del trainer
+    torch.cuda.empty_cache()
+    out["problems"] = problems
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    if problems:
+        raise RuntimeError(f"moe: {problems}")
+
+
+def _pp_stage_parts(dtype):
+    """Four ViT-B/16 ``EncoderStage``s of 3 blocks, stacked, and the
+    stage function over one stage's views."""
+    import torch
+    from torch.func import functional_call
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.models \
+        .vit import EncoderStage
+    from distributed_parameter_server_for_ml_training_tpu_torch.parallel \
+        .pipeline import stack_stage_params
+
+    gen = torch.Generator().manual_seed(24)
+    stages = [EncoderStage(12 // PP_STAGES, 768, 12, dtype=dtype,
+                           generator=gen) for _ in range(PP_STAGES)]
+    stacked = stack_stage_params([dict(s.named_parameters())
+                                  for s in stages])
+    stacked = {k: v.detach().cuda() for k, v in stacked.items()}
+    template = stages[0].cuda()
+
+    def stage_fn(p, x):
+        return functional_call(template, p, (x,))
+
+    return template, stacked, stage_fn
+
+
+def _pp_schedules(state: dict) -> dict:
+    """(a): GPipe and 1F1B at full width against each other and against
+    the four stages in sequence on the whole batch (fp32)."""
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.parallel \
+        import make_mesh
+    from distributed_parameter_server_for_ml_training_tpu_torch.parallel \
+        .pipeline import make_pipeline_train_step
+
+    _, stacked, stage_fn = _pp_stage_parts(torch.float32)
+    gen = torch.Generator().manual_seed(240)
+    x = torch.randn(PP_BATCH, PP_TOKENS, 768, generator=gen).cuda()
+    y = torch.randn(PP_BATCH, PP_TOKENS, 768, generator=gen).cuda()
+
+    def loss_fn(pred, target):
+        return torch.mean((pred.float() - target.float()) ** 2)
+
+    mesh = make_mesh(PP_STAGES, "cuda", axis_names=("stage",))
+    got = {}
+    for sched in ("gpipe", "1f1b"):
+        step = make_pipeline_train_step(mesh, stage_fn, loss_fn, PP_M,
+                                        schedule=sched)
+        step(stacked, x, y)                                # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms = cuda_time_ms(lambda: step(stacked, x, y), 3)
+        loss, grads = step(stacked, x, y)
+        torch.cuda.synchronize()
+        got[sched] = {"loss": loss, "grads": grads, "ms": ms,
+                      "peak_gib_above_inputs":
+                          (torch.cuda.max_memory_allocated() - base) / 2 ** 30}
+    # The stages in sequence on the whole batch, autograd end to end.
+    leaves = {k: v.clone().requires_grad_() for k, v in stacked.items()}
+    h = x
+    for s in range(PP_STAGES):
+        h = stage_fn({k: v[s] for k, v in leaves.items()}, h)
+    seq_loss = loss_fn(h, y)
+    seq_grads = dict(zip(leaves, torch.autograd.grad(seq_loss,
+                                                     list(leaves.values()))))
+    res = {"stages": PP_STAGES, "blocks_per_stage": 12 // PP_STAGES,
+           "microbatches": PP_M, "microbatch_shape":
+               [PP_BATCH // PP_M, PP_TOKENS, 768], "dtype": "float32",
+           "fp32_rel_tol": FP32_REL_TOL,
+           "sequential_loss": float(seq_loss.detach())}
+    problems = []
+    for sched, g in got.items():
+        loss_err = abs(float(g["loss"]) - float(seq_loss)) \
+            / abs(float(seq_loss))
+        grad_err = max(_rel_err(g["grads"][k], seq_grads[k])
+                       for k in seq_grads)
+        other = got["1f1b" if sched == "gpipe" else "gpipe"]["grads"]
+        cross = max(_rel_err(g["grads"][k], other[k]) for k in seq_grads)
+        res[sched] = {"loss": float(g["loss"]), "loss_rel_err": loss_err,
+                      "grad_rel_err_vs_sequential": grad_err,
+                      "grad_rel_err_vs_other_schedule": cross,
+                      "step_ms": g["ms"],
+                      "peak_gib_above_inputs": g["peak_gib_above_inputs"]}
+        if max(loss_err, grad_err, cross) > FP32_REL_TOL:
+            problems.append(f"(a) {sched}: loss {loss_err}, grads "
+                            f"{grad_err}, against the other {cross}")
+    res["problems"] = problems
+    return res
+
+
+def phase_pp(state: dict) -> None:
+    """Phase 24: GPipe/1F1B pipeline parallelism on the card (module
+    notes)."""
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.data \
+        import synthetic_imagenet
+    from distributed_parameter_server_for_ml_training_tpu_torch.train \
+        .model_parallel import ModelParallelConfig, PipelineTrainer
+
+    t0 = time.perf_counter()
+    out = {"phase": "pp", "card": state["card"]}
+    problems = []
+    out["a_schedules"] = sched = _pp_schedules(state)
+    problems += sched.pop("problems")
+    torch.cuda.empty_cache()
+    ds = synthetic_imagenet(n_train=PP_BATCH * 2, n_test=PP_BATCH,
+                            num_classes=1000, image_size=224, seed=24)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = PipelineTrainer(ds, ModelParallelConfig(
+        model="vit_b16", num_workers=PP_STAGES, pp_microbatches=PP_M,
+        batch_size=PP_BATCH, num_epochs=1, num_classes=1000,
+        dtype="bfloat16", device="cuda"))
+    res = _timed_trainer(trainer, ds, MOE_TIMED_STEPS)
+    res["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["b_trainer"] = res
+    if any(res["launches"].values()):
+        problems.append(f"(b) kernels launched {res['launches']}: 197 "
+                        f"tokens take the dense core and no codec")
+    if not all(math.isfinite(v) for v in res["train_loss_per_epoch"]):
+        problems.append(f"(b) losses {res['train_loss_per_epoch']}")
+    del trainer
+    torch.cuda.empty_cache()
+    out["problems"] = problems
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    if problems:
+        raise RuntimeError(f"pp: {problems}")
+
+
 def main() -> int:
     import torch
 
@@ -5713,7 +6121,8 @@ def main() -> int:
                   phase_sp_path, phase_sp_profile, phase_cli,
                   phase_grpc_path, phase_grpc_modes, phase_device_store,
                   phase_checkpoints, phase_health, phase_models,
-                  phase_observability, phase_multihost, phase_sp_multihost):
+                  phase_observability, phase_multihost, phase_sp_multihost,
+                  phase_moe, phase_pp):
         t0 = time.perf_counter()
         try:
             phase(state)

@@ -1,7 +1,8 @@
 """Command-line interface of the port.
 
-The in-process ``train`` verb in its baseline, sync, async and sp modes,
-with the JAX verb's flags that they honour, plus ``--device``::
+The in-process ``train`` verb in its baseline, sync, async, pp, sp and
+moe modes, with the JAX verb's flags that they honour, plus
+``--device``::
 
     python -m distributed_parameter_server_for_ml_training_tpu_torch.cli \\
         train --mode baseline --epochs 1 --synthetic --num-train 2048 \\
@@ -45,7 +46,24 @@ as in the JAX CLI. ``--mode sp`` trains ``--model vit_tiny|vit_b16``
 sequence-parallel over ``--workers`` sequence slots of one card (ring
 attention, the flash kernels K5-K7 per hop from 2,048 tokens per slot);
 ``--dataset imagenet-synth --image-size N`` gives it ImageNet-shaped
-synthetic images. ``--mode sync --multihost`` runs one process per card
+synthetic images. ``--mode moe`` trains the ViT with a Switch-MoE MLP of
+``--workers`` experts in every block, one a slot of one card
+(``--moe-capacity-factor``, ``--moe-aux-weight``); ``--mode pp`` trains
+the CLS ViT as ``--workers`` pipeline stages of one card over
+``--pp-microbatches`` microbatches (GPipe)::
+
+    python -m distributed_parameter_server_for_ml_training_tpu_torch.cli \
+        train --mode moe --model vit_b16 --dataset imagenet-synth \
+        --workers 4 --batch-size 32 --num-train 256 --num-test 64 --epochs 1
+
+    python -m distributed_parameter_server_for_ml_training_tpu_torch.cli \
+        train --mode pp --model vit_b16 --dataset imagenet-synth \
+        --workers 4 --pp-microbatches 8 --batch-size 32 --num-train 256 \
+        --num-test 64 --epochs 1
+
+``--mode tp``, ``--tp-degree`` other than 2, and ``--dp-degree`` or
+``--pp-tp-degree`` other than 1 are refused naming ROADMAP §1 item 10
+(two-axis meshes). ``--mode sync --multihost`` runs one process per card
 (``parallel/multihost.py``): each process is started with
 ``--coordinator host:port --num-processes R --process-id r`` (or the
 ``DPS_*`` env), ``--workers`` counts the slots of all R processes, and
@@ -256,18 +274,40 @@ def build_parser() -> argparse.ArgumentParser:
         description="PyTorch/CUDA parameter-server training")
     sub = p.add_subparsers(dest="command", required=True)
     t = sub.add_parser("train", help="in-process training run")
-    t.add_argument("--mode", choices=["baseline", "sync", "async", "sp"],
+    t.add_argument("--mode",
+                   choices=["baseline", "sync", "async", "tp", "pp", "sp",
+                            "moe"],
                    default="async",
                    help="baseline = the reference's single-device recipe; "
                         "sync = sync data parallelism over the worker "
                         "slots of one card; async = host parameter store + "
-                        "worker threads (the reference's modes); sp = "
-                        "sequence-parallel ViT (ring attention over "
-                        "--workers sequence slots of one card). The "
-                        "default stays async until the port has all of "
-                        "the JAX CLI's modes (its default is sync)")
+                        "worker threads (the reference's modes); pp = "
+                        "GPipe pipeline over ViT block groups (--workers "
+                        "stages of one card); sp = sequence-parallel ViT "
+                        "(ring attention over --workers sequence slots of "
+                        "one card); moe = Switch-MoE ViT expert "
+                        "parallelism (--workers experts of one card); tp "
+                        "is refused until ROADMAP §1 item 10, third part. "
+                        "The default stays async until the port has all "
+                        "of the JAX CLI's modes (its default is sync)")
     t.add_argument("--workers", type=int,
                    default=_env("TOTAL_WORKERS_EXPECTED", 4, int))
+    t.add_argument("--tp-degree", type=int, default=2,
+                   help="model-axis size for --mode tp")
+    t.add_argument("--pp-microbatches", type=int, default=8,
+                   help="GPipe microbatch count for --mode pp")
+    t.add_argument("--dp-degree", type=int, default=1,
+                   help="--mode pp: shard each microbatch over a 'data' "
+                        "mesh axis (dp x pp composition)")
+    t.add_argument("--pp-tp-degree", type=int, default=1,
+                   help="--mode pp: Megatron-split stage params over a "
+                        "'model' mesh axis (dp x tp x pp composition)")
+    t.add_argument("--moe-capacity-factor", type=float, default=2.0,
+                   help="--mode moe: per-expert buffer = factor x the "
+                        "even-routing load (Switch capacity factor)")
+    t.add_argument("--moe-aux-weight", type=float, default=0.01,
+                   help="--mode moe: Switch load-balance aux-loss weight "
+                        "(0 disables balancing)")
     t.add_argument("--staleness-bound", type=int,
                    default=_env("STALENESS_BOUND", 5, int))
     t.add_argument("--sync-steps", type=int,
@@ -296,7 +336,8 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--model", choices=["resnet18", "resnet50", "vit_b16",
                                        "vit_tiny"],
                    default="resnet18",
-                   help="baseline, sync and async train any; sp a ViT")
+                   help="baseline, sync and async train any; pp, sp "
+                        "and moe a ViT")
     t.add_argument("--plot", default=None,
                    help="save a results plot (png; baseline)")
     t.add_argument("--checkpoint-dir", default=None,
@@ -575,13 +616,17 @@ LATER_FLAGS = {
     "job": "ROADMAP §1 item 9 (tenancy)",
     "shards": "ROADMAP §1 item 9 (the sharded tier)",
     "store_backend": "ROADMAP §1 item 9 (the C++ arena)",
+    "tp_degree": "ROADMAP §1 item 10 (two-axis meshes)",
+    "dp_degree": "ROADMAP §1 item 10 (two-axis meshes)",
+    "pp_tp_degree": "ROADMAP §1 item 10 (two-axis meshes)",
 }
 #: Verbs of the JAX CLI whose features come with later slices.
 LATER_VERBS = {
     "perf check": "ROADMAP §1 item 11 (port tooling: tools/benchwatch)",
 }
 #: Values of a listed flag that this slice serves.
-_FLAG_SERVED = {"store_backend": ("python", "device")}
+_FLAG_SERVED = {"store_backend": ("python", "device"), "tp_degree": (2,),
+                "dp_degree": (1,), "pp_tp_degree": (1,)}
 
 
 def _refuse_later_flags(args) -> None:
@@ -745,15 +790,24 @@ def _cmd_train_body(args) -> int:
                           checkpoint_dir=args.checkpoint_dir,
                           resume=args.resume)
         return 0
-    if args.mode == "sp":
-        from .train.model_parallel import ModelParallelConfig, SPTrainer
+    if args.mode in ("tp", "pp", "sp", "moe"):
+        from .train.model_parallel import (ModelParallelConfig, MoETrainer,
+                                           PipelineTrainer, SPTrainer,
+                                           TPTrainer)
         mp_cfg = ModelParallelConfig(
             model=args.model, num_workers=args.workers,
+            tp_degree=args.tp_degree,
+            pp_microbatches=args.pp_microbatches,
+            dp_degree=args.dp_degree, pp_tp_degree=args.pp_tp_degree,
+            moe_capacity_factor=args.moe_capacity_factor,
+            moe_aux_weight=args.moe_aux_weight,
             learning_rate=args.lr, num_epochs=args.epochs,
             batch_size=args.batch_size, augment=not args.no_augment,
             num_classes=dataset.num_classes, dtype=args.dtype,
             seed=args.seed, device=args.device)
-        trainer = SPTrainer(dataset, mp_cfg)
+        trainer = {"tp": TPTrainer, "pp": PipelineTrainer,
+                   "sp": SPTrainer, "moe": MoETrainer}[args.mode](
+            dataset, mp_cfg)
         with _profiler_session(args.profile_dir, args.device):
             metrics = trainer.train(emit_metrics=args.emit_metrics,
                                     checkpoint_dir=args.checkpoint_dir,

@@ -54,9 +54,16 @@ computes the same logits and loss.
 The patch embedding's bias is added after the conv, as flax adds it, so
 its gradient is a reduction of its own (torch's CPU conv backward sums
 the bias gradient in one long fp32 chain, which drifts from float64 at a
-few hundred tokens). ``SwitchMoEMlp``,
-``ViTPrologue``, ``EncoderStage`` and ``ViTEpilogue`` come with the MoE
-and pipeline slices.
+few hundred tokens).
+
+Expert parallelism (``moe_fn``, ``train/model_parallel.py:MoETrainer``):
+each block's MLP becomes a :class:`SwitchMoEMlp` over
+``parallel/moe.make_moe_ffn``, whose parameters are fp32 in flax's
+layout and whose products run in fp32 (float64 for a float64 model)
+whatever the model's dtype. Pipeline parallelism
+(``PipelineTrainer``): :class:`ViTPrologue`, :class:`EncoderStage` and
+:class:`ViTEpilogue` split the CLS model with the flax names, so a
+pipelined model's parameters map stage by stage.
 """
 
 from __future__ import annotations
@@ -152,6 +159,60 @@ class MlpBlock(nn.Module):
                                       params, _sub(name, "fc2"))
 
 
+class SwitchMoEMlp(nn.Module):
+    """Switch-style top-1 MoE in place of an encoder block's dense MLP.
+
+    The routing, dispatch and expert products are ``moe_fn``
+    (``parallel/moe.make_moe_ffn``); this module owns the parameters, in
+    flax's order, names and layouts: ``router`` ``[D, E]``, ``w1`` ``[E,
+    D, H]``, ``b1`` ``[E, H]``, ``w2`` ``[E, H, D]``, ``b2`` ``[E, D]``,
+    all fp32. The input is cast to fp32 (float64 for a float64 model)
+    before the MoE and the output back to the input's dtype.
+
+    A training forward keeps its routing statistics (``stats``: the aux
+    loss, load, importance and drop fraction, as device tensors, read
+    with no host sync by ``train/steps.collect_moe_stats``); an eval
+    forward records nothing, as flax's ``sow`` outside a mutable
+    collection."""
+
+    def __init__(self, moe_fn: Callable, dim: int, n_experts: int,
+                 hidden_dim: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.moe_fn = moe_fn
+        self.compute_dtype = dtype
+        e, d, dh = n_experts, dim, hidden_dim
+        self.router = nn.Parameter(torch.empty(d, e))
+        self.w1 = nn.Parameter(torch.empty(e, d, dh))
+        self.b1 = nn.Parameter(torch.zeros(e, dh))
+        self.w2 = nn.Parameter(torch.empty(e, dh, d))
+        self.b2 = nn.Parameter(torch.zeros(e, d))
+        self.stats: dict | None = None
+
+    def reset_parameters(self, generator: torch.Generator | None = None
+                         ) -> None:
+        """flax's ``normal(d**-0.5)`` router and ``w1``,
+        ``normal(dh**-0.5)`` ``w2``, zero biases."""
+        d, dh = self.w1.shape[1:]
+        with torch.no_grad():
+            for p, std in ((self.router, d ** -0.5), (self.w1, d ** -0.5),
+                           (self.w2, dh ** -0.5)):
+                p.normal_(0.0, std, generator=generator)
+            self.b1.zero_()
+            self.b2.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, t, d = x.shape
+        params = {"router": self.router, "w1": self.w1, "b1": self.b1,
+                  "w2": self.w2, "b2": self.b2}
+        # Batch-major flatten: shard k of the expert slots holds whole
+        # images' tokens, as the reference's P("expert") split.
+        y, stats = self.moe_fn(params, x.reshape(b * t, d).to(
+            torch.promote_types(self.compute_dtype, torch.float32)))
+        if self.training:
+            self.stats = stats
+        return y.view(b, t, d).to(x.dtype)
+
+
 class SelfAttention(nn.Module):
     """Multi-head self-attention with a fused qkv projection; the core is
     ``attention_fn`` when given, else :func:`~..ops.attention.dense_core`.
@@ -191,18 +252,30 @@ class SelfAttention(nn.Module):
 
 
 class EncoderBlock(nn.Module):
+    """Pre-LN encoder block; with ``moe_fn`` its MLP is a
+    :class:`SwitchMoEMlp` (named ``moe``, as flax's) of ``moe_experts``
+    experts of ``moe_hidden`` (default ``mlp_ratio * dim``) hidden
+    units."""
+
     def __init__(self, dim: int, num_heads: int, mlp_ratio: int = 4,
                  dtype: torch.dtype = torch.float32,
-                 attention_fn: Callable | None = None):
+                 attention_fn: Callable | None = None,
+                 moe_fn: Callable | None = None, moe_experts: int = 0,
+                 moe_hidden: int | None = None):
         super().__init__()
         self.ln1 = LayerNorm(dim, dtype)
         self.attn = SelfAttention(dim, num_heads, dtype, attention_fn)
         self.ln2 = LayerNorm(dim, dtype)
-        self.mlp = MlpBlock(dim, mlp_ratio * dim, dim, dtype)
+        if moe_fn is not None:
+            self.moe = SwitchMoEMlp(moe_fn, dim, moe_experts,
+                                    moe_hidden or mlp_ratio * dim, dtype)
+        else:
+            self.mlp = MlpBlock(dim, mlp_ratio * dim, dim, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln1(x))
-        return x + self.mlp(self.ln2(x))
+        ffn = self.moe if hasattr(self, "moe") else self.mlp
+        return x + ffn(self.ln2(x))
 
     def forward_slots(self, x: torch.Tensor, params: dict,
                       name: str) -> torch.Tensor:
@@ -225,7 +298,8 @@ class ViT(nn.Module):
     sequence divides evenly over ring-attention slots). flax sizes the
     position embedding from the first input; the port takes
     ``image_size`` up front. ``seq_group`` names the ranks that split the
-    tokens (module notes; ``gap`` only)."""
+    tokens (module notes; ``gap`` only). ``moe_fn``/``moe_experts``/
+    ``moe_hidden`` reach every :class:`EncoderBlock`."""
 
     def __init__(self, patch_size: int = 16, hidden_dim: int = 768,
                  depth: int = 12, num_heads: int = 12, mlp_ratio: int = 4,
@@ -233,7 +307,9 @@ class ViT(nn.Module):
                  pool: str = "cls", attention_fn: Callable | None = None,
                  image_size: int = 32,
                  generator: torch.Generator | None = None,
-                 seq_group: RankGroup | None = None):
+                 seq_group: RankGroup | None = None,
+                 moe_fn: Callable | None = None, moe_experts: int = 0,
+                 moe_hidden: int | None = None):
         super().__init__()
         if pool not in ("cls", "gap"):
             raise ValueError(f"pool must be 'cls' or 'gap', got {pool!r}")
@@ -257,7 +333,8 @@ class ViT(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(1, n_tokens, hidden_dim))
         for i in range(depth):
             self.add_module(f"block_{i}", EncoderBlock(
-                hidden_dim, num_heads, mlp_ratio, dtype, attention_fn))
+                hidden_dim, num_heads, mlp_ratio, dtype, attention_fn,
+                moe_fn, moe_experts, moe_hidden))
         self.depth = depth
         self.ln_final = LayerNorm(hidden_dim, dtype)
         self.head = Dense(hidden_dim, num_classes, dtype)
@@ -265,15 +342,8 @@ class ViT(nn.Module):
 
     def named_parameters(self, prefix: str = "", recurse: bool = True,
                          remove_duplicate: bool = True):
-        """In flax's creation order: torch yields a module's own
-        parameters (``cls_token``, ``pos_embed``) before its children's,
-        flax creates ``patch_embed`` first."""
-        items = list(super().named_parameters(prefix, recurse,
-                                              remove_duplicate))
-        embed = (prefix + "." if prefix else "") + "patch_embed."
-        first = [kv for kv in items if kv[0].startswith(embed)]
-        return iter(first + [kv for kv in items
-                             if not kv[0].startswith(embed)])
+        return embed_first(super().named_parameters(prefix, recurse,
+                                                    remove_duplicate))
 
     @property
     def blocks(self) -> list[EncoderBlock]:
@@ -344,6 +414,96 @@ class ViT(nn.Module):
             torch.promote_types(d, torch.float32))
 
 
+def embed_first(items) -> iter:
+    """Parameters in flax's creation order: torch yields a module's own
+    parameters (``cls_token``, ``pos_embed``) before its children's, flax
+    creates ``patch_embed`` first."""
+    items = list(items)
+
+    def embed(kv):
+        return "patch_embed." in "." + kv[0]
+
+    return iter([kv for kv in items if embed(kv)]
+                + [kv for kv in items if not embed(kv)])
+
+
+class ViTPrologue(nn.Module):
+    """Patch embedding, CLS token and position embedding: the
+    shape-changing entry of the CLS :class:`ViT`, run outside the pipeline
+    (stages keep their shape), with the same flax names and the same
+    arithmetic as :meth:`ViT.forward`."""
+
+    def __init__(self, patch_size: int = 4, hidden_dim: int = 192,
+                 dtype: torch.dtype = torch.float32, image_size: int = 32,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if image_size % patch_size:
+            raise ValueError(f"image {image_size} not divisible by patch "
+                             f"{patch_size}")
+        self.patch_size, self.hidden_dim = patch_size, hidden_dim
+        self.compute_dtype = dtype
+        self.patch_embed = nn.Conv2d(3, hidden_dim, patch_size,
+                                     stride=patch_size)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, hidden_dim))
+        self.pos_embed = nn.Parameter(torch.zeros(
+            1, (image_size // patch_size) ** 2 + 1, hidden_dim))
+        init_weights(self, generator)
+
+    def named_parameters(self, prefix: str = "", recurse: bool = True,
+                         remove_duplicate: bool = True):
+        return embed_first(super().named_parameters(prefix, recurse,
+                                                    remove_duplicate))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, d = x.shape[0], self.compute_dtype
+        x = F.conv2d(x.to(d).permute(0, 3, 1, 2),
+                     self.patch_embed.weight.to(d), None,
+                     stride=self.patch_size)
+        x = x.permute(0, 2, 3, 1).reshape(b, -1, self.hidden_dim) \
+            + self.patch_embed.bias.to(d)
+        cls = self.cls_token.expand(b, 1, self.hidden_dim).to(d)
+        return torch.cat([cls, x], dim=1) + self.pos_embed.to(d)
+
+
+class EncoderStage(nn.Module):
+    """``num_blocks`` encoder blocks: one pipeline stage, ``[B, T, D] ->
+    [B, T, D]``, so S of them stack into the ``[S, ...]`` leaves of
+    ``parallel/pipeline.py``."""
+
+    def __init__(self, num_blocks: int, dim: int, num_heads: int,
+                 mlp_ratio: int = 4, dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.num_blocks = num_blocks
+        for i in range(num_blocks):
+            self.add_module(f"block_{i}", EncoderBlock(dim, num_heads,
+                                                       mlp_ratio, dtype))
+        init_weights(self, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.num_blocks):
+            x = getattr(self, f"block_{i}")(x)
+        return x
+
+
+class ViTEpilogue(nn.Module):
+    """Final LayerNorm and the head on the CLS token: the shape-changing
+    exit; fp32 logits (float64 for a float64 ``dtype``)."""
+
+    def __init__(self, hidden_dim: int = 192, num_classes: int = 100,
+                 dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.compute_dtype = dtype
+        self.ln_final = LayerNorm(hidden_dim, dtype)
+        self.head = Dense(hidden_dim, num_classes, dtype)
+        init_weights(self, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.head(self.ln_final(x)[:, 0])
+        return x.to(torch.promote_types(self.compute_dtype, torch.float32))
+
+
 def init_weights(module: nn.Module,
                  generator: torch.Generator | None = None) -> None:
     """flax's initializers: lecun-normal (truncated at 2 std, fan-in) Dense
@@ -358,7 +518,9 @@ def init_weights(module: nn.Module,
                 nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
                                       generator=generator)
                 m.bias.zero_()
-        if isinstance(module, ViT):
+            elif isinstance(m, SwitchMoEMlp):
+                m.reset_parameters(generator)
+        if isinstance(module, (ViT, ViTPrologue)):
             module.pos_embed.normal_(0.0, 0.02, generator=generator)
 
 

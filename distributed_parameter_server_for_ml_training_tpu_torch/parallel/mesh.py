@@ -15,10 +15,13 @@ the group of ranks, ``num_workers`` counts the slots of every rank
 them from ``slot_offset`` on. One process never drives two cards.
 
 A mesh has one named axis: ``data`` (the worker slots of sync data
-parallelism) by default, or ``seq`` (the sequence slots of ring
-attention, ``parallel/ring_attention.py``), as the reference's
+parallelism) by default, ``seq`` (the sequence slots of ring
+attention, ``parallel/ring_attention.py``), ``expert`` (one Switch-MoE
+expert a slot, ``parallel/moe.py``) or ``stage`` (one pipeline stage a
+slot, ``parallel/pipeline.py``), as the reference's
 ``make_mesh(n, axis_names=("seq",))``. Meshes of two or more axes (data x
-model, data x expert) come with the TP and MoE slices.
+model, data x expert, data x model x stage) come with ROADMAP §1 item 10,
+third part.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ from ..utils.device import resolve_device
 
 DATA_AXIS = "data"
 SEQ_AXIS = "seq"
+EXPERT_AXIS = "expert"
+STAGE_AXIS = "stage"
 
 
 @dataclass(frozen=True)
@@ -75,8 +80,9 @@ def make_mesh(num_workers: int,
     axes."""
     if len(axis_names) != 1:
         raise NotImplementedError(
-            f"a mesh of axes {tuple(axis_names)} comes with the tensor- and "
-            "expert-parallel slices; the port's meshes have one axis")
+            f"a mesh of axes {tuple(axis_names)} comes with ROADMAP §1 "
+            "item 10, third part (two-axis meshes); the port's meshes have "
+            "one axis")
     if not isinstance(device, (str, torch.device)):
         cards = list(dict.fromkeys(str(torch.device(d)) for d in device))
         if len(cards) != 1:

@@ -218,7 +218,7 @@ def make_slot_grad_fn(model: torch.nn.Module) -> Callable:
         leaves = {}
         for t, f in pnames.items():
             p = params[f]
-            leaves[t] = to_torch_layout(p).unsqueeze(0).repeat(
+            leaves[t] = to_torch_layout(p, f).unsqueeze(0).repeat(
                 n, *([1] * p.dim())).requires_grad_()
         with torch.no_grad():
             for t, f in snames.items():

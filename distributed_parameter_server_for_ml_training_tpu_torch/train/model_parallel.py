@@ -13,8 +13,21 @@ reference's ``seq`` axis spans several chips (the CLI keeps JAX's refusal
 of ``--multihost`` outside ``--mode sync``, so this is reached through
 the API or a joined job).
 
-:class:`TPTrainer`, :class:`PipelineTrainer` and :class:`MoETrainer`
-raise ``NotImplementedError`` naming the slice that brings them.
+:class:`MoETrainer` is expert-parallel training of the registry ViT:
+each block's MLP is a Switch top-1 MoE (``models/vit.py:SwitchMoEMlp``
+over ``parallel/moe.py``) with one expert a slot of an ``expert`` mesh on
+one card, the batch's tokens split over the same slots. ``--mode moe``.
+
+:class:`PipelineTrainer` is GPipe training of the CLS ViT: the prologue
+(patch embedding, CLS, positions) and the epilogue (final LayerNorm,
+head) run outside the pipeline; the ``depth`` blocks form S
+``EncoderStage``s whose parameters are stacked ``[S, ...]``, one stage a
+slot of a ``stage`` mesh on one card (``parallel/pipeline.py``), and
+autograd through the schedule trains them. ``--mode pp``.
+
+Both keep the reference's composed forms (``dp_degree``,
+``pp_tp_degree`` > 1) for ROADMAP §1 item 10, third part, as
+:class:`TPTrainer` does: they raise ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -24,12 +37,17 @@ import time
 from dataclasses import dataclass
 
 import torch
+from torch import nn
+from torch.func import functional_call
 
 from ..data.cifar import Dataset, make_batches
 from ..models.registry import _DTYPES
-from ..models.vit import ViT
+from ..models.vit import (EncoderStage, ViT, ViTEpilogue, ViTPrologue,
+                          embed_first)
 from ..ops.flash_attention import flash_preferred
-from ..parallel.mesh import SEQ_AXIS, make_mesh
+from ..parallel.mesh import EXPERT_AXIS, SEQ_AXIS, STAGE_AXIS, make_mesh
+from ..parallel.moe import make_moe_ffn
+from ..parallel.pipeline import make_pipeline_apply
 from ..parallel.multihost import (RankGroup, make_global_mesh, rank_reduce,
                                   replicate_to_mesh, world_group)
 from ..parallel.ring_attention import (make_ring_attention,
@@ -50,7 +68,16 @@ VIT_SHAPES = {
 @dataclass
 class ModelParallelConfig:
     model: str = "vit_tiny"
-    num_workers: int = 4           # sequence slots (sp mode)
+    num_workers: int = 4           # seq slots (sp) / stages (pp) / experts
+    tp_degree: int = 2             # model-axis size (tp mode)
+    pp_microbatches: int = 8       # GPipe M (pp mode)
+    # Composed axes (dp x pp, dp x tp x pp, dp x ep): item 10, third part.
+    dp_degree: int = 1
+    pp_tp_degree: int = 1
+    # MoE (moe mode): per-expert buffer = capacity_factor x the
+    # even-routing load; Switch aux-loss weight (0 disables balancing).
+    moe_capacity_factor: float = 2.0
+    moe_aux_weight: float = 0.01
     learning_rate: float = 0.1
     num_epochs: int = 3
     batch_size: int = 128          # GLOBAL batch
@@ -170,20 +197,245 @@ class _NotPorted(_EpochTrainer):
             f"comes with {self.slice_name}")
 
 
+_COMPOSED = "ROADMAP §1 item 10, third part (two-axis meshes)"
+
+
 class TPTrainer(_NotPorted):
     mode = "tp"
-    slice_name = "the tensor-parallel slice (parallel/tensor.py)"
+    slice_name = f"{_COMPOSED}: parallel/tensor.py"
 
 
-class PipelineTrainer(_NotPorted):
-    mode = "pp"
-    slice_name = ("the pipeline slice (ViTPrologue/EncoderStage/ViTEpilogue, "
-                  "parallel/pipeline.py)")
+def _refuse_composed(cfg: ModelParallelConfig) -> None:
+    for name in ("dp_degree", "pp_tp_degree"):
+        if getattr(cfg, name) > 1:
+            raise NotImplementedError(
+                f"{name}={getattr(cfg, name)} is not ported yet; the "
+                f"composed meshes come with {_COMPOSED}")
 
 
-class MoETrainer(_NotPorted):
+def _vit_shape(cfg: ModelParallelConfig, mode: str) -> dict:
+    shape = VIT_SHAPES.get(cfg.model)
+    if shape is None:
+        raise ValueError(
+            f"--mode {mode} supports ViT models {tuple(VIT_SHAPES)}")
+    if cfg.dtype not in _DTYPES:
+        raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, got "
+                         f"{cfg.dtype!r}")
+    _refuse_composed(cfg)
+    return shape
+
+
+def _evaluate(eval_step, x_test, y_test, batch_size: int,
+              drop_remainder: bool) -> float:
+    """Top-1 over the test set from the module's own weights; one host
+    sync at the end."""
+    correct, total = None, 0
+    for xb, yb in make_batches(x_test, y_test, batch_size, shuffle=False,
+                               drop_remainder=drop_remainder):
+        c, t = eval_step({}, {}, xb, yb)
+        correct = c if correct is None else correct + c
+        total += t
+    return (int(correct) if correct is not None else 0) / max(total, 1)
+
+
+class MoETrainer(_EpochTrainer):
+    """Expert-parallel training of the registry ViT (``pool='gap'``):
+    every encoder block's MLP is a Switch top-1 MoE of ``num_workers``
+    experts, one a slot of an ``expert`` mesh on one card; the tokens of
+    the batch split over the same slots, each shard routing its own
+    (``parallel/moe.py``). The capacity is ``max(8, int(capacity_factor
+    * tokens_per_shard / experts))``; the loss adds
+    ``moe_aux_weight`` times the layers' mean Switch aux loss, and the
+    routing statistics of each step are kept as device tensors and read
+    once, into the run's metrics. Evaluation runs at the training batch
+    size, for which the capacity was sized."""
+
     mode = "moe"
-    slice_name = "the MoE slice (SwitchMoEMlp, parallel/moe.py)"
+
+    def __init__(self, dataset: Dataset,
+                 config: ModelParallelConfig | None = None):
+        super().__init__(dataset, config or ModelParallelConfig())
+        cfg = self.config
+        shape = _vit_shape(cfg, "moe")
+        n_exp = cfg.num_workers
+        n_shards = n_exp
+        if cfg.batch_size % n_shards:
+            raise ValueError(f"batch {cfg.batch_size} not divisible by "
+                             f"{n_shards} token shards (experts x dp; "
+                             f"the batch shards over both axes)")
+        if len(dataset.x_test) < cfg.batch_size:
+            raise ValueError(
+                f"test set ({len(dataset.x_test)}) smaller than the batch "
+                f"size ({cfg.batch_size}) — eval runs at the training batch "
+                f"size (expert capacity is sized for it) and would be empty")
+        self.mesh = make_mesh(n_exp, cfg.device, axis_names=(EXPERT_AXIS,))
+        self.device = self.mesh.device
+        h, w = dataset.x_train.shape[1:3]
+        patch = shape["patch_size"]
+        self.tokens = (h // patch) * (w // patch)
+        tokens_per_shard = cfg.batch_size * self.tokens // n_shards
+        self.capacity = max(
+            8, int(cfg.moe_capacity_factor * tokens_per_shard / n_exp))
+        gen = torch.Generator().manual_seed(cfg.seed)
+        self.model = ViT(patch_size=patch, hidden_dim=shape["hidden_dim"],
+                         depth=shape["depth"], num_heads=shape["num_heads"],
+                         num_classes=cfg.num_classes,
+                         dtype=_DTYPES[cfg.dtype], pool="gap",
+                         image_size=h, generator=gen,
+                         moe_fn=make_moe_ffn(self.mesh, self.capacity),
+                         moe_experts=n_exp).to(self.device)
+        self.state = module_train_state(self.model,
+                                        server_sgd(cfg.learning_rate))
+        self._step = make_train_step(self.model, augment=cfg.augment,
+                                     moe_aux_weight=cfg.moe_aux_weight)
+        self._eval_step = make_eval_step(self.model)
+        self._moe_step_metrics: list[dict] = []
+
+    def _label(self) -> str:
+        return f"moe {self.config.model} {self.config.num_workers} experts"
+
+    def _extra_metrics(self) -> dict:
+        cfg = self.config
+        out = {"n_experts": cfg.num_workers,
+               "expert_capacity": self.capacity,
+               "moe_dp_degree": cfg.dp_degree,
+               "moe_aux_weight": cfg.moe_aux_weight,
+               "moe_capacity_factor": cfg.moe_capacity_factor}
+        hist = [{k: float(v) for k, v in m.items()}
+                for m in self._moe_step_metrics if m]
+        if hist:
+            last = hist[-1]
+            out.update({
+                "moe_aux_loss": round(last["moe_aux_loss"], 4),
+                "moe_load_imbalance": round(last["moe_load_imbalance"], 3),
+                "moe_drop_frac": round(last["moe_drop_frac"], 4),
+                "moe_load_imbalance_mean": round(sum(
+                    m["moe_load_imbalance"] for m in hist) / len(hist), 3),
+                "moe_drop_frac_mean": round(sum(
+                    m["moe_drop_frac"] for m in hist) / len(hist), 4),
+            })
+        return out
+
+    def _train_batch(self, xb, yb, generator):
+        state, m = self._step(self.state, xb, yb, generator)
+        self._moe_step_metrics.append(
+            {k: m[k] for k in ("moe_aux_loss", "moe_load_imbalance",
+                               "moe_drop_frac") if k in m})
+        return state, m
+
+    def evaluate(self) -> float:
+        return _evaluate(self._eval_step, self.dataset.x_test,
+                         self.dataset.y_test, self.config.batch_size,
+                         drop_remainder=True)
+
+
+class PipelinedViT(nn.Module):
+    """The CLS ViT as a pipeline: ``prologue`` -> S stages -> ``epilogue``.
+
+    ``stages`` is one :class:`EncoderStage` whose parameters are the S
+    stages' stacked ``[S, ...]``; each stage call runs it with one
+    stage's views (``torch.func.functional_call``) through
+    ``make_pipeline_apply``. Parameter names are the flax tree's
+    (``prologue/...``, ``stages/block_i/...``, ``epilogue/...``), so
+    ``utils/pytree`` maps the JAX trainer's parameters both ways."""
+
+    def __init__(self, prologue: ViTPrologue, stages: list[EncoderStage],
+                 epilogue: ViTEpilogue, mesh, num_microbatches: int):
+        super().__init__()
+        self.prologue = prologue
+        self.stages = stages[0]
+        for name, _ in list(self.stages.named_parameters()):
+            *path, leaf = name.split(".")
+            owner = self.stages.get_submodule(".".join(path))
+            stacked = torch.stack([s.get_parameter(name).detach()
+                                   for s in stages])
+            setattr(owner, leaf, nn.Parameter(stacked))
+        self.epilogue = epilogue
+        template = self.stages
+        self._pipe = make_pipeline_apply(
+            mesh, lambda p, x: functional_call(template, p, (x,)),
+            num_microbatches)
+
+    def named_parameters(self, prefix: str = "", recurse: bool = True,
+                         remove_duplicate: bool = True):
+        return embed_first(super().named_parameters(prefix, recurse,
+                                                    remove_duplicate))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        stacked = dict(self.stages.named_parameters())
+        return self.epilogue(self._pipe(stacked, self.prologue(x)))
+
+
+class PipelineTrainer(_EpochTrainer):
+    """GPipe training of the ViT (CLS pool): ``num_workers`` stages of
+    ``depth / num_workers`` encoder blocks, one a slot of a ``stage`` mesh
+    on one card, ``pp_microbatches`` microbatches, each stage call
+    recomputed in the backward; plain SGD (:class:`PipelinedViT`)."""
+
+    mode = "pp"
+
+    def __init__(self, dataset: Dataset,
+                 config: ModelParallelConfig | None = None):
+        super().__init__(dataset, config or ModelParallelConfig())
+        cfg = self.config
+        shape = _vit_shape(cfg, "pp")
+        n_stages = cfg.num_workers
+        if shape["depth"] % n_stages:
+            raise ValueError(f"depth {shape['depth']} not divisible by "
+                             f"{n_stages} stages")
+        if cfg.pp_microbatches > len(dataset.x_test):
+            raise ValueError(
+                f"test set ({len(dataset.x_test)}) smaller than "
+                f"pp_microbatches ({cfg.pp_microbatches}) — eval would be "
+                f"empty")
+        if cfg.batch_size % cfg.pp_microbatches:
+            raise ValueError(
+                f"batch {cfg.batch_size} must split into "
+                f"{cfg.pp_microbatches} microbatches of a size divisible "
+                f"by dp_degree {cfg.dp_degree}")
+        self.mesh = make_mesh(n_stages, cfg.device, axis_names=(STAGE_AXIS,))
+        self.device = self.mesh.device
+        h = dataset.x_train.shape[1]
+        dtype = _DTYPES[cfg.dtype]
+        gen = torch.Generator().manual_seed(cfg.seed)
+        prologue = ViTPrologue(patch_size=shape["patch_size"],
+                               hidden_dim=shape["hidden_dim"], dtype=dtype,
+                               image_size=h, generator=gen)
+        stages = [EncoderStage(shape["depth"] // n_stages,
+                               shape["hidden_dim"], shape["num_heads"],
+                               dtype=dtype, generator=gen)
+                  for _ in range(n_stages)]
+        epilogue = ViTEpilogue(hidden_dim=shape["hidden_dim"],
+                               num_classes=cfg.num_classes, dtype=dtype,
+                               generator=gen)
+        self.model = PipelinedViT(prologue, stages, epilogue, self.mesh,
+                                  cfg.pp_microbatches).to(self.device)
+        self.state = module_train_state(self.model,
+                                        server_sgd(cfg.learning_rate))
+        self._step = make_train_step(self.model, augment=cfg.augment)
+        self._eval_step = make_eval_step(self.model)
+
+    def _label(self) -> str:
+        cfg = self.config
+        return (f"pp {cfg.num_workers} stages "
+                f"x{cfg.pp_microbatches} microbatches")
+
+    def _extra_metrics(self) -> dict:
+        return {"pp_microbatches": self.config.pp_microbatches,
+                "dp_degree": self.config.dp_degree,
+                "pp_tp_degree": self.config.pp_tp_degree}
+
+    def _train_batch(self, xb, yb, generator):
+        return self._step(self.state, xb, yb, generator)
+
+    def evaluate(self) -> float:
+        """The reference's eval batch: a multiple of the microbatch count,
+        at most 1,000 and at most the test set."""
+        m = self.config.pp_microbatches
+        n_test = len(self.dataset.x_test)
+        bs = max(min((1000 // m) * m, (n_test // m) * m), m)
+        return _evaluate(self._eval_step, self.dataset.x_test,
+                         self.dataset.y_test, bs, drop_remainder=True)
 
 
 class SPTrainer(_EpochTrainer):
@@ -293,14 +545,8 @@ class SPTrainer(_EpochTrainer):
     def evaluate(self) -> float:
         """Top-1 over the test set in batches of 1000, from the module's
         own (current) weights."""
-        correct, total = None, 0
-        for xb, yb in make_batches(self.dataset.x_test, self.dataset.y_test,
-                                   1000, shuffle=False,
-                                   drop_remainder=False):
-            c, t = self._eval_step({}, {}, xb, yb)
-            correct = c if correct is None else correct + c
-            total += t
-        return (int(correct) if correct is not None else 0) / max(total, 1)
+        return _evaluate(self._eval_step, self.dataset.x_test,
+                         self.dataset.y_test, 1000, drop_remainder=False)
 
 
 def _rank_sum_token_grads(group: RankGroup):

@@ -15,8 +15,10 @@ it trains the module's own parameters (and BatchNorm statistics) in
 place, and copies nothing from the host, so a CUDA graph can capture it
 (``train/device_loop.py``). :func:`make_fused_local_step` is the
 ``local_sgd`` worker's step: grads, the plain SGD apply and the window
-accumulator, all updated in place on the device. The MoE branch of
-``make_train_step`` comes with a later slice.
+accumulator, all updated in place on the device. ``make_train_step``'s
+MoE branch (``moe_aux_weight``) weights the Switch load-balance loss of
+the model's ``SwitchMoEMlp`` layers into the loss and reports their
+routing statistics.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch.nn.functional as F
 
 from ..data.cifar import (augment_batch, augment_draws, augment_with_draws,
                           standardize, standardizer, to_float)
+from ..models.vit import SwitchMoEMlp
 from ..utils.pytree import flax_names, to_flax_layout, to_torch_layout
 
 
@@ -60,7 +63,7 @@ def flax_state_loader(model: torch.nn.Module) -> Callable:
             for fname, target in targets:
                 if fname in flat:
                     v = torch.as_tensor(flat[fname], device=device)
-                    target.copy_(to_torch_layout(v))
+                    target.copy_(to_torch_layout(v, fname))
 
     return load
 
@@ -98,7 +101,7 @@ def make_grad_step(model: torch.nn.Module, augment: bool = True
         logits = model(x)
         loss = cross_entropy_loss(logits, y)
         grads_t = torch.autograd.grad(loss, [params_t[t] for t in order])
-        grads = {pnames[t]: to_flax_layout(g).contiguous()
+        grads = {pnames[t]: to_flax_layout(g, pnames[t]).contiguous()
                  for t, g in zip(order, grads_t)}
         new_stats = {f: buffers_t[t].detach().clone()
                      for t, f in snames.items()}
@@ -150,7 +153,8 @@ def make_fused_local_step(model: torch.nn.Module, augment: bool = True
         grads_t = torch.autograd.grad(loss, [params_t[t] for t in order])
         # Flax layouts, contiguous: the foreach kernels take the fast
         # path only over tensors of one layout.
-        grads = [to_flax_layout(g).contiguous() for g in grads_t]
+        grads = [to_flax_layout(g, n).contiguous()
+                 for g, n in zip(grads_t, names)]
         with torch.no_grad():
             torch._foreach_add_([params[n] for n in names], grads,
                                 alpha=-float(lr))
@@ -163,12 +167,37 @@ def make_fused_local_step(model: torch.nn.Module, augment: bool = True
     return fused_step
 
 
+def collect_moe_stats(model: torch.nn.Module) -> list[dict]:
+    """The routing statistics of every ``SwitchMoEMlp`` layer's last
+    training forward (``models/vit.py``), in module-tree order: one dict
+    per MoE layer (the JAX package's ``moe_stats`` entries)."""
+    return [m.stats for m in model.modules()
+            if isinstance(m, SwitchMoEMlp) and m.stats is not None]
+
+
+def _moe_metrics(layers: list[dict], ce: torch.Tensor,
+                 aux: torch.Tensor) -> dict:
+    """The MoE metrics of a step, as 0-dim device tensors: ``loss`` is the
+    cross-entropy alone (comparable across modes), ``moe_load_imbalance``
+    the mean over layers of max/mean expert load."""
+    load = torch.stack([s["load"] for s in layers]).detach()     # [L, E]
+    return {
+        "loss": ce.detach(),
+        "moe_aux_loss": aux.detach(),
+        "moe_load_imbalance": torch.mean(
+            load.amax(dim=1) / load.mean(dim=1).clamp_min(1e-9)),
+        "moe_drop_frac": torch.mean(torch.stack(
+            [s["drop_frac"] for s in layers])).detach(),
+    }
+
+
 def make_train_step(model: torch.nn.Module, augment: bool = True,
-                    reduce_grads: Callable | None = None) -> Callable:
+                    reduce_grads: Callable | None = None,
+                    moe_aux_weight: float | None = None) -> Callable:
     """Build ``train_step(state, images_u8, labels, generator=None) ->
     (state, metrics)`` for a state whose tensors are ``model``'s own
     (``train_state.module_train_state``): counterpart of the JAX
-    ``make_train_step`` without its MoE branch.
+    ``make_train_step``.
 
     Augments the raw uint8 NHWC batch on the device (draws from
     ``generator``), standardizes, computes the mean cross-entropy and its
@@ -181,7 +210,13 @@ def make_train_step(model: torch.nn.Module, augment: bool = True,
     it, and with augmentation ``augment_draws`` ``[B, 3]`` (crop row,
     crop column, flip) — no host sync. ``reduce_grads(names, grads) ->
     grads``, given only by sequence parallelism over several ranks, maps
-    the gradients (torch parameter names, in order) before the apply."""
+    the gradients (torch parameter names, in order) before the apply.
+
+    ``moe_aux_weight is not None`` (a model with ``SwitchMoEMlp`` layers):
+    the loss is ``ce + moe_aux_weight * mean(aux)`` over the layers'
+    Switch aux losses, and ``metrics`` gain ``moe_aux_loss``,
+    ``moe_load_imbalance`` and ``moe_drop_frac`` (its ``loss`` is the
+    cross-entropy); 0.0 keeps the metrics with balancing off."""
     pnames, _ = flax_names(model)
     device = _model_device(model)
     params_t = dict(model.named_parameters())
@@ -201,15 +236,25 @@ def make_train_step(model: torch.nn.Module, augment: bool = True,
         model.train()
         logits = model(x)
         loss = cross_entropy_loss(logits, y)
+        moe = None
+        if moe_aux_weight is not None:
+            layers = collect_moe_stats(model)
+            aux = (torch.stack([s["aux_loss"] for s in layers]).mean()
+                   if layers else loss.new_zeros(()))
+            moe = _moe_metrics(layers, loss, aux) if layers else None
+            loss = loss + moe_aux_weight * aux
         grads_t = torch.autograd.grad(loss, [params_t[t] for t in order])
         if reduce_grads is not None:
             grads_t = reduce_grads(order, grads_t)
         lr = state.apply_gradients_(
-            {pnames[t]: to_flax_layout(g) for t, g in zip(order, grads_t)})
+            {pnames[t]: to_flax_layout(g, pnames[t])
+             for t, g in zip(order, grads_t)})
         metrics["loss"] = loss.detach()
         metrics["accuracy"] = (logits.detach().argmax(-1) == y).float().mean()
         if lr is not None:
             metrics["learning_rate"] = lr
+        if moe is not None:
+            metrics.update(moe)
         return state, metrics
 
     return train_step

@@ -81,7 +81,8 @@ def module_train_state(model: torch.nn.Module, tx) -> TrainState:
     pnames, snames = flax_names(model)
     own = dict(model.named_parameters())
     buffers = dict(model.named_buffers())
-    params = {f: to_flax_layout(own[t].detach()) for t, f in pnames.items()}
+    params = {f: to_flax_layout(own[t].detach(), f)
+              for t, f in pnames.items()}
     return TrainState(params=params,
                       batch_stats={f: buffers[t] for t, f in snames.items()},
                       tx=tx, opt_state=tx.init(params))

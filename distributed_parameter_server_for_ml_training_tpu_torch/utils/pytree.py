@@ -16,13 +16,24 @@ layouts; this module converts at the boundary:
   ``running_mean``/``running_var``;
 - ViT's ``cls_token`` and ``pos_embed`` (3-D) keep name and layout.
 
+- the Switch-MoE leaves (``router`` [D, E], ``w1`` [E, D, H], ``b1``
+  [E, H], ``w2`` [E, H, D], ``b2`` [E, D]) keep name and layout: the
+  port holds them in flax's layout;
+- a pipeline's stacked stage leaves ``[S, ...]`` convert stage by stage
+  under their leading S: a stacked Dense kernel ``[S, in, out]`` <->
+  ``[S, out, in]``, a stacked LayerNorm scale ``[S, D]`` as it is.
+
 The port's modules are named after the flax ones (``stem_conv``,
 ``stem_conv_s2d``, ``BasicBlock_0.Conv_0``, ``Bottleneck_0.Conv_3``,
-``block_0.attn.qkv``, ...), so a name maps by swapping '/' for '.' and
-renaming the leaf, and the layout follows from the rank alone: 4-D
-tensors are conv kernels (3x3, 1x1, the 7x7 ImageNet stem and its 4x4
-space-to-depth form alike), 2-D ones Dense kernels, the rest (vectors
-and ViT's 3-D embeddings) keep their layout.
+``block_0.attn.qkv``, ``prologue.patch_embed``, ``stages.block_0.moe``,
+...), so a name maps by swapping '/' for '.' and renaming the leaf. The
+leaf names the layout, before the rank: a torch ``weight`` is a
+``kernel`` when a Dense or conv module owns it, else a ``scale``; only a
+``kernel`` changes layout (4-D: a conv kernel, the 3x3, 1x1, the 7x7
+ImageNet stem and its 4x4 space-to-depth form alike; 2-D, or 3-D
+stacked: a Dense kernel). Called without a name, the layout functions
+fall back to the rank alone (4-D conv, 2-D Dense, the rest as it is),
+which is right for every model without MoE or stacked leaves.
 """
 
 from __future__ import annotations
@@ -36,7 +47,9 @@ PyTree = Any
 
 # flax leaf -> torch leaf, per flax collection.
 _PARAM_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
-               "cls_token": "cls_token", "pos_embed": "pos_embed"}
+               "cls_token": "cls_token", "pos_embed": "pos_embed",
+               "router": "router", "w1": "w1", "b1": "b1", "w2": "w2",
+               "b2": "b2"}
 _STATS_LEAF = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -80,21 +93,34 @@ def tree_bytes(flat: Mapping[str, np.ndarray]) -> int:
 
 # -- flax <-> torch layouts ----------------------------------------------------
 
-def to_flax_layout(t: torch.Tensor) -> torch.Tensor:
-    """Torch layout -> flax layout (a view; ``.contiguous()`` to pack)."""
+def _leaf(name: str) -> str:
+    return name.replace(".", "/").rsplit("/", 1)[-1]
+
+
+def to_flax_layout(t: torch.Tensor, name: str | None = None
+                   ) -> torch.Tensor:
+    """Torch layout -> flax layout (a view; ``.contiguous()`` to pack).
+    ``name``, the flax name (or its leaf), decides the layout; without it
+    the rank does (module notes)."""
+    if name is not None and _leaf(name) != "kernel":
+        return t
     if t.dim() == 4:
         return t.permute(2, 3, 1, 0)      # OIHW -> HWIO
-    if t.dim() == 2:
-        return t.t()                      # [out, in] -> [in, out]
+    if t.dim() == 2 or (name is not None and t.dim() == 3):
+        return t.transpose(-1, -2)        # [(S,) out, in] -> [(S,) in, out]
     return t
 
 
-def to_torch_layout(t: torch.Tensor) -> torch.Tensor:
-    """Flax layout -> torch layout (a view)."""
+def to_torch_layout(t: torch.Tensor, name: str | None = None
+                    ) -> torch.Tensor:
+    """Flax layout -> torch layout (a view); ``name`` as in
+    :func:`to_flax_layout`."""
+    if name is not None and _leaf(name) != "kernel":
+        return t
     if t.dim() == 4:
         return t.permute(3, 2, 0, 1)      # HWIO -> OIHW
-    if t.dim() == 2:
-        return t.t()
+    if t.dim() == 2 or (name is not None and t.dim() == 3):
+        return t.transpose(-1, -2)
     return t
 
 
@@ -118,7 +144,10 @@ def flax_names(module: torch.nn.Module) -> tuple[dict, dict]:
     for tname, p in module.named_parameters():
         *path, leaf = tname.split(".")
         if leaf == "weight":
-            leaf = "kernel" if p.dim() in (2, 4) else "scale"
+            owner = module.get_submodule(".".join(path))
+            leaf = "kernel" if isinstance(
+                owner, (torch.nn.Linear, torch.nn.modules.conv._ConvNd)) \
+                else "scale"
         params[tname] = "/".join(path + [leaf])
     inverse = {v: k for k, v in _STATS_LEAF.items()}
     for tname, _ in module.named_buffers():
@@ -134,12 +163,12 @@ def params_to_jax(module: torch.nn.Module
     pnames, snames = flax_names(module)
     state = module.state_dict()
 
-    def host(t):
+    def host(t, f):
         return np.ascontiguousarray(
-            to_flax_layout(t.detach()).to("cpu", torch.float32).numpy())
+            to_flax_layout(t.detach(), f).to("cpu", torch.float32).numpy())
 
-    return ({f: host(state[t]) for t, f in pnames.items()},
-            {f: host(state[t]) for t, f in snames.items()})
+    return ({f: host(state[t], f) for t, f in pnames.items()},
+            {f: host(state[t], f) for t, f in snames.items()})
 
 
 def params_from_jax(params: Mapping[str, np.ndarray],
@@ -153,5 +182,5 @@ def params_from_jax(params: Mapping[str, np.ndarray],
         for name, v in flat.items():
             t = torch.as_tensor(np.asarray(v, np.float32))
             out[torch_name(name, collection)] = \
-                to_torch_layout(t).contiguous()
+                to_torch_layout(t, name).contiguous()
     return out

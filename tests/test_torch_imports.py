@@ -63,7 +63,8 @@ def test_port_files_exist():
                      "telemetry/proftrigger.py", "utils/tracing.py",
                      "analysis/__init__.py", "analysis/traces.py",
                      "analysis/device_profile.py",
-                     "utils/collective_bytes.py", "parallel/multihost.py"):
+                     "utils/collective_bytes.py", "parallel/multihost.py",
+                     "parallel/moe.py", "parallel/pipeline.py"):
         assert required in names, required
     for kernel in ("wire_quantize.cu", "block_quantize.cu",
                    "flash_attention.cu"):
@@ -270,10 +271,39 @@ def test_sp_entry_points_default_to_cuda():
                   "--num-train", "4", "--num-test", "4"])
 
 
+def test_moe_and_pp_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    from distributed_parameter_server_for_ml_training_tpu_torch import cli
+    from distributed_parameter_server_for_ml_training_tpu_torch.data import \
+        synthetic_imagenet
+    from distributed_parameter_server_for_ml_training_tpu_torch.parallel \
+        import make_mesh
+    from distributed_parameter_server_for_ml_training_tpu_torch.train \
+        .model_parallel import MoETrainer, PipelineTrainer
+    # The default config's batch of 128 needs a test set of 128.
+    ds = synthetic_imagenet(n_train=8, n_test=128, image_size=32)
+    for axis in ("expert", "stage"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make_mesh(2, axis_names=(axis,))
+    for trainer in (MoETrainer, PipelineTrainer):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            trainer(ds)
+    for mode in ("moe", "pp"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(["train", "--mode", mode, "--model", "vit_tiny",
+                      "--workers", "2", "--epochs", "1", "--dataset",
+                      "imagenet-synth", "--image-size", "32",
+                      "--num-train", "8", "--num-test", "8",
+                      "--batch-size", "8", "--pp-microbatches", "2"])
+
+
 def test_later_flags_name_only_items_8_and_9():
     """The CLI refuses only the flags and verbs of later ROADMAP items:
-    item 9's (the service's refusals name item 9 too) and ``perf
-    check``, which waits for item 11 (port tooling). Item 8's flags are
+    item 9's (the service's refusals name item 9 too), item 10's third
+    part (``--tp-degree``, ``--dp-degree`` and ``--pp-tp-degree`` at any
+    value but the default: the two-axis meshes) and ``perf check``,
+    which waits for item 11 (port tooling). Item 8's flags are
     served since its second part (``--telemetry``, ``--metrics-port``,
     ``--incidents-dir``, ``--no-memory-telemetry``, the profile
     triggers, ``--profile-dir``), as are the store options and worker
@@ -286,12 +316,13 @@ def test_later_flags_name_only_items_8_and_9():
     items = set()
     for where in (*cli.LATER_FLAGS.values(), *cli.LATER_VERBS.values()):
         items |= {int(n) for n in re.findall(r"item (\d+)", where)}
-    assert items == {9, 11}
+    assert items == {9, 10, 11}
     for text in (*service.LATER.values(), *client._LATER.values()):
         assert {int(n) for n in re.findall(r"item (\d+)", text)} \
             <= {8, 9}, text
     assert set(cli.LATER_FLAGS) == {"faults", "jobs", "job", "shards",
-                                    "store_backend"}
+                                    "store_backend", "tp_degree",
+                                    "dp_degree", "pp_tp_degree"}
     assert set(cli.LATER_VERBS) == {"perf check"}
     parser = cli.build_parser()
     for argv in (["serve", "--fetch-codec", "bf16", "--elastic",
@@ -324,8 +355,18 @@ def test_later_flags_name_only_items_8_and_9():
                   "9", "--elastic", "--worker-timeout", "3",
                   "--store-backend", "device", "--strict-rounds",
                   "--checkpoint-dir", "d", "--resume", "--telemetry",
-                  "--journal-dir", "j", "--profile-dir", "d"]):
+                  "--journal-dir", "j", "--profile-dir", "d"],
+                 ["train", "--mode", "moe", "--moe-capacity-factor", "1.5",
+                  "--moe-aux-weight", "0"],
+                 ["train", "--mode", "pp", "--pp-microbatches", "4",
+                  "--tp-degree", "2", "--dp-degree", "1",
+                  "--pp-tp-degree", "1"]):
         cli._refuse_later_flags(parser.parse_args(argv))
+    for flag in ("--tp-degree", "--dp-degree", "--pp-tp-degree"):
+        with pytest.raises(NotImplementedError,
+                           match="item 10 \\(two-axis meshes\\)"):
+            cli._refuse_later_flags(parser.parse_args(
+                ["train", "--mode", "pp", flag, "4"]))
     for verb in ("serve", "train"):
         with pytest.raises(NotImplementedError, match="item 9"):
             cli._refuse_later_flags(parser.parse_args(

@@ -1,9 +1,14 @@
-"""The port's sequence-parallel trainer (``train/model_parallel.py``)
+"""The port's model-parallel trainers (``train/model_parallel.py``)
 against the JAX package's: one ``SPTrainer`` step of vit_tiny in fp32,
 without augmentation, over 2 sequence slots against 2 virtual devices,
-from the same initial weights; parameters agree within rtol 1e-4 /
-atol 1e-5. Also the trainers of later slices, and the synthetic ImageNet
-data the SP path trains on, byte for byte."""
+one ``MoETrainer`` step over 4 expert slots against 4 devices and one
+``PipelineTrainer`` step over 2 stages of 4 microbatches against 2
+devices, each from the JAX trainer's initial weights; parameters agree
+within rtol 1e-4 / atol 1e-5, the MoE metrics within 1e-5. Also the
+refusals of ROADMAP §1 item 10's third part, the CLI's moe and pp modes,
+and the synthetic ImageNet data the SP path trains on, byte for byte."""
+
+import json
 
 import jax
 import numpy as np
@@ -16,14 +21,18 @@ from distributed_parameter_server_for_ml_training_tpu.train import \
     model_parallel as jmp
 from distributed_parameter_server_for_ml_training_tpu.utils.pytree import \
     flatten_params as jax_flatten
+from distributed_parameter_server_for_ml_training_tpu_torch import cli
 from distributed_parameter_server_for_ml_training_tpu_torch.data import \
     cifar
 from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
     flash_attention as fa
 from distributed_parameter_server_for_ml_training_tpu_torch.train import \
     model_parallel as mp
+from distributed_parameter_server_for_ml_training_tpu_torch.utils.metrics \
+    import parse_metrics_lines
 from distributed_parameter_server_for_ml_training_tpu_torch.utils.pytree \
     import params_from_jax, params_to_jax
+from torch_threads import one_torch_thread_per_module  # noqa: F401
 
 
 def _dataset(image, n_train, n_test=4):
@@ -136,8 +145,7 @@ def test_sp_trainer_resumes_from_its_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("name,slice_name", [
-    ("TPTrainer", "tensor-parallel"), ("PipelineTrainer", "pipeline"),
-    ("MoETrainer", "MoE")])
+    ("TPTrainer", "ROADMAP §1 item 10, third part")])
 def test_later_trainers_name_their_slice(name, slice_name):
     _, tcfg = _configs(batch_size=2)
     with pytest.raises(NotImplementedError, match=slice_name):
@@ -148,14 +156,172 @@ def test_later_trainers_name_their_slice(name, slice_name):
 def test_vit_shapes_and_config_defaults_match_jax():
     assert mp.VIT_SHAPES == jmp.VIT_SHAPES
     j, t = jmp.ModelParallelConfig(), mp.ModelParallelConfig()
-    # The fields the port honours; the TP/PP/MoE options come with the
-    # slices that read them.
-    honoured = ("model", "num_workers", "learning_rate", "num_epochs",
+    # Every JAX field, with its default; tp_degree, dp_degree and
+    # pp_tp_degree are read to refuse what item 10's third part brings.
+    honoured = ("model", "num_workers", "tp_degree", "pp_microbatches",
+                "dp_degree", "pp_tp_degree", "moe_capacity_factor",
+                "moe_aux_weight", "learning_rate", "num_epochs",
                 "batch_size", "augment", "num_classes", "dtype", "seed")
+    assert set(j.__dataclass_fields__) == set(honoured)
     assert set(t.__dataclass_fields__) == {*honoured, "device"}
     for field in honoured:
         assert getattr(t, field) == getattr(j, field), field
     assert t.device == "cuda"
+
+
+def _step_both(jt, tt):
+    """One epoch of one step in both trainers from the JAX trainer's
+    initial weights (loaded through the adapter, checked byte for byte
+    on the way back); returns (JAX metrics, port metrics, initial flat
+    params)."""
+    init = jax_flatten(jax.device_get(jt.state.params))
+    tt.model.load_state_dict(params_from_jax(init))
+    back, _ = params_to_jax(tt.model)
+    assert set(back) == set(init)
+    for k in init:
+        assert back[k].tobytes() == np.asarray(init[k]).tobytes(), k
+    jm, tm = jt.train(), tt.train()
+    assert jt.global_steps == tt.global_steps == 1
+    want = jax_flatten(jax.device_get(jt.state.params))
+    got, _ = params_to_jax(tt.model)
+    moved = 0
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-5,
+                                   err_msg=k)
+        moved += not np.array_equal(got[k], init[k])
+    assert moved > 0
+    assert all(np.array_equal(v.numpy(), got[k])
+               for k, v in tt.state.params.items())
+    assert set(tm) == set(jm)
+    assert tm["final_test_accuracy"] == jm["final_test_accuracy"]
+    return jm, tm, init
+
+
+def test_moe_step_matches_jax(devices):
+    """vit_tiny with 4 experts a block (capacity max(8, 2 x 8 x 64 / 4 /
+    4) = 64), batch 8, aux weight 0.01: params, the three MoE metrics and
+    the run's metric keys."""
+    ds = _dataset(32, n_train=8, n_test=8)
+    jcfg, tcfg = _configs(batch_size=8)
+    jcfg.num_workers = tcfg.num_workers = 4
+    jt, tt = jmp.MoETrainer(ds, jcfg), mp.MoETrainer(ds, tcfg)
+    assert tt.capacity == jt.capacity == 64
+    jm, tm, _ = _step_both(jt, tt)
+    for key in ("n_experts", "expert_capacity", "moe_dp_degree",
+                "moe_aux_weight", "moe_capacity_factor", "mode"):
+        assert tm[key] == jm[key], key
+    (want,), (got,) = jt._moe_step_metrics, tt._moe_step_metrics
+    assert set(got) == set(want) == {"moe_aux_loss", "moe_load_imbalance",
+                                     "moe_drop_frac"}
+    for k in want:
+        np.testing.assert_allclose(float(got[k]), float(want[k]),
+                                   rtol=1e-5, atol=1e-6, err_msg=k)
+    assert 0.0 <= float(got["moe_drop_frac"]) <= 1.0
+
+
+def test_pp_step_matches_jax(devices):
+    """vit_tiny as 2 stages of 2 blocks over 4 microbatches of 2: the
+    ``{prologue, stages, epilogue}`` tree carried both ways, params after
+    one step."""
+    ds = _dataset(32, n_train=8, n_test=8)
+    jcfg, tcfg = _configs(batch_size=8, pp_microbatches=4)
+    jt, tt = jmp.PipelineTrainer(ds, jcfg), mp.PipelineTrainer(ds, tcfg)
+    assert tt.state.params["stages/block_0/attn/qkv/kernel"].shape == \
+        (2, 192, 576)
+    assert tt.state.params["stages/block_1/ln2/scale"].shape == (2, 192)
+    jm, tm, _ = _step_both(jt, tt)
+    for key in ("pp_microbatches", "dp_degree", "pp_tp_degree", "mode"):
+        assert tm[key] == jm[key], key
+
+
+@pytest.mark.parametrize("mode,kw,match", [
+    ("moe", dict(model="resnet18"), "supports ViT models"),
+    ("moe", dict(batch_size=6), "not divisible by 4 token shards"),
+    ("moe", dict(batch_size=16), "smaller than the batch"),
+    ("pp", dict(model="resnet18"), "supports ViT models"),
+    ("pp", dict(num_workers=3), "depth 4 not divisible by 3"),
+    ("pp", dict(pp_microbatches=16), "smaller than pp_microbatches"),
+    ("pp", dict(batch_size=6), "must split into 4 microbatches"),
+])
+def test_moe_and_pp_errors_match_jax(mode, kw, match):
+    ds = _dataset(32, n_train=8, n_test=8)
+    jcfg, tcfg = _configs(batch_size=8, pp_microbatches=4)
+    for cfg in (jcfg, tcfg):
+        cfg.num_workers = 4 if mode == "moe" else 2
+        for k, v in kw.items():
+            setattr(cfg, k, v)
+    name = {"moe": "MoETrainer", "pp": "PipelineTrainer"}[mode]
+    with pytest.raises(ValueError, match=match):
+        getattr(jmp, name)(ds, jcfg)
+    with pytest.raises(ValueError, match=match):
+        getattr(mp, name)(ds, tcfg)
+
+
+@pytest.mark.parametrize("name", ["MoETrainer", "PipelineTrainer"])
+@pytest.mark.parametrize("field", ["dp_degree", "pp_tp_degree"])
+def test_composed_meshes_name_item_10_part_3(name, field):
+    _, tcfg = _configs(batch_size=8, pp_microbatches=4)
+    setattr(tcfg, field, 2)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP §1 item 10, third part"):
+        getattr(mp, name)(_dataset(32, n_train=8, n_test=8), tcfg)
+
+
+@pytest.mark.parametrize("mode", ["moe", "pp"])
+def test_moe_and_pp_trainers_resume_from_their_checkpoint(tmp_path, mode):
+    """A checkpoint each epoch; a run resumed from epoch 1 ends bit-equal
+    to the uninterrupted one (the stacked stage leaves included)."""
+    ds = _dataset(32, n_train=4, n_test=4)
+    cls = {"moe": mp.MoETrainer, "pp": mp.PipelineTrainer}[mode]
+
+    def run(epochs, where, resume=False):
+        _, tcfg = _configs(batch_size=2, pp_microbatches=2)
+        tcfg.num_epochs, tcfg.augment = epochs, True
+        trainer = cls(ds, tcfg)
+        trainer.train(checkpoint_dir=str(tmp_path / where), resume=resume)
+        return trainer
+
+    full = run(2, "a")
+    run(1, "b")
+    resumed = run(2, "b", resume=True)
+    assert resumed.global_steps == full.global_steps == 4
+    for k, v in full.state.params.items():
+        assert v.equal(resumed.state.params[k]), k
+
+
+@pytest.mark.parametrize("mode,workers,extra", [
+    ("moe", "4", ["--moe-capacity-factor", "1.0", "--moe-aux-weight",
+                  "0.0"]),
+    ("pp", "2", ["--pp-microbatches", "4"])])
+def test_cli_trains_moe_and_pp(capsys, mode, workers, extra):
+    rc = cli.main(["train", "--mode", mode, "--model", "vit_tiny",
+                   "--workers", workers, "--epochs", "1", "--dataset",
+                   "imagenet-synth", "--image-size", "32", "--num-train",
+                   "16", "--num-test", "8", "--batch-size", "8",
+                   "--emit-metrics", "--device", "cpu", "--dtype",
+                   "float32", *extra])
+    assert rc == 0
+    (row,) = parse_metrics_lines(capsys.readouterr().out)
+    assert row["mode"] == mode and row["global_steps_completed"] == 2
+    if mode == "moe":
+        # max(8, int(1.0 * (8 x 64 / 4) / 4))
+        assert row["expert_capacity"] == 32 and row["moe_aux_weight"] == 0.0
+        assert 0.0 <= row["moe_drop_frac"] <= 1.0
+    else:
+        assert row["pp_microbatches"] == 4
+    json.dumps(row)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--mode", "tp"], ["--mode", "pp", "--dp-degree", "2"],
+    ["--mode", "pp", "--pp-tp-degree", "2"],
+    ["--mode", "tp", "--tp-degree", "4"]])
+def test_cli_refuses_item_10_part_3(argv):
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 10"):
+        cli.main(["train", *argv, "--model", "vit_tiny", "--workers", "2",
+                  "--epochs", "1", "--dataset", "imagenet-synth",
+                  "--image-size", "32", "--num-train", "8", "--num-test",
+                  "8", "--batch-size", "8", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("image,n_train,n_test,seed", [

@@ -12,8 +12,8 @@ from distributed_parameter_server_for_ml_training_tpu.utils.pytree import \
 from distributed_parameter_server_for_ml_training_tpu_torch.models import (
     ResNet, ResNet18, count_params)
 from distributed_parameter_server_for_ml_training_tpu_torch.utils.pytree \
-    import (flatten_params, params_from_jax, params_to_jax, torch_name,
-            unflatten_params)
+    import (flatten_params, params_from_jax, params_to_jax, to_flax_layout,
+            to_torch_layout, torch_name, unflatten_params)
 
 
 def _jax_shapes(model):
@@ -92,3 +92,32 @@ def test_flatten_unflatten_round_trip():
     assert list(flat) == ["a/b", "a/c/d", "e"]
     back = unflatten_params(flat)
     assert list(back) == ["a", "e"] and list(back["a"]["c"]) == ["d"]
+
+
+@pytest.mark.parametrize("name,torch_shape,flax_shape", [
+    ("block_0/moe/router", (8, 4), (8, 4)),
+    ("block_0/moe/w1", (4, 8, 32), (4, 8, 32)),
+    ("block_0/moe/b1", (4, 32), (4, 32)),
+    ("block_0/moe/w2", (4, 32, 8), (4, 32, 8)),
+    ("block_0/moe/b2", (4, 8), (4, 8)),
+    ("stages/block_0/attn/qkv/kernel", (2, 24, 8), (2, 8, 24)),
+    ("stages/block_1/ln2/scale", (2, 8), (2, 8)),
+    ("stages/block_1/mlp/fc1/bias", (2, 32), (2, 32)),
+    ("prologue/patch_embed/kernel", (8, 3, 4, 4), (4, 4, 3, 8)),
+    ("epilogue/head/kernel", (10, 8), (8, 10)),
+])
+def test_named_layouts_take_precedence_over_rank(name, torch_shape,
+                                                 flax_shape):
+    """The leaf names the layout: MoE leaves keep flax's (a 2-D router is
+    not a Dense kernel), a stacked Dense kernel swaps its last two dims
+    under the stage axis, a stacked LayerNorm scale stays; the round trip
+    is exact."""
+    t = torch.arange(float(np.prod(torch_shape))).view(torch_shape)
+    f = to_flax_layout(t, name)
+    assert tuple(f.shape) == flax_shape
+    assert to_torch_layout(f.contiguous(), name).equal(t)
+    if name.endswith("qkv/kernel"):
+        assert f[1].equal(t[1].t())
+    mapped = params_from_jax({name: f.numpy()})
+    assert list(mapped) == [torch_name(name)]
+    assert mapped[torch_name(name)].equal(t)
