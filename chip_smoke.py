@@ -347,6 +347,30 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    ``PipelineTrainer``, 4 stages x 8 microbatches, batch 32, bf16,
    ViT-B/16 at 224 px: an epoch of 2 steps and an eval batch (kernel
    counts all 0), 6 steps timed, img/s, peak GiB, one profiled step.
+25. tensor parallelism and the multi-axis mesh (``parallel/tensor.py``,
+   ``TPTrainer``, dp x ep, dp x tp x pp): (a) one ViT-B/16
+   ``EncoderBlock`` (D 768, 12 heads, MLP 3,072, batch 8 x 197 tokens),
+   forward and backward, at tp 2, 4 and 8 (8 splits ``out``'s input
+   columns inside a head) against the unsplit block with the same
+   weights: float64 TP − unsplit on the card and card − CPU within 1e-12
+   of the largest value, each slot's views of the parameters with the
+   rule table's shard shapes (views of the parameters themselves), fp32
+   within 1e-4 and bf16 within 2e-2, and each form's bf16 forward +
+   backward ms. (b) ``TPTrainer`` ViT-B/16 bf16 batch 32 at data x model
+   1 x 1 (the yardstick), 2 x 2, 1 x 4 and 1 x 1 again, in turns: an
+   epoch of 2 steps and an eval batch (kernel counts all 0), 10 steps
+   timed (median step ms, img/s, against the two 1 x 1 turns' mean), peak
+   GiB, one profiled step (idle share, top
+   kernels), and the TP glue's share of device time (one block's
+   concatenation, slot sums and their backward copies and sums, timed
+   alone at the step's shapes, times 12, over the profiled busy ms). (c)
+   dp x ep: a data 2 x 4 experts layer at ViT-B/16 width (6,272 tokens)
+   at a capacity that drops nothing against ``dense_reference`` within
+   1e-4, load and importance summing to 1; ``MoETrainer`` dp 2 x 4
+   experts batch 32 timed. dp x tp x pp: ``PipelineTrainer`` 2 x 2 x 4
+   stages x 8 microbatches, one fp32 step's loss and gradients against
+   plain pp (1 x 1 x 4) on the card within 1e-4; then bf16, 4 steps
+   timed and one profiled.
    Each phase reports its own seconds.
 
 Then one JSON line of kernels and, last, the device line. Without a CUDA
@@ -5877,10 +5901,10 @@ def _profile_one(fn, steps: int = 3) -> dict:
             "top_device_ms": prof["top_device_ms"][:8]}
 
 
-def _timed_trainer(trainer, ds, steps: int) -> dict:
+def _timed_trainer(trainer, ds, steps: int, profiled: int = 3) -> dict:
     """A trainer's epoch (counts reset just before, read just after), its
     eval, then ``steps`` steps timed one by one with CUDA events on the
-    first batch, and one profiled step."""
+    first batch, and ``profiled`` steps under torch.profiler."""
     import torch
 
     torch.cuda.synchronize()
@@ -5903,7 +5927,7 @@ def _timed_trainer(trainer, ds, steps: int) -> dict:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(e))
     med = float(np.median(times))
-    prof = _profile_one(lambda: trainer._train_batch(xb, yb, gen))
+    prof = _profile_one(lambda: trainer._train_batch(xb, yb, gen), profiled)
     return {"metrics": metrics, "run_seconds": run_s, "launches": counts,
             "epoch_train_seconds": trainer.train_seconds,
             "train_loss_per_epoch": trainer.train_loss_per_epoch,
@@ -6101,6 +6125,375 @@ def phase_pp(state: dict) -> None:
         raise RuntimeError(f"pp: {problems}")
 
 
+TP_D, TP_HEADS, TP_MLP = 768, 12, 3072   # ViT-B/16's block
+TP_BLOCK_BATCH, TP_TOKENS = 8, 197       # (a): 224 px with the CLS token
+TP_DEGREES = (2, 4, 8)                   # (a): 8 splits inside a head
+# (b): (data, model) in turns, the yardstick first and last.
+TP_MESHES = ((1, 1), (2, 2), (1, 4), (1, 1))
+TP_BATCH, TP_TRAIN_STEPS, TP_TIMED_STEPS = 32, 2, 10
+TP_PP_TIMED_STEPS = 4                    # (c): the host-bound pipeline
+BF16_REL_TOL = 2e-2                      # max |a - b| / max |b|, bf16 out
+F64_REL_TOL = 1e-12                      # the same, both float64
+
+
+def _tp_block_run(block, x, cot) -> list:
+    """One block's output and the gradients of sum(out * cot) in x and
+    every parameter (the block's order)."""
+    import torch
+
+    xx = x.detach().clone().requires_grad_()
+    y = block(xx)
+    grads = torch.autograd.grad((y.float() * cot.float()).sum(),
+                                [xx, *block.parameters()])
+    return [y.detach(), *grads]
+
+
+def _tp_blocks(dtype, tp: int, device, seed: int = 25):
+    """A ViT-B/16 ``EncoderBlock`` and its TP form at ``tp`` with the same
+    weights (biases and LayerNorm affines drawn too), in ``dtype``."""
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.models \
+        .vit import EncoderBlock, init_weights
+
+    gen = torch.Generator().manual_seed(seed)
+    plain = EncoderBlock(TP_D, TP_HEADS, TP_MLP // TP_D, dtype=dtype)
+    init_weights(plain, gen)
+    with torch.no_grad():
+        for name, p in plain.named_parameters():
+            if p.dim() == 1:
+                p.normal_(1.0 if name.endswith("ln1.weight")
+                          or name.endswith("ln2.weight") else 0.0, 0.05,
+                          generator=gen)
+    split = EncoderBlock(TP_D, TP_HEADS, TP_MLP // TP_D, dtype=dtype,
+                         tp_degree=tp)
+    split.load_state_dict(plain.state_dict())
+    wide = torch.promote_types(dtype, torch.float32)
+    return plain.to(device, wide), split.to(device, wide)
+
+
+def _tp_slot_views(block, tp: int) -> list:
+    """Problems with slot j's views of the block's parameters: each the
+    rule table's shard shape, each a view of the parameter itself."""
+    from distributed_parameter_server_for_ml_training_tpu_torch.parallel \
+        import tensor
+    from distributed_parameter_server_for_ml_training_tpu_torch.utils \
+        .pytree import flax_names, to_flax_layout
+
+    problems = []
+    names, _ = flax_names(block)
+    for tname, fname in names.items():
+        p = block.get_parameter(tname)
+        leaf = to_flax_layout(p.detach(), fname)
+        views = tensor.slot_views(leaf, fname, tp)
+        spec = tensor.tp_spec_for_path(fname)
+        want = list(leaf.shape)
+        if "model" in spec:
+            want[spec.index("model")] //= tp
+        if list(views.shape) != [tp, *want] \
+                or views.untyped_storage().data_ptr() \
+                != p.untyped_storage().data_ptr():
+            problems.append(f"(a) tp {tp} {fname}: views "
+                            f"{list(views.shape)}, want [{tp}, {want}]")
+    return problems
+
+
+def _tp_block(state: dict) -> dict:
+    """(a): one ViT-B/16 block, forward and backward, at tp 2, 4 and 8:
+    float64 TP against unsplit on the card and card against CPU, fp32
+    and bf16 TP against unsplit, slot views, bf16 fwd+bwd times."""
+    import torch
+
+    gen = torch.Generator().manual_seed(250)
+    x = torch.randn(TP_BLOCK_BATCH, TP_TOKENS, TP_D, generator=gen)
+    cot = torch.randn(TP_BLOCK_BATCH, TP_TOKENS, TP_D, generator=gen)
+    res = {"batch": TP_BLOCK_BATCH, "tokens": TP_TOKENS, "d": TP_D,
+           "heads": TP_HEADS, "mlp": TP_MLP, "float64_rel_tol": F64_REL_TOL,
+           "fp32_rel_tol": FP32_REL_TOL, "bf16_rel_tol": BF16_REL_TOL,
+           "measure": "max |a - b| / max |b| over the output and every "
+                      "gradient (x and the parameters)"}
+    problems = []
+    for tp in TP_DEGREES:
+        row = {}
+        plain, split = _tp_blocks(torch.float64, tp, "cuda")
+        problems += _tp_slot_views(split, tp)
+        xc, cc = x.double().cuda(), cot.double().cuda()
+        want = _tp_block_run(plain, xc, cc)
+        got = _tp_block_run(split, xc, cc)
+        row["float64_tp_vs_unsplit"] = max(_rel_err(g, w)
+                                           for g, w in zip(got, want))
+        _, split_cpu = _tp_blocks(torch.float64, tp, "cpu")
+        t0 = time.perf_counter()
+        cpu = _tp_block_run(split_cpu, x.double(), cot.double())
+        row["cpu_float64_s"] = time.perf_counter() - t0
+        row["float64_card_vs_cpu"] = max(_rel_err(g, c)
+                                         for g, c in zip(got, cpu))
+        del plain, split, want, got, cpu
+        for name, dtype, tol in (("fp32", torch.float32, FP32_REL_TOL),
+                                 ("bf16", torch.bfloat16, BF16_REL_TOL)):
+            plain, split = _tp_blocks(dtype, tp, "cuda")
+            xc, cc = x.to("cuda", dtype), cot.to("cuda", dtype)
+            want = _tp_block_run(plain, xc, cc)
+            got = _tp_block_run(split, xc, cc)
+            row[f"{name}_tp_vs_unsplit"] = err = max(
+                _rel_err(g, w) for g, w in zip(got, want))
+            if err > tol:
+                problems.append(f"(a) tp {tp} {name}: {err} > {tol}")
+            if name == "bf16":
+                row["bf16_fwd_bwd_ms"] = cuda_time_ms(
+                    lambda: _tp_block_run(split, xc, cc), 10)
+                if tp == TP_DEGREES[0]:
+                    res["bf16_unsplit_fwd_bwd_ms"] = cuda_time_ms(
+                        lambda: _tp_block_run(plain, xc, cc), 10)
+            del plain, split, want, got
+        for k in ("float64_tp_vs_unsplit", "float64_card_vs_cpu"):
+            if not row[k] <= F64_REL_TOL:
+                problems.append(f"(a) tp {tp} {k}: {row[k]}")
+        res[f"tp{tp}"] = row
+        torch.cuda.empty_cache()
+    res["problems"] = problems
+    return res
+
+
+def _tp_glue_ms(tp: int, rows: int) -> float:
+    """CUDA-event ms of one ViT-B/16 block's TP glue in bf16 at ``rows``
+    tokens: forward, the qkv concatenation and the two slot sums (each
+    with its bias and cast); backward, the concatenation's split and the
+    two sums over the slots of the column products' input gradients."""
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.parallel \
+        import tensor
+
+    bf = dict(device="cuda", dtype=torch.bfloat16)
+    y_col = torch.randn(tp, rows, 3 * TP_D // tp, **bf)
+    parts = [torch.randn(tp, rows, TP_D, device="cuda") for _ in range(2)]
+    g_in = [torch.randn(tp, rows, TP_D, **bf) for _ in range(2)]
+    g_qkv = torch.randn(rows, 3 * TP_D, **bf)
+    bias = torch.randn(TP_D, **bf)
+
+    def glue():
+        tensor.gather_columns(y_col)
+        for part in parts:
+            (part.sum(0) + bias.float()).to(torch.bfloat16)
+        g_qkv.view(rows, tp, -1).transpose(0, 1).contiguous()
+        for g in g_in:
+            g.sum(0)
+
+    return cuda_time_ms(glue, 20)
+
+
+def _tp_trainers(state: dict) -> dict:
+    """(b): ``TPTrainer`` ViT-B/16 bf16 batch 32 at the three meshes."""
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.data \
+        import synthetic_imagenet
+    from distributed_parameter_server_for_ml_training_tpu_torch.train \
+        .model_parallel import ModelParallelConfig, TPTrainer
+
+    ds = synthetic_imagenet(n_train=TP_BATCH * TP_TRAIN_STEPS,
+                            n_test=TP_BATCH, num_classes=1000,
+                            image_size=224, seed=25)
+    out, problems = {}, []
+    for turn, (dp, tp) in enumerate(TP_MESHES):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = TPTrainer(ds, ModelParallelConfig(
+            model="vit_b16", num_workers=dp, tp_degree=tp,
+            batch_size=TP_BATCH, num_epochs=1, num_classes=1000,
+            dtype="bfloat16", device="cuda"))
+        res = _timed_trainer(trainer, ds, TP_TIMED_STEPS)
+        res["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        res["mesh"] = trainer.mesh.shape
+        res["label"] = trainer._label()
+        busy = res["profiled_steps"]["device_busy_ms_per_step"]
+        if tp > 1:
+            glue = _tp_glue_ms(tp, TP_BATCH * TP_TOKENS) * 12
+            res["glue_ms_per_step"] = glue
+            res["glue_share_of_device_time"] = glue / busy if busy else None
+        out[f"turn{turn}_dp{dp}_tp{tp}"] = res
+        if any(res["launches"].values()):
+            problems.append(f"(b) {dp}x{tp}: kernels launched "
+                            f"{res['launches']}: 197 tokens take the dense "
+                            f"core and no codec")
+        if res["mesh"] != {"data": dp, "model": tp} \
+                or res["metrics"]["tp_degree"] != tp \
+                or not all(math.isfinite(v)
+                           for v in res["train_loss_per_epoch"]):
+            problems.append(f"(b) {dp}x{tp}: mesh {res['mesh']}, metrics "
+                            f"{res['metrics']}")
+        del trainer
+    base = np.mean([res["step_ms_median"] for res in out.values()
+                    if res["mesh"]["model"] == 1])
+    for res in out.values():
+        res["step_ms_vs_tp1"] = res["step_ms_median"] / base
+    out["problems"] = problems
+    return out
+
+
+def _tp_moe(state: dict) -> dict:
+    """(c) dp x ep: data 2 x 4 experts at ViT-B/16 width against the dense
+    reference at a capacity that drops nothing, then ``MoETrainer``."""
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.data \
+        import synthetic_imagenet
+    from distributed_parameter_server_for_ml_training_tpu_torch.parallel \
+        import make_mesh, moe
+    from distributed_parameter_server_for_ml_training_tpu_torch.train \
+        .model_parallel import ModelParallelConfig, MoETrainer
+
+    dp, n = 2, TP_BATCH * MOE_TOKENS
+    gen = torch.Generator().manual_seed(251)
+    params = {k: v.cuda() for k, v in moe.init_moe_params(
+        gen, MOE_D, MOE_H, MOE_E).items()}
+    tokens = torch.randn(n, MOE_D, generator=gen).cuda()
+    mesh = make_mesh(dp, "cuda", axis_names=("data", "expert"),
+                     num_slots=dp * MOE_E)
+    generous = n // (dp * MOE_E)
+    with torch.no_grad():
+        out, st = moe.make_moe_ffn(mesh, generous, data_axis="data")(
+            params, tokens)
+        ref = moe.dense_reference(params, tokens)
+    res = {"mesh": mesh.shape, "tokens": n, "generous_capacity": generous,
+           "drop_frac": float(st["drop_frac"]),
+           "dense_reference_rel_err": _rel_err(out, ref),
+           "load_sum": float(st["load"].sum()),
+           "importance_sum": float(st["importance"].sum())}
+    problems = []
+    if res["drop_frac"] != 0.0 \
+            or res["dense_reference_rel_err"] > FP32_REL_TOL \
+            or abs(res["load_sum"] - 1.0) > 1e-6 \
+            or abs(res["importance_sum"] - 1.0) > 1e-5:
+        problems.append(f"(c) dp x ep layer: {res}")
+    del out, ref, params, tokens
+    torch.cuda.empty_cache()
+    ds = synthetic_imagenet(n_train=TP_BATCH * TP_TRAIN_STEPS,
+                            n_test=TP_BATCH, num_classes=1000,
+                            image_size=224, seed=251)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = MoETrainer(ds, ModelParallelConfig(
+        model="vit_b16", num_workers=MOE_E, dp_degree=dp,
+        batch_size=TP_BATCH, num_epochs=1, num_classes=1000,
+        dtype="bfloat16", device="cuda"))
+    tr = _timed_trainer(trainer, ds, TP_TIMED_STEPS)
+    tr["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    tr["mesh"] = trainer.mesh.shape
+    tr["capacity"] = trainer.capacity
+    tr["moe_metrics_last_step"] = {
+        k: float(v) for k, v in trainer._moe_step_metrics[-1].items()}
+    res["trainer"] = tr
+    want_cap = max(8, int(2.0 * n / (dp * MOE_E) / MOE_E))
+    if tr["mesh"] != {"data": dp, "expert": MOE_E} \
+            or tr["capacity"] != want_cap \
+            or any(tr["launches"].values()) \
+            or not all(math.isfinite(v) for v in tr["train_loss_per_epoch"]):
+        problems.append(f"(c) MoETrainer dp x ep: mesh {tr['mesh']}, "
+                        f"capacity {tr['capacity']} (want {want_cap}), "
+                        f"launches {tr['launches']}, losses "
+                        f"{tr['train_loss_per_epoch']}")
+    del trainer
+    torch.cuda.empty_cache()
+    res["problems"] = problems
+    return res
+
+
+def _pp_grads(trainer, x, y) -> tuple:
+    """The pipelined model's loss on (x, y) and its parameter gradients,
+    by name (one fp32 step's, before the apply)."""
+    import torch
+    import torch.nn.functional as F
+
+    params = dict(trainer.model.named_parameters())
+    loss = F.cross_entropy(trainer.model(x), y)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.detach(), dict(zip(params, grads))
+
+
+def _tp_pp(state: dict) -> dict:
+    """(c) dp x tp x pp: 2 x 2 x 4 stages x 8 microbatches, one fp32
+    step's loss and gradients against plain pp on the card, then the bf16
+    trainer timed."""
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.data \
+        import synthetic_imagenet
+    from distributed_parameter_server_for_ml_training_tpu_torch.train \
+        .model_parallel import ModelParallelConfig, PipelineTrainer
+
+    ds = synthetic_imagenet(n_train=TP_BATCH * TP_TRAIN_STEPS,
+                            n_test=TP_BATCH, num_classes=1000,
+                            image_size=224, seed=252)
+
+    def cfg(dp, tp, dtype):
+        return ModelParallelConfig(
+            model="vit_b16", num_workers=PP_STAGES, pp_microbatches=PP_M,
+            dp_degree=dp, pp_tp_degree=tp, batch_size=TP_BATCH,
+            num_epochs=1, num_classes=1000, dtype=dtype, device="cuda")
+
+    gen = torch.Generator().manual_seed(252)
+    x = torch.randn(TP_BATCH, 224, 224, 3, generator=gen).cuda()
+    y = torch.randint(0, 1000, (TP_BATCH,), generator=gen).cuda()
+    got, t0 = {}, time.perf_counter()
+    for key, (dp, tp) in (("plain", (1, 1)), ("composed", (2, 2))):
+        trainer = PipelineTrainer(ds, cfg(dp, tp, "float32"))
+        got[key] = _pp_grads(trainer, x, y) + (trainer.mesh.shape,)
+        del trainer
+        torch.cuda.empty_cache()
+    (l0, g0, m0), (l1, g1, m1) = got["plain"], got["composed"]
+    res = {"mesh_plain": m0, "mesh_composed": m1,
+           "loss_plain": float(l0), "loss_composed": float(l1),
+           "loss_rel_err": abs(float(l1) - float(l0)) / abs(float(l0)),
+           "grad_rel_err": max(_rel_err(g1[k], g0[k]) for k in g0),
+           "fp32_rel_tol": FP32_REL_TOL,
+           "fp32_check_seconds": time.perf_counter() - t0}
+    problems = []
+    if m1 != {"data": 2, "model": 2, "stage": PP_STAGES} \
+            or max(res["loss_rel_err"], res["grad_rel_err"]) \
+            > FP32_REL_TOL:
+        problems.append(f"(c) dp x tp x pp fp32 step: {res}")
+    del got, g0, g1
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = PipelineTrainer(ds, cfg(2, 2, "bfloat16"))
+    tr = _timed_trainer(trainer, ds, TP_PP_TIMED_STEPS, profiled=1)
+    tr["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    tr["label"] = trainer._label()
+    res["trainer"] = tr
+    if any(tr["launches"].values()) \
+            or not all(math.isfinite(v) for v in tr["train_loss_per_epoch"]):
+        problems.append(f"(c) PipelineTrainer 2x2x4: launches "
+                        f"{tr['launches']}, losses "
+                        f"{tr['train_loss_per_epoch']}")
+    del trainer
+    torch.cuda.empty_cache()
+    res["problems"] = problems
+    return res
+
+
+def phase_tp(state: dict) -> None:
+    """Phase 25: tensor parallelism and the multi-axis mesh on the card
+    (module notes)."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = {"phase": "tp", "card": state["card"]}
+    problems = []
+    for key, part in (("a_block", _tp_block), ("b_trainers", _tp_trainers),
+                      ("c_dp_ep", _tp_moe), ("c_dp_tp_pp", _tp_pp)):
+        t1 = time.perf_counter()
+        out[key] = res = part(state)
+        res["seconds"] = time.perf_counter() - t1
+        problems += res.pop("problems")
+        torch.cuda.empty_cache()
+    out["problems"] = problems
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    if problems:
+        raise RuntimeError(f"tp: {problems}")
+
+
 def main() -> int:
     import torch
 
@@ -6122,7 +6515,7 @@ def main() -> int:
                   phase_grpc_path, phase_grpc_modes, phase_device_store,
                   phase_checkpoints, phase_health, phase_models,
                   phase_observability, phase_multihost, phase_sp_multihost,
-                  phase_moe, phase_pp):
+                  phase_moe, phase_pp, phase_tp):
         t0 = time.perf_counter()
         try:
             phase(state)

@@ -61,9 +61,16 @@ the CLS ViT as ``--workers`` pipeline stages of one card over
         --workers 4 --pp-microbatches 8 --batch-size 32 --num-train 256 \
         --num-test 64 --epochs 1
 
-``--mode tp``, ``--tp-degree`` other than 2, and ``--dp-degree`` or
-``--pp-tp-degree`` other than 1 are refused naming ROADMAP §1 item 10
-(two-axis meshes). ``--mode sync --multihost`` runs one process per card
+    python -m distributed_parameter_server_for_ml_training_tpu_torch.cli \
+        train --mode tp --model vit_b16 --dataset imagenet-synth \
+        --workers 2 --tp-degree 2 --batch-size 32 --num-train 256 \
+        --num-test 64 --epochs 1
+
+``--mode tp`` runs a ``(data, model)`` mesh of ``--workers`` x
+``--tp-degree`` slots on one card; ``--dp-degree`` composes a ``data``
+axis with ``--mode pp`` (each microbatch split over it) and ``--mode
+moe`` (dp x ep), and ``--pp-tp-degree`` splits the pipeline's stages over
+a ``model`` axis (dp x tp x pp). ``--mode sync --multihost`` runs one process per card
 (``parallel/multihost.py``): each process is started with
 ``--coordinator host:port --num-processes R --process-id r`` (or the
 ``DPS_*`` env), ``--workers`` counts the slots of all R processes, and
@@ -287,9 +294,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "(ring attention over --workers sequence slots of "
                         "one card); moe = Switch-MoE ViT expert "
                         "parallelism (--workers experts of one card); tp "
-                        "is refused until ROADMAP §1 item 10, third part. "
-                        "The default stays async until the port has all "
-                        "of the JAX CLI's modes (its default is sync)")
+                        "= Megatron tensor-parallel ViT (a --workers x "
+                        "--tp-degree data x model mesh of one card). The "
+                        "port's default is async (the JAX CLI's is sync)")
     t.add_argument("--workers", type=int,
                    default=_env("TOTAL_WORKERS_EXPECTED", 4, int))
     t.add_argument("--tp-degree", type=int, default=2,
@@ -298,7 +305,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="GPipe microbatch count for --mode pp")
     t.add_argument("--dp-degree", type=int, default=1,
                    help="--mode pp: shard each microbatch over a 'data' "
-                        "mesh axis (dp x pp composition)")
+                        "mesh axis (dp x pp composition); --mode moe: "
+                        "data groups each routing over the experts "
+                        "(dp x ep)")
     t.add_argument("--pp-tp-degree", type=int, default=1,
                    help="--mode pp: Megatron-split stage params over a "
                         "'model' mesh axis (dp x tp x pp composition)")
@@ -616,17 +625,13 @@ LATER_FLAGS = {
     "job": "ROADMAP §1 item 9 (tenancy)",
     "shards": "ROADMAP §1 item 9 (the sharded tier)",
     "store_backend": "ROADMAP §1 item 9 (the C++ arena)",
-    "tp_degree": "ROADMAP §1 item 10 (two-axis meshes)",
-    "dp_degree": "ROADMAP §1 item 10 (two-axis meshes)",
-    "pp_tp_degree": "ROADMAP §1 item 10 (two-axis meshes)",
 }
 #: Verbs of the JAX CLI whose features come with later slices.
 LATER_VERBS = {
     "perf check": "ROADMAP §1 item 11 (port tooling: tools/benchwatch)",
 }
 #: Values of a listed flag that this slice serves.
-_FLAG_SERVED = {"store_backend": ("python", "device"), "tp_degree": (2,),
-                "dp_degree": (1,), "pp_tp_degree": (1,)}
+_FLAG_SERVED = {"store_backend": ("python", "device")}
 
 
 def _refuse_later_flags(args) -> None:

@@ -30,13 +30,15 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 def get_model(name: str, num_classes: int = 100,
               dtype: str | torch.dtype = torch.bfloat16,
               image_size: int = 32, device: str | torch.device = "cuda",
-              seed: int = 0, axis_name: str | None = None
-              ) -> torch.nn.Module:
+              seed: int = 0, axis_name: str | None = None,
+              tp_degree: int = 1) -> torch.nn.Module:
     """Build a model by registry name on ``device``, its weights drawn from
     a ``torch.Generator`` seeded with ``seed``. ``axis_name`` selects
     cross-replica BatchNorm over the mesh slots, as in the JAX model (ViTs
     ignore it: LayerNorm needs no sync). ``image_size`` picks a ResNet's
-    stem and sizes a ViT's position embedding."""
+    stem and sizes a ViT's position embedding. ``tp_degree`` > 1 builds a
+    ViT's TP form over that many ``model`` slots (the same weights;
+    ``parallel/tensor.py``); the ResNets have none."""
     if name not in MODEL_NAMES:
         raise ValueError(f"unknown model {name!r}; have {MODEL_NAMES}")
     dev = resolve_device(device)
@@ -48,7 +50,11 @@ def get_model(name: str, num_classes: int = 100,
     gen = torch.Generator().manual_seed(seed)
     if name in _VITS:
         return _VITS[name](num_classes=num_classes, dtype=dtype,
-                           image_size=image_size, generator=gen).to(dev)
+                           image_size=image_size, generator=gen,
+                           tp_degree=tp_degree).to(dev)
+    if tp_degree != 1:
+        raise ValueError(f"tensor parallelism splits transformer models "
+                         f"{tuple(_VITS)}, not {name!r}")
     return _RESNETS[name](num_classes=num_classes, dtype=dtype,
                           generator=gen, axis_name=axis_name,
                           imagenet_stem=image_size >= 96).to(dev)

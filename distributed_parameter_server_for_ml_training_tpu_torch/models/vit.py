@@ -64,6 +64,20 @@ whatever the model's dtype. Pipeline parallelism
 (``PipelineTrainer``): :class:`ViTPrologue`, :class:`EncoderStage` and
 :class:`ViTEpilogue` split the CLS model with the flax names, so a
 pipelined model's parameters map stage by stage.
+
+Tensor parallelism (``tp_degree`` > 1, ``train/model_parallel.py:
+TPTrainer`` and ``PipelineTrainer(pp_tp_degree=)``): a :class:`ViT` or
+:class:`EncoderStage` built with it runs every block's TP form over
+``parallel/tensor.py``. ``qkv`` and ``fc1`` are column-parallel (one
+batched product over the ``model`` slots), ``out`` and ``fc2``
+row-parallel (the slots' partials summed in fp32, the bias added once);
+the slots' ``qkv`` columns are concatenated back to ``[B, T, 3D]``
+before the core, which runs over every head as in the plain block, and
+slot j takes the core's columns ``[j D/tp, (j+1) D/tp)`` into ``out``.
+The parameters are the plain model's, each slot a view of them; a tp
+that does not divide ``3D``, ``D`` or the MLP width raises the
+reference's ``ValueError`` (a head count tp does not divide is run, as
+the reference runs it).
 """
 
 from __future__ import annotations
@@ -76,7 +90,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import dense_core
+from ..parallel import tensor as tpar
 from ..parallel.multihost import RankGroup, shared_rank_mean
+from ..utils.pytree import flax_names, to_flax_layout
 
 
 def _sub(name: str, leaf: str) -> str:
@@ -108,6 +124,16 @@ class Dense(nn.Linear):
                           x.to(d).reshape(n, -1, x.shape[-1]),
                           w.to(d).transpose(1, 2))
         return y.view(*x.shape[:-1], w.shape[1])
+
+    def forward_column(self, x: torch.Tensor, tp: int) -> torch.Tensor:
+        """TP form, column-parallel: ``[N, I]`` -> ``[tp, N, O/tp]``."""
+        return tpar.column_parallel(x, self.weight, self.bias, tp,
+                                    self.compute_dtype)
+
+    def forward_row(self, x_slots: torch.Tensor) -> torch.Tensor:
+        """TP form, row-parallel: ``[tp, N, I/tp]`` -> ``[N, O]``."""
+        return tpar.row_parallel(x_slots, self.weight, self.bias,
+                                 self.compute_dtype)
 
 
 class LayerNorm(nn.Module):
@@ -144,13 +170,24 @@ class LayerNorm(nn.Module):
 
 class MlpBlock(nn.Module):
     def __init__(self, in_dim: int, mlp_dim: int, out_dim: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, tp_degree: int = 1):
         super().__init__()
+        self.tp_degree = tp_degree
         self.fc1 = Dense(in_dim, mlp_dim, dtype)
         self.fc2 = Dense(mlp_dim, out_dim, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp_degree > 1:
+            return self.forward_tp(x)
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+
+    def forward_tp(self, x: torch.Tensor) -> torch.Tensor:
+        """``fc1`` column-parallel, the GELU on each slot's hidden units,
+        ``fc2`` row-parallel (its sum over the slots)."""
+        h = self.fc1.forward_column(x.reshape(-1, x.shape[-1]),
+                                    self.tp_degree)
+        y = self.fc2.forward_row(F.gelu(h, approximate="tanh"))
+        return y.view(*x.shape[:-1], y.shape[-1])
 
     def forward_slots(self, x: torch.Tensor, params: dict,
                       name: str) -> torch.Tensor:
@@ -220,19 +257,35 @@ class SelfAttention(nn.Module):
 
     def __init__(self, dim: int, num_heads: int,
                  dtype: torch.dtype = torch.float32,
-                 attention_fn: Callable | None = None):
+                 attention_fn: Callable | None = None, tp_degree: int = 1):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"hidden dim {dim} not divisible by {num_heads} "
                              f"heads")
         self.num_heads = num_heads
         self.attention_fn = attention_fn
+        self.tp_degree = tp_degree
         self.qkv = Dense(dim, 3 * dim, dtype)
         self.out = Dense(dim, dim, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp_degree > 1:
+            return self.forward_tp(x)
         b, t, d = x.shape
         return self.out(self._core(self.qkv(x), b, t, d))
+
+    def forward_tp(self, x: torch.Tensor) -> torch.Tensor:
+        """``qkv`` column-parallel, the slots' columns concatenated back
+        to ``[B, T, 3D]`` (the all-gather), the core over every head,
+        slot j's columns ``[j D/tp, (j+1) D/tp)`` of its output into the
+        row-parallel ``out``."""
+        b, t, d = x.shape
+        tp = self.tp_degree
+        qkv = tpar.gather_columns(self.qkv.forward_column(
+            x.reshape(b * t, d), tp))
+        y = self._core(qkv.view(b, t, 3 * d), b, t, d)
+        return self.out.forward_row(
+            tpar.split_columns(y.reshape(b * t, d), tp)).view(b, t, d)
 
     def forward_slots(self, x: torch.Tensor, params: dict,
                       name: str) -> torch.Tensor:
@@ -255,22 +308,25 @@ class EncoderBlock(nn.Module):
     """Pre-LN encoder block; with ``moe_fn`` its MLP is a
     :class:`SwitchMoEMlp` (named ``moe``, as flax's) of ``moe_experts``
     experts of ``moe_hidden`` (default ``mlp_ratio * dim``) hidden
-    units."""
+    units. With ``tp_degree`` > 1 its attention and dense MLP run their
+    TP forms (module notes); the LayerNorms and residuals run once on the
+    whole activations, which every model slot holds alike."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: int = 4,
                  dtype: torch.dtype = torch.float32,
                  attention_fn: Callable | None = None,
                  moe_fn: Callable | None = None, moe_experts: int = 0,
-                 moe_hidden: int | None = None):
+                 moe_hidden: int | None = None, tp_degree: int = 1):
         super().__init__()
         self.ln1 = LayerNorm(dim, dtype)
-        self.attn = SelfAttention(dim, num_heads, dtype, attention_fn)
+        self.attn = SelfAttention(dim, num_heads, dtype, attention_fn,
+                                  tp_degree)
         self.ln2 = LayerNorm(dim, dtype)
         if moe_fn is not None:
             self.moe = SwitchMoEMlp(moe_fn, dim, moe_experts,
                                     moe_hidden or mlp_ratio * dim, dtype)
         else:
-            self.mlp = MlpBlock(dim, mlp_ratio * dim, dim, dtype)
+            self.mlp = MlpBlock(dim, mlp_ratio * dim, dim, dtype, tp_degree)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln1(x))
@@ -299,7 +355,8 @@ class ViT(nn.Module):
     position embedding from the first input; the port takes
     ``image_size`` up front. ``seq_group`` names the ranks that split the
     tokens (module notes; ``gap`` only). ``moe_fn``/``moe_experts``/
-    ``moe_hidden`` reach every :class:`EncoderBlock`."""
+    ``moe_hidden`` reach every :class:`EncoderBlock`, as does
+    ``tp_degree`` (the TP form, module notes)."""
 
     def __init__(self, patch_size: int = 16, hidden_dim: int = 768,
                  depth: int = 12, num_heads: int = 12, mlp_ratio: int = 4,
@@ -309,7 +366,7 @@ class ViT(nn.Module):
                  generator: torch.Generator | None = None,
                  seq_group: RankGroup | None = None,
                  moe_fn: Callable | None = None, moe_experts: int = 0,
-                 moe_hidden: int | None = None):
+                 moe_hidden: int | None = None, tp_degree: int = 1):
         super().__init__()
         if pool not in ("cls", "gap"):
             raise ValueError(f"pool must be 'cls' or 'gap', got {pool!r}")
@@ -334,10 +391,11 @@ class ViT(nn.Module):
         for i in range(depth):
             self.add_module(f"block_{i}", EncoderBlock(
                 hidden_dim, num_heads, mlp_ratio, dtype, attention_fn,
-                moe_fn, moe_experts, moe_hidden))
+                moe_fn, moe_experts, moe_hidden, tp_degree))
         self.depth = depth
         self.ln_final = LayerNorm(hidden_dim, dtype)
         self.head = Dense(hidden_dim, num_classes, dtype)
+        check_tp_degree(self, tp_degree)
         init_weights(self, generator)
 
     def named_parameters(self, prefix: str = "", recurse: bool = True,
@@ -468,16 +526,19 @@ class ViTPrologue(nn.Module):
 class EncoderStage(nn.Module):
     """``num_blocks`` encoder blocks: one pipeline stage, ``[B, T, D] ->
     [B, T, D]``, so S of them stack into the ``[S, ...]`` leaves of
-    ``parallel/pipeline.py``."""
+    ``parallel/pipeline.py``. With ``tp_degree`` > 1 the blocks run their
+    TP form (module notes), the reference's ``pp_tp_degree``."""
 
     def __init__(self, num_blocks: int, dim: int, num_heads: int,
                  mlp_ratio: int = 4, dtype: torch.dtype = torch.float32,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 tp_degree: int = 1):
         super().__init__()
         self.num_blocks = num_blocks
         for i in range(num_blocks):
-            self.add_module(f"block_{i}", EncoderBlock(dim, num_heads,
-                                                       mlp_ratio, dtype))
+            self.add_module(f"block_{i}", EncoderBlock(
+                dim, num_heads, mlp_ratio, dtype, tp_degree=tp_degree))
+        check_tp_degree(self, tp_degree)
         init_weights(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -502,6 +563,19 @@ class ViTEpilogue(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.head(self.ln_final(x)[:, 0])
         return x.to(torch.promote_types(self.compute_dtype, torch.float32))
+
+
+def check_tp_degree(module: nn.Module, tp_degree: int) -> None:
+    """Raise the reference's ``ValueError`` where ``tp_degree`` does not
+    divide a dim that the TP rule table splits (``3D``, ``D``, the MLP
+    width); a degree below 1 is refused outright."""
+    if tp_degree < 1:
+        raise ValueError(f"tp_degree must be >= 1, got {tp_degree}")
+    if tp_degree > 1:
+        names, _ = flax_names(module)
+        tpar.check_tp_split(
+            {f: tuple(to_flax_layout(module.get_parameter(t), f).shape)
+             for t, f in names.items()}, tp_degree)
 
 
 def init_weights(module: nn.Module,

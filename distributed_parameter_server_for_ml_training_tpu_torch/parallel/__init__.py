@@ -1,12 +1,13 @@
 """Parallelism of the port: the worker mesh, sync data parallelism with
 the int8 reduce-scatter ring (kernels K2-K4), over the slots of one card
 or, one process per card, over several (``multihost``), ring attention
-over sequence slots, Switch-MoE expert parallelism over expert slots and
-GPipe/1F1B pipelines over stage slots of one card. Tensor parallelism of
-the JAX package comes with ROADMAP §1 item 10, third part."""
+over sequence slots, Switch-MoE expert parallelism over expert slots,
+GPipe/1F1B pipelines over stage slots and Megatron tensor parallelism
+over model slots of one card, and the meshes of two or three axes that
+compose them (data x model, data x expert, data x model x stage)."""
 
-from .mesh import (DATA_AXIS, EXPERT_AXIS, STAGE_AXIS, Mesh, make_mesh,
-                   worker_axis_size)
+from .mesh import (DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, SEQ_AXIS, STAGE_AXIS,
+                   Mesh, make_mesh, mesh_from_shape, worker_axis_size)
 from .moe import init_moe_params, make_moe_ffn
 from .multihost import (RankGroup, fetch_replicated, host_local_slice,
                         make_global_mesh, replicate_to_mesh,
@@ -17,12 +18,16 @@ from .ring_attention import (dense_attention, make_ring_attention,
                              make_ring_flash_attention,
                              ring_attention_local)
 from .sync_dp import make_sync_dp_step, shard_batch
+from .tensor import slot_views, tp_spec_for_path
 
 __all__ = [
     "DATA_AXIS",
+    "MODEL_AXIS",
+    "SEQ_AXIS",
     "Mesh",
     "RankGroup",
     "make_mesh",
+    "mesh_from_shape",
     "worker_axis_size",
     "initialize_multihost",
     "make_global_mesh",
@@ -36,6 +41,8 @@ __all__ = [
     "make_ring_flash_attention",
     "ring_attention_local",
     "dense_attention",
+    "tp_spec_for_path",
+    "slot_views",
     "EXPERT_AXIS",
     "STAGE_AXIS",
     "make_pipeline_apply",

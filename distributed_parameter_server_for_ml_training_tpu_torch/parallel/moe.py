@@ -17,6 +17,15 @@ would put ``all_to_all_single`` there.
     expert's FFN on [E, E*C, D] (one batched product) -> transpose back
     -> gate * combine (dropped tokens -> 0)
 
+dp x ep (``data_axis``, a ``(data, expert)`` mesh of dp x E slots): the
+tokens split into ``dp * E`` shards ordered ``g * E + k`` (the
+reference's ``P(("data", "expert"))``); data group g routes its E shards
+over its own E expert slots, so the transposes stay inside the group
+(dispatch ``[dp, E, E, C, D]``), while every group's rows for expert e go
+through the one copy of e's weights (``[E, dp*E*C, D]``), so their
+gradients sum over the groups as the reference's data-axis ``psum``
+does. The statistics average over every shard of every group.
+
 Capacity C bounds the buffers; a token beyond its expert's capacity
 within its own shard is dropped (its output row is 0; in a transformer the
 residual carries it). Positions are a cumsum within each shard, as each
@@ -105,11 +114,12 @@ def _expert_ffn(x: torch.Tensor, params: dict) -> torch.Tensor:
 
 
 def _moe_body(params: dict, tokens: torch.Tensor, *, n_shards: int,
-              capacity: int):
+              capacity: int, dp: int = 1):
     """All ``n_shards`` shards of ``tokens`` ``[n, D]`` at once (the
-    reference's per-device body for every device). Returns ``([n, D],
-    stats)`` with the routing statistics averaged over the shards (the
-    reference's ``pmean``):
+    reference's per-device body for every device), ``dp`` data groups of
+    E shards each. Returns ``([n, D], stats)`` with the routing
+    statistics averaged over every shard (the reference's ``pmean`` over
+    the whole mesh):
 
     - ``aux_loss``: the Switch load-balance loss ``E * sum_e f_e * P_e``
       (``f_e`` the fraction of tokens routed to e, ``P_e`` the mean router
@@ -122,9 +132,9 @@ def _moe_body(params: dict, tokens: torch.Tensor, *, n_shards: int,
     if n % n_shards:
         raise ValueError(f"{n} tokens do not split into {n_shards} expert "
                          f"slots")
-    if e != n_shards:
-        raise ValueError(f"{e} experts for {n_shards} expert slots: one "
-                         f"expert a slot")
+    if e * dp != n_shards:
+        raise ValueError(f"{e} experts x dp {dp} for {n_shards} token "
+                         f"shards: one expert a slot")
     params = {k: params[k].to(tokens.dtype) for k in _KEYS}
     x = tokens.view(n_shards, n // n_shards, d)              # [S, n_s, D]
 
@@ -152,10 +162,12 @@ def _moe_body(params: dict, tokens: torch.Tensor, *, n_shards: int,
         (shard, expert_idx, safe_pos), x * keep[..., None].to(x.dtype),
         accumulate=True)
 
-    # -- to the experts (all_to_all), compute, and back ----------------------
-    recv = dispatch.transpose(0, 1).reshape(e, n_shards * capacity, d)
-    out = _expert_ffn(recv, params)                          # [E, S*C, D]
-    back = out.view(e, n_shards, capacity, d).transpose(0, 1)  # [S,E,C,D]
+    # -- to the experts (all_to_all within each group), compute, back -------
+    recv = dispatch.view(dp, e, e, capacity, d).permute(2, 0, 1, 3, 4) \
+        .reshape(e, n_shards * capacity, d)                 # [E, S*C, D]
+    out = _expert_ffn(recv, params)
+    back = out.view(e, dp, e, capacity, d).permute(1, 2, 0, 3, 4) \
+        .reshape(n_shards, e, capacity, d)                  # [S, E, C, D]
 
     # -- combine -------------------------------------------------------------
     gathered = back[shard, expert_idx, safe_pos]             # [S, n_s, D]
@@ -171,22 +183,21 @@ def make_moe_ffn(mesh: Mesh, capacity: int, axis: str = EXPERT_AXIS,
     the Switch aux loss and the routing statistics (:func:`_moe_body`) as
     device tensors. ``params``: ``router`` ``[D, E]``, ``w1`` ``[E, D,
     H]``, ``b1`` ``[E, H]``, ``w2`` ``[E, H, D]``, ``b2`` ``[E, D]``; cast
-    to the tokens' dtype."""
-    if data_axis is not None:
-        raise NotImplementedError(
-            f"data_axis={data_axis!r} (dp x ep) comes with ROADMAP §1 item "
-            "10, third part (two-axis meshes)")
+    to the tokens' dtype. ``data_axis`` (dp x ep): the mesh's data groups
+    each route their own ``n / dp`` tokens over the E experts (module
+    notes)."""
     if mesh.group is not None:
         raise NotImplementedError(
             "experts spread over ranks come with ROADMAP §1 item 10, "
             "fourth part (MoE over ranks)")
     if capacity < 1:
         raise ValueError(f"capacity must be >= 1, got {capacity}")
-    n_shards = mesh.shape[axis]
+    dp = 1 if data_axis is None else mesh.shape[data_axis]
+    n_shards = mesh.shape[axis] * dp
 
     def moe(params: dict, tokens: torch.Tensor):
         return _moe_body(params, tokens, n_shards=n_shards,
-                         capacity=capacity)
+                         capacity=capacity, dp=dp)
 
     return moe
 

@@ -63,7 +63,8 @@ import torch.distributed as dist
 
 from ..utils import collective_bytes
 from ..utils.device import resolve_device
-from .mesh import DATA_AXIS, Mesh, make_mesh, worker_axis_size
+from .mesh import (AXES_OVER_RANKS, DATA_AXIS, Mesh, make_mesh,
+                   worker_axis_size)
 
 
 @dataclass(frozen=True, eq=False)
@@ -164,7 +165,13 @@ def make_global_mesh(num_workers: int,
     """The mesh over every rank's slots: ``num_workers`` global slots,
     ``num_workers / R`` of them on this rank's card (``device``, by
     default :func:`process_device` of the rank). ``num_workers`` must
-    divide evenly over the ranks."""
+    divide evenly over the ranks. One axis only: the reference builds
+    ``('data', 'model')`` over processes, which comes with
+    :data:`~.mesh.AXES_OVER_RANKS`."""
+    if len(axis_names) != 1:
+        raise NotImplementedError(
+            f"a mesh of axes {tuple(axis_names)} over ranks comes with "
+            f"{AXES_OVER_RANKS}")
     group = group or world_group()
     if num_workers % group.size:
         raise ValueError(f"{num_workers} worker slots do not divide evenly "

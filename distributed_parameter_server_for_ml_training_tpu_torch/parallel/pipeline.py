@@ -32,6 +32,18 @@ order of the work, the activations held and the memory.
 
 The stacked leaves are split into the stages' views once a step (one
 ``unbind`` each), so the backward stacks each leaf's gradient once.
+
+dp x pp (``data_axis``, a ``(data, model, stage)`` mesh): the reference
+splits each microbatch's rows over the data slots (``x_spec = P(mb_axis,
+data_axis)``), each data slot running the stage ring on its rows, and the
+shard_map transpose sums the parameters' gradients over the data axis.
+On one card the data slots' rows ride together in each stage call (each
+slot's ``mb / dp`` rows side by side, as ``ViT.forward_slots`` folds
+slots into the batch): every operation is row-wise, so the numbers are
+the plain pipeline's, and the sum over the data slots is the batch sum of
+the gradient products. A stage function with ``pp_tp_degree`` > 1 is the
+TP form of ``EncoderStage`` (``models/vit.py``), whose ``model`` slots
+the stage call runs.
 """
 
 from __future__ import annotations
@@ -81,16 +93,15 @@ def stack_stage_params(per_stage_params: list):
     return _unflatten(first, [torch.stack(c) for c in cols])
 
 
-def _check_mesh(mesh: Mesh, axis: str, data_axis: str | None) -> int:
-    if data_axis is not None:
-        raise NotImplementedError(
-            f"data_axis={data_axis!r} (dp x pp) comes with ROADMAP §1 item "
-            "10, third part (two-axis meshes)")
+def _check_mesh(mesh: Mesh, axis: str, data_axis: str | None
+                ) -> tuple[int, int]:
+    """(stage slots, data slots) of the mesh."""
     if mesh.group is not None:
         raise NotImplementedError(
             "stages spread over ranks come with ROADMAP §1 item 10, fifth "
             "part (pipelines over ranks)")
-    return mesh.shape[axis]
+    return mesh.shape[axis], 1 if data_axis is None \
+        else mesh.shape[data_axis]
 
 
 def _microbatches(x: torch.Tensor, m: int) -> torch.Tensor:
@@ -139,11 +150,12 @@ def make_pipeline_apply(mesh: Mesh, stage_fn: Callable,
     ``stage_fn(one_stage_params, x) -> y`` is one stage (shape and dtype
     kept); ``stacked_params`` a tree (nested dicts) of ``[S, ...]``
     leaves; ``x`` the whole batch ``[B, ...]``, split into
-    ``num_microbatches`` equal microbatches. Differentiable by autograd in
-    the params and ``x``. ``shard_io``: None = on when the microbatch
-    count divides by the stage count; True with a count that does not
-    raises, as in the reference (module notes)."""
-    n = _check_mesh(mesh, axis, data_axis)
+    ``num_microbatches`` equal microbatches, each split over the mesh's
+    ``data_axis`` slots when given (module notes). Differentiable by
+    autograd in the params and ``x``. ``shard_io``: None = on when the
+    microbatch count divides by the stage count; True with a count that
+    does not raises, as in the reference (module notes)."""
+    n, dp = _check_mesh(mesh, axis, data_axis)
     if shard_io and num_microbatches % n:
         raise ValueError(
             f"shard_io needs microbatches ({num_microbatches}) divisible "
@@ -151,6 +163,9 @@ def make_pipeline_apply(mesh: Mesh, stage_fn: Callable,
 
     def apply(stacked_params, x: torch.Tensor) -> torch.Tensor:
         x_mb = _microbatches(x, num_microbatches)
+        if x_mb.shape[1] % dp:
+            raise ValueError(f"a microbatch of {x_mb.shape[1]} rows does "
+                             f"not split over {dp} data slots")
         ys = _gpipe(_stages(stacked_params, n), x_mb, stage_fn, remat)
         return torch.cat(ys)
 
@@ -370,7 +385,7 @@ def make_pipeline_train_step(mesh: Mesh, stage_fn: Callable,
 
     ``stage_fn`` must keep shape and dtype; checked once a shape and dtype
     of ``x`` (:func:`_check_homogeneous_stage`)."""
-    n = _check_mesh(mesh, axis, None)
+    n, _ = _check_mesh(mesh, axis, None)
     m = num_microbatches
     seen: set = set()
 

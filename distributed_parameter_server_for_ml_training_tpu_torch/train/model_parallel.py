@@ -13,21 +13,28 @@ reference's ``seq`` axis spans several chips (the CLI keeps JAX's refusal
 of ``--multihost`` outside ``--mode sync``, so this is reached through
 the API or a joined job).
 
+:class:`TPTrainer` is data x tensor parallel training of the registry
+ViT on a ``(data, model)`` mesh of ``num_workers x tp_degree`` slots on
+one card: the model's TP form (``models/vit.py`` over
+``parallel/tensor.py``) splits ``qkv``/``fc1`` by column and
+``out``/``fc2`` by row over the ``model`` slots, each slot a view of the
+whole parameters, and the batch's rows split over ``data``. ``--mode tp
+--tp-degree N``.
+
 :class:`MoETrainer` is expert-parallel training of the registry ViT:
 each block's MLP is a Switch top-1 MoE (``models/vit.py:SwitchMoEMlp``
 over ``parallel/moe.py``) with one expert a slot of an ``expert`` mesh on
-one card, the batch's tokens split over the same slots. ``--mode moe``.
+one card, the batch's tokens split over the same slots. ``--mode moe``;
+``dp_degree`` > 1 is dp x ep on a ``(data, expert)`` mesh.
 
 :class:`PipelineTrainer` is GPipe training of the CLS ViT: the prologue
 (patch embedding, CLS, positions) and the epilogue (final LayerNorm,
 head) run outside the pipeline; the ``depth`` blocks form S
 ``EncoderStage``s whose parameters are stacked ``[S, ...]``, one stage a
-slot of a ``stage`` mesh on one card (``parallel/pipeline.py``), and
-autograd through the schedule trains them. ``--mode pp``.
-
-Both keep the reference's composed forms (``dp_degree``,
-``pp_tp_degree`` > 1) for ROADMAP §1 item 10, third part, as
-:class:`TPTrainer` does: they raise ``NotImplementedError`` naming it.
+slot of the ``stage`` axis of a ``(data, model, stage)`` mesh on one card
+(``parallel/pipeline.py``), and autograd through the schedule trains
+them. ``--mode pp``; ``dp_degree`` splits each microbatch over ``data``
+and ``pp_tp_degree`` runs the stages' TP form over ``model``.
 """
 
 from __future__ import annotations
@@ -41,11 +48,12 @@ from torch import nn
 from torch.func import functional_call
 
 from ..data.cifar import Dataset, make_batches
-from ..models.registry import _DTYPES
+from ..models.registry import _DTYPES, get_model
 from ..models.vit import (EncoderStage, ViT, ViTEpilogue, ViTPrologue,
                           embed_first)
 from ..ops.flash_attention import flash_preferred
-from ..parallel.mesh import EXPERT_AXIS, SEQ_AXIS, STAGE_AXIS, make_mesh
+from ..parallel.mesh import (DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, SEQ_AXIS,
+                             STAGE_AXIS, make_mesh, mesh_from_shape)
 from ..parallel.moe import make_moe_ffn
 from ..parallel.pipeline import make_pipeline_apply
 from ..parallel.multihost import (RankGroup, make_global_mesh, rank_reduce,
@@ -71,7 +79,8 @@ class ModelParallelConfig:
     num_workers: int = 4           # seq slots (sp) / stages (pp) / experts
     tp_degree: int = 2             # model-axis size (tp mode)
     pp_microbatches: int = 8       # GPipe M (pp mode)
-    # Composed axes (dp x pp, dp x tp x pp, dp x ep): item 10, third part.
+    # Composed axes: 'data' for pp and moe (dp x pp, dp x ep), 'model'
+    # for pp (dp x tp x pp).
     dp_degree: int = 1
     pp_tp_degree: int = 1
     # MoE (moe mode): per-expert buffer = capacity_factor x the
@@ -187,32 +196,6 @@ class _EpochTrainer:
         return metrics
 
 
-class _NotPorted(_EpochTrainer):
-    slice_name = "?"
-
-    def __init__(self, dataset: Dataset,
-                 config: ModelParallelConfig | None = None):
-        raise NotImplementedError(
-            f"--mode {self.mode} is not ported yet; {type(self).__name__} "
-            f"comes with {self.slice_name}")
-
-
-_COMPOSED = "ROADMAP §1 item 10, third part (two-axis meshes)"
-
-
-class TPTrainer(_NotPorted):
-    mode = "tp"
-    slice_name = f"{_COMPOSED}: parallel/tensor.py"
-
-
-def _refuse_composed(cfg: ModelParallelConfig) -> None:
-    for name in ("dp_degree", "pp_tp_degree"):
-        if getattr(cfg, name) > 1:
-            raise NotImplementedError(
-                f"{name}={getattr(cfg, name)} is not ported yet; the "
-                f"composed meshes come with {_COMPOSED}")
-
-
 def _vit_shape(cfg: ModelParallelConfig, mode: str) -> dict:
     shape = VIT_SHAPES.get(cfg.model)
     if shape is None:
@@ -221,7 +204,6 @@ def _vit_shape(cfg: ModelParallelConfig, mode: str) -> dict:
     if cfg.dtype not in _DTYPES:
         raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, got "
                          f"{cfg.dtype!r}")
-    _refuse_composed(cfg)
     return shape
 
 
@@ -238,6 +220,63 @@ def _evaluate(eval_step, x_test, y_test, batch_size: int,
     return (int(correct) if correct is not None else 0) / max(total, 1)
 
 
+class TPTrainer(_EpochTrainer):
+    """Data x tensor parallel training of the registry ViT (``get_model``,
+    CLS pool) on a ``(data, model)`` mesh of ``num_workers x tp_degree``
+    slots on one card: the model's TP form over the ``model`` slots, the
+    plain train step, each batch's rows split over the ``data`` slots (a
+    batch the data slots do not divide is refused, as the reference's
+    ``device_put`` refuses it). On one card the data slots' rows run
+    together: every operation but the TP sums is row-wise, and the data
+    slots' gradient sum is the batch's. The parameters are the plain
+    ViT's (each model slot a view of them), so the state and checkpoints
+    are too. Evaluation in batches of 1,000, the last one short."""
+
+    mode = "tp"
+
+    def __init__(self, dataset: Dataset,
+                 config: ModelParallelConfig | None = None):
+        super().__init__(dataset, config or ModelParallelConfig())
+        cfg = self.config
+        if cfg.model not in VIT_SHAPES:
+            raise ValueError(
+                f"--mode tp supports transformer models {tuple(VIT_SHAPES)}; "
+                f"BatchNorm models train with --mode sync")
+        dp, tp = cfg.num_workers, cfg.tp_degree
+        self.mesh = make_mesh(dp, cfg.device,
+                              axis_names=(DATA_AXIS, MODEL_AXIS),
+                              num_slots=dp * tp)
+        self.device = self.mesh.device
+        self.model = get_model(cfg.model, num_classes=cfg.num_classes,
+                               dtype=cfg.dtype,
+                               image_size=dataset.x_train.shape[1],
+                               device=self.device, seed=cfg.seed,
+                               tp_degree=tp)
+        self.state = module_train_state(self.model,
+                                        server_sgd(cfg.learning_rate))
+        self._step = make_train_step(self.model, augment=cfg.augment)
+        self._eval_step = make_eval_step(self.model)
+
+    def _label(self) -> str:
+        return f"tp {self.config.num_workers}x{self.config.tp_degree}"
+
+    def _extra_metrics(self) -> dict:
+        return {"tp_degree": self.config.tp_degree}
+
+    def _train_batch(self, xb, yb, generator):
+        dp = self.mesh.shape[DATA_AXIS]
+        if xb.shape[0] % dp:
+            raise ValueError(
+                f"a batch of {xb.shape[0]} rows is split over {dp} data "
+                f"slots, which implies that its size should be divisible "
+                f"by {dp}")
+        return self._step(self.state, xb, yb, generator)
+
+    def evaluate(self) -> float:
+        return _evaluate(self._eval_step, self.dataset.x_test,
+                         self.dataset.y_test, 1000, drop_remainder=False)
+
+
 class MoETrainer(_EpochTrainer):
     """Expert-parallel training of the registry ViT (``pool='gap'``):
     every encoder block's MLP is a Switch top-1 MoE of ``num_workers``
@@ -248,7 +287,9 @@ class MoETrainer(_EpochTrainer):
     ``moe_aux_weight`` times the layers' mean Switch aux loss, and the
     routing statistics of each step are kept as device tensors and read
     once, into the run's metrics. Evaluation runs at the training batch
-    size, for which the capacity was sized."""
+    size, for which the capacity was sized. ``dp_degree`` > 1 is dp x ep
+    on a ``(data, expert)`` mesh: ``dp * num_workers`` token shards, each
+    data group routing its own over the experts (``parallel/moe.py``)."""
 
     mode = "moe"
 
@@ -258,7 +299,8 @@ class MoETrainer(_EpochTrainer):
         cfg = self.config
         shape = _vit_shape(cfg, "moe")
         n_exp = cfg.num_workers
-        n_shards = n_exp
+        dp = max(1, cfg.dp_degree)
+        n_shards = n_exp * dp
         if cfg.batch_size % n_shards:
             raise ValueError(f"batch {cfg.batch_size} not divisible by "
                              f"{n_shards} token shards (experts x dp; "
@@ -268,7 +310,15 @@ class MoETrainer(_EpochTrainer):
                 f"test set ({len(dataset.x_test)}) smaller than the batch "
                 f"size ({cfg.batch_size}) — eval runs at the training batch "
                 f"size (expert capacity is sized for it) and would be empty")
-        self.mesh = make_mesh(n_exp, cfg.device, axis_names=(EXPERT_AXIS,))
+        # The reference keeps a one-axis expert mesh at dp 1.
+        if dp > 1:
+            self.mesh = make_mesh(dp, cfg.device,
+                                  axis_names=(DATA_AXIS, EXPERT_AXIS),
+                                  num_slots=n_shards)
+        else:
+            self.mesh = make_mesh(n_exp, cfg.device,
+                                  axis_names=(EXPERT_AXIS,))
+        self.dp_degree = dp
         self.device = self.mesh.device
         h, w = dataset.x_train.shape[1:3]
         patch = shape["patch_size"]
@@ -282,7 +332,9 @@ class MoETrainer(_EpochTrainer):
                          num_classes=cfg.num_classes,
                          dtype=_DTYPES[cfg.dtype], pool="gap",
                          image_size=h, generator=gen,
-                         moe_fn=make_moe_ffn(self.mesh, self.capacity),
+                         moe_fn=make_moe_ffn(
+                             self.mesh, self.capacity,
+                             data_axis=DATA_AXIS if dp > 1 else None),
                          moe_experts=n_exp).to(self.device)
         self.state = module_train_state(self.model,
                                         server_sgd(cfg.learning_rate))
@@ -298,7 +350,7 @@ class MoETrainer(_EpochTrainer):
         cfg = self.config
         out = {"n_experts": cfg.num_workers,
                "expert_capacity": self.capacity,
-               "moe_dp_degree": cfg.dp_degree,
+               "moe_dp_degree": self.dp_degree,
                "moe_aux_weight": cfg.moe_aux_weight,
                "moe_capacity_factor": cfg.moe_capacity_factor}
         hist = [{k: float(v) for k, v in m.items()}
@@ -337,10 +389,12 @@ class PipelinedViT(nn.Module):
     stage's views (``torch.func.functional_call``) through
     ``make_pipeline_apply``. Parameter names are the flax tree's
     (``prologue/...``, ``stages/block_i/...``, ``epilogue/...``), so
-    ``utils/pytree`` maps the JAX trainer's parameters both ways."""
+    ``utils/pytree`` maps the JAX trainer's parameters both ways.
+    ``data_axis`` splits each microbatch over the mesh's data slots."""
 
     def __init__(self, prologue: ViTPrologue, stages: list[EncoderStage],
-                 epilogue: ViTEpilogue, mesh, num_microbatches: int):
+                 epilogue: ViTEpilogue, mesh, num_microbatches: int,
+                 data_axis: str | None = None):
         super().__init__()
         self.prologue = prologue
         self.stages = stages[0]
@@ -354,7 +408,7 @@ class PipelinedViT(nn.Module):
         template = self.stages
         self._pipe = make_pipeline_apply(
             mesh, lambda p, x: functional_call(template, p, (x,)),
-            num_microbatches)
+            num_microbatches, data_axis=data_axis)
 
     def named_parameters(self, prefix: str = "", recurse: bool = True,
                          remove_duplicate: bool = True):
@@ -368,9 +422,13 @@ class PipelinedViT(nn.Module):
 
 class PipelineTrainer(_EpochTrainer):
     """GPipe training of the ViT (CLS pool): ``num_workers`` stages of
-    ``depth / num_workers`` encoder blocks, one a slot of a ``stage`` mesh
-    on one card, ``pp_microbatches`` microbatches, each stage call
-    recomputed in the backward; plain SGD (:class:`PipelinedViT`)."""
+    ``depth / num_workers`` encoder blocks on the ``stage`` axis of a
+    ``(data, model, stage)`` mesh on one card (all three axes at any
+    size, as the reference's), ``pp_microbatches`` microbatches, each
+    stage call recomputed in the backward; plain SGD
+    (:class:`PipelinedViT`). ``dp_degree`` splits each microbatch over the
+    ``data`` slots, ``pp_tp_degree`` runs the stages' TP form over the
+    ``model`` slots."""
 
     mode = "pp"
 
@@ -388,12 +446,16 @@ class PipelineTrainer(_EpochTrainer):
                 f"test set ({len(dataset.x_test)}) smaller than "
                 f"pp_microbatches ({cfg.pp_microbatches}) — eval would be "
                 f"empty")
-        if cfg.batch_size % cfg.pp_microbatches:
+        dp, tp = cfg.dp_degree, cfg.pp_tp_degree
+        mb = cfg.batch_size // cfg.pp_microbatches
+        if cfg.batch_size % cfg.pp_microbatches or (dp > 1 and mb % dp):
             raise ValueError(
                 f"batch {cfg.batch_size} must split into "
                 f"{cfg.pp_microbatches} microbatches of a size divisible "
-                f"by dp_degree {cfg.dp_degree}")
-        self.mesh = make_mesh(n_stages, cfg.device, axis_names=(STAGE_AXIS,))
+                f"by dp_degree {dp}")
+        self.mesh = mesh_from_shape(
+            {DATA_AXIS: dp, MODEL_AXIS: tp, STAGE_AXIS: n_stages},
+            cfg.device)
         self.device = self.mesh.device
         h = dataset.x_train.shape[1]
         dtype = _DTYPES[cfg.dtype]
@@ -403,13 +465,14 @@ class PipelineTrainer(_EpochTrainer):
                                image_size=h, generator=gen)
         stages = [EncoderStage(shape["depth"] // n_stages,
                                shape["hidden_dim"], shape["num_heads"],
-                               dtype=dtype, generator=gen)
+                               dtype=dtype, generator=gen, tp_degree=tp)
                   for _ in range(n_stages)]
         epilogue = ViTEpilogue(hidden_dim=shape["hidden_dim"],
                                num_classes=cfg.num_classes, dtype=dtype,
                                generator=gen)
         self.model = PipelinedViT(prologue, stages, epilogue, self.mesh,
-                                  cfg.pp_microbatches).to(self.device)
+                                  cfg.pp_microbatches,
+                                  data_axis=DATA_AXIS).to(self.device)
         self.state = module_train_state(self.model,
                                         server_sgd(cfg.learning_rate))
         self._step = make_train_step(self.model, augment=cfg.augment)
@@ -417,8 +480,10 @@ class PipelineTrainer(_EpochTrainer):
 
     def _label(self) -> str:
         cfg = self.config
+        composed = (f" x dp{cfg.dp_degree}" if cfg.dp_degree > 1 else "") \
+            + (f" x tp{cfg.pp_tp_degree}" if cfg.pp_tp_degree > 1 else "")
         return (f"pp {cfg.num_workers} stages "
-                f"x{cfg.pp_microbatches} microbatches")
+                f"x{cfg.pp_microbatches} microbatches{composed}")
 
     def _extra_metrics(self) -> dict:
         return {"pp_microbatches": self.config.pp_microbatches,
@@ -429,9 +494,10 @@ class PipelineTrainer(_EpochTrainer):
         return self._step(self.state, xb, yb, generator)
 
     def evaluate(self) -> float:
-        """The reference's eval batch: a multiple of the microbatch count,
+        """The reference's eval batch: a multiple of the microbatch count
+        times ``dp_degree`` (each microbatch splits over the data slots),
         at most 1,000 and at most the test set."""
-        m = self.config.pp_microbatches
+        m = self.config.pp_microbatches * max(1, self.config.dp_degree)
         n_test = len(self.dataset.x_test)
         bs = max(min((1000 // m) * m, (n_test // m) * m), m)
         return _evaluate(self._eval_step, self.dataset.x_test,

@@ -64,7 +64,8 @@ def test_port_files_exist():
                      "analysis/__init__.py", "analysis/traces.py",
                      "analysis/device_profile.py",
                      "utils/collective_bytes.py", "parallel/multihost.py",
-                     "parallel/moe.py", "parallel/pipeline.py"):
+                     "parallel/moe.py", "parallel/pipeline.py",
+                     "parallel/tensor.py"):
         assert required in names, required
     for kernel in ("wire_quantize.cu", "block_quantize.cu",
                    "flash_attention.cu"):
@@ -298,12 +299,41 @@ def test_moe_and_pp_entry_points_default_to_cuda():
                       "--batch-size", "8", "--pp-microbatches", "2"])
 
 
+def test_tp_entry_points_default_to_cuda():
+    """``TPTrainer``, the multi-axis meshes and ``cli train --mode tp``
+    (and the composed flags) default to the card."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    from distributed_parameter_server_for_ml_training_tpu_torch import cli
+    from distributed_parameter_server_for_ml_training_tpu_torch.data import \
+        synthetic_imagenet
+    from distributed_parameter_server_for_ml_training_tpu_torch.parallel \
+        import make_mesh, mesh_from_shape
+    from distributed_parameter_server_for_ml_training_tpu_torch.train \
+        .model_parallel import TPTrainer
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh(2, axis_names=("data", "model"), num_slots=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mesh_from_shape({"data": 1, "model": 2, "stage": 2})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TPTrainer(synthetic_imagenet(n_train=8, n_test=8, image_size=32))
+    for argv in (["--mode", "tp", "--tp-degree", "4"],
+                 ["--mode", "pp", "--dp-degree", "2", "--pp-tp-degree",
+                  "2"], ["--mode", "moe", "--dp-degree", "2"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(["train", *argv, "--model", "vit_tiny", "--workers",
+                      "2", "--epochs", "1", "--dataset", "imagenet-synth",
+                      "--image-size", "32", "--num-train", "8",
+                      "--num-test", "8", "--batch-size", "8",
+                      "--pp-microbatches", "2"])
+
+
 def test_later_flags_name_only_items_8_and_9():
     """The CLI refuses only the flags and verbs of later ROADMAP items:
-    item 9's (the service's refusals name item 9 too), item 10's third
-    part (``--tp-degree``, ``--dp-degree`` and ``--pp-tp-degree`` at any
-    value but the default: the two-axis meshes) and ``perf check``,
-    which waits for item 11 (port tooling). Item 8's flags are
+    item 9's (the service's refusals name item 9 too) and ``perf
+    check``, which waits for item 11 (port tooling). Item 10's third
+    part serves ``--tp-degree``, ``--dp-degree`` and ``--pp-tp-degree``
+    at every value (the meshes of two and three axes). Item 8's flags are
     served since its second part (``--telemetry``, ``--metrics-port``,
     ``--incidents-dir``, ``--no-memory-telemetry``, the profile
     triggers, ``--profile-dir``), as are the store options and worker
@@ -316,13 +346,12 @@ def test_later_flags_name_only_items_8_and_9():
     items = set()
     for where in (*cli.LATER_FLAGS.values(), *cli.LATER_VERBS.values()):
         items |= {int(n) for n in re.findall(r"item (\d+)", where)}
-    assert items == {9, 10, 11}
+    assert items == {9, 11}
     for text in (*service.LATER.values(), *client._LATER.values()):
         assert {int(n) for n in re.findall(r"item (\d+)", text)} \
             <= {8, 9}, text
     assert set(cli.LATER_FLAGS) == {"faults", "jobs", "job", "shards",
-                                    "store_backend", "tp_degree",
-                                    "dp_degree", "pp_tp_degree"}
+                                    "store_backend"}
     assert set(cli.LATER_VERBS) == {"perf check"}
     parser = cli.build_parser()
     for argv in (["serve", "--fetch-codec", "bf16", "--elastic",
@@ -363,10 +392,10 @@ def test_later_flags_name_only_items_8_and_9():
                   "--pp-tp-degree", "1"]):
         cli._refuse_later_flags(parser.parse_args(argv))
     for flag in ("--tp-degree", "--dp-degree", "--pp-tp-degree"):
-        with pytest.raises(NotImplementedError,
-                           match="item 10 \\(two-axis meshes\\)"):
-            cli._refuse_later_flags(parser.parse_args(
-                ["train", "--mode", "pp", flag, "4"]))
+        for mode in ("tp", "pp", "moe"):
+            args = parser.parse_args(["train", "--mode", mode, flag, "4"])
+            cli._refuse_later_flags(args)
+            assert getattr(args, flag[2:].replace("-", "_")) == 4
     for verb in ("serve", "train"):
         with pytest.raises(NotImplementedError, match="item 9"):
             cli._refuse_later_flags(parser.parse_args(

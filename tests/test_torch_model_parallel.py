@@ -4,9 +4,13 @@ without augmentation, over 2 sequence slots against 2 virtual devices,
 one ``MoETrainer`` step over 4 expert slots against 4 devices and one
 ``PipelineTrainer`` step over 2 stages of 4 microbatches against 2
 devices, each from the JAX trainer's initial weights; parameters agree
-within rtol 1e-4 / atol 1e-5, the MoE metrics within 1e-5. Also the
-refusals of ROADMAP §1 item 10's third part, the CLI's moe and pp modes,
-and the synthetic ImageNet data the SP path trains on, byte for byte."""
+within rtol 1e-4 / atol 1e-5, the MoE metrics within 1e-5. The
+compositions of ROADMAP §1 item 10's third part the same way: dp x ep (a
+``MoETrainer`` step at data 2 x 4 experts against 8 devices) and dp x tp
+x pp (a ``PipelineTrainer`` step at 2 x 2 x 2), with JAX's mesh shapes;
+the composed trainers and CLI flags that were refused before it, now
+trained. Also the CLI's moe and pp modes and the synthetic ImageNet data
+the SP path trains on, byte for byte."""
 
 import json
 
@@ -19,6 +23,8 @@ from distributed_parameter_server_for_ml_training_tpu.ops.pallas import \
     flash_attention as jfa
 from distributed_parameter_server_for_ml_training_tpu.train import \
     model_parallel as jmp
+from distributed_parameter_server_for_ml_training_tpu.train.train_state \
+    import TrainState
 from distributed_parameter_server_for_ml_training_tpu.utils.pytree import \
     flatten_params as jax_flatten
 from distributed_parameter_server_for_ml_training_tpu_torch import cli
@@ -33,6 +39,23 @@ from distributed_parameter_server_for_ml_training_tpu_torch.utils.metrics \
 from distributed_parameter_server_for_ml_training_tpu_torch.utils.pytree \
     import params_from_jax, params_to_jax
 from torch_threads import one_torch_thread_per_module  # noqa: F401
+
+
+def _jitted_create_train_state(model, rng, tx, input_shape=(1, 32, 32, 3)):
+    """JAX's ``create_train_state`` with its init jitted: op by op, flax's
+    init compiles every op, several seconds a model. Both packages start
+    from the weights it returns."""
+    variables = jax.jit(lambda k: model.init(
+        k, np.ones(input_shape, np.float32), train=False))(rng)
+    return TrainState.create(apply_fn=model.apply,
+                             params=variables["params"],
+                             batch_stats=variables.get("batch_stats", {}),
+                             tx=tx)
+
+
+@pytest.fixture(autouse=True)
+def _fast_jax_init(monkeypatch):
+    monkeypatch.setattr(jmp, "create_train_state", _jitted_create_train_state)
 
 
 def _dataset(image, n_train, n_test=4):
@@ -147,17 +170,22 @@ def test_sp_trainer_resumes_from_its_checkpoint(tmp_path):
 @pytest.mark.parametrize("name,slice_name", [
     ("TPTrainer", "ROADMAP §1 item 10, third part")])
 def test_later_trainers_name_their_slice(name, slice_name):
+    """Every trainer of the JAX package is ported: the one that named its
+    slice (``slice_name``) until that slice landed now trains, with
+    JAX's mode and label."""
     _, tcfg = _configs(batch_size=2)
-    with pytest.raises(NotImplementedError, match=slice_name):
-        getattr(mp, name)(_dataset(32, n_train=2), tcfg)
-    assert getattr(mp, name).mode == getattr(jmp, name).mode
+    trainer = getattr(mp, name)(_dataset(32, n_train=2), tcfg)
+    assert trainer.mode == getattr(jmp, name).mode
+    assert trainer._label() == "tp 2x2"
+    metrics = trainer.train()
+    assert metrics["global_steps_completed"] == 1
+    assert np.isfinite(trainer.train_loss_per_epoch).all()
 
 
 def test_vit_shapes_and_config_defaults_match_jax():
     assert mp.VIT_SHAPES == jmp.VIT_SHAPES
     j, t = jmp.ModelParallelConfig(), mp.ModelParallelConfig()
-    # Every JAX field, with its default; tp_degree, dp_degree and
-    # pp_tp_degree are read to refuse what item 10's third part brings.
+    # Every JAX field, with its default.
     honoured = ("model", "num_workers", "tp_degree", "pp_microbatches",
                 "dp_degree", "pp_tp_degree", "moe_capacity_factor",
                 "moe_aux_weight", "learning_rate", "num_epochs",
@@ -257,14 +285,60 @@ def test_moe_and_pp_errors_match_jax(mode, kw, match):
         getattr(mp, name)(ds, tcfg)
 
 
+def test_dp_ep_step_matches_jax(devices):
+    """dp x ep: ``MoETrainer`` at data 2 x 4 experts (8 token shards,
+    capacity max(8, 2 x 64 / 4) = 32) against JAX's on 8 devices: mesh,
+    params, the MoE metrics."""
+    ds = _dataset(32, n_train=8, n_test=8)
+    jcfg, tcfg = _configs(batch_size=8, dp_degree=2)
+    jcfg.num_workers = tcfg.num_workers = 4
+    jt, tt = jmp.MoETrainer(ds, jcfg), mp.MoETrainer(ds, tcfg)
+    assert tt.mesh.shape == jt.mesh.shape == {"data": 2, "expert": 4}
+    assert tt.capacity == jt.capacity == 32
+    jm, tm, _ = _step_both(jt, tt)
+    assert tm["moe_dp_degree"] == jm["moe_dp_degree"] == 2
+    (want,), (got,) = jt._moe_step_metrics, tt._moe_step_metrics
+    for k in want:
+        np.testing.assert_allclose(float(got[k]), float(want[k]),
+                                   rtol=1e-5, atol=1e-6, err_msg=k)
+
+
+def test_dp_tp_pp_step_matches_jax(devices):
+    """dp x tp x pp: ``PipelineTrainer`` at data 2 x model 2 x 2 stages, 4
+    microbatches of 2 (one row a data slot), against JAX's on 8
+    devices: mesh, label, params after one step."""
+    ds = _dataset(32, n_train=8, n_test=8)
+    jcfg, tcfg = _configs(batch_size=8, pp_microbatches=4, dp_degree=2,
+                          pp_tp_degree=2)
+    jt, tt = jmp.PipelineTrainer(ds, jcfg), mp.PipelineTrainer(ds, tcfg)
+    assert tt.mesh.shape == dict(jt.mesh.shape) == \
+        {"data": 2, "model": 2, "stage": 2}
+    assert tt._label() == jt._label() == \
+        "pp 2 stages x4 microbatches x dp2 x tp2"
+    jm, tm, _ = _step_both(jt, tt)
+    for key in ("pp_microbatches", "dp_degree", "pp_tp_degree"):
+        assert tm[key] == jm[key] == jcfg.__dict__[key], key
+
+
 @pytest.mark.parametrize("name", ["MoETrainer", "PipelineTrainer"])
 @pytest.mark.parametrize("field", ["dp_degree", "pp_tp_degree"])
 def test_composed_meshes_name_item_10_part_3(name, field):
+    """The composed meshes that item 10's third part brought: each
+    trainer builds JAX's mesh for the field at 2 and trains a step
+    (``MoETrainer`` reads no ``pp_tp_degree``, as JAX's)."""
     _, tcfg = _configs(batch_size=8, pp_microbatches=4)
     setattr(tcfg, field, 2)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP §1 item 10, third part"):
-        getattr(mp, name)(_dataset(32, n_train=8, n_test=8), tcfg)
+    trainer = getattr(mp, name)(_dataset(32, n_train=8, n_test=8), tcfg)
+    want = {("MoETrainer", "dp_degree"): {"data": 2, "expert": 2},
+            ("MoETrainer", "pp_tp_degree"): {"expert": 2},
+            ("PipelineTrainer", "dp_degree"):
+                {"data": 2, "model": 1, "stage": 2},
+            ("PipelineTrainer", "pp_tp_degree"):
+                {"data": 1, "model": 2, "stage": 2}}[name, field]
+    assert trainer.mesh.shape == want
+    assert list(trainer.mesh.shape) == list(want)
+    assert trainer.train()["global_steps_completed"] == 1
+    assert np.isfinite(trainer.train_loss_per_epoch).all()
 
 
 @pytest.mark.parametrize("mode", ["moe", "pp"])
@@ -316,12 +390,22 @@ def test_cli_trains_moe_and_pp(capsys, mode, workers, extra):
     ["--mode", "tp"], ["--mode", "pp", "--dp-degree", "2"],
     ["--mode", "pp", "--pp-tp-degree", "2"],
     ["--mode", "tp", "--tp-degree", "4"]])
-def test_cli_refuses_item_10_part_3(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 10"):
-        cli.main(["train", *argv, "--model", "vit_tiny", "--workers", "2",
-                  "--epochs", "1", "--dataset", "imagenet-synth",
-                  "--image-size", "32", "--num-train", "8", "--num-test",
-                  "8", "--batch-size", "8", "--device", "cpu"])
+def test_cli_refuses_item_10_part_3(capsys, argv):
+    """What the CLI refused until item 10's third part, it now trains:
+    ``--mode tp`` and the composed pp flags, with JAX's metric fields."""
+    rc = cli.main(["train", *argv, "--model", "vit_tiny", "--workers", "2",
+                   "--epochs", "1", "--dataset", "imagenet-synth",
+                   "--image-size", "32", "--num-train", "8", "--num-test",
+                   "8", "--batch-size", "8", "--pp-microbatches", "2",
+                   "--emit-metrics", "--device", "cpu"])
+    assert rc == 0
+    (row,) = parse_metrics_lines(capsys.readouterr().out)
+    assert row["mode"] == argv[1] and row["global_steps_completed"] == 1
+    for flag, value in zip(argv[2::2], argv[3::2]):
+        assert row[flag[2:].replace("-", "_")] == int(value), flag
+    if argv[1] == "tp":
+        assert row["tp_degree"] == int(dict(zip(argv[::2], argv[1::2])).get(
+            "--tp-degree", 2))
 
 
 @pytest.mark.parametrize("image,n_train,n_test,seed", [

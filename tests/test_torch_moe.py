@@ -7,8 +7,12 @@ parameters. The routing indices are compared first, for equality: a
 near-tie routed differently would move a token's output by O(1). Then
 fp32 values within rtol 1e-5 / atol 1e-6 (the products are summed in
 another order); ``load`` and ``drop_frac`` are counts over dyadic shard
-sizes and must be equal. The dp x ep cases wait for ROADMAP §1 item 10,
-third part. Also the ViT with a MoE MLP against the flax model."""
+sizes and must be equal. The dp x ep cases (a ``(data, expert)`` mesh of
+2 x 4 slots against 2 x 4 virtual devices, ``tests/test_moe.py``'s
+composition cases): outputs, statistics and gradients against JAX's at
+generous and tight capacities, the dense reference, and JAX's dp x ep
+gradient equal to its one-group gradient. Also the ViT with a MoE MLP
+against the flax model."""
 
 import jax
 import jax.numpy as jnp
@@ -175,17 +179,131 @@ def test_float64_run_routes_alike_and_stays_close(jparams):
 
 
 def test_refusals(jparams):
-    mesh = make_mesh(E, "cpu", axis_names=(EXPERT_AXIS,))
-    with pytest.raises(NotImplementedError, match="item 10, third part"):
-        moe.make_moe_ffn(mesh, 8, data_axis="data")
-    with pytest.raises(NotImplementedError, match="item 10, third part"):
+    """What stays refused: tokens that do not split into the shards,
+    experts that are not one a slot, a two-axis mesh without its slot
+    count (JAX's "not divisible" where the count does not divide) and a
+    mesh of two axes over ranks (item 10's sixth part). The dp x ep mesh
+    item 10's third part brought builds with JAX's shape."""
+    mesh = make_mesh(2, "cpu", axis_names=("data", "expert"), num_slots=8)
+    assert mesh.shape == {"data": 2, "expert": 4}
+    assert callable(moe.make_moe_ffn(mesh, 8, data_axis="data"))
+    with pytest.raises(ValueError, match="num_slots"):
         make_mesh(2, "cpu", axis_names=("data", "expert"))
+    with pytest.raises(ValueError, match="not divisible by 3"):
+        make_mesh(3, "cpu", axis_names=("data", "expert"), num_slots=8)
+    with pytest.raises(NotImplementedError, match="item 10, sixth part"):
+        type(mesh)(2, mesh.device, "data", group=object(), axes=mesh.axes)
     with pytest.raises(ValueError, match="do not split"):
         _port(8)(_torch_params(jparams), torch.zeros(12, D))
     four = moe.make_moe_ffn(make_mesh(4, "cpu", axis_names=(EXPERT_AXIS,)),
                             8)
     with pytest.raises(ValueError, match="one expert a slot"):
         four(_torch_params(jparams), torch.zeros(16, D))
+
+
+# ---------------------------------------------------------------------------
+# dp x ep: data 2 x 4 experts
+# ---------------------------------------------------------------------------
+
+DP, E4 = 2, 4
+
+
+@pytest.fixture(scope="module")
+def jparams4():
+    return jmoe.init_moe_params(jax.random.PRNGKey(0), D, H, E4)
+
+
+def _dp_meshes():
+    return (jax_make_mesh(DP, axis_names=("data", "expert")),
+            make_mesh(DP, "cpu", axis_names=("data", "expert"),
+                      num_slots=DP * E4))
+
+
+@pytest.mark.parametrize("n,capacity,seed", [
+    (64, 64, 2),        # generous: no drops (JAX's composition case)
+    (128, 3, 7)])       # drops counted within each group's shards
+def test_dp_ep_matches_jax(devices, jparams4, n, capacity, seed):
+    """Outputs, statistics and the routing of every shard of both groups
+    against JAX's dp x ep; at the generous capacity also the dense
+    reference, the statistics summing to 1 over the whole mesh."""
+    jmesh, mesh = _dp_meshes()
+    tokens = _tokens(n, seed)
+    want_out, want = jmoe.make_moe_ffn(jmesh, capacity=capacity,
+                                       data_axis="data")(
+        jparams4, jnp.asarray(tokens))
+    params = _torch_params(jparams4)
+    out, stats = moe.make_moe_ffn(mesh, capacity, data_axis="data")(
+        params, torch.from_numpy(tokens))
+    np.testing.assert_array_equal(stats["load"].numpy(),
+                                  np.asarray(want["load"]))
+    assert float(stats["drop_frac"]) == float(want["drop_frac"])
+    np.testing.assert_array_equal(np.all(out.numpy() == 0, axis=1),
+                                  np.all(np.asarray(want_out) == 0, axis=1))
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out), **TOL)
+    for k in ("importance", "aux_loss"):
+        np.testing.assert_allclose(stats[k].numpy(), np.asarray(want[k]),
+                                   **TOL, err_msg=k)
+    if capacity >= n:
+        assert float(stats["drop_frac"]) == 0.0
+        ref = moe.dense_reference(params, torch.from_numpy(tokens))
+        np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=1e-4,
+                                   atol=1e-5)
+        assert abs(float(stats["load"].sum()) - 1.0) <= 1e-6
+    else:
+        assert float(stats["drop_frac"]) > 0
+
+
+def test_dp_ep_positions_count_within_each_group_shard(jparams4):
+    """Every token routed to expert 0: each of the 8 shards of the two
+    groups keeps its own first ``capacity`` tokens."""
+    _, mesh = _dp_meshes()
+    params = _torch_params(jparams4)
+    params["router"] = torch.zeros(D, E4)
+    params["router"][:, 0] = 1.0
+    tokens = torch.from_numpy(np.abs(_tokens(64, 3)))    # 8 a shard
+    out, stats = moe.make_moe_ffn(mesh, 2, data_axis="data")(params, tokens)
+    kept = ~torch.all(out == 0, dim=1)
+    assert kept.view(DP * E4, 8).sum(1).tolist() == [2] * (DP * E4)
+    assert float(stats["drop_frac"]) == 0.75
+
+
+def test_dp_ep_gradients_match_jax(devices, jparams4):
+    """d/d(params, tokens) of sum(out^2) + aux against JAX's dp x ep at a
+    capacity that drops tokens; at a generous one the dp x ep gradient
+    equals the one-group (ep only) gradient, JAX's data-axis psum."""
+    jmesh, mesh = _dp_meshes()
+    tokens = _tokens(128, 6)
+
+    def run(capacity, data_axis, tmesh):
+        params = _torch_params(jparams4, requires_grad=True)
+        x = torch.from_numpy(tokens).requires_grad_()
+        out, st = moe.make_moe_ffn(tmesh, capacity, data_axis=data_axis)(
+            params, x)
+        ((out ** 2).sum() + st["aux_loss"]).backward()
+        return {**{k: v.grad for k, v in params.items()}, "x": x.grad}, st
+
+    jfn = jmoe.make_moe_ffn(jmesh, capacity=4, data_axis="data")
+
+    def jloss(p, x):
+        out, st = jfn(p, x)
+        return jnp.sum(out ** 2) + st["aux_loss"]
+
+    want = jax.grad(jloss, argnums=(0, 1))(jparams4, jnp.asarray(tokens))
+    got, st = run(4, "data", mesh)
+    assert float(st["drop_frac"]) > 0
+    for k in jparams4:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[0][k]),
+                                   rtol=1e-5, atol=1e-5, err_msg=k)
+    np.testing.assert_allclose(got["x"].numpy(), np.asarray(want[1]),
+                               rtol=1e-5, atol=1e-5)
+    # Generous capacity: the grouping changes no gradient but the aux
+    # loss's (its statistics are per shard); compare out^2 alone.
+    g_dp, _ = run(128, "data", mesh)
+    g_ep, _ = run(128, None, make_mesh(E4, "cpu",
+                                       axis_names=(EXPERT_AXIS,)))
+    for k in ("w1", "b1", "w2", "b2"):
+        np.testing.assert_allclose(g_dp[k].numpy(), g_ep[k].numpy(),
+                                   rtol=1e-4, atol=1e-5, err_msg=k)
 
 
 def test_init_moe_params_shapes_match_jax(jparams):

@@ -4,7 +4,10 @@ on one device) against the JAX package's (S virtual CPU devices under
 1F1B losses and gradients against JAX's and each other's (fp32, rtol
 2e-4 / atol 1e-6 as the JAX tests hold their two schedules, the products
 summed in another order); the pipeline against the stages run in
-sequence; the homogeneous-stage and ``shard_io`` errors."""
+sequence; the homogeneous-stage and ``shard_io`` errors. dp x pp: the
+pipeline over a ``(data, stage)`` mesh, each microbatch split over the
+data slots, against JAX's ``data_axis`` pipeline on 2 x 4 devices, its
+forward and its gradients."""
 
 import jax
 import jax.numpy as jnp
@@ -19,7 +22,7 @@ from distributed_parameter_server_for_ml_training_tpu.parallel import \
 from distributed_parameter_server_for_ml_training_tpu_torch.parallel import \
     pipeline as pipe
 from distributed_parameter_server_for_ml_training_tpu_torch.parallel.mesh \
-    import STAGE_AXIS, make_mesh
+    import STAGE_AXIS, make_mesh, mesh_from_shape
 from torch_threads import one_torch_thread_per_module  # noqa: F401
 
 S, D = 4, 16
@@ -151,6 +154,40 @@ def test_forward_matches_jax(devices, stacked_np):
                                atol=1e-6)
 
 
+def test_data_axis_matches_jax(devices, stacked_np):
+    """dp 2 x 4 stages x 4 microbatches of 8 (4 rows a data slot):
+    forward and the gradients of the params and x against JAX's, within
+    the schedules' rtol 2e-4 / atol 1e-6 (module notes)."""
+    from jax.sharding import Mesh
+
+    x, y = _data(32, 12)
+    jmesh = Mesh(np.array(jax.devices()).reshape(2, S), ("data", "stage"))
+    japply = jpipe.make_pipeline_apply(jmesh, _jstage, 4, data_axis="data")
+
+    def jloss(p, xx):
+        return _jl2(japply(p, xx), jnp.asarray(y))
+
+    jp = {k: jnp.asarray(v) for k, v in stacked_np.items()}
+    want = japply(jp, jnp.asarray(x))
+    want_g = jax.grad(jloss, argnums=(0, 1))(jp, jnp.asarray(x))
+    mesh = mesh_from_shape({"data": 2, "stage": S}, "cpu")
+    apply = pipe.make_pipeline_apply(mesh, _tstage, 4, data_axis="data")
+    params = {k: v.requires_grad_() for k, v in _torch(stacked_np).items()}
+    xt = torch.from_numpy(x).requires_grad_()
+    got = apply(params, xt)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=2e-4, atol=1e-6)
+    _tl2(got, torch.from_numpy(y)).backward()
+    for k in params:
+        np.testing.assert_allclose(params[k].grad.numpy(),
+                                   np.asarray(want_g[0][k]), rtol=2e-4,
+                                   atol=1e-6, err_msg=k)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want_g[1]),
+                               rtol=2e-4, atol=1e-6)
+    with pytest.raises(ValueError, match="does not split over 2 data"):
+        apply(params, torch.zeros(12, D))      # microbatches of 3
+
+
 @pytest.mark.parametrize("schedule", ["gpipe", "1f1b"])
 def test_heterogeneous_stage_fn_raises_clear_error(stacked_np, schedule):
     x = torch.ones(16, D)
@@ -184,9 +221,13 @@ def test_errors_and_refusals():
     with pytest.raises(ValueError, match="gpipe"):
         pipe.make_pipeline_train_step(_mesh(), _tstage, _tl2, 4,
                                       schedule="zigzag")
-    with pytest.raises(NotImplementedError, match="item 10, third part"):
-        pipe.make_pipeline_apply(_mesh(), _tstage, 4, data_axis="data")
-    with pytest.raises(NotImplementedError, match="item 10, third part"):
+    # Item 10's third part: the three-axis mesh and the data axis build;
+    # make_mesh keeps JAX's rule of at most two axes.
+    mesh = mesh_from_shape({"data": 1, "model": 2, "stage": S}, "cpu")
+    assert mesh.shape == {"data": 1, "model": 2, "stage": S}
+    assert callable(pipe.make_pipeline_apply(mesh, _tstage, 4,
+                                             data_axis="data"))
+    with pytest.raises(ValueError, match="one or two axes"):
         make_mesh(S, "cpu", axis_names=("data", "model", "stage"))
 
 

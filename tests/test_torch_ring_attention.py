@@ -203,8 +203,13 @@ def test_seq_mesh():
     mesh = make_mesh(4, "cpu", axis_names=(SEQ_AXIS,))
     assert mesh.shape == {"seq": 4} and mesh.axis_name == "seq"
     assert make_mesh(2, "cpu").shape == {"data": 2}
-    with pytest.raises(NotImplementedError, match="one axis"):
-        make_mesh(2, "cpu", axis_names=("data", "model"))
+    # Two axes (item 10, third part): the trailing axis takes the slots
+    # left, as JAX's divides its devices; over ranks they stay refused.
+    two = make_mesh(2, "cpu", axis_names=("data", "model"), num_slots=8)
+    assert two.shape == {"data": 2, "model": 4}
+    assert two.axis_name == "data" and two.num_workers == 2
+    with pytest.raises(NotImplementedError, match="item 10, sixth part"):
+        type(two)(2, two.device, "data", group=object(), axes=two.axes)
     with pytest.raises(ValueError, match="sequence slots"):
         ra.make_ring_attention(make_mesh(3, "cpu", axis_names=(SEQ_AXIS,)))(
             *(torch.zeros((1, 8, H, D)),) * 3)
