@@ -262,8 +262,8 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    --push-codec fp16 --remediate --incidents-dir --journal-dir --trace``
    must freeze an incident bundle with the journal window, the cluster
    view and the flight-recorder tail; and img/s with the surfaces off
-   (``--no-memory-telemetry``) and on, in 3 pairs of turns (off, on, on,
-   off, off, on) of 32 pushes a worker, so that each on turn spans
+   (``--no-memory-telemetry``) and on, in 2 pairs of turns (off, on, on,
+   off) of 32 pushes a worker, so that each on turn spans
    several of the monitor's 5 s ticks and memory samples, with the
    spread of the off turns beside the difference; (c) phase 14 (b)'s
    topology again with each ``cli worker`` under ``--profile-dir``: each
@@ -371,6 +371,27 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    stages x 8 microbatches, one fp32 step's loss and gradients against
    plain pp (1 x 1 x 4) on the card within 1e-4; then bf16, 4 steps
    timed and one profiled.
+26. the sharded parameter-server tier and the C++ arena (``ps/sharding.py``,
+   ``comms/sharded.py``, ``native/``): (a) ResNet-18's 62 tensors split
+   over 2 shard primaries by ``partition_keys`` beside one unsharded
+   primary, all in this process on 127.0.0.1; 4 real gradient sets from
+   the card pushed by 2 workers through ``ShardedRemoteStore`` and
+   through ``RemoteStore`` (async with one push 2 steps stale, and one
+   sync round): codec none over ``DeviceParameterStore``s on the card,
+   then int8 over host stores, each worker's push encoded once by its
+   ``DeviceCodec`` (K1, counted: one launch a push). After every push the
+   union of the shards is bit-equal to the unsharded store; each shard's
+   tensors and bytes and push/fetch ms. (b) 2 ``cli serve --shard-count
+   2`` primaries (int8) and 2 ``cli worker --shards`` processes under
+   ``--profile-dir``: each shard's global step, img/s, the workers' idle
+   share and K1 events off their captures, beside phase 14 (b)'s and
+   phase 20 (c)'s unsharded pairs. (c) the arena built from
+   ``native/ps_core.cpp`` into ``build/torch_native/``; async (fp16,
+   int8, a stale push and a refused one) and sync sequences on real
+   gradients against the NumPy store (bit-equal; async int8 bit-equal to
+   the arena's own order and within rtol 1e-6 of the NumPy store's);
+   ``cli serve --store-backend native`` with one ``cli worker`` for 4
+   steps; the tracked files under ``native/`` unchanged.
    Each phase reports its own seconds.
 
 Then one JSON line of kernels and, last, the device line. Without a CUDA
@@ -2125,8 +2146,10 @@ def phase_cli(state: dict) -> None:
             raise AssertionError(f"cli {' '.join(argv)} returned {rc}")
 
 
-GRPC_WORKER_TIMEOUT_S = 420    # (b): each worker process, start to exit
-GRPC_SERVER_TIMEOUT_S = 60     # (b): the server, after its workers exit
+# Phases 14 (b), 20 (c), 26 (b), (c): each `cli worker` process, start to
+# exit, and each `cli serve`, after its workers exit.
+GRPC_WORKER_TIMEOUT_S = 420
+GRPC_SERVER_TIMEOUT_S = 60
 
 
 def _rpc_timer(remote, times: dict) -> None:
@@ -2396,91 +2419,31 @@ def _grpc_processes(state: dict, profiles: str | None = None) -> list:
     processes on the card, over gRPC on 127.0.0.1; with ``profiles``,
     each worker runs under ``--profile-dir <profiles>/w<i>`` (phase 20
     (c)). Returns each worker's METRICS_JSON rows."""
-    import os
-    import re
-    import socket
-    import tempfile
-
-    cli = [sys.executable, "-m",
-           "distributed_parameter_server_for_ml_training_tpu_torch.cli"]
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    repo = Path(__file__).resolve().parent
-    env = {**os.environ, "PYTHONPATH": str(repo)}
-    procs, late = [], None
-    # Output goes to files, so that no process blocks on a full pipe; the
-    # server's stderr is read up to its 'up' line.
-    logs = [tempfile.TemporaryFile("w+") for _ in range(5)]
-    t0 = time.perf_counter()
-    try:
-        server = subprocess.Popen(
-            cli + ["serve", "--mode", "async", "--workers", "2",
-                   "--push-codec", "int8", "--port", str(port),
-                   "--emit-metrics"],
-            cwd=repo, env=env, stdout=logs[0], stderr=subprocess.PIPE,
-            text=True)
-        procs.append(server)
-        up = None
-        while up is None:
-            line = server.stderr.readline()
-            if not line:
-                break
-            up = re.search(r"parameter server up on :(\d+)", line)
-        workers = [subprocess.Popen(
-            cli + ["worker", "--server", f"127.0.0.1:{port}",
-                   "--worker-name", f"proc-{i}", "--synthetic",
-                   "--num-train", "2048", "--epochs", "1",
-                   "--emit-metrics"]
-            + (["--profile-dir", os.path.join(profiles, f"w{i}")]
-               if profiles else []),
-            cwd=repo, env=env, stdout=logs[1 + 2 * i],
-            stderr=logs[2 + 2 * i], text=True)
-            for i in range(2)] if up else []
-        procs += workers
-        deadline = time.perf_counter() + GRPC_WORKER_TIMEOUT_S
-        for w in workers:
-            try:
-                w.wait(timeout=max(1.0, deadline - time.perf_counter()))
-            except subprocess.TimeoutExpired:
-                late = f"a cli worker still alive after " \
-                       f"{GRPC_WORKER_TIMEOUT_S} s"
-                break
-        if late is None:
-            try:
-                s_err = server.communicate(
-                    timeout=GRPC_SERVER_TIMEOUT_S)[1]
-            except subprocess.TimeoutExpired:
-                late = f"cli serve still alive {GRPC_SERVER_TIMEOUT_S} s " \
-                       f"after its workers"
-        wall = time.perf_counter() - t0
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        texts = []
-        for f in logs:
-            f.seek(0)
-            texts.append(f.read())
-            f.close()
-    if late is not None or not up:
+    port = _free_port()
+    run = _cli_topology(
+        [["--mode", "async", "--workers", "2", "--push-codec", "int8",
+          "--port", str(port)]],
+        [["--server", f"127.0.0.1:{port}", "--worker-name", f"proc-{i}",
+          "--synthetic", "--num-train", "2048", "--epochs", "1"]
+         for i in range(2)], profiles)
+    if run["late"]:
         raise AssertionError(
-            f"{late or 'cli serve never came up'}; killed. Output tails: "
-            f"{[t[-1500:] for t in texts]}")
-    s_out, outs = texts[0], [(texts[1], texts[2]), (texts[3], texts[4])]
-    rows = [_metrics_rows(out) for out, _ in outs]
-    srv = _metrics_rows(s_out)
-    rcs = {"server": server.returncode,
-           "workers": [w.returncode for w in workers]}
-    img_s = [r[-1]["local_steps_completed"] * BATCH
-             / r[-1]["total_training_time_seconds"]
-             for r in rows if r and r[-1]["total_training_time_seconds"]]
+            f"{run['late']}; killed. Output tails: {run['worker_err']} "
+            f"{[e[-1500:] for e in run['server_err']]}")
+    rows, srv = run["worker_rows"], run["server_rows"][0]
+    rcs = {"server": run["rcs"]["servers"][0],
+           "workers": run["rcs"]["workers"]}
+    img_s = _worker_img_s(rows)
     sm = srv[-1] if srv else {}
+    # Beside phase 26 (b)'s sharded numbers.
+    state["grpc_b_profiled" if profiles else "grpc_b"] = {
+        "workers_img_per_s": img_s, "img_per_s_summed": sum(img_s),
+        "wall_seconds": run["wall_seconds"],
+        "global_steps": sm.get("global_steps_completed")}
     emit({"phase": "observability" if profiles else "grpc_path",
           "form": "c_worker_processes_profiled" if profiles
           else "processes", "port": port,
-          "rcs": rcs, "wall_seconds": wall,
+          "rcs": rcs, "wall_seconds": run["wall_seconds"],
           "workers_img_per_s": img_s, "img_per_s_summed": sum(img_s),
           "worker_metrics": [r[-1] if r else None for r in rows],
           "server_metrics": sm,
@@ -2488,7 +2451,7 @@ def _grpc_processes(state: dict, profiles: str | None = None) -> list:
           * sm.get("total_parameter_updates", 0),
           "card": state["card"]})
     if rcs != {"server": 0, "workers": [0, 0]}:
-        tails = [err[-2000:] for _, err in outs] + [s_err[-2000:]]
+        tails = run["worker_err"] + [e[-2000:] for e in run["server_err"]]
         raise AssertionError(f"process exit codes {rcs}: {tails}")
     if not sm or sm.get("global_steps_completed", 0) <= 0:
         raise AssertionError(f"server metrics report no step: {sm}")
@@ -4428,7 +4391,7 @@ OBS_SERVE_STEPS = 8      # (b): batches of 128 a worker in a serve session
 # (b): batches of 128 a worker in each surfaces off/on turn: at ~550 img/s
 # a turn lasts ~15 s, three of the monitor's 5 s ticks and memory samples.
 OBS_TURN_STEPS = 32
-OBS_TURNS = (False, True, True, False, False, True)   # surfaces on?
+OBS_TURNS = (False, True, True, False)   # surfaces on?
 OBS_OVERHEAD_BOUND = 0.10   # the prediction: on within +-10 % of off
 
 
@@ -6494,6 +6457,525 @@ def phase_tp(state: dict) -> None:
         raise RuntimeError(f"tp: {problems}")
 
 
+# Phase 26: the sharded parameter-server tier and the C++ arena.
+SHARDS = 2
+SHARD_PUSHES = 4          # real gradient sets: 4 batches of 128 images
+
+
+def _shard_gradients(n: int, seed: int):
+    """``n`` real ResNet-18 gradient sets on the card (one bf16 grad step
+    each over its own batch of 128, from the same params), the initial
+    params and the model's flat names."""
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.train \
+        .steps import make_grad_step
+    from distributed_parameter_server_for_ml_training_tpu_torch.utils \
+        .pytree import params_to_jax
+
+    ds, model, _, init = main_path(-(-n // N_WORKERS), 10, seed)
+    grad_step = make_grad_step(model, augment=False)
+    params = {k: torch.from_numpy(v).cuda() for k, v in init.items()}
+    _, stats = params_to_jax(model)
+    stats = {k: torch.from_numpy(v).cuda() for k, v in stats.items()}
+    grads = [grad_step(params, stats, ds.x_train[i:i + BATCH],
+                       ds.y_train[i:i + BATCH])[0]
+             for i in range(0, n * BATCH, BATCH)]
+    return [{k: v.float() for k, v in g.items()} for g in grads], init
+
+
+def _shard_topology(init: dict, make_store):
+    """``SHARDS`` shard primaries, each serving its ``partition_keys``
+    share of ``init`` from ``make_store(params, shard_index=,
+    shard_count=)``, and one unsharded primary over all of it, every one
+    on 127.0.0.1:0 in this process. Returns (shard stores, their
+    servers, their addresses, the unsharded store, its server, its
+    address)."""
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms \
+        import ParameterService, serve
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps \
+        .sharding import ShardInfo, partition_keys
+
+    parts = partition_keys(init, SHARDS)
+    stores, svcs, servers, addrs = [], [], [], []
+    for i in range(SHARDS):
+        store = make_store({k: init[k] for k in parts[i]}, shard_index=i,
+                           shard_count=SHARDS)
+        svc = ParameterService(store)
+        server, port = serve(store, port=0, service=svc, host="127.0.0.1")
+        stores.append(store)
+        svcs.append(svc)
+        servers.append(server)
+        addrs.append(f"127.0.0.1:{port}")
+    for i, svc in enumerate(svcs):
+        svc.sharding = ShardInfo(i, SHARDS, addrs)
+    one = make_store(init)
+    one_server, one_port = serve(one, port=0, host="127.0.0.1")
+    return stores, servers, addrs, one, one_server, f"127.0.0.1:{one_port}"
+
+
+#: The scripted sequences of (a), from two workers: (op, worker, index of
+#: the gradient set). A push carries the step its worker last fetched, as
+#: PSWorker's do; in async, worker 0's third push is 2 steps stale.
+SHARD_SCRIPTS = {
+    "async": [("fetch", 0, None), ("fetch", 1, None), ("push", 1, 0),
+              ("fetch", 1, None), ("push", 1, 1), ("fetch", 1, None),
+              ("push", 0, 2), ("push", 1, 3), ("fetch", 0, None)],
+    "sync": [("fetch", 0, None), ("fetch", 1, None), ("push", 0, 0),
+             ("push", 1, 1), ("fetch", 0, None)],
+}
+
+
+def _union_diff(stores, one) -> list:
+    """Tensors where the union of the shards' params differs bit-wise
+    from the unsharded store's (a name missing or extra counts)."""
+    union = {}
+    for s in stores:
+        union.update(s.snapshot()[0])
+    ref, _ = one.snapshot()
+    if sorted(union) != sorted(ref):
+        return sorted(set(union) ^ set(ref))
+    return [k for k in ref if union[k].tobytes() != ref[k].tobytes()]
+
+
+def _sharded_script(init, grads, mode: str, codec: str, failures: list):
+    """One scripted sequence through a ``ShardedRemoteStore`` over two
+    shard primaries and through a ``RemoteStore`` over one unsharded
+    primary. codec ``none``: device stores on the card, fp32 pushes;
+    ``int8``: host stores taking the int8 wire codec (the device store
+    takes no wire codec), each worker's pushes encoded once by its own
+    ``DeviceCodec`` (K1) and sent to both. After every push the union of
+    the shards must be bit-equal to the unsharded store."""
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms \
+        import RemoteStore
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms \
+        .sharded import ShardedRemoteStore
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops \
+        .device_codec import DeviceCodec
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps import (
+        DeviceParameterStore, ParameterStore, StoreConfig)
+
+    def make_store(params, **kw):
+        cfg = StoreConfig(mode=mode, total_workers=N_WORKERS,
+                          staleness_bound=5,
+                          push_codec="int8" if codec == "int8" else None,
+                          **kw)
+        if codec == "int8":
+            return ParameterStore(params, cfg)
+        return DeviceParameterStore(params, cfg, device="cuda")
+
+    stores, servers, addrs, one, one_server, one_addr = _shard_topology(
+        init, make_store)
+    codecs = [DeviceCodec() for _ in range(N_WORKERS)]
+    fan = [ShardedRemoteStore(addrs) for _ in range(N_WORKERS)]
+    ref = [RemoteStore(one_addr) for _ in range(N_WORKERS)]
+    shard_ms = [{} for _ in range(SHARDS)]
+    one_ms: dict = {}
+    for f in fan:
+        for i, s in enumerate(f._stores):
+            _rpc_timer(s, shard_ms[i])
+    for r in ref:
+        _rpc_timer(r, one_ms)
+    outcomes, diffs = [], []
+    try:
+        ids = [(f.register_worker(f"w{w}")[0], r.register_worker(
+            f"w{w}")[0]) for w, (f, r) in enumerate(zip(fan, ref))]
+        steps = [0] * N_WORKERS
+        for op, w, gi in SHARD_SCRIPTS[mode]:
+            if op == "fetch":
+                p1, s1 = fan[w].fetch(ids[w][0])
+                p2, s2 = ref[w].fetch(ids[w][1])
+                steps[w] = s2
+                outcomes.append(("fetch", s1, s2))
+                if sorted(p1) != sorted(p2) or any(
+                        p1[k].tobytes() != p2[k].tobytes() for k in p2):
+                    failures.append(f"{mode}/{codec}: fetched params "
+                                    f"differ at step {s2}")
+                continue
+            if codec == "int8":
+                payload = codecs[w].encode_now(grads[gi])
+            else:
+                payload = {k: v.cpu().numpy() for k, v in grads[gi].items()}
+            outcomes.append(("push", fan[w].push(ids[w][0], payload,
+                                                 steps[w]),
+                             ref[w].push(ids[w][1], payload, steps[w])))
+            diffs.append(_union_diff(stores, one))
+        for w in range(N_WORKERS):
+            fan[w].job_finished(ids[w][0])
+            ref[w].job_finished(ids[w][1])
+    finally:
+        for c in fan + ref:
+            c.close()
+        for s in servers + [one_server]:
+            s.stop(grace=None).wait(10)
+    want_step = 4 if mode == "async" else 1
+    steps_now = [s.global_step for s in stores] + [one.global_step]
+    if any(o[1] != o[2] or o[1] is False for o in outcomes):
+        failures.append(f"{mode}/{codec}: outcomes differ: {outcomes}")
+    if any(diffs) or steps_now != [want_step] * (SHARDS + 1):
+        failures.append(f"{mode}/{codec}: union differs {diffs}, steps "
+                        f"{steps_now}")
+    med = lambda d: {k: float(np.median(v))  # noqa: E731
+                     for k, v in sorted(d.items())}
+    return {"outcomes": outcomes,
+            "union_bit_equal_after_each_push": [not d for d in diffs],
+            "steps": steps_now,
+            "shard_rpc_ms_median": [med(d) for d in shard_ms],
+            "unsharded_rpc_ms_median": med(one_ms),
+            "store_backend": stores[0].store_backend}
+
+
+def _sharded_in_process(state: dict, failures: list) -> dict:
+    """(a) Sharded against unsharded in one process, on real gradients."""
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
+        quantize as Q
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps \
+        .sharding import partition_keys
+
+    grads, init = _shard_gradients(SHARD_PUSHES, 26)
+    torch.cuda.synchronize()
+    parts = partition_keys(init, SHARDS)
+    owned = [{"shard": i, "tensors": len(p),
+              "bytes": int(sum(init[k].nbytes for k in p))}
+             for i, p in enumerate(parts)]
+    out = {"owned": owned, "tensors": len(init),
+           "bytes": int(sum(v.nbytes for v in init.values()))}
+    Q.wire_quantize_multi.launches = 0
+    int8_pushes = 0
+    for codec in ("none", "int8"):
+        for mode in ("async", "sync"):
+            r = _sharded_script(init, grads, mode, codec, failures)
+            out[f"{mode}_{codec}"] = r
+            if codec == "int8":
+                int8_pushes += sum(o[0] == "push" for o in r["outcomes"])
+    launches = Q.wire_quantize_multi.launches
+    want = -(-len(init) // Q.WIRE_MAX_ENTRIES) * int8_pushes
+    state["sharded_k1_launches"] = {"wire_quantize_multi": launches}
+    out["k1_launches"] = launches
+    out["k1_launches_expected"] = want
+    if launches != want:
+        failures.append(f"K1 launched {launches} times for {int8_pushes} "
+                        f"int8 pushes; expected {want}")
+    return out
+
+
+def _cli_topology(servers: list, workers: list, profiles=None) -> dict:
+    """``cli serve`` processes (``servers``: argv tails, each with its
+    ``--port``) and, once every server printed its 'up' line, ``cli
+    worker`` processes (argv tails), on the card; output to temp files,
+    everything killed at its timeout. With ``profiles``, worker i runs
+    under ``--profile-dir <profiles>/w<i>``. Returns exit codes, each
+    process's METRICS_JSON rows and output tails, and the wall seconds."""
+    import os
+    import re
+    import tempfile
+
+    cli = [sys.executable, "-m",
+           "distributed_parameter_server_for_ml_training_tpu_torch.cli"]
+    repo = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(repo)}
+    logs = [tempfile.TemporaryFile("w+")
+            for _ in range(len(servers) + 2 * len(workers))]
+    procs, srv, wrk, late, errs = [], [], [], None, []
+    t0 = time.perf_counter()
+    try:
+        for i, argv in enumerate(servers):
+            srv.append(subprocess.Popen(
+                cli + ["serve", *argv, "--emit-metrics"], cwd=repo,
+                env=env, stdout=logs[i], stderr=subprocess.PIPE, text=True))
+            procs.append(srv[-1])
+        for p in srv:
+            up, lines = None, []
+            while up is None:
+                line = p.stderr.readline()
+                if not line:
+                    break
+                lines.append(line)
+                up = re.search(r"parameter server up on :(\d+)", line)
+            errs.append("".join(lines))
+            if up is None:
+                late = f"a cli serve never came up: {''.join(lines)[-1500:]}"
+        if late is None:
+            for i, argv in enumerate(workers):
+                extra = ["--profile-dir", os.path.join(profiles, f"w{i}")] \
+                    if profiles else []
+                base = len(servers) + 2 * i
+                wrk.append(subprocess.Popen(
+                    cli + ["worker", *argv, "--emit-metrics", *extra],
+                    cwd=repo, env=env, stdout=logs[base],
+                    stderr=logs[base + 1], text=True))
+                procs.append(wrk[-1])
+            deadline = time.perf_counter() + GRPC_WORKER_TIMEOUT_S
+            for w in wrk:
+                try:
+                    w.wait(timeout=max(1.0, deadline - time.perf_counter()))
+                except subprocess.TimeoutExpired:
+                    late = f"a cli worker still alive after " \
+                           f"{GRPC_WORKER_TIMEOUT_S} s"
+                    break
+        if late is None:
+            for i, p in enumerate(srv):
+                try:
+                    errs[i] += p.communicate(
+                        timeout=GRPC_SERVER_TIMEOUT_S)[1]
+                except subprocess.TimeoutExpired:
+                    late = f"cli serve still alive " \
+                           f"{GRPC_SERVER_TIMEOUT_S} s after its workers"
+        wall = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        texts = []
+        for f in logs:
+            f.seek(0)
+            texts.append(f.read())
+            f.close()
+    n = len(servers)
+    out = {"rcs": {"servers": [p.returncode for p in srv],
+                   "workers": [p.returncode for p in wrk]},
+           "server_rows": [_metrics_rows(t) for t in texts[:n]],
+           "server_err": errs,
+           "worker_rows": [_metrics_rows(texts[n + 2 * i])
+                           for i in range(len(wrk))],
+           "worker_err": [texts[n + 2 * i + 1][-2000:]
+                          for i in range(len(wrk))],
+           "wall_seconds": wall, "late": late}
+    return out
+
+
+def _worker_img_s(rows: list) -> list:
+    return [r[-1]["local_steps_completed"] * BATCH
+            / r[-1]["total_training_time_seconds"]
+            for r in rows if r and r[-1]["total_training_time_seconds"]]
+
+
+def _sharded_processes(state: dict, failures: list) -> dict:
+    """(b) Two ``cli serve --shard-count 2`` primaries and two ``cli
+    worker --shards`` processes on the card, each worker under
+    ``--profile-dir`` (its K1 events and device busy time)."""
+    import os
+    import shutil
+    import tempfile
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.analysis \
+        import attribute_profile, load_chrome_trace, top_device_ops
+    from distributed_parameter_server_for_ml_training_tpu_torch.telemetry \
+        .profiler import find_profile_dumps
+
+    ports = [_free_port() for _ in range(SHARDS)]
+    peers = ",".join(f"127.0.0.1:{p}" for p in ports)
+    servers = [["--mode", "async", "--workers", "2", "--push-codec", "int8",
+                "--shard-count", str(SHARDS), "--shard-index", str(i),
+                "--shard-peers", peers, "--port", str(ports[i])]
+               for i in range(SHARDS)]
+    workers = [["--shards", peers, "--worker-name", f"shard-w{i}",
+                "--synthetic", "--num-train", "2048", "--epochs", "1"]
+               for i in range(N_WORKERS)]
+    profiles = tempfile.mkdtemp(prefix="sharded-profiles-")
+    try:
+        run = _cli_topology(servers, workers, profiles)
+        captures = []
+        for i, rows in enumerate(run["worker_rows"]):
+            logdir = os.path.join(profiles, f"w{i}")
+            try:
+                prof = attribute_profile(logdir)["profile"]
+                k1 = sum(op["events"] for path in find_profile_dumps(logdir)
+                         for op in top_device_ops(load_chrome_trace(path),
+                                                  10 ** 6)
+                         if "wire_quantize_multi_kernel" in op["name"])
+            except Exception as e:  # noqa: BLE001 — reported below
+                prof, k1 = {"error": repr(e)}, None
+            train_s = rows[-1]["total_training_time_seconds"] if rows \
+                else None
+            busy = prof.get("total_attributed_s")
+            captures.append({
+                "worker": i, "k1_kernel_events": k1,
+                "pushes": rows[-1]["rpc_counts"].get("PushGradrients")
+                if rows else None,
+                "device_busy_s": busy, "train_s": train_s,
+                "idle_share": 1 - busy / train_s if busy and train_s
+                else None, "basis": prof.get("basis")})
+    finally:
+        shutil.rmtree(profiles, ignore_errors=True)
+    img_s = _worker_img_s(run["worker_rows"])
+    shard_rows = [r[-1] if r else {} for r in run["server_rows"]]
+    out = {"rcs": run["rcs"], "wall_seconds": run["wall_seconds"],
+           "workers_img_per_s": img_s, "img_per_s_summed": sum(img_s),
+           "shard_global_steps": [r.get("global_steps_completed")
+                                  for r in shard_rows],
+           "shard_lines": [next((ln for ln in e.splitlines()
+                                 if "owning" in ln), None)
+                           for e in run["server_err"]],
+           "worker_captures": captures,
+           "worker_metrics": [r[-1] if r else None
+                              for r in run["worker_rows"]],
+           "phase14b_unsharded_unprofiled": state.get("grpc_b"),
+           "phase20c_unsharded_profiled": state.get("grpc_b_profiled")}
+    steps = [r[-1]["local_steps_completed"] if r else 0
+             for r in run["worker_rows"]]
+    if run["late"] or run["rcs"] != {"servers": [0] * SHARDS,
+                                     "workers": [0] * N_WORKERS}:
+        failures.append(f"(b) {run['late']} rcs {run['rcs']}: "
+                        f"{run['worker_err']} {run['server_err']}")
+    elif out["shard_global_steps"] != [sum(steps)] * SHARDS:
+        failures.append(f"(b) shard steps {out['shard_global_steps']}, "
+                        f"worker steps {steps}")
+    for c, s in zip(captures, steps):
+        # One K1 launch a push: each worker quantizes its whole push once,
+        # then the fan-out splits it; a push goes to both shards.
+        if c["k1_kernel_events"] != s or c["pushes"] != SHARDS * s:
+            failures.append(f"(b) worker capture {c}, {s} steps")
+    return out
+
+
+def _file_digests(paths) -> dict:
+    import hashlib
+    return {str(p): hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in paths}
+
+
+def _arena(state: dict, grads: list, init: dict, failures: list) -> dict:
+    """(c) The C++ arena on the GPU host: built from the checkout's
+    source, scripted sequences against the NumPy store, then one ``cli
+    serve --store-backend native`` with one ``cli worker`` on the card."""
+    import os
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.native \
+        import NativeParameterStore, bindings as B
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops \
+        .compression import fp16_compress, int8_wire_compress
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps import (
+        ParameterStore, StoreConfig, staleness_weight)
+
+    repo = Path(__file__).resolve().parent
+    tracked = [repo / "native" / n
+               for n in ("ps_core.cpp", "Makefile", "libps_core.so")]
+    before = _file_digests(tracked)
+    t0 = time.perf_counter()
+    B.load_library()
+    out = {"library": str(B.LIBRARY.relative_to(repo)),
+           "build_seconds": time.perf_counter() - t0,
+           "compiler": B._compiler()}
+    host = [{k: v.cpu().numpy() for k, v in g.items()} for g in grads]
+    # (worker, gradient set, fetched step) of each push; async bound 1:
+    # the third push is 1 step stale (down-weighted), the fourth 2
+    # (refused).
+    pushes = {"async": [(0, 0, 0), (1, 1, 1), (0, 2, 1), (1, 3, 1)],
+              "sync": [(0, 0, 0), (1, 1, 0), (0, 2, 1), (1, 3, 1)]}
+    seqs = {}
+    for mode, codec in (("async", "fp16"), ("async", "int8"),
+                        ("sync", "fp16"), ("sync", "int8")):
+        cfg = dict(mode=mode, total_workers=2, push_codec=codec,
+                   staleness_bound=1)
+        arena = NativeParameterStore(init, StoreConfig(**cfg))
+        # The arena decodes each push as it arrives; so does the NumPy
+        # store without its compressed-domain rounds.
+        numpy_store = ParameterStore(init, StoreConfig(
+            **cfg, compressed_domain=False))
+        # The arena's own int8 apply in NumPy: p - (lr·w·scale)·q, in
+        # the order ps_core.cpp computes it (the NumPy store dequantizes
+        # first: q·scale, then lr·w times that).
+        replica = {k: v.copy() for k, v in init.items()}
+        rets = []
+        for w, gi, fetched in pushes[mode]:
+            payload = (fp16_compress(host[gi]) if codec == "fp16"
+                       else int8_wire_compress(host[gi]))
+            staleness = arena.global_step - fetched
+            r = (arena.push(w, payload, fetched),
+                 numpy_store.push(w, payload, fetched))
+            rets.append(r)
+            if mode == "async" and codec == "int8" and r[0]:
+                lrw = np.float32(float(np.float32(0.1))
+                                 * staleness_weight(staleness))
+                for k in replica:
+                    scale = np.float32(lrw * np.float32(
+                        payload[k + "::int8scale"].reshape(-1)[0]))
+                    replica[k] = replica[k] - scale * payload[k].astype(
+                        np.float32)
+        a, step = arena.snapshot()
+        b, nstep = numpy_store.snapshot()
+        exact = all(a[k].tobytes() == b[k].tobytes() for k in a)
+        row = {"returns": rets, "steps": [step, nstep],
+               "bit_equal_to_numpy_store": exact,
+               "mismatched_vs_numpy_store": int(sum(
+                   (a[k] != b[k]).sum() for k in a)),
+               "max_abs_diff_vs_numpy_store": max(
+                   float(np.abs(a[k] - b[k]).max()) for k in a)}
+        if mode == "async" and codec == "int8":
+            # Bit-equal to the arena's own order; within the JAX suite's
+            # arena-vs-NumPy tolerance of the NumPy store's order.
+            row["bit_equal_to_arena_order_replica"] = all(
+                a[k].tobytes() == replica[k].tobytes() for k in a)
+            row["numpy_store_within_rtol_1e-6_atol_1e-7"] = all(
+                np.allclose(a[k], b[k], rtol=1e-6, atol=1e-7) for k in a)
+            ok = row["bit_equal_to_arena_order_replica"] \
+                and row["numpy_store_within_rtol_1e-6_atol_1e-7"]
+        else:
+            ok = exact
+        want = [(True, True), (True, True), (True, True), (False, False)] \
+            if mode == "async" else [(True, True)] * 4
+        if not ok or rets != want or step != nstep:
+            failures.append(f"(c) {mode}/{codec}: {row}")
+        seqs[f"{mode}_{codec}"] = row
+    out["sequences"] = seqs
+    port = _free_port()
+    run = _cli_topology(
+        [["--store-backend", "native", "--mode", "async", "--workers", "1",
+          "--push-codec", "int8", "--port", str(port)]],
+        [["--server", f"127.0.0.1:{port}", "--worker-name", "arena-w0",
+          "--synthetic", "--num-train", "512", "--epochs", "1"]])
+    srow = run["server_rows"][0][-1] if run["server_rows"][0] else {}
+    out["cli"] = {"rcs": run["rcs"], "wall_seconds": run["wall_seconds"],
+                  "server": srow, "workers_img_per_s":
+                  _worker_img_s(run["worker_rows"])}
+    if run["late"] or run["rcs"] != {"servers": [0], "workers": [0]} \
+            or srow.get("store_backend") != "native" \
+            or srow.get("global_steps_completed") != 4:
+        failures.append(f"(c) cli: {run['late']} {out['cli']} "
+                        f"{run['worker_err']} {run['server_err']}")
+    after = _file_digests(tracked)
+    out["tracked_native_unchanged"] = after == before
+    git = subprocess.run(["git", "status", "--porcelain", "native/"],
+                         cwd=repo, capture_output=True, text=True)
+    out["git_status_native"] = git.stdout if git.returncode == 0 \
+        else f"no git checkout (rc {git.returncode})"
+    if after != before or (git.returncode == 0 and git.stdout):
+        failures.append(f"(c) native/ changed: {before} -> {after}, "
+                        f"{git.stdout!r}")
+    if not B.LIBRARY.is_file() or os.path.commonpath(
+            [str(B.LIBRARY), str(repo / "build")]) != str(repo / "build"):
+        failures.append(f"(c) library at {B.LIBRARY}")
+    return out
+
+
+def phase_sharded(state: dict) -> None:
+    """Phase 26: the sharded parameter-server tier and the C++ arena."""
+    failures: list = []
+    t0 = time.perf_counter()
+    a = _sharded_in_process(state, failures)
+    ta = time.perf_counter() - t0
+    emit({"phase": "sharded", "form": "a_in_process", **a,
+          "seconds": ta, "card": state["card"]})
+    t1 = time.perf_counter()
+    b = _sharded_processes(state, failures)
+    emit({"phase": "sharded", "form": "b_processes", **b,
+          "seconds": time.perf_counter() - t1, "card": state["card"]})
+    t2 = time.perf_counter()
+    grads, init = _shard_gradients(SHARD_PUSHES, 27)
+    c = _arena(state, grads, init, failures)
+    emit({"phase": "sharded", "form": "c_arena", **c,
+          "seconds": time.perf_counter() - t2, "card": state["card"]})
+    emit({"phase": "sharded", "form": "summary",
+          "seconds": time.perf_counter() - t0, "failures": failures,
+          "card": state["card"]})
+    if failures:
+        raise AssertionError(f"phase 26: {failures}")
+
+
 def main() -> int:
     import torch
 
@@ -6515,7 +6997,7 @@ def main() -> int:
                   phase_grpc_path, phase_grpc_modes, phase_device_store,
                   phase_checkpoints, phase_health, phase_models,
                   phase_observability, phase_multihost, phase_sp_multihost,
-                  phase_moe, phase_pp, phase_tp):
+                  phase_moe, phase_pp, phase_tp, phase_sharded):
         t0 = time.perf_counter()
         try:
             phase(state)
@@ -6537,7 +7019,8 @@ def main() -> int:
     # other processes, and (c) reads theirs off their captures), the gRPC
     # modes' (phase 15
     # (a)), the health path's (phase 18 (a)), the models' (phase 19 (c),
-    # (d), (e)) and the serve surfaces' (phase 20 (b)); a push's times.
+    # (d), (e)), the serve surfaces' (phase 20 (b)) and the sharded
+    # tier's (phase 26 (a)); a push's times.
     kernels = []
     for name, k in state["k1"].items():
         kernels.append({
@@ -6548,7 +7031,8 @@ def main() -> int:
             + state["modes_k1_launches"][name]
             + state["health_k1_launches"][name]
             + state["models_k1_launches"]
-            + state["observe_k1_launches"],
+            + state["observe_k1_launches"]
+            + state["sharded_k1_launches"][name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],

@@ -334,9 +334,10 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--store-backend",
                    choices=["python", "native", "device"],
                    default="python",
-                   help="async parameter-store backend: host numpy, or "
-                        "device-resident (zero host-link bytes a step); "
-                        "native comes with ROADMAP §1 item 9")
+                   help="async parameter-store backend: host numpy, the "
+                        "C++ arena (built from native/ps_core.cpp into "
+                        "build/torch_native/ at first use), or "
+                        "device-resident (zero host-link bytes a step)")
     _add_worker_modes(t)
     t.add_argument("--compression", choices=["none", "bf16", "fp16", "int8"],
                    default="bf16",
@@ -411,7 +412,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fetch-side codec: bf16/fp16 halve the fetch's "
                         "bytes (the reference fetched fp32)")
     s.add_argument("--store-backend", choices=["python", "native", "device"],
-                   default="python")
+                   default="python",
+                   help="store behind the service: host numpy, the C++ "
+                        "arena (built from native/ps_core.cpp into "
+                        "build/torch_native/ at first use), or "
+                        "device-resident (--device)")
     s.add_argument("--elastic", action="store_true",
                    help="elastic membership (id-slot reuse + live round "
                         "sizing)")
@@ -537,6 +542,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="goodput fraction whose falling edge triggers a "
                         "capture (previous tick at or above, this tick "
                         "below)")
+    s.add_argument("--shard-index", type=int,
+                   default=_env("DPS_SHARD_INDEX", 0, int),
+                   help="this server's slot in a sharded deployment: it "
+                        "owns the consistent-hash key range "
+                        "slot_range(index, count) and holds only those "
+                        "parameters")
+    s.add_argument("--shard-count", type=int,
+                   default=_env("DPS_SHARD_COUNT", 1, int),
+                   help="total shard primaries in the deployment; 1 = "
+                        "unsharded (default, reference parity)")
+    s.add_argument("--shard-peers",
+                   default=_env("DPS_SHARD_PEERS", None),
+                   help="comma list of ALL shard primary addresses in "
+                        "shard order (host:port, length --shard-count); "
+                        "published to workers as the shard map at "
+                        "registration. Required when --shard-count > 1")
     _add_profile_dir(s, "the server's apply/aggregation hot path")
     _add_telemetry(s)
     s.add_argument("--faults", default=None)
@@ -547,6 +568,12 @@ def build_parser() -> argparse.ArgumentParser:
                    default=_env("PARAMETER_SERVER_ADDRESS",
                                 "localhost:8000"),
                    help="PS address (worker.py:457-459)")
+    w.add_argument("--shards", default=_env("DPS_SHARDS", None),
+                   help="sharded deployment: comma list of shard primary "
+                        "addresses (or just the shard-0 seed: the rest "
+                        "are adopted from its shard map). Pushes and "
+                        "fetches fan out per shard and reassemble; "
+                        "overrides --server")
     w.add_argument("--worker-name", default=_env("WORKER_NAME", ""))
     w.add_argument("--sync-steps", type=int,
                    default=_env("SYNC_STEPS", 1, int))
@@ -564,7 +591,6 @@ def build_parser() -> argparse.ArgumentParser:
     _add_profile_dir(w, "the worker loop")
     _add_telemetry(w)
     _add_common(w)
-    w.add_argument("--shards", default=None)
     w.add_argument("--job", default=None)
     w.add_argument("--faults", default=None)
 
@@ -623,25 +649,19 @@ LATER_FLAGS = {
     "faults": "ROADMAP §1 item 9 (comms/faults.py)",
     "jobs": "ROADMAP §1 item 9 (tenancy)",
     "job": "ROADMAP §1 item 9 (tenancy)",
-    "shards": "ROADMAP §1 item 9 (the sharded tier)",
-    "store_backend": "ROADMAP §1 item 9 (the C++ arena)",
 }
 #: Verbs of the JAX CLI whose features come with later slices.
 LATER_VERBS = {
     "perf check": "ROADMAP §1 item 11 (port tooling: tools/benchwatch)",
 }
-#: Values of a listed flag that this slice serves.
-_FLAG_SERVED = {"store_backend": ("python", "device")}
 
 
 def _refuse_later_flags(args) -> None:
-    """Raise for the first flag of a later slice given a value this slice
-    does not serve (anything but None, False or a listed value; a port
-    of 0 is a value)."""
+    """Raise for the first flag of a later slice given a value (anything
+    but None or False; a port of 0 is a value)."""
     for name, item in LATER_FLAGS.items():
         value = getattr(args, name, None)
-        if value is None or value is False \
-                or value in _FLAG_SERVED.get(name, ()):
+        if value is None or value is False:
             continue
         flag = "--" + name.replace("_", "-")
         raise NotImplementedError(
@@ -859,7 +879,10 @@ def cmd_serve(args) -> int:
     cluster health monitor, its SLO evaluator and, with ``--remediate``,
     the remediation engine are wired as JAX's ``cmd_serve`` does
     (``cli.py:1413-1490``), and so are incident capture, memory
-    telemetry and trigger-driven profiling (``cli.py:1494-1548``)."""
+    telemetry and trigger-driven profiling (``cli.py:1494-1548``). With
+    ``--shard-count`` > 1 (or ``--shard-peers``) the server is one shard
+    primary: it holds only its ``partition_keys`` share of the model's
+    tensors and publishes the shard map (JAX ``cli.py:1341-1391``)."""
     _refuse_later_flags(args)
     with _telemetry_session(args, "server"):
         return _cmd_serve(args)
@@ -876,12 +899,38 @@ def _cmd_serve(args) -> int:
     from .utils.metrics import emit_metrics_json
     from .utils.pytree import params_to_jax
 
-    if (args.sync_quorum is not None or args.round_deadline is not None) \
-            and args.mode != "sync":
+    if args.push_codec in ("int4", "topk", "adaptive") \
+            and args.store_backend != "python":
+        raise SystemExit(
+            f"--push-codec {args.push_codec} needs --store-backend python "
+            f"(the {args.store_backend} backend speaks none|fp16|int8)")
+    quorum_flags = (args.sync_quorum is not None
+                    or args.round_deadline is not None)
+    if quorum_flags and args.mode != "sync":
         raise SystemExit("--sync-quorum/--round-deadline apply to "
                          "--mode sync (async has no rounds)")
+    if quorum_flags and args.store_backend == "native":
+        raise SystemExit("--sync-quorum/--round-deadline need "
+                         "--store-backend python|device (the C++ arena "
+                         "runs its own round loop)")
     if args.restore and not args.checkpoint_dir:
         raise SystemExit("--restore needs --checkpoint-dir")
+    shard_index, shard_count = args.shard_index, args.shard_count
+    sharding = None
+    # A 1-shard server with --shard-peers is a degenerate but real
+    # topology: no partitioning, but the shard map, the replica
+    # membership and the lag gauges go live.
+    if shard_count > 1 or args.shard_peers:
+        from .ps.sharding import ShardInfo, partition_keys
+        if not 0 <= shard_index < shard_count:
+            raise SystemExit(f"--shard-index {shard_index} out of range "
+                             f"for --shard-count {shard_count}")
+        primaries = [a for a in (args.shard_peers or "").split(",") if a]
+        if len(primaries) != shard_count:
+            raise SystemExit(f"--shard-peers must list exactly "
+                             f"--shard-count={shard_count} addresses "
+                             f"(got {len(primaries)})")
+        sharding = ShardInfo(shard_index, shard_count, primaries)
     # The model is built on the CPU only to draw its initial weights
     # (get_model draws them from a CPU generator on every device, so a
     # worker's AsyncTrainer on the card starts from the same weights for
@@ -890,6 +939,15 @@ def _cmd_serve(args) -> int:
                       image_size=args.image_size, device="cpu",
                       seed=args.seed)
     flat, _ = params_to_jax(model)
+    if sharding is not None:
+        # This primary holds ONLY its consistent-hash key range; workers
+        # fan pushes and fetches out per shard and reassemble the model.
+        total = len(flat)
+        mine = set(partition_keys(flat, shard_count)[shard_index])
+        flat = {k: v for k, v in flat.items() if k in mine}
+        print(f"shard {shard_index}/{shard_count}: owning "
+              f"{len(flat)}/{total} of the model's tensors",
+              file=sys.stderr)
     store_kw = {"device": args.device} \
         if args.store_backend == "device" else {}
     store = make_store(
@@ -904,7 +962,9 @@ def _cmd_serve(args) -> int:
                     elastic=args.elastic,
                     worker_timeout=args.worker_timeout,
                     sync_quorum=args.sync_quorum,
-                    round_deadline=args.round_deadline), **store_kw)
+                    round_deadline=args.round_deadline,
+                    shard_index=shard_index, shard_count=shard_count),
+        **store_kw)
     monitor = None
     if not args.no_health_monitor:
         # On by default: the observe-only layer. --no-health-monitor also
@@ -918,6 +978,9 @@ def _cmd_serve(args) -> int:
             interval=args.health_interval, emit_stream=args.telemetry)
         set_cluster_monitor(monitor)
         monitor.start()
+        if sharding is not None:
+            # Shard identity and replica lag ride the /cluster payload.
+            monitor.sharding = sharding
         if not args.no_slo:
             from .telemetry import SloEvaluator, default_objectives
             monitor.slo = SloEvaluator(
@@ -932,7 +995,7 @@ def _cmd_serve(args) -> int:
                   f"availability "
                   f"{monitor.slo.objectives[1].target:.3g})",
                   file=sys.stderr, flush=True)
-    svc = ParameterService(store, monitor=monitor)
+    svc = ParameterService(store, monitor=monitor, sharding=sharding)
     if args.remediate or args.remediate_dry_run:
         if monitor is None:
             raise SystemExit("--remediate needs the health monitor "
@@ -1055,6 +1118,8 @@ def _cmd_serve(args) -> int:
     print(f"parameter server up on :{port} (mode={store.config.mode}, "
           f"workers={args.workers}, backend={args.store_backend}"
           + (f", restored_step={restored}" if restored is not None else "")
+          + (f", shard={shard_index}/{shard_count}"
+             if sharding is not None else "")
           + ")", file=sys.stderr, flush=True)
 
     try:
@@ -1092,7 +1157,12 @@ def _cmd_serve(args) -> int:
 
 def cmd_worker(args) -> int:
     """One remote worker: trains on ``--device`` (the card unless asked
-    for the CPU) against the server at ``--server``."""
+    for the CPU) against the server at ``--server``, or against the shard
+    primaries ``--shards`` lists through a ``ShardedRemoteStore``."""
+    if args.shards and args.job:
+        raise SystemExit("--job does not compose with --shards "
+                         "(tenancy and sharding run on separate "
+                         "servers, docs/TENANCY.md)")
     _refuse_later_flags(args)
     with _telemetry_session(args, "worker"):
         return _cmd_worker(args)
@@ -1119,7 +1189,11 @@ def _cmd_worker(args) -> int:
     model = get_model(args.model, num_classes=dataset.num_classes,
                       dtype=args.dtype, image_size=dataset.x_train.shape[1],
                       device=args.device, seed=args.seed)
-    store = RemoteStore(args.server)
+    if args.shards:
+        from .comms.sharded import ShardedRemoteStore
+        store = ShardedRemoteStore(args.shards)
+    else:
+        store = RemoteStore(args.server)
     worker = PSWorker(store, model, dataset, cfg,
                       worker_name=args.worker_name)
     with _profiler_session(args.profile_dir, args.device):

@@ -1,17 +1,19 @@
 """Multi-process communication of the port: the wire codec, the gRPC
-parameter service and its client.
+parameter service and its clients.
 
 The reference's L2 (src/communication/): a 4-RPC gRPC service. This
-package exports only what the port has: frame v2 (``wire.py``), the
-service over the port's NumPy store (``service.py``) and ``RemoteStore``
-(``client.py``). The JAX package's sharded store, replica, fault injector
-and load generator come with the serve tier (ROADMAP §1 item 9). Importing
-this package imports grpc, numpy, ml_dtypes and the port's telemetry, and
-nothing of ``ps/``.
+package exports what the port has: frame v2 (``wire.py``), the service
+over any of the port's stores, unsharded or one shard primary
+(``service.py``), ``RemoteStore`` (``client.py``) and its per-shard
+fan-out ``ShardedRemoteStore`` (``sharded.py``). The JAX package's
+replica, fault injector and load generator come with item 9's later
+parts. Of ``ps/`` this package imports only the shard partition
+(``ps/sharding.py``).
 """
 
 from .client import RemoteStore, SessionLostError
 from .service import ParameterService, RawJSON, serve
+from .sharded import ShardedRemoteStore
 from .wire import decode_tensor_dict, encode_tensor_dict
 
 __all__ = [
@@ -19,6 +21,7 @@ __all__ = [
     "RawJSON",
     "RemoteStore",
     "SessionLostError",
+    "ShardedRemoteStore",
     "decode_tensor_dict",
     "encode_tensor_dict",
     "serve",

@@ -1,8 +1,9 @@
 """gRPC client of the port: a remote ParameterStore with the in-process
 interface.
 
-The JAX package's ``comms/client.py``, carried over for a single-job,
-unsharded server. :class:`RemoteStore` duck-types the worker-facing API of
+The JAX package's ``comms/client.py``, carried over for a single-job
+server, unsharded or one shard primary. :class:`RemoteStore` duck-types
+the worker-facing API of
 :class:`~..ps.store.ParameterStore` (register_worker / fetch / push /
 gradient_scales / job_finished), so :class:`~..ps.worker.PSWorker` runs
 unchanged against a server in another process or on another host — the
@@ -20,11 +21,14 @@ with ROADMAP §1 item 8. An elastic server's live membership is cached off
 its register and fetch replies (``membership_snapshot``). Session resume
 rides on ``register_worker(retries=1)``, ``reset_channel`` and
 ``repush_last``, which replays the most recent push under the SAME token.
+A shard primary's map is adopted off the register and fetch replies
+(validated first: a garbled refresh keeps the cached map), sent back as
+``have_shard_map``, and the keys a push reply names ``disowned`` are kept
+in ``last_disowned`` for ``comms/sharded.py`` to re-route.
 
 Not in this slice, each refused with ``NotImplementedError`` naming the
 ROADMAP item: client-side fault injection, tenancy (``job``,
-``submit_job``, ``drain_job``), the shard map and ``reshard_op`` (§1 item
-9).
+``submit_job``, ``drain_job``) and ``reshard_op`` (§1 item 9).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import uuid
 import grpc
 import numpy as np
 
+from ..ps.sharding import validate_shard_map
 from ..telemetry import get_registry, now as _tnow, trace_span
 from ..telemetry.trace import current_wire_trace
 from .service import GRPC_OPTIONS, RPC_NAMES, SERVICE_NAME, RawJSON, \
@@ -61,8 +66,8 @@ _LATER = {
               "(ROADMAP §1 item 9: comms/faults.py)",
     "jobs": "tenancy (job, SubmitJob) comes with the serve tier (ROADMAP "
             "§1 item 9: ps/tenancy.py)",
-    "sharding": "the shard map and reshard come with the serve tier "
-                "(ROADMAP §1 item 9: comms/sharded.py)",
+    "reshard": "reshard and migration come with the serve tier's later "
+               "part (ROADMAP §1 item 9)",
 }
 
 
@@ -138,6 +143,16 @@ class RemoteStore:
         self.health_provider = None
         self.health_revision = None
         self._health_enc: tuple | None = None  # guarded by: self._wire_lock
+        #: A shard primary's published map (``ps/sharding.py`` schema),
+        #: adopted off the register reply (its presence is the capability)
+        #: and refreshed off fetch replies, delta-gated on the version sent
+        #: back as ``have_shard_map``. None against an unsharded server.
+        self.shard_map = None
+        self._shard_map_version = 0
+        #: Keys the last push reply named disowned: the primary's map moved
+        #: while this client pushed on a cached one, so that slice did not
+        #: apply there (``comms/sharded.py`` re-routes it).
+        self.last_disowned: list[str] = []
         self.config = _RemoteConfig()
         # Wire accounting of SUCCESSFUL RPCs (wire_stats), under a lock:
         # concurrent RPCs release the GIL.
@@ -257,11 +272,22 @@ class RemoteStore:
                     "wire_bytes_in": self.wire_bytes_in,
                     "rpc_counts": dict(self.rpc_counts)}
 
-    def _note_reply(self, reply_meta: dict) -> None:
-        """What a register/fetch/push reply may carry that this slice
-        does not serve: refused, never silently ignored."""
-        if reply_meta.get("shard_map") is not None:
-            raise _later("sharding")
+    def _note_shard_map(self, reply_meta: dict) -> None:
+        """Adopt a piggybacked shard map (register/fetch/push reply meta).
+        Validated before adoption; a garbled or older map leaves the
+        cached one in place, so routing never regresses off a bad
+        refresh."""
+        m = reply_meta.get("shard_map")
+        if m is None:
+            return
+        try:
+            norm = validate_shard_map(m)
+        except ValueError:
+            return
+        if self.shard_map is None \
+                or norm["version"] >= self._shard_map_version:
+            self.shard_map = norm
+            self._shard_map_version = norm["version"]
 
     def _note_membership(self, reply_meta: dict) -> None:
         m = reply_meta.get("active_workers")
@@ -357,7 +383,6 @@ class RemoteStore:
                 b_in.inc(len(raw))
                 c_ok.inc()
                 reply, _ = unpack_msg(raw)
-                self._note_reply(reply)
                 self.push_codec = reply.get("push_codec", "none")
                 self.fetch_codec = reply.get("fetch_codec", "none")
                 self.supports_delta_fetch = bool(
@@ -379,6 +404,10 @@ class RemoteStore:
                     self._directive_last_seq = 0
                     self._qscales, self._qscale_step = {}, 0
                 self._note_qscales(reply)
+                # A restarted primary's map versions restart from 1, so
+                # the cached version must not suppress the fresh map.
+                self.shard_map, self._shard_map_version = None, 0
+                self._note_shard_map(reply)
                 self.config.elastic = bool(reply.get("elastic", False))
                 self.config.mode = reply.get("mode", "sync")
                 self.config.learning_rate = float(
@@ -447,16 +476,18 @@ class RemoteStore:
         if self.supports_compressed_domain:
             with self._wire_lock:
                 meta["have_qscales"] = self._qscale_step
+        if self.shard_map is not None:
+            meta["have_shard_map"] = self._shard_map_version
         if self.supports_trace_context:
             wt = current_wire_trace()
             if wt is not None:
                 meta["trace"] = wt
         reply = self._invoke("FetchParameters", pack_msg(meta))
         rmeta, payload = unpack_msg(reply)
-        self._note_reply(rmeta)
         self._note_membership(rmeta)
         self._note_qscales(rmeta)
         self._note_directives(rmeta)
+        self._note_shard_map(rmeta)
         if rmeta.get("not_modified"):
             self._tm_fetch_nm.inc()
             return {}, int(rmeta["global_step"])
@@ -489,12 +520,19 @@ class RemoteStore:
         self._last_push = (token, payload, int(fetched_step))
         reply = self._invoke("PushGradrients", pack_msg(meta, payload))
         rmeta, _ = unpack_msg(reply)
-        self._note_reply(rmeta)
         self._note_directives(rmeta)
+        # A push that raced a map move comes back with the primary's fresh
+        # map and the keys it disowned; the map is adopted first, so a
+        # re-route already targets the new owner.
+        self._note_shard_map(rmeta)
+        if self.shard_map is not None:
+            d = rmeta.get("disowned")
+            self.last_disowned = \
+                [str(k) for k in d] if isinstance(d, list) else []
         return bool(rmeta["accepted"])
 
     def reshard_op(self, op: str, payload: bytes = b"", **fields):
-        raise _later("sharding")
+        raise _later("reshard")
 
     def submit_job(self, spec: str) -> dict:
         raise _later("jobs")

@@ -1,9 +1,9 @@
 """gRPC parameter service of the port: the reference wire protocol.
 
 The JAX package's ``comms/service.py``, carried over for what a
-single-job, unsharded server does: the same four unary-unary RPCs under
-the same service name, including the load-bearing wire-protocol typo
-``PushGradrients`` (ps.proto:12)::
+single-job server does, unsharded or as one shard primary: the same four
+unary-unary RPCs under the same service name, including the load-bearing
+wire-protocol typo ``PushGradrients`` (ps.proto:12)::
 
     /ps.ParameterServer/RegisterWorker
     /ps.ParameterServer/PushGradrients
@@ -39,12 +39,19 @@ the params to the host in one staged copy, and a push's decoded arrays
 the store, one copy each; the replies are a JAX service's over a JAX
 ``DeviceParameterStore``.
 
+Sharded (``sharding=ShardInfo``, ``ps/sharding.py``), the service is one
+primary of a consistent-hash partition, as the JAX service is: the
+registration reply publishes the shard map, fetch replies refresh it
+only when it is newer than the client's ``have_shard_map``, replica
+announces riding fetch meta feed the live replica membership, and a
+push's keys whose slot this primary does not own are dropped from the
+apply and named in the reply (``disowned``) beside the fresh map.
+
 Not in this slice, each refused with ``NotImplementedError`` naming the
-ROADMAP item when a caller asks for it: fault injection and sharding
-(the serve tier, §1 item 9), tenancy with its weighted-fair admission
-and ``SubmitJob`` (item 9), and reshard/migration (item 9). Over the
-wire the ``Reshard`` and ``SubmitJob`` RPCs answer UNIMPLEMENTED with that
-text.
+ROADMAP item when a caller asks for it: fault injection (§1 item 9),
+tenancy with its weighted-fair admission and ``SubmitJob`` (item 9), and
+reshard and migration (item 9's later part). Over the wire the
+``Reshard`` and ``SubmitJob`` RPCs answer UNIMPLEMENTED with that text.
 """
 
 from __future__ import annotations
@@ -59,6 +66,7 @@ from concurrent import futures
 
 import grpc
 
+from ..ps.sharding import key_slot
 from ..telemetry import LATENCY_BUCKETS, get_registry, journal_event, \
     now, trace_enabled, trace_span
 from ..telemetry.registry import ExemplarSampler
@@ -107,13 +115,10 @@ RPC_NAMES = ("RegisterWorker", "PushGradrients", "FetchParameters",
 LATER = {
     "faults": "fault injection comes with the serve tier (ROADMAP §1 "
               "item 9: comms/faults.py)",
-    "sharding": "sharding, replicas and topology come with the serve tier "
-                "(ROADMAP §1 item 9: ps/sharding.py, comms/sharded.py, "
-                "comms/replica.py)",
     "jobs": "tenancy, weighted-fair admission and SubmitJob come with the "
             "serve tier (ROADMAP §1 item 9: ps/tenancy.py)",
-    "reshard": "reshard and migration come with the serve tier (ROADMAP "
-               "§1 item 9)",
+    "reshard": "reshard and migration come with the serve tier's later "
+               "part (ROADMAP §1 item 9)",
 }
 
 
@@ -199,12 +204,15 @@ class ParameterService:
     def __init__(self, store, faults=None, monitor=None,
                  reject_nonfinite: bool = False, sharding=None,
                  jobs=None):
-        asked = {"faults": faults is not None,
-                 "sharding": sharding is not None, "jobs": jobs is not None}
+        asked = {"faults": faults is not None, "jobs": jobs is not None}
         for what, on in asked.items():
             if on:
                 raise later(what)
         self.store = store
+        # Sharding state (ps/sharding.py ShardInfo): when set, this server
+        # is ONE shard primary of a consistent-hash partition. None = the
+        # single-server wire, byte-identical to an unsharded JAX server.
+        self.sharding = sharding
         # A push whose OWN health report flags a non-finite loss or grad
         # norm is refused synchronously: the evidence and the poison ride
         # the same envelope, so this is the only reaction that beats the
@@ -269,6 +277,7 @@ class ParameterService:
         self._nm_cond = threading.Condition(self._nm_lock)
         self._tm_nm_cache_hits = reg.counter(
             "dps_fetch_nm_cache_hits_total")
+        self._tm_disowned = reg.counter("dps_push_disowned_keys_total")
 
     # -- directive channel ---------------------------------------------------
 
@@ -404,6 +413,81 @@ class ParameterService:
             return {}
         return {"qscales": scales, "qscale_step": step}
 
+    def _shard_fields(self, have_version=None) -> dict:
+        """Shard-map fields for a reply: the full map at registration
+        (``have_version`` None; its presence there IS the capability
+        advertisement), then refreshed via fetch replies only when the
+        client's known version (``have_shard_map``) is older. An
+        unsharded server contributes nothing."""
+        if self.sharding is None:
+            return {}
+        try:
+            have = None if have_version is None else int(have_version)
+        except (TypeError, ValueError):
+            have = None  # garbled version: resend the map, never fail
+        m = self.sharding.shard_map()
+        if have is not None and have >= m["version"]:
+            return {}
+        return {"shard_map": m}
+
+    def _note_replica(self, meta: dict) -> None:
+        """Ingest a replica announce riding fetch meta: ``replica:
+        {shard_id, address}`` plus the fetch's own ``have_step`` gives the
+        primary this replica's applied step (the ``dps_replica_lag_*``
+        gauges and the published replica list). An interior node forwards
+        its subtree as ``descendants`` rows, at most 64. Never fails the
+        fetch."""
+        rep = meta.get("replica")
+        if self.sharding is None or not isinstance(rep, dict):
+            return
+        try:
+            self.sharding.note_replica(rep.get("address"),
+                                       meta.get("have_step", 0),
+                                       self.store.global_step,
+                                       metrics=rep.get("metrics"),
+                                       parent=rep.get("parent"),
+                                       tier=rep.get("tier"),
+                                       fetches=rep.get("fetches"))
+            for d in (rep.get("descendants") or [])[:64]:
+                if isinstance(d, dict):
+                    self.sharding.note_replica(
+                        d.get("address"), d.get("step", 0),
+                        self.store.global_step,
+                        metrics=d.get("metrics"),
+                        parent=d.get("parent"), tier=d.get("tier"),
+                        fetches=d.get("fetches"))
+        except Exception:  # noqa: BLE001
+            pass
+
+    def _topology_fields(self, have_version=None) -> dict:
+        """Fan-out-tree topology fields for a reply: attached only for
+        replica polls that sent ``have_topology`` with a version older
+        than the live one, so steady-state NM replies stay
+        attachment-free and cacheable."""
+        if self.sharding is None \
+                or not callable(getattr(self.sharding, "topology", None)):
+            return {}
+        try:
+            have = None if have_version is None else int(have_version)
+        except (TypeError, ValueError):
+            have = None  # garbled version: resend the view, never fail
+        topo = self.sharding.topology()
+        if have is not None and have >= topo["version"]:
+            return {}
+        return {"topology": topo}
+
+    def _disowned_keys(self, names) -> list[str]:
+        """Pushed keys whose slot this primary does not currently own
+        (the map moved under the client). Routed on the BASE tensor name,
+        so codec companions (``name::int8scale``) travel with their
+        tensor. (The JAX service also disowns the slots a reshard is
+        draining away; reshard comes with item 9's later part.)"""
+        if self.sharding is None:
+            return []
+        lo, hi = self.sharding.my_range()
+        return [k for k in names
+                if not lo <= key_slot(str(k).split("::", 1)[0]) < hi]
+
     def register_worker(self, request: bytes, ctx) -> bytes:
         meta, _ = unpack_msg(request)
         self._expire_tick()
@@ -423,8 +507,8 @@ class ParameterService:
                 self._directive_capable.add(worker_id)
             else:
                 self._directive_capable.discard(worker_id)
-        # The keys and their order are a JAX server's without jobs or
-        # sharding.
+        # The keys and their order are a JAX server's without jobs; the
+        # shard map comes last, present only on a shard primary.
         return pack_msg({
             "worker_id": worker_id,
             "total_workers": total,
@@ -445,6 +529,7 @@ class ParameterService:
             "checksum": True,
             **self._qscale_fields(),
             **self._membership_fields(),
+            **self._shard_fields(),
         })
 
     def _ingest_health(self, worker_id, meta: dict) -> None:
@@ -578,6 +663,17 @@ class ParameterService:
                         del self._push_seen[nonce]
                 entry[2].set()
             return self._refuse_corrupt(wid, meta)
+        # Ownership filter: keys whose slot this primary does not own are
+        # dropped from the apply and NAMED in the reply beside a fresh
+        # map, so the client re-routes that slice to the current owner.
+        # The rest applies: round accounting sees the worker either way.
+        disowned = self._disowned_keys(grads)
+        shard_extra: dict = {}
+        if disowned:
+            for k in disowned:
+                grads.pop(k, None)
+            self._tm_disowned.inc(len(disowned))
+            shard_extra = {"disowned": disowned, **self._shard_fields()}
         accepted = False
         try:
             accepted = store.push(wid, grads, int(meta["fetched_step"]))
@@ -590,6 +686,7 @@ class ParameterService:
                 entry[2].set()
         return pack_msg({"received": True, "accepted": accepted,
                          "global_step": store.global_step,
+                         **shard_extra,
                          **self._directive_fields(wid, meta)})
 
     # -- durable push-token journal ------------------------------------------
@@ -646,12 +743,17 @@ class ParameterService:
         # Heartbeat pings are fetches: the report rides the ping's meta,
         # so a delta-gated ping still refreshes the monitor's view.
         self._ingest_health(wid, meta)
+        self._note_replica(meta)
         have = meta.get("have_step")
         # The scale-table refresh rides the same reply, delta-gated on the
         # client's known version.
         qfields = self._qscale_fields(meta["have_qscales"]) \
             if "have_qscales" in meta else {}
         dfields = self._directive_fields(wid, meta)
+        sfields = self._shard_fields(meta["have_shard_map"]) \
+            if "have_shard_map" in meta else {}
+        tfields = self._topology_fields(meta["have_topology"]) \
+            if "have_topology" in meta else {}
         if have is not None \
                 and getattr(store, "supports_delta_fetch", False):
             params, step = store.fetch(wid, have_step=int(have))
@@ -659,10 +761,11 @@ class ParameterService:
                 # Version-gated delta fetch: the step hasn't advanced past
                 # what the client holds — the reply is a header.
                 mfields = self._membership_fields()
-                if qfields or dfields:
+                if qfields or dfields or sfields or tfields:
                     return pack_msg({"global_step": step,
                                      "not_modified": True, **qfields,
-                                     **dfields, **mfields})
+                                     **dfields, **sfields, **tfields,
+                                     **mfields})
                 # Attachment-free NM reply: serve the cached encode.
                 key = (step, repr(mfields))
                 with self._nm_lock:
@@ -697,6 +800,7 @@ class ParameterService:
         if getattr(store, "keeps_device_arrays", False):
             params = store.to_host(params)
         return pack_msg({"global_step": step, **qfields, **dfields,
+                         **sfields, **tfields,
                          **self._membership_fields()},
                         encode_tensor_dict(params))
 

@@ -1,6 +1,7 @@
 """Parameter stores and workers of the port: the in-process NumPy store
-(``make_store("python", ...)``), the device-resident store
-(``make_store("device", ...)``) and the PS workers that drive them."""
+(``make_store("python", ...)``), the C++ arena (``make_store("native",
+...)``), the device-resident store (``make_store("device", ...)``), the
+shard partition (``sharding.py``) and the PS workers that drive them."""
 
 from .semantics import (
     DEFAULT_STALENESS_BOUND,
@@ -9,19 +10,21 @@ from .semantics import (
     staleness_weight,
 )
 from .device_store import DeviceParameterStore
+from .sharding import (SHARD_SLOTS, ShardInfo, partition_keys,
+                       shard_for_key, validate_shard_map)
 from .store import ParameterStore, StoreConfig
 from .worker import PSWorker, WorkerConfig, WorkerResult, run_workers
 
 
 def make_store(backend: str, flat_params, config: StoreConfig,
                device: str = "cuda"):
-    """Build a parameter store by backend name: 'python' (host NumPy) or
-    'device' (params on ``device``, the card unless the caller asks for
-    the CPU). 'native' (the C++ arena) comes with ROADMAP §1 item 9."""
+    """Build a parameter store by backend name: 'python' (host NumPy),
+    'native' (the C++ arena on the host, built from ``native/ps_core.cpp``
+    at first use; a failed build raises) or 'device' (params on
+    ``device``, the card unless the caller asks for the CPU)."""
     if backend == "native":
-        raise NotImplementedError(
-            "store backend 'native' is not ported yet; the C++ arena "
-            "comes with ROADMAP §1 item 9 (native/ps_core.cpp)")
+        from ..native import NativeParameterStore
+        return NativeParameterStore(flat_params, config)
     if backend == "device":
         return DeviceParameterStore(flat_params, config, device=device)
     if backend != "python":
@@ -31,6 +34,8 @@ def make_store(backend: str, flat_params, config: StoreConfig,
 
 __all__ = [
     "DEFAULT_STALENESS_BOUND",
+    "SHARD_SLOTS",
+    "ShardInfo",
     "DeviceParameterStore",
     "PSWorker",
     "ParameterStore",
@@ -39,7 +44,10 @@ __all__ = [
     "WorkerResult",
     "make_store",
     "mean_gradients",
+    "partition_keys",
     "run_workers",
     "sgd_apply",
+    "shard_for_key",
     "staleness_weight",
+    "validate_shard_map",
 ]

@@ -5,11 +5,13 @@ async staleness weighting and its bound, compressed-domain rounds over
 quantized pushes, elastic membership and expiry, quorum and deadline
 rounds, the fetch codecs, and the snapshot and migration surface. The
 store is NumPy on the host and framework-neutral, so these are the
-reference's line for line. ``shard_index``, ``shard_count`` and ``job_id``
-are identity fields only, validated as the JAX store validates them; the
-sharded tier and tenancy that act on them come with a later slice. The
-device-resident store (``ps/device_store.py``) shares the orchestration
-of :class:`AggregationBase`.
+reference's line for line. ``shard_index`` and ``shard_count`` are the
+identity a shard primary's snapshots carry (``cli serve --shard-index``,
+``checkpoint/manager.py:check_shard_identity``); ``job_id`` is validated
+as the JAX store validates it, and tenancy, which acts on it, comes with
+a later slice. The device-resident store (``ps/device_store.py``) shares
+the orchestration of :class:`AggregationBase`, and the C++ arena
+(``native/store.py``) its membership and instruments.
 
 The re-hosting of ``src/parameter_server/server.py``: canonical
 parameters live on the host CPU as a flat ``{name: np.ndarray}`` dict
@@ -126,7 +128,8 @@ class StoreConfig:
     # Composable with sync_quorum; None disables.
     round_deadline: float | None = None
     # Shard and job identity, validated as the JAX store validates them;
-    # the sharded tier and tenancy that act on them are a later slice.
+    # a shard primary's snapshots carry the shard's (tenancy, which acts
+    # on the job, is a later slice).
     shard_index: int = 0
     shard_count: int = 1
     job_id: str = "default"
@@ -180,32 +183,9 @@ class _Stats:
     start_time: float = field(default_factory=time.time)
 
 
-class AggregationBase:
-    """Membership, sync-round and async-apply orchestration of an
-    in-process store. A subclass supplies ``_round_update(grad_dicts,
-    lr)`` and ``_apply(grads, lr, weight)`` and the state they use, and
-    may override ``_after_apply()``.
-
-    Membership (server.py:190-211, 306-318): sequential ids under the
-    registration lock (the lowest free slot under ``elastic``); JobFinished
-    removes a worker and the final stats fire when the active set empties;
-    ``worker_timeout`` expires silent workers."""
-
-    store_backend = "python"
-
-    # Cross-thread contracts: pusher threads, the round-deadline timer and
-    # the reaper meet on this state.
-    parameters: dict  # guarded by: self._param_lock
-    global_step: int  # guarded by: self._param_lock
-    _pending: dict  # guarded by: self._sync_lock
-    _gradients_received: int  # guarded by: self._sync_lock
-    _round_serial: int  # guarded by: self._sync_lock
-    _deadline_timer: object  # guarded by: self._sync_lock
-    _last_round_trigger: object  # guarded by: self._sync_lock
-    _next_worker_id: int  # guarded by: self._registration_lock
-    active_workers: set  # guarded by: self._registration_lock
-    last_seen: dict  # guarded by: self._registration_lock
-    _excluded: set  # guarded by: self._registration_lock
+class TelemetryMixin:
+    """Store-side live instruments shared by the three backends (host
+    NumPy, device, C++ arena), as the JAX package's mixin of that name."""
 
     def _init_telemetry(self) -> None:
         """Store-side live instruments, created ONCE at construction and
@@ -255,23 +235,21 @@ class AggregationBase:
         self._tm_excluded = reg.gauge("dps_store_excluded_workers",
                                       backend=b)
 
-    def _init_round_state(self) -> None:
-        """Quorum-round bookkeeping, called from each concrete
-        ``__init__``: the exclusion set, the round serial that fences
-        stale deadline timers, and the armed timer itself."""
-        self._excluded: set[int] = set()
-        self._round_serial = 0
-        self._deadline_timer: threading.Timer | None = None
-        self._last_round_trigger: str | None = None
 
-    def _after_apply(self):
-        """Hook after an update is issued. Return contract: anything but
-        ``False`` means the hook synchronized with (or is) the real
-        completion of the update, and the caller records an update_times
-        entry; ``False`` declines (the device store samples its waits, so
-        only every Nth update blocks on the device)."""
+class MembershipMixin:
+    """Worker-lifecycle surface shared by the stores, as the JAX
+    package's mixin of that name. Membership (server.py:190-211,
+    306-318): sequential ids under the registration lock (the lowest free
+    slot under ``elastic``); JobFinished removes a worker and the final
+    stats fire when the active set empties; ``worker_timeout`` expires
+    silent workers. The host class provides ``config``,
+    ``_registration_lock``, ``_next_worker_id``, ``active_workers``,
+    ``last_seen`` and ``_finished_event``, and may override the two
+    hooks."""
 
-    # -- membership -------------------------------------------------------
+    _next_worker_id: int  # guarded by: self._registration_lock
+    active_workers: set  # guarded by: self._registration_lock
+    last_seen: dict  # guarded by: self._registration_lock
 
     def register_worker(self, worker_name: str = "") -> tuple[int, int]:
         """Returns (worker_id, total_workers). Faithful mode assigns
@@ -316,7 +294,8 @@ class AggregationBase:
         or, in elastic mode, the live membership count (lock order sync ->
         registration; no path takes them the other way round). Workers
         excluded by ``exclude_worker`` leave the target either way."""
-        excluded = self._excluded  # dpslint: ignore[lock-guard]
+        # A store without quorum exclusion (the C++ arena) has no set.
+        excluded = getattr(self, "_excluded", None)
         if self.config.elastic:
             with self._registration_lock:
                 if excluded:
@@ -343,6 +322,48 @@ class AggregationBase:
         if stale and empty:
             self._finished_event.set()
         return stale
+
+    def _on_workers_expired(self, stale: list[int]) -> None:
+        """Hook for stores to clean round state after expiry."""
+
+    def _on_worker_departed(self, worker_id: int) -> None:
+        """Hook after a clean JobFinished departure."""
+
+
+class AggregationBase(TelemetryMixin, MembershipMixin):
+    """Sync-round and async-apply orchestration of an in-process store,
+    over the membership of :class:`MembershipMixin`. A subclass supplies
+    ``_round_update(grad_dicts, lr)`` and ``_apply(grads, lr, weight)``
+    and the state they use, and may override ``_after_apply()``."""
+
+    store_backend = "python"
+
+    # Cross-thread contracts: pusher threads, the round-deadline timer and
+    # the reaper meet on this state.
+    parameters: dict  # guarded by: self._param_lock
+    global_step: int  # guarded by: self._param_lock
+    _pending: dict  # guarded by: self._sync_lock
+    _gradients_received: int  # guarded by: self._sync_lock
+    _round_serial: int  # guarded by: self._sync_lock
+    _deadline_timer: object  # guarded by: self._sync_lock
+    _last_round_trigger: object  # guarded by: self._sync_lock
+    _excluded: set  # guarded by: self._registration_lock
+
+    def _init_round_state(self) -> None:
+        """Quorum-round bookkeeping, called from each concrete
+        ``__init__``: the exclusion set, the round serial that fences
+        stale deadline timers, and the armed timer itself."""
+        self._excluded: set[int] = set()
+        self._round_serial = 0
+        self._deadline_timer: threading.Timer | None = None
+        self._last_round_trigger: str | None = None
+
+    def _after_apply(self):
+        """Hook after an update is issued. Return contract: anything but
+        ``False`` means the hook synchronized with (or is) the real
+        completion of the update, and the caller records an update_times
+        entry; ``False`` declines (the device store samples its waits, so
+        only every Nth update blocks on the device)."""
 
     def _on_workers_expired(self, stale: list[int]) -> None:
         """Elastic: purge DEAD workers' pending gradients and complete the

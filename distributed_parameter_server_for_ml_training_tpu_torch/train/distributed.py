@@ -6,7 +6,8 @@ slots of a mesh on one card, or, in a multi-process job (one process per
 card, ``parallel/multihost.py``), of a mesh over every process's card;
 one step per global batch (``parallel/sync_dp.py``), no server.
 :class:`AsyncTrainer` wires a parameter store (``store_backend``: the
-host-NumPy ParameterStore, or the device-resident DeviceParameterStore)
+host-NumPy ParameterStore, the C++ arena's NativeParameterStore, or the
+device-resident DeviceParameterStore)
 to N worker threads on the card (ps/worker.py), reproducing the
 reference's async_Nworkers experiment configs
 (EXPERIMENT_GUIDE.md:95-111). Both emit the METRICS_JSON lines the
@@ -63,9 +64,9 @@ class DistributedConfig:
     local_lr: float | None = None
     heartbeat_interval: float = 0.0
     reconnect_timeout: float = 0.0
-    # Async store backend: 'python' (host NumPy) or 'device' (params on
-    # the card: zero host-link bytes a worker step); 'native' (the C++
-    # arena) comes with ROADMAP §1 item 9.
+    # Async store backend: 'python' (host NumPy), 'native' (the C++ arena
+    # on the host, built from native/ps_core.cpp at first use) or
+    # 'device' (params on the card: zero host-link bytes a worker step).
     store_backend: str = "python"
     augment: bool = True
     num_classes: int = 100

@@ -342,14 +342,23 @@ def test_health_reports_reach_the_other_packages_monitor(
 
 
 def test_port_client_refuses_a_sharded_registration(start_server, setup):
-    """A reply the port's client cannot serve is refused, never ignored:
-    a shard map at registration."""
+    """A garbled shard map in a reply is refused, never adopted: the
+    client keeps the map it holds (none before a sharded registration),
+    as the JAX client does; a valid one is adopted."""
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps \
+        .sharding import ShardInfo
     _, init, _, _, _ = setup
     address, _, _ = start_server("port", init)
     remote = PC.RemoteStore(address, rpc_timeout=RPC_TIMEOUT)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        remote._note_reply({"shard_map": {"version": 1}})
+    remote._note_shard_map({"shard_map": {"version": 1}})
+    assert remote.shard_map is None
+    good = ShardInfo(0, 2, ["a:1", "b:2"]).shard_map()
+    remote._note_shard_map({"shard_map": good})
+    remote._note_shard_map({"shard_map": dict(good, version=9,
+                                              shard_count=3)})
+    assert remote.shard_map == good and remote._shard_map_version == 1
     wid, total = remote.register_worker("w")
+    assert remote.shard_map is None           # an unsharded server
     assert (wid, total) == (0, 1)
     assert remote.supports_checksum and remote.supports_delta_fetch
     assert remote.repush_last(0) is None     # nothing pushed yet
@@ -427,9 +436,6 @@ def test_cli_serve_and_two_cli_workers(tmp_path):
 @pytest.mark.parametrize("argv,item", [
     (["serve", "--faults", "seed=7"], "item 9"),
     (["serve", "--jobs", "a:weight=1"], "item 9"),
-    (["serve", "--store-backend", "native"], "item 9"),
-    (["train", "--store-backend", "native", "--device", "cpu"], "item 9"),
-    (["worker", "--shards", "h:1,h:2", "--device", "cpu"], "item 9"),
     (["worker", "--job", "vision", "--device", "cpu"], "item 9"),
     (["worker", "--faults", "seed=7", "--device", "cpu"], "item 9"),
     (["perf", "check"], "item 11"),
@@ -438,6 +444,113 @@ def test_cli_flags_of_later_slices_are_refused(argv, item):
     from distributed_parameter_server_for_ml_training_tpu_torch import cli
     with pytest.raises(NotImplementedError, match=f"ROADMAP §1 {item}"):
         cli.main(argv)
+
+
+@pytest.fixture
+def tiny_cli(monkeypatch):
+    """The CLI over a tiny ResNet (10 classes) and 16 synthetic images:
+    what is checked is that the flag is served, not a run."""
+    from distributed_parameter_server_for_ml_training_tpu_torch import cli, \
+        models
+
+    def get_model(name, num_classes=10, device="cpu", **kw):
+        return ResNet(stage_sizes=(1, 1), num_filters=8,
+                      num_classes=num_classes).to(device)
+
+    monkeypatch.setattr(models, "get_model", get_model)
+    monkeypatch.setattr(cli, "_load_dataset",
+                        lambda args: synthetic_cifar100(8, 8, 10, seed=0))
+    return cli
+
+
+def _tiny_primaries(n: int):
+    """n port shard primaries on 127.0.0.1:0 over the tiny ResNet's
+    partition (async, int8 pushes); returns (stores, servers, peers)."""
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps \
+        .sharding import ShardInfo, partition_keys
+    from distributed_parameter_server_for_ml_training_tpu_torch.utils \
+        .pytree import params_to_jax
+    flat, _ = params_to_jax(ResNet(stage_sizes=(1, 1), num_filters=8,
+                                   num_classes=10))
+    parts = partition_keys(flat, n)
+    stores, svcs, servers, addrs = [], [], [], []
+    for i in range(n):
+        store = ParameterStore({k: flat[k] for k in parts[i]}, StoreConfig(
+            mode="async", total_workers=1, push_codec="int8",
+            shard_index=i, shard_count=n))
+        svc = PS.ParameterService(store)
+        server, port = PS.serve(store, port=0, service=svc,
+                                host="127.0.0.1")
+        stores.append(store)
+        svcs.append(svc)
+        servers.append(server)
+        addrs.append(f"127.0.0.1:{port}")
+    for i, svc in enumerate(svcs):
+        svc.sharding = ShardInfo(i, n, addrs)
+    return stores, servers, ",".join(addrs)
+
+
+@pytest.mark.parametrize("argv", [
+    ["serve", "--store-backend", "native"],
+    ["train", "--store-backend", "native", "--device", "cpu"],
+    ["worker", "--shards", "h:1,h:2", "--device", "cpu"],
+    ["worker", "--job", "vision", "--shards", "h:1,h:2", "--device", "cpu"],
+], ids=lambda v: "_".join(v))
+def test_cli_flags_of_item_9_first_part_are_served(argv, tiny_cli, capsys,
+                                                   one_torch_thread):
+    """The flags ROADMAP §1 item 9's first part serves, refused until it
+    landed: ``serve --store-backend native`` serves a worker over the C++
+    arena, ``train --store-backend native`` trains async over it, and
+    ``worker --shards`` trains against two shard primaries through a
+    ``ShardedRemoteStore``; ``--job`` with ``--shards`` is refused in the
+    JAX CLI's words."""
+    import socket
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.utils \
+        .metrics import parse_metrics_lines
+    cli = tiny_cli
+    if "--job" in argv:
+        with pytest.raises(SystemExit, match="--job does not compose with "
+                                             "--shards"):
+            cli.main(argv)
+        return
+    if argv[0] == "serve":
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        rc = {}
+        server = threading.Thread(target=lambda: rc.update(rc=cli.main(
+            argv + ["--mode", "async", "--workers", "1", "--num-classes",
+                    "10", "--push-codec", "int8", "--port", str(port),
+                    "--no-health-monitor", "--emit-metrics"])),
+            daemon=True)
+        server.start()
+        assert cli.main(["worker", "--server", f"127.0.0.1:{port}",
+                         "--synthetic", "--batch-size", "8", "--epochs",
+                         "1", "--device", "cpu"]) == 0
+        server.join(60)
+        assert not server.is_alive() and rc == {"rc": 0}
+        rows = parse_metrics_lines(capsys.readouterr().out)
+        assert rows[-1]["store_backend"] == "native"
+        assert rows[-1]["global_steps_completed"] == 1
+    elif argv[0] == "train":
+        assert cli.main(argv + ["--mode", "async", "--workers", "1",
+                                "--batch-size", "8", "--epochs", "1",
+                                "--synthetic", "--emit-metrics"]) == 0
+        server = next(r for r in parse_metrics_lines(
+            capsys.readouterr().out) if "store_backend" in r)
+        assert server["store_backend"] == "native"
+        assert server["global_steps_completed"] == 1
+    else:
+        stores, servers, peers = _tiny_primaries(2)
+        try:
+            assert cli.main(["worker", "--shards", peers, "--synthetic",
+                             "--batch-size", "8", "--epochs", "1",
+                             "--device", "cpu"]) == 0
+        finally:
+            for server in servers:
+                server.stop(grace=None)
+        assert [s.global_step for s in stores] == [1, 1]
 
 
 @pytest.mark.parametrize("argv", [

@@ -65,7 +65,9 @@ def test_port_files_exist():
                      "analysis/device_profile.py",
                      "utils/collective_bytes.py", "parallel/multihost.py",
                      "parallel/moe.py", "parallel/pipeline.py",
-                     "parallel/tensor.py"):
+                     "parallel/tensor.py", "ps/sharding.py",
+                     "comms/sharded.py", "native/__init__.py",
+                     "native/bindings.py", "native/store.py"):
         assert required in names, required
     for kernel in ("wire_quantize.cu", "block_quantize.cu",
                    "flash_attention.cu"):
@@ -83,6 +85,21 @@ def test_no_jax_imports(path):
 def test_sp_multihost_modules_load_no_jax(module):
     """The byte counter and the ring over ranks, imported in a fresh
     interpreter, load no module of jax and none of the JAX package."""
+    name = f"distributed_parameter_server_for_ml_training_tpu_torch.{module}"
+    probe = (f"import sys, {name}; print(sorted(m for m in sys.modules "
+             f"if m.split('.')[0] in {FORBIDDEN!r}))")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+@pytest.mark.parametrize("module", ["ps.sharding", "comms.sharded",
+                                    "native.store"])
+def test_serve_tier_modules_load_no_jax(module):
+    """The shard partition, the sharded client and the C++ arena's store,
+    imported in a fresh interpreter, load no module of jax and none of
+    the JAX package."""
     name = f"distributed_parameter_server_for_ml_training_tpu_torch.{module}"
     probe = (f"import sys, {name}; print(sorted(m for m in sys.modules "
              f"if m.split('.')[0] in {FORBIDDEN!r}))")
@@ -217,11 +234,13 @@ def _relative_imports(path: pathlib.Path):
 
 def test_comms_imports_nothing_unported():
     """``comms/`` imports only the wire, the service, the client, the
-    telemetry, the packed int4 type and (lazily) the fetch codecs: never
-    ``ps/``, whose JAX counterpart drags the device store and jax in."""
+    sharded client, the telemetry, the packed int4 type, (lazily) the
+    fetch codecs and, of ``ps/``, only the shard partition (plain
+    Python, as the JAX service and client import it): never a store."""
     allowed = {"comms", "comms.wire", "comms.service", "comms.client",
-               "telemetry", "telemetry.registry", "telemetry.trace",
-               "ops.packed", "ops.compression"}
+               "comms.sharded", "telemetry", "telemetry.registry",
+               "telemetry.trace", "ops.packed", "ops.compression",
+               "ps.sharding"}
     for path in sorted((PORT / "comms").glob("*.py")):
         for target in _relative_imports(path):
             local = target.split(".", 1)[1] if "." in target else ""
@@ -339,7 +358,9 @@ def test_later_flags_name_only_items_8_and_9():
     triggers, ``--profile-dir``), as are the store options and worker
     modes of item 3, the device store of item 4, the checkpoints of item
     5 and the health monitor, SLO and remediation flags of item 8's first
-    part; ``--store-backend native`` is refused naming item 9."""
+    part, and since item 9's first part ``--store-backend native``, the
+    ``serve --shard-*`` flags and ``worker --shards``; ``--faults``,
+    ``--jobs`` and ``--job`` are refused naming item 9."""
     from distributed_parameter_server_for_ml_training_tpu_torch import cli
     from distributed_parameter_server_for_ml_training_tpu_torch.comms \
         import client, service
@@ -350,8 +371,7 @@ def test_later_flags_name_only_items_8_and_9():
     for text in (*service.LATER.values(), *client._LATER.values()):
         assert {int(n) for n in re.findall(r"item (\d+)", text)} \
             <= {8, 9}, text
-    assert set(cli.LATER_FLAGS) == {"faults", "jobs", "job", "shards",
-                                    "store_backend"}
+    assert set(cli.LATER_FLAGS) == {"faults", "jobs", "job"}
     assert set(cli.LATER_VERBS) == {"perf check"}
     parser = cli.build_parser()
     for argv in (["serve", "--fetch-codec", "bf16", "--elastic",
@@ -396,9 +416,14 @@ def test_later_flags_name_only_items_8_and_9():
             args = parser.parse_args(["train", "--mode", mode, flag, "4"])
             cli._refuse_later_flags(args)
             assert getattr(args, flag[2:].replace("-", "_")) == 4
-    for verb in ("serve", "train"):
+    for argv in (["serve", "--store-backend", "native", "--shard-count",
+                  "2", "--shard-index", "1", "--shard-peers", "a:1,b:2"],
+                 ["train", "--store-backend", "native"],
+                 ["worker", "--shards", "a:1,b:2"]):
+        cli._refuse_later_flags(parser.parse_args(argv))
+    for argv in (["serve", "--faults", "seed=1"],
+                 ["worker", "--job", "vision"]):
         with pytest.raises(NotImplementedError, match="item 9"):
-            cli._refuse_later_flags(parser.parse_args(
-                [verb, "--store-backend", "native"]))
+            cli._refuse_later_flags(parser.parse_args(argv))
     with pytest.raises(NotImplementedError, match="item 11"):
         cli.main(["perf", "check"])

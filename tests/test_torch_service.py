@@ -306,7 +306,7 @@ def test_capability_advertisement_is_a_default_jax_servers():
 
 
 @pytest.mark.parametrize("kwarg,item", [
-    ("faults", "item 9"), ("sharding", "item 9"), ("jobs", "item 9")])
+    ("faults", "item 9"), ("jobs", "item 9")])
 def test_unported_service_options_are_refused(kwarg, item):
     store = ParameterStore(_params(), StoreConfig(total_workers=1))
     with pytest.raises(NotImplementedError, match=item):

@@ -167,8 +167,11 @@ def test_config_validation_and_backends():
         ParameterStore(_params(), StoreConfig(push_codec="zip"))
     store = make_store("python", _params(), StoreConfig())
     assert store.push_codec == "fp16"          # the reference's default
-    with pytest.raises(NotImplementedError, match="item 9"):
-        make_store("native", _params(), StoreConfig())
+    store = make_store("native", _params(), StoreConfig())
+    assert (type(store).__name__, store.store_backend, store.push_codec) \
+        == ("NativeParameterStore", "native", "fp16")
+    with pytest.raises(ValueError, match="unknown store backend"):
+        make_store("arena", _params(), StoreConfig())
     store = make_store("device", _params(), StoreConfig(), device="cpu")
     assert (type(store).__name__, store.store_backend, store.push_codec,
             store.keeps_device_arrays) == ("DeviceParameterStore",
