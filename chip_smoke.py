@@ -62,7 +62,7 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
 8. a few sync steps under torch.profiler: device busy share and top
    device kernels;
 9. the single-device baseline (``BaselineTrainer``, full ResNet-18 on
-   ``compositional_cifar100(50_000, 10_000)``, batch 128, 390 steps an
+   ``compositional_cifar100(12_800, 2_000)``, batch 128, 100 steps an
    epoch): (a) one eager step, augment off, on the card against the
    same step on the CPU from the same weights: in float64 params, batch
    statistics and momentum within atol 1e-5 / rtol 1e-3; in fp32 the
@@ -127,10 +127,13 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    store's staleness counts, and the device's idle share over a shorter
    profiled run; (b) across processes, ``cli serve --mode async
    --workers 2 --push-codec int8`` and 2 ``cli worker --synthetic
-   --num-train 2048 --epochs 1`` on the card: every process exits 0
-   within its timeout (one still alive then is killed, and the phase
-   fails), and the server reports a step above 0 (no profiler: phase 20
-   (c) runs a second pair under ``--profile-dir``);
+   --num-train 2048 --num-test 256 --epochs 1 --profile-dir`` on the
+   card, the workers once the server is up: every process exits 0 within
+   its timeout (one still alive then is killed, and the phase fails),
+   the server reports a step above 0, and each worker's capture,
+   attributed, holds one ``quantize-pack`` event and one K1 launch a
+   push it made; the wall's split (spawn to 'up', each worker's spawn to
+   its epoch, the epoch, the exits) is reported;
 15. the gRPC path with the store options and the worker's modes on: (a)
    ``serve()`` on 127.0.0.1 over ``StoreConfig(mode="async",
    total_workers=2, push_codec="int8", staleness_bound=5,
@@ -263,12 +266,10 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    must freeze an incident bundle with the journal window, the cluster
    view and the flight-recorder tail; and img/s with the surfaces off
    (``--no-memory-telemetry``) and on, in 2 pairs of turns (off, on, on,
-   off) of 32 pushes a worker, so that each on turn spans
-   several of the monitor's 5 s ticks and memory samples, with the
-   spread of the off turns beside the difference; (c) phase 14 (b)'s
-   topology again with each ``cli worker`` under ``--profile-dir``: each
-   worker's capture, attributed, holds one ``quantize-pack`` event and
-   one K1 launch a push it made;
+   off) of 16 pushes a worker, so that each on turn spans about
+   two of the monitor's 5 s ticks and memory samples, with the
+   spread of the off turns beside the difference. Its journal and the
+   drill's bundles are left for phase 27 (b);
 21. sync data parallelism over several processes, one per card
    (``parallel/multihost.py``), full ResNet-18 (CIFAR stem, bf16), batch
    128 a slot, int8, 8 steps: (a) one rank over NCCL, 4 slots, against
@@ -313,7 +314,7 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    dK and dV to one process's ring on the card, and within phase 11's
    tolerance of plain hops; one step (one epoch of one batch and an eval
    batch) whose params are bit-identical on both ranks and within rtol
-   0.05 / atol 1e-3 of one process's step over the 2 slots; 2 more steps
+   0.05 / atol 1e-3 of one process's step over the 2 slots; 1 more step
    timed (step ms and img/s beside one process's); 24 wgmma forwards and
    24 fused backwards a step in each rank; the bytes each rank's step
    moved (0.6 GB of forward hops, 3.0 GB of backward hops, the gradient
@@ -346,7 +347,7 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    schedule's step ms and peak GiB above its inputs. (b)
    ``PipelineTrainer``, 4 stages x 8 microbatches, batch 32, bf16,
    ViT-B/16 at 224 px: an epoch of 2 steps and an eval batch (kernel
-   counts all 0), 6 steps timed, img/s, peak GiB, one profiled step.
+   counts all 0), 3 steps timed, img/s, peak GiB, one profiled step.
 25. tensor parallelism and the multi-axis mesh (``parallel/tensor.py``,
    ``TPTrainer``, dp x ep, dp x tp x pp): (a) one ViT-B/16
    ``EncoderBlock`` (D 768, 12 heads, MLP 3,072, batch 8 x 197 tokens),
@@ -369,7 +370,7 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    1e-4, load and importance summing to 1; ``MoETrainer`` dp 2 x 4
    experts batch 32 timed. dp x tp x pp: ``PipelineTrainer`` 2 x 2 x 4
    stages x 8 microbatches, one fp32 step's loss and gradients against
-   plain pp (1 x 1 x 4) on the card within 1e-4; then bf16, 4 steps
+   plain pp (1 x 1 x 4) on the card within 1e-4; then bf16, 2 steps
    timed and one profiled.
 26. the sharded parameter-server tier and the C++ arena (``ps/sharding.py``,
    ``comms/sharded.py``, ``native/``): (a) ResNet-18's 62 tensors split
@@ -384,15 +385,37 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    tensors and bytes and push/fetch ms. (b) 2 ``cli serve --shard-count
    2`` primaries (int8) and 2 ``cli worker --shards`` processes under
    ``--profile-dir``: each shard's global step, img/s, the workers' idle
-   share and K1 events off their captures, beside phase 14 (b)'s and
-   phase 20 (c)'s unsharded pairs. (c) the arena built from
+   share and K1 events off their captures, beside phase 14 (b)'s
+   unsharded pair; the primaries run ``--telemetry --metrics-port`` for
+   phase 27 (a), whose probe runs while they serve. (c) the arena built from
    ``native/ps_core.cpp`` into ``build/torch_native/``; async (fp16,
    int8, a stale push and a refused one) and sync sequences on real
    gradients against the NumPy store (bit-equal; async int8 bit-equal to
    the arena's own order and within rtol 1e-6 of the NumPy store's);
    ``cli serve --store-backend native`` with one ``cli worker`` for 4
    steps; the tracked files under ``native/`` unchanged.
-   Each phase reports its own seconds.
+27. the fleet observatory, incident forensics and the experiment matrix,
+   host Python over the paths above (no kernel of their own): (a) while
+   phase 26 (b)'s 2 primaries serve, a ``FleetCollector`` with
+   ``start_fleet_server`` ticks over their metrics ports every 0.1 s and
+   ``cli observe --journal-dir`` runs on a thread of this process: both
+   shards found through their ``sharding`` blocks, the merged
+   fetch-latency histogram's count equal to the primaries' own
+   ``/metrics`` counts read just before and just after one scrape, the
+   fleet SLO evaluated, ``status --via-fleet`` (exit 0), ``top --url
+   --json`` (one frame, 2 primaries) and ``goodput --url`` answering,
+   each primary's step seen at 16, then ``top --replay`` over observe's
+   journal; (b) ``incident list``, ``show`` and ``report`` of every
+   bundle phase 20 (b)'s NaN drill froze (each trigger's alert
+   re-derived from the journal, in order), and ``query --percentiles
+   --slo --goodput`` over its first session's journal, the percentiles
+   equal to the last snapshot its registry printed; (c) ``cli
+   experiments --modes sync,async --worker-counts 2 --epochs 1
+   --synthetic --num-train 512 --no-plots`` in this process on the card:
+   each record with exactly ``analysis.RECORD_KEYS``, its ``device``
+   naming the card, the server's steps the workers' pushes. Every verb
+   runs through the port's ``cli.main``.
+   Each phase reports its own seconds, and the script its total.
 
 Then one JSON line of kernels and, last, the device line. Without a CUDA
 device, or outside a checkout of the repo, it exits non-zero and prints
@@ -401,6 +424,7 @@ no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -517,15 +541,14 @@ def device_ms_per_call(fn, reps: int, kernel: str) -> tuple[float, float]:
     ``fn``, from torch.profiler's kernel durations over ``reps`` calls
     after one warm-up call, and their launches per call."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with captured() as cap:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in device_events(prof) if kernel in e.key]
+    events = [e for e in cap["events"] if kernel in e.key]
     return (sum(e.self_device_time_total for e in events) / 1e3 / reps,
             sum(e.count for e in events) / reps)
 
@@ -1162,15 +1185,46 @@ def phase_main_path(state: dict) -> None:
         raise AssertionError("the store's params did not move")
 
 
-def device_events(prof) -> list:
-    """The profile's device-side events (kernels, copies), averaged by name.
-    A host operator's own row also carries the device time of the kernels
-    it launched, so summing over every row would count that time twice."""
-    from torch.autograd import DeviceType
+@dataclasses.dataclass
+class DeviceOp:
+    """One device op of a capture (a kernel, copy or set), summed by name:
+    its microseconds on the card and its launches."""
+    key: str
+    self_device_time_total: float
+    count: int
 
-    return [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+
+@contextlib.contextmanager
+def captured():
+    """``with captured() as cap: body``: the body under the port's
+    ``telemetry.profiler.capture`` into a temporary directory. After the
+    block ``cap["events"]`` holds the capture's device ops as
+    :class:`DeviceOp` rows (``analysis.top_device_ops``: the card's
+    kernel, memcpy and memset events summed by name; a host operator's
+    own time never counts) and ``cap["trace"]`` the Chrome trace; the
+    directory is removed."""
+    import shutil
+    import tempfile
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.analysis \
+        import load_chrome_trace, top_device_ops
+    from distributed_parameter_server_for_ml_training_tpu_torch.telemetry \
+        .profiler import capture, find_profile_dumps
+
+    logdir = tempfile.mkdtemp(prefix="capture-")
+    cap: dict = {}
+    try:
+        with capture(logdir):
+            yield cap
+        paths = find_profile_dumps(logdir)
+        if len(paths) != 1:
+            raise AssertionError(f"the capture wrote {paths}")
+        cap["trace"] = load_chrome_trace(paths[0])
+        cap["events"] = [
+            DeviceOp(op["name"], op["time_s"] * 1e6, op["events"])
+            for op in top_device_ops(cap["trace"], 10 ** 9)]
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
 
 
 def phase_profile(state: dict) -> None:
@@ -1178,7 +1232,6 @@ def phase_profile(state: dict) -> None:
     shorter and without eval, under torch.profiler — device time by kernel
     and the device's busy share of the wall."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from distributed_parameter_server_for_ml_training_tpu_torch.ps import (
         WorkerConfig, run_workers)
@@ -1187,13 +1240,12 @@ def phase_profile(state: dict) -> None:
     cfg = WorkerConfig(batch_size=BATCH, num_epochs=1, device="cuda",
                        eval_each_epoch=False)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with captured() as cap:
         t0 = time.perf_counter()
         run_workers(store, model, ds, N_WORKERS, cfg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = device_events(prof)
+    events = cap["events"]
     device_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:15]
     k1 = [e for e in events if "::wire_quantize_multi_kernel" in e.key]
@@ -1369,17 +1421,15 @@ def phase_sync_profile(state: dict) -> None:
     """Where the time goes on the sync path: 6 int8 steps under
     torch.profiler (eval on 8 images)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     trainer = sync_trainer(6, n_test=8, seed=2)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with captured() as cap:
         t0 = time.perf_counter()
         trainer.train()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = device_events(prof)
+    events = cap["events"]
     device_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:15]
     emit({"phase": "sync_profile", "steps": trainer.global_steps,
@@ -1394,7 +1444,9 @@ def phase_sync_profile(state: dict) -> None:
 
 # -- the single-device baseline ---------------------------------------------
 
-BASELINE_EPOCHS = 2          # (c): eager and graphed, bf16, full set
+BASELINE_EPOCHS = 2          # (c): eager and graphed, bf16
+# The set: 100 steps an epoch of batch 128, and a test set of 2,000.
+BASELINE_TRAIN, BASELINE_TEST = 12_800, 2_000
 BASELINE_PROFILE_STEPS = 20
 
 
@@ -1446,13 +1498,11 @@ def _profile_steps(fn, steps: int) -> dict:
     """``fn()`` ``steps`` times under torch.profiler: wall, device busy
     and idle share, device ms by CUDA events, top device kernels."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with captured() as cap:
         t0 = time.perf_counter()
         a.record()
         for _ in range(steps):
@@ -1460,7 +1510,7 @@ def _profile_steps(fn, steps: int) -> dict:
         b.record()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = device_events(prof)
+    events = cap["events"]
     device_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
     return {"steps": steps, "wall_s": wall,
@@ -1475,8 +1525,9 @@ def _profile_steps(fn, steps: int) -> dict:
 
 def phase_baseline(state: dict) -> None:
     """The single-device baseline (``BaselineTrainer``) on
-    ``compositional_cifar100(50_000, 10_000)``: (a) one eager step on
-    the card against the same step on the CPU, in float64 and in fp32;
+    ``compositional_cifar100(BASELINE_TRAIN, BASELINE_TEST)``: (a) one
+    eager step on the card against the same step on the CPU, in float64
+    and in fp32;
     (b) the captured epoch loop against the eager one over the same
     permutations, fp32, augment on, 3 epochs of 4 steps across
     milestones (1, 2); (c) the reference recipe in bf16, 2 epochs eager
@@ -1494,11 +1545,12 @@ def phase_baseline(state: dict) -> None:
 
     bs = BATCH
     t0 = time.perf_counter()
-    ds = compositional_cifar100(50_000, 10_000, seed=0)
+    ds = compositional_cifar100(BASELINE_TRAIN, BASELINE_TEST, seed=0)
     data_s = time.perf_counter() - t0
     steps_per_epoch = len(ds.x_train) // bs
     out = {"phase": "baseline", "model": "resnet18", "batch_size": bs,
-           "dataset": "compositional_cifar100(50000, 10000, seed=0)",
+           "dataset": f"compositional_cifar100({BASELINE_TRAIN}, "
+                      f"{BASELINE_TEST}, seed=0)",
            "data_seconds": data_s, "steps_per_epoch": steps_per_epoch,
            "card": state["card"]}
     failures = []
@@ -2081,20 +2133,18 @@ def phase_sp_path(state: dict) -> None:
 def phase_sp_profile(state: dict) -> None:
     """Where the time goes on the SP path: one step under torch.profiler."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     trainer = sp_trainer(1, n_test=1, seed=2)
     xb, yb = trainer.dataset.x_train, trainer.dataset.y_train
     gen = torch.Generator(device="cuda").manual_seed(0)
     trainer._step(trainer.state, xb, yb, gen)           # warm-up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with captured() as cap:
         t0 = time.perf_counter()
         trainer._step(trainer.state, xb, yb, gen)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = device_events(prof)
+    events = cap["events"]
     device_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:15]
     flash_us = sum(e.self_device_time_total for e in events
@@ -2146,8 +2196,8 @@ def phase_cli(state: dict) -> None:
             raise AssertionError(f"cli {' '.join(argv)} returned {rc}")
 
 
-# Phases 14 (b), 20 (c), 26 (b), (c): each `cli worker` process, start to
-# exit, and each `cli serve`, after its workers exit.
+# Phases 14 (b), 26 (b), (c): each `cli worker` process, start to exit,
+# and each `cli serve`, after its workers exit.
 GRPC_WORKER_TIMEOUT_S = 420
 GRPC_SERVER_TIMEOUT_S = 60
 
@@ -2384,14 +2434,12 @@ def _grpc_in_process(state: dict) -> None:
 def _grpc_profile(state: dict) -> None:
     """The same path, shorter and without eval, under torch.profiler."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with captured() as cap:
         run = _grpc_run(steps_per_worker=4, n_test=10, seed=2,
                         eval_each_epoch=False, record=False)
-    events = device_events(prof)
+    events = cap["events"]
     device_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
     errors = [repr(r.error) for r in run["results"] if r.error is not None]
@@ -2414,17 +2462,18 @@ def _metrics_rows(text: str) -> list:
             for line in text.splitlines() if "METRICS_JSON:" in line]
 
 
-def _grpc_processes(state: dict, profiles: str | None = None) -> list:
+def _grpc_processes(state: dict, profiles: str) -> list:
     """The reference's topology: ``cli serve`` and 2 ``cli worker``
-    processes on the card, over gRPC on 127.0.0.1; with ``profiles``,
-    each worker runs under ``--profile-dir <profiles>/w<i>`` (phase 20
-    (c)). Returns each worker's METRICS_JSON rows."""
+    processes on the card, over gRPC on 127.0.0.1, each worker under
+    ``--profile-dir <profiles>/w<i>``. Returns each worker's METRICS_JSON
+    rows."""
     port = _free_port()
     run = _cli_topology(
         [["--mode", "async", "--workers", "2", "--push-codec", "int8",
           "--port", str(port)]],
         [["--server", f"127.0.0.1:{port}", "--worker-name", f"proc-{i}",
-          "--synthetic", "--num-train", "2048", "--epochs", "1"]
+          "--synthetic", "--num-train", "2048", "--num-test", "256",
+          "--epochs", "1"]
          for i in range(2)], profiles)
     if run["late"]:
         raise AssertionError(
@@ -2436,14 +2485,14 @@ def _grpc_processes(state: dict, profiles: str | None = None) -> list:
     img_s = _worker_img_s(rows)
     sm = srv[-1] if srv else {}
     # Beside phase 26 (b)'s sharded numbers.
-    state["grpc_b_profiled" if profiles else "grpc_b"] = {
+    state["grpc_b_profiled"] = {
         "workers_img_per_s": img_s, "img_per_s_summed": sum(img_s),
         "wall_seconds": run["wall_seconds"],
         "global_steps": sm.get("global_steps_completed")}
-    emit({"phase": "observability" if profiles else "grpc_path",
-          "form": "c_worker_processes_profiled" if profiles
-          else "processes", "port": port,
+    emit({"phase": "grpc_path", "form": "b_processes_profiled",
+          "port": port,
           "rcs": rcs, "wall_seconds": run["wall_seconds"],
+          "wall_split": run["wall_split"],
           "workers_img_per_s": img_s, "img_per_s_summed": sum(img_s),
           "worker_metrics": [r[-1] if r else None for r in rows],
           "server_metrics": sm,
@@ -2461,12 +2510,12 @@ def _grpc_processes(state: dict, profiles: str | None = None) -> list:
 
 
 def _worker_captures(state: dict) -> None:
-    """Phase 20 (c): phase 14 (b)'s topology again, each ``cli worker``
+    """Phase 14 (b): ``_grpc_processes`` with each ``cli worker``
     process under ``--profile-dir``; its capture, attributed, must hold
     one ``quantize-pack`` event a push it made (ResNet-18's 62 tensors:
     one K1 launch a push), or a worker that fell off the kernel route
-    passes. Phase 14 (b) itself runs unprofiled, so its img/s stays
-    comparable with earlier runs."""
+    passes. The same run's exit codes, server step and img/s are phase
+    14 (b)'s; phase 26 (b) stands beside them."""
     import os
     import shutil
     import tempfile
@@ -2499,7 +2548,7 @@ def _worker_captures(state: dict) -> None:
                 failures.append(out[-1])
     finally:
         shutil.rmtree(profiles, ignore_errors=True)
-    emit({"phase": "observability", "form": "c_worker_captures",
+    emit({"phase": "grpc_path", "form": "b_worker_captures",
           "workers": out, "card": state["card"]})
     if failures:
         raise AssertionError(f"worker captures off the kernel route: "
@@ -2510,7 +2559,7 @@ def phase_grpc_path(state: dict) -> None:
     """Phase 14: the gRPC path, in one process and across processes."""
     _grpc_in_process(state)
     _grpc_profile(state)
-    _grpc_processes(state)
+    _worker_captures(state)
 
 
 # Phase 15: the store options and the worker's modes over gRPC.
@@ -2558,7 +2607,6 @@ def _modes_levers(state: dict) -> None:
     and a profiled shorter one."""
     import ml_dtypes
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from distributed_parameter_server_for_ml_training_tpu_torch.comms import (
         ParameterService, RemoteStore, serve)
@@ -2648,12 +2696,11 @@ def _modes_levers(state: dict) -> None:
 
     # A shorter run, eval off, under torch.profiler: the idle share.
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with captured() as cap:
         prof_run = _grpc_run(steps_per_worker=8, n_test=10, seed=2,
                              eval_each_epoch=False, record=False,
                              store_kw=MODES_STORE, worker_kw=MODES_WORKER)
-    events = device_events(prof)
+    events = cap["events"]
     device_us = sum(e.self_device_time_total for e in events)
     idle = (1 - device_us / 1e6 / prof_run["wall"]) if device_us else None
     p_err = [repr(r.error) for r in prof_run["results"]
@@ -3015,15 +3062,9 @@ def _device_store_async(state: dict) -> None:
         raise AssertionError("the store's params did not move")
 
 
-def _memcpy_bytes(prof) -> dict:
-    """Bytes and count of the profile's memory copies by kind (HtoD,
-    DtoH, DtoD, ...), from the trace's memcpy events."""
-    import tempfile
-
-    with tempfile.TemporaryDirectory() as d:
-        path = Path(d) / "trace.json"
-        prof.export_chrome_trace(str(path))
-        trace = json.loads(path.read_text())
+def _memcpy_bytes(trace: dict) -> dict:
+    """Bytes and count of a capture's memory copies by kind (HtoD, DtoH,
+    DtoD, ...), from its Chrome trace's memcpy events."""
     out: dict = {}
     for ev in trace.get("traceEvents", []):
         name = str(ev.get("name", ""))
@@ -3044,19 +3085,17 @@ def _device_store_profile(state: dict) -> None:
     """(b) A shorter run under torch.profiler: idle share, the apply's
     device time against its byte bound, and the host<->device bytes a
     step: the batches only, no parameter or gradient."""
-    from torch.profiler import ProfilerActivity, profile
 
     ds, model, store, _ = _device_store_setup(4, 10, 2)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with captured() as cap:
         results, wall = _device_store_run(model, store, ds, False)
-    events = device_events(prof)
+    events = cap["events"]
     device_us = sum(e.self_device_time_total for e in events)
     applies = store.global_step
     apply_ev = [e for e in events if "multi_tensor_apply_kernel" in e.key]
     apply_us = sum(e.self_device_time_total for e in apply_ev) / applies
     bound_us = APPLY_BYTES / H100_BYTES_PER_S * 1e6
-    copies = _memcpy_bytes(prof)
+    copies = _memcpy_bytes(cap["trace"])
     steps = sum(r.local_steps_completed for r in results)
     batch_bytes = BATCH * 32 * 32 * 3
     htod = copies.get("HtoD", {}).get("bytes", 0) / steps
@@ -3441,7 +3480,6 @@ def _health_main(state: dict) -> None:
     monitor off and on in turns, and the device->host copies the note
     adds a boundary, from two profiled runs' memcpy events."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
         quantize as Q
@@ -3523,8 +3561,7 @@ def _health_main(state: dict) -> None:
         p = {}
         torch.cuda.synchronize()
         try:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with captured() as cap:
                 r = _grpc_run(steps_per_worker=4, n_test=10, seed=2,
                               eval_each_epoch=False, record=False,
                               service=(lambda st, p=p: _health_stack(st, p))
@@ -3532,7 +3569,7 @@ def _health_main(state: dict) -> None:
         finally:
             if "monitor" in p:
                 p["monitor"].stop(final=False)
-        copies[label] = _memcpy_bytes(prof)
+        copies[label] = _memcpy_bytes(cap["trace"])
         boundaries[label] = sum(x.pushes_accepted + x.pushes_rejected
                                 + x.pushes_quarantined
                                 for x in r["results"])
@@ -4388,9 +4425,10 @@ def phase_models(state: dict) -> None:
 
 OBS_STEPS = 6            # (a): steps in each capture, within an epoch of 8
 OBS_SERVE_STEPS = 8      # (b): batches of 128 a worker in a serve session
-# (b): batches of 128 a worker in each surfaces off/on turn: at ~550 img/s
-# a turn lasts ~15 s, three of the monitor's 5 s ticks and memory samples.
-OBS_TURN_STEPS = 32
+# (b): batches of 128 a worker in each surfaces off/on turn: at ~450 img/s
+# a turn lasts ~9 s, about two of the monitor's 5 s ticks and memory
+# samples.
+OBS_TURN_STEPS = 16
 OBS_TURNS = (False, True, True, False)   # surfaces on?
 OBS_OVERHEAD_BOUND = 0.10   # the prediction: on within +-10 % of off
 
@@ -4749,6 +4787,11 @@ def _observe_serve(state: dict) -> None:
         device = memory.get("device") or {}
         snaps = [line for line in run["stdout"].splitlines()
                  if '"kind": "snapshot"' in line]
+        if snaps:
+            # Phase 27 (b) holds the journal's percentiles to the last
+            # snapshot the registry printed.
+            state["observe_last_snapshot"] = json.loads(
+                snaps[-1].split("METRICS_JSON:", 1)[1])
         journal = [r["type"] for r in read_journal(d["j"])]
         records = sorted(f for f in os.listdir(d["p"])
                          if f.startswith("PROFILE_"))
@@ -4847,7 +4890,9 @@ def _observe_serve(state: dict) -> None:
         out["overhead"] = _turns_verdict(turns)
     finally:
         disable_tracing()
-        shutil.rmtree(root, ignore_errors=True)
+        # Phase 27 (b) reads the journal and the drill's bundle, and
+        # removes them.
+        state["observe_dirs"] = {**d, "root": root}
     emit(out)
     if failures:
         raise AssertionError("; ".join(failures))
@@ -4876,7 +4921,6 @@ def phase_observability(state: dict) -> None:
     """Phase 20: the perf observatory and the process surfaces."""
     _observe_profile(state)
     _observe_serve(state)
-    _worker_captures(state)
 
 
 # -- phase 21: sync data parallelism over several processes ------------------
@@ -5295,7 +5339,7 @@ def phase_multihost(state: dict) -> None:
 
 
 SP_MH_TIMEOUT_S = 420        # (b), (c): each rank process, start to exit
-SP_MH_TIMED_STEPS = 2        # (b), (c): steps timed after the 1-step epoch
+SP_MH_TIMED_STEPS = 1        # (b), (c): steps timed after the 1-step epoch
 # The params against one process's, as phase 21's one int8 step: dQ's
 # fp32 partial sums arrive in an order that varies, so two runs of one
 # process differ ((a): 1.95e-4 after 2 steps on the card), and the ranks
@@ -5720,6 +5764,7 @@ F64_TOL = dict(rtol=1e-9, atol=1e-9)  # card vs CPU, both float64
 FP32_REL_TOL = 1e-4                  # max |a - b| / max |b|, fp32
 PP_STAGES, PP_M, PP_BATCH = 4, 8, 32  # 4 x 3 ViT-B/16 blocks, M = 8
 PP_TOKENS = 197                      # 224 px with the CLS token
+PP_TIMED_STEPS = 3                   # (b): host-bound, ~0.6-1.2 s a step
 
 
 def _counts_all() -> dict:
@@ -6071,7 +6116,7 @@ def phase_pp(state: dict) -> None:
         model="vit_b16", num_workers=PP_STAGES, pp_microbatches=PP_M,
         batch_size=PP_BATCH, num_epochs=1, num_classes=1000,
         dtype="bfloat16", device="cuda"))
-    res = _timed_trainer(trainer, ds, MOE_TIMED_STEPS)
+    res = _timed_trainer(trainer, ds, PP_TIMED_STEPS, profiled=1)
     res["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     out["b_trainer"] = res
     if any(res["launches"].values()):
@@ -6094,7 +6139,7 @@ TP_DEGREES = (2, 4, 8)                   # (a): 8 splits inside a head
 # (b): (data, model) in turns, the yardstick first and last.
 TP_MESHES = ((1, 1), (2, 2), (1, 4), (1, 1))
 TP_BATCH, TP_TRAIN_STEPS, TP_TIMED_STEPS = 32, 2, 10
-TP_PP_TIMED_STEPS = 4                    # (c): the host-bound pipeline
+TP_PP_TIMED_STEPS = 2                    # (c): the host-bound pipeline
 BF16_REL_TOL = 2e-2                      # max |a - b| / max |b|, bf16 out
 F64_REL_TOL = 1e-12                      # the same, both float64
 
@@ -6661,52 +6706,103 @@ def _sharded_in_process(state: dict, failures: list) -> dict:
     return out
 
 
-def _cli_topology(servers: list, workers: list, profiles=None) -> dict:
+def _read_lines(pipe, out: list) -> None:
+    """Append ``(perf_counter, line)`` for every line of ``pipe``, then
+    ``(perf_counter, None)`` at its end (the process closed it: exited)."""
+    for line in iter(pipe.readline, ""):
+        out.append((time.perf_counter(), line))
+    out.append((time.perf_counter(), None))
+
+
+def _lines_text(lines: list) -> str:
+    return "".join(line for _, line in lines if line is not None)
+
+
+def _cli_topology(servers: list, workers: list, profiles=None,
+                  probe=None) -> dict:
     """``cli serve`` processes (``servers``: argv tails, each with its
     ``--port``) and, once every server printed its 'up' line, ``cli
-    worker`` processes (argv tails), on the card; output to temp files,
-    everything killed at its timeout. With ``profiles``, worker i runs
-    under ``--profile-dir <profiles>/w<i>``. Returns exit codes, each
-    process's METRICS_JSON rows and output tails, and the wall seconds."""
+    worker`` processes (argv tails), on the card; everything killed at its
+    timeout. (Started together, a worker whose server comes up more than
+    15 s after its first try fails its registration: ``RemoteStore``
+    retries 5 times, backoff from 1 s.) With ``profiles``, worker i runs
+    under ``--profile-dir <profiles>/w<i>``. ``probe()`` runs on a thread
+    of its own from the 'up' lines on, while the workers train; its
+    result (or what it raised) is returned. Every line a server writes to
+    stderr and a worker to stdout is read as it comes, with its time.
+    Returns exit codes, each process's METRICS_JSON rows and output
+    tails, the wall seconds and the wall's split: spawn to 'up', each
+    worker's spawn to its epoch's start, its epoch, its epoch's end to
+    its exit, and the last worker's exit to each server's."""
     import os
     import re
     import tempfile
+    import threading
 
     cli = [sys.executable, "-m",
            "distributed_parameter_server_for_ml_training_tpu_torch.cli"]
     repo = Path(__file__).resolve().parent
     env = {**os.environ, "PYTHONPATH": str(repo)}
     logs = [tempfile.TemporaryFile("w+")
-            for _ in range(len(servers) + 2 * len(workers))]
-    procs, srv, wrk, late, errs = [], [], [], None, []
+            for _ in range(len(servers) + len(workers))]
+    srv_lines = [[] for _ in servers]
+    wrk_lines = [[] for _ in workers]
+    procs, srv, wrk, readers, late = [], [], [], [], None
+    t_spawn, t_up, t_wspawn = [], [], []
+    probed, prober = {}, None
+
+    def start(argv, stdout, stderr, lines) -> subprocess.Popen:
+        p = subprocess.Popen(argv, cwd=repo, env=env, stdout=stdout,
+                             stderr=stderr, text=True)
+        procs.append(p)
+        readers.append(threading.Thread(
+            target=_read_lines, args=(p.stderr if stderr is subprocess.PIPE
+                                      else p.stdout, lines), daemon=True))
+        readers[-1].start()
+        return p
+
+    def run_probe():
+        try:
+            probed["result"] = probe()
+        except Exception as e:  # noqa: BLE001 — returned to the caller
+            probed["error"] = e
+            probed["traceback"] = traceback.format_exc()
+
     t0 = time.perf_counter()
     try:
         for i, argv in enumerate(servers):
-            srv.append(subprocess.Popen(
-                cli + ["serve", *argv, "--emit-metrics"], cwd=repo,
-                env=env, stdout=logs[i], stderr=subprocess.PIPE, text=True))
-            procs.append(srv[-1])
-        for p in srv:
-            up, lines = None, []
+            t_spawn.append(time.perf_counter())
+            srv.append(start(cli + ["serve", *argv, "--emit-metrics"],
+                             logs[i], subprocess.PIPE, srv_lines[i]))
+        for i, lines in enumerate(srv_lines):
+            up = None
             while up is None:
-                line = p.stderr.readline()
-                if not line:
-                    break
-                lines.append(line)
-                up = re.search(r"parameter server up on :(\d+)", line)
-            errs.append("".join(lines))
-            if up is None:
-                late = f"a cli serve never came up: {''.join(lines)[-1500:]}"
+                for t, line in list(lines):
+                    if line is None:
+                        up = False
+                        break
+                    if re.search(r"parameter server up on :(\d+)", line):
+                        up = t
+                        break
+                if up is None:
+                    if time.perf_counter() - t0 > GRPC_WORKER_TIMEOUT_S:
+                        up = False
+                    time.sleep(0.01)
+            t_up.append(up or None)
+            if not up:
+                late = f"a cli serve never came up: " \
+                       f"{_lines_text(lines)[-1500:]}"
+        if late is None and probe is not None:
+            prober = threading.Thread(target=run_probe, daemon=True)
+            prober.start()
         if late is None:
             for i, argv in enumerate(workers):
                 extra = ["--profile-dir", os.path.join(profiles, f"w{i}")] \
                     if profiles else []
-                base = len(servers) + 2 * i
-                wrk.append(subprocess.Popen(
+                t_wspawn.append(time.perf_counter())
+                wrk.append(start(
                     cli + ["worker", *argv, "--emit-metrics", *extra],
-                    cwd=repo, env=env, stdout=logs[base],
-                    stderr=logs[base + 1], text=True))
-                procs.append(wrk[-1])
+                    subprocess.PIPE, logs[len(servers) + i], wrk_lines[i]))
             deadline = time.perf_counter() + GRPC_WORKER_TIMEOUT_S
             for w in wrk:
                 try:
@@ -6716,35 +6812,68 @@ def _cli_topology(servers: list, workers: list, profiles=None) -> dict:
                            f"{GRPC_WORKER_TIMEOUT_S} s"
                     break
         if late is None:
-            for i, p in enumerate(srv):
+            for p in srv:
                 try:
-                    errs[i] += p.communicate(
-                        timeout=GRPC_SERVER_TIMEOUT_S)[1]
+                    p.wait(timeout=GRPC_SERVER_TIMEOUT_S)
                 except subprocess.TimeoutExpired:
                     late = f"cli serve still alive " \
                            f"{GRPC_SERVER_TIMEOUT_S} s after its workers"
+                    break
         wall = time.perf_counter() - t0
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+        if prober is not None:
+            prober.join(GRPC_SERVER_TIMEOUT_S)
+        for r in readers:
+            r.join(10)
         texts = []
         for f in logs:
             f.seek(0)
             texts.append(f.read())
             f.close()
     n = len(servers)
+    wtexts = [_lines_text(lines) for lines in wrk_lines]
+    worker_rows = [_metrics_rows(t) for t in wtexts]
+    split = None
+    if late is None and all(worker_rows) and all(t_up):
+        exits = [lines[-1][0] for lines in wrk_lines]
+        done = [next(t for t, line in lines
+                     if line is not None and "EPOCH_DONE" in line)
+                for lines in wrk_lines]
+        epoch = [rows[-1]["epoch_times_seconds"][0] for rows in worker_rows]
+        split = {
+            "spawn_to_up_s": [u - s for u, s in zip(t_up, t_spawn)],
+            "up_to_worker_spawn_s": t_wspawn[0] - max(t_up),
+            # The epoch's start is its end less the epoch's seconds and
+            # its eval (EPOCH_DONE comes after the eval).
+            "worker_spawn_to_epoch_start_s": [
+                d - e - s for d, e, s in zip(done, epoch, t_wspawn)],
+            "epoch_s": epoch,
+            "epoch_end_to_exit_s": [x - d for x, d in zip(exits, done)],
+            "last_worker_exit_to_server_exit_s": [
+                lines[-1][0] - max(exits) for lines in srv_lines]}
+    if prober is not None and prober.is_alive():
+        probed["error"] = AssertionError(
+            f"the probe still ran {GRPC_SERVER_TIMEOUT_S} s after the "
+            f"topology ended")
     out = {"rcs": {"servers": [p.returncode for p in srv],
                    "workers": [p.returncode for p in wrk]},
-           "server_rows": [_metrics_rows(t) for t in texts[:n]],
-           "server_err": errs,
-           "worker_rows": [_metrics_rows(texts[n + 2 * i])
-                           for i in range(len(wrk))],
-           "worker_err": [texts[n + 2 * i + 1][-2000:]
-                          for i in range(len(wrk))],
-           "wall_seconds": wall, "late": late}
+           "server_rows": [_exit_rows(_metrics_rows(t)) for t in texts[:n]],
+           "server_err": [_lines_text(lines) for lines in srv_lines],
+           "worker_rows": worker_rows,
+           "worker_err": [texts[n + i][-2000:] for i in range(len(wrk))],
+           "wall_seconds": wall, "wall_split": split, "late": late,
+           "probe": probed}
     return out
+
+
+def _exit_rows(rows: list) -> list:
+    """A process's METRICS_JSON exit rows: without the ``kind`` records
+    (snapshots, cluster records) that ``--telemetry`` adds."""
+    return [r for r in rows if "kind" not in r]
 
 
 def _worker_img_s(rows: list) -> list:
@@ -6767,17 +6896,29 @@ def _sharded_processes(state: dict, failures: list) -> dict:
         .profiler import find_profile_dumps
 
     ports = [_free_port() for _ in range(SHARDS)]
+    metrics_ports = [_free_port() for _ in range(SHARDS)]
     peers = ",".join(f"127.0.0.1:{p}" for p in ports)
+    # Phase 27 (a) observes the primaries: their telemetry and metrics
+    # ports, with the fetch objective a healthy run keeps.
     servers = [["--mode", "async", "--workers", "2", "--push-codec", "int8",
                 "--shard-count", str(SHARDS), "--shard-index", str(i),
-                "--shard-peers", peers, "--port", str(ports[i])]
+                "--shard-peers", peers, "--port", str(ports[i]),
+                "--telemetry", "--metrics-port", str(metrics_ports[i]),
+                "--slo-fetch-p99-ms", str(FLEET_SLO_P99_MS)]
                for i in range(SHARDS)]
     workers = [["--shards", peers, "--worker-name", f"shard-w{i}",
-                "--synthetic", "--num-train", "2048", "--epochs", "1"]
+                "--synthetic", "--num-train", "2048", "--num-test", "256",
+                "--epochs", "1"]
                for i in range(N_WORKERS)]
     profiles = tempfile.mkdtemp(prefix="sharded-profiles-")
+    fleet: dict = {}
+    state["fleet_peers"] = peers.split(",")
     try:
-        run = _cli_topology(servers, workers, profiles)
+        run = _cli_topology(
+            servers, workers, profiles, probe=lambda: _fleet_probe(
+                metrics_ports, peers.split(","),
+                os.path.join(profiles, "fleet-journal"), fleet) or fleet)
+        state["fleet_probe"] = run["probe"]
         captures = []
         for i, rows in enumerate(run["worker_rows"]):
             logdir = os.path.join(profiles, f"w{i}")
@@ -6804,6 +6945,7 @@ def _sharded_processes(state: dict, failures: list) -> dict:
     img_s = _worker_img_s(run["worker_rows"])
     shard_rows = [r[-1] if r else {} for r in run["server_rows"]]
     out = {"rcs": run["rcs"], "wall_seconds": run["wall_seconds"],
+           "wall_split": run["wall_split"],
            "workers_img_per_s": img_s, "img_per_s_summed": sum(img_s),
            "shard_global_steps": [r.get("global_steps_completed")
                                   for r in shard_rows],
@@ -6813,8 +6955,7 @@ def _sharded_processes(state: dict, failures: list) -> dict:
            "worker_captures": captures,
            "worker_metrics": [r[-1] if r else None
                               for r in run["worker_rows"]],
-           "phase14b_unsharded_unprofiled": state.get("grpc_b"),
-           "phase20c_unsharded_profiled": state.get("grpc_b_profiled")}
+           "phase14b_unsharded_profiled": state.get("grpc_b_profiled")}
     steps = [r[-1]["local_steps_completed"] if r else 0
              for r in run["worker_rows"]]
     if run["late"] or run["rcs"] != {"servers": [0] * SHARDS,
@@ -6927,7 +7068,8 @@ def _arena(state: dict, grads: list, init: dict, failures: list) -> dict:
         [["--store-backend", "native", "--mode", "async", "--workers", "1",
           "--push-codec", "int8", "--port", str(port)]],
         [["--server", f"127.0.0.1:{port}", "--worker-name", "arena-w0",
-          "--synthetic", "--num-train", "512", "--epochs", "1"]])
+          "--synthetic", "--num-train", "512", "--num-test", "256",
+          "--epochs", "1"]])
     srow = run["server_rows"][0][-1] if run["server_rows"][0] else {}
     out["cli"] = {"rcs": run["rcs"], "wall_seconds": run["wall_seconds"],
                   "server": srow, "workers_img_per_s":
@@ -6976,6 +7118,399 @@ def phase_sharded(state: dict) -> None:
         raise AssertionError(f"phase 26: {failures}")
 
 
+# -- phase 27: the fleet observatory, incident forensics, the experiments ------
+
+FLEET_TICK_S = 0.1         # (a): seconds between the collector's ticks
+FLEET_SLO_P99_MS = 60000   # (a), (b): the fetch objective a healthy run keeps
+FLEET_STEPS = 16           # (a): each primary's step at the topology's end
+FLEET_EXPERIMENT_TRAIN = 512   # (c): 2 steps a worker at batch 128
+
+
+def _prom_count(text: str, name: str, method: str) -> int:
+    """``<name>_count{method="<method>"}`` off a ``/metrics`` text."""
+    import re
+    m = re.search(rf'^{name}_count{{[^}}]*method="{method}"[^}}]*}} (\S+)$',
+                  text, re.M)
+    if m is None:
+        raise AssertionError(f"no {name}_count for {method} in /metrics")
+    return int(float(m.group(1)))
+
+
+def _raise_in(thread, exc) -> None:
+    """Deliver ``exc`` to ``thread`` at its next bytecode, as Ctrl-C
+    reaches a process's main loop (``cli observe`` runs until then)."""
+    import ctypes
+    ctypes.pythonapi.PyThreadState_SetAsyncExc(
+        ctypes.c_ulong(thread.ident), ctypes.py_object(exc))
+
+
+def _fleet_probe(metrics_ports: list, peers: list, journal_dir: str,
+                 out: dict) -> None:
+    """(a): while phase 26 (b)'s primaries serve, a ``FleetCollector`` with
+    ``start_fleet_server`` ticks over their metrics ports, and ``cli
+    observe`` runs on a thread of this process; ``status --via-fleet``,
+    ``top --url --json`` and ``goodput`` are asked once both primaries
+    are training, and the merged fetch histogram is held to the
+    primaries' own ``/metrics`` counts at one scrape. The collector ticks
+    until both primaries report step ``FLEET_STEPS``; then ``observe`` is
+    stopped and ``top --replay`` reads its journal. Fills ``out``."""
+    import io
+    import threading
+    import urllib.request
+
+    from distributed_parameter_server_for_ml_training_tpu_torch import cli
+    from distributed_parameter_server_for_ml_training_tpu_torch.telemetry \
+        import (FleetCollector, MetricsRegistry, default_objectives,
+                start_fleet_server)
+
+    targets = [f"127.0.0.1:{p}" for p in metrics_ports]
+    fetch = "dps_rpc_server_latency_seconds"
+    collector = FleetCollector(
+        targets, interval_s=FLEET_TICK_S, timeout_s=5.0,
+        registry=MetricsRegistry(),
+        objectives=default_objectives(fetch_p99_ms=FLEET_SLO_P99_MS))
+    server, port = start_fleet_server(collector, port=0, addr="127.0.0.1")
+    observe_port = _free_port()
+    observed = {}
+
+    def observe():
+        try:
+            observed["rc"] = cli.main([
+                "observe", "--targets", ",".join(targets), "--port",
+                str(observe_port), "--interval", str(FLEET_TICK_S),
+                "--timeout", "5", "--slo-fetch-p99-ms",
+                str(FLEET_SLO_P99_MS), "--journal-dir", journal_dir])
+        except BaseException as e:  # noqa: BLE001 — reported below
+            observed["error"] = repr(e)
+
+    def cli_out(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        return rc, buf.getvalue()
+
+    def metrics_counts():
+        total = 0
+        for p in metrics_ports:
+            with urllib.request.urlopen(f"http://127.0.0.1:{p}/metrics",
+                                        timeout=5) as r:
+                total += _prom_count(r.read().decode(), fetch,
+                                     "FetchParameters")
+        return total
+
+    watcher = threading.Thread(target=observe, daemon=True)
+    watcher.start()
+    steps_seen, ticks, verbs = [], 0, None
+    t0 = time.perf_counter()
+    try:
+        while True:
+            res = collector.tick()
+            ticks += 1
+            view = collector.view()
+            rows = view["tiers"]["primaries"]
+            if res["failed"]:
+                raise AssertionError(
+                    f"a scrape failed before both primaries reached step "
+                    f"{FLEET_STEPS} (steps seen {steps_seen[-3:]}): "
+                    f"{view['targets']}")
+            steps = sorted((r.get("shard_id"), r.get("global_step"))
+                           for r in rows)
+            steps_seen.append([s for _, s in steps])
+            if verbs is None and len(rows) == 2 \
+                    and all((r.get("global_step") or 0) >= 1 for r in rows):
+                # Both primaries train: the discovery, the merged count
+                # at one scrape (the primaries' own counts read just
+                # before and just after the tick, and equal), the SLO
+                # evaluator's reading, and the verbs.
+                out["discovery"] = {
+                    "primaries": [{k: r.get(k) for k in (
+                        "target", "ok", "shard_id", "map_version",
+                        "global_step")} for r in rows],
+                    "primary_addresses":
+                        view["tiers"].get("primary_addresses")}
+                for attempt in range(50):
+                    before = metrics_counts()
+                    collector.tick()
+                    ticks += 1
+                    after = metrics_counts()
+                    if before == after:
+                        break
+                else:
+                    raise AssertionError("no scrape between two fetches in "
+                                         "50 tries")
+                view = collector.view()
+                merged = view["rollups"]["histograms"][
+                    f"{fetch}{{method=FetchParameters}}"]
+                slo = view["slo"]
+                out["merged_fetch"] = {
+                    "count": merged["count"], "primaries_sum": before,
+                    "targets": merged["targets"], "tries": attempt + 1,
+                    "p50_ms": merged["p50_ms"], "p99_ms": merged["p99_ms"]}
+                out["slo"] = {
+                    "objectives": [{k: o.get(k) for k in (
+                        "name", "total", "p99_ms", "threshold_ms")}
+                        for o in slo["objectives"]],
+                    "breaches": slo["breaches"], "scope": slo["scope"]}
+                fleet_url = f"127.0.0.1:{observe_port}"
+                status = cli_out(["status", "--via-fleet", fleet_url])
+                top = cli_out(["top", "--url", fleet_url, "--json"])
+                goodput = [cli_out(["goodput", "--url", t, "--json"])
+                           for t in targets]
+                frame = json.loads(top[1]) if top[0] == 0 else {}
+                verbs = {
+                    "status_rc": status[0],
+                    "status_header": status[1].splitlines()[:1],
+                    "top_rc": top[0],
+                    "top_targets_ok": sum(t.get("ok", False)
+                                          for t in frame.get("targets", [])),
+                    "top_primaries": sorted(
+                        r.get("shard_id") for r in
+                        (frame.get("tiers") or {}).get("primaries", [])),
+                    "goodput_rcs": [g[0] for g in goodput],
+                    "goodput_json_lines": [
+                        g[1].startswith("GOODPUT_JSON: ") for g in goodput]}
+                out["verbs"] = verbs
+            if all(s == FLEET_STEPS for s in steps_seen[-1]) \
+                    and len(steps_seen[-1]) == 2:
+                break
+            time.sleep(FLEET_TICK_S)
+    finally:
+        out["ticks"] = ticks
+        out["probe_seconds"] = time.perf_counter() - t0
+        out["steps_last"] = steps_seen[-3:]
+        if watcher.is_alive():
+            _raise_in(watcher, KeyboardInterrupt)
+        watcher.join(10)
+        server.shutdown()
+        server.server_close()
+    out["observe"] = dict(observed, alive=watcher.is_alive())
+    rc, text = cli_out(["top", "--replay", journal_dir, "--json"])
+    replay = json.loads(text) if rc == 0 else {}
+    out["replay"] = {"rc": rc, "ticks": replay.get("ticks"),
+                     "primaries": sorted(
+                         r.get("shard_id") for r in
+                         (replay.get("tiers") or {}).get("primaries", []))}
+
+
+def _fleet_checks(state: dict) -> dict:
+    """(a): the probe's readings, held to what they must be."""
+    got = state.get("fleet_probe")
+    if got is None:
+        raise AssertionError("phase 26 (b) ran no fleet probe")
+    if "error" in got:
+        raise AssertionError(f"the fleet probe raised: {got['traceback']}")
+    out = dict(got["result"])
+    problems = []
+    prim = out.get("discovery", {}).get("primaries", [])
+    if sorted(r["shard_id"] for r in prim) != [0, 1] \
+            or not all(r["ok"] for r in prim) \
+            or out["discovery"]["primary_addresses"] \
+            != sorted(state["fleet_peers"]):
+        problems.append(f"discovery: {out.get('discovery')}")
+    if out["steps_last"][-1:] != [[FLEET_STEPS, FLEET_STEPS]]:
+        problems.append(f"primaries' last steps {out['steps_last']}")
+    mf = out.get("merged_fetch", {})
+    if not mf or mf["count"] != mf["primaries_sum"] or mf["targets"] != 2 \
+            or mf["count"] <= 0:
+        problems.append(f"merged fetch histogram: {mf}")
+    objs = {o["name"]: o for o in out.get("slo", {}).get("objectives", [])}
+    if out.get("slo", {}).get("scope") != "fleet" \
+            or objs.get("fetch_latency", {}).get("total") != mf.get("count"):
+        problems.append(f"fleet SLO: {out.get('slo')}")
+    v = out.get("verbs") or {}
+    if v.get("status_rc") != 0 or v.get("top_rc") != 0 \
+            or v.get("top_targets_ok") != 2 \
+            or v.get("top_primaries") != [0, 1] \
+            or v.get("goodput_rcs") != [0, 0] \
+            or not all(v.get("goodput_json_lines", [False])):
+        problems.append(f"verbs: {v}")
+    ob = out["observe"]
+    if ob.get("alive") or "error" in ob or ob.get("rc") != 0 \
+            or out["replay"]["rc"] != 0 or out["replay"]["primaries"] \
+            != [0, 1] or not out["replay"]["ticks"]:
+        problems.append(f"observe {ob}, replay {out['replay']}")
+    out["problems"] = problems
+    return out
+
+
+def _forensics(state: dict) -> dict:
+    """(b): ``incident list``, then ``show`` and ``report`` of every
+    bundle the NaN drill of phase 20 (b) froze, and ``query
+    --percentiles --slo --goodput`` over the journal of its first serve
+    session, whose percentiles must equal those of the last snapshot
+    that session's registry printed."""
+    from distributed_parameter_server_for_ml_training_tpu_torch.telemetry \
+        import histogram_quantile
+
+    dirs = state.get("observe_dirs")
+    if dirs is None:
+        raise AssertionError("phase 20 (b) left no journal or bundle")
+    problems = []
+    listed = _cli_json(["incident", "list", "--dir", dirs["i2"], "--json"])
+    rows = listed["out"] or []
+    bad = [r for r in rows if "error" in r]
+    out = {"list_rc": listed["rc"]}
+    if listed["rc"] != 0 or len(rows) < 1 or bad:
+        raise AssertionError(f"incident list: {listed}")
+    out["bundles"] = {}
+    for bundle in rows:
+        # Each bundle shown, and its breach re-derived from the journal:
+        # the timeline's alert phase holds its trigger's rule, in order.
+        shown = _cli_json(["incident", "show", bundle["id"], "--dir",
+                           dirs["i2"], "--json"])
+        report = _cli_json(["incident", "report", bundle["id"], "--dir",
+                            dirs["i2"], "--json"])
+        rule = bundle["trigger"]["rule"]
+        tl = (report["out"] or {}).get("timeline", {})
+        fired = [e["summary"] for e in tl.get("events", [])
+                 if e.get("phase") == "alert" and e.get("rule") == rule]
+        row = out["bundles"][bundle["id"]] = {
+            "show_rc": shown["rc"], "report_rc": report["rc"],
+            "rule": rule, "breach_rederived": fired,
+            "timeline_phases": {k: v["count"] for k, v in
+                                tl.get("phases", {}).items()},
+            "ordered": tl.get("ordered"),
+            "report_stats": (report["out"] or {}).get("stats")}
+        if shown["rc"] != 0 \
+                or (shown["out"] or {}).get("id") != bundle["id"]:
+            problems.append(f"incident show {bundle['id']}: {shown}")
+        if report["rc"] != 0 or not fired or not tl.get("ordered"):
+            problems.append(f"incident report {bundle['id']}: {row}")
+    if not any(r.startswith("nonfinite") for r in
+               (b["rule"] for b in out["bundles"].values())):
+        problems.append(f"no bundle of the NaN drill: {list(out['bundles'])}")
+    query = _cli_json_line(["query", "--journal", dirs["j"],
+                            "--percentiles", "--slo", "--goodput",
+                            "--slo-fetch-p99-ms", str(FLEET_SLO_P99_MS),
+                            "--json"], "QUERY_JSON: ")
+    q = query["out"] or {}
+    last = state["observe_last_snapshot"]["histograms"]
+    pcts, mismatched = q.get("percentiles", {}), []
+    for key in ("dps_rpc_server_latency_seconds{method=FetchParameters}",
+                "dps_rpc_server_latency_seconds{method=PushGradrients}"):
+        h = last[key]
+        want = {name: round(histogram_quantile(h["le"], h["counts"], pct),
+                            6)
+                for pct, name in ((50, "p50"), (95, "p95"), (99, "p99"))}
+        got = {k: pcts.get(key, {}).get(k) for k in want}
+        if got != want or pcts.get(key, {}).get("count") != h["count"]:
+            mismatched.append({key: [got, want]})
+    gp = q.get("goodput", {})
+    out["query"] = {"rc": query["rc"], "percentiles": {
+        k: v for k, v in pcts.items() if "rpc_server_latency" in k},
+        "slo_samples": q.get("slo", {}).get("samples"),
+        "any_critical_breach": q.get("slo", {}).get("any_critical_breach"),
+        "goodput": {k: gp.get(k) for k in ("wall_s", "goodput_fraction",
+                                           "processes", "reconciled")},
+        "mismatched": mismatched}
+    if query["rc"] != 0 or mismatched or not q.get("slo", {}).get("samples") \
+            or not gp.get("wall_s"):
+        problems.append(f"query: {out['query']}")
+    out["problems"] = problems
+    return out
+
+
+def _cli_json_line(argv: list, prefix: str) -> dict:
+    """``cli.main(argv)`` with stdout kept: rc and the JSON of its
+    ``prefix`` line."""
+    import io
+
+    from distributed_parameter_server_for_ml_training_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    line = next((ln for ln in buf.getvalue().splitlines()
+                 if ln.startswith(prefix)), None)
+    return {"rc": rc, "out": json.loads(line[len(prefix):])
+            if line is not None else None}
+
+
+def _experiments(state: dict) -> dict:
+    """(c): ``cli experiments`` in this process on the card: full-width
+    ResNet-18, sync and async cells of 2 workers, one epoch of
+    ``FLEET_EXPERIMENT_TRAIN`` synthetic images, no plots."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch import cli
+    from distributed_parameter_server_for_ml_training_tpu_torch.analysis \
+        import RECORD_KEYS
+
+    root = tempfile.mkdtemp(prefix="experiments-")
+    problems, cells = [], {}
+    try:
+        rc = cli.main(["experiments", "--modes", "sync,async",
+                       "--worker-counts", "2", "--epochs", "1",
+                       "--synthetic", "--num-train",
+                       str(FLEET_EXPERIMENT_TRAIN), "--num-test", "256",
+                       "--no-plots", "--out-dir", root])
+        names = sorted(os.listdir(root))
+        for name in names:
+            with open(os.path.join(root, name)) as f:
+                rec = json.load(f)
+            sm = rec["server_metrics"]
+            steps = [r["local_steps_completed"]
+                     for r in rec["raw_worker_metrics"]]
+            rounds = steps[0] if sm["mode"] == "sync" else sum(steps)
+            cells[name] = {
+                "keys": list(rec), "device": rec["device"],
+                "server_steps": sm["global_steps_completed"],
+                "gradients_processed": sm["gradients_processed"],
+                "worker_steps": steps,
+                "accuracy": rec["worker_metrics_aggregated"].get(
+                    "average_final_accuracy"),
+                "total_training_time_seconds":
+                    rec["worker_metrics_aggregated"].get(
+                        "total_training_time_seconds")}
+            if list(rec) != list(RECORD_KEYS) \
+                    or torch.cuda.get_device_name(0) not in rec["device"] \
+                    or sm["gradients_processed"] != sum(steps) \
+                    or sm["global_steps_completed"] != rounds \
+                    or len(set(steps)) != 1 or not steps[0]:
+                problems.append(f"{name}: {cells[name]}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if rc != 0 or names != ["async_2workers.json", "sync_2workers.json"]:
+        problems.append(f"cli experiments rc {rc}, files {names}")
+    return {"rc": rc, "cells": cells, "problems": problems}
+
+
+def phase_fleet(state: dict) -> None:
+    """Phase 27: the fleet observatory over phase 26 (b)'s primaries,
+    the forensics verbs over phase 20 (b)'s journal and bundle, and the
+    experiment matrix."""
+    import shutil
+
+    failures: list = []
+    t0 = time.perf_counter()
+    try:
+        for key, fn in (("a_fleet", _fleet_checks), ("b_forensics",
+                                                     _forensics),
+                        ("c_experiments", _experiments)):
+            t = time.perf_counter()
+            try:
+                res = fn(state)
+                failures.extend(f"({key[0]}) {p}" for p in res["problems"])
+            except Exception as e:  # noqa: BLE001 — reported, fails it
+                traceback.print_exc()
+                res = {"error": repr(e)}
+                failures.append(f"({key[0]}) raised {e!r}")
+            emit({"phase": "fleet", "form": key, **res,
+                  "seconds": time.perf_counter() - t, "card": state["card"]})
+    finally:
+        root = (state.pop("observe_dirs", None) or {}).get("root")
+        if root:
+            shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "fleet", "form": "summary",
+          "seconds": time.perf_counter() - t0, "failures": failures,
+          "card": state["card"]})
+    if failures:
+        raise AssertionError(f"phase 27: {failures}")
+
+
 def main() -> int:
     import torch
 
@@ -6990,6 +7525,7 @@ def main() -> int:
 
     state: dict = {}
     failed = []
+    t_main = time.perf_counter()
     for phase in (phase_build, phase_kernel, phase_kernel_int8, phase_codec,
                   phase_main_path, phase_profile, phase_sync_path,
                   phase_sync_profile, phase_baseline, phase_kernel_flash,
@@ -6997,7 +7533,8 @@ def main() -> int:
                   phase_grpc_path, phase_grpc_modes, phase_device_store,
                   phase_checkpoints, phase_health, phase_models,
                   phase_observability, phase_multihost, phase_sp_multihost,
-                  phase_moe, phase_pp, phase_tp, phase_sharded):
+                  phase_moe, phase_pp, phase_tp, phase_sharded,
+                  phase_fleet):
         t0 = time.perf_counter()
         try:
             phase(state)
@@ -7006,6 +7543,8 @@ def main() -> int:
             failed.append(phase.__name__)
         print(f"[{phase.__name__}] {time.perf_counter() - t0:.1f}s",
               file=sys.stderr, flush=True)
+    print(f"[total] {time.perf_counter() - t_main:.1f}s", file=sys.stderr,
+          flush=True)
     if failed:
         print(f"chip_smoke: FAILED phases {failed}", file=sys.stderr)
         return 1
@@ -7015,9 +7554,8 @@ def main() -> int:
         quantize as Q
 
     # K1 with its launches from the async path's run, the gRPC path's
-    # (phase 14 (a); the worker processes of (b) and of phase 20 (c) are
-    # other processes, and (c) reads theirs off their captures), the gRPC
-    # modes' (phase 15
+    # (phase 14 (a); the worker processes of (b) and of phase 26 (b) are
+    # other processes, read off their captures), the gRPC modes' (phase 15
     # (a)), the health path's (phase 18 (a)), the models' (phase 19 (c),
     # (d), (e)), the serve surfaces' (phase 20 (b)) and the sharded
     # tier's (phase 26 (a)); a push's times.

@@ -155,6 +155,28 @@ a capture per op class and ``perf diff`` compares two artifacts::
     python -m distributed_parameter_server_for_ml_training_tpu_torch.cli \
         perf profile --profile-dir prof --out a.json
 
+The fleet observatory and the forensics verbs read what those surfaces
+serve and write, as the JAX verbs do: ``observe`` scrapes the metrics
+ports it is given (and the replicas their ``/cluster`` views announce)
+and serves ``GET /fleet``; ``status`` renders one ``/cluster`` or, with
+``--via-fleet``, a ``/fleet``; ``top`` renders ``/fleet`` live or, with
+``--replay``, from observe's journal; ``incident list|show|report``
+reads ``--incidents-dir`` bundles; ``query`` and ``goodput`` answer from
+a journal and from a live ``/metrics.json``. ``experiments`` runs the
+sync/async matrix on ``--device`` (or ingests a pod's logs with
+``--ingest-pod``)::
+
+    python -m distributed_parameter_server_for_ml_training_tpu_torch.cli \
+        observe --targets 127.0.0.1:9400,127.0.0.1:9401 --port 9500 \
+        --journal-dir fleet-journal
+    python -m distributed_parameter_server_for_ml_training_tpu_torch.cli \
+        top --url 127.0.0.1:9500
+    python -m distributed_parameter_server_for_ml_training_tpu_torch.cli \
+        incident report --dir incidents
+    python -m distributed_parameter_server_for_ml_training_tpu_torch.cli \
+        experiments --modes sync,async --worker-counts 2 --epochs 1 \
+        --synthetic --num-train 512 --no-plots --out-dir results
+
 The flags and verbs of the JAX CLI that name features of later slices
 are accepted and refused with the ROADMAP item that brings them.
 """
@@ -594,6 +616,248 @@ def build_parser() -> argparse.ArgumentParser:
     w.add_argument("--job", default=None)
     w.add_argument("--faults", default=None)
 
+    e = sub.add_parser("experiments",
+                       help="run the sync/async x workers matrix "
+                            "(reference §6 tables) and plot")
+    e.add_argument("--modes", default="sync,async")
+    e.add_argument("--worker-counts", default="4,8")
+    e.add_argument("--out-dir", default="experiments/results")
+    e.add_argument("--backend", choices=["python", "native", "device"],
+                   default="python",
+                   help="'device' keeps store tensors on the card "
+                        "(zero host<->device traffic per step)")
+    e.add_argument("--no-plots", action="store_true")
+    # Pod-log ingestion (analysis/pod_logs.py): one command turns a pod
+    # run's teed logs into a reference-schema experiment JSON — the
+    # reference's CloudWatch ETL loop (parse_cloudwatch_logs.py:34-87)
+    # over ssh + terraform-output discovery.
+    e.add_argument("--ingest-pod", action="store_true",
+                   help="collect METRICS_JSON logs from a pod instead "
+                        "of running the local matrix")
+    e.add_argument("--pod-name", help="pod to ingest (else --tf-dir "
+                                      "discovery)")
+    e.add_argument("--pod-zone")
+    e.add_argument("--tf-dir", default="deploy/terraform",
+                   help="terraform dir for pod_name/pod_zone discovery")
+    e.add_argument("--experiment-name", default="pod_run")
+    e.add_argument("--pod-log-path", default="~/dps_train.log")
+    e.add_argument("--model", choices=["resnet18", "resnet50", "vit_b16",
+                                       "vit_tiny"], default="resnet18",
+                   help="accepted as in the JAX CLI; every cell trains "
+                        "ResNet-18, as the JAX runner's do")
+    _add_common(e)
+    _add_telemetry(e)
+
+    st = sub.add_parser(
+        "status",
+        help="cluster health dashboard: render a serve process's "
+             "GET /cluster as a terminal table (docs/OBSERVABILITY.md)")
+    st.add_argument("--url", default=_env("DPS_STATUS_URL", None),
+                    help="base URL of the server's metrics endpoint, e.g. "
+                         "http://host:9400 (env DPS_STATUS_URL); overrides "
+                         "--host/--metrics-port")
+    st.add_argument("--host", default="127.0.0.1",
+                    help="metrics endpoint host (with --metrics-port)")
+    st.add_argument("--metrics-port", type=int,
+                    default=_env("DPS_METRICS_PORT", None, int),
+                    help="the serve process's --metrics-port")
+    st.add_argument("--watch", type=float, default=0.0, metavar="SECONDS",
+                    help="redraw every N seconds until interrupted "
+                         "(0 = one shot)")
+    st.add_argument("--json", action="store_true",
+                    help="print the raw /cluster JSON instead of the table")
+    st.add_argument("--via-fleet", default=None, metavar="URL",
+                    help="render the dashboard from a fleet collector's "
+                         "GET /fleet snapshot (cli observe) instead of "
+                         "one primary's /cluster — the first primary's "
+                         "cluster blocks plus fleet-scope SLO/alerts; "
+                         "blocks the fleet view lacks degrade exactly "
+                         "like a server without them")
+
+    ob = sub.add_parser(
+        "observe",
+        help="fleet observatory collector (docs/OBSERVABILITY.md "
+             "\"Fleet observatory\"): scrape every fleet process's "
+             "/metrics + /cluster on an interval into a bounded ring "
+             "TSDB, roll them up (bucket-exact histogram merges), and "
+             "serve GET /fleet — a standalone process, off every hot "
+             "path, that survives primary restarts")
+    ob.add_argument("--targets", required=True,
+                    help="comma list of metrics endpoints (host:port) to "
+                         "seed the scrape set; replicas announcing a "
+                         "metrics address via /cluster are discovered "
+                         "automatically")
+    ob.add_argument("--port", type=int, default=_env("DPS_FLEET_PORT", 0,
+                                                     int),
+                    help="port to serve GET /fleet on (0 = pick free)")
+    ob.add_argument("--interval", type=float, default=2.0,
+                    help="seconds between scrape ticks")
+    ob.add_argument("--timeout", type=float, default=1.5,
+                    help="per-target per-request scrape timeout; a dead "
+                         "target marks its series stale, never blocks "
+                         "the tick")
+    ob.add_argument("--ring-depth", type=int, default=120,
+                    help="samples kept per series ring (bounded memory)")
+    ob.add_argument("--slo-fetch-p99-ms", type=float, default=100.0,
+                    help="fleet fetch-latency objective threshold")
+    ob.add_argument("--slo-availability", type=float, default=0.99,
+                    help="fleet availability objective target")
+    ob.add_argument("--slo-fast-window", type=float, default=60.0,
+                    help="fast burn window (s) for the fleet-scope SLO "
+                         "evaluation over MERGED series")
+    ob.add_argument("--slo-slow-window", type=float, default=300.0,
+                    help="slow burn window (s)")
+    ob.add_argument("--journal-dir",
+                    default=_env("DPS_JOURNAL_DIR", None),
+                    help="journal every tick's merged /fleet view (minus "
+                         "history rings) + slo_burn edges into this "
+                         "durable journal directory — the `cli top "
+                         "--replay` / `cli query` source")
+    ob.add_argument("--incidents-dir",
+                    default=_env("DPS_INCIDENTS_DIR", None),
+                    help="auto-freeze a forensic bundle here on critical "
+                         "fleet alerts / SLO-burn edges (journal window, "
+                         "/fleet snapshot, target trace dumps; "
+                         "docs/OBSERVABILITY.md 'Incident forensics')")
+    ob.add_argument("--incident-window", type=float, default=120.0,
+                    help="seconds of journal history frozen per bundle")
+    ob.add_argument("--incident-cooldown", type=float, default=120.0,
+                    help="per-rule dedupe window: an alert storm yields "
+                         "one bundle per rule per cooldown")
+
+    tp = sub.add_parser(
+        "top",
+        help="live fleet dashboard over a collector's GET /fleet "
+             "(per-tier rows, fleet QPS, replica lag, merged-series SLO "
+             "burn, alert feed, sparklines); exit codes match `cli "
+             "status`: 0 healthy, 1 unreachable, 2 critical, 3 "
+             "critical-but-healing")
+    tp.add_argument("--url", default=_env("DPS_FLEET_URL", None),
+                    help="base URL of the fleet collector, e.g. "
+                         "http://host:9500 (env DPS_FLEET_URL)")
+    tp.add_argument("--watch", type=float, default=0.0, metavar="SECONDS",
+                    help="redraw every N seconds until interrupted "
+                         "(0 = one shot)")
+    tp.add_argument("--json", action="store_true",
+                    help="print the raw /fleet JSON instead of the "
+                         "dashboard")
+    tp.add_argument("--replay", default=None, metavar="JOURNAL_DIR",
+                    help="scrub a PAST run on the same dashboard: read "
+                         "fleet_tick records from a journal directory "
+                         "(cli observe --journal-dir) instead of polling "
+                         "a live /fleet; --watch steps frames at that "
+                         "interval, one-shot renders the final frame")
+
+    inc = sub.add_parser(
+        "incident",
+        help="incident forensics over auto-captured bundles "
+             "(docs/OBSERVABILITY.md 'Incident forensics'): list "
+             "bundles, show a manifest, or reconstruct the causal "
+             "fault->alert->remediation->resolution timeline from the "
+             "on-disk journal — no live process needed")
+    incsub = inc.add_subparsers(dest="incident_command", required=True)
+    inc_common = {
+        "--dir": dict(default=_env("DPS_INCIDENTS_DIR", "incidents"),
+                      help="incidents directory (bundles live in "
+                           "<dir>/<id>/; env DPS_INCIDENTS_DIR)"),
+        "--json": dict(action="store_true",
+                       help="machine-readable output"),
+    }
+    incl = incsub.add_parser("list", help="one row per bundle")
+    incs = incsub.add_parser("show",
+                             help="manifest + bundle contents for one id")
+    incs.add_argument("id", help="bundle id (or unique prefix)")
+    incr = incsub.add_parser(
+        "report",
+        help="merge the bundle's frozen journal window with the "
+             "journal's post-edge segments and render the ordered "
+             "cross-process postmortem timeline")
+    incr.add_argument("id", nargs="?", default=None,
+                      help="bundle id or unique prefix (default: the "
+                           "newest bundle)")
+    incr.add_argument("--journal-dir", default=None,
+                      help="override the journal directory recorded in "
+                           "the manifest (bundle moved hosts)")
+    for q in (incl, incs, incr):
+        for flag, kw in inc_common.items():
+            q.add_argument(flag, **kw)
+
+    qy = sub.add_parser(
+        "query",
+        help="retro-query a durable journal: list/aggregate series over "
+             "a time range with union-exact percentiles (bucket-exact "
+             "histogram merges across processes), or re-run the SLO "
+             "burn evaluation over history (same windows as the live "
+             "evaluator)")
+    qy.add_argument("--journal", required=True,
+                    help="journal directory (or one segment file)")
+    qy.add_argument("--series", default=None,
+                    help="substring filter on metric keys (e.g. "
+                         "'rpc_server_latency')")
+    qy.add_argument("--since", type=float, default=None,
+                    help="window start (unix seconds; percentiles and "
+                         "counter deltas are computed window-exact "
+                         "against the last snapshot at or before it)")
+    qy.add_argument("--until", type=float, default=None,
+                    help="window end (unix seconds; default newest)")
+    qy.add_argument("--last", type=float, default=None, metavar="SECONDS",
+                    help="shorthand: window = newest snapshot minus N "
+                         "seconds (overrides --since)")
+    qy.add_argument("--percentiles", action="store_true",
+                    help="p50/p95/p99 per selected histogram series, "
+                         "merged union-exact across processes")
+    qy.add_argument("--slo", action="store_true",
+                    help="retroactive SLO burn evaluation over the "
+                         "journal's snapshot history (fast + slow "
+                         "windows, telemetry/slo.py semantics); exit "
+                         "code 2 when any critical window breached")
+    qy.add_argument("--slo-fetch-p99-ms", type=float, default=100.0,
+                    help="fetch-latency objective threshold")
+    qy.add_argument("--slo-availability", type=float, default=0.99,
+                    help="availability objective target")
+    qy.add_argument("--slo-fast-window", type=float, default=60.0,
+                    help="fast burn window (s)")
+    qy.add_argument("--slo-slow-window", type=float, default=300.0,
+                    help="slow burn window (s)")
+    qy.add_argument("--goodput", action="store_true",
+                    help="retroactive goodput ledger over the window: "
+                         "per-category wall seconds (counter deltas "
+                         "merged across processes), goodput fraction, "
+                         "residual — answers 'what fraction of the "
+                         "window was productive' from the journal alone")
+    qy.add_argument("--incidents", default=None, metavar="DIR",
+                    help="with --goodput: join incident bundles from DIR "
+                         "and attribute badput seconds to each bundle's "
+                         "capture window (per-incident cost accounting)")
+    qy.add_argument("--goodput-tolerance", type=float, default=0.02,
+                    help="residual fraction above which the goodput "
+                         "report flags the ledger unreconciled "
+                         "(default: 0.02)")
+    qy.add_argument("--json", action="store_true",
+                    help="machine-readable output (QUERY_JSON line)")
+
+    gp = sub.add_parser(
+        "goodput",
+        help="live goodput ledger from a running process's /metrics.json: "
+             "per-category wall-clock accounting "
+             "(docs/OBSERVABILITY.md 'Goodput observatory'), goodput "
+             "fraction, residual; exit 1 when the endpoint is "
+             "unreachable")
+    gp.add_argument("--url", default=_env("DPS_METRICS_URL", None),
+                    help="base URL of the metrics endpoint, e.g. "
+                         "http://host:9100 (env DPS_METRICS_URL; "
+                         "or use --host/--metrics-port)")
+    gp.add_argument("--host", default="127.0.0.1",
+                    help="metrics host when --url is not given")
+    gp.add_argument("--metrics-port", type=int, default=9100,
+                    help="metrics port when --url is not given")
+    gp.add_argument("--tolerance", type=float, default=0.02,
+                    help="residual fraction above which the ledger is "
+                         "flagged unreconciled (default: 0.02)")
+    gp.add_argument("--json", action="store_true",
+                    help="machine-readable output (GOODPUT_JSON line)")
+
+
     pf = sub.add_parser(
         "perf",
         help="perf observatory: attribute a --profile-dir capture into "
@@ -753,7 +1017,10 @@ def _load_dataset(args):
                                 n_test=args.num_test or 1_000,
                                 image_size=args.image_size)
     elif args.synthetic:
-        ds = synthetic_cifar100()
+        # Only the images the run keeps are drawn: the same bytes as the
+        # whole set sliced below.
+        ds = synthetic_cifar100(keep_train=args.num_train or None,
+                                keep_test=args.num_test or None)
     else:
         ds = load_cifar100(args.data_dir)
     if args.num_train:
@@ -1305,10 +1572,1297 @@ def _cmd_perf_diff(args) -> int:
     return 0
 
 
+def _replica_tree_lines(sh: dict, indent: str = "  ") -> list[str]:
+    """Render a sharding block's replica rows as the fan-out tree
+    (docs/SHARDING.md "Fan-out trees"): children indent under their
+    parent with tier + lag, depth-first in address order. Rows whose
+    parent is neither a live replica nor a primary render under an
+    explicit ``orphaned`` header naming the gone parent — a killed or
+    stale interior node shows its stranded children instead of
+    flattening them away. Pre-tree rows (no ``parent``/``tier``) all
+    root at the primary, reproducing the old flat listing."""
+    rows = sh.get("replicas", []) or []
+    primaries = set(sh.get("primaries", []) or [])
+    by_addr = {r.get("address"): r for r in rows if r.get("address")}
+    children: dict[str, list] = {}
+    roots, orphans = [], {}
+    for r in rows:
+        parent = r.get("parent")
+        if parent is None or parent in primaries:
+            roots.append(r)
+        elif parent in by_addr:
+            children.setdefault(parent, []).append(r)
+        else:
+            orphans.setdefault(parent, []).append(r)
+
+    def row_line(r: dict, depth: int) -> str:
+        qps = r.get("fetch_qps")
+        return (f"{indent}{'  ' * depth}replica {r.get('address')}"
+                + (f" [tier {r['tier']}]" if "tier" in r else "")
+                + f": step={r.get('step')} "
+                f"lag={r.get('lag_steps')} step(s), "
+                f"announced {r.get('announce_age_s', 0):.1f}s ago"
+                + (f", {qps:g} fetch/s" if qps else "")
+                + (f" (via {r['via']})" if "via" in r else ""))
+
+    lines: list[str] = []
+
+    def walk(r: dict, depth: int, seen: set) -> None:
+        addr = r.get("address")
+        if addr in seen:  # defensive: a cyclic view must not hang
+            return
+        seen.add(addr)
+        lines.append(row_line(r, depth))
+        for c in sorted(children.get(addr, []),
+                        key=lambda x: str(x.get("address"))):
+            walk(c, depth + 1, seen)
+
+    seen: set = set()
+    for r in sorted(roots, key=lambda x: str(x.get("address"))):
+        walk(r, 0, seen)
+    # Subtrees hanging off a live interior node already walked above;
+    # whatever never got visited hangs off a DEAD parent — show it.
+    for parent in sorted(orphans):
+        stranded = [r for r in orphans[parent]
+                    if r.get("address") not in seen]
+        if not stranded:
+            continue
+        lines.append(f"{indent}orphaned (parent {parent} gone):")
+        for r in sorted(stranded, key=lambda x: str(x.get("address"))):
+            walk(r, 1, seen)
+    tiers = sh.get("tiers") or {}
+    if any("tier" in r for r in rows) and tiers:
+        roll = "; ".join(
+            f"tier {t}: {v.get('replicas', 0)} replica(s), "
+            f"max_lag={v.get('max_lag_steps', 0)}, "
+            f"{v.get('fetch_qps', 0):g} fetch/s"
+            for t, v in sorted(tiers.items(), key=lambda kv: kv[0]))
+        lines.append(f"{indent}tiers: {roll}")
+    return lines
+
+
+def _render_status(view: dict) -> str:
+    """The ``cli status`` terminal dashboard: cluster header, per-worker
+    table, active alerts. Pure text in, text out (tested directly)."""
+    sev_mark = {"critical": "CRIT", "warning": "WARN", "info": "INFO"}
+    totals = view.get("alerts_total", {})
+    gpf = view.get("goodput_fraction")
+    header = (f"cluster: mode={view.get('mode', '?')} "
+              f"global_step={view.get('global_step', 0)} "
+              f"workers={len(view.get('workers', []))} "
+              + (f"goodput={gpf * 100:.1f}% "
+                 if isinstance(gpf, (int, float))
+                 and not isinstance(gpf, bool) else "")
+              + f"alerts: critical={totals.get('critical', 0)} "
+              f"warning={totals.get('warning', 0)} "
+              f"info={totals.get('info', 0)}")
+    # The job column renders only when the server is tenancy-enabled
+    # (worker rows carry "job") — a pre-tenancy /cluster payload draws
+    # the exact pre-tenancy table. The goodput column follows the same
+    # degradation discipline: absent from pre-goodput workers' reports,
+    # absent from the table.
+    has_jobs = any("job" in r for r in view.get("workers", []))
+    has_goodput = any("goodput_fraction" in r
+                      for r in view.get("workers", []))
+    cols = [("worker", 7)] \
+        + ([("job", 10)] if has_jobs else []) \
+        + [("alive", 6), ("step", 8), ("epoch", 6),
+           ("loss", 10), ("grad_norm", 11), ("ex/s", 9)] \
+        + ([("goodput", 8)] if has_goodput else []) \
+        + [("pipe", 5),
+           ("codec", 19), ("reconn", 7), ("hb_err", 7), ("age_s", 7)]
+    lines = [header, "-" * len(header)]
+    rnd = view.get("round")
+    if rnd:
+        # Quorum-round state (docs/ROBUSTNESS.md): target vs received,
+        # who is excluded, what closed the last round.
+        extras = []
+        if rnd.get("excluded"):
+            extras.append(f"excluded={rnd['excluded']}")
+        if rnd.get("deadline_s"):
+            extras.append(f"deadline={rnd['deadline_s']:g}s"
+                          + ("*" if rnd.get("deadline_armed") else ""))
+        if rnd.get("last_trigger"):
+            extras.append(f"last={rnd['last_trigger']}")
+        lines.append(f"round: received {rnd.get('received', 0)}"
+                     f"/{rnd.get('quorum', '?')} "
+                     f"(target {rnd.get('target', '?')}"
+                     + (", " + ", ".join(extras) if extras else "") + ")")
+    lines.append("".join(f"{name:>{w}}" for name, w in cols))
+
+    def cell(v, width, fmt=None):
+        if v is None:
+            return f"{'-':>{width}}"
+        try:
+            return f"{(fmt(v) if fmt else v)!s:>{width}}"
+        except (TypeError, ValueError):
+            return f"{'-':>{width}}"
+
+    for row in view.get("workers", []):
+        age = row.get("report_age_s", row.get("last_seen_age_s"))
+        loss = row.get("loss")
+        if loss is None and not row.get("loss_finite", True):
+            loss = "NaN"
+        gn = row.get("grad_norm")
+        if gn is None and not row.get("grad_finite", True):
+            gn = "NaN"
+        lines.append("".join([
+            cell(row.get("worker"), 7),
+            *([cell(row.get("job"), 10)] if has_jobs else []),
+            cell("yes" if row.get("alive") else "NO", 6),
+            cell(row.get("step"), 8),
+            cell(row.get("epoch"), 6),
+            cell(loss, 10, lambda v: v if isinstance(v, str)
+                 else f"{v:.4f}"),
+            cell(gn, 11, lambda v: v if isinstance(v, str)
+                 else f"{v:.4g}"),
+            cell(row.get("examples_per_s"), 9,
+                 lambda v: f"{v:.1f}"),
+            *([cell(row.get("goodput_fraction"), 8,
+                    lambda v: f"{v * 100:.1f}%")] if has_goodput else []),
+            cell(row.get("pipeline_depth"), 5),
+            cell(row.get("push_codec"), 19),
+            cell(row.get("reconnects"), 7),
+            cell(row.get("heartbeat_errors"), 7),
+            cell(age, 7, lambda v: f"{v:.1f}"),
+        ]))
+    alerts = view.get("alerts", [])
+    if alerts:
+        lines.append("")
+        lines.append("active alerts:")
+        for a in alerts:
+            who = "cluster" if a.get("worker") is None \
+                else f"worker {a['worker']}"
+            lines.append(f"  [{sev_mark.get(a.get('severity'), '????')}] "
+                         f"{a.get('rule')} ({who}): {a.get('message')}")
+    else:
+        lines.append("")
+        lines.append("no active alerts")
+    rem = view.get("remediation")
+    if rem:
+        active = rem.get("active", [])
+        tag = " (dry-run)" if rem.get("dry_run") else ""
+        lines.append("")
+        if active:
+            lines.append(f"active remediations{tag}:")
+            for r in active:
+                who = "cluster" if r.get("worker") is None \
+                    else f"worker {r['worker']}"
+                lines.append(f"  [{r.get('outcome', '?').upper()}] "
+                             f"{r.get('action')} ({who}) <- "
+                             f"{r.get('rule')}")
+        else:
+            lines.append(f"remediation engine on{tag}: no active actions")
+        q = rem.get("quarantined")
+        if q:
+            lines.append("  quarantined pushes: " + ", ".join(
+                f"worker {w} ({s:.0f}s left)" for w, s in q.items()))
+    sh = view.get("sharding")
+    if sh:
+        # Shard identity + replica lag (docs/SHARDING.md): which slot of
+        # the partition this server is, and how far each announced read
+        # replica trails it.
+        lines.append("")
+        lines.append(f"shard: {sh.get('shard_id', '?')}"
+                     f"/{sh.get('shard_count', '?')} "
+                     f"map_version={sh.get('map_version', '?')} "
+                     f"replicas={len(sh.get('replicas', []))}")
+        lines.extend(_replica_tree_lines(sh))
+        mig = sh.get("migration")
+        if mig:
+            # In-flight migration ledger (docs/ROBUSTNESS.md "Migration
+            # failure matrix"). Absent block (idle, or a server predating
+            # the ledger) renders nothing — degradation-pinned like the
+            # slo block.
+            lease = mig.get("lease_remaining_s")
+            lease_s = "" if lease is None else f" lease={lease:g}s"
+            lines.append(
+                f"  migration {mig.get('id')}: {mig.get('role')} "
+                f"phase={mig.get('phase')} "
+                f"slots=[{mig.get('slot_lo')},{mig.get('slot_hi')}) "
+                f"frozen={mig.get('frozen_slots', 0)}{lease_s}")
+    slo = view.get("slo")
+    if slo:
+        # Serve-tier SLOs (docs/OBSERVABILITY.md): per-objective
+        # quantiles + window burn rates. Absent block (older server, or
+        # --no-slo) renders nothing — forward/backward compatible by
+        # construction, pinned by the degradation test.
+        lines.append("")
+        lines.append("slo objectives:")
+        for obj in slo.get("objectives", []):
+            wins = obj.get("windows", {})
+            burns = []
+            for rule in sorted(wins):
+                w = wins[rule]
+                mark = " BREACH" if w.get("breaching") else ""
+                burns.append(f"{w.get('window_s', 0):g}s burn "
+                             f"{w.get('burn', 0):g}x{mark}")
+            thr = (f" p99<={obj['threshold_ms']:g}ms"
+                   if obj.get("threshold_ms") is not None else "")
+            p99 = obj.get("p99_ms")
+            p99_s = "-" if p99 is None else f"{p99:g}ms"
+            lines.append(f"  {obj.get('name')}: "
+                         f"target={obj.get('target')}{thr} "
+                         f"p99={p99_s} n={obj.get('total', 0)} "
+                         f"({'; '.join(burns) if burns else 'no windows'})")
+        breaches = slo.get("breaches", [])
+        if breaches:
+            for b in breaches:
+                lines.append(
+                    f"  [{sev_mark.get(b.get('severity'), '????')}] "
+                    f"{b.get('rule')}: {b.get('objective')} burning "
+                    f"{b.get('burn')}x budget over "
+                    f"{b.get('window_s', 0):g}s "
+                    f"({b.get('bad')}/{b.get('total')} bad)")
+    jb = view.get("jobs")
+    if jb:
+        # Tenancy view (docs/TENANCY.md): one line per job — aggregation
+        # config, live workers, and the weighted-fair QoS counters when
+        # the admission scheduler is on. Absent block (pre-tenancy
+        # server) renders nothing.
+        lines.append("")
+        lines.append("jobs:")
+        for name in sorted(jb, key=lambda n: jb[n].get("index", 0)):
+            row = jb[name]
+            qos = ""
+            if "inflight" in row:
+                qos = (f" inflight={row.get('inflight')} "
+                       f"waiting={row.get('waiting')} "
+                       f"fair_share={row.get('fair_share')}")
+            spec = ""
+            if "weight" in row:
+                spec = (f" weight={row.get('weight'):g} "
+                        f"max_inflight={row.get('max_inflight')}")
+            lines.append(
+                f"  {name}: mode={row.get('mode')} "
+                f"step={row.get('global_step')} "
+                f"workers={len(row.get('workers') or [])} "
+                f"slots={len(row.get('slots') or [])}{spec}{qos}")
+    wa = view.get("worker_autoscale")
+    if wa:
+        acts = wa.get("actions") or {}
+        lines.append("")
+        lines.append(
+            f"worker autoscale: job={wa.get('job')} "
+            f"bounds {wa.get('min')}..{wa.get('max')} "
+            f"depth {wa.get('depth_low'):g}/{wa.get('depth_high'):g} "
+            f"grew={acts.get('worker_grow', 0)} "
+            f"shrank={acts.get('worker_shrink', 0)}")
+    return "\n".join(lines)
+
+
+def _cluster_view_from_fleet(fleet: dict) -> dict:
+    """Synthesize a ``/cluster``-shaped view from a ``/fleet`` snapshot
+    so ``cli status --via-fleet`` renders the EXISTING dashboard from
+    merged fleet data: worker rows and jobs come from the inventory
+    tiers, the alert feed is the fleet-wide one (each alert tagged with
+    its source target), the slo block is the fleet-scope evaluation
+    over MERGED series, and mode/global_step come from the first
+    primary. Blocks the fleet view lacks (round, sharding, remediation)
+    are simply absent — ``_render_status`` degrades over them exactly
+    as it does for an older server, which is the pinned behavior."""
+    tiers = fleet.get("tiers") or {}
+    primaries = tiers.get("primaries") or []
+    first = primaries[0] if primaries else {}
+    alerts = fleet.get("alerts") or []
+    totals = {"critical": 0, "warning": 0, "info": 0}
+    for a in alerts:
+        sev = a.get("severity")
+        if sev in totals:
+            totals[sev] += 1
+    view = {
+        "ts": fleet.get("ts"),
+        "role": "fleet",
+        "mode": first.get("mode"),
+        "global_step": first.get("global_step"),
+        "workers": tiers.get("workers") or [],
+        "alerts": alerts,
+        "alerts_total": totals,
+    }
+    if fleet.get("slo"):
+        view["slo"] = fleet["slo"]
+    if tiers.get("jobs"):
+        view["jobs"] = tiers["jobs"]
+    return view
+
+
+def cmd_status(args) -> int:
+    """One-shot (or ``--watch``) render of a serve process's ``/cluster``
+    view. Exit codes: 0 healthy, 2 when a CRITICAL alert is active (so a
+    cron/script can gate on it), 3 when critical alerts are active BUT
+    the remediation engine holds active actions against them — degraded
+    but healing (docs/ROBUSTNESS.md): a restart policy should hold off
+    and let the self-healing run —, 1 when the endpoint is unreachable or
+    has no monitor. SLO breaches ride the same semantics: slo_burn_fast
+    is a critical alert (exit 2/3), slo_burn_slow a warning (exit 0) —
+    paging on fast burn only is the multi-window point. A server without
+    an "slo" block (older build, --no-slo) renders everything else
+    unchanged. ``--via-fleet URL`` renders the same dashboard from a
+    fleet collector's merged ``/fleet`` snapshot instead — same exit
+    codes, evaluated over the whole fleet."""
+    import json as _json
+    import time as _time
+    from urllib.error import HTTPError, URLError
+    from urllib.request import urlopen
+
+    via_fleet = getattr(args, "via_fleet", None)
+    if via_fleet:
+        base = via_fleet
+        if not base.startswith(("http://", "https://")):
+            base = "http://" + base
+        url = base.rstrip("/") + "/fleet"
+    else:
+        base = args.url
+        if not base:
+            if args.metrics_port is None:
+                print("status: need --url or --metrics-port",
+                      file=sys.stderr)
+                return 1
+            base = f"http://{args.host}:{args.metrics_port}"
+        url = base.rstrip("/") + "/cluster"
+
+    def poll() -> tuple[int, dict | None]:
+        try:
+            raw = _json.loads(urlopen(url, timeout=5).read())
+        except HTTPError as e:
+            print(f"status: {url} -> HTTP {e.code} "
+                  f"({e.read().decode(errors='replace')[:200]})",
+                  file=sys.stderr)
+            return 1, None
+        except (URLError, OSError, ValueError) as e:
+            print(f"status: cannot reach {url}: {e}", file=sys.stderr)
+            return 1, None
+        view = _cluster_view_from_fleet(raw) if via_fleet else raw
+        if args.json:
+            print(_json.dumps(raw, indent=2))
+        else:
+            print(_render_status(view))
+        critical = view.get("alerts_total", {}).get("critical", 0)
+        if via_fleet and not critical:
+            # On a primary, slo_burn_fast raises a critical alert via
+            # the monitor, so alerts_total already covers it; fleet-
+            # scope breaches live only in the slo block.
+            critical = any(b.get("severity") == "critical"
+                           for b in (raw.get("slo") or {})
+                           .get("breaches", []))
+        if not critical:
+            return 0, view
+        # Degraded-but-healing: critical alerts with a live remediation
+        # working on them exit 3, not 2 — distinguishable for restart
+        # policies that should let the self-healing run its course. A
+        # dry-run engine records decisions but executes NOTHING, so it
+        # must not claim healing (a policy holding off would wait
+        # forever).
+        if via_fleet:
+            healing = bool(raw.get("remediation_active"))
+        else:
+            rem = view.get("remediation", {})
+            healing = bool(rem.get("active")) and not rem.get("dry_run")
+        return (3 if healing else 2), view
+
+    if args.watch <= 0:
+        rc, _ = poll()
+        return rc
+    rc = 0
+    try:
+        while True:
+            print("\x1b[2J\x1b[H", end="")  # clear screen, home cursor
+            rc, _ = poll()
+            print(f"\n(watching {url} every {args.watch:g}s — Ctrl-C to "
+                  f"stop)")
+            _time.sleep(args.watch)
+    except KeyboardInterrupt:
+        pass
+    return rc
+
+
+def cmd_observe(args) -> int:
+    """The fleet observatory collector process (standalone: off every
+    serve hot path, survives primary restarts). Scrapes, rolls up, and
+    serves ``GET /fleet`` until interrupted."""
+    import threading as _threading
+
+    from .telemetry.fleet import FleetCollector, start_fleet_server
+    from .telemetry.registry import MetricsRegistry
+    from .telemetry.slo import default_objectives
+
+    targets = [t.strip() for t in args.targets.split(",") if t.strip()]
+    if not targets:
+        print("observe: --targets needs at least one endpoint",
+              file=sys.stderr)
+        return 1
+    registry = MetricsRegistry()
+    journal = None
+    if getattr(args, "journal_dir", None):
+        # Durable fleet journal: one fleet_tick record per
+        # scrape (the merged view minus history rings) + slo_burn
+        # edges — the `cli top --replay` / `cli query` source.
+        from .telemetry.journal import JournalWriter
+        journal = JournalWriter(args.journal_dir, role="observer",
+                                registry=registry)
+    incidents = None
+    if getattr(args, "incidents_dir", None):
+        from .telemetry.incidents import IncidentCapture
+        incidents = IncidentCapture(
+            args.incidents_dir, journal=journal,
+            window_s=getattr(args, "incident_window", 120.0),
+            cooldown_s=getattr(args, "incident_cooldown", 120.0),
+            role="observer", registry=registry)
+    collector = FleetCollector(
+        targets, interval_s=args.interval, timeout_s=args.timeout,
+        ring_depth=args.ring_depth,
+        registry=registry,
+        objectives=default_objectives(
+            fetch_p99_ms=args.slo_fetch_p99_ms,
+            availability=args.slo_availability),
+        fast_window_s=args.slo_fast_window,
+        slow_window_s=args.slo_slow_window,
+        journal=journal, incidents=incidents)
+    if incidents is not None:
+        # Bundle context comes from the collector itself: the merged
+        # /fleet view, and flight-recorder dumps pulled over HTTP from
+        # the (still-reachable) implicated targets.
+        incidents.views_fn = lambda: {"fleet": collector.view()}
+        incidents.traces_fn = \
+            lambda trigger: _fleet_trace_dumps(collector)
+        print(f"observe: incident capture armed -> {args.incidents_dir}",
+              file=sys.stderr, flush=True)
+    server, port = start_fleet_server(collector, port=args.port)
+    print(f"observe up on :{port} ({len(targets)} seed target(s), "
+          f"interval={args.interval:g}s, timeout={args.timeout:g}s)",
+          file=sys.stderr, flush=True)
+    stop = _threading.Event()
+    try:
+        collector.run_forever(stop)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        stop.set()
+        server.shutdown()
+        if journal is not None:
+            journal.seal()
+    return 0
+
+
+def _fleet_trace_dumps(collector, limit: int = 4) -> list:
+    """Best-effort ``/debug/trace`` pulls from the fleet's reachable
+    targets for an incident bundle's ``traces/`` directory."""
+    import json as _json
+    import urllib.request as _request
+    out = []
+    try:
+        view = collector.view()
+    except Exception:  # noqa: BLE001 — capture context is best-effort
+        return out
+    for row in view.get("targets", []):
+        if len(out) >= limit:
+            break
+        base = row.get("target")
+        if not base or not row.get("ok"):
+            continue
+        try:
+            with _request.urlopen(base + "/debug/trace",
+                                  timeout=collector.timeout_s) as r:
+                payload = _json.loads(r.read().decode())
+        except Exception:  # noqa: BLE001 — dead target = no dump
+            continue
+        name = base.split("//", 1)[-1].replace(":", "-").replace("/", "_")
+        out.append((f"trace-{name}.json", payload))
+    return out
+
+
+_SPARK_CHARS = "▁▂▃▄▅▆▇█"
+
+
+def _sparkline(values, width: int = 40) -> str:
+    """Ring history -> a fixed-width unicode sparkline (None samples —
+    e.g. p99 before any fetch — are skipped)."""
+    vals = [float(v) for v in values if v is not None][-width:]
+    if not vals:
+        return ""
+    lo, hi = min(vals), max(vals)
+    span = hi - lo
+    if span <= 0:
+        return _SPARK_CHARS[0] * len(vals)
+    return "".join(_SPARK_CHARS[min(7, int((v - lo) / span * 8))]
+                   for v in vals)
+
+
+def _top_exit_code(view: dict) -> int:
+    """``cli status``-consistent: 0 healthy, 2 critical (a critical
+    alert anywhere in the fleet, or a fleet-scope fast-burn breach),
+    3 critical-but-healing (some primary's remediation engine is live
+    and not dry-run)."""
+    critical = any(a.get("severity") == "critical"
+                   for a in view.get("alerts", []))
+    critical = critical or any(
+        b.get("severity") == "critical"
+        for b in (view.get("slo") or {}).get("breaches", []))
+    if not critical:
+        return 0
+    return 3 if view.get("remediation_active") else 2
+
+
+def _render_top(view: dict) -> str:
+    """The ``cli top`` fleet dashboard: header + sparklines + per-tier
+    rows + fleet SLO burn + alert feed. Pure text in, text out (tested
+    directly, like ``_render_status``)."""
+    sev_mark = {"critical": "CRIT", "warning": "WARN", "info": "INFO"}
+    targets = view.get("targets", [])
+    n_ok = sum(1 for t in targets if t.get("ok"))
+    scrape = view.get("scrape", {})
+    hist = view.get("history", {})
+    p99s = [v for v in hist.get("p99_ms", []) if v is not None]
+    p99 = p99s[-1] if p99s else None
+    header = (f"fleet: targets {n_ok}/{len(targets)} up "
+              f"qps={view.get('fleet_qps', 0):g} "
+              f"p99={'-' if p99 is None else f'{p99:g}ms'} "
+              f"series={view.get('series_count', 0)} "
+              f"tick#{view.get('ticks', 0)} "
+              f"(scrape {scrape.get('last_ms', 0):g}ms)")
+    lines = [header, "-" * len(header)]
+    for name, label in (("fleet_qps", "qps"), ("p99_ms", "p99ms"),
+                        ("scrape_ms", "scrape")):
+        ring = hist.get(name, [])
+        cur = [v for v in ring if v is not None]
+        lines.append(f"  {label:>7} {_sparkline(ring):<40} "
+                     f"{cur[-1] if cur else '-'}")
+    prim = (view.get("tiers") or {}).get("primaries") or []
+    if prim:
+        lines.append("")
+        lines.append("primaries:")
+        for row in prim:
+            shard = ("" if row.get("shard_id") is None
+                     else f" shard={row['shard_id']}"
+                          f" map_v{row.get('map_version', '?')}")
+            lines.append(
+                f"  {row.get('target')}: "
+                f"{'up' if row.get('ok') else 'STALE'} "
+                f"mode={row.get('mode')} step={row.get('global_step')}"
+                f"{shard} alerts={row.get('alerts', 0)}")
+    tier_view = view.get("tiers") or {}
+    reps = tier_view.get("replicas") or []
+    if reps:
+        lines.append("")
+        lines.append("replicas:")
+        # Reuse the fan-out-tree renderer on the fleet rows: primaries
+        # here must be gRPC addresses (the rows' ``parent`` namespace),
+        # not the scrape targets the fleet polls.
+        lines.extend(_replica_tree_lines({
+            "replicas": reps,
+            "primaries": tier_view.get("primary_addresses") or [],
+            "tiers": tier_view.get("replica_tiers") or {},
+        }))
+    workers = (view.get("tiers") or {}).get("workers") or []
+    if workers:
+        lines.append("")
+        lines.append(f"workers ({len(workers)}):")
+        for w in workers:
+            job = f" job={w['job']}" if w.get("job") else ""
+            rep = w.get("report") or {}
+            step = rep.get("step", w.get("step"))
+            # Goodput column (degradation-pinned: absent from a
+            # pre-goodput worker's report, absent from the row).
+            gpf = rep.get("goodput_fraction", w.get("goodput_fraction"))
+            gp = (f" goodput={gpf * 100:.1f}%"
+                  if isinstance(gpf, (int, float))
+                  and not isinstance(gpf, bool) else "")
+            lines.append(
+                f"  worker {w.get('worker')}: "
+                f"{'alive' if w.get('alive') else 'DOWN'}"
+                f"{job} step={step}{gp} (via {w.get('via')})")
+    jobs = (view.get("tiers") or {}).get("jobs") or {}
+    if jobs:
+        lines.append("")
+        lines.append("jobs:")
+        for name in sorted(jobs):
+            row = jobs[name]
+            lines.append(
+                f"  {name}: mode={row.get('mode')} "
+                f"step={row.get('global_step')} "
+                f"workers={len(row.get('workers') or [])} "
+                f"(via {row.get('via')})")
+    stale = [t for t in targets if not t.get("ok")]
+    if stale:
+        lines.append("")
+        lines.append("stale targets:")
+        for t in stale:
+            lines.append(f"  {t.get('target')}: "
+                         f"{t.get('consecutive_failures')} consecutive "
+                         f"failure(s) — {t.get('last_error')}")
+    slo = view.get("slo") or {}
+    if slo.get("objectives"):
+        lines.append("")
+        lines.append("fleet slo (merged series):")
+        for obj in slo["objectives"]:
+            wins = obj.get("windows", {})
+            burns = []
+            for rule in sorted(wins):
+                w = wins[rule]
+                mark = " BREACH" if w.get("breaching") else ""
+                burns.append(f"{w.get('window_s', 0):g}s burn "
+                             f"{w.get('burn', 0):g}x{mark}")
+            p99o = obj.get("p99_ms")
+            lines.append(
+                f"  {obj.get('name')}: target={obj.get('target')} "
+                f"p99={'-' if p99o is None else f'{p99o:g}ms'} "
+                f"n={obj.get('total', 0)} "
+                f"({'; '.join(burns) if burns else 'no windows'})")
+    alerts = view.get("alerts", [])
+    if alerts:
+        lines.append("")
+        lines.append("active alerts:")
+        for a in alerts:
+            who = "cluster" if a.get("worker") is None \
+                else f"worker {a['worker']}"
+            lines.append(
+                f"  [{sev_mark.get(a.get('severity'), '????')}] "
+                f"{a.get('rule')} ({who} @ {a.get('target')}): "
+                f"{a.get('message')}")
+    else:
+        lines.append("")
+        lines.append("no active alerts")
+    return "\n".join(lines)
+
+
+def _merge_top_history(local: dict | None, view: dict,
+                       last_ticks: int | None,
+                       depth: int = 600) -> dict:
+    """Client half of the ``?since=<tick>`` protocol: merge
+    one ``/fleet`` payload into the locally-kept history rings.
+
+    A capable server echoes ``history_since`` and ships only the
+    entries after that tick — append them. An older server ignores the
+    query and ships its full rings — detected by the missing marker (or
+    a tick counter that went BACKWARDS: collector restart) and degraded
+    to full replacement, as before the protocol. Returns the rings and
+    mutates ``view["history"]`` to the merged view for rendering."""
+    from collections import deque
+    incremental = (local is not None
+                   and view.get("history_since") == last_ticks
+                   and last_ticks is not None
+                   and view.get("ticks", 0) >= last_ticks)
+    if not incremental:
+        local = {k: deque(rows, maxlen=depth)
+                 for k, rows in (view.get("history") or {}).items()}
+    else:
+        for k, rows in (view.get("history") or {}).items():
+            ring = local.setdefault(k, deque(maxlen=depth))
+            ring.extend(rows)
+    view["history"] = {k: list(v) for k, v in local.items()}
+    return local
+
+
+def _top_replay(args) -> int:
+    """``cli top --replay <journal>``: scrub a past run on the same
+    dashboard from the observer's ``fleet_tick`` journal records. The
+    journaled views carry no history rings (that is what keeps
+    journal_bytes_per_tick flat); the rings are rebuilt here by
+    accumulating the per-tick scalars, so sparklines match what a live
+    watcher saw."""
+    import json as _json
+    import time as _time
+
+    from .telemetry.journal import JournalReader
+
+    reader = JournalReader(args.replay)
+    frames = reader.records(types=("fleet_tick",))
+    if not frames:
+        print(f"top: no fleet_tick records in {args.replay}",
+              file=sys.stderr)
+        return 1
+    hist = {"fleet_qps": [], "p99_ms": [], "scrape_ms": []}
+    views = []
+    for rec in frames:
+        v = dict(rec.get("view") or {})
+        hist["fleet_qps"].append(v.get("fleet_qps"))
+        p99 = None
+        for obj in (v.get("slo") or {}).get("objectives", []):
+            if "p99_ms" in obj:
+                p99 = obj["p99_ms"]
+                break
+        hist["p99_ms"].append(p99)
+        hist["scrape_ms"].append((v.get("scrape") or {}).get("last_ms"))
+        v["history"] = {k: list(rows) for k, rows in hist.items()}
+        views.append(v)
+    span = frames[-1].get("ts", 0.0) - frames[0].get("ts", 0.0)
+    if args.json:
+        print(_json.dumps(views[-1], indent=2))
+        return _top_exit_code(views[-1])
+    if args.watch <= 0:
+        print(_render_top(views[-1]))
+        print(f"\n(replayed {len(views)} tick(s) spanning {span:.1f}s "
+              f"from {args.replay})")
+        return _top_exit_code(views[-1])
+    rc = 0
+    try:
+        for i, v in enumerate(views):
+            print("\x1b[2J\x1b[H", end="")  # clear screen, home cursor
+            print(_render_top(v))
+            print(f"\n(replay frame {i + 1}/{len(views)} from "
+                  f"{args.replay} — Ctrl-C to stop)")
+            rc = _top_exit_code(v)
+            if i < len(views) - 1:
+                _time.sleep(args.watch)
+    except KeyboardInterrupt:
+        pass
+    return rc
+
+
+def cmd_top(args) -> int:
+    """Live fleet dashboard over a collector's ``GET /fleet`` (or a
+    journal replay with ``--replay``). Exit codes match ``cli status``
+    (see ``_top_exit_code``); 1 when the collector is unreachable."""
+    import json as _json
+    import time as _time
+    from urllib.error import HTTPError, URLError
+    from urllib.request import urlopen
+
+    if getattr(args, "replay", None):
+        return _top_replay(args)
+    base = args.url
+    if not base:
+        print("top: need --url (or DPS_FLEET_URL)", file=sys.stderr)
+        return 1
+    if not base.startswith(("http://", "https://")):
+        base = "http://" + base
+    url = base.rstrip("/") + "/fleet"
+    state = {"hist": None, "ticks": None}
+
+    def poll() -> int:
+        # After the first full fetch, ask only for the history delta
+        # (?since=<tick>); degradation-pinned — _merge_top_history
+        # falls back to full replacement against older servers.
+        q = f"?since={state['ticks']}" if state["ticks"] is not None \
+            else ""
+        try:
+            view = _json.loads(urlopen(url + q, timeout=5).read())
+        except (HTTPError, URLError, OSError, ValueError) as e:
+            print(f"top: cannot reach {url}: {e}", file=sys.stderr)
+            return 1
+        state["hist"] = _merge_top_history(state["hist"], view,
+                                           state["ticks"])
+        state["ticks"] = view.get("ticks")
+        if args.json:
+            print(_json.dumps(view, indent=2))
+        else:
+            print(_render_top(view))
+        return _top_exit_code(view)
+
+    if args.watch <= 0:
+        return poll()
+    rc = 0
+    try:
+        while True:
+            print("\x1b[2J\x1b[H", end="")  # clear screen, home cursor
+            rc = poll()
+            print(f"\n(watching {url} every {args.watch:g}s — Ctrl-C "
+                  f"to stop)")
+            _time.sleep(args.watch)
+    except KeyboardInterrupt:
+        pass
+    return rc
+
+
+def cmd_experiments(args) -> int:
+    """The sync/async x workers matrix (``analysis.run_matrix``) on
+    ``--device``, one record per cell in ``--out-dir``; or, with
+    ``--ingest-pod``, one record from a pod's teed logs."""
+    with _telemetry_session(args, "experiments"):
+        return _cmd_experiments(args)
+
+
+def _cmd_experiments(args) -> int:
+    if args.ingest_pod:
+        from .analysis.pod_logs import ingest_pod
+
+        out = os.path.join(args.out_dir, f"{args.experiment_name}.json")
+        record = ingest_pod(
+            args.experiment_name, name=args.pod_name, zone=args.pod_zone,
+            tf_dir=args.tf_dir,
+            log_path=args.pod_log_path, out_path=out)
+        n_workers = record["worker_metrics_aggregated"].get("num_workers", 0)
+        print(f"ingested {n_workers} worker record(s) + "
+              f"{'server' if record['server_metrics'] else 'no server'} "
+              f"metrics from pod -> {out}", file=sys.stderr)
+        return 0
+
+    from .analysis import run_matrix
+
+    dataset = _load_dataset(args)
+    run_matrix(dataset, args.out_dir,
+               modes=tuple(args.modes.split(",")),
+               worker_counts=tuple(int(x)
+                                   for x in args.worker_counts.split(",")),
+               epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
+               backend=args.backend, plots=not args.no_plots,
+               augment=not args.no_augment, seed=args.seed,
+               device=args.device)
+    return 0
+
+
+def cmd_incident(args) -> int:
+    """``cli incident list|show|report`` over auto-captured bundles —
+    postmortems from disk alone (docs/OBSERVABILITY.md)."""
+    import json as _json
+
+    from .analysis.incidents import (build_timeline, list_incidents,
+                                     load_incident, render_timeline)
+
+    rows = list_incidents(args.dir)
+    if args.incident_command == "list":
+        if args.json:
+            print(_json.dumps(rows, indent=2, default=str))
+            return 0
+        if not rows:
+            print(f"no incident bundles under {args.dir}")
+            return 0
+        print(f"{'ID':<44} {'RULE':<16} {'SEV':<9} {'RECORDS':>7} "
+              f"{'FILES':>5}")
+        for m in rows:
+            trig = m.get("trigger") or {}
+            print(f"{m.get('id', '?'):<44} "
+                  f"{str(trig.get('rule', '-')):<16} "
+                  f"{str(trig.get('severity', '-')):<9} "
+                  f"{m.get('records', 0):>7} "
+                  f"{len(m.get('files') or []):>5}")
+        return 0
+    wanted = getattr(args, "id", None)
+    if wanted is None:
+        if not rows:
+            print(f"incident: no bundles under {args.dir}",
+                  file=sys.stderr)
+            return 1
+        manifest = rows[-1]
+    else:
+        matches = [m for m in rows
+                   if str(m.get("id", "")).startswith(wanted)]
+        exact = [m for m in matches if m.get("id") == wanted]
+        if exact:
+            matches = exact
+        if len(matches) != 1:
+            print(f"incident: id {wanted!r} matches "
+                  f"{len(matches)} bundle(s) under {args.dir}",
+                  file=sys.stderr)
+            return 1
+        manifest = matches[0]
+    bundle = manifest["path"]
+    if args.incident_command == "show":
+        if args.json:
+            print(_json.dumps(manifest, indent=2, default=str))
+        else:
+            trig = manifest.get("trigger") or {}
+            print(f"incident {manifest.get('id')}")
+            print(f"  created   {manifest.get('created_ts')} "
+                  f"(role {manifest.get('role')})")
+            print(f"  trigger   {trig.get('rule')} "
+                  f"[{trig.get('severity')}] "
+                  f"worker={trig.get('worker')} "
+                  f"value={trig.get('value')}")
+            print(f"  window    {manifest.get('window_s')}s, "
+                  f"{manifest.get('records')} journal record(s)")
+            print(f"  journal   {manifest.get('journal_dir')}")
+            for f in manifest.get("files") or []:
+                print(f"  file      {f}")
+        return 0
+    # report: frozen window + the journal's post-edge continuation.
+    data = load_incident(bundle,
+                         journal_dir=getattr(args, "journal_dir", None))
+    timeline = build_timeline(data["records"])
+    if args.json:
+        print(_json.dumps({"manifest": data["manifest"],
+                           "timeline": timeline, "stats": data["stats"]},
+                          indent=2, default=str))
+    else:
+        print(render_timeline(timeline, data["manifest"]))
+    return 0
+
+
+def _query_streams(records: list) -> dict:
+    """Snapshot records grouped per process: (role, pid) -> time-sorted
+    list (the journal reader already sorted globally)."""
+    streams: dict = {}
+    for rec in records:
+        streams.setdefault((rec.get("role"), rec.get("pid")),
+                           []).append(rec)
+    return streams
+
+
+def _hist_at(stream: list, key: str, ts: float | None) -> dict | None:
+    """Newest snapshot's histogram ``key`` at or before ``ts`` (None =
+    newest overall) — cumulative, so this IS the prefix total."""
+    best = None
+    for rec in stream:
+        if ts is not None and rec.get("ts", 0.0) > ts:
+            break
+        h = (rec.get("histograms") or {}).get(key)
+        if h is not None:
+            best = h
+    return best
+
+
+def _window_hist(stream: list, key: str, since: float | None,
+                 until: float | None) -> dict | None:
+    """Window-exact bucket counts for one process: cumulative newest
+    minus the cumulative baseline at-or-before the window start. This
+    is the union-exact property the journal's cumulative snapshots buy:
+    no rate estimation, just integer bucket subtraction."""
+    newest = _hist_at(stream, key, until)
+    if newest is None:
+        return None
+    out = {"le": list(newest.get("le") or []),
+           "counts": [int(c) for c in newest.get("counts") or []],
+           "sum": float(newest.get("sum", 0.0)),
+           "count": int(newest.get("count", 0))}
+    if since is not None:
+        base = _hist_at(stream, key, since)
+        if base is not None and list(base.get("le") or []) == out["le"]:
+            out["counts"] = [max(0, a - int(b)) for a, b in
+                             zip(out["counts"], base.get("counts") or [])]
+            out["sum"] = max(0.0, out["sum"]
+                             - float(base.get("sum", 0.0)))
+            out["count"] = max(0, out["count"]
+                               - int(base.get("count", 0)))
+    return out
+
+
+def _retro_slo(records: list, args) -> dict:
+    """Retroactive SLO burn evaluation over journal history, reusing
+    the live evaluator's window semantics (telemetry/slo.py): rebuild
+    the fleet-summed (total, bad) sample sequence the collector keeps
+    in memory, then slide the same fast/slow windows over it."""
+    from .telemetry.registry import MetricsRegistry
+    from .telemetry.slo import SloEvaluator, default_objectives
+
+    objectives = default_objectives(
+        fetch_p99_ms=args.slo_fetch_p99_ms,
+        availability=args.slo_availability)
+    windows = SloEvaluator(objectives, registry=MetricsRegistry(),
+                           fast_window_s=args.slo_fast_window,
+                           slow_window_s=args.slo_slow_window).windows
+    streams = list(_query_streams(records).values())
+    ticks = sorted({rec.get("ts", 0.0) for rec in records})
+    samples = []
+    for t in ticks:
+        sample: dict = {}
+        for obj in objectives:
+            hkey = (f"dps_rpc_server_latency_seconds"
+                    f"{{method={obj.method}}}")
+            ekey = (f"dps_rpc_server_errors_total"
+                    f"{{method={obj.method}}}")
+            total = bad = 0
+            found = False
+            for stream in streams:
+                h = _hist_at(stream, hkey, t)
+                if h is None:
+                    continue
+                found = True
+                n = int(h.get("count", 0))
+                total += n
+                err = 0
+                for rec in stream:
+                    if rec.get("ts", 0.0) > t:
+                        break
+                    err = int((rec.get("counters") or {})
+                              .get(ekey, err))
+                if obj.threshold_s is None:
+                    bad += min(n, err)
+                else:
+                    good, _ = SloEvaluator._good_upto(h, obj.threshold_s)
+                    bad += min(n, (n - good) + err)
+            if found:
+                sample[obj.name] = (total, bad)
+        samples.append((t, sample))
+    out: dict = {"samples": len(samples), "windows": {}}
+    any_critical = False
+    for win in windows:
+        wrow: dict = {}
+        for obj in objectives:
+            max_burn = 0.0
+            breach_ts: list = []
+            for t, _ in samples:
+                d = SloEvaluator._window_delta(samples, obj.name, t,
+                                               win.window_s)
+                if d is None or d["total"] < win.min_events:
+                    continue
+                burn = SloEvaluator._burn(obj, d["bad"], d["total"])
+                max_burn = max(max_burn, burn)
+                if burn >= win.burn_threshold:
+                    breach_ts.append(t)
+            breached = bool(breach_ts)
+            if breached and win.severity == "critical":
+                any_critical = True
+            wrow[obj.name] = {
+                "max_burn": round(max_burn, 2),
+                "burn_threshold": win.burn_threshold,
+                "breached": breached,
+                "severity": win.severity,
+                "first_breach_ts": breach_ts[0] if breach_ts else None,
+                "last_breach_ts": breach_ts[-1] if breach_ts else None,
+                "breach_samples": len(breach_ts),
+            }
+        out["windows"][win.rule] = {"window_s": win.window_s,
+                                    "objectives": wrow}
+    out["any_critical_breach"] = any_critical
+    return out
+
+
+def _goodput_counters_at(stream: list, ts: float | None) -> dict:
+    """Per-process goodput counter prefix totals at-or-before ``ts``:
+    the newest value of every ``dps_goodput_*`` counter key (cumulative,
+    so the latest observation IS the prefix total — same property
+    ``_hist_at`` leans on)."""
+    from .telemetry.goodput import GOODPUT_METRIC, GOODPUT_WALL_METRIC
+
+    out: dict = {}
+    for rec in stream:
+        if ts is not None and rec.get("ts", 0.0) > ts:
+            break
+        for key, val in (rec.get("counters") or {}).items():
+            if key.startswith((GOODPUT_METRIC, GOODPUT_WALL_METRIC)):
+                out[key] = val
+    return out
+
+
+def _retro_goodput(records: list, since: float | None,
+                   until: float | None, tolerance: float = 0.02) -> dict:
+    """Retroactive goodput ledger over a journal window: per-process
+    counter deltas (newest-at-``until`` minus baseline-at-``since``,
+    clamped like every other window-exact query) summed across
+    processes, then folded through the same ``goodput_report`` math the
+    live ``cli goodput`` uses — one code path, two time machines."""
+    from .telemetry.goodput import delta_counters, report_from_counters
+
+    merged: dict = {}
+    processes = 0
+    for stream in _query_streams(records).values():
+        newest = _goodput_counters_at(stream, until)
+        if not newest:
+            continue
+        base = _goodput_counters_at(stream, since) if since is not None \
+            else {}
+        delta = delta_counters(newest, base)
+        if not any(v > 0 for v in delta.values()):
+            continue
+        processes += 1
+        for key, val in delta.items():
+            merged[key] = merged.get(key, 0.0) + val
+    report = report_from_counters(merged, tolerance=tolerance)
+    report["processes"] = processes
+    return report
+
+
+def _incident_badput(records: list, incidents_dir: str,
+                     tolerance: float = 0.02) -> list:
+    """Join incident bundles against the goodput ledger: for each
+    bundle, the badput seconds inside its frozen capture window
+    ``[created_ts - window_s, created_ts]`` — what the incident *cost*
+    in non-productive wall, per category."""
+    from .analysis.incidents import list_incidents
+
+    rows = []
+    for m in list_incidents(incidents_dir):
+        created = m.get("created_ts")
+        window_s = m.get("window_s")
+        if not isinstance(created, (int, float)) \
+                or not isinstance(window_s, (int, float)):
+            continue
+        rep = _retro_goodput(records, created - window_s, created,
+                             tolerance=tolerance)
+        trig = m.get("trigger") or {}
+        rows.append({"id": m.get("id"),
+                     "rule": trig.get("rule"),
+                     "severity": trig.get("severity"),
+                     "window": {"since": created - window_s,
+                                "until": created},
+                     "wall_s": rep["wall_s"],
+                     "badput_s": rep["badput_s"],
+                     "goodput_fraction": rep["goodput_fraction"],
+                     "categories": rep["categories"]})
+    return rows
+
+
+def _render_goodput_report(report: dict, title: str = "goodput") -> str:
+    """Shared renderer for the live (``cli goodput``) and retro
+    (``cli query --goodput``) ledgers — same table, two time machines."""
+    gpf = report.get("goodput_fraction")
+    head = "-" if gpf is None else f"{gpf * 100:.1f}%"
+    lines = [f"{title}: wall={report['wall_s']:.1f}s "
+             f"goodput={head} badput={report['badput_s']:.1f}s"]
+    lines.append(f"  {'CATEGORY':<20} {'SECONDS':>10} {'FRACTION':>9}")
+    for cat, row in report.get("categories", {}).items():
+        if row["seconds"] <= 0:
+            continue
+        lines.append(f"  {cat:<20} {row['seconds']:>10.2f} "
+                     f"{row['fraction'] * 100:>8.1f}%")
+    lines.append(f"  residual={report['residual_s']:.2f}s "
+                 f"({report['residual_fraction'] * 100:.1f}% of wall, "
+                 f"folded into 'other') "
+                 f"overshoot={report['overshoot_s']:.2f}s "
+                 f"reconciled={report['reconciled']}")
+    return "\n".join(lines)
+
+
+def cmd_goodput(args) -> int:
+    """``cli goodput``: the live goodput ledger from one process's
+    ``/metrics.json`` — what fraction of wall since start was
+    productive, where the rest went (docs/OBSERVABILITY.md 'Goodput
+    observatory'). Exit 1 when the endpoint is unreachable."""
+    import json as _json
+    from urllib.error import HTTPError, URLError
+    from urllib.request import urlopen
+
+    from .telemetry.goodput import report_from_counters
+
+    base = args.url or f"http://{args.host}:{args.metrics_port}"
+    if not base.startswith(("http://", "https://")):
+        base = "http://" + base
+    url = base.rstrip("/") + "/metrics.json"
+    try:
+        snap = _json.loads(urlopen(url, timeout=5).read())
+    except (HTTPError, URLError, OSError, ValueError) as e:
+        print(f"goodput: cannot reach {url}: {e}", file=sys.stderr)
+        return 1
+    report = report_from_counters(snap.get("counters") or {},
+                                  tolerance=args.tolerance)
+    if args.json:
+        print("GOODPUT_JSON: " + _json.dumps(report))
+        return 0
+    if report["wall_s"] <= 0:
+        print(f"goodput: no goodput counters at {url} — the process "
+              f"has no GoodputAccount wall yet (worker/trainer roles "
+              f"publish one)", file=sys.stderr)
+        return 0
+    print(_render_goodput_report(report, title=f"goodput @ {base}"))
+    return 0
+
+
+def cmd_query(args) -> int:
+    """``cli query``: retro-query a durable journal — series listing,
+    union-exact windowed percentiles, retroactive SLO burn."""
+    import json as _json
+
+    from .telemetry.journal import JournalReader
+    from .telemetry.stats import histogram_quantile, merge_histograms
+
+    reader = JournalReader(args.journal)
+    snaps = reader.records(types=("snapshot", "fleet_tick"))
+    snaps = [r for r in snaps if r.get("type") == "snapshot"
+             or "histograms" in r]
+    if not snaps:
+        print(f"query: no snapshot records in {args.journal}",
+              file=sys.stderr)
+        return 1
+    newest_ts = max(r.get("ts", 0.0) for r in snaps)
+    until = args.until if args.until is not None else newest_ts
+    since = args.since
+    if args.last is not None:
+        since = until - args.last
+    in_range = [r for r in snaps if r.get("ts", 0.0) <= until]
+    result: dict = {"journal": args.journal,
+                    "window": {"since": since, "until": until},
+                    "reader_stats": reader.stats}
+    if args.slo:
+        result["slo"] = _retro_slo(in_range, args)
+    if args.goodput:
+        result["goodput"] = _retro_goodput(
+            in_range, since, until, tolerance=args.goodput_tolerance)
+        if args.incidents:
+            result["incident_badput"] = _incident_badput(
+                in_range, args.incidents,
+                tolerance=args.goodput_tolerance)
+    streams = _query_streams(in_range)
+    selected: dict = {}
+    for stream in streams.values():
+        for rec in stream:
+            for kind in ("counters", "gauges", "histograms"):
+                for key in (rec.get(kind) or {}):
+                    if args.series and args.series not in key:
+                        continue
+                    selected.setdefault(kind, set()).add(key)
+    if args.percentiles:
+        pct_rows: dict = {}
+        for key in sorted(selected.get("histograms", ())):
+            parts = []
+            for stream in streams.values():
+                h = _window_hist(stream, key, since, until)
+                if h is not None and h["count"] > 0:
+                    parts.append(h)
+            if not parts:
+                continue
+            try:
+                merged = merge_histograms(parts)
+            except ValueError:
+                continue
+            row = {"count": int(merged["count"]),
+                   "processes": len(parts)}
+            for pct, name in ((50, "p50"), (95, "p95"), (99, "p99")):
+                q = histogram_quantile(merged["le"], merged["counts"],
+                                       pct)
+                row[name] = None if q is None else round(q, 6)
+            pct_rows[key] = row
+        result["percentiles"] = pct_rows
+    else:
+        series: dict = {}
+        for kind in ("counters", "gauges", "histograms"):
+            for key in sorted(selected.get(kind, ())):
+                n = sum(1 for stream in streams.values()
+                        if any(key in (rec.get(kind) or {})
+                               for rec in stream))
+                series[key] = {"kind": kind[:-1], "processes": n}
+        result["series"] = series
+    rc = 2 if args.slo and result["slo"]["any_critical_breach"] else 0
+    if args.json:
+        print("QUERY_JSON: " + _json.dumps(result, default=str))
+        return rc
+    print(f"journal {args.journal}: {reader.stats['records']} record(s) "
+          f"in {reader.stats['segments']} segment(s) "
+          f"({reader.stats['torn_tails']} torn tail(s), "
+          f"{reader.stats['corrupt_lines']} corrupt line(s) skipped)")
+    if "series" in result:
+        print(f"{'SERIES':<64} {'KIND':<10} {'PROCS':>5}")
+        for key, row in result["series"].items():
+            print(f"{key:<64} {row['kind']:<10} {row['processes']:>5}")
+    if "percentiles" in result:
+        print(f"{'SERIES':<64} {'COUNT':>8} {'P50':>10} {'P95':>10} "
+              f"{'P99':>10}")
+        for key, row in result["percentiles"].items():
+            def _fmt(v):
+                return "-" if v is None else f"{v * 1e3:.2f}ms"
+            print(f"{key:<64} {row['count']:>8} {_fmt(row['p50']):>10} "
+                  f"{_fmt(row['p95']):>10} {_fmt(row['p99']):>10}")
+    if "goodput" in result:
+        print(_render_goodput_report(
+            result["goodput"],
+            title=f"retro goodput over "
+                  f"{result['goodput']['processes']} process(es)"))
+        for row in result.get("incident_badput", ()):
+            gpf = row["goodput_fraction"]
+            gpf = "-" if gpf is None else f"{gpf * 100:.1f}%"
+            print(f"  incident {row['id']}: rule={row['rule']} "
+                  f"badput={row['badput_s']:.1f}s of "
+                  f"{row['wall_s']:.1f}s wall (goodput {gpf})")
+    if "slo" in result:
+        slo = result["slo"]
+        print(f"retro SLO over {slo['samples']} sample(s):")
+        for rule, wrow in slo["windows"].items():
+            for obj, orow in wrow["objectives"].items():
+                state = "BREACHED" if orow["breached"] else "ok"
+                print(f"  {rule:<14} {obj:<20} max_burn="
+                      f"{orow['max_burn']:<8} (threshold "
+                      f"{orow['burn_threshold']}) {state}")
+        print(f"  any critical breach: "
+              f"{slo['any_critical_breach']}")
+    return rc
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     return {"train": cmd_train, "serve": cmd_serve, "worker": cmd_worker,
-            "perf": cmd_perf}[args.command](args)
+            "experiments": cmd_experiments, "status": cmd_status,
+            "observe": cmd_observe, "top": cmd_top,
+            "incident": cmd_incident, "query": cmd_query,
+            "goodput": cmd_goodput, "perf": cmd_perf}[args.command](args)
 
 
 if __name__ == "__main__":

@@ -16,8 +16,8 @@ bounded retry on transient failures, and every push carries a unique
 ``nonce:count`` token (the request bytes are packed once and retried
 verbatim), which the server's dedupe turns into exactly-once applies.
 Trace context and the CRC-32 trailer ride only to servers that advertised
-them. Directives are received and acked; the worker acting on them comes
-with ROADMAP §1 item 8. An elastic server's live membership is cached off
+them. Directives are received and acked; the worker acts on them
+(``ps/worker.py:_apply_directive``). An elastic server's live membership is cached off
 its register and fetch replies (``membership_snapshot``). Session resume
 rides on ``register_worker(retries=1)``, ``reset_channel`` and
 ``repush_last``, which replays the most recent push under the SAME token.

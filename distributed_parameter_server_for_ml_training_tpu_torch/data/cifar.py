@@ -88,7 +88,8 @@ def load_cifar100(data_dir: str | None = None,
 def synthetic_cifar100(n_train: int = 50_000, n_test: int = 10_000,
                        num_classes: int = NUM_CLASSES,
                        seed: int = 0, template_amp: float = 0.18,
-                       noise: float = 0.12) -> Dataset:
+                       noise: float = 0.12, *, keep_train: int | None = None,
+                       keep_test: int | None = None) -> Dataset:
     """Deterministic class-structured stand-in for CIFAR-100.
 
     Each class gets a smooth random color/gradient template; samples are the
@@ -98,6 +99,11 @@ def synthetic_cifar100(n_train: int = 50_000, n_test: int = 10_000,
     (e.g. 0.06/0.45) gives a CIFAR-like *gradual* learning curve, used by
     the recorded 'hard' experiment artifacts to compare curve shapes
     against the reference's real-data runs.
+
+    ``keep_train``/``keep_test`` draw only the first images of a split:
+    the same bytes as slicing the whole split, since the labels are
+    shuffled over the whole split first and the noise is drawn image by
+    image in order (the CLI's ``--num-train``/``--num-test``).
     """
     rng = np.random.default_rng(seed)
     # Low-frequency class templates: random 4x4x3 upsampled to 32x32x3.
@@ -105,17 +111,18 @@ def synthetic_cifar100(n_train: int = 50_000, n_test: int = 10_000,
     templates = coarse.repeat(8, axis=1).repeat(8, axis=2)  # [C,32,32,3]
     templates = 0.5 + template_amp * templates
 
-    def make_split(n: int, split_seed: int):
+    def make_split(n: int, split_seed: int, keep: int | None):
         r = np.random.default_rng(seed * 1000 + split_seed)
         y = np.arange(n, dtype=np.int32) % num_classes
         r.shuffle(y)
+        y = y[:keep]
         x = templates[y] + r.normal(
-            0.0, noise, size=(n, 32, 32, 3)).astype(np.float32)
+            0.0, noise, size=(len(y), 32, 32, 3)).astype(np.float32)
         x = np.clip(x, 0.0, 1.0)
         return (x * 255.0).astype(np.uint8), y
 
-    x_tr, y_tr = make_split(n_train, 1)
-    x_te, y_te = make_split(n_test, 2)
+    x_tr, y_tr = make_split(n_train, 1, keep_train)
+    x_te, y_te = make_split(n_test, 2, keep_test)
     return Dataset(x_tr, y_tr, x_te, y_te, num_classes=num_classes,
                    synthetic=True)
 

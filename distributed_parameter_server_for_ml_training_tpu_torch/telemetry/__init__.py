@@ -4,16 +4,22 @@ health layer (the rule engine, the server's cluster monitor with its SLO
 evaluator, and the remediation engine), and the process surfaces: the
 snapshot stream, the Prometheus endpoint (``/metrics``, ``/healthz``,
 ``/cluster``, ``/debug/trace``), memory telemetry, incident capture, the
-profiler bracket with its FLOP accounting, and trigger-driven profiling
-— the JAX package's ``telemetry/`` under its names. The fleet collector
-comes with ROADMAP §1 item 8's rest, the replica autoscaler with item
-9."""
+profiler bracket with its FLOP accounting, trigger-driven profiling,
+and the fleet observatory's collector — the JAX package's
+``telemetry/`` under its names. The replica autoscaler comes with
+ROADMAP §1 item 9."""
 
 from .cluster import (
     ClusterMonitor,
     get_cluster_monitor,
     sanitize_report,
     set_cluster_monitor,
+)
+from .fleet import (
+    FLEET_ROLLUP_FIELDS,
+    FleetCollector,
+    parse_prometheus_text,
+    start_fleet_server,
 )
 from .goodput import GOODPUT_CATEGORIES, GoodputAccount, goodput_report
 from .health import (
@@ -87,6 +93,8 @@ __all__ = [
     "ClusterState",
     "Counter",
     "EVENT_CATALOG",
+    "FLEET_ROLLUP_FIELDS",
+    "FleetCollector",
     "FlightRecorder",
     "GOODPUT_CATEGORIES",
     "Gauge",
@@ -134,6 +142,7 @@ __all__ = [
     "merge_histograms",
     "note_action",
     "now",
+    "parse_prometheus_text",
     "read_device_memory",
     "read_host_rss",
     "read_journal",
@@ -143,6 +152,7 @@ __all__ = [
     "sanitize_report",
     "set_cluster_monitor",
     "set_journal",
+    "start_fleet_server",
     "span",
     "start_metrics_server",
     "trace_enabled",

@@ -25,9 +25,10 @@ every worker — the parameter server:
 In the port, ``cli serve`` serves the view at ``GET /cluster`` and
 ``/healthz`` (``telemetry/prometheus.py``), streams the records with
 ``--telemetry`` and attaches the memory monitor and the profile trigger;
-``cli status`` and the sharding and tenancy attachments come with ROADMAP
-§1 item 8's rest and item 9, and their attributes are here, so those
-slices only have to set them.
+``cli status`` renders the view and ``telemetry/fleet.py`` merges the
+views of a fleet. The sharding block is attached by a shard primary; the
+tenancy attachment comes with ROADMAP §1 item 9, and its attributes are
+here, so that slice only has to set them.
 
 Everything here is observe-only: ingest and evaluation never touch the
 store's training state, and every consumer-facing entry point swallows its

@@ -4,8 +4,9 @@ The JAX package's ``telemetry/journal.py``, carried over whole (it is
 framework-neutral) with the port's registry. In the port, alert edges,
 directives, checkpoints, incidents and profiles journal through
 :func:`journal_event`, a no-op until a writer is set (``--journal-dir``
-on any verb), and the snapshot stream journals each snapshot; the verbs
-that read a journal come with ROADMAP §1 item 8's rest.
+on any verb), and the snapshot stream journals each snapshot; ``cli
+query``, ``cli top --replay`` and ``cli incident report``
+(``analysis/incidents.py``) read a journal.
 
 Every live surface this repo grew — ``/metrics``, ``/cluster``,
 ``/fleet``, the flight recorder, SLO burn — keeps its history in bounded

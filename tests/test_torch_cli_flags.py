@@ -254,3 +254,194 @@ def test_serve_health_flags_read_their_environment(monkeypatch, env, attr,
     monkeypatch.setenv(env, "1" if value is True else str(value))
     args = cli.build_parser().parse_args(["serve"])
     assert getattr(args, attr) == value
+
+
+# -- the fleet, forensics and experiment verbs ---------------------------------
+
+_LOAD_DATASET = cli._load_dataset      # before ``small`` stands in for it
+#: Each package's own flag: the JAX CLI's backend switch, the port's
+#: device.
+_OWN_FLAGS = {"jax": {"platform"}, "port": {"device"}}
+
+
+def _verb_flags(parser, *path) -> dict:
+    """``{dest: (option strings, default, choices, nargs, type, const)}``
+    of one (sub)verb's parser."""
+    import argparse
+    for name in path:
+        sub = next(a for a in parser._actions
+                   if isinstance(a, argparse._SubParsersAction))
+        parser = sub.choices[name]
+    return {a.dest: (tuple(a.option_strings), a.default, a.choices,
+                     a.nargs, getattr(a.type, "__name__", a.type), a.const)
+            for a in parser._actions if a.dest != "help"}
+
+
+@pytest.mark.parametrize("path", [
+    ("status",), ("observe",), ("top",), ("incident", "list"),
+    ("incident", "show"), ("incident", "report"), ("query",),
+    ("goodput",), ("experiments",)], ids=lambda p: "-".join(p))
+def test_new_verbs_flags_and_defaults_equal_jax(path, monkeypatch):
+    """The seven verbs take the JAX CLI's flags with its defaults (the
+    environment's defaults unset), but for each package's own switch."""
+    import os
+
+    from distributed_parameter_server_for_ml_training_tpu import cli as jcli
+    for name in list(os.environ):
+        if name.startswith("DPS_"):
+            monkeypatch.delenv(name)
+    j = _verb_flags(jcli.build_parser(), *path)
+    p = _verb_flags(cli.build_parser(), *path)
+    for name in _OWN_FLAGS["jax"]:
+        j.pop(name, None)
+    for name in _OWN_FLAGS["port"]:
+        p.pop(name, None)
+    assert p == j
+
+
+def test_synthetic_dataset_draws_only_what_the_run_keeps(monkeypatch):
+    """``--synthetic --num-train/--num-test`` draw the kept images only,
+    and those are the same bytes as the whole set sliced."""
+    from distributed_parameter_server_for_ml_training_tpu_torch import data
+    whole = synthetic_cifar100(2_000, 500)
+    kept = synthetic_cifar100(2_000, 500, keep_train=300, keep_test=70)
+    for a, b, n in ((kept.x_train, whole.x_train, 300),
+                    (kept.y_train, whole.y_train, 300),
+                    (kept.x_test, whole.x_test, 70),
+                    (kept.y_test, whole.y_test, 70)):
+        assert len(a) == n and (a == b[:n]).all()
+    calls = []
+
+    def spy(**kw):
+        calls.append(kw)
+        return kept
+    monkeypatch.setattr(data, "synthetic_cifar100", spy)
+    for argv, want in ((["--num-train", "300", "--num-test", "70"],
+                        {"keep_train": 300, "keep_test": 70}),
+                       (["--num-test", "0"],
+                        {"keep_train": None, "keep_test": None})):
+        args = cli.build_parser().parse_args(["train", "--synthetic",
+                                              *argv])
+        ds = _LOAD_DATASET(args)
+        assert calls[-1] == want
+        assert len(ds.x_train) == 300 and len(ds.x_test) == 70
+
+
+def _both(argv, capsys):
+    """(rc, stdout) of the JAX CLI and of the port's on ``argv``."""
+    from distributed_parameter_server_for_ml_training_tpu import cli as jcli
+    out = []
+    for mod in (jcli, cli):
+        rc = mod.main(list(argv))
+        out.append((rc, capsys.readouterr().out))
+    return out
+
+
+@pytest.fixture
+def forensics(tmp_path):
+    from torch_forensics import telemetry, write_forensics
+    return write_forensics(
+        str(tmp_path), telemetry(
+            "distributed_parameter_server_for_ml_training_tpu_torch"))
+
+
+@pytest.mark.parametrize("json_out", [True, False], ids=["json", "text"])
+def test_incident_verbs_print_what_jax_prints(forensics, capsys, json_out):
+    flags = ["--dir", forensics["incidents"]] + (["--json"] if json_out
+                                                 else [])
+    bundle = forensics["bundle"].rsplit("/", 1)[1]
+    for argv in (["incident", "list", *flags],
+                 ["incident", "show", bundle[:12], *flags],
+                 ["incident", "report", *flags],
+                 ["incident", "report", bundle, "--journal-dir",
+                  forensics["journal"], *flags]):
+        (jrc, jout), (prc, pout) = _both(argv, capsys)
+        assert (prc, pout) == (jrc, jout), argv
+        assert prc == 0 and bundle in pout
+    (jrc, _), (prc, _) = _both(["incident", "show", "nope", *flags], capsys)
+    assert prc == jrc == 1
+
+
+@pytest.mark.parametrize("extra", [
+    ["--percentiles", "--slo", "--goodput"],
+    ["--series", "latency", "--last", "60"],
+    ["--percentiles", "--since", "1700000030", "--until", "1700000080"],
+    ["--goodput", "--incidents", "INCIDENTS"],
+], ids=["all", "series", "window", "incident_badput"])
+@pytest.mark.parametrize("json_out", [True, False], ids=["json", "text"])
+def test_query_prints_what_jax_prints(forensics, capsys, extra, json_out):
+    extra = [forensics["incidents"] if a == "INCIDENTS" else a
+             for a in extra]
+    argv = ["query", "--journal", forensics["journal"], *extra] \
+        + (["--json"] if json_out else [])
+    (jrc, jout), (prc, pout) = _both(argv, capsys)
+    assert (prc, pout) == (jrc, jout)
+    assert pout
+
+
+def test_query_and_top_replay_refuse_a_journal_without_records(tmp_path,
+                                                               capsys):
+    for argv in (["query", "--journal", str(tmp_path)],
+                 ["top", "--replay", str(tmp_path)]):
+        (jrc, jout), (prc, pout) = _both(argv, capsys)
+        assert (prc, pout) == (jrc, jout) and prc == 1
+
+
+@pytest.mark.parametrize("json_out", [True, False], ids=["json", "text"])
+def test_goodput_prints_what_jax_prints(forensics, capsys, json_out):
+    from distributed_parameter_server_for_ml_training_tpu_torch.telemetry \
+        import start_metrics_server
+    server, port = start_metrics_server(forensics["live"], port=0,
+                                        addr="127.0.0.1")
+    try:
+        argv = ["goodput", "--url", f"127.0.0.1:{port}"] \
+            + (["--json"] if json_out else [])
+        (jrc, jout), (prc, pout) = _both(argv, capsys)
+    finally:
+        server.shutdown()
+        server.server_close()
+    assert (prc, pout) == (jrc, jout) and prc == 0
+    assert "goodput" in pout.lower()
+    (jrc, _), (prc, _) = _both(["goodput", "--url", f"127.0.0.1:{port}"],
+                               capsys)
+    assert prc == jrc == 1          # the endpoint is gone
+
+
+def test_status_and_top_unreachable_exit_1(capsys):
+    import socket
+    with socket.socket() as sock:      # a port nothing listens on
+        sock.bind(("127.0.0.1", 0))
+        url = f"127.0.0.1:{sock.getsockname()[1]}"
+    for argv in (["status", "--url", f"http://{url}"],
+                 ["status", "--via-fleet", url], ["top", "--url", url],
+                 ["status"], ["top"]):
+        (jrc, _), (prc, _) = _both(argv, capsys)
+        assert prc == jrc == 1, argv
+
+
+def test_experiments_runs_the_matrix(tmp_path, monkeypatch, capsys):
+    """``experiments`` on the CPU: one record a cell, in the reference
+    schema, the server's steps the workers' pushes; ``--no-plots``."""
+    import json
+    import os
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.analysis \
+        import runner
+    monkeypatch.setattr(runner, "get_model", models.get_model)
+    out = str(tmp_path / "cells")
+    rc = cli.main(["experiments", "--modes", "sync,async",
+                   "--worker-counts", "2", "--epochs", "1", "--synthetic",
+                   "--batch-size", "16", "--no-plots", "--no-augment",
+                   "--out-dir", out, "--device", "cpu"])
+    assert rc == 0
+    assert sorted(os.listdir(out)) == ["async_2workers.json",
+                                       "sync_2workers.json"]
+    for name in os.listdir(out):
+        with open(os.path.join(out, name)) as f:
+            rec = json.load(f)
+        assert list(rec) == list(runner.RECORD_KEYS)
+        assert rec["device"] == "cpu"
+        pushes = sum(r["local_steps_completed"]
+                     for r in rec["raw_worker_metrics"])
+        assert rec["server_metrics"]["gradients_processed"] == pushes == 4
+    assert "=== cell: sync x 2 workers ===" in capsys.readouterr().out

@@ -67,7 +67,11 @@ def test_port_files_exist():
                      "parallel/moe.py", "parallel/pipeline.py",
                      "parallel/tensor.py", "ps/sharding.py",
                      "comms/sharded.py", "native/__init__.py",
-                     "native/bindings.py", "native/store.py"):
+                     "native/bindings.py", "native/store.py",
+                     "telemetry/fleet.py", "analysis/incidents.py",
+                     "analysis/parse_logs.py", "analysis/fleet_series.py",
+                     "analysis/pod_logs.py", "analysis/runner.py",
+                     "analysis/visualize.py"):
         assert required in names, required
     for kernel in ("wire_quantize.cu", "block_quantize.cu",
                    "flash_attention.cu"):
@@ -107,6 +111,57 @@ def test_serve_tier_modules_load_no_jax(module):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]", out.stdout
+
+
+def _closure(module: str) -> set:
+    """The port's modules ``module`` reaches through its imports, at any
+    depth and wherever they stand (inside functions too), by the AST."""
+    seen, todo = set(), [module]
+    while todo:
+        name = todo.pop()
+        if name in seen:
+            continue
+        seen.add(name)
+        rel = name.split(".")
+        path = PORT.joinpath(*rel).with_suffix(".py")
+        if not path.is_file():
+            path = PORT.joinpath(*rel, "__init__.py")
+        if not path.is_file():
+            continue
+        pkg = rel if path.name == "__init__.py" else rel[:-1]
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.ImportFrom) and node.level:
+                base = pkg[:len(pkg) - node.level + 1]
+                target = ".".join(base + ([node.module] if node.module
+                                          else []))
+                todo.append(target)
+                todo.extend(f"{target}.{a.name}" for a in node.names)
+    return {m for m in seen
+            if PORT.joinpath(*m.split(".")).with_suffix(".py").is_file()
+            or PORT.joinpath(*m.split("."), "__init__.py").is_file()}
+
+
+@pytest.mark.parametrize("module", [
+    "telemetry.fleet", "analysis.incidents", "analysis.parse_logs",
+    "analysis.fleet_series", "analysis.pod_logs", "analysis.runner",
+    "analysis.visualize", "cli"])
+def test_fleet_and_analysis_modules_reach_no_jax(module):
+    """The fleet observatory, the analysis modules and the CLI that
+    drives them: no module they reach imports jax or the JAX package,
+    and matplotlib is imported only inside the functions that draw."""
+    reached = _closure(module)
+    assert module in reached
+    for name in reached:
+        rel = name.split(".")
+        path = PORT.joinpath(*rel).with_suffix(".py")
+        if not path.is_file():
+            path = PORT.joinpath(*rel, "__init__.py")
+        bad = [m for m in _imports(path) if _forbidden(m)]
+        assert not bad, f"{name} imports {bad}"
+    tree = ast.parse((PORT / "analysis" / "visualize.py").read_text())
+    top = [n for n in tree.body if isinstance(n, (ast.Import,
+                                                  ast.ImportFrom))]
+    assert not any("matplotlib" in ast.unparse(n) for n in top)
 
 
 def test_scan_catches_a_jax_import(tmp_path):
