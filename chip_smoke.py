@@ -414,7 +414,31 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    --synthetic --num-train 512 --no-plots`` in this process on the card:
    each record with exactly ``analysis.RECORD_KEYS``, its ``device``
    naming the card, the server's steps the workers' pushes. Every verb
-   runs through the port's ``cli.main``.
+   runs through the port's ``cli.main``;
+28. the serve tier, host code over the paths above (no kernel of its
+   own): (a) on phase 26 (b)'s topology, primary 1 runs ``--autoscale
+   --autoscale-min 1 --autoscale-max 2`` (its pool spawns ``cli replica``
+   children) and, from the 'up' lines on, ``cli replica --primary P0
+   --canary`` (R1) and ``--parent R1`` (R2) serve; after 27 (a) read the
+   primaries' counts, ``--primary P0 --staleness-bound 1
+   --reparent-after 1000000`` (R3). A push
+   to R1 is redirected to P0; P0's ``/cluster`` lists R1 at tier 1 and
+   R2 at tier 2 under R1; ``cli loadgen`` (in this process) runs full
+   and delta against R1 and R2, full against P0 and, held at its final
+   step by a registration of this process, delta against P1, each with
+   no error; while the workers train, ``cli infer`` rounds of
+   quality 0.9 make R1 promote a candidate, and after the last step
+   rounds of quality 0.1 roll that step back, never served as the
+   canary again; at each primary's final step every replica (the
+   pool's too) serves the primary's payload bytes; primary 1's
+   autoscaler grew to its floor, then under loadgen's QPS, and its
+   children are gone with it; R3 refuses fetches within 2.5 s of its
+   primary's exit. (b) one
+   ResNet-18 worker on the card pushing int8 (K1, one launch a push)
+   through a ``RemoteStore`` whose 3rd fetch fails to a service that
+   drops the replies of pushes 2 and 5: each push applied once, the
+   store bit-equal to a NumPy store replaying the recorded pushes, each
+   injector's counters equal to its ``schedule_preview``.
    Each phase reports its own seconds, and the script its total.
 
 Then one JSON line of kernels and, last, the device line. Without a CUDA
@@ -430,6 +454,7 @@ import json
 import math
 import subprocess
 import sys
+import threading
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
@@ -6719,7 +6744,7 @@ def _lines_text(lines: list) -> str:
 
 
 def _cli_topology(servers: list, workers: list, profiles=None,
-                  probe=None) -> dict:
+                  probe=None, env_extra=None) -> dict:
     """``cli serve`` processes (``servers``: argv tails, each with its
     ``--port``) and, once every server printed its 'up' line, ``cli
     worker`` processes (argv tails), on the card; everything killed at its
@@ -6733,7 +6758,8 @@ def _cli_topology(servers: list, workers: list, profiles=None,
     Returns exit codes, each process's METRICS_JSON rows and output
     tails, the wall seconds and the wall's split: spawn to 'up', each
     worker's spawn to its epoch's start, its epoch, its epoch's end to
-    its exit, and the last worker's exit to each server's."""
+    its exit, and the last worker's exit to each server's. ``env_extra``
+    is added to every process's environment."""
     import os
     import re
     import tempfile
@@ -6742,7 +6768,7 @@ def _cli_topology(servers: list, workers: list, profiles=None,
     cli = [sys.executable, "-m",
            "distributed_parameter_server_for_ml_training_tpu_torch.cli"]
     repo = Path(__file__).resolve().parent
-    env = {**os.environ, "PYTHONPATH": str(repo)}
+    env = {**os.environ, "PYTHONPATH": str(repo), **(env_extra or {})}
     logs = [tempfile.TemporaryFile("w+")
             for _ in range(len(servers) + len(workers))]
     srv_lines = [[] for _ in servers]
@@ -6863,6 +6889,7 @@ def _cli_topology(servers: list, workers: list, profiles=None,
                    "workers": [p.returncode for p in wrk]},
            "server_rows": [_exit_rows(_metrics_rows(t)) for t in texts[:n]],
            "server_err": [_lines_text(lines) for lines in srv_lines],
+           "server_out": texts[:n],
            "worker_rows": worker_rows,
            "worker_err": [texts[n + i][-2000:] for i in range(len(wrk))],
            "wall_seconds": wall, "wall_split": split, "late": late,
@@ -6885,7 +6912,9 @@ def _worker_img_s(rows: list) -> list:
 def _sharded_processes(state: dict, failures: list) -> dict:
     """(b) Two ``cli serve --shard-count 2`` primaries and two ``cli
     worker --shards`` processes on the card, each worker under
-    ``--profile-dir`` (its K1 events and device busy time)."""
+    ``--profile-dir`` (its K1 events and device busy time). Primary 1
+    runs the replica autoscaler (``SERVE_AUTOSCALE``) and phase 28 (a)'s
+    probe runs beside phase 27 (a)'s."""
     import os
     import shutil
     import tempfile
@@ -6905,6 +6934,7 @@ def _sharded_processes(state: dict, failures: list) -> dict:
                 "--shard-peers", peers, "--port", str(ports[i]),
                 "--telemetry", "--metrics-port", str(metrics_ports[i]),
                 "--slo-fetch-p99-ms", str(FLEET_SLO_P99_MS)]
+               + (SERVE_AUTOSCALE if i == 1 else [])
                for i in range(SHARDS)]
     workers = [["--shards", peers, "--worker-name", f"shard-w{i}",
                 "--synthetic", "--num-train", "2048", "--num-test", "256",
@@ -6912,13 +6942,37 @@ def _sharded_processes(state: dict, failures: list) -> dict:
                for i in range(N_WORKERS)]
     profiles = tempfile.mkdtemp(prefix="sharded-profiles-")
     fleet: dict = {}
+    tier: dict = {}
     state["fleet_peers"] = peers.split(",")
+
+    def probe():
+        checked = threading.Event()
+        serve = threading.Thread(target=serve_tier_probe, args=(
+            peers.split(","), metrics_ports, checked, tier), daemon=True)
+        serve.start()
+        try:
+            return _fleet_probe(metrics_ports, peers.split(","),
+                                os.path.join(profiles, "fleet-journal"),
+                                fleet, checked) or fleet
+        finally:
+            serve.join(GRPC_SERVER_TIMEOUT_S)
+
+    def serve_tier_probe(*args):
+        try:
+            _serve_tier_probe(*args)
+        except Exception as e:  # noqa: BLE001 — read by phase 28
+            tier["error"] = repr(e)
+            tier["traceback"] = traceback.format_exc()
+
     try:
         run = _cli_topology(
-            servers, workers, profiles, probe=lambda: _fleet_probe(
-                metrics_ports, peers.split(","),
-                os.path.join(profiles, "fleet-journal"), fleet) or fleet)
+            servers, workers, profiles, probe=probe,
+            env_extra={"DPS_REPLICA_POLL": str(SERVE_EARLY_POLL_S)})
         state["fleet_probe"] = run["probe"]
+        state["serve_tier_probe"] = tier
+        state["serve_tier_topology"] = {"p1_out": "\n".join(
+            ln for ln in run["server_out"][1].splitlines()
+            if ln.startswith("REPLICA_POOL_"))}
         captures = []
         for i, rows in enumerate(run["worker_rows"]):
             logdir = os.path.join(profiles, f"w{i}")
@@ -7145,7 +7199,7 @@ def _raise_in(thread, exc) -> None:
 
 
 def _fleet_probe(metrics_ports: list, peers: list, journal_dir: str,
-                 out: dict) -> None:
+                 out: dict, checked=None) -> None:
     """(a): while phase 26 (b)'s primaries serve, a ``FleetCollector`` with
     ``start_fleet_server`` ticks over their metrics ports, and ``cli
     observe`` runs on a thread of this process; ``status --via-fleet``,
@@ -7153,9 +7207,10 @@ def _fleet_probe(metrics_ports: list, peers: list, journal_dir: str,
     are training, and the merged fetch histogram is held to the
     primaries' own ``/metrics`` counts at one scrape. The collector ticks
     until both primaries report step ``FLEET_STEPS``; then ``observe`` is
-    stopped and ``top --replay`` reads its journal. Fills ``out``."""
-    import io
-    import threading
+    stopped and ``top --replay`` reads its journal. Fills ``out``. The
+    event ``checked`` (phase 28 (a) waits on it before it loads the
+    primaries) is set once the merged count and the verbs were read, or
+    when the probe ends."""
     import urllib.request
 
     from distributed_parameter_server_for_ml_training_tpu_torch import cli
@@ -7184,8 +7239,7 @@ def _fleet_probe(metrics_ports: list, peers: list, journal_dir: str,
             observed["error"] = repr(e)
 
     def cli_out(argv):
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
+        with _thread_stdout() as buf:
             rc = cli.main(argv)
         return rc, buf.getvalue()
 
@@ -7270,11 +7324,15 @@ def _fleet_probe(metrics_ports: list, peers: list, journal_dir: str,
                     "goodput_json_lines": [
                         g[1].startswith("GOODPUT_JSON: ") for g in goodput]}
                 out["verbs"] = verbs
+                if checked is not None:
+                    checked.set()
             if all(s == FLEET_STEPS for s in steps_seen[-1]) \
                     and len(steps_seen[-1]) == 2:
                 break
             time.sleep(FLEET_TICK_S)
     finally:
+        if checked is not None:
+            checked.set()
         out["ticks"] = ticks
         out["probe_seconds"] = time.perf_counter() - t0
         out["steps_last"] = steps_seen[-3:]
@@ -7511,6 +7569,745 @@ def phase_fleet(state: dict) -> None:
         raise AssertionError(f"phase 27: {failures}")
 
 
+# -- phase 28: the serve tier --------------------------------------------------
+
+class _ThreadStdout:
+    """``sys.stdout`` that sends each thread's writes to the buffer that
+    thread registered (``_thread_stdout``), and every other thread's to
+    the stream it replaced: phase 27 (a)'s and phase 28 (a)'s probes each
+    keep their own ``cli.main`` output, at the same time."""
+
+    def __init__(self, stream):
+        self.stream, self.buffers = stream, {}
+
+    def _target(self):
+        return self.buffers.get(threading.get_ident(), self.stream)
+
+    def write(self, text):
+        return self._target().write(text)
+
+    def flush(self):
+        return self._target().flush()
+
+    def __getattr__(self, name):
+        return getattr(self.stream, name)
+
+
+_ROUTER_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def _thread_stdout():
+    """Capture this thread's ``sys.stdout`` writes into a StringIO."""
+    import io
+
+    with _ROUTER_LOCK:
+        if not isinstance(sys.stdout, _ThreadStdout):
+            sys.stdout = _ThreadStdout(sys.stdout)
+        router = sys.stdout
+    buf = io.StringIO()
+    router.buffers[threading.get_ident()] = buf
+    try:
+        yield buf
+    finally:
+        del router.buffers[threading.get_ident()]
+
+
+#: (a): primary 1's autoscaler: a floor of 1, a ceiling of 2, a QPS high
+#: mark that its pool's, workers' and watcher's own fetches (~10 a
+#: second) stay under and a loadgen run of delta polls crosses, ticked
+#: every 0.5 s.
+SERVE_QPS_HIGH = 20.0
+#: (a): how often the watcher polls primary 1 (its autoscaler counts them)
+SERVE_P1_POLL_S = 0.5
+SERVE_AUTOSCALE = ["--autoscale", "--autoscale-min", "1", "--autoscale-max",
+                   "2", "--autoscale-qps-high", str(SERVE_QPS_HIGH),
+                   "--autoscale-qps-low", "1", "--autoscale-cooldown", "1",
+                   "--health-interval", "0.5"]
+#: (a): the poll interval of primary 1's pool (``DPS_REPLICA_POLL``),
+#: whose replicas poll from the topology's start: 2 polls a second leave
+#: 27 (a)'s read of the primaries' fetch counts between two equal reads.
+SERVE_EARLY_POLL_S = 0.5
+#: (a): R1's poll interval: R1 takes a new canary candidate at most once
+#: a second, which leaves one ``cli infer`` round (~0.7 s of 12 full
+#: payloads) the time to reach a decision on one candidate.
+SERVE_R1_POLL_S = 1.0
+SERVE_LOADGEN_S = 0.5      # (a): seconds of each ``cli loadgen`` run
+SERVE_INFER_BATCH = 12     # (a): requests of each ``cli infer`` round
+SERVE_INFER_ROUNDS = 40    # (a): rounds at most before a canary decision
+SERVE_STALE_S = 1.0        # (a): R3's ``--staleness-bound``
+SERVE_PUSHES = 8           # (b): pushes of the one worker
+SERVE_SERVER_FAULTS = "seed=7;push.drop_reply@n=2,5"
+SERVE_CLIENT_FAULTS = "fetch.unavailable@n=3"
+
+
+class _Wire:
+    """Raw FetchParameters / PushGradrients stubs, a channel an
+    address, as ``cli loadgen`` and ``cli infer`` call them."""
+
+    def __init__(self):
+        self._stubs, self._channels = {}, []
+
+    def call(self, addr: str, rpc: str, meta: dict, timeout: float = 10.0):
+        import grpc
+
+        from distributed_parameter_server_for_ml_training_tpu_torch.comms \
+            .service import GRPC_OPTIONS, SERVICE_NAME, pack_msg, unpack_msg
+        key = (addr, rpc)
+        if key not in self._stubs:
+            ch = grpc.insecure_channel(addr, options=GRPC_OPTIONS)
+            self._channels.append(ch)
+            self._stubs[key] = ch.unary_unary(
+                f"/{SERVICE_NAME}/{rpc}", request_serializer=lambda b: b,
+                response_deserializer=lambda b: b)
+        meta_out, payload = unpack_msg(self._stubs[key](
+            pack_msg(meta), timeout=timeout))
+        return meta_out, bytes(payload)
+
+    def close(self):
+        for ch in self._channels:
+            ch.close()
+
+
+def _cli_line(argv: list, prefix: str) -> tuple:
+    """``cli.main(argv)`` in this process: (rc, the JSON of its
+    ``prefix`` line or None); the output is this thread's alone."""
+    from distributed_parameter_server_for_ml_training_tpu_torch import cli
+    with _thread_stdout() as buf:
+        rc = cli.main(argv)
+    line = next((ln for ln in buf.getvalue().splitlines()
+                 if ln.startswith(prefix)), None)
+    return rc, None if line is None else json.loads(line[len(prefix):])
+
+
+def _serve_tier_final(addr: str, metrics_port: int, replicas: list,
+                      out: dict) -> None:
+    """(a): at a primary's final step, its payload, its ``/cluster``
+    view, and each of its replicas (``replicas`` first, then the rows of
+    the view) fetched until it serves that step, its payload bytes held
+    to the primary's."""
+    wire = _Wire()
+    try:
+        _serve_tier_compare(wire, addr, metrics_port, replicas, out)
+    finally:
+        wire.close()
+    out["done"] = True
+
+
+def _serve_tier_compare(wire, addr: str, metrics_port: int,
+                        replicas: list, out: dict) -> None:
+    import grpc
+
+    _, want = wire.call(addr, "FetchParameters", {})
+    code, body = _get_json(metrics_port, "/cluster")
+    view = json.loads(body)
+    out["view"] = {"status": code, "sharding": view.get("sharding"),
+                   "autoscale": view.get("autoscale")}
+    targets = list(replicas)
+    targets += [r["address"] for r in
+                (view.get("sharding") or {}).get("replicas", [])
+                if r["address"] not in targets]
+    out["bytes"], out["replicas"] = len(want), {}
+    for target in targets:
+        out["replicas"][target] = row = {"equal": False, "step": None}
+        deadline = time.perf_counter() + 5.0
+        while time.perf_counter() < deadline:
+            try:
+                m, got = wire.call(target, "FetchParameters", {},
+                                   timeout=5.0)
+            except grpc.RpcError as e:
+                row["error"] = e.code().name
+                time.sleep(0.02)
+                continue
+            row["step"] = m["global_step"]
+            if row["step"] == FLEET_STEPS:
+                row["equal"] = got == want
+                row.pop("error", None)
+                break
+            time.sleep(0.02)
+
+
+def _serve_tier_stale(addr: str, since: float, out: dict) -> None:
+    """(a): fetch ``addr`` every 50 ms until it refuses as stale; the
+    seconds from ``since`` (its primary seen gone)."""
+    import grpc
+
+    wire = _Wire()
+    try:
+        deadline = time.perf_counter() + 10.0
+        while time.perf_counter() < deadline:
+            try:
+                wire.call(addr, "FetchParameters", {"have_step": -1},
+                          timeout=5.0)
+            except grpc.RpcError as e:
+                if "stale" in (e.details() or ""):
+                    out["stale"] = {
+                        "code": e.code().name, "detail": e.details(),
+                        "seconds_after_primary": time.perf_counter()
+                        - since}
+                    return
+            time.sleep(0.05)
+    finally:
+        wire.close()
+
+
+def _serve_tier_watch(peers: list, metrics_ports: list, replicas: list,
+                      stale_addr: str, stop, out: dict) -> None:
+    """(a)'s watcher: polls the primaries' steps (``out["steps"]``),
+    primary 0 every 50 ms, primary 1 every ``SERVE_P1_POLL_S`` (its
+    autoscaler counts the polls); at primary 0's final step
+    (``FLEET_STEPS``) a thread of its own runs ``_serve_tier_final`` over
+    ``replicas``; once a primary stops answering it stamps the time, and
+    once primary 0 has, a thread fetches ``stale_addr``
+    (``--staleness-bound`` ``SERVE_STALE_S``) until it is refused."""
+    import grpc
+
+    wire = _Wire()
+    have, down = out["steps"], [None] * len(peers)
+    threads, polled = [], [0.0] * len(peers)
+    try:
+        while not stop.is_set() and None in down:
+            for i, addr in enumerate(peers):
+                if down[i] is not None or (
+                        i and time.perf_counter() - polled[i]
+                        < SERVE_P1_POLL_S):
+                    continue
+                polled[i] = time.perf_counter()
+                try:
+                    meta, _ = wire.call(addr, "FetchParameters",
+                                        {} if have[i] is None
+                                        else {"have_step": have[i]},
+                                        timeout=5.0)
+                except grpc.RpcError:
+                    if have[i] is not None:
+                        down[i] = time.perf_counter()
+                        print(f"[serve-tier watch] P{i} down at "
+                              f"{down[i] - out['t0']:.1f}s",
+                              file=sys.stderr, flush=True)
+                        if i == 0:
+                            threads.append(threading.Thread(
+                                target=_serve_tier_stale, daemon=True,
+                                args=(stale_addr, down[0], out)))
+                            threads[-1].start()
+                    continue
+                have[i] = meta["global_step"]
+                if i == 0 and have[i] == FLEET_STEPS \
+                        and i not in out["final"]:
+                    print(f"[serve-tier watch] P{i} at its final step at "
+                          f"{time.perf_counter() - out['t0']:.1f}s",
+                          file=sys.stderr, flush=True)
+                    out["final"][i] = {"step": have[i]}
+                    threads.append(threading.Thread(
+                        target=_serve_tier_final, daemon=True, args=(
+                            addr, metrics_ports[i], replicas,
+                            out["final"][i])))
+                    threads[-1].start()
+            time.sleep(0.05)
+        for t in threads:
+            t.join(30)
+        out["down_s"] = [None if d is None else d - out["t0"] for d in down]
+    finally:
+        wire.close()
+
+
+def _serve_tier_probe(peers: list, metrics_ports: list, checked,
+                      out: dict) -> None:
+    """(a): runs on a thread from phase 26 (b)'s 'up' lines on. Starts
+    R1 (``cli replica --primary P0 --canary``, polling once a second), R3
+    (``--primary P0 --staleness-bound 1``) and, once R1 is up, R2
+    (``--parent R1``). A thread waits for phase 27 (a) to have read the
+    primaries' counts (``checked``), holds a registration on each
+    primary, starts the watcher, runs ``cli loadgen`` full against P0
+    and, at P1's final step, delta against P1 (its autoscaler's load),
+    then holds the pool's replicas to P1's final payload. Meanwhile, once
+    R1 serves a trained step, ``cli infer`` rounds of quality 0.9, each
+    started as R1 takes a new candidate, until R1 promotes one; ``cli
+    loadgen`` full and delta
+    against R1 and R2 (neither touches a primary); a push to R1; once the
+    primaries reached their final step, rounds of quality 0.1 until R1
+    rolls that step back, and one round after; then the held
+    registrations are released and the primaries exit. Every process it
+    started is stopped. Fills ``out``."""
+    import os
+    import re
+
+    import grpc
+
+    cli_argv = [sys.executable, "-m",
+                "distributed_parameter_server_for_ml_training_tpu_torch.cli"]
+    repo = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(repo)}
+    procs, lines = {}, {}
+    t0 = out["t0"] = time.perf_counter()
+    ports = {name: _free_port() for name in ("r1", "r2", "r3", "m1")}
+    addr = {name: f"127.0.0.1:{ports[name]}" for name in ("r1", "r2", "r3")}
+    stop = threading.Event()
+    watch: dict = {"t0": t0, "steps": [None] * len(peers), "final": {}}
+    out["watch"] = watch
+    watcher = None
+    wire = _Wire()
+    r1_step = [None]
+    out["stages"] = []
+
+    def stage(name: str) -> None:
+        out["stages"].append((name, round(time.perf_counter() - t0, 3)))
+        print(f"[serve-tier probe] {name} at "
+              f"{time.perf_counter() - t0:.1f}s", file=sys.stderr,
+              flush=True)
+
+    def spawn(name: str, argv: list) -> None:
+        p = subprocess.Popen(cli_argv + ["replica", *argv], cwd=repo,
+                             env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        procs[name], lines[name] = p, []
+        threading.Thread(target=_read_lines, args=(p.stdout, lines[name]),
+                         daemon=True).start()
+
+    def up(name: str) -> float:
+        deadline = time.perf_counter() + GRPC_SERVER_TIMEOUT_S
+        while time.perf_counter() < deadline:
+            for t, line in list(lines[name]):
+                if line is None:
+                    raise AssertionError(f"{name} exited: "
+                                         f"{_lines_text(lines[name])}")
+                if re.search(r"replica up on :\d+", line):
+                    return t - t0
+            time.sleep(0.01)
+        raise AssertionError(f"{name} never came up")
+
+    def r1_changed(timeout: float) -> bool:
+        """Poll R1 at its step until it serves another one."""
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            try:
+                meta, _ = wire.call(addr["r1"], "FetchParameters",
+                                    {} if r1_step[0] is None
+                                    else {"have_step": r1_step[0]})
+            except grpc.RpcError:
+                time.sleep(0.05)
+                continue
+            if not meta.get("not_modified"):
+                changed = r1_step[0] is not None
+                r1_step[0] = meta["global_step"]
+                if changed:
+                    return True
+            time.sleep(0.01)
+        return False
+
+    def canary_counts() -> dict:
+        snap = json.loads(_get_json(ports["m1"], "/metrics.json")[1])
+        return {"promotions": snap["counters"].get(
+                    "dps_canary_promotions_total", 0),
+                "rollbacks": snap["counters"].get(
+                    "dps_canary_rollbacks_total", 0),
+                "stable_step": snap["gauges"].get("dps_canary_stable_step")}
+
+    def infer_rounds(quality: float, outcome: str, aligned: bool) -> dict:
+        rounds, served = 0, []
+        counts = canary_counts()
+        while counts[outcome] < 1 and rounds < SERVE_INFER_ROUNDS:
+            if aligned:
+                r1_changed(3.0)
+            rc, got = _cli_line(["infer", "--target", addr["r1"],
+                                 "--count", str(SERVE_INFER_BATCH),
+                                 "--quality", str(quality), "--json"],
+                                "INFER_JSON ")
+            rounds += 1
+            stage(f"infer {quality} round {rounds}")
+            if rc != 0 or got is None:
+                raise AssertionError(f"cli infer rc {rc}")
+            served.append(sorted({(r["arm"], r["serving_step"])
+                                  for r in got["served"]}))
+            counts = canary_counts()
+        return {"rounds": rounds, "served": served, **counts,
+                "p0_step": watch["steps"][0], "r1_step": r1_step[0]}
+
+    def loadgen(name: str, target: str, mode: str, seconds: float,
+                concurrency: int) -> dict:
+        wall = time.time()
+        rc, res = _cli_line(["loadgen", "--targets", target, "--duration",
+                             str(seconds), "--concurrency",
+                             str(concurrency), "--fetch-mode", mode],
+                            "LOADGEN_JSON ")
+        res = res or {}
+        lat = res.get("latency_ms", {})
+        stage(f"loadgen {name} {mode}")
+        return {"target": name, "mode": mode, "rc": rc, "wall": wall,
+                "p0_step_at_start": watch["steps"][0],
+                "r1_step_at_start": r1_step[0],
+                **{k: res.get(k) for k in ("qps", "mb_per_s", "fetches_ok",
+                                           "fetches_err", "not_modified")},
+                "p50_ms": lat.get("p50"), "p99_ms": lat.get("p99")}
+
+    def primaries() -> None:
+        """Once 27 (a) read the primaries' counts: a registration held on
+        each primary once both workers report there (it keeps the
+        primaries serving after the workers' JobFinished, until this
+        probe's own), the watcher, ``cli loadgen`` full against P0; at
+        primary 1's final step ``cli loadgen`` delta against it, and once
+        its pool grew to two synced replicas, their bytes."""
+        try:
+            hold_and_load()
+        except Exception as e:  # noqa: BLE001 — read by the checks
+            out["primaries_error"] = repr(e)
+            out["primaries_traceback"] = traceback.format_exc()
+
+    def hold_and_load() -> None:
+        checked.wait(GRPC_WORKER_TIMEOUT_S)
+        stage("checked")
+        deadline = time.perf_counter() + GRPC_SERVER_TIMEOUT_S
+        for i, peer in enumerate(peers):
+            while time.perf_counter() < deadline and len(json.loads(
+                    _get_json(metrics_ports[i], "/cluster")[1]).get(
+                        "workers") or []) < N_WORKERS:
+                time.sleep(0.05)
+            meta, _ = wire_hold.call(peer, "RegisterWorker",
+                                     {"worker_name": "serve-tier-hold"})
+            held[peer] = meta["worker_id"]
+        stage("held")
+        watcher.start()
+        out["loadgen"].append(loadgen("P0", peers[0], "full",
+                                      SERVE_LOADGEN_S, 2))
+        # Primary 1, held at its final step: loadgen's delta polls are its
+        # autoscaler's load; then its replicas (the pool's two) are held
+        # to its final payload.
+        while watch["steps"][1] != FLEET_STEPS \
+                and time.perf_counter() < deadline + GRPC_WORKER_TIMEOUT_S:
+            time.sleep(0.05)
+        out["loadgen"].append(loadgen("P1", peers[1], "delta", 1.0, 4))
+
+        def pool_ready() -> bool:
+            view = json.loads(_get_json(metrics_ports[1], "/cluster")[1])
+            rows = (view.get("sharding") or {}).get("replicas", [])
+            return (view.get("autoscale") or {}).get("live") == 2 \
+                and len(rows) == 2 \
+                and all(r.get("step") == FLEET_STEPS for r in rows)
+
+        until = time.perf_counter() + GRPC_SERVER_TIMEOUT_S
+        while not pool_ready() and time.perf_counter() < until:
+            time.sleep(0.1)
+        stage("pool ready")
+        _serve_tier_final(peers[1], metrics_ports[1], [],
+                          watch["final"].setdefault(1, {"step": FLEET_STEPS}))
+
+    def release() -> None:
+        """JobFinished for each held registration: the primaries exit."""
+        for peer in list(held):
+            try:
+                wire_hold.call(peer, "JobFinished",
+                               {"worker_id": held.pop(peer)})
+            except grpc.RpcError:
+                pass
+
+    wire_hold, held = _Wire(), {}
+    loads = None
+    try:
+        spawn("r1", ["--primary", peers[0], "--port", str(ports["r1"]),
+                     "--advertise", addr["r1"], "--canary",
+                     "--canary-min-samples", "5", "--canary-fraction", "0.5",
+                     "--poll-interval", str(SERVE_R1_POLL_S),
+                     "--metrics-port", str(ports["m1"]),
+                     "--metrics-advertise", ""])
+        # R3 never re-parents: a stale drill on its own primary (by
+        # default it would follow a still-fresh sibling once P0 is gone).
+        spawn("r3", ["--primary", peers[0], "--port", str(ports["r3"]),
+                     "--advertise", addr["r3"], "--staleness-bound",
+                     str(SERVE_STALE_S), "--poll-interval",
+                     str(SERVE_STALE_S / 2), "--reparent-after", "1000000"])
+        out["r1_up_s"] = up("r1")
+        stage("r1 up")
+        spawn("r2", ["--primary", peers[0], "--parent", addr["r1"],
+                     "--port", str(ports["r2"]), "--advertise", addr["r2"],
+                     "--poll-interval", "0.05"])
+        out["r2_up_s"], out["r3_up_s"] = up("r2"), up("r3")
+        stage("r2, r3 up")
+        out["loadgen"] = []
+        watcher = threading.Thread(target=_serve_tier_watch, args=(
+            peers, metrics_ports, [addr["r3"], addr["r1"], addr["r2"]],
+            addr["r3"], stop, watch), daemon=True)
+        loads = threading.Thread(target=primaries, daemon=True)
+        loads.start()
+        deadline = time.perf_counter() + GRPC_WORKER_TIMEOUT_S
+        while (r1_step[0] or 0) < 1 and time.perf_counter() < deadline:
+            r1_changed(1.0)
+            time.sleep(0.1)
+        out["trained_s"] = time.perf_counter() - t0
+        stage("r1 trained")
+        out["promote"] = infer_rounds(0.9, "promotions", aligned=True)
+        # The replicas' loads touch no primary.
+        out["loadgen"] += [loadgen(n, addr[r], m, SERVE_LOADGEN_S, 2)
+                           for n, r in (("R1", "r1"), ("R2", "r2"))
+                           for m in ("full", "delta")]
+        meta, _ = wire.call(addr["r1"], "PushGradrients", {"worker_id": 0})
+        out["redirect"] = {k: meta.get(k) for k in (
+            "redirect", "replica", "accepted", "received")}
+        deadline = time.perf_counter() + GRPC_WORKER_TIMEOUT_S
+
+        def waiting(i: int) -> bool:
+            return not watch["final"].get(i, {}).get("done") \
+                and "down_s" not in watch \
+                and (loads.is_alive() or watcher.is_alive()) \
+                and time.perf_counter() < deadline
+
+        while waiting(0):
+            time.sleep(0.02)
+        stage("final step")
+        out["rollback"] = infer_rounds(0.1, "rollbacks", aligned=False)
+        rc, after = _cli_line(["infer", "--target", addr["r1"], "--count",
+                               str(SERVE_INFER_BATCH), "--json"],
+                              "INFER_JSON ")
+        out["after_rollback"] = sorted({(r["arm"], r["serving_step"])
+                                        for r in after["served"]})
+        stage("rolled back")
+        loads.join(GRPC_SERVER_TIMEOUT_S)
+        while waiting(1):
+            time.sleep(0.02)
+        release()
+        stage("released")
+        watcher.join(GRPC_SERVER_TIMEOUT_S)
+        stage("watcher done")
+    finally:
+        checked.set()
+        if loads is not None:
+            loads.join(GRPC_SERVER_TIMEOUT_S)
+        release()
+        wire_hold.close()
+        if watcher is not None and watcher.is_alive():
+            watcher.join(20)
+        stop.set()
+        wire.close()
+        for p in procs.values():
+            if p.poll() is None:
+                p.terminate()
+                try:
+                    p.wait(10)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+        out["addresses"] = {**addr, "P0": peers[0], "P1": peers[1]}
+        out["replica_rcs"] = {n: p.returncode for n, p in procs.items()}
+        out["replica_tail"] = {n: _lines_text(ls)[-600:]
+                               for n, ls in lines.items()}
+        out["probe_seconds"] = time.perf_counter() - t0
+
+
+def _serve_tier_checks(state: dict) -> dict:
+    """(a): the probe's readings, held to what they must be."""
+    import grpc
+
+    got = state.get("serve_tier_probe")
+    if got is None:
+        raise AssertionError("phase 26 (b) ran no serve-tier probe")
+    out = {k: v for k, v in got.items() if k != "t0"}
+    problems = []
+    if "error" in got or "probe_seconds" not in got \
+            or "primaries_error" in got:
+        problems.append(f"the probe raised or did not end: "
+                        f"{got.get('traceback')}, "
+                        f"{got.get('primaries_traceback')}, stages "
+                        f"{got.get('stages')}")
+        out["problems"] = problems
+        return out
+    addr = got["addresses"]
+    final = got["watch"].get("final", {})
+    for i, name in ((0, "P0"), (1, "P1")):
+        f = final.get(i) or {}
+        if f.get("step") != FLEET_STEPS or not f.get("replicas") \
+                or not all(r["equal"] for r in f["replicas"].values()):
+            problems.append(f"{name}'s replicas at its final step: {f}")
+    pool = list((final.get(1) or {}).get("replicas", {}))
+    rows = {r["address"]: r for r in (((final.get(0) or {}).get(
+        "view") or {}).get("sharding") or {}).get("replicas", [])}
+    tree = {n: (rows.get(addr[n], {}).get("parent"),
+                rows.get(addr[n], {}).get("tier")) for n in ("r1", "r2")}
+    out["p0_tree"] = tree
+    if tree != {"r1": (addr["P0"], 1), "r2": (addr["r1"], 2)}:
+        problems.append(f"P0's shard view: {rows}")
+    if got["redirect"] != {"redirect": addr["P0"], "replica": True,
+                           "accepted": False, "received": False}:
+        problems.append(f"push to R1: {got['redirect']}")
+    for run in got["loadgen"]:
+        if run["rc"] != 0 or run["fetches_err"] != 0 \
+                or not run["fetches_ok"]:
+            problems.append(f"loadgen {run}")
+    pro, rb = got["promote"], got["rollback"]
+    if pro["promotions"] < 1 or rb["rollbacks"] < 1 \
+            or rb["stable_step"] == FLEET_STEPS \
+            or any(arm == "canary" and step != FLEET_STEPS
+                   for arms in rb["served"] for arm, step in arms) \
+            or any(arm == "canary" for arm, _ in got["after_rollback"]):
+        problems.append(f"canary: promote {pro}, rollback {rb}, after "
+                        f"{got['after_rollback']}")
+    auto = ((final.get(1) or {}).get("view") or {}).get("autoscale") or {}
+    loaded = next(r["wall"] for r in got["loadgen"] if r["target"] == "P1")
+    grows = [(e["live"], e["qps"], round(e["ts"] - loaded, 3))
+             for e in auto.get("events", [])
+             if e["action"] == "replica_grow" and e["outcome"] == "ok"]
+    out["autoscale_grows"] = grows
+    if len(grows) != 2 or grows[0][0] != 1 or grows[1][0] != 2 \
+            or grows[1][1] <= SERVE_QPS_HIGH or grows[1][2] < 0 \
+            or len(pool) != 2:
+        problems.append(f"autoscale: {auto}, pool {pool}")
+    out["pool_gone"] = {}
+    wire = _Wire()
+    try:
+        for a in pool:
+            try:
+                wire.call(a, "FetchParameters", {"have_step": -1},
+                          timeout=2.0)
+                out["pool_gone"][a] = False
+            except grpc.RpcError as e:
+                out["pool_gone"][a] = e.code().name == "UNAVAILABLE"
+    finally:
+        wire.close()
+    run = state.get("serve_tier_topology") or {}
+    pool_lines = [ln for ln in (run.get("p1_out") or "").splitlines()
+                  if ln.startswith("REPLICA_POOL_")]
+    out["pool_lines"] = pool_lines
+    if not all(out["pool_gone"].values()) or sum(
+            ln.startswith("REPLICA_POOL_GROW") for ln in pool_lines) != 2:
+        problems.append(f"the pool's children: {out['pool_gone']}, "
+                        f"{pool_lines}")
+    stale = got["watch"].get("stale")
+    if stale is None or stale["code"] != "UNAVAILABLE" \
+            or f"use primary {addr['P0']}" not in stale["detail"] \
+            or stale["seconds_after_primary"] > 2.5 * SERVE_STALE_S:
+        problems.append(f"R3's staleness: {stale}")
+    out["problems"] = problems
+    return out
+
+
+def _serve_tier_faults(state: dict) -> dict:
+    """(b): one ResNet-18 worker on the card pushing int8 through K1 to a
+    port service that drops push replies (``SERVE_SERVER_FAULTS``)
+    through a ``RemoteStore`` whose fetches fail
+    (``SERVE_CLIENT_FAULTS``). Each push's payload and fetched step are
+    recorded; the service must apply each push token once, its params
+    must be bit-equal to a fresh NumPy store replaying the recorded
+    payloads once each, and each injector's counters must equal its
+    ``schedule_preview`` over the calls it saw."""
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms import (
+        ParameterService, RemoteStore, serve)
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms \
+        .service import unpack_msg
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
+        quantize as Q
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps import (
+        ParameterStore, PSWorker, StoreConfig, WorkerConfig)
+
+    ds, model, store, init = main_path(SERVE_PUSHES, 10, 28)
+    svc = ParameterService(store, faults=SERVE_SERVER_FAULTS)
+    replies = []
+    body = svc.push_gradrients
+
+    def push(request, ctx):
+        reply = body(request, ctx)
+        replies.append(unpack_msg(reply)[0])
+        return reply
+
+    svc.push_gradrients = push
+    server, port = serve(store, port=0, service=svc, host="127.0.0.1")
+    remote = RemoteStore(f"127.0.0.1:{port}", rpc_backoff=0.05,
+                         faults=SERVE_CLIENT_FAULTS)
+    injected = {("server", "push", "drop_reply"): svc.faults,
+                ("client", "fetch", "unavailable"): remote.faults}
+    before = {k: inj._tm[k[1:]].value for k, inj in injected.items()}
+
+    class Recording:
+        def __init__(self, inner):
+            self._inner, self.pushes = inner, []
+
+        def __getattr__(self, name):
+            return getattr(self._inner, name)
+
+        def push(self, wid, grads, step):
+            self.pushes.append(({k: np.array(v) for k, v in grads.items()},
+                                step))
+            return self._inner.push(wid, grads, step)
+
+    rec = Recording(remote)
+    Q.wire_quantize_multi.launches = 0
+    try:
+        w = PSWorker(rec, model, ds, WorkerConfig(
+            batch_size=BATCH, num_epochs=1, device="cuda",
+            eval_each_epoch=False))
+        w.run()
+    finally:
+        remote.close()
+        server.stop(grace=None).wait(10)
+    launches = Q.wire_quantize_multi.launches
+    state["serve_tier_k1_launches"] = launches
+    if w.result.error is not None:
+        raise w.result.error
+    replay = ParameterStore(init, StoreConfig(
+        mode="async", total_workers=N_WORKERS, push_codec="int8",
+        staleness_bound=5))
+    wid, _ = replay.register_worker("replay")
+    for payload, step in rec.pushes:
+        replay.push(wid, payload, step)
+    params, step = store.snapshot()
+    ref, ref_step = replay.snapshot()
+    diff = [k for k in ref if ref[k].tobytes() != params[k].tobytes()]
+    rpc = {("server", "push", "drop_reply"): "PushGradrients",
+           ("client", "fetch", "unavailable"): "FetchParameters"}
+    counters = {}
+    for key, inj in injected.items():
+        calls = inj._op_calls.get(rpc[key], 0)
+        counters["/".join(key)] = {
+            "calls": calls,
+            "injected": inj._tm[key[1:]].value - before[key],
+            "preview": sum(x is not None for x in inj.schedule_preview(
+                rpc[key], calls))}
+    out = {"pushes": len(rec.pushes), "step": step, "replay_step": ref_step,
+           "gradients_processed": store.stats.gradients_processed,
+           "duplicates": sum(bool(r.get("duplicate")) for r in replies),
+           "journal": svc.journal_snapshot(), "k1_launches": launches,
+           "params_differ": diff, "injections": counters,
+           "rpc_counts": remote.rpc_counts}
+    problems = []
+    n = len(rec.pushes)
+    if n != SERVE_PUSHES or step != n or ref_step != n \
+            or out["gradients_processed"] != n:
+        problems.append(f"pushes {n}, steps {step}/{ref_step}, applied "
+                        f"{out['gradients_processed']}")
+    drops = counters["server/push/drop_reply"]["injected"]
+    if out["duplicates"] != drops or drops != 2 or diff:
+        problems.append(f"duplicates {out['duplicates']} for {drops} "
+                        f"dropped replies; params differ {diff[:4]}")
+    if any(c["injected"] != c["preview"] or not c["injected"]
+           for c in counters.values()):
+        problems.append(f"injections {counters}")
+    want = -(-len(init) // Q.WIRE_MAX_ENTRIES) * n
+    if launches != want:
+        problems.append(f"K1 launched {launches} times for {n} pushes")
+    out["problems"] = problems
+    return out
+
+
+def phase_serve_tier(state: dict) -> None:
+    """Phase 28: the serve tier over phase 26 (b)'s primaries, then the
+    seeded faults in this process on the card."""
+    failures: list = []
+    t0 = time.perf_counter()
+    for key, fn in (("a_replicas", _serve_tier_checks),
+                    ("b_faults", _serve_tier_faults)):
+        t = time.perf_counter()
+        try:
+            res = fn(state)
+            failures.extend(f"({key[0]}) {p}" for p in res["problems"])
+        except Exception as e:  # noqa: BLE001 — reported, fails it
+            traceback.print_exc()
+            res = {"error": repr(e)}
+            failures.append(f"({key[0]}) raised {e!r}")
+        emit({"phase": "serve_tier", "form": key, **res,
+              "seconds": time.perf_counter() - t, "card": state["card"]})
+    emit({"phase": "serve_tier", "form": "summary",
+          "seconds": time.perf_counter() - t0, "failures": failures,
+          "card": state["card"]})
+    if failures:
+        raise AssertionError(f"phase 28: {failures}")
+
+
 def main() -> int:
     import torch
 
@@ -7534,7 +8331,7 @@ def main() -> int:
                   phase_checkpoints, phase_health, phase_models,
                   phase_observability, phase_multihost, phase_sp_multihost,
                   phase_moe, phase_pp, phase_tp, phase_sharded,
-                  phase_fleet):
+                  phase_fleet, phase_serve_tier):
         t0 = time.perf_counter()
         try:
             phase(state)
@@ -7557,8 +8354,8 @@ def main() -> int:
     # (phase 14 (a); the worker processes of (b) and of phase 26 (b) are
     # other processes, read off their captures), the gRPC modes' (phase 15
     # (a)), the health path's (phase 18 (a)), the models' (phase 19 (c),
-    # (d), (e)), the serve surfaces' (phase 20 (b)) and the sharded
-    # tier's (phase 26 (a)); a push's times.
+    # (d), (e)), the serve surfaces' (phase 20 (b)), the sharded tier's
+    # (phase 26 (a)) and the serve tier's (phase 28 (b)); a push's times.
     kernels = []
     for name, k in state["k1"].items():
         kernels.append({
@@ -7570,7 +8367,8 @@ def main() -> int:
             + state["health_k1_launches"][name]
             + state["models_k1_launches"]
             + state["observe_k1_launches"]
-            + state["sharded_k1_launches"][name],
+            + state["sharded_k1_launches"][name]
+            + state["serve_tier_k1_launches"],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],

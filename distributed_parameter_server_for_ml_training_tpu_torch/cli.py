@@ -177,6 +177,24 @@ sync/async matrix on ``--device`` (or ingests a pod's logs with
         experiments --modes sync,async --worker-counts 2 --epochs 1 \
         --synthetic --num-train 512 --no-plots --out-dir results
 
+The serve tier: ``replica`` mirrors a primary (or, with ``--parent``,
+another replica: a fan-out tree) and serves its payload bytes verbatim,
+``--canary`` splitting ``infer`` fetches between a stable and a candidate
+step; ``loadgen`` drives fetches at a tier and prints ``LOADGEN_JSON``;
+``infer`` sends inference fetches with quality feedback; ``serve
+--autoscale`` grows and shrinks a pool of ``cli replica`` children from
+the measured fetch QPS; ``--faults`` (serve, worker, replica) injects a
+seeded fault schedule (``comms/faults.py``)::
+
+    python -m distributed_parameter_server_for_ml_training_tpu_torch.cli \\
+        replica --primary 127.0.0.1:8000 --port 8100 --canary
+    python -m distributed_parameter_server_for_ml_training_tpu_torch.cli \\
+        replica --primary 127.0.0.1:8000 --parent 127.0.0.1:8100
+    python -m distributed_parameter_server_for_ml_training_tpu_torch.cli \\
+        loadgen --targets 127.0.0.1:8100 --fetch-mode delta --duration 5
+    python -m distributed_parameter_server_for_ml_training_tpu_torch.cli \\
+        infer --target 127.0.0.1:8100 --count 40 --quality 0.9
+
 The flags and verbs of the JAX CLI that name features of later slices
 are accepted and refused with the ROADMAP item that brings them.
 """
@@ -580,9 +598,41 @@ def build_parser() -> argparse.ArgumentParser:
                         "shard order (host:port, length --shard-count); "
                         "published to workers as the shard map at "
                         "registration. Required when --shard-count > 1")
+    s.add_argument("--autoscale", action="store_true",
+                   help="grow/shrink a local replica fleet from measured "
+                        "fetch QPS (telemetry/autoscale.py): spawns "
+                        "`cli replica` children against this primary, "
+                        "ticked by the health monitor")
+    s.add_argument("--autoscale-min", type=int, default=0,
+                   help="replica floor the autoscaler keeps alive")
+    s.add_argument("--autoscale-max", type=int, default=4,
+                   help="replica ceiling")
+    s.add_argument("--autoscale-qps-high", type=float, default=50.0,
+                   help="windowed fetch QPS above which the fleet grows")
+    s.add_argument("--autoscale-qps-low", type=float, default=5.0,
+                   help="windowed fetch QPS below which it shrinks "
+                        "(hysteresis band with --autoscale-qps-high)")
+    s.add_argument("--autoscale-cooldown", type=float, default=10.0,
+                   help="minimum seconds between scaling actions")
+    s.add_argument("--autoscale-max-tier", type=int, default=1,
+                   help="deepest tier a grown replica may land at "
+                        "(docs/SHARDING.md \"Fan-out trees\"): 1 = flat "
+                        "star (every replica under the primary); >1 "
+                        "spawns under the hottest eligible interior "
+                        "node")
+    s.add_argument("--autoscale-fanout", type=int, default=2,
+                   help="per-node child budget when growing a tree — a "
+                        "node already feeding this many children stops "
+                        "being an eligible parent")
+    s.add_argument("--autoscale-dry-run", action="store_true",
+                   help="decide and record scaling actions without "
+                        "spawning or retiring anything")
     _add_profile_dir(s, "the server's apply/aggregation hot path")
     _add_telemetry(s)
-    s.add_argument("--faults", default=None)
+    s.add_argument("--faults", default=_env("DPS_FAULTS_SERVER", None),
+                   help="deterministic server-side fault injection spec "
+                        "(comms/faults.py), e.g. "
+                        "'seed=7;push.drop_reply@n=3;any.kill@n=40'")
     s.add_argument("--jobs", default=None)
 
     w = sub.add_parser("worker", help="gRPC remote worker")
@@ -614,7 +664,130 @@ def build_parser() -> argparse.ArgumentParser:
     _add_telemetry(w)
     _add_common(w)
     w.add_argument("--job", default=None)
-    w.add_argument("--faults", default=None)
+    w.add_argument("--faults", default=_env("DPS_FAULTS_CLIENT", None),
+                   help="deterministic client-side fault injection spec "
+                        "(comms/faults.py), e.g. "
+                        "'seed=7;push.unavailable@p=0.1'")
+
+    r = sub.add_parser(
+        "replica",
+        help="read-only fetch replica behind one shard primary "
+             "(docs/SHARDING.md): subscribes over delta-fetch, serves "
+             "cached parameter bytes, refuses when stale, redirects "
+             "writes to the primary")
+    r.add_argument("--primary", required=True,
+                   help="address (host:port) of the shard primary this "
+                        "replica mirrors (writes always redirect here)")
+    r.add_argument("--parent", default=None,
+                   help="subscribe source when different from the "
+                        "primary — point it at ANOTHER replica to form "
+                        "a fan-out tree (docs/SHARDING.md \"Fan-out "
+                        "trees\"); the tier is learned from the "
+                        "parent's replies")
+    r.add_argument("--port", type=int, default=_env("DPS_PORT", 0, int),
+                   help="replica serve port (0 = pick a free port)")
+    r.add_argument("--shard-id", type=int, default=0,
+                   help="shard slot of the primary (stamped on replies "
+                        "and the announce)")
+    r.add_argument("--advertise", default=None,
+                   help="address to announce to the primary (defaults to "
+                        "localhost:<bound port>)")
+    r.add_argument("--metrics-advertise", default=None,
+                   help="metrics endpoint address to announce alongside "
+                        "it (defaults to localhost:<bound --metrics-port> "
+                        "when one is serving) — published in the "
+                        "primary's /cluster view so `cli observe` "
+                        "discovers this replica as a scrape target")
+    r.add_argument("--poll-interval", type=float,
+                   default=_env("DPS_REPLICA_POLL", 0.05, float),
+                   help="seconds between delta-fetch refreshes against "
+                        "the primary (NOT_MODIFIED when idle)")
+    r.add_argument("--staleness-bound", type=float,
+                   default=_env("DPS_REPLICA_STALENESS", None, float),
+                   help="max seconds since the last successful refresh "
+                        "before fetches are refused with a redirect to "
+                        "the primary (default: derived from the tier — "
+                        "5s x tier, so edge tiers tolerate "
+                        "proportionally more lag)")
+    r.add_argument("--reparent-after", type=int, default=3,
+                   help="consecutive refresh failures before this "
+                        "replica re-parents via the cached topology "
+                        "(prefer the dead parent's tier, fall back to "
+                        "the primary)")
+    r.add_argument("--reparent-cooldown", type=float, default=5.0,
+                   help="hysteresis: minimum seconds between re-parent "
+                        "moves, so a flapping parent cannot make "
+                        "children ricochet around the tree")
+    r.add_argument("--canary", action="store_true",
+                   help="serve the canary-gated inference workload "
+                        "(docs/SHARDING.md \"Serve tier\"): keep a step "
+                        "history, split `infer` fetches stable/canary, "
+                        "promote or roll back on client quality feedback")
+    r.add_argument("--canary-fraction", type=float, default=0.05,
+                   help="share of infer requests routed to the canary "
+                        "step (default 5%%)")
+    r.add_argument("--canary-min-samples", type=int, default=20,
+                   help="quality samples each arm needs before a "
+                        "promote/rollback decision")
+    r.add_argument("--canary-tolerance", type=float, default=0.0,
+                   help="promote while canary mean quality >= stable "
+                        "mean - tolerance; below that, roll back")
+    r.add_argument("--faults", default=None,
+                   help="seeded fault spec for the replica tier (env "
+                        "DPS_FAULTS_REPLICA; comms/faults.py grammar): "
+                        "`refresh.*` rules hit the subscription poll, "
+                        "`subscribe.*` rules this replica's own serving "
+                        "handler")
+    _add_telemetry(r)
+
+    lg = sub.add_parser(
+        "loadgen",
+        help="fetch-path load generator: hammer FetchParameters on one "
+             "or more targets and print aggregate QPS as LOADGEN_JSON "
+             "(docs/SHARDING.md)")
+    lg.add_argument("--targets", required=True,
+                    help="comma list of fetch targets (primaries and/or "
+                         "replicas), host:port each; threads round-robin "
+                         "over the list")
+    lg.add_argument("--duration", type=float, default=5.0,
+                    help="seconds to run")
+    lg.add_argument("--concurrency", type=int, default=4,
+                    help="total client threads (each with its own "
+                         "channel)")
+    lg.add_argument("--job", default=None,
+                    help="refused: the job stamp comes with tenancy "
+                         "(ROADMAP §1 item 9)")
+    lg.add_argument("--fetch-mode", choices=["full", "delta", "infer"],
+                    default="full",
+                    help="full = whole model every fetch; delta = poll "
+                         "at the current step (header-only NOT_MODIFIED "
+                         "steady state); infer = the inference-serving "
+                         "workload against a canary replica, with "
+                         "per-arm counts/latency/quality in the result")
+    lg.add_argument("--scale-out", type=int, default=0,
+                    help="distributed generation: launch N coordinated "
+                         "generator PROCESSES (each running this exact "
+                         "workload) and print ONE merged LOADGEN_JSON — "
+                         "percentiles come from the bucket-exact "
+                         "histogram union, never averaged (0 = run "
+                         "in-process, the default)")
+
+    inf = sub.add_parser(
+        "infer",
+        help="one-shot inference client against the serve tier "
+             "(docs/SHARDING.md \"Serve tier\"): send `infer` fetches, "
+             "print which arm and step served each, optionally report a "
+             "quality score back")
+    inf.add_argument("--target", required=True,
+                     help="replica (or primary) address, host:port")
+    inf.add_argument("--count", type=int, default=1,
+                     help="number of inference requests to send")
+    inf.add_argument("--quality", type=float, default=None,
+                     help="quality score to report for each served "
+                          "response (feeds the canary decision); omit to "
+                          "send no feedback")
+    inf.add_argument("--json", action="store_true",
+                     help="print only the INFER_JSON line")
 
     e = sub.add_parser("experiments",
                        help="run the sync/async x workers matrix "
@@ -910,7 +1083,6 @@ def build_parser() -> argparse.ArgumentParser:
 #: Flags of the JAX verbs whose features come with later slices, by the
 #: ROADMAP item that brings them; any value but the default is refused.
 LATER_FLAGS = {
-    "faults": "ROADMAP §1 item 9 (comms/faults.py)",
     "jobs": "ROADMAP §1 item 9 (tenancy)",
     "job": "ROADMAP §1 item 9 (tenancy)",
 }
@@ -1262,7 +1434,8 @@ def _cmd_serve(args) -> int:
                   f"availability "
                   f"{monitor.slo.objectives[1].target:.3g})",
                   file=sys.stderr, flush=True)
-    svc = ParameterService(store, monitor=monitor, sharding=sharding)
+    svc = ParameterService(store, faults=args.faults, monitor=monitor,
+                           sharding=sharding)
     if args.remediate or args.remediate_dry_run:
         if monitor is None:
             raise SystemExit("--remediate needs the health monitor "
@@ -1284,6 +1457,12 @@ def _cmd_serve(args) -> int:
         print(f"remediation: engine on "
               f"(dry_run={engine.policy.dry_run})", file=sys.stderr,
               flush=True)
+    if args.faults:
+        # The seeded fault plan is the postmortem's root-cause record:
+        # journaled at arm time so `cli incident report` opens the
+        # narrative with the fault that caused everything after it.
+        from .telemetry import journal_event
+        journal_event("fault", spec=args.faults, side="server")
     if args.incidents_dir:
         # A critical alert edge freezes journal window + /cluster view +
         # flight-recorder tail into incidents/<id>/, deduped per rule.
@@ -1337,6 +1516,9 @@ def _cmd_serve(args) -> int:
         print(f"profiles: trigger engine armed -> {ptrig.profiles_dir} "
               f"(window {ptrig.window_s:.1f}s, cooldown "
               f"{ptrig.cooldown_s:.0f}s)", file=sys.stderr, flush=True)
+    if args.autoscale and monitor is None:
+        raise SystemExit("--autoscale needs the health monitor "
+                         "(drop --no-health-monitor)")
     restored = None
     if args.restore:
         from .checkpoint import load_store_record, restore_server_state
@@ -1382,11 +1564,42 @@ def _cmd_serve(args) -> int:
         install_shutdown_hooks(role="server")
         add_shutdown_flush(ckpt.flush_now)
     server, port = serve(store, port=args.port, service=svc)
+    pool = None
+    if args.autoscale:
+        # The policy head rides the monitor's background tick; the pool
+        # spawns `cli replica` children against THIS primary's bound port
+        # (JAX cli.py:1647-1675).
+        from .ps.supervisor import ReplicaPool, build_replica_argv
+        from .telemetry import AutoscalePolicy, ReplicaAutoscaler
+        primary_addr = f"localhost:{port}"
+        replica_args = ["--shard-id", str(shard_index)]
+        pool = ReplicaPool(
+            lambda idx, parent=None: build_replica_argv(
+                primary_addr, replica_args, idx, parent=parent))
+        monitor.autoscaler = ReplicaAutoscaler(
+            pool,
+            AutoscalePolicy(
+                qps_high=args.autoscale_qps_high,
+                qps_low=args.autoscale_qps_low,
+                min_replicas=args.autoscale_min,
+                max_replicas=args.autoscale_max,
+                cooldown_s=args.autoscale_cooldown,
+                max_tier=args.autoscale_max_tier,
+                fanout=args.autoscale_fanout,
+                dry_run=args.autoscale_dry_run),
+            sharding=sharding)
+        print(f"autoscale: on (replicas "
+              f"{monitor.autoscaler.policy.min_replicas}.."
+              f"{monitor.autoscaler.policy.max_replicas}, "
+              f"max_tier={monitor.autoscaler.policy.max_tier}, "
+              f"dry_run={monitor.autoscaler.policy.dry_run})",
+              file=sys.stderr, flush=True)
     print(f"parameter server up on :{port} (mode={store.config.mode}, "
           f"workers={args.workers}, backend={args.store_backend}"
           + (f", restored_step={restored}" if restored is not None else "")
           + (f", shard={shard_index}/{shard_count}"
              if sharding is not None else "")
+          + (", faults=on" if svc.faults is not None else "")
           + ")", file=sys.stderr, flush=True)
 
     try:
@@ -1406,6 +1619,8 @@ def _cmd_serve(args) -> int:
         pass
     finally:
         server.stop(grace=2.0)
+        if pool is not None:
+            pool.stop()
         if monitor is not None:
             from .telemetry import set_cluster_monitor
             monitor.stop(final=True)
@@ -1458,9 +1673,9 @@ def _cmd_worker(args) -> int:
                       device=args.device, seed=args.seed)
     if args.shards:
         from .comms.sharded import ShardedRemoteStore
-        store = ShardedRemoteStore(args.shards)
+        store = ShardedRemoteStore(args.shards, faults=args.faults)
     else:
-        store = RemoteStore(args.server)
+        store = RemoteStore(args.server, faults=args.faults)
     worker = PSWorker(store, model, dataset, cfg,
                       worker_name=args.worker_name)
     with _profiler_session(args.profile_dir, args.device):
@@ -1473,6 +1688,135 @@ def _cmd_worker(args) -> int:
         emit_metrics_json(worker.result.metrics(
             total_workers=0, learning_rate=args.lr, config=cfg))
     return 0
+
+
+def cmd_replica(args) -> int:
+    """A read replica of one shard primary (``comms/replica.py``): host
+    code that serves the primary's payload bytes verbatim, until Ctrl-C
+    (or SIGTERM through the telemetry hooks)."""
+    with _telemetry_session(args, "replica"):
+        return _cmd_replica(args)
+
+
+def _cmd_replica(args) -> int:
+    import time
+
+    from .comms.replica import ReplicaServer
+
+    metrics_adv = args.metrics_advertise
+    if metrics_adv is None and getattr(args, "_metrics_bound", None):
+        metrics_adv = f"localhost:{args._metrics_bound}"
+    rep = ReplicaServer(args.primary, port=args.port,
+                        shard_id=args.shard_id,
+                        advertise=args.advertise,
+                        metrics_advertise=metrics_adv,
+                        poll_interval=args.poll_interval,
+                        staleness_bound_s=args.staleness_bound,
+                        canary=args.canary,
+                        canary_fraction=args.canary_fraction,
+                        canary_min_samples=args.canary_min_samples,
+                        canary_tolerance=args.canary_tolerance,
+                        faults=args.faults, parent=args.parent,
+                        reparent_after=args.reparent_after,
+                        reparent_cooldown_s=args.reparent_cooldown)
+    port = rep.start()
+    print(f"replica up on :{port} (primary={args.primary}, "
+          f"parent={rep.parent}, tier={rep.tier}, "
+          f"shard={args.shard_id}, "
+          f"staleness_bound={rep.staleness_bound_s:g}s"
+          + ("" if args.staleness_bound is not None else " (tier-derived)")
+          + (f", canary=1/{rep.canary.period}" if rep.canary is not None
+             else "")
+          + ")", file=sys.stderr, flush=True)
+    try:
+        while True:
+            time.sleep(1.0)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        rep.stop()
+    return 0
+
+
+def cmd_loadgen(args) -> int:
+    """The fetch-path load generator (``comms/loadgen.py``): prints one
+    ``LOADGEN_JSON`` line, merged over ``--scale-out`` generator
+    processes when given."""
+    import json as _json
+
+    from .comms.loadgen import run_loadgen, run_loadgen_scaled
+
+    _refuse_later_flags(args)
+    if args.scale_out > 0:
+        result = run_loadgen_scaled(args.targets, duration_s=args.duration,
+                                    concurrency=args.concurrency,
+                                    mode=args.fetch_mode,
+                                    scale_out=args.scale_out)
+    else:
+        result = run_loadgen(args.targets, duration_s=args.duration,
+                             concurrency=args.concurrency,
+                             mode=args.fetch_mode)
+    print("LOADGEN_JSON " + _json.dumps(result), flush=True)
+    lat = result["latency_ms"]
+    print(f"{result['qps']:.1f} fetch/s aggregate over "
+          f"{len(result['targets'])} target(s) "
+          f"({result['fetches_err']} errors, "
+          f"{result['mb_per_s']:.2f} MB/s in, latency p50/p95/p99 "
+          f"{lat['p50']:g}/{lat['p95']:g}/{lat['p99']:g} ms)"
+          + (f" [merged from {result.get('reports')} generator "
+             f"processes]" if args.scale_out > 0 else ""),
+          file=sys.stderr)
+    for arm, row in (result.get("arms") or {}).items():
+        print(f"  arm={arm}: {row['ok']} served, "
+              f"quality={row['quality_mean']}, steps="
+              f"{row['serving_steps']}", file=sys.stderr)
+    return 0 if result["fetches_ok"] > 0 else 1
+
+
+def cmd_infer(args) -> int:
+    """One-shot inference client: a raw stub like loadgen's (no
+    RemoteStore: the reply's tensor payload is never decoded)."""
+    import json as _json
+    import time
+
+    import grpc as _grpc
+
+    from .comms.service import (GRPC_OPTIONS, SERVICE_NAME, pack_msg,
+                                unpack_msg)
+
+    ident = lambda b: b  # noqa: E731
+    channel = _grpc.insecure_channel(args.target, options=GRPC_OPTIONS)
+    stub = channel.unary_unary(f"/{SERVICE_NAME}/FetchParameters",
+                               request_serializer=ident,
+                               response_deserializer=ident)
+    served = []
+    meta: dict = {"infer": True}
+    try:
+        for _ in range(max(1, int(args.count))):
+            t0 = time.perf_counter()
+            reply = stub(pack_msg(meta), timeout=10.0)
+            dt = time.perf_counter() - t0
+            rmeta, payload = unpack_msg(reply)
+            arm = rmeta.get("arm") or "stable"
+            step = rmeta.get("serving_step",
+                             rmeta.get("global_step"))
+            served.append({"arm": arm, "serving_step": step,
+                           "bytes": len(payload),
+                           "latency_ms": round(dt * 1e3, 3)})
+            meta = {"infer": True}
+            if args.quality is not None and step is not None:
+                meta["quality"] = {"arm": arm, "step": int(step),
+                                   "value": float(args.quality)}
+    finally:
+        channel.close()
+    print("INFER_JSON " + _json.dumps({"target": args.target,
+                                       "served": served}), flush=True)
+    if not args.json:
+        for row in served:
+            print(f"arm={row['arm']} step={row['serving_step']} "
+                  f"{row['bytes']}B {row['latency_ms']}ms",
+                  file=sys.stderr)
+    return 0 if served else 1
 
 
 def cmd_perf(args) -> int:
@@ -2862,7 +3206,9 @@ def main(argv=None) -> int:
             "experiments": cmd_experiments, "status": cmd_status,
             "observe": cmd_observe, "top": cmd_top,
             "incident": cmd_incident, "query": cmd_query,
-            "goodput": cmd_goodput, "perf": cmd_perf}[args.command](args)
+            "goodput": cmd_goodput, "perf": cmd_perf,
+            "replica": cmd_replica, "loadgen": cmd_loadgen,
+            "infer": cmd_infer}[args.command](args)
 
 
 if __name__ == "__main__":

@@ -26,9 +26,14 @@ A shard primary's map is adopted off the register and fetch replies
 ``have_shard_map``, and the keys a push reply names ``disowned`` are kept
 in ``last_disowned`` for ``comms/sharded.py`` to re-route.
 
+Deterministic client-side fault injection (``faults=`` or env
+``DPS_FAULTS_CLIENT``, ``comms/faults.py``) sits between the retry layer
+and the channel, so injected faults exercise the real backoff and
+reconnect paths; it survives ``reset_channel``.
+
 Not in this slice, each refused with ``NotImplementedError`` naming the
-ROADMAP item: client-side fault injection, tenancy (``job``,
-``submit_job``, ``drain_job``) and ``reshard_op`` (§1 item 9).
+ROADMAP item: tenancy (``job``, ``submit_job``, ``drain_job``) and
+``reshard_op`` (§1 item 9).
 """
 
 from __future__ import annotations
@@ -62,8 +67,6 @@ RETRYABLE_CODES = frozenset({
 })
 
 _LATER = {
-    "faults": "client-side fault injection comes with the serve tier "
-              "(ROADMAP §1 item 9: comms/faults.py)",
     "jobs": "tenancy (job, SubmitJob) comes with the serve tier (ROADMAP "
             "§1 item 9: ps/tenancy.py)",
     "reshard": "reshard and migration come with the serve tier's later "
@@ -110,8 +113,6 @@ class RemoteStore:
                  rpc_backoff: float = 0.5,
                  faults=None,
                  job: str | None = None):
-        if faults is not None or os.environ.get("DPS_FAULTS_CLIENT"):
-            raise _later("faults")
         if job is not None:
             raise _later("jobs")
         self.address = address
@@ -188,6 +189,16 @@ class RemoteStore:
         # session loss repush_last re-sends it verbatim but for the worker
         # id.
         self._last_push: tuple[str, bytes, int] | None = None
+        # Deterministic client-side fault injection (comms/faults.py): a
+        # spec string (or a prebuilt FaultInjector) interposes between the
+        # retry layer and the channel. Env DPS_FAULTS_CLIENT applies when
+        # the caller passes nothing.
+        if faults is None:
+            faults = os.environ.get("DPS_FAULTS_CLIENT") or None
+        if isinstance(faults, str):
+            from .faults import FaultInjector
+            faults = FaultInjector(faults, side="client")
+        self.faults = faults
         self._channel = None
         self._build_channel()
 
@@ -204,6 +215,11 @@ class RemoteStore:
                 request_serializer=ident, response_deserializer=ident)
             for name in CLIENT_RPCS
         }
+        if self.faults is not None:
+            # Re-applied on every rebuild: the injector is shared, so its
+            # n=/every= schedules keep counting across a reset.
+            from .faults import install_client_faults
+            install_client_faults(self, self.faults)
 
     def reset_channel(self) -> None:
         """Tear down and rebuild the channel and its stubs. A channel

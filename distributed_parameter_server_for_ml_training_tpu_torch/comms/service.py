@@ -47,11 +47,17 @@ announces riding fetch meta feed the live replica membership, and a
 push's keys whose slot this primary does not own are dropped from the
 apply and named in the reply (``disowned``) beside the fresh map.
 
+Deterministic fault injection (``faults=``, ``comms/faults.py``) wraps
+the four worker RPC bodies inside their instrumentation, as the JAX
+service does, so injected delays and aborts land in the handler
+histograms like real ones.
+
 Not in this slice, each refused with ``NotImplementedError`` naming the
-ROADMAP item when a caller asks for it: fault injection (§1 item 9),
-tenancy with its weighted-fair admission and ``SubmitJob`` (item 9), and
-reshard and migration (item 9's later part). Over the wire the
-``Reshard`` and ``SubmitJob`` RPCs answer UNIMPLEMENTED with that text.
+ROADMAP item when a caller asks for it: tenancy with its weighted-fair
+admission and ``SubmitJob`` (§1 item 9), and reshard and migration (item
+9's later part). Over the wire the ``Reshard`` and ``SubmitJob`` RPCs
+answer UNIMPLEMENTED with that text; neither is fault-wrapped, so a
+``reshard.*`` rule parses and never fires.
 """
 
 from __future__ import annotations
@@ -113,8 +119,6 @@ RPC_NAMES = ("RegisterWorker", "PushGradrients", "FetchParameters",
 
 #: Where each part of the JAX service that this slice leaves out comes.
 LATER = {
-    "faults": "fault injection comes with the serve tier (ROADMAP §1 "
-              "item 9: comms/faults.py)",
     "jobs": "tenancy, weighted-fair admission and SubmitJob come with the "
             "serve tier (ROADMAP §1 item 9: ps/tenancy.py)",
     "reshard": "reshard and migration come with the serve tier's later "
@@ -204,11 +208,16 @@ class ParameterService:
     def __init__(self, store, faults=None, monitor=None,
                  reject_nonfinite: bool = False, sharding=None,
                  jobs=None):
-        asked = {"faults": faults is not None, "jobs": jobs is not None}
-        for what, on in asked.items():
-            if on:
-                raise later(what)
+        if jobs is not None:
+            raise later("jobs")
         self.store = store
+        # Deterministic fault injection (comms/faults.py): a spec string
+        # becomes a server-side injector that wraps the worker RPC bodies
+        # in handlers(); None = no faults.
+        if isinstance(faults, str):
+            from .faults import FaultInjector
+            faults = FaultInjector(faults, side="server")
+        self.faults = faults
         # Sharding state (ps/sharding.py ShardInfo): when set, this server
         # is ONE shard primary of a consistent-hash partition. None = the
         # single-server wire, byte-identical to an unsharded JAX server.
@@ -876,9 +885,19 @@ class ParameterService:
             "Reshard": self.reshard,
             "SubmitJob": self.submit_job,
         }
+
+        def wire(name, fn):
+            # Fault injection sits INSIDE the instrumentation wrapper, so
+            # injected delays/aborts land in the handler latency histogram
+            # and call counters like real ones. The admin plane, refused
+            # here, is left unwrapped.
+            if self.faults is not None and name in RPC_NAMES[:4]:
+                fn = self.faults.wrap_handler(name, fn)
+            return self._instrumented(name, fn)
+
         return grpc.method_handlers_generic_handler(SERVICE_NAME, {
             name: grpc.unary_unary_rpc_method_handler(
-                self._instrumented(name, fn),
+                wire(name, fn),
                 request_deserializer=ident, response_serializer=ident)
             for name, fn in method_map.items()
         })

@@ -551,6 +551,9 @@ class PSWorker(threading.Thread):
         self._quarantine_windows = 0       # quarantine: windows to skip
         self._epoch_break = False          # rebalance_shard
         self._draining = False             # drain
+        # Injected per-step compute slowdown (comms/faults.py COMPUTE_OP):
+        # set in _run from the store's fault injector, if any.
+        self._compute_faults = None
         ns = self.config.nan_inject_step
         if ns is None:
             env = os.environ.get("DPS_NAN_STEP")
@@ -907,6 +910,13 @@ class PSWorker(threading.Thread):
             if hasattr(self.store, "health_revision"):
                 self.store.health_revision = self._health_revision
             self._health_enabled = True
+        # Injected compute slowdown (comms/faults.py 'compute' pseudo-op):
+        # the same --faults spec that drives RPC chaos can make THIS
+        # worker a deterministic straggler.
+        injector = getattr(self.store, "faults", None)
+        if injector is not None and hasattr(injector,
+                                            "maybe_delay_compute"):
+            self._compute_faults = injector
         if cfg.heartbeat_interval > 0:
             threading.Thread(target=self._heartbeat_loop,
                              args=(cfg.heartbeat_interval,),
@@ -1001,6 +1011,12 @@ class PSWorker(threading.Thread):
                                 == self._nan_step:
                             grads, loss = self._inject_nan(grads, accum,
                                                            loss)
+                        if self._compute_faults is not None:
+                            # Deterministic straggler injection: the sleep
+                            # lands inside the step timing, so the health
+                            # report's throughput and the straggler_lag
+                            # rule see it like real slow compute.
+                            self._compute_faults.maybe_delay_compute()
                         self._tm_step_s.observe(_tnow() - t_step)
                         self._tm_steps.inc()
                         self.result.local_steps_completed += 1

@@ -5,10 +5,10 @@ evaluator, and the remediation engine), and the process surfaces: the
 snapshot stream, the Prometheus endpoint (``/metrics``, ``/healthz``,
 ``/cluster``, ``/debug/trace``), memory telemetry, incident capture, the
 profiler bracket with its FLOP accounting, trigger-driven profiling,
-and the fleet observatory's collector — the JAX package's
-``telemetry/`` under its names. The replica autoscaler comes with
-ROADMAP §1 item 9."""
+the fleet observatory's collector and the replica autoscaler — the JAX
+package's ``telemetry/`` under its names."""
 
+from .autoscale import AutoscalePolicy, ReplicaAutoscaler
 from .cluster import (
     ClusterMonitor,
     get_cluster_monitor,
@@ -88,6 +88,7 @@ from .trace import (
 __all__ = [
     "ACTION_CATALOG",
     "Alert",
+    "AutoscalePolicy",
     "BYTES_BUCKETS",
     "ClusterMonitor",
     "ClusterState",
@@ -115,6 +116,7 @@ __all__ = [
     "RULE_CATALOG",
     "RemediationEngine",
     "RemediationPolicy",
+    "ReplicaAutoscaler",
     "SEVERITIES",
     "SPAN_CATALOG",
     "STALENESS_BUCKETS",

@@ -34,9 +34,6 @@ import sys
 import time
 from collections import deque
 
-import torch
-
-from ..utils.device import resolve_device
 from .registry import MetricsRegistry, get_registry
 
 __all__ = [
@@ -82,7 +79,7 @@ def read_host_rss() -> dict | None:
     return out if "rss_bytes" in out else None
 
 
-def read_device_memory(device: str | torch.device = "cuda") -> dict | None:
+def read_device_memory(device="cuda") -> dict | None:
     """One device's allocator stats under the JAX package's
     :data:`DEVICE_MEMORY_KINDS` plus the device kind, or None when the
     device is the CPU (no allocator stats, as on the JAX package's CPU
@@ -101,7 +98,12 @@ def read_device_memory(device: str | torch.device = "cuda") -> dict | None:
     the card (a host-store ``serve``) so reads 0 bytes in use and leaves
     the card to the processes that compute on it. A ``cuda`` device
     never reads as None: without a usable card, or when a read fails,
-    this raises."""
+    this raises. (torch is imported here, not with the module: the
+    telemetry package loads in the serve tier's host processes without
+    it.)"""
+    import torch
+
+    from ..utils.device import resolve_device
     dev = torch.device(device)
     if dev.type == "cpu":
         return None

@@ -277,25 +277,43 @@ def _verb_flags(parser, *path) -> dict:
             for a in parser._actions if a.dest != "help"}
 
 
+#: ``serve``'s flags of the serve tier (the rest of the verb is held to
+#: JAX's flag by flag elsewhere).
+_SERVE_TIER = ("autoscale", "autoscale_min", "autoscale_max",
+               "autoscale_qps_high", "autoscale_qps_low",
+               "autoscale_cooldown", "autoscale_max_tier",
+               "autoscale_fanout", "autoscale_dry_run", "faults")
+
+
 @pytest.mark.parametrize("path", [
     ("status",), ("observe",), ("top",), ("incident", "list"),
     ("incident", "show"), ("incident", "report"), ("query",),
-    ("goodput",), ("experiments",)], ids=lambda p: "-".join(p))
+    ("goodput",), ("experiments",), ("replica",), ("loadgen",),
+    ("infer",), ("serve", _SERVE_TIER), ("worker", ("faults",))],
+    ids=lambda p: "-".join(x for x in p if isinstance(x, str)))
 def test_new_verbs_flags_and_defaults_equal_jax(path, monkeypatch):
-    """The seven verbs take the JAX CLI's flags with its defaults (the
-    environment's defaults unset), but for each package's own switch."""
+    """The verbs of the fleet slice and the serve tier take the JAX CLI's
+    flags with its defaults (the environment's defaults unset), but for
+    each package's own switch; of ``serve`` and ``worker``, the serve
+    tier's flags."""
     import os
 
     from distributed_parameter_server_for_ml_training_tpu import cli as jcli
     for name in list(os.environ):
         if name.startswith("DPS_"):
             monkeypatch.delenv(name)
+    only = path[-1] if isinstance(path[-1], tuple) else None
+    path = tuple(x for x in path if isinstance(x, str))
     j = _verb_flags(jcli.build_parser(), *path)
     p = _verb_flags(cli.build_parser(), *path)
     for name in _OWN_FLAGS["jax"]:
         j.pop(name, None)
     for name in _OWN_FLAGS["port"]:
         p.pop(name, None)
+    if only is not None:
+        j = {k: v for k, v in j.items() if k in only}
+        p = {k: v for k, v in p.items() if k in only}
+        assert sorted(j) == sorted(only)
     assert p == j
 
 

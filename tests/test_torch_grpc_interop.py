@@ -369,8 +369,24 @@ def test_port_client_refuses_a_sharded_registration(start_server, setup):
             call()
     remote.job_finished(wid)
     remote.close()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        PC.RemoteStore(address, faults="seed=1")
+    # Client-side faults are served: the spec arms the JAX package's
+    # schedule, given as an argument or through DPS_FAULTS_CLIENT.
+    from distributed_parameter_server_for_ml_training_tpu.comms.faults \
+        import FaultInjector as JaxInjector
+    spec = "seed=1;push.unavailable@p=0.3;fetch.drop_reply@n=2"
+    faulty = PC.RemoteStore(address, faults=spec)
+    want = [JaxInjector(spec).schedule_preview(op, 30)
+            for op in ("PushGradrients", "FetchParameters")]
+    assert [faulty.faults.schedule_preview(op, 30) for op in (
+        "PushGradrients", "FetchParameters")] == want
+    faulty.close()
+    os.environ["DPS_FAULTS_CLIENT"] = spec
+    try:
+        faulty = PC.RemoteStore(address)
+    finally:
+        del os.environ["DPS_FAULTS_CLIENT"]
+    assert faulty.faults.spec == spec and faulty.faults.side == "client"
+    faulty.close()
     with pytest.raises(NotImplementedError, match="item 9"):
         PC.RemoteStore(address, job="vision")
 
@@ -434,16 +450,60 @@ def test_cli_serve_and_two_cli_workers(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["serve", "--faults", "seed=7"], "item 9"),
     (["serve", "--jobs", "a:weight=1"], "item 9"),
     (["worker", "--job", "vision", "--device", "cpu"], "item 9"),
-    (["worker", "--faults", "seed=7", "--device", "cpu"], "item 9"),
+    (["loadgen", "--targets", "h:1", "--job", "vision"], "item 9"),
     (["perf", "check"], "item 11"),
 ], ids=lambda v: "_".join(v) if isinstance(v, list) else v)
 def test_cli_flags_of_later_slices_are_refused(argv, item):
     from distributed_parameter_server_for_ml_training_tpu_torch import cli
     with pytest.raises(NotImplementedError, match=f"ROADMAP §1 {item}"):
         cli.main(argv)
+
+
+@pytest.mark.parametrize("argv", [
+    ["serve", "--faults", "seed=7;push.drop_reply@n=2;fetch.delay=0@p=0.4",
+     "--no-health-monitor", "--port", "0"],
+    ["worker", "--faults", "seed=7;push.unavailable@n=3;fetch.deadline@"
+     "every=4", "--device", "cpu", "--server", "127.0.0.1:1"],
+], ids=lambda v: "_".join(v[:2]))
+def test_cli_faults_arm_the_jax_schedule(argv, tiny_cli, monkeypatch):
+    """``serve --faults`` and ``worker --faults``, refused until the serve
+    tier landed, arm an injector whose schedule is the JAX package's for
+    the same spec, on each of the four RPCs (the command is cut short
+    where the service is served or the worker starts)."""
+    from distributed_parameter_server_for_ml_training_tpu.comms.faults \
+        import FaultInjector as JaxInjector
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps import \
+        worker as W
+    cli, seen = tiny_cli, {}
+
+    class Service(PS.ParameterService):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            seen["faults"] = self.faults
+
+    class Worker:
+        def __init__(self, store, *a, **kw):
+            seen["faults"] = store.faults
+
+    def cut(*a, **kw):
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(PS, "ParameterService", Service)
+    monkeypatch.setattr(PS, "serve", cut)
+    monkeypatch.setattr(W, "PSWorker", Worker)
+    monkeypatch.setattr(Worker, "start", cut, raising=False)
+    with pytest.raises(KeyboardInterrupt):
+        cli.main(argv)
+    spec = argv[argv.index("--faults") + 1]
+    assert seen["faults"].spec == spec
+    assert seen["faults"].side == ("server" if argv[0] == "serve"
+                                   else "client")
+    for op in ("RegisterWorker", "PushGradrients", "FetchParameters",
+               "JobFinished"):
+        assert seen["faults"].schedule_preview(op, 40) \
+            == JaxInjector(spec).schedule_preview(op, 40)
 
 
 @pytest.fixture

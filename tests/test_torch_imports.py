@@ -71,7 +71,9 @@ def test_port_files_exist():
                      "telemetry/fleet.py", "analysis/incidents.py",
                      "analysis/parse_logs.py", "analysis/fleet_series.py",
                      "analysis/pod_logs.py", "analysis/runner.py",
-                     "analysis/visualize.py"):
+                     "analysis/visualize.py", "comms/faults.py",
+                     "comms/replica.py", "comms/loadgen.py",
+                     "telemetry/autoscale.py", "ps/supervisor.py"):
         assert required in names, required
     for kernel in ("wire_quantize.cu", "block_quantize.cu",
                    "flash_attention.cu"):
@@ -99,11 +101,15 @@ def test_sp_multihost_modules_load_no_jax(module):
 
 
 @pytest.mark.parametrize("module", ["ps.sharding", "comms.sharded",
-                                    "native.store"])
+                                    "native.store", "comms.faults",
+                                    "comms.replica", "comms.loadgen",
+                                    "telemetry.autoscale",
+                                    "ps.supervisor"])
 def test_serve_tier_modules_load_no_jax(module):
-    """The shard partition, the sharded client and the C++ arena's store,
-    imported in a fresh interpreter, load no module of jax and none of
-    the JAX package."""
+    """The shard partition, the sharded client, the C++ arena's store,
+    the fault injector, the replica, the load generator, the autoscaler
+    and the replica pool, imported in a fresh interpreter, load no module
+    of jax and none of the JAX package."""
     name = f"distributed_parameter_server_for_ml_training_tpu_torch.{module}"
     probe = (f"import sys, {name}; print(sorted(m for m in sys.modules "
              f"if m.split('.')[0] in {FORBIDDEN!r}))")
@@ -111,6 +117,22 @@ def test_serve_tier_modules_load_no_jax(module):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]", out.stdout
+
+
+@pytest.mark.parametrize("module", ["comms.replica", "comms.loadgen",
+                                    "telemetry.autoscale", "ps.supervisor",
+                                    "cli"])
+def test_serve_tier_host_modules_load_no_torch(module):
+    """The replica, the load generator, the autoscaler, the replica pool
+    and the CLI module are host code: imported in a fresh interpreter,
+    they load no torch (a ``cli replica`` process starts in well under a
+    second instead of paying torch's import)."""
+    name = f"distributed_parameter_server_for_ml_training_tpu_torch.{module}"
+    probe = f"import sys, {name}; print('torch' in sys.modules)"
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False", out.stdout
 
 
 def _closure(module: str) -> set:
@@ -289,13 +311,15 @@ def _relative_imports(path: pathlib.Path):
 
 def test_comms_imports_nothing_unported():
     """``comms/`` imports only the wire, the service, the client, the
-    sharded client, the telemetry, the packed int4 type, (lazily) the
-    fetch codecs and, of ``ps/``, only the shard partition (plain
-    Python, as the JAX service and client import it): never a store."""
+    sharded client, the serve tier (fault injector, replica, load
+    generator), the telemetry, the packed int4 type, (lazily) the fetch
+    codecs and, of ``ps/``, only the shard partition (plain Python, as
+    the JAX service and client import it): never a store."""
     allowed = {"comms", "comms.wire", "comms.service", "comms.client",
-               "comms.sharded", "telemetry", "telemetry.registry",
-               "telemetry.trace", "ops.packed", "ops.compression",
-               "ps.sharding"}
+               "comms.sharded", "comms.faults", "comms.replica",
+               "comms.loadgen", "telemetry", "telemetry.registry",
+               "telemetry.trace", "telemetry.journal", "telemetry.stats",
+               "ops.packed", "ops.compression", "ps.sharding"}
     for path in sorted((PORT / "comms").glob("*.py")):
         for target in _relative_imports(path):
             local = target.split(".", 1)[1] if "." in target else ""
@@ -413,9 +437,11 @@ def test_later_flags_name_only_items_8_and_9():
     triggers, ``--profile-dir``), as are the store options and worker
     modes of item 3, the device store of item 4, the checkpoints of item
     5 and the health monitor, SLO and remediation flags of item 8's first
-    part, and since item 9's first part ``--store-backend native``, the
-    ``serve --shard-*`` flags and ``worker --shards``; ``--faults``,
-    ``--jobs`` and ``--job`` are refused naming item 9."""
+    part, since item 9's first part ``--store-backend native``, the
+    ``serve --shard-*`` flags and ``worker --shards``, and since its
+    serve tier ``--faults`` (its spec arming the JAX package's schedule),
+    ``serve --autoscale*`` and the verbs ``replica``, ``loadgen`` and
+    ``infer``; ``--jobs`` and ``--job`` are refused naming item 9."""
     from distributed_parameter_server_for_ml_training_tpu_torch import cli
     from distributed_parameter_server_for_ml_training_tpu_torch.comms \
         import client, service
@@ -426,7 +452,7 @@ def test_later_flags_name_only_items_8_and_9():
     for text in (*service.LATER.values(), *client._LATER.values()):
         assert {int(n) for n in re.findall(r"item (\d+)", text)} \
             <= {8, 9}, text
-    assert set(cli.LATER_FLAGS) == {"faults", "jobs", "job"}
+    assert set(cli.LATER_FLAGS) == {"jobs", "job"}
     assert set(cli.LATER_VERBS) == {"perf check"}
     parser = cli.build_parser()
     for argv in (["serve", "--fetch-codec", "bf16", "--elastic",
@@ -476,8 +502,26 @@ def test_later_flags_name_only_items_8_and_9():
                  ["train", "--store-backend", "native"],
                  ["worker", "--shards", "a:1,b:2"]):
         cli._refuse_later_flags(parser.parse_args(argv))
-    for argv in (["serve", "--faults", "seed=1"],
-                 ["worker", "--job", "vision"]):
+    from distributed_parameter_server_for_ml_training_tpu.comms import \
+        faults as jfaults
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms \
+        import faults
+    for argv in (["serve", "--faults", "seed=1;push.unavailable@p=0.3"],
+                 ["worker", "--faults", "fetch.drop_reply@n=2"],
+                 ["serve", "--autoscale", "--autoscale-min", "1",
+                  "--autoscale-max", "2", "--autoscale-qps-high", "9"],
+                 ["replica", "--primary", "a:1", "--canary"],
+                 ["loadgen", "--targets", "a:1"],
+                 ["infer", "--target", "a:1"]):
+        args = parser.parse_args(argv)
+        cli._refuse_later_flags(args)
+        spec = getattr(args, "faults", None)
+        if spec:
+            for op in ("PushGradrients", "FetchParameters"):
+                assert faults.FaultInjector(spec).schedule_preview(op, 20) \
+                    == jfaults.FaultInjector(spec).schedule_preview(op, 20)
+    for argv in (["worker", "--job", "vision"],
+                 ["loadgen", "--targets", "a:1", "--job", "vision"]):
         with pytest.raises(NotImplementedError, match="item 9"):
             cli._refuse_later_flags(parser.parse_args(argv))
     with pytest.raises(NotImplementedError, match="item 11"):

@@ -305,12 +305,56 @@ def test_capability_advertisement_is_a_default_jax_servers():
     assert list(got.items()) == list(want.items())
 
 
-@pytest.mark.parametrize("kwarg,item", [
-    ("faults", "item 9"), ("jobs", "item 9")])
+@pytest.mark.parametrize("kwarg,item", [("jobs", "item 9")])
 def test_unported_service_options_are_refused(kwarg, item):
     store = ParameterStore(_params(), StoreConfig(total_workers=1))
     with pytest.raises(NotImplementedError, match=item):
         PS.ParameterService(store, **{kwarg: True})
+
+
+def test_service_faults_replay_the_jax_services_script():
+    """``faults=`` (refused until the serve tier landed): one scripted
+    request sequence into both services' fault-wrapped handlers, with
+    ``ctx=None``, gives the same replies and the same injected failures
+    call by call, and bit-equal stores (a dropped reply still applied)."""
+    from distributed_parameter_server_for_ml_training_tpu.comms.faults \
+        import InjectedRpcError as JaxInjected
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms \
+        .faults import InjectedRpcError
+    spec = ("seed=5;push.drop_reply@n=2;fetch.unavailable@every=3;"
+            "register.deadline@n=1")
+    outcomes, stores = {}, {}
+    for name, mod, store in (
+            ("jax", JS, JaxStore(_params(), JaxConfig(
+                mode="async", total_workers=1))),
+            ("port", PS, ParameterStore(_params(), StoreConfig(
+                mode="async", total_workers=1)))):
+        svc = mod.ParameterService(store, faults=spec)
+        wrap = svc.faults.wrap_handler
+        seq = []
+        calls = [("RegisterWorker", svc.register_worker,
+                  JS.pack_msg({"worker_name": "w"}))] * 2
+        for i in range(4):
+            grads = {k: np.full_like(v, 0.01 * (i + 1))
+                     for k, v in _params().items()}
+            calls.append(("FetchParameters", svc.fetch_parameters,
+                          JS.pack_msg({"worker_id": 0})))
+            calls.append(("PushGradrients", svc.push_gradrients,
+                          JS.pack_msg({"worker_id": 0, "fetched_step": i,
+                                       "push_token": f"n:{i}"},
+                                      jax_encode(grads))))
+        for rpc, fn, req in calls:
+            try:
+                seq.append(bytes(wrap(rpc, fn)(req, None)))
+            except (InjectedRpcError, JaxInjected) as e:
+                seq.append((e.code(), e.details()))
+        outcomes[name], stores[name] = seq, store
+    assert outcomes["port"] == outcomes["jax"]
+    (jp, jstep), (pp, pstep) = (stores["jax"].snapshot(),
+                                stores["port"].snapshot())
+    assert pstep == jstep == 4
+    for k, v in jp.items():
+        np.testing.assert_array_equal(pp[k], v)
 
 
 @pytest.mark.parametrize("call,item", [
