@@ -438,7 +438,32 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    through a ``RemoteStore`` whose 3rd fetch fails to a service that
    drops the replies of pushes 2 and 5: each push applied once, the
    store bit-equal to a NumPy store replaying the recorded pushes, each
-   injector's counters equal to its ``schedule_preview``.
+   injector's counters equal to its ``schedule_preview``;
+29. live resharding and the worker supervisor: (a) two shard-primary
+   ``ParameterService``s on 127.0.0.1 over ResNet-18's halves, once with
+   ``DeviceParameterStore``s on the card (fp32 pushes: that store takes
+   no wire codec) and once with NumPy stores taking int8 (K1 once a
+   push), each beside a one-store control of the same backend: 2 pushes
+   through a ``ShardedRemoteStore``, ``cli.main(["reshard", ...])`` in
+   this process moving shard 0's range facing shard 1 (≥ 25 % of its
+   bytes, ≥ 8 tensors), 2 more pushes; after every push the union of the
+   primaries is bit-equal to the control; the moved tensors live only on
+   the recipient, both map versions moved by one, exported = adopted =
+   dropped, and the last pre-move push re-sent to the new owner is a
+   duplicate there. (b) on (a)'s NumPy primaries, ``cli reshard``
+   processes: each crash point (``--crash-after``: exit 21) then
+   ``--resume`` (rolled forward, from ``export`` or ``apply_ranges``),
+   the lease drill (``--lease-ttl 1.5``: the donor unfreezes by itself,
+   ``dps_reshard_lease_expired_total`` 1, a push applies on it,
+   ``--resume`` rolls the recipient back, the map unchanged), ``--abort``
+   after export (0) and after the donor's publish (4, then ``--resume``),
+   one int8 push and the union check after each. (c) from the phase's
+   start, on a thread: ``cli supervise --workers 2 --slot-faults
+   "0:seed=7;push.kill@n=2"`` with ``cli worker`` children on the card
+   against an async int8 elastic service of this process: slot 0's child
+   killed at its 2nd push and respawned, both slots done, no push token
+   applied twice, the children (not the supervisor) holding the CUDA
+   library, the seconds from the death to the replacement's first push.
    Each phase reports its own seconds, and the script its total.
 
 Then one JSON line of kernels and, last, the device line. Without a CUDA
@@ -561,10 +586,15 @@ def host_environment() -> dict:
                         ("grpc", "matplotlib", "ml_dtypes", "triton")}}
 
 
-def device_ms_per_call(fn, reps: int, kernel: str) -> tuple[float, float]:
-    """Device time of the kernels whose name holds ``kernel`` per call of
-    ``fn``, from torch.profiler's kernel durations over ``reps`` calls
-    after one warm-up call, and their launches per call."""
+def device_ms_per_call(fn, reps: int, kernel: str,
+                       launches_per_call: int = 1) -> tuple:
+    """Device time of ``fn``'s ``launches_per_call`` launches of the
+    kernels whose name holds ``kernel``, from torch.profiler's kernel
+    durations over ``reps`` calls after one warm-up call, and the
+    launches the trace recorded a call. The time is the mean of the
+    recorded launches, never their sum over ``reps``: a trace may drop
+    kernel records, and a sum would then read low by the share dropped.
+    A trace that recorded none gives no time (None), never 0."""
     import torch
 
     fn()
@@ -574,8 +604,10 @@ def device_ms_per_call(fn, reps: int, kernel: str) -> tuple[float, float]:
             fn()
         torch.cuda.synchronize()
     events = [e for e in cap["events"] if kernel in e.key]
-    return (sum(e.self_device_time_total for e in events) / 1e3 / reps,
-            sum(e.count for e in events) / reps)
+    recorded = sum(e.count for e in events)
+    ms = (sum(e.self_device_time_total for e in events) / 1e3 / recorded
+          * launches_per_call if recorded else None)
+    return ms, recorded / reps
 
 
 def k1_push(gen, shapes: dict, levels: list) -> tuple[list, list]:
@@ -731,8 +763,10 @@ def phase_kernel(state: dict) -> None:
         xs, scales, int8), 20) for _ in range(2)]
     turns["wire_quantize_multi"].append(cuda_time_ms(
         pushes["wire_quantize_multi"], 20))
-    device = {name: device_ms_per_call(fn, 20, f"::{name}_kernel")
-              for name, fn in pushes.items()}
+    device = {name: device_ms_per_call(
+        fn, 20, f"::{name}_kernel",
+        launches_per_call=-(-len(xs) // Q.WIRE_MAX_ENTRIES))
+        for name, fn in pushes.items()}
     host_us = k1_host_breakdown(xs, scales, int8)
     # Least time for the same work: each input read once and each output
     # written once (4 + 1 bytes per element), or the fp32 operations
@@ -755,7 +789,8 @@ def phase_kernel(state: dict) -> None:
           "mismatched": mismatched,
           "push_ms_turns": turns, "plain_push_ms_runs": plain,
           "device_ms_per_push": {n: d[0] for n, d in device.items()},
-          "device_launches_per_push": {n: d[1] for n, d in device.items()},
+          "profiled_launches_per_push": {n: d[1]
+                                         for n, d in device.items()},
           "share_of_bound_device": {n: bound_ms / d[0]
                                     for n, d in device.items() if d[0]},
           "share_of_bound_host_issued": {n: bound_ms / min(t)
@@ -971,15 +1006,16 @@ def phase_kernel_int8(state: dict) -> None:
                 "block_quantize_kernelILb1E")}
     state["block_sass"] = sass
     # Each kernel twice by CUDA events (host-issued, 50 calls), then its
-    # device time per call from torch.profiler's kernel durations.
+    # device time per call (one launch) from torch.profiler's kernel
+    # durations.
     ms = {kernel: [cuda_time_ms(fk, 50) for _ in range(2)]
           for kernel, (fk, _) in fns.items()}
     state["block"] = {}
     for kernel, (fk, fp) in fns.items():
         plain = [cuda_time_ms(fp, 10), cuda_time_ms(fp, 10)]
-        device_ms = device_ms_per_call(
+        device_ms, recorded = device_ms_per_call(
             fk, 50, "::block_dequantize_kernel"
-            if kernel == "block_dequantize" else "::block_quantize_kernel")[0]
+            if kernel == "block_dequantize" else "::block_quantize_kernel")
         bound_ms, bound_by, parts = block_bound(n_slots, chunk, kernel,
                                                 sass.get(kernel))
         state["block"][kernel] = {
@@ -989,6 +1025,7 @@ def phase_kernel_int8(state: dict) -> None:
         emit({"phase": "kernel_int8_vs_plain", "kernel": kernel,
               "shape": [n_slots, chunk], "ms_runs": ms[kernel],
               "device_ms": device_ms,
+              "profiled_launches_per_call": recorded,
               "first_design_device_ms":
                   BLOCK_QUANTIZE_FIRST_DESIGN_DEVICE_MS.get(kernel),
               "plain_ms_runs": plain, "bound_ms": bound_ms,
@@ -3892,12 +3929,10 @@ R50_VALUES, VIT_VALUES = 25_557_032, 86_567_656
 
 
 def _device_ms_per_launch(fn, reps: int, kernel: str) -> dict:
-    """:func:`device_ms_per_call` as a mean per recorded launch, beside
-    the launches the trace recorded a call: a trace may drop some of a
-    launch-heavy phase's kernel records, and one that recorded none
-    gives no time (None), never 0."""
+    """:func:`device_ms_per_call` of one launch, beside the launches the
+    trace recorded a call."""
     ms, launches = device_ms_per_call(fn, reps, kernel)
-    return {"device_ms_per_launch": ms / launches if launches else None,
+    return {"device_ms_per_launch": ms,
             "profiled_launches_per_call": launches}
 
 
@@ -4446,7 +4481,7 @@ def phase_models(state: dict) -> None:
         raise AssertionError("; ".join(failures))
 
 
-# -- the perf observatory and the process surfaces (phase 20) ------------------
+# -- the perf observatory and the process surfaces (phase 20) -----------------
 
 OBS_STEPS = 6            # (a): steps in each capture, within an epoch of 8
 OBS_SERVE_STEPS = 8      # (b): batches of 128 a worker in a serve session
@@ -6554,13 +6589,14 @@ def _shard_gradients(n: int, seed: int):
     return [{k: v.float() for k, v in g.items()} for g in grads], init
 
 
-def _shard_topology(init: dict, make_store):
+def _shard_topology(init: dict, make_store, make_service=None):
     """``SHARDS`` shard primaries, each serving its ``partition_keys``
     share of ``init`` from ``make_store(params, shard_index=,
-    shard_count=)``, and one unsharded primary over all of it, every one
-    on 127.0.0.1:0 in this process. Returns (shard stores, their
-    servers, their addresses, the unsharded store, its server, its
-    address)."""
+    shard_count=)`` through ``make_service(store)`` (a plain
+    ``ParameterService`` by default), and one unsharded primary over all
+    of it, every one on 127.0.0.1:0 in this process. Returns (shard
+    stores, their services, their servers, their addresses, the
+    unsharded store, its server, its address)."""
     from distributed_parameter_server_for_ml_training_tpu_torch.comms \
         import ParameterService, serve
     from distributed_parameter_server_for_ml_training_tpu_torch.ps \
@@ -6571,17 +6607,21 @@ def _shard_topology(init: dict, make_store):
     for i in range(SHARDS):
         store = make_store({k: init[k] for k in parts[i]}, shard_index=i,
                            shard_count=SHARDS)
-        svc = ParameterService(store)
+        svc = (make_service or ParameterService)(store)
         server, port = serve(store, port=0, service=svc, host="127.0.0.1")
         stores.append(store)
         svcs.append(svc)
         servers.append(server)
         addrs.append(f"127.0.0.1:{port}")
     for i, svc in enumerate(svcs):
+        # As ``cli serve`` builds it: the map publishes the service's
+        # in-flight migration.
         svc.sharding = ShardInfo(i, SHARDS, addrs)
+        svc.sharding.migration_provider = svc.migration_view
     one = make_store(init)
     one_server, one_port = serve(one, port=0, host="127.0.0.1")
-    return stores, servers, addrs, one, one_server, f"127.0.0.1:{one_port}"
+    return (stores, svcs, servers, addrs, one, one_server,
+            f"127.0.0.1:{one_port}")
 
 
 #: The scripted sequences of (a), from two workers: (op, worker, index of
@@ -6634,7 +6674,7 @@ def _sharded_script(init, grads, mode: str, codec: str, failures: list):
             return ParameterStore(params, cfg)
         return DeviceParameterStore(params, cfg, device="cuda")
 
-    stores, servers, addrs, one, one_server, one_addr = _shard_topology(
+    stores, _, servers, addrs, one, one_server, one_addr = _shard_topology(
         init, make_store)
     codecs = [DeviceCodec() for _ in range(N_WORKERS)]
     fan = [ShardedRemoteStore(addrs) for _ in range(N_WORKERS)]
@@ -7172,7 +7212,7 @@ def phase_sharded(state: dict) -> None:
         raise AssertionError(f"phase 26: {failures}")
 
 
-# -- phase 27: the fleet observatory, incident forensics, the experiments ------
+# -- phase 27: the fleet observatory, incident forensics, the experiments -----
 
 FLEET_TICK_S = 0.1         # (a): seconds between the collector's ticks
 FLEET_SLO_P99_MS = 60000   # (a), (b): the fetch objective a healthy run keeps
@@ -7569,7 +7609,7 @@ def phase_fleet(state: dict) -> None:
         raise AssertionError(f"phase 27: {failures}")
 
 
-# -- phase 28: the serve tier --------------------------------------------------
+# -- phase 28: the serve tier -------------------------------------------------
 
 class _ThreadStdout:
     """``sys.stdout`` that sends each thread's writes to the buffer that
@@ -8308,6 +8348,573 @@ def phase_serve_tier(state: dict) -> None:
         raise AssertionError(f"phase 28: {failures}")
 
 
+# -- phase 29: live resharding and the worker supervisor ----------------------
+
+RESHARD_SHARE = 0.25      # (a): least share of the donor's bytes to move
+RESHARD_TENSORS = 8       # (a): and the least number of its tensors
+RESHARD_LEASE_TTL = 1.5   # (b): the lease drill's TTL, seconds
+SUPERVISE_TIMEOUT = 150   # (c): seconds before the supervisor is killed
+#: (b): (crash point, donor, recipient) of each cycle: the moved range
+#: goes back and forth between the two primaries.
+RESHARD_CYCLES = [("export", 1, 0), ("import", 0, 1), ("apply_first", 1, 0),
+                  ("apply_all", 0, 1)]
+
+
+def _reshard_range(init: dict, donor_keys) -> tuple[int, int]:
+    """Shard 0's slots ``[lo, 32)``, the boundary facing shard 1, with
+    ``lo`` the largest that moves at least ``RESHARD_SHARE`` of shard 0's
+    bytes and ``RESHARD_TENSORS`` of its tensors."""
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps \
+        .sharding import key_slot
+
+    total = sum(init[k].nbytes for k in donor_keys)
+    for lo in range(31, -1, -1):
+        moved = [k for k in donor_keys if lo <= key_slot(k) < 32]
+        if sum(init[k].nbytes for k in moved) >= RESHARD_SHARE * total \
+                and len(moved) >= RESHARD_TENSORS:
+            return lo, 32
+    raise AssertionError("no range of shard 0 holds the share")
+
+
+class _ReshardTier:
+    """Phase 26 (a)'s ``_shard_topology`` over ``init`` from
+    ``make_store``, each primary's Reshard handler recording ``(op, ms)``
+    server side; one ``ShardedRemoteStore`` and one ``RemoteStore`` over
+    the one-store control, both registered."""
+
+    def __init__(self, init: dict, make_store):
+        from distributed_parameter_server_for_ml_training_tpu_torch.comms \
+            import ParameterService, RemoteStore
+        from distributed_parameter_server_for_ml_training_tpu_torch.comms \
+            .sharded import ShardedRemoteStore
+        from distributed_parameter_server_for_ml_training_tpu_torch.ps \
+            .sharding import partition_keys
+
+        def service(store):
+            svc = ParameterService(store)
+            svc.reshard = self._timed(svc.reshard)
+            return svc
+
+        self.op_ms: list = []
+        self.parts = partition_keys(init, SHARDS)
+        (self.stores, self.svcs, self.servers, self.addrs, self.one,
+         self.one_server, one_addr) = _shard_topology(init, make_store,
+                                                      service)
+        self.fan = ShardedRemoteStore(self.addrs)
+        self.ref = RemoteStore(one_addr)
+        self.wid = self.fan.register_worker("reshard")[0]
+        self.ref_wid = self.ref.register_worker("reshard")[0]
+
+    def _timed(self, fn):
+        from distributed_parameter_server_for_ml_training_tpu_torch.comms \
+            .service import unpack_msg
+
+        def timed(request, ctx):
+            t0 = time.perf_counter()
+            try:
+                return fn(request, ctx)
+            finally:
+                self.op_ms.append((unpack_msg(request)[0].get("op"),
+                                   (time.perf_counter() - t0) * 1e3))
+        return timed
+
+    @property
+    def primaries(self) -> str:
+        return ",".join(self.addrs)
+
+    def push(self, payload: dict) -> list:
+        """Fetch, then push ``payload`` through the tier and into the
+        control. Returns [tier accepted, control accepted, tensors where
+        the union of the primaries differs bit-wise from the control]."""
+        _, step = self.fan.fetch(self.wid)
+        _, ref_step = self.ref.fetch(self.ref_wid)
+        ok = self.fan.push(self.wid, payload, step)
+        ref_ok = self.ref.push(self.ref_wid, payload, ref_step)
+        return [ok, ref_ok, _union_diff(self.stores, self.one)]
+
+    def owners(self, keys) -> list:
+        """Per key, the primaries holding it."""
+        return [[i for i, s in enumerate(self.stores)
+                 if k in s.param_names()] for k in keys]
+
+    def versions(self) -> list:
+        return [svc.sharding.version for svc in self.svcs]
+
+    def close(self) -> None:
+        self.fan.close()
+        self.ref.close()
+        for s in self.servers + [self.one_server]:
+            s.stop(grace=None).wait(10)
+
+
+def _reshard_live(backend: str, grads: list, init: dict, failures: list):
+    """(a) on one backend: 2 pushes, ``cli.main(["reshard", ...])`` in
+    this process moving shard 0's range facing shard 1, 2 more pushes;
+    the union of the primaries bit-equal to the one-store control after
+    every push. Returns (the tier, still serving, and the record)."""
+    import contextlib
+    import io
+
+    from distributed_parameter_server_for_ml_training_tpu_torch import cli
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms \
+        import RemoteStore
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops \
+        .device_codec import DeviceCodec
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps import (
+        ParameterStore, StoreConfig, make_store)
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps \
+        .sharding import key_slot
+
+    def build(params, **kw):
+        cfg = StoreConfig(mode="async", total_workers=1, staleness_bound=5,
+                          push_codec="int8" if backend == "python"
+                          else None, **kw)
+        if backend == "python":
+            return ParameterStore(params, cfg)
+        return make_store("device", params, cfg, device="cuda")
+
+    tier = _ReshardTier(init, build)
+    codec = DeviceCodec()
+    lo, hi = _reshard_range(init, tier.parts[0])
+    moved = sorted(k for k in tier.parts[0] if lo <= key_slot(k) < hi)
+    donor_bytes = int(sum(init[k].nbytes for k in tier.parts[0]))
+    out = {"backend": tier.stores[0].store_backend, "slots": [lo, hi],
+           "moved_tensors": len(moved),
+           "moved_bytes": int(sum(init[k].nbytes for k in moved)),
+           "donor_bytes": donor_bytes, "pushes": []}
+
+    def payload(i):
+        g = grads[i % len(grads)]
+        if backend == "python":
+            return codec.encode_now(g)
+        return {k: v.cpu().numpy() for k, v in g.items()}
+
+    versions = tier.versions()
+    kept = None
+    for i in range(4):
+        if i == 2:
+            kept = tier.fan._stores[0]._last_push
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["reshard", "--primaries", tier.primaries,
+                               "--donor", "0", "--recipient", "1",
+                               "--slots", f"{lo}:{hi}", "--migration-id",
+                               f"mig-a-{backend}", "--json"])
+            out["coordinator_s"] = time.perf_counter() - t0
+            line = next((ln for ln in buf.getvalue().splitlines()
+                         if ln.startswith("RESHARD_JSON ")), None)
+            out["result"] = json.loads(line.split(" ", 1)[1]) \
+                if line else None
+            out["rc"] = rc
+        out["pushes"].append(tier.push(payload(i)))
+    res = out.get("result") or {}
+    out["op_ms"] = [[op, ms] for op, ms in tier.op_ms]
+    out["versions"] = [versions, tier.versions()]
+    owners = tier.owners(moved)
+    # The last pre-move push, re-sent with its token to the new owner:
+    # its journal came with the export, so it answers duplicate.
+    to_new = RemoteStore(tier.addrs[1])
+    to_new._last_push = kept
+    step = tier.stores[1].global_step
+    out["repush_accepted"] = to_new.repush_last(tier.fan._wids[1])
+    out["repush_applied"] = tier.stores[1].global_step != step
+    to_new.close()
+    problems = []
+    if out["rc"] != 0 or not res:
+        problems.append(f"coordinator rc {out['rc']}, result {res}")
+    elif not (res["exported"] == res["adopted"] == res["dropped"]
+              == len(moved)):
+        problems.append(f"exported/adopted/dropped {res} for "
+                        f"{len(moved)} tensors")
+    if out["moved_bytes"] < RESHARD_SHARE * donor_bytes:
+        problems.append(f"moved {out['moved_bytes']} of {donor_bytes} B")
+    if any(o != [1] for o in owners):
+        problems.append(f"moved tensors' owners {owners}")
+    if out["versions"][1] != [v + 1 for v in versions]:
+        problems.append(f"map versions {out['versions']}")
+    if any(p[:2] != [True, True] or p[2] for p in out["pushes"]):
+        problems.append(f"pushes {out['pushes']}")
+    if out["repush_accepted"] is not True or out["repush_applied"]:
+        problems.append(f"re-sent push accepted "
+                        f"{out['repush_accepted']}, applied "
+                        f"{out['repush_applied']}")
+    failures.extend(f"(a) {backend}: {p}" for p in problems)
+    out["problems"] = problems
+    out["moved"] = moved
+    return tier, out
+
+
+def _coordinator(tier: _ReshardTier, donor: int, recipient: int,
+                 lo: int, hi: int, *extra) -> dict:
+    """One ``cli reshard`` process against ``tier``: its rc, its result
+    line's JSON and its wall seconds."""
+    import os
+
+    repo = Path(__file__).resolve().parent
+    argv = [sys.executable, "-m",
+            "distributed_parameter_server_for_ml_training_tpu_torch.cli",
+            "reshard", "--primaries", tier.primaries, "--donor",
+            str(donor), "--recipient", str(recipient), "--slots",
+            f"{lo}:{hi}", "--json", *extra]
+    t0 = time.perf_counter()
+    p = subprocess.run(argv, cwd=repo, capture_output=True, text=True,
+                       timeout=60,
+                       env={**os.environ, "PYTHONPATH": str(repo)})
+    result = None
+    for ln in p.stdout.splitlines():
+        if ln.startswith("RESHARD_"):
+            head, _, body = ln.partition(" ")
+            result = {"line": head}
+            if body.startswith("{"):
+                result.update(json.loads(body))
+            else:
+                result["point"] = body
+    return {"argv": list(extra), "rc": p.returncode, "result": result,
+            "seconds": time.perf_counter() - t0,
+            "stderr": p.stderr[-800:] if p.returncode not in (0, 21)
+            else ""}
+
+
+def _reshard_matrix(tier: _ReshardTier, grads: list, lo: int, hi: int,
+                    moved: list, failures: list) -> dict:
+    """(b) against (a)'s NumPy primaries: each crash point then
+    ``--resume``, the lease drill and both aborts, one int8 push after
+    each, with the union check against the control."""
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops \
+        .device_codec import DeviceCodec
+    from distributed_parameter_server_for_ml_training_tpu_torch.telemetry \
+        import get_registry
+
+    codec = DeviceCodec()
+    pushes = [0]
+    runs, problems = [], []
+
+    def push() -> list:
+        r = tier.push(codec.encode_now(grads[pushes[0] % len(grads)]))
+        pushes[0] += 1
+        if r[:2] != [True, True] or r[2]:
+            problems.append(f"push {pushes[0]}: {r}")
+        return r
+
+    def run(case, donor, recipient, *extra, rc=0):
+        r = _coordinator(tier, donor, recipient, lo, hi, *extra)
+        r["case"] = case
+        runs.append(r)
+        if r["rc"] != rc:
+            problems.append(f"{case} {extra}: rc {r['rc']} (want {rc}) "
+                            f"{r['stderr']}")
+        return r.get("result") or {}
+
+    def owned_by(shard) -> bool:
+        return all(o == [shard] for o in tier.owners(moved))
+
+    for point, d, r in RESHARD_CYCLES:
+        crash = run(point, d, r, "--migration-id", f"mig-{point}",
+                    "--crash-after", point, rc=21)
+        if crash.get("point") != point:
+            problems.append(f"{point}: crash line {crash}")
+        res = run(point, d, r, "--resume")
+        want = "export" if point in ("export", "import") else "apply_ranges"
+        if (res.get("outcome"), res.get("from_phase")) != (
+                "rolled_forward", want):
+            problems.append(f"{point}: resume {res}")
+        push()
+        if not owned_by(r):
+            problems.append(f"{point}: owners {tier.owners(moved)}")
+    # The lease: crash pre-publish, let the lease lapse, do not resume.
+    versions = tier.versions()
+    expired = get_registry().counter("dps_reshard_lease_expired_total")
+    before = expired.value
+    run("lease", 1, 0, "--migration-id", "mig-lease", "--lease-ttl",
+        str(RESHARD_LEASE_TTL), "--crash-after", "import", rc=21)
+    time.sleep(RESHARD_LEASE_TTL + 0.2)
+    donor_view = tier.svcs[1].migration_view()
+    lease = {"donor_view": donor_view,
+             "donor_frozen": len(tier.svcs[1]._draining),
+             "expired_total": expired.value,
+             "expired_delta": expired.value - before}
+    step = tier.stores[1].global_step
+    lease["push"] = push()
+    lease["donor_applied"] = tier.stores[1].global_step == step + 1
+    res = run("lease", 1, 0, "--resume")
+    lease["resume"] = res
+    lease["versions"] = [versions, tier.versions()]
+    if donor_view is not None or lease["donor_frozen"] \
+            or lease["expired_delta"] != 1 or lease["expired_total"] != 1:
+        problems.append(f"lease: {lease}")
+    if not lease["donor_applied"] or res.get("outcome") != "rolled_back" \
+            or res.get("dropped") != len(moved) or not owned_by(1) \
+            or lease["versions"][1] != versions:
+        problems.append(f"lease: {lease}, owners {tier.owners(moved)}")
+    # Abort before anything publishes, then after the donor published.
+    run("abort_ok", 1, 0, "--migration-id", "mig-abort-a",
+        "--crash-after", "export", rc=21)
+    res = run("abort_ok", 1, 0, "--abort")
+    if res.get("line") != "RESHARD_ABORT_JSON" or tier.svcs[1]._draining \
+            or tier.versions() != versions or not owned_by(1):
+        problems.append(f"abort after export: {res}")
+    push()
+    run("abort_refused", 1, 0, "--migration-id", "mig-abort-b",
+        "--crash-after", "apply_first", rc=21)
+    run("abort_refused", 1, 0, "--abort", rc=4)
+    res = run("abort_refused", 1, 0, "--resume")
+    if res.get("from_phase") != "apply_ranges" or not owned_by(0):
+        problems.append(f"abort after publish: resume {res}")
+    push()
+    failures.extend(f"(b) {p}" for p in problems)
+    return {"coordinators": [{k: r[k] for k in ("case", "argv", "rc",
+                                                "seconds", "result")}
+                             for r in runs],
+            "coordinator_s": [r["seconds"] for r in runs],
+            "int8_pushes": pushes[0], "lease": lease,
+            "versions_final": tier.versions(), "problems": problems}
+
+
+def _smi_pids() -> set:
+    p = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=10)
+    return {int(x) for x in p.stdout.split() if x.strip().isdigit()}
+
+
+def _maps_cuda(pid: int) -> bool | None:
+    """Whether process ``pid`` has the CUDA driver library mapped (None
+    once it is gone)."""
+    try:
+        with open(f"/proc/{pid}/maps") as f:
+            return "libcuda" in f.read()
+    except OSError:
+        return None
+
+
+def _supervise_drill(init: dict, failures: list) -> dict:
+    """(c) ``cli supervise`` with 2 ``cli worker`` children on the card
+    against an async int8 elastic service of this process; slot 0's first
+    child is killed at its 2nd push and respawned."""
+    import os
+    import re
+    import signal
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms \
+        import ParameterService, serve
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms \
+        .service import unpack_msg
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps import (
+        ParameterStore, StoreConfig)
+
+    store = ParameterStore(dict(init), StoreConfig(
+        mode="async", total_workers=2, push_codec="int8", staleness_bound=5,
+        elastic=True, worker_timeout=3.0))
+    svc = ParameterService(store)
+    pushes: list = []
+    registered: list = []
+    push_inner, register_inner = svc.push_gradrients, svc.register_worker
+
+    def push_recorded(request, ctx):
+        reply = push_inner(request, ctx)
+        meta, rmeta = unpack_msg(request)[0], unpack_msg(reply)[0]
+        pushes.append((time.perf_counter(), meta.get("worker_id"),
+                       str(meta.get("push_token")),
+                       bool(rmeta.get("accepted")),
+                       bool(rmeta.get("duplicate"))))
+        return reply
+
+    def register_recorded(request, ctx):
+        reply = register_inner(request, ctx)
+        registered.append((time.perf_counter(),
+                           unpack_msg(request)[0].get("worker_name"),
+                           unpack_msg(reply)[0].get("worker_id")))
+        return reply
+
+    svc.push_gradrients = push_recorded
+    svc.register_worker = register_recorded
+    server, port = serve(store, port=0, service=svc, host="127.0.0.1")
+    repo = Path(__file__).resolve().parent
+    argv = [sys.executable, "-m",
+            "distributed_parameter_server_for_ml_training_tpu_torch.cli",
+            "supervise", "--workers", "2", "--respawn-backoff", "0.5",
+            "--slot-faults", "0:seed=7;push.kill@n=2", "--",
+            "--server", f"127.0.0.1:{port}", "--synthetic", "--num-train",
+            "1024", "--num-test", "256", "--epochs", "1", "--heartbeat",
+            "0.5"]
+    lines: list = []
+    seen_smi: list = []
+    maps: dict = {}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=repo, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True,
+                            env={**os.environ, "PYTHONPATH": str(repo)})
+    reader = threading.Thread(target=_read_lines, args=(proc.stdout, lines),
+                              daemon=True)
+    reader.start()
+    timed_out = False
+    try:
+        while proc.poll() is None:
+            if time.perf_counter() - t0 > SUPERVISE_TIMEOUT:
+                timed_out = True
+                break
+            children = [int(m) for _, ln in list(lines) if ln
+                        for m in re.findall(r"SUPERVISOR_SPAWN .* pid=(\d+)",
+                                            ln)]
+            try:
+                seen_smi.append(_smi_pids())
+            except (OSError, subprocess.SubprocessError):
+                pass
+            for pid in [proc.pid] + children:
+                if _maps_cuda(pid):
+                    maps[pid] = True
+                else:
+                    maps.setdefault(pid, False)
+            time.sleep(0.5)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+        rc = proc.wait(30)
+        reader.join(10)
+        server.stop(grace=None).wait(10)
+    seconds = time.perf_counter() - t0
+    text = _lines_text(lines)
+    spawns = [(int(s), int(a), int(p)) for s, a, p in re.findall(
+        r"SUPERVISOR_SPAWN slot=(\d+) attempt=(\d+) pid=(\d+)", text)]
+    child_pids = {p for _, _, p in spawns}
+    died_at = next((t for t, ln in lines
+                    if ln and ln.startswith("SUPERVISOR_CHILD_DIED slot=0")),
+                   None)
+    # The replacement: slot 0's second registration; its first push.
+    slot0 = [(t, w) for t, name, w in registered if name == "sup-w0"]
+    first_push = next((t for t, w, _, _, _ in pushes
+                       if len(slot0) > 1 and w == slot0[1][1]
+                       and t > slot0[1][0]), None)
+    respawn_s = first_push - died_at \
+        if first_push is not None and died_at is not None else None
+    applied: dict = {}
+    for _, _, token, accepted, duplicate in pushes:
+        if accepted and not duplicate:
+            applied[token] = applied.get(token, 0) + 1
+    smi_all = set().union(*seen_smi) if seen_smi else set()
+    smi_visible = os.getpid() in smi_all
+    out = {"rc": rc, "timed_out": timed_out, "seconds": seconds,
+           "spawns": spawns, "registrations": [[n, w] for _, n, w
+                                               in registered],
+           "pushes": len(pushes),
+           "pushes_applied": sum(applied.values()),
+           "store_step": store.global_step,
+           "respawn_to_first_push_s": respawn_s,
+           "smi_lists_this_process": smi_visible,
+           "smi_children": sorted(child_pids & smi_all),
+           "smi_supervisor": proc.pid in smi_all,
+           "cuda_mapped": {str(k): v for k, v in maps.items()},
+           "log_tail": text[-1500:] if rc != 0 or timed_out else ""}
+    problems = []
+    if rc != 0 or timed_out:
+        problems.append(f"supervisor rc {rc}, timed out {timed_out}")
+    if not re.search(r"SUPERVISOR_CHILD_DIED slot=0 .*\n(.*\n)*"
+                     r"SUPERVISOR_RESPAWN slot=0 attempt=2", text):
+        problems.append("no death and respawn of slot 0")
+    if not all(f"SUPERVISOR_DONE slot={s} rc=0" in text for s in (0, 1)):
+        problems.append("a slot did not finish")
+    if any(n > 1 for n in applied.values()):
+        problems.append(f"tokens applied twice: "
+                        f"{[t for t, n in applied.items() if n > 1]}")
+    if respawn_s is None:
+        problems.append("no push of the replacement seen")
+    if maps.get(proc.pid) or out["smi_supervisor"]:
+        problems.append("the supervisor holds a CUDA context")
+    live = {p for s, a, p in spawns if (s, a) != (0, 1)}
+    if not all(maps.get(p) for p in live):
+        problems.append(f"children without the CUDA library: {maps}")
+    if smi_visible and not live <= smi_all:
+        problems.append(f"children missing from nvidia-smi: "
+                        f"{sorted(live - smi_all)}")
+    failures.extend(f"(c) {p}" for p in problems)
+    out["problems"] = problems
+    return out
+
+
+def phase_reshard_supervise(state: dict) -> None:
+    """Phase 29: live resharding on the card and through coordinator
+    processes, then ``cli supervise`` with its children on the card. (c)
+    runs on a thread from the start, beside (a) and (b): its children
+    spend most of their time importing torch."""
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
+        quantize as Q
+
+    failures: list = []
+    t0 = time.perf_counter()
+    grads, init = _shard_gradients(SHARD_PUSHES, 29)
+    torch.cuda.synchronize()
+    c_out: dict = {}
+    c_failures: list = []
+
+    def drill() -> None:
+        t = time.perf_counter()
+        try:
+            c_out.update(_supervise_drill(init, c_failures))
+        except Exception as e:  # noqa: BLE001 — reported, fails it
+            traceback.print_exc()
+            c_out["error"] = repr(e)
+            c_failures.append(f"(c) raised {e!r}")
+        c_out["seconds"] = time.perf_counter() - t
+
+    c_thread = threading.Thread(target=drill, daemon=True)
+    c_thread.start()
+    Q.wire_quantize_multi.launches = 0
+    t = time.perf_counter()
+    tier = None
+    moved, slots, a_rec = [], None, {}
+    for backend in ("device", "python"):
+        tb = time.perf_counter()
+        try:
+            t_, rec = _reshard_live(backend, grads, init, failures)
+        except Exception as e:  # noqa: BLE001 — reported, fails it
+            traceback.print_exc()
+            failures.append(f"(a) {backend} raised {e!r}")
+            continue
+        rec["seconds"] = time.perf_counter() - tb
+        a_rec[backend] = rec
+        if backend == "python":
+            tier, moved, slots = t_, rec.pop("moved"), rec["slots"]
+        else:
+            rec.pop("moved")
+            t_.close()
+    emit({"phase": "reshard_supervise", "form": "a_live_move", **a_rec,
+          "seconds": time.perf_counter() - t, "card": state["card"]})
+    t = time.perf_counter()
+    b = {}
+    if tier is not None:
+        try:
+            b = _reshard_matrix(tier, grads, *slots, moved, failures)
+        except Exception as e:  # noqa: BLE001 — reported, fails it
+            traceback.print_exc()
+            failures.append(f"(b) raised {e!r}")
+        finally:
+            tier.close()
+    launches = Q.wire_quantize_multi.launches
+    int8_pushes = 4 + b.get("int8_pushes", 0)
+    want = -(-len(init) // Q.WIRE_MAX_ENTRIES) * int8_pushes
+    state["reshard_k1_launches"] = launches
+    if launches != want:
+        failures.append(f"K1 launched {launches} times for {int8_pushes} "
+                        f"int8 pushes; expected {want}")
+    emit({"phase": "reshard_supervise", "form": "b_crash_matrix", **b,
+          "k1_launches": launches, "k1_launches_expected": want,
+          "seconds": time.perf_counter() - t, "card": state["card"]})
+    c_thread.join(SUPERVISE_TIMEOUT + 60)
+    if c_thread.is_alive():
+        c_failures.append("(c) did not end")
+    failures.extend(c_failures)
+    emit({"phase": "reshard_supervise", "form": "c_supervise", **c_out,
+          "card": state["card"]})
+    emit({"phase": "reshard_supervise", "form": "summary",
+          "seconds": time.perf_counter() - t0, "failures": failures,
+          "card": state["card"]})
+    if failures:
+        raise AssertionError(f"phase 29: {failures}")
+
 def main() -> int:
     import torch
 
@@ -8331,7 +8938,7 @@ def main() -> int:
                   phase_checkpoints, phase_health, phase_models,
                   phase_observability, phase_multihost, phase_sp_multihost,
                   phase_moe, phase_pp, phase_tp, phase_sharded,
-                  phase_fleet, phase_serve_tier):
+                  phase_fleet, phase_serve_tier, phase_reshard_supervise):
         t0 = time.perf_counter()
         try:
             phase(state)
@@ -8355,7 +8962,8 @@ def main() -> int:
     # other processes, read off their captures), the gRPC modes' (phase 15
     # (a)), the health path's (phase 18 (a)), the models' (phase 19 (c),
     # (d), (e)), the serve surfaces' (phase 20 (b)), the sharded tier's
-    # (phase 26 (a)) and the serve tier's (phase 28 (b)); a push's times.
+    # (phase 26 (a)), the serve tier's (phase 28 (b)) and the live
+    # resharding's (phase 29 (a), (b)); a push's times.
     kernels = []
     for name, k in state["k1"].items():
         kernels.append({
@@ -8368,7 +8976,8 @@ def main() -> int:
             + state["models_k1_launches"]
             + state["observe_k1_launches"]
             + state["sharded_k1_launches"][name]
-            + state["serve_tier_k1_launches"],
+            + state["serve_tier_k1_launches"]
+            + state["reshard_k1_launches"],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],

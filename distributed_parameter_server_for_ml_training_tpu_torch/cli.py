@@ -195,6 +195,27 @@ seeded fault schedule (``comms/faults.py``)::
     python -m distributed_parameter_server_for_ml_training_tpu_torch.cli \\
         infer --target 127.0.0.1:8100 --count 40 --quality 0.9
 
+Live resharding and the worker supervisor: ``reshard`` moves a slot
+range between two adjacent shard primaries (export with a lease, import
+with the push-token journal, the bumped map published donor first, the
+donor's copy committed away); ``--resume`` finishes or undoes a move
+whose coordinator died, from the primaries' ledger records, and
+``--abort`` undoes one that has not begun to publish. ``supervise`` runs
+``--workers`` ``cli worker`` children on the card (``--device cpu``
+passes to them) and respawns the ones that die, with doubling backoff
+and a crash-loop latch; ``--autoscale-job`` grows and shrinks their
+count from the server's ``/cluster`` view. Neither process loads torch::
+
+    python -m distributed_parameter_server_for_ml_training_tpu_torch.cli \
+        reshard --primaries 127.0.0.1:8000,127.0.0.1:8001 --donor 0 \
+        --recipient 1 --slots 16:32
+    python -m distributed_parameter_server_for_ml_training_tpu_torch.cli \
+        reshard --primaries 127.0.0.1:8000,127.0.0.1:8001 --donor 0 \
+        --recipient 1 --slots 16:32 --resume
+    python -m distributed_parameter_server_for_ml_training_tpu_torch.cli \
+        supervise --workers 2 --respawn-backoff 0.5 -- \
+        --server 127.0.0.1:8000 --synthetic --epochs 1
+
 The flags and verbs of the JAX CLI that name features of later slices
 are accepted and refused with the ROADMAP item that brings them.
 """
@@ -788,6 +809,124 @@ def build_parser() -> argparse.ArgumentParser:
                           "send no feedback")
     inf.add_argument("--json", action="store_true",
                      help="print only the INFER_JSON line")
+
+    sv = sub.add_parser(
+        "supervise",
+        help="spawn and babysit N `cli worker` processes: respawn on "
+             "death with exponential backoff + crash-loop latch "
+             "(docs/ROBUSTNESS.md). Everything after `--` is passed to "
+             "every child worker verbatim")
+    sv.add_argument("--workers", type=int,
+                    default=_env("DPS_SUPERVISE_WORKERS", 2, int),
+                    help="worker process slots to run")
+    sv.add_argument("--no-respawn", action="store_true",
+                    help="just run the children once (no self-healing)")
+    sv.add_argument("--respawn-backoff", type=float,
+                    default=_env("DPS_RESPAWN_BACKOFF", 1.0, float),
+                    help="first respawn delay; doubles per consecutive "
+                         "crash up to --respawn-backoff-max")
+    sv.add_argument("--respawn-backoff-max", type=float, default=30.0)
+    sv.add_argument("--healthy-after", type=float, default=5.0,
+                    help="a child alive this long resets its slot's "
+                         "backoff and crash-loop count")
+    sv.add_argument("--crash-loop-after", type=int, default=3,
+                    help="consecutive fast crashes before a slot latches "
+                         "(stops respawning, nonzero exit)")
+    sv.add_argument("--slot-faults", action="append", default=[],
+                    metavar="SLOT:SPEC",
+                    help="fault spec for one slot's FIRST spawn only "
+                         "(chaos drills: respawns run clean), e.g. "
+                         "'0:seed=7;push.kill@n=2'; repeatable")
+    sv.add_argument("--slot-env", action="append", default=[],
+                    metavar="SLOT:KEY=VALUE",
+                    help="env var for one slot's first spawn only, e.g. "
+                         "'1:DPS_NAN_STEP=4'; repeatable")
+    sv.add_argument("--autoscale-job", default=None,
+                    help="worker autoscaling (docs/TENANCY.md): poll the "
+                         "server's per-job /cluster view and grow/shrink "
+                         "this supervisor's slot count with the named "
+                         "job's admission-queue/straggler pressure "
+                         "(worker_grow/worker_shrink actions). Pass the "
+                         "job's --job flag in the child worker args too")
+    sv.add_argument("--autoscale-url", default=None,
+                    help="base URL of the serve process's metrics "
+                         "endpoint (e.g. http://host:9400); required "
+                         "with --autoscale-job")
+    sv.add_argument("--autoscale-min", type=int, default=1,
+                    help="worker-slot floor the autoscaler keeps alive")
+    sv.add_argument("--autoscale-max", type=int, default=4,
+                    help="worker-slot ceiling")
+    sv.add_argument("--autoscale-depth-high", type=float, default=4.0,
+                    help="admission queue depth above which the fleet "
+                         "grows (after --autoscale-sustain ticks)")
+    sv.add_argument("--autoscale-depth-low", type=float, default=1.0,
+                    help="queue depth below which it shrinks "
+                         "(hysteresis band with --autoscale-depth-high)")
+    sv.add_argument("--autoscale-sustain", type=int, default=3,
+                    help="consecutive polls a condition must hold "
+                         "before acting")
+    sv.add_argument("--autoscale-cooldown", type=float, default=15.0,
+                    help="minimum seconds between scaling actions")
+    sv.add_argument("--autoscale-poll", type=float, default=2.0,
+                    help="seconds between /cluster pressure polls")
+    sv.add_argument("--device", default="cuda",
+                    help="the children's torch device: any other value "
+                         "than the default (cpu, cuda:1) is passed to "
+                         "every child as --device; the default leaves "
+                         "them on `cli worker`'s own default, the card "
+                         "(the supervisor itself touches no device)")
+    _add_telemetry(sv)
+    sv.add_argument("worker_args", nargs=argparse.REMAINDER,
+                    help="-- followed by the `cli worker` args every "
+                         "child runs with (--worker-name is added per "
+                         "slot)")
+
+    rs = sub.add_parser(
+        "reshard",
+        help="live shard migration coordinator (docs/SHARDING.md "
+             "\"Migration protocol\"): move a slot range between two "
+             "ADJACENT primaries — export+journal on the donor, import "
+             "on the recipient, apply the bumped map everywhere, commit "
+             "the drop — with zero downtime and exactly-once preserved")
+    rs.add_argument("--primaries", required=True,
+                    help="ordered comma list of ALL shard primaries "
+                         "(index = shard id), the same list the serve "
+                         "processes were given as --shard-peers")
+    rs.add_argument("--donor", type=int, required=True,
+                    help="shard id giving up the slot range")
+    rs.add_argument("--recipient", type=int, required=True,
+                    help="shard id receiving it (must be donor±1: ranges "
+                         "stay contiguous per shard)")
+    rs.add_argument("--slots", required=True, metavar="LO:HI",
+                    help="slot range [LO,HI) to move; must sit at the "
+                         "donor's boundary facing the recipient")
+    rs.add_argument("--json", action="store_true",
+                    help="print only the RESHARD_JSON line")
+    rs.add_argument("--migration-id", default=None,
+                    help="explicit migration id (defaults to a random "
+                         "one); the durable ledger key --resume/--abort "
+                         "match against (docs/ROBUSTNESS.md)")
+    rs.add_argument("--lease-ttl", type=float, default=30.0,
+                    help="donor freeze lease in seconds: if the "
+                         "coordinator dies before publishing the map, "
+                         "the donor auto-unfreezes and aborts after "
+                         "this long (default 30)")
+    rs.add_argument("--resume", action="store_true",
+                    help="inspect the primaries' migration ledger and "
+                         "deterministically roll the crashed migration "
+                         "forward (map already publishing) or back "
+                         "(pre-publish / lease expired)")
+    rs.add_argument("--abort", action="store_true",
+                    help="roll back an in-flight migration: recipient "
+                         "drops its adopted copy, donor unfreezes, map "
+                         "untouched (refused once the map started "
+                         "publishing — use --resume)")
+    rs.add_argument("--crash-after",
+                    choices=["export", "import", "apply_first",
+                             "apply_all"],
+                    default=None,
+                    help="chaos drill hook: hard-exit the coordinator "
+                         "immediately after this phase boundary")
 
     e = sub.add_parser("experiments",
                        help="run the sync/async x workers matrix "
@@ -1556,7 +1695,8 @@ def _cmd_serve(args) -> int:
         from .telemetry import add_shutdown_flush, install_shutdown_hooks
         ckpt = PeriodicStoreCheckpointer(
             store, args.checkpoint_dir, interval=args.checkpoint_interval,
-            journal_fn=svc.journal_snapshot)
+            journal_fn=svc.journal_snapshot,
+            migration_fn=svc.migration_snapshot)
         ckpt.start()
         # SIGTERM drains the store's end state through the same shutdown
         # path that dumps the flight recorder: a terminated server
@@ -1817,6 +1957,407 @@ def cmd_infer(args) -> int:
                   f"{row['bytes']}B {row['latency_ms']}ms",
                   file=sys.stderr)
     return 0 if served else 1
+
+
+def cmd_supervise(args) -> int:
+    with _telemetry_session(args, "supervisor"):
+        return _cmd_supervise(args)
+
+
+def _parse_slot_map(pairs: list[str], what: str) -> dict:
+    out: dict = {}
+    for raw in pairs:
+        slot, sep, rest = raw.partition(":")
+        if not sep or not slot.isdigit():
+            raise SystemExit(f"bad {what} {raw!r} (want SLOT:{what})")
+        out[int(slot)] = rest
+    return out
+
+
+def _cmd_supervise(args) -> int:
+    """The JAX verb's supervisor over ``cli worker`` children of the
+    port. The process itself is host code: it loads no torch and holds no
+    CUDA context; only its children touch the card."""
+    from .ps.supervisor import (SupervisorConfig, WorkerSupervisor,
+                                build_worker_argv, install_signal_stop)
+
+    worker_args = list(args.worker_args)
+    if worker_args and worker_args[0] == "--":
+        worker_args = worker_args[1:]
+    if not worker_args:
+        raise SystemExit("supervise: pass the child worker args after "
+                         "`--` (at least --server HOST:PORT)")
+    slot_faults = _parse_slot_map(args.slot_faults, "SPEC")
+    slot_env = {}
+    for slot, kv in _parse_slot_map(args.slot_env, "KEY=VALUE").items():
+        key, sep, val = kv.partition("=")
+        if not sep:
+            raise SystemExit(f"bad --slot-env value {kv!r}")
+        slot_env.setdefault(slot, {})[key] = val
+    # Children inherit the device the supervisor was given; with none
+    # they run on the card, `cli worker`'s default.
+    if args.device != "cuda" and "--device" not in worker_args:
+        worker_args += ["--device", args.device]
+
+    def argv_for(slot: int, attempt: int):
+        return build_worker_argv(worker_args, slot,
+                                 first_spawn_faults=slot_faults,
+                                 first_spawn_env=slot_env,
+                                 attempt=attempt)
+
+    sup = WorkerSupervisor(argv_for, args.workers, SupervisorConfig(
+        respawn=not args.no_respawn,
+        backoff_initial=args.respawn_backoff,
+        backoff_max=args.respawn_backoff_max,
+        healthy_after=args.healthy_after,
+        crash_loop_after=args.crash_loop_after))
+    install_signal_stop(sup)
+    print(f"supervisor: {args.workers} worker slot(s), "
+          f"respawn={'on' if not args.no_respawn else 'off'}",
+          file=sys.stderr, flush=True)
+    scaler_thread = None
+    scaler_stop = None
+    if args.autoscale_job:
+        # Worker autoscaling (docs/TENANCY.md): the policy head polls the
+        # serve process's per-job /cluster view for admission-queue and
+        # straggler pressure; this supervisor's slot count is the
+        # actuator (worker_grow/worker_shrink). A primary without jobs
+        # publishes no job row: the pressure reads empty.
+        if not args.autoscale_url:
+            raise SystemExit("--autoscale-job needs --autoscale-url "
+                             "(the serve process's metrics endpoint)")
+        import json as _json
+        import threading as _threading
+        from urllib.request import urlopen
+
+        from .telemetry.remediation import (WorkerAutoscalePolicy,
+                                            WorkerAutoscaler)
+        cluster_url = args.autoscale_url.rstrip("/") + "/cluster"
+        scale_job = args.autoscale_job
+
+        def pressure() -> dict:
+            view = _json.loads(urlopen(cluster_url, timeout=5).read())
+            row = (view.get("jobs") or {}).get(scale_job) or {}
+            members = set(row.get("workers") or [])
+            stragglers = sum(
+                1 for a in view.get("alerts") or []
+                if a.get("rule") == "straggler_lag"
+                and a.get("worker") in members)
+            return {"queue_depth": row.get("waiting") or 0,
+                    "stragglers": stragglers,
+                    "workers": len(members)}
+
+        scaler = WorkerAutoscaler(
+            scale_job, pressure, supervisor=sup,
+            policy=WorkerAutoscalePolicy(
+                depth_high=args.autoscale_depth_high,
+                depth_low=args.autoscale_depth_low,
+                sustain_ticks=args.autoscale_sustain,
+                min_workers=args.autoscale_min,
+                max_workers=args.autoscale_max,
+                cooldown_s=args.autoscale_cooldown))
+        scaler_stop = _threading.Event()
+
+        def _scale_loop() -> None:
+            while not scaler_stop.wait(args.autoscale_poll):
+                scaler.tick()  # never raises
+
+        scaler_thread = _threading.Thread(target=_scale_loop,
+                                          daemon=True,
+                                          name="worker-autoscaler")
+        print(f"worker-autoscale: job={scale_job} slots "
+              f"{args.autoscale_min}..{args.autoscale_max} "
+              f"depth {args.autoscale_depth_low:g}/"
+              f"{args.autoscale_depth_high:g} "
+              f"sustain={args.autoscale_sustain}",
+              file=sys.stderr, flush=True)
+    sup.start()
+    if scaler_thread is not None:
+        scaler_thread.start()
+    try:
+        return sup.run()
+    finally:
+        if scaler_stop is not None:
+            scaler_stop.set()
+            scaler_thread.join(timeout=5.0)
+
+
+def _reshard_crash_if(args, point: str) -> None:
+    """Deterministic coordinator kill at a phase boundary (the chaos
+    drill's four crash points). Hard exit — no cleanup, exactly what a
+    crashed coordinator leaves behind."""
+    if args.crash_after == point:
+        print(f"RESHARD_CRASH_POINT {point}", flush=True)
+        os._exit(21)
+
+
+def _reshard_plan(smeta: dict, donor: int, recipient: int,
+                  lo: int, hi: int, n: int, mig_id: str,
+                  lease_ttl: float) -> dict:
+    """Compute the FULL migration plan — post-move partition and target
+    map version — from the donor's live map (a ``status`` reply), before
+    anything is frozen. The plan rides every subsequent op as the
+    ``migration`` meta field, so each primary's ledger record carries
+    everything a resumed coordinator needs."""
+    live = smeta.get("shard_map") or {}
+    ranges = [tuple(sh["slot_range"]) for sh in live.get("shards", [])]
+    if len(ranges) != n:
+        raise SystemExit(f"donor's shard map lists {len(ranges)} "
+                         f"shards, expected {n}")
+    dlo, dhi = ranges[donor]
+    rlo, rhi = ranges[recipient]
+    if not dlo <= lo < hi <= dhi:
+        raise SystemExit(f"slots [{lo},{hi}) not owned by donor "
+                         f"{donor} (owns [{dlo},{dhi}))")
+    # The moved range must sit at the donor boundary FACING the
+    # recipient, so both stay contiguous after the handoff.
+    if recipient == donor + 1:
+        if hi != dhi:
+            raise SystemExit(f"moving to shard {recipient} needs "
+                             f"HI == donor's upper bound {dhi}")
+        ranges[donor] = (dlo, lo)
+        ranges[recipient] = (lo, rhi)
+    else:
+        if lo != dlo:
+            raise SystemExit(f"moving to shard {recipient} needs "
+                             f"LO == donor's lower bound {dlo}")
+        ranges[donor] = (hi, dhi)
+        ranges[recipient] = (rlo, hi)
+    return {"id": mig_id, "slot_lo": lo, "slot_hi": hi,
+            "ranges": [list(r) for r in ranges],
+            "map_version": int(live.get("version", 0)) + 1,
+            "lease_ttl": float(lease_ttl)}
+
+
+def _reshard_apply_order(stores, donor: int, recipient: int) -> list:
+    """Publish order: donor FIRST (its apply is the commit point — the
+    lease stops applying and the migration becomes roll-forward-only),
+    recipient second, bystanders after."""
+    order = [donor, recipient] + [i for i in range(len(stores))
+                                  if i not in (donor, recipient)]
+    return [(i, stores[i]) for i in order]
+
+
+def _reshard_publish(stores, donor: int, recipient: int, plan: dict,
+                     args) -> dict:
+    """apply_ranges everywhere (idempotent server side, so a resumed
+    coordinator re-applies safely), then commit on the donor. Returns
+    the commit reply meta."""
+    first = True
+    for _i, s in _reshard_apply_order(stores, donor, recipient):
+        s.reshard_op("apply_ranges", ranges=plan["ranges"],
+                     map_version=plan["map_version"], migration=plan)
+        if first:
+            first = False
+            _reshard_crash_if(args, "apply_first")
+    _reshard_crash_if(args, "apply_all")
+    cmeta, _ = stores[donor].reshard_op(
+        "commit", slot_lo=plan["slot_lo"], slot_hi=plan["slot_hi"],
+        migration=plan)
+    return cmeta
+
+
+def _reshard_run(stores, donor: int, recipient: int, plan: dict,
+                 args) -> int:
+    """The full protocol under a ledger plan: export -> import ->
+    lease re-check -> publish (apply donor-first) -> commit."""
+    import json as _json
+
+    lo, hi = plan["slot_lo"], plan["slot_hi"]
+    # 1. Export: the donor freezes [lo,hi), journals the migration record
+    #    with its lease deadline, and hands back a consistent params
+    #    subset + its push journal.
+    emeta, payload = stores[donor].reshard_op(
+        "export", slot_lo=lo, slot_hi=hi, migration=plan)
+    _reshard_crash_if(args, "export")
+    # 2. Import: the recipient adopts the params AND the donor's journal,
+    #    so a worker replaying a pre-handoff push token against the new
+    #    owner still answers `duplicate`.
+    imeta, _ = stores[recipient].reshard_op(
+        "import", payload=payload, journal=emeta.get("journal"),
+        migration=plan)
+    _reshard_crash_if(args, "import")
+    # Lease re-check at the point of no return: if the donor's freeze
+    # expired while export/import ran, the donor already unfroze and took
+    # pushes for [lo,hi) — publishing the map now would hand those writes
+    # to the recipient's STALE copy. Abort the recipient instead.
+    smeta, _ = stores[donor].reshard_op("status")
+    mig = smeta.get("migration")
+    if not (isinstance(mig, dict) and mig.get("id") == plan["id"]):
+        stores[recipient].reshard_op("abort", migration=plan)
+        print(f"RESHARD_LEASE_LOST migration={plan['id']} donor lease "
+              f"expired before publish; recipient rolled back, map "
+              f"untouched", file=sys.stderr, flush=True)
+        return 3
+    cmeta = _reshard_publish(stores, donor, recipient, plan, args)
+    result = {"migration": plan["id"], "donor": donor,
+              "recipient": recipient, "slots": [lo, hi],
+              "map_version": plan["map_version"],
+              "export_step": emeta.get("export_step"),
+              "exported": emeta.get("exported"),
+              "adopted": imeta.get("adopted"),
+              "journal_loaded": imeta.get("journal_loaded"),
+              "dropped": cmeta.get("dropped"),
+              "ranges": [list(r) for r in plan["ranges"]]}
+    print("RESHARD_JSON " + _json.dumps(result), flush=True)
+    if not args.json:
+        print(f"moved slots [{lo},{hi}) shard {donor} -> {recipient} "
+              f"at step {result['export_step']} "
+              f"({result['adopted']} tensors, "
+              f"{result['journal_loaded']} journal entries; "
+              f"map v{plan['map_version']})", file=sys.stderr)
+    return 0
+
+
+def _reshard_resume(stores, donor: int, recipient: int, args) -> int:
+    """Crash-point oracle (docs/ROBUSTNESS.md "Migration failure
+    matrix"): read both primaries' ledger records and deterministically
+    finish or undo the migration.
+
+    - donor record in ``export`` phase (map never published, lease
+      live): ROLL FORWARD from the top — re-export is idempotent (the
+      frozen range took no applies) and refreshes the lease.
+    - donor record in ``apply_ranges`` phase (map publishing): ROLL
+      FORWARD the tail only — re-running export/import here would graft
+      the donor's stale copy over writes the recipient already owns.
+    - donor record GONE but recipient record present: the lease expired
+      (the donor auto-unfroze and kept serving) — ROLL BACK the
+      recipient.
+    - no records anywhere: nothing in flight (committed or fully
+      aborted); report and exit clean."""
+    import json as _json
+
+    dmeta, _ = stores[donor].reshard_op("status")
+    rmeta, _ = stores[recipient].reshard_op("status")
+    drec = dmeta.get("migration")
+    rrec = rmeta.get("migration")
+    drec = drec if isinstance(drec, dict) else None
+    rrec = rrec if isinstance(rrec, dict) else None
+    rec = drec or rrec
+    if rec is None:
+        result = {"outcome": "none", "donor": donor,
+                  "recipient": recipient}
+        print("RESHARD_RESUME_JSON " + _json.dumps(result), flush=True)
+        if not args.json:
+            print("no migration in flight on either primary (already "
+                  "committed, or rolled back by lease expiry)",
+                  file=sys.stderr)
+        return 0
+    # Rebuild the coordinator's plan from the ledger record: the
+    # primaries journaled everything at export/import time.
+    plan = {"id": str(rec["id"]), "slot_lo": int(rec["slot_lo"]),
+            "slot_hi": int(rec["slot_hi"]),
+            "ranges": [list(r) for r in (rec.get("ranges") or [])],
+            "map_version": int(rec.get("map_version") or 0),
+            "lease_ttl": float(args.lease_ttl)}
+    if drec is None:
+        # Lease expired: the donor unfroze, kept ownership, and may have
+        # applied pushes to [lo,hi) since — the recipient's copy is stale
+        # by construction. Roll back.
+        ameta, _ = stores[recipient].reshard_op("abort", migration=plan)
+        result = {"outcome": "rolled_back", "migration": plan["id"],
+                  "dropped": ameta.get("dropped")}
+        print("RESHARD_RESUME_JSON " + _json.dumps(result), flush=True)
+        if not args.json:
+            print(f"migration {plan['id']}: donor lease expired — "
+                  f"recipient rolled back ({ameta.get('dropped')} "
+                  f"params dropped), map untouched", file=sys.stderr)
+        return 0
+    if drec.get("phase") == "export":
+        rc = _reshard_run(stores, donor, recipient, plan, args)
+        outcome = "rolled_forward" if rc == 0 else "rolled_back"
+        print("RESHARD_RESUME_JSON " + _json.dumps(
+            {"outcome": outcome, "migration": plan["id"],
+             "from_phase": "export"}), flush=True)
+        return rc
+    # Map already publishing: finish apply everywhere + commit.
+    cmeta = _reshard_publish(stores, donor, recipient, plan, args)
+    result = {"outcome": "rolled_forward", "migration": plan["id"],
+              "from_phase": "apply_ranges",
+              "map_version": plan["map_version"],
+              "dropped": cmeta.get("dropped")}
+    print("RESHARD_RESUME_JSON " + _json.dumps(result), flush=True)
+    if not args.json:
+        print(f"migration {plan['id']}: map v{plan['map_version']} "
+              f"re-published everywhere, donor committed "
+              f"({cmeta.get('dropped')} params dropped)",
+              file=sys.stderr)
+    return 0
+
+
+def _reshard_abort_cmd(stores, donor: int, recipient: int, args) -> int:
+    """Operator-driven roll-back. Refused once the donor's map publish
+    began (phase ``apply_ranges``): from there the recipient owns
+    writes, and undoing the publish would lose them — --resume rolls
+    forward instead."""
+    import json as _json
+
+    dmeta, _ = stores[donor].reshard_op("status")
+    drec = dmeta.get("migration")
+    if isinstance(drec, dict) and drec.get("phase") == "apply_ranges":
+        print(f"migration {drec.get('id')} already publishing its map — "
+              f"abort refused, run --resume to roll forward",
+              file=sys.stderr)
+        return 4
+    # Recipient first (drop the copy while the donor still owns and
+    # serves the range), donor second (unfreeze).
+    ameta, _ = stores[recipient].reshard_op("abort")
+    bmeta, _ = stores[donor].reshard_op("abort")
+    result = {"outcome": "aborted",
+              "recipient_dropped": ameta.get("dropped"),
+              "donor_aborted": bmeta.get("aborted")}
+    print("RESHARD_ABORT_JSON " + _json.dumps(result), flush=True)
+    if not args.json:
+        print(f"migration aborted: recipient dropped "
+              f"{ameta.get('dropped')} params, donor unfroze, map "
+              f"untouched", file=sys.stderr)
+    return 0
+
+
+def cmd_reshard(args) -> int:
+    """Live migration coordinator (docs/SHARDING.md "Migration
+    protocol", docs/ROBUSTNESS.md "Migration failure matrix"): status ->
+    plan -> export -> import -> lease re-check -> apply_ranges (donor
+    first) -> commit. Every op carries the full plan under a migration
+    id, each primary journals its phase through the checkpoint
+    machinery, and the donor's freeze holds a TTL lease, so a
+    coordinator killed at ANY boundary is recoverable with ``--resume``
+    and a never-resumed crash self-heals by lease expiry. Host code: it
+    loads no torch."""
+    import uuid
+
+    from .comms.client import RemoteStore
+
+    try:
+        lo, hi = (int(x) for x in args.slots.split(":"))
+    except ValueError:
+        raise SystemExit(f"--slots must be LO:HI, got {args.slots!r}")
+    primaries = [a for a in args.primaries.split(",") if a]
+    donor, recipient = int(args.donor), int(args.recipient)
+    n = len(primaries)
+    if not (0 <= donor < n and 0 <= recipient < n):
+        raise SystemExit(f"--donor/--recipient out of range for "
+                         f"{n} primaries")
+    if abs(donor - recipient) != 1:
+        raise SystemExit("recipient must be adjacent to donor "
+                         "(donor±1): per-shard slot ranges stay "
+                         "contiguous (docs/SHARDING.md)")
+    if args.resume and args.abort:
+        raise SystemExit("--resume and --abort are mutually exclusive")
+    stores = [RemoteStore(a) for a in primaries]
+    try:
+        if args.abort:
+            return _reshard_abort_cmd(stores, donor, recipient, args)
+        if args.resume:
+            return _reshard_resume(stores, donor, recipient, args)
+        mig_id = args.migration_id or f"mig-{uuid.uuid4().hex[:10]}"
+        smeta, _ = stores[donor].reshard_op("status")
+        plan = _reshard_plan(smeta, donor, recipient, lo, hi, n,
+                             mig_id, args.lease_ttl)
+        return _reshard_run(stores, donor, recipient, plan, args)
+    finally:
+        for s in stores:
+            s.close()
 
 
 def cmd_perf(args) -> int:
@@ -3208,7 +3749,8 @@ def main(argv=None) -> int:
             "incident": cmd_incident, "query": cmd_query,
             "goodput": cmd_goodput, "perf": cmd_perf,
             "replica": cmd_replica, "loadgen": cmd_loadgen,
-            "infer": cmd_infer}[args.command](args)
+            "infer": cmd_infer, "supervise": cmd_supervise,
+            "reshard": cmd_reshard}[args.command](args)
 
 
 if __name__ == "__main__":

@@ -31,9 +31,10 @@ Deterministic client-side fault injection (``faults=`` or env
 and the channel, so injected faults exercise the real backoff and
 reconnect paths; it survives ``reset_channel``.
 
-Not in this slice, each refused with ``NotImplementedError`` naming the
-ROADMAP item: tenancy (``job``, ``submit_job``, ``drain_job``) and
-``reshard_op`` (§1 item 9).
+``reshard_op`` carries the admin plane's ``Reshard`` RPC for ``cli
+reshard``. Not in this slice, refused with ``NotImplementedError`` naming
+the ROADMAP item: tenancy (``job``, ``submit_job``, ``drain_job``, §1
+item 9).
 """
 
 from __future__ import annotations
@@ -54,9 +55,10 @@ from .service import GRPC_OPTIONS, RPC_NAMES, SERVICE_NAME, RawJSON, \
     pack_msg, unpack_msg
 from .wire import decode_tensor_dict, encode_tensor_dict
 
-#: The RPCs this client calls: the four of the worker's lifecycle (the
-#: admin plane, ``Reshard`` and ``SubmitJob``, comes with item 9).
-CLIENT_RPCS = RPC_NAMES[:4]
+#: The RPCs this client calls: the four of the worker's lifecycle and
+#: the admin plane's ``Reshard`` (``SubmitJob`` comes with tenancy,
+#: ROADMAP §1 item 9).
+CLIENT_RPCS = RPC_NAMES[:5]
 
 #: Transient codes worth retrying; anything else (e.g. INVALID_ARGUMENT,
 #: UNIMPLEMENTED) indicates a real protocol problem and raises immediately.
@@ -69,8 +71,6 @@ RETRYABLE_CODES = frozenset({
 _LATER = {
     "jobs": "tenancy (job, SubmitJob) comes with the serve tier (ROADMAP "
             "§1 item 9: ps/tenancy.py)",
-    "reshard": "reshard and migration come with the serve tier's later "
-               "part (ROADMAP §1 item 9)",
 }
 
 
@@ -547,8 +547,19 @@ class RemoteStore:
                 [str(k) for k in d] if isinstance(d, list) else []
         return bool(rmeta["accepted"])
 
-    def reshard_op(self, op: str, payload: bytes = b"", **fields):
-        raise _later("reshard")
+    def reshard_op(self, op: str, payload: bytes = b"",
+                   **fields) -> tuple[dict, memoryview]:
+        """Admin-plane Reshard RPC (docs/SHARDING.md "Migration
+        protocol"): one of ``RESHARD_OPS`` against ONE primary. Returns
+        the raw reply ``(meta, payload)``: the coordinator (``cli
+        reshard``) owns the protocol ordering and interprets the fields;
+        this client only carries the envelope. Extra keyword fields
+        (``slot_lo``, ``slot_hi``, ``ranges``, ``map_version``,
+        ``journal``, ``migration``) pass through to the request meta
+        verbatim."""
+        request = pack_msg({"op": op, **fields}, payload)
+        reply = self._invoke("Reshard", request)
+        return unpack_msg(reply)
 
     def submit_job(self, spec: str) -> dict:
         raise _later("jobs")

@@ -63,14 +63,14 @@ Examples::
 The first matching rule per call wins. ``delay`` composes with nothing —
 it IS the action (the call proceeds after the sleep).
 
-Serve-tier ops: ``reshard`` targets the admin-plane Reshard RPC (the
-port answers that RPC UNIMPLEMENTED until reshard and migration land,
-ROADMAP §1 item 9, and does not wrap it, so a ``reshard.*`` rule parses
-and never fires); ``refresh`` the replica's subscription poll against
-its primary (client side of `comms/replica.py`); ``subscribe`` the
-replica's OWN fetch-serving handler. ``any`` still means exactly the
-four worker RPCs (``ANY_EXCLUDED``) so pre-existing seeded chaos
-schedules replay byte-identically.
+Serve-tier ops: ``reshard`` targets the admin-plane Reshard RPC (a
+shard primary's migration ops, wrapped server side like the four worker
+RPCs, and client side under ``RemoteStore.reshard_op``); ``refresh``
+the replica's subscription poll against its primary (client side of
+`comms/replica.py`); ``subscribe`` the replica's OWN fetch-serving
+handler. ``any`` still means exactly the four worker RPCs
+(``ANY_EXCLUDED``) so pre-existing seeded chaos schedules replay
+byte-identically.
 
 New kinds: ``partition`` drops every matching call — both directions,
 nothing sent, nothing executed — for a ``value``-second window opened

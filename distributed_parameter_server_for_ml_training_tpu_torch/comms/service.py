@@ -47,17 +47,30 @@ announces riding fetch meta feed the live replica membership, and a
 push's keys whose slot this primary does not own are dropped from the
 apply and named in the reply (``disowned``) beside the fresh map.
 
-Deterministic fault injection (``faults=``, ``comms/faults.py``) wraps
-the four worker RPC bodies inside their instrumentation, as the JAX
-service does, so injected delays and aborts land in the handler
-histograms like real ones.
+Live resharding, as the JAX service does it (docs/SHARDING.md
+"Migration protocol", docs/ROBUSTNESS.md "Migration failure matrix"): a
+shard primary answers the admin-plane ``Reshard`` RPC with its six ops
+(:data:`RESHARD_OPS`), driven by ``cli reshard``. ``export`` freezes a
+slot range (a push touching it is disowned from then on) and hands back
+the range's tensors with the push-token journal; ``import`` grafts them
+and seeds the recipient's dedupe table from that journal; ``apply_ranges``
+installs the coordinator's partition, idempotently; ``commit`` drops the
+donor's copy; ``status`` and ``abort`` are the crash-safety pair. Each
+primary keeps a durable ledger record of the migration it takes part in
+(``migration_snapshot``/``load_migration``, persisted by store
+checkpoints), and the donor's freeze holds a wall-clock lease
+(:data:`DEFAULT_MIGRATION_LEASE_S`): a coordinator that dies before the
+map publishes leaves a range that unfreezes itself.
 
-Not in this slice, each refused with ``NotImplementedError`` naming the
-ROADMAP item when a caller asks for it: tenancy with its weighted-fair
-admission and ``SubmitJob`` (§1 item 9), and reshard and migration (item
-9's later part). Over the wire the ``Reshard`` and ``SubmitJob`` RPCs
-answer UNIMPLEMENTED with that text; neither is fault-wrapped, so a
-``reshard.*`` rule parses and never fires.
+Deterministic fault injection (``faults=``, ``comms/faults.py``) wraps
+the four worker RPC bodies and ``Reshard`` inside their
+instrumentation, as the JAX service does, so injected delays and aborts
+land in the handler histograms like real ones.
+
+Not in this slice: tenancy with its weighted-fair admission and
+``SubmitJob`` (ROADMAP §1 item 9), refused with ``NotImplementedError``
+naming the item when a caller asks for it. Over the wire ``SubmitJob``
+answers UNIMPLEMENTED with that text and is not fault-wrapped.
 """
 
 from __future__ import annotations
@@ -113,7 +126,8 @@ DIRECTIVE_CATALOG = {
 DIRECTIVES_PER_WORKER_CAP = 16
 
 #: The RPC names of the JAX service, in its order. The last two are its
-#: admin plane, answered UNIMPLEMENTED here.
+#: admin plane: ``Reshard`` (shard primaries) and ``SubmitJob``, which
+#: answers UNIMPLEMENTED here until tenancy.
 RPC_NAMES = ("RegisterWorker", "PushGradrients", "FetchParameters",
              "JobFinished", "Reshard", "SubmitJob")
 
@@ -121,9 +135,25 @@ RPC_NAMES = ("RegisterWorker", "PushGradrients", "FetchParameters",
 LATER = {
     "jobs": "tenancy, weighted-fair admission and SubmitJob come with the "
             "serve tier (ROADMAP §1 item 9: ps/tenancy.py)",
-    "reshard": "reshard and migration come with the serve tier's later "
-               "part (ROADMAP §1 item 9)",
 }
+
+#: Admin reshard sub-operations (docs/SHARDING.md "Migration protocol").
+#: ``status`` and ``abort`` are the crash-safety pair: status exposes the
+#: primary's durable migration record so a resumed coordinator can decide
+#: roll-forward vs roll-back; abort unwinds a half-done handoff (donor
+#: unfreezes, recipient drops the adopted range) with the live map
+#: untouched.
+RESHARD_OPS = ("export", "import", "commit", "apply_ranges", "status",
+               "abort")
+
+#: Default TTL on the donor's export freeze (docs/ROBUSTNESS.md
+#: "Migration failure matrix"): a coordinator that dies between export
+#: and map publish would otherwise leave ``[lo, hi)`` frozen forever.
+#: Once the lease expires the donor auto-unfreezes and clears its
+#: migration record — the map never moved, so nothing else needs
+#: unwinding. After the new map publishes the lease no longer applies:
+#: that migration is roll-forward-only.
+DEFAULT_MIGRATION_LEASE_S = 30.0
 
 
 def later(what: str) -> NotImplementedError:
@@ -287,6 +317,30 @@ class ParameterService:
         self._tm_nm_cache_hits = reg.counter(
             "dps_fetch_nm_cache_hits_total")
         self._tm_disowned = reg.counter("dps_push_disowned_keys_total")
+        # Live-reshard state (docs/SHARDING.md "Migration protocol"):
+        # slots this primary froze at export and is handing away. A push
+        # touching a draining slot is disowned — dropped from the apply
+        # and named in the reply so the client re-routes it — which is
+        # what makes the exported snapshot authoritative: nothing can
+        # land on the donor's copy after export.
+        self._reshard_lock = threading.Lock()
+        self._draining: set[int] = set()  # guarded by: self._reshard_lock
+        # Durable migration ledger (docs/ROBUSTNESS.md "Migration failure
+        # matrix"): this primary's record of the in-flight handoff it is
+        # donor or recipient of, persisted into store snapshots
+        # (checkpoint/manager.py migration_fn) and restored with them.
+        # None = no migration in flight.
+        self._migration: dict | None = None  # guarded by: self._reshard_lock
+        self._tm_reshard = {
+            op: reg.counter("dps_reshard_events_total", op=op)
+            for op in RESHARD_OPS}
+        self._tm_lease_expired = reg.counter(
+            "dps_reshard_lease_expired_total")
+        # Surface the in-flight migration in the shard map's /cluster
+        # view (servers without the provider publish no "migration"
+        # block).
+        if sharding is not None:
+            sharding.migration_provider = self.migration_view
 
     # -- directive channel ---------------------------------------------------
 
@@ -487,15 +541,348 @@ class ParameterService:
 
     def _disowned_keys(self, names) -> list[str]:
         """Pushed keys whose slot this primary does not currently own
-        (the map moved under the client). Routed on the BASE tensor name,
-        so codec companions (``name::int8scale``) travel with their
-        tensor. (The JAX service also disowns the slots a reshard is
-        draining away; reshard comes with item 9's later part.)"""
+        (map moved under the client) or is draining away (mid-handoff).
+        Routed on the BASE tensor name, so codec companions
+        (``name::int8scale``) travel with their tensor."""
         if self.sharding is None:
             return []
         lo, hi = self.sharding.my_range()
-        return [k for k in names
-                if not lo <= key_slot(str(k).split("::", 1)[0]) < hi]
+        with self._reshard_lock:
+            if self._draining:
+                # Lazy lease check on the hot path's cold branch: a
+                # frozen range must not keep disowning pushes after its
+                # donor lease lapsed.
+                self._lease_expired_locked()
+            draining = set(self._draining)
+        out = []
+        for k in names:
+            slot = key_slot(str(k).split("::", 1)[0])
+            if not lo <= slot < hi or slot in draining:
+                out.append(k)
+        return out
+
+    def _keys_in_slots(self, lo: int, hi: int) -> list[str]:
+        """This store's parameter names living in ``[lo, hi)``: the
+        donor's export subset, derived from slots at call time so the
+        admin never has to know key names."""
+        return [k for k in self.store.param_names()
+                if lo <= key_slot(k) < hi]
+
+    # -- durable migration ledger + lease (docs/ROBUSTNESS.md) ---------------
+
+    @staticmethod
+    def _migration_plan(plan) -> dict | None:
+        """Normalized coordinator plan from the request's ``migration``
+        field; None for a ledger-less coordinator or a garbled plan."""
+        if not isinstance(plan, dict):
+            return None
+        try:
+            return {
+                "id": str(plan["id"]),
+                "slot_lo": int(plan["slot_lo"]),
+                "slot_hi": int(plan["slot_hi"]),
+                "ranges": [[int(a), int(b)]
+                           for a, b in (plan.get("ranges") or [])],
+                "map_version": int(plan.get("map_version") or 0),
+                "lease_ttl": float(plan.get("lease_ttl")
+                                   or DEFAULT_MIGRATION_LEASE_S),
+            }
+        except (KeyError, TypeError, ValueError):
+            return None
+
+    def _lease_expired_locked(self) -> bool:
+        """Lazy lease enforcement (requires ``_reshard_lock``): a donor
+        whose pre-publish freeze outlived its TTL auto-unfreezes and
+        clears its record — the map never moved, so the abort is local
+        and complete. Returns True when it fired. Checked wherever the
+        frozen range could wedge traffic: reshard ops, the push
+        ownership filter, the status/cluster views, and snapshot
+        restore. Deadlines are wall-clock (``time.time``), so a record
+        persisted by a checkpoint keeps its meaning across a restart.
+        After ``apply_ranges`` publishes the new map the phase is no
+        longer ``export`` and the lease stops applying."""
+        rec = self._migration
+        if rec is None or rec.get("role") != "donor" \
+                or rec.get("phase") != "export":
+            return False
+        if time.time() <= float(rec.get("lease_deadline", 0.0)):
+            return False
+        self._draining.clear()
+        self._migration = None
+        self._tm_lease_expired.inc()
+        print(f"RESHARD_LEASE_EXPIRED migration={rec.get('id')} "
+              f"slots=[{rec.get('slot_lo')},{rec.get('slot_hi')}) "
+              f"frozen range auto-unfrozen, map untouched", flush=True)
+        return True
+
+    def migration_view(self) -> dict | None:
+        """Compact in-flight-migration block for ``GET /cluster`` /
+        ``cli status`` (riding the sharding view via the provider hook);
+        None when no migration is in flight."""
+        with self._reshard_lock:
+            self._lease_expired_locked()
+            rec = self._migration
+            if rec is None:
+                return None
+            out = {"id": rec["id"], "role": rec["role"],
+                   "phase": rec["phase"],
+                   "slot_lo": rec["slot_lo"], "slot_hi": rec["slot_hi"],
+                   "map_version": rec["map_version"],
+                   # The full target partition: a resumed coordinator
+                   # rebuilds its plan from this block.
+                   "ranges": [list(r)
+                              for r in (rec.get("ranges") or [])],
+                   "frozen_slots": len(self._draining)}
+            if rec["role"] == "donor" and rec["phase"] == "export":
+                out["lease_remaining_s"] = round(
+                    float(rec.get("lease_deadline", 0.0)) - time.time(), 3)
+            return out
+
+    def migration_snapshot(self) -> dict | None:
+        """The full migration record for checkpoint persistence
+        (checkpoint/manager.py ``migration_fn``), or None."""
+        with self._reshard_lock:
+            self._lease_expired_locked()
+            return None if self._migration is None \
+                else dict(self._migration)
+
+    def load_migration(self, rec) -> bool:
+        """Restore a persisted migration record (server restart mid-
+        migration). A donor still in its ``export`` phase re-freezes its
+        range — unless the lease lapsed while the server was down, in
+        which case the restore IS the auto-abort (map untouched).
+        Malformed records are ignored: a garbled ledger degrades to
+        status=absent, not a refused restore. Returns True when a record
+        was installed."""
+        if not isinstance(rec, dict):
+            return False
+        try:
+            rec = {
+                "id": str(rec["id"]), "role": str(rec["role"]),
+                "phase": str(rec["phase"]),
+                "slot_lo": int(rec["slot_lo"]),
+                "slot_hi": int(rec["slot_hi"]),
+                "ranges": [[int(a), int(b)]
+                           for a, b in (rec.get("ranges") or [])],
+                "map_version": int(rec.get("map_version") or 0),
+                "lease_ttl": float(rec.get("lease_ttl")
+                                   or DEFAULT_MIGRATION_LEASE_S),
+                "lease_deadline": float(rec.get("lease_deadline", 0.0)),
+                "started_at": float(rec.get("started_at", 0.0)),
+            }
+        except (KeyError, TypeError, ValueError):
+            return False
+        with self._reshard_lock:
+            self._migration = rec
+            if rec["role"] == "donor" and rec["phase"] == "export":
+                self._draining.update(range(rec["slot_lo"],
+                                            rec["slot_hi"]))
+                if self._lease_expired_locked():
+                    return False
+        print(f"RESHARD_RESTORED migration={rec['id']} "
+              f"role={rec['role']} phase={rec['phase']}", flush=True)
+        return True
+
+    def _in_flight_refusal(self, rec: dict, ctx):
+        """Refuse an export/import of another migration while ``rec`` is
+        in flight."""
+        if ctx is not None:
+            ctx.abort(grpc.StatusCode.FAILED_PRECONDITION,
+                      f"reshard: migration {rec['id']} already in flight")
+        raise ValueError("migration already in flight")
+
+    def reshard(self, request: bytes, ctx) -> bytes:
+        """Admin-plane slot-range handoff (docs/SHARDING.md "Migration
+        protocol"), driven by ``cli reshard``:
+
+        - ``export``: freeze ``[slot_lo, slot_hi)`` (pushes touching it
+          are disowned from this instant) and return a consistent params
+          subset + the completed push-token journal + the step — the
+          donor half. Nothing is dropped yet.
+        - ``import``: graft a transferred subset + journal into this
+          store — the recipient half. Exactly-once survives the handoff
+          because the donor's journal seeds this service's dedupe table
+          BEFORE any client is re-routed here.
+        - ``apply_ranges``: install the coordinator's new slot partition
+          + map version (every primary converges to the same revision);
+          clears any draining slots.
+        - ``commit``: drop the donor's copy of the migrated range after
+          the recipient confirmed adoption; clears the drain markers.
+        - ``status`` / ``abort``: the ledger read and the roll-back.
+
+        Every reply carries the CURRENT map (full, never delta-gated):
+        the coordinator derives the new partition from the donor's live
+        ranges instead of trusting its own stale picture."""
+        meta, payload = unpack_msg(request)
+        if self.sharding is None:
+            if ctx is not None:
+                ctx.abort(grpc.StatusCode.FAILED_PRECONDITION,
+                          "reshard: this server is not a shard primary")
+            raise ValueError("reshard on unsharded server")
+        op = str(meta.get("op"))
+        if op not in RESHARD_OPS:
+            if ctx is not None:
+                ctx.abort(grpc.StatusCode.INVALID_ARGUMENT,
+                          f"reshard: unknown op {op!r}")
+            raise ValueError(f"unknown reshard op {op!r}")
+        self._tm_reshard[op].inc()
+        plan = self._migration_plan(meta.get("migration"))
+        if op == "status":
+            # Read-only: the resumed coordinator's crash-point oracle.
+            return pack_msg({"migration": self.migration_view(),
+                             "global_step": self.store.global_step,
+                             **self._shard_fields()})
+        if op == "abort":
+            return self._reshard_abort(plan)
+        if op == "export":
+            return self._reshard_export(meta, plan, ctx)
+        if op == "import":
+            return self._reshard_import(meta, payload, plan, ctx)
+        if op == "apply_ranges":
+            return self._reshard_apply(meta, plan)
+        return self._reshard_commit(meta, plan)
+
+    def _reshard_export(self, meta: dict, plan: dict | None, ctx) -> bytes:
+        lo, hi = int(meta["slot_lo"]), int(meta["slot_hi"])
+        with self._reshard_lock:
+            self._lease_expired_locked()
+            rec = self._migration
+            if rec is not None and (plan is None
+                                    or rec["id"] != plan["id"]):
+                self._in_flight_refusal(rec, ctx)
+            self._draining.update(range(lo, hi))
+            if plan is not None:
+                # Same id re-export is idempotent (resume replays the
+                # phase): the range got no applies while frozen, so a
+                # second export snapshot is byte-equivalent.
+                now = time.time()
+                self._migration = {**plan, "role": "donor",
+                                   "phase": "export",
+                                   "lease_deadline":
+                                       now + plan["lease_ttl"],
+                                   "started_at": now}
+        if plan is not None:
+            journal_event("migration", id=plan["id"], phase="export",
+                          mig_role="donor", slot_lo=lo, slot_hi=hi)
+        keys = self._keys_in_slots(lo, hi)
+        # A device store hands back host copies, made on its stream.
+        params, step = self.store.export_params(keys)
+        return pack_msg({"export_step": step,
+                         "journal": self.journal_snapshot(),
+                         "exported": len(params),
+                         **self._shard_fields()},
+                        encode_tensor_dict(params))
+
+    def _reshard_import(self, meta: dict, payload, plan: dict | None,
+                        ctx) -> bytes:
+        with self._reshard_lock:
+            rec = self._migration
+            if rec is not None and (plan is None
+                                    or rec["id"] != plan["id"]):
+                self._in_flight_refusal(rec, ctx)
+        params = decode_tensor_dict(payload)
+        # The adopted names land at the end of the store's dict, in both
+        # packages, so fetch replies stay byte-equal to a JAX primary's.
+        adopted = self.store.adopt_params(params)
+        loaded = self.load_journal(meta.get("journal"))
+        if plan is not None:
+            now = time.time()
+            with self._reshard_lock:
+                self._migration = {**plan, "role": "recipient",
+                                   "phase": "import",
+                                   "lease_deadline":
+                                       now + plan["lease_ttl"],
+                                   "started_at": now}
+            journal_event("migration", id=plan["id"], phase="import",
+                          mig_role="recipient")
+        return pack_msg({"adopted": adopted, "journal_loaded": loaded,
+                         **self._shard_fields()})
+
+    def _reshard_apply(self, meta: dict, plan: dict | None) -> bytes:
+        version = self._apply_ranges(meta)
+        # The adopted map is now the sole ownership authority: drain
+        # markers for slots handed away are redundant (the range check
+        # disowns), and markers for slots the map says we KEEP would
+        # contradict it (an aborted handoff must un-freeze).
+        applied = None
+        with self._reshard_lock:
+            self._draining.clear()
+            rec = self._migration
+            if rec is not None and (plan is None
+                                    or rec["id"] == plan["id"]):
+                if rec["role"] == "donor":
+                    # Map published: the lease stops applying and the
+                    # only exit is forward (commit).
+                    rec["phase"] = "apply_ranges"
+                else:
+                    # The recipient now OWNS the adopted range: its half
+                    # of the migration is complete.
+                    self._migration = None
+                applied = (rec["id"], rec["role"])
+        if applied is not None:
+            journal_event("migration", id=applied[0],
+                          phase="apply_ranges", mig_role=applied[1])
+        return pack_msg({"map_version": version, **self._shard_fields()})
+
+    def _reshard_commit(self, meta: dict, plan: dict | None) -> bytes:
+        """The recipient holds the range; release the donor copy."""
+        lo, hi = int(meta["slot_lo"]), int(meta["slot_hi"])
+        dropped = self.store.drop_params(self._keys_in_slots(lo, hi))
+        committed = None
+        with self._reshard_lock:
+            self._draining -= set(range(lo, hi))
+            rec = self._migration
+            if rec is not None and (plan is None
+                                    or rec["id"] == plan["id"]):
+                committed = rec["id"]
+                self._migration = None
+        if committed is not None:
+            journal_event("migration", id=committed, phase="commit",
+                          mig_role="donor", dropped=dropped)
+        return pack_msg({"dropped": dropped, **self._shard_fields()})
+
+    def _apply_ranges(self, meta: dict) -> int:
+        """Adopt the coordinator's partition — idempotently. A resumed
+        coordinator re-applies the SAME plan to every primary; an exact
+        match (ranges AND version already at-or-past the plan's) is a
+        no-op rather than a version bump that churns every client's
+        cached map."""
+        ranges = meta["ranges"]
+        want = meta.get("map_version")
+        try:
+            want_i = None if want is None else int(want)
+            norm = [(int(a), int(b)) for a, b in ranges]
+        except (TypeError, ValueError):
+            want_i, norm = None, None
+        if want_i is not None and norm is not None \
+                and self.sharding.version >= want_i \
+                and self.sharding.ranges() == norm:
+            return self.sharding.version
+        return self.sharding.adopt_ranges(ranges, want)
+
+    def _reshard_abort(self, plan: dict | None) -> bytes:
+        """Roll back this primary's half of a migration: donor
+        unfreezes; a recipient that never came to own the range drops
+        its adopted copies (the donor still owns and serves them). The
+        live map is untouched either way."""
+        dropped = 0
+        with self._reshard_lock:
+            rec = self._migration
+            if rec is not None and (plan is None
+                                    or rec["id"] == plan["id"]):
+                if rec["role"] == "recipient":
+                    lo, hi = rec["slot_lo"], rec["slot_hi"]
+                    my_lo, my_hi = self.sharding.my_range()
+                    if not (my_lo <= lo and hi <= my_hi):
+                        dropped = self.store.drop_params(
+                            self._keys_in_slots(lo, hi))
+                self._draining.clear()
+                self._migration = None
+                print(f"RESHARD_ABORT migration={rec['id']} "
+                      f"role={rec['role']} phase={rec['phase']} "
+                      f"dropped={dropped}", flush=True)
+        return pack_msg({"aborted": True, "dropped": dropped,
+                         **self._shard_fields()})
 
     def register_worker(self, request: bytes, ctx) -> bytes:
         meta, _ = unpack_msg(request)
@@ -818,19 +1205,11 @@ class ParameterService:
         self.store.job_finished(int(meta["worker_id"]))
         return pack_msg({"acknowledged": True})
 
-    def _admin(self, what: str):
-        def refuse(request: bytes, ctx) -> bytes:
-            err = later(what)
-            if ctx is not None:
-                ctx.abort(grpc.StatusCode.UNIMPLEMENTED, str(err))
-            raise err
-        return refuse
-
-    def reshard(self, request: bytes, ctx) -> bytes:
-        return self._admin("reshard")(request, ctx)
-
     def submit_job(self, request: bytes, ctx) -> bytes:
-        return self._admin("jobs")(request, ctx)
+        err = later("jobs")
+        if ctx is not None:
+            ctx.abort(grpc.StatusCode.UNIMPLEMENTED, str(err))
+        raise err
 
     # -- wiring --------------------------------------------------------------
 
@@ -889,9 +1268,9 @@ class ParameterService:
         def wire(name, fn):
             # Fault injection sits INSIDE the instrumentation wrapper, so
             # injected delays/aborts land in the handler latency histogram
-            # and call counters like real ones. The admin plane, refused
-            # here, is left unwrapped.
-            if self.faults is not None and name in RPC_NAMES[:4]:
+            # and call counters like real ones. SubmitJob, refused here,
+            # is left unwrapped.
+            if self.faults is not None and name != "SubmitJob":
                 fn = self.faults.wrap_handler(name, fn)
             return self._instrumented(name, fn)
 

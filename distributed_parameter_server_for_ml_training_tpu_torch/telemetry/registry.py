@@ -329,15 +329,17 @@ def get_registry() -> MetricsRegistry:
 
 def register_build_info(registry: MetricsRegistry | None = None) -> Gauge:
     """Register the ``dps_build_info`` gauge (value 1; the information is
-    in the labels: package version, torch and CUDA versions, host
-    platform) — the standard Prometheus idiom for fleet-wide scrape
-    correlation: join any other series on the target to see which build
-    produced it."""
-    import torch
+    in the labels: package version, torch version, host platform) — the
+    standard Prometheus idiom for fleet-wide scrape correlation: join any
+    other series on the target to see which build produced it. The torch
+    version comes from the installed package's metadata, so host-only
+    processes (``cli supervise``, ``cli replica``, ``cli reshard``) serve
+    it without importing torch."""
+    import importlib.metadata
 
     from .. import __version__
     g = (registry or get_registry()).gauge(
-        "dps_build_info", version=__version__, torch=torch.__version__,
-        cuda=str(torch.version.cuda), platform=sys.platform)
+        "dps_build_info", version=__version__,
+        torch=importlib.metadata.version("torch"), platform=sys.platform)
     g.set(1)
     return g

@@ -20,9 +20,14 @@ METRICS_RE = re.compile(r"METRICS_JSON:\s*(\{.*\})")
 
 
 def emit_metrics_json(payload: dict, stream: IO | None = None) -> str:
-    """Print the one structured line (server.py:367 / worker.py:435)."""
+    """Print the one structured line (server.py:367 / worker.py:435).
+    The line and its newline go out in one write: ``print`` writes them
+    separately, and another thread's print between the two (a snapshot
+    emitter, an autoscaler's log) would run its text onto the line."""
     line = "METRICS_JSON: " + json.dumps(payload)
-    print(line, file=stream or sys.stdout, flush=True)
+    out = stream or sys.stdout
+    out.write(line + "\n")
+    out.flush()
     return line
 
 

@@ -363,8 +363,7 @@ def test_port_client_refuses_a_sharded_registration(start_server, setup):
     assert remote.supports_checksum and remote.supports_delta_fetch
     assert remote.repush_last(0) is None     # nothing pushed yet
     for call in (lambda: remote.submit_job(""),
-                 lambda: remote.drain_job("x"),
-                 lambda: remote.reshard_op("status")):
+                 lambda: remote.drain_job("x")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
     remote.job_finished(wid)

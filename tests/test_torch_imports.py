@@ -135,6 +135,53 @@ def test_serve_tier_host_modules_load_no_torch(module):
     assert out.stdout.strip() == "False", out.stdout
 
 
+#: What ``cmd_reshard`` and ``_cmd_supervise`` run inside their
+#: processes, with every telemetry surface on: the coordinator's client
+#: and a reshard plan; the supervisor, the autoscaler's policy head, one
+#: supervised child (a bare interpreter) and the snapshot emitter's and
+#: metrics endpoint's final flush.
+_HOST_VERB_PROBE = """
+import sys
+from distributed_parameter_server_for_ml_training_tpu_torch import cli
+args = cli.build_parser().parse_args(
+    ["supervise", "--telemetry", "--telemetry-interval", "0.05",
+     "--metrics-port", "0", "--trace", "--", "--server", "h:1"])
+with cli._telemetry_session(args, "supervisor"):
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms \
+        .client import RemoteStore
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps \
+        .supervisor import SupervisorConfig, WorkerSupervisor
+    from distributed_parameter_server_for_ml_training_tpu_torch \
+        .telemetry.remediation import (WorkerAutoscalePolicy,
+                                       WorkerAutoscaler)
+    RemoteStore("127.0.0.1:1").close()
+    cli._reshard_plan({"shard_map": {"version": 1, "shards": [
+        {"slot_range": [0, 32]}, {"slot_range": [32, 64]}]}},
+        0, 1, 16, 32, 2, "m", 30.0)
+    sup = WorkerSupervisor(
+        lambda slot, attempt: ([sys.executable, "-c", "pass"], None), 1,
+        SupervisorConfig(poll_interval=0.01))
+    WorkerAutoscaler("j", lambda: {}, supervisor=sup,
+                     policy=WorkerAutoscalePolicy()).tick()
+    sup.start()
+    assert sup.run() == 0
+print("torch" in sys.modules)
+"""
+
+
+def test_reshard_and_supervise_processes_load_no_torch():
+    """``cli reshard`` and ``cli supervise`` are host code: what their
+    commands import and run, under ``_telemetry_session`` with the
+    snapshot emitter, the metrics endpoint and tracing on, leaves torch
+    unloaded in a fresh interpreter (only the supervised children touch
+    the card)."""
+    out = subprocess.run([sys.executable, "-c", _HOST_VERB_PROBE],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "False", out.stdout
+
+
 def _closure(module: str) -> set:
     """The port's modules ``module`` reaches through its imports, at any
     depth and wherever they stand (inside functions too), by the AST."""
@@ -441,7 +488,8 @@ def test_later_flags_name_only_items_8_and_9():
     ``serve --shard-*`` flags and ``worker --shards``, and since its
     serve tier ``--faults`` (its spec arming the JAX package's schedule),
     ``serve --autoscale*`` and the verbs ``replica``, ``loadgen`` and
-    ``infer``; ``--jobs`` and ``--job`` are refused naming item 9."""
+    ``infer``, and since its parts 2 and 5 the verbs ``reshard`` and
+    ``supervise``; ``--jobs`` and ``--job`` are refused naming item 9."""
     from distributed_parameter_server_for_ml_training_tpu_torch import cli
     from distributed_parameter_server_for_ml_training_tpu_torch.comms \
         import client, service
@@ -512,7 +560,18 @@ def test_later_flags_name_only_items_8_and_9():
                   "--autoscale-max", "2", "--autoscale-qps-high", "9"],
                  ["replica", "--primary", "a:1", "--canary"],
                  ["loadgen", "--targets", "a:1"],
-                 ["infer", "--target", "a:1"]):
+                 ["infer", "--target", "a:1"],
+                 ["reshard", "--primaries", "a:1,b:2", "--donor", "0",
+                  "--recipient", "1", "--slots", "16:32",
+                  "--migration-id", "m", "--lease-ttl", "5",
+                  "--crash-after", "import"],
+                 ["reshard", "--primaries", "a:1,b:2", "--donor", "1",
+                  "--recipient", "0", "--slots", "32:40", "--resume"],
+                 ["supervise", "--workers", "3", "--respawn-backoff",
+                  "0.5", "--slot-faults", "0:seed=7;push.kill@n=2",
+                  "--autoscale-job", "vision", "--autoscale-url",
+                  "http://a:1", "--device", "cpu", "--telemetry", "--",
+                  "--server", "a:1"]):
         args = parser.parse_args(argv)
         cli._refuse_later_flags(args)
         spec = getattr(args, "faults", None)

@@ -358,10 +358,9 @@ def test_service_faults_replay_the_jax_services_script():
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda s: s.reshard(JS.pack_msg({"op": "status"}), None), "item 9"),
     (lambda s: s.submit_job(JS.pack_msg({}), None), "item 9"),
     (lambda s: PS.WeightedFairAdmission(None), "item 9")],
-    ids=["reshard", "submit_job", "admission"])
+    ids=["submit_job", "admission"])
 def test_unported_service_parts_are_refused(call, item):
     svc = PS.ParameterService(ParameterStore(_params(),
                                              StoreConfig(total_workers=1)))

@@ -639,3 +639,60 @@ def test_serve_capture_flags_need_the_monitor(small, flag):
     from distributed_parameter_server_for_ml_training_tpu_torch import cli
     with pytest.raises(SystemExit, match="needs the health monitor"):
         cli.main(["serve", "--device", "cpu", "--no-health-monitor", *flag])
+
+
+def test_metrics_line_survives_a_concurrent_print(tmp_path):
+    """``emit_metrics_json`` writes its line and newline in one write: a
+    print from another thread of the process (a snapshot emitter, an
+    autoscaler's log) lands before or after the line, never on it, so
+    every METRICS_JSON line of a file parses."""
+    import sys
+    import threading
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.utils \
+        .metrics import emit_metrics_json
+
+    stop = threading.Event()
+    n = 50000
+    with open(tmp_path / "log.txt", "w+", buffering=512) as f:
+        def chatter():
+            while not stop.is_set():
+                print("x" * 50, file=f)
+
+        interval = sys.getswitchinterval()
+        sys.setswitchinterval(1e-6)
+        t = threading.Thread(target=chatter)
+        t.start()
+        try:
+            for i in range(n):
+                emit_metrics_json({"i": i, "pad": "y" * 200}, f)
+        finally:
+            stop.set()
+            t.join(10)
+            sys.setswitchinterval(interval)
+        assert not t.is_alive()
+        f.seek(0)
+        rows = [json.loads(line.split("METRICS_JSON:", 1)[1])
+                for line in f.read().splitlines()
+                if "METRICS_JSON:" in line]
+    assert [r["i"] for r in rows] == list(range(n))
+
+
+def test_build_info_labels_name_the_installed_torch():
+    """``dps_build_info`` carries JAX's labels with torch in jax's place:
+    the package version, the installed torch's version as its metadata
+    gives it, and the host platform."""
+    import importlib.metadata
+    import sys
+
+    from distributed_parameter_server_for_ml_training_tpu_torch import \
+        __version__
+
+    reg = PR.MetricsRegistry()
+    assert PR.register_build_info(reg).value == 1.0
+    want = (f'dps_build_info{{platform="{sys.platform}",'
+            f'torch="{importlib.metadata.version("torch")}",'
+            f'version="{__version__}"}} 1')
+    text = PP.render_prometheus(reg)
+    assert "# TYPE dps_build_info gauge" in text
+    assert want in text.splitlines(), text
