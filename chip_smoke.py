@@ -151,9 +151,10 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    fetch, the overlap-saved seconds (sum and median) and the device's
    idle share over a profiled shorter run, each beside phase 14 (a)'s
    from the same run, and img/s with overlap off and on in turns (off,
-   on, on, off; eval off). (b) With ``cudnn.deterministic``, one worker:
-   ``local_sgd`` with K=1 pushes an int8 frame byte-equal to
-   ``faithful``'s at the same params and batch, and ``overlap=True``
+   on, on, off; 8 steps a worker, eval off). (b) With
+   ``cudnn.deterministic``, one worker: ``local_sgd`` with K=1 pushes an
+   int8 frame byte-equal to ``faithful``'s at the same params and batch,
+   and ``overlap=True``
    leaves the store's params bit-equal to ``overlap=False``'s. (c) A
    resume drill: one worker with ``reconnect_timeout=60``; the server is
    stopped just before the worker's 3rd push leaves, and a new one
@@ -200,7 +201,8 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    rule fires, no directive is posted, no push is quarantined, and an SLO
    burn rule fires only where the evaluator's own fetch-latency numbers
    breach it (reported). Then img/s with the monitor off and on in turns
-   (off, on, on, off; eval off), the health note's host µs a boundary,
+   (off, on, on, off; 4 steps a worker, eval off), the health note's host
+   µs a boundary,
    and the device->host copies it adds a boundary (at most 1) from two
    profiled runs' memcpy events. (b) The self-heal drill: fp16 pushes,
    worker 1 poisons its 3rd step with NaN; its push is answered
@@ -217,14 +219,14 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    after it is byte-equal to ``compress_push`` of its gradients under a
    fresh ``ErrorFeedback`` (and differs from the carried one's);
 19. every registry model under the data-parallel modes, on
-   ``synthetic_imagenet(1024, 256)`` at 224 x 224, 1,000 classes, bf16:
+   ``synthetic_imagenet(512, 256)`` at 224 x 224, 1,000 classes, bf16:
    (a) ResNet-50 (the ImageNet stem) through ``BaselineTrainer``, 2
-   epochs of 8 steps of 128 eager and 2 graphed, each profiled over 8
+   epochs of 4 steps of 128 eager and 2 graphed, each profiled over 4
    steps (img/s, step ms, idle share, peak GiB); one step at batch 2 on
    the card against the CPU in float64, params, batch statistics and
    momentum within atol 1e-5 / rtol 1e-3; ResNet-18 with the ImageNet
    stem for 4 eager steps. (b) ``SyncTrainer`` on ResNet-50, 4 slots of
-   64, int8, 8 steps: K3 4 and K4 7 launches a step, replicas identical,
+   64, int8, 4 steps: K3 4 and K4 7 launches a step, replicas identical,
    each slot handing 6 payloads of ``ring_payload_bytes(6,389,258)`` a
    step; then K3 and K4 on one step's real gradient rows at the ring's
    first hop (4 x 6,389,258) against their plain versions on the card,
@@ -266,8 +268,8 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    must freeze an incident bundle with the journal window, the cluster
    view and the flight-recorder tail; and img/s with the surfaces off
    (``--no-memory-telemetry``) and on, in 2 pairs of turns (off, on, on,
-   off) of 16 pushes a worker, so that each on turn spans about
-   two of the monitor's 5 s ticks and memory samples, with the
+   off) of 8 pushes a worker, so that each on turn spans about
+   one of the monitor's 5 s ticks and memory samples, with the
    spread of the off turns beside the difference. Its journal and the
    drill's bundles are left for phase 27 (b);
 21. sync data parallelism over several processes, one per card
@@ -276,7 +278,8 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    the one-process step over the same 4 slots, int8 and bf16, with
    deterministic cuDNN: every param and batch statistic bit-equal; K2-K4's
    counts reset just before the NCCL rank's int8 run and read just after:
-   K3 4 and K4 7 a step. (b) Two rank processes on the one card, 2 slots
+   K3 4 and K4 7 a step; it runs while (b)'s rank processes start. (b)
+   Two rank processes on the one card, 2 slots
    each, gloo with every collective copied through the host (NCCL refuses
    two ranks on one device; the ranks say so on stderr): over the two
    ranks first the ring alone on seeded rows [4, 11,220,132], whose rows
@@ -387,13 +390,14 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    ``--profile-dir``: each shard's global step, img/s, the workers' idle
    share and K1 events off their captures, beside phase 14 (b)'s
    unsharded pair; the primaries run ``--telemetry --metrics-port`` for
-   phase 27 (a), whose probe runs while they serve. (c) the arena built from
-   ``native/ps_core.cpp`` into ``build/torch_native/``; async (fp16,
-   int8, a stale push and a refused one) and sync sequences on real
-   gradients against the NumPy store (bit-equal; async int8 bit-equal to
-   the arena's own order and within rtol 1e-6 of the NumPy store's);
+   phase 27 (a), whose probe runs while they serve. (c), before (b): the
+   arena built from ``native/ps_core.cpp`` into ``build/torch_native/``;
    ``cli serve --store-backend native`` with one ``cli worker`` for 4
-   steps; the tracked files under ``native/`` unchanged.
+   steps, on a thread from the phase's start beside (a) and the
+   sequences; async (fp16, int8, a stale push and a refused one) and
+   sync sequences on real gradients against the NumPy store (bit-equal;
+   async int8 bit-equal to the arena's own order and within rtol 1e-6 of
+   the NumPy store's); the tracked files under ``native/`` unchanged.
 27. the fleet observatory, incident forensics and the experiment matrix,
    host Python over the paths above (no kernel of their own): (a) while
    phase 26 (b)'s 2 primaries serve, a ``FleetCollector`` with
@@ -463,8 +467,29 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    against an async int8 elastic service of this process: slot 0's child
    killed at its 2nd push and respawned, both slots done, no push token
    applied twice, the children (not the supervisor) holding the CUDA
-   library, the seconds from the death to the replacement's first push.
+   library, the seconds from the death to the replacement's first push;
+30. multi-job tenancy: (a) a ``ParameterService`` with a ``JobManager``
+   of two async jobs beside ``default`` on 127.0.0.1 and one
+   ``RemoteStore(job=...)`` a job, both with the same push nonce: 2
+   int8 pushes a job of real ResNet-18 gradients (batch 128), each
+   encoded by the job's ``DeviceCodec`` (K1, one launch a push); each
+   job's store bit-equal to a solo store fed the same frames, each fetch
+   the job's own params, ``default`` untouched, each job's journal only
+   its own token; push/fetch ms by job. (b) from the phase's start, on a
+   thread: ``cli serve --jobs 'joba:mode=sync,total_workers=1;jobb:
+   weight=3,mode=async,staleness_bound=4' --push-codec int8
+   --checkpoint-dir D`` and two ``cli worker --job`` processes on the
+   card (4 steps each), ``cli loadgen --job joba,jobb --fetch-mode
+   delta`` (each job's QPS and p50/p99), ``SubmitJob`` and a drain of a
+   third job; SIGTERM (exit 143), each job's lineage at its worker's
+   steps with only its own token, a cross-job restore refused, then
+   ``serve ... --restore``: each job's step and params served again
+   (seconds to restore).
    Each phase reports its own seconds, and the script its total.
+
+Last, no process that the run started may outlive it: every one carries
+``CHIP_SMOKE_RUN`` in its environment, and any still alive 15 s after the
+last phase is listed, killed, and fails the run.
 
 Then one JSON line of kernels and, last, the device line. Without a CUDA
 device, or outside a checkout of the repo, it exits non-zero and prints
@@ -477,6 +502,8 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
+import signal
 import subprocess
 import sys
 import threading
@@ -509,6 +536,46 @@ H100_BF16_OPS_PER_S = 989e12  # dense tensor-core bf16, same sheet
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+
+
+#: Set by main() to a value of this run's own and inherited by every
+#: process the run starts (children and their children alike).
+RUN_MARK = "CHIP_SMOKE_RUN"
+STRAY_GRACE_S = 15.0
+
+
+def _marked_processes(mark: str) -> dict:
+    """pid -> command line of each live process other than this one
+    whose environment holds ``RUN_MARK=mark`` (zombies left out)."""
+    want, found = f"{RUN_MARK}={mark}".encode(), {}
+    for d in Path("/proc").iterdir():
+        if not d.name.isdigit() or int(d.name) == os.getpid():
+            continue
+        try:
+            if want not in (d / "environ").read_bytes().split(b"\0"):
+                continue
+            if (d / "stat").read_text().rsplit(")", 1)[1].split()[0] \
+                    in ("Z", "X"):
+                continue
+            found[int(d.name)] = (d / "cmdline").read_bytes().replace(
+                b"\0", b" ").decode(errors="replace")[:300]
+        except (OSError, IndexError):
+            continue
+    return found
+
+
+def stop_strays(mark: str) -> dict:
+    """Waits up to ``STRAY_GRACE_S`` for the run's processes to end,
+    then kills and returns those still alive."""
+    deadline = time.perf_counter() + STRAY_GRACE_S
+    strays = _marked_processes(mark)
+    while strays and time.perf_counter() < deadline:
+        time.sleep(0.25)
+        strays = _marked_processes(mark)
+    for pid in strays:
+        with contextlib.suppress(OSError):
+            os.kill(pid, signal.SIGKILL)
+    return strays
 
 
 def resnet18_shapes(num_classes: int = 100) -> dict:
@@ -991,6 +1058,20 @@ def phase_kernel_int8(state: dict) -> None:
     unbiased = abs(mean_err) < 2e-3
 
     payload = Q.block_quantize(ring)
+    # K4's library call: one torch.mul of the int8 blocks by their scales
+    # (int8 -> fp32 is exact, then one fp32 multiply, as K4 computes it),
+    # which also writes the padding K4 crops; bit-equal to K4 on the chunk.
+    n_blocks = payload[1].numel()
+
+    def k4_library():
+        return torch.mul(payload[0].view(n_blocks, -1),
+                         payload[1].view(n_blocks, 1))
+
+    lib_out = k4_library().view(n_slots, -1)[:, :chunk]
+    k4_out = Q.block_dequantize(*payload, chunk)
+    torch.cuda.synchronize()
+    if not torch.equal(lib_out, k4_out):
+        mismatched.append(("block_dequantize", "library_torch_mul"))
     fns = {
         "block_quantize": (lambda: Q.block_quantize(ring),
                            lambda: Q.quantize_int8_plain(ring)),
@@ -1011,6 +1092,7 @@ def phase_kernel_int8(state: dict) -> None:
     ms = {kernel: [cuda_time_ms(fk, 50) for _ in range(2)]
           for kernel, (fk, _) in fns.items()}
     state["block"] = {}
+    library = [cuda_time_ms(k4_library, 50) for _ in range(2)]
     for kernel, (fk, fp) in fns.items():
         plain = [cuda_time_ms(fp, 10), cuda_time_ms(fp, 10)]
         device_ms, recorded = device_ms_per_call(
@@ -1021,7 +1103,9 @@ def phase_kernel_int8(state: dict) -> None:
         state["block"][kernel] = {
             "ms": min(ms[kernel]), "device_ms": device_ms,
             "plain_ms": min(plain), "bound_ms": bound_ms,
-            "bound_by": bound_by, "max_abs_err": err[kernel]}
+            "bound_by": bound_by, "max_abs_err": err[kernel],
+            "library_ms": min(library) if kernel == "block_dequantize"
+            else None}
         emit({"phase": "kernel_int8_vs_plain", "kernel": kernel,
               "shape": [n_slots, chunk], "ms_runs": ms[kernel],
               "device_ms": device_ms,
@@ -1029,6 +1113,11 @@ def phase_kernel_int8(state: dict) -> None:
               "first_design_device_ms":
                   BLOCK_QUANTIZE_FIRST_DESIGN_DEVICE_MS.get(kernel),
               "plain_ms_runs": plain, "bound_ms": bound_ms,
+              "library_ms_runs": library
+              if kernel == "block_dequantize" else None,
+              "library_bit_equal": kernel == "block_dequantize"
+              and ("block_dequantize", "library_torch_mul")
+              not in mismatched,
               "bound_by": bound_by, "bound_parts_ms": parts,
               "sass_per_thread_16_values": sass.get(kernel),
               "share_of_bound_device": bound_ms / device_ms
@@ -1509,7 +1598,7 @@ def phase_sync_profile(state: dict) -> None:
 BASELINE_EPOCHS = 2          # (c): eager and graphed, bf16
 # The set: 100 steps an epoch of batch 128, and a test set of 2,000.
 BASELINE_TRAIN, BASELINE_TEST = 12_800, 2_000
-BASELINE_PROFILE_STEPS = 20
+BASELINE_PROFILE_STEPS = 10   # (c): steps in each profile
 
 
 def _baseline_parts(dtype: str, device: str, milestones, steps_per_epoch,
@@ -2037,6 +2126,12 @@ SP_STEPS, SP_BATCH, SP_SLOTS, SP_IMAGE = 2, 8, 2, 1024
 RING_ATOL, RING_RTOL = 5e-3, 2.0 ** -7
 
 
+#: The SP path's synthetic sets by (steps, n_test, seed): the host draws
+#: a 1024 x 1024 set in ~4 s, and phases 11 and 22 (a) train on the same
+#: one four times (each trainer only reads it).
+_SP_SETS: dict = {}
+
+
 def sp_trainer(steps: int, n_test: int, seed: int = 0, group=None):
     """The SP path's trainer: ViT-B/16 (bf16, 1,000 classes) on synthetic
     ImageNet at 1024 x 1024 over 2 sequence slots, batch 8 (over
@@ -2046,8 +2141,12 @@ def sp_trainer(steps: int, n_test: int, seed: int = 0, group=None):
     from distributed_parameter_server_for_ml_training_tpu_torch.train \
         .model_parallel import ModelParallelConfig, SPTrainer
 
-    ds = synthetic_imagenet(n_train=SP_BATCH * steps, n_test=n_test,
-                            image_size=SP_IMAGE, seed=seed)
+    key = (steps, n_test, seed)
+    if key not in _SP_SETS:
+        _SP_SETS[key] = synthetic_imagenet(
+            n_train=SP_BATCH * steps, n_test=n_test, image_size=SP_IMAGE,
+            seed=seed)
+    ds = _SP_SETS[key]
     return SPTrainer(ds, ModelParallelConfig(
         model="vit_b16", num_workers=SP_SLOTS, batch_size=SP_BATCH,
         num_epochs=1, num_classes=ds.num_classes, dtype="bfloat16",
@@ -2629,6 +2728,7 @@ MODES_STORE = dict(fetch_codec="bf16", worker_timeout=30)
 MODES_WORKER = dict(k_step_mode="local_sgd", sync_steps=4, overlap=True,
                     heartbeat_interval=1.0)
 MODES_STEPS = 16          # batches of 128 a worker: 4,096 images, 4 pushes
+MODES_TURN_STEPS = 8      # each overlap off/on turn: 2 pushes
 
 
 def _saved_values(names):
@@ -2746,7 +2846,8 @@ def _modes_levers(state: dict) -> None:
     turns = {False: [], True: []}
     s_err = []
     for overlap in (False, True, True, False):
-        t_run = _grpc_run(steps_per_worker=MODES_STEPS, n_test=10, seed=0,
+        t_run = _grpc_run(steps_per_worker=MODES_TURN_STEPS, n_test=10,
+                          seed=0,
                           eval_each_epoch=False, record=False,
                           store_kw=MODES_STORE,
                           worker_kw={**MODES_WORKER, "overlap": overlap})
@@ -3534,6 +3635,10 @@ def _health_stack(store, parts: dict, quarantine_s: float = 30.0,
     return svc
 
 
+#: (a): batches of 128 a worker in each monitor off/on turn.
+HEALTH_TURN_STEPS = 4
+
+
 def _health_main(state: dict) -> None:
     """(a) Health on the main path: phase 14 (a)'s run with the monitor,
     the SLO evaluator and the remediation engine; K1 once a push; every
@@ -3608,7 +3713,8 @@ def _health_main(state: dict) -> None:
     for label in ("off", "on", "on", "off"):
         p: dict = {}
         try:
-            r = _grpc_run(steps_per_worker=8, n_test=10, seed=0,
+            r = _grpc_run(steps_per_worker=HEALTH_TURN_STEPS, n_test=10,
+                          seed=0,
                           eval_each_epoch=False, record=False,
                           service=(lambda st, p=p: _health_stack(st, p))
                           if label == "on" else None)
@@ -3923,8 +4029,8 @@ def phase_health(state: dict) -> None:
 
 # -- phase 19: every registry model under the data-parallel modes ------------
 
-MODELS_TRAIN, MODELS_TEST = 1_024, 256   # synthetic ImageNet, 224 px
-MODELS_PROFILE_STEPS = 8                 # one epoch of the baseline's 8
+MODELS_TRAIN, MODELS_TEST = 512, 256     # synthetic ImageNet, 224 px
+MODELS_PROFILE_STEPS = 4                 # one epoch of the baseline's 4
 R50_VALUES, VIT_VALUES = 25_557_032, 86_567_656
 
 
@@ -3947,7 +4053,8 @@ def _subset(ds, n_train: int, n_test: int):
 
 def _models_baseline(state: dict, ds, out: dict, failures: list) -> None:
     """(a) ResNet-50 through ``BaselineTrainer``, 2 epochs eager and 2
-    graphed (8 steps each), each profiled over an epoch's steps; one step
+    graphed (4 steps each), each profiled over an epoch's steps; one
+    step
     card against CPU in float64 at batch 2; ResNet-18 with the ImageNet
     stem for 4 eager steps."""
     import itertools
@@ -4398,7 +4505,7 @@ def _models_grpc(state: dict, ds) -> dict:
 
 def phase_models(state: dict) -> None:
     """Phase 19: ResNet-50 with the ImageNet stem and ViT-B/16 at 224 px
-    (1,000 classes, bf16) on synthetic ImageNet (1,024 training images):
+    (1,000 classes, bf16) on synthetic ImageNet (512 training images):
     (a) the baseline, (b) sync int8 ResNet-50, (c) async int8 pushes of
     ResNet-50, (d) ViT-B/16 sync (bf16 and int8) and async, with the
     flash kernels' counts at 0 (197 tokens take the dense core), (e) the
@@ -4486,9 +4593,9 @@ def phase_models(state: dict) -> None:
 OBS_STEPS = 6            # (a): steps in each capture, within an epoch of 8
 OBS_SERVE_STEPS = 8      # (b): batches of 128 a worker in a serve session
 # (b): batches of 128 a worker in each surfaces off/on turn: at ~450 img/s
-# a turn lasts ~9 s, about two of the monitor's 5 s ticks and memory
-# samples.
-OBS_TURN_STEPS = 16
+# a turn's epoch lasts ~4.5 s, about one of the monitor's 5 s ticks and
+# memory samples.
+OBS_TURN_STEPS = 8
 OBS_TURNS = (False, True, True, False)   # surfaces on?
 OBS_OVERHEAD_BOUND = 0.10   # the prediction: on within +-10 % of off
 
@@ -5168,10 +5275,12 @@ def multihost_rank(argv: list) -> int:
     return rc
 
 
-def _multihost_processes(state: dict, backend: str, form: str) -> None:
+def _multihost_processes(state: dict, backend: str, form: str,
+                         meanwhile=None) -> None:
     """Phase 21 (b)/(c): 2 rank processes (:func:`multihost_rank`), each
     ``cli train --mode sync --multihost`` over 2 of 4 slots, against the
-    one-process 4-slot run of the same command."""
+    one-process 4-slot run of the same command. ``meanwhile()`` runs in
+    this process while the ranks start."""
     import contextlib
     import io
     import os
@@ -5212,6 +5321,8 @@ def _multihost_processes(state: dict, backend: str, form: str) -> None:
                  str(tmp / "multi")],
                 cwd=repo, env=env, stdout=logs[2 * rank],
                 stderr=logs[2 * rank + 1], text=True))
+        if meanwhile is not None:
+            meanwhile()
         deadline = time.perf_counter() + MH_RANK_TIMEOUT_S
         for p in procs:
             try:
@@ -5385,11 +5496,23 @@ def _multihost_processes(state: dict, backend: str, form: str) -> None:
 
 
 def phase_multihost(state: dict) -> None:
-    """Phase 21: sync data parallelism over several processes."""
+    """Phase 21: sync data parallelism over several processes. (a) runs
+    while (b)'s rank processes start (they import torch first)."""
     import torch
 
-    _multihost_one_rank(state)
-    _multihost_processes(state, "gloo", "b_two_ranks_one_card_gloo")
+    errors: list = []
+
+    def one_rank() -> None:
+        try:
+            _multihost_one_rank(state)
+        except Exception as e:  # noqa: BLE001 — re-raised after (b)
+            traceback.print_exc()
+            errors.append(e)
+
+    _multihost_processes(state, "gloo", "b_two_ranks_one_card_gloo",
+                         meanwhile=one_rank)
+    if errors:
+        raise errors[0]
     if torch.cuda.device_count() >= 2:
         _multihost_processes(state, "nccl", "c_two_ranks_two_cards_nccl")
     else:
@@ -5645,6 +5768,9 @@ def _sp_processes(state: dict, backend: str, form: str) -> None:
                 [sys.executable, "-c", launcher, str(rank), backend,
                  str(port), str(tmp)], cwd=repo, env=env,
                 stdout=logs[2 * rank], stderr=logs[2 * rank + 1], text=True))
+        # The one-process trainer the ranks are held to, built (its set
+        # drawn on the host, its model initialized) while they start.
+        one = sp_trainer(1, n_test=SP_BATCH)
         deadline = time.perf_counter() + SP_MH_TIMEOUT_S
         for p in procs:
             try:
@@ -5678,7 +5804,6 @@ def _sp_processes(state: dict, backend: str, form: str) -> None:
         # The ring alone: one process over the 2 slots on the same inputs,
         # with the kernels (twice: dQ's run-to-run distance) and with
         # plain hops.
-        one = sp_trainer(1, n_test=SP_BATCH)
         inputs = _sp_ring_inputs("cuda")
         ring_one = _sp_ring_run(one.mesh, inputs)
         dq_spread = float((_sp_ring_run(one.mesh, inputs)[1].float()
@@ -6198,7 +6323,7 @@ TP_BLOCK_BATCH, TP_TOKENS = 8, 197       # (a): 224 px with the CLS token
 TP_DEGREES = (2, 4, 8)                   # (a): 8 splits inside a head
 # (b): (data, model) in turns, the yardstick first and last.
 TP_MESHES = ((1, 1), (2, 2), (1, 4), (1, 1))
-TP_BATCH, TP_TRAIN_STEPS, TP_TIMED_STEPS = 32, 2, 10
+TP_BATCH, TP_TRAIN_STEPS, TP_TIMED_STEPS = 32, 2, 5
 TP_PP_TIMED_STEPS = 2                    # (c): the host-bound pipeline
 BF16_REL_TOL = 2e-2                      # max |a - b| / max |b|, bf16 out
 F64_REL_TOL = 1e-12                      # the same, both float64
@@ -7073,18 +7198,12 @@ def _file_digests(paths) -> dict:
             for p in paths}
 
 
-def _arena(state: dict, grads: list, init: dict, failures: list) -> dict:
-    """(c) The C++ arena on the GPU host: built from the checkout's
-    source, scripted sequences against the NumPy store, then one ``cli
-    serve --store-backend native`` with one ``cli worker`` on the card."""
-    import os
-
+def _arena_build() -> dict:
+    """(c) The C++ arena built from the checkout's source (before any
+    process of (c) loads it), with the tracked ``native/`` files' digests
+    taken first."""
     from distributed_parameter_server_for_ml_training_tpu_torch.native \
-        import NativeParameterStore, bindings as B
-    from distributed_parameter_server_for_ml_training_tpu_torch.ops \
-        .compression import fp16_compress, int8_wire_compress
-    from distributed_parameter_server_for_ml_training_tpu_torch.ps import (
-        ParameterStore, StoreConfig, staleness_weight)
+        import bindings as B
 
     repo = Path(__file__).resolve().parent
     tracked = [repo / "native" / n
@@ -7092,9 +7211,46 @@ def _arena(state: dict, grads: list, init: dict, failures: list) -> dict:
     before = _file_digests(tracked)
     t0 = time.perf_counter()
     B.load_library()
-    out = {"library": str(B.LIBRARY.relative_to(repo)),
-           "build_seconds": time.perf_counter() - t0,
-           "compiler": B._compiler()}
+    return {"library": str(B.LIBRARY.relative_to(repo)),
+            "build_seconds": time.perf_counter() - t0,
+            "compiler": B._compiler(), "tracked": tracked,
+            "before": before}
+
+
+def _arena_cli(failures: list) -> dict:
+    """(c) One ``cli serve --store-backend native`` with one ``cli
+    worker`` on the card, 4 steps."""
+    port = _free_port()
+    run = _cli_topology(
+        [["--store-backend", "native", "--mode", "async", "--workers", "1",
+          "--push-codec", "int8", "--port", str(port)]],
+        [["--server", f"127.0.0.1:{port}", "--worker-name", "arena-w0",
+          "--synthetic", "--num-train", "512", "--num-test", "256",
+          "--epochs", "1"]])
+    srow = run["server_rows"][0][-1] if run["server_rows"][0] else {}
+    out = {"rcs": run["rcs"], "wall_seconds": run["wall_seconds"],
+           "server": srow, "workers_img_per_s":
+           _worker_img_s(run["worker_rows"])}
+    if run["late"] or run["rcs"] != {"servers": [0], "workers": [0]} \
+            or srow.get("store_backend") != "native" \
+            or srow.get("global_steps_completed") != 4:
+        failures.append(f"(c) cli: {run['late']} {out} "
+                        f"{run['worker_err']} {run['server_err']}")
+    return out
+
+
+def _arena(state: dict, grads: list, init: dict, failures: list,
+           built: dict) -> dict:
+    """(c) The C++ arena on the GPU host, built from the checkout's
+    source (``built``): scripted sequences against the NumPy store."""
+    from distributed_parameter_server_for_ml_training_tpu_torch.native \
+        import NativeParameterStore, bindings as B
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops \
+        .compression import fp16_compress, int8_wire_compress
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps import (
+        ParameterStore, StoreConfig, staleness_weight)
+
+    out = {k: built[k] for k in ("library", "build_seconds", "compiler")}
     host = [{k: v.cpu().numpy() for k, v in g.items()} for g in grads]
     # (worker, gradient set, fetched step) of each push; async bound 1:
     # the third push is 1 step stale (down-weighted), the fourth 2
@@ -7157,22 +7313,20 @@ def _arena(state: dict, grads: list, init: dict, failures: list) -> dict:
             failures.append(f"(c) {mode}/{codec}: {row}")
         seqs[f"{mode}_{codec}"] = row
     out["sequences"] = seqs
-    port = _free_port()
-    run = _cli_topology(
-        [["--store-backend", "native", "--mode", "async", "--workers", "1",
-          "--push-codec", "int8", "--port", str(port)]],
-        [["--server", f"127.0.0.1:{port}", "--worker-name", "arena-w0",
-          "--synthetic", "--num-train", "512", "--num-test", "256",
-          "--epochs", "1"]])
-    srow = run["server_rows"][0][-1] if run["server_rows"][0] else {}
-    out["cli"] = {"rcs": run["rcs"], "wall_seconds": run["wall_seconds"],
-                  "server": srow, "workers_img_per_s":
-                  _worker_img_s(run["worker_rows"])}
-    if run["late"] or run["rcs"] != {"servers": [0], "workers": [0]} \
-            or srow.get("store_backend") != "native" \
-            or srow.get("global_steps_completed") != 4:
-        failures.append(f"(c) cli: {run['late']} {out['cli']} "
-                        f"{run['worker_err']} {run['server_err']}")
+    return out
+
+
+def _arena_tracked(built: dict, failures: list) -> dict:
+    """(c) After the arena's build and its processes: the tracked
+    ``native/`` files unchanged, the library under ``build/``."""
+    import os
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.native \
+        import bindings as B
+
+    repo = Path(__file__).resolve().parent
+    tracked, before = built["tracked"], built["before"]
+    out = {}
     after = _file_digests(tracked)
     out["tracked_native_unchanged"] = after == before
     git = subprocess.run(["git", "status", "--porcelain", "native/"],
@@ -7189,22 +7343,46 @@ def _arena(state: dict, grads: list, init: dict, failures: list) -> dict:
 
 
 def phase_sharded(state: dict) -> None:
-    """Phase 26: the sharded parameter-server tier and the C++ arena."""
+    """Phase 26: the sharded parameter-server tier and the C++ arena.
+    (c)'s ``cli`` topology runs on a thread from the start, beside (a)
+    and (c)'s in-process sequences (its processes spend most of their
+    time importing torch), and ends before (b) starts."""
     failures: list = []
     t0 = time.perf_counter()
+    built = _arena_build()
+    c_cli: dict = {}
+    c_failures: list = []
+
+    def arena_cli() -> None:
+        t = time.perf_counter()
+        try:
+            c_cli.update(_arena_cli(c_failures))
+        except Exception as e:  # noqa: BLE001 — reported, fails it
+            traceback.print_exc()
+            c_failures.append(f"(c) cli raised {e!r}")
+        c_cli["seconds"] = time.perf_counter() - t
+
+    c_thread = threading.Thread(target=arena_cli, daemon=True)
+    c_thread.start()
     a = _sharded_in_process(state, failures)
     ta = time.perf_counter() - t0
     emit({"phase": "sharded", "form": "a_in_process", **a,
           "seconds": ta, "card": state["card"]})
+    t2 = time.perf_counter()
+    grads, init = _shard_gradients(SHARD_PUSHES, 27)
+    c = _arena(state, grads, init, failures, built)
+    c_thread.join(GRPC_WORKER_TIMEOUT_S + GRPC_SERVER_TIMEOUT_S + 60)
+    if c_thread.is_alive():
+        c_failures.append("(c) cli did not end")
+    failures.extend(c_failures)
+    c["cli"] = c_cli
+    c.update(_arena_tracked(built, failures))
+    emit({"phase": "sharded", "form": "c_arena", **c,
+          "seconds": time.perf_counter() - t2, "card": state["card"]})
     t1 = time.perf_counter()
     b = _sharded_processes(state, failures)
     emit({"phase": "sharded", "form": "b_processes", **b,
           "seconds": time.perf_counter() - t1, "card": state["card"]})
-    t2 = time.perf_counter()
-    grads, init = _shard_gradients(SHARD_PUSHES, 27)
-    c = _arena(state, grads, init, failures)
-    emit({"phase": "sharded", "form": "c_arena", **c,
-          "seconds": time.perf_counter() - t2, "card": state["card"]})
     emit({"phase": "sharded", "form": "summary",
           "seconds": time.perf_counter() - t0, "failures": failures,
           "card": state["card"]})
@@ -8915,6 +9093,350 @@ def phase_reshard_supervise(state: dict) -> None:
     if failures:
         raise AssertionError(f"phase 29: {failures}")
 
+#: Phase 30 (b)'s ``cli serve --jobs`` spec: a sync job of one worker and
+#: an async job of weight 3 with its own staleness bound.
+TENANCY_JOBS = ("joba:mode=sync,total_workers=1;"
+                "jobb:weight=3,mode=async,staleness_bound=4")
+#: (a)'s jobs beside ``default``: two async jobs, weights 1 and 3.
+TENANCY_INPROC_JOBS = "joba:mode=async;jobb:mode=async,weight=3"
+TENANCY_PUSHES = 2         # (a): int8 pushes a job, real gradients
+TENANCY_TRAIN = 512        # (b): images a worker, 4 steps of 128
+TENANCY_LOADGEN_S = 1.0    # (b): seconds of ``cli loadgen --job joba,jobb``
+TENANCY_TIMEOUT_S = 240    # (b): each process, start to exit
+
+
+def _tenancy_in_process(state: dict, failures: list) -> dict:
+    """(a) A port ``ParameterService`` with a ``JobManager`` of two jobs
+    beside ``default`` on 127.0.0.1, and a ``RemoteStore(job=...)`` a job
+    on this process's card, both with the same push nonce (so both jobs
+    receive the same push tokens): each push is a real ResNet-18
+    gradient set of batch 128 encoded by the job's ``DeviceCodec`` (K1).
+    Each job's store must stay bit-equal to a solo store fed the same
+    frames, each fetch must be the job's own params, and ``default`` must
+    stay untouched."""
+    import dataclasses as dc
+
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms \
+        import ParameterService, RemoteStore, serve
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops import \
+        quantize as Q
+    from distributed_parameter_server_for_ml_training_tpu_torch.ops \
+        .device_codec import DeviceCodec
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps import (
+        ParameterStore, StoreConfig)
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps \
+        .tenancy import JobManager, parse_jobs_spec
+
+    names = ("joba", "jobb")
+    grads, init = _shard_gradients(len(names) * TENANCY_PUSHES, 30)
+    torch.cuda.synchronize()
+    primary = ParameterStore({k: v.copy() for k, v in init.items()},
+                             StoreConfig(mode="async", total_workers=2,
+                                         push_codec="int8"))
+    jobs = JobManager(primary, parse_jobs_spec(TENANCY_INPROC_JOBS))
+    svc = ParameterService(primary, jobs=jobs)
+    server, port = serve(primary, port=0, service=svc, host="127.0.0.1")
+    addr = f"127.0.0.1:{port}"
+    solo = {j: ParameterStore({k: v.copy() for k, v in init.items()},
+                              dc.replace(jobs.store_for(j).config))
+            for j in names}
+    remotes = {j: RemoteStore(addr, job=j) for j in names}
+    codecs = {j: DeviceCodec() for j in names}
+    times = {j: {} for j in names}
+    nonce = remotes["joba"]._push_nonce
+    outcomes, tokens = [], {j: [] for j in names}
+    Q.wire_quantize_multi.launches = 0
+    try:
+        ids = {}
+        for j in names:
+            remotes[j]._push_nonce = nonce
+            _rpc_timer(remotes[j], times[j])
+            ids[j] = remotes[j].register_worker(f"tenant-{j}")[0]
+            solo[j].register_worker("solo")
+        for i in range(TENANCY_PUSHES):
+            for n, j in enumerate(names):
+                params, step = remotes[j].fetch(ids[j])
+                own, own_step = jobs.store_for(j).snapshot()
+                if own_step != step or sorted(params) != sorted(own) \
+                        or any(params[k].tobytes() != own[k].tobytes()
+                               for k in own):
+                    failures.append(f"(a) {j}'s fetch at step {step} is "
+                                    f"not its store's")
+                payload = codecs[j].encode_now(
+                    grads[len(names) * i + n])
+                outcomes.append((j, remotes[j].push(ids[j], payload, step),
+                                 solo[j].push(0, payload, step)))
+                tokens[j].append(remotes[j]._last_push[0])
+        launches = Q.wire_quantize_multi.launches
+        journals = {j: svc.journal_snapshot(job=j) for j in names}
+    finally:
+        for r in remotes.values():
+            r.close()
+        server.stop(grace=None).wait(10)
+    pushes = len(names) * TENANCY_PUSHES
+    want = -(-len(init) // Q.WIRE_MAX_ENTRIES) * pushes
+    state["tenancy_k1_launches"] = launches
+    diffs = {}
+    for j in names:
+        (gp, gs), (sp, ss) = jobs.store_for(j).snapshot(), solo[j].snapshot()
+        diffs[j] = [k for k in sp if gp[k].tobytes() != sp[k].tobytes()] \
+            + ([f"step {gs} != {ss}"] if gs != ss else [])
+    dp, ds = primary.snapshot()
+    default_diff = [k for k in init if dp[k].tobytes() != init[k].tobytes()]
+    if not all(a and b for _, a, b in outcomes):
+        failures.append(f"(a) pushes refused: {outcomes}")
+    if any(diffs.values()):
+        failures.append(f"(a) job stores differ from their solo stores: "
+                        f"{diffs}")
+    if default_diff or ds != 0:
+        failures.append(f"(a) default moved: step {ds}, {default_diff}")
+    if launches != want:
+        failures.append(f"(a) K1 launched {launches} times for {pushes} "
+                        f"pushes; expected {want}")
+    if tokens["joba"] != tokens["jobb"] or any(
+            {e["nonce"] for e in journals[j]} != {f"{j}::{nonce}"}
+            for j in names):
+        failures.append(f"(a) tokens {tokens}, journals {journals}")
+    med = lambda d: {k: float(np.median(v))  # noqa: E731
+                     for k, v in sorted(d.items())}
+    return {"addr": addr, "pushes": pushes, "k1_launches": launches,
+            "k1_launches_expected": want, "same_tokens": tokens,
+            "steps": {j: jobs.store_for(j).global_step for j in names},
+            "solo_bit_equal": {j: not d for j, d in diffs.items()},
+            "default_untouched": not default_diff and ds == 0,
+            "rpc_ms_median_by_job": {j: med(times[j]) for j in names},
+            "view": {j: {k: v for k, v in row.items() if k != "slots"}
+                     for j, row in jobs.view().items()}}
+
+
+def _tenancy_processes(state: dict, failures: list) -> dict:
+    """(b) ``cli serve --jobs TENANCY_JOBS --push-codec int8
+    --checkpoint-dir D`` and two ``cli worker --job`` processes on the
+    card started together; meanwhile ``cli loadgen --job joba,jobb`` and
+    a ``SubmitJob``/drain of a third job over the admin plane. Then
+    SIGTERM and ``serve ... --restore``: each job's step and params
+    restored from ``D/job-<name>/``, a cross-job restore refused, and no
+    job's push token in another job's lineage."""
+    import os
+    import re
+    import shutil
+    import signal
+    import tempfile
+
+    from distributed_parameter_server_for_ml_training_tpu_torch \
+        .checkpoint import load_store_record, restore_server_state
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms \
+        import RemoteStore
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps import (
+        ParameterStore, StoreConfig)
+
+    names = ("joba", "jobb")
+    cli = [sys.executable, "-m",
+           "distributed_parameter_server_for_ml_training_tpu_torch.cli"]
+    repo = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(repo)}
+    d = tempfile.mkdtemp(prefix="tenancy-ckpt-")
+    port = _free_port()
+    addr = f"127.0.0.1:{port}"
+    serve_argv = cli + ["serve", "--jobs", TENANCY_JOBS, "--mode", "async",
+                        "--workers", "1", "--push-codec", "int8",
+                        "--checkpoint-dir", d, "--checkpoint-interval",
+                        "3600", "--port", str(port)]
+    procs, readers = [], []
+
+    def start(argv, lines, stream="stderr"):
+        log = tempfile.TemporaryFile("w+")
+        p = subprocess.Popen(
+            argv, cwd=repo, env=env, text=True,
+            stdout=subprocess.PIPE if stream == "stdout" else log,
+            stderr=subprocess.PIPE if stream == "stderr" else log)
+        procs.append((p, log))
+        readers.append(threading.Thread(target=_read_lines, args=(
+            getattr(p, stream), lines), daemon=True))
+        readers[-1].start()
+        return p
+
+    def wait_up(lines, t_spawn) -> float:
+        while time.perf_counter() - t_spawn < TENANCY_TIMEOUT_S:
+            for t, line in list(lines):
+                if line is None:
+                    raise AssertionError(f"cli serve exited: "
+                                         f"{_lines_text(lines)[-1500:]}")
+                if "parameter server up on" in line:
+                    return t
+            time.sleep(0.01)
+        raise AssertionError("cli serve did not come up")
+
+    out: dict = {"jobs": TENANCY_JOBS}
+    try:
+        srv_lines: list = []
+        t0 = time.perf_counter()
+        server = start(serve_argv, srv_lines)
+        # The workers start with the server: both spend their first
+        # seconds importing torch, and a worker's registration retries for
+        # 15 s past its first try (RemoteStore's 5 tries, backoff from
+        # 1 s), which comes after its own import.
+        wrk_lines = [[] for _ in names]
+        workers = [start(cli + [
+            "worker", "--server", addr, "--job", j, "--worker-name",
+            f"tenant-{j}", "--synthetic", "--num-train", str(TENANCY_TRAIN),
+            "--num-test", "128", "--epochs", "1", "--emit-metrics"],
+            wrk_lines[i], stream="stdout") for i, j in enumerate(names)]
+        out["serve_up_s"] = wait_up(srv_lines, t0) - t0
+        rc, lg = _cli_line(["loadgen", "--targets", addr, "--job",
+                            ",".join(names), "--duration",
+                            str(TENANCY_LOADGEN_S), "--concurrency", "2",
+                            "--fetch-mode", "delta"], "LOADGEN_JSON ")
+        out["loadgen"] = {"rc": rc, "qps": lg and lg["qps"],
+                          "errors": lg and lg["fetches_err"],
+                          "jobs": lg and lg.get("jobs")}
+        if rc != 0 or not lg or lg["fetches_err"] or \
+                sorted(lg.get("jobs") or {}) != sorted(names):
+            failures.append(f"(b) loadgen {out['loadgen']}")
+        admin = RemoteStore(addr)
+        try:
+            sub = admin.submit_job("jobc:mode=async")
+            drained = admin.drain_job("jobc")
+        finally:
+            admin.close()
+        out["admin"] = {"submit": sub, "drain": drained}
+        if sub.get("submitted") != "jobc" or sub.get("index") != 3 \
+                or drained != {"drained": True,
+                               "jobs": ["default", *names]}:
+            failures.append(f"(b) admin plane {out['admin']}")
+        for w in workers:
+            w.wait(timeout=TENANCY_TIMEOUT_S)
+        rows = [_metrics_rows(_lines_text(lines)) for lines in wrk_lines]
+        out["worker_rcs"] = [w.returncode for w in workers]
+        out["img_per_s"] = dict(zip(names, _worker_img_s(rows)))
+        steps = {j: r[-1]["local_steps_completed"] if r else None
+                 for j, r in zip(names, rows)}
+        out["worker_steps"] = steps
+        if out["worker_rcs"] != [0, 0]:
+            failures.append(f"(b) worker rcs {out['worker_rcs']}: "
+                            + " | ".join(_lines_text(lines)[-800:]
+                                         for lines in wrk_lines))
+        server.send_signal(signal.SIGTERM)
+        server.wait(timeout=60)
+        out["serve_rc"] = server.returncode
+        lineages = {}
+        for j in ("default", *names):
+            jdir = d if j == "default" else os.path.join(d, f"job-{j}")
+            params, meta = load_store_record(jdir)
+            lineages[j] = (params, meta)
+        out["lineage_steps"] = {j: m["global_step"]
+                                for j, (_, m) in lineages.items()}
+        cross = {j: sum(1 for e in m["push_journal"]
+                        if (e["nonce"].split("::")[0] if "::" in e["nonce"]
+                            else "default") != j)
+                 for j, (_, m) in lineages.items()}
+        out["cross_job_tokens"] = cross
+        out["journal_sizes"] = {j: len(m["push_journal"])
+                                for j, (_, m) in lineages.items()}
+        if out["serve_rc"] != 143 or any(cross.values()) \
+                or out["lineage_steps"] != {"default": 0, **steps} \
+                or any(out["journal_sizes"][j] != 1 for j in names):
+            failures.append(f"(b) lineages: rc {out['serve_rc']}, steps "
+                            f"{out['lineage_steps']} (workers {steps}), "
+                            f"cross-job tokens {cross}, journals "
+                            f"{out['journal_sizes']}")
+        # A lineage restores only into its own job.
+        params_a = lineages["joba"][0]
+        try:
+            restore_server_state(ParameterStore(params_a, StoreConfig(
+                mode="async", total_workers=1, push_codec="int8",
+                job_id="jobb")), None, os.path.join(d, "job-joba"))
+            out["cross_job_restore"] = "accepted"
+        except ValueError as e:
+            out["cross_job_restore"] = str(e)
+        if "cross-job" not in out["cross_job_restore"]:
+            failures.append(f"(b) cross-job restore "
+                            f"{out['cross_job_restore']}")
+        # The restart: each job from its own lineage.
+        again: list = []
+        t1 = time.perf_counter()
+        restarted = start(serve_argv + ["--restore"], again)
+        out["restore_up_s"] = wait_up(again, t1) - t1
+        text = _lines_text(again)
+        out["restored"] = {m.group(1): int(m.group(2)) for m in re.finditer(
+            r"restored job '(\w+)' at step (\d+)", text)}
+        served = {}
+        for j in names:
+            r = RemoteStore(addr, job=j)
+            try:
+                wid, _ = r.register_worker(f"check-{j}")
+                params, step = r.fetch(wid)
+            finally:
+                r.close()
+            ref = lineages[j][0]
+            served[j] = {"step": step, "bit_equal": sorted(params)
+                         == sorted(ref) and all(
+                             params[k].tobytes() == ref[k].tobytes()
+                             for k in ref)}
+        out["served_after_restore"] = served
+        restarted.send_signal(signal.SIGTERM)
+        restarted.wait(timeout=60)
+        if out["restored"] != steps or any(
+                served[j] != {"step": steps[j], "bit_equal": True}
+                for j in names):
+            failures.append(f"(b) restore: {out['restored']}, served "
+                            f"{served}, want {steps}")
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+        for r in readers:
+            r.join(10)
+        shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def phase_tenancy(state: dict) -> None:
+    """Phase 30: multi-job tenancy. (b)'s processes run on a thread from
+    the start, beside (a): their workers spend seconds importing torch."""
+    failures: list = []
+    t0 = time.perf_counter()
+    b_out: dict = {}
+    b_failures: list = []
+
+    def processes() -> None:
+        t = time.perf_counter()
+        try:
+            b_out.update(_tenancy_processes(state, b_failures))
+        except Exception as e:  # noqa: BLE001 — reported, fails it
+            traceback.print_exc()
+            b_failures.append(f"(b) raised {e!r}")
+        b_out["seconds"] = time.perf_counter() - t
+
+    b_thread = threading.Thread(target=processes, daemon=True)
+    b_thread.start()
+    t = time.perf_counter()
+    a_out: dict = {}
+    try:
+        a_out = _tenancy_in_process(state, failures)
+    except Exception as e:  # noqa: BLE001 — reported, fails it
+        traceback.print_exc()
+        failures.append(f"(a) raised {e!r}")
+    a_out["seconds"] = time.perf_counter() - t
+    emit({"phase": "tenancy", "form": "a_in_process", **a_out,
+          "card": state["card"]})
+    b_thread.join(TENANCY_TIMEOUT_S * 3)
+    if b_thread.is_alive():
+        b_failures.append("(b) did not end")
+    failures.extend(b_failures)
+    emit({"phase": "tenancy", "form": "b_processes", **b_out,
+          "card": state["card"]})
+    emit({"phase": "tenancy", "form": "summary",
+          "seconds": time.perf_counter() - t0, "failures": failures,
+          "card": state["card"]})
+    if failures:
+        raise AssertionError(f"phase 30: {failures}")
+
+
 def main() -> int:
     import torch
 
@@ -8927,6 +9449,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     import distributed_parameter_server_for_ml_training_tpu_torch  # noqa: F401
 
+    mark = os.environ[RUN_MARK] = f"{os.getpid()}-{time.time_ns()}"
     state: dict = {}
     failed = []
     t_main = time.perf_counter()
@@ -8938,7 +9461,8 @@ def main() -> int:
                   phase_checkpoints, phase_health, phase_models,
                   phase_observability, phase_multihost, phase_sp_multihost,
                   phase_moe, phase_pp, phase_tp, phase_sharded,
-                  phase_fleet, phase_serve_tier, phase_reshard_supervise):
+                  phase_fleet, phase_serve_tier, phase_reshard_supervise,
+                  phase_tenancy):
         t0 = time.perf_counter()
         try:
             phase(state)
@@ -8947,6 +9471,11 @@ def main() -> int:
             failed.append(phase.__name__)
         print(f"[{phase.__name__}] {time.perf_counter() - t0:.1f}s",
               file=sys.stderr, flush=True)
+    strays = stop_strays(mark)
+    if strays:
+        print(f"chip_smoke: processes outlived their phase, killed: "
+              f"{strays}", file=sys.stderr, flush=True)
+        failed.append("stray_processes")
     print(f"[total] {time.perf_counter() - t_main:.1f}s", file=sys.stderr,
           flush=True)
     if failed:
@@ -8962,8 +9491,9 @@ def main() -> int:
     # other processes, read off their captures), the gRPC modes' (phase 15
     # (a)), the health path's (phase 18 (a)), the models' (phase 19 (c),
     # (d), (e)), the serve surfaces' (phase 20 (b)), the sharded tier's
-    # (phase 26 (a)), the serve tier's (phase 28 (b)) and the live
-    # resharding's (phase 29 (a), (b)); a push's times.
+    # (phase 26 (a)), the serve tier's (phase 28 (b)), the live
+    # resharding's (phase 29 (a), (b)) and tenancy's (phase 30 (a)); a
+    # push's times.
     kernels = []
     for name, k in state["k1"].items():
         kernels.append({
@@ -8977,7 +9507,8 @@ def main() -> int:
             + state["observe_k1_launches"]
             + state["sharded_k1_launches"][name]
             + state["serve_tier_k1_launches"]
-            + state["reshard_k1_launches"],
+            + state["reshard_k1_launches"]
+            + state["tenancy_k1_launches"],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
@@ -8986,7 +9517,8 @@ def main() -> int:
     # (d), and phase 21's multi-rank runs: (a)'s NCCL rank and each rank
     # process of (b) and (c)): the ring rounds stochastically, so K2
     # (nearest rounding) reads 0 there. No single PyTorch call computes a
-    # block quantize, so library_ms is null.
+    # block quantize, so K2's and K3's library_ms is null; K4's is one
+    # torch.mul of the blocks by their scales (phase 3).
     launches = {k: v + state["models_block_counts"][k]
                 + state["multihost_counts"][k]
                 for k, v in state["sync_counts"].items()}
@@ -8997,7 +9529,7 @@ def main() -> int:
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": None})
+            "library_ms": k["library_ms"]})
     # The wgmma forward (the K5 entry on bf16) and the fused backward (the
     # K6/K7 entry) with their launches from the SP path's run and phase
     # 22's runs over ranks ((a)'s NCCL rank, each rank process of (b) and

@@ -216,8 +216,20 @@ count from the server's ``/cluster`` view. Neither process loads torch::
         supervise --workers 2 --respawn-backoff 0.5 -- \
         --server 127.0.0.1:8000 --synthetic --epochs 1
 
-The flags and verbs of the JAX CLI that name features of later slices
-are accepted and refused with the ROADMAP item that brings them.
+Multi-job tenancy: ``serve --jobs`` declares jobs beside the implicit
+``default`` one, each with its own store, aggregation config, worker-id
+range, push-token namespace, checkpoint lineage (``<ckpt>/job-<name>/``)
+and weighted-fair share; ``worker --job`` trains one of them and
+``loadgen --job a,b`` stamps fetches round-robin::
+
+    python -m distributed_parameter_server_for_ml_training_tpu_torch.cli \
+        serve --jobs 'joba:mode=sync,total_workers=1;jobb:weight=3' \
+        --push-codec int8 --checkpoint-dir ckpt --port 8000
+    python -m distributed_parameter_server_for_ml_training_tpu_torch.cli \
+        worker --server 127.0.0.1:8000 --job joba --synthetic --epochs 1
+
+The verb of the JAX CLI that names a feature of a later slice (``perf
+check``) is accepted and refused with the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -654,7 +666,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="deterministic server-side fault injection spec "
                         "(comms/faults.py), e.g. "
                         "'seed=7;push.drop_reply@n=3;any.kill@n=40'")
-    s.add_argument("--jobs", default=None)
+    s.add_argument("--jobs", default=_env("DPS_JOBS", None),
+                   help="multi-job tenancy (docs/TENANCY.md): declare "
+                        "extra jobs beside the implicit 'default' one, "
+                        "each with its own parameter namespace, "
+                        "aggregation config, membership, and checkpoint "
+                        "lineage. Grammar: 'name[:k=v,...];...', e.g. "
+                        "'vision:weight=3,mode=sync,sync_quorum=2;"
+                        "ranker:weight=1,mode=async'. Enables the "
+                        "weighted-fair admission scheduler "
+                        "(per-job QoS) and the per-job /cluster view")
 
     w = sub.add_parser("worker", help="gRPC remote worker")
     w.add_argument("--server",
@@ -684,7 +705,12 @@ def build_parser() -> argparse.ArgumentParser:
     _add_profile_dir(w, "the worker loop")
     _add_telemetry(w)
     _add_common(w)
-    w.add_argument("--job", default=None)
+    w.add_argument("--job", default=_env("DPS_JOB", None),
+                   help="job this worker trains (docs/TENANCY.md): "
+                        "rides registration and every push/fetch "
+                        "envelope, capability-gated — against a server "
+                        "without --jobs the worker lands in the "
+                        "'default' job unchanged")
     w.add_argument("--faults", default=_env("DPS_FAULTS_CLIENT", None),
                    help="deterministic client-side fault injection spec "
                         "(comms/faults.py), e.g. "
@@ -776,8 +802,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="total client threads (each with its own "
                          "channel)")
     lg.add_argument("--job", default=None,
-                    help="refused: the job stamp comes with tenancy "
-                         "(ROADMAP §1 item 9)")
+                    help="stamp fetches with a job id (docs/TENANCY.md); "
+                         "a comma list round-robins threads over the "
+                         "jobs and the LOADGEN_JSON gains a per-job "
+                         "QPS/latency breakdown")
     lg.add_argument("--fetch-mode", choices=["full", "delta", "infer"],
                     default="full",
                     help="full = whole model every fetch; delta = poll "
@@ -1219,28 +1247,10 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-#: Flags of the JAX verbs whose features come with later slices, by the
-#: ROADMAP item that brings them; any value but the default is refused.
-LATER_FLAGS = {
-    "jobs": "ROADMAP §1 item 9 (tenancy)",
-    "job": "ROADMAP §1 item 9 (tenancy)",
-}
 #: Verbs of the JAX CLI whose features come with later slices.
 LATER_VERBS = {
     "perf check": "ROADMAP §1 item 11 (port tooling: tools/benchwatch)",
 }
-
-
-def _refuse_later_flags(args) -> None:
-    """Raise for the first flag of a later slice given a value (anything
-    but None or False; a port of 0 is a value)."""
-    for name, item in LATER_FLAGS.items():
-        value = getattr(args, name, None)
-        if value is None or value is False:
-            continue
-        flag = "--" + name.replace("_", "-")
-        raise NotImplementedError(
-            f"{flag} {value!r} is not ported yet; it comes with {item}")
 
 
 @contextmanager
@@ -1344,7 +1354,6 @@ def _load_dataset(args):
 
 
 def cmd_train(args) -> int:
-    _refuse_later_flags(args)
     with _telemetry_session(args, "trainer"):
         return _cmd_train(args)
 
@@ -1453,15 +1462,17 @@ def cmd_serve(args) -> int:
     ``--checkpoint-dir`` the store and its push-token journal are
     snapshotted periodically and at exit; ``--restore`` resumes from the
     newest snapshot, adopting its aggregation settings (JAX
-    ``cli.py:1552-1645``, without tenancy's per-job lineages). The
+    ``cli.py:1552-1645``); with ``--jobs`` each job's store checkpoints
+    into and restores from ``<dir>/job-<name>/``. The
     cluster health monitor, its SLO evaluator and, with ``--remediate``,
     the remediation engine are wired as JAX's ``cmd_serve`` does
     (``cli.py:1413-1490``), and so are incident capture, memory
     telemetry and trigger-driven profiling (``cli.py:1494-1548``). With
     ``--shard-count`` > 1 (or ``--shard-peers``) the server is one shard
     primary: it holds only its ``partition_keys`` share of the model's
-    tensors and publishes the shard map (JAX ``cli.py:1341-1391``)."""
-    _refuse_later_flags(args)
+    tensors and publishes the shard map (JAX ``cli.py:1341-1391``).
+    ``--jobs`` adds tenancy's jobs beside the store, which becomes the
+    ``default`` job (JAX ``cli.py:1392-1411``)."""
     with _telemetry_session(args, "server"):
         return _cmd_serve(args)
 
@@ -1543,6 +1554,24 @@ def _cmd_serve(args) -> int:
                     round_deadline=args.round_deadline,
                     shard_index=shard_index, shard_count=shard_count),
         **store_kw)
+    jobs_mgr = None
+    if args.jobs:
+        # The primary store becomes the implicit 'default' job; each
+        # declared job gets its own NumPy store seeded from its params.
+        from .ps.tenancy import JobManager, parse_jobs_spec
+        if sharding is not None:
+            raise SystemExit("--jobs does not compose with --shard-count "
+                             "yet (a job is a set of slots; run one "
+                             "tenancy server per shard group)")
+        if args.store_backend != "python":
+            raise SystemExit("--jobs needs --store-backend python "
+                             "(per-job stores)")
+        try:
+            jobs_mgr = JobManager(store, parse_jobs_spec(args.jobs))
+        except ValueError as e:
+            raise SystemExit(f"--jobs: {e}") from e
+        print(f"tenancy: jobs {', '.join(jobs_mgr.names())} "
+              f"(weighted-fair QoS on)", file=sys.stderr, flush=True)
     monitor = None
     if not args.no_health_monitor:
         # On by default: the observe-only layer. --no-health-monitor also
@@ -1559,6 +1588,10 @@ def _cmd_serve(args) -> int:
         if sharding is not None:
             # Shard identity and replica lag ride the /cluster payload.
             monitor.sharding = sharding
+        if jobs_mgr is not None:
+            # Per-job membership, the "jobs" view block and the worker
+            # rows' job column.
+            monitor.jobs = jobs_mgr
         if not args.no_slo:
             from .telemetry import SloEvaluator, default_objectives
             monitor.slo = SloEvaluator(
@@ -1574,7 +1607,7 @@ def _cmd_serve(args) -> int:
                   f"{monitor.slo.objectives[1].target:.3g})",
                   file=sys.stderr, flush=True)
     svc = ParameterService(store, faults=args.faults, monitor=monitor,
-                           sharding=sharding)
+                           sharding=sharding, jobs=jobs_mgr)
     if args.remediate or args.remediate_dry_run:
         if monitor is None:
             raise SystemExit("--remediate needs the health monitor "
@@ -1689,13 +1722,32 @@ def _cmd_serve(args) -> int:
             print(f"restored store at step {restored} (+{journal_n} "
                   f"journaled push tokens) from {args.checkpoint_dir}",
                   file=sys.stderr)
+        if jobs_mgr is not None:
+            # Each job restores from its own lineage; check_job_identity
+            # refuses a snapshot that belongs to another job.
+            for jname in _tenant_jobs(jobs_mgr):
+                jdir = os.path.join(args.checkpoint_dir, f"job-{jname}")
+                try:
+                    jstep, jn = restore_server_state(
+                        jobs_mgr.store_for(jname), svc, jdir)
+                except FileNotFoundError:
+                    continue
+                print(f"restored job {jname!r} at step {jstep} "
+                      f"(+{jn} journaled push tokens) from {jdir}",
+                      file=sys.stderr)
     ckpt = None
+    job_ckpts = []
     if args.checkpoint_dir:
         from .checkpoint import PeriodicStoreCheckpointer
+        from .ps.tenancy import DEFAULT_JOB
         from .telemetry import add_shutdown_flush, install_shutdown_hooks
+        # Under tenancy the primary's snapshot journals only the default
+        # job's tokens; each job's lineage carries its own.
         ckpt = PeriodicStoreCheckpointer(
             store, args.checkpoint_dir, interval=args.checkpoint_interval,
-            journal_fn=svc.journal_snapshot,
+            journal_fn=(svc.journal_snapshot if jobs_mgr is None
+                        else functools.partial(svc.journal_snapshot,
+                                               job=DEFAULT_JOB)),
             migration_fn=svc.migration_snapshot)
         ckpt.start()
         # SIGTERM drains the store's end state through the same shutdown
@@ -1703,6 +1755,16 @@ def _cmd_serve(args) -> int:
         # resumes exactly where it was killed.
         install_shutdown_hooks(role="server")
         add_shutdown_flush(ckpt.flush_now)
+        for jname in _tenant_jobs(jobs_mgr):
+            jc = PeriodicStoreCheckpointer(
+                jobs_mgr.store_for(jname),
+                os.path.join(args.checkpoint_dir, f"job-{jname}"),
+                interval=args.checkpoint_interval,
+                journal_fn=functools.partial(svc.journal_snapshot,
+                                             job=jname))
+            jc.start()
+            add_shutdown_flush(jc.flush_now)
+            job_ckpts.append(jc)
     server, port = serve(store, port=args.port, service=svc)
     pool = None
     if args.autoscale:
@@ -1739,6 +1801,8 @@ def _cmd_serve(args) -> int:
           + (f", restored_step={restored}" if restored is not None else "")
           + (f", shard={shard_index}/{shard_count}"
              if sharding is not None else "")
+          + (f", jobs={len(jobs_mgr.names())}"
+             if jobs_mgr is not None else "")
           + (", faults=on" if svc.faults is not None else "")
           + ")", file=sys.stderr, flush=True)
 
@@ -1748,7 +1812,9 @@ def _cmd_serve(args) -> int:
         # --profile-dir brackets the whole serving window.
         with _profiler_session(args.profile_dir, args.device):
             while not store.wait_all_finished(timeout=1.0):
-                expired = store.expire_stale_workers()
+                expired = (store.expire_stale_workers()
+                           if jobs_mgr is None
+                           else jobs_mgr.expire_stale_workers())
                 if expired:
                     print(f"expired silent workers: {expired}",
                           file=sys.stderr)
@@ -1759,12 +1825,14 @@ def _cmd_serve(args) -> int:
         pass
     finally:
         server.stop(grace=2.0)
-        if pool is not None:
-            pool.stop()
+        # The monitor's tick drives the autoscaler: stop it before the
+        # pool, so no grow follows the pool's stop.
         if monitor is not None:
             from .telemetry import set_cluster_monitor
             monitor.stop(final=True)
             set_cluster_monitor(None)
+        if pool is not None:
+            pool.stop()
         if ckpt is not None:
             from .telemetry import remove_shutdown_flush
             remove_shutdown_flush(ckpt.flush_now)
@@ -1772,9 +1840,23 @@ def _cmd_serve(args) -> int:
             if err is not None:
                 print(f"last periodic snapshot had failed: {err!r}",
                       file=sys.stderr)
+            for jc in job_ckpts:
+                remove_shutdown_flush(jc.flush_now)
+                jerr = jc.stop(final_snapshot=True)
+                if jerr is not None:
+                    print(f"job snapshot failed: {jerr!r}",
+                          file=sys.stderr)
     if args.emit_metrics:
         emit_metrics_json(store.metrics())
     return 0
+
+
+def _tenant_jobs(jobs_mgr) -> list:
+    """The jobs of a tenancy server but ``default`` (none without one)."""
+    if jobs_mgr is None:
+        return []
+    from .ps.tenancy import DEFAULT_JOB
+    return [n for n in jobs_mgr.names() if n != DEFAULT_JOB]
 
 
 def cmd_worker(args) -> int:
@@ -1785,7 +1867,6 @@ def cmd_worker(args) -> int:
         raise SystemExit("--job does not compose with --shards "
                          "(tenancy and sharding run on separate "
                          "servers, docs/TENANCY.md)")
-    _refuse_later_flags(args)
     with _telemetry_session(args, "worker"):
         return _cmd_worker(args)
 
@@ -1815,7 +1896,8 @@ def _cmd_worker(args) -> int:
         from .comms.sharded import ShardedRemoteStore
         store = ShardedRemoteStore(args.shards, faults=args.faults)
     else:
-        store = RemoteStore(args.server, faults=args.faults)
+        store = RemoteStore(args.server, faults=args.faults,
+                            job=args.job or None)
     worker = PSWorker(store, model, dataset, cfg,
                       worker_name=args.worker_name)
     with _profiler_session(args.profile_dir, args.device):
@@ -1886,16 +1968,15 @@ def cmd_loadgen(args) -> int:
 
     from .comms.loadgen import run_loadgen, run_loadgen_scaled
 
-    _refuse_later_flags(args)
     if args.scale_out > 0:
         result = run_loadgen_scaled(args.targets, duration_s=args.duration,
                                     concurrency=args.concurrency,
-                                    mode=args.fetch_mode,
+                                    mode=args.fetch_mode, job=args.job,
                                     scale_out=args.scale_out)
     else:
         result = run_loadgen(args.targets, duration_s=args.duration,
                              concurrency=args.concurrency,
-                             mode=args.fetch_mode)
+                             mode=args.fetch_mode, job=args.job)
     print("LOADGEN_JSON " + _json.dumps(result), flush=True)
     lat = result["latency_ms"]
     print(f"{result['qps']:.1f} fetch/s aggregate over "
@@ -1910,6 +1991,11 @@ def cmd_loadgen(args) -> int:
         print(f"  arm={arm}: {row['ok']} served, "
               f"quality={row['quality_mean']}, steps="
               f"{row['serving_steps']}", file=sys.stderr)
+    for jname, row in (result.get("jobs") or {}).items():
+        jlat = row["latency_ms"]
+        print(f"  job={jname}: {row['qps']:.1f} fetch/s "
+              f"({row['err']} errors, p50/p99 "
+              f"{jlat['p50']:g}/{jlat['p99']:g} ms)", file=sys.stderr)
     return 0 if result["fetches_ok"] > 0 else 1
 
 

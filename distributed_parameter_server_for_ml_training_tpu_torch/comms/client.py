@@ -1,8 +1,8 @@
 """gRPC client of the port: a remote ParameterStore with the in-process
 interface.
 
-The JAX package's ``comms/client.py``, carried over for a single-job
-server, unsharded or one shard primary. :class:`RemoteStore` duck-types
+The JAX package's ``comms/client.py``, carried over: against a
+single-job or a multi-job server, unsharded or one shard primary. :class:`RemoteStore` duck-types
 the worker-facing API of
 :class:`~..ps.store.ParameterStore` (register_worker / fetch / push /
 gradient_scales / job_finished), so :class:`~..ps.worker.PSWorker` runs
@@ -31,10 +31,12 @@ Deterministic client-side fault injection (``faults=`` or env
 and the channel, so injected faults exercise the real backoff and
 reconnect paths; it survives ``reset_channel``.
 
-``reshard_op`` carries the admin plane's ``Reshard`` RPC for ``cli
-reshard``. Not in this slice, refused with ``NotImplementedError`` naming
-the ROADMAP item: tenancy (``job``, ``submit_job``, ``drain_job``, §1
-item 9).
+Tenancy (docs/TENANCY.md): ``job=`` asks to join that job at
+registration; the client adopts the job the server reports (a garbled or
+unknown id lands in ``default``) and labels every later envelope with it,
+only once the server advertised ``jobs``. ``submit_job`` and
+``drain_job`` carry the admin plane's ``SubmitJob`` RPC, ``reshard_op``
+its ``Reshard`` RPC for ``cli reshard``.
 """
 
 from __future__ import annotations
@@ -56,9 +58,8 @@ from .service import GRPC_OPTIONS, RPC_NAMES, SERVICE_NAME, RawJSON, \
 from .wire import decode_tensor_dict, encode_tensor_dict
 
 #: The RPCs this client calls: the four of the worker's lifecycle and
-#: the admin plane's ``Reshard`` (``SubmitJob`` comes with tenancy,
-#: ROADMAP §1 item 9).
-CLIENT_RPCS = RPC_NAMES[:5]
+#: the admin plane's ``Reshard`` and ``SubmitJob``.
+CLIENT_RPCS = RPC_NAMES
 
 #: Transient codes worth retrying; anything else (e.g. INVALID_ARGUMENT,
 #: UNIMPLEMENTED) indicates a real protocol problem and raises immediately.
@@ -67,16 +68,6 @@ RETRYABLE_CODES = frozenset({
     grpc.StatusCode.DEADLINE_EXCEEDED,
     grpc.StatusCode.RESOURCE_EXHAUSTED,
 })
-
-_LATER = {
-    "jobs": "tenancy (job, SubmitJob) comes with the serve tier (ROADMAP "
-            "§1 item 9: ps/tenancy.py)",
-}
-
-
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what}: not ported yet; {_LATER[what]}")
-
 
 class SessionLostError(ConnectionError):
     """Transient failures outlived the retry budget: the server is most
@@ -113,9 +104,13 @@ class RemoteStore:
                  rpc_backoff: float = 0.5,
                  faults=None,
                  job: str | None = None):
-        if job is not None:
-            raise _later("jobs")
         self.address = address
+        #: The job this client asks to join at registration (None: the
+        #: server's default job), re-adopted from the registration reply,
+        #: and attached to every push/fetch envelope only once the server
+        #: advertised ``jobs``: a server without tenancy never sees it.
+        self.job = job
+        self.supports_jobs = False
         self.register_retries = register_retries
         self.rpc_timeout = rpc_timeout
         self.rpc_retries = rpc_retries
@@ -389,9 +384,14 @@ class RemoteStore:
             t0 = _tnow()
             try:
                 # ``capabilities`` advertises what THIS client takes
-                # (directives flow server->worker).
-                request = pack_msg({"worker_name": worker_name,
-                                    "capabilities": ["directives"]})
+                # (directives flow server->worker). The requested job
+                # rides the same envelope; a server without tenancy
+                # ignores it.
+                req_meta = {"worker_name": worker_name,
+                            "capabilities": ["directives"]}
+                if self.job is not None:
+                    req_meta["job"] = str(self.job)
+                request = pack_msg(req_meta)
                 raw = self._call["RegisterWorker"](request,
                                                    timeout=self.rpc_timeout)
                 hist.observe(_tnow() - t0)
@@ -413,6 +413,11 @@ class RemoteStore:
                     reply.get("directives", False))
                 self.supports_checksum = bool(
                     reply.get("checksum", False))
+                # Tenancy handshake: every later envelope carries the job
+                # the SERVER placed us in, not the one we asked for.
+                self.supports_jobs = bool(reply.get("jobs", False))
+                if self.supports_jobs:
+                    self.job = reply.get("job") or self.job
                 # A fresh registration starts a fresh directive stream and
                 # scale table.
                 with self._wire_lock:
@@ -444,6 +449,12 @@ class RemoteStore:
         raise ConnectionError(
             f"registration failed after {register_retries} attempts: "
             f"{last_err}")
+
+    def _attach_job(self, meta: dict) -> None:
+        """Label an outbound envelope with this client's job (only after
+        the server advertised ``jobs`` at registration)."""
+        if self.supports_jobs and self.job:
+            meta["job"] = str(self.job)
 
     def _attach_health(self, meta: dict) -> None:
         """Piggyback the worker's health report on an outbound envelope
@@ -484,6 +495,7 @@ class RemoteStore:
         replies NOT_MODIFIED — returned as ``({}, step)`` with ``step ==
         have_step``. Decoded arrays are read-only views into the reply."""
         meta = {} if worker_id is None else {"worker_id": worker_id}
+        self._attach_job(meta)
         if worker_id is not None:
             self._attach_health(meta)
             self._attach_directive_ack(meta)
@@ -525,6 +537,7 @@ class RemoteStore:
         token = f"{self._push_nonce}:{self._push_count}"
         meta = {"worker_id": worker_id, "fetched_step": fetched_step,
                 "push_token": token}
+        self._attach_job(meta)
         if wt is not None:
             meta["trace"] = wt
         self._attach_health(meta)
@@ -562,10 +575,20 @@ class RemoteStore:
         return unpack_msg(reply)
 
     def submit_job(self, spec: str) -> dict:
-        raise _later("jobs")
+        """Admin-plane SubmitJob RPC (docs/TENANCY.md): declare a new job
+        from a one-entry ``--jobs``-grammar spec string. Returns the reply
+        meta (``submitted``, ``index``, ``jobs``). A single-job server
+        answers FAILED_PRECONDITION."""
+        reply = self._invoke("SubmitJob", pack_msg({"job_spec": str(spec)}))
+        meta, _ = unpack_msg(reply)
+        return meta
 
     def drain_job(self, name: str) -> dict:
-        raise _later("jobs")
+        """Admin-plane job drain: the server removes the job and its
+        per-job metric series."""
+        reply = self._invoke("SubmitJob", pack_msg({"drain_job": str(name)}))
+        meta, _ = unpack_msg(reply)
+        return meta
 
     def repush_last(self, worker_id: int) -> bool | None:
         """Re-send the most recent push — same token, same payload, same
@@ -580,6 +603,7 @@ class RemoteStore:
         token, payload, fetched_step = self._last_push
         meta = {"worker_id": worker_id, "fetched_step": fetched_step,
                 "push_token": token}
+        self._attach_job(meta)
         reply = self._invoke("PushGradrients", pack_msg(meta, payload))
         rmeta, _ = unpack_msg(reply)
         return bool(rmeta["accepted"])

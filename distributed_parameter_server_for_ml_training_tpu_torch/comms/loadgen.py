@@ -4,8 +4,9 @@ The JAX package's ``comms/loadgen.py``, carried over (host code over
 grpc; the port keeps its own copy). Drives ``FetchParameters`` at
 open-throttle concurrency against one or more targets (shard primaries
 and/or replicas, of either package) and reports aggregate QPS plus
-client-observed latency percentiles. Tenancy's ``job`` stamp comes with
-ROADMAP §1 item 9 (tenancy): ``job=`` is refused until then.
+client-observed latency percentiles. ``job`` stamps the envelopes with
+one job id or round-robins the threads over a comma list of them
+(docs/TENANCY.md), and the result gains a per-job breakdown.
 
 Deliberately NOT built on RemoteStore: the generator unpacks only the
 reply envelope and never decodes tensors, so the client side stays far
@@ -44,10 +45,6 @@ from .service import GRPC_OPTIONS, SERVICE_NAME, pack_msg, unpack_msg
 
 __all__ = ["loadgen_child_argv", "merge_loadgen_reports",
            "parse_loadgen_json", "run_loadgen", "run_loadgen_scaled"]
-
-#: Where the ``job`` stamp comes (the port refuses it until then, as it
-#: refuses ``worker --job``).
-TENANCY = "ROADMAP §1 item 9 (tenancy)"
 
 #: The machine-readable line ``cli loadgen`` prints (and the scale-out
 #: parent greps from each child's stdout).
@@ -116,12 +113,6 @@ def merge_loadgen_reports(reports: list) -> dict:
     }
 
 
-def _refuse_job(job) -> None:
-    if job:
-        raise NotImplementedError(
-            f"job {job!r}: not ported yet; it comes with {TENANCY}")
-
-
 def _fetch_stub(channel):
     ident = lambda b: b  # noqa: E731
     return channel.unary_unary(f"/{SERVICE_NAME}/FetchParameters",
@@ -137,19 +128,24 @@ def run_loadgen(targets, duration_s: float = 5.0, concurrency: int = 4,
     ``LOADGEN_JSON`` schema ``cli loadgen`` emits). In ``infer`` mode
     ``quality_fn(serving_step) -> float`` scores each served response
     (default: constant 1.0); the score rides the NEXT request as canary
-    feedback. ``job`` (the JAX function's per-tenant stamp) is refused:
-    tenancy is not ported yet."""
+    feedback. ``job`` (a name or comma-separated list) stamps each
+    request's envelope with a job id — threads round-robin over the
+    list, so a two-job spec drives both tenants at once and the result
+    gains a per-job ``"jobs"`` breakdown (docs/TENANCY.md)."""
     if isinstance(targets, str):
         targets = [t for t in targets.split(",") if t]
     if not targets:
         raise ValueError("loadgen needs at least one target")
     if mode not in ("full", "delta", "infer"):
         raise ValueError(f"mode must be full|delta|infer, got {mode!r}")
-    _refuse_job(job)
+    jobs = ([j.strip() for j in str(job).split(",") if j.strip()]
+            if job else [])
 
     lock = threading.Lock()
     per_target = {t: {"ok": 0, "err": 0, "bytes_in": 0,
                       "not_modified": 0} for t in targets}
+    per_job = {j: {"ok": 0, "err": 0, "latency_s": []}
+               for j in jobs}  # guarded by: lock
     latencies: list[float] = []  # guarded by: lock
     # Per-arm accounting (infer mode; guarded by: lock). Literal arm
     # names: these ARE the wire values a canary replica stamps replies
@@ -161,6 +157,11 @@ def run_loadgen(targets, duration_s: float = 5.0, concurrency: int = 4,
 
     def worker(idx: int) -> None:
         target = targets[idx % len(targets)]
+        myjob = jobs[idx % len(jobs)] if jobs else None
+        # Stamp every envelope this thread sends; merged into each meta
+        # dict built below (send-side only — the generator still never
+        # decodes tensors).
+        jmeta = {"job": myjob} if myjob else {}
         channel = grpc.insecure_channel(target, options=GRPC_OPTIONS)
         stub = _fetch_stub(channel)
         ok = err = nbytes = nm = 0
@@ -173,16 +174,16 @@ def run_loadgen(targets, duration_s: float = 5.0, concurrency: int = 4,
             # Learn the target's current step once, then poll at it so
             # the steady state is all NOT_MODIFIED replies.
             try:
-                meta, _ = unpack_msg(stub(pack_msg({}),
+                meta, _ = unpack_msg(stub(pack_msg(dict(jmeta)),
                                           timeout=rpc_timeout))
                 have = int(meta["global_step"])
             except Exception:  # noqa: BLE001 — count as errors below
                 have = 0
         if mode == "infer":
-            request = pack_msg({"infer": True})
+            request = pack_msg({"infer": True, **jmeta})
         else:
-            request = pack_msg({} if have is None
-                               else {"have_step": have})
+            request = pack_msg(dict(jmeta) if have is None
+                               else {"have_step": have, **jmeta})
         while not stop.is_set():
             t0 = time.perf_counter()
             try:
@@ -202,7 +203,7 @@ def run_loadgen(targets, duration_s: float = 5.0, concurrency: int = 4,
                     # The target advanced: re-arm at the new step so the
                     # loop keeps measuring the NM path, not full ships.
                     have = int(rmeta["global_step"])
-                    request = pack_msg({"have_step": have})
+                    request = pack_msg({"have_step": have, **jmeta})
             elif mode == "infer":
                 rmeta, _ = unpack_msg(reply)
                 arm = str(rmeta.get("arm") or "stable")
@@ -212,7 +213,7 @@ def run_loadgen(targets, duration_s: float = 5.0, concurrency: int = 4,
                 row = arm_local[arm]
                 row["ok"] += 1
                 row["latency_s"].append(dt)
-                meta: dict = {"infer": True}
+                meta: dict = {"infer": True, **jmeta}
                 if step is not None:
                     row["steps"].add(int(step))
                     try:
@@ -237,6 +238,11 @@ def run_loadgen(targets, duration_s: float = 5.0, concurrency: int = 4,
             row["bytes_in"] += nbytes
             row["not_modified"] += nm
             latencies.extend(lat)
+            if myjob is not None:
+                jrow = per_job[myjob]
+                jrow["ok"] += ok
+                jrow["err"] += err
+                jrow["latency_s"].extend(lat)
             for a, src in arm_local.items():
                 dst = arms[a]
                 dst["ok"] += src["ok"]
@@ -276,6 +282,13 @@ def run_loadgen(targets, duration_s: float = 5.0, concurrency: int = 4,
         "errors_by_target": {t: r["err"] for t, r in per_target.items()},
         "per_target": per_target,
     }
+    if jobs:
+        result["jobs"] = {
+            j: {"ok": r["ok"], "err": r["err"],
+                "qps": (round(r["ok"] / elapsed, 1)
+                        if elapsed > 0 else 0.0),
+                "latency_ms": _latency_summary(r["latency_s"])}
+            for j, r in per_job.items()}
     if mode == "infer":
         result["arms"] = {
             a: {"ok": r["ok"],
@@ -293,7 +306,6 @@ def loadgen_child_argv(targets, duration_s: float, concurrency: int,
     """One scale-out child's command line: a plain ``cli loadgen``
     invocation (no ``--scale-out`` — children never recurse). Pure, so
     tests pin the fan-out contract without spawning anything."""
-    _refuse_job(job)
     if isinstance(targets, str):
         targets = [t for t in targets.split(",") if t]
     pkg = __name__.rsplit(".", 2)[0]
@@ -302,6 +314,8 @@ def loadgen_child_argv(targets, duration_s: float, concurrency: int,
             "--duration", str(float(duration_s)),
             "--concurrency", str(int(concurrency)),
             "--fetch-mode", str(mode)]
+    if job:
+        argv += ["--job", str(job)]
     return argv
 
 

@@ -1,7 +1,7 @@
 """gRPC parameter service of the port: the reference wire protocol.
 
-The JAX package's ``comms/service.py``, carried over for what a
-single-job server does, unsharded or as one shard primary: the same four
+The JAX package's ``comms/service.py``, carried over: a single-job or a
+multi-job server, unsharded or as one shard primary, with the same four
 unary-unary RPCs under the same service name, including the load-bearing
 wire-protocol typo ``PushGradrients`` (ps.proto:12)::
 
@@ -62,15 +62,21 @@ checkpoints), and the donor's freeze holds a wall-clock lease
 (:data:`DEFAULT_MIGRATION_LEASE_S`): a coordinator that dies before the
 map publishes leaves a range that unfreezes itself.
 
+Multi-job tenancy, as the JAX service does it (docs/TENANCY.md): with a
+``jobs`` table (``ps/tenancy.py:JobManager``) every envelope routes by
+its ``job`` meta key to that job's own store, worker ids stride per job
+(``global = index * WID_STRIDE + local``), the push-token nonces are
+job-scoped (identical tokens under two jobs both apply; each job's
+checkpoint journals only its own), the cached ``not_modified`` reply is
+keyed by the job, and pushes and fetches pass the weighted-fair
+admission (:class:`WeightedFairAdmission`), throttled with
+RESOURCE_EXHAUSTED. The admin-plane ``SubmitJob`` RPC submits and drains
+jobs. Without ``jobs`` the server is the single-job wire, byte for byte.
+
 Deterministic fault injection (``faults=``, ``comms/faults.py``) wraps
-the four worker RPC bodies and ``Reshard`` inside their
+every RPC body, ``Reshard`` and ``SubmitJob`` included, inside its
 instrumentation, as the JAX service does, so injected delays and aborts
 land in the handler histograms like real ones.
-
-Not in this slice: tenancy with its weighted-fair admission and
-``SubmitJob`` (ROADMAP §1 item 9), refused with ``NotImplementedError``
-naming the item when a caller asks for it. Over the wire ``SubmitJob``
-answers UNIMPLEMENTED with that text and is not fault-wrapped.
 """
 
 from __future__ import annotations
@@ -86,6 +92,8 @@ from concurrent import futures
 import grpc
 
 from ..ps.sharding import key_slot
+from ..ps.tenancy import DEFAULT_JOB, WID_STRIDE, job_key, \
+    normalize_job_id, parse_jobs_spec, split_job_key
 from ..telemetry import LATENCY_BUCKETS, get_registry, journal_event, \
     now, trace_enabled, trace_span
 from ..telemetry.registry import ExemplarSampler
@@ -104,6 +112,19 @@ PUSH_SEEN_CAP = 128
 #: when the caller carries no deadline. With a deadline, the wait is
 #: bounded by ``ctx.time_remaining()`` minus a reply margin instead.
 DUP_WAIT_CAP_S = 30.0
+
+#: Ceiling on how long an RPC queues for weighted-fair admission
+#: (docs/TENANCY.md "QoS semantics") before it is throttled with
+#: RESOURCE_EXHAUSTED, which the client retries with backoff. Short on
+#: purpose: backpressure is bounded handler queueing plus client-side
+#: backoff, never pinned pool threads.
+ADMISSION_WAIT_CAP_S = 2.0
+
+#: Handler slots the admission scheduler hands out concurrently, kept
+#: below the 20-thread gRPC pool so a saturated job throttles at
+#: admission while threads remain to answer the throttles and serve
+#: other jobs.
+ADMISSION_CAPACITY = 16
 
 #: Server->worker control directives (docs/ROBUSTNESS.md "Self-healing"):
 #: the remediation layer posts these and the fetch/push reply envelope
@@ -126,16 +147,10 @@ DIRECTIVE_CATALOG = {
 DIRECTIVES_PER_WORKER_CAP = 16
 
 #: The RPC names of the JAX service, in its order. The last two are its
-#: admin plane: ``Reshard`` (shard primaries) and ``SubmitJob``, which
-#: answers UNIMPLEMENTED here until tenancy.
+#: admin plane: ``Reshard`` (shard primaries) and ``SubmitJob`` (tenancy
+#: servers; FAILED_PRECONDITION on a single-job server).
 RPC_NAMES = ("RegisterWorker", "PushGradrients", "FetchParameters",
              "JobFinished", "Reshard", "SubmitJob")
-
-#: Where each part of the JAX service that this slice leaves out comes.
-LATER = {
-    "jobs": "tenancy, weighted-fair admission and SubmitJob come with the "
-            "serve tier (ROADMAP §1 item 9: ps/tenancy.py)",
-}
 
 #: Admin reshard sub-operations (docs/SHARDING.md "Migration protocol").
 #: ``status`` and ``abort`` are the crash-safety pair: status exposes the
@@ -154,11 +169,6 @@ RESHARD_OPS = ("export", "import", "commit", "apply_ranges", "status",
 #: unwinding. After the new map publishes the lease no longer applies:
 #: that migration is roll-forward-only.
 DEFAULT_MIGRATION_LEASE_S = 30.0
-
-
-def later(what: str) -> NotImplementedError:
-    """The refusal of a part of the JAX service this slice leaves out."""
-    return NotImplementedError(f"{what}: not ported yet; {LATER[what]}")
 
 
 def parse_push_token(token) -> tuple[str, int]:
@@ -223,11 +233,114 @@ def unpack_msg(data: bytes) -> tuple[dict, memoryview]:
 
 
 class WeightedFairAdmission:
-    """The JAX service's per-job admission scheduler; it serves tenancy,
-    which this slice leaves out."""
+    """Weighted-fair admission over the push/fetch handler path
+    (docs/TENANCY.md "QoS semantics"): one job's storm cannot starve
+    another's trickle.
 
-    def __init__(self, *args, **kwargs):
-        raise later("jobs")
+    Each job holds at most ``max_inflight`` admitted RPCs (its spec's
+    hard cap), and once the shared ``capacity`` is contended, at most its
+    *fair share*, ``capacity * weight / total_weight``, floored at 1 so
+    every live job always makes progress. Under the cap an RPC waits
+    (bounded by the caller's deadline and :data:`ADMISSION_WAIT_CAP_S`)
+    for a slot; on timeout it is throttled and the handler aborts
+    RESOURCE_EXHAUSTED. Per-job instruments: ``dps_job_queue_depth{job}``
+    (admitted + waiting), ``dps_job_admitted_total{job}``,
+    ``dps_job_throttled_total{job}``; ``JobManager.drain`` removes them.
+    """
+
+    def __init__(self, jobs, capacity: int = ADMISSION_CAPACITY,
+                 registry=None):
+        self.jobs = jobs  # JobManager: live weight/max_inflight source
+        self.capacity = int(capacity)
+        self._lock = threading.Lock()
+        self._cond = threading.Condition(self._lock)
+        self._inflight: dict[str, int] = {}  # guarded by: self._lock
+        self._waiting: dict[str, int] = {}  # guarded by: self._lock
+        self._reg = registry or get_registry()
+        # job -> (depth gauge, admitted ctr, throttled ctr); created on a
+        # job's first admission, removed at drain.
+        self._instr: dict[str, tuple] = {}  # guarded by: self._lock
+
+    def _instruments_locked(self, job: str) -> tuple:
+        tup = self._instr.get(job)
+        if tup is None:
+            tup = (self._reg.gauge("dps_job_queue_depth", job=job),
+                   self._reg.counter("dps_job_admitted_total", job=job),
+                   self._reg.counter("dps_job_throttled_total", job=job))
+            self._instr[job] = tup
+        return tup
+
+    def _limits(self, job: str) -> tuple[int, int]:
+        """(fair share, hard max-inflight) from the live job table."""
+        table = self.jobs.qos_table()
+        weight, max_inflight = table.get(job, (1.0, 8))
+        total_w = sum(w for w, _ in table.values()) or 1.0
+        fair = max(1, int(self.capacity * weight / total_w))
+        return fair, int(max_inflight)
+
+    def _depth_locked(self, job: str, gauge) -> None:
+        gauge.set(self._inflight.get(job, 0) + self._waiting.get(job, 0))
+
+    def admit(self, job: str, budget_s: float) -> bool:
+        """Take an admission slot for ``job``, waiting up to
+        ``budget_s``; False means throttled (counted)."""
+        deadline = time.monotonic() + max(0.0, float(budget_s))
+        with self._lock:
+            depth_g, admitted_c, throttled_c = self._instruments_locked(job)
+            self._waiting[job] = self._waiting.get(job, 0) + 1
+            self._depth_locked(job, depth_g)
+            try:
+                while True:
+                    fair, cap = self._limits(job)
+                    mine = self._inflight.get(job, 0)
+                    total = sum(self._inflight.values())
+                    if mine < cap and (total < self.capacity
+                                       or mine < fair):
+                        self._inflight[job] = mine + 1
+                        admitted_c.inc()
+                        return True
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        throttled_c.inc()
+                        return False
+                    self._cond.wait(remaining)
+            finally:
+                self._waiting[job] -= 1
+                self._depth_locked(job, depth_g)
+
+    def release(self, job: str) -> None:
+        with self._lock:
+            n = self._inflight.get(job, 0)
+            if n <= 1:
+                self._inflight.pop(job, None)
+            else:
+                self._inflight[job] = n - 1
+            tup = self._instr.get(job)
+            if tup is not None:
+                self._depth_locked(job, tup[0])
+            self._cond.notify_all()
+
+    def forget_job(self, job: str) -> None:
+        """Drop a drained job's scheduler state (its metric series are
+        removed by ``JobManager.drain``)."""
+        with self._lock:
+            self._inflight.pop(job, None)
+            self._waiting.pop(job, None)
+            self._instr.pop(job, None)
+            self._cond.notify_all()
+
+    def view(self) -> dict:
+        """Per-job admission state for /cluster and cli status."""
+        with self._lock:
+            names = (set(self._inflight) | set(self._waiting)
+                     | set(self._instr))
+            out = {}
+            for j in sorted(names):
+                fair, cap = self._limits(j)
+                out[j] = {"inflight": self._inflight.get(j, 0),
+                          "waiting": self._waiting.get(j, 0),
+                          "fair_share": fair, "max_inflight": cap}
+            return out
 
 
 class ParameterService:
@@ -238,9 +351,13 @@ class ParameterService:
     def __init__(self, store, faults=None, monitor=None,
                  reject_nonfinite: bool = False, sharding=None,
                  jobs=None):
-        if jobs is not None:
-            raise later("jobs")
         self.store = store
+        # Tenancy (ps/tenancy.JobManager): every envelope routes by its
+        # ``job`` meta key to that job's own store, worker ids stride per
+        # job, and push/fetch pass the weighted-fair admission below.
+        # None is the single-job server, byte-identical to a JAX one
+        # without jobs.
+        self.jobs = jobs
         # Deterministic fault injection (comms/faults.py): a spec string
         # becomes a server-side injector that wraps the worker RPC bodies
         # in handlers(); None = no faults.
@@ -301,6 +418,12 @@ class ParameterService:
             for name in RPC_NAMES
         }
         self._tm_exemplars = ExemplarSampler(rate=0.1, seed=os.getpid())
+        # Per-job QoS, built on the job table so a drain also tears down
+        # the job's scheduler state.
+        self.qos = None
+        if jobs is not None:
+            self.qos = WeightedFairAdmission(jobs, registry=reg)
+            jobs.qos = self.qos
         # Pushes refused because their frame failed the CRC trailer check
         # or did not decode.
         self._tm_wire_corrupt = reg.counter("dps_wire_corrupt_total")
@@ -440,7 +563,9 @@ class ParameterService:
                 return
             self._last_expire_check = now
         try:
-            expired = self.store.expire_stale_workers()
+            # Tenancy sweeps every job's store and reports GLOBAL ids.
+            expired = self.store.expire_stale_workers() \
+                if self.jobs is None else self.jobs.expire_stale_workers()
         except Exception:  # noqa: BLE001 — expiry must not fail the RPC
             return
         if expired:
@@ -453,18 +578,47 @@ class ParameterService:
 
     # -- RPC bodies (request bytes -> reply bytes) --------------------------
 
-    def _membership_fields(self) -> dict:
-        """Live membership for elastic remote workers; empty unless the
-        store is elastic."""
-        if not getattr(self.store.config, "elastic", False):
-            return {}
-        return {"active_workers": self.store.membership_snapshot()}
+    def _job_of(self, meta: dict) -> str:
+        """The envelope's job id. Tenancy off: always the default job,
+        the ``job`` key never read. Garbled ids degrade to the default
+        job, never fail the RPC."""
+        if self.jobs is None:
+            return DEFAULT_JOB
+        return normalize_job_id(meta.get("job"))
 
-    def _qscale_fields(self, have_step: int | None = None) -> dict:
+    def _route(self, meta: dict):
+        """``(job, store, local_worker_id)`` for an envelope: the job from
+        the ``job`` meta key (else from the global id's stride), its store
+        from the job table, and the LOCAL worker id with the per-job
+        stride taken off. Tenancy off routes everything to the primary
+        store with ids untouched."""
+        wid = meta.get("worker_id")
+        wid = None if wid is None else int(wid)
+        if self.jobs is None:
+            return DEFAULT_JOB, self.store, wid
+        job = normalize_job_id(meta.get("job"))
+        if job == DEFAULT_JOB and wid is not None:
+            job = self.jobs.job_name_of(wid)
+        lwid = None if wid is None else wid % WID_STRIDE
+        return job, self.jobs.store_for(job), lwid
+
+    def _membership_fields(self, store=None) -> dict:
+        """Live membership for elastic remote workers; empty unless the
+        store is elastic. ``store`` is a job's own store under tenancy
+        (membership is per job, in local ids)."""
+        store = self.store if store is None else store
+        if not getattr(store.config, "elastic", False):
+            return {}
+        return {"active_workers": store.membership_snapshot()}
+
+    def _qscale_fields(self, have_step: int | None = None,
+                       store=None) -> dict:
         """Shared-scale table fields for a reply: the store's per-layer
         gradient absmax table + version, attached when the store publishes
-        one AND the client's known version (``have_qscales``) is older."""
-        fn = getattr(self.store, "gradient_scales", None)
+        one AND the client's known version (``have_qscales``) is older.
+        ``store`` is a job's own store under tenancy."""
+        store = self.store if store is None else store
+        fn = getattr(store, "gradient_scales", None)
         if not callable(fn):
             return {}
         try:
@@ -887,9 +1041,17 @@ class ParameterService:
     def register_worker(self, request: bytes, ctx) -> bytes:
         meta, _ = unpack_msg(request)
         self._expire_tick()
-        store = self.store
+        # Under tenancy: register into the job's own store, then stride
+        # the local id so the cluster keeps one flat worker-id space. A
+        # legacy peer sends no ``job`` and lands in the default job,
+        # whose ids are the local ids.
+        job = self._job_of(meta)
+        store = self.store if self.jobs is None \
+            else self.jobs.store_for(job)
         worker_id, total = store.register_worker(
             meta.get("worker_name", ""))
+        if self.jobs is not None:
+            worker_id = self.jobs.to_global(job, worker_id)
         # Directive capability is advertised by the WORKER. A reused id
         # slot must not inherit its predecessor's undelivered directives,
         # quarantine or capability — a legacy replacement must not stay
@@ -903,8 +1065,9 @@ class ParameterService:
                 self._directive_capable.add(worker_id)
             else:
                 self._directive_capable.discard(worker_id)
-        # The keys and their order are a JAX server's without jobs; the
-        # shard map comes last, present only on a shard primary.
+        # The keys and their order are a JAX server's; ``jobs`` and the
+        # job the peer landed in only on a tenancy server, the shard map
+        # last, only on a shard primary.
         return pack_msg({
             "worker_id": worker_id,
             "total_workers": total,
@@ -923,8 +1086,10 @@ class ParameterService:
                 store, "supports_compressed_domain", False)),
             "directives": True,
             "checksum": True,
-            **self._qscale_fields(),
-            **self._membership_fields(),
+            **({"jobs": True, "job": job} if self.jobs is not None
+               else {}),
+            **self._qscale_fields(store=store),
+            **self._membership_fields(store),
             **self._shard_fields(),
         })
 
@@ -942,12 +1107,13 @@ class ParameterService:
         except Exception:  # noqa: BLE001
             pass
 
-    def _refuse_corrupt(self, wid, meta: dict) -> bytes:
+    def _refuse_corrupt(self, wid, meta: dict, store=None) -> bytes:
         """Refuse a push whose payload failed integrity verification (CRC
         trailer mismatch, or a frame the decoder rejects): counted, fed to
         the monitor's ``wire_corrupt`` rule, never applied, and never
         recorded in the dedupe table, so the client's clean retry of the
         same token can still apply."""
+        store = self.store if store is None else store
         self._tm_wire_corrupt.inc()
         if self.monitor is not None:
             try:
@@ -957,21 +1123,53 @@ class ParameterService:
         print(f"WIRE_CORRUPT push refused worker={wid}", flush=True)
         return pack_msg({"received": False, "accepted": False,
                          "corrupt": True,
-                         "global_step": self.store.global_step,
+                         "global_step": store.global_step,
                          **self._directive_fields(wid, meta)})
+
+    def _admit(self, job: str, ctx, rpc: str) -> None:
+        """Weighted-fair admission of one push or fetch (tenancy only):
+        a throttled RPC aborts RESOURCE_EXHAUSTED, which the client
+        retries with backoff."""
+        if self.qos.admit(job, self._admission_budget(ctx)):
+            return
+        if ctx is not None:
+            ctx.abort(grpc.StatusCode.RESOURCE_EXHAUSTED,
+                      f"job {job!r} throttled (weighted-fair "
+                      f"admission); retry with backoff")
+        raise TimeoutError(f"{rpc} throttled for job {job!r}")
+
+    @staticmethod
+    def _admission_budget(ctx) -> float:
+        """The admission wait, bounded by the caller's remaining deadline
+        minus a reply margin: a server-side wait must never outlive the
+        client's patience."""
+        budget = ADMISSION_WAIT_CAP_S
+        if ctx is not None and callable(getattr(ctx, "time_remaining",
+                                                None)):
+            remaining = ctx.time_remaining()
+            if remaining is not None:
+                budget = max(0.0, min(budget, remaining - 1.0))
+        return budget
 
     def push_gradrients(self, request: bytes, ctx) -> bytes:
         meta, payload = unpack_msg(request)
-        return self._push_body(meta, payload, ctx)
+        job, store, lwid = self._route(meta)
+        if self.qos is not None:
+            self._admit(job, ctx, "push")
+        try:
+            return self._push_body(meta, payload, ctx, job, store, lwid)
+        finally:
+            if self.qos is not None:
+                self.qos.release(job)
 
-    def _push_body(self, meta: dict, payload, ctx) -> bytes:
-        store = self.store
+    def _push_body(self, meta: dict, payload, ctx, job: str, store,
+                   lwid: int) -> bytes:
         wid = int(meta["worker_id"])
         # Integrity gate FIRST — before the dedupe records anything for
         # this token. None (no trailer) passes; only an explicit False
         # refuses.
         if len(payload) and frame_checksum_ok(payload) is False:
-            return self._refuse_corrupt(wid, meta)
+            return self._refuse_corrupt(wid, meta, store)
         self._ingest_health(wid, meta)
         self._expire_tick()
         health = meta.get("health")
@@ -989,6 +1187,10 @@ class ParameterService:
         entry = None
         if token is not None:
             nonce, count = parse_push_token(token)
+            # Job-scoped dedupe namespace: identical tokens under two jobs
+            # are distinct entries, and the journal filters per job. The
+            # default job's nonces stay bare.
+            nonce = job_key(job, nonce)
             with self._push_seen_lock:
                 prev = self._push_seen.get(nonce)
                 if prev is not None and count <= prev[0]:
@@ -1058,7 +1260,7 @@ class ParameterService:
                     if self._push_seen.get(nonce) is entry:
                         del self._push_seen[nonce]
                 entry[2].set()
-            return self._refuse_corrupt(wid, meta)
+            return self._refuse_corrupt(wid, meta, store)
         # Ownership filter: keys whose slot this primary does not own are
         # dropped from the apply and NAMED in the reply beside a fresh
         # map, so the client re-routes that slice to the current owner.
@@ -1072,7 +1274,7 @@ class ParameterService:
             shard_extra = {"disowned": disowned, **self._shard_fields()}
         accepted = False
         try:
-            accepted = store.push(wid, grads, int(meta["fetched_step"]))
+            accepted = store.push(lwid, grads, int(meta["fetched_step"]))
         finally:
             # On an exception the event still fires (outcome False), so a
             # waiting retry is never stranded until its timeout.
@@ -1087,18 +1289,21 @@ class ParameterService:
 
     # -- durable push-token journal ------------------------------------------
 
-    def journal_snapshot(self) -> list[dict]:
+    def journal_snapshot(self, job: str | None = None) -> list[dict]:
         """COMPLETED push-token outcomes, oldest first: the bounded
         journal a store snapshot persists (checkpoint/manager.py), so a
         restarted server still dedupes in-flight push retries from before
         the crash. In-flight entries are skipped: their outcome is
-        unknown. (The JAX method's ``job`` filter comes with tenancy,
-        ROADMAP §1 item 9.)"""
+        unknown. ``job`` filters to one job's namespace (nonces carry the
+        job prefix), so each job's checkpoint lineage journals only its
+        own tokens."""
         with self._push_seen_lock:
             return [
                 {"nonce": nonce, "count": e[0], "accepted": bool(e[1]),
                  "worker_id": e[3], "step": e[4]}
-                for nonce, e in self._push_seen.items() if e[2].is_set()
+                for nonce, e in self._push_seen.items()
+                if e[2].is_set()
+                and (job is None or split_job_key(nonce)[0] == job)
             ]
 
     def load_journal(self, entries) -> int:
@@ -1130,10 +1335,19 @@ class ParameterService:
                 self._push_seen.popitem(last=False)
         return loaded
 
-    # dpslint: hot-path — every worker ping; NM replies serve a cached encode
     def fetch_parameters(self, request: bytes, ctx) -> bytes:
         meta, _ = unpack_msg(request)
-        store = self.store
+        job, store, lwid = self._route(meta)
+        if self.qos is not None:
+            self._admit(job, ctx, "fetch")
+        try:
+            return self._fetch_body(meta, job, store, lwid)
+        finally:
+            if self.qos is not None:
+                self.qos.release(job)
+
+    # dpslint: hot-path — every worker ping; NM replies serve a cached encode
+    def _fetch_body(self, meta: dict, job: str, store, lwid) -> bytes:
         wid = None if meta.get("worker_id") is None \
             else int(meta["worker_id"])
         # Heartbeat pings are fetches: the report rides the ping's meta,
@@ -1143,7 +1357,7 @@ class ParameterService:
         have = meta.get("have_step")
         # The scale-table refresh rides the same reply, delta-gated on the
         # client's known version.
-        qfields = self._qscale_fields(meta["have_qscales"]) \
+        qfields = self._qscale_fields(meta["have_qscales"], store=store) \
             if "have_qscales" in meta else {}
         dfields = self._directive_fields(wid, meta)
         sfields = self._shard_fields(meta["have_shard_map"]) \
@@ -1152,18 +1366,20 @@ class ParameterService:
             if "have_topology" in meta else {}
         if have is not None \
                 and getattr(store, "supports_delta_fetch", False):
-            params, step = store.fetch(wid, have_step=int(have))
+            params, step = store.fetch(lwid, have_step=int(have))
             if not params and step == int(have):
                 # Version-gated delta fetch: the step hasn't advanced past
                 # what the client holds — the reply is a header.
-                mfields = self._membership_fields()
+                mfields = self._membership_fields(store)
                 if qfields or dfields or sfields or tfields:
                     return pack_msg({"global_step": step,
                                      "not_modified": True, **qfields,
                                      **dfields, **sfields, **tfields,
                                      **mfields})
-                # Attachment-free NM reply: serve the cached encode.
-                key = (step, repr(mfields))
+                # Attachment-free NM reply: serve the cached encode. The
+                # key holds the job, so two jobs idling at the same step
+                # never serve each other's cached header.
+                key = (job, step, repr(mfields))
                 with self._nm_lock:
                     if self._nm_cache is not None \
                             and self._nm_cache[0] == key:
@@ -1192,24 +1408,54 @@ class ParameterService:
                     self._nm_cond.notify_all()
                 return reply
         else:
-            params, step = store.fetch(wid)
+            params, step = store.fetch(lwid)
         if getattr(store, "keeps_device_arrays", False):
             params = store.to_host(params)
         return pack_msg({"global_step": step, **qfields, **dfields,
                          **sfields, **tfields,
-                         **self._membership_fields()},
+                         **self._membership_fields(store)},
                         encode_tensor_dict(params))
 
     def job_finished(self, request: bytes, ctx) -> bytes:
         meta, _ = unpack_msg(request)
-        self.store.job_finished(int(meta["worker_id"]))
+        _, store, lwid = self._route(meta)
+        store.job_finished(int(lwid))
         return pack_msg({"acknowledged": True})
 
     def submit_job(self, request: bytes, ctx) -> bytes:
-        err = later("jobs")
-        if ctx is not None:
-            ctx.abort(grpc.StatusCode.UNIMPLEMENTED, str(err))
-        raise err
+        """Admin-plane job control (docs/TENANCY.md): submit a job from a
+        one-entry ``--jobs``-grammar spec (``job_spec``), or drain one
+        (``drain_job``). A single-job server answers
+        FAILED_PRECONDITION."""
+        meta, _ = unpack_msg(request)
+        if self.jobs is None:
+            if ctx is not None:
+                ctx.abort(grpc.StatusCode.FAILED_PRECONDITION,
+                          "submit_job: tenancy is not enabled on this "
+                          "server (start it with --jobs)")
+            raise ValueError("submit_job on a single-job server")
+        drain = meta.get("drain_job")
+        if drain is not None:
+            try:
+                drained = self.jobs.drain(str(drain))
+            except ValueError as e:
+                if ctx is not None:
+                    ctx.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
+                raise
+            return pack_msg({"drained": bool(drained),
+                             "jobs": self.jobs.names()})
+        try:
+            specs = parse_jobs_spec(str(meta.get("job_spec") or ""))
+            if len(specs) != 1:
+                raise ValueError(
+                    "job_spec must declare exactly one job")
+            state = self.jobs.submit(specs[0])
+        except ValueError as e:
+            if ctx is not None:
+                ctx.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
+            raise
+        return pack_msg({"submitted": state.name, "index": state.index,
+                         "jobs": self.jobs.names()})
 
     # -- wiring --------------------------------------------------------------
 
@@ -1268,9 +1514,8 @@ class ParameterService:
         def wire(name, fn):
             # Fault injection sits INSIDE the instrumentation wrapper, so
             # injected delays/aborts land in the handler latency histogram
-            # and call counters like real ones. SubmitJob, refused here,
-            # is left unwrapped.
-            if self.faults is not None and name != "SubmitJob":
+            # and call counters like real ones.
+            if self.faults is not None:
                 fn = self.faults.wrap_handler(name, fn)
             return self._instrumented(name, fn)
 

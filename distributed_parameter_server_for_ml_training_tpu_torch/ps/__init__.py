@@ -1,8 +1,8 @@
 """Parameter stores and workers of the port: the in-process NumPy store
 (``make_store("python", ...)``), the C++ arena (``make_store("native",
 ...)``), the device-resident store (``make_store("device", ...)``), the
-shard partition (``sharding.py``), the PS workers that drive them, and
-the replica pool (``supervisor.py``).
+shard partition (``sharding.py``), multi-job tenancy (``tenancy.py``),
+the PS workers that drive them, and the replica pool (``supervisor.py``).
 
 The names are loaded on first use (PEP 562): the shard partition is
 plain Python, and the serve tier's host processes (``cli replica``,
@@ -20,6 +20,8 @@ _EXPORTS = {
     "partition_keys": "sharding", "shard_for_key": "sharding",
     "validate_shard_map": "sharding",
     "ParameterStore": "store", "StoreConfig": "store",
+    "DEFAULT_JOB": "tenancy", "JobManager": "tenancy", "JobSpec": "tenancy",
+    "parse_jobs_spec": "tenancy",
     "PSWorker": "worker", "WorkerConfig": "worker",
     "WorkerResult": "worker", "run_workers": "worker",
 }
@@ -58,10 +60,13 @@ def make_store(backend: str, flat_params, config,
 
 
 __all__ = [
+    "DEFAULT_JOB",
     "DEFAULT_STALENESS_BOUND",
     "SHARD_SLOTS",
     "ShardInfo",
     "DeviceParameterStore",
+    "JobManager",
+    "JobSpec",
     "PSWorker",
     "ParameterStore",
     "StoreConfig",
@@ -69,6 +74,7 @@ __all__ = [
     "WorkerResult",
     "make_store",
     "mean_gradients",
+    "parse_jobs_spec",
     "partition_keys",
     "run_workers",
     "sgd_apply",

@@ -7,9 +7,9 @@ rounds, the fetch codecs, and the snapshot and migration surface. The
 store is NumPy on the host and framework-neutral, so these are the
 reference's line for line. ``shard_index`` and ``shard_count`` are the
 identity a shard primary's snapshots carry (``cli serve --shard-index``,
-``checkpoint/manager.py:check_shard_identity``); ``job_id`` is validated
-as the JAX store validates it, and tenancy, which acts on it, comes with
-a later slice. The device-resident store (``ps/device_store.py``) shares
+``checkpoint/manager.py:check_shard_identity``); ``job_id`` is the job
+a tenancy server's store belongs to (``ps/tenancy.py``), validated as
+the JAX store validates it. The device-resident store (``ps/device_store.py``) shares
 the orchestration of :class:`AggregationBase`, and the C++ arena
 (``native/store.py``) its membership and instruments.
 
@@ -44,7 +44,6 @@ fetches.
 from __future__ import annotations
 
 import math
-import re
 import threading
 import time
 from collections import deque
@@ -73,16 +72,6 @@ from .semantics import (
 )
 
 MAX_WORKERS = 32  # server.py:424-426
-
-#: A job id: label-, path- and prefix-safe (the JAX package's
-#: ``ps/tenancy.py`` grammar, copied: tenancy itself is a later slice).
-_JOB_ID_RE = re.compile(r"^[A-Za-z0-9][A-Za-z0-9_\-]{0,63}$")
-
-
-def is_valid_job_id(value) -> bool:
-    """True when ``value`` is a well-formed job id."""
-    return isinstance(value, str) and bool(_JOB_ID_RE.match(value))
-
 
 @dataclass
 class StoreConfig:
@@ -128,13 +117,14 @@ class StoreConfig:
     # Composable with sync_quorum; None disables.
     round_deadline: float | None = None
     # Shard and job identity, validated as the JAX store validates them;
-    # a shard primary's snapshots carry the shard's (tenancy, which acts
-    # on the job, is a later slice).
+    # a shard primary's snapshots carry the shard's, a tenancy job's
+    # store its job's (ps/tenancy.py).
     shard_index: int = 0
     shard_count: int = 1
     job_id: str = "default"
 
     def __post_init__(self):
+        from .tenancy import is_valid_job_id  # cold path
         if not is_valid_job_id(self.job_id):
             raise ValueError(
                 f"job_id must match [A-Za-z0-9][A-Za-z0-9_-]* "

@@ -263,6 +263,10 @@ class WorkerSupervisor:
         the slots lock, so the new child can never miss stop()'s
         snapshot. Returns the new slot index (never a reused one)."""
         with self._slots_lock:
+            # stop() sets the flag before it takes this lock: a grow that
+            # loses the race spawns nothing instead of an orphan.
+            if self._stop.is_set():
+                raise RuntimeError("supervisor is stopped")
             slot = _Slot(index=self._next_slot_index)
             self._next_slot_index += 1
             self.slots.append(slot)
@@ -442,6 +446,7 @@ class ReplicaPool:
         self._lock = threading.Lock()
         self._procs: dict[int, subprocess.Popen] = {}  # guarded by: self._lock
         self._next_index = 0  # guarded by: self._lock
+        self._stopped = False  # guarded by: self._lock
         from ..telemetry import get_registry
         self._tm_live = get_registry().gauge("dps_replicas_live")
 
@@ -464,6 +469,10 @@ class ReplicaPool:
         tree-aware placement through to the argv builder (a two-arg
         ``argv_for``); the plain call keeps 1-arg builders working."""
         with self._lock:
+            # An autoscaler tick that lands after stop() must not leave
+            # an orphan replica behind the exiting primary.
+            if self._stopped:
+                raise RuntimeError("replica pool is stopped")
             idx = self._next_index
             self._next_index += 1
             built = self.argv_for(idx) if parent is None \
@@ -497,6 +506,7 @@ class ReplicaPool:
 
     def stop(self) -> None:
         with self._lock:
+            self._stopped = True
             procs = list(self._procs.values())
             self._procs.clear()
         _terminate(procs, self.graceful_timeout)

@@ -362,10 +362,13 @@ def test_port_client_refuses_a_sharded_registration(start_server, setup):
     assert (wid, total) == (0, 1)
     assert remote.supports_checksum and remote.supports_delta_fetch
     assert remote.repush_last(0) is None     # nothing pushed yet
+    # A single-job server answers the admin plane's SubmitJob
+    # FAILED_PRECONDITION, as a JAX server without --jobs does.
     for call in (lambda: remote.submit_job(""),
                  lambda: remote.drain_job("x")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(grpc.RpcError) as err:
             call()
+        assert err.value.code() == grpc.StatusCode.FAILED_PRECONDITION
     remote.job_finished(wid)
     remote.close()
     # Client-side faults are served: the spec arms the JAX package's
@@ -386,8 +389,14 @@ def test_port_client_refuses_a_sharded_registration(start_server, setup):
         del os.environ["DPS_FAULTS_CLIENT"]
     assert faulty.faults.spec == spec and faulty.faults.side == "client"
     faulty.close()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        PC.RemoteStore(address, job="vision")
+    # A client asking for a job against a server without tenancy lands in
+    # the only job there is and never labels an envelope.
+    tenant = PC.RemoteStore(address, job="vision", rpc_timeout=RPC_TIMEOUT)
+    wid, _ = tenant.register_worker("t")
+    meta = {}
+    tenant._attach_job(meta)
+    assert not tenant.supports_jobs and meta == {} and wid >= 0
+    tenant.close()
 
 
 def _read_port(proc, timeout: float) -> int:
@@ -449,15 +458,56 @@ def test_cli_serve_and_two_cli_workers(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["serve", "--jobs", "a:weight=1"], "item 9"),
-    (["worker", "--job", "vision", "--device", "cpu"], "item 9"),
-    (["loadgen", "--targets", "h:1", "--job", "vision"], "item 9"),
     (["perf", "check"], "item 11"),
 ], ids=lambda v: "_".join(v) if isinstance(v, list) else v)
 def test_cli_flags_of_later_slices_are_refused(argv, item):
     from distributed_parameter_server_for_ml_training_tpu_torch import cli
     with pytest.raises(NotImplementedError, match=f"ROADMAP §1 {item}"):
         cli.main(argv)
+
+
+@pytest.mark.parametrize("argv", [
+    ["serve", "--jobs", "a:weight=1"],
+    ["worker", "--job", "vision", "--device", "cpu"],
+    ["loadgen", "--targets", "h:1", "--job", "vision"],
+], ids=lambda v: "_".join(v))
+def test_cli_tenancy_flags_are_served(argv, monkeypatch):
+    """``serve --jobs``, ``worker --job`` and ``loadgen --job``, refused
+    until tenancy landed, reach what they drive: the service's job table,
+    the worker's ``RemoteStore(job=)``, the load generator's stamp."""
+    from distributed_parameter_server_for_ml_training_tpu_torch import cli
+    from distributed_parameter_server_for_ml_training_tpu_torch.comms \
+        import loadgen
+
+    class Reached(Exception):
+        pass
+
+    seen = {}
+
+    def stop(name):
+        def fn(*args, **kwargs):
+            seen[name] = (args, kwargs)
+            raise Reached
+        return fn
+
+    monkeypatch.setattr(PS, "serve", stop("serve"))
+    monkeypatch.setattr(PC, "RemoteStore", stop("RemoteStore"))
+    monkeypatch.setattr(loadgen, "run_loadgen", stop("run_loadgen"))
+    with pytest.raises(Reached):
+        cli.main(argv + (["--port", "0", "--num-classes", "10",
+                          "--no-health-monitor"]
+                         if argv[0] == "serve" else
+                         ["--synthetic", "--num-train", "8", "--num-test",
+                          "8"] if argv[0] == "worker" else []))
+    if argv[0] == "serve":
+        svc = seen["serve"][1]["service"]
+        assert svc.jobs.names() == ["default", "a"]
+        assert svc.qos is svc.jobs.qos
+        assert svc.jobs.qos_table()["a"] == (1.0, 8)
+    elif argv[0] == "worker":
+        assert seen["RemoteStore"][1]["job"] == "vision"
+    else:
+        assert seen["run_loadgen"][1]["job"] == "vision"
 
 
 @pytest.mark.parametrize("argv", [
@@ -620,9 +670,9 @@ def test_cli_flags_of_item_9_first_part_are_served(argv, tiny_cli, capsys,
 ], ids=lambda v: "_".join(v))
 def test_cli_telemetry_flags_are_served(argv):
     """The serve flags of ROADMAP §1 item 8's second part, refused until
-    it landed, pass the later-slice check."""
+    it landed, parse."""
     from distributed_parameter_server_for_ml_training_tpu_torch import cli
-    cli._refuse_later_flags(cli.build_parser().parse_args(argv))
+    cli.build_parser().parse_args(argv)
 
 
 @pytest.mark.parametrize("argv", [
@@ -631,10 +681,10 @@ def test_cli_telemetry_flags_are_served(argv):
     ["serve", "--store-backend", "device"],
 ], ids=lambda v: "_".join(v))
 def test_cli_checkpoint_and_device_store_flags_are_served(argv):
-    """The flags of ROADMAP §1 items 4 and 5 pass the later-slice check;
+    """The flags of ROADMAP §1 items 4 and 5 parse;
     ``--restore`` without a directory is refused as in JAX."""
     from distributed_parameter_server_for_ml_training_tpu_torch import cli
-    cli._refuse_later_flags(cli.build_parser().parse_args(argv))
+    cli.build_parser().parse_args(argv)
     if "--restore" in argv:
         with pytest.raises(SystemExit, match="needs --checkpoint-dir"):
             cli.main(["serve", "--restore"])

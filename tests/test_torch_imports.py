@@ -360,13 +360,15 @@ def test_comms_imports_nothing_unported():
     """``comms/`` imports only the wire, the service, the client, the
     sharded client, the serve tier (fault injector, replica, load
     generator), the telemetry, the packed int4 type, (lazily) the fetch
-    codecs and, of ``ps/``, only the shard partition (plain Python, as
-    the JAX service and client import it): never a store."""
+    codecs and, of ``ps/``, only the shard partition and the tenancy
+    table (plain Python, as the JAX service and client import them):
+    never a store."""
     allowed = {"comms", "comms.wire", "comms.service", "comms.client",
                "comms.sharded", "comms.faults", "comms.replica",
                "comms.loadgen", "telemetry", "telemetry.registry",
                "telemetry.trace", "telemetry.journal", "telemetry.stats",
-               "ops.packed", "ops.compression", "ps.sharding"}
+               "ops.packed", "ops.compression", "ps.sharding",
+               "ps.tenancy"}
     for path in sorted((PORT / "comms").glob("*.py")):
         for target in _relative_imports(path):
             local = target.split(".", 1)[1] if "." in target else ""
@@ -474,9 +476,8 @@ def test_tp_entry_points_default_to_cuda():
 
 
 def test_later_flags_name_only_items_8_and_9():
-    """The CLI refuses only the flags and verbs of later ROADMAP items:
-    item 9's (the service's refusals name item 9 too) and ``perf
-    check``, which waits for item 11 (port tooling). Item 10's third
+    """The CLI refuses only ``perf check``, which waits for ROADMAP item
+    11 (port tooling); no flag is refused any more. Item 10's third
     part serves ``--tp-degree``, ``--dp-degree`` and ``--pp-tp-degree``
     at every value (the meshes of two and three axes). Item 8's flags are
     served since its second part (``--telemetry``, ``--metrics-port``,
@@ -489,18 +490,18 @@ def test_later_flags_name_only_items_8_and_9():
     serve tier ``--faults`` (its spec arming the JAX package's schedule),
     ``serve --autoscale*`` and the verbs ``replica``, ``loadgen`` and
     ``infer``, and since its parts 2 and 5 the verbs ``reshard`` and
-    ``supervise``; ``--jobs`` and ``--job`` are refused naming item 9."""
+    ``supervise``, and since its part 6 tenancy's ``--jobs`` and
+    ``--job``."""
     from distributed_parameter_server_for_ml_training_tpu_torch import cli
     from distributed_parameter_server_for_ml_training_tpu_torch.comms \
-        import client, service
+        import client, loadgen, service
     items = set()
-    for where in (*cli.LATER_FLAGS.values(), *cli.LATER_VERBS.values()):
+    for where in cli.LATER_VERBS.values():
         items |= {int(n) for n in re.findall(r"item (\d+)", where)}
-    assert items == {9, 11}
-    for text in (*service.LATER.values(), *client._LATER.values()):
-        assert {int(n) for n in re.findall(r"item (\d+)", text)} \
-            <= {8, 9}, text
-    assert set(cli.LATER_FLAGS) == {"jobs", "job"}
+    assert items == {11}
+    for mod, name in ((cli, "LATER_FLAGS"), (service, "LATER"),
+                      (client, "_LATER"), (loadgen, "TENANCY")):
+        assert not hasattr(mod, name), name
     assert set(cli.LATER_VERBS) == {"perf check"}
     parser = cli.build_parser()
     for argv in (["serve", "--fetch-codec", "bf16", "--elastic",
@@ -539,17 +540,16 @@ def test_later_flags_name_only_items_8_and_9():
                  ["train", "--mode", "pp", "--pp-microbatches", "4",
                   "--tp-degree", "2", "--dp-degree", "1",
                   "--pp-tp-degree", "1"]):
-        cli._refuse_later_flags(parser.parse_args(argv))
+        parser.parse_args(argv)
     for flag in ("--tp-degree", "--dp-degree", "--pp-tp-degree"):
         for mode in ("tp", "pp", "moe"):
             args = parser.parse_args(["train", "--mode", mode, flag, "4"])
-            cli._refuse_later_flags(args)
             assert getattr(args, flag[2:].replace("-", "_")) == 4
     for argv in (["serve", "--store-backend", "native", "--shard-count",
                   "2", "--shard-index", "1", "--shard-peers", "a:1,b:2"],
                  ["train", "--store-backend", "native"],
                  ["worker", "--shards", "a:1,b:2"]):
-        cli._refuse_later_flags(parser.parse_args(argv))
+        parser.parse_args(argv)
     from distributed_parameter_server_for_ml_training_tpu.comms import \
         faults as jfaults
     from distributed_parameter_server_for_ml_training_tpu_torch.comms \
@@ -573,15 +573,15 @@ def test_later_flags_name_only_items_8_and_9():
                   "http://a:1", "--device", "cpu", "--telemetry", "--",
                   "--server", "a:1"]):
         args = parser.parse_args(argv)
-        cli._refuse_later_flags(args)
         spec = getattr(args, "faults", None)
         if spec:
             for op in ("PushGradrients", "FetchParameters"):
                 assert faults.FaultInjector(spec).schedule_preview(op, 20) \
                     == jfaults.FaultInjector(spec).schedule_preview(op, 20)
-    for argv in (["worker", "--job", "vision"],
-                 ["loadgen", "--targets", "a:1", "--job", "vision"]):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            cli._refuse_later_flags(parser.parse_args(argv))
+    for argv, dest in ((["serve", "--jobs", "a:weight=2;b"], "jobs"),
+                       (["worker", "--job", "vision"], "job"),
+                       (["loadgen", "--targets", "a:1", "--job",
+                         "vision,ranker"], "job")):
+        assert getattr(parser.parse_args(argv), dest) == argv[-1]
     with pytest.raises(NotImplementedError, match="item 11"):
         cli.main(["perf", "check"])

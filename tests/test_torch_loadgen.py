@@ -70,8 +70,13 @@ def test_reports_merge_and_parse_as_jax():
     got = PL.loadgen_child_argv("a:1,b:2", 1.5, 3, "delta", python="py")
     want = JL.loadgen_child_argv("a:1,b:2", 1.5, 3, "delta", python="py")
     assert got == [a.replace("_tpu.cli", "_tpu_torch.cli") for a in want]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        PL.loadgen_child_argv("a:1", 1, 1, "full", job="vision")
+    # ``--job`` rides the scale-out children's argv, as JAX's does.
+    got = PL.loadgen_child_argv("a:1", 1, 1, "full", job="a,b",
+                                python="py")
+    want = JL.loadgen_child_argv("a:1", 1, 1, "full", job="a,b",
+                                 python="py")
+    assert got == [a.replace("_tpu.cli", "_tpu_torch.cli") for a in want]
+    assert got[got.index("--job") + 1] == "a,b"
 
 
 @pytest.mark.parametrize("mode", ["full", "delta", "infer"])
@@ -96,8 +101,19 @@ def test_run_loadgen_against_a_primary_and_a_replica(mode):
     if mode == "infer":
         assert res["arms"]["stable"]["ok"] == res["fetches_ok"]
         assert res["arms"]["stable"]["serving_steps"] == [0]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        PL.run_loadgen(targets, duration_s=0.1, job="vision")
+    # The job stamp: threads round-robin over the list, and the result
+    # breaks the fetches down by job (a server without tenancy serves
+    # every one from its single job).
+    store, svc, server, paddr = primary()
+    try:
+        res = PL.run_loadgen([paddr], duration_s=0.2, concurrency=2,
+                             mode=mode if mode != "infer" else "full",
+                             rpc_timeout=5.0, job="vision,ranker")
+    finally:
+        server.stop(grace=None)
+    assert set(res["jobs"]) == {"vision", "ranker"}
+    assert sum(r["ok"] for r in res["jobs"].values()) == res["fetches_ok"]
+    assert all(r["ok"] > 0 and r["err"] == 0 for r in res["jobs"].values())
 
 
 def _cli(argv, capsys, prefix):

@@ -307,3 +307,35 @@ def test_replica_pool_equals_jax(case):
         "-m", "distributed_parameter_server_for_ml_training_tpu_torch.cli"]
     assert argv[3:] == ["replica", "--primary", "h:1", "--port", "0",
                         "--parent", "i:9", "--shard-id", "3"]
+
+
+def test_stopped_pool_grows_nothing():
+    """An autoscaler tick that lands after the pool's stop (the monitor
+    still ticking while ``cli serve`` exits) spawns no replica: the grow
+    is refused and recorded as an ``error`` outcome, so no child outlives
+    its primary."""
+    spawned = []
+
+    def spawn(argv, env):
+        spawned.append(_Proc(argv, env))
+        return spawned[-1]
+
+    pool = ReplicaPool(lambda idx, parent=None: build_replica_argv(
+        "localhost:9999", [], idx, parent=parent), spawn=spawn,
+        log=lambda line, **kw: None)
+    t = [100.0]
+    asc = ReplicaAutoscaler(pool, AutoscalePolicy(
+        qps_high=10.0, qps_low=1.0, cooldown_s=0.0, min_replicas=1),
+        registry=MetricsRegistry(), clock=lambda: t[0],
+        fetch_total_fn=lambda: 0.0)
+    assert asc.tick() is None
+    t[0] += 1.0
+    assert asc.tick()["outcome"] == "ok" and pool.count() == 1
+    pool.stop()
+    t[0] += 1.0
+    event = asc.tick()
+    assert (event["action"], event["outcome"]) == ("replica_grow", "error")
+    with pytest.raises(RuntimeError, match="stopped"):
+        pool.grow()
+    assert len(spawned) == 1 and spawned[0].terminated
+    assert pool.count() == 0

@@ -10,9 +10,10 @@ port's with ``device="cpu"``); the push-token journal a checkpoint
 persists is the JAX service's, and a service that loads it answers a
 retry as a duplicate; with a cluster monitor, ``reject_nonfinite``,
 quarantines and posted directives, one scripted sequence of requests and
-service calls gives byte-equal replies and equal returns; the parts of
-the JAX service this slice leaves out are refused, naming their ROADMAP
-item."""
+service calls gives byte-equal replies and equal returns; a job table
+wires the weighted-fair admission, and a single-job server answers
+``SubmitJob`` as the JAX one does (the tenancy scripts are in
+``test_torch_tenancy.py``)."""
 
 import threading
 import time
@@ -305,11 +306,28 @@ def test_capability_advertisement_is_a_default_jax_servers():
     assert list(got.items()) == list(want.items())
 
 
-@pytest.mark.parametrize("kwarg,item", [("jobs", "item 9")])
-def test_unported_service_options_are_refused(kwarg, item):
-    store = ParameterStore(_params(), StoreConfig(total_workers=1))
-    with pytest.raises(NotImplementedError, match=item):
-        PS.ParameterService(store, **{kwarg: True})
+@pytest.mark.parametrize("kwarg", ["jobs"])
+def test_service_options_of_the_serve_tier_are_served(kwarg):
+    """``jobs=``, refused until tenancy landed: the service builds its
+    weighted-fair admission on the job table and hands it to the table
+    (so a drain drops the job's scheduler state), as JAX's does."""
+    from distributed_parameter_server_for_ml_training_tpu.ps.tenancy \
+        import JobManager as JaxJobs
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps \
+        .tenancy import JobManager
+    built = {}
+    for name, mod, jobs_cls, store in (
+            ("jax", JS, JaxJobs, JaxStore(_params(), JaxConfig(
+                total_workers=1))),
+            ("port", PS, JobManager, ParameterStore(_params(), StoreConfig(
+                total_workers=1)))):
+        svc = mod.ParameterService(store, **{kwarg: jobs_cls(store)})
+        assert svc.qos is svc.jobs.qos
+        assert isinstance(svc.qos, mod.WeightedFairAdmission)
+        built[name] = (svc.qos.capacity, svc.jobs.names(),
+                       svc.jobs.qos_table())
+    assert built["port"] == built["jax"] == (16, ["default"],
+                                             {"default": (1.0, 8)})
 
 
 def test_service_faults_replay_the_jax_services_script():
@@ -357,15 +375,67 @@ def test_service_faults_replay_the_jax_services_script():
         np.testing.assert_array_equal(pp[k], v)
 
 
-@pytest.mark.parametrize("call,item", [
-    (lambda s: s.submit_job(JS.pack_msg({}), None), "item 9"),
-    (lambda s: PS.WeightedFairAdmission(None), "item 9")],
-    ids=["submit_job", "admission"])
-def test_unported_service_parts_are_refused(call, item):
-    svc = PS.ParameterService(ParameterStore(_params(),
-                                             StoreConfig(total_workers=1)))
-    with pytest.raises(NotImplementedError, match=item):
-        call(svc)
+class _AbortCtx:
+    """A handler context whose ``abort`` records the status and raises,
+    as gRPC's does."""
+
+    def __init__(self):
+        self.aborted = None
+
+    def abort(self, code, details):
+        self.aborted = (code, details)
+        raise RuntimeError(details)
+
+    def time_remaining(self):
+        return 1.05     # an admission budget of 0.05 s
+
+
+@pytest.mark.parametrize("part", ["submit_job", "admission"])
+def test_service_parts_of_the_serve_tier_are_served(part):
+    """``submit_job`` and ``WeightedFairAdmission``, refused until tenancy
+    landed. A single-job server answers ``SubmitJob``
+    FAILED_PRECONDITION with the JAX text; a throttled push aborts
+    RESOURCE_EXHAUSTED with it, and both packages count the same."""
+    from distributed_parameter_server_for_ml_training_tpu.ps.tenancy \
+        import JobManager as JaxJobs, JobSpec as JaxSpec
+    from distributed_parameter_server_for_ml_training_tpu.telemetry \
+        .registry import MetricsRegistry as JaxRegistry
+    from distributed_parameter_server_for_ml_training_tpu_torch.ps \
+        .tenancy import JobManager, JobSpec
+    from distributed_parameter_server_for_ml_training_tpu_torch.telemetry \
+        .registry import MetricsRegistry
+    got = {}
+    for name, mod, store, jobs_cls, spec, reg in (
+            ("jax", JS, JaxStore(_params(), JaxConfig(total_workers=1)),
+             JaxJobs, JaxSpec, JaxRegistry()),
+            ("port", PS, ParameterStore(_params(), StoreConfig(
+                total_workers=1)), JobManager, JobSpec, MetricsRegistry())):
+        ctx = _AbortCtx()
+        if part == "submit_job":
+            svc = mod.ParameterService(store)
+            with pytest.raises(RuntimeError):
+                svc.submit_job(JS.pack_msg({"job_spec": "a"}), ctx)
+            got[name] = ctx.aborted
+            continue
+        jobs = jobs_cls(store, [spec("a", max_inflight=1)], registry=reg)
+        svc = mod.ParameterService(store, jobs=jobs)
+        svc.qos = mod.WeightedFairAdmission(jobs, registry=reg)
+        jobs.qos = svc.qos
+        assert svc.qos.admit("a", 0.0)          # holds a's only slot
+        with pytest.raises(RuntimeError):
+            svc.push_gradrients(JS.pack_msg(
+                {"worker_id": 4096, "fetched_step": 0, "job": "a",
+                 "push_token": "n:1"}), ctx)
+        svc.qos.release("a")
+        got[name] = (ctx.aborted, svc.qos.view(),
+                     reg.counter("dps_job_throttled_total", job="a").value,
+                     reg.counter("dps_job_admitted_total", job="a").value)
+    assert got["port"] == got["jax"]
+    aborted = got["port"] if part == "submit_job" else got["port"][0]
+    assert aborted[0].name == ("FAILED_PRECONDITION" if part == "submit_job"
+                               else "RESOURCE_EXHAUSTED")
+    if part == "admission":
+        assert got["port"][2:] == (1.0, 1.0)
 
 
 def test_port_store_declares_the_jax_capability_flags():

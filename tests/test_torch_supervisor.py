@@ -203,6 +203,29 @@ def test_supervisor_script_equal_to_jax(name):
         assert got["children_gauge"] == 0
 
 
+def test_stopped_supervisor_grows_nothing():
+    """A worker-autoscaler grow that lands after the supervisor stopped
+    (its thread still ticking while ``cli supervise`` exits) spawns no
+    child: the grow is refused, so no worker outlives its supervisor."""
+    spawned = []
+
+    def spawn(argv, env):
+        spawned.append(FakeProc(clock, None, 0))
+        return spawned[-1]
+
+    clock = FakeClock()
+    sup = SUP.WorkerSupervisor(lambda s, a: [f"child-{s}-{a}"], 1,
+                               SUP.SupervisorConfig(**FAST), clock=clock,
+                               spawn=spawn, log=lambda msg, **kw: None)
+    sup.start()
+    assert sup.grow() == 1 and len(spawned) == 2
+    sup.stop()
+    with pytest.raises(RuntimeError, match="stopped"):
+        sup.grow()
+    assert len(spawned) == 2 and sup.count() == 0
+    assert [p.poll() for p in spawned] == [-15, -15]
+
+
 def test_supervisor_refuses_no_slots():
     for mod, _, _ in PKGS.values():
         with pytest.raises(ValueError, match="n_workers"):
