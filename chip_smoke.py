@@ -76,7 +76,7 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    0.010000001, 0.001 bit for bit;
    (c) the reference recipe in bf16 with augmentation, 2 epochs with the
    per-batch host loop and 2 with the captured loop: epoch seconds, img/s
-   over the second epoch, loss, accuracies, peak memory, and 20 steps of
+   over the second epoch, loss, accuracies, peak memory, and 5 steps of
    each under torch.profiler; each must learn (test accuracy above 2 %
    after epoch 2, epoch 2's loss below epoch 1's);
 10. the flash kernels against their plain versions: the wgmma forward
@@ -201,7 +201,7 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    rule fires, no directive is posted, no push is quarantined, and an SLO
    burn rule fires only where the evaluator's own fetch-latency numbers
    breach it (reported). Then img/s with the monitor off and on in turns
-   (off, on, on, off; 4 steps a worker, eval off), the health note's host
+   (off, on, on, off; 2 steps a worker, eval off), the health note's host
    µs a boundary,
    and the device->host copies it adds a boundary (at most 1) from two
    profiled runs' memcpy events. (b) The self-heal drill: fp16 pushes,
@@ -221,7 +221,7 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
 19. every registry model under the data-parallel modes, on
    ``synthetic_imagenet(512, 256)`` at 224 x 224, 1,000 classes, bf16:
    (a) ResNet-50 (the ImageNet stem) through ``BaselineTrainer``, 2
-   epochs of 4 steps of 128 eager and 2 graphed, each profiled over 4
+   epochs of 4 steps of 128 eager and 2 graphed, each profiled over 2
    steps (img/s, step ms, idle share, peak GiB); one step at batch 2 on
    the card against the CPU in float64, params, batch statistics and
    momentum within atol 1e-5 / rtol 1e-3; ResNet-18 with the ImageNet
@@ -338,8 +338,8 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    tokens), 4 experts, batch 32, on ``synthetic_imagenet`` at 224 px:
    one epoch of 4 steps and one eval batch with every kernel count reset
    just before and read just after (all 0: the dense core and no codec),
-   then 6 steps timed one by one (median step ms, img/s), peak GiB, one
-   profiled step (idle share, top device kernels), and the three MoE
+   then 3 steps timed one by one (median step ms, img/s), peak GiB, 3
+   profiled steps (idle share, top device kernels), and the three MoE
    metrics, finite, the drop fraction in [0, 1].
 24. GPipe/1F1B pipeline parallelism (``parallel/pipeline.py``,
    ``PipelineTrainer``): (a) ``make_pipeline_train_step`` over four
@@ -350,7 +350,7 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    schedule's step ms and peak GiB above its inputs. (b)
    ``PipelineTrainer``, 4 stages x 8 microbatches, batch 32, bf16,
    ViT-B/16 at 224 px: an epoch of 2 steps and an eval batch (kernel
-   counts all 0), 3 steps timed, img/s, peak GiB, one profiled step.
+   counts all 0), 2 steps timed, img/s, peak GiB, one profiled step.
 25. tensor parallelism and the multi-axis mesh (``parallel/tensor.py``,
    ``TPTrainer``, dp x ep, dp x tp x pp): (a) one ViT-B/16
    ``EncoderBlock`` (D 768, 12 heads, MLP 3,072, batch 8 x 197 tokens),
@@ -362,7 +362,7 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    within 1e-4 and bf16 within 2e-2, and each form's bf16 forward +
    backward ms. (b) ``TPTrainer`` ViT-B/16 bf16 batch 32 at data x model
    1 x 1 (the yardstick), 2 x 2, 1 x 4 and 1 x 1 again, in turns: an
-   epoch of 2 steps and an eval batch (kernel counts all 0), 10 steps
+   epoch of 2 steps and an eval batch (kernel counts all 0), 3 steps
    timed (median step ms, img/s, against the two 1 x 1 turns' mean), peak
    GiB, one profiled step (idle share, top
    kernels), and the TP glue's share of device time (one block's
@@ -484,7 +484,25 @@ Phases (each prints JSON lines; any failure makes the exit code 1):
    third job; SIGTERM (exit 143), each job's lineage at its worker's
    steps with only its own token, a cross-job restore refused, then
    ``serve ... --restore``: each job's step and params served again
-   (seconds to restore).
+   (seconds to restore);
+31. MoE experts and pipeline stages over several processes
+   (``MoETrainer(group=)``, ``PipelineTrainer(group=)``; ViT-B/16 at 224
+   px, batch 32, 4 experts, 4 stages x 8 microbatches, no augmentation):
+   (b) two gloo rank processes sharing the card (``mp_rank``, collectives
+   staged through the host), 2 experts and 2 stages a rank, start first;
+   (a) runs in this process meanwhile: one fp32 step of each trainer on
+   one process, then through a one-rank NCCL group, cuDNN
+   deterministic, bit-equal, with the predicted byte counts. (b): one
+   fp32 step of each, and one 1F1B step (``make_pipeline_train_step``) on
+   the pipeline's fresh stages and seeded activations, held to (a)'s
+   one-process steps within 1e-4 of the largest value; the ranks' shared
+   leaves (all but the experts' rows; the prologue and epilogue)
+   bit-identical; then each trainer in bf16: its epoch (kernel counts all
+   0: 196 / 197 tokens take the dense core), 1 step timed (median step
+   ms, img/s), one profiled step a rank (idle share), the ranks' losses
+   and MoE metrics equal, and the step's collective bytes a rank equal to
+   ``collective_bytes.moe_step_bytes`` / ``pipeline_step_bytes``. (c) the
+   same as (b) with NCCL between two cards, where there are two.
    Each phase reports its own seconds, and the script its total.
 
 Last, no process that the run started may outlive it: every one carries
@@ -1598,7 +1616,7 @@ def phase_sync_profile(state: dict) -> None:
 BASELINE_EPOCHS = 2          # (c): eager and graphed, bf16
 # The set: 100 steps an epoch of batch 128, and a test set of 2,000.
 BASELINE_TRAIN, BASELINE_TEST = 12_800, 2_000
-BASELINE_PROFILE_STEPS = 10   # (c): steps in each profile
+BASELINE_PROFILE_STEPS = 5    # (c): steps in each profile
 
 
 def _baseline_parts(dtype: str, device: str, milestones, steps_per_epoch,
@@ -1682,7 +1700,7 @@ def phase_baseline(state: dict) -> None:
     (b) the captured epoch loop against the eager one over the same
     permutations, fp32, augment on, 3 epochs of 4 steps across
     milestones (1, 2); (c) the reference recipe in bf16, 2 epochs eager
-    and 2 graphed, each profiled over 20 steps."""
+    and 2 graphed, each profiled over 5 steps."""
     import itertools
 
     import torch
@@ -3636,7 +3654,7 @@ def _health_stack(store, parts: dict, quarantine_s: float = 30.0,
 
 
 #: (a): batches of 128 a worker in each monitor off/on turn.
-HEALTH_TURN_STEPS = 4
+HEALTH_TURN_STEPS = 2
 
 
 def _health_main(state: dict) -> None:
@@ -4030,7 +4048,7 @@ def phase_health(state: dict) -> None:
 # -- phase 19: every registry model under the data-parallel modes ------------
 
 MODELS_TRAIN, MODELS_TEST = 512, 256     # synthetic ImageNet, 224 px
-MODELS_PROFILE_STEPS = 4                 # one epoch of the baseline's 4
+MODELS_PROFILE_STEPS = 2                 # of an epoch of the baseline's 4
 R50_VALUES, VIT_VALUES = 25_557_032, 86_567_656
 
 
@@ -4053,7 +4071,7 @@ def _subset(ds, n_train: int, n_test: int):
 
 def _models_baseline(state: dict, ds, out: dict, failures: list) -> None:
     """(a) ResNet-50 through ``BaselineTrainer``, 2 epochs eager and 2
-    graphed (4 steps each), each profiled over an epoch's steps; one
+    graphed (4 steps each), each profiled over 2 steps; one
     step
     card against CPU in float64 at batch 2; ResNet-18 with the ImageNet
     stem for 4 eager steps."""
@@ -5944,12 +5962,12 @@ def phase_sp_multihost(state: dict) -> None:
 MOE_E, MOE_D, MOE_H = 4, 768, 3072   # ViT-B/16's width, 4 experts
 MOE_BATCH, MOE_TOKENS = 32, 196      # 224 px, gap pool: 14 x 14 patches
 MOE_TRAIN_STEPS = 4                  # (b): one epoch of 4 batches of 32
-MOE_TIMED_STEPS = 6                  # (b): steps timed after the epoch
+MOE_TIMED_STEPS = 3                  # (b): steps timed after the epoch
 F64_TOL = dict(rtol=1e-9, atol=1e-9)  # card vs CPU, both float64
 FP32_REL_TOL = 1e-4                  # max |a - b| / max |b|, fp32
 PP_STAGES, PP_M, PP_BATCH = 4, 8, 32  # 4 x 3 ViT-B/16 blocks, M = 8
 PP_TOKENS = 197                      # 224 px with the CLS token
-PP_TIMED_STEPS = 3                   # (b): host-bound, ~0.6-1.2 s a step
+PP_TIMED_STEPS = 2                   # (b): host-bound, ~0.6-1.2 s a step
 
 
 def _counts_all() -> dict:
@@ -6323,7 +6341,7 @@ TP_BLOCK_BATCH, TP_TOKENS = 8, 197       # (a): 224 px with the CLS token
 TP_DEGREES = (2, 4, 8)                   # (a): 8 splits inside a head
 # (b): (data, model) in turns, the yardstick first and last.
 TP_MESHES = ((1, 1), (2, 2), (1, 4), (1, 1))
-TP_BATCH, TP_TRAIN_STEPS, TP_TIMED_STEPS = 32, 2, 5
+TP_BATCH, TP_TRAIN_STEPS, TP_TIMED_STEPS = 32, 2, 3
 TP_PP_TIMED_STEPS = 2                    # (c): the host-bound pipeline
 BF16_REL_TOL = 2e-2                      # max |a - b| / max |b|, bf16 out
 F64_REL_TOL = 1e-12                      # the same, both float64
@@ -9437,6 +9455,484 @@ def phase_tenancy(state: dict) -> None:
         raise AssertionError(f"phase 30: {failures}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 31: MoE experts and pipeline stages spread over ranks
+# ---------------------------------------------------------------------------
+
+MPM_BATCH, MPM_E, MPM_STAGES, MPM_M = 32, 4, 4, 8  # ViT-B/16, 224 px
+MPM_TIMED_STEPS = 1           # (b), (c): bf16 steps timed after the epoch
+MPM_TIMEOUT_S = 240           # (b), (c): each rank process, start to exit
+
+
+def _mpm_dataset():
+    from distributed_parameter_server_for_ml_training_tpu_torch.data \
+        import synthetic_imagenet
+
+    return synthetic_imagenet(n_train=MPM_BATCH, n_test=MPM_BATCH,
+                              num_classes=1000, image_size=224, seed=31)
+
+
+def _mpm_trainer(ds, kind: str, dtype: str, group=None):
+    """An MoE (4 experts) or pipeline (4 stages x 8 microbatches) trainer
+    of ViT-B/16 at 224 px on ``ds`` (:func:`_mpm_dataset`), batch 32, one
+    epoch of one step, no augmentation, from seed 0 (every rank and one
+    process draw the same weights)."""
+    from distributed_parameter_server_for_ml_training_tpu_torch.train \
+        .model_parallel import (ModelParallelConfig, MoETrainer,
+                                PipelineTrainer)
+
+    cfg = ModelParallelConfig(
+        model="vit_b16", num_workers=MPM_E if kind == "moe" else MPM_STAGES,
+        pp_microbatches=MPM_M, batch_size=MPM_BATCH, num_epochs=1,
+        num_classes=1000, dtype=dtype, augment=False, device="cuda")
+    cls = MoETrainer if kind == "moe" else PipelineTrainer
+    return cls(ds, cfg, group=group)
+
+
+def _mpm_1f1b(trainer):
+    """One 1F1B step (``make_pipeline_train_step``) over the trainer's
+    stages (this rank's, over ranks) on seeded fp32 activations ``[32,
+    197, 768]`` and targets: the loss and the stacked gradients."""
+    import torch
+    from torch.func import functional_call
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.parallel \
+        .pipeline import make_pipeline_train_step
+
+    template = trainer.model.stages
+    stacked = {k: v.detach() for k, v in template.named_parameters()}
+    gen = torch.Generator().manual_seed(310)
+    x = torch.randn(MPM_BATCH, PP_TOKENS, 768, generator=gen).cuda()
+    y = torch.randn(MPM_BATCH, PP_TOKENS, 768, generator=gen).cuda()
+    step = make_pipeline_train_step(
+        trainer.mesh, lambda p, h: functional_call(template, p, (h,)),
+        lambda pred, target: torch.mean((pred - target) ** 2), MPM_M,
+        schedule="1f1b")
+    loss, grads = step(stacked, x, y)
+    return loss, grads
+
+
+def _mpm_shared(trainer) -> list:
+    """The leaves every rank holds whole: all but the experts' rows
+    (MoE), the prologue and epilogue (pipeline)."""
+    from distributed_parameter_server_for_ml_training_tpu_torch.utils \
+        .pytree import rank_stacked
+
+    return [v for k, v in trainer.state.params.items()
+            if not rank_stacked(k)]
+
+
+def _mpm_bytes_model(trainer, kind: str, rank: int, ranks: int) -> dict:
+    """The step's collective bytes from the shapes
+    (``utils/collective_bytes.py``)."""
+    from distributed_parameter_server_for_ml_training_tpu_torch.utils \
+        import collective_bytes as cb
+    from distributed_parameter_server_for_ml_training_tpu_torch.utils \
+        .pytree import rank_stacked
+
+    model = trainer.model
+    if kind == "moe":
+        replicated = sum(p.numel() for n, p in model.named_parameters()
+                         if not rank_stacked(n))
+        return cb.moe_step_bytes(ranks, MPM_E, trainer.capacity, 768,
+                                 model.depth, replicated)
+    width = 2 if trainer.config.dtype == "bfloat16" else 4
+    return cb.pipeline_step_bytes(
+        ranks, rank, MPM_M, MPM_BATCH // MPM_M * PP_TOKENS * 768 * width,
+        MPM_BATCH * 768 * width,
+        sum(p.numel() for p in model.prologue.parameters()))
+
+
+def _mpm_params(trainer) -> dict:
+    return {k: v.detach().clone() for k, v in trainer.state.params.items()}
+
+
+def _mpm_max_rel(got: dict, want: dict) -> float:
+    """The largest max |a - b| / max |b| over the leaves, in float64 on
+    the card."""
+    import torch
+
+    out = 0.0
+    for k, b in want.items():
+        a, b = got[k].to(b.device, torch.float64), b.double()
+        out = max(out, float((a - b).abs().max()
+                             / b.abs().max().clamp_min(1e-30)))
+    return out
+
+
+def _mpm_save(obj, path: Path) -> None:
+    """``torch.save`` under a temporary name, then renamed: the phase's
+    process reads the file as soon as it is there."""
+    import torch
+
+    part = path.with_suffix(".part")
+    torch.save(obj, part)
+    os.replace(part, path)
+
+
+def _mpm_one_rank(state: dict) -> dict:
+    """(a): one fp32 step of each trainer on one process, then through a
+    one-rank NCCL group, cuDNN deterministic; the one-process params are
+    kept for (b). The pipeline's 1F1B step on its fresh weights too."""
+    import torch
+    import torch.distributed as dist
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.parallel \
+        import multihost as mh
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out, refs, problems = {}, {}, []
+    ds = _mpm_dataset()
+    try:
+        for kind in ("moe", "pp"):
+            one = _mpm_trainer(ds, kind, "float32")
+            if kind == "pp":
+                refs["1f1b"] = _mpm_1f1b(one)
+            one.train()
+            refs[kind] = _mpm_params(one)
+            del one
+        torch.cuda.empty_cache()
+        mh.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device="cuda")
+        try:
+            group = mh.world_group()
+            for kind in ("moe", "pp"):
+                rk = _mpm_trainer(ds, kind, "float32", group)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rk.train()
+                torch.cuda.synchronize()
+                got = _mpm_params(rk)
+                equal = all(torch.equal(got[k], v)
+                            for k, v in refs[kind].items())
+                rel = _mpm_max_rel(got, refs[kind])
+                bytes_step = rk.collective_bytes_step
+                want = _mpm_bytes_model(rk, kind, 0, 1)
+                out[kind] = {"params_bit_equal_to_one_process": equal,
+                             "params_max_rel_err": rel,
+                             "epoch_seconds": time.perf_counter() - t0,
+                             "collective_bytes_step": bytes_step,
+                             "bytes_model": want}
+                if not equal:
+                    problems.append(
+                        f"(a) {kind}: one NCCL rank's step is not bit-equal "
+                        f"to one process's (max rel err {rel}): over one "
+                        f"rank every collective is a copy and every "
+                        f"product the one process's")
+                if bytes_step != want:
+                    problems.append(f"(a) {kind} bytes {bytes_step} != "
+                                    f"{want}")
+                del rk
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    out["backend"] = "nccl"
+    out["problems"] = problems
+    state["mpm_refs"] = refs
+    return out
+
+
+def mp_rank(argv: list) -> int:
+    """One rank process of phase 31 (b)/(c): ``rank backend port
+    out_dir``. Over 2 ranks: the fp32 MoE trainer's step (its params
+    saved), the fp32 pipeline's 1F1B step on its fresh weights and its
+    trainer step (both saved), the ranks' shared leaves compared bit for
+    bit; then each trainer in bf16: its epoch (kernel counts reset just
+    before), :data:`MPM_TIMED_STEPS` steps timed, one profiled step, the
+    step's collective bytes. Writes ``out_dir/rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.parallel \
+        import multihost as mh
+
+    rank, backend, port = int(argv[0]), argv[1], argv[2]
+    out = Path(argv[3])
+    # The script's numerics (main): no TF32 anywhere.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    start = time.perf_counter()
+    dev = mh.initialize(f"127.0.0.1:{port}", 2, rank, backend=backend,
+                        device="cuda")
+    ds = _mpm_dataset()
+    # Seconds from the call to the end of each part.
+    res: dict = {"rank": rank, "device": str(dev),
+                 "seconds": {"joined": time.perf_counter() - start}}
+    group = mh.world_group()
+    # The bf16 trainers are drawn on a thread while the fp32 ones train:
+    # their draws are CPU work that releases the interpreter lock, and a
+    # trainer's construction issues no collective.
+    later = ThreadPoolExecutor(1)
+    bf16 = {kind: later.submit(_mpm_trainer, ds, kind, "bfloat16", group)
+            for kind in ("moe", "pp")}
+    try:
+        for kind in ("moe", "pp"):
+            tr = _mpm_trainer(ds, kind, "float32", group)
+            if kind == "pp":
+                loss, grads = _mpm_1f1b(tr)
+                _mpm_save({"loss": loss.cpu(),
+                           "grads": {k: v.cpu() for k, v in grads.items()}},
+                          out / f"f1b{rank}.pt")
+            tr.train()
+            _mpm_save({k: v.cpu() for k, v in _mpm_params(tr).items()},
+                      out / f"{kind}{rank}.pt")
+            res[f"{kind}_fp32_shared_identical"] = mh.ranks_identical(
+                _mpm_shared(tr), group)
+            res["seconds"][f"{kind}_fp32"] = time.perf_counter() - start
+            del tr
+            torch.cuda.empty_cache()
+        for kind in ("moe", "pp"):
+            tr = bf16.pop(kind).result()
+            torch.cuda.synchronize()
+            _reset_counts_all()
+            t0 = time.perf_counter()
+            tr.train()
+            torch.cuda.synchronize()
+            epoch_s = time.perf_counter() - t0
+            counts = _counts_all()
+            xb, yb = tr.dataset.x_train, tr.dataset.y_train
+            gen = torch.Generator(device=dev).manual_seed(3)
+            times = []
+            for _ in range(MPM_TIMED_STEPS):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                tr._train_batch(xb, yb, gen)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t1))
+            prof = _profile_one(lambda: tr._train_batch(xb, yb, gen), 1)
+            res[kind] = {
+                "epoch_seconds": epoch_s, "launches": counts,
+                "step_ms": times, "profiled_step": prof,
+                "collective_bytes_step": tr.collective_bytes_step,
+                "bytes_model": _mpm_bytes_model(tr, kind, rank, 2),
+                "shared_identical": mh.ranks_identical(
+                    _mpm_shared(tr), group),
+                "train_loss": tr.train_loss_per_epoch,
+                "test_accuracies": tr.test_accuracies,
+                "peak_memory_gib":
+                    torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+            if kind == "moe":
+                res[kind]["capacity"] = tr.capacity
+                res[kind]["moe_metrics_last_step"] = {
+                    k: float(v) for k, v in tr._moe_step_metrics[-1].items()}
+            res["seconds"][f"{kind}_bf16"] = time.perf_counter() - start
+            del tr
+            torch.cuda.empty_cache()
+        (out / f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        for f in bf16.values():
+            f.cancel()
+        later.shutdown(wait=True)
+        dist.destroy_process_group()
+    return 0
+
+
+def _mpm_fp32_checks(state: dict, tmp: Path) -> dict:
+    """The ranks' fp32 trainer steps and 1F1B step (files in ``tmp``)
+    against (a)'s one-process ones: relative error and bit equality."""
+    import torch
+
+    from distributed_parameter_server_for_ml_training_tpu_torch.utils \
+        .pytree import join_rank_rows
+
+    refs, out = state["mpm_refs"], {}
+    for kind in ("moe", "pp"):
+        got = join_rank_rows([torch.load(tmp / f"{kind}{r}.pt",
+                                         weights_only=True)
+                              for r in range(2)])
+        got = {k: v.cuda() for k, v in got.items()}
+        out[kind] = {
+            "params_max_rel_err_vs_one_process": _mpm_max_rel(got,
+                                                              refs[kind]),
+            "params_bit_equal_to_one_process": all(
+                torch.equal(got[k], v) for k, v in refs[kind].items())}
+    f1b = [torch.load(tmp / f"f1b{r}.pt", weights_only=True)
+           for r in range(2)]
+    loss_ref, grads_ref = refs["1f1b"]
+    grads = {k: torch.cat([f["grads"][k] for f in f1b]).cuda()
+             for k in grads_ref}
+    out["1f1b"] = {
+        "loss_rel_err": [abs(float(f["loss"]) - float(loss_ref))
+                         / abs(float(loss_ref)) for f in f1b],
+        "grads_max_rel_err_vs_one_process": _mpm_max_rel(grads, grads_ref),
+        "grads_bit_equal_to_one_process": all(
+            torch.equal(grads[k], v) for k, v in grads_ref.items())}
+    return out
+
+
+def _mpm_processes(state: dict, backend: str, form: str,
+                   while_starting=None) -> dict:
+    """Phase 31 (b)/(c): 2 rank processes (:func:`mp_rank`) against the
+    one-process fp32 steps of (a). ``while_starting(state)`` runs in this
+    process while the ranks start (phase 31 runs (a) there)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    torch.cuda.empty_cache()
+    repo = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(repo)}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mpm_"))
+    launcher = ("import sys, chip_smoke; "
+                "sys.exit(chip_smoke.mp_rank(sys.argv[1:]))")
+    port = _free_port()
+    logs = [tempfile.TemporaryFile("w+") for _ in range(4)]
+    procs, late, during, fp32, ran = [], None, None, None, False
+    t0 = time.perf_counter()
+    try:
+        for rank in range(2):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", launcher, str(rank), backend,
+                 str(port), str(tmp)], cwd=repo, env=env,
+                stdout=logs[2 * rank], stderr=logs[2 * rank + 1], text=True))
+        if while_starting is not None:
+            during = while_starting(state)
+        deadline = t0 + MPM_TIMEOUT_S
+        # The fp32 steps' files come first: held to one process's while
+        # the ranks go on with bf16.
+        names = [f"{kind}{r}.pt" for kind in ("moe", "f1b", "pp")
+                 for r in range(2)]
+        while not all((tmp / n).exists() for n in names) \
+                and time.perf_counter() < deadline \
+                and any(p.poll() is None for p in procs):
+            time.sleep(0.2)
+        fp32 = _mpm_fp32_checks(state, tmp) \
+            if all((tmp / n).exists() for n in names) else None
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                late = f"a rank process still alive after {MPM_TIMEOUT_S} s"
+                break
+        wall = time.perf_counter() - t0
+        ran = True
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        texts = []
+        for f in logs:
+            f.seek(0)
+            texts.append(f.read())
+            f.close()
+        if not ran:                 # the block below removes it otherwise
+            shutil.rmtree(tmp, ignore_errors=True)
+    try:
+        rcs = [p.returncode for p in procs]
+        if late is not None or rcs != [0, 0]:
+            raise AssertionError(f"{late or f'rank exit codes {rcs}'}. "
+                                 f"Output tails: "
+                                 f"{[t[-2000:] for t in texts]}")
+        if fp32 is None:
+            raise AssertionError(f"the ranks wrote no fp32 step. Output "
+                                 f"tails: {[t[-2000:] for t in texts]}")
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text())
+                 for r in range(2)]
+        staged = ["staged through the host" in texts[2 * r + 1]
+                  for r in range(2)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    res = {"form": form, "backend": backend, "processes": 2,
+           "devices": [r["device"] for r in ranks],
+           "rank_seconds": [r["seconds"] for r in ranks],
+           "collectives_staged_through_host": staged,
+           "fp32_step": fp32, "fp32_rel_tol": FP32_REL_TOL,
+           "wall_seconds": wall}
+    problems = []
+    for kind in ("moe", "pp"):
+        per = [r[kind] for r in ranks]
+        med = float(np.median([t for p in per for t in p["step_ms"]]))
+        res[f"{kind}_bf16"] = {
+            "step_ms_runs": [p["step_ms"] for p in per],
+            "step_ms_median": med,
+            "img_per_s_summed": 1e3 * MPM_BATCH / med,
+            "device_idle_share": [p["profiled_step"]["device_idle_share"]
+                                  for p in per],
+            "device_busy_ms_per_step": [
+                p["profiled_step"]["device_busy_ms_per_step"] for p in per],
+            "top_device_ms": per[0]["profiled_step"]["top_device_ms"][:6],
+            "collective_bytes_step": [p["collective_bytes_step"]
+                                      for p in per],
+            "bytes_model": [p["bytes_model"] for p in per],
+            "launches": [p["launches"] for p in per],
+            "shared_identical": [p["shared_identical"] for p in per],
+            "epoch_seconds": [p["epoch_seconds"] for p in per],
+            "train_loss": [p["train_loss"] for p in per],
+            "peak_memory_gib": [p["peak_memory_gib"] for p in per]}
+        if kind == "moe":
+            res["moe_bf16"]["capacity"] = per[0]["capacity"]
+            res["moe_bf16"]["moe_metrics_last_step"] = [
+                p["moe_metrics_last_step"] for p in per]
+            if per[0]["moe_metrics_last_step"] \
+                    != per[1]["moe_metrics_last_step"]:
+                problems.append("the ranks' MoE metrics differ")
+        if any(any(p["launches"].values()) for p in per):
+            problems.append(f"{kind}: kernels launched "
+                            f"{[p['launches'] for p in per]}: 196 / 197 "
+                            f"tokens take the dense core and no codec")
+        if not all(p["shared_identical"] for p in per) \
+                or not all(r[f"{kind}_fp32_shared_identical"]
+                           for r in ranks):
+            problems.append(f"{kind}: the ranks' shared leaves differ")
+        if any(p["collective_bytes_step"] != p["bytes_model"] for p in per):
+            problems.append(f"{kind}: the step's collective bytes differ "
+                            f"from the shapes' count")
+        if not all(math.isfinite(v) for p in per for v in p["train_loss"]):
+            problems.append(f"{kind}: losses {[p['train_loss'] for p in per]}")
+        if per[0]["train_loss"] != per[1]["train_loss"]:
+            problems.append(f"{kind}: the ranks' losses differ")
+        rel = fp32[kind]["params_max_rel_err_vs_one_process"]
+        if rel > FP32_REL_TOL:
+            problems.append(f"{kind}: one fp32 step's params {rel} from one "
+                            f"process's (tolerance {FP32_REL_TOL})")
+    f1b_rel = max(fp32["1f1b"]["loss_rel_err"]
+                  + [fp32["1f1b"]["grads_max_rel_err_vs_one_process"]])
+    if f1b_rel > FP32_REL_TOL:
+        problems.append(f"1f1b: {fp32['1f1b']} beyond {FP32_REL_TOL}")
+    if backend == "gloo" and not all(staged):
+        problems.append("a gloo rank on the card did not say its "
+                        "collectives were staged through the host")
+    res["problems"] = problems
+    if during is not None:
+        res["during"] = during
+    return res
+
+
+def phase_model_parallel_multihost(state: dict) -> None:
+    """Phase 31: MoE experts and pipeline stages over several processes:
+    (b)'s two gloo ranks start first and (a) runs here while they do."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = {"phase": "model_parallel_multihost", "card": state.get("card")}
+    b = _mpm_processes(state, "gloo", "b_two_ranks_one_card_gloo",
+                       while_starting=_mpm_one_rank)
+    a = b.pop("during")
+    out["a_one_rank_nccl"], out["b_two_ranks_one_card_gloo"] = a, b
+    problems = a.pop("problems") + b.pop("problems")
+    if torch.cuda.device_count() >= 2:
+        c = _mpm_processes(state, "nccl", "c_two_ranks_two_cards_nccl")
+        problems += c.pop("problems")
+        out["c_two_ranks_two_cards_nccl"] = c
+    else:
+        out["c_two_ranks_two_cards_nccl"] = {
+            "run": False, "reason": "not run for want of a second card",
+            "device_count": torch.cuda.device_count()}
+    state.pop("mpm_refs", None)
+    torch.cuda.empty_cache()
+    out["problems"] = problems
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    if problems:
+        raise RuntimeError(f"model_parallel_multihost: {problems}")
+
+
 def main() -> int:
     import torch
 
@@ -9462,7 +9958,7 @@ def main() -> int:
                   phase_observability, phase_multihost, phase_sp_multihost,
                   phase_moe, phase_pp, phase_tp, phase_sharded,
                   phase_fleet, phase_serve_tier, phase_reshard_supervise,
-                  phase_tenancy):
+                  phase_tenancy, phase_model_parallel_multihost):
         t0 = time.perf_counter()
         try:
             phase(state)

@@ -35,15 +35,18 @@ def _host(tensors: dict) -> dict:
     return {k: v.detach().to("cpu", copy=True) for k, v in tensors.items()}
 
 
-def _copy_into(targets: dict, saved: dict, what: str) -> None:
+def _copy_into(targets: dict, saved: dict, what: str,
+               rows=None) -> None:
     """Copy saved tensors into the caller's tensors, in place: a CUDA
-    graph that replays over them keeps reading the same memory."""
+    graph that replays over them keeps reading the same memory.
+    ``rows(name, saved_tensor)``, where given, picks the part of each
+    saved tensor that the caller holds."""
     if set(targets) != set(saved):
         missing = sorted(set(targets) ^ set(saved))
         raise ValueError(f"checkpoint {what} names differ from the "
                          f"state's: {missing[:5]}")
     for k, t in targets.items():
-        t.copy_(saved[k])
+        t.copy_(saved[k] if rows is None else rows(k, saved[k]))
 
 
 class CheckpointManager:
@@ -107,12 +110,13 @@ class CheckpointManager:
                           weights_only=True)
 
     @torch.no_grad()
-    def restore(self, template_state, step: int | None = None):
+    def restore(self, template_state, step: int | None = None, rows=None):
         """Restore the newest (or given) checkpoint into
         ``template_state``'s tensors, in place; returns the template with
-        its step set."""
+        its step set. ``rows(name, tensor)`` (a rank of a model split over
+        ranks) cuts each saved param and momentum to the rank's part."""
         saved = self._load(step)
-        _copy_into(template_state.params, saved["params"], "params")
+        _copy_into(template_state.params, saved["params"], "params", rows)
         _copy_into(template_state.batch_stats, saved["batch_stats"],
                    "batch_stats")
         opt, sopt = template_state.opt_state, saved["opt_state"]
@@ -120,7 +124,7 @@ class CheckpointManager:
             raise ValueError("checkpoint optimizer state does not match "
                              "the state's optimizer")
         if opt is not None:
-            _copy_into(opt.trace, sopt["trace"], "momentum")
+            _copy_into(opt.trace, sopt["trace"], "momentum", rows)
             opt.count.copy_(sopt["count"])
         template_state.step = int(saved["step"])
         return template_state

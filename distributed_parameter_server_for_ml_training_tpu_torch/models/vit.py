@@ -210,30 +210,50 @@ class SwitchMoEMlp(nn.Module):
     loss, load, importance and drop fraction, as device tensors, read
     with no host sync by ``train/steps.collect_moe_stats``); an eval
     forward records nothing, as flax's ``sow`` outside a mutable
-    collection."""
+    collection.
+
+    Where ``moe_fn`` runs over ranks (``make_moe_ffn`` on a mesh with a
+    group, whose function carries it as ``moe_fn.group``), the module
+    holds rank r's ``E/R`` experts, rows ``[r E/R, (r+1) E/R)`` of
+    ``w1/b1/w2/b2``, under the same names; the router stays whole."""
 
     def __init__(self, moe_fn: Callable, dim: int, n_experts: int,
                  hidden_dim: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.moe_fn = moe_fn
         self.compute_dtype = dtype
-        e, d, dh = n_experts, dim, hidden_dim
+        group = getattr(moe_fn, "group", None)
+        self.rank, self.ranks = (0, 1) if group is None \
+            else (group.rank, group.size)
+        if n_experts % self.ranks:
+            raise ValueError(f"{n_experts} experts do not divide evenly "
+                             f"over {self.ranks} ranks")
+        e, el, d, dh = n_experts, n_experts // self.ranks, dim, hidden_dim
         self.router = nn.Parameter(torch.empty(d, e))
-        self.w1 = nn.Parameter(torch.empty(e, d, dh))
-        self.b1 = nn.Parameter(torch.zeros(e, dh))
-        self.w2 = nn.Parameter(torch.empty(e, dh, d))
-        self.b2 = nn.Parameter(torch.zeros(e, d))
+        self.w1 = nn.Parameter(torch.empty(el, d, dh))
+        self.b1 = nn.Parameter(torch.zeros(el, dh))
+        self.w2 = nn.Parameter(torch.empty(el, dh, d))
+        self.b2 = nn.Parameter(torch.zeros(el, d))
         self.stats: dict | None = None
 
     def reset_parameters(self, generator: torch.Generator | None = None
                          ) -> None:
         """flax's ``normal(d**-0.5)`` router and ``w1``,
-        ``normal(dh**-0.5)`` ``w2``, zero biases."""
+        ``normal(dh**-0.5)`` ``w2``, zero biases; over ranks every expert
+        is drawn, as one process draws them, and the rank keeps its rows."""
         d, dh = self.w1.shape[1:]
+        e = self.router.shape[1]
+        lo = self.rank * (e // self.ranks)
         with torch.no_grad():
             for p, std in ((self.router, d ** -0.5), (self.w1, d ** -0.5),
                            (self.w2, dh ** -0.5)):
-                p.normal_(0.0, std, generator=generator)
+                if p is self.router or self.ranks == 1:
+                    p.normal_(0.0, std, generator=generator)
+                else:
+                    whole = torch.empty((e, *p.shape[1:]), dtype=p.dtype,
+                                        device=p.device)
+                    p.copy_(whole.normal_(0.0, std, generator=generator)
+                            [lo:lo + p.shape[0]])
             self.b1.zero_()
             self.b2.zero_()
 
@@ -561,7 +581,11 @@ class ViTEpilogue(nn.Module):
         init_weights(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.head(self.ln_final(x)[:, 0])
+        # LayerNorm is per token: normalizing the CLS token alone gives
+        # its row of the whole sequence's, so a pipeline over ranks hands
+        # the epilogue that token only (a contiguous copy either way, so
+        # both reduce the same memory layout).
+        x = self.head(self.ln_final(x[:, 0].contiguous()))
         return x.to(torch.promote_types(self.compute_dtype, torch.float32))
 
 

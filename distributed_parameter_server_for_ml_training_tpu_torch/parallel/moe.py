@@ -10,8 +10,7 @@ one program: the tokens ``[n, D]`` are viewed as E shards ``[E, n/E, D]``
 (shard k holds rows ``[k n/E, (k+1) n/E)``), every shard routes at once,
 and each ``all_to_all`` becomes a transpose of the slot axis with the
 expert axis of the dispatch buffer ``[E_shard, E_expert, C, D]``. The two
-transposes are the only place the slots meet; a mesh spread over ranks
-would put ``all_to_all_single`` there.
+transposes are the only place the slots meet.
 
     route (per shard) -> dispatch [E, E, C, D] -> transpose -> every
     expert's FFN on [E, E*C, D] (one batched product) -> transpose back
@@ -25,6 +24,22 @@ over its own E expert slots, so the transposes stay inside the group
 through the one copy of e's weights (``[E, dp*E*C, D]``), so their
 gradients sum over the groups as the reference's data-axis ``psum``
 does. The statistics average over every shard of every group.
+
+Over ranks (a one-axis ``expert`` mesh with a ``group``, one process a
+card, ``train/model_parallel.py:MoETrainer(group=)``): the E slots spread
+over R ranks, ``E % R == 0``. Rank r holds the tokens of its ``E/R``
+slots (global shards ``[r E/R, (r+1) E/R)``, the rank's contiguous rows
+of the batch) and the rows of its ``E/R`` experts of ``w1/b1/w2/b2``;
+the router is replicated. Each transpose becomes the rank-local one plus
+an all_to_all over the ranks (``multihost.all_to_all_grad``): the rank's
+buffer ``[E/R, E, C, D]`` is laid out by the rank of the expert
+(``[R, E/R, E/R, C, D]``), each rank receives the blocks of its experts
+from every rank, and ``[E/R, E*C, D]`` holds every shard's rows for each
+of its experts in global shard order, as one process's ``[E, E*C, D]``
+holds them; the way back is the reverse. The statistics sum the rank's
+shards in order, then over the ranks (``multihost.rank_sum``, whose
+backward is the sum of the incoming gradients: the ``pmean``'s transpose
+in JAX), and divide by the global shard count.
 
 Capacity C bounds the buffers; a token beyond its expert's capacity
 within its own shard is dropped (its output row is 0; in a transformer the
@@ -48,6 +63,7 @@ import torch
 import torch.nn.functional as F
 
 from .mesh import EXPERT_AXIS, Mesh
+from .multihost import RankGroup, all_to_all_grad, rank_sum
 
 _KEYS = ("router", "w1", "b1", "w2", "b2")
 
@@ -94,14 +110,24 @@ def _positions(expert_idx: torch.Tensor, n_experts: int, capacity: int):
     return onehot, pos, pos < capacity
 
 
-def _shard_mean(t: torch.Tensor) -> torch.Tensor:
-    """Mean over the leading shard axis, summed shard by shard in order
-    and divided by a tensor (a CUDA division by a Python scalar multiplies
-    by its reciprocal): the same rounding on the card as on the CPU."""
-    total = t[0]
-    for k in range(1, t.shape[0]):
-        total = total + t[k]
-    return total / total.new_full((), t.shape[0])
+def _shard_means(parts: list, n_total: int,
+                 group: RankGroup | None) -> list:
+    """Means over every shard of per-shard statistics ``[S, ...]``: each
+    summed shard by shard in order, summed over the ranks where there are
+    several (one all-reduce of them all, differentiable), and divided by a
+    tensor (a CUDA division by a Python scalar multiplies by its
+    reciprocal): the same rounding on the card as on the CPU."""
+    sums = []
+    for t in parts:
+        total = t[0]
+        for k in range(1, t.shape[0]):
+            total = total + t[k]
+        sums.append(total)
+    if group is not None:
+        flat = rank_sum(torch.cat([t.reshape(-1) for t in sums]), group)
+        sums = [v.view_as(t) for v, t in
+                zip(flat.split([t.numel() for t in sums]), sums)]
+    return [t / t.new_full((), n_total) for t in sums]
 
 
 def _expert_ffn(x: torch.Tensor, params: dict) -> torch.Tensor:
@@ -114,12 +140,13 @@ def _expert_ffn(x: torch.Tensor, params: dict) -> torch.Tensor:
 
 
 def _moe_body(params: dict, tokens: torch.Tensor, *, n_shards: int,
-              capacity: int, dp: int = 1):
+              capacity: int, dp: int = 1, group: RankGroup | None = None):
     """All ``n_shards`` shards of ``tokens`` ``[n, D]`` at once (the
     reference's per-device body for every device), ``dp`` data groups of
-    E shards each. Returns ``([n, D], stats)`` with the routing
-    statistics averaged over every shard (the reference's ``pmean`` over
-    the whole mesh):
+    E shards each, or, over the ranks of ``group``, this rank's
+    ``n_shards`` of them and its experts (module notes). Returns ``([n,
+    D], stats)`` with the routing statistics averaged over every shard
+    (the reference's ``pmean`` over the whole mesh):
 
     - ``aux_loss``: the Switch load-balance loss ``E * sum_e f_e * P_e``
       (``f_e`` the fraction of tokens routed to e, ``P_e`` the mean router
@@ -129,12 +156,13 @@ def _moe_body(params: dict, tokens: torch.Tensor, *, n_shards: int,
     """
     n, d = tokens.shape
     e = params["router"].shape[1]
+    ranks = 1 if group is None else group.size
     if n % n_shards:
         raise ValueError(f"{n} tokens do not split into {n_shards} expert "
                          f"slots")
-    if e * dp != n_shards:
-        raise ValueError(f"{e} experts x dp {dp} for {n_shards} token "
-                         f"shards: one expert a slot")
+    if e * dp != n_shards * ranks:
+        raise ValueError(f"{e} experts x dp {dp} for {n_shards * ranks} "
+                         f"token shards: one expert a slot")
     params = {k: params[k].to(tokens.dtype) for k in _KEYS}
     x = tokens.view(n_shards, n // n_shards, d)              # [S, n_s, D]
 
@@ -147,10 +175,11 @@ def _moe_body(params: dict, tokens: torch.Tensor, *, n_shards: int,
     # The counts are integers and each shard's fraction one true
     # division, so load and drop_frac are the same numbers on any device.
     n_s = probs.new_full((), n // n_shards)
-    load = _shard_mean(onehot.sum(dim=1).to(n_s.dtype) / n_s)  # [E] f_e
-    importance = _shard_mean(probs.mean(dim=1))              # [E] P_e
+    load, importance, drop_frac = _shard_means(
+        [onehot.sum(dim=1).to(n_s.dtype) / n_s,             # [E] f_e
+         probs.mean(dim=1),                                  # [E] P_e
+         1.0 - keep.sum(dim=1).to(n_s.dtype) / n_s], n_shards * ranks, group)
     aux_loss = e * torch.sum(load.detach() * importance)
-    drop_frac = _shard_mean(1.0 - keep.sum(dim=1).to(n_s.dtype) / n_s)
     stats = {"aux_loss": aux_loss, "load": load, "importance": importance,
              "drop_frac": drop_frac}
 
@@ -163,11 +192,22 @@ def _moe_body(params: dict, tokens: torch.Tensor, *, n_shards: int,
         accumulate=True)
 
     # -- to the experts (all_to_all within each group), compute, back -------
-    recv = dispatch.view(dp, e, e, capacity, d).permute(2, 0, 1, 3, 4) \
-        .reshape(e, n_shards * capacity, d)                 # [E, S*C, D]
-    out = _expert_ffn(recv, params)
-    back = out.view(e, dp, e, capacity, d).permute(1, 2, 0, 3, 4) \
-        .reshape(n_shards, e, capacity, d)                  # [S, E, C, D]
+    if group is None:
+        recv = dispatch.view(dp, e, e, capacity, d).permute(2, 0, 1, 3, 4) \
+            .reshape(e, n_shards * capacity, d)             # [E, S*C, D]
+        out = _expert_ffn(recv, params)
+        back = out.view(e, dp, e, capacity, d).permute(1, 2, 0, 3, 4) \
+            .reshape(n_shards, e, capacity, d)              # [S, E, C, D]
+    else:
+        el, sl = e // ranks, n_shards
+        send = dispatch.view(sl, ranks, el, capacity, d) \
+            .permute(1, 2, 0, 3, 4)                          # [R, El, Sl, ..]
+        recv = all_to_all_grad(send, group).permute(1, 0, 2, 3, 4) \
+            .reshape(el, ranks * sl * capacity, d)          # [El, S*C, D]
+        out = _expert_ffn(recv, params)
+        back = all_to_all_grad(
+            out.view(el, ranks, sl, capacity, d).permute(1, 0, 2, 3, 4),
+            group).permute(2, 0, 1, 3, 4).reshape(sl, e, capacity, d)
 
     # -- combine -------------------------------------------------------------
     gathered = back[shard, expert_idx, safe_pos]             # [S, n_s, D]
@@ -185,20 +225,24 @@ def make_moe_ffn(mesh: Mesh, capacity: int, axis: str = EXPERT_AXIS,
     H]``, ``b1`` ``[E, H]``, ``w2`` ``[E, H, D]``, ``b2`` ``[E, D]``; cast
     to the tokens' dtype. ``data_axis`` (dp x ep): the mesh's data groups
     each route their own ``n / dp`` tokens over the E experts (module
-    notes)."""
-    if mesh.group is not None:
-        raise NotImplementedError(
-            "experts spread over ranks come with ROADMAP §1 item 10, "
-            "fourth part (MoE over ranks)")
+    notes). Over the ranks of ``mesh.group`` (one axis): ``tokens`` are
+    this rank's rows, ``w1/b1/w2/b2`` the rows of its experts (module
+    notes); the function's ``group`` attribute names the group."""
     if capacity < 1:
         raise ValueError(f"capacity must be >= 1, got {capacity}")
+    group = mesh.group
     dp = 1 if data_axis is None else mesh.shape[data_axis]
     n_shards = mesh.shape[axis] * dp
+    if group is not None and n_shards % group.size:
+        raise ValueError(f"{n_shards} experts do not divide evenly over "
+                         f"{group.size} ranks")
+    local = n_shards // (1 if group is None else group.size)
 
     def moe(params: dict, tokens: torch.Tensor):
-        return _moe_body(params, tokens, n_shards=n_shards,
-                         capacity=capacity, dp=dp)
+        return _moe_body(params, tokens, n_shards=local,
+                         capacity=capacity, dp=dp, group=group)
 
+    moe.group = group           # the ranks whose experts it spreads over
     return moe
 
 

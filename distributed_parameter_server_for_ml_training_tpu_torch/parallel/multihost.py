@@ -21,7 +21,17 @@ across slots become collectives between ranks, over a :class:`RankGroup`:
   the block leaving the last slot hops to rank + 1 (:func:`ring_roll`);
   the ViT's pooled mean over the ranks' tokens (:func:`shared_rank_mean`)
   and the sum of the per-token parameters' gradients
-  (``rank_reduce(..., "sum")``).
+  (``rank_reduce(..., "sum")``);
+- expert parallelism's two ``lax.all_to_all`` hops (``parallel/moe.py``):
+  :func:`all_to_all_grad` moves each rank's token buffers to the ranks
+  of their experts and back, and the routing statistics' ``pmean`` is
+  :func:`rank_sum` of each rank's shard sums;
+- a pipeline's hand-over from a rank's last stage to the next rank's
+  first (``parallel/pipeline.py``): :func:`stage_hop`, forward to rank +
+  1 and the gradients back to rank - 1, at the ticks the schedule names;
+  the last stage's output reaches every rank by
+  :func:`shared_broadcast`, and a checkpoint gathers the ranks' rows of
+  the stacked leaves with :func:`rank_gather`.
 
 Every collective adds the bytes it moves to the recorders of
 ``utils/collective_bytes.py`` that are open, from its tensors' shapes.
@@ -264,36 +274,43 @@ def _broadcast_(t: torch.Tensor, root: int, group: RankGroup) -> None:
         t.copy_(buf)
 
 
-class _RankMean(torch.autograd.Function):
-    """Mean over ranks: forward all-reduce SUM / R of the value, backward
-    all-reduce SUM / R of the incoming gradient (each rank's loss takes
-    its part of the shared mean)."""
+class _RankSum(torch.autograd.Function):
+    """Sum (or mean) over ranks: forward all-reduce SUM of the value,
+    backward all-reduce SUM of the incoming gradient (each rank's loss
+    takes its part of the shared sum), both divided by R for a mean."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, group, mean):
+        ctx.group, ctx.mean = group, mean
         ctx.recorders = collective_bytes.open_recorders()
-        return _reduce(x, dist.ReduceOp.SUM, group) / group.size
+        out = _reduce(x, dist.ReduceOp.SUM, group)
+        return out / group.size if mean else out
 
     @staticmethod
     def backward(ctx, grad):
         with collective_bytes.recording(ctx.recorders):
-            return _reduce(grad, dist.ReduceOp.SUM, ctx.group) \
-                / ctx.group.size, None
+            out = _reduce(grad, dist.ReduceOp.SUM, ctx.group)
+        return (out / ctx.group.size if ctx.mean else out), None, None
 
 
 def rank_mean(x: torch.Tensor, group: RankGroup | None = None
               ) -> torch.Tensor:
-    """``x`` averaged over the ranks, differentiably (:class:`_RankMean`).
+    """``x`` averaged over the ranks, differentiably (:class:`_RankSum`).
     Every rank must call it, in the same order."""
-    return _RankMean.apply(x, group or world_group())
+    return _RankSum.apply(x, group or world_group(), True)
+
+
+def rank_sum(x: torch.Tensor, group: RankGroup) -> torch.Tensor:
+    """``x`` summed over the ranks, differentiably: JAX's ``psum`` inside
+    a differentiated ``shard_map`` (:class:`_RankSum`)."""
+    return _RankSum.apply(x, group, False)
 
 
 class _SharedRankMean(torch.autograd.Function):
     """Mean over ranks of each rank's part, where every rank then computes
     the same loss from the mean: forward all-reduce SUM / R; backward
     ``g / R`` with no collective, since every rank holds the same ``g``
-    and ``d mean / d part = 1 / R`` (:class:`_RankMean` would hand each
+    and ``d mean / d part = 1 / R`` (:func:`rank_mean` would hand each
     rank ``g``, right only where each rank's loss takes its own share)."""
 
     @staticmethod
@@ -406,6 +423,188 @@ def ring_roll_grad(tensors: Sequence[torch.Tensor], rows: int,
     card's slots alone): every rank must call it, and run its backward,
     in the same order."""
     return list(_RingRoll.apply(rows, group, *tensors))
+
+
+def all_to_all(t: torch.Tensor, group: RankGroup | None = None
+               ) -> torch.Tensor:
+    """JAX's ``lax.all_to_all(split_axis=0, concat_axis=0)`` over the
+    ranks: ``t``'s leading axis is R equal blocks, block j goes to rank j,
+    and block i of the result is the one rank i sent here (same shape and
+    dtype). Over one rank the identity. NCCL runs
+    ``all_to_all_single``; gloo ``alltoall_base``, through the host on a
+    card. Not differentiable (:func:`all_to_all_grad` is)."""
+    group = group or world_group()
+    if t.shape[0] % group.size:
+        raise ValueError(f"a leading axis of {t.shape[0]} does not split "
+                         f"into {group.size} blocks")
+    collective_bytes.note("all-to-all", _nbytes([t]), group.size)
+    if group.size == 1:
+        return t
+    if group.backend == "nccl":
+        src = t.contiguous()
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src, group=group.pg)
+        return out
+    staged = group.staged(t.device)
+    src = t.detach().to("cpu", copy=True).contiguous() if staged \
+        else t.contiguous()
+    out = torch.empty_like(src)
+    group.pg.alltoall_base(out, src, [], [],
+                           dist.AllToAllOptions()).wait()
+    return out.to(t.device) if staged else out
+
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`all_to_all` whose backward sends each block's gradient back
+    to the rank it came from: the same exchange again."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        ctx.recorders = collective_bytes.open_recorders()
+        return all_to_all(t, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with collective_bytes.recording(ctx.recorders):
+            return all_to_all(grad, ctx.group), None
+
+
+def all_to_all_grad(t: torch.Tensor, group: RankGroup) -> torch.Tensor:
+    """Differentiable :func:`all_to_all`: every rank must call it, and run
+    its backward, in the same order."""
+    return _AllToAll.apply(t, group)
+
+
+def stage_hop(tensors: Sequence[torch.Tensor],
+              group: RankGroup | None = None, to: int = 1, *,
+              send: bool = True, recv: bool = True,
+              tag: int = 0) -> list[torch.Tensor] | None:
+    """The hand-over between neighbouring ranks of a pipeline: ``tensors``
+    go to rank + ``to`` (1 or -1), and what rank - ``to`` sent comes back,
+    shaped like ``tensors``. Not a ring: the rank at the far end (the last
+    one for ``to=1``) sends nothing, the one at the near end receives
+    nothing. ``send`` and ``recv`` say whether this rank sends and
+    receives at this call (a bubble tick does neither), as the schedule
+    that every rank knows says; ``tensors`` then only give the received
+    ones' shapes and dtypes. Returns the received tensors, or None where
+    nothing came. Over one rank the identity.
+
+    NCCL pairs the sends and receives of a call in one
+    ``batch_isend_irecv``, so both ends must make their calls in the
+    same order; gloo tags each tensor with ``tag`` (unique per tick and
+    direction) and its index, and copies through the host on a card."""
+    group = group or world_group()
+    if group.size == 1:
+        return list(tensors)
+    if to not in (1, -1):
+        raise ValueError(f"a stage hop goes to rank + 1 or - 1, not {to}")
+    dst, src = group.rank + to, group.rank - to
+    send = send and 0 <= dst < group.size
+    recv = recv and 0 <= src < group.size
+    if send:
+        collective_bytes.note("collective-permute", _nbytes(tensors),
+                              group.size)
+    if not (send or recv):
+        return None
+    dev = tensors[0].device
+    staged = group.staged(dev)
+    out = [torch.empty(t.shape, dtype=t.dtype,
+                       device="cpu" if staged else dev)
+           for t in tensors] if recv else []
+    outgoing = [t.detach().to("cpu", copy=True).contiguous() if staged
+                else t.contiguous() for t in tensors] if send else []
+    if group.backend == "nccl":
+        ops = [dist.P2POp(dist.isend, t, dst, group.pg) for t in outgoing] \
+            + [dist.P2POp(dist.irecv, t, src, group.pg) for t in out]
+        works = dist.batch_isend_irecv(ops)
+    else:
+        works = [group.pg.send([t], dst, (tag << 8) + i)
+                 for i, t in enumerate(outgoing)] \
+            + [group.pg.recv([t], src, (tag << 8) + i)
+               for i, t in enumerate(out)]
+    for work in works:
+        work.wait()
+    if not recv:
+        return None
+    return [t.to(dev) for t in out] if staged else out
+
+
+class _StageHop(torch.autograd.Function):
+    """:func:`stage_hop` whose backward sends the received tensors'
+    gradients back to the rank that sent them."""
+
+    @staticmethod
+    def forward(ctx, group, to, send, recv, tag, *tensors):
+        ctx.args = group, to, send, recv, tag
+        ctx.recorders = collective_bytes.open_recorders()
+        got = stage_hop(tensors, group, to, send=send, recv=recv, tag=tag)
+        if got is None:         # a placeholder, so the backward runs here
+            return tuple(torch.zeros_like(t) for t in tensors)
+        return tuple(got)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        group, to, send, recv, tag = ctx.args
+        with collective_bytes.recording(ctx.recorders):
+            back = stage_hop(grads, group, -to, send=recv, recv=send,
+                             tag=tag)
+        if back is None:
+            back = [torch.zeros_like(g) for g in grads]
+        return (None,) * 5 + tuple(back)
+
+
+def stage_hop_grad(tensors: Sequence[torch.Tensor], group: RankGroup,
+                   to: int = 1, *, send: bool = True, recv: bool = True,
+                   tag: int = 0) -> list[torch.Tensor]:
+    """Differentiable :func:`stage_hop`, for a model cut at one point
+    between ranks: a rank that receives nothing gets zeros in its place.
+    Both ends run the backward of what the hop returned (the sender with
+    zero gradients), so the receiver's gradients travel back; the
+    pipelines of ``parallel/pipeline.py`` hop inside a schedule of their
+    own instead, which orders every tick's hops explicitly."""
+    return list(_StageHop.apply(group, to, send, recv, tag, *tensors))
+
+
+class _SharedBroadcast(torch.autograd.Function):
+    """Rank ``root``'s value on every rank, where every rank then computes
+    the same loss from it: forward broadcast; backward the root keeps its
+    gradient (every rank's, as the losses are the same) and the other
+    ranks' inputs get zeros, with no collective."""
+
+    @staticmethod
+    def forward(ctx, x, root, group):
+        ctx.own = group.rank == root
+        out = x.detach().clone(memory_format=torch.contiguous_format)
+        _broadcast_(out, root, group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad if ctx.own else torch.zeros_like(grad)), None, None
+
+
+def shared_broadcast(x: torch.Tensor, root: int, group: RankGroup
+                     ) -> torch.Tensor:
+    """Rank ``root``'s ``x`` on every rank, differentiably for a loss that
+    every rank computes alike (:class:`_SharedBroadcast`)."""
+    return _SharedBroadcast.apply(x, root, group)
+
+
+def rank_gather(t: torch.Tensor, group: RankGroup) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along the leading axis in rank
+    order, on every rank (an all-gather; not differentiable)."""
+    collective_bytes.note("all-gather", _nbytes([t]) * group.size,
+                          group.size)
+    if group.size == 1:
+        return t
+    staged = group.staged(t.device)
+    src = t.detach().to("cpu", copy=True).contiguous() if staged \
+        else t.detach().contiguous()
+    outs = [torch.empty_like(src) for _ in range(group.size)]
+    group.pg.allgather([outs], [src]).wait()
+    out = torch.cat(outs)
+    return out.to(t.device) if staged else out
 
 
 def ranks_identical(tensors: Sequence[torch.Tensor],

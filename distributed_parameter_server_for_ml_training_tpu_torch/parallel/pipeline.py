@@ -53,7 +53,9 @@ from typing import Callable
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..utils import collective_bytes
 from .mesh import STAGE_AXIS, Mesh
+from .multihost import RankGroup, shared_broadcast, stage_hop
 
 
 def _tree_map(fn: Callable, tree):
@@ -95,13 +97,19 @@ def stack_stage_params(per_stage_params: list):
 
 def _check_mesh(mesh: Mesh, axis: str, data_axis: str | None
                 ) -> tuple[int, int]:
-    """(stage slots, data slots) of the mesh."""
-    if mesh.group is not None:
-        raise NotImplementedError(
-            "stages spread over ranks come with ROADMAP §1 item 10, fifth "
-            "part (pipelines over ranks)")
-    return mesh.shape[axis], 1 if data_axis is None \
-        else mesh.shape[data_axis]
+    """(stage slots, data slots) of the mesh; over ranks the stage slots
+    must divide evenly over them."""
+    n = mesh.shape[axis]
+    if mesh.group is not None and n % mesh.group.size:
+        raise ValueError(f"{n} stages do not divide evenly over "
+                         f"{mesh.group.size} ranks")
+    return n, 1 if data_axis is None else mesh.shape[data_axis]
+
+
+def _span(mesh: Mesh, n: int) -> tuple[int, int]:
+    """The global indices ``[lo, hi)`` of this rank's stages."""
+    per = n // mesh.num_ranks
+    return mesh.rank * per, (mesh.rank + 1) * per
 
 
 def _microbatches(x: torch.Tensor, m: int) -> torch.Tensor:
@@ -139,6 +147,119 @@ def _gpipe(stages: list, x_mb: torch.Tensor, stage_fn: Callable,
     return outputs
 
 
+class _RankGPipe(torch.autograd.Function):
+    """GPipe over this rank's stages ``[lo, hi)`` of ``n`` (module notes):
+    ``apply(cfg, x, *leaves)``, ``cfg = (tree, stage_fn, remat, n, m, lo,
+    group)`` with ``tree`` the stacked params' structure and ``leaves``
+    its ``[hi - lo, ...]`` leaves."""
+
+    @staticmethod
+    def forward(ctx, cfg, x, *leaves):
+        tree, stage_fn, remat, n, m, lo, group = cfg
+        hi = lo + leaves[0].shape[0]
+        x_mb = _microbatches(x, m)
+        # One tree of leaf views a stage, each view a leaf of its own.
+        own = [[leaf[s].detach().requires_grad_() for leaf in leaves]
+               for s in range(hi - lo)]
+        saved, outputs = {}, [None] * m
+        carry, arrived = {}, None
+        for t in range(n + m - 1):
+            leaving, new = None, {}
+            for s in range(lo, hi):
+                mb = t - s
+                if not 0 <= mb < m:
+                    continue                  # a bubble tick: no compute
+                x_in = x_mb[mb] if s == 0 else \
+                    arrived if s == lo else carry[s]
+                params = _unflatten(tree, own[s - lo])
+                if remat:
+                    y = stage_fn(params, x_in)
+                    saved[s, mb] = x_in
+                else:
+                    with torch.enable_grad():
+                        xx = x_in.detach().requires_grad_()
+                        y = stage_fn(params, xx)
+                    saved[s, mb] = (xx, y)
+                    y = y.detach()
+                if s == n - 1:
+                    outputs[mb] = y
+                elif s == hi - 1:
+                    leaving = y               # the hop to the next rank
+                else:
+                    new[s + 1] = y            # the hop to stage s + 1
+            carry = new
+            send = hi < n and 0 <= t - (hi - 1) < m
+            recv = lo > 0 and 0 <= t + 1 - lo < m
+            if send or recv:
+                got = stage_hop([x_mb[0] if leaving is None else leaving],
+                                group, 1, send=send, recv=recv, tag=2 * t)
+                arrived = got[0] if recv else None
+        ctx.cfg, ctx.own, ctx.saved = cfg, own, saved
+        ctx.x_shape = x.shape
+        # The backward may run on autograd's device thread: it counts its
+        # hops into the recorders open here.
+        ctx.recorders = collective_bytes.open_recorders()
+        return torch.cat(outputs) if hi == n else torch.zeros_like(x)
+
+    @staticmethod
+    def backward(ctx, gy):
+        with collective_bytes.recording(ctx.recorders):
+            return _RankGPipe._backward(ctx, gy)
+
+    @staticmethod
+    def _backward(ctx, gy):
+        tree, stage_fn, remat, n, m, lo, group = ctx.cfg
+        own, saved = ctx.own, ctx.saved
+        hi = lo + len(own)
+        gy_mb = _microbatches(gy.contiguous(), m)
+        grads = [[torch.zeros_like(p) for p in leaves] for leaves in own]
+        gx_mb: list = [None] * m
+        carry, arrived = {}, None
+        want_x = ctx.needs_input_grad[1]
+        for t in reversed(range(n + m - 1)):
+            leaving, new = None, {}
+            for s in reversed(range(lo, hi)):
+                mb = t - s
+                if not 0 <= mb < m:
+                    continue
+                g_out = gy_mb[mb] if s == n - 1 else \
+                    arrived if s == hi - 1 else carry[s]
+                take_x = s > 0 or want_x
+                with torch.enable_grad():
+                    if remat:
+                        xx = saved.pop((s, mb)).detach().requires_grad_(
+                            take_x)
+                        out = stage_fn(_unflatten(tree, own[s - lo]), xx)
+                    else:
+                        xx, out = saved.pop((s, mb))
+                    got = torch.autograd.grad(
+                        out, own[s - lo] + ([xx] if take_x else []), g_out,
+                        allow_unused=True)
+                for acc, g in zip(grads[s - lo], got):
+                    if g is not None:
+                        acc.add_(g)
+                if s == 0:
+                    gx_mb[mb] = got[-1] if want_x else None
+                elif s == lo:
+                    leaving = got[-1]         # back to the previous rank
+                else:
+                    new[s - 1] = got[-1]
+            carry = new
+            send = lo > 0 and 0 <= t - lo < m
+            recv = hi < n and 0 <= t - 1 - (hi - 1) < m
+            if send or recv:
+                template = gy_mb[0] if leaving is None else leaving
+                got = stage_hop([template], group, -1, send=send,
+                                recv=recv, tag=2 * t + 1)
+                arrived = got[0] if recv else None
+        ctx.own = ctx.saved = None
+        gx = None
+        if want_x:
+            gx = torch.cat(gx_mb) if lo == 0 else gy.new_zeros(ctx.x_shape)
+        return (None, gx,
+                *[torch.stack(col) for col in zip(*grads)])
+
+
 def make_pipeline_apply(mesh: Mesh, stage_fn: Callable,
                         num_microbatches: int, axis: str = STAGE_AXIS,
                         data_axis: str | None = None,
@@ -154,12 +275,29 @@ def make_pipeline_apply(mesh: Mesh, stage_fn: Callable,
     ``data_axis`` slots when given (module notes). Differentiable by
     autograd in the params and ``x``. ``shard_io``: None = on when the
     microbatch count divides by the stage count; True with a count that
-    does not raises, as in the reference (module notes)."""
+    does not raises, as in the reference (module notes).
+
+    Over the ranks of ``mesh.group``: ``stacked_params`` holds this rank's
+    stages' rows, and ``apply`` is :class:`_RankGPipe` (module notes);
+    every rank calls it, and runs its backward, in the same order."""
     n, dp = _check_mesh(mesh, axis, data_axis)
     if shard_io and num_microbatches % n:
         raise ValueError(
             f"shard_io needs microbatches ({num_microbatches}) divisible "
             f"by the stage count ({n})")
+    if mesh.group is not None:
+        lo, hi = _span(mesh, n)
+
+        def rank_apply(stacked_params, x: torch.Tensor) -> torch.Tensor:
+            leaves = _leaves(stacked_params)
+            if any(leaf.shape[0] != hi - lo for leaf in leaves):
+                raise ValueError(f"a stacked leaf holds {leaves[0].shape[0]}"
+                                 f" stages, this rank {hi - lo}")
+            cfg = (stacked_params, stage_fn, remat, n, num_microbatches,
+                   lo, mesh.group)
+            return _RankGPipe.apply(cfg, x, *leaves)
+
+        return rank_apply
 
     def apply(stacked_params, x: torch.Tensor) -> torch.Tensor:
         x_mb = _microbatches(x, num_microbatches)
@@ -275,42 +413,52 @@ def build_1f1b_schedule(n_stages: int, n_microbatches: int) -> dict:
 
 
 def _1f1b(stages: list, x_mb: torch.Tensor, y_mb: torch.Tensor, *,
-          stage_fn: Callable, loss_fn: Callable, tables: dict):
+          stage_fn: Callable, loss_fn: Callable, tables: dict,
+          n: int | None = None, lo: int = 0,
+          group: RankGroup | None = None):
     """The fused 1F1B step over one stage's param trees each (leaves that
     require grad): returns (the sum of the microbatches' losses, each
-    stage's summed gradients as a list of leaf lists).
+    stage's summed gradients as a list of leaf lists). Over ranks,
+    ``stages`` are this rank's, the global stages ``lo, lo + 1, ...`` of
+    ``n``, and the loss sum is None but on the last rank.
 
     Per stage, depth-S buffers (slot = mb % S): ``x_buf`` the inputs that
     arrived, kept after the forward unit for the backward's recompute;
     ``g_buf`` the output-gradients awaiting the backward unit (the last
     stage seeds its own slot with dy at its forward tick). A tick's
-    messages land at the next tick, as the tables' arrivals say."""
-    n = len(stages)
+    messages land at the next tick, as the tables' arrivals say; those
+    between ranks hop at the end of the tick (module notes)."""
+    n = len(stages) if n is None else n
+    hi = lo + len(stages)
     last = n - 1
+    ticks = int(tables["ticks"])
     leaves = [_leaves(p) for p in stages]
     x_buf = [[None] * n for _ in range(n)]
     g_buf = [[None] * n for _ in range(n)]
     fwd_msg: list = [None] * n          # what stage s sent last tick
     bwd_msg: list = [None] * n
+    fwd_in_hop = bwd_in_hop = None      # what the neighbour ranks sent
     grads = [[torch.zeros_like(p) for p in lv] for lv in leaves]
     loss_sum = None
-    for t in range(int(tables["ticks"])):
-        for s in range(n):
+    for t in range(ticks):
+        for s in range(lo, hi):
             fin, bin_ = int(tables["fwd_in"][t][s]), int(tables["bwd_in"][t][s])
             if fin >= 0:
-                x_buf[s][fin % n] = fwd_msg[s - 1]
+                x_buf[s][fin % n] = fwd_in_hop if s == lo else fwd_msg[s - 1]
             if bin_ >= 0:
-                g_buf[s][bin_ % n] = bwd_msg[s + 1]
+                g_buf[s][bin_ % n] = bwd_in_hop if s == hi - 1 \
+                    else bwd_msg[s + 1]
         new_fwd: list = [None] * n
         new_bwd: list = [None] * n
-        for s in range(n):
+        for s in range(lo, hi):
             act, mb = int(tables["act"][t][s]), int(tables["mb"][t][s])
             slot = mb % n
+            own = stages[s - lo]
             if act == 1:                        # forward unit
                 x_in = x_mb[mb] if s == 0 else x_buf[s][slot]
                 x_buf[s][slot] = x_in
                 with torch.no_grad():
-                    y = stage_fn(stages[s], x_in)
+                    y = stage_fn(own, x_in)
                 if s == last:
                     with torch.enable_grad():
                         yy = y.detach().requires_grad_()
@@ -324,17 +472,33 @@ def _1f1b(stages: list, x_mb: torch.Tensor, y_mb: torch.Tensor, *,
             elif act == 2:                      # backward unit
                 with torch.enable_grad():
                     xx = x_buf[s][slot].detach().requires_grad_(s > 0)
-                    out = stage_fn(stages[s], xx)
-                    inputs = leaves[s] + ([xx] if s > 0 else [])
+                    out = stage_fn(own, xx)
+                    inputs = leaves[s - lo] + ([xx] if s > 0 else [])
                     got = torch.autograd.grad(out, inputs, g_buf[s][slot],
                                               allow_unused=True)
-                for acc, g in zip(grads[s], got):
+                for acc, g in zip(grads[s - lo], got):
                     if g is not None:
                         acc.add_(g)
                 if s > 0:
                     new_bwd[s] = got[-1]
                 x_buf[s][slot] = g_buf[s][slot] = None
         fwd_msg, bwd_msg = new_fwd, new_bwd
+        if group is not None and t + 1 < ticks:
+            # The messages bound for another rank's stage land next tick.
+            send = new_fwd[hi - 1] is not None
+            recv = lo > 0 and int(tables["fwd_in"][t + 1][lo]) >= 0
+            if send or recv:
+                out = new_fwd[hi - 1] if send else x_mb[0]
+                got = stage_hop([out], group, 1, send=send, recv=recv,
+                                tag=2 * t)
+                fwd_in_hop = got[0] if recv else None
+            send = lo > 0 and new_bwd[lo] is not None
+            recv = hi < n and int(tables["bwd_in"][t + 1][hi - 1]) >= 0
+            if send or recv:
+                out = new_bwd[lo] if send else x_mb[0]
+                got = stage_hop([out], group, -1, send=send, recv=recv,
+                                tag=2 * t + 1)
+                bwd_in_hop = got[0] if recv else None
     return loss_sum, grads
 
 
@@ -377,7 +541,10 @@ def make_pipeline_train_step(mesh: Mesh, stage_fn: Callable,
     ``loss_fn(y_pred_mb, y_mb) -> scalar`` (a mean over the microbatch);
     the step returns the mean over microbatches, so both schedules give
     the same loss and parameter gradients. ``stacked_grads`` has the
-    params' tree and ``[S, ...]`` leaves.
+    params' tree and ``[S, ...]`` leaves. Over the ranks of
+    ``mesh.group`` the params and gradients are this rank's stages' rows,
+    ``x`` and ``y`` the whole batch on every rank, and the loss the last
+    rank's on every rank (module notes).
 
     - ``"gpipe"``: :func:`make_pipeline_apply` and autograd;
     - ``"1f1b"``: the fused schedule (module notes), which always
@@ -386,8 +553,16 @@ def make_pipeline_train_step(mesh: Mesh, stage_fn: Callable,
     ``stage_fn`` must keep shape and dtype; checked once a shape and dtype
     of ``x`` (:func:`_check_homogeneous_stage`)."""
     n, _ = _check_mesh(mesh, axis, None)
+    lo, hi = _span(mesh, n)
     m = num_microbatches
     seen: set = set()
+
+    def shared_loss(loss: torch.Tensor) -> torch.Tensor:
+        """The last rank's loss on every rank (as it is in one process)."""
+        if mesh.group is None:
+            return loss
+        with torch.no_grad():
+            return shared_broadcast(loss, mesh.num_ranks - 1, mesh.group)
 
     def validated(stacked_params, x):
         key = (tuple(x.shape), x.dtype)
@@ -413,7 +588,8 @@ def make_pipeline_train_step(mesh: Mesh, stage_fn: Callable,
                 loss = torch.stack([loss_fn(y_pred_mb[i], y_mb[i])
                                     for i in range(m)]).mean()
                 grads = torch.autograd.grad(loss, leaves)
-            return loss.detach(), _unflatten(stacked_params, list(grads))
+            return shared_loss(loss.detach()), \
+                _unflatten(stacked_params, list(grads))
 
         return gpipe_step
 
@@ -429,11 +605,15 @@ def make_pipeline_train_step(mesh: Mesh, stage_fn: Callable,
     def f1b_step(stacked_params, x, y):
         validated(stacked_params, x)
         stages = [_tree_map(lambda p: p.detach().requires_grad_(), st)
-                  for st in _stages(stacked_params, n)]
-        loss_sum, grads = _1f1b(stages, _microbatches(x, m),
-                                _microbatches(y, m), stage_fn=stage_fn,
-                                loss_fn=loss_fn, tables=tables)
+                  for st in _stages(stacked_params, hi - lo)]
+        y_mb = _microbatches(y, m)
+        loss_sum, grads = _1f1b(stages, _microbatches(x, m), y_mb,
+                                stage_fn=stage_fn, loss_fn=loss_fn,
+                                tables=tables, n=n, lo=lo, group=mesh.group)
         stacked = [torch.stack(col) / m for col in zip(*grads)]
-        return loss_sum / m, _unflatten(stacked_params, stacked)
+        if loss_sum is None:            # not the last rank: its shape only
+            with torch.no_grad():
+                loss_sum = loss_fn(_microbatches(x, m)[0], y_mb[0])
+        return shared_loss(loss_sum / m), _unflatten(stacked_params, stacked)
 
     return f1b_step

@@ -35,6 +35,27 @@ slot of the ``stage`` axis of a ``(data, model, stage)`` mesh on one card
 (``parallel/pipeline.py``), and autograd through the schedule trains
 them. ``--mode pp``; ``dp_degree`` splits each microbatch over ``data``
 and ``pp_tp_degree`` runs the stages' TP form over ``model``.
+
+``MoETrainer(..., group=...)`` and ``PipelineTrainer(..., group=...)``
+spread the experts or the stages over several ranks, one process per
+card, as the reference's ``expert`` and ``stage`` axes span several
+chips (a one-axis mesh over ranks; a ``(data, expert)`` or ``(data,
+model, stage)`` mesh over ranks comes with ROADMAP §1 item 10, sixth
+part). Every rank draws the whole model from the seed, as one process
+does, and keeps its experts' or stages' rows; every rank takes the whole
+global batch from the same seeded shuffle and the same augmentation
+draws. MoE: a rank trains on its contiguous rows of the batch
+(``multihost.host_local_slice``), its expert leaves' gradients arrive
+whole through the all_to_all's backward, and the other leaves' are
+averaged over the ranks in one all-reduce (each rank's loss is its rows'
+mean plus the whole aux loss, so the ranks' gradients sum to R times one
+process's, and every leaf's is divided by R). PP: rank 0's prologue
+feeds the pipeline, the last rank's CLS token reaches every rank
+(``multihost.shared_broadcast``), so every rank computes the same
+logits, loss and epilogue gradients; the prologue's gradients, whole on
+rank 0 only, are broadcast from it. Rank 0 alone writes checkpoints, in
+the one-process layout (the stacked leaves gathered from every rank), and
+every rank restores its own rows of them.
 """
 
 from __future__ import annotations
@@ -52,16 +73,20 @@ from ..models.registry import _DTYPES, get_model
 from ..models.vit import (EncoderStage, ViT, ViTEpilogue, ViTPrologue,
                           embed_first)
 from ..ops.flash_attention import flash_preferred
-from ..parallel.mesh import (DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, SEQ_AXIS,
-                             STAGE_AXIS, make_mesh, mesh_from_shape)
+from ..parallel.mesh import (AXES_OVER_RANKS, DATA_AXIS, EXPERT_AXIS,
+                             MODEL_AXIS, SEQ_AXIS, STAGE_AXIS, make_mesh,
+                             mesh_from_shape)
 from ..parallel.moe import make_moe_ffn
 from ..parallel.pipeline import make_pipeline_apply
-from ..parallel.multihost import (RankGroup, make_global_mesh, rank_reduce,
-                                  replicate_to_mesh, world_group)
+from ..parallel.multihost import (RankGroup, host_local_slice,
+                                  make_global_mesh, rank_gather, rank_reduce,
+                                  replicate_to_mesh, shared_broadcast,
+                                  world_group)
 from ..parallel.ring_attention import (make_ring_attention,
                                        make_ring_flash_attention)
 from ..utils.collective_bytes import record_collectives
 from ..utils.metrics import emit_metrics_json
+from ..utils.pytree import leaf_rank_rows, rank_stacked
 from .optimizers import server_sgd
 from .steps import make_eval_step, make_train_step
 from .train_state import module_train_state
@@ -106,6 +131,11 @@ class _EpochTrainer:
 
     mode = "?"
     is_chief = True
+    #: The ranks of a trainer spread over several processes, else None.
+    group: RankGroup | None = None
+    #: What the last step's collectives moved (``utils/
+    #: collective_bytes.py`` schema), over ranks.
+    collective_bytes_step: dict | None = None
 
     def __init__(self, dataset: Dataset, config: ModelParallelConfig):
         self.config = config
@@ -131,6 +161,36 @@ class _EpochTrainer:
     def _label(self) -> str:
         return self.mode
 
+    def _rank_metrics(self) -> dict:
+        """``ranks`` and the last step's collective bytes, over ranks."""
+        if self.group is None:
+            return {}
+        return {"ranks": self.group.size,
+                "collective_bytes_per_step": self.collective_bytes_step}
+
+    def _saved_state(self):
+        """The state in the one-process layout (every rank calls it): the
+        ranks' rows of the stacked expert and stage leaves gathered."""
+        if self.group is None:
+            return self.state
+
+        def whole(tree):
+            return {k: rank_gather(v, self.group) if rank_stacked(k) else v
+                    for k, v in tree.items()}
+
+        opt = self.state.opt_state
+        if opt is not None:
+            opt = type(opt)(trace=whole(opt.trace), count=opt.count)
+        return self.state.replace(params=whole(self.state.params),
+                                  opt_state=opt)
+
+    def _restore(self, mgr):
+        """The newest checkpoint into the state, each rank its rows."""
+        rows = None if self.group is None else (
+            lambda name, t: leaf_rank_rows(name, t, self.group.rank,
+                                           self.group.size))
+        return mgr.restore(self.state, rows=rows)
+
     def train(self, emit_metrics: bool = False,
               checkpoint_dir: str | None = None,
               resume: bool = False) -> dict:
@@ -144,7 +204,7 @@ class _EpochTrainer:
             from ..checkpoint import CheckpointManager
             mgr = CheckpointManager(checkpoint_dir)
             if resume and mgr.latest_step() is not None:
-                self.state = mgr.restore(self.state)
+                self.state = self._restore(mgr)
                 gen.set_state(mgr.restore_extra()["generator"])
                 steps_per_epoch = max(
                     1, len(self.dataset.x_train) // cfg.batch_size)
@@ -174,8 +234,10 @@ class _EpochTrainer:
                 print(f"[{self._label()}] epoch {epoch + 1}: loss "
                       f"{mean_loss:.4f} test {acc:.2%} "
                       f"({self.epoch_times[-1]:.1f}s)")
-            if mgr is not None and self.is_chief:
-                mgr.save(self.state, extra={"generator": gen.get_state()})
+            if mgr is not None:
+                saved = self._saved_state()
+                if self.is_chief:
+                    mgr.save(saved, extra={"generator": gen.get_state()})
         total = time.time() - t_start
         if mgr is not None:
             mgr.close()
@@ -208,16 +270,47 @@ def _vit_shape(cfg: ModelParallelConfig, mode: str) -> dict:
 
 
 def _evaluate(eval_step, x_test, y_test, batch_size: int,
-              drop_remainder: bool) -> float:
+              drop_remainder: bool, group: RankGroup | None = None
+              ) -> float:
     """Top-1 over the test set from the module's own weights; one host
-    sync at the end."""
+    sync at the end. With ``group`` each rank evaluates its rows of every
+    batch and the counts are summed over the ranks."""
     correct, total = None, 0
     for xb, yb in make_batches(x_test, y_test, batch_size, shuffle=False,
                                drop_remainder=drop_remainder):
+        if group is not None:
+            xb, yb = host_local_slice(xb, group), host_local_slice(yb, group)
         c, t = eval_step({}, {}, xb, yb)
         correct = c if correct is None else correct + c
         total += t
+    if group is not None and correct is not None:
+        correct = rank_reduce(correct, "sum", group)
+        total *= group.size
     return (int(correct) if correct is not None else 0) / max(total, 1)
+
+
+def _joined(group: RankGroup | None) -> RankGroup | None:
+    """``group``, or the world group of a joined job, or None."""
+    if group is None and torch.distributed.is_available() \
+            and torch.distributed.is_initialized():
+        group = world_group()
+    return group
+
+
+def _rank_mesh(group: RankGroup, n: int, cfg, axis: str, what: str):
+    """The one-axis mesh of ``n`` slots over the ranks of ``group``, with
+    the ``multihost: rank r of R ...`` line on stderr."""
+    if n % group.size:
+        raise ValueError(f"--workers {n} (the global slot count) must "
+                         f"divide evenly over {group.size} processes")
+    mesh = make_global_mesh(n, cfg.device, axis_names=(axis,), group=group)
+    staged = " (collectives staged through the host)" \
+        if group.staged(mesh.device) else ""
+    first = mesh.slot_offset
+    print(f"multihost: rank {group.rank} of {group.size}, {what} "
+          f"{first}-{first + mesh.local_slots - 1} of {n} on {mesh.device}, "
+          f"{group.backend}{staged}", file=sys.stderr, flush=True)
+    return mesh
 
 
 class TPTrainer(_EpochTrainer):
@@ -289,12 +382,20 @@ class MoETrainer(_EpochTrainer):
     once, into the run's metrics. Evaluation runs at the training batch
     size, for which the capacity was sized. ``dp_degree`` > 1 is dp x ep
     on a ``(data, expert)`` mesh: ``dp * num_workers`` token shards, each
-    data group routing its own over the experts (``parallel/moe.py``)."""
+    data group routing its own over the experts (``parallel/moe.py``).
+
+    Over several ranks (``group``, or the world group of a joined job)
+    ``num_workers`` experts spread over the ranks, each holding ``E/R``
+    of them and the tokens of its rows of the batch (module notes); the
+    capacity is the one process's. The loss and accuracy of a step are
+    averaged over the ranks, the MoE statistics are global already, and
+    evaluation runs over the ranks at the training batch size."""
 
     mode = "moe"
 
     def __init__(self, dataset: Dataset,
-                 config: ModelParallelConfig | None = None):
+                 config: ModelParallelConfig | None = None,
+                 group: RankGroup | None = None):
         super().__init__(dataset, config or ModelParallelConfig())
         cfg = self.config
         shape = _vit_shape(cfg, "moe")
@@ -310,14 +411,22 @@ class MoETrainer(_EpochTrainer):
                 f"test set ({len(dataset.x_test)}) smaller than the batch "
                 f"size ({cfg.batch_size}) — eval runs at the training batch "
                 f"size (expert capacity is sized for it) and would be empty")
+        self.group = group = _joined(group)
         # The reference keeps a one-axis expert mesh at dp 1.
-        if dp > 1:
+        if group is not None and dp > 1:
+            raise NotImplementedError(
+                f"a (data, expert) mesh of dp {dp} x {n_exp} experts over "
+                f"ranks comes with {AXES_OVER_RANKS}")
+        if group is not None:
+            self.mesh = _rank_mesh(group, n_exp, cfg, EXPERT_AXIS, "experts")
+        elif dp > 1:
             self.mesh = make_mesh(dp, cfg.device,
                                   axis_names=(DATA_AXIS, EXPERT_AXIS),
                                   num_slots=n_shards)
         else:
             self.mesh = make_mesh(n_exp, cfg.device,
                                   axis_names=(EXPERT_AXIS,))
+        self.is_chief = self.mesh.rank == 0
         self.dp_degree = dp
         self.device = self.mesh.device
         h, w = dataset.x_train.shape[1:3]
@@ -338,8 +447,12 @@ class MoETrainer(_EpochTrainer):
                          moe_experts=n_exp).to(self.device)
         self.state = module_train_state(self.model,
                                         server_sgd(cfg.learning_rate))
-        self._step = make_train_step(self.model, augment=cfg.augment,
-                                     moe_aux_weight=cfg.moe_aux_weight)
+        self._step = make_train_step(
+            self.model, augment=cfg.augment,
+            moe_aux_weight=cfg.moe_aux_weight,
+            reduce_grads=None if group is None else _rank_mean_grads(group),
+            batch_rows=None if group is None else (
+                lambda t: host_local_slice(t, group)))
         self._eval_step = make_eval_step(self.model)
         self._moe_step_metrics: list[dict] = []
 
@@ -352,7 +465,8 @@ class MoETrainer(_EpochTrainer):
                "expert_capacity": self.capacity,
                "moe_dp_degree": self.dp_degree,
                "moe_aux_weight": cfg.moe_aux_weight,
-               "moe_capacity_factor": cfg.moe_capacity_factor}
+               "moe_capacity_factor": cfg.moe_capacity_factor,
+               **self._rank_metrics()}
         hist = [{k: float(v) for k, v in m.items()}
                 for m in self._moe_step_metrics if m]
         if hist:
@@ -369,7 +483,14 @@ class MoETrainer(_EpochTrainer):
         return out
 
     def _train_batch(self, xb, yb, generator):
-        state, m = self._step(self.state, xb, yb, generator)
+        with record_collectives() as rec:
+            state, m = self._step(self.state, xb, yb, generator)
+            if self.group is not None:
+                mean = rank_reduce(torch.stack([m["loss"], m["accuracy"]]),
+                                   "mean", self.group)
+                m["loss"], m["accuracy"] = mean[0], mean[1]
+        if self.group is not None:
+            self.collective_bytes_step = rec.summary()
         self._moe_step_metrics.append(
             {k: m[k] for k in ("moe_aux_loss", "moe_load_imbalance",
                                "moe_drop_frac") if k in m})
@@ -378,7 +499,7 @@ class MoETrainer(_EpochTrainer):
     def evaluate(self) -> float:
         return _evaluate(self._eval_step, self.dataset.x_test,
                          self.dataset.y_test, self.config.batch_size,
-                         drop_remainder=True)
+                         drop_remainder=True, group=self.group)
 
 
 class PipelinedViT(nn.Module):
@@ -390,12 +511,17 @@ class PipelinedViT(nn.Module):
     ``make_pipeline_apply``. Parameter names are the flax tree's
     (``prologue/...``, ``stages/block_i/...``, ``epilogue/...``), so
     ``utils/pytree`` maps the JAX trainer's parameters both ways.
-    ``data_axis`` splits each microbatch over the mesh's data slots."""
+    ``data_axis`` splits each microbatch over the mesh's data slots.
+
+    Over the ranks of ``mesh.group``, ``stages`` are this rank's, and the
+    last rank's CLS token reaches every rank before the epilogue (module
+    notes)."""
 
     def __init__(self, prologue: ViTPrologue, stages: list[EncoderStage],
                  epilogue: ViTEpilogue, mesh, num_microbatches: int,
                  data_axis: str | None = None):
         super().__init__()
+        self.group = mesh.group
         self.prologue = prologue
         self.stages = stages[0]
         for name, _ in list(self.stages.named_parameters()):
@@ -417,7 +543,10 @@ class PipelinedViT(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         stacked = dict(self.stages.named_parameters())
-        return self.epilogue(self._pipe(stacked, self.prologue(x)))
+        y = self._pipe(stacked, self.prologue(x))
+        if self.group is not None:
+            y = shared_broadcast(y[:, :1], self.group.size - 1, self.group)
+        return self.epilogue(y)
 
 
 class PipelineTrainer(_EpochTrainer):
@@ -428,12 +557,19 @@ class PipelineTrainer(_EpochTrainer):
     stage call recomputed in the backward; plain SGD
     (:class:`PipelinedViT`). ``dp_degree`` splits each microbatch over the
     ``data`` slots, ``pp_tp_degree`` runs the stages' TP form over the
-    ``model`` slots."""
+    ``model`` slots.
+
+    Over several ranks (``group``, or the world group of a joined job)
+    the ``num_workers`` stages spread over the ranks, ``S/R`` consecutive
+    stages each, at dp and tp 1 (module notes). Every rank ends a step
+    with the same prologue and epilogue, loss and metrics, and every rank
+    runs evaluation, whose pipeline spans the ranks."""
 
     mode = "pp"
 
     def __init__(self, dataset: Dataset,
-                 config: ModelParallelConfig | None = None):
+                 config: ModelParallelConfig | None = None,
+                 group: RankGroup | None = None):
         super().__init__(dataset, config or ModelParallelConfig())
         cfg = self.config
         shape = _vit_shape(cfg, "pp")
@@ -453,9 +589,19 @@ class PipelineTrainer(_EpochTrainer):
                 f"batch {cfg.batch_size} must split into "
                 f"{cfg.pp_microbatches} microbatches of a size divisible "
                 f"by dp_degree {dp}")
-        self.mesh = mesh_from_shape(
-            {DATA_AXIS: dp, MODEL_AXIS: tp, STAGE_AXIS: n_stages},
-            cfg.device)
+        self.group = group = _joined(group)
+        if group is not None and (dp > 1 or tp > 1):
+            raise NotImplementedError(
+                f"a (data, model, stage) mesh of dp {dp} x tp {tp} x "
+                f"{n_stages} stages over ranks comes with {AXES_OVER_RANKS}")
+        if group is not None:
+            self.mesh = _rank_mesh(group, n_stages, cfg, STAGE_AXIS,
+                                   "stages")
+        else:
+            self.mesh = mesh_from_shape(
+                {DATA_AXIS: dp, MODEL_AXIS: tp, STAGE_AXIS: n_stages},
+                cfg.device)
+        self.is_chief = self.mesh.rank == 0
         self.device = self.mesh.device
         h = dataset.x_train.shape[1]
         dtype = _DTYPES[cfg.dtype]
@@ -463,19 +609,26 @@ class PipelineTrainer(_EpochTrainer):
         prologue = ViTPrologue(patch_size=shape["patch_size"],
                                hidden_dim=shape["hidden_dim"], dtype=dtype,
                                image_size=h, generator=gen)
+        # Every stage is drawn, as one process draws them; a rank keeps
+        # its own.
         stages = [EncoderStage(shape["depth"] // n_stages,
                                shape["hidden_dim"], shape["num_heads"],
                                dtype=dtype, generator=gen, tp_degree=tp)
                   for _ in range(n_stages)]
+        per = n_stages // self.mesh.num_ranks
+        stages = stages[self.mesh.rank * per:(self.mesh.rank + 1) * per]
         epilogue = ViTEpilogue(hidden_dim=shape["hidden_dim"],
                                num_classes=cfg.num_classes, dtype=dtype,
                                generator=gen)
-        self.model = PipelinedViT(prologue, stages, epilogue, self.mesh,
-                                  cfg.pp_microbatches,
-                                  data_axis=DATA_AXIS).to(self.device)
+        self.model = PipelinedViT(
+            prologue, stages, epilogue, self.mesh, cfg.pp_microbatches,
+            data_axis=None if group is not None else DATA_AXIS
+        ).to(self.device)
         self.state = module_train_state(self.model,
                                         server_sgd(cfg.learning_rate))
-        self._step = make_train_step(self.model, augment=cfg.augment)
+        self._step = make_train_step(
+            self.model, augment=cfg.augment,
+            reduce_grads=None if group is None else _rank0_prologue(group))
         self._eval_step = make_eval_step(self.model)
 
     def _label(self) -> str:
@@ -488,10 +641,15 @@ class PipelineTrainer(_EpochTrainer):
     def _extra_metrics(self) -> dict:
         return {"pp_microbatches": self.config.pp_microbatches,
                 "dp_degree": self.config.dp_degree,
-                "pp_tp_degree": self.config.pp_tp_degree}
+                "pp_tp_degree": self.config.pp_tp_degree,
+                **self._rank_metrics()}
 
     def _train_batch(self, xb, yb, generator):
-        return self._step(self.state, xb, yb, generator)
+        with record_collectives() as rec:
+            out = self._step(self.state, xb, yb, generator)
+        if self.group is not None:
+            self.collective_bytes_step = rec.summary()
+        return out
 
     def evaluate(self) -> float:
         """The reference's eval batch: a multiple of the microbatch count
@@ -543,23 +701,10 @@ class SPTrainer(_EpochTrainer):
         if self.tokens % n_shards:
             raise ValueError(f"{self.tokens} tokens not divisible by "
                              f"{n_shards} sequence shards")
-        if group is None and torch.distributed.is_available() \
-                and torch.distributed.is_initialized():
-            group = world_group()
+        self.group = group = _joined(group)
         if group is not None:
-            if n_shards % group.size:
-                raise ValueError(
-                    f"--workers {n_shards} (the global slot count) must "
-                    f"divide evenly over {group.size} processes")
-            self.mesh = make_global_mesh(n_shards, cfg.device,
-                                         axis_names=(SEQ_AXIS,), group=group)
-            staged = " (collectives staged through the host)" \
-                if group.staged(self.mesh.device) else ""
-            first = self.mesh.slot_offset
-            print(f"multihost: rank {group.rank} of {group.size}, seq "
-                  f"slots {first}-{first + self.mesh.local_slots - 1} of "
-                  f"{n_shards} on {self.mesh.device}, {group.backend}"
-                  f"{staged}", file=sys.stderr, flush=True)
+            self.mesh = _rank_mesh(group, n_shards, cfg, SEQ_AXIS,
+                                   "seq slots")
         else:
             self.mesh = make_mesh(n_shards, cfg.device,
                                   axis_names=(SEQ_AXIS,))
@@ -585,22 +730,14 @@ class SPTrainer(_EpochTrainer):
             reduce_grads=None if group is None else _rank_sum_token_grads(
                 group))
         self._eval_step = make_eval_step(self.model)
-        #: What the last step's collectives moved (``utils/
-        #: collective_bytes.py`` schema).
-        self.collective_bytes_step: dict | None = None
 
     def _label(self) -> str:
         return (f"sp {self.config.model} {self.config.num_workers} "
                 f"seq shards (T={self.tokens})")
 
     def _extra_metrics(self) -> dict:
-        extra = {"seq_shards": self.config.num_workers,
-                 "tokens": self.tokens}
-        if self.mesh.group is not None:
-            extra.update({"ranks": self.mesh.num_ranks,
-                          "collective_bytes_per_step":
-                              self.collective_bytes_step})
-        return extra
+        return {"seq_shards": self.config.num_workers,
+                "tokens": self.tokens, **self._rank_metrics()}
 
     def _train_batch(self, xb, yb, generator):
         with record_collectives() as rec:
@@ -615,6 +752,17 @@ class SPTrainer(_EpochTrainer):
                          self.dataset.y_test, 1000, drop_remainder=False)
 
 
+def _through_one(grads: list, idx: list, collective) -> list:
+    """``grads`` with those at ``idx`` passed through one collective of
+    their flat concatenation."""
+    flat = collective(torch.cat([grads[i].reshape(-1) for i in idx]))
+    out, off = list(grads), 0
+    for i in idx:
+        out[i] = flat[off:off + grads[i].numel()].view_as(grads[i])
+        off += grads[i].numel()
+    return out
+
+
 def _rank_sum_token_grads(group: RankGroup):
     """``reduce_grads`` of SP over ranks: the gradients of the parameters
     used per token summed over the ranks in one all-reduce of their flat
@@ -624,12 +772,42 @@ def _rank_sum_token_grads(group: RankGroup):
     def reduce(names, grads):
         idx = [i for i, name in enumerate(names)
                if not name.startswith("head.")]
-        flat = rank_reduce(torch.cat([grads[i].reshape(-1) for i in idx]),
-                           "sum", group)
-        out, off = list(grads), 0
-        for i in idx:
-            out[i] = flat[off:off + grads[i].numel()].view_as(grads[i])
-            off += grads[i].numel()
-        return out
+        return _through_one(grads, idx,
+                            lambda flat: rank_reduce(flat, "sum", group))
+
+    return reduce
+
+
+def _rank_mean_grads(group: RankGroup):
+    """``reduce_grads`` of MoE over ranks: every rank's loss is its rows'
+    mean plus the whole aux loss, so the ranks' gradients sum to R times
+    one process's. The expert leaves' come whole through the
+    all_to_all's backward and are divided by R; the others are summed
+    over the ranks in one all-reduce of their flat concatenation and
+    divided by R."""
+
+    def reduce(names, grads):
+        idx = [i for i, name in enumerate(names) if not rank_stacked(name)]
+        out = _through_one(grads, idx, lambda flat: rank_reduce(
+            flat, "sum", group) / group.size)
+        experts = set(range(len(grads))) - set(idx)
+        return [g / group.size if i in experts else g
+                for i, g in enumerate(out)]
+
+    return reduce
+
+
+def _rank0_prologue(group: RankGroup):
+    """``reduce_grads`` of a pipeline over ranks: the prologue's gradients,
+    whole on rank 0 (the others' prologue output feeds no stage), are
+    broadcast from it in one flat tensor; the stages' are the rank's own
+    and the epilogue's the same on every rank."""
+
+    def reduce(names, grads):
+        idx = [i for i, name in enumerate(names)
+               if name.startswith("prologue.")]
+        with torch.no_grad():
+            return _through_one(grads, idx, lambda flat: shared_broadcast(
+                flat, 0, group))
 
     return reduce

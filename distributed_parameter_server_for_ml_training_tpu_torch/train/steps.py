@@ -193,7 +193,8 @@ def _moe_metrics(layers: list[dict], ce: torch.Tensor,
 
 def make_train_step(model: torch.nn.Module, augment: bool = True,
                     reduce_grads: Callable | None = None,
-                    moe_aux_weight: float | None = None) -> Callable:
+                    moe_aux_weight: float | None = None,
+                    batch_rows: Callable | None = None) -> Callable:
     """Build ``train_step(state, images_u8, labels, generator=None) ->
     (state, metrics)`` for a state whose tensors are ``model``'s own
     (``train_state.module_train_state``): counterpart of the JAX
@@ -209,8 +210,12 @@ def make_train_step(model: torch.nn.Module, augment: bool = True,
     ``accuracy`` tensors, ``learning_rate`` where the optimizer schedules
     it, and with augmentation ``augment_draws`` ``[B, 3]`` (crop row,
     crop column, flip) — no host sync. ``reduce_grads(names, grads) ->
-    grads``, given only by sequence parallelism over several ranks, maps
-    the gradients (torch parameter names, in order) before the apply.
+    grads``, given by the model-parallel trainers over several ranks,
+    maps the gradients (torch parameter names, in order) before the
+    apply. ``batch_rows(t) -> t`` (MoE over ranks) keeps this rank's rows
+    of the augmented, standardized images and of the labels: every rank
+    augments the whole global batch with the same draws, as one process
+    would, and trains on its own rows.
 
     ``moe_aux_weight is not None`` (a model with ``SwitchMoEMlp`` layers):
     the loss is ``ce + moe_aux_weight * mean(aux)`` over the layers'
@@ -233,6 +238,8 @@ def make_train_step(model: torch.nn.Module, augment: bool = True,
             metrics["augment_draws"] = torch.cat(
                 [offsets, flip[:, None].long()], 1)
         x = std(to_float(x))
+        if batch_rows is not None:
+            x, y = batch_rows(x), batch_rows(y)
         model.train()
         logits = model(x)
         loss = cross_entropy_loss(logits, y)

@@ -14,7 +14,11 @@ Traffic model (ring algorithms, the JAX module's):
 - collective-permute: the bytes it sends (one neighbour send a rank);
 - all-reduce:         2 x (R-1)/R x its bytes (reduce-scatter + all-gather);
 - broadcast:          (R-1)/R x its bytes (R-1 ranks each receive it once;
-                      XLA has no such op, the port's own key).
+                      XLA has no such op, the port's own key);
+- all-gather:         (R-1)/R x result bytes (each rank receives the
+                      others' blocks);
+- all-to-all:         (R-1)/R x its bytes (each rank keeps its own block
+                      and sends the other R-1).
 
 Over one rank every collective counts 0 bytes. A recorder counts the
 collectives its own thread issues, and the backward passes of the port's
@@ -79,6 +83,10 @@ def recording(recorders: tuple) -> Iterator[None]:
         _RECORDERS.reset(token)
 
 
+def _frac(n_ranks: int) -> float:
+    return (n_ranks - 1) / n_ranks
+
+
 def note(op: str, nbytes: int, n_ranks: int) -> None:
     """One collective over ``n_ranks`` ranks on tensors of ``nbytes``:
     add the bytes it moves (the module's traffic model) to every open
@@ -86,10 +94,10 @@ def note(op: str, nbytes: int, n_ranks: int) -> None:
     recorders = _RECORDERS.get()
     if not recorders:
         return
-    frac = (n_ranks - 1) / n_ranks
+    frac = _frac(n_ranks)
     if op == "all-reduce":
         moved = 2 * frac * nbytes
-    elif op == "broadcast":
+    elif op in ("broadcast", "all-gather", "all-to-all"):
         moved = frac * nbytes
     elif op == "collective-permute":
         moved = nbytes if n_ranks > 1 else 0
@@ -97,6 +105,48 @@ def note(op: str, nbytes: int, n_ranks: int) -> None:
         raise ValueError(f"no traffic model for {op!r}")
     for rec in recorders:
         rec.add(op, int(moved))
+
+
+def moe_step_bytes(n_ranks: int, n_experts: int, capacity: int,
+                   width: int, layers: int, replicated_values: int,
+                   value_bytes: int = 4) -> dict:
+    """Bytes a rank moves in one ``MoETrainer(group=)`` step, from the
+    shapes (the schema of :meth:`CollectiveBytes.summary`): per MoE layer
+    the two all_to_alls of the dispatch buffer ``[E/R, E, C, D]`` forward
+    and their two backward, the statistics' all-reduce of ``2E + 1``
+    values forward and backward; then one all-reduce of the
+    ``replicated_values`` gradients (fp32) and one of the step's loss and
+    accuracy. ``value_bytes`` is the MoE's compute width (fp32 but for a
+    float64 model)."""
+    frac = _frac(n_ranks)
+    buf = n_experts // n_ranks * n_experts * capacity * width * value_bytes
+    a2a = 4 * layers * int(frac * buf)
+    reduce = 2 * layers * int(2 * frac * (2 * n_experts + 1) * value_bytes) \
+        + int(2 * frac * 4 * replicated_values) + int(2 * frac * 2 * 4)
+    return {"total": a2a + reduce,
+            "by_op": {"all-to-all": a2a, "all-reduce": reduce},
+            "count": {"all-to-all": 4 * layers, "all-reduce": 2 * layers + 2}}
+
+
+def pipeline_step_bytes(n_ranks: int, rank: int, microbatches: int,
+                        activation_bytes: int, shared_bytes: int,
+                        prologue_values: int) -> dict:
+    """Bytes rank ``rank`` moves in one ``PipelineTrainer(group=)`` step,
+    from the shapes: a microbatch's activation (``activation_bytes``) to
+    the next rank for each microbatch but on the last rank, and its
+    gradient back to the previous one but on rank 0; the broadcasts of
+    the last rank's CLS tokens (``shared_bytes``) and of rank 0's
+    prologue gradients (``prologue_values``, fp32)."""
+    frac = _frac(n_ranks)
+    hops = microbatches * ((rank < n_ranks - 1) + (rank > 0)) \
+        if n_ranks > 1 else 0
+    bcast = int(frac * shared_bytes) + int(frac * 4 * prologue_values)
+    out = {"total": hops * activation_bytes + bcast,
+           "by_op": {"broadcast": bcast}, "count": {"broadcast": 2}}
+    if hops:
+        out["by_op"]["collective-permute"] = hops * activation_bytes
+        out["count"]["collective-permute"] = hops
+    return out
 
 
 def sync_grad_mean_bytes(n_ranks: int, size: int,

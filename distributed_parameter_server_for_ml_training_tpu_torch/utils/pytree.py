@@ -23,6 +23,13 @@ layouts; this module converts at the boundary:
   under their leading S: a stacked Dense kernel ``[S, in, out]`` <->
   ``[S, out, in]``, a stacked LayerNorm scale ``[S, D]`` as it is.
 
+Over ranks (``MoETrainer(group=)``, ``PipelineTrainer(group=)``) a rank
+holds its rows of the leaves stacked over experts (``.../moe/w1``,
+``b1``, ``w2``, ``b2``) and over stages (``stages/...``), the rest
+whole: :func:`rank_rows` cuts a one-process tree into a rank's, and
+:func:`join_rank_rows` puts the ranks' trees back together, the
+one-process layout that checkpoints keep.
+
 The port's modules are named after the flax ones (``stem_conv``,
 ``stem_conv_s2d``, ``BasicBlock_0.Conv_0``, ``Bottleneck_0.Conv_3``,
 ``block_0.attn.qkv``, ``prologue.patch_embed``, ``stages.block_0.moe``,
@@ -184,3 +191,44 @@ def params_from_jax(params: Mapping[str, np.ndarray],
             out[torch_name(name, collection)] = \
                 to_torch_layout(t, name).contiguous()
     return out
+
+
+# -- the rows of a rank --------------------------------------------------------
+
+def rank_stacked(name: str) -> bool:
+    """Whether a leaf (flax or torch name) is stacked over the experts
+    (``.../moe/{w1,b1,w2,b2}``; the router is not) or the pipeline stages
+    (``stages/...``), whose rows split over the ranks."""
+    path = name.replace(".", "/").split("/")
+    return path[0] == "stages" or (len(path) > 1 and path[-2] == "moe"
+                                   and path[-1] in ("w1", "b1", "w2", "b2"))
+
+
+def leaf_rank_rows(name: str, leaf, rank: int, size: int):
+    """Rank ``rank``'s rows of one leaf of ``size`` ranks: its contiguous
+    ``1/size`` of a stacked leaf's leading axis, any other leaf whole."""
+    if not rank_stacked(name):
+        return leaf
+    n = leaf.shape[0]
+    if n % size:
+        raise ValueError(f"{name}: {n} rows do not divide evenly over "
+                         f"{size} ranks")
+    return leaf[rank * (n // size):(rank + 1) * (n // size)]
+
+
+def rank_rows(flat: Mapping[str, Any], rank: int, size: int) -> dict:
+    """A one-process flat tree (NumPy or torch leaves) cut to rank
+    ``rank``'s rows of its stacked leaves (:func:`leaf_rank_rows`)."""
+    return {k: leaf_rank_rows(k, v, rank, size) for k, v in flat.items()}
+
+
+def join_rank_rows(per_rank: list) -> dict:
+    """Inverse of :func:`rank_rows`: the ranks' trees, in rank order, back
+    to one, stacked leaves concatenated and the rest rank 0's."""
+    def join(leaves):
+        if isinstance(leaves[0], torch.Tensor):
+            return torch.cat(leaves)
+        return np.concatenate(leaves)
+
+    return {k: join([t[k] for t in per_rank]) if rank_stacked(k) else v
+            for k, v in per_rank[0].items()}

@@ -84,9 +84,16 @@ def test_traffic_model_and_nested_recorders():
     with cb.recording(saved):
         cb.note("all-reduce", 8, 2)
     assert outer.by_op["all-reduce"] == 1508 and cb.open_recorders() == ()
+    with cb.record_collectives() as moe_pp:
+        cb.note("all-to-all", 1000, 4)             # keeps its own block
+        cb.note("all-gather", 1000, 4)             # of the result's bytes
+        cb.note("all-to-all", 1000, 1)
+    assert moe_pp.summary() == {
+        "total": 1500, "by_op": {"all-to-all": 750, "all-gather": 750},
+        "count": {"all-to-all": 2, "all-gather": 1}}
     with pytest.raises(ValueError, match="no traffic model"):
         with cb.record_collectives():
-            cb.note("all-to-all", 8, 2)
+            cb.note("reduce-scatter", 8, 2)
 
 
 def test_collectives_count_what_they_move():

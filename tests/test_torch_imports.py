@@ -100,6 +100,21 @@ def test_sp_multihost_modules_load_no_jax(module):
     assert out.stdout.strip() == "[]", out.stdout
 
 
+@pytest.mark.parametrize("module", ["parallel.moe", "parallel.pipeline",
+                                    "train.model_parallel"])
+def test_model_parallel_over_ranks_modules_load_no_jax(module):
+    """The MoE and pipeline modules and the trainers that spread experts
+    and stages over ranks, imported in a fresh interpreter, load no
+    module of jax and none of the JAX package."""
+    name = f"distributed_parameter_server_for_ml_training_tpu_torch.{module}"
+    probe = (f"import sys, {name}; print(sorted(m for m in sys.modules "
+             f"if m.split('.')[0] in {FORBIDDEN!r}))")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 @pytest.mark.parametrize("module", ["ps.sharding", "comms.sharded",
                                     "native.store", "comms.faults",
                                     "comms.replica", "comms.loadgen",
